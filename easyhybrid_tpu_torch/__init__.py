@@ -1,12 +1,15 @@
 """easyhybrid_tpu_torch: the PyTorch / CUDA port of easyhybrid_tpu.
 
-This slice is the serving path: build a hybrid model, carry its parameters
-in (or initialise them from a ``torch.Generator``), fit its static input
-norm, and run ``make_inference_fn`` / ``predict``. On a CUDA device a model
-inside the envelope runs the hand-written fused forward kernel
-(``csrc/fused_forward.cu``), compiled with ``nvcc`` at first use.
+The port covers serving and training: build a hybrid model, carry its
+parameters in (or initialise them from a ``torch.Generator``), ``train`` it,
+and run ``make_inference_fn`` / ``predict``. On a CUDA device a model inside
+the envelopes runs two hand-written kernels, compiled with ``nvcc`` at first
+use: the fused forward (``csrc/fused_forward.cu``) for serving and the fused
+training epoch (``csrc/fused_epoch.cu``), which ``train`` enables behind a
+runtime exactness gate.
 
-Importing the package imports torch and numpy only.
+Importing the package imports torch and numpy only; pandas is imported
+only where a DataFrame is read or built.
 """
 
 from .version import __version__
@@ -25,15 +28,29 @@ from .data.loaders import build_epoch_tensors, pad_axis0
 from .data.synthetic import gen_rbq10_data, rbq10_columns
 from .models.nn import ACTIVATIONS, BatchNorm, Dense, LSTMNet, MLP, construct_nn
 from .models.hybrid import SingleNNHybridModel, construct_hybrid_model
-from .training.train import fit_input_norm
+from .data.split import split_data
+from .config.train_config import DataConfig, TrainConfig, TrainResults
+from .losses.metrics import (
+    METRICS,
+    best_direction,
+    huber,
+    is_better,
+    loss_fn,
+    pinball,
+    register_metric,
+)
+from .losses.specs import ElementwiseLoss, LoggingLoss, PerTarget
+from .utils.weights import l2_extra_loss
+from .training.train import fit_input_norm, train
 from .training.inference import make_inference_fn, predict
-from .interop import load_jax_params
+from .interop import export_jax_params, load_jax_params
 from .ops.fused_forward import (
     kernel_form,
     make_fused_forward,
     rbq10,
     supports_fused_forward,
 )
+from .ops.fused_epoch import make_fused_epoch, supports_fused_epoch
 
 __all__ = [
     "__version__",
@@ -59,12 +76,31 @@ __all__ = [
     "construct_nn",
     "SingleNNHybridModel",
     "construct_hybrid_model",
+    "split_data",
+    "DataConfig",
+    "TrainConfig",
+    "TrainResults",
+    "METRICS",
+    "best_direction",
+    "huber",
+    "is_better",
+    "loss_fn",
+    "pinball",
+    "register_metric",
+    "ElementwiseLoss",
+    "LoggingLoss",
+    "PerTarget",
+    "l2_extra_loss",
     "fit_input_norm",
+    "train",
     "make_inference_fn",
     "predict",
+    "export_jax_params",
     "load_jax_params",
     "kernel_form",
     "make_fused_forward",
     "rbq10",
     "supports_fused_forward",
+    "make_fused_epoch",
+    "supports_fused_epoch",
 ]

@@ -1,12 +1,12 @@
-"""Carry parameters from the JAX package into the port.
+"""Carry parameters between the JAX package and the port.
 
 ``load_jax_params(module, params, state)`` takes the JAX package's
 ``params`` / ``state`` pytrees as nested dicts (and lists) of numpy arrays
 and writes them into a port module: a :class:`SingleNNHybridModel` or an
 :class:`MLP`. Dense weights are transposed from JAX's ``(in, out)`` to
 torch's ``(out, in)``. Any missing, extra or wrongly shaped leaf raises.
-This module does not import JAX: the caller converts the leaves with
-``np.asarray``.
+``export_jax_params(module)`` is its inverse. This module does not import
+JAX: the caller converts the leaves with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from .models.hybrid import SingleNNHybridModel
 from .models.nn import MLP
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_jax_params"]
 
 # leaf path → (destination tensor, transform from the JAX array)
 _LeafMap = Dict[str, Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
@@ -74,6 +74,46 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     for k, v in items:
         out.update(_flatten(v, f"{prefix}{k}/"))
     return out
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``{"a/b/0/c": leaf}`` → nested dicts, with all-digit keys as lists."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(tree)
+
+
+def export_jax_params(module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of :func:`load_jax_params`: ``(params, state)`` of a port
+    module as nested dicts and lists of numpy arrays in the JAX package's
+    layout (Dense weights ``(in, out)``). A model with a network but no
+    norm gets the ``{"nn": {}}`` state entry the JAX model has."""
+    want_params, want_state = _leaf_maps(module)
+    out = []
+    for want in (want_params, want_state):
+        flat = {
+            path: np.array(transform(t.detach().cpu().numpy()), np.float32)
+            for path, (t, transform) in want.items()
+        }
+        out.append(_nest(flat))
+    params, state = out
+    if isinstance(module, SingleNNHybridModel) and module.nn is not None:
+        state.setdefault("nn", {})
+    return params, state
 
 
 def load_jax_params(module, params, state) -> None:

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
+shared library with a plain C interface, in
 ``easyhybrid_tpu_torch/_build/`` (not under version control). The library's
 file name carries a hash of the sources and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Any failure raises:
@@ -13,6 +14,7 @@ exchanges only raw device pointers and the CUDA stream with Python.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 __all__ = ["find_nvcc", "build_library", "load_library", "BuildResult"]
 
@@ -43,8 +45,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
     path: Path
-    seconds: float  # 0.0 when an existing build was reused
+    seconds: float  # wall seconds of the whole build; 0.0 when reused
     log: str        # nvcc's output (ptxas register/spill report)
+    source_seconds: Dict[str, float]  # each source's compile, run in parallel
 
 
 def find_nvcc() -> str:
@@ -71,33 +74,74 @@ def _sources():
     return sources
 
 
+def _run(procs):
+    """Wait for every (source, cmd, process, start time); return each
+    source's (seconds until its own process ended, log) and raise on the
+    first failure, after stopping the others."""
+    def wait(proc, t0):
+        stdout, _ = proc.communicate()
+        return time.perf_counter() - t0, stdout
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        futures = [pool.submit(wait, proc, t0) for _, _, proc, t0 in procs]
+        out = {}
+        for (src, cmd, proc, _), fut in zip(procs, futures):
+            out[src] = fut.result()
+            if proc.returncode != 0:
+                for _, _, other, _ in procs:
+                    if other.poll() is None:
+                        other.kill()
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out[src][1]}")
+    return out
+
+
 def build_library() -> BuildResult:
-    """Compile the kernels unless a build of the same sources exists."""
+    """Compile the kernels unless a build of the same sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     sources = _sources()
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = _BUILD_DIR / f"libeh_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"libeh_kernels_{tag}.so"
     if lib_path.is_file():
-        return BuildResult(lib_path, 0.0, "")
+        return BuildResult(lib_path, 0.0, "", {})
 
     nvcc = find_nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources)]
+    pid = os.getpid()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    procs, objects = [], []
+    for src in sources:
+        obj = _BUILD_DIR / f"{src.stem}_{tag}.{pid}.o"
+        objects.append(obj)
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        procs.append((src.name, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter()))
+    tmp_path = lib_path.with_suffix(f".{pid}.tmp")
+    try:
+        compiled = _run(procs)
+        link = [nvcc, "-gencode", NVCC_FLAGS[1], "-shared", "-o", str(tmp_path),
+                *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp_path, lib_path)
+    finally:
         tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp_path, lib_path)
-    return BuildResult(lib_path, seconds, log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    log = "".join(f"== {name}\n{text}" for name, (_, text) in compiled.items())
+    return BuildResult(lib_path, time.perf_counter() - t0, log,
+                       {name: sec for name, (sec, _) in compiled.items()})
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,10 +149,12 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C function's
     argument and result types declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    lib.eh_fused_forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.eh_fused_forward.restype = ctypes.c_int
-    lib.eh_fused_forward_args_size.argtypes = []
-    lib.eh_fused_forward_args_size.restype = ctypes.c_int
+    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.eh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eh_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,872 @@
+"""Fused training epochs: a hand-written CUDA kernel for Hopper (kernel 2).
+
+Counterpart of ``easyhybrid_tpu/ops/fused_epoch.py`` (``make_fused_epoch``
+with ``kernel_body``). One launch of ``csrc/fused_epoch.cu`` runs
+``epochs_per_call`` epochs × ``num_batches`` SGD steps of a SingleNN MLP
+hybrid: the permutation gather, the input norm (trainable BatchNorm with
+its running-statistics EMA, static, or none), the MLP forward with the
+activation derivatives saved, sigmoid bound scaling, the mechanistic model
+in a kernel form with its hand-written partials, the masked mse and its
+cotangent, the hand-written backward, the batch-validity gate and the
+optax ``adam`` / ``sgd`` update. Parameters, moments, the step counter and
+the BatchNorm statistics are read once, kept in shared memory, and written
+back once.
+
+Everything works on one packed layout (:class:`FusedEpochPlan`):
+
+* ``params``: ``[norm scale (F), norm bias (F)]`` when the model has an
+  input norm, then per layer ``W`` (``(out, in)`` row-major) and ``b``,
+  then the raw globals (G);
+* ``bn``: the norm's running ``[mean (F), var (F)]`` (empty without norm);
+* ``opt_state``: ``{"m", "v"}`` shaped like ``params`` and the step
+  counter ``"t"`` (int32, ``(1,)``);
+* ``consts``: neural lower bounds and spans, global lower bounds and
+  spans, fixed values.
+
+:func:`fused_epoch_reference` is the same algorithm in plain PyTorch on the
+same layout (the permutation gather, the hand-written backward through the
+form's partials, the optax update). On CPU tensors the wrapper computes it;
+on CUDA tensors it launches the kernel or raises. It never falls back.
+:func:`fused_exactness_check` (the port of the JAX gate) holds the kernel
+against the torch epoch before ``train()`` trusts it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..data.loaders import EpochTensors
+from ..losses.specs import LoggingLoss, SymbolicLoss
+from ..training.epoch import make_train_epoch, perms_for_epochs
+from ..training.optimizers import parse_opt_spec, resolve_optimizer
+from . import _build
+from .fused_forward import (
+    MAX_ARGS,
+    MAX_FORCING,
+    MAX_LAYERS,
+    _ACT_IDS,
+    _SRC_FORCING,
+    _SRC_NEURAL,
+    _SRC_SCALAR,
+    _WIDTHS,
+    _arg_sources,
+    _form_of,
+    _probe_outputs,
+    fused_forward_unsupported_reason,
+)
+
+__all__ = [
+    "FusedEpoch",
+    "FusedEpochPlan",
+    "FusedParams",
+    "fused_epoch_reference",
+    "fused_epoch_unsupported_reason",
+    "fused_exactness_check",
+    "init_fused_opt_state",
+    "launch_fused_epoch",
+    "make_fused_epoch",
+    "supports_fused_epoch",
+]
+
+# caps of the kernel; they must equal the EH_* defines of csrc/fused_epoch.cu
+MAX_TARGETS = 4
+MAX_SMEM_BYTES = 227 * 1024
+_TILE_ROWS = (128, 64, 32)
+_NORM_NONE, _NORM_STATIC, _NORM_TRAIN = 0, 1, 2
+_OPTS = {"sgd": 0, "adam": 1}
+SHUFFLES = (True, False, "batches")
+
+
+# --------------------------------------------------------------------------
+# envelope
+# --------------------------------------------------------------------------
+
+def _loss_name(training_loss):
+    if isinstance(training_loss, SymbolicLoss):
+        return training_loss.name
+    return training_loss if isinstance(training_loss, str) else None
+
+
+def _layout_sizes(model) -> Tuple[int, int]:
+    """(packed parameter count, residual floats per row)."""
+    net = model.nn
+    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+    f = dims[0]
+    norm = net.norm is not None
+    n_params = (2 * f if norm else 0) + sum(
+        dims[i + 1] * (dims[i] + 1) for i in range(len(dims) - 1)
+    ) + len(model.global_param_names)
+    res = (3 * f if norm else f) + sum(dims[1:]) + sum(dims[1:-1]) + len(
+        model.global_param_names)
+    return n_params, res
+
+
+def _smem_floats(n_params, f, n_consts, g, k, t, tile_rows, res) -> int:
+    """Shared-memory floats of one launch; the launcher computes the same."""
+    return (4 * n_params + 2 * f + n_consts + 2 * g + k + 3 * f + t + 4 + tile_rows
+            + max(res, f + t) * (tile_rows + 1))
+
+
+def _tile_rows(model) -> Optional[int]:
+    n_params, res = _layout_sizes(model)
+    f = model.nn.in_dim
+    p, g, k = model.nn.out_dim, len(model.global_param_names), len(model.fixed_param_names)
+    t = len(model.targets)
+    for rows in _TILE_ROWS:
+        if 4 * _smem_floats(n_params, f, 2 * p + 2 * g + k, g, k, t, rows, res) <= MAX_SMEM_BYTES:
+            return rows
+    return None
+
+
+def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
+                                   tensors=None) -> Optional[str]:
+    """Why the fused epoch kernel cannot train ``model`` with this
+    optimizer and loss, or None when it can.
+
+    The envelope: a SingleNN MLP hybrid in float32 inside the fused
+    forward's model envelope, with any of the three input-norm forms;
+    ``training_loss="mse"`` with ``agg`` sum or mean and no ``extra_loss``;
+    a single ``adam`` spec or an ``sgd`` spec without momentum; parameters,
+    moments and a 32-row tile of residuals within the 227 KB of shared
+    memory. Any batch size and any number of epochs per call."""
+    del tensors  # every batch size fits: the kernel tiles the batch
+    reason = fused_forward_unsupported_reason(model, training=True)
+    if reason is not None:
+        return reason
+    if len(model.targets) > MAX_TARGETS:
+        return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
+    if _loss_name(logging.training_loss) != "mse":
+        return f"training_loss={logging.training_loss!r} (the kernel trains mse)"
+    if logging.agg_name not in ("sum", "mean"):
+        return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
+    if logging.extra_loss is not None:
+        return "an extra_loss (the kernel adds none)"
+    try:
+        name, hyper = parse_opt_spec(optimizer)
+    except (NotImplementedError, ValueError, TypeError) as e:
+        return f"optimizer {optimizer!r}: {e}"
+    if name not in _OPTS:
+        return f"optimizer {name!r} (the kernel runs adam or sgd)"
+    if name == "sgd" and (hyper["momentum"] != 0.0 or hyper["nesterov"] != 0.0):
+        return "sgd with momentum (the kernel runs plain sgd)"
+    if _tile_rows(model) is None:
+        return ("the packed parameters, moments and a 32-row residual tile exceed "
+                f"the kernel's {MAX_SMEM_BYTES // 1024} KB of shared memory")
+    return None
+
+
+def supports_fused_epoch(model, optimizer, logging: LoggingLoss, tensors=None) -> bool:
+    return fused_epoch_unsupported_reason(model, optimizer, logging, tensors) is None
+
+
+# --------------------------------------------------------------------------
+# plan: the packed layout and the kernel's static arguments
+# --------------------------------------------------------------------------
+
+class FusedParams(NamedTuple):
+    """The trainable parameters and the BatchNorm running statistics in the
+    packed layout (see the module docstring)."""
+
+    params: torch.Tensor
+    bn: torch.Tensor
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct EhFusedEpochArgs`` in csrc/fused_epoch.cu."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("forcing", ctypes.c_void_p * MAX_FORCING),
+        ("y", ctypes.c_void_p * MAX_TARGETS),
+        ("mask", ctypes.c_void_p * MAX_TARGETS),
+        ("perm", ctypes.c_void_p),
+        ("params", ctypes.c_void_p),
+        ("m", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("bn", ctypes.c_void_p),
+        ("t", ctypes.c_void_p),
+        ("consts", ctypes.c_void_p),
+        ("loss", ctypes.c_void_p),
+        ("n_rows", ctypes.c_int64),
+        ("n_epochs", ctypes.c_int),
+        ("n_batches", ctypes.c_int),
+        ("batch", ctypes.c_int),
+        ("n_layers", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("acts", ctypes.c_int * MAX_LAYERS),
+        ("norm_mode", ctypes.c_int),
+        ("norm_eps", ctypes.c_float),
+        ("momentum", ctypes.c_float),
+        ("one_minus_momentum", ctypes.c_float),
+        ("n_params", ctypes.c_int),
+        ("p_off_w", ctypes.c_int * MAX_LAYERS),
+        ("p_off_b", ctypes.c_int * MAX_LAYERS),
+        ("p_off_g", ctypes.c_int),
+        ("n_globals", ctypes.c_int),
+        ("n_fixed", ctypes.c_int),
+        ("scale_nn_outputs", ctypes.c_int),
+        ("form", ctypes.c_int),
+        ("n_args", ctypes.c_int),
+        ("arg_src", ctypes.c_int * MAX_ARGS),
+        ("arg_idx", ctypes.c_int * MAX_ARGS),
+        ("arg_const", ctypes.c_float * MAX_ARGS),
+        ("n_targets", ctypes.c_int),
+        ("target_out", ctypes.c_int * MAX_TARGETS),
+        ("agg_scale", ctypes.c_float),
+        ("opt", ctypes.c_int),
+        ("lr", ctypes.c_float),
+        ("b1", ctypes.c_float),
+        ("b2", ctypes.c_float),
+        ("one_minus_b1", ctypes.c_float),
+        ("one_minus_b2", ctypes.c_float),
+        ("eps", ctypes.c_float),
+        ("tile_rows", ctypes.c_int),
+        ("res_floats", ctypes.c_int),
+        ("r_off_xhat", ctypes.c_int),
+        ("r_off_d0", ctypes.c_int),
+        ("r_off_g", ctypes.c_int),
+        ("r_off_h", ctypes.c_int * MAX_LAYERS),
+        ("r_off_d", ctypes.c_int * MAX_LAYERS),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedEpochPlan:
+    """Static layout of one model's packed parameters, plus what the kernel
+    and its plain version read besides them."""
+
+    dims: Tuple[int, ...]
+    acts: Tuple[str, ...]
+    norm_mode: int
+    norm_eps: float
+    momentum: float
+    scale_nn_outputs: bool
+    forcing_names: Tuple[str, ...]
+    neural_names: Tuple[str, ...]
+    global_names: Tuple[str, ...]
+    fixed_names: Tuple[str, ...]
+    target_names: Tuple[str, ...]
+    target_out: Tuple[int, ...]
+    form: Any
+    arg_sources: Tuple[Tuple[int, int, float], ...]
+    segments: Tuple[Tuple[str, int, Tuple[int, ...]], ...]  # (param name, offset, shape)
+    n_params: int
+    consts: torch.Tensor
+    agg_scale: float
+    opt_name: str
+    hyper: Tuple[Tuple[str, float], ...]
+    width: int
+    tile_rows: int
+    res_floats: int
+
+    @property
+    def has_norm(self) -> bool:
+        return self.norm_mode != _NORM_NONE
+
+    @property
+    def n_features(self) -> int:
+        return self.dims[0]
+
+    def offsets(self) -> Dict[str, Any]:
+        """Offsets of every parameter segment (``p_*``) and of every residual
+        block of a tile row (``r_*``)."""
+        dims, f = self.dims, self.dims[0]
+        off = 2 * f if self.has_norm else 0
+        p_w, p_b = [], []
+        for i in range(len(dims) - 1):
+            p_w.append(off)
+            off += dims[i + 1] * dims[i]
+            p_b.append(off)
+            off += dims[i + 1]
+        r = 0
+        r_xhat = r_d0 = 0
+        if self.has_norm:
+            r_xhat, r_d0, r = 0, f, 2 * f
+        r_h = [r]
+        r += f
+        r_d = []
+        for i in range(1, len(dims)):
+            r_d.append(r)
+            r += dims[i]
+            if i < len(dims) - 1:
+                r_h.append(r)
+                r += dims[i]
+        return dict(p_w=p_w, p_b=p_b, p_g=off, r_xhat=r_xhat, r_d0=r_d0, r_h=r_h,
+                    r_d=r_d, r_g=r)
+
+    def pack(self, model) -> FusedParams:
+        """The model's current parameters and norm statistics, packed."""
+        named = dict(model.named_parameters())
+        params = torch.cat([named[name].detach().reshape(-1) for name, _, _ in self.segments])
+        if self.has_norm:
+            bn = torch.cat([model.nn.norm.mean.detach(), model.nn.norm.var.detach()])
+        else:
+            bn = params.new_zeros((0,))
+        return FusedParams(params.float().contiguous(), bn.float().contiguous())
+
+    def unpack(self, packed: FusedParams, model) -> None:
+        """Write packed parameters and norm statistics into ``model``."""
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, offset, shape in self.segments:
+                n = math.prod(shape)
+                named[name].copy_(packed.params[offset : offset + n].view(shape))
+            if self.has_norm:
+                f = self.n_features
+                model.nn.norm.mean.copy_(packed.bn[:f])
+                model.nn.norm.var.copy_(packed.bn[f:])
+
+    def leaves(self, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``param name -> slice`` of a packed parameter-shaped vector."""
+        return {name: packed[o : o + math.prod(s)] for name, o, s in self.segments}
+
+    @functools.cached_property
+    def args_bytes(self) -> bytes:
+        """The kernel's static arguments, packed once; each launch fills in
+        the pointers and the sizes."""
+        a = _Args()
+        dims = self.dims
+        a.n_layers = len(dims) - 1
+        a.dims[: len(dims)] = dims
+        a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
+        a.norm_mode = self.norm_mode
+        a.norm_eps = self.norm_eps
+        a.momentum = self.momentum
+        a.one_minus_momentum = 1.0 - self.momentum
+        a.n_params = self.n_params
+        o = self.offsets()
+        a.p_off_w[: len(o["p_w"])] = o["p_w"]
+        a.p_off_b[: len(o["p_b"])] = o["p_b"]
+        a.p_off_g = o["p_g"]
+        a.n_globals, a.n_fixed = len(self.global_names), len(self.fixed_names)
+        a.scale_nn_outputs = int(self.scale_nn_outputs)
+        a.form = self.form.form_id
+        a.n_args = len(self.arg_sources)
+        for i, (src, idx, const) in enumerate(self.arg_sources):
+            a.arg_src[i], a.arg_idx[i], a.arg_const[i] = src, idx, const
+        a.n_targets = len(self.target_names)
+        a.target_out[: len(self.target_out)] = self.target_out
+        a.agg_scale = self.agg_scale
+        h = dict(self.hyper)
+        a.opt = _OPTS[self.opt_name]
+        a.lr = h["learning_rate"]
+        b1, b2 = h.get("b1", 0.0), h.get("b2", 0.0)
+        a.b1, a.b2 = b1, b2
+        a.one_minus_b1, a.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
+        a.eps = h.get("eps", 0.0)
+        a.tile_rows = self.tile_rows
+        a.res_floats = self.res_floats
+        a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]
+        a.r_off_h[: len(o["r_h"])] = o["r_h"]
+        a.r_off_d[: len(o["r_d"])] = o["r_d"]
+        return bytes(a)
+
+
+def plan_fused_epoch(model, optimizer, logging: LoggingLoss) -> FusedEpochPlan:
+    """Check the envelope and the kernel form (its outputs and partials on
+    probe values) and lay out the model's parameters."""
+    reason = fused_epoch_unsupported_reason(model, optimizer, logging)
+    if reason is not None:
+        raise ValueError(f"model not supported by the fused epoch kernel: {reason}")
+    net = model.nn
+    form = _form_of(model.mechanistic_model)
+    arg_sources, _ = _arg_sources(model, form)
+    outputs = _probe_outputs(model, form, arg_sources)
+    missing = [t for t in model.targets if t not in outputs]
+    if missing:
+        raise ValueError(f"targets {missing} are not outputs {list(outputs)} of the kernel form")
+    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+    norm_mode = (_NORM_NONE if net.norm is None
+                 else _NORM_TRAIN if net.input_batchnorm is True else _NORM_STATIC)
+    segments: List[Tuple[str, int, Tuple[int, ...]]] = []
+    offset = 0
+    named = dict(model.named_parameters())
+    names = []
+    if net.norm is not None:
+        names += ["nn.norm.scale", "nn.norm.bias"]
+    for i in range(len(net.layers)):
+        names += [f"nn.layers.{i}.weight", f"nn.layers.{i}.bias"]
+    names += [f"globals.{g}" for g in model.global_param_names]
+    for name in names:
+        shape = tuple(named[name].shape)
+        segments.append((name, offset, shape))
+        offset += math.prod(shape)
+    table = model.param_table
+    neural, globals_ = model.neural_param_names, model.global_param_names
+    consts = [table.lower_of(n) for n in neural] + [
+        table.upper_of(n) - table.lower_of(n) for n in neural]
+    consts += [table.lower_of(g) for g in globals_] + [
+        table.upper_of(g) - table.lower_of(g) for g in globals_]
+    consts += [float(model.fixed.as_dict()[f].item()) for f in model.fixed_param_names]
+    name, hyper = parse_opt_spec(optimizer)
+    _, res = _layout_sizes(model)
+    return FusedEpochPlan(
+        dims=dims,
+        acts=tuple(layer.activation for layer in net.layers),
+        norm_mode=norm_mode,
+        norm_eps=net.norm.eps if net.norm is not None else 0.0,
+        momentum=net.norm.momentum if net.norm is not None else 0.0,
+        scale_nn_outputs=bool(model.scale_nn_outputs),
+        forcing_names=tuple(model.forcing),
+        neural_names=tuple(neural),
+        global_names=tuple(globals_),
+        fixed_names=tuple(model.fixed_param_names),
+        target_names=tuple(model.targets),
+        target_out=tuple(outputs.index(t) for t in model.targets),
+        form=form,
+        arg_sources=tuple(arg_sources),
+        segments=tuple(segments),
+        n_params=offset,
+        consts=torch.tensor(consts, dtype=torch.float32, device=model.device),
+        agg_scale=1.0 / len(model.targets) if logging.agg_name == "mean" else 1.0,
+        opt_name=name,
+        hyper=tuple(sorted(hyper.items())),
+        width=next(w for w in _WIDTHS if w >= max(dims)),
+        tile_rows=_tile_rows(model),
+        res_floats=res,
+    )
+
+
+def init_fused_opt_state(packed: FusedParams) -> Dict[str, torch.Tensor]:
+    """Zero moments and step counter for the packed parameters (adam and
+    sgd share the layout; sgd leaves the moments at zero)."""
+    p = packed.params
+    return {"m": torch.zeros_like(p), "v": torch.zeros_like(p),
+            "t": torch.zeros((1,), dtype=torch.int32, device=p.device)}
+
+
+# --------------------------------------------------------------------------
+# data and permutations
+# --------------------------------------------------------------------------
+
+class FusedData(NamedTuple):
+    """The padded epoch arrays flattened to rows: ``x (n, F)`` and one
+    ``(n,)`` column per forcing, target and mask."""
+
+    x: torch.Tensor
+    forcing: Tuple[torch.Tensor, ...]
+    y: Tuple[torch.Tensor, ...]
+    mask: Tuple[torch.Tensor, ...]
+    n_batches: int
+    batch: int
+
+
+def fused_data(plan: FusedEpochPlan, tensors: EpochTensors) -> FusedData:
+    nb, batch = tensors.weight.shape
+    n = nb * batch
+
+    def rows(a):
+        return a.reshape(n).contiguous()
+
+    return FusedData(
+        x=tensors.x.reshape(n, plan.n_features).contiguous(),
+        forcing=tuple(rows(tensors.forcing[f]) for f in plan.forcing_names),
+        y=tuple(rows(tensors.y[t]) for t in plan.target_names),
+        mask=tuple(rows(tensors.mask[t]) for t in plan.target_names),
+        n_batches=int(nb),
+        batch=int(batch),
+    )
+
+
+def row_index(shuffle, perms, n_batches: int, batch: int, epochs: int, device) -> torch.Tensor:
+    """``(epochs, n)`` int32 row index of every step's rows: a sample
+    permutation (shuffle True), batch permutations expanded to rows
+    (``"batches"``), or the identity (no shuffle, or ``perms`` None)."""
+    n = n_batches * batch
+    if perms is None:
+        return torch.arange(n, dtype=torch.int32, device=device).expand(epochs, n).contiguous()
+    perms = perms.to(device=device, dtype=torch.int64)
+    if shuffle == "batches":
+        base = torch.arange(batch, device=device)
+        perms = (perms[:, :, None] * batch + base).reshape(epochs, n)
+    return perms.to(torch.int32).contiguous()
+
+
+# --------------------------------------------------------------------------
+# plain version
+# --------------------------------------------------------------------------
+
+def _act_and_grad(name: str, z):
+    """Activation value and derivative, as the kernel computes them."""
+    if name == "tanh":
+        y = torch.tanh(z)
+        return y, 1.0 - y * y
+    if name == "relu":
+        return torch.where(z < 0, torch.zeros_like(z), z), (z > 0).to(z.dtype)
+    if name == "sigmoid":
+        s = torch.sigmoid(z)
+        return s, s * (1.0 - s)
+    if name in ("swish", "silu"):
+        s = torch.sigmoid(z)
+        return z * s, s + z * (s * (1.0 - s))
+    if name == "gelu":
+        k = 0.7978845608028654
+        th = torch.tanh(k * (z + 0.044715 * z * z * z))
+        cdf = 0.5 * (1.0 + th)
+        return z * cdf, cdf + z * (0.5 * (1.0 - th * th) * k * (1.0 + 3.0 * 0.044715 * z * z))
+    if name == "softplus":
+        return (torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z))),
+                torch.sigmoid(z))
+    if name == "selu":
+        a, s = 1.6732632423543772, 1.0507009873554805
+        return (s * torch.where(z > 0, z, a * torch.expm1(z)),
+                s * torch.where(z > 0, torch.ones_like(z), a * torch.exp(z)))
+    if name == "elu":
+        return torch.where(z > 0, z, torch.expm1(z)), torch.where(z > 0, torch.ones_like(z), torch.exp(z))
+    if name == "leakyrelu":
+        return (torch.where(z >= 0, z, 0.01 * z),
+                torch.where(z >= 0, torch.ones_like(z), torch.full_like(z, 0.01)))
+    return z, torch.ones_like(z)  # identity / linear
+
+
+def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
+    """One step's forward and hand-written backward on one batch: returns
+    ``(grad, batch_loss, valid, new_bn)`` with ``grad`` packed like ``p``
+    and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``."""
+    dims, f = plan.dims, plan.n_features
+    o = plan.offsets()
+    bsz = x.shape[0]
+    n_t = [torch.clamp_min(m.sum(), 1.0) for m in mask]
+    valid = sum(m.sum() for m in mask) > 0
+
+    new_bn = bn
+    xhat = None
+    h = x
+    if plan.has_norm:
+        if plan.norm_mode == _NORM_TRAIN:
+            mean = x.sum(0) / bsz
+            var = ((x - mean) * (x - mean)).sum(0) / bsz
+            mom = plan.momentum
+            new_bn = torch.cat([(1.0 - mom) * bn[:f] + mom * mean, (1.0 - mom) * bn[f:] + mom * var])
+        else:
+            mean, var = bn[:f], bn[f:]
+        xhat = (x - mean) * torch.rsqrt(var + plan.norm_eps)
+        h = xhat * p[:f] + p[f : 2 * f]
+    hs, dacts = [h], []
+    for i, act in enumerate(plan.acts):
+        w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
+        b = p[o["p_b"][i] : o["p_b"][i] + dims[i + 1]]
+        h, d = _act_and_grad(act, h @ w.T + b)
+        hs.append(h)
+        dacts.append(d)
+    n_neural, n_glob = len(plan.neural_names), len(plan.global_names)
+    nlo, nspan = consts[:n_neural], consts[n_neural : 2 * n_neural]
+    glo = consts[2 * n_neural : 2 * n_neural + n_glob]
+    gspan = consts[2 * n_neural + n_glob : 2 * n_neural + 2 * n_glob]
+    fixed = consts[2 * n_neural + 2 * n_glob :]
+    raw = hs[-1]
+    if plan.scale_nn_outputs:
+        s = torch.sigmoid(raw)
+        neural, dneural = nlo + nspan * s, nspan * (s * (1.0 - s))
+    else:
+        neural, dneural = raw, torch.ones_like(raw)
+    sg = torch.sigmoid(p[o["p_g"] :])
+    scalars = torch.cat([glo + gspan * sg, fixed])
+    dglob = gspan * (sg * (1.0 - sg))
+    args = []
+    for src, idx, const in plan.arg_sources:
+        if src == _SRC_FORCING:
+            args.append(forcing[idx])
+        elif src == _SRC_NEURAL:
+            args.append(neural[:, idx])
+        elif src == _SRC_SCALAR:
+            args.append(scalars[idx].expand(bsz))
+        else:
+            args.append(torch.full((bsz,), const, dtype=x.dtype, device=x.device))
+    outs = plan.form.torch_fn(*args)
+    parts = plan.form.partials_fn(*args)
+
+    loss_rows = torch.zeros((bsz,), dtype=x.dtype, device=x.device)
+    cots = []
+    for j, t in enumerate(plan.target_names):
+        diff = (outs[plan.target_out[j]] - y[j]) * mask[j]
+        loss_rows = loss_rows + (plan.agg_scale / n_t[j]) * diff * diff
+        cots.append((2.0 * plan.agg_scale / n_t[j]) * diff)
+    batch_loss = loss_rows.sum()
+
+    dn = torch.zeros_like(neural)
+    dg_rows = torch.zeros((bsz, n_glob), dtype=x.dtype, device=x.device)
+    for i, (src, idx, _) in enumerate(plan.arg_sources):
+        if src not in (_SRC_NEURAL, _SRC_SCALAR) or (src == _SRC_SCALAR and idx >= n_glob):
+            continue
+        c = torch.zeros((bsz,), dtype=x.dtype, device=x.device)
+        for j in range(len(plan.target_names)):
+            c = c + cots[j] * parts[plan.target_out[j]][i]
+        if src == _SRC_NEURAL:
+            dn[:, idx] += c
+        else:
+            dg_rows[:, idx] += c
+
+    grads = []
+    D = dn * dneural
+    layer_grads = []
+    for i in range(len(plan.acts) - 1, -1, -1):
+        D = D * dacts[i]
+        layer_grads.append((D.T @ hs[i], D.sum(0)))
+        if i > 0 or plan.has_norm:
+            w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
+            D = D @ w
+    if plan.has_norm:
+        grads += [(D * xhat).sum(0), D.sum(0)]
+    for gw, gb in reversed(layer_grads):
+        grads += [gw.reshape(-1), gb]
+    grads.append(dg_rows.sum(0) * dglob)
+    return torch.cat(grads), batch_loss, valid, new_bn
+
+
+def _reference_update(plan: FusedEpochPlan, p, m, v, t, g, valid):
+    """The optax formula of the plan's rule on packed vectors, gated by the
+    batch validity; ``t`` is the float step count before this step."""
+    h = dict(plan.hyper)
+    lr = h["learning_rate"]
+    t_new = t + valid.to(torch.float32)
+    if plan.opt_name == "sgd":
+        p_new, m_new, v_new = p + (-lr * g), m, v
+    else:
+        b1, b2, eps = h["b1"], h["b2"], h["eps"]
+        tc = torch.clamp_min(t_new, 1.0)
+        m_new = (1.0 - b1) * g + b1 * m
+        v_new = (1.0 - b2) * (g * g) + b2 * v
+        m_hat = m_new / (1.0 - torch.pow(b1, tc))
+        v_hat = v_new / (1.0 - torch.pow(b2, tc))
+        p_new = p + (-lr * (m_hat / (torch.sqrt(v_hat) + eps)))
+    return (torch.where(valid, p_new, p), torch.where(valid, m_new, m),
+            torch.where(valid, v_new, v), t_new)
+
+
+def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
+                          rows: torch.Tensor):
+    """The plain PyTorch version of the kernel: ``rows.shape[0]`` epochs of
+    ``data.n_batches`` steps over the rows ``rows[e, i·B : (i+1)·B]``.
+    Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
+    mean batch loss (empty batches count 0)."""
+    p, bn = packed.params, packed.bn
+    m, v = opt_state["m"], opt_state["v"]
+    t = opt_state["t"].to(torch.float32)
+    consts = plan.consts.to(p.device)
+    nb, batch = data.n_batches, data.batch
+    epoch_loss = None
+    for e in range(rows.shape[0]):
+        epoch_loss = torch.zeros((), dtype=p.dtype, device=p.device)
+        for i in range(nb):
+            idx = rows[e, i * batch : (i + 1) * batch].long()
+            g, loss, valid, new_bn = reference_grads(
+                plan, p, bn, consts, data.x[idx],
+                [c[idx] for c in data.forcing], [c[idx] for c in data.y],
+                [c[idx] for c in data.mask],
+            )
+            p, m, v, t = _reference_update(plan, p, m, v, t, g, valid)
+            bn = torch.where(valid, new_bn, bn)
+            epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
+    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    return FusedParams(p, bn), new_state, epoch_loss / nb
+
+
+# --------------------------------------------------------------------------
+# kernel launch and the epoch function
+# --------------------------------------------------------------------------
+
+def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
+                       rows: torch.Tensor, loss: torch.Tensor) -> None:
+    """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
+    ``packed`` and ``opt_state`` in place and writing the mean loss into
+    ``loss``; raises if the launch is refused. Counts launches in
+    ``launch_fused_epoch.launches``."""
+    lib = _build.load_library()
+    if lib.eh_fused_epoch_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError(
+            "the kernel's argument struct and its ctypes mirror differ in size: "
+            f"{lib.eh_fused_epoch_args_size()} != {ctypes.sizeof(_Args)}"
+        )
+    a = _Args.from_buffer_copy(plan.args_bytes)
+    a.x = data.x.data_ptr()
+    for i, c in enumerate(data.forcing):
+        a.forcing[i] = c.data_ptr()
+    for i, (yc, mc) in enumerate(zip(data.y, data.mask)):
+        a.y[i], a.mask[i] = yc.data_ptr(), mc.data_ptr()
+    a.perm = rows.data_ptr()
+    a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
+    a.m, a.v, a.t = opt_state["m"].data_ptr(), opt_state["v"].data_ptr(), opt_state["t"].data_ptr()
+    a.consts = plan.consts.data_ptr()
+    a.loss = loss.data_ptr()
+    a.n_rows = data.x.shape[0]
+    a.n_epochs = rows.shape[0]
+    a.n_batches, a.batch = data.n_batches, data.batch
+    with torch.cuda.device(data.x.device):
+        stream = torch.cuda.current_stream(data.x.device).cuda_stream
+        rc = lib.eh_fused_epoch(ctypes.byref(a), plan.width, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    launch_fused_epoch.launches += 1
+
+
+launch_fused_epoch.launches = 0
+
+
+class FusedEpoch:
+    """``fn(model_or_packed, opt_state, tensors, perms=None, generator=None)
+    -> (model_or_packed, opt_state, mean_loss)``: ``epochs_per_call`` epochs
+    in one launch on CUDA tensors, the plain version on CPU tensors.
+
+    ``perms`` are the shuffles (``(E, n)`` sample or ``(E, num_batches)``
+    batch permutations, or one of them when E is 1); without them they are
+    drawn from ``generator`` (:func:`training.epoch.epoch_permutation`).
+    A model is packed before the run and written back after it; packed
+    parameters (:class:`FusedParams`) are returned as new tensors."""
+
+    def __init__(self, model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
+                 epochs_per_call: int = 1):
+        if shuffle not in SHUFFLES:
+            raise ValueError(f"fused epoch supports shuffle=True/False/'batches', got {shuffle!r}")
+        self.plan = plan_fused_epoch(model, optimizer, logging)
+        self.shuffle = shuffle
+        self.epochs = max(1, int(epochs_per_call))
+
+    def rows(self, tensors: EpochTensors, perms=None, generator=None) -> torch.Tensor:
+        perms = perms_for_epochs(self.shuffle, tensors, self.epochs, generator=generator, perm=perms)
+        nb, batch = tensors.weight.shape
+        return row_index(self.shuffle, perms, int(nb), int(batch), self.epochs,
+                         tensors.weight.device)
+
+    def __call__(self, model_or_packed, opt_state, tensors: EpochTensors, perms=None,
+                 generator=None):
+        plan = self.plan
+        model = None if isinstance(model_or_packed, FusedParams) else model_or_packed
+        packed = plan.pack(model) if model is not None else model_or_packed
+        data = fused_data(plan, tensors)
+        rows = self.rows(tensors, perms, generator)
+        dev = data.x.device
+        for name, t in (("parameters", packed.params), ("moments", opt_state["m"]),
+                        ("rows", rows), ("constants", plan.consts)):
+            if t.device != dev:
+                raise ValueError(f"the {name} are on {t.device}, the data on {dev}")
+        if dev.type == "cpu":
+            packed, opt_state, loss = fused_epoch_reference(plan, packed, opt_state, data, rows)
+        elif dev.type == "cuda":
+            packed = FusedParams(packed.params.clone(), packed.bn.clone())
+            opt_state = {k: v.clone() for k, v in opt_state.items()}
+            loss = torch.empty((1,), dtype=torch.float32, device=dev)
+            launch_fused_epoch(plan, packed, opt_state, data, rows, loss)
+            loss = loss[0]
+        else:
+            raise ValueError(f"the fused epoch runs on CUDA or CPU tensors; got {dev}")
+        if model is not None:
+            plan.unpack(packed, model)
+            return model, opt_state, loss
+        return packed, opt_state, loss
+
+    def reference(self, packed: FusedParams, opt_state, tensors: EpochTensors, perms=None,
+                  generator=None):
+        """The plain version on the tensors' device (no launch)."""
+        return fused_epoch_reference(self.plan, packed, opt_state, fused_data(self.plan, tensors),
+                                     self.rows(tensors, perms, generator))
+
+
+def make_fused_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
+                     epochs_per_call: int = 1) -> FusedEpoch:
+    """Build the fused epoch of ``model`` (see :class:`FusedEpoch`); raises if
+    the model, optimizer or loss is outside the envelope or the kernel
+    form's probe check fails."""
+    return FusedEpoch(model, optimizer, logging, shuffle=shuffle, epochs_per_call=epochs_per_call)
+
+
+# --------------------------------------------------------------------------
+# runtime exactness gate
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _full_precision():
+    """float32 products without TF32, for both paths of phase A."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _head(tensors: EpochTensors, nb: int) -> EpochTensors:
+    return EpochTensors(
+        x=tensors.x[:nb], forcing={k: v[:nb] for k, v in tensors.forcing.items()},
+        y={k: v[:nb] for k, v in tensors.y.items()},
+        mask={k: v[:nb] for k, v in tensors.mask.items()},
+        weight=tensors.weight[:nb], n_samples=tensors.n_samples,
+    )
+
+
+def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: EpochTensors, *,
+                          n_batches: int = 2, tol: float = 3e-2, epochs_per_call: int = 1,
+                          shuffle: Any = False) -> Tuple[bool, float]:
+    """Hold the fused epoch against the torch epoch on the first batches of
+    the actual data before trusting it; the model is left as it was.
+
+    **Phase A (gradient content):** both run plain SGD at lr 1e-3 over the
+    first ``n_batches`` batches without shuffling, with TF32 off; the
+    implied per-leaf gradients ``(p0 - p) / lr`` must agree within ``tol``
+    under per-leaf normalisation ``max |Δg| / max(|g_leaf|, 3%·g_max, 1e-6)``
+    and the epoch losses within 1%.
+
+    **Phase B (the production variant):** the real optimizer, shuffle mode
+    and up to 4 epochs per call on the same batches, with the same injected
+    permutations; the loss trajectories must agree within 20% and no leaf
+    of more than 4 elements may have more than half its elements apart by
+    more than half a learning rate.
+
+    Returns ``(ok, worst relative difference)``. Unlike the JAX gate this
+    one does not catch a build or launch error: those raise."""
+    lr = 1e-3
+    sub = _head(tensors, min(n_batches, int(tensors.weight.shape[0])))
+    plan = plan_fused_epoch(model, optimizer, logging)
+    p0 = plan.pack(model)
+
+    def torch_run(spec, sh, epochs, perms):
+        twin = copy.deepcopy(model)
+        opt = resolve_optimizer(spec)
+        fn = make_train_epoch(twin, logging, opt, shuffle=sh, epochs_per_call=epochs)
+        _, loss = fn(opt.init(dict(twin.named_parameters())), sub, perm=perms)
+        return plan.pack(twin).params, loss
+
+    def fused_run(spec, sh, epochs, perms):
+        fn = FusedEpoch(model, spec, logging, shuffle=sh, epochs_per_call=epochs)
+        packed, _, loss = fn(p0, init_fused_opt_state(p0), sub, perms=perms)
+        return packed.params, loss
+
+    with _full_precision():
+        p_f, loss_f = fused_run(("sgd", lr), False, 1, None)
+        p_x, loss_x = torch_run(("sgd", lr), False, 1, None)
+    g_leaf = {k: float((a - b).abs().max()) / lr
+              for (k, a), b in zip(plan.leaves(p0.params).items(), plan.leaves(p_x).values())}
+    gmax = max([1e-6, *g_leaf.values()])
+    rel = 0.0
+    for (k, a), b in zip(plan.leaves(p_f).items(), plan.leaves(p_x).values()):
+        d = float((a - b).abs().max()) / lr
+        rel = max(rel, d / max(g_leaf[k], 0.03 * gmax, 1e-6))
+    loss_rel = abs(float(loss_f) - float(loss_x)) / (abs(float(loss_x)) + 1e-6)
+
+    name, hyper = parse_opt_spec(optimizer)
+    e_gate = max(1, min(int(epochs_per_call), 4))
+    frac_bad = ploss_rel = 0.0
+    if name != "sgd" or e_gate > 1 or shuffle is not False:
+        gen = torch.Generator(device=sub.weight.device).manual_seed(0)
+        perms = perms_for_epochs(shuffle, sub, e_gate, generator=gen)
+        pp_f, pl_f = fused_run(optimizer, shuffle, e_gate, perms)
+        pp_x, pl_x = torch_run(optimizer, shuffle, e_gate, perms)
+        prod_lr = hyper.get("learning_rate", lr)
+        for a, b in zip(plan.leaves(pp_f).values(), plan.leaves(pp_x).values()):
+            if a.numel() <= 4:
+                continue
+            frac_bad = max(frac_bad, float(((a - b).abs() > 0.5 * prod_lr).float().mean()))
+        ploss_rel = abs(float(pl_f) - float(pl_x)) / (abs(float(pl_x)) + 1e-6)
+    ok = (math.isfinite(rel) and rel < tol and loss_rel < 1e-2
+          and math.isfinite(frac_bad) and frac_bad <= 0.5
+          and math.isfinite(ploss_rel) and ploss_rel < 0.2)
+    return bool(ok), max(rel, loss_rel, ploss_rel)

@@ -74,24 +74,37 @@ _SRC_FORCING, _SRC_NEURAL, _SRC_SCALAR, _SRC_CONST = 0, 1, 2, 3
 
 @dataclasses.dataclass(frozen=True)
 class KernelForm:
-    """A mechanistic model the kernel implements: its id in the CUDA source,
-    its argument names in kernel order, and its torch transcription
-    ``torch_fn(*args) -> tuple`` of ``n_outputs`` tensors, in the order of
-    the outputs of the tagged function."""
+    """A mechanistic model the kernels implement: its id in the CUDA
+    sources, its argument names in kernel order, its torch transcription
+    ``torch_fn(*args) -> tuple`` of ``n_outputs`` tensors (in the order of
+    the outputs of the tagged function), and the transcription of its
+    partials ``partials_fn(*args) -> tuple`` (one per output) of tuples
+    (one per argument) of ``∂output/∂argument``, which the training kernel
+    uses in place of automatic differentiation."""
 
     name: str
     form_id: int
     args: Tuple[str, ...]
     n_outputs: int
     torch_fn: Callable
+    partials_fn: Callable
 
 
 def _rbq10_torch(rb, Q10, ta, tref):
     return (rb * torch.pow(Q10, 0.1 * (ta - tref)),)
 
 
+def _rbq10_partials(rb, Q10, ta, tref):
+    # written in the order JAX's jvp of rb * Q10 ** e evaluates them
+    e = 0.1 * (ta - tref)
+    q = torch.pow(Q10, e)
+    d_ta = rb * (q * torch.log(Q10)) * 0.1
+    return ((q, rb * (e * torch.pow(Q10, e - 1.0)), d_ta, -d_ta),)
+
+
 KERNEL_FORMS: Dict[str, KernelForm] = {
-    "rbq10": KernelForm("rbq10", 0, ("rb", "Q10", "ta", "tref"), 1, _rbq10_torch),
+    "rbq10": KernelForm("rbq10", 0, ("rb", "Q10", "ta", "tref"), 1, _rbq10_torch,
+                        _rbq10_partials),
 }
 
 
@@ -158,14 +171,17 @@ def _arg_sources(model, form: KernelForm):
     return out, None
 
 
-def fused_forward_unsupported_reason(model) -> Optional[str]:
+def fused_forward_unsupported_reason(model, *, training: bool = False) -> Optional[str]:
     """Why ``model`` is outside the kernel's envelope, or None if it is in.
 
     The envelope is the JAX kernel's (a SingleNN MLP hybrid with static or
     no input norm) plus this kernel's own limits: a mechanistic function
     tagged with a known kernel form whose arguments all resolve, the 12
     named activations, float32 with no ``compute_dtype``, and widths,
-    depth and parameter counts within the caps above."""
+    depth and parameter counts within the caps above. ``training=True``
+    asks for the model checks the training kernel shares: trainable input
+    BatchNorm is allowed there, and that kernel checks its own shared
+    memory."""
     if not isinstance(model, SingleNNHybridModel):
         return f"{type(model).__name__} is not a SingleNNHybridModel"
     net = model.nn
@@ -173,7 +189,7 @@ def fused_forward_unsupported_reason(model) -> Optional[str]:
         return "the model has no neural network"
     if not isinstance(net, MLP):
         return f"the network is a {type(net).__name__}, not an MLP"
-    if net.input_batchnorm is True:
+    if net.input_batchnorm is True and not training:
         return "trainable input BatchNorm (input_batchnorm=True) is outside the kernel"
     if net.compute_dtype is not None:
         return f"compute_dtype={net.compute_dtype} (the kernel runs float32)"
@@ -193,7 +209,7 @@ def fused_forward_unsupported_reason(model) -> Optional[str]:
     n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
     if n_scalars > MAX_SCALARS:
         return f"{n_scalars} global and fixed parameters exceed the cap of {MAX_SCALARS}"
-    if _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
+    if not training and _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
         return "the packed parameters exceed the kernel's 48 KiB of shared memory"
     form = _form_of(model.mechanistic_model)
     if form is None:
@@ -334,7 +350,28 @@ def _probe_outputs(model, form: KernelForm, arg_sources) -> Tuple[str, ...]:
                 f"mechanistic model {fn_name!r} is tagged {form.name!r} but its "
                 f"output {key!r} disagrees with the form on probe values"
             )
+    check_form_partials(form, args)
     return tuple(want)
+
+
+def check_form_partials(form: KernelForm, args) -> None:
+    """Hold the form's hand-written partials against ``torch.func.jvp`` of
+    its transcription, one argument at a time; raise on a mismatch."""
+    n = max(int(torch.as_tensor(a).numel()) for a in args)
+    prim = tuple(torch.as_tensor(a, dtype=torch.float32).expand(n).clone() for a in args)
+    parts = form.partials_fn(*prim)
+    for i, name in enumerate(form.args):
+        tangents = tuple(
+            torch.ones_like(p) if j == i else torch.zeros_like(p) for j, p in enumerate(prim)
+        )
+        _, want = torch.func.jvp(form.torch_fn, prim, tangents)
+        for o in range(form.n_outputs):
+            got = torch.as_tensor(parts[o][i], dtype=torch.float32).expand(n)
+            if not torch.allclose(got, want[o], rtol=1e-4, atol=1e-6, equal_nan=True):
+                raise ValueError(
+                    f"kernel form {form.name!r}: its partial of output {o} with "
+                    f"respect to {name!r} disagrees with torch.func.jvp on probe values"
+                )
 
 
 def plan_fused_forward(model) -> FusedPlan:

@@ -57,6 +57,21 @@ def _plain_forward(model) -> Callable:
     return forward
 
 
+def _with_scalars(model, fused) -> Callable:
+    """The fused forward plus the scaled globals and the fixed values, as
+    ``(1,)`` tensors: the plain forward returns them too, and the chunk
+    filter keeps them exactly when the batch holds one row, as the JAX
+    ``predict`` does. Snapshot of the parameters, like the kernel's plan."""
+    with torch.no_grad():
+        scalars = {**model._scale_globals(), **model.fixed.as_dict()}
+        scalars = {k: v.detach().clone() for k, v in scalars.items()}
+
+    def forward(x, forcing):
+        return {**fused(x, forcing), **scalars}
+
+    return forward
+
+
 def make_inference_fn(model, *, batch_size: int = 1024):
     """Build ``predict(data) -> dict of np.ndarray`` over fixed-size chunks
     of ``batch_size`` rows.
@@ -69,7 +84,7 @@ def make_inference_fn(model, *, batch_size: int = 1024):
     device = model.device
     reason = fused_forward_unsupported_reason(model)
     if device.type == "cuda" and reason is None:
-        forward = make_fused_forward(model, batch_size=batch_size)
+        forward = _with_scalars(model, make_fused_forward(model, batch_size=batch_size))
         engine = "cuda_fused_forward"
         engine_reason = "CUDA model inside the fused forward kernel's envelope"
     else:

@@ -1,4 +1,5 @@
-"""The CUDA fused forward kernel on a GPU, against its plain PyTorch version.
+"""The CUDA kernels on a GPU, against their plain PyTorch versions: the
+fused forward (kernel 1) and the fused training epoch (kernel 2).
 
 Imports no JAX, so it runs where only PyTorch with CUDA is installed. On a
 machine without a GPU every test skips. On a GPU, without the repository's
@@ -6,9 +7,12 @@ conftest (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|), float32: the
-kernel uses CUDA's expf / powf / tanhf / rsqrtf and its own summation order,
-against torch's transcendentals and GEMM.
+Tolerance, kernel 1: max |kernel - plain| <= 1e-5 * max(1, |plain|),
+float32: the kernel uses CUDA's expf / powf / tanhf / rsqrtf and its own
+summation order, against torch's transcendentals and GEMM. Kernel 2, after
+at most 3 epochs: 1e-4 * max(1, |plain|) on parameters, moments, BatchNorm
+statistics and loss, since the per-step differences compound along the
+chain of steps.
 """
 
 import numpy as np
@@ -16,7 +20,10 @@ import pytest
 import torch
 
 import easyhybrid_tpu_torch as et
+from easyhybrid_tpu_torch.data.prepare import HybridData
+from easyhybrid_tpu_torch.ops import fused_epoch as fe
 from easyhybrid_tpu_torch.ops import fused_forward as ff
+from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -113,3 +120,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cpu_model, _, _ = _model(et.rbq10_columns(100, seed=6), "cpu")
     with pytest.raises(ValueError, match="parameters are on cpu"):
         et.make_fused_forward(cpu_model)(x, forcing)
+
+
+# --------------------------------------------------------------------------
+# kernel 2: the fused training epoch
+# --------------------------------------------------------------------------
+
+EPOCH_TOL = 1e-4
+
+
+def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam", 0.01),
+                shuffle=True, epochs=1, batch=256, n=2000, seed=0, nan_frac=0.0, mask_first=False):
+    cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
+    if mask_first:
+        cols["reco"][:batch] = np.nan
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+    )
+    m = et.construct_hybrid_model(**spec, generator=torch.Generator().manual_seed(seed))
+    data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    et.fit_input_norm(m, data)
+    m.to(device)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
+    fn = et.make_fused_epoch(m, opt, et.LoggingLoss(), shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+    packed = fn.plan.pack(m)
+    before = fe.launch_fused_epoch.launches
+    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    torch.cuda.synchronize()
+    assert fe.launch_fused_epoch.launches - before == 1
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    for g, r in ((got[0].params, ref[0].params), (got[0].bn, ref[0].bn), (got[1]["m"], ref[1]["m"]),
+                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+        g, r = g.cpu(), r.cpu()
+        assert torch.isfinite(g).all()
+        assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    assert torch.equal(got[1]["t"].cpu(), ref[1]["t"].cpu())
+    return got
+
+
+@pytest.mark.parametrize("kw", [
+    dict(epochs=3),
+    dict(hidden=(8,), act="tanh", norm="static", opt=("sgd", 0.05), shuffle=False, n=1000, batch=128),
+    dict(hidden=(32, 24), act="tanh"),
+    dict(hidden=(64, 48), act="selu", norm=False, shuffle="batches", batch=300),
+    dict(nan_frac=0.3, epochs=2),
+    dict(shuffle=False, mask_first=True, n=1024, batch=128),
+], ids=str)
+def test_epoch_kernel_matches_plain(cuda, kw):
+    _epoch_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
+def test_epoch_kernel_activations_match_plain(cuda, act):
+    _epoch_case(cuda, hidden=(12, 5), act=act, norm="static", n=777, batch=100)
+
+
+def test_first_masked_batch_counts_no_step(cuda):
+    got = _epoch_case(cuda, shuffle=False, mask_first=True, n=1024, batch=128)
+    assert int(got[1]["t"][0]) == 7
+
+
+def test_train_takes_the_epoch_kernel(cuda):
+    cols = et.rbq10_columns(2000, seed=8)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm=True,
+        generator=torch.Generator().manual_seed(0), device=cuda)
+    before = fe.launch_fused_epoch.launches
+    r = et.train(m, cols, nepochs=6, eval_every=2, batchsize=256, show_progress=False)
+    assert r.epoch_path == "cuda_fused_epoch" and "exactness gate passed" in r.engine_reason
+    assert fe.launch_fused_epoch.launches - before == 3 + 2  # three blocks + the gate's two runs
+    assert next(m.parameters()).is_cuda  # never moved off the card
+
+
+def test_epoch_wrapper_rejects_mixed_devices(cuda):
+    cols = et.rbq10_columns(300, seed=9)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[8])
+    data = et.prepare_data(m, cols)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, 64), cuda)
+    fn = et.make_fused_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
+    packed = fn.plan.pack(m)  # on the CPU, the data on the card
+    with pytest.raises(ValueError, match="parameters are on cpu"):
+        fn(packed, fe.init_fused_opt_state(packed), tensors)

@@ -1,0 +1,264 @@
+"""Kernel 2's plain version (``fused_epoch_reference``, what the wrapper
+computes on CPU tensors) against the JAX package's fused epoch kernel in
+interpret mode and against the port's torch epoch; the envelope and its
+reasons; the kernel form's partials check; the exactness gate; and the
+ctypes mirror of the CUDA argument struct.
+
+Tolerances, float32: atol 2e-6 after one epoch and 1e-5 after three (as
+tests/test_fused.py), and 5e-6 for the running variance, whose magnitude is
+~400 (about 1e-8 relative)."""
+
+import ctypes
+import dataclasses
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import easyhybrid_tpu as eh
+import easyhybrid_tpu_torch as et
+from easyhybrid_tpu.data.loaders import build_epoch_tensors as jax_epoch_tensors
+from easyhybrid_tpu.ops.fused_epoch import init_fused_opt_state as jax_init_opt
+from easyhybrid_tpu.ops.fused_epoch import make_fused_epoch as jax_fused_epoch
+from easyhybrid_tpu.training.epoch import epoch_permutation as jax_permutation
+from easyhybrid_tpu_torch.data.loaders import build_epoch_tensors
+from easyhybrid_tpu_torch.data.prepare import HybridData
+from easyhybrid_tpu_torch.ops import fused_epoch as fe
+from easyhybrid_tpu_torch.ops import fused_forward as ff
+from easyhybrid_tpu_torch.training import epoch as tepoch
+from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
+
+CU_SOURCE = Path(fe.__file__).resolve().parent.parent / "csrc" / "fused_epoch.cu"
+LL = et.LoggingLoss(training_loss="mse", loss_types=("mse",))
+
+
+def _spec(norm=True, hidden=(8,), act="tanh", **kw):
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+    )
+    spec.update(kw)
+    return spec
+
+
+def setup(norm=True, n=512, batch=128, data=None, nan_frac=0.0, **kw):
+    spec = _spec(norm, **kw)
+    jm, tm = eh.construct_hybrid_model(**spec), et.construct_hybrid_model(**spec)
+    if data is None:
+        data = et.prepare_data(tm, et.rbq10_columns(n, seed=42, nan_frac=nan_frac))
+    params, state = jm.init(jax.random.PRNGKey(0))
+    if norm == "static":
+        from easyhybrid_tpu.training.train import fit_input_norm
+
+        state = fit_input_norm(jm, state, data)
+    et.load_jax_params(tm, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state))
+    jt = jax.device_put(jax_epoch_tensors(eh.prepare_data(jm, ((data.x, data.forcing), data.y)), batch))
+    tt = tepoch.epoch_tensors_to(build_epoch_tensors(data, batch), "cpu")
+    return jm, params, state, jt, tm, tt
+
+
+def jax_perms(shuffle, key, epochs, nb, batch):
+    if not shuffle or nb == 1:
+        return None
+    n = nb * batch if shuffle is True else nb
+    keys = [key] if epochs == 1 else list(jax.random.split(key, epochs))
+    return np.stack([np.asarray(jax_permutation(k, n)) for k in keys])
+
+
+def assert_model_matches(tm, jparams, jstate, atol):
+    got_p, got_s = et.export_jax_params(tm)
+    for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jparams)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=atol, rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(got_s), jax.tree.leaves(jstate)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=max(atol, 5e-6), rtol=1e-5)
+
+
+CASES = [
+    # opt, shuffle, epochs, norm, hidden, act, data kwargs
+    (("adam", 0.01), False, 1, True, (8,), "tanh", {}),
+    (("sgd", 0.05), False, 1, "static", (8,), "tanh", {}),
+    (("sgd", 0.05), False, 1, False, (8,), "tanh", {"n": 300}),
+    (("adam", 0.01), True, 1, True, (12, 5), "swish", {}),
+    (("adam", 0.01), "batches", 1, "static", (12, 5), "gelu", {}),
+    (("adam", 0.01), True, 3, True, (8,), "tanh", {}),
+    (("adam", 0.01), True, 1, True, (8,), "softplus", {"n": 256, "batch": 64, "nan_frac": 0.5}),
+]
+
+
+@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES, ids=str)
+def test_reference_matches_jax_fused_epoch(opt, shuffle, epochs, norm, hidden, act, data_kw):
+    jm, params, state, jt, tm, tt = setup(norm, hidden=hidden, act=act, **data_kw)
+    key = jax.random.PRNGKey(5)
+    jll = eh.LoggingLoss(training_loss="mse", loss_types=("mse",))
+    jfn = jax_fused_epoch(jm, state, opt, jll, shuffle=shuffle, epochs_per_call=epochs)
+    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params), state, jt, key)
+
+    fn = et.make_fused_epoch(tm, opt, LL, shuffle=shuffle, epochs_per_call=epochs)
+    nb, batch = tt.weight.shape
+    p0 = fn.plan.pack(tm)
+    _, os_, loss = fn(tm, fe.init_fused_opt_state(p0), tt,
+                      perms=jax_perms(shuffle, key, epochs, nb, batch))
+    atol = 2e-6 if epochs == 1 else 1e-5
+    assert_model_matches(tm, jp, js, atol)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5, atol=1e-6)
+    assert int(os_["t"][0]) == int(jos["t"][0])
+
+
+@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES, ids=str)
+def test_reference_matches_the_torch_epoch(opt, shuffle, epochs, norm, hidden, act, data_kw):
+    *_, tm, tt = setup(norm, hidden=hidden, act=act, **data_kw)
+    twin = et.construct_hybrid_model(**_spec(norm, hidden=hidden, act=act))
+    twin.load_state_dict(tm.state_dict())
+    perms = tepoch.perms_for_epochs(shuffle, tt, epochs, generator=torch.Generator().manual_seed(1))
+    fn = et.make_fused_epoch(tm, opt, LL, shuffle=shuffle, epochs_per_call=epochs)
+    packed, os_, loss = fn(fn.plan.pack(tm), fe.init_fused_opt_state(fn.plan.pack(tm)), tt, perms=perms)
+    optim = resolve_optimizer(opt)
+    tfn = tepoch.make_train_epoch(twin, LL, optim, shuffle=shuffle, epochs_per_call=epochs)
+    state, tloss = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
+    want = fn.plan.pack(twin)
+    atol = 2e-6 if epochs == 1 else 1e-5
+    np.testing.assert_allclose(packed.params.numpy(), want.params.numpy(), atol=atol, rtol=1e-5)
+    np.testing.assert_allclose(packed.bn.numpy(), want.bn.numpy(), atol=5e-6, rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(tloss), rtol=1e-5, atol=1e-6)
+    assert int(os_["t"][0]) == int(state["count"])
+    if opt[0] == "adam":
+        leaves = fn.plan.leaves(os_["m"])
+        for name, t in state["mu"].items():
+            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(), atol=atol, rtol=1e-4)
+
+
+def test_first_batch_fully_masked_keeps_adam_finite():
+    """An all-masked first batch: no step is counted, the update is gated
+    off (1 - b1^0 = 0 must not leak NaN), the BatchNorm statistics stay."""
+    cols = et.rbq10_columns(256, seed=3)
+    y = cols["reco"].copy()
+    y[:64] = np.nan
+    data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": y})
+    jm, params, state, jt, tm, tt = setup(True, data=data, batch=64)
+    jfn = jax_fused_epoch(jm, state, ("adam", 0.01), eh.LoggingLoss(training_loss="mse"), shuffle=False)
+    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params), state, jt,
+                             jax.random.PRNGKey(0))
+    fn = et.make_fused_epoch(tm, ("adam", 0.01), LL, shuffle=False)
+    p0 = fn.plan.pack(tm)
+    _, os_, loss = fn(tm, fe.init_fused_opt_state(p0), tt)
+    assert int(os_["t"][0]) == 3 == int(jos["t"][0])
+    assert all(torch.isfinite(p).all() for p in tm.parameters())
+    assert_model_matches(tm, jp, js, 2e-6)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("overrides,optimizer,logging,reason", [
+    ({}, "rmsprop", LL, "adam or sgd"),
+    ({}, ("sgd", 0.1, 0.9), LL, "momentum"),
+    ({}, {"nn": "adam"}, LL, "per-branch"),
+    ({}, "adam", et.LoggingLoss(training_loss="mae"), "trains mse"),
+    ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
+    ({}, "adam", et.LoggingLoss(agg=lambda xs: xs[0]), "agg"),
+    ({"hidden_layers": [65]}, "adam", LL, "cap of 64"),
+    ({"activation": torch.tanh}, "adam", LL, "activation"),
+    ({"hidden_layers": [64] * 7}, "adam", LL, "shared memory"),
+])
+def test_envelope_reasons(overrides, optimizer, logging, reason):
+    tm = et.construct_hybrid_model(**_spec(**overrides))
+    got = fe.fused_epoch_unsupported_reason(tm, optimizer, logging)
+    assert got is not None and reason in got
+    assert not et.supports_fused_epoch(tm, optimizer, logging)
+
+
+def test_envelope_accepts_the_quick_start_and_every_norm():
+    for norm in (True, "static", False):
+        for act in sorted(et.ACTIVATIONS):
+            tm = et.construct_hybrid_model(**_spec(norm, hidden=(16, 16), act=act))
+            assert et.supports_fused_epoch(tm, ("adam", 0.01), et.LoggingLoss(agg="mean"))
+    tm = et.construct_hybrid_model(**_spec(hidden=(64, 64)))
+    plan = fe.plan_fused_epoch(tm, "sgd", LL)
+    assert plan.width == 64 and plan.tile_rows == 128 and plan.opt_name == "sgd"
+
+
+def test_form_partials_check_raises_on_a_wrong_partial():
+    form = ff.KERNEL_FORMS["rbq10"]
+    args = (torch.tensor([2.0, 3.0]), torch.tensor([1.5]), torch.tensor([10.0, 25.0]), 15.0)
+    ff.check_form_partials(form, args)
+
+    def wrong(rb, Q10, ta, tref):
+        (parts,) = form.partials_fn(rb, Q10, ta, tref)
+        return ((parts[0], 1.01 * parts[1], parts[2], parts[3]),)
+
+    with pytest.raises(ValueError, match="'Q10' disagrees with torch.func.jvp"):
+        ff.check_form_partials(dataclasses.replace(form, partials_fn=wrong), args)
+
+
+@pytest.mark.parametrize("shuffle,epochs", [(False, 1), (True, 3), ("batches", 2)])
+def test_gate_passes_on_the_plain_version(shuffle, epochs):
+    *_, tm, tt = setup(True, hidden=(16, 16), act="swish")
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    ok, worst = fe.fused_exactness_check(tm, ("adam", 0.01), LL, tt, epochs_per_call=epochs,
+                                         shuffle=shuffle)
+    assert ok and worst < 1e-4
+    for k, v in tm.state_dict().items():  # the gate leaves the model as it was
+        assert torch.equal(v, before[k])
+
+
+def test_gate_fails_on_a_corrupted_gradient(monkeypatch):
+    *_, tm, tt = setup(True)
+    real = fe.reference_grads
+
+    def corrupted(*args):
+        g, loss, valid, bn = real(*args)
+        return g * 1.5, loss, valid, bn
+
+    monkeypatch.setattr(fe, "reference_grads", corrupted)
+    ok, worst = fe.fused_exactness_check(tm, ("adam", 0.01), LL, tt)
+    assert not ok and worst > 0.1
+
+
+def test_kernel_source_and_ctypes_mirror_agree():
+    src = CU_SOURCE.read_text()
+    defines = dict(re.findall(r"#define (EH_MAX_\w+) (\d+)", src))
+    for name in ("WIDTH", "LAYERS", "FORCING", "ARGS", "SCALARS"):
+        assert int(defines[f"EH_MAX_{name}"]) == getattr(ff, f"MAX_{name}")
+    assert int(defines["EH_MAX_TARGETS"]) == fe.MAX_TARGETS
+    assert "(227 * 1024)" in src and fe.MAX_SMEM_BYTES == 227 * 1024
+    body = re.search(r"struct EhFusedEpochArgs \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"(\w+)(?:\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
+    assert fields == [name for name, _ in fe._Args._fields_]
+    assert "norm_mode" in fields and ctypes.sizeof(fe._Args) > 0
+
+
+def test_kernel_arguments_pack_the_plan():
+    tm = et.construct_hybrid_model(**_spec(True, hidden=(16, 16), act="swish"))
+    plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+    a = fe._Args.from_buffer_copy(plan.args_bytes)
+    assert plan.n_params == a.n_params == 2 * 2 + 16 * 3 + 16 * 17 + 17 + 1
+    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.opt == 1
+    assert list(a.p_off_w[:3]) == [4, 52, 324] and a.p_off_g == plan.n_params - 1
+    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and a.tile_rows == plan.tile_rows == 128
+    assert a.r_off_g + 1 == plan.res_floats == a.res_floats
+    packed = plan.pack(tm)
+    assert packed.params.numel() == plan.n_params and packed.bn.numel() == 4
+    twin = et.construct_hybrid_model(**_spec(True, hidden=(16, 16), act="swish"))
+    plan.unpack(packed, twin)
+    for k, v in tm.state_dict().items():
+        assert torch.equal(v, twin.state_dict()[k])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_reference_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    *_, tm, tt = setup(True, hidden=(16, 16), act="swish", n=2000, batch=256)
+    tm.to("cuda")
+    tt = tepoch.epoch_tensors_to(tt, "cuda")
+    fn = et.make_fused_epoch(tm, ("adam", 0.01), LL, shuffle=True, epochs_per_call=2)
+    perms = tepoch.perms_for_epochs(True, tt, 2, generator=torch.Generator("cuda").manual_seed(0))
+    p0 = fn.plan.pack(tm)
+    got = fn(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    want = fn.reference(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    torch.testing.assert_close(got[0].params, want[0].params, atol=1e-5, rtol=1e-5)

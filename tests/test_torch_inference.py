@@ -103,3 +103,24 @@ def test_untagged_model_matches_jax():
     fn = et.make_inference_fn(tm, batch_size=128)
     assert "no kernel form" in fn.engine_reason
     _assert_same(fn(df), eh.predict(jm, params, state, df, batch_size=128))
+
+
+@pytest.mark.parametrize("batch_size", [1, 1024])
+def test_engines_return_the_same_keys_as_jax(batch_size):
+    """Both engines return JAX predict's keys: at batch_size=1 the (1,)
+    globals and fixed values too (their length equals the batch's). The
+    kernel engine's forward runs here through its wrapper's plain path."""
+    from easyhybrid_tpu_torch.training import inference
+
+    params = {"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0), "tref": (15.0, 0.0, 30.0)}
+    df = eh.gen_rbq10_data(40, seed=12)
+    jm, jparams, jstate, tm = _pair(_spec(parameters=params), df)
+    want = eh.predict(jm, jparams, jstate, df, batch_size=batch_size)
+    plain = et.make_inference_fn(tm, batch_size=batch_size)
+    fused = inference._with_scalars(tm, et.make_fused_forward(tm, batch_size=batch_size))
+    got_fused = inference._run_chunked(tm, fused, df, batch_size, tm.device)
+    assert plain.engine == "torch"
+    expected = {"reco", "rb", "Q10", "tref"} if batch_size == 1 else {"reco", "rb"}
+    assert set(want) == expected
+    _assert_same(plain(df), want)
+    _assert_same(got_fused, want)
