@@ -24,8 +24,24 @@ Phases, one or more lines each; any failure exits non-zero:
    BatchNorm) at 20,000 rows, 100 epochs of batch 512, which must take the
    kernel after its exactness gate (one launch per epoch) and learn Q10;
 8. times: kernel 2 against its plain version per epoch, and ``train()``
-   wall seconds on both epoch engines.
+   wall seconds on both epoch engines (the torch engine for 20 epochs);
+9. primitives: the multi-site kernel's building blocks, each a tiny kernel
+   held against a torch expression, PASS or FAIL;
+10. kernel 5: the fused multi-site epoch against its plain PyTorch version
+    (``fused_multisite_reference``) from identical parameters and the same
+    site indices, at the main path's widths and at its edges, with a second
+    run that must give the same bits;
+11. main path: multi-site ``train()`` at the JAX bench's shape, 10,000 sites
+    x 64 observations with a true Q10 per site, from a long table through
+    ``prepare_multisite_data`` and ``MultiSiteHybridModel``: it must take
+    the kernel after its gate (one launcher call per eval block), return
+    finite validation predictions and recover the training sites' Q10; then
+    a short run of the minibatched, shuffled shape (10,240 sites, batches of
+    2,560);
+12. times: kernel 5 against its plain version per step, ``train()`` wall on
+    both engines, and the host's share (``prepare_multisite_data``).
 
+Models are built without a ``device=`` argument and must land on the card.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -75,16 +91,16 @@ def build_model(et, *, hidden=(16, 16), activation="swish", norm="static",
         scale_nn_outputs=True, input_batchnorm=norm,
     )
     spec.update(overrides)
-    return et.construct_hybrid_model(
-        **spec, generator=torch.Generator().manual_seed(seed)
-    )
+    model = et.construct_hybrid_model(**spec, generator=torch.Generator().manual_seed(seed))
+    if model.device.type != "cuda":
+        raise AssertionError(f"a model built without device= is on {model.device}, not the card")
+    return model
 
 
 def to_device(et, model, cols):
-    """Fit the static norm on the complete rows, move the model to the card
-    and return the model's inputs (NaN rows kept) as CUDA tensors."""
+    """Fit the static norm on the complete rows and return the model's
+    inputs (NaN rows kept) as CUDA tensors."""
     et.fit_input_norm(model, et.prepare_data(model, cols))
-    model.to("cuda")
     data = et.prepare_data(model, cols, drop_missing_rows=False)
     x = torch.from_numpy(data.x).cuda()
     forcing = {k: torch.from_numpy(v).cuda() for k, v in data.forcing.items()}
@@ -218,12 +234,354 @@ def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, e
     else:
         data = et.prepare_data(model, cols)
     et.fit_input_norm(model, data)
-    model.to("cuda")
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
     fn = et.make_fused_epoch(model, opt, et.LoggingLoss(), shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device="cuda").manual_seed(seed))
     return what, fn, fn.plan.pack(model), tensors, perms
+
+
+# the card's published peaks (H100 SXM): device memory rate and float32
+# outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+
+
+def forward_flops(dims) -> int:
+    """Multiply-adds of one row's MLP forward, two flops each. A training
+    step is counted as three of them: the forward, the input cotangents and
+    the weight gradients."""
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def bound(*, bytes_moved: int, flops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the operations over its float32 peak."""
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    name contains ``name``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no kernel named *{name}*")
+    return total / 1e3 / reps
+
+
+# kernel 5 after at most 4 epochs of site batches: max |got - ref| <=
+# TOL_EPOCH * max(1, |ref|) on parameters, moments and loss. The kernel sums a
+# site's time steps, a tile's rows and the blocks' partial rows one after the
+# other where torch reduces pairwise, so each step differs by a few ulp, and
+# every step starts from the last one's result
+MS_SITES, MS_OBS, MS_TRAIN_SITES = 10_000, 64, 8_000
+MS_TRAIN_KW = dict(nepochs=60, batchsize=MS_SITES, eval_every=5, optimizer=("adam", 0.01),
+                   split_data_at=0.8, shuffle_each_epoch=False, show_progress=False)
+
+
+def multisite_model(et, n_sites, seed=0, **overrides):
+    model = et.MultiSiteHybridModel(build_model(et, seed=seed, **overrides), n_sites=n_sites)
+    if model.device.type != "cuda":
+        raise AssertionError(f"a multi-site model built without device= is on {model.device}")
+    return model
+
+
+def primitive_checks(card):
+    """Phase 9: each primitive kernel against a torch expression on the card."""
+    from easyhybrid_tpu_torch.ops import multisite_primitives as mp
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_sites, n_obs = MS_SITES, MS_OBS
+    vals = torch.rand(n_sites, device="cuda", generator=g)
+    index = torch.randperm(n_sites, device="cuda", generator=g)[:MS_TRAIN_SITES].int()
+    index[::97] = -1  # padding slots
+    live = index >= 0
+    rows = index.clamp_min(0).long()
+    x = torch.rand(MS_TRAIN_SITES, n_obs, device="cuda", generator=g)
+    fresh = torch.rand(MS_TRAIN_SITES, device="cuda", generator=g)
+    results = {}
+
+    want = torch.where(live, vals[rows], vals.new_zeros(()))[:, None].expand(-1, n_obs)
+    results["site_gather (exact)"] = (mp.site_gather(vals, index, n_obs) - want).abs().max(), 0.0
+
+    results["site_reduce"] = (mp.site_reduce(x) - x.sum(1)).abs().max(), 1e-5 * n_obs
+
+    got, ref = vals.clone(), vals.clone()
+    mp.site_update(got, index, fresh)
+    ref[rows[live]] = fresh[live]
+    same_bits = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    results["site_update (exact, other sites untouched)"] = (
+        (got - ref).abs().max() if same_bits else torch.tensor(float("inf")), 0.0)
+
+    acc, ref = torch.ones(n_sites, device="cuda"), torch.ones(n_sites, device="cuda")
+    mp.site_chain(vals, index, x, acc)
+    ref[rows[live]] += (vals[rows[live]][:, None] * x[live]).sum(1)
+    results["site_chain"] = (acc - ref).abs().max(), 1e-5 * n_obs
+
+    parts = torch.randn(500, 338, device="cuda", generator=g)
+    first, second = mp.block_sum(parts), mp.block_sum(parts)
+    repeat = torch.equal(first.view(torch.int32), second.view(torch.int32))
+    results["block_sum (same bits on a second run)"] = (
+        (first - parts.sum(0)).abs().max() if repeat else torch.tensor(float("inf")), 1e-4)
+
+    worst = 0.0
+    failed = []
+    for what, (err, tol) in results.items():
+        err = float(err)
+        ok = err <= tol
+        log("primitives", f"{what}: max |diff| {err:.3e} (tolerance {tol:.1e}) "
+                          f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+        elif tol > 0:
+            worst = max(worst, err)
+    if failed:
+        raise AssertionError(f"primitives failed: {failed}")
+    fns = {"kernel": lambda: mp.site_reduce(x), "plain": lambda: x.sum(1)}
+    times = {k: statistics.median(device_ms(f, 50, k) for _ in range(5)) for k, f in fns.items()}
+    log("times", f"[{card}] site_reduce over {MS_TRAIN_SITES} x {n_obs}, median of 5, device ms: "
+                 + ", ".join(f"{k} {v:.5f}" for k, v in times.items()))
+    return worst, times
+
+
+def multisite_cases():
+    """Kernel 5's cases: the main path's shape first, then its edges."""
+    mini = dict(S=300, N=8, batch=128, epochs=3)
+    return [
+        dict(what=f"main path: {MS_TRAIN_SITES} sites x {MS_OBS}, [16,16] swish, static norm, "
+                  "adam, one site batch, 4 epochs", S=MS_TRAIN_SITES, N=MS_OBS, epochs=4),
+        dict(what="S=150 N=7 (sites do not fill a tile)", S=150, N=7),
+        dict(what="10% NaN targets, N=200 (a site longer than a tile)", S=64, N=200, nan_frac=0.1),
+        dict(what="a site batch without a valid target (batch 128 of 300)", mask_batch=1, **mini),
+        *[dict(what=f"minibatched S=300 batch 128, shuffle {sh!r} (ragged last batch)",
+               shuffle=sh, **mini) for sh in (True, False, "batches")],
+        dict(what="sgd, mae, agg mean", S=300, N=8, opt=("sgd", 0.05), loss="mae", agg="mean"),
+        dict(what="nseLoss, minibatched and shuffled", loss="nseLoss", shuffle=True, **mini),
+        dict(what="no input norm", S=300, N=8, norm=False),
+        dict(what="[64,48] selu", S=300, N=9, hidden=(64, 48), activation="selu"),
+        dict(what="neural Q10, per-site rb", S=300, N=8,
+             neural_param_names=["Q10"], global_param_names=["rb"]),
+    ]
+
+
+def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam", 0.01),
+                           loss="mse", agg="sum", shuffle=False, nan_frac=0.1, mask_batch=None,
+                           seed=0, **model_kw):
+    from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
+
+    model = multisite_model(et, S, seed=seed, **model_kw)
+    data = et.gen_multisite_arrays(S, N, seed=seed, nan_frac=nan_frac, site_idx=True)
+    if mask_batch is not None:
+        data.y["reco"][mask_batch * batch:(mask_batch + 1) * batch] = np.nan
+    et.fit_input_norm(model, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), "cuda")
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = et.make_fused_multisite_epoch(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+    return what, fn, fn.plan.pack(model), tensors, perms
+
+
+def multisite_kernel_checks(et) -> float:
+    """Phase 10: kernel 5 against its plain version, and against itself."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    def named(packed, opt_state, loss, n_shared):
+        return {"shared": packed.params[:n_shared], "per-site": packed.params[n_shared:],
+                "m": opt_state["m"], "v": opt_state["v"], "t": opt_state["t"].float(),
+                "loss": loss.reshape(1)}
+
+    worst = 0.0
+    for case in multisite_cases():
+        what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
+        n_shared = fn.plan.offsets()["p_g"]
+        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        torch.cuda.synchronize()
+        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
+                    n_shared)
+        if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+            raise AssertionError(f"{what}: the kernel returned non-finite values")
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        err = compare(got, ref, what, TOL_EPOCH)
+        worst = max(worst, err)
+        log("kernel5", f"{what}: width {fn.plan.width}, {int(got['t'][0])} steps, max |diff| "
+                       f"{err:.3e}, second run bitwise equal (ok)")
+    return worst
+
+
+def multisite_table(et):
+    """The long table of the main path: every site's rows from
+    ``rbq10_columns`` with the site's own true Q10, drawn from [1.4, 2.8]."""
+    rng = np.random.default_rng(7)
+    q10_true = rng.uniform(1.4, 2.8, MS_SITES)
+    names = ("sw_pot", "dsw_pot", "ta", "reco")
+    parts = {k: [] for k in names}
+    for s in range(MS_SITES):
+        cols = et.rbq10_columns(MS_OBS, seed=7 + s, true_q10=float(q10_true[s]))
+        for k in names:
+            parts[k].append(cols[k])
+    table = {k: np.concatenate(v) for k, v in parts.items()}
+    table["site"] = np.repeat(np.arange(MS_SITES, dtype=np.int32), MS_OBS)
+    return table, q10_true
+
+
+def multisite_main_path(et, card) -> dict:
+    """Phase 11: multi-site ``train()`` through the normal entry points."""
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+    from easyhybrid_tpu_torch.ops import multisite_primitives as mp
+    from easyhybrid_tpu_torch.training import train as train_module
+
+    t0 = time.perf_counter()
+    table, q10_true = multisite_table(et)
+    table_s = time.perf_counter() - t0
+    model = multisite_model(et, MS_SITES)
+    t0 = time.perf_counter()
+    data = et.prepare_multisite_data(model.base, table, "site")
+    prepare_s = time.perf_counter() - t0
+    if data.x.shape != (MS_SITES, MS_OBS, 2):
+        raise AssertionError(f"prepare_multisite_data gave x of shape {data.x.shape}")
+
+    gate_launches, gate_s = [], []
+    real_gate = train_module.fused_exactness_check
+
+    def gate_then_reset(*args, **kwargs):
+        """The gate's own launches are counted apart from the main path's."""
+        t_gate = time.perf_counter()
+        out = real_gate(*args, **kwargs)
+        torch.cuda.synchronize()
+        gate_s.append(time.perf_counter() - t_gate)
+        gate_launches.append((fm.launch_fused_multisite.launches, mp.launch_primitive.launches))
+        fm.launch_fused_multisite.launches = mp.launch_primitive.launches = 0
+        return out
+
+    train_module.fused_exactness_check = gate_then_reset
+    fm.launch_fused_multisite.launches = mp.launch_primitive.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = et.train(model, data, **MS_TRAIN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, prim_launches = fm.launch_fused_multisite.launches, mp.launch_primitive.launches
+    finally:
+        train_module.fused_exactness_check = real_gate
+    if (result.epoch_path != "cuda_fused_multisite"
+            or "exactness gate passed" not in result.engine_reason):
+        raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
+    expected = MS_TRAIN_KW["nepochs"] // MS_TRAIN_KW["eval_every"]
+    if launches != expected or prim_launches < expected:
+        raise AssertionError(f"train() called kernel 5's launcher {launches} times (expected "
+                             f"{expected}) and the primitives {prim_launches} times")
+    pred = result.val_pred_columns["reco_pred"]
+    n_val = (MS_SITES - MS_TRAIN_SITES) * MS_OBS
+    if pred.shape != (n_val,) or not np.isfinite(pred).all():
+        raise AssertionError(f"val predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
+    q10 = et.scale_param(result.params["globals.Q10"], 1.0, 4.0).numpy().ravel()
+    if q10.shape != (MS_SITES,) or not np.isfinite(q10).all():
+        raise AssertionError(f"per-site Q10: shape {q10.shape}")
+    corr = float(np.corrcoef(q10[:MS_TRAIN_SITES], q10_true[:MS_TRAIN_SITES])[0, 1])
+    err = float(np.abs(q10[:MS_TRAIN_SITES] - q10_true[:MS_TRAIN_SITES]).mean())
+    untouched = float(np.abs(q10[MS_TRAIN_SITES:] - 2.0).max())  # validation sites see no gradient
+    if not (corr > 0.8 and untouched < 1e-6 and np.isfinite(result.best_loss)):
+        raise AssertionError(f"per-site Q10 of the training sites: correlation {corr:.3f} with the "
+                             f"truth (need > 0.8), validation sites moved by {untouched:.2e}")
+    log("main", f"multi-site train(): {MS_SITES} sites x {MS_OBS} observations, "
+                f"{result.epoch_path}, {result.engine_reason}; {launches} launcher calls and "
+                f"{prim_launches} primitive launches after the gate's {gate_launches}; per-site "
+                f"Q10 of the {MS_TRAIN_SITES} training sites: correlation {corr:.4f} with the "
+                f"truth, mean |err| {err:.4f}; best val mse {result.best_loss:.5f} at epoch "
+                f"{result.best_epoch}; {wall:.2f} s wall, {gate_s[0]:.2f} s of it the gate (ok)")
+
+    # the minibatched, shuffled shape of the JAX bench's second multi-site row
+    mini_model = multisite_model(et, 10_240, norm=False)
+    mini_data = et.gen_multisite_arrays(10_240, MS_OBS, seed=0)
+    before = fm.launch_fused_multisite.launches
+    t0 = time.perf_counter()
+    mini = et.train(mini_model, mini_data, nepochs=4, eval_every=2, batchsize=2_560,
+                    optimizer=("adam", 0.01), shuffle_each_epoch=True, show_progress=False)
+    torch.cuda.synchronize()
+    mini_wall = time.perf_counter() - t0
+    if mini.epoch_path != "cuda_fused_multisite" or not np.isfinite(mini.best_loss):
+        raise AssertionError(f"minibatched train() took {mini.epoch_path!r}: {mini.engine_reason}")
+    steps = int(mini.opt_state["t"][0])
+    if steps != 4 * 4:  # 8,192 training sites in 4 batches of 2,560, 4 epochs
+        raise AssertionError(f"minibatched train() took {steps} optimizer steps, not 16")
+    log("main", f"minibatched multi-site train(): 10,240 sites, batches of 2,560, shuffled: "
+                f"{mini.epoch_path}, {mini.engine_reason}; "
+                f"{fm.launch_fused_multisite.launches - before} launcher calls (gate included), "
+                f"{steps} steps, best val mse {mini.best_loss:.5f}; {mini_wall:.2f} s wall (ok)")
+    return dict(launches=launches, primitive_launches=prim_launches, wall=wall, data=data,
+                table_s=table_s, prepare_s=prepare_s)
+
+
+def multisite_times(et, card, main) -> dict:
+    """Phase 12: kernel 5 against its plain version per step; ``train()``
+    wall on both engines; the host's share."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    case = {**multisite_cases()[0], "epochs": 5}
+    what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
+    opt0 = fe.init_fused_opt_state(packed)
+    one = prepare_multisite_case(et, **{**case, "epochs": 1})[1]
+    calls = {"kernel": lambda: fn(packed, opt0, tensors),
+             "plain": lambda: one.reference(packed, opt0, tensors)}
+    for f in calls.values():
+        host_ms(f, 2)  # warm-up
+    dev = {"kernels": [], "grad": [], "update": [], "call": [], "plain": []}
+    wall = {"kernel": [], "plain": []}
+    for i in range(5):
+        dev["kernels"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_") / 5)
+        dev["grad"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_grad") / 5)
+        dev["update"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_update") / 5)
+        dev["call"].append(device_ms(calls["kernel"], 10, "kernel 5") / 5)
+        dev["plain"].append(profiled_device_ms(calls["plain"], 2))
+        for k in (list(wall) if i % 2 == 0 else list(reversed(list(wall)))):
+            wall[k].append(host_ms(calls[k], 4) / (5 if k == "kernel" else 1))
+    med = {k: statistics.median(v) for k, v in dev.items()}
+    wall_ms = {k: statistics.median(v) for k, v in wall.items()}
+    samples = MS_TRAIN_SITES * MS_OBS
+    log("times", f"[{card}] kernel 5, one step over {MS_TRAIN_SITES} sites x {MS_OBS} = {samples} "
+                 f"samples ({what}), median of 5, device ms per step: the two kernels "
+                 f"{med['kernels']:.4f} (profiler; gradient kernel {med['grad']:.4f}, update "
+                 f"kernel {med['update']:.4f}), the whole wrapper call {med['call']:.4f} "
+                 f"(5-epoch calls behind a sleep kernel), plain version {med['plain']:.4f} "
+                 f"(profiler); wall ms per step: kernel {wall_ms['kernel']:.4f}, plain "
+                 f"{wall_ms['plain']:.4f}")
+
+    torch_model = multisite_model(et, MS_SITES)
+    t0 = time.perf_counter()
+    torch_result = et.train(torch_model, main["data"], use_kernel=False, **MS_TRAIN_KW)
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if torch_result.epoch_path != "torch":
+        raise AssertionError(f"use_kernel=False took {torch_result.epoch_path!r}")
+    # the first fused call also paid what a process pays once (the first autograd
+    # step, the first matrix product); a second one, after the torch run, does not
+    t0 = time.perf_counter()
+    again = et.train(multisite_model(et, MS_SITES), main["data"], **MS_TRAIN_KW)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    if again.epoch_path != "cuda_fused_multisite":
+        raise AssertionError(f"the second fused train() took {again.epoch_path!r}")
+    log("times", f"[{card}] multi-site train() wall, {MS_TRAIN_KW['nepochs']} epochs of one step "
+                 f"over {samples} samples + an evaluation every {MS_TRAIN_KW['eval_every']}: "
+                 f"cuda_fused_multisite {main['wall']:.2f} s in the first call and "
+                 f"{again_wall:.2f} s in a second one (gate included), torch "
+                 f"{torch_wall:.2f} s (best val mse {torch_result.best_loss:.5f}); the host "
+                 f"before train(): building the {MS_SITES * MS_OBS}-row table "
+                 f"{main['table_s']:.2f} s, prepare_multisite_data over {MS_SITES} site ids "
+                 f"{main['prepare_s']:.2f} s")
+    return dict(kernel_ms=med["kernels"], plain_ms=med["plain"], samples=samples)
 
 
 def main() -> None:
@@ -349,7 +707,6 @@ def main() -> None:
 
     plain_model = build_model(et, mechanistic=rbq10_untagged)
     plain_model.load_state_dict(quick.state_dict())
-    plain_model.to("cuda")
     engines = {
         "cuda_fused_forward b1024": et.make_inference_fn(quick, batch_size=BATCH),
         "torch b1024": et.make_inference_fn(plain_model, batch_size=BATCH),
@@ -390,7 +747,7 @@ def main() -> None:
                        f"{int(got_o['t'][0])} steps, max |diff| {err:.3e} (ok)")
 
     # 7. main path: train() ------------------------------------------------------
-    model = build_model(et, norm=True, seed=0).to("cuda")
+    model = build_model(et, norm=True, seed=0)
     gate_launches = []
     from easyhybrid_tpu_torch.training import train as train_module
 
@@ -454,19 +811,29 @@ def main() -> None:
                              for k, v in epoch_ms.items() if k != "plain")
                  + "; wall ms per epoch " + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items()))
 
-    torch_model = build_model(et, norm=True, seed=0).to("cuda")
+    torch_model = build_model(et, norm=True, seed=0)
+    torch_epochs = 20  # a fifth of the fused run's depth: the torch engine takes ~0.17 s an epoch
     t0 = time.perf_counter()
-    torch_result = et.train(torch_model, quick_cols, use_kernel=False, **TRAIN_KW)
+    torch_result = et.train(torch_model, quick_cols, use_kernel=False,
+                            **{**TRAIN_KW, "nepochs": torch_epochs})
     torch.cuda.synchronize()
     torch_wall = time.perf_counter() - t0
     if torch_result.epoch_path != "torch":
         raise AssertionError(f"use_kernel=False took {torch_result.epoch_path!r}")
     torch_q10 = float(et.scale_param(torch_result.params["globals.Q10"], 1.0, 4.0))
-    log("times", f"[{card}] train() wall, {TRAIN_KW['nepochs']} epochs x {steps} steps + an "
-                 f"evaluation per epoch: cuda_fused_epoch {fused_wall:.2f} s (gate included), "
-                 f"torch {torch_wall:.2f} s (Q10 {torch_q10:.4f}, best val mse "
+    log("times", f"[{card}] train() wall, epochs of {steps} steps + an evaluation per epoch: "
+                 f"cuda_fused_epoch {fused_wall:.2f} s for {TRAIN_KW['nepochs']} epochs (gate "
+                 f"included), torch {torch_wall:.2f} s for {torch_epochs} epochs "
+                 f"({torch_wall / torch_epochs * TRAIN_KW['nepochs']:.2f} s per "
+                 f"{TRAIN_KW['nepochs']}; Q10 {torch_q10:.4f}, best val mse "
                  f"{torch_result.best_loss:.5f})")
 
+    prim_err, prim_ms = primitive_checks(card)
+    ms_err = multisite_kernel_checks(et)
+    ms_main = multisite_main_path(et, card)
+    ms_times = multisite_times(et, card, ms_main)
+
+    quick_dims = (2, 16, 16, 1)
     print(json.dumps({"kernels": [{
         "name": "fused_forward",
         "route": "cuda",
@@ -476,6 +843,9 @@ def main() -> None:
         "max_abs_err": kernel_err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
+        # one launch over N_ROWS rows: 2 predictors and 1 forcing in, reco and rb out
+        **bound(bytes_moved=N_ROWS * 4 * (3 + 2), flops=N_ROWS * forward_flops(quick_dims)),
+        "library_ms": None,
     }, {
         "name": "fused_epoch",
         "route": "cuda",
@@ -485,6 +855,37 @@ def main() -> None:
         "max_abs_err": epoch_err,
         "ms": epoch_ms["kernel"],
         "plain_ms": epoch_ms["plain"],
+        # one epoch: every row's 2 predictors, forcing, target, mask and index once
+        **bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
+                flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
+        "library_ms": None,
+    }, {
+        "name": "fused_multisite",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_multisite.cu",
+        "replaces": "easyhybrid_tpu/ops/fused_multisite.py:1125",
+        "launches": ms_main["launches"],
+        "max_abs_err": ms_err,
+        "ms": ms_times["kernel_ms"],
+        "plain_ms": ms_times["plain_ms"],
+        # one step: every sample's 2 predictors, forcing, target and mask once; every
+        # site's parameter and two moments read and written once
+        **bound(bytes_moved=ms_times["samples"] * 4 * 5 + MS_SITES * 4 * 6,
+                flops=ms_times["samples"] * 3 * forward_flops(quick_dims)),
+        "library_ms": None,
+    }, {
+        "name": "multisite_primitives",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/multisite_primitives.cu",
+        "replaces": "tools/probe_multisite_primitives.py:32",
+        "launches": ms_main["primitive_launches"],
+        "max_abs_err": prim_err,
+        "ms": prim_ms["kernel"],
+        "plain_ms": prim_ms["plain"],
+        # site_reduce at the main path's shape: the mask read once, one count per site out
+        **bound(bytes_moved=ms_times["samples"] * 4 + MS_TRAIN_SITES * 4,
+                flops=ms_times["samples"]),
+        "library_ms": prim_ms["plain"],  # torch.sum(x, 1), which is also the plain version
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

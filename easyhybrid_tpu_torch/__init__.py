@@ -1,12 +1,15 @@
 """easyhybrid_tpu_torch: the PyTorch / CUDA port of easyhybrid_tpu.
 
-The port covers serving and training: build a hybrid model, carry its
-parameters in (or initialise them from a ``torch.Generator``), ``train`` it,
-and run ``make_inference_fn`` / ``predict``. On a CUDA device a model inside
-the envelopes runs two hand-written kernels, compiled with ``nvcc`` at first
-use: the fused forward (``csrc/fused_forward.cu``) for serving and the fused
-training epoch (``csrc/fused_epoch.cu``), which ``train`` enables behind a
-runtime exactness gate.
+The port covers serving and training: build a hybrid model (single-series,
+or lifted over sites with ``MultiSiteHybridModel``), carry its parameters in
+(or initialise them from a ``torch.Generator``), ``train`` it, and run
+``make_inference_fn`` / ``predict``. Models are built on the CUDA device
+when there is one, and the entry points follow the model's device. There a
+model inside the envelopes runs hand-written kernels, compiled with ``nvcc``
+at first use: the fused forward (``csrc/fused_forward.cu``) for serving, and
+the fused training epochs (``csrc/fused_epoch.cu``, and
+``csrc/fused_multisite.cu`` for multi-site models), which ``train`` enables
+behind a runtime exactness gate.
 
 Importing the package imports torch and numpy only; pandas is imported
 only where a DataFrame is read or built.
@@ -25,9 +28,10 @@ from .params import (
 )
 from .data.prepare import HybridData, prepare_data
 from .data.loaders import build_epoch_tensors, pad_axis0
-from .data.synthetic import gen_rbq10_data, rbq10_columns
+from .data.synthetic import gen_multisite_arrays, gen_rbq10_data, rbq10_columns
 from .models.nn import ACTIVATIONS, BatchNorm, Dense, LSTMNet, MLP, construct_nn
 from .models.hybrid import SingleNNHybridModel, construct_hybrid_model
+from .parallel.multisite import MultiSiteHybridModel, prepare_multisite_data
 from .data.split import split_data
 from .config.train_config import DataConfig, TrainConfig, TrainResults
 from .losses.metrics import (
@@ -51,6 +55,8 @@ from .ops.fused_forward import (
     supports_fused_forward,
 )
 from .ops.fused_epoch import make_fused_epoch, supports_fused_epoch
+from .ops.fused_multisite import make_fused_multisite_epoch, supports_fused_multisite
+from .utils.device import default_device
 
 __all__ = [
     "__version__",
@@ -66,6 +72,7 @@ __all__ = [
     "prepare_data",
     "build_epoch_tensors",
     "pad_axis0",
+    "gen_multisite_arrays",
     "gen_rbq10_data",
     "rbq10_columns",
     "ACTIVATIONS",
@@ -76,6 +83,8 @@ __all__ = [
     "construct_nn",
     "SingleNNHybridModel",
     "construct_hybrid_model",
+    "MultiSiteHybridModel",
+    "prepare_multisite_data",
     "split_data",
     "DataConfig",
     "TrainConfig",
@@ -103,4 +112,7 @@ __all__ = [
     "supports_fused_forward",
     "make_fused_epoch",
     "supports_fused_epoch",
+    "make_fused_multisite_epoch",
+    "supports_fused_multisite",
+    "default_device",
 ]

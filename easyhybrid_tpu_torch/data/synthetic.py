@@ -1,8 +1,9 @@
-"""Synthetic RbQ10 data for examples, tests and the on-card smoke run.
+"""Synthetic data for examples, tests and the on-card smoke run.
 
 The same recipe and random stream as ``gen_rbq10_data`` in
 ``easyhybrid_tpu/data/synthetic.py``: the same seed gives the same columns
-in both packages. The numpy part is :func:`rbq10_columns`, which returns a
+in both packages, and :func:`gen_multisite_arrays` is the numpy-only copy of
+the JAX package's multi-site fixture. The numpy part is :func:`rbq10_columns`, which returns a
 dict of columns (what ``prepare_data`` takes); pandas is imported only by
 :func:`gen_rbq10_data`, which wraps those columns in a DataFrame.
 """
@@ -13,7 +14,9 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["gen_rbq10_data", "rbq10_columns"]
+from .prepare import HybridData
+
+__all__ = ["gen_rbq10_data", "rbq10_columns", "gen_multisite_arrays"]
 
 
 def rbq10_columns(
@@ -54,3 +57,33 @@ def gen_rbq10_data(n: int = 20_000, **kwargs):
     import pandas as pd
 
     return pd.DataFrame(rbq10_columns(n, **kwargs))
+
+
+def gen_multisite_arrays(
+    n_sites: int,
+    n_obs: int,
+    *,
+    seed: int = 0,
+    nan_frac: float = 0.0,
+    site_idx: bool = True,
+) -> HybridData:
+    """Synthetic multi-site arrays in ``prepare_multisite_data``'s layout:
+    ``x (S, N, 2)``, forcing ``ta (S, N)``, target ``reco (S, N)`` and, when
+    ``site_idx``, the identity per-site selector ``_site_idx``. The same
+    seed gives the same numbers as the JAX package's fixture.
+
+    The fused multisite kernel reads site ``s``'s parameters for data row
+    ``s``; ``supports_fused_multisite`` checks that the data's site order is
+    this identity before ``train`` takes the kernel."""
+    S, N = int(n_sites), int(n_obs)
+    rng = np.random.default_rng(seed)
+    x = rng.random((S, N, 2)).astype(np.float32)
+    forcing = {"ta": (10 + 10 * rng.random((S, N))).astype(np.float32)}
+    if site_idx:
+        forcing["_site_idx"] = np.broadcast_to(
+            np.arange(S, dtype=np.float32)[:, None], (S, N)
+        ).copy()
+    y = (2 + rng.random((S, N))).astype(np.float32)
+    if nan_frac:
+        y[rng.random((S, N)) < nan_frac] = np.nan
+    return HybridData(x=x, forcing=forcing, y={"reco": y})

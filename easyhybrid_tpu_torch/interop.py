@@ -2,7 +2,9 @@
 
 ``load_jax_params(module, params, state)`` takes the JAX package's
 ``params`` / ``state`` pytrees as nested dicts (and lists) of numpy arrays
-and writes them into a port module: a :class:`SingleNNHybridModel` or an
+and writes them into a port module: a :class:`SingleNNHybridModel`, a
+:class:`MultiSiteHybridModel` (``params["globals"][g]`` of shape ``(S, 1)``, and
+with ``share_nn=False`` every network leaf with a leading site axis) or an
 :class:`MLP`. Dense weights are transposed from JAX's ``(in, out)`` to
 torch's ``(out, in)``. Any missing, extra or wrongly shaped leaf raises.
 ``export_jax_params(module)`` is its inverse. This module does not import
@@ -18,6 +20,7 @@ import torch
 
 from .models.hybrid import SingleNNHybridModel
 from .models.nn import MLP
+from .parallel.multisite import MultiSiteHybridModel, SiteNetworks
 
 __all__ = ["load_jax_params", "export_jax_params"]
 
@@ -29,11 +32,17 @@ def _same(a):
     return a
 
 
-def _mlp_leaves(mlp: MLP, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
+def _swap_in_out(a):
+    """Dense weights: JAX ``(…, in, out)``, torch ``(…, out, in)``; a leading
+    site axis (per-site networks) stays in front."""
+    return np.swapaxes(a, -1, -2)
+
+
+def _mlp_leaves(mlp, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
     params: _LeafMap = {}
     state: _LeafMap = {}
     for i, layer in enumerate(mlp.layers):  # an MLP's layers always have a bias
-        params[f"{prefix}layers/{i}/w"] = (layer.weight, np.transpose)
+        params[f"{prefix}layers/{i}/w"] = (layer.weight, _swap_in_out)
         params[f"{prefix}layers/{i}/b"] = (layer.bias, _same)
     if mlp.norm is not None:  # and its norm is affine
         params[f"{prefix}norm/scale"] = (mlp.norm.scale, _same)
@@ -46,11 +55,11 @@ def _mlp_leaves(mlp: MLP, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
 def _leaf_maps(module) -> Tuple[_LeafMap, _LeafMap]:
     if isinstance(module, MLP):
         return _mlp_leaves(module, "")
-    if isinstance(module, SingleNNHybridModel):
+    if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)):
         params: _LeafMap = {}
         state: _LeafMap = {}
         if module.nn is not None:
-            if not isinstance(module.nn, MLP):
+            if not isinstance(module.nn, (MLP, SiteNetworks)):
                 raise TypeError(
                     f"cannot carry JAX parameters into {type(module.nn).__name__}"
                 )
@@ -111,7 +120,7 @@ def export_jax_params(module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         }
         out.append(_nest(flat))
     params, state = out
-    if isinstance(module, SingleNNHybridModel) and module.nn is not None:
+    if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)) and module.nn is not None:
         state.setdefault("nn", {})
     return params, state
 

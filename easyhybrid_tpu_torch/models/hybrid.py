@@ -31,6 +31,7 @@ from ..params import (
     scale_param,
     unscale_param,
 )
+from ..utils.device import default_device
 from .nn import construct_nn
 
 __all__ = [
@@ -273,7 +274,9 @@ def construct_hybrid_model(
 ) -> SingleNNHybridModel:
     """Build a hybrid model from a list of predictor names (one NN with
     ``len(neural_param_names)`` outputs). Weights are drawn from
-    ``generator`` on the CPU, then the model moves to ``device``.
+    ``generator`` on the CPU, then the model moves to ``device``: the CUDA
+    device when there is one and the caller names none
+    (:func:`~easyhybrid_tpu_torch.utils.device.default_device`).
 
     A mapping of predictors (one NN per parameter) raises: MultiNN models
     are not ported yet.
@@ -342,4 +345,4 @@ def construct_hybrid_model(
         config=config,
         generator=generator,
     )
-    return model if device is None else model.to(device)
+    return model.to(default_device() if device is None else device)

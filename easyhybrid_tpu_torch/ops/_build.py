@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for Hopper
-(``sm_90a``), all of them at once, and the objects are linked into one
+(``sm_90a``), all of them at once (``csrc/*.cuh`` are the headers they
+share), and the objects are linked into one
 shared library with a plain C interface, in
 ``easyhybrid_tpu_torch/_build/`` (not under version control). The library's
 file name carries a hash of the sources and the flags, so an edited source
@@ -101,7 +102,7 @@ def build_library() -> BuildResult:
     ``nvcc -c`` per source, all started together, then one link."""
     sources = _sources()
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(_SRC_DIR.glob("*.cuh")):  # the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -149,11 +150,22 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C function's
     argument and result types declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch):
+    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch, lib.eh_fused_multisite):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size):
+    for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size,
+               lib.eh_fused_multisite_args_size):
         fn.argtypes = []
+        fn.restype = ctypes.c_int
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.eh_prim_site_gather, [ptr, ptr, ptr, num, num, ptr]),
+        (lib.eh_prim_site_reduce, [ptr, ptr, num, num, ptr]),
+        (lib.eh_prim_site_update, [ptr, ptr, ptr, num, ptr]),
+        (lib.eh_prim_site_chain, [ptr, ptr, ptr, ptr, num, num, ptr]),
+        (lib.eh_prim_block_sum, [ptr, ptr, num, num, ptr]),
+    ):
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.eh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eh_cuda_error_string.restype = ctypes.c_char_p

@@ -266,6 +266,8 @@ class FusedEpochPlan:
     width: int
     tile_rows: int
     res_floats: int
+    loss: str = "mse"
+    n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
 
     @property
     def has_norm(self) -> bool:
@@ -376,6 +378,15 @@ def plan_fused_epoch(model, optimizer, logging: LoggingLoss) -> FusedEpochPlan:
     reason = fused_epoch_unsupported_reason(model, optimizer, logging)
     if reason is not None:
         raise ValueError(f"model not supported by the fused epoch kernel: {reason}")
+    return build_plan(model, optimizer, logging, tile_rows=_tile_rows(model))
+
+
+def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
+               n_sites: int = 0) -> FusedEpochPlan:
+    """Lay out the parameters of a model already found inside a training
+    kernel's envelope, and check its kernel form on probe values. A
+    multi-site model's globals are ``(n_sites, 1)`` leaves, packed after the
+    shared parameters like the scalar globals of a single-series model."""
     net = model.nn
     form = _form_of(model.mechanistic_model)
     arg_sources, _ = _arg_sources(model, form)
@@ -430,8 +441,10 @@ def plan_fused_epoch(model, optimizer, logging: LoggingLoss) -> FusedEpochPlan:
         opt_name=name,
         hyper=tuple(sorted(hyper.items())),
         width=next(w for w in _WIDTHS if w >= max(dims)),
-        tile_rows=_tile_rows(model),
+        tile_rows=tile_rows,
         res_floats=res,
+        loss=_loss_name(logging.training_loss),
+        n_sites=n_sites,
     )
 
 
@@ -527,16 +540,30 @@ def _act_and_grad(name: str, z):
     return z, torch.ones_like(z)  # identity / linear
 
 
-def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
-    """One step's forward and hand-written backward on one batch: returns
-    ``(grad, batch_loss, valid, new_bn)`` with ``grad`` packed like ``p``
-    and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``."""
+class _Forward(NamedTuple):
+    """What :func:`reference_forward` keeps for the backward."""
+
+    neural: torch.Tensor    # (rows, P) bound-scaled network outputs
+    dneural: torch.Tensor   # their derivative with respect to the raw outputs
+    hs: List[torch.Tensor]  # every layer's input
+    dacts: List[torch.Tensor]
+    xhat: Optional[torch.Tensor]
+    new_bn: torch.Tensor
+
+
+def split_consts(plan: FusedEpochPlan, consts):
+    """``(neural lo, neural span, global lo, global span, fixed)``."""
+    n, g = len(plan.neural_names), len(plan.global_names)
+    return (consts[:n], consts[n : 2 * n], consts[2 * n : 2 * n + g],
+            consts[2 * n + g : 2 * n + 2 * g], consts[2 * n + 2 * g :])
+
+
+def reference_forward(plan: FusedEpochPlan, p, bn, consts, x) -> _Forward:
+    """The input norm, the MLP and the bound scaling on the rows of ``x``,
+    as the kernels compute them, with what the backward needs."""
     dims, f = plan.dims, plan.n_features
     o = plan.offsets()
     bsz = x.shape[0]
-    n_t = [torch.clamp_min(m.sum(), 1.0) for m in mask]
-    valid = sum(m.sum() for m in mask) > 0
-
     new_bn = bn
     xhat = None
     h = x
@@ -557,20 +584,21 @@ def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
         h, d = _act_and_grad(act, h @ w.T + b)
         hs.append(h)
         dacts.append(d)
-    n_neural, n_glob = len(plan.neural_names), len(plan.global_names)
-    nlo, nspan = consts[:n_neural], consts[n_neural : 2 * n_neural]
-    glo = consts[2 * n_neural : 2 * n_neural + n_glob]
-    gspan = consts[2 * n_neural + n_glob : 2 * n_neural + 2 * n_glob]
-    fixed = consts[2 * n_neural + 2 * n_glob :]
+    nlo, nspan = split_consts(plan, consts)[:2]
     raw = hs[-1]
     if plan.scale_nn_outputs:
         s = torch.sigmoid(raw)
         neural, dneural = nlo + nspan * s, nspan * (s * (1.0 - s))
     else:
         neural, dneural = raw, torch.ones_like(raw)
-    sg = torch.sigmoid(p[o["p_g"] :])
-    scalars = torch.cat([glo + gspan * sg, fixed])
-    dglob = gspan * (sg * (1.0 - sg))
+    return _Forward(neural, dneural, hs, dacts, xhat, new_bn)
+
+
+def form_args(plan: FusedEpochPlan, neural, forcing, scalars):
+    """The kernel form's arguments, in its order. ``scalars`` holds the
+    scaled globals, then the fixed values; each entry has one element, or
+    one per row."""
+    bsz = neural.shape[0]
     args = []
     for src, idx, const in plan.arg_sources:
         if src == _SRC_FORCING:
@@ -580,7 +608,66 @@ def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
         elif src == _SRC_SCALAR:
             args.append(scalars[idx].expand(bsz))
         else:
-            args.append(torch.full((bsz,), const, dtype=x.dtype, device=x.device))
+            args.append(torch.full((bsz,), const, dtype=neural.dtype, device=neural.device))
+    return args
+
+
+def reference_cotangents(plan: FusedEpochPlan, neural, parts, cots):
+    """Pull the targets' cotangents ``cots`` back through the form's
+    partials: ``(dn (rows, P), dg_rows (rows, G))``, the cotangents of the
+    scaled neural outputs and, per row, of the scaled globals."""
+    bsz, n_glob = neural.shape[0], len(plan.global_names)
+    dn = torch.zeros_like(neural)
+    dg_rows = torch.zeros((bsz, n_glob), dtype=neural.dtype, device=neural.device)
+    for i, (src, idx, _) in enumerate(plan.arg_sources):
+        if src not in (_SRC_NEURAL, _SRC_SCALAR) or (src == _SRC_SCALAR and idx >= n_glob):
+            continue
+        c = torch.zeros((bsz,), dtype=neural.dtype, device=neural.device)
+        for j in range(len(plan.target_names)):
+            c = c + cots[j] * parts[plan.target_out[j]][i]
+        if src == _SRC_NEURAL:
+            dn[:, idx] += c
+        else:
+            dg_rows[:, idx] += c
+    return dn, dg_rows
+
+
+def reference_backward(plan: FusedEpochPlan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
+    """The hand-written MLP backward: the gradients of the norm's scale and
+    bias and of every layer's weight and bias, in packed order."""
+    dims = plan.dims
+    o = plan.offsets()
+    D = dn * fwd.dneural
+    layer_grads = []
+    for i in range(len(plan.acts) - 1, -1, -1):
+        D = D * fwd.dacts[i]
+        layer_grads.append((D.T @ fwd.hs[i], D.sum(0)))
+        if i > 0 or plan.has_norm:
+            w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
+            D = D @ w
+    grads = []
+    if plan.has_norm:
+        grads += [(D * fwd.xhat).sum(0), D.sum(0)]
+    for gw, gb in reversed(layer_grads):
+        grads += [gw.reshape(-1), gb]
+    return grads
+
+
+def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
+    """One step's forward and hand-written backward on one batch: returns
+    ``(grad, batch_loss, valid, new_bn)`` with ``grad`` packed like ``p``
+    and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``."""
+    o = plan.offsets()
+    bsz = x.shape[0]
+    n_t = [torch.clamp_min(m.sum(), 1.0) for m in mask]
+    valid = sum(m.sum() for m in mask) > 0
+
+    fwd = reference_forward(plan, p, bn, consts, x)
+    _, _, glo, gspan, fixed = split_consts(plan, consts)
+    sg = torch.sigmoid(p[o["p_g"] :])
+    scalars = torch.cat([glo + gspan * sg, fixed])
+    dglob = gspan * (sg * (1.0 - sg))
+    args = form_args(plan, fwd.neural, forcing, scalars)
     outs = plan.form.torch_fn(*args)
     parts = plan.form.partials_fn(*args)
 
@@ -592,34 +679,10 @@ def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
         cots.append((2.0 * plan.agg_scale / n_t[j]) * diff)
     batch_loss = loss_rows.sum()
 
-    dn = torch.zeros_like(neural)
-    dg_rows = torch.zeros((bsz, n_glob), dtype=x.dtype, device=x.device)
-    for i, (src, idx, _) in enumerate(plan.arg_sources):
-        if src not in (_SRC_NEURAL, _SRC_SCALAR) or (src == _SRC_SCALAR and idx >= n_glob):
-            continue
-        c = torch.zeros((bsz,), dtype=x.dtype, device=x.device)
-        for j in range(len(plan.target_names)):
-            c = c + cots[j] * parts[plan.target_out[j]][i]
-        if src == _SRC_NEURAL:
-            dn[:, idx] += c
-        else:
-            dg_rows[:, idx] += c
-
-    grads = []
-    D = dn * dneural
-    layer_grads = []
-    for i in range(len(plan.acts) - 1, -1, -1):
-        D = D * dacts[i]
-        layer_grads.append((D.T @ hs[i], D.sum(0)))
-        if i > 0 or plan.has_norm:
-            w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
-            D = D @ w
-    if plan.has_norm:
-        grads += [(D * xhat).sum(0), D.sum(0)]
-    for gw, gb in reversed(layer_grads):
-        grads += [gw.reshape(-1), gb]
+    dn, dg_rows = reference_cotangents(plan, fwd.neural, parts, cots)
+    grads = reference_backward(plan, p, fwd, dn)
     grads.append(dg_rows.sum(0) * dglob)
-    return torch.cat(grads), batch_loss, valid, new_bn
+    return torch.cat(grads), batch_loss, valid, fwd.new_bn
 
 
 def _reference_update(plan: FusedEpochPlan, p, m, v, t, g, valid):
@@ -803,11 +866,27 @@ def _head(tensors: EpochTensors, nb: int) -> EpochTensors:
     )
 
 
+def _fused_builder(model):
+    """The function that makes a model's fused epoch: the multi-site one for a
+    :class:`MultiSiteHybridModel`, else the single-series one. Both return
+    a callable with a ``plan`` and the call signature of :class:`FusedEpoch`."""
+    from ..parallel.multisite import MultiSiteHybridModel
+
+    if isinstance(model, MultiSiteHybridModel):
+        from .fused_multisite import make_fused_multisite_epoch
+
+        return make_fused_multisite_epoch
+    return make_fused_epoch
+
+
 def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: EpochTensors, *,
                           n_batches: int = 2, tol: float = 3e-2, epochs_per_call: int = 1,
                           shuffle: Any = False) -> Tuple[bool, float]:
-    """Hold the fused epoch against the torch epoch on the first batches of
-    the actual data before trusting it; the model is left as it was.
+    """Hold the fused epoch (single-series or multi-site, by the model)
+    against the torch epoch on the first batches of the actual data before
+    trusting it; the model is left as it was. A multi-site model's batches
+    are site batches: the sites outside the first ``n_batches`` see no data
+    and still take every optimizer step, on both sides.
 
     **Phase A (gradient content):** both run plain SGD at lr 1e-3 over the
     first ``n_batches`` batches without shuffling, with TF32 off; the
@@ -825,7 +904,8 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     one does not catch a build or launch error: those raise."""
     lr = 1e-3
     sub = _head(tensors, min(n_batches, int(tensors.weight.shape[0])))
-    plan = plan_fused_epoch(model, optimizer, logging)
+    make_epoch = _fused_builder(model)
+    plan = make_epoch(model, optimizer, logging).plan
     p0 = plan.pack(model)
 
     def torch_run(spec, sh, epochs, perms):
@@ -836,7 +916,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
         return plan.pack(twin).params, loss
 
     def fused_run(spec, sh, epochs, perms):
-        fn = FusedEpoch(model, spec, logging, shuffle=sh, epochs_per_call=epochs)
+        fn = make_epoch(model, spec, logging, shuffle=sh, epochs_per_call=epochs)
         packed, _, loss = fn(p0, init_fused_opt_state(p0), sub, perms=perms)
         return packed.params, loss
 

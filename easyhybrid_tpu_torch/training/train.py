@@ -12,6 +12,9 @@ The epoch engine is chosen once (``TrainResults.epoch_path``):
   inside the fused kernel's envelope (``ops/fused_epoch.py``), and the
   runtime exactness gate passed; each block of ``eval_every`` epochs is one
   kernel launch;
+* ``"cuda_fused_multisite"``: the same for a ``MultiSiteHybridModel`` and
+  the multi-site kernel (``ops/fused_multisite.py``); each block of
+  ``eval_every`` epochs is one call of its launcher;
 * ``"torch"``: the torch epoch (``training/epoch.py``).
 
 ``TrainResults.engine_reason`` says why, in the JAX package's wording where
@@ -36,11 +39,13 @@ from ..data.split import merged_sequence_kwargs, split_data
 from ..losses.specs import LoggingLoss
 from ..ops.fused_epoch import (
     SHUFFLES,
+    _fused_builder,
     fused_epoch_unsupported_reason,
     fused_exactness_check,
     init_fused_opt_state,
-    make_fused_epoch,
 )
+from ..ops.fused_multisite import fused_multisite_unsupported_reason
+from ..parallel.multisite import MultiSiteHybridModel
 from ..params import scale_param
 from .early_stopping import EarlyStopping
 from .epoch import can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_train_epoch
@@ -184,12 +189,25 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
     if use_kernel is not True and device.type != "cuda":
         return False, (f"the model is on {device.type!r}, not cuda "
                        "(use_kernel=True overrides)")
-    if cfg.shuffle_each_epoch not in SHUFFLES:
-        return False, (f"shuffle_each_epoch={cfg.shuffle_each_epoch!r} outside the fused envelope")
-    reason = fused_epoch_unsupported_reason(model, cfg.optimizer, logging_loss, tensors)
+    shuffle = cfg.shuffle_each_epoch
+    if isinstance(model, MultiSiteHybridModel):
+        reason = fused_multisite_unsupported_reason(model, cfg.optimizer, logging_loss, tensors,
+                                                    shuffle=shuffle)
+        if reason is not None and fused_multisite_unsupported_reason(
+                model, cfg.optimizer, logging_loss, tensors, shuffle=False) is None:
+            # only the shuffle mode disqualified the multisite kernel: name the flag
+            return False, (f"minibatched multisite with shuffle_each_epoch={shuffle!r}: the "
+                           "fused multisite kernel supports shuffle_each_epoch in "
+                           "(True, False, 'batches')")
+        envelope = "supports_fused_multisite"
+    elif shuffle not in SHUFFLES:
+        return False, f"shuffle_each_epoch={shuffle!r} outside the fused envelope"
+    else:
+        reason = fused_epoch_unsupported_reason(model, cfg.optimizer, logging_loss, tensors)
+        envelope = "supports_fused_epoch"
     if reason is not None:
         return False, ("model/optimizer/loss outside the fused-kernel envelope "
-                       f"(supports_fused_epoch): {reason}")
+                       f"({envelope}): {reason}")
     ok, gdiff = fused_exactness_check(
         model, cfg.optimizer, logging_loss, tensors, epochs_per_call=eval_every,
         shuffle=cfg.shuffle_each_epoch,
@@ -253,10 +271,11 @@ def train(
     generator = torch.Generator(device=device).manual_seed(int(cfg.random_seed))
 
     if fused:
-        epoch_path = "cuda_fused_epoch"
-        kernel_epoch = make_fused_epoch(model, cfg.optimizer, logging_loss,
-                                        shuffle=cfg.shuffle_each_epoch,
-                                        epochs_per_call=eval_every)
+        epoch_path = ("cuda_fused_multisite" if isinstance(model, MultiSiteHybridModel)
+                      else "cuda_fused_epoch")
+        kernel_epoch = _fused_builder(model)(model, cfg.optimizer, logging_loss,
+                                             shuffle=cfg.shuffle_each_epoch,
+                                             epochs_per_call=eval_every)
         packed = kernel_epoch.plan.pack(model)
         opt_state = init_fused_opt_state(packed)
 

@@ -1,5 +1,6 @@
 """The CUDA kernels on a GPU, against their plain PyTorch versions: the
-fused forward (kernel 1) and the fused training epoch (kernel 2).
+fused forward (kernel 1), the fused training epoch (kernel 2), the fused
+multi-site epoch (kernel 5) and the multi-site primitives.
 
 Imports no JAX, so it runs where only PyTorch with CUDA is installed. On a
 machine without a GPU every test skips. On a GPU, without the repository's
@@ -12,7 +13,9 @@ float32: the kernel uses CUDA's expf / powf / tanhf / rsqrtf and its own
 summation order, against torch's transcendentals and GEMM. Kernel 2, after
 at most 3 epochs: 1e-4 * max(1, |plain|) on parameters, moments, BatchNorm
 statistics and loss, since the per-step differences compound along the
-chain of steps.
+chain of steps. Kernel 5 the same, after at most 3 epochs of site batches
+(its sums over a site's time steps and over thread blocks run in another
+order than torch's); the primitives' gather and update exactly.
 """
 
 import numpy as np
@@ -23,6 +26,8 @@ import easyhybrid_tpu_torch as et
 from easyhybrid_tpu_torch.data.prepare import HybridData
 from easyhybrid_tpu_torch.ops import fused_epoch as fe
 from easyhybrid_tpu_torch.ops import fused_forward as ff
+from easyhybrid_tpu_torch.ops import fused_multisite as fm
+from easyhybrid_tpu_torch.ops import multisite_primitives as mp
 from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
 pytestmark = pytest.mark.cuda
@@ -206,10 +211,146 @@ def test_epoch_wrapper_rejects_mixed_devices(cuda):
     m = et.construct_hybrid_model(
         predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
         mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
-        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[8])
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[8], device="cpu")
     data = et.prepare_data(m, cols)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, 64), cuda)
     fn = et.make_fused_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
     packed = fn.plan.pack(m)  # on the CPU, the data on the card
     with pytest.raises(ValueError, match="parameters are on cpu"):
         fn(packed, fe.init_fused_opt_state(packed), tensors)
+
+
+# --------------------------------------------------------------------------
+# kernel 5: the fused multi-site epoch, and the multi-site primitives
+# --------------------------------------------------------------------------
+
+def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swish",
+                    norm="static", opt=("adam", 0.01), loss="mse", agg="sum", shuffle=False,
+                    epochs=2, nan_frac=0.1, mask_batch=None, seed=0, **spec_kw):
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+    )
+    spec.update(spec_kw)
+    base = et.construct_hybrid_model(**spec, generator=torch.Generator().manual_seed(seed))
+    m = et.MultiSiteHybridModel(base, S)
+    assert base.device == m.device == torch.device("cuda", torch.cuda.current_device())
+    data = et.gen_multisite_arrays(S, N, seed=seed, nan_frac=nan_frac, site_idx=True)
+    if mask_batch is not None:
+        data.y["reco"][mask_batch * batch:(mask_batch + 1) * batch] = np.nan
+    et.fit_input_norm(m, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), device)
+    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+    packed = fn.plan.pack(m)
+    before = fm.launch_fused_multisite.launches
+    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    torch.cuda.synchronize()
+    assert fm.launch_fused_multisite.launches - before == 1  # one launcher call per block
+    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
+                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+        assert torch.isfinite(g).all()
+        assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    assert torch.equal(got[1]["t"], ref[1]["t"])
+    # sums in a fixed order: the same inputs give the same bits
+    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
+                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("kw", [
+    dict(S=2000, N=64, epochs=3),                                   # the main path's widths
+    dict(S=150, N=7),
+    dict(batch=128, shuffle=True, epochs=3),                        # ragged last batch
+    dict(batch=128, shuffle="batches", epochs=3),
+    dict(batch=128, shuffle=False, epochs=3),
+    dict(opt=("sgd", 0.05), loss="mae", agg="mean"),
+    dict(loss="nseLoss", batch=128, shuffle=True),
+    dict(norm=False, nan_frac=0.0),
+    dict(hidden=(64, 48), act="selu", N=9),
+    dict(neural_param_names=["Q10"], global_param_names=["rb"]),   # per-site rb
+    dict(batch=128, mask_batch=1, nan_frac=0.0),
+    dict(N=200, S=40),                                              # a site longer than a tile
+], ids=str)
+def test_multisite_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _multisite_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
+def test_multisite_kernel_activations_match_plain(cuda, act):
+    _multisite_case(cuda, hidden=(12, 5), act=act, S=100, N=6, epochs=1)
+
+
+def test_masked_site_batch_counts_no_step(cuda):
+    got = _multisite_case(cuda, batch=128, mask_batch=0, nan_frac=0.0, epochs=2)
+    assert int(got[1]["t"][0]) == 2 * 2  # 3 batches an epoch, the first without a target
+
+
+def test_train_takes_the_multisite_kernel(cuda):
+    base = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    m = et.MultiSiteHybridModel(base, 400)
+    data = et.gen_multisite_arrays(400, 16, seed=1, nan_frac=0.1)
+    before = fm.launch_fused_multisite.launches
+    prims = mp.launch_primitive.launches
+    r = et.train(m, data, nepochs=6, eval_every=2, batchsize=128, show_progress=False)
+    assert r.epoch_path == "cuda_fused_multisite" and "exactness gate passed" in r.engine_reason
+    assert fm.launch_fused_multisite.launches - before == 3 + 2  # three blocks + the gate's two
+    assert mp.launch_primitive.launches > prims  # the per-site target counts
+    assert m.device.type == "cuda" and r.params["globals.Q10"].shape == (400, 1)
+
+
+def test_multisite_wrapper_rejects_mixed_devices(cuda):
+    base = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[8], device="cpu")
+    m = et.MultiSiteHybridModel(base, 50, device="cpu")
+    tensors = epoch_tensors_to(et.build_epoch_tensors(et.gen_multisite_arrays(50, 4), 50), cuda)
+    fn = et.make_fused_multisite_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
+    packed = fn.plan.pack(m)  # on the CPU, the data on the card
+    with pytest.raises(ValueError, match="parameters are on cpu"):
+        fn(packed, fe.init_fused_opt_state(packed), tensors)
+
+
+def test_multisite_primitives_match_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    S, B, N = 1000, 300, 17
+    vals = torch.rand(S, device=cuda, generator=g)
+    idx = torch.randperm(S, device=cuda, generator=g)[:B].int()
+    idx[::7] = -1
+    x = torch.rand(B, N, device=cuda, generator=g)
+    fresh = torch.rand(B, device=cuda, generator=g)
+    before = mp.launch_primitive.launches
+    # exact: the gather and the masked update
+    assert torch.equal(mp.site_gather(vals, idx, N).cpu(), mp.site_gather(vals.cpu(), idx.cpu(), N))
+    got, want = vals.clone(), vals.cpu().clone()
+    mp.site_update(got, idx, fresh)
+    mp.site_update(want, idx.cpu(), fresh.cpu())
+    assert torch.equal(got.cpu(), want)
+    # sums: another order than torch's, a few ulp
+    torch.testing.assert_close(mp.site_reduce(x), x.sum(1), rtol=1e-6, atol=1e-6)
+    acc, ref = torch.ones(S, device=cuda), torch.ones(S)
+    mp.site_chain(vals, idx, x, acc)
+    mp.site_chain(vals.cpu(), idx.cpu(), x.cpu(), ref)
+    torch.testing.assert_close(acc.cpu(), ref, rtol=1e-6, atol=1e-6)
+    parts = torch.rand(500, 338, device=cuda, generator=g)
+    first, second = mp.block_sum(parts), mp.block_sum(parts)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, parts.sum(0), rtol=1e-5, atol=1e-5)
+    assert mp.launch_primitive.launches - before == 6
+    mask = (torch.rand(B, N, device=cuda, generator=g) > 0.3).float()
+    assert torch.equal(mp.site_reduce(mask), mask.sum(1))  # whole numbers: exact in any order
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.site_reduce(x.T)

@@ -41,7 +41,7 @@ def _pair(spec, data, seed=0):
     jm = eh.construct_hybrid_model(**spec)
     params, state = jm.init(jax.random.PRNGKey(seed))
     state = jax_fit_input_norm(jm, state, data)
-    tm = et.construct_hybrid_model(**spec)
+    tm = et.construct_hybrid_model(**spec, device="cpu")  # compared with numpy: on the host
     et.load_jax_params(tm, _np_tree(params), _np_tree(state))
     return jm, params, state, tm
 
@@ -162,3 +162,27 @@ def test_model_without_network():
     want, _ = jm.apply(params, state, (np.zeros((11, 0), np.float32), {"ta": ta}))
     got = tm(torch.zeros((11, 0)), {"ta": torch.from_numpy(ta)})
     _assert_outputs_match(got, want)
+
+
+@pytest.mark.parametrize("has_cuda,want", [(True, "cuda"), (False, "cpu")])
+def test_default_device_follows_cuda_availability(monkeypatch, has_cuda, want):
+    """Entry points take the card when there is one: the helper's rule, with
+    no tensor moved (this machine may have no card)."""
+    from easyhybrid_tpu_torch.utils import device as device_module
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: has_cuda)
+    assert et.default_device() == torch.device(want)
+    asked = []
+    monkeypatch.setattr(et.SingleNNHybridModel, "to",
+                        lambda self, device: asked.append(torch.device(device)) or self)
+    et.construct_hybrid_model(**QUICK_START)
+    et.construct_hybrid_model(**QUICK_START, device="cpu")
+    assert asked == [torch.device(want), torch.device("cpu")]
+    assert device_module.default_device() == torch.device(want)
+
+
+def test_models_asked_for_the_cpu_stay_there():
+    tm = et.construct_hybrid_model(**QUICK_START, device="cpu")
+    ms = et.MultiSiteHybridModel(tm, 3, device="cpu")
+    assert tm.device.type == ms.device.type == "cpu"
+    assert et.make_inference_fn(tm).engine == "torch"
