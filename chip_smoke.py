@@ -39,15 +39,33 @@ Phases, one or more lines each; any failure exits non-zero:
     a short run of the minibatched, shuffled shape (10,240 sites, batches of
     2,560);
 12. times: kernel 5 against its plain version per step, ``train()`` wall on
-    both engines, and the host's share (``prepare_multisite_data``).
+    both engines, and the host's share (``prepare_multisite_data``);
+13. kernel 4: the fused LSTM epoch against its plain PyTorch version
+    (``fused_lstm_reference``) from identical parameters and the same
+    permutations, at the sequence-training path's shape and at its edges
+    (another hidden size and window, mae with sgd and no norm, NaN targets
+    with a ragged last batch), with a second run that must give the same
+    bits; then windows of 10, 32, 64, 128 and 256 steps at hidden size 16,
+    each taken (with its tile) or refused with the envelope's reason;
+14. main path: sequence training as ``examples/lstm_sequences.py`` runs it,
+    4,000 rows cut into 10-step windows, LSTM(16) with static input norm,
+    30 epochs of batch 128 on nseLoss through ``train(sequence_kwargs=...)``:
+    it must take the kernel after its gate (one launch per epoch), return
+    finite validation predictions in the long format and reach a best
+    validation nseLoss below ``LSTM_VAL_LIMIT``;
+15. times: kernel 4 against its plain version per epoch at the main path's
+    shape and at the JAX bench's (batch 512, no norm, mse), and ``train()``
+    wall on both engines.
 
 Models are built without a ``device=`` argument and must land on the card.
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+The last three lines are: a JSON object ``{"kernels": [...]}`` with one
+entry per kernel, the card's name and power limit as ``nvidia-smi`` gives
+them, and ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -87,7 +105,8 @@ def build_model(et, *, hidden=(16, 16), activation="swish", norm="static",
         predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
         mechanistic_model=mechanistic or et.rbq10, parameters=RBQ10_PARAMS,
         neural_param_names=["rb"], global_param_names=["Q10"],
-        hidden_layers=list(hidden), activation=activation,
+        hidden_layers=hidden if isinstance(hidden, dict) else list(hidden),
+        activation=activation,
         scale_nn_outputs=True, input_batchnorm=norm,
     )
     spec.update(overrides)
@@ -181,6 +200,30 @@ def host_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+@contextlib.contextmanager
+def gate_counted_apart(launcher):
+    """Within the block, ``train()``'s exactness gate sets ``launcher``'s
+    count back to 0 when it is done, so that the count read after the block
+    is the main path's alone; yields the list of the counts the gate left."""
+    from easyhybrid_tpu_torch.training import train as train_module
+
+    gate_launches = []
+    real_gate = train_module.fused_exactness_check
+
+    def gate_then_reset(*args, **kwargs):
+        out = real_gate(*args, **kwargs)
+        gate_launches.append(launcher.launches)
+        launcher.launches = 0
+        return out
+
+    train_module.fused_exactness_check = gate_then_reset
+    launcher.launches = 0
+    try:
+        yield gate_launches
+    finally:
+        train_module.fused_exactness_check = real_gate
 
 
 TRAIN_ROWS = 20_000
@@ -584,6 +627,248 @@ def multisite_times(et, card, main) -> dict:
     return dict(kernel_ms=med["kernels"], plain_ms=med["plain"], samples=samples)
 
 
+# kernel 4 after at most 4 epochs: max |got - ref| <= TOL_EPOCH * max(1, |ref|)
+# on parameters, moments, step count and loss. Each step is a chain of T cells
+# forward and T backward on CUDA's expf / tanhf against torch's, and each step
+# starts from the last one's result, as kernel 2's
+LSTM_ROWS, LSTM_WINDOW = 4_000, dict(input_window=10, output_window=1, lead_time=0)
+LSTM_TRAIN_KW = dict(nepochs=30, batchsize=128, optimizer=("adam", 0.01), training_loss="nseLoss",
+                     loss_types=["nseLoss", "mse"], show_progress=False,
+                     sequence_kwargs=LSTM_WINDOW)
+# the same run on the torch engine on a CPU (float32, torch 2.x) ends with a
+# best validation nseLoss of 0.002574 (validation mse 0.010915 on a noise
+# floor of 0.01, Q10 2.0016); the limit leaves a factor of four
+LSTM_VAL_LIMIT = 0.01
+
+
+def lstm_model(et, hidden=16, norm="static", seed=0):
+    return build_model(et, hidden={"lstm": hidden}, norm=norm, seed=seed)
+
+
+def lstm_cases():
+    """Kernel 4's cases: the main path's shape first, then its edges."""
+    return [
+        dict(what="main path's training rows: LSTM(16), 10-step windows, output window 1, static "
+                  "norm, adam, nseLoss, batch 128, shuffled, 4 epochs", epochs=4,
+             keep=int(LSTM_ROWS * 0.8)),
+        dict(what="LSTM(8), 6-step windows, output window 2, no norm, sgd, mae, unshuffled",
+             hidden=8, steps=6, out_steps=2, norm=False, opt=("sgd", 0.05), loss="mae",
+             shuffle=False, n=600, epochs=3),
+        dict(what="30% NaN targets, batch 100 (ragged last batch), mse, agg mean",
+             nan_frac=0.3, batch=100, loss="mse", agg="mean", n=1500),
+        dict(what="first two batches without a valid target, unshuffled", shuffle=False,
+             mask_first=2 * 128 + 9, n=1033),
+        dict(what="every step has a target (output window 10), shuffle 'batches'",
+             out_steps=10, shuffle="batches", loss="mse", n=1500),
+        dict(what="LSTM(32), 12-step windows", hidden=32, steps=12, n=1000, epochs=1),
+        dict(what="LSTM(64), 10-step windows (8-row tiles)", hidden=64, n=400, epochs=1),
+    ]
+
+
+def prepare_lstm_case(et, *, what, hidden=16, steps=10, out_steps=1, batch=128, norm="static",
+                      opt=("adam", 0.01), loss="nseLoss", agg="sum", shuffle=True, epochs=2,
+                      n=LSTM_ROWS, keep=None, nan_frac=0.0, mask_first=0, seed=0, cols=None):
+    """The case's fused epoch, its packed parameters on the card, its epoch
+    tensors (windows with their NaN targets kept) and its permutations. Of
+    ``n`` generated rows the first ``keep`` are cut into windows (all by
+    default)."""
+    from easyhybrid_tpu_torch.data.prepare import HybridData
+    from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+    from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
+
+    model = lstm_model(et, hidden, norm, seed)
+    if cols is None:
+        cols = et.rbq10_columns(n, seed=7 + seed, nan_frac=nan_frac)
+        cols["reco"][:mask_first] = np.nan
+        cols = {k: v[:keep] for k, v in cols.items()}
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=steps, output_window=out_steps,
+                                lead_time=0)
+    et.fit_input_norm(model, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = et.make_fused_lstm_epoch(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+    return what, fn, fn.plan.pack(model), tensors, perms
+
+
+def lstm_kernel_checks(et) -> float:
+    """Phase 13: kernel 4 against its plain version and against itself, and
+    which windows it takes."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+    def named(packed, opt_state, loss):
+        return {"params": packed.params, "bn": packed.bn, "m": opt_state["m"],
+                "v": opt_state["v"], "t": opt_state["t"].float(), "loss": loss.reshape(1)}
+
+    def run(case):
+        what, fn, packed, tensors, perms = prepare_lstm_case(et, **case)
+        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        torch.cuda.synchronize()
+        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+            raise AssertionError(f"{what}: the kernel returned non-finite values")
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        steps, out_steps = tensors.x.shape[2], tensors.y["reco"].shape[2]
+        return (compare(got, ref, what, TOL_EPOCH), fn.plan.sizes.tile_rows(steps, out_steps),
+                int(got["t"][0]))
+
+    worst = 0.0
+    for case in lstm_cases():
+        err, tile, steps = run(case)
+        worst = max(worst, err)
+        log("kernel4", f"{case['what']}: tile {tile} windows, {steps} steps, max |diff| {err:.3e}, "
+                       f"second run bitwise equal (ok)")
+        # 1,024 windows in 8 batches, two of them masked, 2 epochs
+        if "mask_first" in case and steps != 2 * (8 - 2):
+            raise AssertionError(f"{case['what']}: {steps} steps counted, not 12")
+
+    model = lstm_model(et)
+    logging = et.LoggingLoss(training_loss="nseLoss", loss_types=("nseLoss",))
+    taken = {}
+    for window in (10, 32, 64, 128, 256):
+        tile = fl.lstm_tile_rows(model, window)
+        taken[window] = tile
+        if tile is None:
+            cols = et.rbq10_columns(600, seed=7)
+            tensors = prepare_lstm_case(et, what="", steps=window, cols=cols, epochs=1)[3]
+            reason = fl.fused_epoch_lstm_unsupported_reason(model, ("adam", 0.01), logging, tensors)
+            if reason is None:
+                raise AssertionError(f"a {window}-step window has no tile and no refusal")
+            log("kernel4", f"LSTM(16), {window}-step windows: refused ({reason})")
+            continue
+        err, used, steps = run(dict(what=f"LSTM(16), {window}-step windows", steps=window,
+                                    n=900, epochs=1))
+        worst = max(worst, err)
+        log("kernel4", f"LSTM(16), {window}-step windows: taken, tile {used} windows, {steps} "
+                       f"steps, max |diff| {err:.3e}, second run bitwise equal (ok)")
+    if not all(taken[w] for w in (10, 32, 64)):
+        raise AssertionError(f"the kernel refused a window of 10, 32 or 64 steps: {taken}")
+    return worst
+
+
+def lstm_main_path(et, card) -> dict:
+    """Phase 14: sequence training through the normal entry points."""
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    model = lstm_model(et)
+    with gate_counted_apart(fl.launch_fused_lstm) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, cols, **LSTM_TRAIN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fl.launch_fused_lstm.launches
+    if result.epoch_path != "cuda_fused_lstm" or "exactness gate passed" not in result.engine_reason:
+        raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
+    if launches != LSTM_TRAIN_KW["nepochs"]:
+        raise AssertionError(f"train() launched kernel 4 {launches} times, not "
+                             f"{LSTM_TRAIN_KW['nepochs']} (one per eval block)")
+    pred, obs = result.val_pred_columns, result.val_obs_columns
+    n_val = len(obs["reco"])
+    if (set(pred) != {"sample", "step", "reco_pred"} or pred["reco_pred"].shape != (n_val,)
+            or not np.isfinite(pred["reco_pred"]).all() or set(pred["step"]) != {0}
+            or n_val < LSTM_ROWS // 5 - 20):
+        raise AssertionError(f"val predictions: columns {sorted(pred)}, {n_val} rows")
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    val_mse = result.val_history[result.best_epoch]["mse"]["reco"]
+    if not (result.best_loss < LSTM_VAL_LIMIT and abs(q10 - 2.0) < 0.15):
+        raise AssertionError(f"train() ended with best val nseLoss {result.best_loss:.5f} (limit "
+                             f"{LSTM_VAL_LIMIT}) and Q10 {q10:.4f}")
+    steps = int(result.opt_state["t"][0])
+    log("main", f"sequence train(): {LSTM_ROWS} rows in 10-step windows, LSTM(16), "
+                f"{result.epoch_path}, {result.engine_reason}; {launches} launches after the "
+                f"gate's {gate_launches}, {steps} optimizer steps; best val nseLoss "
+                f"{result.best_loss:.6f} at epoch {result.best_epoch} (limit {LSTM_VAL_LIMIT}; the "
+                f"torch engine on a CPU: 0.002574), val mse {val_mse:.5f}, Q10 {q10:.4f}; "
+                f"{n_val} validation predictions in the long format; {wall:.2f} s wall (ok)")
+    return dict(launches=launches, wall=wall, cols=cols, steps=steps)
+
+
+def lstm_step_bound(batch, steps, out_steps=1, hidden=16, features=2, outputs=1,
+                    norm=True) -> dict:
+    """The bound of one optimizer step over ``batch`` windows. Operations,
+    each product 2 flops a weight: every cell's gate products forward and,
+    backward, the weight gradients (``4H (F + H)`` weights each), the
+    cotangent of the previous hidden state (``4H H``) and, only where an input
+    norm's scale and bias are trained, that of the input (``4H F``): with a
+    norm ``6 T 4H (F + H)`` a window; plus the head's three products at the
+    trailing steps. Recomputing the gates in the backward pass is the
+    kernel's choice and no part of the bound. Bytes: each window's
+    predictors, the forcing, target and mask of its trailing steps and its
+    index, once."""
+    cell = 4 * hidden * (4 * (features + hidden) + 2 * hidden + (2 * features if norm else 0))
+    flops = batch * (steps * cell + 6 * out_steps * outputs * hidden)
+    return dict(bytes_moved=batch * 4 * (steps * features + 3 * out_steps + 1), flops=flops)
+
+
+def lstm_times(et, card, main) -> dict:
+    """Phase 15: kernel 4 against its plain version per epoch at the main
+    path's shape and at the JAX bench's; ``train()`` wall on both engines."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    train_cols = {k: v[: int(LSTM_ROWS * 0.8)] for k, v in main["cols"].items()}
+    shapes = {
+        "main": dict(what="LSTM(16), 10-step windows, static norm, nseLoss, batch 128",
+                     cols=train_cols, epochs=1),
+        "bench": dict(what="LSTM(16), 10-step windows, no norm, mse, batch 512 (the JAX bench's "
+                           "row)", cols=et.rbq10_columns(LSTM_ROWS, seed=42), norm=False,
+                      loss="mse", batch=512, epochs=1),
+    }
+    out = {}
+    for key, case in shapes.items():
+        what, fn, packed, tensors, perms = prepare_lstm_case(et, **case)
+        opt0 = fe.init_fused_opt_state(packed)
+        calls = {"kernel": lambda: fn(packed, opt0, tensors, perms=perms),
+                 "plain": lambda: fn.reference(packed, opt0, tensors, perms=perms)}
+        for f in calls.values():
+            host_ms(f, 2)  # warm-up
+        dev = {"kernel": [], "kernel (profiler)": [], "plain (profiler)": []}
+        wall = {"kernel": [], "plain": []}
+        for i in range(5):
+            dev["kernel"].append(device_ms(calls["kernel"], 5, "kernel 4"))
+            dev["kernel (profiler)"].append(kernel_device_ms(calls["kernel"], 3, "eh_fused_lstm"))
+            dev["plain (profiler)"].append(profiled_device_ms(calls["plain"], 1))
+            for k in (list(wall) if i % 2 == 0 else list(reversed(list(wall)))):
+                wall[k].append(host_ms(calls[k], 3 if k == "kernel" else 1))
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        wall_ms = {k: statistics.median(v) for k, v in wall.items()}
+        nb, batch = tensors.weight.shape
+        b = bound(**lstm_step_bound(batch, 10, norm=case.get("norm", "static") is not False))
+        log("times", f"[{card}] kernel 4, one epoch of {nb} steps (batch {batch}, {what}), "
+                     f"median of 5: device ms per epoch "
+                     + ", ".join(f"{k} {v:.4f} ({v / nb:.4f} a step)" for k, v in med.items())
+                     + "; wall ms per epoch "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items())
+                     + f"; bound {b['bound_ms'] * nb:.6f} ms per epoch ({b['bound_by']})")
+        out[key] = dict(kernel_ms=med["kernel"], plain_ms=med["plain (profiler)"], steps=int(nb),
+                        batch=int(batch))
+
+    t0 = time.perf_counter()
+    torch_result = et.train(lstm_model(et), main["cols"], use_kernel=False, **LSTM_TRAIN_KW)
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if torch_result.epoch_path != "torch":
+        raise AssertionError(f"use_kernel=False took {torch_result.epoch_path!r}")
+    t0 = time.perf_counter()
+    again = et.train(lstm_model(et), main["cols"], **LSTM_TRAIN_KW)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    if again.epoch_path != "cuda_fused_lstm":
+        raise AssertionError(f"the second fused train() took {again.epoch_path!r}")
+    log("times", f"[{card}] sequence train() wall, {LSTM_TRAIN_KW['nepochs']} epochs of "
+                 f"{out['main']['steps']} steps + an evaluation per epoch: cuda_fused_lstm "
+                 f"{main['wall']:.2f} s in the first call and {again_wall:.2f} s in a second one "
+                 f"(gate included; best val nseLoss {again.best_loss:.6f}), torch "
+                 f"{torch_wall:.2f} s (best val nseLoss {torch_result.best_loss:.6f})")
+    return out
+
+
 def main() -> None:
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -748,26 +1033,12 @@ def main() -> None:
 
     # 7. main path: train() ------------------------------------------------------
     model = build_model(et, norm=True, seed=0)
-    gate_launches = []
-    from easyhybrid_tpu_torch.training import train as train_module
-
-    real_gate = train_module.fused_exactness_check
-
-    def gate_then_reset(*args, **kwargs):
-        """The gate's own launches are counted apart from the main path's."""
-        out = real_gate(*args, **kwargs)
-        gate_launches.append(fe.launch_fused_epoch.launches)
-        fe.launch_fused_epoch.launches = 0
-        return out
-
-    train_module.fused_exactness_check = gate_then_reset
-    fe.launch_fused_epoch.launches = 0
-    t0 = time.perf_counter()
-    result = et.train(model, quick_cols, **TRAIN_KW)
-    torch.cuda.synchronize()
-    fused_wall = time.perf_counter() - t0
-    epoch_launches = fe.launch_fused_epoch.launches
-    train_module.fused_exactness_check = real_gate
+    with gate_counted_apart(fe.launch_fused_epoch) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, quick_cols, **TRAIN_KW)
+        torch.cuda.synchronize()
+        fused_wall = time.perf_counter() - t0
+        epoch_launches = fe.launch_fused_epoch.launches
     if result.epoch_path != "cuda_fused_epoch" or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
     expected_launches = TRAIN_KW["nepochs"] // TRAIN_KW.get("eval_every", 1)
@@ -832,6 +1103,9 @@ def main() -> None:
     ms_err = multisite_kernel_checks(et)
     ms_main = multisite_main_path(et, card)
     ms_times = multisite_times(et, card, ms_main)
+    lstm_err = lstm_kernel_checks(et)
+    lstm_main = lstm_main_path(et, card)
+    lstm_ms = lstm_times(et, card, lstm_main)["main"]
 
     quick_dims = (2, 16, 16, 1)
     print(json.dumps({"kernels": [{
@@ -886,6 +1160,19 @@ def main() -> None:
         **bound(bytes_moved=ms_times["samples"] * 4 + MS_TRAIN_SITES * 4,
                 flops=ms_times["samples"]),
         "library_ms": prim_ms["plain"],  # torch.sum(x, 1), which is also the plain version
+    }, {
+        "name": "fused_epoch_lstm",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_epoch_lstm.cu",
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",  # kernel_body_lstm, :1700
+        "launches": lstm_main["launches"],
+        "max_abs_err": lstm_err,
+        "ms": lstm_ms["kernel_ms"],
+        "plain_ms": lstm_ms["plain_ms"],
+        # one epoch at the main path's shape: see lstm_step_bound
+        **bound(**{k: v * lstm_ms["steps"]
+                   for k, v in lstm_step_bound(lstm_ms["batch"], 10).items()}),
+        "library_ms": None,  # no single PyTorch call computes the step
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

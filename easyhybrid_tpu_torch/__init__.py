@@ -1,15 +1,18 @@
 """easyhybrid_tpu_torch: the PyTorch / CUDA port of easyhybrid_tpu.
 
-The port covers serving and training: build a hybrid model (single-series,
-or lifted over sites with ``MultiSiteHybridModel``), carry its parameters in
+The port covers serving and training: build a hybrid model (single-series
+over an MLP, over an LSTM on sequence windows with ``hidden_layers={"lstm":
+H}`` and ``train(..., sequence_kwargs=...)``, or lifted over sites with
+``MultiSiteHybridModel``), carry its parameters in
 (or initialise them from a ``torch.Generator``), ``train`` it, and run
 ``make_inference_fn`` / ``predict``. Models are built on the CUDA device
 when there is one, and the entry points follow the model's device. There a
 model inside the envelopes runs hand-written kernels, compiled with ``nvcc``
 at first use: the fused forward (``csrc/fused_forward.cu``) for serving, and
-the fused training epochs (``csrc/fused_epoch.cu``, and
-``csrc/fused_multisite.cu`` for multi-site models), which ``train`` enables
-behind a runtime exactness gate.
+the fused training epochs (``csrc/fused_epoch.cu``,
+``csrc/fused_epoch_lstm.cu`` for LSTM hybrids and ``csrc/fused_multisite.cu``
+for multi-site models), which ``train`` enables behind a runtime exactness
+gate.
 
 Importing the package imports torch and numpy only; pandas is imported
 only where a DataFrame is read or built.
@@ -55,6 +58,7 @@ from .ops.fused_forward import (
     supports_fused_forward,
 )
 from .ops.fused_epoch import make_fused_epoch, supports_fused_epoch
+from .ops.fused_epoch_lstm import make_fused_lstm_epoch, supports_fused_epoch_lstm
 from .ops.fused_multisite import make_fused_multisite_epoch, supports_fused_multisite
 from .utils.device import default_device
 
@@ -112,6 +116,8 @@ __all__ = [
     "supports_fused_forward",
     "make_fused_epoch",
     "supports_fused_epoch",
+    "make_fused_lstm_epoch",
+    "supports_fused_epoch_lstm",
     "make_fused_multisite_epoch",
     "supports_fused_multisite",
     "default_device",

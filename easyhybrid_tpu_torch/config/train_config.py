@@ -109,12 +109,6 @@ _NOT_PORTED_TRAIN = {
     "return_gradients": (False, "gradient diagnostics", "item 8"),
     "remat": (False, "rematerialised forwards", "item 8"),
 }
-_NOT_PORTED_DATA = {
-    "sequence_length": (None, "sequence windows", "item 11"),
-    "sequence_kwargs": (None, "sequence windows", "item 11"),
-}
-
-
 def validate_config(cfg: TrainConfig, data_cfg: Optional[DataConfig] = None) -> None:
     """Sanity checks, plus a ``NotImplementedError`` for every field set to
     something the port does not do yet."""
@@ -129,16 +123,12 @@ def validate_config(cfg: TrainConfig, data_cfg: Optional[DataConfig] = None) -> 
     check_training_loss(cfg.training_loss)
     if not cfg.loss_types:
         raise ValueError("loss_types must not be empty")
-    checks = [(cfg, _NOT_PORTED_TRAIN)]
-    if data_cfg is not None:
-        checks.append((data_cfg, _NOT_PORTED_DATA))
-    for obj, table in checks:
-        for field, (default, what, item) in table.items():
-            if getattr(obj, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(obj, field)!r}: {what} is not ported to "
-                    f"easyhybrid_tpu_torch yet (ROADMAP.md, queue A, {item})"
-                )
+    for field, (default, what, item) in _NOT_PORTED_TRAIN.items():
+        if getattr(cfg, field) != default:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r}: {what} is not ported to "
+                f"easyhybrid_tpu_torch yet (ROADMAP.md, queue A, {item})"
+            )
 
 
 def _frame(columns: Optional[Dict[str, np.ndarray]]):
@@ -159,7 +149,8 @@ class TrainResults:
     CPU tensors keyed like ``model.named_parameters()`` / ``named_buffers()``.
     ``*_obs_columns`` / ``*_pred_columns`` are numpy dicts; the matching
     ``*_obs`` / ``*_pred`` properties wrap them in DataFrames.
-    ``epoch_path`` is ``"cuda_fused_epoch"`` or ``"torch"``;
+    ``epoch_path`` is ``"cuda_fused_epoch"``, ``"cuda_fused_lstm"``,
+    ``"cuda_fused_multisite"`` or ``"torch"``;
     ``engine_reason`` says why."""
 
     train_history: Any = None

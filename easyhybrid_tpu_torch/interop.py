@@ -4,9 +4,9 @@
 ``params`` / ``state`` pytrees as nested dicts (and lists) of numpy arrays
 and writes them into a port module: a :class:`SingleNNHybridModel`, a
 :class:`MultiSiteHybridModel` (``params["globals"][g]`` of shape ``(S, 1)``, and
-with ``share_nn=False`` every network leaf with a leading site axis) or an
-:class:`MLP`. Dense weights are transposed from JAX's ``(in, out)`` to
-torch's ``(out, in)``. Any missing, extra or wrongly shaped leaf raises.
+with ``share_nn=False`` every network leaf with a leading site axis), an
+:class:`MLP` or an :class:`LSTMNet`. Dense weights, and the LSTM's ``wi``
+and ``wh``, are transposed from JAX's ``(in, out)`` to torch's ``(out, in)``. Any missing, extra or wrongly shaped leaf raises.
 ``export_jax_params(module)`` is its inverse. This module does not import
 JAX: the caller converts the leaves with ``np.asarray``.
 """
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .models.hybrid import SingleNNHybridModel
-from .models.nn import MLP
+from .models.nn import MLP, LSTMNet
 from .parallel.multisite import MultiSiteHybridModel, SiteNetworks
 
 __all__ = ["load_jax_params", "export_jax_params"]
@@ -44,26 +44,49 @@ def _mlp_leaves(mlp, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
     for i, layer in enumerate(mlp.layers):  # an MLP's layers always have a bias
         params[f"{prefix}layers/{i}/w"] = (layer.weight, _swap_in_out)
         params[f"{prefix}layers/{i}/b"] = (layer.bias, _same)
-    if mlp.norm is not None:  # and its norm is affine
-        params[f"{prefix}norm/scale"] = (mlp.norm.scale, _same)
-        params[f"{prefix}norm/bias"] = (mlp.norm.bias, _same)
-        state[f"{prefix}norm/mean"] = (mlp.norm.mean, _same)
-        state[f"{prefix}norm/var"] = (mlp.norm.var, _same)
+    _norm_leaves(mlp.norm, prefix, params, state)
     return params, state
 
 
+def _norm_leaves(norm, prefix: str, params: _LeafMap, state: _LeafMap) -> None:
+    if norm is not None:  # a network's input norm is affine
+        params[f"{prefix}norm/scale"] = (norm.scale, _same)
+        params[f"{prefix}norm/bias"] = (norm.bias, _same)
+        state[f"{prefix}norm/mean"] = (norm.mean, _same)
+        state[f"{prefix}norm/var"] = (norm.var, _same)
+
+
+def _lstm_leaves(net, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
+    params: _LeafMap = {
+        f"{prefix}wi": (net.wi, _swap_in_out),
+        f"{prefix}wh": (net.wh, _swap_in_out),
+        f"{prefix}b": (net.b, _same),
+        f"{prefix}head/w": (net.head.weight, _swap_in_out),
+        f"{prefix}head/b": (net.head.bias, _same),
+    }
+    state: _LeafMap = {}
+    _norm_leaves(net.norm, prefix, params, state)
+    return params, state
+
+
+def _network_leaves(net, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
+    if isinstance(net, LSTMNet):
+        return _lstm_leaves(net, prefix)
+    return _mlp_leaves(net, prefix)
+
+
 def _leaf_maps(module) -> Tuple[_LeafMap, _LeafMap]:
-    if isinstance(module, MLP):
-        return _mlp_leaves(module, "")
+    if isinstance(module, (MLP, LSTMNet)):
+        return _network_leaves(module, "")
     if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)):
         params: _LeafMap = {}
         state: _LeafMap = {}
         if module.nn is not None:
-            if not isinstance(module.nn, (MLP, SiteNetworks)):
+            if not isinstance(module.nn, (MLP, LSTMNet, SiteNetworks)):
                 raise TypeError(
                     f"cannot carry JAX parameters into {type(module.nn).__name__}"
                 )
-            params, state = _mlp_leaves(module.nn, "nn/")
+            params, state = _network_leaves(module.nn, "nn/")
         for name, t in module.globals.as_dict().items():
             params[f"globals/{name}"] = (t, _same)
         for name, t in module.fixed.as_dict().items():

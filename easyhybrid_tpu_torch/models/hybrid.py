@@ -6,8 +6,8 @@ forcing)`` returns the same outputs dict as the JAX ``apply``:
 ``{**mechanistic_outputs, "parameters": all_params}``. Where the JAX model
 threads ``params`` / ``state`` pytrees, this one holds them:
 
-* the MLP's weights and the raw (unconstrained) globals are parameters;
-* the MLP's norm statistics and the fixed parameters are buffers;
+* the network's weights and the raw (unconstrained) globals are parameters;
+* the network's norm statistics and the fixed parameters are buffers;
 * ``module.training`` takes the place of the ``training=`` argument;
 * the parameter table is ``param_table`` (``nn.Module.parameters`` is
   taken).
@@ -202,7 +202,9 @@ class SingleNNHybridModel(nn.Module):
         return out
 
     def forward(self, x, forcing: Optional[Mapping[str, Any]] = None):
-        """Hybrid forward on ``x (N, F)`` and a forcing dict name → ``(N,)``.
+        """Hybrid forward on ``x (N, F)`` and a forcing dict name → ``(N,)``,
+        or, for a sequence network, on windows ``x (N, T, F)`` with forcing
+        ``(N, T)``: the mechanistic model then runs at every time step.
         Returns ``{**mechanistic_outputs, "parameters": all_params}``."""
         if forcing is not None and not isinstance(forcing, Mapping):
             raise TypeError(

@@ -11,6 +11,9 @@ semantics, in PyTorch idiom:
   in training mode it normalises with the batch statistics and updates a
   running EMA of the biased variance, unlike ``torch.nn.BatchNorm1d``).
   Statistics are buffers, scale and bias are parameters.
+* :class:`LSTMNet` is the JAX package's cell (one bias, gates i, f, g, o)
+  with ``wi`` / ``wh`` stored ``(4H, F)`` / ``(4H, H)`` and a Dense head per
+  time step; ``construct_nn({"lstm": H}, ...)`` builds it.
 * Initialisation draws from an explicit ``torch.Generator``.
 * The activations copy JAX's: ``gelu`` is the tanh approximation,
   ``softplus`` has no identity threshold, ``leakyrelu`` has slope 0.01.
@@ -255,14 +258,64 @@ class MLP(nn.Module):
 
 
 class LSTMNet(nn.Module):
-    """LSTM sequence network: not ported yet (ROADMAP.md, queue A,
-    "Sequences")."""
+    """LSTM over ``(batch, time, features)`` returning the full sequence,
+    followed by a per-time-step Dense head: ``(batch, time, out_dim)``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LSTMNet is not ported to easyhybrid_tpu_torch yet "
-            "(ROADMAP.md, queue A, item 'Sequences')"
+    The cell is the JAX package's: one bias ``b`` (zeros at start), gates in
+    the order i, f, g, o along ``4H``, ``h0 = c0 = 0``. ``wi`` is stored
+    ``(4H, F)`` and ``wh`` ``(4H, H)`` (the JAX package stores both
+    transposed; ``interop.load_jax_params`` carries them across), both
+    Glorot-uniform over the ``(F, 4H)`` and ``(H, 4H)`` matrices. The
+    recurrence is a loop of two products per step; it is not
+    ``torch.nn.LSTM``, which has two biases and another initialisation.
+    """
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        hidden_size: int = 32,
+        output_activation: Activation = "identity",
+        input_batchnorm: Any = False,  # True | False | "static"
+        dtype=torch.float32,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.in_dim, self.out_dim = int(in_dim), int(out_dim)
+        self.hidden_size = h = int(hidden_size)
+        self.output_activation = _norm_act(output_activation)
+        self.input_batchnorm = input_batchnorm
+        self.dtype = dtype
+        self.wi = nn.Parameter(glorot_uniform(self.in_dim, 4 * h, generator=generator, dtype=dtype))
+        self.wh = nn.Parameter(glorot_uniform(h, 4 * h, generator=generator, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros((4 * h,), dtype=dtype))
+        self.head = Dense(h, self.out_dim, self.output_activation, dtype=dtype,
+                          generator=generator)
+        self.norm = (
+            BatchNorm(self.in_dim, frozen=(input_batchnorm == "static"))
+            if input_batchnorm
+            else None
         )
+
+    def forward(self, x):
+        if x.ndim != 3:
+            raise ValueError(
+                f"LSTMNet expects (batch, time, features); got shape {tuple(x.shape)}"
+            )
+        if self.norm is not None:
+            x = self.norm(x)
+        n, steps, _ = x.shape
+        h = x.new_zeros((n, self.hidden_size), dtype=torch.float32)
+        c = torch.zeros_like(h)
+        hs = []
+        for t in range(steps):
+            gates = F.linear(x[:, t], self.wi) + F.linear(h, self.wh) + self.b
+            i, f, g, o = torch.chunk(gates, 4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        return self.head(torch.stack(hs, dim=1))
 
 
 # --------------------------------------------------------------------------
@@ -280,14 +333,27 @@ def construct_nn(
     compute_dtype=None,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    """Build an NN module from a layer-size list or pass a module through.
-    A recurrent spec ``{"lstm": hidden_size}`` raises: :class:`LSTMNet` is
-    not ported yet."""
+    """Build an NN module from a layer-size list, a recurrent spec dict
+    ``{"lstm": hidden_size}`` (an :class:`LSTMNet`, which has no hidden
+    ``activation`` and refuses a ``compute_dtype``), or pass a module
+    through."""
     if isinstance(hidden_layers, nn.Module):
         return hidden_layers
     if isinstance(hidden_layers, dict):
         if "lstm" in hidden_layers:
-            return LSTMNet()
+            if compute_dtype is not None:
+                raise ValueError(
+                    "compute_dtype is not supported with the {'lstm': n} spec; "
+                    "LSTM hybrids run float32"
+                )
+            return LSTMNet(
+                in_dim,
+                out_dim,
+                hidden_size=int(hidden_layers["lstm"]),
+                output_activation=output_activation,
+                input_batchnorm=input_batchnorm,
+                generator=generator,
+            )
         raise ValueError(f"unknown NN spec dict: {hidden_layers!r}")
     return MLP(
         in_dim,

@@ -150,11 +150,12 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C function's
     argument and result types declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch, lib.eh_fused_multisite):
+    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch, lib.eh_fused_lstm,
+               lib.eh_fused_multisite):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size,
-               lib.eh_fused_multisite_args_size):
+               lib.eh_fused_lstm_args_size, lib.eh_fused_multisite_args_size):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     ptr, num = ctypes.c_void_p, ctypes.c_int

@@ -39,7 +39,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -143,8 +143,21 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
         return reason
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
-    if _loss_name(logging.training_loss) != "mse":
-        return f"training_loss={logging.training_loss!r} (the kernel trains mse)"
+    reason = training_spec_reason(optimizer, logging, ("mse",))
+    if reason is not None:
+        return reason
+    if _tile_rows(model) is None:
+        return ("the packed parameters, moments and a 32-row residual tile exceed "
+                f"the kernel's {MAX_SMEM_BYTES // 1024} KB of shared memory")
+    return None
+
+
+def training_spec_reason(optimizer, logging: LoggingLoss, losses) -> Optional[str]:
+    """Why a training kernel that trains ``losses`` cannot run this loss and
+    optimizer, or None: ``agg`` sum or mean, no ``extra_loss``, a single
+    ``adam`` spec or an ``sgd`` spec without momentum."""
+    if _loss_name(logging.training_loss) not in losses:
+        return f"training_loss={logging.training_loss!r} (the kernel trains {', '.join(losses)})"
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
@@ -157,9 +170,6 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
         return f"optimizer {name!r} (the kernel runs adam or sgd)"
     if name == "sgd" and (hyper["momentum"] != 0.0 or hyper["nesterov"] != 0.0):
         return "sgd with momentum (the kernel runs plain sgd)"
-    if _tile_rows(model) is None:
-        return ("the packed parameters, moments and a 32-row residual tile exceed "
-                f"the kernel's {MAX_SMEM_BYTES // 1024} KB of shared memory")
     return None
 
 
@@ -238,8 +248,67 @@ class _Args(ctypes.Structure):
     ]
 
 
+class PackedLayout:
+    """What every training plan shares: the model's trainable parameters as
+    named segments ``(param name, offset, shape)`` of one packed vector, and
+    the input norm's running statistics beside it."""
+
+    @property
+    def has_norm(self) -> bool:
+        return self.norm_mode != _NORM_NONE
+
+    def pack(self, model) -> FusedParams:
+        """The model's current parameters and norm statistics, packed."""
+        named = dict(model.named_parameters())
+        params = torch.cat([named[name].detach().reshape(-1) for name, _, _ in self.segments])
+        if self.has_norm:
+            bn = torch.cat([model.nn.norm.mean.detach(), model.nn.norm.var.detach()])
+        else:
+            bn = params.new_zeros((0,))
+        return FusedParams(params.float().contiguous(), bn.float().contiguous())
+
+    def unpack(self, packed: FusedParams, model) -> None:
+        """Write packed parameters and norm statistics into ``model``."""
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, offset, shape in self.segments:
+                n = math.prod(shape)
+                named[name].copy_(packed.params[offset : offset + n].view(shape))
+            if self.has_norm:
+                f = self.n_features
+                model.nn.norm.mean.copy_(packed.bn[:f])
+                model.nn.norm.var.copy_(packed.bn[f:])
+
+    def leaves(self, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``param name -> slice`` of a packed parameter-shaped vector."""
+        return {name: packed[o : o + math.prod(s)] for name, o, s in self.segments}
+
+
+def fill_common_args(a, plan) -> None:
+    """Set the fields every training kernel's argument struct has: the norm
+    mode, the kernel form and its argument sources, the targets and the
+    optimizer's hyperparameters."""
+    a.norm_mode = plan.norm_mode
+    a.norm_eps = plan.norm_eps
+    a.n_globals, a.n_fixed = len(plan.global_names), len(plan.fixed_names)
+    a.scale_nn_outputs = int(plan.scale_nn_outputs)
+    a.form = plan.form.form_id
+    a.n_args = len(plan.arg_sources)
+    for i, (src, idx, const) in enumerate(plan.arg_sources):
+        a.arg_src[i], a.arg_idx[i], a.arg_const[i] = src, idx, const
+    a.n_targets = len(plan.target_names)
+    a.target_out[: len(plan.target_out)] = plan.target_out
+    h = dict(plan.hyper)
+    a.opt = _OPTS[plan.opt_name]
+    a.lr = h["learning_rate"]
+    b1, b2 = h.get("b1", 0.0), h.get("b2", 0.0)
+    a.b1, a.b2 = b1, b2
+    a.one_minus_b1, a.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
+    a.eps = h.get("eps", 0.0)
+
+
 @dataclasses.dataclass(frozen=True)
-class FusedEpochPlan:
+class FusedEpochPlan(PackedLayout):
     """Static layout of one model's packed parameters, plus what the kernel
     and its plain version read besides them."""
 
@@ -268,10 +337,6 @@ class FusedEpochPlan:
     res_floats: int
     loss: str = "mse"
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
-
-    @property
-    def has_norm(self) -> bool:
-        return self.norm_mode != _NORM_NONE
 
     @property
     def n_features(self) -> int:
@@ -304,32 +369,6 @@ class FusedEpochPlan:
         return dict(p_w=p_w, p_b=p_b, p_g=off, r_xhat=r_xhat, r_d0=r_d0, r_h=r_h,
                     r_d=r_d, r_g=r)
 
-    def pack(self, model) -> FusedParams:
-        """The model's current parameters and norm statistics, packed."""
-        named = dict(model.named_parameters())
-        params = torch.cat([named[name].detach().reshape(-1) for name, _, _ in self.segments])
-        if self.has_norm:
-            bn = torch.cat([model.nn.norm.mean.detach(), model.nn.norm.var.detach()])
-        else:
-            bn = params.new_zeros((0,))
-        return FusedParams(params.float().contiguous(), bn.float().contiguous())
-
-    def unpack(self, packed: FusedParams, model) -> None:
-        """Write packed parameters and norm statistics into ``model``."""
-        named = dict(model.named_parameters())
-        with torch.no_grad():
-            for name, offset, shape in self.segments:
-                n = math.prod(shape)
-                named[name].copy_(packed.params[offset : offset + n].view(shape))
-            if self.has_norm:
-                f = self.n_features
-                model.nn.norm.mean.copy_(packed.bn[:f])
-                model.nn.norm.var.copy_(packed.bn[f:])
-
-    def leaves(self, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``param name -> slice`` of a packed parameter-shaped vector."""
-        return {name: packed[o : o + math.prod(s)] for name, o, s in self.segments}
-
     @functools.cached_property
     def args_bytes(self) -> bytes:
         """The kernel's static arguments, packed once; each launch fills in
@@ -339,8 +378,7 @@ class FusedEpochPlan:
         a.n_layers = len(dims) - 1
         a.dims[: len(dims)] = dims
         a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
-        a.norm_mode = self.norm_mode
-        a.norm_eps = self.norm_eps
+        fill_common_args(a, self)
         a.momentum = self.momentum
         a.one_minus_momentum = 1.0 - self.momentum
         a.n_params = self.n_params
@@ -348,22 +386,7 @@ class FusedEpochPlan:
         a.p_off_w[: len(o["p_w"])] = o["p_w"]
         a.p_off_b[: len(o["p_b"])] = o["p_b"]
         a.p_off_g = o["p_g"]
-        a.n_globals, a.n_fixed = len(self.global_names), len(self.fixed_names)
-        a.scale_nn_outputs = int(self.scale_nn_outputs)
-        a.form = self.form.form_id
-        a.n_args = len(self.arg_sources)
-        for i, (src, idx, const) in enumerate(self.arg_sources):
-            a.arg_src[i], a.arg_idx[i], a.arg_const[i] = src, idx, const
-        a.n_targets = len(self.target_names)
-        a.target_out[: len(self.target_out)] = self.target_out
         a.agg_scale = self.agg_scale
-        h = dict(self.hyper)
-        a.opt = _OPTS[self.opt_name]
-        a.lr = h["learning_rate"]
-        b1, b2 = h.get("b1", 0.0), h.get("b2", 0.0)
-        a.b1, a.b2 = b1, b2
-        a.one_minus_b1, a.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
-        a.eps = h.get("eps", 0.0)
         a.tile_rows = self.tile_rows
         a.res_floats = self.res_floats
         a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]
@@ -381,12 +404,12 @@ def plan_fused_epoch(model, optimizer, logging: LoggingLoss) -> FusedEpochPlan:
     return build_plan(model, optimizer, logging, tile_rows=_tile_rows(model))
 
 
-def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
-               n_sites: int = 0) -> FusedEpochPlan:
-    """Lay out the parameters of a model already found inside a training
-    kernel's envelope, and check its kernel form on probe values. A
-    multi-site model's globals are ``(n_sites, 1)`` leaves, packed after the
-    shared parameters like the scalar globals of a single-series model."""
+def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[str, Any]:
+    """The fields every training plan has, for a model already found inside
+    a training kernel's envelope: the kernel form checked on probe values,
+    its argument sources, the bounds and fixed values, the loss and the
+    optimizer, and the parameters ``names`` (then the globals) laid out as
+    segments of one packed vector."""
     net = model.nn
     form = _form_of(model.mechanistic_model)
     arg_sources, _ = _arg_sources(model, form)
@@ -394,18 +417,13 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
     missing = [t for t in model.targets if t not in outputs]
     if missing:
         raise ValueError(f"targets {missing} are not outputs {list(outputs)} of the kernel form")
-    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
     norm_mode = (_NORM_NONE if net.norm is None
                  else _NORM_TRAIN if net.input_batchnorm is True else _NORM_STATIC)
     segments: List[Tuple[str, int, Tuple[int, ...]]] = []
     offset = 0
     named = dict(model.named_parameters())
-    names = []
-    if net.norm is not None:
-        names += ["nn.norm.scale", "nn.norm.bias"]
-    for i in range(len(net.layers)):
-        names += [f"nn.layers.{i}.weight", f"nn.layers.{i}.bias"]
-    names += [f"globals.{g}" for g in model.global_param_names]
+    names = ((["nn.norm.scale", "nn.norm.bias"] if net.norm is not None else []) + list(names)
+             + [f"globals.{g}" for g in model.global_param_names])
     for name in names:
         shape = tuple(named[name].shape)
         segments.append((name, offset, shape))
@@ -418,10 +436,7 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
         table.upper_of(g) - table.lower_of(g) for g in globals_]
     consts += [float(model.fixed.as_dict()[f].item()) for f in model.fixed_param_names]
     name, hyper = parse_opt_spec(optimizer)
-    _, res = _layout_sizes(model)
-    return FusedEpochPlan(
-        dims=dims,
-        acts=tuple(layer.activation for layer in net.layers),
+    return dict(
         norm_mode=norm_mode,
         norm_eps=net.norm.eps if net.norm is not None else 0.0,
         momentum=net.norm.momentum if net.norm is not None else 0.0,
@@ -440,11 +455,27 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
         agg_scale=1.0 / len(model.targets) if logging.agg_name == "mean" else 1.0,
         opt_name=name,
         hyper=tuple(sorted(hyper.items())),
+        loss=_loss_name(logging.training_loss),
+    )
+
+
+def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
+               n_sites: int = 0) -> FusedEpochPlan:
+    """Lay out the parameters of an MLP hybrid already found inside a
+    training kernel's envelope, and check its kernel form on probe values. A
+    multi-site model's globals are ``(n_sites, 1)`` leaves, packed after the
+    shared parameters like the scalar globals of a single-series model."""
+    net = model.nn
+    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+    names = [f"nn.layers.{i}.{leaf}" for i in range(len(net.layers)) for leaf in ("weight", "bias")]
+    return FusedEpochPlan(
+        dims=dims,
+        acts=tuple(layer.activation for layer in net.layers),
         width=next(w for w in _WIDTHS if w >= max(dims)),
         tile_rows=tile_rows,
-        res_floats=res,
-        loss=_loss_name(logging.training_loss),
+        res_floats=_layout_sizes(model)[1],
         n_sites=n_sites,
+        **shared_plan_fields(model, optimizer, logging, names),
     )
 
 
@@ -783,13 +814,21 @@ class FusedEpoch:
     batch permutations, or one of them when E is 1); without them they are
     drawn from ``generator`` (:func:`training.epoch.epoch_permutation`).
     A model is packed before the run and written back after it; packed
-    parameters (:class:`FusedParams`) are returned as new tensors."""
+    parameters (:class:`FusedParams`) are returned as new tensors.
+
+    A subclass for another kernel names its own plan, data layout, plain
+    version and launcher."""
+
+    _make_plan = staticmethod(plan_fused_epoch)
+    _make_data = staticmethod(fused_data)
+    _reference = staticmethod(fused_epoch_reference)
+    _launch = staticmethod(launch_fused_epoch)
 
     def __init__(self, model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
                  epochs_per_call: int = 1):
         if shuffle not in SHUFFLES:
             raise ValueError(f"fused epoch supports shuffle=True/False/'batches', got {shuffle!r}")
-        self.plan = plan_fused_epoch(model, optimizer, logging)
+        self.plan = self._make_plan(model, optimizer, logging)
         self.shuffle = shuffle
         self.epochs = max(1, int(epochs_per_call))
 
@@ -804,7 +843,7 @@ class FusedEpoch:
         plan = self.plan
         model = None if isinstance(model_or_packed, FusedParams) else model_or_packed
         packed = plan.pack(model) if model is not None else model_or_packed
-        data = fused_data(plan, tensors)
+        data = self._make_data(plan, tensors)
         rows = self.rows(tensors, perms, generator)
         dev = data.x.device
         for name, t in (("parameters", packed.params), ("moments", opt_state["m"]),
@@ -812,12 +851,12 @@ class FusedEpoch:
             if t.device != dev:
                 raise ValueError(f"the {name} are on {t.device}, the data on {dev}")
         if dev.type == "cpu":
-            packed, opt_state, loss = fused_epoch_reference(plan, packed, opt_state, data, rows)
+            packed, opt_state, loss = self._reference(plan, packed, opt_state, data, rows)
         elif dev.type == "cuda":
             packed = FusedParams(packed.params.clone(), packed.bn.clone())
             opt_state = {k: v.clone() for k, v in opt_state.items()}
             loss = torch.empty((1,), dtype=torch.float32, device=dev)
-            launch_fused_epoch(plan, packed, opt_state, data, rows, loss)
+            self._launch(plan, packed, opt_state, data, rows, loss)
             loss = loss[0]
         else:
             raise ValueError(f"the fused epoch runs on CUDA or CPU tensors; got {dev}")
@@ -829,8 +868,8 @@ class FusedEpoch:
     def reference(self, packed: FusedParams, opt_state, tensors: EpochTensors, perms=None,
                   generator=None):
         """The plain version on the tensors' device (no launch)."""
-        return fused_epoch_reference(self.plan, packed, opt_state, fused_data(self.plan, tensors),
-                                     self.rows(tensors, perms, generator))
+        return self._reference(self.plan, packed, opt_state, self._make_data(self.plan, tensors),
+                               self.rows(tensors, perms, generator))
 
 
 def make_fused_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
@@ -866,17 +905,51 @@ def _head(tensors: EpochTensors, nb: int) -> EpochTensors:
     )
 
 
-def _fused_builder(model):
-    """The function that makes a model's fused epoch: the multi-site one for a
-    :class:`MultiSiteHybridModel`, else the single-series one. Both return
-    a callable with a ``plan`` and the call signature of :class:`FusedEpoch`."""
+class FusedEngine(NamedTuple):
+    """One fused training engine as ``train()`` and the gate see it."""
+
+    epoch_path: str  # ``TrainResults.epoch_path`` when it runs
+    envelope: str  # the name of its ``supports_*`` function, for ``engine_reason``
+    make_epoch: Callable  # returns a callable with a ``plan``, called like :class:`FusedEpoch`
+    #: ``(model, optimizer, logging, tensors, *, shuffle)`` -> a sentence or None
+    unsupported_reason: Callable
+    shuffle_refusal: str  # ``engine_reason`` when only the shuffle mode disqualifies; takes it
+
+
+def _refusing_other_shuffles(reason_fn):
+    """A single-series envelope with the shuffle mode checked beside it."""
+    def reason(model, optimizer, logging, tensors=None, *, shuffle=False):
+        if shuffle not in SHUFFLES:
+            return f"shuffle={shuffle!r} (the kernel takes True, False or 'batches')"
+        return reason_fn(model, optimizer, logging, tensors)
+
+    return reason
+
+
+def fused_engine(model) -> FusedEngine:
+    """The fused engine of a model, the one place that tells them apart: the
+    multi-site one for a :class:`MultiSiteHybridModel`, the LSTM one for a
+    hybrid over an :class:`LSTMNet`, else the single-series MLP one."""
+    from ..models.nn import LSTMNet
     from ..parallel.multisite import MultiSiteHybridModel
 
     if isinstance(model, MultiSiteHybridModel):
-        from .fused_multisite import make_fused_multisite_epoch
+        from .fused_multisite import fused_multisite_unsupported_reason, make_fused_multisite_epoch
 
-        return make_fused_multisite_epoch
-    return make_fused_epoch
+        return FusedEngine(
+            "cuda_fused_multisite", "supports_fused_multisite", make_fused_multisite_epoch,
+            fused_multisite_unsupported_reason,
+            "minibatched multisite with shuffle_each_epoch={!r}: the fused multisite kernel "
+            "supports shuffle_each_epoch in (True, False, 'batches')")
+    single = "shuffle_each_epoch={!r} outside the fused envelope"
+    if isinstance(getattr(model, "nn", None), LSTMNet):
+        from .fused_epoch_lstm import fused_epoch_lstm_unsupported_reason, make_fused_lstm_epoch
+
+        return FusedEngine(
+            "cuda_fused_lstm", "supports_fused_epoch_lstm", make_fused_lstm_epoch,
+            _refusing_other_shuffles(fused_epoch_lstm_unsupported_reason), single)
+    return FusedEngine("cuda_fused_epoch", "supports_fused_epoch", make_fused_epoch,
+                       _refusing_other_shuffles(fused_epoch_unsupported_reason), single)
 
 
 def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: EpochTensors, *,
@@ -904,7 +977,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     one does not catch a build or launch error: those raise."""
     lr = 1e-3
     sub = _head(tensors, min(n_batches, int(tensors.weight.shape[0])))
-    make_epoch = _fused_builder(model)
+    make_epoch = fused_engine(model).make_epoch
     plan = make_epoch(model, optimizer, logging).plan
     p0 = plan.pack(model)
 

@@ -193,9 +193,9 @@ def fused_forward_unsupported_reason(model, *, training: bool = False) -> Option
         return "trainable input BatchNorm (input_batchnorm=True) is outside the kernel"
     if net.compute_dtype is not None:
         return f"compute_dtype={net.compute_dtype} (the kernel runs float32)"
-    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
-        if t.dtype != torch.float32:
-            return f"{name} is {t.dtype}, not float32"
+    reason = float32_reason(model)
+    if reason is not None:
+        return reason
     for layer in net.layers:
         if not isinstance(layer.activation, str) or layer.activation not in _ACT_IDS:
             return f"activation {layer.activation!r} is not one of the kernel's {len(_ACT_IDS)} names"
@@ -204,13 +204,29 @@ def fused_forward_unsupported_reason(model, *, training: bool = False) -> Option
         return f"layer widths {dims} exceed the kernel's cap of {MAX_WIDTH}"
     if len(dims) - 1 > MAX_LAYERS:
         return f"{len(dims) - 1} layers exceed the kernel's cap of {MAX_LAYERS}"
+    n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
+    if not training and _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
+        return "the packed parameters exceed the kernel's 48 KiB of shared memory"
+    return mechanistic_reason(model)
+
+
+def float32_reason(model) -> Optional[str]:
+    """Names a parameter or buffer that is not float32, if there is one."""
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if t.dtype != torch.float32:
+            return f"{name} is {t.dtype}, not float32"
+    return None
+
+
+def mechanistic_reason(model) -> Optional[str]:
+    """Why the kernels cannot evaluate the model's mechanistic function, or
+    None: it must carry a known kernel form whose arguments all resolve,
+    with forcing columns and scalar parameters within the kernels' caps."""
     if len(model.forcing) > MAX_FORCING:
         return f"{len(model.forcing)} forcing columns exceed the cap of {MAX_FORCING}"
     n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
     if n_scalars > MAX_SCALARS:
         return f"{n_scalars} global and fixed parameters exceed the cap of {MAX_SCALARS}"
-    if not training and _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
-        return "the packed parameters exceed the kernel's 48 KiB of shared memory"
     form = _form_of(model.mechanistic_model)
     if form is None:
         name = getattr(model.mechanistic_model, "__name__", model.mechanistic_model)

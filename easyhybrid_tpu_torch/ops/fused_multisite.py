@@ -58,6 +58,7 @@ from .fused_epoch import (
     _loss_name,
     _reference_update,
     build_plan,
+    fill_common_args,
     form_args,
     reference_backward,
     reference_cotangents,
@@ -259,28 +260,12 @@ def _static_args(plan: FusedEpochPlan) -> bytes:
     a.n_layers = len(dims) - 1
     a.dims[: len(dims)] = dims
     a.acts[: len(plan.acts)] = [_ACT_IDS[act] for act in plan.acts]
-    a.norm_mode = plan.norm_mode
-    a.norm_eps = plan.norm_eps
+    fill_common_args(a, plan)
     o = plan.offsets()
     a.n_shared = o["p_g"]
     a.p_off_w[: len(o["p_w"])] = o["p_w"]
     a.p_off_b[: len(o["p_b"])] = o["p_b"]
-    a.n_globals, a.n_fixed = len(plan.global_names), len(plan.fixed_names)
-    a.scale_nn_outputs = int(plan.scale_nn_outputs)
-    a.form = plan.form.form_id
-    a.n_args = len(plan.arg_sources)
-    for i, (src, idx, const) in enumerate(plan.arg_sources):
-        a.arg_src[i], a.arg_idx[i], a.arg_const[i] = src, idx, const
-    a.n_targets = len(plan.target_names)
-    a.target_out[: len(plan.target_out)] = plan.target_out
     a.loss_kind = _LOSS_KINDS[plan.loss]
-    h = dict(plan.hyper)
-    a.opt = _OPTS[plan.opt_name]
-    a.lr = h["learning_rate"]
-    b1, b2 = h.get("b1", 0.0), h.get("b2", 0.0)
-    a.b1, a.b2 = b1, b2
-    a.one_minus_b1, a.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
-    a.eps = h.get("eps", 0.0)
     a.tile_rows = plan.tile_rows
     a.res_floats = plan.res_floats
     a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]

@@ -15,6 +15,9 @@ The epoch engine is chosen once (``TrainResults.epoch_path``):
 * ``"cuda_fused_multisite"``: the same for a ``MultiSiteHybridModel`` and
   the multi-site kernel (``ops/fused_multisite.py``); each block of
   ``eval_every`` epochs is one call of its launcher;
+* ``"cuda_fused_lstm"``: the same for a hybrid over an ``LSTMNet`` trained on
+  sequence windows (``sequence_kwargs``) and the LSTM kernel
+  (``ops/fused_epoch_lstm.py``); one launch per block of ``eval_every`` epochs;
 * ``"torch"``: the torch epoch (``training/epoch.py``).
 
 ``TrainResults.engine_reason`` says why, in the JAX package's wording where
@@ -37,15 +40,7 @@ from ..data.loaders import build_epoch_tensors
 from ..data.prepare import HybridData
 from ..data.split import merged_sequence_kwargs, split_data
 from ..losses.specs import LoggingLoss
-from ..ops.fused_epoch import (
-    SHUFFLES,
-    _fused_builder,
-    fused_epoch_unsupported_reason,
-    fused_exactness_check,
-    init_fused_opt_state,
-)
-from ..ops.fused_multisite import fused_multisite_unsupported_reason
-from ..parallel.multisite import MultiSiteHybridModel
+from ..ops.fused_epoch import fused_engine, fused_exactness_check, init_fused_opt_state
 from ..params import scale_param
 from .early_stopping import EarlyStopping
 from .epoch import can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_train_epoch
@@ -164,10 +159,34 @@ def _outputs_to_host(outputs, n: int):
 
 def _obs_pred_columns(data: HybridData, outputs, targets):
     """Observed and predicted columns as numpy dicts (the DataFrames of
-    ``TrainResults`` are built from them on access)."""
-    obs = {t: np.asarray(data.y[t], np.float32).ravel() for t in targets}
-    pred = {f"{t}_pred": np.asarray(outputs[t], np.float32).ravel()
-            for t in targets if t in outputs}
+    ``TrainResults`` are built from them on access). Windowed targets
+    ``(N, T_out)`` give the long format: ``sample`` and ``step`` index
+    columns, the predictions cut to the trailing ``T_out`` steps, and a
+    per-sample target beside them repeated over a window's steps."""
+    shapes = {t: np.asarray(data.y[t]).shape for t in targets}
+    windows = {s for s in shapes.values() if len(s) > 1}
+    if len(windows) > 1:
+        raise ValueError(f"targets with different windows {sorted(windows)} cannot share "
+                         "one long-format frame")
+    window = next(iter(windows), None)
+
+    def flat(arr, shape):
+        if window is not None and len(shape) == 1:
+            arr = np.broadcast_to(arr.reshape(-1, *([1] * (len(window) - 1))), window)
+        return np.ascontiguousarray(arr, np.float32).ravel()
+
+    def pred_of(t):
+        arr, y_shape = np.asarray(outputs[t], np.float32), shapes[t]
+        if arr.ndim >= 2 and len(y_shape) >= 2 and arr.shape[1] != y_shape[1]:
+            arr = arr[:, -y_shape[1]:]  # trailing-window alignment
+        return flat(arr, y_shape)
+
+    index = {}
+    if window is not None:
+        idx = np.indices(window).reshape(len(window), -1)
+        index = {"sample": idx[0], "step": idx[1]}
+    obs = {**index, **{t: flat(np.asarray(data.y[t], np.float32), shapes[t]) for t in targets}}
+    pred = {**index, **{f"{t}_pred": pred_of(t) for t in targets if t in outputs}}
     return obs, pred
 
 
@@ -189,25 +208,16 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
     if use_kernel is not True and device.type != "cuda":
         return False, (f"the model is on {device.type!r}, not cuda "
                        "(use_kernel=True overrides)")
+    engine = fused_engine(model)
     shuffle = cfg.shuffle_each_epoch
-    if isinstance(model, MultiSiteHybridModel):
-        reason = fused_multisite_unsupported_reason(model, cfg.optimizer, logging_loss, tensors,
-                                                    shuffle=shuffle)
-        if reason is not None and fused_multisite_unsupported_reason(
-                model, cfg.optimizer, logging_loss, tensors, shuffle=False) is None:
-            # only the shuffle mode disqualified the multisite kernel: name the flag
-            return False, (f"minibatched multisite with shuffle_each_epoch={shuffle!r}: the "
-                           "fused multisite kernel supports shuffle_each_epoch in "
-                           "(True, False, 'batches')")
-        envelope = "supports_fused_multisite"
-    elif shuffle not in SHUFFLES:
-        return False, f"shuffle_each_epoch={shuffle!r} outside the fused envelope"
-    else:
-        reason = fused_epoch_unsupported_reason(model, cfg.optimizer, logging_loss, tensors)
-        envelope = "supports_fused_epoch"
+    args = (model, cfg.optimizer, logging_loss, tensors)
+    reason = engine.unsupported_reason(*args, shuffle=shuffle)
     if reason is not None:
+        if engine.unsupported_reason(*args, shuffle=False) is None:
+            # only the shuffle mode disqualified the kernel: name the flag
+            return False, engine.shuffle_refusal.format(shuffle)
         return False, ("model/optimizer/loss outside the fused-kernel envelope "
-                       f"({envelope}): {reason}")
+                       f"({engine.envelope}): {reason}")
     ok, gdiff = fused_exactness_check(
         model, cfg.optimizer, logging_loss, tensors, epochs_per_call=eval_every,
         shuffle=cfg.shuffle_each_epoch,
@@ -271,11 +281,11 @@ def train(
     generator = torch.Generator(device=device).manual_seed(int(cfg.random_seed))
 
     if fused:
-        epoch_path = ("cuda_fused_multisite" if isinstance(model, MultiSiteHybridModel)
-                      else "cuda_fused_epoch")
-        kernel_epoch = _fused_builder(model)(model, cfg.optimizer, logging_loss,
-                                             shuffle=cfg.shuffle_each_epoch,
-                                             epochs_per_call=eval_every)
+        engine = fused_engine(model)
+        epoch_path = engine.epoch_path
+        kernel_epoch = engine.make_epoch(model, cfg.optimizer, logging_loss,
+                                         shuffle=cfg.shuffle_each_epoch,
+                                         epochs_per_call=eval_every)
         packed = kernel_epoch.plan.pack(model)
         opt_state = init_fused_opt_state(packed)
 

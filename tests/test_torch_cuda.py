@@ -1,6 +1,7 @@
 """The CUDA kernels on a GPU, against their plain PyTorch versions: the
 fused forward (kernel 1), the fused training epoch (kernel 2), the fused
-multi-site epoch (kernel 5) and the multi-site primitives.
+LSTM epoch (kernel 4), the fused multi-site epoch (kernel 5) and the
+multi-site primitives.
 
 Imports no JAX, so it runs where only PyTorch with CUDA is installed. On a
 machine without a GPU every test skips. On a GPU, without the repository's
@@ -15,8 +16,12 @@ at most 3 epochs: 1e-4 * max(1, |plain|) on parameters, moments, BatchNorm
 statistics and loss, since the per-step differences compound along the
 chain of steps. Kernel 5 the same, after at most 3 epochs of site batches
 (its sums over a site's time steps and over thread blocks run in another
-order than torch's); the primitives' gather and update exactly.
+order than torch's); the primitives' gather and update exactly. Kernel 4 the
+same as kernel 2, after at most 4 epochs: each step is a chain of ``T`` cells
+forward and ``T`` backward on CUDA's expf / tanhf against torch's.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -24,7 +29,10 @@ import torch
 
 import easyhybrid_tpu_torch as et
 from easyhybrid_tpu_torch.data.prepare import HybridData
+from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+from easyhybrid_tpu_torch.ops import _build
 from easyhybrid_tpu_torch.ops import fused_epoch as fe
+from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.ops import fused_multisite as fm
 from easyhybrid_tpu_torch.ops import multisite_primitives as mp
@@ -354,3 +362,112 @@ def test_multisite_primitives_match_plain(cuda):
     assert torch.equal(mp.site_reduce(mask), mask.sum(1))  # whole numbers: exact in any order
     with pytest.raises(ValueError, match="contiguous"):
         mp.site_reduce(x.T)
+
+
+# --------------------------------------------------------------------------
+# kernel 4: the fused LSTM epoch
+# --------------------------------------------------------------------------
+
+def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="static",
+               opt=("adam", 0.01), loss="nseLoss", agg="sum", shuffle=True, epochs=2, n=1500,
+               nan_frac=0.0, mask_first=0, seed=0):
+    cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
+    cols["reco"][:mask_first] = np.nan
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": hidden},
+        scale_nn_outputs=True, input_batchnorm=norm,
+        generator=torch.Generator().manual_seed(seed))
+    assert m.device.type == "cuda"  # built without device=
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=steps, output_window=out_steps,
+                                lead_time=0)
+    et.fit_input_norm(m, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
+    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = et.make_fused_lstm_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+    packed = fn.plan.pack(m)
+    before = fl.launch_fused_lstm.launches
+    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    torch.cuda.synchronize()
+    assert fl.launch_fused_lstm.launches - before == 1
+    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
+                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+        assert torch.isfinite(g).all()
+        assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
+    # sums in a fixed order, no atomics: the same inputs give the same bits
+    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
+                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+        assert torch.equal(a, b)
+    return got, fn
+
+
+@pytest.mark.parametrize("kw", [
+    dict(epochs=4),                                                  # the main path's shape
+    dict(hidden=8, steps=6, out_steps=2, norm=False, opt=("sgd", 0.05), loss="mae",
+         shuffle=False, n=600),
+    dict(nan_frac=0.3, batch=100, loss="mse"),                       # ragged last batch
+    dict(shuffle="batches", loss="mse", agg="mean", out_steps=10),   # every step has a target
+    dict(steps=32), dict(steps=64, n=600),                           # smaller tiles
+    dict(hidden=32, loss="mse"), dict(hidden=64, n=400, epochs=1),   # each compiled hidden size
+    dict(hidden=5, steps=3, batch=7, n=60),
+], ids=str)
+def test_lstm_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _lstm_case(cuda, **kw)
+
+
+def test_lstm_tiles_follow_the_window(cuda):
+    for steps, rows in ((10, 64), (32, 32), (64, 16)):
+        _, fn = _lstm_case(cuda, steps=steps, n=300, epochs=1)
+        assert fn.plan.sizes.tile_rows(steps, 1) == rows
+
+
+def test_lstm_masked_batches_count_no_step(cuda):
+    got, _ = _lstm_case(cuda, shuffle=False, mask_first=2 * 128 + 9, n=1033, epochs=2)
+    assert int(got[1]["t"][0]) == 2 * (8 - 2)  # 1,024 windows in 8 batches, two without a target
+
+
+def test_lstm_argument_struct_matches_its_mirror(cuda):
+    assert _build.load_library().eh_fused_lstm_args_size() == ctypes.sizeof(fl._Args)
+
+
+def test_train_takes_the_lstm_kernel(cuda):
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 16},
+        scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    before = fl.launch_fused_lstm.launches
+    r = et.train(m, et.rbq10_columns(1200, seed=7), nepochs=6, eval_every=2, batchsize=128,
+                 optimizer=("adam", 0.01), training_loss="nseLoss", loss_types=["nseLoss", "mse"],
+                 show_progress=False,
+                 sequence_kwargs=dict(input_window=10, output_window=1, lead_time=0))
+    assert r.epoch_path == "cuda_fused_lstm" and "exactness gate passed" in r.engine_reason
+    assert fl.launch_fused_lstm.launches - before == 3 + 2  # three blocks + the gate's two runs
+    assert m.device.type == "cuda" and np.isfinite(r.val_pred_columns["reco_pred"]).all()
+    assert set(r.val_pred_columns) == {"sample", "step", "reco_pred"}
+
+
+def test_lstm_wrapper_rejects_mixed_devices(cuda):
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 4},
+        device="cpu")
+    cols = et.rbq10_columns(200, seed=9)
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    tensors = epoch_tensors_to(et.build_epoch_tensors(
+        split_into_sequences(rows, input_window=5, output_window=1), 64), cuda)
+    fn = et.make_fused_lstm_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
+    packed = fn.plan.pack(m)  # on the CPU, the data on the card
+    with pytest.raises(ValueError, match="parameters are on cpu"):
+        fn(packed, fe.init_fused_opt_state(packed), tensors)

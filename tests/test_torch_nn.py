@@ -130,9 +130,13 @@ def test_glorot_uniform_bounds_and_generator():
     assert float(a.abs().max()) <= (6.0 / 50) ** 0.5
 
 
-def test_lstm_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.construct_nn({"lstm": 4}, 2, 1)
+def test_lstm_spec_builds_an_lstm_net():
+    net = tnn.construct_nn({"lstm": 4}, 2, 1, activation="swish", output_activation="softplus")
+    assert isinstance(net, tnn.LSTMNet) and (net.in_dim, net.out_dim, net.hidden_size) == (2, 1, 4)
+    assert net.wi.shape == (16, 2) and net.wh.shape == (16, 4) and net.b.shape == (16,)
+    assert net.head.weight.shape == (1, 4) and net.head.bias.shape == (1,)
+    assert net.output_activation == "softplus" and net.norm is None  # no hidden activation
+    assert net(torch.zeros(3, 5, 2)).shape == (3, 5, 1)
     with pytest.raises(ValueError, match="unknown NN spec"):
         tnn.construct_nn({"gru": 4}, 2, 1)
     with pytest.raises(ValueError, match="unknown activation"):

@@ -117,7 +117,7 @@ def test_results_hold_numpy_columns_and_build_frames_on_access():
     (dict(multi_device=True), "item 15"),
     (dict(optimizer="lbfgs"), "item 12"),
     (dict(optimizer={"globals": ("sgd", 0.1)}), "item 6"),
-    (dict(sequence_length=5), "item 11"),
+    (dict(return_gradients=True), "item 8"),
     (dict(save_training=True), "item 16"),
 ])
 def test_options_not_ported_yet_raise(kwargs, item):
