@@ -55,7 +55,23 @@ Phases, one or more lines each; any failure exits non-zero:
     validation nseLoss below ``LSTM_VAL_LIMIT``;
 15. times: kernel 4 against its plain version per epoch at the main path's
     shape and at the JAX bench's (batch 512, no norm, mse), and ``train()``
-    wall on both engines.
+    wall on both engines;
+16. kernel 3: the wide fused epoch against its plain PyTorch version
+    (``fused_wide_reference``) from identical parameters and the same
+    permutations: the tower [1024, 512, 256, 128, 64] at full width (the
+    gradient itself through one sgd step, then 2 epochs x 16 Adam steps of
+    1,024 rows, and batch 64), and at its edges on smaller models (widths that
+    are no multiple of the tile, mae with sgd and no norm, NaN targets with a
+    ragged last batch, a fully masked first batch, ``shuffle="batches"``), with
+    a second run that must give the same bits;
+17. main path: ``train()`` on the wide model, hidden layers [1024, 512, 256,
+    128, 64], swish, static input norm, 20,480 rows split 80/20 into 16 batches
+    of 1,024, 20 epochs of Adam at 0.01 on mse: it must take kernel 3 after its
+    gate (one launcher call per epoch), return finite validation predictions,
+    and end with a best validation mse below ``WIDE_VAL_LIMIT`` and Q10 near 2;
+18. times: kernel 3 per epoch and per step at the main shape and at batch 64,
+    each of its kernels by name, its plain version, ``train()`` wall on both
+    engines and the device's busy share of the fused ``train()``.
 
 Models are built without a ``device=`` argument and must land on the card.
 The last three lines are: a JSON object ``{"kernels": [...]}`` with one
@@ -67,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -262,9 +279,9 @@ def epoch_cases(et, quick_cols):
 
 
 def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, epochs, batch,
-                       seed, split=False, keep_nan=False):
-    """The case's fused epoch, its packed parameters on the card, its epoch
-    tensors and its permutations."""
+                       seed, split=False, keep_nan=False, make=None, loss="mse", agg="sum"):
+    """The case's fused epoch (kernel 2's, or the one ``make`` builds), its
+    packed parameters on the card, its epoch tensors and its permutations."""
     from easyhybrid_tpu_torch.data.prepare import HybridData
     from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
@@ -278,7 +295,9 @@ def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, e
         data = et.prepare_data(model, cols)
     et.fit_input_norm(model, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
-    fn = et.make_fused_epoch(model, opt, et.LoggingLoss(), shuffle=shuffle, epochs_per_call=epochs)
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = (make or et.make_fused_epoch)(model, opt, logging, shuffle=shuffle,
+                                       epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device="cuda").manual_seed(seed))
     return what, fn, fn.plan.pack(model), tensors, perms
@@ -305,9 +324,10 @@ def bound(*, bytes_moved: int, flops: int) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def kernel_device_ms(fn, reps: int, name: str) -> float:
-    """Device milliseconds per call of ``fn`` spent in the kernels whose
-    name contains ``name``, from ``torch.profiler``."""
+def kernel_split_ms(fn, reps: int, name: str) -> dict:
+    """Device milliseconds per call of ``fn`` in each kernel whose name
+    contains ``name``, keyed by what follows it in the kernel's name, from
+    ``torch.profiler``; ``"all"`` is their sum."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -315,10 +335,21 @@ def kernel_device_ms(fn, reps: int, name: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-    if total <= 0:
+    out = {}
+    for e in prof.key_averages():
+        if name in e.key:
+            rest = re.split(r"[(<]", e.key.split(name, 1)[1])[0]
+            out[rest] = out.get(rest, 0.0) + e.self_device_time_total / 1e3 / reps
+    out["all"] = sum(out.values())
+    if out["all"] <= 0:
         raise AssertionError(f"the profiler saw no kernel named *{name}*")
-    return total / 1e3 / reps
+    return out
+
+
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    name contains ``name``."""
+    return kernel_split_ms(fn, reps, name)["all"]
 
 
 # kernel 5 after at most 4 epochs of site batches: max |got - ref| <=
@@ -869,6 +900,265 @@ def lstm_times(et, card, main) -> dict:
     return out
 
 
+# kernel 3, the wide tower. The small models of its cases are held like kernel
+# 2's: max |got - ref| <= TOL_EPOCH * max(1, |ref|) on every parameter, moment
+# and the loss. The tower is held in two parts. Its gradient, as one sgd step
+# at lr 1e-3 implies it ((p0 - p) / lr), within TOL_EPOCH * max(1, |g|) on
+# every one of its 700,422 elements: the kernels' tiled sums and cuBLAS's agree
+# to rounding. Its Adam runs by a criterion of their own, because at Adam's
+# first steps g / (sqrt(v) + eps) is +-1 whatever |g|, so an element whose
+# gradient is at rounding level moves by a visible fraction of lr between two
+# summation orders, and every later step starts from there: on an NVIDIA H100
+# 80GB HBM3 one Adam step left 1 element of 700,422 beyond TOL_EPOCH (by
+# 1.07e-4), 32 steps of 1,024 rows 457 parameters (worst 1.2e-3) and 431 first
+# moments, 32 steps of 64 rows 2,084 first moments (worst 1.1e-2). The
+# criterion: at most WIDE_ADAM_SHARE of the elements of the parameters and of
+# each moment beyond TOL_EPOCH * max(1, |ref|), no parameter apart by more than
+# 2 lr (one step's full swing), the loss within WIDE_LOSS_TOL * max(1, |ref|).
+WIDE_HIDDEN = (1024, 512, 256, 128, 64)
+WIDE_ROWS, WIDE_BATCH = 20_480, 1024
+WIDE_TRAIN_KW = dict(nepochs=20, batchsize=WIDE_BATCH, optimizer=("adam", 0.01),
+                     show_progress=False)
+WIDE_ADAM_SHARE = 0.01
+WIDE_LOSS_TOL = 1e-3
+# the same run on the torch engine on a CPU (float32) ends with a best
+# validation mse of 0.010624 at epoch 20 (noise floor 0.01) and Q10 1.9923;
+# the limit leaves a factor of three
+WIDE_VAL_LIMIT = 0.03
+
+
+def wide_cases(et, train_cols):
+    """Kernel 3's cases: the main path's shape first, then its edges."""
+    first = {k: v[:WIDE_BATCH] for k, v in train_cols.items()}
+    masked = et.rbq10_columns(1024, seed=6)
+    masked["reco"][:128] = np.nan  # the whole first (unshuffled) batch
+    tower = dict(hidden=WIDE_HIDDEN, act="swish", norm="static", cols=train_cols,
+                 batch=WIDE_BATCH, seed=0)
+    small = dict(hidden=(128, 64), act="swish", norm="static", opt=("adam", 0.01), seed=1)
+    return [
+        dict(what="tower [1024,512,256,128,64], the gradient: one sgd step at lr 1e-3 over the "
+                  "first 1,024 rows", opt=("sgd", 1e-3), shuffle=False, epochs=1, held="gradient",
+             **{**tower, "cols": first}),
+        dict(what="tower, main path: 16,384 rows, batch 1,024, adam, static norm, shuffled, "
+                  "2 epochs", opt=("adam", 0.01), shuffle=True, epochs=2, held="adam", **tower),
+        dict(what="tower, batch 64 (1,024 rows), adam, shuffled, 2 epochs", opt=("adam", 0.01),
+             shuffle=True, epochs=2, held="adam", **{**tower, "cols": first, "batch": 64}),
+        dict(what="[100,37] tanh (no multiple of the tile), N=777 batch 100 (ragged), 2 epochs",
+             cols=et.rbq10_columns(777, seed=2), hidden=(100, 37), act="tanh", norm="static",
+             opt=("adam", 0.01), shuffle=True, epochs=2, batch=100, seed=2),
+        # lr 1e-3: on raw predictors (hundreds) sgd at 0.05 diverges (the loss rises) and
+        # amplifies rounding until float32 itself is the limit: after 8 such steps the plain
+        # version was 1.2e-4 from its own float64 run and the kernel 2.4e-5 (H100)
+        dict(what="[128,64] mae, sgd at 1e-3, no norm, unshuffled, N=1000 batch 256",
+             cols=et.rbq10_columns(1000, seed=3), shuffle=False, epochs=2, batch=256, loss="mae",
+             **{**small, "norm": False, "opt": ("sgd", 1e-3)}),
+        dict(what="[128,64] 30% NaN targets, agg mean, N=1000 batch 300 (ragged last batch)",
+             cols=et.rbq10_columns(1000, seed=4, nan_frac=0.3), keep_nan=True, shuffle=True,
+             epochs=2, batch=300, agg="mean", **small),
+        dict(what="[128,64] first batch fully masked, unshuffled, N=1024 batch 128", cols=masked,
+             keep_nan=True, shuffle=False, epochs=1, batch=128, **small),
+        dict(what="[65] gelu, shuffle 'batches', N=2000 batch 300",
+             cols=et.rbq10_columns(2000, seed=5), hidden=(65,), act="gelu", norm="static",
+             opt=("adam", 0.01), shuffle="batches", epochs=2, batch=300, seed=5),
+    ]
+
+
+def prepare_wide_case(et, *, held="strict", **case):
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    return prepare_epoch_case(et, fe, make=et.make_fused_wide_epoch, **case)
+
+
+def beyond(got, ref, tol):
+    """``(elements beyond tol * max(1, |ref|), all elements, largest |diff|)``."""
+    diff = (got.float() - ref.float()).abs()
+    out = diff > tol * ref.float().abs().clamp_min(1.0)
+    return int(out.sum()), diff.numel(), float(diff.max()) if diff.numel() else 0.0
+
+
+def wide_kernel_checks(et, train_cols) -> float:
+    """Phase 16: kernel 3 against its plain version, and against itself."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    def named(packed, opt_state, loss):
+        return {"params": packed.params, "bn": packed.bn, "m": opt_state["m"],
+                "v": opt_state["v"], "t": opt_state["t"].float(), "loss": loss.reshape(1)}
+
+    worst = 0.0
+    for case in wide_cases(et, train_cols):
+        held = case.get("held", "strict")
+        what, fn, packed, tensors, perms = prepare_wide_case(et, **case)
+        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        torch.cuda.synchronize()
+        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+            raise AssertionError(f"{what}: the kernel returned non-finite values")
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        steps = int(got["t"][0])
+        if steps != int(ref["t"][0]):
+            raise AssertionError(f"{what}: {steps} steps counted, the plain version "
+                                 f"{int(ref['t'][0])}")
+        if held == "gradient":
+            lr = dict(fn.plan.hyper)["learning_rate"]
+            g_got, g_ref = (packed.params - got["params"]) / lr, (packed.params - ref["params"]) / lr
+            err = compare({"gradient": g_got, "loss": got["loss"]},
+                          {"gradient": g_ref, "loss": ref["loss"]}, what, TOL_EPOCH)
+            worst = max(worst, err)
+            log("kernel3", f"{what}: implied gradient of {g_ref.numel()} elements, largest "
+                           f"|g| {float(g_ref.abs().max()):.3e}, max |diff| {err:.3e} within "
+                           f"{TOL_EPOCH} x max(1, |g|) on every element, second run bitwise "
+                           f"equal (ok)")
+        elif held == "adam":
+            lr = dict(fn.plan.hyper)["learning_rate"]
+            notes = []
+            for key in ("params", "m", "v"):
+                out, total, err = beyond(got[key], ref[key], TOL_EPOCH)
+                worst = max(worst, err)
+                notes.append(f"{key}: {out} of {total} beyond {TOL_EPOCH} x max(1, |ref|), "
+                             f"max |diff| {err:.3e}")
+                if out > WIDE_ADAM_SHARE * total:
+                    raise AssertionError(f"{what}: {notes[-1]} (more than {WIDE_ADAM_SHARE:.0%})")
+                if key == "params" and err > 2 * lr:
+                    raise AssertionError(f"{what}: a parameter is {err:.3e} apart, more than 2 lr")
+            err = compare({"loss": got["loss"]}, {"loss": ref["loss"]}, what, WIDE_LOSS_TOL)
+            log("kernel3", f"{what}: {steps} steps, " + "; ".join(notes) + f"; loss "
+                           f"{float(got['loss']):.6f} against {float(ref['loss']):.6f} (|diff| "
+                           f"{err:.3e}); criterion: at most {WIDE_ADAM_SHARE:.0%} of the elements "
+                           f"beyond, no parameter more than 2 lr apart, the loss within "
+                           f"{WIDE_LOSS_TOL} x max(1, |ref|); second run bitwise equal (ok)")
+        else:
+            err = compare(got, ref, what, TOL_EPOCH)
+            worst = max(worst, err)
+            log("kernel3", f"{what}: {steps} steps, weight-gradient splits "
+                           f"{fn.plan.layout(tensors.weight.shape[1]).splits}, max |diff| "
+                           f"{err:.3e}, second run bitwise equal (ok)")
+        if "fully masked" in what and steps != 7:
+            raise AssertionError(f"{what}: {steps} steps counted, not 7")
+    return worst
+
+
+def wide_model(et):
+    return build_model(et, hidden=WIDE_HIDDEN)
+
+
+def wide_main_path(et, card, cols) -> dict:
+    """Phase 17: wide-MLP training through the normal entry points."""
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    model = wide_model(et)
+    with gate_counted_apart(fw.launch_fused_wide) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, cols, **WIDE_TRAIN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fw.launch_fused_wide.launches
+    if result.epoch_path != "cuda_fused_wide" or "exactness gate passed" not in result.engine_reason:
+        raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
+    if launches != WIDE_TRAIN_KW["nepochs"]:
+        raise AssertionError(f"train() called kernel 3's launcher {launches} times, not "
+                             f"{WIDE_TRAIN_KW['nepochs']} (one per eval block)")
+    pred = result.val_pred_columns["reco_pred"]
+    if pred.shape != (WIDE_ROWS // 5,) or not np.isfinite(pred).all():
+        raise AssertionError(f"val predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    steps = int(result.opt_state["t"][0])
+    n_batches = WIDE_ROWS * 4 // 5 // WIDE_BATCH
+    if steps != WIDE_TRAIN_KW["nepochs"] * n_batches:
+        raise AssertionError(f"train() took {steps} optimizer steps, not "
+                             f"{WIDE_TRAIN_KW['nepochs'] * n_batches}")
+    if not (result.best_loss < WIDE_VAL_LIMIT and abs(q10 - 2.0) < 0.15):
+        raise AssertionError(f"train() ended with best val mse {result.best_loss:.5f} (limit "
+                             f"{WIDE_VAL_LIMIT}) and Q10 {q10:.4f}")
+    log("main", f"wide train(): hidden {list(WIDE_HIDDEN)}, {WIDE_ROWS} rows in {n_batches} "
+                f"batches of {WIDE_BATCH}, {result.epoch_path}, {result.engine_reason}; {launches} "
+                f"launcher calls after the gate's {gate_launches}, {steps} optimizer steps; best "
+                f"val mse {result.best_loss:.6f} at epoch {result.best_epoch} (limit "
+                f"{WIDE_VAL_LIMIT}; the torch engine on a CPU: 0.010624), Q10 {q10:.4f}; "
+                f"{len(pred)} finite validation predictions; {wall:.2f} s wall (ok)")
+    return dict(launches=launches, wall=wall, steps=steps)
+
+
+def wide_times(et, card, main, cols, train_cols) -> dict:
+    """Phase 18: kernel 3 against its plain version per epoch and step at the
+    main shape and at batch 64; ``train()`` wall on both engines and the
+    device's busy share of the fused one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    tower = dict(hidden=WIDE_HIDDEN, act="swish", norm="static", opt=("adam", 0.01), shuffle=True,
+                 epochs=1, seed=0, cols=train_cols)
+    shapes = {"main": dict(what="batch 1,024", batch=WIDE_BATCH, **tower),
+              "b64": dict(what="batch 64", batch=64, **tower)}
+    out = {}
+    for key, case in shapes.items():
+        what, fn, packed, tensors, perms = prepare_wide_case(et, **case)
+        opt0 = fe.init_fused_opt_state(packed)
+        calls = {"kernel": lambda: fn(packed, opt0, tensors, perms=perms),
+                 "plain": lambda: fn.reference(packed, opt0, tensors, perms=perms)}
+        for f in calls.values():
+            host_ms(f, 1)  # warm-up
+        nb, batch = (int(v) for v in tensors.weight.shape)
+        dev = {"kernel": [], "plain (profiler)": []}
+        if key == "main":  # 352 launches a call: one call can wait behind a sleep kernel
+            dev["kernel (events)"] = []
+        wall = {"kernel": [], "plain": []}
+        split = {}
+        for i in range(5):
+            split = kernel_split_ms(calls["kernel"], 2, "eh_wide_")
+            dev["kernel"].append(split["all"])
+            if key == "main":
+                dev["kernel (events)"].append(device_ms(calls["kernel"], 1, "kernel 3"))
+            dev["plain (profiler)"].append(profiled_device_ms(calls["plain"], 1))
+            for k in (list(wall) if i % 2 == 0 else list(reversed(list(wall)))):
+                wall[k].append(host_ms(calls[k], 2 if k == "kernel" else 1))
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        wall_ms = {k: statistics.median(v) for k, v in wall.items()}
+        dims = fn.plan.dims
+        b = bound(bytes_moved=nb * (batch * 4 * 6 + fn.plan.n_params * 4 * 6),
+                  flops=nb * batch * 3 * forward_flops(dims))
+        log("times", f"[{card}] kernel 3, one epoch of {nb} steps ({what}, tower "
+                     f"{list(WIDE_HIDDEN)}), median of 5: device ms per epoch "
+                     + ", ".join(f"{k} {v:.4f} ({v / nb:.4f} a step)" for k, v in med.items())
+                     + "; its kernels in the last run: "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()) if k != "all")
+                     + "; wall ms per epoch "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items())
+                     + f"; bound {b['bound_ms']:.4f} ms per epoch ({b['bound_by']}), "
+                     f"{nb * batch * 3 * forward_flops(dims) / med['kernel'] / 1e9:.2f} TFLOP/s")
+        out[key] = dict(kernel_ms=med["kernel"], plain_ms=med["plain (profiler)"], steps=nb,
+                        batch=batch, bound=b)
+
+    t0 = time.perf_counter()
+    torch_result = et.train(wide_model(et), cols, use_kernel=False, **WIDE_TRAIN_KW)
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if torch_result.epoch_path != "torch":
+        raise AssertionError(f"use_kernel=False took {torch_result.epoch_path!r}")
+    t0 = time.perf_counter()
+    again = et.train(wide_model(et), cols, **WIDE_TRAIN_KW)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    if again.epoch_path != "cuda_fused_wide":
+        raise AssertionError(f"the second fused train() took {again.epoch_path!r}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        et.train(wide_model(et), cols, **WIDE_TRAIN_KW)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    log("times", f"[{card}] wide train() wall, {WIDE_TRAIN_KW['nepochs']} epochs of "
+                 f"{out['main']['steps']} steps + an evaluation per epoch: cuda_fused_wide "
+                 f"{main['wall']:.2f} s in the first call and {again_wall:.2f} s in a second one "
+                 f"(gate included; best val mse {again.best_loss:.6f}), torch {torch_wall:.2f} s "
+                 f"(best val mse {torch_result.best_loss:.6f}); a third fused call under the "
+                 f"profiler: {traced_wall:.2f} s wall, {busy_s:.3f} s of device activities, "
+                 f"busy {busy_s / traced_wall:.1%}")
+    return out
+
+
 def main() -> None:
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1106,6 +1396,11 @@ def main() -> None:
     lstm_err = lstm_kernel_checks(et)
     lstm_main = lstm_main_path(et, card)
     lstm_ms = lstm_times(et, card, lstm_main)["main"]
+    wide_cols = et.rbq10_columns(WIDE_ROWS, seed=42)
+    wide_train_cols = {k: v[: WIDE_ROWS * 4 // 5] for k, v in wide_cols.items()}
+    wide_err = wide_kernel_checks(et, wide_train_cols)
+    wide_main = wide_main_path(et, card, wide_cols)
+    wide_ms = wide_times(et, card, wide_main, wide_cols, wide_train_cols)["main"]
 
     quick_dims = (2, 16, 16, 1)
     print(json.dumps({"kernels": [{
@@ -1172,6 +1467,20 @@ def main() -> None:
         # one epoch at the main path's shape: see lstm_step_bound
         **bound(**{k: v * lstm_ms["steps"]
                    for k, v in lstm_step_bound(lstm_ms["batch"], 10).items()}),
+        "library_ms": None,  # no single PyTorch call computes the step
+    }, {
+        "name": "fused_wide",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_wide.cu",
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",  # kernel_body_elem, :1541
+        "launches": wide_main["launches"],
+        "max_abs_err": wide_err,
+        "ms": wide_ms["kernel_ms"],
+        "plain_ms": wide_ms["plain_ms"],
+        # one epoch at the main path's shape: per step every row's 2 predictors, forcing,
+        # target, mask and index once, every parameter and its two moments read and
+        # written once; three passes of the layer products
+        **wide_ms["bound"],
         "library_ms": None,  # no single PyTorch call computes the step
     }]}))
     print(card)

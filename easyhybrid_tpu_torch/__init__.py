@@ -9,10 +9,10 @@ H}`` and ``train(..., sequence_kwargs=...)``, or lifted over sites with
 when there is one, and the entry points follow the model's device. There a
 model inside the envelopes runs hand-written kernels, compiled with ``nvcc``
 at first use: the fused forward (``csrc/fused_forward.cu``) for serving, and
-the fused training epochs (``csrc/fused_epoch.cu``,
-``csrc/fused_epoch_lstm.cu`` for LSTM hybrids and ``csrc/fused_multisite.cu``
-for multi-site models), which ``train`` enables behind a runtime exactness
-gate.
+the fused training epochs (``csrc/fused_epoch.cu``, ``csrc/fused_wide.cu``
+for MLPs too wide for one thread block, ``csrc/fused_epoch_lstm.cu`` for LSTM
+hybrids and ``csrc/fused_multisite.cu`` for multi-site models), which
+``train`` enables behind a runtime exactness gate.
 
 Importing the package imports torch and numpy only; pandas is imported
 only where a DataFrame is read or built.
@@ -60,6 +60,7 @@ from .ops.fused_forward import (
 from .ops.fused_epoch import make_fused_epoch, supports_fused_epoch
 from .ops.fused_epoch_lstm import make_fused_lstm_epoch, supports_fused_epoch_lstm
 from .ops.fused_multisite import make_fused_multisite_epoch, supports_fused_multisite
+from .ops.fused_wide import make_fused_wide_epoch, supports_fused_wide
 from .utils.device import default_device
 
 __all__ = [
@@ -120,5 +121,7 @@ __all__ = [
     "supports_fused_epoch_lstm",
     "make_fused_multisite_epoch",
     "supports_fused_multisite",
+    "make_fused_wide_epoch",
+    "supports_fused_wide",
     "default_device",
 ]

@@ -155,10 +155,13 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size,
-               lib.eh_fused_lstm_args_size, lib.eh_fused_multisite_args_size):
+               lib.eh_fused_lstm_args_size, lib.eh_fused_multisite_args_size,
+               lib.eh_fused_wide_args_size):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     ptr, num = ctypes.c_void_p, ctypes.c_int
+    lib.eh_fused_wide.argtypes = [ptr, ptr]  # the arguments and the stream: no width to pick
+    lib.eh_fused_wide.restype = num
     for fn, argtypes in (
         (lib.eh_prim_site_gather, [ptr, ptr, ptr, num, num, ptr]),
         (lib.eh_prim_site_reduce, [ptr, ptr, num, num, ptr]),

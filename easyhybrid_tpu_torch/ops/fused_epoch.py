@@ -52,6 +52,7 @@ from .fused_forward import (
     MAX_ARGS,
     MAX_FORCING,
     MAX_LAYERS,
+    MAX_WIDTH,
     _ACT_IDS,
     _SRC_FORCING,
     _SRC_NEURAL,
@@ -284,6 +285,19 @@ class PackedLayout:
         return {name: packed[o : o + math.prod(s)] for name, o, s in self.segments}
 
 
+def param_offsets(dims, has_norm: bool) -> Dict[str, Any]:
+    """Offsets of every layer's weight (``p_w``) and bias (``p_b``) and of
+    the first global (``p_g``) in the packed parameter vector."""
+    off = 2 * dims[0] if has_norm else 0
+    p_w, p_b = [], []
+    for i in range(len(dims) - 1):
+        p_w.append(off)
+        off += dims[i + 1] * dims[i]
+        p_b.append(off)
+        off += dims[i + 1]
+    return dict(p_w=p_w, p_b=p_b, p_g=off)
+
+
 def fill_common_args(a, plan) -> None:
     """Set the fields every training kernel's argument struct has: the norm
     mode, the kernel form and its argument sources, the targets and the
@@ -346,13 +360,6 @@ class FusedEpochPlan(PackedLayout):
         """Offsets of every parameter segment (``p_*``) and of every residual
         block of a tile row (``r_*``)."""
         dims, f = self.dims, self.dims[0]
-        off = 2 * f if self.has_norm else 0
-        p_w, p_b = [], []
-        for i in range(len(dims) - 1):
-            p_w.append(off)
-            off += dims[i + 1] * dims[i]
-            p_b.append(off)
-            off += dims[i + 1]
         r = 0
         r_xhat = r_d0 = 0
         if self.has_norm:
@@ -366,7 +373,7 @@ class FusedEpochPlan(PackedLayout):
             if i < len(dims) - 1:
                 r_h.append(r)
                 r += dims[i]
-        return dict(p_w=p_w, p_b=p_b, p_g=off, r_xhat=r_xhat, r_d0=r_d0, r_h=r_h,
+        return dict(**param_offsets(dims, self.has_norm), r_xhat=r_xhat, r_d0=r_d0, r_h=r_h,
                     r_d=r_d, r_g=r)
 
     @functools.cached_property
@@ -582,14 +589,14 @@ class _Forward(NamedTuple):
     new_bn: torch.Tensor
 
 
-def split_consts(plan: FusedEpochPlan, consts):
+def split_consts(plan, consts):
     """``(neural lo, neural span, global lo, global span, fixed)``."""
     n, g = len(plan.neural_names), len(plan.global_names)
     return (consts[:n], consts[n : 2 * n], consts[2 * n : 2 * n + g],
             consts[2 * n + g : 2 * n + 2 * g], consts[2 * n + 2 * g :])
 
 
-def reference_forward(plan: FusedEpochPlan, p, bn, consts, x) -> _Forward:
+def reference_forward(plan, p, bn, consts, x) -> _Forward:
     """The input norm, the MLP and the bound scaling on the rows of ``x``,
     as the kernels compute them, with what the backward needs."""
     dims, f = plan.dims, plan.n_features
@@ -625,7 +632,7 @@ def reference_forward(plan: FusedEpochPlan, p, bn, consts, x) -> _Forward:
     return _Forward(neural, dneural, hs, dacts, xhat, new_bn)
 
 
-def form_args(plan: FusedEpochPlan, neural, forcing, scalars):
+def form_args(plan, neural, forcing, scalars):
     """The kernel form's arguments, in its order. ``scalars`` holds the
     scaled globals, then the fixed values; each entry has one element, or
     one per row."""
@@ -643,7 +650,7 @@ def form_args(plan: FusedEpochPlan, neural, forcing, scalars):
     return args
 
 
-def reference_cotangents(plan: FusedEpochPlan, neural, parts, cots):
+def reference_cotangents(plan, neural, parts, cots):
     """Pull the targets' cotangents ``cots`` back through the form's
     partials: ``(dn (rows, P), dg_rows (rows, G))``, the cotangents of the
     scaled neural outputs and, per row, of the scaled globals."""
@@ -663,7 +670,7 @@ def reference_cotangents(plan: FusedEpochPlan, neural, parts, cots):
     return dn, dg_rows
 
 
-def reference_backward(plan: FusedEpochPlan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
+def reference_backward(plan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
     """The hand-written MLP backward: the gradients of the norm's scale and
     bias and of every layer's weight and bias, in packed order."""
     dims = plan.dims
@@ -684,13 +691,17 @@ def reference_backward(plan: FusedEpochPlan, p, fwd: _Forward, dn) -> List[torch
     return grads
 
 
-def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
+def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
     """One step's forward and hand-written backward on one batch: returns
     ``(grad, batch_loss, valid, new_bn)`` with ``grad`` packed like ``p``
-    and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``."""
+    and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``.
+    ``scale`` holds each target's loss scale ``agg_scale / max(Σ mask, 1)``
+    where the caller made it before the step; the plan's loss is mse or
+    mae."""
     o = plan.offsets()
     bsz = x.shape[0]
-    n_t = [torch.clamp_min(m.sum(), 1.0) for m in mask]
+    if scale is None:
+        scale = [plan.agg_scale / torch.clamp_min(m.sum(), 1.0) for m in mask]
     valid = sum(m.sum() for m in mask) > 0
 
     fwd = reference_forward(plan, p, bn, consts, x)
@@ -706,8 +717,12 @@ def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
     cots = []
     for j, t in enumerate(plan.target_names):
         diff = (outs[plan.target_out[j]] - y[j]) * mask[j]
-        loss_rows = loss_rows + (plan.agg_scale / n_t[j]) * diff * diff
-        cots.append((2.0 * plan.agg_scale / n_t[j]) * diff)
+        if plan.loss == "mae":
+            loss_rows = loss_rows + scale[j] * diff.abs()
+            cots.append(scale[j] * torch.sign(diff))
+        else:
+            loss_rows = loss_rows + scale[j] * diff * diff
+            cots.append((2.0 * scale[j]) * diff)
     batch_loss = loss_rows.sum()
 
     dn, dg_rows = reference_cotangents(plan, fwd.neural, parts, cots)
@@ -716,7 +731,7 @@ def reference_grads(plan: FusedEpochPlan, p, bn, consts, x, forcing, y, mask):
     return torch.cat(grads), batch_loss, valid, fwd.new_bn
 
 
-def _reference_update(plan: FusedEpochPlan, p, m, v, t, g, valid):
+def _reference_update(plan, p, m, v, t, g, valid):
     """The optax formula of the plan's rule on packed vectors, gated by the
     batch validity; ``t`` is the float step count before this step."""
     h = dict(plan.hyper)
@@ -929,8 +944,11 @@ def _refusing_other_shuffles(reason_fn):
 def fused_engine(model) -> FusedEngine:
     """The fused engine of a model, the one place that tells them apart: the
     multi-site one for a :class:`MultiSiteHybridModel`, the LSTM one for a
-    hybrid over an :class:`LSTMNet`, else the single-series MLP one."""
-    from ..models.nn import LSTMNet
+    hybrid over an :class:`LSTMNet`, else a single-series MLP one, by size
+    alone: the one-block kernel where its shared memory holds the model
+    (widths up to 64 and parameters, moments and a residual tile within 227
+    KB), the wide kernel (``ops/fused_wide.py``) for any other MLP."""
+    from ..models.nn import MLP, LSTMNet
     from ..parallel.multisite import MultiSiteHybridModel
 
     if isinstance(model, MultiSiteHybridModel):
@@ -948,8 +966,22 @@ def fused_engine(model) -> FusedEngine:
         return FusedEngine(
             "cuda_fused_lstm", "supports_fused_epoch_lstm", make_fused_lstm_epoch,
             _refusing_other_shuffles(fused_epoch_lstm_unsupported_reason), single)
+    if isinstance(getattr(model, "nn", None), MLP) and not _fits_one_block(model):
+        from .fused_wide import fused_wide_unsupported_reason, make_fused_wide_epoch
+
+        return FusedEngine(
+            "cuda_fused_wide", "supports_fused_wide", make_fused_wide_epoch,
+            _refusing_other_shuffles(fused_wide_unsupported_reason), single)
     return FusedEngine("cuda_fused_epoch", "supports_fused_epoch", make_fused_epoch,
                        _refusing_other_shuffles(fused_epoch_unsupported_reason), single)
+
+
+def _fits_one_block(model) -> bool:
+    """Whether kernel 2 can hold an MLP hybrid: its widths within the
+    one-block kernels' cap and its state within their shared memory."""
+    net = model.nn
+    return (max((net.in_dim,) + net.hidden + (net.out_dim,)) <= MAX_WIDTH
+            and _tile_rows(model) is not None)
 
 
 def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: EpochTensors, *,

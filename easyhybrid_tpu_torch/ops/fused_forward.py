@@ -171,7 +171,8 @@ def _arg_sources(model, form: KernelForm):
     return out, None
 
 
-def fused_forward_unsupported_reason(model, *, training: bool = False) -> Optional[str]:
+def fused_forward_unsupported_reason(model, *, training: bool = False,
+                                     max_width: int = MAX_WIDTH) -> Optional[str]:
     """Why ``model`` is outside the kernel's envelope, or None if it is in.
 
     The envelope is the JAX kernel's (a SingleNN MLP hybrid with static or
@@ -181,7 +182,7 @@ def fused_forward_unsupported_reason(model, *, training: bool = False) -> Option
     depth and parameter counts within the caps above. ``training=True``
     asks for the model checks the training kernel shares: trainable input
     BatchNorm is allowed there, and that kernel checks its own shared
-    memory."""
+    memory. ``max_width`` is the widest layer the asking kernel takes."""
     if not isinstance(model, SingleNNHybridModel):
         return f"{type(model).__name__} is not a SingleNNHybridModel"
     net = model.nn
@@ -200,8 +201,8 @@ def fused_forward_unsupported_reason(model, *, training: bool = False) -> Option
         if not isinstance(layer.activation, str) or layer.activation not in _ACT_IDS:
             return f"activation {layer.activation!r} is not one of the kernel's {len(_ACT_IDS)} names"
     dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-    if max(dims) > MAX_WIDTH:
-        return f"layer widths {dims} exceed the kernel's cap of {MAX_WIDTH}"
+    if max(dims) > max_width:
+        return f"layer widths {dims} exceed the kernel's cap of {max_width}"
     if len(dims) - 1 > MAX_LAYERS:
         return f"{len(dims) - 1} layers exceed the kernel's cap of {MAX_LAYERS}"
     n_scalars = len(model.global_param_names) + len(model.fixed_param_names)

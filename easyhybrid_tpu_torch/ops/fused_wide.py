@@ -1,0 +1,506 @@
+"""Fused training epochs of a wide MLP hybrid: hand-written CUDA kernels for
+Hopper (kernel 3).
+
+Counterpart of the batch-chunked half of ``easyhybrid_tpu/ops/fused_epoch.py``
+(``kernel_body_elem``, chosen by ``_pick_batch_chunks`` for the tower
+[1024, 512, 256, 128, 64] at batch 1,024). What that kernel computes, with the
+TPU's chunking stripped: per optimizer step, the whole-batch gradient of the
+masked elementwise loss (mse or mae) of a static-norm MLP hybrid, summed in a
+fixed order over batch tiles, then one gated update of every parameter.
+
+A model this wide does not fit one block's shared memory, so parameters,
+moments and the activations live in device memory, and one call of the
+launcher of ``csrc/fused_wide.cu`` enqueues every step's kernels of
+``epochs_per_call`` epochs × ``num_batches`` batches on the stream with no
+host synchronisation in between: the row gather with the input norm, a tiled
+product per layer forward, a head kernel (bound scaling, the mechanistic
+model in its kernel form, the loss and its cotangent), two tiled products per
+layer backward, and the optimizer update, which also folds the partial sums
+the others left. The layer products are the kernels' own (shared-memory
+tiles, float32 FMA); no library product is on the path.
+
+The packed layout is kernel 2's (:class:`~.fused_epoch.PackedLayout`): norm
+scale and bias, each layer's ``W`` and ``b``, the raw globals. As in the JAX
+package the masked ``1/n`` of each target and the batch's validity flag span
+the whole batch and are made before the launch (:func:`batch_scales`), with
+the step count after each step.
+
+:func:`fused_wide_reference` is the same algorithm in plain PyTorch. On CPU
+tensors the wrapper computes it; on CUDA tensors it launches the kernels or
+raises. It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..losses.specs import LoggingLoss
+from . import _build
+from .fused_epoch import (
+    MAX_TARGETS,
+    FusedData,
+    FusedEpoch,
+    FusedParams,
+    PackedLayout,
+    _reference_update,
+    fill_common_args,
+    fused_data,
+    param_offsets,
+    reference_grads,
+    shared_plan_fields,
+    training_spec_reason,
+)
+from .fused_forward import (
+    MAX_ARGS,
+    MAX_FORCING,
+    MAX_LAYERS,
+    _ACT_IDS,
+    fused_forward_unsupported_reason,
+)
+
+__all__ = [
+    "FusedWideEpoch",
+    "FusedWidePlan",
+    "batch_scales",
+    "fused_wide_reference",
+    "fused_wide_unsupported_reason",
+    "launch_fused_wide",
+    "make_fused_wide_epoch",
+    "supports_fused_wide",
+    "wide_layout",
+]
+
+# caps of the kernels; MAX_WIDE_WIDTH must equal EH_WIDE_MAX_WIDTH of the source
+MAX_WIDE_WIDTH = 4096
+WIDE_LOSSES = ("mse", "mae")
+_LOSS_KINDS = {"mse": 0, "mae": 1}  # squared or absolute differences
+#: the share of the card's memory the activations and the partial sums may take
+WORKSPACE_SHARE = 0.25
+_TILE = 64            # the products' output tile, EHW_TILE of the source
+_DEPTH = 16           # rows of a product's shared-memory tile, EHW_BK
+_TARGET_BLOCKS = 2 * 132  # blocks a weight-gradient product aims at: two per multiprocessor
+_MIN_SPLIT_ROWS = 64  # the fewest batch rows worth a block of their own
+_HEAD_THREADS = 256   # rows of a head block, EHW_HEAD_THREADS
+_MAX_GRID_Y = 65535   # CUDA's cap on a grid's second dimension, the products' row tiles
+
+
+# --------------------------------------------------------------------------
+# layout of the workspace and of the partial sums
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """Where one step keeps its activations (``ws_*``, offsets in floats into
+    the workspace) and how each layer's weight gradient is split over the
+    batch (``splits``, ``split_rows``) into partial tiles (``part_*``,
+    offsets into the partials buffer) that the update kernel sums in split
+    order."""
+
+    ws_h0: int
+    ws_xhat: int
+    ws_d0: int
+    ws_a: Tuple[int, ...]
+    ws_d: Tuple[int, ...]
+    ws_floats: int
+    splits: Tuple[int, ...]
+    split_rows: Tuple[int, ...]
+    part_off: Tuple[int, ...]
+    norm_splits: int
+    norm_split_rows: int
+    part_off_norm: int
+    part_floats: int
+    head_blocks: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * (self.ws_floats + self.part_floats)
+
+
+def _split(batch: int, want: int, multiple: int) -> Tuple[int, int]:
+    """``(splits, rows per split)``: at most ``want`` splits of the batch, of
+    at least ``_MIN_SPLIT_ROWS`` rows each, a multiple of ``multiple``."""
+    want = max(1, min(want, -(-batch // _MIN_SPLIT_ROWS)))
+    rows = -(-batch // want)
+    rows = -(-rows // multiple) * multiple
+    return -(-batch // rows), rows
+
+
+@functools.lru_cache(maxsize=64)
+def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int) -> WideLayout:
+    """The layout of a step over ``batch`` rows of an MLP of widths ``dims``."""
+    f = dims[0]
+    off = batch * f
+    ws_xhat = ws_d0 = 0
+    if has_norm:
+        ws_xhat, ws_d0, off = off, off + batch * f, off + 2 * batch * f
+    ws_a, ws_d = [], []
+    for width in dims[1:]:
+        ws_a.append(off)
+        ws_d.append(off + batch * width)
+        off += 2 * batch * width
+    splits, split_rows, part_off = [], [], []
+    part = 0
+    for din, dout in zip(dims[:-1], dims[1:]):
+        tiles = -(-dout // _TILE) * -(-din // _TILE)
+        s, rows = _split(batch, -(-_TARGET_BLOCKS // tiles), _DEPTH)
+        splits.append(s)
+        split_rows.append(rows)
+        part_off.append(part)
+        part += s * dout * (din + 1)
+    norm_splits, norm_rows = _split(batch, 64, 1)
+    part_off_norm = part
+    if has_norm:
+        part += norm_splits * 2 * f
+    return WideLayout(
+        ws_h0=0, ws_xhat=ws_xhat, ws_d0=ws_d0, ws_a=tuple(ws_a), ws_d=tuple(ws_d),
+        ws_floats=off, splits=tuple(splits), split_rows=tuple(split_rows),
+        part_off=tuple(part_off), norm_splits=norm_splits, norm_split_rows=norm_rows,
+        part_off_norm=part_off_norm, part_floats=part,
+        head_blocks=-(-batch // _HEAD_THREADS),
+    )
+
+
+# --------------------------------------------------------------------------
+# envelope
+# --------------------------------------------------------------------------
+
+def _card_memory(device) -> Optional[int]:
+    """Bytes of the CUDA device's memory, or None for another device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensors=None, *,
+                                  memory_bytes: Optional[int] = None) -> Optional[str]:
+    """Why the wide fused epoch cannot train ``model`` with this optimizer
+    and loss, or None when it can.
+
+    The envelope: a SingleNN MLP hybrid in float32 with static or no input
+    norm (trainable BatchNorm needs whole-batch statistics before the first
+    layer, as in the JAX kernel), the 12 named activations, widths up to
+    ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a kernel-form
+    mechanistic function; ``training_loss`` mse or mae with ``agg`` sum or
+    mean and no ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec
+    without momentum. Any number of epochs per call; with ``tensors``, a
+    batch of at most 65,535 row tiles of 64, and the activations and partial sums of one step within
+    ``WORKSPACE_SHARE`` of the card's memory (``memory_bytes``, by default
+    the memory of the model's CUDA device; unchecked on another device)."""
+    reason = fused_forward_unsupported_reason(model, training=True, max_width=MAX_WIDE_WIDTH)
+    if reason is not None:
+        return reason
+    if model.nn.input_batchnorm is True:  # an MLP: the shared checks refuse any other network
+        return ("trainable input BatchNorm (input_batchnorm=True) is outside the wide kernel: "
+                "it needs whole-batch statistics")
+    if len(model.targets) > MAX_TARGETS:
+        return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
+    reason = training_spec_reason(optimizer, logging, WIDE_LOSSES)
+    if reason is not None:
+        return reason
+    if tensors is not None:
+        if isinstance(tensors.x, dict) or tensors.x.ndim != 3:
+            return (f"x of shape {tuple(getattr(tensors.x, 'shape', ()))}: the kernel takes "
+                    "(num_batches, batch, F)")
+        batch = int(tensors.weight.shape[1])
+        if batch > _MAX_GRID_Y * _TILE:
+            return (f"a batch of {batch} rows exceeds the {_MAX_GRID_Y * _TILE} that the products' "
+                    "grid of row tiles takes")
+        if memory_bytes is None:
+            memory_bytes = _card_memory(model.device)
+        if memory_bytes is not None:
+            net = model.nn
+            dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+            need = wide_layout(dims, net.norm is not None, batch).nbytes
+            if need > WORKSPACE_SHARE * memory_bytes:
+                return (f"a step's activations and partial sums take {need} bytes, more than "
+                        f"{WORKSPACE_SHARE:g} of the card's {memory_bytes}")
+    return None
+
+
+def supports_fused_wide(model, optimizer, logging: LoggingLoss, tensors=None) -> bool:
+    return fused_wide_unsupported_reason(model, optimizer, logging, tensors) is None
+
+
+# --------------------------------------------------------------------------
+# plan
+# --------------------------------------------------------------------------
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct EhFusedWideArgs`` in csrc/fused_wide.cu."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("forcing", ctypes.c_void_p * MAX_FORCING),
+        ("y", ctypes.c_void_p * MAX_TARGETS),
+        ("mask", ctypes.c_void_p * MAX_TARGETS),
+        ("perm", ctypes.c_void_p),
+        ("scale", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+        ("tcount", ctypes.c_void_p),
+        ("params", ctypes.c_void_p),
+        ("m", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("bn", ctypes.c_void_p),
+        ("consts", ctypes.c_void_p),
+        ("ws", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p),
+        ("head_partials", ctypes.c_void_p),
+        ("epoch_loss", ctypes.c_void_p),
+        ("n_rows", ctypes.c_int64),
+        ("ws_off_h0", ctypes.c_int64),
+        ("ws_off_xhat", ctypes.c_int64),
+        ("ws_off_d0", ctypes.c_int64),
+        ("ws_off_a", ctypes.c_int64 * MAX_LAYERS),
+        ("ws_off_d", ctypes.c_int64 * MAX_LAYERS),
+        ("part_off", ctypes.c_int64 * MAX_LAYERS),
+        ("part_off_norm", ctypes.c_int64),
+        ("n_epochs", ctypes.c_int),
+        ("n_batches", ctypes.c_int),
+        ("batch", ctypes.c_int),
+        ("n_layers", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("acts", ctypes.c_int * MAX_LAYERS),
+        ("norm_mode", ctypes.c_int),
+        ("norm_eps", ctypes.c_float),
+        ("n_params", ctypes.c_int),
+        ("p_off_w", ctypes.c_int * MAX_LAYERS),
+        ("p_off_b", ctypes.c_int * MAX_LAYERS),
+        ("p_off_g", ctypes.c_int),
+        ("n_globals", ctypes.c_int),
+        ("n_fixed", ctypes.c_int),
+        ("scale_nn_outputs", ctypes.c_int),
+        ("form", ctypes.c_int),
+        ("n_args", ctypes.c_int),
+        ("arg_src", ctypes.c_int * MAX_ARGS),
+        ("arg_idx", ctypes.c_int * MAX_ARGS),
+        ("arg_const", ctypes.c_float * MAX_ARGS),
+        ("n_targets", ctypes.c_int),
+        ("target_out", ctypes.c_int * MAX_TARGETS),
+        ("loss_kind", ctypes.c_int),
+        ("opt", ctypes.c_int),
+        ("lr", ctypes.c_float),
+        ("b1", ctypes.c_float),
+        ("b2", ctypes.c_float),
+        ("one_minus_b1", ctypes.c_float),
+        ("one_minus_b2", ctypes.c_float),
+        ("eps", ctypes.c_float),
+        ("splits", ctypes.c_int * MAX_LAYERS),
+        ("split_rows", ctypes.c_int * MAX_LAYERS),
+        ("norm_splits", ctypes.c_int),
+        ("norm_split_rows", ctypes.c_int),
+        ("head_blocks", ctypes.c_int),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedWidePlan(PackedLayout):
+    """Static layout of a wide model's packed parameters, plus what the
+    kernels and their plain version read besides them."""
+
+    dims: Tuple[int, ...]
+    acts: Tuple[str, ...]
+    norm_mode: int
+    norm_eps: float
+    momentum: float
+    scale_nn_outputs: bool
+    forcing_names: Tuple[str, ...]
+    neural_names: Tuple[str, ...]
+    global_names: Tuple[str, ...]
+    fixed_names: Tuple[str, ...]
+    target_names: Tuple[str, ...]
+    target_out: Tuple[int, ...]
+    form: Any
+    arg_sources: Tuple[Tuple[int, int, float], ...]
+    segments: Tuple[Tuple[str, int, Tuple[int, ...]], ...]  # (param name, offset, shape)
+    n_params: int
+    consts: torch.Tensor
+    agg_scale: float
+    opt_name: str
+    hyper: Tuple[Tuple[str, float], ...]
+    loss: str
+
+    @property
+    def n_features(self) -> int:
+        return self.dims[0]
+
+    def offsets(self) -> Dict[str, Any]:
+        """Offsets of every layer's weight and bias and of the first global."""
+        return param_offsets(self.dims, self.has_norm)
+
+    def layout(self, batch: int) -> WideLayout:
+        return wide_layout(self.dims, self.has_norm, int(batch))
+
+    @functools.cached_property
+    def args_bytes(self) -> bytes:
+        """The kernels' static arguments, packed once; each call fills in the
+        pointers, the sizes and the batch's layout."""
+        a = _Args()
+        dims = self.dims
+        a.n_layers = len(dims) - 1
+        a.dims[: len(dims)] = dims
+        a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
+        fill_common_args(a, self)
+        a.n_params = self.n_params
+        o = self.offsets()
+        a.p_off_w[: len(o["p_w"])] = o["p_w"]
+        a.p_off_b[: len(o["p_b"])] = o["p_b"]
+        a.p_off_g = o["p_g"]
+        a.loss_kind = _LOSS_KINDS[self.loss]
+        return bytes(a)
+
+
+def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
+    """Check the envelope and the kernel form (its outputs and partials on
+    probe values) and lay out the model's parameters."""
+    reason = fused_wide_unsupported_reason(model, optimizer, logging)
+    if reason is not None:
+        raise ValueError(f"model not supported by the wide fused epoch kernel: {reason}")
+    net = model.nn
+    names = [f"nn.layers.{i}.{leaf}" for i in range(len(net.layers)) for leaf in ("weight", "bias")]
+    return FusedWidePlan(
+        dims=(net.in_dim,) + net.hidden + (net.out_dim,),
+        acts=tuple(layer.activation for layer in net.layers),
+        **shared_plan_fields(model, optimizer, logging, names),
+    )
+
+
+# --------------------------------------------------------------------------
+# loss scales and the plain version
+# --------------------------------------------------------------------------
+
+def batch_scales(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor):
+    """``(scale (E, nb, T), valid (E, nb))``: every step's loss scale per
+    target, ``agg_scale / max(Σ mask, 1)`` over the whole batch, and its
+    validity flag (a batch with no valid target changes nothing), from the
+    masks and the row index alone."""
+    epochs = rows.shape[0]
+    idx = rows.long()
+    counts = [mask[idx].reshape(epochs, data.n_batches, data.batch).sum(-1) for mask in data.mask]
+    scale = torch.stack([plan.agg_scale / c.clamp_min(1.0) for c in counts], -1)
+    valid = (torch.stack(counts).sum(0) > 0).to(torch.float32)
+    return scale.to(torch.float32).contiguous(), valid.contiguous()
+
+
+def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
+                         rows: torch.Tensor):
+    """The plain PyTorch version of the kernels: ``rows.shape[0]`` epochs of
+    ``data.n_batches`` steps over the rows ``rows[e, i·B : (i+1)·B]``, each
+    the whole batch's forward, the cotangent with the loss scales of
+    :func:`batch_scales`, the hand-written backward and the gated update.
+    Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
+    mean batch loss (a batch without valid targets counts 0)."""
+    scale, valid = batch_scales(plan, data, rows)
+    p, bn = packed.params, packed.bn
+    m, v = opt_state["m"], opt_state["v"]
+    t = opt_state["t"].to(torch.float32)
+    consts = plan.consts.to(p.device)
+    nb, batch = data.n_batches, data.batch
+    epoch_loss = None
+    for e in range(rows.shape[0]):
+        epoch_loss = torch.zeros((), dtype=p.dtype, device=p.device)
+        for i in range(nb):
+            idx = rows[e, i * batch : (i + 1) * batch].long()
+            g, loss, _, _ = reference_grads(
+                plan, p, bn, consts, data.x[idx],
+                [c[idx] for c in data.forcing], [c[idx] for c in data.y],
+                [c[idx] for c in data.mask], scale=list(scale[e, i]),
+            )
+            ok = valid[e, i] > 0
+            p, m, v, t = _reference_update(plan, p, m, v, t, g, ok)
+            epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
+    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    return FusedParams(p, bn), new_state, epoch_loss / nb
+
+
+# --------------------------------------------------------------------------
+# kernel launch and the epoch function
+# --------------------------------------------------------------------------
+
+def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
+                      rows: torch.Tensor, loss: torch.Tensor) -> None:
+    """Enqueue every step of ``rows`` (``(epochs, num_batches · batch)``)
+    with one call of the C launcher, updating ``packed`` and ``opt_state`` in
+    place and writing the last epoch's mean batch loss into ``loss``; raises
+    if a launch is refused. Counts calls in ``launch_fused_wide.launches``."""
+    lib = _build.load_library()
+    if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError(
+            "the kernel's argument struct and its ctypes mirror differ in size: "
+            f"{lib.eh_fused_wide_args_size()} != {ctypes.sizeof(_Args)}"
+        )
+    dev = data.x.device
+    epochs = rows.shape[0]
+    lay = plan.layout(data.batch)
+    scale, valid = batch_scales(plan, data, rows)
+    t0 = opt_state["t"].to(torch.float32)
+    tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
+    ws = torch.empty((lay.ws_floats,), dtype=torch.float32, device=dev)
+    partials = torch.empty((max(lay.part_floats, 1),), dtype=torch.float32, device=dev)
+    n_glob = len(plan.global_names)
+    head_partials = torch.empty((lay.head_blocks, 1 + n_glob), dtype=torch.float32, device=dev)
+    epoch_loss = torch.zeros((epochs,), dtype=torch.float32, device=dev)
+
+    a = _Args.from_buffer_copy(plan.args_bytes)
+    a.x = data.x.data_ptr()
+    for i, c in enumerate(data.forcing):
+        a.forcing[i] = c.data_ptr()
+    for i, (yc, mc) in enumerate(zip(data.y, data.mask)):
+        a.y[i], a.mask[i] = yc.data_ptr(), mc.data_ptr()
+    a.perm = rows.data_ptr()
+    a.scale, a.valid, a.tcount = scale.data_ptr(), valid.data_ptr(), tcount.data_ptr()
+    a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
+    a.m, a.v = opt_state["m"].data_ptr(), opt_state["v"].data_ptr()
+    a.consts = plan.consts.data_ptr()
+    a.ws, a.partials = ws.data_ptr(), partials.data_ptr()
+    a.head_partials, a.epoch_loss = head_partials.data_ptr(), epoch_loss.data_ptr()
+    a.n_rows = data.x.shape[0]
+    a.n_epochs, a.n_batches, a.batch = epochs, data.n_batches, data.batch
+    n_layers = len(plan.dims) - 1
+    a.ws_off_h0, a.ws_off_xhat, a.ws_off_d0 = lay.ws_h0, lay.ws_xhat, lay.ws_d0
+    a.ws_off_a[:n_layers] = lay.ws_a
+    a.ws_off_d[:n_layers] = lay.ws_d
+    a.part_off[:n_layers] = lay.part_off
+    a.part_off_norm = lay.part_off_norm
+    a.splits[:n_layers] = lay.splits
+    a.split_rows[:n_layers] = lay.split_rows
+    a.norm_splits, a.norm_split_rows = lay.norm_splits, lay.norm_split_rows
+    a.head_blocks = lay.head_blocks
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.eh_fused_wide(ctypes.byref(a), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"wide fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    opt_state["t"].copy_(tcount[-1:].round().to(torch.int32))
+    loss.copy_(epoch_loss[-1:] / data.n_batches)
+    launch_fused_wide.launches += 1
+
+
+launch_fused_wide.launches = 0
+
+
+class FusedWideEpoch(FusedEpoch):
+    """:class:`~easyhybrid_tpu_torch.ops.fused_epoch.FusedEpoch` for an MLP
+    hybrid too wide for one block: ``epochs_per_call`` epochs in one call of
+    kernel 3's launcher on CUDA tensors, :func:`fused_wide_reference` on CPU
+    tensors."""
+
+    _make_plan = staticmethod(plan_fused_wide)
+    _make_data = staticmethod(fused_data)
+    _reference = staticmethod(fused_wide_reference)
+    _launch = staticmethod(launch_fused_wide)
+
+
+def make_fused_wide_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
+                          epochs_per_call: int = 1) -> FusedWideEpoch:
+    """Build the wide fused epoch of ``model`` (see :class:`FusedWideEpoch`);
+    raises if the model, optimizer or loss is outside the envelope or the
+    kernel form's probe check fails."""
+    return FusedWideEpoch(model, optimizer, logging, shuffle=shuffle,
+                          epochs_per_call=epochs_per_call)

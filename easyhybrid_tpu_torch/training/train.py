@@ -12,6 +12,10 @@ The epoch engine is chosen once (``TrainResults.epoch_path``):
   inside the fused kernel's envelope (``ops/fused_epoch.py``), and the
   runtime exactness gate passed; each block of ``eval_every`` epochs is one
   kernel launch;
+* ``"cuda_fused_wide"``: the same for an MLP hybrid that kernel's one thread
+  block cannot hold (widths above 64, or parameters and moments beyond its
+  shared memory) and the wide kernel (``ops/fused_wide.py``), by size
+  alone; each block of ``eval_every`` epochs is one call of its launcher;
 * ``"cuda_fused_multisite"``: the same for a ``MultiSiteHybridModel`` and
   the multi-site kernel (``ops/fused_multisite.py``); each block of
   ``eval_every`` epochs is one call of its launcher;

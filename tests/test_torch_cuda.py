@@ -1,7 +1,7 @@
 """The CUDA kernels on a GPU, against their plain PyTorch versions: the
-fused forward (kernel 1), the fused training epoch (kernel 2), the fused
-LSTM epoch (kernel 4), the fused multi-site epoch (kernel 5) and the
-multi-site primitives.
+fused forward (kernel 1), the fused training epoch (kernel 2), the wide
+fused epoch (kernel 3), the fused LSTM epoch (kernel 4), the fused
+multi-site epoch (kernel 5) and the multi-site primitives.
 
 Imports no JAX, so it runs where only PyTorch with CUDA is installed. On a
 machine without a GPU every test skips. On a GPU, without the repository's
@@ -18,7 +18,11 @@ chain of steps. Kernel 5 the same, after at most 3 epochs of site batches
 (its sums over a site's time steps and over thread blocks run in another
 order than torch's); the primitives' gather and update exactly. Kernel 4 the
 same as kernel 2, after at most 4 epochs: each step is a chain of ``T`` cells
-forward and ``T`` backward on CUDA's expf / tanhf against torch's.
+forward and ``T`` backward on CUDA's expf / tanhf against torch's. Kernel 3
+the same on models of a few thousand parameters, after at most 2 epochs; on
+the 700,417-parameter tower its gradient is held through one sgd step, since
+Adam turns the rounding of a near-zero gradient into a visible move (see
+``chip_smoke.py``).
 """
 
 import ctypes
@@ -35,6 +39,7 @@ from easyhybrid_tpu_torch.ops import fused_epoch as fe
 from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.ops import fused_multisite as fm
+from easyhybrid_tpu_torch.ops import fused_wide as fw
 from easyhybrid_tpu_torch.ops import multisite_primitives as mp
 from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
@@ -468,6 +473,130 @@ def test_lstm_wrapper_rejects_mixed_devices(cuda):
     tensors = epoch_tensors_to(et.build_epoch_tensors(
         split_into_sequences(rows, input_window=5, output_window=1), 64), cuda)
     fn = et.make_fused_lstm_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
+    packed = fn.plan.pack(m)  # on the CPU, the data on the card
+    with pytest.raises(ValueError, match="parameters are on cpu"):
+        fn(packed, fe.init_fused_opt_state(packed), tensors)
+
+
+# --------------------------------------------------------------------------
+# kernel 3: the wide fused epoch
+# --------------------------------------------------------------------------
+
+def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("adam", 0.01),
+               loss="mse", agg="sum", shuffle=True, epochs=2, n=1000, batch=256, nan_frac=0.0,
+               mask_first=0, seed=0):
+    cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
+    cols["reco"][:mask_first] = np.nan
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+        generator=torch.Generator().manual_seed(seed))
+    assert m.device.type == "cuda"  # built without device=
+    data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    et.fit_input_norm(m, et.prepare_data(m, cols))
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
+    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = et.make_fused_wide_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+    packed = fn.plan.pack(m)
+    before = fw.launch_fused_wide.launches
+    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    torch.cuda.synchronize()
+    assert fw.launch_fused_wide.launches - before == 1
+    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
+    # sums in a fixed order, no atomics: the same inputs give the same bits
+    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
+                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+        assert torch.equal(a, b)
+    return packed, got, ref, fn
+
+
+def _assert_wide_close(got, ref):
+    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
+                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+        assert torch.isfinite(g).all()
+        assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(hidden=(100, 37), act="tanh", n=777, batch=100),              # no multiple of the tile
+    # a small step: on raw predictors sgd at 0.05 diverges and float32 itself is the limit
+    dict(norm=False, opt=("sgd", 1e-3), loss="mae", shuffle=False),
+    dict(nan_frac=0.3, batch=300, agg="mean"),                         # ragged last batch
+    dict(hidden=(65,), act="gelu", shuffle="batches", n=2000, batch=300),
+    dict(hidden=(300, 200, 100), n=600, batch=64, epochs=1),           # several tiles each way
+    dict(hidden=(5,), n=40, batch=7),
+], ids=str)
+def test_wide_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _, got, ref, _ = _wide_case(cuda, **kw)
+    _assert_wide_close(got, ref)
+
+
+@pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
+def test_wide_kernel_activations_match_plain(cuda, act):
+    _, got, ref, _ = _wide_case(cuda, hidden=(70, 33), act=act, n=500, batch=128, epochs=1)
+    _assert_wide_close(got, ref)
+
+
+def test_wide_masked_batch_counts_no_step(cuda):
+    _, got, ref, _ = _wide_case(cuda, shuffle=False, mask_first=128, n=1024, batch=128, epochs=1)
+    assert int(got[1]["t"][0]) == 7  # 8 batches, the first without a target
+    _assert_wide_close(got, ref)
+
+
+def test_wide_tower_gradient_matches_plain(cuda):
+    """The tower at full width: the gradient that one sgd step at lr 1e-3
+    over 1,024 rows implies, on every one of its elements."""
+    packed, got, ref, fn = _wide_case(cuda, hidden=(1024, 512, 256, 128, 64), opt=("sgd", 1e-3),
+                                      shuffle=False, epochs=1, n=1024, batch=1024)
+    assert fn.plan.n_params == 700_422
+    g_got, g_ref = (packed.params - got[0].params) / 1e-3, (packed.params - ref[0].params) / 1e-3
+    assert float(g_ref.abs().max()) > 1e-2
+    assert bool(((g_got - g_ref).abs() <= EPOCH_TOL * g_ref.abs().clamp_min(1)).all())
+
+
+def test_wide_argument_struct_matches_its_mirror(cuda):
+    assert _build.load_library().eh_fused_wide_args_size() == ctypes.sizeof(fw._Args)
+
+
+def test_train_takes_the_wide_kernel_and_the_others_keep_theirs(cuda):
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], activation="swish",
+        scale_nn_outputs=True, input_batchnorm="static")
+    cols = et.rbq10_columns(1200, seed=7)
+    kw = dict(nepochs=6, eval_every=2, batchsize=128, optimizer=("adam", 0.01), show_progress=False)
+    m = et.construct_hybrid_model(hidden_layers=[128, 64], **spec,
+                                  generator=torch.Generator().manual_seed(0))
+    before = fw.launch_fused_wide.launches
+    r = et.train(m, cols, **kw)
+    assert r.epoch_path == "cuda_fused_wide" and "exactness gate passed" in r.engine_reason
+    assert fw.launch_fused_wide.launches - before == 3 + 2  # three blocks + the gate's two runs
+    assert m.device.type == "cuda" and np.isfinite(r.val_pred_columns["reco_pred"]).all()
+    small = et.construct_hybrid_model(hidden_layers=[16, 16], **spec,
+                                      generator=torch.Generator().manual_seed(0))
+    assert et.train(small, cols, **kw).epoch_path == "cuda_fused_epoch"
+    off = et.train(et.construct_hybrid_model(hidden_layers=[128, 64], **spec), cols,
+                   use_kernel=False, **kw)
+    assert off.epoch_path == "torch"
+
+
+def test_wide_wrapper_rejects_mixed_devices(cuda):
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[128], device="cpu")
+    data = et.prepare_data(m, et.rbq10_columns(200, seed=9))
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, 64), cuda)
+    fn = et.make_fused_wide_epoch(m, "adam", et.LoggingLoss(), shuffle=False)
     packed = fn.plan.pack(m)  # on the CPU, the data on the card
     with pytest.raises(ValueError, match="parameters are on cpu"):
         fn(packed, fe.init_fused_opt_state(packed), tensors)

@@ -1,0 +1,419 @@
+"""Kernel 3's plain version (``fused_wide_reference``, what the wrapper
+computes on CPU tensors) against the JAX package's batch-chunked fused epoch
+kernel in interpret mode and against the port's torch epoch; a fully masked
+batch; the envelope, its reasons and the size rule between kernels 2 and 3;
+the exactness gate; the workspace layout; the ctypes mirror of the CUDA
+argument struct; and the slice as a whole, ``train()`` against the JAX
+``train()``.
+
+Tolerances, float32: parameters and moments rtol 1e-5 with atol 1e-5 after
+two epochs of three steps (tests/test_fused.py holds the chunked kernel
+against the unchunked one at rtol 1e-5, atol 1e-6 with one summation order
+on both sides; here torch's products and JAX's sum in different orders), the
+loss rtol 1e-5. With mae under adam atol 1e-4, a hundredth of the learning
+rate: mae's cotangent is a sign, so where a prediction sits within rounding
+of its target the row's whole contribution flips, and adam turns the flip of
+a small gradient into a visible fraction of a step (measured 3.1e-5 on one
+element of 2,592). The whole slice as tests/test_torch_train.py."""
+
+import ctypes
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import easyhybrid_tpu as eh
+import easyhybrid_tpu_torch as et
+from easyhybrid_tpu.data.loaders import build_epoch_tensors as jax_epoch_tensors
+from easyhybrid_tpu.ops.fused_epoch import _pick_batch_chunks
+from easyhybrid_tpu.ops.fused_epoch import init_fused_opt_state as jax_init_opt
+from easyhybrid_tpu.ops.fused_epoch import make_fused_epoch as jax_fused_epoch
+from easyhybrid_tpu.training.epoch import epoch_permutation as jax_permutation
+from easyhybrid_tpu.training.train import fit_input_norm as jax_fit_input_norm
+from easyhybrid_tpu_torch.data.loaders import build_epoch_tensors
+from easyhybrid_tpu_torch.data.prepare import HybridData
+from easyhybrid_tpu_torch.ops import fused_epoch as fe
+from easyhybrid_tpu_torch.ops import fused_forward as ff
+from easyhybrid_tpu_torch.ops import fused_wide as fw
+from easyhybrid_tpu_torch.training import epoch as tepoch
+from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
+
+CU_SOURCE = Path(fw.__file__).resolve().parent.parent / "csrc" / "fused_wide.cu"
+
+
+def _ll(pkg, loss="mse", **kw):
+    return pkg.LoggingLoss(training_loss=loss, loss_types=(loss,), **kw)
+
+
+def _spec(norm="static", hidden=(32, 16), act="tanh", **kw):
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+    )
+    spec.update(kw)
+    return spec
+
+
+def setup(norm="static", n=768, batch=256, nan_frac=0.0, data=None, **kw):
+    """The same model in both packages from the JAX initial parameters, the
+    static norm fitted, and the same epoch tensors for each."""
+    spec = _spec(norm, **kw)
+    jm, tm = eh.construct_hybrid_model(**spec), et.construct_hybrid_model(**spec, device="cpu")
+    if data is None:
+        data = et.prepare_data(tm, et.rbq10_columns(n, seed=42, nan_frac=nan_frac))
+    params, state = jm.init(jax.random.PRNGKey(0))
+    if norm == "static":
+        state = jax_fit_input_norm(jm, state, data)
+    et.load_jax_params(tm, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state))
+    jt = jax.device_put(jax_epoch_tensors(eh.prepare_data(jm, ((data.x, data.forcing), data.y)), batch))
+    tt = tepoch.epoch_tensors_to(build_epoch_tensors(data, batch), "cpu")
+    return jm, params, state, jt, tm, tt
+
+
+def jax_perms(shuffle, key, epochs, nb, batch):
+    if not shuffle or nb == 1:
+        return None
+    n = nb * batch if shuffle is True else nb
+    keys = [key] if epochs == 1 else list(jax.random.split(key, epochs))
+    return np.stack([np.asarray(jax_permutation(k, n)) for k in keys])
+
+
+def _atol(loss, opt):
+    return 1e-4 if (loss, opt[0]) == ("mae", "adam") else 1e-5
+
+
+CASES = [
+    # loss, opt, shuffle, NaN fraction of the targets
+    ("mse", ("adam", 0.01), True, 0.0),
+    ("mae", ("adam", 0.01), True, 0.0),
+    ("mse", ("sgd", 0.05), False, 0.0),
+    ("mae", ("sgd", 0.05), "batches", 0.0),
+    ("mse", ("adam", 0.01), "batches", 0.3),
+    ("mae", ("adam", 0.01), True, 0.3),
+    ("mse", ("adam", 0.01), False, 0.3),
+]
+
+
+@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES, ids=str)
+def test_reference_matches_the_jax_chunked_kernel(monkeypatch, loss, opt, shuffle, nan_frac):
+    """Two epochs per call of the JAX kernel with each batch of 256 in two
+    chunks (run as tests/test_fused.py runs it) against the plain version,
+    which sees each batch whole: parameters, moments, step count, loss."""
+    jm, params, state, jt, tm, tt = setup(nan_frac=nan_frac)
+    monkeypatch.setenv("EASYHYBRID_FUSED_MAX_VMEM_MB", "0.45")
+    monkeypatch.setenv("EASYHYBRID_FUSED_CHUNKED", "1")
+    jll = _ll(eh, loss)
+    assert _pick_batch_chunks(jm, [jm.nn], jt, jll) == 2
+    key = jax.random.PRNGKey(5)
+    jfn = jax_fused_epoch(jm, state, opt, jll, shuffle=shuffle, epochs_per_call=2)
+    jp, jos, _, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params, opt), state, jt, key)
+
+    fn = et.make_fused_wide_epoch(tm, opt, _ll(et, loss), shuffle=shuffle, epochs_per_call=2)
+    nb, batch = tt.weight.shape
+    p0 = fn.plan.pack(tm)
+    _, os_, got_loss = fn(tm, fe.init_fused_opt_state(p0), tt,
+                          perms=jax_perms(shuffle, key, 2, nb, batch))
+    got_p, _ = et.export_jax_params(tm)
+    for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=_atol(loss, opt))
+    np.testing.assert_allclose(float(got_loss), float(jloss), rtol=1e-5, atol=1e-6)
+    assert int(os_["t"][0]) == int(np.asarray(jos["t"])[0]) == 6
+    if opt[0] == "adam":  # the first moments, leaf by leaf through the JAX layout
+        plan = fn.plan
+        plan.unpack(fe.FusedParams(os_["m"], p0.bn), tm)
+        got_m, _ = et.export_jax_params(tm)
+        for a, b in zip(jax.tree.leaves(got_m), jax.tree.leaves(jos["m"])):
+            np.testing.assert_allclose(a, np.asarray(b).reshape(a.shape), rtol=1e-4,
+                                       atol=_atol(loss, opt))
+
+
+@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES, ids=str)
+def test_reference_matches_the_torch_epoch(loss, opt, shuffle, nan_frac):
+    *_, tm, tt = setup(nan_frac=nan_frac, hidden=(70, 33), act="swish")
+    twin = et.construct_hybrid_model(**_spec(hidden=(70, 33), act="swish"), device="cpu")
+    twin.load_state_dict(tm.state_dict())
+    ll = _ll(et, loss, agg="mean")
+    perms = tepoch.perms_for_epochs(shuffle, tt, 2, generator=torch.Generator().manual_seed(1))
+    fn = et.make_fused_wide_epoch(tm, opt, ll, shuffle=shuffle, epochs_per_call=2)
+    p0 = fn.plan.pack(tm)
+    packed, os_, got_loss = fn(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    optim = resolve_optimizer(opt)
+    tfn = tepoch.make_train_epoch(twin, ll, optim, shuffle=shuffle, epochs_per_call=2)
+    state, tloss = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
+    want = fn.plan.pack(twin)
+    np.testing.assert_allclose(packed.params.numpy(), want.params.numpy(), atol=_atol(loss, opt),
+                               rtol=1e-5)
+    assert torch.equal(packed.bn, p0.bn)  # the static statistics stay
+    np.testing.assert_allclose(float(got_loss), float(tloss), rtol=1e-5, atol=1e-6)
+    assert int(os_["t"][0]) == int(state["count"])
+    if opt[0] == "adam":
+        leaves = fn.plan.leaves(os_["m"])
+        for name, t in state["mu"].items():
+            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(),
+                                       atol=_atol(loss, opt), rtol=1e-4)
+
+
+def test_a_fully_masked_batch_changes_nothing():
+    """The first (unshuffled) batch has no valid target: its step is not
+    counted and leaves parameters and moments as they were, so the run
+    equals one over the other batches alone."""
+    cols = et.rbq10_columns(256, seed=3)
+    y = cols["reco"].copy()
+    y[:64] = np.nan
+
+    def data(rows):
+        return HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1)[rows],
+                          forcing={"ta": cols["ta"][rows]}, y={"reco": y[rows]})
+
+    *_, tm, tt = setup(data=data(slice(None)), batch=64)
+    *_, tm2, tt2 = setup(data=data(slice(64, None)), batch=64)
+    tm2.load_state_dict(tm.state_dict())  # the same norm statistics
+    fn = et.make_fused_wide_epoch(tm, ("adam", 0.01), _ll(et), shuffle=False)
+    p0 = fn.plan.pack(tm)
+    scale, valid = fw.batch_scales(fn.plan, fn._make_data(fn.plan, tt), fn.rows(tt))
+    assert valid.tolist() == [[0.0, 1.0, 1.0, 1.0]] and float(scale[0, 0, 0]) == 1.0
+    got, os_, loss = fn(p0, fe.init_fused_opt_state(p0), tt)
+    want, os2, loss2 = fn(p0, fe.init_fused_opt_state(p0), tt2)
+    assert int(os_["t"][0]) == 3 == int(os2["t"][0])
+    assert torch.isfinite(got.params).all()
+    assert torch.equal(got.params, want.params) and torch.equal(os_["m"], os2["m"])
+    np.testing.assert_allclose(float(loss) * 4, float(loss2) * 3, rtol=1e-6)
+
+    # one masked batch alone: nothing moves at all
+    *_, tm3, tt3 = setup(data=data(slice(0, 64)), batch=64)
+    p3 = fn.plan.pack(tm3)
+    got3, os3, loss3 = fn(p3, fe.init_fused_opt_state(p3), tt3)
+    assert torch.equal(got3.params, p3.params) and int(os3["t"][0]) == 0 and float(loss3) == 0.0
+    assert not os3["m"].any() and not os3["v"].any()
+
+
+@pytest.mark.parametrize("overrides,optimizer,logging,reason", [
+    ({"input_batchnorm": True}, "adam", _ll(et), "whole-batch statistics"),
+    ({}, "adam", _ll(et, "rmse"), "trains mse, mae"),
+    ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
+    ({}, ("sgd", 0.1, 0.9), _ll(et), "momentum"),
+    ({}, "rmsprop", _ll(et), "adam or sgd"),
+    ({"hidden_layers": {"lstm": 8}}, "adam", _ll(et), "LSTMNet, not an MLP"),
+    ({"hidden_layers": [fw.MAX_WIDE_WIDTH + 1]}, "adam", _ll(et), f"cap of {fw.MAX_WIDE_WIDTH}"),
+    ({"hidden_layers": [8] * 9}, "adam", _ll(et), "10 layers exceed"),
+    ({"activation": torch.tanh}, "adam", _ll(et), "activation"),
+    ({"mechanistic_model": lambda *, ta, rb, Q10: {"reco": rb * Q10 ** (0.1 * (ta - 15.0))}},
+     "adam", _ll(et), "kernel form"),
+])
+def test_envelope_reasons(overrides, optimizer, logging, reason):
+    tm = et.construct_hybrid_model(**_spec(**overrides), device="cpu")
+    got = fw.fused_wide_unsupported_reason(tm, optimizer, logging)
+    assert got is not None and reason in got
+    assert not et.supports_fused_wide(tm, optimizer, logging)
+    if isinstance(tm.nn, et.MLP):
+        with pytest.raises(ValueError, match="wide fused epoch kernel"):
+            et.make_fused_wide_epoch(tm, optimizer, logging)
+
+
+def test_envelope_accepts_the_tower_and_refuses_a_workspace_beyond_the_card():
+    tower = et.construct_hybrid_model(**_spec(hidden=(1024, 512, 256, 128, 64), act="swish"),
+                                      device="cpu")
+    for loss in fw.WIDE_LOSSES:
+        for agg in ("sum", "mean"):
+            assert et.supports_fused_wide(tower, ("adam", 0.01), _ll(et, loss, agg=agg))
+    plan = fw.plan_fused_wide(tower, ("sgd", 0.1), _ll(et, "mae"))
+    assert plan.n_params == 4 + 698_432 + 1_985 + 1 and plan.loss == "mae"
+    *_, tt = setup(n=300, batch=100)
+    need = fw.wide_layout(plan.dims, True, 100).nbytes
+    ok = fw.fused_wide_unsupported_reason(tower, "adam", _ll(et), tt, memory_bytes=4 * need)
+    assert ok is None
+    got = fw.fused_wide_unsupported_reason(tower, "adam", _ll(et), tt, memory_bytes=4 * need - 4)
+    assert f"take {need} bytes" in got and "0.25 of the card's" in got
+    # on the CPU there is no card to measure against
+    assert fw.fused_wide_unsupported_reason(tower, "adam", _ll(et), tt) is None
+    # more row tiles than a grid's second dimension takes
+    rows = 65_535 * 64 + 1
+    huge = tt._replace(x=tt.x[:1, :1].expand(1, rows, 2), weight=tt.weight[:1, :1].expand(1, rows))
+    assert f"a batch of {rows} rows" in fw.fused_wide_unsupported_reason(tower, "adam", _ll(et), huge)
+
+
+@pytest.mark.parametrize("hidden,path", [
+    ((16, 16), "cuda_fused_epoch"), ((64, 64), "cuda_fused_epoch"),
+    ((128, 64), "cuda_fused_wide"), ((65,), "cuda_fused_wide"),
+    ((64,) * 7, "cuda_fused_wide"),  # within the width cap, beyond one block's shared memory
+    ((1024, 512, 256, 128, 64), "cuda_fused_wide"),
+])
+def test_the_size_rule_between_kernels_2_and_3(hidden, path):
+    tm = et.construct_hybrid_model(**_spec(hidden=hidden), device="cpu")
+    engine = fe.fused_engine(tm)
+    assert engine.epoch_path == path
+    assert engine.unsupported_reason(tm, ("adam", 0.01), _ll(et), shuffle=True) is None
+    assert "shuffle" in engine.unsupported_reason(tm, ("adam", 0.01), _ll(et), shuffle="rows")
+
+
+def test_the_other_models_keep_their_engines():
+    lstm = et.construct_hybrid_model(**_spec(hidden_layers={"lstm": 8}), device="cpu")
+    assert fe.fused_engine(lstm).epoch_path == "cuda_fused_lstm"
+    sites = et.MultiSiteHybridModel(et.construct_hybrid_model(**_spec(), device="cpu"),
+                                    n_sites=4, device="cpu")
+    assert fe.fused_engine(sites).epoch_path == "cuda_fused_multisite"
+    # trainable BatchNorm at width 128 has no kernel yet: refused, with the reason
+    wide_bn = et.construct_hybrid_model(**_spec(True, hidden=(128, 64)), device="cpu")
+    engine = fe.fused_engine(wide_bn)
+    assert engine.epoch_path == "cuda_fused_wide"
+    assert "BatchNorm" in engine.unsupported_reason(wide_bn, "adam", _ll(et), shuffle=True)
+    # predict on a wide model stays on the torch engine
+    assert "cap of 64" in ff.fused_forward_unsupported_reason(
+        et.construct_hybrid_model(**_spec(hidden=(128, 64)), device="cpu"))
+
+
+@pytest.mark.parametrize("loss,opt,shuffle,epochs", [
+    ("mse", ("adam", 0.01), False, 1), ("mse", ("adam", 0.01), True, 3),
+    ("mae", ("sgd", 0.05), "batches", 2),
+])
+def test_gate_passes_on_the_plain_version(loss, opt, shuffle, epochs):
+    *_, tm, tt = setup(hidden=(128, 64), act="swish")
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    ok, worst = fe.fused_exactness_check(tm, opt, _ll(et, loss), tt, epochs_per_call=epochs,
+                                         shuffle=shuffle)
+    assert ok and worst < 1e-4
+    for k, v in tm.state_dict().items():  # the gate leaves the model as it was
+        assert torch.equal(v, before[k])
+
+
+def test_gate_fails_on_a_corrupted_gradient(monkeypatch):
+    *_, tm, tt = setup(hidden=(128, 64), act="swish")
+    real = fw.reference_grads
+
+    def corrupted(*args, **kwargs):
+        g, loss, valid, bn = real(*args, **kwargs)
+        return g * 1.5, loss, valid, bn
+
+    monkeypatch.setattr(fw, "reference_grads", corrupted)
+    ok, worst = fe.fused_exactness_check(tm, ("adam", 0.01), _ll(et), tt)
+    assert not ok and worst > 0.1
+
+
+@pytest.mark.parametrize("dims,norm,batch", [
+    ((2, 1024, 512, 256, 128, 64, 1), True, 1024), ((2, 1024, 512, 256, 128, 64, 1), True, 64),
+    ((2, 100, 37, 1), False, 300), ((3, 65, 2), True, 1), ((2, 4096, 4096, 1), True, 5000),
+])
+def test_workspace_layout(dims, norm, batch):
+    """No two blocks of the workspace or of the partials overlap, every
+    split covers the batch in whole 16-row tiles, and small products are
+    split until they fill the card."""
+    lay = fw.wide_layout(dims, norm, batch)
+    f = dims[0]
+    blocks = [(lay.ws_h0, batch * f)]
+    if norm:
+        blocks += [(lay.ws_xhat, batch * f), (lay.ws_d0, batch * f)]
+    for off_a, off_d, width in zip(lay.ws_a, lay.ws_d, dims[1:]):
+        blocks += [(off_a, batch * width), (off_d, batch * width)]
+    blocks.sort()
+    assert blocks[0][0] == 0 and blocks[-1][0] + blocks[-1][1] == lay.ws_floats
+    for (a, n), (b, _) in zip(blocks, blocks[1:]):
+        assert a + n == b
+    part = 0
+    for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        s, rows = lay.splits[l], lay.split_rows[l]
+        assert lay.part_off[l] == part and rows % 16 == 0
+        assert (s - 1) * rows < batch <= s * rows
+        tiles = -(-dout // 64) * -(-din // 64)
+        assert s == 1 or (s - 1) * tiles < 2 * 132 and rows >= 64
+        part += s * dout * (din + 1)
+    assert lay.part_off_norm == part
+    assert (lay.norm_splits - 1) * lay.norm_split_rows < batch <= lay.norm_splits * lay.norm_split_rows
+    assert lay.part_floats == part + (lay.norm_splits * 2 * f if norm else 0)
+    assert lay.head_blocks * 256 >= batch > (lay.head_blocks - 1) * 256
+    assert lay.nbytes == 4 * (lay.ws_floats + lay.part_floats)
+
+
+def test_the_tower_s_layout_at_the_main_shape():
+    lay = fw.wide_layout((2, 1024, 512, 256, 128, 64, 1), True, 1024)
+    assert lay.ws_floats == 1024 * (3 * 2 + 2 * (1024 + 512 + 256 + 128 + 64 + 1))  # 16.3 MB
+    assert lay.splits == (16, 3, 8, 16, 16, 16) and lay.split_rows == (64, 352, 128, 64, 64, 64)
+
+
+def test_kernel_source_and_ctypes_mirror_agree():
+    src = CU_SOURCE.read_text()
+    assert '#include "eh_device.cuh"' in src
+    defines = dict(re.findall(r"#define (EHW?_\w+) (\d+)", src))
+    assert int(defines["EH_WIDE_MAX_WIDTH"]) == fw.MAX_WIDE_WIDTH
+    assert int(defines["EHW_TILE"]) == fw._TILE and int(defines["EHW_BK"]) == fw._DEPTH
+    assert int(defines["EHW_HEAD_THREADS"]) == fw._HEAD_THREADS
+    body = re.search(r"struct EhFusedWideArgs \{(.*?)\};", src, re.S).group(1)
+    decls = re.findall(r"([\w ]+?\*?) ?(\w+)(\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
+    assert [name for _, name, _ in decls] == [name for name, _ in fw._Args._fields_]
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float, "int64_t": ctypes.c_int64}
+    for (ctype, name, array), (_, mirror) in zip(decls, fw._Args._fields_):
+        base = mirror._type_ if array else mirror
+        want = ctypes.c_void_p if "*" in ctype else kinds[ctype.strip()]
+        assert base is want, name
+    for kernel in ("gather", "forward", "head", "bwd_weight", "bwd_data", "norm_grad", "update"):
+        assert f"eh_wide_{kernel}_kernel" in src
+    assert "atomicAdd(" not in src and "cublas" not in src.lower()
+
+
+def test_kernel_arguments_pack_the_plan():
+    tm = et.construct_hybrid_model(**_spec(hidden=(128, 64), act="swish"), device="cpu")
+    plan = fw.plan_fused_wide(tm, ("adam", 0.01), _ll(et, "mae", agg="mean"))
+    a = fw._Args.from_buffer_copy(plan.args_bytes)
+    assert plan.n_params == a.n_params == 4 + 128 * 3 + 64 * 129 + 65 + 1
+    assert list(a.dims[:4]) == [2, 128, 64, 1] and a.norm_mode == 1 and a.opt == 1
+    assert list(a.p_off_w[:3]) == [4, 388, 8644] and a.p_off_g == plan.n_params - 1
+    assert a.loss_kind == 1 and list(a.acts[:3]) == [4, 4, 0]
+    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and plan.agg_scale == 1.0
+    packed = plan.pack(tm)
+    assert packed.params.numel() == plan.n_params and packed.bn.numel() == 4
+    twin = et.construct_hybrid_model(**_spec(hidden=(128, 64), act="swish"), device="cpu")
+    plan.unpack(packed, twin)
+    for k, v in tm.state_dict().items():
+        assert torch.equal(v, twin.state_dict()[k])
+
+
+def test_interop_carries_a_five_layer_tower():
+    spec = _spec(hidden=(40, 24, 16, 12, 8), act="swish")
+    jm = eh.construct_hybrid_model(**spec)
+    params, state = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(3)))
+    tm = et.construct_hybrid_model(**spec, device="cpu")
+    et.load_jax_params(tm, params, state)
+    got_p, got_s = et.export_jax_params(tm)
+    assert jax.tree.structure(got_p) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(got_s), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(a, b)
+    x = np.random.default_rng(0).normal(size=(7, 2)).astype(np.float32)
+    want = jm.nn.apply(params["nn"], state["nn"], jnp.asarray(x))
+    want = want[0] if isinstance(want, tuple) else want
+    np.testing.assert_allclose(tm.nn(torch.from_numpy(x)).detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("loss", ["mse", "mae"])
+def test_train_matches_jax_on_a_small_wide_model(loss):
+    """The slice as a whole: ``train()`` with ``use_kernel=True`` on a model
+    too wide for kernel 2 against the JAX ``train()`` from the same
+    parameters, unshuffled: per-epoch metrics, best epoch, parameters."""
+    spec = _spec(hidden=(128, 64), act="swish")
+    kw = dict(nepochs=6, batchsize=128, optimizer=("adam", 0.01), shuffle_each_epoch=False,
+              show_progress=False, training_loss=loss, loss_types=[loss, "mse"], eval_every=2)
+    jm = eh.construct_hybrid_model(**spec)
+    init = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    cols = et.rbq10_columns(512, seed=42)
+    jr = eh.train(jm, cols, train_from=jax.tree.map(np.array, init), **kw)
+    tm = et.construct_hybrid_model(**spec, device="cpu")
+    tr = et.train(tm, cols, train_from=init, use_kernel=True, **kw)
+    assert tr.epoch_path == "cuda_fused_wide" and "exactness gate passed" in tr.engine_reason
+    assert len(tr.val_history) == len(jr.val_history) == 4
+    for got, want in ((tr.train_history, jr.train_history), (tr.val_history, jr.val_history)):
+        for g, w in zip(got, want):
+            for metric in w:
+                for k in w[metric]:
+                    np.testing.assert_allclose(g[metric][k], w[metric][k], rtol=1e-4, atol=1e-5)
+    assert tr.best_epoch == jr.best_epoch
+    got_p, _ = et.export_jax_params(tm)
+    for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jr.params)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=1e-4)
+    assert int(tr.opt_state["t"][0]) == 6 * 4
