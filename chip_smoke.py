@@ -19,14 +19,23 @@ Phases, one or more lines each; any failure exits non-zero:
    on both engines, each the median of several runs;
 6. kernel 2: the fused epoch kernel against its plain PyTorch version
    (``fused_epoch_reference``) on the card, from identical parameters and
-   the same permutations, at the training path's shapes and its edges;
+   the same permutations, at the training path's shapes and its edges (the
+   edges of its geometry too: batches of 31, 33, 513 and 1,000 rows, a
+   batch no cluster holds at once, an epoch boundary under the prefetch, a
+   ragged last batch in a cluster), with a second run that must give the
+   same bits;
 7. main path: ``train()`` on the quick-start RbQ10 model (trainable input
    BatchNorm) at 20,000 rows, 100 epochs of batch 512, which must take the
    kernel after its exactness gate (one launch per epoch) and learn Q10;
-8. times: kernel 2 against its plain version per epoch, and ``train()``
-   wall seconds on both epoch engines (the torch engine for 20 epochs);
+8. times: kernel 2 against its plain version per epoch, with the geometry
+   its plan chose (threads, tile, stages, cluster) and a step split by stage
+   (a second build of ``fused_epoch.cu`` with ``-DEHE_STAMPS``, made beside
+   the library's), and ``train()`` wall seconds on both epoch engines (the
+   torch engine for 20 epochs);
 9. primitives: the multi-site kernel's building blocks, each a tiny kernel
-   held against a torch expression, PASS or FAIL;
+   held against a torch expression, PASS or FAIL, the two row sums also at
+   1, 3, 63, 64, 65 and 1,000 observations a site; ``site_reduce`` timed
+   beside ``torch.sum(x, 1)``;
 10. kernel 5: the fused multi-site epoch against its plain PyTorch version
     (``fused_multisite_reference``) from identical parameters and the same
     site indices, at the main path's widths and at its edges, with a second
@@ -81,6 +90,7 @@ them, and ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import re
@@ -275,6 +285,20 @@ def epoch_cases(et, quick_cols):
              epochs=2, batch=256, seed=5, **quick),
         dict(what="quick-start, first batch fully masked, adam, unshuffled, N=1024 batch 128",
              cols=masked, keep_nan=True, shuffle=False, epochs=1, batch=128, seed=6, **quick),
+        # the geometry's edges: a batch below and above a warp, above one block, in two blocks
+        *[dict(what=f"quick-start, N=2100 batch {batch}", cols=et.rbq10_columns(2100, seed=7),
+               shuffle=True, epochs=1, batch=batch, seed=7, **quick) for batch in (31, 33, 513, 1000)],
+        dict(what="[64,48] selu, static norm, N=9000 batch 3000 (more than a cluster holds at once)",
+             cols=et.rbq10_columns(9000, seed=8), hidden=(64, 48), act="selu", norm="static",
+             opt=("adam", 0.01), shuffle=True, epochs=1, batch=3000, seed=8),
+        dict(what="[61,61,44,61,13] tanh, trainable BN, N=512 batch 128 (moments in device memory)",
+             cols=et.rbq10_columns(512, seed=11), hidden=(61, 61, 44, 61, 13), act="tanh", norm=True,
+             opt=("adam", 0.01), shuffle=True, epochs=2, batch=128, seed=11),
+        dict(what="quick-start, N=1536 batch 512, 3 epochs in a launch (prefetch across epochs)",
+             cols=et.rbq10_columns(1536, seed=9), shuffle=True, epochs=3, batch=512, seed=9, **quick),
+        dict(what="quick-start, 30% NaN targets, N=2500 batch 1000 (ragged last batch in a cluster)",
+             cols=et.rbq10_columns(2500, seed=10, nan_frac=0.3), keep_nan=True, shuffle=True,
+             epochs=2, batch=1000, seed=10, **quick),
     ]
 
 
@@ -407,6 +431,20 @@ def primitive_checks(card):
     results["block_sum (same bits on a second run)"] = (
         (first - parts.sum(0)).abs().max() if repeat else torch.tensor(float("inf")), 1e-4)
 
+    # the two row sums at widths around a group of lanes and beyond a warp's reach
+    for n in (1, 3, 63, 64, 65, 1000):
+        xn = torch.rand(301, n, device="cuda", generator=g)
+        idx = torch.randperm(400, device="cuda", generator=g)[:301].int()
+        idx[::7] = -1
+        on = idx >= 0
+        sites = idx[on].long()
+        results[f"site_reduce, {n} observations a site"] = (
+            (mp.site_reduce(xn) - xn.sum(1)).abs().max(), 1e-5 * n)
+        acc, ref = torch.ones(400, device="cuda"), torch.ones(400, device="cuda")
+        mp.site_chain(vals[:400].contiguous(), idx, xn, acc)
+        ref[sites] += (vals[sites][:, None] * xn[on]).sum(1)
+        results[f"site_chain, {n} observations a site"] = (acc - ref).abs().max(), 1e-5 * n
+
     worst = 0.0
     failed = []
     for what, (err, tol) in results.items():
@@ -421,9 +459,17 @@ def primitive_checks(card):
     if failed:
         raise AssertionError(f"primitives failed: {failed}")
     fns = {"kernel": lambda: mp.site_reduce(x), "plain": lambda: x.sum(1)}
-    times = {k: statistics.median(device_ms(f, 50, k) for _ in range(5)) for k, f in fns.items()}
+    runs = {k: [] for k in fns}
+    for i in range(5):  # in turns: kernel, plain, plain, kernel, ...
+        for k in (list(fns) if i % 2 == 0 else list(reversed(list(fns)))):
+            runs[k].append(device_ms(fns[k], 50, k))
+    times = {k: statistics.median(v) for k, v in runs.items()}
     log("times", f"[{card}] site_reduce over {MS_TRAIN_SITES} x {n_obs}, median of 5, device ms: "
-                 + ", ".join(f"{k} {v:.5f}" for k, v in times.items()))
+                 + ", ".join(f"{k} {v:.5f}" for k, v in times.items())
+                 + " (plain: torch.sum(x, 1), the library call)")
+    if times["kernel"] > times["plain"]:
+        raise AssertionError(f"site_reduce takes {times['kernel']:.5f} ms, torch.sum(x, 1) "
+                             f"{times['plain']:.5f}: the kernel must not lose to the library call")
     return worst, times
 
 
@@ -1178,6 +1224,10 @@ def main() -> None:
     from easyhybrid_tpu_torch.ops import fused_forward as ff
 
     # 2. build ----------------------------------------------------------------
+    # kernel 2's stamped build (phase 8) is made beside the library's
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
+    pool.shutdown(wait=False)
     built = _build.build_library()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS[:2])} -> {built.path.name} "
                  f"in {built.seconds:.2f} s (set-up), one nvcc per source in parallel: "
@@ -1307,19 +1357,26 @@ def main() -> None:
     for case in epoch_cases(et, quick_cols):
         what, fn, packed, tensors, perms = prepare_epoch_case(et, fe, **case)
         opt0 = fe.init_fused_opt_state(packed)
-        got_p, got_o, got_l = fn(packed, opt0, tensors, perms=perms)
+        def named(p, o, l):
+            return {"params": p.params, "bn": p.bn, "m": o["m"], "v": o["v"],
+                    "t": o["t"].float(), "loss": l.reshape(1)}
+
+        got = named(*fn(packed, opt0, tensors, perms=perms))
         torch.cuda.synchronize()
-        ref_p, ref_o, ref_l = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-        got = {"params": got_p.params, "bn": got_p.bn, "m": got_o["m"], "v": got_o["v"],
-               "t": got_o["t"].float(), "loss": got_l.reshape(1)}
-        ref = {"params": ref_p.params, "bn": ref_p.bn, "m": ref_o["m"], "v": ref_o["v"],
-               "t": ref_o["t"].float(), "loss": ref_l.reshape(1)}
+        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
             raise AssertionError(f"{what}: the kernel returned non-finite values")
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
         err = compare(got, ref, what, TOL_EPOCH)
         epoch_err = max(epoch_err, err)
-        log("kernel2", f"{what}: width {fn.plan.width}, tile {fn.plan.tile_rows} rows, "
-                       f"{int(got_o['t'][0])} steps, max |diff| {err:.3e} (ok)")
+        g = fn.plan.geometry(int(tensors.weight.shape[1]))
+        log("kernel2", f"{what}: width {fn.plan.width}, {g.cluster} block(s) of {g.threads} "
+                       f"threads, {g.tiles} tile(s) of {g.tile} rows, stages {g.stages}, moments "
+                       f"{'shared' if g.moments_shared else 'in device memory'}, "
+                       f"{int(got['t'][0])} steps, max |diff| {err:.3e}, second run bitwise "
+                       "equal (ok)")
 
     # 7. main path: train() ------------------------------------------------------
     model = build_model(et, norm=True, seed=0)
@@ -1367,10 +1424,22 @@ def main() -> None:
     wall_ms = {k: statistics.median(v) for k, v in epoch_wall.items()}
     steps = tensors.weight.shape[0]
     log("times", f"[{card}] kernel 2, one epoch of {steps} steps (batch {tensors.weight.shape[1]}, "
-                 f"{what}), median of 6: device ms per epoch "
+                 f"{what}), geometry {fn.plan.geometry(int(tensors.weight.shape[1]))}, median of 6: "
+                 "device ms per epoch "
                  + ", ".join(f"{k} {v:.4f} ms ({steps / v * 1e3:,.0f} steps/s)"
                              for k, v in epoch_ms.items() if k != "plain")
                  + "; wall ms per epoch " + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items()))
+    stamped = stamped_build.result()
+    fe.stage_cycles(fn, packed, opt0, tensors, perms)  # warm-up
+    cycles = fe.stage_cycles(fn, packed, opt0, tensors, perms)
+    whole = cycles.pop("kernel")
+    if whole <= 0 or any(v < 0 for v in cycles.values()):
+        raise AssertionError(f"the stamped build of kernel 2 returned {cycles}, {whole}")
+    log("times", f"[{card}] kernel 2, a step split by stage (thread 0 of block 0, clock64() in a "
+                 f"build with -DEHE_STAMPS, nvcc {stamped.seconds:.1f} s): cycles a step and share "
+                 "of the launch: "
+                 + ", ".join(f"{k} {v / steps:.0f} ({v / whole:.1%})" for k, v in cycles.items())
+                 + f"; the launch {whole} cycles, {whole / steps:.0f} a step")
 
     torch_model = build_model(et, norm=True, seed=0)
     torch_epochs = 20  # a fifth of the fused run's depth: the torch engine takes ~0.17 s an epoch

@@ -30,24 +30,45 @@ from .params import (
     inv_sigmoid,
 )
 from .data.prepare import HybridData, prepare_data
-from .data.loaders import build_epoch_tensors, pad_axis0
-from .data.synthetic import gen_multisite_arrays, gen_rbq10_data, rbq10_columns
+from .data.loaders import batch_iterator, build_epoch_tensors, pad_axis0
+from .data.sequences import filter_sequences, split_into_sequences
+from .data.synthetic import (
+    gen_linear_data,
+    gen_linear_data_2outputs,
+    gen_multisite_arrays,
+    gen_rbq10_data,
+    rbq10_columns,
+)
 from .models.nn import ACTIVATIONS, BatchNorm, Dense, LSTMNet, MLP, construct_nn
 from .models.hybrid import SingleNNHybridModel, construct_hybrid_model
 from .parallel.multisite import MultiSiteHybridModel, prepare_multisite_data
-from .data.split import split_data
-from .config.train_config import DataConfig, TrainConfig, TrainResults
+from .data.split import prepare_splits, split_data, train_val_indices
+from .config.train_config import DataConfig, TrainConfig, TrainResults, validate_config
 from .losses.metrics import (
     METRICS,
     best_direction,
+    check_training_loss,
     huber,
     is_better,
     loss_fn,
+    masked_mean,
     pinball,
     register_metric,
 )
-from .losses.specs import ElementwiseLoss, LoggingLoss, PerTarget
-from .utils.weights import l2_extra_loss
+from .losses.specs import (
+    ElementwiseLoss,
+    ExtraLoss,
+    FunctionLoss,
+    LoggingLoss,
+    ParameterizedLoss,
+    PerTarget,
+    SymbolicLoss,
+)
+from .losses.compute import compute_loss
+from .utils.weights import extract_weights, l2_extra_loss, weight_l2
+from .training.early_stopping import EarlyStopping
+from .training.history import EpochSnapshot, TrainingHistory
+from .training.optimizers import resolve_optimizer
 from .training.train import fit_input_norm, train
 from .training.inference import make_inference_fn, predict
 from .interop import export_jax_params, load_jax_params
@@ -124,4 +145,25 @@ __all__ = [
     "make_fused_wide_epoch",
     "supports_fused_wide",
     "default_device",
+    "TrainingHistory",
+    "EpochSnapshot",
+    "EarlyStopping",
+    "resolve_optimizer",
+    "compute_loss",
+    "validate_config",
+    "split_into_sequences",
+    "filter_sequences",
+    "train_val_indices",
+    "prepare_splits",
+    "batch_iterator",
+    "masked_mean",
+    "check_training_loss",
+    "SymbolicLoss",
+    "FunctionLoss",
+    "ParameterizedLoss",
+    "ExtraLoss",
+    "extract_weights",
+    "weight_l2",
+    "gen_linear_data",
+    "gen_linear_data_2outputs",
 ]

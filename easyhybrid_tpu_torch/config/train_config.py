@@ -149,8 +149,8 @@ class TrainResults:
     CPU tensors keyed like ``model.named_parameters()`` / ``named_buffers()``.
     ``*_obs_columns`` / ``*_pred_columns`` are numpy dicts; the matching
     ``*_obs`` / ``*_pred`` properties wrap them in DataFrames.
-    ``epoch_path`` is ``"cuda_fused_epoch"``, ``"cuda_fused_lstm"``,
-    ``"cuda_fused_multisite"`` or ``"torch"``;
+    ``epoch_path`` is ``"cuda_fused_epoch"``, ``"cuda_fused_wide"``,
+    ``"cuda_fused_lstm"``, ``"cuda_fused_multisite"`` or ``"torch"``;
     ``engine_reason`` says why."""
 
     train_history: Any = None

@@ -21,30 +21,66 @@
 // into shared memory once, stay there across every step of the launch, and
 // are written back once at the end, with the last epoch's mean batch loss.
 //
-// Design: one thread block per model, one batch row per thread. The batch is
-// cut into tiles of tile_rows rows (128, 64 or 32: the most that fits); a
-// tile's residuals (layer inputs, activation derivatives overwritten by the
-// cotangents, per-row global cotangents) live in dynamic shared memory,
-// feature-major so that neighbouring threads touch neighbouring words, with
-// a row stride of tile_rows + 1 so that the threads summing different
-// features read different banks. After a tile's backward, one thread per
-// parameter sums the tile's rows into a shared-memory gradient accumulator,
-// in row order (deterministic). The update is one thread per parameter.
-// Layer widths are fixed at compile time (16, 32 or 64) so the per-row
-// vectors stay in registers.
+// What bounds it on an H100: every step needs the previous step's update, so
+// a launch is a chain of n_epochs x n_batches dependent steps, and a step of
+// a [16, 16] network on 512 rows is ~1 MFLOP and 12 KB of rows: nothing for
+// the card's arithmetic or memory rate, everything for latency. A step costs
+// what its longest dependent path costs: device-memory round trips, block
+// and cluster barriers, sums taken by one thread, and one thread's own
+// instruction stream, which on this card is paced as much by instruction
+// fetch (taken branches, straight-line code that is skipped) as by
+// arithmetic.
 //
-// What bounds it on an H100: each SGD step needs the previous update, so the
-// chain of steps is latency-bound. At the quick-start widths ([16, 16],
-// batch 512) a row costs about 24 bytes of device memory (two predictors,
-// one forcing, target, mask and index) and ~2,000 flops per step; one block
-// on one of 132 SMs keeps the card mostly idle for one model. Today nothing
-// is done about that beyond keeping the host out of the chain (one launch
-// per eval block). Later: a grid axis over population members (one block
-// per member), and tensor-core tiles for wide layers.
+// What the design does about it:
+//   * The whole batch in flight: one row per thread, blocks of up to 256 rows
+//     while a thread-block cluster of up to 8 blocks has room (two warps a
+//     scheduler on two multiprocessors ran the main shape faster than four on
+//     one), then up to 512 threads a block. Only a batch beyond that, or a
+//     model whose state leaves little shared memory, walks tiles serially.
+//   * Rows gathered once, ahead of the chain: a step's rows (predictors,
+//     forcing, targets, masks) are staged in shared memory by cp.async
+//     through the index, and step s + 1's rows are in flight while step s
+//     computes, across epoch boundaries too; every pass over a batch (mean,
+//     variance, forward) reads the stage.
+//   * Every sum is a tree of fixed shape: warp shuffles, then per-warp
+//     partials added by a warp in warp order, then (in a cluster) the blocks'
+//     partials read through distributed shared memory in rank order. Every
+//     block ends with the same bits and two runs give the same bits; there
+//     are no float atomics. The parameter gradients are cut into units of
+//     4 x 4 (cotangent feature x input feature); a warp takes a unit, its
+//     lanes split the rows, and one folding shuffle tree of 16 shuffles
+//     leaves all 16 sums. The units are described once a launch.
+//   * Layers at their own size: a row's products loop over the layer's own
+//     outputs, four at a time; weights sit in shared memory with rows padded
+//     to 4 floats and are read as one 16-byte broadcast load per four
+//     products; the activation is chosen by one branch per four outputs, and
+//     its sigmoid carries no branch, so the four interleave. Only the
+//     layer's input vector is unrolled to the kernel's width (it lives in
+//     registers); the row's small vectors (outputs, cotangents of the
+//     globals) live in the row's column of the tile and are walked by loops
+//     of their own length, which costs less in instruction fetch than code
+//     unrolled to the width and predicated off.
+//   * Every block of a cluster keeps the whole state and applies the same
+//     update from the same gradient bits, so nothing is sent back.
+//   * What does not depend on the parameters leaves the critical barriers: a
+//     step's mask counts and batch mean are taken at the end of the step
+//     before and exchanged with its gradient, and Adam's bias corrections are
+//     computed then too, by the warp with the fewest units.
+// Per step, with a trainable norm: an exchange barrier (the cluster's, or the
+// block's without a cluster) for the variance, one for the gradient, the loss
+// and the next step's counts and mean; and 3 block barriers (after the
+// variance, between the rows' pass and the gradient units, after the
+// update). Without a trainable norm the variance barrier goes and the one
+// after the update is an exchange barrier, so that no block overwrites
+// partials another still reads.
 //
 // Built without --use_fast_math, as fused_forward.cu.
 
+#include <cooperative_groups.h>
+
 #include "eh_device.cuh"
+
+namespace cg = cooperative_groups;
 
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_epoch.py;
 // eh_fused_epoch_args_size() lets the wrapper check the two agree.
@@ -94,337 +130,758 @@ struct EhFusedEpochArgs {
   float one_minus_b1;
   float one_minus_b2;
   float eps;
-  int tile_rows;
+  int tile_rows;                         // threads of a block: rows it takes at once
   int res_floats;
   int r_off_xhat;
   int r_off_d0;
   int r_off_g;
   int r_off_h[EH_MAX_LAYERS];
   int r_off_d[EH_MAX_LAYERS];
+  int r_off_out;                         // the network's outputs, then their cotangents
+  int r_off_dsc;                         // the bound scaling's derivative
+  int r_off_one;                         // a feature that is 1 on every row
+  int n_forcing;
+  int n_padded;                          // parameters with weight rows padded to 4
+  int pp_off_w[EH_MAX_LAYERS];           // the padded layout's offsets
+  int pp_off_b[EH_MAX_LAYERS];
+  int pp_off_g;
+  int block_rows;                        // rows of a batch one block owns
+  int stages;                            // 2: rows staged and prefetched; 0: read in place
+  int cluster;                           // blocks over a batch's rows
+  int moments_shared;                    // 1: moments in shared memory; 0: updated in m and v
+  int n_unit_table;                      // gradient units described once a launch (the first ones)
+  long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
 };
 // Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm);
 // per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l];
-// raw globals at p_off_g. Residual tile: see eh_device.cuh.
+// raw globals at p_off_g. In shared memory the parameters (not the moments)
+// use the padded layout: the same order, every W row padded with zeros to a
+// multiple of 4 floats and every W starting on a 16-byte boundary. Where the
+// state would leave no room for 32 residual rows the moments stay in device
+// memory (one block only: each element is then one thread's alone).
+// Residual tile: word (off + k) * tile_rows + r for feature k of row r.
+
+// Built with -DEHE_STAMPS, thread 0 of block 0 adds the clock64() cycles it
+// spends in each stage of a step to a.stamps when the kernel ends: 0 the wait
+// for the step's staged rows, 1 counts and mean, 2 starting the next step's
+// copies, 3 variance (0 to 3: gather and statistics), 4 forward to loss,
+// 5 backward, 6 gradient sum, 7 update, 8 the whole kernel. Built with
+// -DEHE_CHAIN_ONLY, the rows' arithmetic is left out: barriers, exchanges,
+// staging and the update remain.
+#define EHE_N_STAMPS 9
+#ifdef EHE_STAMPS
+#define EHE_STAMP(k)                      \
+  do {                                    \
+    if (tid == 0 && rank == 0) {          \
+      const long long now = clock64();    \
+      stamp_acc[k] += now - stamp_last;   \
+      stamp_last = now;                   \
+    }                                     \
+  } while (0)
+#else
+#define EHE_STAMP(k)
+#endif
+
+// Threads a block may have: the registers of 512 threads (128 each) hold a
+// row of width 32; a row of width 64 takes 256.
+#define EHE_MAX_THREADS(W) ((W) == 64 ? 256 : 512)
+
+__device__ __forceinline__ void ehe_cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ float ehe_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One level of the folding tree: lanes whose `bit` is set keep the upper half
+// of v, the others the lower, and each adds its partner's copy of that half.
+template <int HALF>
+__device__ __forceinline__ void ehe_fold(float (&v)[16], bool up, int bit) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF];
+    const float keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+
+// Position of packed parameter p in the padded layout.
+__device__ __forceinline__ int ehe_padded_index(const EhFusedEpochArgs& a, int p) {
+  if (p >= a.p_off_g) return a.pp_off_g + (p - a.p_off_g);
+  if (p < a.p_off_w[0]) return p;  // the norm's scale and bias
+  int l = 0;
+  while (l + 1 < a.n_layers && p >= a.p_off_w[l + 1]) ++l;
+  if (p >= a.p_off_b[l]) return a.pp_off_b[l] + (p - a.p_off_b[l]);
+  const int din = a.dims[l];
+  const int q = p - a.p_off_w[l];
+  const int j = q / din;
+  return a.pp_off_w[l] + j * ((din + 3) & ~3) + (q - j * din);
+}
+
+// Four outputs' activations at once: four independent chains for the
+// scheduler to interleave.
+template <int ACT>
+__device__ __forceinline__ void ehe_act4(const float (&z)[4], float (&y)[4], float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) y[i] = ehe_act<true>(ACT, z[i], &d[i]);
+}
+
+// One row's MLP forward. h holds the row's (normed) input on entry and the
+// raw network output on return. Saves each layer's input (r_off_h), its
+// activation derivative (r_off_d) and the raw output (r_off_out) in the row's
+// column `res` of the tile. A layer's outputs are taken four at a time (the
+// loop over them is not unrolled further): each reads the row's input from
+// registers and its weights as 16-byte broadcast loads, in four independent
+// chains of products, then the four activations, chosen by one branch.
+template <int W>
+__device__ __forceinline__ void ehe_row_forward(const EhFusedEpochArgs& a, const float* Pm,
+                                                float (&h)[W], float* res, int ld) {
+  const int L = a.n_layers;
+  for (int l = 0; l < L; ++l) {
+    const int din = a.dims[l];
+    const int dout = a.dims[l + 1];
+    const int din4 = (din + 3) & ~3;
+    const int act = a.acts[l];
+    const float* w = Pm + a.pp_off_w[l];
+    const float* b = Pm + a.pp_off_b[l];
+    float* dd = res + a.r_off_d[l] * ld;
+    float* hn = res + (l + 1 < L ? a.r_off_h[l + 1] : a.r_off_out) * ld;
+    for (int j = 0; j < dout; j += 4) {
+      const int last = dout - 1 - j;  // rows past the layer's last repeat it and are dropped
+      const float4* w0 = reinterpret_cast<const float4*>(w + j * din4);
+      const float4* w1 = reinterpret_cast<const float4*>(w + (j + min(1, last)) * din4);
+      const float4* w2 = reinterpret_cast<const float4*>(w + (j + min(2, last)) * din4);
+      const float4* w3 = reinterpret_cast<const float4*>(w + (j + min(3, last)) * din4);
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k4 = 0; k4 < W / 4; ++k4) {
+        if (k4 * 4 < din) {
+          const float4 q0 = w0[k4], q1 = w1[k4], q2 = w2[k4], q3 = w3[k4];
+          z[0] = fmaf(h[4 * k4 + 3], q0.w, fmaf(h[4 * k4 + 2], q0.z,
+                 fmaf(h[4 * k4 + 1], q0.y, fmaf(h[4 * k4], q0.x, z[0]))));
+          z[1] = fmaf(h[4 * k4 + 3], q1.w, fmaf(h[4 * k4 + 2], q1.z,
+                 fmaf(h[4 * k4 + 1], q1.y, fmaf(h[4 * k4], q1.x, z[1]))));
+          z[2] = fmaf(h[4 * k4 + 3], q2.w, fmaf(h[4 * k4 + 2], q2.z,
+                 fmaf(h[4 * k4 + 1], q2.y, fmaf(h[4 * k4], q2.x, z[2]))));
+          z[3] = fmaf(h[4 * k4 + 3], q3.w, fmaf(h[4 * k4 + 2], q3.z,
+                 fmaf(h[4 * k4 + 1], q3.y, fmaf(h[4 * k4], q3.x, z[3]))));
+        }
+      }
+      z[0] += b[j];
+      z[1] += b[j + min(1, last)];
+      z[2] += b[j + min(2, last)];
+      z[3] += b[j + min(3, last)];
+      float y[4], d[4];
+      switch (act) {
+        case ACT_TANH: ehe_act4<ACT_TANH>(z, y, d); break;
+        case ACT_RELU: ehe_act4<ACT_RELU>(z, y, d); break;
+        case ACT_SIGMOID: ehe_act4<ACT_SIGMOID>(z, y, d); break;
+        case ACT_SILU: ehe_act4<ACT_SILU>(z, y, d); break;
+        case ACT_GELU: ehe_act4<ACT_GELU>(z, y, d); break;
+        case ACT_SOFTPLUS: ehe_act4<ACT_SOFTPLUS>(z, y, d); break;
+        case ACT_SELU: ehe_act4<ACT_SELU>(z, y, d); break;
+        case ACT_ELU: ehe_act4<ACT_ELU>(z, y, d); break;
+        case ACT_LEAKYRELU: ehe_act4<ACT_LEAKYRELU>(z, y, d); break;
+        default: ehe_act4<ACT_IDENTITY>(z, y, d); break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i <= last) {
+          dd[(j + i) * ld] = d[i];
+          hn[(j + i) * ld] = y[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) h[k] = (k < dout) ? hn[k * ld] : 0.0f;
+  }
+}
+
+// One row's MLP backward. The last layer's saved activation derivative
+// already holds its pre-activation cotangent. Overwrites each earlier saved
+// derivative with that layer's pre-activation cotangent and, with an input
+// norm, stores the cotangent of the normed input (r_off_d0).
+template <int W>
+__device__ __forceinline__ void ehe_row_backward(const EhFusedEpochArgs& a, const float* Pm,
+                                                 float* res, int ld) {
+  const int L = a.n_layers;
+  for (int l = L - 1; l >= 0; --l) {
+    if (l == 0 && a.norm_mode == NORM_NONE) break;
+    const int din = a.dims[l];
+    const int dout = a.dims[l + 1];
+    const int din4 = (din + 3) & ~3;
+    const float* w = Pm + a.pp_off_w[l];
+    const float* dz = res + a.r_off_d[l] * ld;
+    float Dn[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) Dn[k] = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < dout; ++j) {
+      const float dj = dz[j * ld];
+      const float4* wr = reinterpret_cast<const float4*>(w + j * din4);
+#pragma unroll
+      for (int k4 = 0; k4 < W / 4; ++k4) {
+        if (k4 * 4 < din) {
+          const float4 q = wr[k4];
+          Dn[4 * k4] = fmaf(q.x, dj, Dn[4 * k4]);
+          Dn[4 * k4 + 1] = fmaf(q.y, dj, Dn[4 * k4 + 1]);
+          Dn[4 * k4 + 2] = fmaf(q.z, dj, Dn[4 * k4 + 2]);
+          Dn[4 * k4 + 3] = fmaf(q.w, dj, Dn[4 * k4 + 3]);
+        }
+      }
+    }
+    float* zp = res + (l > 0 ? a.r_off_d[l - 1] : a.r_off_d0) * ld;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k < din) zp[k * ld] = l > 0 ? Dn[k] * zp[k * ld] : Dn[k];
+    }
+  }
+}
+
+// A unit of the gradient sum: the sums over a tile's rows of u_a * v_b for
+// nj features u (from uoff) and nk features v (from voff), written to packed
+// parameters pbase + a * pstride + b.
+struct EheUnit {
+  int uoff, nj, voff, nk, pbase, pstride;
+};
+
+__device__ __forceinline__ int ehe_n_units(const EhFusedEpochArgs& a) {
+  int n = 0;
+  for (int l = 0; l < a.n_layers; ++l)
+    n += ((a.dims[l + 1] + 3) >> 2) * (((a.dims[l] + 3) >> 2) + 1);
+  const int F = a.dims[0];
+  if (a.norm_mode != NORM_NONE) n += F + ((F + 3) >> 2);
+  return n + ((a.n_globals + 3) >> 2);
+}
+
+// Unit u: every layer's weight blocks, each row of blocks followed by its
+// bias block (v the feature of ones); then the norm's scale (one feature
+// pair a unit) and bias; then the globals.
+__device__ __forceinline__ EheUnit ehe_unit(const EhFusedEpochArgs& a, int u) {
+  EheUnit x;
+  x.nk = 1;
+  x.pstride = 1;
+  x.voff = a.r_off_one;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int din = a.dims[l];
+    const int dout = a.dims[l + 1];
+    const int nkb = (din + 3) >> 2;
+    const int n = ((dout + 3) >> 2) * (nkb + 1);
+    if (u < n) {
+      const int jb = u / (nkb + 1);
+      const int kb = u - jb * (nkb + 1);
+      x.uoff = a.r_off_d[l] + 4 * jb;
+      x.nj = min(4, dout - 4 * jb);
+      if (kb < nkb) {
+        x.voff = a.r_off_h[l] + 4 * kb;
+        x.nk = min(4, din - 4 * kb);
+        x.pbase = a.p_off_w[l] + 4 * jb * din + 4 * kb;
+        x.pstride = din;
+      } else {
+        x.pbase = a.p_off_b[l] + 4 * jb;
+      }
+      return x;
+    }
+    u -= n;
+  }
+  const int F = a.dims[0];
+  if (a.norm_mode != NORM_NONE) {
+    if (u < F) {
+      x.uoff = a.r_off_d0 + u;
+      x.nj = 1;
+      x.voff = a.r_off_xhat + u;
+      x.pbase = u;
+      return x;
+    }
+    u -= F;
+    if (u < ((F + 3) >> 2)) {
+      x.uoff = a.r_off_d0 + 4 * u;
+      x.nj = min(4, F - 4 * u);
+      x.pbase = F + 4 * u;
+      return x;
+    }
+    u -= (F + 3) >> 2;
+  }
+  x.uoff = a.r_off_g + 4 * u;
+  x.nj = min(4, a.n_globals - 4 * u);
+  x.pbase = a.p_off_g + 4 * u;
+  return x;
+}
 
 template <int W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.cluster;
+  const int rank = blockIdx.x;  // the grid is one cluster
   const int tid = threadIdx.x;
   const int nth = blockDim.x;  // == a.tile_rows
-  const int ld = nth + 1;      // row stride of the residual tile
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nth >> 5;
+  const int ld = nth;  // row stride of the residual tile and of a stage
   const int F = a.dims[0];
   const int L = a.n_layers;
   const int P = a.dims[L];
   const int G = a.n_globals;
   const int K = a.n_fixed;
   const int T = a.n_targets;
+  const int NF = a.n_forcing;
   const int NP = a.n_params;
   const int B = a.batch;
   const int n_consts = 2 * P + 2 * G + K;
+  const int NS = T + F;             // counts, then the predictors' sums
+  const int cols = F + NF + 2 * T;  // a stage's columns
+  const bool staged = a.stages > 0;
 
-  float* Pm = sm;               // parameters
-  float* Mm = Pm + NP;          // first moments
-  float* Vm = Mm + NP;          // second moments
-  float* Gr = Vm + NP;          // gradient accumulator
-  float* BN = Gr + NP;          // running mean, var
-  float* C = BN + 2 * F;        // constants
-  float* SC = C + n_consts;     // scaled globals, then fixed values
-  float* DG = SC + G + K;       // d scaled global / d raw
-  float* BM = DG + G;           // batch (or running) mean
-  float* BR = BM + F;           // rsqrt(var + eps)
-  float* BV = BR + F;           // batch variance
-  float* NT = BV + F;           // max(sum(mask), 1) per target
-  float* MISC = NT + T;         // [0] batch valid
-  float* RED = MISC + 4;        // per-thread partials
-  float* RES = RED + nth;       // residual tile, also the pre-pass scratch
+  float* Pm = sm;                 // parameters, padded layout
+  // the moments: beside the parameters, or in device memory where the state
+  // would leave no room for 32 rows (each element is one thread's alone)
+  float* Mm = a.moments_shared ? Pm + a.n_padded : a.m;
+  float* Vm = a.moments_shared ? Mm + NP : a.v;
+  float* Gr = Pm + a.n_padded + (a.moments_shared ? 2 * NP : 0);  // this block's gradient partial
+  float* XL = Gr + NP;            // this block's loss partials, one a warp
+  float* XS1 = XL + nw;           // count and mean partials, NS a warp
+  float* XS2 = XS1 + nw * NS;     // variance partials, F a warp
+  float* BN = XS2 + nw * F;       // running mean, var
+  float* Cc = BN + 2 * F;         // constants
+  float* SC = Cc + n_consts;      // scaled globals, then fixed values
+  float* DG = SC + G + K;         // d scaled global / d raw
+  float* BM = DG + G;             // batch (or running) mean
+  float* BR = BM + F;             // rsqrt(var + eps)
+  float* NT = BR + F;             // max(sum(mask), 1) per target
+  float* MISC = NT + T;           // [0..1] batch valid, [2..5] Adam's bias corrections: two steps'
+  int* UT = reinterpret_cast<int*>(MISC + 8);  // the first units, 8 ints each
+  float* RES = MISC + 8 + 8 * a.n_unit_table;  // residual tile
+  float* ST = RES + a.res_floats * ld;  // the stages
 
+  for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
+  __syncthreads();
   for (int i = tid; i < NP; i += nth) {
-    Pm[i] = a.params[i];
-    Mm[i] = a.m[i];
-    Vm[i] = a.v[i];
+    Pm[ehe_padded_index(a, i)] = a.params[i];
+    if (a.moments_shared) {
+      Mm[i] = a.m[i];
+      Vm[i] = a.v[i];
+    }
   }
   for (int i = tid; i < 2 * F; i += nth) BN[i] = a.norm_mode != NORM_NONE ? a.bn[i] : 0.0f;
-  for (int i = tid; i < n_consts; i += nth) C[i] = a.consts[i];
+  for (int i = tid; i < n_consts; i += nth) Cc[i] = a.consts[i];
   for (int i = tid; i < K; i += nth) SC[G + i] = a.consts[2 * P + 2 * G + i];
+  RES[a.r_off_one * ld + tid] = 1.0f;
+  for (int u = tid; u < a.n_unit_table; u += nth) {
+    const EheUnit un = ehe_unit(a, u);
+    int* ut = UT + 8 * u;
+    ut[0] = un.uoff, ut[1] = un.nj, ut[2] = un.voff, ut[3] = un.nk;
+    ut[4] = un.pbase, ut[5] = un.pstride;
+  }
   __syncthreads();
+  if (tid == nth - 1) {  // the first step's bias corrections
+    MISC[2] = 1.0f - powf(a.b1, (float)a.t[0] + 1.0f);
+    MISC[3] = 1.0f - powf(a.b2, (float)a.t[0] + 1.0f);
+  }
+  if (a.norm_mode == NORM_STATIC) {
+    for (int k = tid; k < F; k += nth) {
+      BM[k] = BN[k];
+      BR[k] = rsqrtf(BN[F + k] + a.norm_eps);
+    }
+  }
 
-  const float* nlo = C;
-  const float* nspan = C + P;
-  const float* glo = C + 2 * P;
-  const float* gspan = C + 2 * P + G;
+  const float* nlo = Cc;
+  const float* nspan = Cc + P;
+  const float* glo = Cc + 2 * P;
+  const float* gspan = Cc + 2 * P + G;
+  const int row0 = rank * a.block_rows;  // this block's rows of a batch
+  const int mine = max(0, min(a.block_rows, B - row0));
+  const int n_units = ehe_n_units(a);
+  const int pp_first = tid < NP ? ehe_padded_index(a, tid) : 0;  // of the thread's first parameter
+  const int n_steps = a.n_epochs * a.n_batches;
   float t = (float)a.t[0];   // every thread carries the same step count
-  float last_loss = 0.0f;    // thread 0 only
+  float last_loss = 0.0f;    // warp 0 only
+  float epoch_loss = 0.0f;   // warp 0 only
+#ifdef EHE_STAMPS
+  long long stamp_acc[EHE_N_STAMPS] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+  const long long stamp_first = clock64();
+  long long stamp_last = stamp_first;
+#endif
 
-  for (int e = 0; e < a.n_epochs; ++e) {
-    float epoch_loss = 0.0f;  // thread 0 only
-    for (int ib = 0; ib < a.n_batches; ++ib) {
-      const int* idx = a.perm + (int64_t)e * a.n_rows + (int64_t)ib * B;
-
-      // ---- pre-pass: mask counts and the norm's batch mean ----------------
-      {
-        float cnt[EH_MAX_TARGETS];
-        float xs[W];
-#pragma unroll
-        for (int j = 0; j < EH_MAX_TARGETS; ++j) cnt[j] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < W; ++k) xs[k] = 0.0f;
-        for (int r = tid; r < B; r += nth) {
-          const int64_t row = idx[r];
-#pragma unroll
-          for (int j = 0; j < EH_MAX_TARGETS; ++j)
-            if (j < T) cnt[j] += a.mask[j][row];
-          if (a.norm_mode == NORM_TRAIN) {
-#pragma unroll
-            for (int k = 0; k < W; ++k)
-              if (k < F) xs[k] += a.x[row * F + k];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < EH_MAX_TARGETS; ++j)
-          if (j < T) RES[j * ld + tid] = cnt[j];
-#pragma unroll
-        for (int k = 0; k < W; ++k)
-          if (k < F) RES[(T + k) * ld + tid] = xs[k];
-      }
-      __syncthreads();
-      for (int j = tid; j < T + F; j += nth) {
-        if (j < T) {
-          const float s = ehe_column_sum(RES, j, nth, ld);
-          RED[j] = s;  // the raw count, for the validity flag below
-          NT[j] = fmaxf(s, 1.0f);
-        } else if (a.norm_mode == NORM_TRAIN) {
-          BM[j - T] = ehe_column_sum(RES, j, nth, ld) / (float)B;
-        }
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float total = 0.0f;
-        for (int j = 0; j < T; ++j) total += RED[j];
-        MISC[0] = total > 0.0f ? 1.0f : 0.0f;
-      }
-      if (a.norm_mode == NORM_TRAIN) {
-        // second pass: the biased variance around the batch mean
-        float vs[W];
-#pragma unroll
-        for (int k = 0; k < W; ++k) vs[k] = 0.0f;
-        for (int r = tid; r < B; r += nth) {
-          const int64_t row = idx[r];
-#pragma unroll
-          for (int k = 0; k < W; ++k) {
-            if (k < F) {
-              const float dv = a.x[row * F + k] - BM[k];
-              vs[k] += dv * dv;
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < W; ++k)
-          if (k < F) RES[k * ld + tid] = vs[k];
-        __syncthreads();
-        for (int k = tid; k < F; k += nth) {
-          BV[k] = ehe_column_sum(RES, k, nth, ld) / (float)B;
-          BR[k] = rsqrtf(BV[k] + a.norm_eps);
-        }
-      } else if (a.norm_mode == NORM_STATIC) {
-        for (int k = tid; k < F; k += nth) {
-          BM[k] = BN[k];
-          BR[k] = rsqrtf(BN[F + k] + a.norm_eps);
-        }
-      }
-      for (int i = tid; i < NP; i += nth) Gr[i] = 0.0f;
-      if (tid < G) {
-        const float s = ehe_sigmoid(Pm[a.p_off_g + tid]);
-        SC[tid] = glo[tid] + gspan[tid] * s;
-        DG[tid] = gspan[tid] * (s * (1.0f - s));
-      }
-      __syncthreads();
-
-      // ---- tiles: forward, loss, backward per row; gradient sums ----------
-      float loss_part = 0.0f;
-      for (int t0 = 0; t0 < B; t0 += nth) {
-        const int r = t0 + tid;
-        const int rows_here = min(nth, B - t0);
-        if (r < B) {
-          const int64_t row = idx[r];
-          float* res = RES + tid;
-          float h[W];
-#pragma unroll
-          for (int k = 0; k < W; ++k) h[k] = (k < F) ? a.x[row * F + k] : 0.0f;
-          if (a.norm_mode != NORM_NONE) {
-#pragma unroll
-            for (int k = 0; k < W; ++k) {
-              if (k < F) {
-                const float xh = (h[k] - BM[k]) * BR[k];
-                res[(a.r_off_xhat + k) * ld] = xh;
-                h[k] = xh * Pm[k] + Pm[F + k];
-              }
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < W; ++k)
-            if (k < F) res[(a.r_off_h[0] + k) * ld] = h[k];
-
-          ehe_mlp_forward<W>(a, Pm, h, res, ld);
-
-          // bound scaling of the neural outputs
-          float dsc[W];
-#pragma unroll
-          for (int j = 0; j < W; ++j) {
-            dsc[j] = 1.0f;
-            if (j < P && a.scale_nn_outputs) {
-              const float s = ehe_sigmoid(h[j]);
-              dsc[j] = nspan[j] * (s * (1.0f - s));
-              h[j] = nlo[j] + nspan[j] * s;
-            }
-          }
-
-          float av[EH_MAX_ARGS];
-#pragma unroll
-          for (int i = 0; i < EH_MAX_ARGS; ++i) {
-            float val = 0.0f;
-            if (i < a.n_args) {
-              const int id = a.arg_idx[i];
-              switch (a.arg_src[i]) {
-                case SRC_FORCING: {
-                  const float* col = a.forcing[0];
-#pragma unroll
-                  for (int f = 1; f < EH_MAX_FORCING; ++f) col = (f == id) ? a.forcing[f] : col;
-                  val = col[row];
-                  break;
-                }
-                case SRC_NEURAL: val = ehe_pick<W>(h, id); break;
-                case SRC_SCALAR: val = SC[id]; break;
-                default: val = a.arg_const[i]; break;
-              }
-            }
-            av[i] = val;
-          }
-          float out[EH_MAX_OUT];
-          float pd[EH_MAX_OUT][EH_MAX_ARGS];
-          ehe_form(a.form, av, out, pd);
-
-          // masked mse and its cotangent
-          float cot[EH_MAX_TARGETS];
-          float term = 0.0f;
-#pragma unroll
-          for (int j = 0; j < EH_MAX_TARGETS; ++j) {
-            cot[j] = 0.0f;
-            if (j < T) {
-              const float mk = a.mask[j][row];
-              const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-              const float diff = (pred - a.y[j][row]) * mk;
-              const float scale = a.agg_scale / NT[j];
-              term += scale * diff * diff;
-              cot[j] = (2.0f * a.agg_scale / NT[j]) * diff;
-            }
-          }
-          loss_part += term;
-
-          // cotangents of the neural outputs and the scaled globals
-          float dn[W];
-          float gg[EH_MAX_SCALARS];
-#pragma unroll
-          for (int j = 0; j < W; ++j) dn[j] = 0.0f;
-#pragma unroll
-          for (int j = 0; j < EH_MAX_SCALARS; ++j) gg[j] = 0.0f;
-#pragma unroll
-          for (int i = 0; i < EH_MAX_ARGS; ++i) {
-            if (i < a.n_args) {
-              const int src = a.arg_src[i];
-              const int id = a.arg_idx[i];
-              if (src == SRC_NEURAL || (src == SRC_SCALAR && id < G)) {
-                float c = 0.0f;
-#pragma unroll
-                for (int j = 0; j < EH_MAX_TARGETS; ++j) {
-                  if (j < T) {
-                    float part = 0.0f;
-#pragma unroll
-                    for (int o = 0; o < EH_MAX_OUT; ++o)
-                      part = (o == a.target_out[j]) ? pd[o][i] : part;
-                    c += cot[j] * part;
-                  }
-                }
-                if (src == SRC_NEURAL) {
-#pragma unroll
-                  for (int j = 0; j < W; ++j) dn[j] += (j == id) ? c : 0.0f;
-                } else {
-#pragma unroll
-                  for (int j = 0; j < EH_MAX_SCALARS; ++j) gg[j] += (j == id) ? c : 0.0f;
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < EH_MAX_SCALARS; ++j)
-            if (j < G) res[(a.r_off_g + j) * ld] = gg[j];
-
-          // backward through the MLP
-          float D[W];
-#pragma unroll
-          for (int j = 0; j < W; ++j) D[j] = (j < P) ? dn[j] * dsc[j] : 0.0f;
-          ehe_mlp_backward<W>(a, Pm, D, res, ld);
-        }
-        __syncthreads();
-
-        // one thread per parameter sums the tile's rows
-        for (int p = tid; p < NP; p += nth) {
-          float s;
-          if (p >= a.p_off_g) {
-            const float* u = RES + (a.r_off_g + (p - a.p_off_g)) * ld;
-            s = 0.0f;
-            for (int r2 = 0; r2 < rows_here; ++r2) s += u[r2];
-          } else {
-            s = ehe_param_tile_sum(a, RES, ld, p, rows_here);
-          }
-          Gr[p] += s;
-        }
-        __syncthreads();
-      }
-
-      // ---- batch loss, validity gate and the update -------------------------
-      RED[tid] = loss_part;
-      __syncthreads();
-      const float valid = MISC[0];
-      const float t_new = t + valid;
-      if (tid == 0 && valid > 0.0f) {
-        float bl = 0.0f;
-        for (int r2 = 0; r2 < nth; ++r2) bl += RED[r2];
-        epoch_loss += bl;
-      }
-      if (valid > 0.0f) {
-        const float tc = fmaxf(t_new, 1.0f);
-        const float bc1 = 1.0f - powf(a.b1, tc);
-        const float bc2 = 1.0f - powf(a.b2, tc);
-        for (int p = tid; p < NP; p += nth) {
-          float g = Gr[p];
-          if (p >= a.p_off_g) g = g * DG[p - a.p_off_g];
-          ehe_update(a, &Pm[p], &Mm[p], &Vm[p], g, bc1, bc2);
-        }
-        if (a.norm_mode == NORM_TRAIN) {
-          for (int k = tid; k < F; k += nth) {
-            BN[k] = a.one_minus_momentum * BN[k] + a.momentum * BM[k];
-            BN[F + k] = a.one_minus_momentum * BN[F + k] + a.momentum * BV[k];
-          }
-        }
-      }
-      t = t_new;
+  // Start the copies of step `step`'s row `row` into its stage.
+  auto stage_row = [&](int step, int64_t row) {
+    float* dst = ST + (step & 1) * cols * ld + tid;
+    for (int k = 0; k < F; ++k) ehe_cp_async4(dst + k * ld, a.x + row * F + k);
+    for (int f = 0; f < NF; ++f) ehe_cp_async4(dst + (F + f) * ld, a.forcing[f] + row);
+    for (int j = 0; j < T; ++j) {
+      ehe_cp_async4(dst + (F + NF + j) * ld, a.y[j] + row);
+      ehe_cp_async4(dst + (F + NF + T + j) * ld, a.mask[j] + row);
+    }
+  };
+  auto step_index = [&](int step) {
+    const int e = step / a.n_batches;
+    return a.perm + (int64_t)e * a.n_rows + (int64_t)(step - e * a.n_batches) * B + row0;
+  };
+  // The sum over every block's and warp's partial i of `width`, taken by a
+  // whole warp: lane e adds entries e, e + 32, ... of the blocks' partials in
+  // rank and warp order, then a shuffle tree; the same bits in every lane of
+  // every block.
+  auto exchanged = [&](float* part, int width, int i) {
+    float s = 0.0f;
+    for (int e = lane; e < C * nw; e += 32) {
+      const int rk = e / nw;
+      const float* p = C > 1 ? cluster.map_shared_rank(part, rk) : part;
+      s += p[(e - rk * nw) * width + i];
+    }
+    return ehe_warp_sum(s);
+  };
+  auto exchange_barrier = [&]() {
+    if (C > 1) {
+      cluster.sync();
+    } else {
       __syncthreads();
     }
-    last_loss = epoch_loss / (float)a.n_batches;
+  };
+
+  // A step's mask counts and, for the trainable norm, its predictors' sums:
+  // every warp's partials. They depend on the rows alone, not on the
+  // parameters, so step s + 1's are taken at the end of step s, off the chain.
+  auto stat_partials = [&](int step) {
+    const int* idx = step_index(step);
+    const float* st = ST + (step & 1) * cols * ld;
+    const int n = a.norm_mode == NORM_TRAIN ? NS : T;
+    for (int i = 0; i < n; ++i) {  // target i's mask, then predictor i - T
+      float v = 0.0f;
+      for (int r = tid; r < mine; r += nth) {
+        if (staged) {
+          v += st[(i < T ? F + NF + T + i : i - T) * ld + r];
+        } else {
+          const int64_t row = idx[r];
+          v += i < T ? a.mask[i][row] : a.x[row * F + (i - T)];
+        }
+      }
+      v = ehe_warp_sum(v);
+      if (lane == 0) XS1[warp * NS + i] = v;
+    }
+  };
+  // After an exchange barrier: step `step`'s counts, batch mean and validity
+  // (MISC[step & 1]) from the partials, a warp per sum.
+  auto stat_sums = [&](int step) {
+    for (int i = warp; i < NS; i += nw) {
+      if (i < T) {
+        const float v = exchanged(XS1, NS, i);
+        if (lane == 0) NT[i] = fmaxf(v, 1.0f);
+      } else if (a.norm_mode == NORM_TRAIN) {
+        const float v = exchanged(XS1, NS, i);
+        if (lane == 0) BM[i - T] = v / (float)B;
+      }
+    }
+    if (warp == nw - 1) {  // validity: any target counted
+      float total = 0.0f;
+      for (int j = 0; j < T; ++j) total += exchanged(XS1, NS, j);
+      if (lane == 0) MISC[step & 1] = total > 0.0f ? 1.0f : 0.0f;
+    }
+  };
+
+  if (staged && tid < mine) {
+    stage_row(0, step_index(0)[tid]);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  stat_partials(0);
+  exchange_barrier();
+  stat_sums(0);
+  exchange_barrier();
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int* idx = step_index(s);
+    const float* st = ST + (s & 1) * cols * ld;  // this step's staged rows, landed
+    const float valid = MISC[s & 1];
+    int64_t next_row = -1;
+    if (staged && s + 1 < n_steps && tid < mine) next_row = step_index(s + 1)[tid];
+    if (tid < G) {
+      const float sg = ehe_sigmoid_nb(Pm[a.pp_off_g + tid]);
+      SC[tid] = glo[tid] + gspan[tid] * sg;
+      DG[tid] = gspan[tid] * (sg * (1.0f - sg));
+    }
+    if (a.norm_mode == NORM_TRAIN) {
+      // second pass: the biased variance around the batch mean
+      for (int k = 0; k < F; ++k) {
+        const float mean = BM[k];
+        float v = 0.0f;
+        for (int r = tid; r < mine; r += nth) {
+          const float dv = (staged ? st[k * ld + r] : a.x[(int64_t)idx[r] * F + k]) - mean;
+          v += dv * dv;
+        }
+        v = ehe_warp_sum(v);
+        if (lane == 0) XS2[warp * F + k] = v;
+      }
+      exchange_barrier();
+      for (int k = warp; k < F; k += nw) {
+        const float v = exchanged(XS2, F, k) / (float)B;
+        if (lane == 0) {
+          BR[k] = rsqrtf(v + a.norm_eps);
+          if (valid > 0.0f) {  // the running statistics' EMA, gated like the update
+            BN[k] = a.one_minus_momentum * BN[k] + a.momentum * BM[k];
+            BN[F + k] = a.one_minus_momentum * BN[F + k] + a.momentum * v;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    EHE_STAMP(3);
+    // the next step's copies go out here, off the chain of barriers and sums
+    // above: scattered 4-byte copies keep the load-store unit busy for ~1.3
+    // cycles each, which the rows' arithmetic hides
+    if (next_row >= 0) {
+      stage_row(s + 1, next_row);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    EHE_STAMP(2);
+
+    // ---- tiles: forward, loss, backward per row; gradient sums ---------------
+    float loss_part = 0.0f;
+    if (mine == 0)
+      for (int p = tid; p < NP; p += nth) Gr[p] = 0.0f;
+    for (int t0 = 0; t0 < mine; t0 += nth) {
+      const int r = t0 + tid;
+      const int rows_here = min(nth, mine - t0);
+#ifndef EHE_CHAIN_ONLY
+      if (r < mine) {
+        const int64_t row = staged ? 0 : idx[r];
+        float* res = RES + tid;
+        float h[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float x = 0.0f;
+          if (k < F) {
+            x = staged ? st[k * ld + r] : a.x[row * F + k];
+            if (a.norm_mode != NORM_NONE) {
+              const float xh = (x - BM[k]) * BR[k];
+              res[(a.r_off_xhat + k) * ld] = xh;
+              x = xh * Pm[k] + Pm[F + k];
+            }
+            res[(a.r_off_h[0] + k) * ld] = x;
+          }
+          h[k] = x;
+        }
+
+        ehe_row_forward<W>(a, Pm, h, res, ld);
+
+        // From here on the row's small vectors (the network's P outputs, the
+        // G globals' cotangents) live in the row's column of the tile and are
+        // walked by loops of their own length: code unrolled to the kernel's
+        // width for them costs more in instruction fetch than it saves.
+        // Bound scaling of the neural outputs: the scaled value in place, its
+        // derivative beside it.
+        float* outv = res + a.r_off_out * ld;
+        float* dscv = res + a.r_off_dsc * ld;
+        for (int j = 0; j < P; ++j) {
+          float y = outv[j * ld];
+          float ds = 1.0f;
+          if (a.scale_nn_outputs) {
+            const float sg = ehe_sigmoid_nb(y);
+            ds = nspan[j] * (sg * (1.0f - sg));
+            y = nlo[j] + nspan[j] * sg;
+          }
+          outv[j * ld] = y;
+          dscv[j * ld] = ds;
+        }
+
+        float av[EH_MAX_ARGS];
+#pragma unroll
+        for (int i = 0; i < EH_MAX_ARGS; ++i) {
+          float val = 0.0f;
+          if (i < a.n_args) {
+            const int id = a.arg_idx[i];
+            switch (a.arg_src[i]) {
+              case SRC_FORCING: val = staged ? st[(F + id) * ld + r] : a.forcing[id][row]; break;
+              case SRC_NEURAL: val = outv[id * ld]; break;
+              case SRC_SCALAR: val = SC[id]; break;
+              default: val = a.arg_const[i]; break;
+            }
+          }
+          av[i] = val;
+        }
+        float out[EH_MAX_OUT];
+        float pd[EH_MAX_OUT][EH_MAX_ARGS];
+        ehe_form(a.form, av, out, pd);
+
+        // masked mse and its cotangent
+        float cot[EH_MAX_TARGETS];
+        float term = 0.0f;
+#pragma unroll
+        for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+          cot[j] = 0.0f;
+          if (j < T) {
+            const float mk = staged ? st[(F + NF + T + j) * ld + r] : a.mask[j][row];
+            const float yv = staged ? st[(F + NF + j) * ld + r] : a.y[j][row];
+            const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
+            const float diff = (pred - yv) * mk;
+            const float scale = a.agg_scale / NT[j];
+            term += scale * diff * diff;
+            cot[j] = (2.0f * a.agg_scale / NT[j]) * diff;
+          }
+        }
+        loss_part += term;
+        EHE_STAMP(4);
+
+        // cotangents of the neural outputs (gathered where the outputs were)
+        // and of the scaled globals
+        for (int j = 0; j < P; ++j) outv[j * ld] = 0.0f;
+        for (int j = 0; j < G; ++j) res[(a.r_off_g + j) * ld] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < EH_MAX_ARGS; ++i) {
+          if (i < a.n_args) {
+            const int src = a.arg_src[i];
+            const int id = a.arg_idx[i];
+            if (src == SRC_NEURAL || (src == SRC_SCALAR && id < G)) {
+              float c = 0.0f;
+#pragma unroll
+              for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+                if (j < T) {
+                  float part = 0.0f;
+#pragma unroll
+                  for (int o = 0; o < EH_MAX_OUT; ++o)
+                    part = (o == a.target_out[j]) ? pd[o][i] : part;
+                  c += cot[j] * part;
+                }
+              }
+              float* slot = src == SRC_NEURAL ? outv + id * ld : res + (a.r_off_g + id) * ld;
+              *slot += c;
+            }
+          }
+        }
+        // the last layer's pre-activation cotangent, then backward through the MLP
+        {
+          float* zd = res + a.r_off_d[L - 1] * ld;
+          for (int j = 0; j < P; ++j) zd[j * ld] = (outv[j * ld] * dscv[j * ld]) * zd[j * ld];
+        }
+        ehe_row_backward<W>(a, Pm, res, ld);
+        EHE_STAMP(5);
+      }
+#endif
+      __syncthreads();
+
+      // a warp per unit of 4 x 4 parameters; its lanes split the tile's rows
+      for (int u = warp; u < n_units; u += nw) {
+        EheUnit un;
+        if (u < a.n_unit_table) {
+          const int* ut = UT + 8 * u;
+          un.uoff = ut[0], un.nj = ut[1], un.voff = ut[2], un.nk = ut[3];
+          un.pbase = ut[4], un.pstride = ut[5];
+        } else {
+          un = ehe_unit(a, u);
+        }
+        const float* U = RES + un.uoff * ld;
+        const float* V = RES + un.voff * ld;
+        const int u1 = min(1, un.nj - 1) * ld, u2 = min(2, un.nj - 1) * ld,
+                  u3 = min(3, un.nj - 1) * ld;
+        const int v1 = min(1, un.nk - 1) * ld, v2 = min(2, un.nk - 1) * ld,
+                  v3 = min(3, un.nk - 1) * ld;
+        float acc[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+#ifndef EHE_CHAIN_ONLY
+#pragma unroll 4
+        for (int r2 = lane; r2 < rows_here; r2 += 32) {
+          const float uu[4] = {U[r2], U[u1 + r2], U[u2 + r2], U[u3 + r2]};
+          const float vv[4] = {V[r2], V[v1 + r2], V[v2 + r2], V[v3 + r2]};
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = fmaf(uu[i >> 2], vv[i & 3], acc[i]);
+        }
+#endif
+        ehe_fold<8>(acc, (lane & 16) != 0, 16);
+        ehe_fold<4>(acc, (lane & 8) != 0, 8);
+        ehe_fold<2>(acc, (lane & 4) != 0, 4);
+        ehe_fold<1>(acc, (lane & 2) != 0, 2);
+        const float total = acc[0] + __shfl_xor_sync(0xffffffffu, acc[0], 1);
+        const int ia = (lane >> 3) & 3;  // this lane's sum is u_ia * v_ib
+        const int ib = (lane >> 1) & 3;
+        if ((lane & 1) == 0 && ia < un.nj && ib < un.nk) {
+          const int p = un.pbase + ia * un.pstride + ib;
+          Gr[p] = t0 == 0 ? total : Gr[p] + total;
+        }
+      }
+      if (t0 + nth < mine) __syncthreads();  // the next tile overwrites the residuals
+      EHE_STAMP(6);
+    }
+
+    // ---- the next step's counts and mean; batch loss, validity gate, update ----
+    if (s + 1 < n_steps) {
+      if (staged) asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // its rows have landed
+      EHE_STAMP(0);
+      stat_partials(s + 1);
+      EHE_STAMP(1);
+    }
+    if (tid == nth - 1) {
+      // Adam's bias corrections for the next step if its batch is valid (they
+      // are not read if it is not), off that step's chain and in the warp
+      // that has the fewest units: the step count after this step, plus one,
+      // is never below the clamp at 1
+      float* bc = MISC + 2 + 2 * ((s + 1) & 1);
+      const float tc = t + valid + 1.0f;
+      bc[0] = 1.0f - powf(a.b1, tc);
+      bc[1] = 1.0f - powf(a.b2, tc);
+    }
+    {
+      const float v = ehe_warp_sum(loss_part);
+      if (lane == 0) XL[warp] = v;
+    }
+    exchange_barrier();
+    if (s + 1 < n_steps) stat_sums(s + 1);
+    if (warp == 0 && valid > 0.0f) epoch_loss += exchanged(XL, 1, 0);
+    if (valid > 0.0f) {
+      const float bc1 = MISC[2 + 2 * (s & 1)];
+      const float bc2 = MISC[3 + 2 * (s & 1)];
+      for (int p = tid; p < NP; p += nth) {
+        float g = 0.0f;
+        for (int rk = 0; rk < C; ++rk) g += (C > 1 ? cluster.map_shared_rank(Gr, rk) : Gr)[p];
+        if (p >= a.p_off_g) g = g * DG[p - a.p_off_g];
+        const int pp = p == tid ? pp_first : ehe_padded_index(a, p);
+        ehe_update(a, &Pm[pp], &Mm[p], &Vm[p], g, bc1, bc2);
+      }
+    }
+    t += valid;
+    // A cluster's blocks must all have read this step's partials before any
+    // writes the next step's. With a trainable norm the next step's variance
+    // barrier sees to that (the partials it guards are written after it), and
+    // the block's own barrier is enough here.
+    if (a.norm_mode == NORM_TRAIN) {
+      __syncthreads();
+    } else {
+      exchange_barrier();
+    }
+    EHE_STAMP(7);
+    if (s % a.n_batches == a.n_batches - 1) {
+      last_loss = epoch_loss / (float)a.n_batches;
+      epoch_loss = 0.0f;
+    }
   }
 
-  for (int i = tid; i < NP; i += nth) {
-    a.params[i] = Pm[i];
-    a.m[i] = Mm[i];
-    a.v[i] = Vm[i];
+  if (rank == 0) {
+    for (int i = tid; i < NP; i += nth) {
+      a.params[i] = Pm[ehe_padded_index(a, i)];
+      if (a.moments_shared) {
+        a.m[i] = Mm[i];
+        a.v[i] = Vm[i];
+      }
+    }
+    if (a.norm_mode != NORM_NONE)
+      for (int i = tid; i < 2 * F; i += nth) a.bn[i] = BN[i];
+    if (tid == 0) {
+      a.t[0] = (int)lrintf(t);
+      a.loss[0] = last_loss;
+#ifdef EHE_STAMPS
+      if (a.stamps != nullptr) {
+        stamp_acc[EHE_N_STAMPS - 1] = clock64() - stamp_first;
+        for (int k = 0; k < EHE_N_STAMPS; ++k) a.stamps[k] = stamp_acc[k];
+      }
+#endif
+    }
   }
-  if (a.norm_mode != NORM_NONE)
-    for (int i = tid; i < 2 * F; i += nth) a.bn[i] = BN[i];
-  if (tid == 0) {
-    a.t[0] = (int)lrintf(t);
-    a.loss[0] = last_loss;
-  }
+  if (C > 1) cluster.sync();  // no block leaves while another may read its partials
 }
 
 extern "C" int eh_fused_epoch_args_size(void) {
@@ -437,13 +894,16 @@ static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
   const int F = a->dims[0];
   const int P = a->dims[a->n_layers];
   const int G = a->n_globals, K = a->n_fixed, T = a->n_targets;
-  const int res = a->res_floats > F + T ? a->res_floats : F + T;
-  return (size_t)4 * a->n_params + 2 * F + (2 * P + 2 * G + K) + 2 * G + K + 3 * F + T + 4 +
-         a->tile_rows + (size_t)res * (a->tile_rows + 1);
+  const int NW = a->tile_rows / 32;
+  const int COLS = F + a->n_forcing + 2 * T;
+  return (size_t)a->n_padded + (1 + 2 * a->moments_shared) * a->n_params + NW * (1 + T + 2 * F) + 2 * F +
+         (2 * P + 2 * G + K) + 2 * G + K + 2 * F + T + 8 + 8 * a->n_unit_table +
+         (size_t)a->tile_rows * (a->res_floats + a->stages * COLS);
 }
 
 template <int W>
 static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s) {
+  if (args->tile_rows > EHE_MAX_THREADS(W)) return (int)cudaErrorInvalidValue;
   // allow the full 227 KB once per width: setting the attribute at every
   // launch would cost a host call that may wait for the device
   static bool allowed = false;
@@ -453,7 +913,21 @@ static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s)
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  eh_fused_epoch_kernel<W><<<1, args->tile_rows, smem, s>>>(*args);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(args->cluster);
+  cfg.blockDim = dim3(args->tile_rows);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = args->cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that cannot be co-scheduled is refused here or by the check below
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, eh_fused_epoch_kernel<W>, *args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -463,10 +937,15 @@ extern "C" int eh_fused_epoch(const EhFusedEpochArgs* args, int width, void* str
   if (args->n_epochs <= 0 || args->n_batches <= 0) return 0;
   const size_t smem = ehe_smem_floats(args) * sizeof(float);
   const int tr = args->tile_rows;
+  const int c = args->cluster;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
       args->n_args > EH_MAX_ARGS || args->n_targets < 1 || args->n_targets > EH_MAX_TARGETS ||
-      args->n_globals + args->n_fixed > EH_MAX_SCALARS ||
-      (tr != 32 && tr != 64 && tr != 128)) {
+      args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
+      tr < 32 || tr % 32 != 0 || (c != 1 && c != 2 && c != 4 && c != 8) ||
+      (int64_t)args->block_rows * c < args->batch || args->n_padded % 4 != 0 ||
+      args->n_unit_table < 0 ||
+      (args->moments_shared != 1 && (args->moments_shared != 0 || c != 1)) ||
+      (args->stages != 0 && (args->stages != 2 || tr < args->block_rows))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -11,19 +11,29 @@
 // index. What this card's kernel does rely on is checked here instead:
 //   * eh_prim_site_gather: a per-site value read through the site index and
 //     broadcast over the site's time steps (-1 is a padding slot: 0);
-//   * eh_prim_site_reduce: a per-site sum over time, in time order;
+//   * eh_prim_site_reduce: a per-site sum over time, in a fixed tree order;
 //   * eh_prim_site_update: a masked update that writes the indexed sites and
 //     leaves every other site's bits as they were;
-//   * eh_prim_site_chain: gather -> multiply -> reduce over time ->
-//     accumulate into the site's slot;
+//   * eh_prim_site_chain: gather -> multiply -> reduce over time (the same
+//     tree) -> accumulate into the site's slot;
 //   * eh_prim_block_sum: the sum of per-block partial rows in block order,
 //     the same bits on every run.
 // The gather and the update must be exact; the sums differ from another
-// summation order by rounding only. eh_prim_site_reduce also serves the
-// training path: the per-site counts of valid targets come from it.
+// summation order by rounding only (a count of whole numbers is exact in
+// any order). eh_prim_site_reduce also serves the training path: the
+// per-site counts of valid targets come from it.
 //
 // All are bound by bytes: each reads its input once and does one add or
-// multiply per element.
+// multiply per element, so what matters is that every load of a warp
+// covers whole 128-byte lines. A site's row is n_obs floats, and a thread
+// that walked a row alone would put its warp's 32 loads on 32 different
+// lines. So a row goes to a group of lanes (a power of two chosen from
+// n_obs, 16 lanes for 64 observations), neighbouring lanes read neighbouring
+// 16-byte pieces (4-byte ones where n_obs is no multiple of 4 or the base is
+// not aligned), neighbouring groups neighbouring rows, and a shuffle tree of
+// fixed shape adds the group's partials; one lane stores. A block of 256
+// threads takes 256 / lanes sites, which at 8,000 sites x 64 is 500 blocks
+// for the card's 132 multiprocessors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,13 +46,34 @@ __global__ void eh_prim_site_gather_kernel(const float* vals, const int* idx, fl
   out[i] = s >= 0 ? vals[s] : 0.0f;
 }
 
-__global__ void eh_prim_site_reduce_kernel(const float* in, float* out, int n_slots, int n_obs) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_slots) return;
-  const float* row = in + (int64_t)j * n_obs;
+// The sum over row[0 .. n_obs) times v, taken by a group of `lanes` lanes
+// (a power of two, the group aligned in its warp): lane g of the group adds
+// elements g, g + lanes, ... (four at a time with `vec`), then a shuffle tree
+// over the group. Every lane of the warp must call it; every lane of a group
+// returns the group's sum.
+__device__ __forceinline__ float eh_group_sum(const float* row, int n_obs, int lanes, int g,
+                                              bool vec, float v) {
   float acc = 0.0f;
-  for (int t = 0; t < n_obs; ++t) acc += row[t];
-  out[j] = acc;
+  if (vec) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    for (int t = g; t < n_obs / 4; t += lanes) {
+      const float4 q = row4[t];
+      acc += (v * q.x + v * q.y) + (v * q.z + v * q.w);
+    }
+  } else {
+    for (int t = g; t < n_obs; t += lanes) acc += v * row[t];
+  }
+  for (int off = lanes >> 1; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+__global__ void eh_prim_site_reduce_kernel(const float* in, float* out, int n_slots, int n_obs,
+                                           int lanes, int vec) {
+  const int64_t thread = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t j = thread / lanes;
+  const int64_t row = j < n_slots ? j : n_slots - 1;  // a tail lane repeats the last row
+  const float sum = eh_group_sum(in + row * n_obs, n_obs, lanes, (int)(thread % lanes), vec, 1.0f);
+  if (j < n_slots && thread % lanes == 0) out[j] = sum;
 }
 
 __global__ void eh_prim_site_update_kernel(float* vals, const int* idx, const float* fresh,
@@ -54,16 +85,14 @@ __global__ void eh_prim_site_update_kernel(float* vals, const int* idx, const fl
 }
 
 __global__ void eh_prim_site_chain_kernel(const float* vals, const int* idx, const float* x,
-                                          float* acc, int n_slots, int n_obs) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_slots) return;
-  const int s = idx[j];
-  if (s < 0) return;
-  const float v = vals[s];
-  const float* row = x + (int64_t)j * n_obs;
-  float sum = 0.0f;
-  for (int t = 0; t < n_obs; ++t) sum += v * row[t];
-  acc[s] += sum;
+                                          float* acc, int n_slots, int n_obs, int lanes, int vec) {
+  const int64_t thread = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t j = thread / lanes;
+  const int64_t row = j < n_slots ? j : n_slots - 1;
+  const int s = idx[row];
+  const float v = s >= 0 ? vals[s] : 0.0f;
+  const float sum = eh_group_sum(x + row * n_obs, n_obs, lanes, (int)(thread % lanes), vec, v);
+  if (j < n_slots && s >= 0 && thread % lanes == 0) acc[s] += sum;
 }
 
 __global__ void eh_prim_block_sum_kernel(const float* partials, float* out, int n_blocks,
@@ -77,6 +106,16 @@ __global__ void eh_prim_block_sum_kernel(const float* partials, float* out, int 
 
 static int blocks_for(int64_t n) { return (int)((n + 255) / 256); }
 
+// Lanes that share a row of n_obs floats, and whether they read 16 bytes at a
+// time: a power of two up to a warp, one load a lane where the row allows.
+static int lanes_for(const float* base, int n_obs, int* vec) {
+  *vec = n_obs % 4 == 0 && ((uintptr_t)base & 15) == 0;
+  const int pieces = *vec ? n_obs / 4 : n_obs;
+  int lanes = 1;
+  while (lanes < 32 && lanes < pieces) lanes *= 2;
+  return lanes;
+}
+
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int eh_prim_site_gather(const float* vals, const int* idx, float* out, int n_slots,
                                    int n_obs, void* stream) {
@@ -89,8 +128,10 @@ extern "C" int eh_prim_site_gather(const float* vals, const int* idx, float* out
 extern "C" int eh_prim_site_reduce(const float* in, float* out, int n_slots, int n_obs,
                                    void* stream) {
   if (n_slots <= 0) return 0;
-  eh_prim_site_reduce_kernel<<<blocks_for(n_slots), 256, 0, (cudaStream_t)stream>>>(
-      in, out, n_slots, n_obs);
+  int vec;
+  const int lanes = lanes_for(in, n_obs, &vec);
+  eh_prim_site_reduce_kernel<<<blocks_for((int64_t)n_slots * lanes), 256, 0,
+                               (cudaStream_t)stream>>>(in, out, n_slots, n_obs, lanes, vec);
   return (int)cudaGetLastError();
 }
 
@@ -105,8 +146,11 @@ extern "C" int eh_prim_site_update(float* vals, const int* idx, const float* fre
 extern "C" int eh_prim_site_chain(const float* vals, const int* idx, const float* x, float* acc,
                                   int n_slots, int n_obs, void* stream) {
   if (n_slots <= 0) return 0;
-  eh_prim_site_chain_kernel<<<blocks_for(n_slots), 256, 0, (cudaStream_t)stream>>>(
-      vals, idx, x, acc, n_slots, n_obs);
+  int vec;
+  const int lanes = lanes_for(x, n_obs, &vec);
+  eh_prim_site_chain_kernel<<<blocks_for((int64_t)n_slots * lanes), 256, 0,
+                              (cudaStream_t)stream>>>(vals, idx, x, acc, n_slots, n_obs, lanes,
+                                                      vec);
   return (int)cudaGetLastError();
 }
 

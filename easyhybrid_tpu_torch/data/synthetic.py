@@ -52,6 +52,55 @@ def rbq10_columns(
     )
 
 
+def linear_columns(n: int = 1000, *, seed: int = 123) -> Dict[str, np.ndarray]:
+    """``obs = a_syn(x2, x3) * x1 + 2 + noise`` with
+    ``a_syn = exp(-5 (x2 - 0.7)^2) + x3 / 10``, as a dict of columns; ``seqID``
+    numbers runs of 10 rows."""
+    rng = np.random.default_rng(seed)
+    x1, x2, x3 = rng.random((3, n), dtype=np.float32)
+    a_syn = np.exp(-5.0 * (x2 - 0.7) ** 2) + x3 / 10.0
+    obs = a_syn * x1 + 2.0 + 0.1 * rng.random(n, dtype=np.float32)
+    return dict(
+        x1=x1, x2=x2, x3=x3,
+        a_syn=a_syn.astype(np.float32),
+        obs=obs.astype(np.float32),
+        pred_syn=obs.astype(np.float32),
+        seqID=np.repeat(np.arange(1, n // 10 + 1), 10)[:n],
+    )
+
+
+def linear_2outputs_columns(n: int = 1000, *, seed: int = 123) -> Dict[str, np.ndarray]:
+    """The two-target dynamic variant: ``a_dyn`` is the cumulative sum of
+    ``x2 - x3`` within each run of 10 rows, ``obs_dyn1 = a_dyn * x1 + 2`` and
+    ``obs_dyn2 = 0.5 * a_dyn * x2``."""
+    rng = np.random.default_rng(seed)
+    x1, x2, x3 = rng.random((3, n), dtype=np.float32)
+    seq_id = np.repeat(np.arange(1, n // 10 + 1), 10)[:n]
+    a_dyn = np.zeros(n, np.float32)
+    for sid in np.unique(seq_id):
+        m = seq_id == sid
+        a_dyn[m] = np.cumsum(x2[m] - x3[m])
+    return dict(
+        x1=x1, x2=x2, x3=x3, seqID=seq_id, a_dyn_syn=a_dyn,
+        obs_dyn1=(a_dyn * x1 + 2.0).astype(np.float32),
+        obs_dyn2=(0.5 * a_dyn * x2).astype(np.float32),
+    )
+
+
+def gen_linear_data(n: int = 1000, *, seed: int = 123):
+    """:func:`linear_columns` as a pandas DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(linear_columns(n, seed=seed))
+
+
+def gen_linear_data_2outputs(n: int = 1000, *, seed: int = 123):
+    """:func:`linear_2outputs_columns` as a pandas DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(linear_2outputs_columns(n, seed=seed))
+
+
 def gen_rbq10_data(n: int = 20_000, **kwargs):
     """:func:`rbq10_columns` as a pandas DataFrame."""
     import pandas as pd

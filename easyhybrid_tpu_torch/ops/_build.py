@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["find_nvcc", "build_library", "load_library", "BuildResult"]
+__all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "BuildResult"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE_DIR / "csrc"
@@ -143,6 +143,32 @@ def build_library() -> BuildResult:
     log = "".join(f"== {name}\n{text}" for name, (_, text) in compiled.items())
     return BuildResult(lib_path, time.perf_counter() - t0, log,
                        {name: sec for name, (sec, _) in compiled.items()})
+
+
+def build_variant(source: str, defines: Tuple[str, ...]) -> BuildResult:
+    """One source of ``csrc/`` compiled alone with extra ``-D`` flags into a
+    library of its own, beside the package's: a measuring build of one kernel
+    (its stage stamps, its arithmetic stubbed out). Reused when it exists."""
+    src = _SRC_DIR / source
+    digest = hashlib.sha256()
+    for f in [src] + sorted(_SRC_DIR.glob("*.cuh")):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    lib_path = _BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+    if lib_path.is_file():
+        return BuildResult(lib_path, 0.0, "", {})
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp_path), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp_path.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp_path, lib_path)
+    return BuildResult(lib_path, seconds, proc.stdout, {source: seconds})
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,6 +12,16 @@ optax ``adam`` / ``sgd`` update. Parameters, moments, the step counter and
 the BatchNorm statistics are read once, kept in shared memory, and written
 back once.
 
+A launch is a chain of dependent steps, so the kernel is laid out for
+latency, and the plan chooses how per batch size
+(:meth:`FusedEpochPlan.geometry`, a pure function): one row a thread with
+the whole batch in flight (up to 512 threads a block), a thread-block
+cluster of up to 8 blocks over the batch's rows when one block cannot hold
+them, the step's rows staged in shared memory by asynchronous copies and the
+next step's prefetched, tiles walked serially only for a batch or a model
+beyond that. Every sum has a fixed tree shape, so two runs give the same
+bits. ``csrc/fused_epoch.cu`` says what each choice is for.
+
 Everything works on one packed layout (:class:`FusedEpochPlan`):
 
 * ``params``: ``[norm scale (F), norm bias (F)]`` when the model has an
@@ -81,6 +91,14 @@ __all__ = [
 MAX_TARGETS = 4
 MAX_SMEM_BYTES = 227 * 1024
 _TILE_ROWS = (128, 64, 32)
+# threads a block of kernel 2 may have, by the kernel's width (EHE_MAX_THREADS
+# in csrc/fused_epoch.cu), and the largest thread-block cluster it is given
+_MAX_THREADS = {16: 512, 32: 512, 64: 256}
+MAX_CLUSTER = 8
+# rows a block takes while the cluster has room for more blocks: at the main
+# shape two warps a scheduler on two multiprocessors ran a step faster than
+# four on one
+_BLOCK_ROWS = 256
 _NORM_NONE, _NORM_STATIC, _NORM_TRAIN = 0, 1, 2
 _OPTS = {"sgd": 0, "adam": 1}
 SHUFFLES = (True, False, "batches")
@@ -110,21 +128,77 @@ def _layout_sizes(model) -> Tuple[int, int]:
     return n_params, res
 
 
-def _smem_floats(n_params, f, n_consts, g, k, t, tile_rows, res) -> int:
-    """Shared-memory floats of one launch; the launcher computes the same."""
+def _envelope_floats(n_params, f, n_consts, g, k, t, tile_rows, res) -> int:
+    """The floats that decide the envelope: the state four times over (the
+    parameters, two moments, a gradient), the small vectors and a tile of
+    ``tile_rows`` residual rows with a pad column."""
     return (4 * n_params + 2 * f + n_consts + 2 * g + k + 3 * f + t + 4 + tile_rows
             + max(res, f + t) * (tile_rows + 1))
 
 
 def _tile_rows(model) -> Optional[int]:
+    """The envelope's tile: the largest of 128, 64 and 32 residual rows that
+    fit beside the state, or None when not even 32 do. It decides which
+    models kernel 2 takes (and kernel 3 the others); the rows a block really
+    takes at once are chosen per batch by :meth:`FusedEpochPlan.geometry`."""
     n_params, res = _layout_sizes(model)
     f = model.nn.in_dim
     p, g, k = model.nn.out_dim, len(model.global_param_names), len(model.fixed_param_names)
     t = len(model.targets)
     for rows in _TILE_ROWS:
-        if 4 * _smem_floats(n_params, f, 2 * p + 2 * g + k, g, k, t, rows, res) <= MAX_SMEM_BYTES:
+        if 4 * _envelope_floats(n_params, f, 2 * p + 2 * g + k, g, k, t, rows,
+                                res) <= MAX_SMEM_BYTES:
             return rows
     return None
+
+
+_UNIT_TABLE = 128  # gradient units the kernel describes once a launch, 8 ints each
+
+
+def gradient_units(dims, has_norm: bool, n_globals: int) -> int:
+    """Units the kernel cuts a step's gradient sum into (``ehe_n_units`` in
+    csrc/fused_epoch.cu): every layer's 4 x 4 weight blocks and, per four
+    outputs, a bias block; the norm's scales one by one and its biases by
+    four; the globals by four."""
+    def by4(n):
+        return -(-n // 4)
+
+    n = sum(by4(dims[i + 1]) * (by4(dims[i]) + 1) for i in range(len(dims) - 1))
+    if has_norm:
+        n += dims[0] + by4(dims[0])
+    return n + by4(n_globals)
+
+
+def _smem_floats(*, n_padded, n_params, f, p, g, k, t, n_forcing, threads, res, stages,
+                 moments_shared, n_unit_table) -> int:
+    """Shared-memory floats of one launch of ``threads`` threads;
+    ``ehe_smem_floats`` in csrc/fused_epoch.cu computes the same."""
+    nw = threads // 32
+    cols = f + n_forcing + 2 * t
+    return (n_padded + (1 + 2 * moments_shared) * n_params + nw * (1 + t + 2 * f) + 2 * f + (2 * p + 2 * g + k)
+            + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + threads * (res + stages * cols))
+
+
+class Geometry(NamedTuple):
+    """How one launch of kernel 2 is cut: ``cluster`` blocks of ``threads``
+    threads share a batch's rows, ``block_rows`` each; a block takes ``tile``
+    rows at once (one a thread) and walks ``tiles`` of them a step; with
+    ``stages`` 2 a step's rows are staged in shared memory and the next
+    step's prefetched, with 0 they are read in place. The moments live in
+    shared memory beside the parameters unless ``moments_shared`` is 0: then
+    the state leaves no room for 32 rows and one block updates them in
+    device memory."""
+
+    threads: int
+    tile: int
+    stages: int
+    cluster: int
+    block_rows: int
+    moments_shared: int = 1
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.block_rows // self.tile)
 
 
 def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
@@ -137,8 +211,12 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     ``training_loss="mse"`` with ``agg`` sum or mean and no ``extra_loss``;
     a single ``adam`` spec or an ``sgd`` spec without momentum; parameters,
     moments and a 32-row tile of residuals within the 227 KB of shared
-    memory. Any batch size and any number of epochs per call."""
-    del tensors  # every batch size fits: the kernel tiles the batch
+    memory (:func:`_tile_rows`). Any batch size and any number of epochs
+    per call: the plan picks threads, tile, stages and cluster for the batch
+    (:meth:`FusedEpochPlan.geometry`), and where the padded parameter rows
+    would push a model near the limit out, its moments stay in device
+    memory instead."""
+    del tensors  # every batch size fits: the plan's geometry follows the batch
     reason = fused_forward_unsupported_reason(model, training=True)
     if reason is not None:
         return reason
@@ -246,6 +324,20 @@ class _Args(ctypes.Structure):
         ("r_off_g", ctypes.c_int),
         ("r_off_h", ctypes.c_int * MAX_LAYERS),
         ("r_off_d", ctypes.c_int * MAX_LAYERS),
+        ("r_off_out", ctypes.c_int),
+        ("r_off_dsc", ctypes.c_int),
+        ("r_off_one", ctypes.c_int),
+        ("n_forcing", ctypes.c_int),
+        ("n_padded", ctypes.c_int),
+        ("pp_off_w", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_b", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_g", ctypes.c_int),
+        ("block_rows", ctypes.c_int),
+        ("stages", ctypes.c_int),
+        ("cluster", ctypes.c_int),
+        ("moments_shared", ctypes.c_int),
+        ("n_unit_table", ctypes.c_int),
+        ("stamps", ctypes.c_void_p),
     ]
 
 
@@ -298,6 +390,27 @@ def param_offsets(dims, has_norm: bool) -> Dict[str, Any]:
     return dict(p_w=p_w, p_b=p_b, p_g=off)
 
 
+def padded_offsets(dims, has_norm: bool, n_globals: int) -> Dict[str, Any]:
+    """The layout kernel 2 keeps its parameters in: the packed order with
+    every weight row padded to a multiple of 4 floats and every weight matrix
+    starting on a multiple of 4, so that a row is read 16 bytes at a time.
+    Offsets of every layer's weight (``pp_w``) and bias (``pp_b``), of the
+    first global (``pp_g``) and the padded size (``n_padded``, a multiple
+    of 4)."""
+    def up4(n):
+        return -(-n // 4) * 4
+
+    off = 2 * dims[0] if has_norm else 0
+    pp_w, pp_b = [], []
+    for i in range(len(dims) - 1):
+        off = up4(off)
+        pp_w.append(off)
+        off += dims[i + 1] * up4(dims[i])
+        pp_b.append(off)
+        off += dims[i + 1]
+    return dict(pp_w=pp_w, pp_b=pp_b, pp_g=off, n_padded=up4(off + n_globals))
+
+
 def fill_common_args(a, plan) -> None:
     """Set the fields every training kernel's argument struct has: the norm
     mode, the kernel form and its argument sources, the targets and the
@@ -347,10 +460,59 @@ class FusedEpochPlan(PackedLayout):
     opt_name: str
     hyper: Tuple[Tuple[str, float], ...]
     width: int
-    tile_rows: int
-    res_floats: int
+    tile_rows: int  # the envelope's tile (kernel 5 cuts its site chunks by it)
+    res_floats: int  # floats a row keeps for the backward
     loss: str = "mse"
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
+    cluster: int = 0  # kernel 2's cluster size when set (a measurement's), else by the batch
+
+    @property
+    def tile_floats(self) -> int:
+        """Floats a row has in kernel 2's tile: the backward's residuals,
+        the network's outputs, the bound scaling's derivative, and 1."""
+        return self.res_floats + 2 * self.dims[-1] + 1
+
+    @property
+    def n_unit_table(self) -> int:
+        return min(_UNIT_TABLE,
+                   gradient_units(self.dims, self.has_norm, len(self.global_names)))
+
+    def smem_bytes(self, threads: int, stages: int, moments_shared: int) -> int:
+        """Shared memory of one launch of kernel 2 with ``threads`` threads."""
+        return 4 * _smem_floats(
+            n_padded=padded_offsets(self.dims, self.has_norm, len(self.global_names))["n_padded"],
+            n_params=self.n_params, f=self.dims[0], p=self.dims[-1], g=len(self.global_names),
+            k=len(self.fixed_names), t=len(self.target_names),
+            n_forcing=len(self.forcing_names), threads=threads, res=self.tile_floats,
+            stages=stages, moments_shared=moments_shared, n_unit_table=self.n_unit_table)
+
+    def geometry(self, batch: int) -> Geometry:
+        """How kernel 2 cuts a launch over batches of ``batch`` rows: a pure
+        function of the plan and the batch. One row a thread; blocks of up to
+        ``_BLOCK_ROWS`` rows while the cluster (a power of two up to
+        ``MAX_CLUSTER``) has room, then of as many as the width's registers
+        and the shared memory beside the state allow; rows staged and
+        prefetched where a block holds its rows at once and the two stages
+        fit. A batch beyond that walks tiles and reads its rows in place."""
+        def fits(threads, stages, shared):
+            return self.smem_bytes(threads, stages, shared) <= MAX_SMEM_BYTES
+
+        shared = int(fits(32, 0, 1))
+        most = _MAX_THREADS[self.width]
+        while most > 32 and not fits(most, 0, shared):
+            most -= 32
+        if not fits(most, 0, shared):
+            raise ValueError("the model's parameters and 32 residual rows exceed the kernel's "
+                             f"{MAX_SMEM_BYTES // 1024} KB of shared memory")
+        cluster = self.cluster if shared else 1
+        if not cluster:
+            cluster = 1
+            while cluster < MAX_CLUSTER and cluster * min(most, _BLOCK_ROWS) < batch:
+                cluster *= 2
+        block_rows = -(-batch // cluster)
+        threads = min(most, -(-block_rows // 32) * 32)
+        stages = 2 if threads >= block_rows and fits(threads, 2, shared) else 0
+        return Geometry(threads, threads, stages, cluster, block_rows, shared)
 
     @property
     def n_features(self) -> int:
@@ -394,11 +556,20 @@ class FusedEpochPlan(PackedLayout):
         a.p_off_b[: len(o["p_b"])] = o["p_b"]
         a.p_off_g = o["p_g"]
         a.agg_scale = self.agg_scale
-        a.tile_rows = self.tile_rows
-        a.res_floats = self.res_floats
+        # the backward's residuals, then the network's outputs, the bound scaling's
+        # derivative and a feature of ones
+        a.res_floats = self.tile_floats
         a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]
         a.r_off_h[: len(o["r_h"])] = o["r_h"]
         a.r_off_d[: len(o["r_d"])] = o["r_d"]
+        a.r_off_out, a.r_off_dsc = self.res_floats, self.res_floats + dims[-1]
+        a.r_off_one = self.res_floats + 2 * dims[-1]
+        a.n_forcing = len(self.forcing_names)
+        pp = padded_offsets(dims, self.has_norm, len(self.global_names))
+        a.pp_off_w[: len(pp["pp_w"])] = pp["pp_w"]
+        a.pp_off_b[: len(pp["pp_b"])] = pp["pp_b"]
+        a.pp_off_g, a.n_padded = pp["pp_g"], pp["n_padded"]
+        a.n_unit_table = self.n_unit_table
         return bytes(a)
 
 
@@ -784,12 +955,16 @@ def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, 
 # --------------------------------------------------------------------------
 
 def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
-                       rows: torch.Tensor, loss: torch.Tensor) -> None:
+                       rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None) -> None:
     """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the launch is refused. Counts launches in
-    ``launch_fused_epoch.launches``."""
-    lib = _build.load_library()
+    ``launch_fused_epoch.launches``. ``lib`` is a measuring build of the
+    kernel (:func:`stage_cycles`) in place of the package's library, and
+    ``stamps`` the int64 tensor its stage cycles go to."""
+    main_lib = _build.load_library()
+    measuring = lib is not None  # not a launch of the package's kernel: not counted
+    lib = lib or main_lib
     if lib.eh_fused_epoch_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -809,15 +984,55 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a.n_rows = data.x.shape[0]
     a.n_epochs = rows.shape[0]
     a.n_batches, a.batch = data.n_batches, data.batch
+    geometry = plan.geometry(data.batch)
+    a.tile_rows, a.stages, a.cluster = geometry.tile, geometry.stages, geometry.cluster
+    a.block_rows, a.moments_shared = geometry.block_rows, geometry.moments_shared
+    a.stamps = stamps.data_ptr() if stamps is not None else None
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
         rc = lib.eh_fused_epoch(ctypes.byref(a), plan.width, stream)
     if rc != 0:
-        raise RuntimeError(f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    launch_fused_epoch.launches += 1
+        raise RuntimeError(
+            f"fused epoch kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
+    if not measuring:
+        launch_fused_epoch.launches += 1
 
 
 launch_fused_epoch.launches = 0
+
+# the stamped build's stages; the first four are "gather and statistics"
+STAGES = ("wait for the staged rows", "counts and mean", "start the next step's copies",
+          "variance", "forward to loss", "backward", "gradient sum", "update")
+
+
+def measuring_library(*defines: str) -> ctypes.CDLL:
+    """``csrc/fused_epoch.cu`` alone, compiled with ``defines``
+    (``-DEHE_STAMPS``: thread 0 stamps each stage of a step with
+    ``clock64()``; ``-DEHE_CHAIN_ONLY``: the arithmetic stubbed out)."""
+    lib = ctypes.CDLL(str(_build.build_variant("fused_epoch.cu", defines).path))
+    lib.eh_fused_epoch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.eh_fused_epoch.restype = ctypes.c_int
+    lib.eh_fused_epoch_args_size.restype = ctypes.c_int
+    return lib
+
+
+def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: EpochTensors,
+                 perms=None) -> Dict[str, int]:
+    """One launch of the stamped build of the kernel on CUDA tensors: the
+    ``clock64()`` cycles thread 0 of the first block spent in each stage
+    (:data:`STAGES`), summed over the launch's steps, and ``"kernel"``, the
+    cycles of the whole launch. For measurement only; the result of the
+    launch is dropped."""
+    plan = fn.plan
+    data = fn._make_data(plan, tensors)
+    rows = fn.rows(tensors, perms)
+    packed = FusedParams(packed.params.clone(), packed.bn.clone())
+    opt_state = {k: v.clone() for k, v in opt_state.items()}
+    loss = torch.empty((1,), dtype=torch.float32, device=data.x.device)
+    stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=data.x.device)
+    launch_fused_epoch(plan, packed, opt_state, data, rows, loss,
+                       lib=measuring_library("-DEHE_STAMPS"), stamps=stamps)
+    return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 
 
 class FusedEpoch:
@@ -945,9 +1160,10 @@ def fused_engine(model) -> FusedEngine:
     """The fused engine of a model, the one place that tells them apart: the
     multi-site one for a :class:`MultiSiteHybridModel`, the LSTM one for a
     hybrid over an :class:`LSTMNet`, else a single-series MLP one, by size
-    alone: the one-block kernel where its shared memory holds the model
-    (widths up to 64 and parameters, moments and a residual tile within 227
-    KB), the wide kernel (``ops/fused_wide.py``) for any other MLP."""
+    alone: kernel 2, whose blocks keep the whole state in shared memory,
+    where that holds the model (widths up to 64 and parameters, moments and
+    a residual tile within 227 KB), the wide kernel (``ops/fused_wide.py``)
+    for any other MLP."""
     from ..models.nn import MLP, LSTMNet
     from ..parallel.multisite import MultiSiteHybridModel
 

@@ -172,9 +172,13 @@ def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam",
     got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
     torch.cuda.synchronize()
     assert fe.launch_fused_epoch.launches - before == 1
+    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
     ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    for g, r in ((got[0].params, ref[0].params), (got[0].bn, ref[0].bn), (got[1]["m"], ref[1]["m"]),
-                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+    for g, a, r in ((got[0].params, again[0].params, ref[0].params),
+                    (got[0].bn, again[0].bn, ref[0].bn), (got[1]["m"], again[1]["m"], ref[1]["m"]),
+                    (got[1]["v"], again[1]["v"], ref[1]["v"]),
+                    (got[2].reshape(1), again[2].reshape(1), ref[2].reshape(1))):
+        assert torch.equal(g, a)  # every sum has a fixed order: the same bits twice
         g, r = g.cpu(), r.cpu()
         assert torch.isfinite(g).all()
         assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
@@ -197,6 +201,30 @@ def test_epoch_kernel_matches_plain(cuda, kw):
 @pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
 def test_epoch_kernel_activations_match_plain(cuda, act):
     _epoch_case(cuda, hidden=(12, 5), act=act, norm="static", n=777, batch=100)
+
+
+@pytest.mark.parametrize("kw,cluster,tiles,stages", [
+    (dict(batch=31, n=100), 1, 1, 2),  # less than a warp
+    (dict(batch=33, n=100), 1, 1, 2),
+    (dict(batch=513, n=1100), 4, 1, 2),  # one row more than two blocks of 256 hold
+    (dict(batch=1000, n=2100, nan_frac=0.3, epochs=2), 4, 1, 2),  # a ragged last batch in a cluster
+    (dict(batch=512, n=1536, epochs=3), 2, 1, 2),  # the prefetch crosses epoch boundaries
+    (dict(hidden=(64, 48), act="selu", norm="static", batch=3000, n=9000), 8, 3, 0),  # tiles
+    (dict(hidden=(64, 64, 64), act="tanh", batch=64, n=200), 2, 1, 2),  # little room beside the state
+    (dict(hidden=(61, 61, 44, 61, 13), act="tanh", batch=128, n=512, epochs=2), 1, 2, 0),  # moments
+    # in device memory: the padded rows leave no room for them beside 32 residual rows
+], ids=str)
+def test_epoch_kernel_geometry_edges_match_plain(cuda, kw, cluster, tiles, stages):
+    got = _epoch_case(cuda, **kw)
+    del got
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"],
+        hidden_layers=list(kw.get("hidden", (16, 16))), activation=kw.get("act", "swish"),
+        scale_nn_outputs=True, input_batchnorm=kw.get("norm", True), device="cpu")
+    g = fe.plan_fused_epoch(m, ("adam", 0.01), et.LoggingLoss()).geometry(kw["batch"])
+    assert (g.cluster, g.tiles, g.stages) == (cluster, tiles, stages)
 
 
 def test_first_masked_batch_counts_no_step(cuda):
@@ -367,6 +395,29 @@ def test_multisite_primitives_match_plain(cuda):
     assert torch.equal(mp.site_reduce(mask), mask.sum(1))  # whole numbers: exact in any order
     with pytest.raises(ValueError, match="contiguous"):
         mp.site_reduce(x.T)
+
+
+@pytest.mark.parametrize("n_obs", [1, 3, 63, 64, 65, 1000])
+def test_row_sums_match_plain_at_odd_widths(cuda, n_obs):
+    """``site_reduce`` and ``site_chain`` share a row among a group of lanes:
+    widths below, at and above a group's reach, 16-byte loads or not."""
+    g = torch.Generator(device=cuda).manual_seed(n_obs)
+    S, B = 400, 301
+    vals = torch.rand(S, device=cuda, generator=g)
+    idx = torch.randperm(S, device=cuda, generator=g)[:B].int()
+    idx[::7] = -1
+    x = torch.rand(B, n_obs, device=cuda, generator=g)
+    tol = dict(rtol=1e-6, atol=1e-5 * n_obs)
+    torch.testing.assert_close(mp.site_reduce(x), x.sum(1), **tol)
+    assert torch.equal(mp.site_reduce(x), mp.site_reduce(x))
+    acc, ref = torch.ones(S, device=cuda), torch.ones(S)
+    mp.site_chain(vals, idx, x, acc)
+    mp.site_chain(vals.cpu(), idx.cpu(), x.cpu(), ref)
+    torch.testing.assert_close(acc.cpu(), ref, **tol)
+    mask = (x > 0.3).float()
+    assert torch.equal(mp.site_reduce(mask), mask.sum(1))  # whole numbers: exact in any order
+    off = x.reshape(-1)[1:1 + (B - 1) * n_obs].view(B - 1, n_obs)  # a base off the 16-byte grid
+    torch.testing.assert_close(mp.site_reduce(off), off.sum(1), **tol)
 
 
 # --------------------------------------------------------------------------

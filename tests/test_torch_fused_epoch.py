@@ -241,14 +241,165 @@ def test_kernel_arguments_pack_the_plan():
     assert plan.n_params == a.n_params == 2 * 2 + 16 * 3 + 16 * 17 + 17 + 1
     assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.opt == 1
     assert list(a.p_off_w[:3]) == [4, 52, 324] and a.p_off_g == plan.n_params - 1
-    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and a.tile_rows == plan.tile_rows == 128
-    assert a.r_off_g + 1 == plan.res_floats == a.res_floats
+    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and plan.tile_rows == 128
+    # the backward's residuals, then the output, its scaling's derivative and the feature of ones
+    assert a.r_off_g + 1 == plan.res_floats == a.r_off_out == a.r_off_dsc - 1 == a.r_off_one - 2
+    assert a.res_floats == plan.tile_floats == plan.res_floats + 3
     packed = plan.pack(tm)
     assert packed.params.numel() == plan.n_params and packed.bn.numel() == 4
     twin = et.construct_hybrid_model(**_spec(True, hidden=(16, 16), act="swish"))
     plan.unpack(packed, twin)
     for k, v in tm.state_dict().items():
         assert torch.equal(v, twin.state_dict()[k])
+
+
+def _parent_envelope(tm) -> bool:
+    """The envelope as the first kernel 2 had it, written out: parameters,
+    two moments and a gradient, the small vectors, and 32 residual rows with
+    a pad column within 227 KB."""
+    net = tm.nn
+    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+    f, p, g, k, t = dims[0], dims[-1], len(tm.global_param_names), len(tm.fixed_param_names), 1
+    norm = net.norm is not None
+    n_params = (2 * f if norm else 0) + sum(b * (a + 1) for a, b in zip(dims[:-1], dims[1:])) + g
+    res = (3 * f if norm else f) + sum(dims[1:]) + sum(dims[1:-1]) + g
+    floats = (4 * n_params + 2 * f + (2 * p + 2 * g + k) + 2 * g + k + 3 * f + t + 4 + 32
+              + max(res, f + t) * 33)
+    return 4 * floats <= 227 * 1024
+
+
+def _smem_bytes(plan, g: fe.Geometry) -> int:
+    return plan.smem_bytes(g.threads, g.stages, g.moments_shared)
+
+
+@pytest.mark.parametrize("hidden,norm,batch,want", [
+    # the quick-start: the whole batch in flight in two blocks of 256, staged
+    ((16, 16), True, 512, (256, 256, 2, 2, 256, 1)),
+    ((16, 16), True, 256, (256, 256, 2, 1, 256, 1)),
+    ((16, 16), True, 31, (32, 32, 2, 1, 31, 1)),
+    ((16, 16), True, 33, (64, 64, 2, 1, 33, 1)),
+    ((16, 16), True, 513, (160, 160, 2, 4, 129, 1)),
+    ((16, 16), True, 1000, (256, 256, 2, 4, 250, 1)),
+    ((16, 16), True, 2049, (288, 288, 2, 8, 257, 1)),
+    ((16, 16), True, 20000, (512, 512, 0, 8, 2500, 1)),  # beyond a cluster: tiles, rows in place
+    ((32, 24), True, 256, (256, 256, 2, 1, 256, 1)),
+    ((64, 48), False, 300, (160, 160, 2, 2, 150, 1)),
+    ((64, 48), "static", 3000, (160, 160, 0, 8, 375, 1)),
+    ((64, 64, 64), True, 512, (32, 32, 0, 8, 64, 1)),  # little room beside the state
+    ((61, 61, 44, 61, 13), False, 128, (64, 64, 0, 1, 128, 0)),  # moments in device memory
+], ids=str)
+def test_geometry_is_a_pure_function_of_plan_and_batch(hidden, norm, batch, want):
+    tm = et.construct_hybrid_model(**_spec(norm, hidden=hidden, act="swish"))
+    plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+    g = plan.geometry(batch)
+    assert tuple(g) == want and g == plan.geometry(batch)
+    assert g.threads % 32 == 0 and g.threads <= fe._MAX_THREADS[plan.width]
+    assert g.cluster in (1, 2, 4, 8) and g.cluster * g.block_rows >= batch
+    assert g.stages in (0, 2) and (g.stages == 0 or g.tiles == 1)
+    assert g.moments_shared == 1 or g.cluster == 1
+    assert _smem_bytes(plan, g) <= fe.MAX_SMEM_BYTES
+    forced = dataclasses.replace(plan, cluster=4).geometry(batch)
+    assert forced.cluster == (4 if g.moments_shared else 1)
+
+
+def test_smem_formula_matches_the_source():
+    """``_smem_floats`` against ``ehe_smem_floats``'s return expression,
+    parsed from the source and evaluated on the same numbers."""
+    src = CU_SOURCE.read_text()
+    body = re.search(r"static size_t ehe_smem_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    expr = re.search(r"return (.*?);", body, re.S).group(1).replace("(size_t)", "")
+    expr = re.sub(r"a->(\w+)", r"a_\1", " ".join(expr.split()))
+    rng = np.random.default_rng(0)
+    for _ in range(50):
+        f, p, g, k, t, nf = (int(rng.integers(lo, hi)) for lo, hi in
+                             ((1, 65), (1, 9), (1, 9), (0, 5), (1, 5), (1, 9)))
+        threads, stages, shared = 32 * int(rng.integers(1, 17)), int(rng.choice([0, 2])), int(
+            rng.integers(0, 2))
+        n_params, n_padded, res, table = (int(rng.integers(10, 9000)), 4 * int(rng.integers(3, 2500)),
+                                          int(rng.integers(4, 500)), int(rng.integers(0, 129)))
+        names = dict(F=f, P=p, G=g, K=k, T=t, NW=threads // 32, COLS=f + nf + 2 * t,
+                     a_n_padded=n_padded, a_moments_shared=shared, a_n_params=n_params,
+                     a_n_unit_table=table, a_tile_rows=threads, a_res_floats=res, a_stages=stages)
+        want = eval(expr, {"__builtins__": {}}, names)  # noqa: S307 - the repository's own source
+        assert want == fe._smem_floats(
+            n_padded=n_padded, n_params=n_params, f=f, p=p, g=g, k=k, t=t, n_forcing=nf,
+            threads=threads, res=res, stages=stages, moments_shared=shared, n_unit_table=table)
+    caps = dict(re.findall(r"#define (EHE_N_STAMPS|EH_MAX_SMEM_BYTES) \(?([\d *]+)\)?", src
+                           + CU_SOURCE.with_name("eh_device.cuh").read_text()))
+    assert int(caps["EHE_N_STAMPS"]) == len(fe.STAGES) + 1
+    assert "#define EHE_MAX_THREADS(W) ((W) == 64 ? 256 : 512)" in src
+    assert fe._MAX_THREADS == {16: 512, 32: 512, 64: 256}
+
+
+SWEEP = [(w, n, norm) for w in (16, 32, 64) for n in range(1, 8) for norm in (True, "static", False)]
+
+
+@pytest.mark.parametrize("width,n_hidden,norm", SWEEP, ids=str)
+def test_envelope_is_unchanged_and_every_admitted_model_has_a_geometry(width, n_hidden, norm):
+    """The redesign admits and refuses exactly what the first kernel 2 did,
+    every admitted model fits shared memory at every batch size, and
+    ``fused_engine`` sends the same models to kernels 2 and 3 as before."""
+    tm = et.construct_hybrid_model(**_spec(norm, hidden=(width,) * n_hidden))
+    admitted = _parent_envelope(tm)
+    reason = fe.fused_epoch_unsupported_reason(tm, ("adam", 0.01), LL)
+    assert (reason is None) == admitted
+    engine = fe.fused_engine(tm).epoch_path
+    assert engine == ("cuda_fused_epoch" if admitted else "cuda_fused_wide")
+    if not admitted:
+        assert "shared memory" in reason
+        return
+    plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+    for batch in (1, 32, 100, 512, 513, 5000, 100_000):
+        assert _smem_bytes(plan, plan.geometry(batch)) <= fe.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("hidden", [(61, 61, 44, 61, 13), (13, 57, 57, 40, 36, 57),
+                                    (45, 12, 45, 45, 45, 45, 45), (65,), (64,) * 7])
+def test_odd_widths_near_the_limit_keep_their_engine(hidden):
+    """Rows padded to 4 floats cost shared memory: a model the envelope
+    admits near the limit keeps kernel 2 (its moments then live in device
+    memory); one it refuses still goes to kernel 3."""
+    tm = et.construct_hybrid_model(**_spec(False, hidden=hidden))
+    admitted = max(hidden) <= 64 and _parent_envelope(tm)
+    assert fe.supports_fused_epoch(tm, ("adam", 0.01), LL) == admitted
+    assert fe.fused_engine(tm).epoch_path == ("cuda_fused_epoch" if admitted else "cuda_fused_wide")
+    if admitted:
+        plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+        g = plan.geometry(128)
+        assert g.moments_shared == 0 and g.cluster == 1
+        assert _smem_bytes(plan, g) <= fe.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dims,norm,n_globals", [
+    ((2, 16, 16, 1), True, 1), ((2, 12, 5, 1), True, 1), ((3, 61, 7, 2), False, 3),
+    ((64, 64, 1), True, 2), ((1, 1), False, 1),
+])
+def test_padded_layout_keeps_order_and_aligns_rows(dims, norm, n_globals):
+    pp = fe.padded_offsets(dims, norm, n_globals)
+    packed = fe.param_offsets(dims, norm)
+    off = 2 * dims[0] if norm else 0
+    for i, (w, b) in enumerate(zip(pp["pp_w"], pp["pp_b"])):
+        row = -(-dims[i] // 4) * 4
+        assert w % 4 == 0 and w >= off and b == w + dims[i + 1] * row
+        off = b + dims[i + 1]
+    assert pp["pp_g"] == off and pp["n_padded"] % 4 == 0 and pp["n_padded"] >= off + n_globals
+    assert pp["n_padded"] - (packed["p_g"] + n_globals) <= 3 * (sum(dims[1:]) + len(dims) + 1)
+    if all(d % 4 == 0 for d in dims[:-1]) and (not norm or dims[0] % 2 == 0):
+        assert pp["pp_w"] == packed["p_w"] or any(o % 4 for o in packed["p_w"])
+
+
+def test_gradient_units_cover_the_quick_start():
+    # layers 16x2, 16x16, 1x16 in 4 x 4 blocks with a bias block per four outputs;
+    # the norm's 2 scales and its bias block; the global
+    assert fe.gradient_units((2, 16, 16, 1), True, 1) == 4 * 2 + 4 * 5 + 1 * 5 + 2 + 1 + 1 == 37
+    assert fe.gradient_units((2, 16, 16, 1), False, 1) == 34
+    tm = et.construct_hybrid_model(**_spec(True, hidden=(16, 16), act="swish"))
+    plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+    a = fe._Args.from_buffer_copy(plan.args_bytes)
+    assert a.n_unit_table == plan.n_unit_table == 37 and a.n_forcing == 1
+    assert list(a.pp_off_w[:3]) == [4, 84, 356] and a.pp_off_g == 373 and a.n_padded == 376
+    wide = et.construct_hybrid_model(**_spec(True, hidden=(64, 64)))
+    assert fe.plan_fused_epoch(wide, "adam", LL).n_unit_table == 128
 
 
 @pytest.mark.cuda
