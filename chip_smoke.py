@@ -53,9 +53,12 @@ Phases, one or more lines each; any failure exits non-zero:
     (``fused_lstm_reference``) from identical parameters and the same
     permutations, at the sequence-training path's shape and at its edges
     (another hidden size and window, mae with sgd and no norm, NaN targets
-    with a ragged last batch), with a second run that must give the same
-    bits; then windows of 10, 32, 64, 128 and 256 steps at hidden size 16,
-    each taken (with its tile) or refused with the envelope's reason;
+    with a ragged last batch, the JAX bench's batch of 512, a batch of 1,000
+    that no cluster holds at once), with a second run that must give the
+    same bits, each with the geometry its plan chose (blocks in the cluster,
+    windows a block, tiles, lanes a window); then windows of 10, 32, 64, 128
+    and 256 steps at hidden size 16, each taken or refused with the
+    envelope's reason;
 14. main path: sequence training as ``examples/lstm_sequences.py`` runs it,
     4,000 rows cut into 10-step windows, LSTM(16) with static input norm,
     30 epochs of batch 128 on nseLoss through ``train(sequence_kwargs=...)``:
@@ -63,8 +66,10 @@ Phases, one or more lines each; any failure exits non-zero:
     finite validation predictions in the long format and reach a best
     validation nseLoss below ``LSTM_VAL_LIMIT``;
 15. times: kernel 4 against its plain version per epoch at the main path's
-    shape and at the JAX bench's (batch 512, no norm, mse), and ``train()``
-    wall on both engines;
+    shape and at the JAX bench's (batch 512, no norm, mse), with the geometry
+    its plan chose and the chain's floor (a second build of
+    ``fused_epoch_lstm.cu`` with ``-DEHL_CHAIN_ONLY``, made beside the
+    library's), and ``train()`` wall on both engines;
 16. kernel 3: the wide fused epoch against its plain PyTorch version
     (``fused_wide_reference``) from identical parameters and the same
     permutations: the tower [1024, 512, 256, 128, 64] at full width (the
@@ -738,7 +743,11 @@ def lstm_cases():
         dict(what="every step has a target (output window 10), shuffle 'batches'",
              out_steps=10, shuffle="batches", loss="mse", n=1500),
         dict(what="LSTM(32), 12-step windows", hidden=32, steps=12, n=1000, epochs=1),
-        dict(what="LSTM(64), 10-step windows (8-row tiles)", hidden=64, n=400, epochs=1),
+        dict(what="LSTM(64), 10-step windows", hidden=64, n=400, epochs=1),
+        dict(what="the JAX bench's shape: batch 512, no norm, mse", batch=512, norm=False,
+             loss="mse", n=LSTM_ROWS, epochs=1, seed=42),
+        dict(what="batch 1,000: more windows than a cluster holds at once", batch=1000, loss="mse",
+             n=3000, epochs=1),
     ]
 
 
@@ -792,14 +801,16 @@ def lstm_kernel_checks(et) -> float:
         if not all(torch.equal(got[k], again[k]) for k in got):
             raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
         steps, out_steps = tensors.x.shape[2], tensors.y["reco"].shape[2]
-        return (compare(got, ref, what, TOL_EPOCH), fn.plan.sizes.tile_rows(steps, out_steps),
-                int(got["t"][0]))
+        g = fn.plan.geometry(int(tensors.weight.shape[1]), int(steps), int(out_steps))
+        return (compare(got, ref, what, TOL_EPOCH),
+                f"{g.cluster} block(s) of {g.windows} windows x {g.tiles} tile(s), {g.lanes} lanes "
+                f"a window, {g.threads} threads", int(got["t"][0]))
 
     worst = 0.0
     for case in lstm_cases():
-        err, tile, steps = run(case)
+        err, geometry, steps = run(case)
         worst = max(worst, err)
-        log("kernel4", f"{case['what']}: tile {tile} windows, {steps} steps, max |diff| {err:.3e}, "
+        log("kernel4", f"{case['what']}: {geometry}, {steps} steps, max |diff| {err:.3e}, "
                        f"second run bitwise equal (ok)")
         # 1,024 windows in 8 batches, two of them masked, 2 epochs
         if "mask_first" in case and steps != 2 * (8 - 2):
@@ -822,7 +833,7 @@ def lstm_kernel_checks(et) -> float:
         err, used, steps = run(dict(what=f"LSTM(16), {window}-step windows", steps=window,
                                     n=900, epochs=1))
         worst = max(worst, err)
-        log("kernel4", f"LSTM(16), {window}-step windows: taken, tile {used} windows, {steps} "
+        log("kernel4", f"LSTM(16), {window}-step windows: taken, {used}, {steps} "
                        f"steps, max |diff| {err:.3e}, second run bitwise equal (ok)")
     if not all(taken[w] for w in (10, 32, 64)):
         raise AssertionError(f"the kernel refused a window of 10, 32 or 64 steps: {taken}")
@@ -884,10 +895,13 @@ def lstm_step_bound(batch, steps, out_steps=1, hidden=16, features=2, outputs=1,
     return dict(bytes_moved=batch * 4 * (steps * features + 3 * out_steps + 1), flops=flops)
 
 
-def lstm_times(et, card, main) -> dict:
+def lstm_times(et, card, main, chain_build) -> dict:
     """Phase 15: kernel 4 against its plain version per epoch at the main
-    path's shape and at the JAX bench's; ``train()`` wall on both engines."""
+    path's shape and at the JAX bench's, with the chain's floor (a build with
+    its products stubbed out, when that build took under a minute);
+    ``train()`` wall on both engines."""
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 
     train_cols = {k: v[: int(LSTM_ROWS * 0.8)] for k, v in main["cols"].items()}
     shapes = {
@@ -917,12 +931,29 @@ def lstm_times(et, card, main) -> dict:
         wall_ms = {k: statistics.median(v) for k, v in wall.items()}
         nb, batch = tensors.weight.shape
         b = bound(**lstm_step_bound(batch, 10, norm=case.get("norm", "static") is not False))
+        floor = "not measured (its build took a minute or more)"
+        if chain_build.seconds < 60:
+            chain_lib = fl.measuring_library("-DEHL_CHAIN_ONLY")
+            data, rows = fn._make_data(fn.plan, tensors), fn.rows(tensors, perms)
+            out_loss = torch.empty((1,), dtype=torch.float32, device="cuda")
+
+            def chain():
+                fl.launch_fused_lstm(fn.plan, fe.FusedParams(packed.params.clone(), packed.bn),
+                                     {k: v.clone() for k, v in opt0.items()}, data, rows, out_loss,
+                                     lib=chain_lib)
+
+            host_ms(chain, 2)
+            floor_ms = statistics.median(device_ms(chain, 5, "chain") for _ in range(3))
+            floor = f"{floor_ms:.4f} ms ({floor_ms / nb * 1e3:.2f} us a step)"
         log("times", f"[{card}] kernel 4, one epoch of {nb} steps (batch {batch}, {what}), "
-                     f"median of 5: device ms per epoch "
+                     f"geometry {fn.plan.geometry(int(batch), 10, 1)}, median of 5: device ms per "
+                     "epoch "
                      + ", ".join(f"{k} {v:.4f} ({v / nb:.4f} a step)" for k, v in med.items())
                      + "; wall ms per epoch "
                      + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items())
-                     + f"; bound {b['bound_ms'] * nb:.6f} ms per epoch ({b['bound_by']})")
+                     + f"; bound {b['bound_ms'] * nb:.6f} ms per epoch ({b['bound_by']}); the "
+                     f"chain with its products stubbed out (-DEHL_CHAIN_ONLY, nvcc "
+                     f"{chain_build.seconds:.1f} s): {floor}")
         out[key] = dict(kernel_ms=med["kernel"], plain_ms=med["plain (profiler)"], steps=int(nb),
                         batch=int(batch))
 
@@ -1224,9 +1255,11 @@ def main() -> None:
     from easyhybrid_tpu_torch.ops import fused_forward as ff
 
     # 2. build ----------------------------------------------------------------
-    # kernel 2's stamped build (phase 8) is made beside the library's
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    # kernel 2's stamped build (phase 8) and kernel 4's chain-only build (phase
+    # 15) are made beside the library's
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
+    chain_build = pool.submit(_build.build_variant, "fused_epoch_lstm.cu", ("-DEHL_CHAIN_ONLY",))
     pool.shutdown(wait=False)
     built = _build.build_library()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS[:2])} -> {built.path.name} "
@@ -1464,7 +1497,7 @@ def main() -> None:
     ms_times = multisite_times(et, card, ms_main)
     lstm_err = lstm_kernel_checks(et)
     lstm_main = lstm_main_path(et, card)
-    lstm_ms = lstm_times(et, card, lstm_main)["main"]
+    lstm_ms = lstm_times(et, card, lstm_main, chain_build.result())["main"]
     wide_cols = et.rbq10_columns(WIDE_ROWS, seed=42)
     wide_train_cols = {k: v[: WIDE_ROWS * 4 // 5] for k, v in wide_cols.items()}
     wide_err = wide_kernel_checks(et, wide_train_cols)

@@ -76,11 +76,7 @@
 //
 // Built without --use_fast_math, as fused_forward.cu.
 
-#include <cooperative_groups.h>
-
 #include "eh_device.cuh"
-
-namespace cg = cooperative_groups;
 
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_epoch.py;
 // eh_fused_epoch_args_size() lets the wrapper check the two agree.
@@ -185,29 +181,6 @@ struct EhFusedEpochArgs {
 // Threads a block may have: the registers of 512 threads (128 each) hold a
 // row of width 32; a row of width 64 takes 256.
 #define EHE_MAX_THREADS(W) ((W) == 64 ? 256 : 512)
-
-__device__ __forceinline__ void ehe_cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ float ehe_warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// One level of the folding tree: lanes whose `bit` is set keep the upper half
-// of v, the others the lower, and each adds its partner's copy of that half.
-template <int HALF>
-__device__ __forceinline__ void ehe_fold(float (&v)[16], bool up, int bit) {
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = up ? v[i] : v[i + HALF];
-    const float keep = up ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
-  }
-}
 
 // Position of packed parameter p in the padded layout.
 __device__ __forceinline__ int ehe_padded_index(const EhFusedEpochArgs& a, int p) {
@@ -913,22 +886,8 @@ static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s)
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(args->cluster);
-  cfg.blockDim = dim3(args->tile_rows);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = args->cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // a cluster that cannot be co-scheduled is refused here or by the check below
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, eh_fused_epoch_kernel<W>, *args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)eh_launch_cluster(eh_fused_epoch_kernel<W>, *args, args->cluster, args->tile_rows,
+                                smem, s);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller

@@ -11,9 +11,10 @@ bias) or none, the recurrence over the ``T`` steps of the input window, the
 Dense head, the sigmoid bound scaling and the mechanistic model in its
 kernel form at the trailing ``T_out`` steps, the masked loss over the whole
 ``(T_out x batch)`` window (``mse``, ``mae`` or ``nseLoss``) and its
-cotangent, the hand-written backward through time with the gates
-recomputed from per-step ``(x, h, c)`` checkpoints, the batch-validity gate
-and the optax ``adam`` / ``sgd`` update.
+cotangent, the hand-written backward through time from per-step ``(x, h,
+c)`` checkpoints (the kernel keeps the gates as well, the plain version
+recomputes them), the batch-validity gate and the optax ``adam`` / ``sgd``
+update.
 
 The packed layout (:class:`FusedLSTMPlan`, same scheme as kernel 2's):
 
@@ -22,13 +23,16 @@ The packed layout (:class:`FusedLSTMPlan`, same scheme as kernel 2's):
   ``b (P)``, all row-major, then the raw globals (G);
 * ``bn``, ``opt_state`` and ``consts`` as in ``ops/fused_epoch.py``.
 
-The window is bounded by shared memory, not by a constant: a row of a tile
-keeps ``T (2H + F)`` checkpoint floats (``T F`` more with a norm) beside the
-block's parameters and gradients (the moments stay in device memory), and
-the kernel takes the largest tile of 128, 64, 32, 16 or 8 rows that fits in
-227 KB (:func:`lstm_tile_rows`), sharing each window's hidden units among
-``512 / tile`` threads; a window for which not even 8 rows fit is outside
-the envelope.
+The window is bounded by shared memory, not by a constant: the envelope
+admits a window when 8 of its rows of ``(x, h, c)`` checkpoints fit in 227 KB
+beside one block's parameters and gradients by the rule the kernel was first
+built with (:func:`lstm_tile_rows`), so that what the kernel takes neither
+shrank nor grew when it was redesigned. How a launch is cut is
+:meth:`FusedLSTMPlan.geometry`, a pure function of the plan, the batch and
+the window: a window's recurrence in ``min(32, width)`` lanes of one warp, a
+block's windows at once, a thread-block cluster over the batch's windows,
+tiles walked only beyond that. ``csrc/fused_epoch_lstm.cu`` says what each
+choice is for.
 
 :func:`fused_lstm_reference` is the same algorithm in plain PyTorch on the
 same layout, the backward written by hand (no autograd). On CPU tensors the
@@ -82,14 +86,22 @@ __all__ = [
     "launch_fused_lstm",
     "lstm_tile_rows",
     "make_fused_lstm_epoch",
+    "stage_cycles",
     "supports_fused_epoch_lstm",
 ]
 
-# caps of the kernel; they must equal the EH_LSTM_* defines of csrc/fused_epoch_lstm.cu
+# caps of the kernel; they must equal the EH_LSTM_* / EHL_* defines of
+# csrc/fused_epoch_lstm.cu (MAX_CLUSTER is EH_LSTM_MAX_CLUSTER)
 MAX_LSTM_OUT = 8
+_MAX_THREADS = 256  # EHL_MAX_THREADS: threads a block may have
+_HIDDEN_WIDTHS = (8, 16, 32, 64)  # the kernel's compile-time hidden sizes
+# the plan's largest cluster (beyond the portable 8: the H100 co-schedules 16
+# blocks of one cluster)
+MAX_CLUSTER = 16
+# the envelope's rule: the tiles of the kernel's first form, one block of 512
+# threads with two partials each
 LSTM_THREADS = 512
 LSTM_TILE_ROWS = (128, 64, 32, 16, 8)
-_HIDDEN_WIDTHS = (8, 16, 32, 64)  # the kernel's compile-time hidden sizes
 LSTM_LOSSES = ("mse", "mae", "nseLoss")  # the single-pass losses
 _LOSS_KINDS = {"mse": 0, "nseLoss": 0, "mae": 1}  # squared or absolute differences
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
@@ -130,11 +142,32 @@ class _Sizes(NamedTuple):
         return 4 * (fixed + self.res_floats(steps, out_steps) * (tile_rows + 1))
 
     def tile_rows(self, steps: int, out_steps: int) -> Optional[int]:
-        """Rows of the largest tile that fits, or None when none does."""
+        """Rows of the largest tile that fits, or None when none does: the
+        envelope (the kernel takes a window when this is not None)."""
         for rows in LSTM_TILE_ROWS:
             if self.smem_bytes(steps, out_steps, rows) <= MAX_SMEM_BYTES:
                 return rows
         return None
+
+    def pair_features(self) -> int:
+        """Features of a (window, step) pair in the kernel's pair arrays
+        (``ehl_tile``): the cell's input and a 1 (and with a norm the
+        normalised input and its cotangent), h, c and the four gates, which
+        the backward overwrites with their cotangents."""
+        return (3 * self.f if self.norm else self.f) + 6 * self.h + 1
+
+    def smem_floats(self, steps: int, out_steps: int, windows: int, lanes: int) -> int:
+        """Shared-memory floats of one launch of the kernel with blocks
+        holding ``windows`` windows of ``lanes`` lanes at once;
+        ``ehl_smem_floats`` in csrc/fused_epoch_lstm.cu computes the same."""
+        def ld(cols):
+            return cols | 1
+
+        warps = -(-windows * lanes // 32)
+        return (2 * self.n_params + 2 * self.f + (2 * self.p + 2 * self.g + self.k)
+                + (self.g + self.k) + self.g + 2 * self.f + 10 + warps * (6 * self.t + 1)
+                + self.pair_features() * ld((steps + 1) * windows)
+                + self.p * ld(out_steps * windows) + self.g * ld(min(lanes, out_steps) * windows))
 
 
 def _sizes(model) -> _Sizes:
@@ -275,9 +308,29 @@ class _Args(ctypes.Structure):
         ("one_minus_b1", ctypes.c_float),
         ("one_minus_b2", ctypes.c_float),
         ("eps", ctypes.c_float),
-        ("tile_rows", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("lanes", ctypes.c_int),
+        ("windows", ctypes.c_int),
+        ("cluster", ctypes.c_int),
+        ("tiles", ctypes.c_int),
+        ("stages", ctypes.c_int),
         ("res_floats", ctypes.c_int),
     ]
+
+
+class LSTMGeometry(NamedTuple):
+    """How one launch of kernel 4 is cut: ``cluster`` blocks of ``threads``
+    threads share a batch's windows; a window has ``lanes`` lanes of one warp
+    (a lane a hidden unit, two at width 64); a block holds ``windows``
+    windows at once and walks ``tiles`` of them a step; with ``stages`` 0 the
+    windows are read in place."""
+
+    threads: int
+    lanes: int
+    windows: int
+    cluster: int
+    tiles: int
+    stages: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,10 +362,45 @@ class FusedLSTMPlan(PackedLayout):
     opt_name: str
     hyper: Tuple[Tuple[str, float], ...]
     loss: str
+    cluster: int = 0  # the cluster size when set (a measurement's), else by the batch
 
     @property
     def n_features(self) -> int:
         return self.in_dim
+
+    def geometry(self, batch: int, steps: int, out_steps: int = 1) -> LSTMGeometry:
+        """How kernel 4 cuts a launch over batches of ``batch`` windows of
+        ``steps`` steps with ``out_steps`` trailing ones: a pure function of
+        the plan, the batch and the window. ``min(32, width)`` lanes a window;
+        a block holds as many windows as ``_MAX_THREADS`` threads and the
+        shared memory beside the state allow, in whole warps where a warp's
+        windows fit; the cluster is the fewest blocks that hold the batch (a
+        power of two up to ``MAX_CLUSTER``), or the plan's own. A batch
+        beyond that walks tiles."""
+        sizes = self.sizes
+        lanes = min(32, self.width)
+        per_warp = 32 // lanes
+
+        def fits(windows):
+            return sizes.smem_floats(steps, out_steps, windows, lanes) * 4 <= MAX_SMEM_BYTES
+
+        most = _MAX_THREADS // lanes
+        while most > per_warp and not fits(most):
+            most -= per_warp
+        while most > 1 and not fits(most):  # a warp that is not full
+            most -= 1
+        if not fits(most):
+            raise ValueError(f"a window of {steps} steps at hidden size {self.hidden} does not fit "
+                             "the fused LSTM kernel's shared memory")
+        cluster = self.cluster
+        if not cluster:
+            cluster = 1
+            while cluster < MAX_CLUSTER and cluster * most < batch:
+                cluster *= 2
+        block = -(-batch // cluster)
+        windows = min(most, -(-block // per_warp) * per_warp)
+        threads = -(-windows * lanes // 32) * 32
+        return LSTMGeometry(threads, lanes, windows, cluster, -(-block // windows), 0)
 
     def offsets(self) -> Dict[str, int]:
         """Offsets of the parameter segments in the packed vector."""
@@ -566,17 +654,21 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
 # --------------------------------------------------------------------------
 
 def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: FusedLSTMData,
-                      rows: torch.Tensor, loss: torch.Tensor) -> None:
+                      rows: torch.Tensor, loss: torch.Tensor, *, lib=None) -> None:
     """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the window does not fit or the launch is refused.
-    Counts launches in ``launch_fused_lstm.launches``."""
+    Counts launches in ``launch_fused_lstm.launches``. ``lib`` is a
+    measuring build of the kernel (:func:`measuring_library`) in place of the
+    package's library; its launches are not counted."""
     steps, out_steps = data.x.shape[1], data.y[0].shape[1]
-    tile_rows = plan.sizes.tile_rows(steps, out_steps)
-    if tile_rows is None:
+    if plan.sizes.tile_rows(steps, out_steps) is None:
         raise ValueError(f"a window of {steps} steps at hidden size {plan.hidden} does not fit "
                          "the fused LSTM kernel's shared memory")
-    lib = _build.load_library()
+    geometry = plan.geometry(data.batch, steps, out_steps)
+    main_lib = _build.load_library()
+    measuring = lib is not None
+    lib = lib or main_lib
     if lib.eh_fused_lstm_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -597,18 +689,59 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
     a.n_epochs = rows.shape[0]
     a.n_batches, a.batch = data.n_batches, data.batch
     a.n_steps, a.n_out_steps = steps, out_steps
-    a.tile_rows = tile_rows
-    a.res_floats = plan.sizes.res_floats(steps, out_steps)
+    a.threads, a.lanes, a.windows = geometry.threads, geometry.lanes, geometry.windows
+    a.cluster, a.tiles, a.stages = geometry.cluster, geometry.tiles, geometry.stages
+    a.res_floats = plan.sizes.pair_features()
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
         rc = lib.eh_fused_lstm(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused LSTM epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    launch_fused_lstm.launches += 1
+            f"fused LSTM epoch kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
+    if not measuring:
+        launch_fused_lstm.launches += 1
 
 
 launch_fused_lstm.launches = 0
+
+# the stamped build's stages, by stamp index (ehl_stamps in the source)
+STAGES = ("step start", "input gather", "head and loss", "backward through time",
+          "gradient sums", "gradient exchange", "update", "parameter exchange", "recurrence",
+          "next scales", "ssts and epoch loss")
+
+
+def measuring_library(*defines: str) -> ctypes.CDLL:
+    """``csrc/fused_epoch_lstm.cu`` alone, compiled with ``defines``
+    (``-DEHL_STAMPS``: thread 0 stamps each stage of a step with
+    ``clock64()``; ``-DEHL_CHAIN_ONLY``: the products stubbed out)."""
+    lib = ctypes.CDLL(str(_build.build_variant("fused_epoch_lstm.cu", defines).path))
+    lib.eh_fused_lstm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.eh_fused_lstm.restype = ctypes.c_int
+    lib.eh_fused_lstm_args_size.restype = ctypes.c_int
+    return lib
+
+
+def stage_cycles(fn: "FusedLSTMEpoch", packed: FusedParams, opt_state, tensors: EpochTensors,
+                 perms=None) -> Dict[str, int]:
+    """One launch of the stamped build of the kernel on CUDA tensors: the
+    ``clock64()`` cycles thread 0 of the first block spent in each stage
+    (:data:`STAGES`), summed over the launch's steps, and ``"kernel"``, the
+    cycles of the whole launch. For measurement only; the result of the
+    launch is dropped."""
+    plan = fn.plan
+    data = fn._make_data(plan, tensors)
+    rows = fn.rows(tensors, perms)
+    packed = FusedParams(packed.params.clone(), packed.bn.clone())
+    opt_state = {k: v.clone() for k, v in opt_state.items()}
+    loss = torch.empty((1,), dtype=torch.float32, device=data.x.device)
+    lib = measuring_library("-DEHL_STAMPS")
+    launch_fused_lstm(plan, packed, opt_state, data, rows, loss, lib=lib)
+    torch.cuda.synchronize(data.x.device)
+    stamps = (ctypes.c_longlong * (len(STAGES) + 1))()
+    rc = lib.eh_fused_lstm_stamps(stamps)
+    if rc != 0:
+        raise RuntimeError(f"reading the stage stamps failed: CUDA error {rc}")
+    return dict(zip(STAGES + ("kernel",), list(stamps)))
 
 
 class FusedLSTMEpoch(FusedEpoch):

@@ -26,6 +26,7 @@ Adam turns the rounding of a near-zero gradient into a visible move (see
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -426,7 +427,7 @@ def test_row_sums_match_plain_at_odd_widths(cuda, n_obs):
 
 def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="static",
                opt=("adam", 0.01), loss="nseLoss", agg="sum", shuffle=True, epochs=2, n=1500,
-               nan_frac=0.0, mask_first=0, seed=0):
+               nan_frac=0.0, mask_first=0, seed=0, cluster=0):
     cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
     cols["reco"][:mask_first] = np.nan
     m = et.construct_hybrid_model(
@@ -444,6 +445,8 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
     ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
     fn = et.make_fused_lstm_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    if cluster:  # a geometry the plan picks for another batch
+        fn.plan = dataclasses.replace(fn.plan, cluster=cluster)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
@@ -471,18 +474,35 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
          shuffle=False, n=600),
     dict(nan_frac=0.3, batch=100, loss="mse"),                       # ragged last batch
     dict(shuffle="batches", loss="mse", agg="mean", out_steps=10),   # every step has a target
-    dict(steps=32), dict(steps=64, n=600),                           # smaller tiles
+    dict(steps=32), dict(steps=64, n=600),                           # fewer windows a block
     dict(hidden=32, loss="mse"), dict(hidden=64, n=400, epochs=1),   # each compiled hidden size
     dict(hidden=5, steps=3, batch=7, n=60),
+    dict(batch=512, norm=False, loss="mse", n=4000, epochs=1),       # the JAX bench's shape
+    dict(batch=1000, loss="mse", n=3000, epochs=1),                  # more than a cluster holds
+    dict(hidden=4, steps=300, out_steps=300, norm=False, loss="mse", n=700, epochs=1),  # 3 of 4
 ], ids=str)
 def test_lstm_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
     _lstm_case(cuda, **kw)
 
 
 def test_lstm_tiles_follow_the_window(cuda):
+    windows = []
     for steps, rows in ((10, 64), (32, 32), (64, 16)):
         _, fn = _lstm_case(cuda, steps=steps, n=300, epochs=1)
-        assert fn.plan.sizes.tile_rows(steps, 1) == rows
+        assert fn.plan.sizes.tile_rows(steps, 1) == rows  # the envelope
+        g = fn.plan.geometry(128, steps, 1)
+        assert g.cluster * g.windows * g.tiles >= 128
+        windows.append(g.windows)
+    assert windows == [16, 16, 8]  # a block holds fewer windows as the window grows
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_lstm_every_cluster_size_matches_plain_and_repeats_bitwise(cuda, cluster):
+    """Every geometry the plan can pick at the main shape: one block walking
+    eight tiles, 2 to 8 blocks, and the non-portable cluster of 16."""
+    _, fn = _lstm_case(cuda, cluster=cluster, epochs=2)
+    g = fn.plan.geometry(128, 10, 1)
+    assert g.cluster == cluster and g.tiles == {1: 8, 2: 4, 4: 2}.get(cluster, 1)
 
 
 def test_lstm_masked_batches_count_no_step(cuda):

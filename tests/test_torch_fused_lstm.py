@@ -12,6 +12,7 @@ torch's transcendentals."""
 
 import copy
 import ctypes
+import dataclasses
 import re
 from pathlib import Path
 
@@ -276,16 +277,132 @@ def test_kernel_source_and_ctypes_mirror_agree():
     assert '#include "eh_device.cuh"' in src and "--use_fast_math" in src  # only to disown it
     defines = dict(re.findall(r"#define (EH_LSTM_\w+) (\d+)", src))
     assert int(defines["EH_LSTM_MAX_OUT"]) == fl.MAX_LSTM_OUT
-    assert int(defines["EH_LSTM_THREADS"]) == fl.LSTM_THREADS
+    assert int(defines["EH_LSTM_MAX_CLUSTER"]) == fl.MAX_CLUSTER
+    assert f"#define EHL_MAX_THREADS {fl._MAX_THREADS}" in src
     body = re.search(r"struct EhFusedLstmArgs \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"(\w+)(?:\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
     assert fields == [name for name, _ in fl._Args._fields_]
+    assert fields[-7:] == ["threads", "lanes", "windows", "cluster", "tiles", "stages", "res_floats"]
     assert ctypes.sizeof(fl._Args) % 8 == 0
     for width in fl._HIDDEN_WIDTHS:
         assert f"case {width}: return ehl_launch<{width}>" in src
-    for rows in fl.LSTM_TILE_ROWS:
-        assert f"tr != {rows}" in src
+    for c in (1, 2, 4, 8):
+        assert f"c != {c}" in src
+    assert "c != EH_LSTM_MAX_CLUSTER" in src
     assert "atomicAdd" not in src and "cublas" not in src.lower()
+    stamps = re.search(r"#define EHL_N_STAMPS (\d+)", src).group(1)
+    assert int(stamps) == len(fl.STAGES) + 1
+    # the cluster launch and the folding tree are the shared header's, not copies
+    header = CU_SOURCE.with_name("eh_device.cuh").read_text()
+    for name in ("eh_launch_cluster", "ehe_fold", "ehe_warp_sum", "ehe_cp_async4"):
+        assert name in header
+    assert "cudaLaunchKernelEx" not in src + CU_SOURCE.with_name("fused_epoch.cu").read_text()
+
+
+def test_smem_formula_matches_the_source():
+    """``_Sizes.smem_floats`` against ``ehl_smem_floats``'s return
+    expression, parsed from the source and evaluated on the same numbers."""
+    src = CU_SOURCE.read_text()
+    body = re.search(r"static size_t ehl_smem_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    expr = re.search(r"return (.*?);", body, re.S).group(1).replace("(size_t)", "")
+    expr = re.sub(r"a->(\w+)", r"a_\1", " ".join(expr.split()))
+    rng = np.random.default_rng(0)
+    for _ in range(60):
+        f, h, p, g, k, t = (int(rng.integers(lo, hi)) for lo, hi in
+                            ((1, 65), (1, 65), (1, 9), (0, 9), (0, 5), (1, 5)))
+        norm = bool(rng.integers(0, 2))
+        steps = int(rng.integers(1, 300))
+        out_steps = int(rng.integers(1, steps + 1))
+        lanes = int(rng.choice([8, 16, 32]))
+        windows = int(rng.integers(1, 65))
+        n_params = (2 * f if norm else 0) + 4 * h * (f + h + 1) + p * (h + 1) + g
+        sizes = fl._Sizes(n_params, f, h, p, g, k, t, norm)
+        names = dict(F=f, P=p, G=g, K=k, T=t, nw=-(-windows * lanes // 32), W=windows, TO=out_steps,
+                     a_n_params=n_params, a_res_floats=sizes.pair_features(), a_n_steps=steps,
+                     a_lanes=lanes, ehl_ld=lambda cols: cols | 1, min=min)
+        want = eval(expr, {"__builtins__": {}}, names)  # noqa: S307 - the repository's own source
+        assert want == sizes.smem_floats(steps, out_steps, windows, lanes)
+
+
+def _plan(hidden=16, norm="static", loss="nseLoss"):
+    tm = et.construct_hybrid_model(**_spec(norm, hidden), device="cpu")
+    return fl.plan_fused_lstm(tm, ("adam", 0.01), _ll(loss))
+
+
+def test_geometry_of_the_main_and_bench_shapes():
+    """The main path's 128 windows over a cluster of 8 blocks of 16 windows,
+    a window in 16 lanes; the bench's 512 over the non-portable cluster of 16
+    blocks, 2 tiles of 16 each, or 8 blocks of 4 tiles where the plan says."""
+    plan = _plan(16)
+    assert plan.geometry(128, 10, 1) == fl.LSTMGeometry(256, 16, 16, 8, 1, 0)
+    bench = _plan(16, norm=False, loss="mse")
+    assert bench.geometry(512, 10, 1) == fl.LSTMGeometry(256, 16, 16, 16, 2, 0)
+    forced = dataclasses.replace(bench, cluster=8)
+    assert forced.geometry(512, 10, 1) == fl.LSTMGeometry(256, 16, 16, 8, 4, 0)
+    assert _plan(64).geometry(128, 10, 1).lanes == 32 and _plan(8).geometry(128, 10, 1).lanes == 8
+    # a window too long for a whole warp's windows takes a warp that is not full
+    assert _plan(8, norm=False, loss="mse").geometry(128, 300, 300) == fl.LSTMGeometry(
+        32, 8, 3, 16, 3, 0)
+
+
+@pytest.mark.parametrize("hidden", [1, 4, 8, 16, 24, 32, 48, 64])
+def test_geometry_is_a_pure_function_that_covers_the_batch(hidden):
+    plan = _plan(hidden)
+    twin = _plan(hidden)
+    for batch in (1, 7, 31, 100, 128, 512, 1000, 5000):
+        for steps, out_steps in ((1, 1), (10, 1), (10, 10), (64, 1)):
+            if plan.sizes.tile_rows(steps, out_steps) is None:
+                continue
+            g = plan.geometry(batch, steps, out_steps)
+            assert g == plan.geometry(batch, steps, out_steps) == twin.geometry(batch, steps, out_steps)
+            assert g.lanes == min(32, plan.width) and 32 % g.lanes == 0
+            assert g.threads % 32 == 0 and g.threads == -(-g.windows * g.lanes // 32) * 32
+            assert g.threads <= fl._MAX_THREADS and g.stages == 0
+            assert g.cluster in (1, 2, 4, 8, 16) and g.cluster * g.windows * g.tiles >= batch
+            block = -(-batch // g.cluster)
+            assert (g.tiles - 1) * g.windows < block <= g.tiles * g.windows
+            assert plan.sizes.smem_floats(steps, out_steps, g.windows, g.lanes) * 4 <= fe.MAX_SMEM_BYTES
+
+
+def _first_kernel_rows(sizes, steps, out_steps):
+    """The envelope of the kernel's first form, frozen: the largest of 128,
+    64, 32, 16 and 8 checkpoint rows that fit one block of 512 threads."""
+    f = 2 * sizes.f if sizes.norm else sizes.f
+    res = (steps * (2 * sizes.h + f) + 6 * sizes.h + out_steps * sizes.p + sizes.g
+           + (2 * sizes.f if sizes.norm else 0))
+    fixed = (2 * sizes.n_params + 2 * sizes.f + (2 * sizes.p + 2 * sizes.g + sizes.k)
+             + (sizes.g + sizes.k) + sizes.g + 2 * sizes.f + sizes.t + 4 + 2 * 512)
+    for rows in (128, 64, 32, 16, 8):
+        if 4 * (fixed + res * (rows + 1)) <= 227 * 1024:
+            return rows
+    return None
+
+
+@pytest.mark.parametrize("hidden,norm", [(h, n) for h in (1, 5, 8, 16, 17, 32, 48, 64)
+                                         for n in (True, False)], ids=str)
+def test_envelope_is_unchanged_and_every_admitted_window_has_a_geometry(hidden, norm):
+    """The redesign admits and refuses exactly the windows the first kernel
+    did, over features, outputs, globals, fixed values, targets and windows,
+    and every admitted one fits shared memory at every batch size."""
+    base = _plan(hidden, norm="static" if norm else False)
+    width = base.width
+    for f, p, g, k, t in ((1, 1, 1, 0, 1), (2, 1, 1, 0, 1), (7, 8, 16, 0, 4), (33, 4, 8, 8, 4),
+                          (64, 8, 0, 2, 2)):
+        n_params = (2 * f if norm else 0) + 4 * hidden * (f + hidden + 1) + p * (hidden + 1) + g
+        plan = dataclasses.replace(
+            base, in_dim=f, out_dim=p, n_params=n_params, global_names=("g",) * g,
+            fixed_names=("k",) * k, target_names=("y",) * t)
+        assert plan.width == width and plan.sizes.n_params == n_params
+        for steps in (1, 2, 6, 10, 32, 64, 100, 128, 200, 256, 400, 1000):
+            for out_steps in sorted({1, steps}):
+                frozen = _first_kernel_rows(plan.sizes, steps, out_steps)
+                assert plan.sizes.tile_rows(steps, out_steps) == frozen
+                if frozen is None:
+                    continue
+                for batch in (1, 128, 512, 1000):
+                    geo = plan.geometry(batch, steps, out_steps)
+                    assert plan.sizes.smem_floats(steps, out_steps, geo.windows,
+                                                  geo.lanes) * 4 <= fe.MAX_SMEM_BYTES
 
 
 def test_kernel_arguments_pack_the_plan():
