@@ -77,15 +77,22 @@ Phases, one or more lines each; any failure exits non-zero:
     1,024 rows, and batch 64), and at its edges on smaller models (widths that
     are no multiple of the tile, mae with sgd and no norm, NaN targets with a
     ragged last batch, a fully masked first batch, ``shuffle="batches"``), with
-    a second run that must give the same bits;
+    a second run that must give the same bits; the tower's Adam runs are held
+    against the plain version in float32 and in float64 (the float32 one is no
+    reference where it misses the criterion against its own float64 run);
+    each case prints the route, tile and pieces the plan chose for every
+    layer's products;
 17. main path: ``train()`` on the wide model, hidden layers [1024, 512, 256,
     128, 64], swish, static input norm, 20,480 rows split 80/20 into 16 batches
     of 1,024, 20 epochs of Adam at 0.01 on mse: it must take kernel 3 after its
     gate (one launcher call per epoch), return finite validation predictions,
     and end with a best validation mse below ``WIDE_VAL_LIMIT`` and Q10 near 2;
 18. times: kernel 3 per epoch and per step at the main shape and at batch 64,
-    each of its kernels by name, its plain version, ``train()`` wall on both
-    engines and the device's busy share of the fused ``train()``.
+    each of its kernels by name, the gaps between its launches, its plain
+    version, the step's layer products through ``torch.matmul`` in float32 and
+    TF32 (a yardstick), the tensor-core instructions ``cuobjdump -sass`` finds
+    in each of its kernels, ``train()`` wall on both engines and the device's
+    busy share of the fused ``train()``.
 
 Models are built without a ``device=`` argument and must land on the card.
 The last three lines are: a JSON object ``{"kernels": [...]}`` with one
@@ -102,6 +109,7 @@ import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -208,20 +216,38 @@ def device_ms(fn, reps: int, what: str = "") -> float:
                        "(does a call wait for the device?)")
 
 
+def profiled_averages(fn, reps: int, name: str = "", parts=("",)) -> list:
+    """``torch.profiler``'s device averages over ``reps`` calls of ``fn``,
+    of the activities whose name contains ``name``. A trace now and then
+    comes back without the records of kernels that were launched (the launch
+    counters show that they ran), so a trace that holds no such activity
+    whose name contains each of ``parts`` is taken again, at most three
+    times in all, before it is an error."""
+    from torch.profiler import ProfilerActivity, profile
+
+    what = f"activity named *{name}*" + "".join(f", *{p}*" for p in parts if p)
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if name in e.key and e.self_device_time_total > 0]
+        if all(any(p in e.key for e in events) for p in parts):
+            return events
+        log("times", f"the profiler's trace {attempt + 1} of 3 held no device {what}")
+    raise AssertionError(f"the profiler saw no device {what}")
+
+
 def profiled_device_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn``: the sum of the durations of
     the device activities ``torch.profiler`` records over ``reps`` calls.
     For calls of thousands of small kernels, which cannot all wait behind a
     sleep kernel (the launch queue holds about a thousand: past that the
     host blocks until the device has run them)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    events = profiled_averages(fn, reps)
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
 
 def host_ms(fn, reps: int) -> float:
@@ -332,10 +358,11 @@ def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, e
     return what, fn, fn.plan.pack(model), tensors, perms
 
 
-# the card's published peaks (H100 SXM): device memory rate and float32
-# outside the tensor cores
+# the card's published peaks (H100 SXM): device memory rate, float32 outside
+# the tensor cores, TF32 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 
 def forward_flops(dims) -> int:
@@ -353,25 +380,16 @@ def bound(*, bytes_moved: int, flops: int) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def kernel_split_ms(fn, reps: int, name: str) -> dict:
+def kernel_split_ms(fn, reps: int, name: str, parts=("",)) -> dict:
     """Device milliseconds per call of ``fn`` in each kernel whose name
     contains ``name``, keyed by what follows it in the kernel's name, from
-    ``torch.profiler``; ``"all"`` is their sum."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    ``torch.profiler`` (a trace that misses one of ``parts`` is taken
+    again); ``"all"`` is their sum."""
     out = {}
-    for e in prof.key_averages():
-        if name in e.key:
-            rest = re.split(r"[(<]", e.key.split(name, 1)[1])[0]
-            out[rest] = out.get(rest, 0.0) + e.self_device_time_total / 1e3 / reps
+    for e in profiled_averages(fn, reps, name, parts):
+        rest = re.split(r"[(<]", e.key.split(name, 1)[1])[0]
+        out[rest] = out.get(rest, 0.0) + e.self_device_time_total / 1e3 / reps
     out["all"] = sum(out.values())
-    if out["all"] <= 0:
-        raise AssertionError(f"the profiler saw no kernel named *{name}*")
     return out
 
 
@@ -665,9 +683,11 @@ def multisite_times(et, card, main) -> dict:
     dev = {"kernels": [], "grad": [], "update": [], "call": [], "plain": []}
     wall = {"kernel": [], "plain": []}
     for i in range(5):
-        dev["kernels"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_") / 5)
-        dev["grad"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_grad") / 5)
-        dev["update"].append(kernel_device_ms(calls["kernel"], 4, "eh_ms_update") / 5)
+        # one trace for the two kernels and their sum
+        split = kernel_split_ms(calls["kernel"], 4, "eh_ms_", ("eh_ms_grad", "eh_ms_update"))
+        dev["kernels"].append(split["all"] / 5)
+        for part in ("grad", "update"):
+            dev[part].append(sum(v for k, v in split.items() if k.startswith(part)) / 5)
         dev["call"].append(device_ms(calls["kernel"], 10, "kernel 5") / 5)
         dev["plain"].append(profiled_device_ms(calls["plain"], 2))
         for k in (list(wall) if i % 2 == 0 else list(reversed(list(wall)))):
@@ -992,6 +1012,13 @@ def lstm_times(et, card, main, chain_build) -> dict:
 # criterion: at most WIDE_ADAM_SHARE of the elements of the parameters and of
 # each moment beyond TOL_EPOCH * max(1, |ref|), no parameter apart by more than
 # 2 lr (one step's full swing), the loss within WIDE_LOSS_TOL * max(1, |ref|).
+# The Adam runs are held to it against the plain version in float32 and
+# against the plain version run in float64 on the same rows, except that the
+# float32 plain version is no reference where it misses the criterion against
+# its own float64 run. Such a run amplifies rounding: at batch 64, from its
+# 25th step on, the float32 plain version on an H100 ends 292,642 parameters
+# beyond TOL_EPOCH from float64, the same on a CPU 76,678, the float64 run
+# started 2^-24 away 1,964 (tools/dev_fused_wide_gpu.py --drift).
 WIDE_HIDDEN = (1024, 512, 256, 128, 64)
 WIDE_ROWS, WIDE_BATCH = 20_480, 1024
 WIDE_TRAIN_KW = dict(nepochs=20, batchsize=WIDE_BATCH, optimizer=("adam", 0.01),
@@ -1053,6 +1080,54 @@ def beyond(got, ref, tol):
     return int(out.sum()), diff.numel(), float(diff.max()) if diff.numel() else 0.0
 
 
+def adam_misses(got, ref, lr):
+    """``(notes, misses, largest |diff|)``: ``got`` against ``ref`` under the
+    Adam runs' criterion, elements beyond TOL_EPOCH per vector and the loss."""
+    notes, misses, worst = [], [], 0.0
+    for key in ("params", "m", "v"):
+        out, total, err = beyond(got[key].double(), ref[key].double(), TOL_EPOCH)
+        worst = max(worst, err)
+        notes.append(f"{key} {out} beyond (max |diff| {err:.3e})")
+        if out > WIDE_ADAM_SHARE * total:
+            misses.append(f"{key}: {out} of {total} beyond, more than {WIDE_ADAM_SHARE:.0%}")
+        if key == "params" and err > 2 * lr:
+            misses.append(f"a parameter {err:.3e} apart, more than 2 lr")
+    g, r = float(got["loss"].reshape(())), float(ref["loss"].reshape(()))
+    notes.append(f"loss {g:.6f} against {r:.6f}")
+    if not abs(g - r) <= WIDE_LOSS_TOL * max(1.0, abs(r)):
+        misses.append(f"the loss {g:.6f} against {r:.6f}, beyond {WIDE_LOSS_TOL} x max(1, |ref|)")
+    return ", ".join(notes), misses, worst
+
+
+def wide_reference64(fn, packed, tensors, perms) -> dict:
+    """Kernel 3's plain version run in float64 on the case's rows."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    data = fn._make_data(fn.plan, tensors)
+    as64 = lambda cols: tuple(c.double() for c in cols)  # noqa: E731
+    data64 = fe.FusedData(data.x.double(), as64(data.forcing), as64(data.y), as64(data.mask),
+                          data.n_batches, data.batch)
+    o = fe.init_fused_opt_state(packed)
+    p, o, loss = fw.fused_wide_reference(
+        fn.plan, fe.FusedParams(packed.params.double(), packed.bn.double()),
+        {"m": o["m"].double(), "v": o["v"].double(), "t": o["t"]}, data64,
+        fn.rows(tensors, perms))
+    return {"params": p.params, "m": o["m"], "v": o["v"], "loss": loss.reshape(1)}
+
+
+def wide_geometry_note(fn, batch) -> str:
+    """The plan's route, tile and pieces for each layer's products."""
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    notes = []
+    for l, geo in enumerate(fw.wide_geometry(fn.plan.dims, batch)):
+        prods = ", ".join(f"{what} {prod.bm}x{prod.bn}/{prod.splits}" for what, prod in
+                          (("fwd", geo.forward), ("data", geo.data), ("wgt", geo.weight)))
+        notes.append(f"L{l} {'TC' if geo.route == fw.TENSOR_CORES else 'FMA'} ({prods})")
+    return "; ".join(notes)
+
+
 def wide_kernel_checks(et, train_cols) -> float:
     """Phase 16: kernel 3 against its plain version, and against itself."""
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
@@ -1089,28 +1164,33 @@ def wide_kernel_checks(et, train_cols) -> float:
                            f"equal (ok)")
         elif held == "adam":
             lr = dict(fn.plan.hyper)["learning_rate"]
+            ref64 = wide_reference64(fn, packed, tensors, perms)
+            plain_note, plain_misses, _ = adam_misses(ref, ref64, lr)
+            against = {"float64": ref64} if plain_misses else {"float32": ref, "float64": ref64}
             notes = []
-            for key in ("params", "m", "v"):
-                out, total, err = beyond(got[key], ref[key], TOL_EPOCH)
+            for name, r in against.items():
+                note, misses, err = adam_misses(got, r, lr)
+                notes.append(f"the kernel against the plain version in {name}: {note}")
+                if misses:
+                    raise AssertionError(f"{what}: {notes[-1]}: " + "; ".join(misses))
                 worst = max(worst, err)
-                notes.append(f"{key}: {out} of {total} beyond {TOL_EPOCH} x max(1, |ref|), "
-                             f"max |diff| {err:.3e}")
-                if out > WIDE_ADAM_SHARE * total:
-                    raise AssertionError(f"{what}: {notes[-1]} (more than {WIDE_ADAM_SHARE:.0%})")
-                if key == "params" and err > 2 * lr:
-                    raise AssertionError(f"{what}: a parameter is {err:.3e} apart, more than 2 lr")
-            err = compare({"loss": got["loss"]}, {"loss": ref["loss"]}, what, WIDE_LOSS_TOL)
-            log("kernel3", f"{what}: {steps} steps, " + "; ".join(notes) + f"; loss "
-                           f"{float(got['loss']):.6f} against {float(ref['loss']):.6f} (|diff| "
-                           f"{err:.3e}); criterion: at most {WIDE_ADAM_SHARE:.0%} of the elements "
-                           f"beyond, no parameter more than 2 lr apart, the loss within "
+            if plain_misses:
+                note = adam_misses(got, ref, lr)[0]
+                notes.append(f"the kernel against the plain version in float32 (no reference "
+                             f"here): {note}")
+            log("kernel3", f"{what}: {steps} steps; " + "; ".join(notes) + "; the plain version "
+                           f"in float32 against float64: {plain_note}"
+                           + (f" (misses the criterion: {'; '.join(plain_misses)})"
+                              if plain_misses else "") + f"; criterion: at most "
+                           f"{WIDE_ADAM_SHARE:.0%} of the elements beyond {TOL_EPOCH} x max(1, "
+                           f"|ref|), no parameter more than 2 lr apart, the loss within "
                            f"{WIDE_LOSS_TOL} x max(1, |ref|); second run bitwise equal (ok)")
         else:
             err = compare(got, ref, what, TOL_EPOCH)
             worst = max(worst, err)
-            log("kernel3", f"{what}: {steps} steps, weight-gradient splits "
-                           f"{fn.plan.layout(tensors.weight.shape[1]).splits}, max |diff| "
-                           f"{err:.3e}, second run bitwise equal (ok)")
+            log("kernel3", f"{what}: {steps} steps, max |diff| {err:.3e}, second run bitwise "
+                           "equal (ok)")
+        log("kernel3", f"{what}: products {wide_geometry_note(fn, int(tensors.weight.shape[1]))}")
         if "fully masked" in what and steps != 7:
             raise AssertionError(f"{what}: {steps} steps counted, not 7")
     return worst
@@ -1157,6 +1237,52 @@ def wide_main_path(et, card, cols) -> dict:
     return dict(launches=launches, wall=wall, steps=steps)
 
 
+def wide_products(dims, batch):
+    """``(what, m, n, k)`` of every layer product of a step of kernel 3."""
+    out = []
+    for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        out += [(f"layer {l} forward", batch, dout, din), (f"layer {l} data", batch, din, dout),
+                (f"layer {l} weight", dout, din, batch)]
+    return out
+
+
+def wide_matmul_yardstick(dims, batch) -> dict:
+    """Device ms of a step's layer products through torch.matmul, in float32
+    and in TF32: a yardstick (the port never calls it)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"float32": 0.0, "tf32": 0.0}
+    for _, m, n, k in wide_products(dims, batch):
+        a = torch.randn(m, k, device="cuda", generator=g)
+        b = torch.randn(k, n, device="cuda", generator=g)
+        for name, tf32 in (("float32", False), ("tf32", True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            f = lambda: a @ b  # noqa: E731
+            f()
+            out[name] += statistics.median(device_ms(f, 20, "torch.matmul") for _ in range(3))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def tensor_core_instructions(lib_path) -> dict:
+    """``{kernel: count}`` of tensor-core instructions (``HGMMA``, or ``HMMA``
+    on TF32) that ``cuobjdump -sass`` finds in each of kernel 3's kernels."""
+    from easyhybrid_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if "eh_wide" in found.group(1) else None
+            if name:
+                out.setdefault(name, 0)
+        elif name and ("HGMMA" in line or ("HMMA" in line and "TF32" in line)):
+            out[name] += 1
+    return out
+
+
 def wide_times(et, card, main, cols, train_cols) -> dict:
     """Phase 18: kernel 3 against its plain version per epoch and step at the
     main shape and at batch 64; ``train()`` wall on both engines and the
@@ -1179,7 +1305,7 @@ def wide_times(et, card, main, cols, train_cols) -> dict:
             host_ms(f, 1)  # warm-up
         nb, batch = (int(v) for v in tensors.weight.shape)
         dev = {"kernel": [], "plain (profiler)": []}
-        if key == "main":  # 352 launches a call: one call can wait behind a sleep kernel
+        if key == "main":  # 353 launches a call: one call can wait behind a sleep kernel
             dev["kernel (events)"] = []
         wall = {"kernel": [], "plain": []}
         split = {}
@@ -1194,8 +1320,14 @@ def wide_times(et, card, main, cols, train_cols) -> dict:
         med = {k: statistics.median(v) for k, v in dev.items()}
         wall_ms = {k: statistics.median(v) for k, v in wall.items()}
         dims = fn.plan.dims
-        b = bound(bytes_moved=nb * (batch * 4 * 6 + fn.plan.n_params * 4 * 6),
-                  flops=nb * batch * 3 * forward_flops(dims))
+        flops = nb * batch * 3 * forward_flops(dims)
+        bytes_moved = nb * (batch * 4 * 6 + fn.plan.n_params * 4 * 6)
+        b32 = bound(bytes_moved=bytes_moved, flops=flops)
+        # the products on the tensor cores in 3xTF32: three TF32 products each
+        by_bytes, by_tc = bytes_moved / PEAK_BYTES_PER_S * 1e3, 3 * flops / PEAK_TF32_FLOPS * 1e3
+        b = {"bound_ms": max(by_bytes, by_tc),
+             "bound_by": "bytes" if by_bytes >= by_tc else "operations"}
+        yard = wide_matmul_yardstick(dims, batch)
         log("times", f"[{card}] kernel 3, one epoch of {nb} steps ({what}, tower "
                      f"{list(WIDE_HIDDEN)}), median of 5: device ms per epoch "
                      + ", ".join(f"{k} {v:.4f} ({v / nb:.4f} a step)" for k, v in med.items())
@@ -1203,10 +1335,25 @@ def wide_times(et, card, main, cols, train_cols) -> dict:
                      + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()) if k != "all")
                      + "; wall ms per epoch "
                      + ", ".join(f"{k} {v:.3f}" for k, v in wall_ms.items())
-                     + f"; bound {b['bound_ms']:.4f} ms per epoch ({b['bound_by']}), "
-                     f"{nb * batch * 3 * forward_flops(dims) / med['kernel'] / 1e9:.2f} TFLOP/s")
+                     + f"; bound {b['bound_ms']:.4f} ms per epoch (3xTF32 on the tensor cores, "
+                     f"{b['bound_by']}; float32 FMA {b32['bound_ms']:.4f}), "
+                     f"{flops / med['kernel'] / 1e9:.2f} TFLOP/s of float32 products; the step's "
+                     f"products through torch.matmul (a yardstick): float32 "
+                     f"{yard['float32']:.4f} ms, TF32 {yard['tf32']:.4f} ms a step")
+        log("times", f"[{card}] kernel 3, {what}: products {wide_geometry_note(fn, batch)}")
+
         out[key] = dict(kernel_ms=med["kernel"], plain_ms=med["plain (profiler)"], steps=nb,
-                        batch=batch, bound=b)
+                        batch=batch, bound=b, library_ms=nb * yard["float32"])
+
+    from easyhybrid_tpu_torch.ops import _build
+
+    counts = tensor_core_instructions(_build.build_library().path)
+    products = {k: v for k, v in counts.items() if "tc_kernel" in k}
+    if not products or not all(products.values()):
+        raise AssertionError(f"tensor-core instructions in kernel 3's products: {products}")
+    log("times", f"[{card}] kernel 3, tensor-core instructions (HGMMA, or HMMA on TF32) by "
+                 "cuobjdump -sass in each kernel of the built library: "
+                 + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
 
     t0 = time.perf_counter()
     torch_result = et.train(wide_model(et), cols, use_kernel=False, **WIDE_TRAIN_KW)
@@ -1581,9 +1728,12 @@ def main() -> None:
         "plain_ms": wide_ms["plain_ms"],
         # one epoch at the main path's shape: per step every row's 2 predictors, forcing,
         # target, mask and index once, every parameter and its two moments read and
-        # written once; three passes of the layer products
+        # written once; three passes of the layer products, each three TF32 products on
+        # the tensor cores
         **wide_ms["bound"],
-        "library_ms": None,  # no single PyTorch call computes the step
+        # no single PyTorch call computes the step: the step's layer products through
+        # torch.matmul in float32, a yardstick
+        "library_ms": wide_ms["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -188,6 +188,9 @@ def load_library() -> ctypes.CDLL:
     ptr, num = ctypes.c_void_p, ctypes.c_int
     lib.eh_fused_wide.argtypes = [ptr, ptr]  # the arguments and the stream: no width to pick
     lib.eh_fused_wide.restype = num
+    lib.eh_wide_tc_product.argtypes = [ptr, num, ptr, num, ptr, num, num, num, num, num, num, num,
+                                       ptr]
+    lib.eh_wide_tc_product.restype = num
     for fn, argtypes in (
         (lib.eh_prim_site_gather, [ptr, ptr, ptr, num, num, ptr]),
         (lib.eh_prim_site_reduce, [ptr, ptr, num, num, ptr]),

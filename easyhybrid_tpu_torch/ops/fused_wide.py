@@ -16,8 +16,14 @@ host synchronisation in between: the row gather with the input norm, a tiled
 product per layer forward, a head kernel (bound scaling, the mechanistic
 model in its kernel form, the loss and its cotangent), two tiled products per
 layer backward, and the optimizer update, which also folds the partial sums
-the others left. The layer products are the kernels' own (shared-memory
-tiles, float32 FMA); no library product is on the path.
+the others left. The layer products are the kernels' own; no library product
+is on the path. A layer whose two sides are both at least ``_TC_MIN`` wide
+runs its forward, data-gradient and weight-gradient products on the tensor
+cores in 3xTF32 (``wgmma`` on operands split into a TF32 value and its TF32
+remainder, about float32's accuracy); the edge layers (two inputs, one
+output) keep a float32 FMA tile. :func:`wide_geometry` chooses every
+product's route, output tile and the pieces its inner dimension is cut into,
+from the widths and the batch alone; the launcher checks what it is given.
 
 The packed layout is kernel 2's (:class:`~.fused_epoch.PackedLayout`): norm
 scale and bias, each layer's ``W`` and ``b``, the raw globals. As in the JAX
@@ -66,12 +72,15 @@ from .fused_forward import (
 __all__ = [
     "FusedWideEpoch",
     "FusedWidePlan",
+    "LayerGeometry",
+    "Product",
     "batch_scales",
     "fused_wide_reference",
     "fused_wide_unsupported_reason",
     "launch_fused_wide",
     "make_fused_wide_epoch",
     "supports_fused_wide",
+    "wide_geometry",
     "wide_layout",
 ]
 
@@ -81,12 +90,114 @@ WIDE_LOSSES = ("mse", "mae")
 _LOSS_KINDS = {"mse": 0, "mae": 1}  # squared or absolute differences
 #: the share of the card's memory the activations and the partial sums may take
 WORKSPACE_SHARE = 0.25
-_TILE = 64            # the products' output tile, EHW_TILE of the source
-_DEPTH = 16           # rows of a product's shared-memory tile, EHW_BK
-_TARGET_BLOCKS = 2 * 132  # blocks a weight-gradient product aims at: two per multiprocessor
+_TILE = 64            # the FMA products' output tile, EHW_TILE of the source
+_DEPTH = 16           # rows of an FMA product's shared-memory tile, EHW_BK
+_TC_DEPTH = 32        # inner extent of a staged tensor-core slice, EHW_TC_BK
+_TC_MIN = 16          # the narrowest layer side whose products take the tensor cores, EHW_TC_MIN
+_UPDATE_TILE = 32     # the update's tile of a tensor-core layer's W, EHW_UTILE
+_SMS = 132            # multiprocessors of an H100 SXM
+_TARGET_BLOCKS = 2 * _SMS  # blocks an FMA weight-gradient product aims at: two per multiprocessor
 _MIN_SPLIT_ROWS = 64  # the fewest batch rows worth a block of their own
+_MAX_SPLITS = 16      # the most pieces a product's inner dimension is cut into
 _HEAD_THREADS = 256   # rows of a head block, EHW_HEAD_THREADS
 _MAX_GRID_Y = 65535   # CUDA's cap on a grid's second dimension, the products' row tiles
+TENSOR_CORES, FMA = "tensor cores", "fma"
+
+
+# --------------------------------------------------------------------------
+# launch geometry of the layer products
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Product:
+    """One layer product's launch: its ``route`` (:data:`TENSOR_CORES` or
+    :data:`FMA`), an output tile of ``bm`` x ``bn`` a block, and its inner
+    dimension in ``splits`` pieces of ``split_k`` (a whole number of the
+    route's depth, none empty)."""
+
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    split_k: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGeometry:
+    """The three products of one layer of ``din`` inputs and ``dout``
+    outputs over a batch: the forward (batch x dout over din), the data
+    gradient (batch x din over dout) and the weight gradient (dout x din
+    over the batch), all on one route."""
+
+    forward: Product
+    data: Product
+    weight: Product
+
+    @property
+    def route(self) -> str:
+        return self.forward.route
+
+
+_CLUSTER_MAX = 8      # the portable cluster size: the most pieces of a forward or data product
+
+
+def _tc_product(m: int, n: int, k: int, summed_by_cluster: bool) -> Product:
+    """The tensor-core product of ``m`` x ``n`` over ``k``: an output tile of
+    64 rows while ``m`` fits, else 128, by 64 columns, and ``k`` cut into the
+    fewest pieces (a power of two) at which the blocks reach one a
+    multiprocessor, each piece a whole number of staged slices. A forward or
+    data product's pieces sum their tile in a cluster (at most
+    ``_CLUSTER_MAX``, none empty); a weight gradient's pieces (at most
+    ``_MAX_SPLITS``) leave partial tiles that the update sums."""
+    bm, bn = (64 if m <= 64 else 128), 64
+    depth = -(-k // _TC_DEPTH)
+    tiles = -(-m // bm) * -(-n // bn)
+    cap = min(_CLUSTER_MAX if summed_by_cluster else _MAX_SPLITS, depth)
+    want = 1
+    while want * 2 <= cap and tiles * want < _SMS:
+        want *= 2
+    while True:
+        split_k = -(-depth // want) * _TC_DEPTH
+        splits = -(-k // split_k)
+        if splits == want or not summed_by_cluster:
+            return Product(TENSOR_CORES, bm, bn, splits, split_k)
+        want //= 2
+
+
+def _fma_product(m: int, n: int, k: int) -> Product:
+    """The FMA product of ``m`` x ``n`` over ``k`` in tiles of 64: ``k`` cut
+    into a cluster of pieces (a power of two up to ``_CLUSTER_MAX``) of at
+    least four shared-memory tiles each, until the blocks fill the card."""
+    tiles = -(-m // _TILE) * -(-n // _TILE)
+    depth = -(-k // _DEPTH)
+    want = 1
+    while want * 2 <= min(_CLUSTER_MAX, depth // 4) and tiles * want < _SMS:
+        want *= 2
+    split_k = -(-depth // want) * _DEPTH
+    return Product(FMA, _TILE, _TILE, -(-k // split_k), split_k)
+
+
+@functools.lru_cache(maxsize=64)
+def wide_geometry(dims: Tuple[int, ...], batch: int) -> Tuple[LayerGeometry, ...]:
+    """Every layer's products over ``batch`` rows of an MLP of widths
+    ``dims``: on the tensor cores where both of the layer's sides are at
+    least ``_TC_MIN`` wide (:func:`_tc_product`), else on the FMA tile
+    (:func:`_fma_product`; its weight gradient splits the batch into at
+    least ``_MIN_SPLIT_ROWS`` rows a piece until the blocks reach
+    ``_TARGET_BLOCKS``)."""
+    out = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        if min(din, dout) >= _TC_MIN:
+            out.append(LayerGeometry(_tc_product(batch, dout, din, True),
+                                     _tc_product(batch, din, dout, True),
+                                     _tc_product(dout, din, batch, False)))
+        else:
+            tiles = -(-dout // _TILE) * -(-din // _TILE)
+            s, rows = _split(batch, -(-_TARGET_BLOCKS // tiles), _DEPTH)
+            out.append(LayerGeometry(_fma_product(batch, dout, din),
+                                     _fma_product(batch, din, dout),
+                                     Product(FMA, _TILE, _TILE, s, rows)))
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -99,14 +210,22 @@ class WideLayout:
     the workspace) and how each layer's weight gradient is split over the
     batch (``splits``, ``split_rows``) into partial tiles (``part_*``,
     offsets into the partials buffer) that the update kernel sums in split
-    order."""
+    order. A tensor-core layer also has its input and its output's
+    cotangent feature-major (``ws_ht``, ``ws_dt``) and its ``W`` transposed
+    (``ws_wt``; 0 for an FMA layer). The forward and data products' pieces
+    sum their tiles in shared memory (a thread-block cluster) and need no
+    room here."""
 
     ws_h0: int
     ws_xhat: int
     ws_d0: int
     ws_a: Tuple[int, ...]
     ws_d: Tuple[int, ...]
+    ws_ht: Tuple[int, ...]
+    ws_dt: Tuple[int, ...]
+    ws_wt: Tuple[int, ...]
     ws_floats: int
+    geometry: Tuple[LayerGeometry, ...]
     splits: Tuple[int, ...]
     split_rows: Tuple[int, ...]
     part_off: Tuple[int, ...]
@@ -143,22 +262,33 @@ def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int) -> WideLayout
         ws_a.append(off)
         ws_d.append(off + batch * width)
         off += 2 * batch * width
+    geometry = wide_geometry(tuple(dims), batch)
+    ws_ht, ws_dt, ws_wt = [], [], []
+    for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
+        if geo.route == TENSOR_CORES:
+            ws_ht.append(off)
+            ws_dt.append(off + batch * din)
+            ws_wt.append(off + batch * (din + dout))
+            off += batch * (din + dout) + din * dout
+        else:
+            ws_ht.append(0)
+            ws_dt.append(0)
+            ws_wt.append(0)
     splits, split_rows, part_off = [], [], []
     part = 0
-    for din, dout in zip(dims[:-1], dims[1:]):
-        tiles = -(-dout // _TILE) * -(-din // _TILE)
-        s, rows = _split(batch, -(-_TARGET_BLOCKS // tiles), _DEPTH)
-        splits.append(s)
-        split_rows.append(rows)
+    for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
+        splits.append(geo.weight.splits)
+        split_rows.append(geo.weight.split_k)
         part_off.append(part)
-        part += s * dout * (din + 1)
+        part += geo.weight.splits * dout * (din + 1)
     norm_splits, norm_rows = _split(batch, 64, 1)
     part_off_norm = part
     if has_norm:
         part += norm_splits * 2 * f
     return WideLayout(
         ws_h0=0, ws_xhat=ws_xhat, ws_d0=ws_d0, ws_a=tuple(ws_a), ws_d=tuple(ws_d),
-        ws_floats=off, splits=tuple(splits), split_rows=tuple(split_rows),
+        ws_ht=tuple(ws_ht), ws_dt=tuple(ws_dt), ws_wt=tuple(ws_wt), ws_floats=off,
+        geometry=geometry, splits=tuple(splits), split_rows=tuple(split_rows),
         part_off=tuple(part_off), norm_splits=norm_splits, norm_split_rows=norm_rows,
         part_off_norm=part_off_norm, part_floats=part,
         head_blocks=-(-batch // _HEAD_THREADS),
@@ -260,6 +390,9 @@ class _Args(ctypes.Structure):
         ("ws_off_d", ctypes.c_int64 * MAX_LAYERS),
         ("part_off", ctypes.c_int64 * MAX_LAYERS),
         ("part_off_norm", ctypes.c_int64),
+        ("ws_off_ht", ctypes.c_int64 * MAX_LAYERS),
+        ("ws_off_dt", ctypes.c_int64 * MAX_LAYERS),
+        ("ws_off_wt", ctypes.c_int64 * MAX_LAYERS),
         ("n_epochs", ctypes.c_int),
         ("n_batches", ctypes.c_int),
         ("batch", ctypes.c_int),
@@ -295,6 +428,17 @@ class _Args(ctypes.Structure):
         ("norm_splits", ctypes.c_int),
         ("norm_split_rows", ctypes.c_int),
         ("head_blocks", ctypes.c_int),
+        ("tc", ctypes.c_int * MAX_LAYERS),
+        ("fwd_bm", ctypes.c_int * MAX_LAYERS),
+        ("fwd_bn", ctypes.c_int * MAX_LAYERS),
+        ("fwd_splits", ctypes.c_int * MAX_LAYERS),
+        ("fwd_split_k", ctypes.c_int * MAX_LAYERS),
+        ("dat_bm", ctypes.c_int * MAX_LAYERS),
+        ("dat_bn", ctypes.c_int * MAX_LAYERS),
+        ("dat_splits", ctypes.c_int * MAX_LAYERS),
+        ("dat_split_k", ctypes.c_int * MAX_LAYERS),
+        ("wgt_bm", ctypes.c_int * MAX_LAYERS),
+        ("wgt_bn", ctypes.c_int * MAX_LAYERS),
     ]
 
 
@@ -422,6 +566,20 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
 # kernel launch and the epoch function
 # --------------------------------------------------------------------------
 
+def fill_geometry(a: _Args, lay: WideLayout) -> None:
+    """The tensor-core layers' workspace offsets and every product's launch
+    geometry into the kernel's arguments."""
+    n = len(lay.geometry)
+    a.ws_off_ht[:n], a.ws_off_dt[:n], a.ws_off_wt[:n] = lay.ws_ht, lay.ws_dt, lay.ws_wt
+    for l, geo in enumerate(lay.geometry):
+        a.tc[l] = int(geo.route == TENSOR_CORES)
+        a.fwd_bm[l], a.fwd_bn[l] = geo.forward.bm, geo.forward.bn
+        a.fwd_splits[l], a.fwd_split_k[l] = geo.forward.splits, geo.forward.split_k
+        a.dat_bm[l], a.dat_bn[l] = geo.data.bm, geo.data.bn
+        a.dat_splits[l], a.dat_split_k[l] = geo.data.splits, geo.data.split_k
+        a.wgt_bm[l], a.wgt_bn[l] = geo.weight.bm, geo.weight.bn
+
+
 def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
                       rows: torch.Tensor, loss: torch.Tensor) -> None:
     """Enqueue every step of ``rows`` (``(epochs, num_batches · batch)``)
@@ -471,6 +629,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.split_rows[:n_layers] = lay.split_rows
     a.norm_splits, a.norm_split_rows = lay.norm_splits, lay.norm_split_rows
     a.head_blocks = lay.head_blocks
+    fill_geometry(a, lay)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.eh_fused_wide(ctypes.byref(a), stream)
@@ -483,6 +642,34 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
 
 
 launch_fused_wide.launches = 0
+
+
+def _wide_product(a: torch.Tensor, b: torch.Tensor, geometry: Optional[Product] = None) -> torch.Tensor:
+    """``a @ b.T`` for ``a`` (M x K) and ``b`` (N x K), float32: kernel 3's
+    tensor-core product alone (3xTF32), in the tile and pieces of
+    ``geometry`` (by default those :func:`wide_geometry` would give a forward
+    product of this shape), on CUDA tensors; the plain product on CPU
+    tensors. For the tests, which hold the product against a float64
+    reference; the training path never calls it."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32 or a.ndim != 2 or b.ndim != 2 \
+            or a.shape[1] != b.shape[1] or a.device != b.device:
+        raise ValueError(f"_wide_product takes float32 (M, K) and (N, K) on one device, got "
+                         f"{tuple(a.shape)} {a.dtype} on {a.device} and {tuple(b.shape)} "
+                         f"{b.dtype} on {b.device}")
+    if a.device.type != "cuda":
+        return a @ b.T
+    (m, k), n = a.shape, b.shape[0]
+    geo = geometry or _tc_product(m, n, k, True)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _build.load_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.eh_wide_tc_product(a.data_ptr(), k, b.data_ptr(), k, out.data_ptr(), m, n, k,
+                                    geo.bm, geo.bn, geo.splits, geo.split_k, stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-core product launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    return out
 
 
 class FusedWideEpoch(FusedEpoch):

@@ -2,8 +2,9 @@
 computes on CPU tensors) against the JAX package's batch-chunked fused epoch
 kernel in interpret mode and against the port's torch epoch; a fully masked
 batch; the envelope, its reasons and the size rule between kernels 2 and 3;
-the exactness gate; the workspace layout; the ctypes mirror of the CUDA
-argument struct; and the slice as a whole, ``train()`` against the JAX
+the exactness gate; the workspace layout and the products' launch geometry;
+the 3xTF32 split's accuracy against TF32's, emulated in numpy; the ctypes
+mirror of the CUDA argument struct; and the slice as a whole, ``train()`` against the JAX
 ``train()``.
 
 Tolerances, float32: parameters and moments rtol 1e-5 with atol 1e-5 after
@@ -295,14 +296,21 @@ def test_gate_fails_on_a_corrupted_gradient(monkeypatch):
     assert not ok and worst > 0.1
 
 
-@pytest.mark.parametrize("dims,norm,batch", [
+LAYOUT_CASES = [
     ((2, 1024, 512, 256, 128, 64, 1), True, 1024), ((2, 1024, 512, 256, 128, 64, 1), True, 64),
     ((2, 100, 37, 1), False, 300), ((3, 65, 2), True, 1), ((2, 4096, 4096, 1), True, 5000),
-])
+]
+
+
+@pytest.mark.parametrize("dims,norm,batch", LAYOUT_CASES)
 def test_workspace_layout(dims, norm, batch):
     """No two blocks of the workspace or of the partials overlap, every
-    split covers the batch in whole 16-row tiles, and small products are
-    split until they fill the card."""
+    split covers the batch in whole tiles of its route's depth (16 rows on
+    the FMA tile, 32 on the tensor cores), and small FMA products are split
+    until they fill the card. A tensor-core layer also keeps its input and
+    its output's cotangent feature-major and its W transposed (the forward
+    and data products' pieces sum their tiles in shared memory: no room
+    here)."""
     lay = fw.wide_layout(dims, norm, batch)
     f = dims[0]
     blocks = [(lay.ws_h0, batch * f)]
@@ -310,6 +318,12 @@ def test_workspace_layout(dims, norm, batch):
         blocks += [(lay.ws_xhat, batch * f), (lay.ws_d0, batch * f)]
     for off_a, off_d, width in zip(lay.ws_a, lay.ws_d, dims[1:]):
         blocks += [(off_a, batch * width), (off_d, batch * width)]
+    for l, (din, dout, geo) in enumerate(zip(dims[:-1], dims[1:], lay.geometry)):
+        if geo.route == fw.TENSOR_CORES:
+            blocks += [(lay.ws_ht[l], din * batch), (lay.ws_dt[l], dout * batch),
+                       (lay.ws_wt[l], din * dout)]
+        else:
+            assert lay.ws_ht[l] == lay.ws_dt[l] == lay.ws_wt[l] == 0
     blocks.sort()
     assert blocks[0][0] == 0 and blocks[-1][0] + blocks[-1][1] == lay.ws_floats
     for (a, n), (b, _) in zip(blocks, blocks[1:]):
@@ -317,10 +331,14 @@ def test_workspace_layout(dims, norm, batch):
     part = 0
     for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
         s, rows = lay.splits[l], lay.split_rows[l]
-        assert lay.part_off[l] == part and rows % 16 == 0
-        assert (s - 1) * rows < batch <= s * rows
-        tiles = -(-dout // 64) * -(-din // 64)
-        assert s == 1 or (s - 1) * tiles < 2 * 132 and rows >= 64
+        weight = lay.geometry[l].weight
+        assert (s, rows) == (weight.splits, weight.split_k)
+        assert lay.part_off[l] == part and (s - 1) * rows < batch <= s * rows
+        if weight.route == fw.TENSOR_CORES:
+            assert rows % 32 == 0 and s <= 16
+        else:
+            tiles = -(-dout // 64) * -(-din // 64)
+            assert rows % 16 == 0 and (s == 1 or (s - 1) * tiles < 2 * 132 and rows >= 64)
         part += s * dout * (din + 1)
     assert lay.part_off_norm == part
     assert (lay.norm_splits - 1) * lay.norm_split_rows < batch <= lay.norm_splits * lay.norm_split_rows
@@ -331,8 +349,135 @@ def test_workspace_layout(dims, norm, batch):
 
 def test_the_tower_s_layout_at_the_main_shape():
     lay = fw.wide_layout((2, 1024, 512, 256, 128, 64, 1), True, 1024)
-    assert lay.ws_floats == 1024 * (3 * 2 + 2 * (1024 + 512 + 256 + 128 + 64 + 1))  # 16.3 MB
-    assert lay.splits == (16, 3, 8, 16, 16, 16) and lay.split_rows == (64, 352, 128, 64, 64, 64)
+    # the activations (16.3 MB) and the four tensor-core layers' H^T, dZ^T and W^T (14.6 MB)
+    inner = ((1024, 512), (512, 256), (256, 128), (128, 64))
+    assert lay.ws_floats == (1024 * (3 * 2 + 2 * (1024 + 512 + 256 + 128 + 64 + 1))
+                             + sum(1024 * (i + o) + i * o for i, o in inner))
+    assert lay.splits == (16, 4, 16, 16, 16, 16) and lay.split_rows == (64, 256, 64, 64, 64, 64)
+
+
+def _tc(bm, bn, splits, split_k):
+    return fw.Product(fw.TENSOR_CORES, bm, bn, splits, split_k)
+
+
+def _fma(splits, split_k):
+    return fw.Product(fw.FMA, 64, 64, splits, split_k)
+
+
+def test_the_tower_s_geometry():
+    """The plan's choice for the tower at the main shape and at batch 64:
+    the input and output layers on the FMA tile, the four inner layers'
+    three products on the tensor cores, each cut to about one block a
+    multiprocessor."""
+    dims = (2, 1024, 512, 256, 128, 64, 1)
+    assert fw.wide_geometry(dims, 1024) == (
+        fw.LayerGeometry(_fma(1, 16), _fma(8, 128), _fma(16, 64)),
+        fw.LayerGeometry(_tc(128, 64, 4, 256), _tc(128, 64, 2, 256), _tc(128, 64, 4, 256)),
+        fw.LayerGeometry(_tc(128, 64, 8, 64), _tc(128, 64, 4, 64), _tc(128, 64, 16, 64)),
+        fw.LayerGeometry(_tc(128, 64, 8, 32), _tc(128, 64, 4, 32), _tc(128, 64, 16, 64)),
+        fw.LayerGeometry(_tc(128, 64, 4, 32), _tc(128, 64, 2, 32), _tc(64, 64, 16, 64)),
+        fw.LayerGeometry(_fma(1, 64), _fma(1, 16), _fma(16, 64)),
+    )
+    assert fw.wide_geometry(dims, 64) == (
+        fw.LayerGeometry(_fma(1, 16), _fma(8, 128), _fma(1, 64)),
+        fw.LayerGeometry(_tc(64, 64, 8, 128), _tc(64, 64, 8, 64), _tc(128, 64, 2, 32)),
+        fw.LayerGeometry(_tc(64, 64, 8, 64), _tc(64, 64, 8, 32), _tc(128, 64, 2, 32)),
+        fw.LayerGeometry(_tc(64, 64, 8, 32), _tc(64, 64, 4, 32), _tc(128, 64, 2, 32)),
+        fw.LayerGeometry(_tc(64, 64, 4, 32), _tc(64, 64, 2, 32), _tc(64, 64, 2, 32)),
+        fw.LayerGeometry(_fma(1, 64), _fma(1, 16), _fma(1, 64)),
+    )
+
+
+@pytest.mark.parametrize("dims,batch", [
+    ((2, 1024, 512, 256, 128, 64, 1), 1024), ((2, 1024, 512, 256, 128, 64, 1), 64),
+    ((2, 100, 37, 1), 100), ((2, 100, 37, 1), 300), ((2, 65, 1), 300), ((2, 70, 33, 1), 128),
+    ((2, 300, 200, 100, 1), 64), ((2, 5, 1), 7), ((3, 65, 2), 1), ((2, 4096, 4096, 1), 5000),
+    ((20, 16, 15, 1), 33), ((2, 33, 33, 33, 1), 1),
+])
+def test_every_product_s_geometry_is_a_whole_launch(dims, batch):
+    """Per layer: the route (tensor cores where both sides are at least 16
+    wide, else the FMA tile); every product's tile one the kernels have; its
+    inner dimension cut into at most 16 pieces, each a whole number of the
+    route's depth (32 for the tensor cores' staged slice, 16 for the FMA
+    tile), none empty, together covering it; a forward or data product's
+    pieces a cluster of at most 8 blocks that share its tile's rows out
+    evenly."""
+    geometry = fw.wide_geometry(dims, batch)
+    assert len(geometry) == len(dims) - 1
+    for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
+        route = fw.TENSOR_CORES if min(din, dout) >= 16 else fw.FMA
+        assert geo.route == route
+        for prod, m, inner in ((geo.forward, batch, din), (geo.data, batch, dout),
+                               (geo.weight, dout, batch)):
+            assert prod.route == route
+            if route == fw.TENSOR_CORES:
+                assert prod.bm == (64 if m <= 64 else 128) and prod.bn == 64
+                depth = 32
+            else:
+                assert prod.bm == prod.bn == 64
+                depth = 16
+            assert prod.split_k % depth == 0 and 1 <= prod.splits <= 16
+            assert (prod.splits - 1) * prod.split_k < inner <= prod.splits * prod.split_k
+            if prod is not geo.weight:
+                assert prod.splits in (1, 2, 4, 8) and prod.bm % prod.splits == 0
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: half of the dropped 13 bits' weight is
+    added to the magnitude, then they are cleared."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_matches_cvt_rna():
+    x = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                  1.0 + 2.0 ** -11 - 2.0 ** -23, 3.14159265], np.float32)
+    want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                     3.140625], np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+    y = np.random.default_rng(0).normal(size=1000).astype(np.float32)
+    big = _tf32(y)
+    assert np.all(np.abs(y - big) <= np.abs(y) * 2.0 ** -11)
+    assert not np.any(big.view(np.uint32) & np.uint32(0x1FFF))
+
+
+@pytest.mark.parametrize("product", ["forward", "weight"])
+def test_3xtf32_keeps_float32_accuracy_where_tf32_does_not(product):
+    """The tolerance argument, before any chip run: the tower's 1024 -> 512
+    products at a small batch, from operands split into big = tf32(x) and
+    small = tf32(x - big), summed as big*big + big*small + small*big (the
+    dropped small*small is 2^-22 of a product). The split product is within
+    1e-4 max(1, |ref|) of the float64 product, as chip_smoke.py's criteria
+    ask of the kernel; TF32 alone (big*big) is not."""
+    rng = np.random.default_rng(8)
+    batch = 64
+    if product == "forward":  # A = H W^T: 64 rows of 1024 inputs by 512 outputs
+        a = rng.normal(size=(batch, 1024)).astype(np.float32)
+        b = (rng.normal(size=(512, 1024)) / 32).astype(np.float32)
+    else:  # dW = dZ^T H over the batch's rows
+        a = rng.normal(size=(512, batch)).astype(np.float32)
+        b = rng.normal(size=(1024, batch)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64).T
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    f64 = lambda x: x.astype(np.float64)  # noqa: E731
+    tf32 = f64(a_big) @ f64(b_big).T
+    three = tf32 + f64(a_big) @ f64(b_small).T + f64(a_small) @ f64(b_big).T
+    scale = np.maximum(1.0, np.abs(ref))
+    assert np.max(np.abs(three - ref) / scale) < 1e-5
+    assert np.max(np.abs(tf32 - ref) / scale) > 1e-4
+
+
+def test_wide_product_on_the_cpu_is_the_plain_product():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.normal(size=(37, 65)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(33, 65)).astype(np.float32))
+    assert torch.equal(fw._wide_product(a, b), a @ b.T)
+    with pytest.raises(ValueError, match="float32"):
+        fw._wide_product(a.double(), b)
+    with pytest.raises(ValueError, match="float32"):
+        fw._wide_product(a, b[:, :64])
 
 
 def test_kernel_source_and_ctypes_mirror_agree():
@@ -342,6 +487,8 @@ def test_kernel_source_and_ctypes_mirror_agree():
     assert int(defines["EH_WIDE_MAX_WIDTH"]) == fw.MAX_WIDE_WIDTH
     assert int(defines["EHW_TILE"]) == fw._TILE and int(defines["EHW_BK"]) == fw._DEPTH
     assert int(defines["EHW_HEAD_THREADS"]) == fw._HEAD_THREADS
+    assert int(defines["EHW_TC_BK"]) == fw._TC_DEPTH and int(defines["EHW_TC_MIN"]) == fw._TC_MIN
+    assert int(defines["EHW_UTILE"]) == fw._UPDATE_TILE
     body = re.search(r"struct EhFusedWideArgs \{(.*?)\};", src, re.S).group(1)
     decls = re.findall(r"([\w ]+?\*?) ?(\w+)(\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
     assert [name for _, name, _ in decls] == [name for name, _ in fw._Args._fields_]
@@ -350,9 +497,15 @@ def test_kernel_source_and_ctypes_mirror_agree():
         base = mirror._type_ if array else mirror
         want = ctypes.c_void_p if "*" in ctype else kinds[ctype.strip()]
         assert base is want, name
-    for kernel in ("gather", "forward", "head", "bwd_weight", "bwd_data", "norm_grad", "update"):
+    for kernel in ("gather", "forward", "head", "bwd_weight", "bwd_data", "norm_grad", "update",
+                   "tc", "transpose"):
         assert f"eh_wide_{kernel}_kernel" in src
-    assert "atomicAdd(" not in src and "cublas" not in src.lower()
+    # the tensor-core products in 3xTF32, the file's own
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in src
+    assert "cvt.rna.tf32.f32" in src
+    # sums in a fixed order: no atomics at all; no library product
+    assert "atomicAdd(" not in src and "cublas" not in src.lower() and "cutlass" not in src.lower()
+    assert re.findall(r"atomic\w*\(", src) == []
 
 
 def test_kernel_arguments_pack_the_plan():
