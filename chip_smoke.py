@@ -10,13 +10,20 @@ Phases, one or more lines each; any failure exits non-zero:
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles csrc/*.cu with nvcc for sm_90a (set-up time);
 3. kernel: the fused forward kernel against its plain PyTorch version on
-   the card, at the serving path's shapes and at the kernel's edges;
+   the card, at the serving path's shapes and at the kernel's edges (1,
+   1,023, 1,024, 1,025 and 131,072 rows at widths 16, 32 and 64, with NaN
+   predictor rows), and one launch over every chunk against a launch per
+   chunk of 1,024 rows, which must give the same bits;
 4. main path: the quick-start RbQ10 model (MLP [16, 16], swish, static
    input norm) at 131,072 rows through ``predict(..., batch_size=1024)``,
-   which must take the kernel (128 launches) and agree with the plain
-   module forward;
-5. times: kernel against plain version, and end-to-end ``predict`` rows/s
-   on both engines, each the median of several runs;
+   which must take the kernel (one staged copy in, one launch, one copy
+   out) and agree with the plain module forward; at batch sizes 1, 1,024
+   and 131,072 the keys and shapes of the torch engine and the bits of a
+   launch per chunk;
+5. times: the kernel per launch at 1,024 and 131,072 rows against the plain
+   version, and end-to-end ``predict`` rows/s on both engines, each the
+   median of several runs, with launches, copies and the device's busy
+   share of a call;
 6. kernel 2: the fused epoch kernel against its plain PyTorch version
    (``fused_epoch_reference``) on the card, from identical parameters and
    the same permutations, at the training path's shapes and its edges (the
@@ -38,8 +45,11 @@ Phases, one or more lines each; any failure exits non-zero:
    beside ``torch.sum(x, 1)``;
 10. kernel 5: the fused multi-site epoch against its plain PyTorch version
     (``fused_multisite_reference``) from identical parameters and the same
-    site indices, at the main path's widths and at its edges, with a second
-    run that must give the same bits;
+    site indices, at the main path's widths and at its edges (those of its
+    geometry too: 1, 3, 63, 65 and 1,000 observations a site, sites longer
+    than a tile, a ragged last block, more than 528 blocks), each with the
+    geometry ``multisite_geometry`` chose and a second run that must give
+    the same bits;
 11. main path: multi-site ``train()`` at the JAX bench's shape, 10,000 sites
     x 64 observations with a true Q10 per site, from a long table through
     ``prepare_multisite_data`` and ``MultiSiteHybridModel``: it must take
@@ -47,8 +57,11 @@ Phases, one or more lines each; any failure exits non-zero:
     finite validation predictions and recover the training sites' Q10; then
     a short run of the minibatched, shuffled shape (10,240 sites, batches of
     2,560);
-12. times: kernel 5 against its plain version per step, ``train()`` wall on
-    both engines, and the host's share (``prepare_multisite_data``);
+12. times: kernel 5 against its plain version per step (its gradient and
+    update kernels by name), a step split by stage (a second build of
+    ``fused_multisite.cu`` with ``-DEHM_STAMPS``, made beside the
+    library's), ``train()`` wall on both engines, and the host's share
+    (``prepare_multisite_data``);
 13. kernel 4: the fused LSTM epoch against its plain PyTorch version
     (``fused_lstm_reference``) from identical parameters and the same
     permutations, at the sequence-training path's shape and at its edges
@@ -513,7 +526,30 @@ def multisite_cases():
         dict(what="[64,48] selu", S=300, N=9, hidden=(64, 48), activation="selu"),
         dict(what="neural Q10, per-site rb", S=300, N=8,
              neural_param_names=["Q10"], global_param_names=["rb"]),
+        # the edges of the gradient kernel's geometry
+        dict(what="N=1000 (a site over four tiles)", S=30, N=1000),
+        dict(what="N=1 (256 sites a tile)", S=700, N=1),
+        dict(what="N=3, minibatched and shuffled", S=500, N=3, batch=128, shuffle=True),
+        dict(what="N=63", S=300, N=63),
+        dict(what="N=65, batches of 100 by 'batches' (a ragged last block)", S=301, N=65,
+             batch=100, shuffle="batches"),
+        dict(what="3,000 sites x 64, 750 blocks (eight a multiprocessor aimed at, beyond the "
+                  "first kernel's cap of 528)", S=3000, N=64, epochs=1, target=8 * 132),
     ]
+
+
+@contextlib.contextmanager
+def blocks_aimed_at(target):
+    """Kernel 5's geometry aims at ``target`` blocks within the block (None:
+    its own number)."""
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+
+    default = fm._TARGET_BLOCKS
+    fm._TARGET_BLOCKS = target or default
+    try:
+        yield
+    finally:
+        fm._TARGET_BLOCKS = default
 
 
 def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam", 0.01),
@@ -537,6 +573,7 @@ def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam",
 def multisite_kernel_checks(et) -> float:
     """Phase 10: kernel 5 against its plain version, and against itself."""
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
 
     def named(packed, opt_state, loss, n_shared):
         return {"shared": packed.params[:n_shared], "per-site": packed.params[n_shared:],
@@ -545,11 +582,17 @@ def multisite_kernel_checks(et) -> float:
 
     worst = 0.0
     for case in multisite_cases():
+        target = case.pop("target", None)
         what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
         n_shared = fn.plan.offsets()["p_g"]
-        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
-        torch.cuda.synchronize()
-        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        with blocks_aimed_at(target):
+            got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
+                        n_shared)
+            torch.cuda.synchronize()
+            again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
+                          n_shared)
+            geo = fm.multisite_geometry(fn.plan, int(tensors.weight.shape[1]),
+                                        int(tensors.x.shape[2]))
         ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
                     n_shared)
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
@@ -558,8 +601,8 @@ def multisite_kernel_checks(et) -> float:
             raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
         err = compare(got, ref, what, TOL_EPOCH)
         worst = max(worst, err)
-        log("kernel5", f"{what}: width {fn.plan.width}, {int(got['t'][0])} steps, max |diff| "
-                       f"{err:.3e}, second run bitwise equal (ok)")
+        log("kernel5", f"{what}: width {fn.plan.width}, {geo}, {int(got['t'][0])} steps, max "
+                       f"|diff| {err:.3e}, second run bitwise equal (ok)")
     return worst
 
 
@@ -667,10 +710,12 @@ def multisite_main_path(et, card) -> dict:
                 table_s=table_s, prepare_s=prepare_s)
 
 
-def multisite_times(et, card, main) -> dict:
-    """Phase 12: kernel 5 against its plain version per step; ``train()``
-    wall on both engines; the host's share."""
+def multisite_times(et, card, main, stamped) -> dict:
+    """Phase 12: kernel 5 against its plain version per step, a step split
+    by stage (``stamped``: the build with ``-DEHM_STAMPS``); ``train()`` wall
+    on both engines; the host's share."""
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
 
     case = {**multisite_cases()[0], "epochs": 5}
     what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
@@ -702,6 +747,16 @@ def multisite_times(et, card, main) -> dict:
                  f"(5-epoch calls behind a sleep kernel), plain version {med['plain']:.4f} "
                  f"(profiler); wall ms per step: kernel {wall_ms['kernel']:.4f}, plain "
                  f"{wall_ms['plain']:.4f}")
+    fm.stage_cycles(fn, packed, opt0, tensors)  # warm-up
+    cycles = fm.stage_cycles(fn, packed, opt0, tensors)
+    whole = cycles.pop("kernel")
+    if whole <= 0 or any(v < 0 for v in cycles.values()):
+        raise AssertionError(f"the stamped build of kernel 5 returned {cycles}, {whole}")
+    log("times", f"[{card}] kernel 5, a step split by stage (thread 0 of block 0, clock64() in a "
+                 f"build with -DEHM_STAMPS, nvcc {stamped.seconds:.1f} s): cycles a step and share "
+                 "of the block's time: "
+                 + ", ".join(f"{k} {v / 5:.0f} ({v / whole:.1%})" for k, v in cycles.items())
+                 + f"; the block {whole / 5:.0f} cycles a step")
 
     torch_model = multisite_model(et, MS_SITES)
     t0 = time.perf_counter()
@@ -1383,6 +1438,107 @@ def wide_times(et, card, main, cols, train_cols) -> dict:
     return out
 
 
+def bits(t) -> torch.Tensor:
+    """A float32 tensor's bits, on the host."""
+    return t.detach().contiguous().view(torch.int32).cpu()
+
+
+def launched_per_chunk(ff, fn, x, forcing) -> dict:
+    """Kernel 1 launched once per chunk of ``fn.batch_size`` rows, the form
+    of the first kernel's ``predict``: the reference for the bits of one
+    launch over every chunk. Its launches are not counted."""
+    names = fn.plan.output_names + fn.plan.neural_names
+    out = {k: torch.empty((x.shape[0],), dtype=torch.float32, device=x.device) for k in names}
+    counted = ff.launch_fused_forward.launches
+    for start in range(0, x.shape[0], fn.batch_size):
+        sl = slice(start, min(start + fn.batch_size, x.shape[0]))
+        ff.launch_fused_forward(fn.plan, x[sl], {k: c[sl] for k, c in forcing.items()},
+                                {k: v[sl] for k, v in out.items()})
+    ff.launch_fused_forward.launches = counted
+    torch.cuda.synchronize()
+    return out
+
+
+def predict_trace(fn, cols) -> dict:
+    """One ``predict`` call under ``torch.profiler``: its wall ms, the device
+    activities' ms (the busy share is their ratio) and its host-device
+    copies. A trace without a kernel or without a copy in each direction
+    (the profiler now and then drops records) is taken again, at most three
+    times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(cols)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        copies = {d: sum(e.count for e in events if f"Memcpy {d}" in e.key) for d in ("HtoD", "DtoH")}
+        if all(copies.values()) and any("Memcpy" not in e.key for e in events):
+            break
+    return dict(wall=wall, busy=sum(e.self_device_time_total for e in events) / 1e3,
+                copies=sum(copies.values()))
+
+
+def serving_times(et, ff, card, quick, x, forcing, cols) -> dict:
+    """Phase 5: kernel 1 per launch at 1,024 and 131,072 rows against its
+    plain version; ``predict`` rows/s, launches, copies and busy share on
+    both engines."""
+    fns, reps = {}, {}
+    for rows in (BATCH, N_ROWS):
+        one = et.make_fused_forward(quick, batch_size=rows)
+        xs, fs = x[:rows].contiguous(), {k: v[:rows].contiguous() for k, v in forcing.items()}
+        fns[f"kernel {rows} rows"] = (lambda one=one, xs=xs, fs=fs: one(xs, fs))
+        fns[f"plain {rows} rows"] = (lambda one=one, xs=xs, fs=fs: one.reference(xs, fs))
+        # the plain version is ~30 small kernels a call: 20 calls stay within the launch queue
+        reps[f"kernel {rows} rows"], reps[f"plain {rows} rows"] = (50 if rows == BATCH else 20), 20
+    dev = {k: [] for k in fns}
+    for f in fns.values():
+        host_ms(f, 3)  # warm-up
+    for i in range(6):
+        for k in (list(fns) if i % 2 == 0 else list(reversed(list(fns)))):
+            dev[k].append(device_ms(fns[k], reps[k]))
+    ms = {k: statistics.median(v) for k, v in dev.items()}
+    log("times", f"[{card}] kernel 1, one launch, device ms per call, median of 6: "
+                 + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()))
+
+    plain_model = build_model(et, mechanistic=rbq10_untagged)
+    plain_model.load_state_dict(quick.state_dict())
+    engines = {
+        f"cuda_fused_forward b{BATCH}": et.make_inference_fn(quick, batch_size=BATCH),
+        f"torch b{BATCH}": et.make_inference_fn(plain_model, batch_size=BATCH),
+        f"cuda_fused_forward b{N_ROWS}": et.make_inference_fn(quick, batch_size=N_ROWS),
+        f"torch b{N_ROWS}": et.make_inference_fn(plain_model, batch_size=N_ROWS),
+    }
+    if engines[f"torch b{BATCH}"].engine != "torch":
+        raise AssertionError("the untagged model should run the plain engine")
+    walls = {k: [] for k in engines}
+    for f in engines.values():
+        f(cols)  # warm-up
+    for i in range(6):
+        for k in (list(engines) if i % 2 == 0 else list(reversed(list(engines)))):
+            walls[k].append(host_ms(lambda: engines[k](cols), 1))
+    rates = {k: N_ROWS / statistics.median(v) * 1e3 for k, v in walls.items()}
+    traces = {}
+    for k, f in engines.items():
+        before = ff.launch_fused_forward.launches
+        traces[k] = {**predict_trace(f, cols), "launches": ff.launch_fused_forward.launches - before}
+    # the busy share: the device activities of a traced call over an untraced call's wall
+    log("times", f"[{card}] end-to-end predict, {N_ROWS} rows from host columns, median of 6: "
+                 + ", ".join(f"{k} {statistics.median(walls[k]):.3f} ms a call, {r:,.0f} rows/s "
+                             f"({traces[k]['launches']} kernel-1 launches, {traces[k]['copies']} "
+                             f"host-device copies, device busy {traces[k]['busy']:.3f} ms, "
+                             f"{traces[k]['busy'] / statistics.median(walls[k]):.1%} of the call)"
+                             for k, r in rates.items()))
+    for k in (f"cuda_fused_forward b{BATCH}", f"cuda_fused_forward b{N_ROWS}"):
+        if traces[k]["launches"] != 1 or traces[k]["copies"] != 2:
+            raise AssertionError(f"{k}: {traces[k]['launches']} launches and "
+                                 f"{traces[k]['copies']} copies a call, not 1 and 2")
+    return dict(kernel_ms=ms[f"kernel {N_ROWS} rows"], plain_ms=ms[f"plain {N_ROWS} rows"])
+
+
 def main() -> None:
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1402,10 +1558,11 @@ def main() -> None:
     from easyhybrid_tpu_torch.ops import fused_forward as ff
 
     # 2. build ----------------------------------------------------------------
-    # kernel 2's stamped build (phase 8) and kernel 4's chain-only build (phase
-    # 15) are made beside the library's
-    pool = concurrent.futures.ThreadPoolExecutor(2)
+    # kernel 2's stamped build (phase 8), kernel 5's (phase 12) and kernel 4's
+    # chain-only build (phase 15) are made beside the library's
+    pool = concurrent.futures.ThreadPoolExecutor(3)
     stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
+    ms_stamped_build = pool.submit(_build.build_variant, "fused_multisite.cu", ("-DEHM_STAMPS",))
     chain_build = pool.submit(_build.build_variant, "fused_epoch_lstm.cu", ("-DEHL_CHAIN_ONLY",))
     pool.shutdown(wait=False)
     built = _build.build_library()
@@ -1448,6 +1605,16 @@ def main() -> None:
     m = build_model(et, seed=5)
     cases.append(("quick-start with 5% NaN predictor rows N=4096", m, *to_device(et, m, nan_cols), BATCH))
 
+    # the edges of the launch: around a chunk and a block, at each compiled width
+    for hidden in ((16, 16), (24, 32), (64, 48)):
+        m = build_model(et, hidden=hidden, seed=6)
+        for n in (1, 1023, 1024, 1025, N_ROWS):
+            edge = et.rbq10_columns(n, seed=6)
+            edge["sw_pot"][5::97] = np.nan
+            edge["dsw_pot"][n - 1] = np.nan if n > 1 else edge["dsw_pot"][0]
+            cases.append((f"{list(hidden)} swish static N={n} with NaN rows", m,
+                          *to_device(et, m, edge), BATCH))
+
     kernel_err = 0.0
     for what, model, cx, cf, batch in cases:
         fn = et.make_fused_forward(model, batch_size=batch)
@@ -1455,7 +1622,11 @@ def main() -> None:
         torch.cuda.synchronize()
         err = compare(got, fn.reference(cx, cf), what)
         kernel_err = max(kernel_err, err)
-        log("kernel", f"{what}: width {fn.plan.width}, max |diff| {err:.3e} (ok)")
+        chunked = launched_per_chunk(ff, fn, cx, cf)
+        if not all(torch.equal(bits(got[k]), bits(chunked[k])) for k in got):
+            raise AssertionError(f"{what}: one launch and a launch per chunk gave other bits")
+        log("kernel", f"{what}: width {fn.plan.width}, max |diff| {err:.3e}, one launch equals a "
+                      f"launch per chunk of {batch} bit for bit (ok)")
 
     # 4. main path --------------------------------------------------------------
     fn = et.make_inference_fn(quick, batch_size=BATCH)
@@ -1465,7 +1636,7 @@ def main() -> None:
     out = et.predict(quick, cols, batch_size=BATCH)
     torch.cuda.synchronize()
     launches = ff.launch_fused_forward.launches
-    expected = -(-N_ROWS // BATCH)
+    expected = -(-N_ROWS // et.make_fused_forward(quick, batch_size=BATCH).group_rows)
     if launches != expected:
         raise AssertionError(f"predict launched the kernel {launches} times, not {expected}")
     if set(out) != {"reco", "rb"}:
@@ -1487,47 +1658,25 @@ def main() -> None:
     rel = float(np.max(np.abs(out["reco"] - reco64) / np.maximum(1.0, np.abs(reco64))))
     if rel > TOL:
         raise AssertionError(f"reco != rb * Q10^((ta - 15)/10): {rel:.3e}")
-    log("main", f"predict: engine {fn.engine}, {launches} launches, keys {sorted(out)}, "
-                f"max |diff| vs plain forward {main_err:.3e}, relation err {rel:.3e} (ok)")
+    # every batch size: the torch engine's keys and shapes, a launch per chunk's bits
+    chunked = launched_per_chunk(ff, et.make_fused_forward(quick, batch_size=BATCH), x, forcing)
+    for batch in (1, BATCH, N_ROWS):
+        got = et.predict(quick, cols, batch_size=batch)
+        keys = {"reco", "rb", "Q10"} if batch == 1 else {"reco", "rb"}
+        if set(got) != keys or any(v.shape != (N_ROWS,) for v in got.values()):
+            raise AssertionError(f"predict at batch_size {batch}: "
+                                 f"{ {k: v.shape for k, v in got.items()} }")
+        for k in ("reco", "rb"):
+            if not torch.equal(bits(torch.from_numpy(got[k])), bits(chunked[k])):
+                raise AssertionError(f"predict at batch_size {batch}: {k} differs in its bits "
+                                     "from a launch per chunk")
+    log("main", f"predict: engine {fn.engine}, {launches} launch(es) for {N_ROWS} rows at "
+                f"batch_size {BATCH}, keys {sorted(out)}, max |diff| vs plain forward "
+                f"{main_err:.3e}, relation err {rel:.3e}; at batch_size 1, {BATCH} and {N_ROWS} "
+                "the torch engine's keys and shapes and a launch per chunk's bits (ok)")
 
     # 5. times --------------------------------------------------------------------
-    one = et.make_fused_forward(quick, batch_size=N_ROWS)
-    chunked = et.make_fused_forward(quick, batch_size=BATCH)
-    fns = {"plain": lambda: one.reference(x, forcing), "kernel": lambda: one(x, forcing),
-           f"kernel x{expected}": lambda: chunked(x, forcing)}
-    reps = {"plain": 20, "kernel": 20, f"kernel x{expected}": 2}
-    dev = {k: [] for k in fns}
-    wall = {k: [] for k in fns}
-    for k, f in fns.items():
-        host_ms(f, 3)  # warm-up
-    for i in range(6):
-        for k in (list(fns) if i % 2 == 0 else list(reversed(list(fns)))):
-            dev[k].append(device_ms(fns[k], reps[k]))
-            wall[k].append(host_ms(fns[k], reps[k]))
-    ms = {k: statistics.median(v) for k, v in dev.items()}
-    wall_ms = {k: statistics.median(v) for k, v in wall.items()}
-    log("times", f"[{card}] {N_ROWS} device-resident rows, median of 6 runs, ms per call: "
-                 + ", ".join(f"{k} device {ms[k]:.4f} / wall {wall_ms[k]:.4f}" for k in fns)
-                 + f" (kernel x{expected}: {expected} launches of {BATCH} rows)")
-
-    plain_model = build_model(et, mechanistic=rbq10_untagged)
-    plain_model.load_state_dict(quick.state_dict())
-    engines = {
-        "cuda_fused_forward b1024": et.make_inference_fn(quick, batch_size=BATCH),
-        "torch b1024": et.make_inference_fn(plain_model, batch_size=BATCH),
-        "cuda_fused_forward b131072": et.make_inference_fn(quick, batch_size=N_ROWS),
-    }
-    if engines["torch b1024"].engine != "torch":
-        raise AssertionError("the untagged model should run the plain engine")
-    walls = {k: [] for k in engines}
-    for f in engines.values():
-        f(cols)  # warm-up
-    for i in range(6):
-        for k in (list(engines) if i % 2 == 0 else list(reversed(list(engines)))):
-            walls[k].append(host_ms(lambda: engines[k](cols), 1))
-    rates = {k: N_ROWS / statistics.median(v) * 1e3 for k, v in walls.items()}
-    log("times", f"[{card}] end-to-end predict, {N_ROWS} rows from host columns, median of "
-                 f"{len(walls['torch b1024'])}: " + ", ".join(f"{k} {r:,.0f} rows/s" for k, r in rates.items()))
+    serving = serving_times(et, ff, card, quick, x, forcing, cols)
 
     # 6. kernel 2 against the plain version --------------------------------------
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
@@ -1641,7 +1790,7 @@ def main() -> None:
     prim_err, prim_ms = primitive_checks(card)
     ms_err = multisite_kernel_checks(et)
     ms_main = multisite_main_path(et, card)
-    ms_times = multisite_times(et, card, ms_main)
+    ms_times = multisite_times(et, card, ms_main, ms_stamped_build.result())
     lstm_err = lstm_kernel_checks(et)
     lstm_main = lstm_main_path(et, card)
     lstm_ms = lstm_times(et, card, lstm_main, chain_build.result())["main"]
@@ -1659,8 +1808,8 @@ def main() -> None:
         "replaces": "easyhybrid_tpu/ops/fused_forward.py:140",
         "launches": launches,
         "max_abs_err": kernel_err,
-        "ms": ms["kernel"],
-        "plain_ms": ms["plain"],
+        "ms": serving["kernel_ms"],
+        "plain_ms": serving["plain_ms"],
         # one launch over N_ROWS rows: 2 predictors and 1 forcing in, reco and rb out
         **bound(bytes_moved=N_ROWS * 4 * (3 + 2), flops=N_ROWS * forward_flops(quick_dims)),
         "library_ms": None,

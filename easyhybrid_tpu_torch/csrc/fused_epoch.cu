@@ -182,209 +182,6 @@ struct EhFusedEpochArgs {
 // row of width 32; a row of width 64 takes 256.
 #define EHE_MAX_THREADS(W) ((W) == 64 ? 256 : 512)
 
-// Position of packed parameter p in the padded layout.
-__device__ __forceinline__ int ehe_padded_index(const EhFusedEpochArgs& a, int p) {
-  if (p >= a.p_off_g) return a.pp_off_g + (p - a.p_off_g);
-  if (p < a.p_off_w[0]) return p;  // the norm's scale and bias
-  int l = 0;
-  while (l + 1 < a.n_layers && p >= a.p_off_w[l + 1]) ++l;
-  if (p >= a.p_off_b[l]) return a.pp_off_b[l] + (p - a.p_off_b[l]);
-  const int din = a.dims[l];
-  const int q = p - a.p_off_w[l];
-  const int j = q / din;
-  return a.pp_off_w[l] + j * ((din + 3) & ~3) + (q - j * din);
-}
-
-// Four outputs' activations at once: four independent chains for the
-// scheduler to interleave.
-template <int ACT>
-__device__ __forceinline__ void ehe_act4(const float (&z)[4], float (&y)[4], float (&d)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) y[i] = ehe_act<true>(ACT, z[i], &d[i]);
-}
-
-// One row's MLP forward. h holds the row's (normed) input on entry and the
-// raw network output on return. Saves each layer's input (r_off_h), its
-// activation derivative (r_off_d) and the raw output (r_off_out) in the row's
-// column `res` of the tile. A layer's outputs are taken four at a time (the
-// loop over them is not unrolled further): each reads the row's input from
-// registers and its weights as 16-byte broadcast loads, in four independent
-// chains of products, then the four activations, chosen by one branch.
-template <int W>
-__device__ __forceinline__ void ehe_row_forward(const EhFusedEpochArgs& a, const float* Pm,
-                                                float (&h)[W], float* res, int ld) {
-  const int L = a.n_layers;
-  for (int l = 0; l < L; ++l) {
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
-    const int din4 = (din + 3) & ~3;
-    const int act = a.acts[l];
-    const float* w = Pm + a.pp_off_w[l];
-    const float* b = Pm + a.pp_off_b[l];
-    float* dd = res + a.r_off_d[l] * ld;
-    float* hn = res + (l + 1 < L ? a.r_off_h[l + 1] : a.r_off_out) * ld;
-    for (int j = 0; j < dout; j += 4) {
-      const int last = dout - 1 - j;  // rows past the layer's last repeat it and are dropped
-      const float4* w0 = reinterpret_cast<const float4*>(w + j * din4);
-      const float4* w1 = reinterpret_cast<const float4*>(w + (j + min(1, last)) * din4);
-      const float4* w2 = reinterpret_cast<const float4*>(w + (j + min(2, last)) * din4);
-      const float4* w3 = reinterpret_cast<const float4*>(w + (j + min(3, last)) * din4);
-      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int k4 = 0; k4 < W / 4; ++k4) {
-        if (k4 * 4 < din) {
-          const float4 q0 = w0[k4], q1 = w1[k4], q2 = w2[k4], q3 = w3[k4];
-          z[0] = fmaf(h[4 * k4 + 3], q0.w, fmaf(h[4 * k4 + 2], q0.z,
-                 fmaf(h[4 * k4 + 1], q0.y, fmaf(h[4 * k4], q0.x, z[0]))));
-          z[1] = fmaf(h[4 * k4 + 3], q1.w, fmaf(h[4 * k4 + 2], q1.z,
-                 fmaf(h[4 * k4 + 1], q1.y, fmaf(h[4 * k4], q1.x, z[1]))));
-          z[2] = fmaf(h[4 * k4 + 3], q2.w, fmaf(h[4 * k4 + 2], q2.z,
-                 fmaf(h[4 * k4 + 1], q2.y, fmaf(h[4 * k4], q2.x, z[2]))));
-          z[3] = fmaf(h[4 * k4 + 3], q3.w, fmaf(h[4 * k4 + 2], q3.z,
-                 fmaf(h[4 * k4 + 1], q3.y, fmaf(h[4 * k4], q3.x, z[3]))));
-        }
-      }
-      z[0] += b[j];
-      z[1] += b[j + min(1, last)];
-      z[2] += b[j + min(2, last)];
-      z[3] += b[j + min(3, last)];
-      float y[4], d[4];
-      switch (act) {
-        case ACT_TANH: ehe_act4<ACT_TANH>(z, y, d); break;
-        case ACT_RELU: ehe_act4<ACT_RELU>(z, y, d); break;
-        case ACT_SIGMOID: ehe_act4<ACT_SIGMOID>(z, y, d); break;
-        case ACT_SILU: ehe_act4<ACT_SILU>(z, y, d); break;
-        case ACT_GELU: ehe_act4<ACT_GELU>(z, y, d); break;
-        case ACT_SOFTPLUS: ehe_act4<ACT_SOFTPLUS>(z, y, d); break;
-        case ACT_SELU: ehe_act4<ACT_SELU>(z, y, d); break;
-        case ACT_ELU: ehe_act4<ACT_ELU>(z, y, d); break;
-        case ACT_LEAKYRELU: ehe_act4<ACT_LEAKYRELU>(z, y, d); break;
-        default: ehe_act4<ACT_IDENTITY>(z, y, d); break;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i <= last) {
-          dd[(j + i) * ld] = d[i];
-          hn[(j + i) * ld] = y[i];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < W; ++k) h[k] = (k < dout) ? hn[k * ld] : 0.0f;
-  }
-}
-
-// One row's MLP backward. The last layer's saved activation derivative
-// already holds its pre-activation cotangent. Overwrites each earlier saved
-// derivative with that layer's pre-activation cotangent and, with an input
-// norm, stores the cotangent of the normed input (r_off_d0).
-template <int W>
-__device__ __forceinline__ void ehe_row_backward(const EhFusedEpochArgs& a, const float* Pm,
-                                                 float* res, int ld) {
-  const int L = a.n_layers;
-  for (int l = L - 1; l >= 0; --l) {
-    if (l == 0 && a.norm_mode == NORM_NONE) break;
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
-    const int din4 = (din + 3) & ~3;
-    const float* w = Pm + a.pp_off_w[l];
-    const float* dz = res + a.r_off_d[l] * ld;
-    float Dn[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) Dn[k] = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < dout; ++j) {
-      const float dj = dz[j * ld];
-      const float4* wr = reinterpret_cast<const float4*>(w + j * din4);
-#pragma unroll
-      for (int k4 = 0; k4 < W / 4; ++k4) {
-        if (k4 * 4 < din) {
-          const float4 q = wr[k4];
-          Dn[4 * k4] = fmaf(q.x, dj, Dn[4 * k4]);
-          Dn[4 * k4 + 1] = fmaf(q.y, dj, Dn[4 * k4 + 1]);
-          Dn[4 * k4 + 2] = fmaf(q.z, dj, Dn[4 * k4 + 2]);
-          Dn[4 * k4 + 3] = fmaf(q.w, dj, Dn[4 * k4 + 3]);
-        }
-      }
-    }
-    float* zp = res + (l > 0 ? a.r_off_d[l - 1] : a.r_off_d0) * ld;
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      if (k < din) zp[k * ld] = l > 0 ? Dn[k] * zp[k * ld] : Dn[k];
-    }
-  }
-}
-
-// A unit of the gradient sum: the sums over a tile's rows of u_a * v_b for
-// nj features u (from uoff) and nk features v (from voff), written to packed
-// parameters pbase + a * pstride + b.
-struct EheUnit {
-  int uoff, nj, voff, nk, pbase, pstride;
-};
-
-__device__ __forceinline__ int ehe_n_units(const EhFusedEpochArgs& a) {
-  int n = 0;
-  for (int l = 0; l < a.n_layers; ++l)
-    n += ((a.dims[l + 1] + 3) >> 2) * (((a.dims[l] + 3) >> 2) + 1);
-  const int F = a.dims[0];
-  if (a.norm_mode != NORM_NONE) n += F + ((F + 3) >> 2);
-  return n + ((a.n_globals + 3) >> 2);
-}
-
-// Unit u: every layer's weight blocks, each row of blocks followed by its
-// bias block (v the feature of ones); then the norm's scale (one feature
-// pair a unit) and bias; then the globals.
-__device__ __forceinline__ EheUnit ehe_unit(const EhFusedEpochArgs& a, int u) {
-  EheUnit x;
-  x.nk = 1;
-  x.pstride = 1;
-  x.voff = a.r_off_one;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
-    const int nkb = (din + 3) >> 2;
-    const int n = ((dout + 3) >> 2) * (nkb + 1);
-    if (u < n) {
-      const int jb = u / (nkb + 1);
-      const int kb = u - jb * (nkb + 1);
-      x.uoff = a.r_off_d[l] + 4 * jb;
-      x.nj = min(4, dout - 4 * jb);
-      if (kb < nkb) {
-        x.voff = a.r_off_h[l] + 4 * kb;
-        x.nk = min(4, din - 4 * kb);
-        x.pbase = a.p_off_w[l] + 4 * jb * din + 4 * kb;
-        x.pstride = din;
-      } else {
-        x.pbase = a.p_off_b[l] + 4 * jb;
-      }
-      return x;
-    }
-    u -= n;
-  }
-  const int F = a.dims[0];
-  if (a.norm_mode != NORM_NONE) {
-    if (u < F) {
-      x.uoff = a.r_off_d0 + u;
-      x.nj = 1;
-      x.voff = a.r_off_xhat + u;
-      x.pbase = u;
-      return x;
-    }
-    u -= F;
-    if (u < ((F + 3) >> 2)) {
-      x.uoff = a.r_off_d0 + 4 * u;
-      x.nj = min(4, F - 4 * u);
-      x.pbase = F + 4 * u;
-      return x;
-    }
-    u -= (F + 3) >> 2;
-  }
-  x.uoff = a.r_off_g + 4 * u;
-  x.nj = min(4, a.n_globals - 4 * u);
-  x.pbase = a.p_off_g + 4 * u;
-  return x;
-}
-
 template <int W>
 __global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
@@ -446,12 +243,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   for (int i = tid; i < n_consts; i += nth) Cc[i] = a.consts[i];
   for (int i = tid; i < K; i += nth) SC[G + i] = a.consts[2 * P + 2 * G + i];
   RES[a.r_off_one * ld + tid] = 1.0f;
-  for (int u = tid; u < a.n_unit_table; u += nth) {
-    const EheUnit un = ehe_unit(a, u);
-    int* ut = UT + 8 * u;
-    ut[0] = un.uoff, ut[1] = un.nj, ut[2] = un.voff, ut[3] = un.nk;
-    ut[4] = un.pbase, ut[5] = un.pstride;
-  }
+  for (int u = tid; u < a.n_unit_table; u += nth) ehe_unit_describe(a, UT, u);
   __syncthreads();
   if (tid == nth - 1) {  // the first step's bias corrections
     MISC[2] = 1.0f - powf(a.b1, (float)a.t[0] + 1.0f);
@@ -739,43 +531,14 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
 
       // a warp per unit of 4 x 4 parameters; its lanes split the tile's rows
       for (int u = warp; u < n_units; u += nw) {
-        EheUnit un;
-        if (u < a.n_unit_table) {
-          const int* ut = UT + 8 * u;
-          un.uoff = ut[0], un.nj = ut[1], un.voff = ut[2], un.nk = ut[3];
-          un.pbase = ut[4], un.pstride = ut[5];
-        } else {
-          un = ehe_unit(a, u);
-        }
-        const float* U = RES + un.uoff * ld;
-        const float* V = RES + un.voff * ld;
-        const int u1 = min(1, un.nj - 1) * ld, u2 = min(2, un.nj - 1) * ld,
-                  u3 = min(3, un.nj - 1) * ld;
-        const int v1 = min(1, un.nk - 1) * ld, v2 = min(2, un.nk - 1) * ld,
-                  v3 = min(3, un.nk - 1) * ld;
-        float acc[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+        const EheUnit un = ehe_unit_at(a, UT, u);
 #ifndef EHE_CHAIN_ONLY
-#pragma unroll 4
-        for (int r2 = lane; r2 < rows_here; r2 += 32) {
-          const float uu[4] = {U[r2], U[u1 + r2], U[u2 + r2], U[u3 + r2]};
-          const float vv[4] = {V[r2], V[v1 + r2], V[v2 + r2], V[v3 + r2]};
-#pragma unroll
-          for (int i = 0; i < 16; ++i) acc[i] = fmaf(uu[i >> 2], vv[i & 3], acc[i]);
-        }
+        const float total = ehe_unit_sum(un, RES, ld, rows_here, lane);
+#else
+        const float total = ehe_unit_sum<false>(un, RES, ld, rows_here, lane);
 #endif
-        ehe_fold<8>(acc, (lane & 16) != 0, 16);
-        ehe_fold<4>(acc, (lane & 8) != 0, 8);
-        ehe_fold<2>(acc, (lane & 4) != 0, 4);
-        ehe_fold<1>(acc, (lane & 2) != 0, 2);
-        const float total = acc[0] + __shfl_xor_sync(0xffffffffu, acc[0], 1);
-        const int ia = (lane >> 3) & 3;  // this lane's sum is u_ia * v_ib
-        const int ib = (lane >> 1) & 3;
-        if ((lane & 1) == 0 && ia < un.nj && ib < un.nk) {
-          const int p = un.pbase + ia * un.pstride + ib;
-          Gr[p] = t0 == 0 ? total : Gr[p] + total;
-        }
+        const int p = ehe_unit_param(un, lane);
+        if (p >= 0) Gr[p] = t0 == 0 ? total : Gr[p] + total;
       }
       if (t0 + nth < mine) __syncthreads();  // the next tile overwrites the residuals
       EHE_STAMP(6);

@@ -15,38 +15,38 @@
 // [16, 16], one neural parameter, one forcing) a row moves about 20 bytes of
 // device memory (x, forcing, two outputs) against roughly 600 FMA-flops and
 // ~35 transcendentals (expf/powf/rsqrtf), so it leans on the FMA pipes and
-// the special-function unit, not on bandwidth. The design is the simple one:
-// one thread per row, activations in per-thread arrays of a compile-time
-// width (16, 32 or 64, the smallest that holds the widest layer; unrolled so
-// they stay in registers), and all weights staged in shared memory once per
-// block, where every thread of a warp reads the same word (a broadcast).
-// The ragged tail is masked. No tensor cores: a tiled layer product, fewer
-// launches and CUDA graphs are later work. At batch_size=1024, end-to-end
-// predict() is expected to be bound by host chunking and the per-chunk
-// host<->device copies, not by this kernel.
+// the special-function unit, not on bandwidth. What the design does:
+//   * Each thread takes EH_ROWS rows, so one 16-byte broadcast load of four
+//     weights from shared memory feeds four FMAs of every row (one load per
+//     product before). Layers run at their own size, as the training
+//     kernels' row code does (eh_device.cuh): a layer's outputs four at a
+//     time by a loop of the layer's own length, weights in the padded layout
+//     (rows padded to 4 floats), the row's input vector in registers,
+//     branch-free sigmoids; a layer's outputs go through the thread's own
+//     column of shared memory to the next layer.
+//   * Blocks of one warp: 64 rows a block, so that a 1,024-row table still
+//     spreads over 16 multiprocessors, and a table of many chunks (predict
+//     launches once over all of them) gives the scheduler many small blocks.
+//   * The parameters come as one padded blob, copied to shared memory 16
+//     bytes at a time.
+// Rows are independent: one launch over many chunks gives the same bits as
+// one launch per chunk.
 //
 // Built without --use_fast_math: NaN predictor rows propagate to NaN
 // outputs (relu is written so that it keeps NaN, as JAX's does).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "eh_device.cuh"
 
-#define EH_MAX_WIDTH 64
-#define EH_MAX_LAYERS 8
-#define EH_MAX_FORCING 8
-#define EH_MAX_OUTPUTS 8
-#define EH_MAX_ARGS 8
-#define EH_MAX_SCALARS 16
-#define EH_MAX_SMEM_BYTES (48 * 1024)
-#define EH_BLOCK 128
+#define EH_MAX_OUTPUTS 8  // output pointers of the struct; a form writes at most EH_MAX_OUT
+#define EH_BLOCK 32       // threads a block
+#define EH_ROWS 2         // rows a thread
 
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_forward.py;
 // eh_fused_forward_args_size() lets the wrapper check the two agree.
 struct EhFusedForwardArgs {
   const float* x;                          // (n, dims[0]) row-major
   const float* forcing[EH_MAX_FORCING];    // (n,) each
-  const float* blob;                       // packed parameters, layout below
+  const float* blob;                       // packed parameters, padded layout below
   float* out[EH_MAX_OUTPUTS];              // mechanistic outputs, (n,) each
   float* neural_out[EH_MAX_WIDTH];         // scaled neural parameters, (n,) each
   int64_t n;
@@ -55,7 +55,10 @@ struct EhFusedForwardArgs {
   int acts[EH_MAX_LAYERS];
   int has_norm;
   float norm_eps;
-  int blob_floats;
+  int blob_floats;                         // a multiple of 4
+  int pp_off_w[EH_MAX_LAYERS];             // layer l's weights, rows padded to 4 floats
+  int pp_off_b[EH_MAX_LAYERS];             // layer l's bias
+  int tail_off;                            // neural bounds, then globals and fixed values
   int n_globals;
   int n_fixed;
   int scale_nn_outputs;
@@ -67,162 +70,169 @@ struct EhFusedForwardArgs {
   int n_out;
 };
 // Blob layout (float32): [mean, var, scale, bias] (F each, when has_norm);
-// per layer W (dout x din, row-major) then b (dout); neural lower and span
-// (P each); globals raw, lower, span (G each); fixed values (K).
+// per layer, from a multiple of 4, W (dout rows of din floats, each padded
+// with zeros to a multiple of 4) at pp_off_w[l], then b (dout) at pp_off_b[l];
+// at tail_off neural lower and span (P each), globals raw, lower, span (G
+// each), fixed values (K); zeros to a multiple of 4.
 
-enum { ACT_IDENTITY = 0, ACT_TANH, ACT_RELU, ACT_SIGMOID, ACT_SILU, ACT_GELU,
-       ACT_SOFTPLUS, ACT_SELU, ACT_ELU, ACT_LEAKYRELU };
-enum { SRC_FORCING = 0, SRC_NEURAL, SRC_SCALAR, SRC_CONST };
-enum { FORM_RBQ10 = 0 };
-
-__device__ __forceinline__ float eh_sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float eh_act(int act, float x) {
-  switch (act) {
-    case ACT_TANH: return tanhf(x);
-    case ACT_RELU: return x < 0.0f ? 0.0f : x;  // fmaxf would turn NaN into 0
-    case ACT_SIGMOID: return eh_sigmoid(x);
-    case ACT_SILU: return x * eh_sigmoid(x);
-    case ACT_GELU: {  // tanh approximation, as jax.nn.gelu's default
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
-    }
-    case ACT_SOFTPLUS: return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-    case ACT_SELU:
-      return 1.0507009873554805f * (x > 0.0f ? x : 1.6732632423543772f * expm1f(x));
-    case ACT_ELU: return x > 0.0f ? x : expm1f(x);
-    case ACT_LEAKYRELU: return x >= 0.0f ? x : 0.01f * x;
-    default: return x;
-  }
-}
-
-// h[idx] without a dynamic index, which would move h to local memory
-template <int W>
-__device__ __forceinline__ float eh_pick(const float (&h)[W], int idx) {
-  float v = 0.0f;
+// Four outputs' activations for every row of the thread: independent chains
+// for the scheduler to interleave.
+template <int ACT, int R>
+__device__ __forceinline__ void eh_act_rows(float (&z)[R][4]) {
 #pragma unroll
-  for (int j = 0; j < W; ++j) v = (j == idx) ? h[j] : v;
-  return v;
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float d;
+      z[r][i] = ehe_act<true>(ACT, z[r][i], &d);
+    }
+  }
 }
 
 template <int W>
 __global__ void __launch_bounds__(EH_BLOCK)
 eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
-  extern __shared__ float smem[];
-  for (int i = threadIdx.x; i < a.blob_floats; i += blockDim.x) smem[i] = a.blob[i];
-  __syncthreads();
-
+  constexpr int R = EH_ROWS;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
   const int F = a.dims[0];
-  const int P = a.dims[a.n_layers];
+  const int L = a.n_layers;
+  const int P = a.dims[L];
   const int G = a.n_globals;
   const int K = a.n_fixed;
-  int off = a.has_norm ? 4 * F : 0;
-  for (int l = 0; l < a.n_layers; ++l) off += a.dims[l + 1] * (a.dims[l] + 1);
-  const float* nlo = smem + off;
+  float* Pm = sm;                 // the blob
+  float* RS = Pm + a.blob_floats; // rsqrt(var + eps) per feature
+  float* SC = RS + F;             // scaled globals, then fixed values
+  float* SCR = SC + G + K;        // each thread's column: a layer's outputs, R rows
+
+  for (int i = tid; i < a.blob_floats / 4; i += nth)
+    reinterpret_cast<float4*>(Pm)[i] = reinterpret_cast<const float4*>(a.blob)[i];
+  __syncthreads();
+  const float* nlo = Pm + a.tail_off;
   const float* nspan = nlo + P;
   const float* graw = nspan + P;
   const float* glo = graw + G;
   const float* gspan = glo + G;
   const float* fixed = gspan + G;
-  float* scal = smem + a.blob_floats;  // scaled globals, then fixed values
-  const int t = threadIdx.x;
-  if (t < G) {
-    scal[t] = glo[t] + gspan[t] * eh_sigmoid(graw[t]);
-  } else if (t < G + K) {
-    scal[t] = fixed[t - G];
-  }
+  if (a.has_norm)
+    for (int k = tid; k < F; k += nth) RS[k] = rsqrtf(Pm[F + k] + a.norm_eps);
+  for (int t = tid; t < G + K; t += nth)
+    SC[t] = t < G ? glo[t] + gspan[t] * ehe_sigmoid(graw[t]) : fixed[t - G];
   __syncthreads();
 
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + t;
-  if (row >= a.n) return;
-
-  float h[W];
-  const float* xr = a.x + row * F;
+  const int64_t base = (int64_t)blockIdx.x * nth * R + tid;  // row r of the thread: base + r nth
+  float h[R][W];
 #pragma unroll
-  for (int k = 0; k < W; ++k) h[k] = (k < F) ? xr[k] : 0.0f;
-
-  const float* p = smem;
-  if (a.has_norm) {
-    const float* mean = p;
-    const float* var = p + F;
-    const float* scale = p + 2 * F;
-    const float* bias = p + 3 * F;
+  for (int r = 0; r < R; ++r) {
+    const int64_t row = base + (int64_t)r * nth;
+    const float* xr = a.x + (row < a.n ? row : 0) * F;
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      if (k < F) h[k] = (h[k] - mean[k]) * rsqrtf(var[k] + a.norm_eps) * scale[k] + bias[k];
+      float v = 0.0f;
+      if (k < F && row < a.n) {
+        v = xr[k];
+        if (a.has_norm) v = (v - Pm[k]) * RS[k] * Pm[2 * F + k] + Pm[3 * F + k];
+      }
+      h[r][k] = v;
     }
-    p += 4 * F;
   }
 
-  for (int l = 0; l < a.n_layers; ++l) {
+  float* col = SCR + tid;  // this thread's column: output j of row r at (j R + r) nth
+  for (int l = 0; l < L; ++l) {
     const int din = a.dims[l];
     const int dout = a.dims[l + 1];
+    const int din4 = (din + 3) & ~3;
     const int act = a.acts[l];
-    const float* w = p;
-    const float* b = p + dout * din;
-    p = b + dout;
-    float g[W];
+    const float* w = Pm + a.pp_off_w[l];
+    const float* b = Pm + a.pp_off_b[l];
+    for (int j = 0; j < dout; j += 4) {
+      const int last = dout - 1 - j;  // rows past the layer's last repeat it and are dropped
+      const float4* w0 = reinterpret_cast<const float4*>(w + j * din4);
+      const float4* w1 = reinterpret_cast<const float4*>(w + (j + min(1, last)) * din4);
+      const float4* w2 = reinterpret_cast<const float4*>(w + (j + min(2, last)) * din4);
+      const float4* w3 = reinterpret_cast<const float4*>(w + (j + min(3, last)) * din4);
+      float z[R][4];
 #pragma unroll
-    for (int j = 0; j < W; ++j) {
-      float acc = 0.0f;
-      if (j < dout) {
+      for (int r = 0; r < R; ++r) z[r][0] = z[r][1] = z[r][2] = z[r][3] = 0.0f;
 #pragma unroll
-        for (int k = 0; k < W; ++k) {
-          if (k < din) acc = fmaf(h[k], w[j * din + k], acc);
+      for (int k4 = 0; k4 < W / 4; ++k4) {
+        if (k4 * 4 < din) {
+          const float4 q[4] = {w0[k4], w1[k4], w2[k4], w3[k4]};
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              z[r][i] = fmaf(h[r][4 * k4 + 3], q[i].w, fmaf(h[r][4 * k4 + 2], q[i].z,
+                        fmaf(h[r][4 * k4 + 1], q[i].y, fmaf(h[r][4 * k4], q[i].x, z[r][i]))));
+          }
         }
-        acc = eh_act(act, acc + b[j]);
       }
-      g[j] = acc;
-    }
 #pragma unroll
-    for (int j = 0; j < W; ++j) h[j] = g[j];
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[r][i] += b[j + min(i, last)];
+      }
+      switch (act) {
+        case ACT_TANH: eh_act_rows<ACT_TANH, R>(z); break;
+        case ACT_RELU: eh_act_rows<ACT_RELU, R>(z); break;
+        case ACT_SIGMOID: eh_act_rows<ACT_SIGMOID, R>(z); break;
+        case ACT_SILU: eh_act_rows<ACT_SILU, R>(z); break;
+        case ACT_GELU: eh_act_rows<ACT_GELU, R>(z); break;
+        case ACT_SOFTPLUS: eh_act_rows<ACT_SOFTPLUS, R>(z); break;
+        case ACT_SELU: eh_act_rows<ACT_SELU, R>(z); break;
+        case ACT_ELU: eh_act_rows<ACT_ELU, R>(z); break;
+        case ACT_LEAKYRELU: eh_act_rows<ACT_LEAKYRELU, R>(z); break;
+        default: break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i <= last) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) col[((j + i) * R + r) * nth] = z[r][i];
+        }
+      }
+    }
+    if (l + 1 < L) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) h[r][k] = (k < dout) ? col[(k * R + r) * nth] : 0.0f;
+      }
+    }
   }
 
+  // the network's outputs are in the column: bound scaling, the form, writes
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    if (j < P) {
-      const float v = a.scale_nn_outputs ? nlo[j] + nspan[j] * eh_sigmoid(h[j]) : h[j];
-      h[j] = v;
+  for (int r = 0; r < R; ++r) {
+    const int64_t row = base + (int64_t)r * nth;
+    if (row >= a.n) break;
+    for (int j = 0; j < P; ++j) {
+      float v = col[(j * R + r) * nth];
+      if (a.scale_nn_outputs) v = nlo[j] + nspan[j] * ehe_sigmoid_nb(v);
+      col[(j * R + r) * nth] = v;
       a.neural_out[j][row] = v;
     }
-  }
-
-  float av[EH_MAX_ARGS];
+    float av[EH_MAX_ARGS];
 #pragma unroll
-  for (int i = 0; i < EH_MAX_ARGS; ++i) {
-    float v = 0.0f;
-    if (i < a.n_args) {
-      const int idx = a.arg_idx[i];
-      switch (a.arg_src[i]) {
-        case SRC_FORCING: {
-          const float* col = a.forcing[0];
-#pragma unroll
-          for (int f = 1; f < EH_MAX_FORCING; ++f) col = (f == idx) ? a.forcing[f] : col;
-          v = col[row];
-          break;
+    for (int i = 0; i < EH_MAX_ARGS; ++i) {
+      float v = 0.0f;
+      if (i < a.n_args) {
+        const int id = a.arg_idx[i];
+        switch (a.arg_src[i]) {
+          case SRC_FORCING: v = a.forcing[id][row]; break;
+          case SRC_NEURAL: v = col[(id * R + r) * nth]; break;
+          case SRC_SCALAR: v = SC[id]; break;
+          default: v = a.arg_const[i]; break;
         }
-        case SRC_NEURAL: v = eh_pick<W>(h, idx); break;
-        case SRC_SCALAR: v = scal[idx]; break;
-        default: v = a.arg_const[i]; break;
       }
+      av[i] = v;
     }
-    av[i] = v;
-  }
-
-  float outs[EH_MAX_OUTPUTS];
+    float outs[EH_MAX_OUT];
+    ehe_form_out(a.form, av, outs);
 #pragma unroll
-  for (int o = 0; o < EH_MAX_OUTPUTS; ++o) outs[o] = nanf("");
-  switch (a.form) {
-    case FORM_RBQ10:  // args (rb, Q10, ta, tref): rb * Q10^(0.1 (ta - tref))
-      outs[0] = av[0] * powf(av[1], 0.1f * (av[2] - av[3]));
-      break;
-    default: break;
-  }
-#pragma unroll
-  for (int o = 0; o < EH_MAX_OUTPUTS; ++o) {
-    if (o < a.n_out) a.out[o][row] = outs[o];
+    for (int o = 0; o < EH_MAX_OUT; ++o)
+      if (o < a.n_out) a.out[o][row] = outs[o];
   }
 }
 
@@ -234,24 +244,40 @@ extern "C" const char* eh_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
-// checks every shape against the caps above before it gets here.
+template <int W>
+static int eh_ff_launch(const EhFusedForwardArgs* args, size_t smem, cudaStream_t s) {
+  // allow the full 227 KB once per width, not per launch
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        eh_fused_forward_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        EH_MAX_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const int64_t rows = (int64_t)EH_BLOCK * EH_ROWS;
+  const unsigned grid = (unsigned)((args->n + rows - 1) / rows);
+  eh_fused_forward_kernel<W><<<grid, EH_BLOCK, smem, s>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// Launch once over the n rows on `stream`; returns cudaGetLastError() (0 on
+// success). The caller checks every shape against the caps above first.
 extern "C" int eh_fused_forward(const EhFusedForwardArgs* args, int width, void* stream) {
   if (args->n <= 0) return 0;
-  const size_t smem =
-      (size_t)(args->blob_floats + args->n_globals + args->n_fixed) * sizeof(float);
+  const size_t smem = ((size_t)args->blob_floats + args->dims[0] + args->n_globals +
+                       args->n_fixed + (size_t)width * EH_ROWS * EH_BLOCK) * sizeof(float);
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
-      args->n_args > EH_MAX_ARGS || args->n_out > EH_MAX_OUTPUTS ||
-      args->n_globals + args->n_fixed > EH_MAX_SCALARS) {
+      args->n_args > EH_MAX_ARGS || args->n_out > EH_MAX_OUT ||
+      args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->blob_floats % 4 != 0 ||
+      ((uintptr_t)args->blob & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned grid = (unsigned)((args->n + EH_BLOCK - 1) / EH_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {
-    case 16: eh_fused_forward_kernel<16><<<grid, EH_BLOCK, smem, s>>>(*args); break;
-    case 32: eh_fused_forward_kernel<32><<<grid, EH_BLOCK, smem, s>>>(*args); break;
-    case 64: eh_fused_forward_kernel<64><<<grid, EH_BLOCK, smem, s>>>(*args); break;
+    case 16: return eh_ff_launch<16>(args, smem, s);
+    case 32: return eh_ff_launch<32>(args, smem, s);
+    case 64: return eh_ff_launch<64>(args, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

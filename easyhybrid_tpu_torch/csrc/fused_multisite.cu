@@ -20,28 +20,51 @@
 //      gradient, which still decays adam's moments), unless the batch holds
 //      no valid target: then nothing changes.
 //
-// Design: two kernels per step, enqueued back to back on one stream, so the
-// host never waits between steps.
-//   * eh_ms_grad_kernel, a grid over chunks of the batch's sites. A block
-//     owns whole sites, one thread per sample, in tiles of tile_rows samples
-//     whose residuals live in shared memory (eh_device.cuh). A site's samples
-//     are summed by one thread in time order into gsite (only this block
-//     touches that site, so no atomics); the shared gradient is summed over
-//     the block's tiles in shared memory and written, with the block's loss,
-//     as one row of `partials`.
-//   * eh_ms_update_kernel, one thread per shared parameter and per (global,
-//     site): sums the rows of `partials` in block order and updates. No
-//     float atomicAdd anywhere: the same inputs give the same bits.
-//
 // What bounds it on an H100: at the bench shape (8,000 sites x 64
 // observations a step, MLP [16, 16]) a step reads 20 bytes a sample and does
-// about 2,000 flops a sample, so operations bound it, not bytes; the layer
-// products run on the float32 pipes with the weights broadcast from shared
-// memory. Tensor-core tiles (wgmma) are for a later change.
+// about 1,800 flops a sample, so operations bound it, not bytes: ~0.014 ms of
+// float32 FMA over the card. What a step costs in practice is the instruction
+// stream of a row (its layer products, activations, form and backward) and of
+// the gradient sums, spread over the 132 multiprocessors.
+//
+// Design: two kernels per step, enqueued back to back on one stream, so the
+// host never waits between steps. No float atomics anywhere, and every sum
+// has a fixed order: the same inputs give the same bits.
+//   * eh_ms_grad_kernel, a grid over the batch's sites cut by
+//     ops/fused_multisite.py::multisite_geometry. A block owns whole sites and
+//     walks them in tiles of one row a thread: several whole sites a tile, or
+//     a site longer than a tile in several. Rows run kernel 2's row code
+//     (eh_device.cuh: layers at their own size, 16-byte broadcast weight
+//     loads from the padded parameter layout, branch-free sigmoids), with
+//     their residuals in a tile in shared memory. A tile's rows (predictors,
+//     forcing, targets, masks) and its sites' raw globals are staged in
+//     shared memory by cp.async, the next tile's copies in flight while the
+//     current tile's sums run.
+//   * Per tile, the shared gradient is taken by warps over 4 x 4 units with
+//     the fixed folding tree (eh_device.cuh), added into the block's partial
+//     row in tile order; each site's gradient by a group of lanes with a
+//     fixed shuffle tree (the lane-group sum of multisite_primitives.cu's
+//     site_reduce), written once per site (a site longer than a tile is
+//     summed over its tiles in order first). The block writes one partial
+//     row: its shared gradient and its loss.
+//   * eh_ms_update_kernel: a warp per shared parameter (and one for the
+//     loss) sums the blocks' partial rows, its lanes in a fixed stride and
+//     then a fixed shuffle tree, and updates; a thread per (global, site)
+//     updates that site's value. Its sum no longer caps the grid.
+//
+// Built with -DEHM_STAMPS, thread 0 of block 0 adds the clock64() cycles it
+// spends in each stage of a step to a.stamps when the kernel ends: 0 waiting
+// for the tile's staged rows (with the block's start), 1 forward to loss,
+// 2 backward, 3 starting the next tile's copies, 4 the shared gradient's
+// units, 5 the per-site sums, 6 the block's end (loss, partial row), 7 the
+// whole kernel.
 //
 // Built without --use_fast_math, as fused_forward.cu.
 
 #include "eh_device.cuh"
+
+// Threads a gradient block may have (one row each).
+#define EHM_MAX_THREADS 256
 
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_multisite.py;
 // eh_fused_multisite_args_size() lets the wrapper check the two agree.
@@ -62,11 +85,15 @@ struct EhFusedMultisiteArgs {
   float* gsite;                          // (n_globals, n_sites) scratch, zero between steps
   float* partials;                       // (n_blocks, n_shared + 1) scratch
   float* epoch_loss;                     // (n_epochs) sum of valid batch losses, zero on entry
+  long long* stamps;                     // (EHM_N_STAMPS) cycles per stage, or null
   int n_obs;
   int n_epochs;
   int n_batches;
   int batch;
   int n_sites;
+  int threads;                           // a tile's rows, one a thread
+  int tile_sites;                        // sites a tile holds (1 when a site takes several)
+  int site_tiles;                        // tiles a site takes (1 unless n_obs > threads)
   int sites_per_block;
   int n_blocks;
   int n_layers;
@@ -77,6 +104,11 @@ struct EhFusedMultisiteArgs {
   int n_shared;
   int p_off_w[EH_MAX_LAYERS];
   int p_off_b[EH_MAX_LAYERS];
+  int p_off_g;                           // == n_shared: the globals are per site, not in a unit
+  int n_padded;                          // shared parameters with weight rows padded to 4
+  int pp_off_w[EH_MAX_LAYERS];           // the padded layout's offsets
+  int pp_off_b[EH_MAX_LAYERS];
+  int pp_off_g;
   int n_globals;
   int n_fixed;
   int scale_nn_outputs;
@@ -95,109 +127,207 @@ struct EhFusedMultisiteArgs {
   float one_minus_b1;
   float one_minus_b2;
   float eps;
-  int tile_rows;
-  int res_floats;
+  int n_forcing;
+  int res_floats;                        // floats a row keeps in the tile
   int r_off_xhat;
   int r_off_d0;
   int r_off_g;
   int r_off_h[EH_MAX_LAYERS];
   int r_off_d[EH_MAX_LAYERS];
+  int r_off_out;                         // the network's outputs, then their cotangents
+  int r_off_dsc;                         // the bound scaling's derivative
+  int r_off_one;                         // a feature that is 1 on every row
+  int n_unit_table;                      // gradient units described once a block
 };
 // Shared parameters: [norm scale, norm bias] (dims[0] each, with a norm);
 // per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l].
-// Global g of site s: params[n_shared + g * n_sites + s].
+// Global g of site s: params[n_shared + g * n_sites + s]. In shared memory the
+// shared parameters use the padded layout (eh_device.cuh, ehe_padded_index).
+// Residual tile: word (off + k) * threads + r for feature k of row r.
 
 enum { LOSS_SQUARED = 0, LOSS_ABSOLUTE };
 
+#define EHM_N_STAMPS 8
+#ifdef EHM_STAMPS
+#define EHM_STAMP(k)                                 \
+  do {                                               \
+    if (tid == 0 && blockIdx.x == 0) {               \
+      const long long now = clock64();               \
+      stamp_acc[k] += now - stamp_last;              \
+      stamp_last = now;                              \
+    }                                                \
+  } while (0)
+#else
+#define EHM_STAMP(k)
+#endif
+
 template <int W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(EHM_MAX_THREADS)
 eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;  // == a.tile_rows
-  const int ld = nth + 1;      // row stride of the residual tile
+  const int nth = blockDim.x;  // == a.threads
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nth >> 5;
+  const int ld = nth;  // row stride of the residual tile and of a stage
   const int F = a.dims[0];
   const int L = a.n_layers;
   const int P = a.dims[L];
   const int G = a.n_globals;
   const int K = a.n_fixed;
   const int T = a.n_targets;
+  const int NF = a.n_forcing;
   const int NP = a.n_shared;
   const int N = a.n_obs;
   const int S = a.n_sites;
   const int n_consts = 2 * P + 2 * G + K;
+  const int cols = F + NF + 2 * T;             // a stage's columns
+  const int stage_floats = cols * ld + a.tile_sites * G;  // the rows, then the sites' raw globals
 
-  float* Pm = sm;             // shared parameters
-  float* Gr = Pm + NP;        // their gradient, summed over this block's tiles
-  float* C = Gr + NP;         // constants
-  float* BM = C + n_consts;   // norm mean
-  float* BR = BM + F;         // rsqrt(var + eps)
-  float* SCL = BR + F;        // loss scale per target
-  float* RED = SCL + T;       // per-thread loss partials
-  float* RES = RED + nth;     // residual tile
+  float* Pm = sm;                 // shared parameters, padded layout
+  float* Gr = Pm + a.n_padded;    // their gradient, summed over this block's tiles
+  float* C = Gr + NP;             // constants
+  float* BM = C + n_consts;       // norm mean
+  float* BR = BM + F;             // rsqrt(var + eps)
+  float* SCL = BR + F;            // loss scale per target
+  float* XL = SCL + T;            // loss partials, one a warp
+  float* GS = XL + nw;            // a long site's sums over its tiles so far
+  int* UT = reinterpret_cast<int*>(GS + G);  // the first units, 8 ints each
+  float* RES = reinterpret_cast<float*>(UT + 8 * a.n_unit_table);  // residual tile
+  float* ST = RES + a.res_floats * ld;       // the two stages
+#ifdef EHM_STAMPS
+  long long stamp_acc[EHM_N_STAMPS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long stamp_first = clock64();
+  long long stamp_last = stamp_first;
+#endif
 
-  for (int i = tid; i < NP; i += nth) {
-    Pm[i] = a.params[i];
-    Gr[i] = 0.0f;
-  }
+  const int* idx = a.site_index + (int64_t)step * a.batch;
+  const int j0 = blockIdx.x * a.sites_per_block;
+  const int n_mine = min(a.sites_per_block, a.batch - j0);  // this block's sites, at least 1
+  const int chunks = a.site_tiles;
+  const int n_tiles = chunks > 1 ? n_mine * chunks : (n_mine + a.tile_sites - 1) / a.tile_sites;
+
+  // Tile k: ns sites from the block's site fs, observations [t0, t0 + nobs)
+  // of each; its row r is site fs + r / nobs, observation t0 + r % nobs.
+  struct Tile {
+    int fs, ns, t0, nobs;
+  };
+  auto tile_of = [&](int k) {
+    Tile t;
+    if (chunks > 1) {
+      t.fs = k / chunks;
+      t.ns = 1;
+      t.t0 = (k - t.fs * chunks) * nth;
+      t.nobs = min(nth, N - t.t0);
+    } else {
+      t.fs = k * a.tile_sites;
+      t.ns = min(a.tile_sites, n_mine - t.fs);
+      t.t0 = 0;
+      t.nobs = N;
+    }
+    return t;
+  };
+  // Start the copies of tile k's rows (zeros for a padding slot) and of its
+  // sites' raw globals, each loaded once a site, into stage k & 1.
+  auto stage_tile = [&](int k) {
+    const Tile t = tile_of(k);
+    float* dst = ST + (k & 1) * stage_floats;
+    if (tid < t.ns * t.nobs) {
+      const int i = tid / t.nobs;
+      const int s = idx[j0 + t.fs + i];
+      if (s >= 0) {
+        const int64_t row = (int64_t)s * N + t.t0 + (tid - i * t.nobs);
+        for (int c = 0; c < F; ++c) ehe_cp_async4(dst + c * ld + tid, a.x + row * F + c);
+        for (int f = 0; f < NF; ++f) ehe_cp_async4(dst + (F + f) * ld + tid, a.forcing[f] + row);
+        for (int j = 0; j < T; ++j) {
+          ehe_cp_async4(dst + (F + NF + j) * ld + tid, a.y[j] + row);
+          ehe_cp_async4(dst + (F + NF + T + j) * ld + tid, a.mask[j] + row);
+        }
+      } else {
+        for (int c = 0; c < cols; ++c) dst[c * ld + tid] = 0.0f;
+      }
+    }
+    if (tid < t.ns * G) {  // site i's global g at i * G + g
+      const int i = tid / G;
+      const int s = idx[j0 + t.fs + i];
+      float* d = dst + cols * ld + tid;
+      if (s >= 0) {
+        ehe_cp_async4(d, a.params + NP + (int64_t)(tid - i * G) * S + s);
+      } else {
+        *d = 0.0f;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  stage_tile(0);
+  for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
   for (int i = tid; i < n_consts; i += nth) C[i] = a.consts[i];
   for (int k = tid; k < F; k += nth) {
     BM[k] = a.norm_mode != NORM_NONE ? a.bn[k] : 0.0f;
     BR[k] = a.norm_mode != NORM_NONE ? rsqrtf(a.bn[F + k] + a.norm_eps) : 1.0f;
   }
   for (int j = tid; j < T; j += nth) SCL[j] = a.scale[(int64_t)step * T + j];
+  for (int u = tid; u < a.n_unit_table; u += nth) ehe_unit_describe(a, UT, u);
+  RES[a.r_off_one * ld + tid] = 1.0f;
   __syncthreads();
+  for (int i = tid; i < NP; i += nth) Pm[ehe_padded_index(a, i)] = a.params[i];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  EHM_STAMP(0);
 
   const float* nlo = C;
   const float* nspan = C + P;
   const float* glo = C + 2 * P;
   const float* gspan = C + 2 * P + G;
   const float* fixed = C + 2 * P + 2 * G;
-  const int* idx = a.site_index + (int64_t)step * a.batch;
-  const int j0 = blockIdx.x * a.sites_per_block;
-  const int j1 = min(j0 + a.sites_per_block, a.batch);
-  const int total = (j1 - j0) * N;  // this block's samples
-
+  const int n_units = ehe_n_units(a, false);  // the shared parameters' units
   float loss_part = 0.0f;
-  for (int q0 = 0; q0 < total; q0 += nth) {
-    const int q = q0 + tid;
-    const int rows_here = min(nth, total - q0);
-    if (q < total) {
-      const int s = idx[j0 + q / N];
-      const bool live = s >= 0;
-      const int64_t row = live ? (int64_t)s * N + q % N : 0;
+
+  for (int k = 0; k < n_tiles; ++k) {
+    const Tile t = tile_of(k);
+    const int rows = t.ns * t.nobs;
+    const float* st = ST + (k & 1) * stage_floats;  // this tile's staged rows, landed
+    if (tid < rows) {
       float* res = RES + tid;
       float h[W];
 #pragma unroll
-      for (int k = 0; k < W; ++k) h[k] = (k < F && live) ? a.x[row * F + k] : 0.0f;
-      if (a.norm_mode != NORM_NONE) {
-#pragma unroll
-        for (int k = 0; k < W; ++k) {
-          if (k < F) {
-            const float xh = (h[k] - BM[k]) * BR[k];
-            res[(a.r_off_xhat + k) * ld] = xh;
-            h[k] = xh * Pm[k] + Pm[F + k];
+      for (int c = 0; c < W; ++c) {
+        float x = 0.0f;
+        if (c < F) {
+          x = st[c * ld + tid];
+          if (a.norm_mode != NORM_NONE) {
+            const float xh = (x - BM[c]) * BR[c];
+            res[(a.r_off_xhat + c) * ld] = xh;
+            x = xh * Pm[c] + Pm[F + c];
           }
+          res[(a.r_off_h[0] + c) * ld] = x;
         }
-      }
-#pragma unroll
-      for (int k = 0; k < W; ++k)
-        if (k < F) res[(a.r_off_h[0] + k) * ld] = h[k];
-
-      ehe_mlp_forward<W>(a, Pm, h, res, ld);
-
-      // bound scaling of the neural outputs
-      float dsc[W];
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        dsc[j] = 1.0f;
-        if (j < P && a.scale_nn_outputs) {
-          const float sg = ehe_sigmoid(h[j]);
-          dsc[j] = nspan[j] * (sg * (1.0f - sg));
-          h[j] = nlo[j] + nspan[j] * sg;
-        }
+        h[c] = x;
       }
 
+      ehe_row_forward<W>(a, Pm, h, res, ld);
+
+      // The row's small vectors (the network's P outputs, the G globals'
+      // cotangents) live in the row's column of the tile, walked by loops of
+      // their own length. Bound scaling of the neural outputs: the scaled
+      // value in place, its derivative beside it.
+      float* outv = res + a.r_off_out * ld;
+      float* dscv = res + a.r_off_dsc * ld;
+      for (int j = 0; j < P; ++j) {
+        float y = outv[j * ld];
+        float ds = 1.0f;
+        if (a.scale_nn_outputs) {
+          const float sg = ehe_sigmoid_nb(y);
+          ds = nspan[j] * (sg * (1.0f - sg));
+          y = nlo[j] + nspan[j] * sg;
+        }
+        outv[j * ld] = y;
+        dscv[j * ld] = ds;
+      }
+
+      const float* raw = st + cols * ld + (tid / t.nobs) * G;  // the row's site's raw globals
       float av[EH_MAX_ARGS];
 #pragma unroll
       for (int i = 0; i < EH_MAX_ARGS; ++i) {
@@ -205,21 +335,10 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
         if (i < a.n_args) {
           const int id = a.arg_idx[i];
           switch (a.arg_src[i]) {
-            case SRC_FORCING: {
-              const float* col = a.forcing[0];
-#pragma unroll
-              for (int f = 1; f < EH_MAX_FORCING; ++f) col = (f == id) ? a.forcing[f] : col;
-              val = live ? col[row] : 0.0f;
-              break;
-            }
-            case SRC_NEURAL: val = ehe_pick<W>(h, id); break;
+            case SRC_FORCING: val = st[(F + id) * ld + tid]; break;
+            case SRC_NEURAL: val = outv[id * ld]; break;
             case SRC_SCALAR:
-              if (id < G) {  // this site's global
-                const float raw = live ? a.params[NP + (int64_t)id * S + s] : 0.0f;
-                val = glo[id] + gspan[id] * ehe_sigmoid(raw);
-              } else {
-                val = fixed[id - G];
-              }
+              val = id < G ? glo[id] + gspan[id] * ehe_sigmoid_nb(raw[id]) : fixed[id - G];
               break;
             default: val = a.arg_const[i]; break;
           }
@@ -238,9 +357,9 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
       for (int j = 0; j < EH_MAX_TARGETS; ++j) {
         cot[j] = 0.0f;
         if (j < T) {
-          const bool on = live && a.mask[j][row] > 0.0f;
+          const bool on = st[(F + NF + T + j) * ld + tid] > 0.0f;
           const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-          const float diff = on ? pred - a.y[j][row] : 0.0f;
+          const float diff = on ? pred - st[(F + NF + j) * ld + tid] : 0.0f;
           const float sc = SCL[j];
           if (a.loss_kind == LOSS_ABSOLUTE) {
             term += sc * fabsf(diff);
@@ -252,14 +371,12 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
         }
       }
       loss_part += term;
+      EHM_STAMP(1);
 
-      // cotangents of the neural outputs and of the site's scaled globals
-      float dn[W];
-      float gg[EH_MAX_SCALARS];
-#pragma unroll
-      for (int j = 0; j < W; ++j) dn[j] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < EH_MAX_SCALARS; ++j) gg[j] = 0.0f;
+      // cotangents of the neural outputs (gathered where the outputs were)
+      // and of the site's scaled globals
+      for (int j = 0; j < P; ++j) outv[j * ld] = 0.0f;
+      for (int j = 0; j < G; ++j) res[(a.r_off_g + j) * ld] = 0.0f;
 #pragma unroll
       for (int i = 0; i < EH_MAX_ARGS; ++i) {
         if (i < a.n_args) {
@@ -277,62 +394,97 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
                 c += cot[j] * part;
               }
             }
-            if (src == SRC_NEURAL) {
-#pragma unroll
-              for (int j = 0; j < W; ++j) dn[j] += (j == id) ? c : 0.0f;
-            } else {
-#pragma unroll
-              for (int j = 0; j < EH_MAX_SCALARS; ++j) gg[j] += (j == id) ? c : 0.0f;
-            }
+            float* slot = src == SRC_NEURAL ? outv + id * ld : res + (a.r_off_g + id) * ld;
+            *slot += c;
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < EH_MAX_SCALARS; ++j)
-        if (j < G) res[(a.r_off_g + j) * ld] = gg[j];
-
-      float D[W];
-#pragma unroll
-      for (int j = 0; j < W; ++j) D[j] = (j < P) ? dn[j] * dsc[j] : 0.0f;
-      ehe_mlp_backward<W>(a, Pm, D, res, ld);
+      // the last layer's pre-activation cotangent, then backward through the MLP
+      {
+        float* zd = res + a.r_off_d[L - 1] * ld;
+        for (int j = 0; j < P; ++j) zd[j * ld] = (outv[j * ld] * dscv[j * ld]) * zd[j * ld];
+      }
+      ehe_row_backward<W>(a, Pm, res, ld);
+      EHM_STAMP(2);
     }
+    // the next tile's copies go out here, to land while this tile's sums run
+    if (k + 1 < n_tiles) stage_tile(k + 1);
+    EHM_STAMP(3);
     __syncthreads();
 
-    // one thread per shared parameter sums the tile's rows
-    for (int p = tid; p < NP; p += nth) Gr[p] += ehe_param_tile_sum(a, RES, ld, p, rows_here);
-    // one thread per site of the tile sums the site's rows, in time order
-    const int jf = q0 / N;
-    const int jl = (q0 + rows_here - 1) / N;
-    for (int jj = jf + tid; jj <= jl; jj += nth) {
-      const int s = idx[j0 + jj];
-      if (s >= 0) {
-        const int r_lo = max(jj * N, q0) - q0;
-        const int r_hi = min((jj + 1) * N, q0 + rows_here) - q0;
-        for (int g = 0; g < G; ++g) {
-          const float* u = RES + (a.r_off_g + g) * ld;
-          float acc = 0.0f;
-          for (int r2 = r_lo; r2 < r_hi; ++r2) acc += u[r2];
-          a.gsite[(int64_t)g * S + s] += acc;
+    // the shared gradient: a warp per unit of 4 x 4 parameters, its lanes
+    // splitting the tile's rows; added into the block's row in tile order
+    for (int u = warp; u < n_units; u += nw) {
+      const EheUnit un = ehe_unit_at(a, UT, u);
+      const float total = ehe_unit_sum(un, RES, ld, rows, lane);
+      const int p = ehe_unit_param(un, lane);
+      if (p >= 0) Gr[p] = k == 0 ? total : Gr[p] + total;
+    }
+    EHM_STAMP(4);
+    // each site's gradient: a group of lanes per (site, global) over the
+    // site's rows of the tile; written once a site
+    {
+      const int lanes = eh_group_lanes(t.nobs);
+      const int per_warp = 32 / lanes;
+      const int pairs = t.ns * G;
+      const int gl = lane & (lanes - 1);
+      for (int q0 = warp * per_warp; q0 < pairs; q0 += nw * per_warp) {
+        const int q = q0 + lane / lanes;
+        const bool on = q < pairs;
+        const int i = on ? q / G : 0;
+        const int g = on ? q - i * G : 0;
+        const float sum = eh_group_sum(RES + (a.r_off_g + g) * ld + i * t.nobs, on ? t.nobs : 0,
+                                       lanes, gl, false, 1.0f);
+        if (on && gl == 0) {
+          const int s = idx[j0 + t.fs + i];
+          if (chunks == 1) {
+            if (s >= 0) a.gsite[(int64_t)g * S + s] = sum;
+          } else {  // a site over several tiles: its chunks in order
+            const int c = k - (k / chunks) * chunks;
+            const float acc = c == 0 ? sum : GS[g] + sum;
+            GS[g] = acc;
+            if (c == chunks - 1 && s >= 0) a.gsite[(int64_t)g * S + s] = acc;
+          }
         }
       }
     }
-    __syncthreads();
+    EHM_STAMP(5);
+    if (k + 1 < n_tiles) {  // the next tile's rows have landed; this tile's are free
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      EHM_STAMP(0);
+    }
   }
 
-  RED[tid] = loss_part;
+  {
+    const float v = ehe_warp_sum(loss_part);
+    if (lane == 0) XL[warp] = v;
+  }
   __syncthreads();
   float* part = a.partials + (int64_t)blockIdx.x * (NP + 1);
   for (int p = tid; p < NP; p += nth) part[p] = Gr[p];
   if (tid == 0) {
     float bl = 0.0f;
-    for (int r2 = 0; r2 < nth; ++r2) bl += RED[r2];
+    for (int w = 0; w < nw; ++w) bl += XL[w];
     part[NP] = bl;
   }
+  EHM_STAMP(6);
+#ifdef EHM_STAMPS
+  if (tid == 0 && blockIdx.x == 0 && a.stamps != nullptr) {
+    stamp_acc[EHM_N_STAMPS - 1] = clock64() - stamp_first;
+    for (int k = 0; k < EHM_N_STAMPS; ++k) a.stamps[k] += stamp_acc[k];
+  }
+#endif
+}
+
+// Warps of the update kernel's first blocks: one per shared parameter, and
+// one for the batch loss.
+__host__ __device__ __forceinline__ int ehm_shared_blocks(int n_shared) {
+  return (n_shared + 1 + 7) / 8;
 }
 
 __global__ void __launch_bounds__(256)
 eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int NP = a.n_shared;
   const int S = a.n_sites;
   const int G = a.n_globals;
@@ -340,18 +492,29 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   const float tc = fmaxf(a.tcount[step], 1.0f);
   const float bc1 = 1.0f - powf(a.b1, tc);
   const float bc2 = 1.0f - powf(a.b2, tc);
+  const int shared_blocks = ehm_shared_blocks(NP);
 
-  if (gid <= NP) {  // a shared parameter's gradient, or (gid == NP) the batch loss
+  if ((int)blockIdx.x < shared_blocks) {
+    // a shared parameter's gradient, or (p == NP) the batch loss: the lanes
+    // add the blocks' partial rows lane, lane + 32, ..., then a shuffle tree
+    const int lane = threadIdx.x & 31;
+    const int p = blockIdx.x * 8 + (threadIdx.x >> 5);
+    if (p > NP) return;
+    const float* col = a.partials + p;
     float g = 0.0f;
-    for (int b = 0; b < a.n_blocks; ++b) g += a.partials[(int64_t)b * (NP + 1) + gid];
-    if (valid) {
-      if (gid == NP) {
+#pragma unroll 8
+    for (int b = lane; b < a.n_blocks; b += 32) g += col[(int64_t)b * (NP + 1)];
+    g = ehe_warp_sum(g);
+    if (lane == 0 && valid) {
+      if (p == NP) {
         a.epoch_loss[step / a.n_batches] += g;
       } else {
-        ehe_update(a, &a.params[gid], &a.m[gid], &a.v[gid], g, bc1, bc2);
+        ehe_update(a, &a.params[p], &a.m[p], &a.v[p], g, bc1, bc2);
       }
     }
+    return;
   }
+  const int64_t gid = (int64_t)(blockIdx.x - shared_blocks) * blockDim.x + threadIdx.x;
   if (gid < (int64_t)G * S) {  // global gid / S of site gid % S
     float g = a.gsite[gid];
     a.gsite[gid] = 0.0f;
@@ -377,8 +540,10 @@ static size_t ehm_smem_floats(const EhFusedMultisiteArgs* a) {
   const int F = a->dims[0];
   const int P = a->dims[a->n_layers];
   const int G = a->n_globals, K = a->n_fixed, T = a->n_targets;
-  return (size_t)2 * a->n_shared + (2 * P + 2 * G + K) + 2 * F + T + a->tile_rows +
-         (size_t)a->res_floats * (a->tile_rows + 1);
+  const int cols = F + a->n_forcing + 2 * T;
+  return (size_t)a->n_padded + a->n_shared + (2 * P + 2 * G + K) + 2 * F + T + a->threads / 32 +
+         G + 8 * a->n_unit_table + (size_t)a->res_floats * a->threads +
+         2 * ((size_t)cols * a->threads + (size_t)a->tile_sites * G);
 }
 
 template <int W>
@@ -393,11 +558,10 @@ static int ehm_launch(const EhFusedMultisiteArgs* args, size_t smem, cudaStream_
     allowed = true;
   }
   const int64_t n_site_values = (int64_t)args->n_globals * args->n_sites;
-  const int64_t n_update = n_site_values > args->n_shared + 1 ? n_site_values : args->n_shared + 1;
-  const int update_blocks = (int)((n_update + 255) / 256);
+  const int update_blocks = ehm_shared_blocks(args->n_shared) + (int)((n_site_values + 255) / 256);
   const int steps = args->n_epochs * args->n_batches;
   for (int step = 0; step < steps; ++step) {
-    eh_ms_grad_kernel<W><<<args->n_blocks, args->tile_rows, smem, s>>>(*args, step);
+    eh_ms_grad_kernel<W><<<args->n_blocks, args->threads, smem, s>>>(*args, step);
     eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step);
   }
   return (int)cudaGetLastError();
@@ -408,13 +572,18 @@ static int ehm_launch(const EhFusedMultisiteArgs* args, size_t smem, cudaStream_
 extern "C" int eh_fused_multisite(const EhFusedMultisiteArgs* args, int width, void* stream) {
   if (args->n_epochs <= 0 || args->n_batches <= 0) return 0;
   const size_t smem = ehm_smem_floats(args) * sizeof(float);
-  const int tr = args->tile_rows;
+  const int th = args->threads, N = args->n_obs;
+  const int64_t spb = args->sites_per_block;
+  const bool tiles_ok = args->site_tiles == 1
+                            ? args->tile_sites >= 1 && (int64_t)args->tile_sites * N <= th
+                            : args->tile_sites == 1 && (int64_t)args->site_tiles * th >= N &&
+                                  (int64_t)(args->site_tiles - 1) * th < N;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
       args->n_args > EH_MAX_ARGS || args->n_targets < 1 || args->n_targets > EH_MAX_TARGETS ||
-      args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_obs < 1 ||
-      args->sites_per_block < 1 ||
-      (int64_t)args->n_blocks * args->sites_per_block < args->batch ||
-      (tr != 32 && tr != 64 && tr != 128)) {
+      args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
+      N < 1 || th < 32 || th > EHM_MAX_THREADS || th % 32 != 0 || !tiles_ok || spb < 1 ||
+      args->n_blocks * spb < args->batch || (args->n_blocks - 1) * spb >= args->batch ||
+      args->n_padded % 4 != 0 || args->n_unit_table < 0 || args->p_off_g != args->n_shared) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -35,8 +35,7 @@
 // threads takes 256 / lanes sites, which at 8,000 sites x 64 is 500 blocks
 // for the card's 132 multiprocessors.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "eh_device.cuh"  // eh_group_sum, eh_group_lanes: the lane-group row sum
 
 __global__ void eh_prim_site_gather_kernel(const float* vals, const int* idx, float* out,
                                            int n_slots, int n_obs) {
@@ -44,27 +43,6 @@ __global__ void eh_prim_site_gather_kernel(const float* vals, const int* idx, fl
   if (i >= (int64_t)n_slots * n_obs) return;
   const int s = idx[i / n_obs];
   out[i] = s >= 0 ? vals[s] : 0.0f;
-}
-
-// The sum over row[0 .. n_obs) times v, taken by a group of `lanes` lanes
-// (a power of two, the group aligned in its warp): lane g of the group adds
-// elements g, g + lanes, ... (four at a time with `vec`), then a shuffle tree
-// over the group. Every lane of the warp must call it; every lane of a group
-// returns the group's sum.
-__device__ __forceinline__ float eh_group_sum(const float* row, int n_obs, int lanes, int g,
-                                              bool vec, float v) {
-  float acc = 0.0f;
-  if (vec) {
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-    for (int t = g; t < n_obs / 4; t += lanes) {
-      const float4 q = row4[t];
-      acc += (v * q.x + v * q.y) + (v * q.z + v * q.w);
-    }
-  } else {
-    for (int t = g; t < n_obs; t += lanes) acc += v * row[t];
-  }
-  for (int off = lanes >> 1; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
 }
 
 __global__ void eh_prim_site_reduce_kernel(const float* in, float* out, int n_slots, int n_obs,
@@ -110,10 +88,7 @@ static int blocks_for(int64_t n) { return (int)((n + 255) / 256); }
 // time: a power of two up to a warp, one load a lane where the row allows.
 static int lanes_for(const float* base, int n_obs, int* vec) {
   *vec = n_obs % 4 == 0 && ((uintptr_t)base & 15) == 0;
-  const int pieces = *vec ? n_obs / 4 : n_obs;
-  int lanes = 1;
-  while (lanes < 32 && lanes < pieces) lanes *= 2;
-  return lanes;
+  return eh_group_lanes(*vec ? n_obs / 4 : n_obs);
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).

@@ -460,7 +460,7 @@ class FusedEpochPlan(PackedLayout):
     opt_name: str
     hyper: Tuple[Tuple[str, float], ...]
     width: int
-    tile_rows: int  # the envelope's tile (kernel 5 cuts its site chunks by it)
+    tile_rows: int  # the envelope's tile: residual rows the first kernels held beside the state
     res_floats: int  # floats a row keeps for the backward
     loss: str = "mse"
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf

@@ -19,6 +19,8 @@ transcription on probe values, and a mismatch raises.
 On a CPU tensor the wrapper computes :func:`fused_forward_reference`, the
 plain PyTorch version of the same function on the same packed parameters;
 on a CUDA tensor it launches the kernel or raises. It never falls back.
+:meth:`FusedForward.table` is the serving path around it: host rows in,
+host columns out, one staged copy each way and one launch per call.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import functools
 import inspect
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,8 +60,11 @@ MAX_FORCING = 8
 MAX_OUTPUTS = 8
 MAX_ARGS = 8
 MAX_SCALARS = 16
-MAX_SMEM_FLOATS = 48 * 1024 // 4
+MAX_SMEM_FLOATS = 48 * 1024 // 4  # the envelope's cap on the packed parameters
 _WIDTHS = (16, 32, 64)  # the kernel's compile-time widths
+# rows one launch covers at most (whole chunks of batch_size): a larger table
+# is staged, copied and launched one group of chunks at a time
+_GROUP_ROWS = 1 << 20
 
 _ACT_IDS = {
     "identity": 0, "linear": 0, "tanh": 1, "relu": 2, "sigmoid": 3,
@@ -265,6 +271,9 @@ class _Args(ctypes.Structure):
         ("has_norm", ctypes.c_int),
         ("norm_eps", ctypes.c_float),
         ("blob_floats", ctypes.c_int),
+        ("pp_off_w", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_b", ctypes.c_int * MAX_LAYERS),
+        ("tail_off", ctypes.c_int),
         ("n_globals", ctypes.c_int),
         ("n_fixed", ctypes.c_int),
         ("scale_nn_outputs", ctypes.c_int),
@@ -286,10 +295,37 @@ def _blob_floats(model) -> int:
     return n
 
 
+def _padded_blob(blob: torch.Tensor, dims, has_norm: bool):
+    """The kernel's copy of the packed parameters: every weight row padded
+    with zeros to a multiple of 4 floats and every layer starting on a
+    multiple of 4, so that a row is read 16 bytes at a time; the whole a
+    multiple of 4. Returns it with each layer's weight and bias offsets and
+    the offset of the rest (bounds, globals, fixed values)."""
+    def up4(n):
+        return -(-n // 4) * 4
+
+    src = off = 4 * dims[0] if has_norm else 0
+    parts, pp_w, pp_b = [blob[:src]], [], []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        parts.append(blob.new_zeros((up4(off) - off,)))
+        off = up4(off)
+        pp_w.append(off)
+        parts.append(F.pad(blob[src : src + dout * din].view(dout, din), (0, up4(din) - din)))
+        src, off = src + dout * din, off + dout * up4(din)
+        pp_b.append(off)
+        parts.append(blob[src : src + dout])
+        src, off = src + dout, off + dout
+    tail = off
+    off += blob.numel() - src
+    parts += [blob[src:], blob.new_zeros((up4(off) - off,))]
+    return torch.cat([t.reshape(-1) for t in parts]).contiguous(), pp_w, pp_b, tail
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
     """What the kernel and its plain version read: the packed parameter
-    blob (on the model's device) and the static layout."""
+    blob (on the model's device; the kernel's padded copy beside it) and
+    the static layout."""
 
     dims: Tuple[int, ...]
     acts: Tuple[str, ...]
@@ -306,6 +342,12 @@ class FusedPlan:
     blob: torch.Tensor
     width: int
 
+    @functools.cached_property
+    def kernel_blob(self):
+        """``(padded blob, weight offsets, bias offsets, tail offset)``: the
+        kernel's layout of :attr:`blob` (:func:`_padded_blob`)."""
+        return _padded_blob(self.blob, self.dims, self.has_norm)
+
     @property
     def n_features(self) -> int:
         return self.dims[0]
@@ -315,13 +357,17 @@ class FusedPlan:
         """The kernel's static arguments, packed once; each launch copies
         them and fills in the pointers and the row count."""
         a = _Args()
-        a.blob = self.blob.data_ptr()
+        padded, pp_w, pp_b, tail = self.kernel_blob
+        a.blob = padded.data_ptr()
         a.n_layers = len(self.dims) - 1
         a.dims[: len(self.dims)] = self.dims
         a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
         a.has_norm = int(self.has_norm)
         a.norm_eps = self.norm_eps
-        a.blob_floats = self.blob.numel()
+        a.blob_floats = padded.numel()
+        a.pp_off_w[: len(pp_w)] = pp_w
+        a.pp_off_b[: len(pp_b)] = pp_b
+        a.tail_off = tail
         a.n_globals, a.n_fixed = self.n_globals, self.n_fixed
         a.scale_nn_outputs = int(self.scale_nn_outputs)
         a.form = self.form.form_id
@@ -525,15 +571,17 @@ launch_fused_forward.launches = 0
 class FusedForward:
     """``fn(x, forcing) -> {output…, neural parameter…}`` over a snapshot of
     the model's parameters. On CUDA tensors the rows go through the kernel
-    in launches of at most ``batch_size`` rows (one launch per batch, as
-    the JAX kernel runs one grid step per batch); on CPU tensors the plain
-    version computes the same function."""
+    in one launch (one per group of ``_GROUP_ROWS`` rows, whole chunks of
+    ``batch_size``: rows are independent, so the bits are those of one
+    launch per chunk, the JAX kernel's grid step); on CPU tensors the plain
+    version computes the same function. :meth:`table` serves host rows."""
 
     def __init__(self, model, *, batch_size: int = 1024):
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive; got {batch_size}")
         self.plan = plan_fused_forward(model)
         self.batch_size = int(batch_size)
+        self.group_rows = max(1, _GROUP_ROWS // self.batch_size) * self.batch_size
 
     def _check(self, x, forcing):
         plan = self.plan
@@ -576,8 +624,8 @@ class FusedForward:
         n = x.shape[0]
         names = self.plan.output_names + self.plan.neural_names
         outputs = {k: torch.empty((n,), dtype=torch.float32, device=x.device) for k in names}
-        for start in range(0, n, self.batch_size):
-            end = min(start + self.batch_size, n)
+        for start in range(0, n, self.group_rows):
+            end = min(start + self.group_rows, n)
             launch_fused_forward(
                 self.plan,
                 x[start:end],
@@ -585,6 +633,52 @@ class FusedForward:
                 {k: o[start:end] for k, o in outputs.items()},
             )
         return outputs
+
+    def table(self, x: np.ndarray, forcing: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The serving path: host rows ``x (n, F)`` and forcing columns in,
+        ``{output…, neural parameter…}`` host columns of ``n`` rows out. The
+        rows are padded once to whole chunks of ``batch_size`` in one host
+        buffer (pinned), copied to the card once, computed by one launch
+        (one per group of ``_GROUP_ROWS`` rows for a larger table), and the
+        outputs come back in one copy; the padding rows are cut. With the
+        model on the CPU the plain version computes the same rows."""
+        plan = self.plan
+        dev = plan.blob.device
+        on_card = dev.type == "cuda"
+        n = int(x.shape[0])
+        f = plan.n_features
+        names = plan.output_names + plan.neural_names
+        padded = max(1, -(-n // self.batch_size)) * self.batch_size
+        out = {k: np.empty((n,), np.float32) for k in names}
+        for start in range(0, padded, self.group_rows):
+            rows = min(self.group_rows, padded - start)
+            take = max(0, min(n - start, rows))
+            # x, then each forcing column, in one buffer
+            host = torch.empty(((f + len(plan.forcing_names)) * rows,), dtype=torch.float32,
+                               pin_memory=on_card)
+            staged = host.numpy()
+            staged[: rows * f].reshape(rows, f)[:take] = x[start : start + take]
+            staged[take * f : rows * f] = 0.0
+            for i, name in enumerate(plan.forcing_names):
+                col = staged[rows * (f + i) : rows * (f + i + 1)]
+                col[:take] = forcing[name][start : start + take]
+                col[take:] = 0.0
+            dev_in = host.to(dev, non_blocking=True)
+            xd = dev_in[: rows * f].view(rows, f)
+            fd = {name: dev_in[rows * (f + i) : rows * (f + i + 1)]
+                  for i, name in enumerate(plan.forcing_names)}
+            if on_card:
+                res = torch.empty((len(names), rows), dtype=torch.float32, device=dev)
+                launch_fused_forward(plan, xd, fd, dict(zip(names, res)))
+                back = torch.empty((len(names), rows), dtype=torch.float32, pin_memory=True)
+                back.copy_(res, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+            else:
+                ref = fused_forward_reference(plan, xd, fd)
+                back = torch.stack([ref[k] for k in names])
+            for i, k in enumerate(names):
+                out[k][start : start + take] = back[i, :take].numpy()
+        return out
 
 
 def make_fused_forward(model, *, batch_size: int = 1024) -> FusedForward:

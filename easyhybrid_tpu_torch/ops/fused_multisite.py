@@ -47,6 +47,7 @@ from ..training.epoch import perms_for_epochs
 from ..training.optimizers import parse_opt_spec
 from . import _build
 from .fused_epoch import (
+    _UNIT_TABLE,
     MAX_SMEM_BYTES,
     MAX_TARGETS,
     SHUFFLES,
@@ -60,6 +61,8 @@ from .fused_epoch import (
     build_plan,
     fill_common_args,
     form_args,
+    gradient_units,
+    padded_offsets,
     reference_backward,
     reference_cotangents,
     reference_forward,
@@ -80,21 +83,32 @@ __all__ = [
     "fused_multisite_unsupported_reason",
     "launch_fused_multisite",
     "make_fused_multisite_epoch",
+    "multisite_geometry",
     "supports_fused_multisite",
 ]
 
 MS_LOSSES = ("mse", "mae", "nseLoss")
 _LOSS_KINDS = {"mse": 0, "nseLoss": 0, "mae": 1}  # squared or absolute differences
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
-_TARGET_BLOCKS = 4 * 132  # gradient blocks aimed at: four per multiprocessor
+# gradient blocks aimed at: two a multiprocessor, the blocks the card holds at
+# once for the quick-start model (91 KB of shared memory each), so a step is
+# one wave and a block walks many tiles, each next tile's rows in flight
+# (tools/sweep_multisite_blocks_gpu.py: at 8,000 sites x 64 this ran 4.5%
+# faster than eight a multiprocessor, and smaller tiles ran slower; PERF.md)
+_TARGET_BLOCKS = 2 * 132
+_MAX_THREADS = 256  # EHM_MAX_THREADS in csrc/fused_multisite.cu: a tile's rows
 
 
 # --------------------------------------------------------------------------
 # envelope
 # --------------------------------------------------------------------------
 
-def _smem_floats(n_shared, f, n_consts, t, tile_rows, res) -> int:
-    """Shared-memory floats of a gradient block; the launcher computes the same."""
+def _envelope_floats(n_shared, f, n_consts, t, tile_rows, res) -> int:
+    """The floats that decide the envelope (the first kernel's gradient block:
+    the shared parameters and their gradient, the small vectors and a tile of
+    ``tile_rows`` residual rows with a pad column). Kept as it was, so the
+    envelope admits what it did; :func:`multisite_geometry` lays out the
+    kernel's own block."""
     return 2 * n_shared + n_consts + 2 * f + t + tile_rows + res * (tile_rows + 1)
 
 
@@ -103,7 +117,7 @@ def _tile_rows(model) -> Optional[int]:
     g, k = len(model.global_param_names), len(model.fixed_param_names)
     f, p, t = model.nn.in_dim, model.nn.out_dim, len(model.targets)
     for rows in _TILE_ROWS:
-        if 4 * _smem_floats(n_params - g, f, 2 * p + 2 * g + k, t, rows, res) <= MAX_SMEM_BYTES:
+        if 4 * _envelope_floats(n_params - g, f, 2 * p + 2 * g + k, t, rows, res) <= MAX_SMEM_BYTES:
             return rows
     return None
 
@@ -198,11 +212,15 @@ class _Args(ctypes.Structure):
         ("gsite", ctypes.c_void_p),
         ("partials", ctypes.c_void_p),
         ("epoch_loss", ctypes.c_void_p),
+        ("stamps", ctypes.c_void_p),
         ("n_obs", ctypes.c_int),
         ("n_epochs", ctypes.c_int),
         ("n_batches", ctypes.c_int),
         ("batch", ctypes.c_int),
         ("n_sites", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("tile_sites", ctypes.c_int),
+        ("site_tiles", ctypes.c_int),
         ("sites_per_block", ctypes.c_int),
         ("n_blocks", ctypes.c_int),
         ("n_layers", ctypes.c_int),
@@ -213,6 +231,11 @@ class _Args(ctypes.Structure):
         ("n_shared", ctypes.c_int),
         ("p_off_w", ctypes.c_int * MAX_LAYERS),
         ("p_off_b", ctypes.c_int * MAX_LAYERS),
+        ("p_off_g", ctypes.c_int),
+        ("n_padded", ctypes.c_int),
+        ("pp_off_w", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_b", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_g", ctypes.c_int),
         ("n_globals", ctypes.c_int),
         ("n_fixed", ctypes.c_int),
         ("scale_nn_outputs", ctypes.c_int),
@@ -231,13 +254,17 @@ class _Args(ctypes.Structure):
         ("one_minus_b1", ctypes.c_float),
         ("one_minus_b2", ctypes.c_float),
         ("eps", ctypes.c_float),
-        ("tile_rows", ctypes.c_int),
+        ("n_forcing", ctypes.c_int),
         ("res_floats", ctypes.c_int),
         ("r_off_xhat", ctypes.c_int),
         ("r_off_d0", ctypes.c_int),
         ("r_off_g", ctypes.c_int),
         ("r_off_h", ctypes.c_int * MAX_LAYERS),
         ("r_off_d", ctypes.c_int * MAX_LAYERS),
+        ("r_off_out", ctypes.c_int),
+        ("r_off_dsc", ctypes.c_int),
+        ("r_off_one", ctypes.c_int),
+        ("n_unit_table", ctypes.c_int),
     ]
 
 
@@ -252,8 +279,8 @@ def plan_fused_multisite(model, optimizer, logging: LoggingLoss) -> FusedEpochPl
 
 
 def _static_args(plan: FusedEpochPlan) -> bytes:
-    """The kernel's static arguments; each call fills in the pointers and
-    the sizes."""
+    """The kernel's static arguments; each call fills in the pointers, the
+    sizes and the geometry."""
     a = _Args()
     dims = plan.dims
     a.n_sites = plan.n_sites
@@ -262,16 +289,96 @@ def _static_args(plan: FusedEpochPlan) -> bytes:
     a.acts[: len(plan.acts)] = [_ACT_IDS[act] for act in plan.acts]
     fill_common_args(a, plan)
     o = plan.offsets()
-    a.n_shared = o["p_g"]
+    a.n_shared = a.p_off_g = o["p_g"]
     a.p_off_w[: len(o["p_w"])] = o["p_w"]
     a.p_off_b[: len(o["p_b"])] = o["p_b"]
+    pp = padded_offsets(dims, plan.has_norm, 0)  # the shared parameters alone
+    a.pp_off_w[: len(pp["pp_w"])] = pp["pp_w"]
+    a.pp_off_b[: len(pp["pp_b"])] = pp["pp_b"]
+    a.pp_off_g, a.n_padded = pp["pp_g"], pp["n_padded"]
     a.loss_kind = _LOSS_KINDS[plan.loss]
-    a.tile_rows = plan.tile_rows
-    a.res_floats = plan.res_floats
+    a.n_forcing = len(plan.forcing_names)
+    # the backward's residuals, then the network's outputs, the bound scaling's
+    # derivative and a feature of ones (kernel 2's tile row)
+    a.res_floats = plan.tile_floats
     a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]
     a.r_off_h[: len(o["r_h"])] = o["r_h"]
     a.r_off_d[: len(o["r_d"])] = o["r_d"]
+    a.r_off_out, a.r_off_dsc = plan.res_floats, plan.res_floats + dims[-1]
+    a.r_off_one = plan.res_floats + 2 * dims[-1]
+    a.n_unit_table = _n_unit_table(plan)
     return bytes(a)
+
+
+def _smem_floats(*, n_padded, n_shared, f, p, g, k, t, n_forcing, threads, tile_floats, tile_sites,
+                 n_unit_table) -> int:
+    """Shared-memory floats of a gradient block of ``threads`` threads;
+    ``ehm_smem_floats`` in csrc/fused_multisite.cu computes the same."""
+    cols = f + n_forcing + 2 * t
+    return (n_padded + n_shared + (2 * p + 2 * g + k) + 2 * f + t + threads // 32 + g
+            + 8 * n_unit_table + tile_floats * threads + 2 * (cols * threads + tile_sites * g))
+
+
+class MultisiteGeometry(NamedTuple):
+    """How the gradient kernel cuts a step over ``batch`` sites of ``n_obs``
+    observations: tiles of ``threads`` rows (one a thread) that hold
+    ``tile_sites`` whole sites, or, for a site longer than that, a site in
+    ``site_tiles`` tiles; a block owns ``sites_per_block`` whole sites and
+    walks their tiles, the next tile's rows staged while the current tile's
+    sums run; ``blocks`` blocks, each writing one partial row."""
+
+    threads: int
+    tile_sites: int
+    site_tiles: int
+    sites_per_block: int
+    blocks: int
+
+
+def _block_smem_bytes(plan: FusedEpochPlan, threads: int, tile_sites: int) -> int:
+    n_shared, g = plan.offsets()["p_g"], len(plan.global_names)
+    return 4 * _smem_floats(
+        n_padded=padded_offsets(plan.dims, plan.has_norm, 0)["n_padded"], n_shared=n_shared,
+        f=plan.dims[0], p=plan.dims[-1], g=g, k=len(plan.fixed_names),
+        t=len(plan.target_names), n_forcing=len(plan.forcing_names), threads=threads,
+        tile_floats=plan.tile_floats, tile_sites=tile_sites, n_unit_table=_n_unit_table(plan))
+
+
+def _n_unit_table(plan: FusedEpochPlan) -> int:
+    """The shared parameters' gradient units a block describes once (the
+    per-site globals have no unit: each site is summed on its own)."""
+    return min(_UNIT_TABLE, gradient_units(plan.dims, plan.has_norm, 0))
+
+
+def multisite_geometry(plan: FusedEpochPlan, batch: int, n_obs: int) -> MultisiteGeometry:
+    """The gradient kernel's geometry: a pure function of the plan, the site
+    batch and the observations a site. A tile has at most 256 rows, fewer
+    where the block's shared memory (the padded parameters, their gradient,
+    the residual tile and two stages) would not fit; it holds as many whole
+    sites as fit (its threads the next multiple of 32 of their rows), or a
+    site longer than that in tiles of that many rows. Blocks take whole
+    sites, as few tiles each as reach about ``_TARGET_BLOCKS`` blocks; the
+    blocks' partial rows are summed in parallel, so nothing caps the grid."""
+    if batch < 1 or n_obs < 1:
+        raise ValueError(f"a site batch of {batch} sites of {n_obs} observations")
+    most = _MAX_THREADS
+    while True:
+        if n_obs <= most:
+            tile_sites, site_tiles = min(most // n_obs, batch), 1
+            threads = -(-tile_sites * n_obs // 32) * 32
+        else:
+            tile_sites, site_tiles, threads = 1, -(-n_obs // most), most
+        if _block_smem_bytes(plan, threads, tile_sites) <= MAX_SMEM_BYTES:
+            break
+        if most == 32:
+            raise ValueError("the shared parameters and a 32-row tile exceed the kernel's "
+                             f"{MAX_SMEM_BYTES // 1024} KB of shared memory")
+        most -= 32
+    n_tiles = batch * site_tiles if site_tiles > 1 else -(-batch // tile_sites)
+    tiles = -(-n_tiles // _TARGET_BLOCKS)
+    sites_per_block = min(batch, max(1, tiles // site_tiles) if site_tiles > 1
+                          else tiles * tile_sites)
+    return MultisiteGeometry(threads, tile_sites, site_tiles, sites_per_block,
+                             -(-batch // sites_per_block))
 
 
 class MultisiteData(NamedTuple):
@@ -431,13 +538,18 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
 
 def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
                            data: MultisiteData, index: torch.Tensor, scale, valid,
-                           epoch_loss: torch.Tensor) -> None:
+                           epoch_loss: torch.Tensor, *, lib=None, stamps=None) -> None:
     """Enqueue every step of ``index`` (``(epochs, num_batches, batch)``)
     with one call of the C launcher, updating ``packed`` and ``opt_state``
     in place and adding each epoch's valid batch losses into ``epoch_loss``
     (zeros on entry); raises if a launch is refused. Counts calls in
-    ``launch_fused_multisite.launches``."""
-    lib = _build.load_library()
+    ``launch_fused_multisite.launches``. ``lib`` is a measuring build of the
+    kernel (:func:`measuring_library`) in place of the package's library,
+    whose launches are not counted, and ``stamps`` the int64 tensor its stage
+    cycles go to."""
+    main_lib = _build.load_library()
+    measuring = lib is not None
+    lib = lib or main_lib
     if lib.eh_fused_multisite_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -447,14 +559,11 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     epochs, nb, batch = index.shape
     n_obs = data.x.shape[1]
     n_shared, n_glob = plan.offsets()["p_g"], len(plan.global_names)
-    # a block owns whole sites: enough of them to fill a tile, few enough
-    # blocks to keep the sum over blocks short
-    per_block = max(-(-batch // _TARGET_BLOCKS), -(-plan.tile_rows // n_obs))
-    n_blocks = -(-batch // per_block)
+    geo = multisite_geometry(plan, batch, n_obs)
     t0 = opt_state["t"].to(torch.float32)
     tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
     gsite = torch.zeros((max(n_glob * plan.n_sites, 1),), dtype=torch.float32, device=dev)
-    partials = torch.empty((n_blocks, n_shared + 1), dtype=torch.float32, device=dev)
+    partials = torch.empty((geo.blocks, n_shared + 1), dtype=torch.float32, device=dev)
 
     a = _Args.from_buffer_copy(_static_args(plan))
     a.x = data.x.data_ptr()
@@ -468,19 +577,55 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     a.m, a.v = opt_state["m"].data_ptr(), opt_state["v"].data_ptr()
     a.consts = plan.consts.data_ptr()
     a.gsite, a.partials, a.epoch_loss = gsite.data_ptr(), partials.data_ptr(), epoch_loss.data_ptr()
+    a.stamps = stamps.data_ptr() if stamps is not None else None
     a.n_obs, a.n_epochs, a.n_batches, a.batch = n_obs, epochs, nb, batch
-    a.sites_per_block, a.n_blocks = per_block, n_blocks
+    a.threads, a.tile_sites, a.site_tiles = geo.threads, geo.tile_sites, geo.site_tiles
+    a.sites_per_block, a.n_blocks = geo.sites_per_block, geo.blocks
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.eh_fused_multisite(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused multisite kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+            f"fused multisite kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
     opt_state["t"].copy_(tcount[-1:].round().to(torch.int32))
-    launch_fused_multisite.launches += 1
+    if not measuring:
+        launch_fused_multisite.launches += 1
 
 
 launch_fused_multisite.launches = 0
+
+# the stamped build's stages (-DEHM_STAMPS; the last stamp is the whole kernel)
+STAGES = ("wait for the staged rows", "forward to loss", "backward",
+          "start the next tile's copies", "shared gradient units", "per-site sums",
+          "block's end")
+
+
+def measuring_library(*defines: str) -> ctypes.CDLL:
+    """``csrc/fused_multisite.cu`` alone, compiled with ``defines``
+    (``-DEHM_STAMPS``: thread 0 of block 0 stamps each stage of a step with
+    ``clock64()``)."""
+    lib = ctypes.CDLL(str(_build.build_variant("fused_multisite.cu", defines).path))
+    lib.eh_fused_multisite.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.eh_fused_multisite.restype = ctypes.c_int
+    lib.eh_fused_multisite_args_size.restype = ctypes.c_int
+    return lib
+
+
+def stage_cycles(fn: "FusedMultisiteEpoch", packed: FusedParams, opt_state,
+                 tensors: EpochTensors, perms=None) -> dict:
+    """One call of the stamped build on CUDA tensors: the ``clock64()``
+    cycles thread 0 of the first gradient block spent in each stage
+    (:data:`STAGES`), summed over the call's steps, and ``"kernel"``, that
+    block's whole time. For measurement only; the result is dropped."""
+    data, index, scale, valid = fn.inputs(tensors, perms)
+    packed = FusedParams(packed.params.clone(), packed.bn.clone())
+    opt_state = {k: v.clone() for k, v in opt_state.items()}
+    dev = data.x.device
+    epoch_loss = torch.zeros((index.shape[0],), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=dev)
+    launch_fused_multisite(fn.plan, packed, opt_state, data, index, scale, valid, epoch_loss,
+                           lib=measuring_library("-DEHM_STAMPS"), stamps=stamps)
+    return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 
 
 class FusedMultisiteEpoch:

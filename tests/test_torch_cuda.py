@@ -93,9 +93,37 @@ def test_quick_start_kernel_matches_plain(cuda):
     before = ff.launch_fused_forward.launches
     got = fn(x, forcing)
     torch.cuda.synchronize()
-    assert ff.launch_fused_forward.launches - before == 5  # ragged tail: 4 full + 1
+    assert ff.launch_fused_forward.launches - before == 1  # one launch covers every chunk
     _assert_close(got, fn.reference(x, forcing))
     assert torch.isnan(got["reco"][::97].cpu()).all()
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000])
+@pytest.mark.parametrize("hidden,width", [([16, 16], 16), ([24, 32], 32), ([64, 48], 64)])
+def test_one_launch_gives_the_bits_of_a_launch_per_chunk(cuda, n, hidden, width):
+    """Rows are independent: one launch over every chunk, one launch per
+    chunk of 1,024 rows and one launch per 7 rows give the same bits, NaN
+    predictor rows included, within TOL of the plain version."""
+    cols = et.rbq10_columns(n, seed=n)
+    cols["sw_pot"][::13] = np.nan
+    m, x, forcing = _model(cols, cuda, hidden_layers=hidden, activation="swish")
+    fn = et.make_fused_forward(m, batch_size=1024)
+    assert fn.plan.width == width
+    whole = fn(x, forcing)
+    names = list(whole)
+    for step in (1024, 7):
+        parts = {k: torch.empty_like(v) for k, v in whole.items()}
+        for start in range(0, n, step):
+            sl = slice(start, min(start + step, n))
+            ff.launch_fused_forward(fn.plan, x[sl], {k: c[sl] for k, c in forcing.items()},
+                                    {k: parts[k][sl] for k in names})
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(whole[k]), _bits(parts[k])) for k in names)
+    _assert_close(whole, fn.reference(x, forcing))
 
 
 @pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
@@ -123,12 +151,41 @@ def test_predict_takes_the_kernel(cuda):
     assert fn.engine == "cuda_fused_forward"
     before = ff.launch_fused_forward.launches
     out = fn(cols)
-    assert ff.launch_fused_forward.launches - before == 3
+    assert ff.launch_fused_forward.launches - before == 1  # one launch for the three chunks
     m.eval()
     with torch.no_grad():
         plain = m(x, forcing)
     _assert_close({k: torch.from_numpy(v) for k, v in out.items()},
                   {"reco": plain["reco"], "rb": plain["parameters"]["rb"]})
+    fused = et.make_fused_forward(m, batch_size=1024)
+    direct = fused(x, forcing)  # the same kernel on the same rows: the same bits
+    for k, v in out.items():
+        assert torch.equal(torch.from_numpy(v).view(torch.int32), _bits(direct[k]))
+
+
+@pytest.mark.parametrize("batch_size", [1, 1024, 131_072])
+def test_predict_keys_shapes_and_copies(cuda, batch_size):
+    """The fused engine's ``predict``: the torch engine's keys and shapes at
+    every batch size, one copy in and one copy out per call."""
+    cols = et.rbq10_columns(3000, seed=8)
+    m, _, _ = _model(cols, cuda)
+    fused = et.make_inference_fn(m, batch_size=batch_size)
+    plain = et.make_inference_fn(m, batch_size=batch_size, use_kernel=False)
+    assert (fused.engine, plain.engine) == ("cuda_fused_forward", "torch")
+    fused(cols)  # the pinned buffers and the library are set up
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = fused(cols)
+    copies = {e.key: e.count for e in prof.key_averages() if "Memcpy" in e.key}
+    assert sum(c for k, c in copies.items() if "HtoD" in k) == 1, copies
+    assert sum(c for k, c in copies.items() if "DtoH" in k) == 1, copies
+    want = plain(cols)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape
+    _assert_close({k: torch.from_numpy(v) for k, v in got.items()},
+                  {k: torch.from_numpy(v) for k, v in want.items()})
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -270,7 +327,7 @@ def test_epoch_wrapper_rejects_mixed_devices(cuda):
 
 def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swish",
                     norm="static", opt=("adam", 0.01), loss="mse", agg="sum", shuffle=False,
-                    epochs=2, nan_frac=0.1, mask_batch=None, seed=0, **spec_kw):
+                    epochs=2, nan_frac=0.1, mask_batch=None, seed=0, target=None, **spec_kw):
     spec = dict(
         predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
         mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
@@ -292,10 +349,15 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fm.launch_fused_multisite.launches
-    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    torch.cuda.synchronize()
-    assert fm.launch_fused_multisite.launches - before == 1  # one launcher call per block
-    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    default = fm._TARGET_BLOCKS
+    fm._TARGET_BLOCKS = target or default  # the geometry aims at another number of blocks
+    try:
+        got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+        torch.cuda.synchronize()
+        again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    finally:
+        fm._TARGET_BLOCKS = default
+    assert fm.launch_fused_multisite.launches - before == 2  # one launcher call a run
     ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
     for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
                  (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
@@ -321,7 +383,13 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
     dict(hidden=(64, 48), act="selu", N=9),
     dict(neural_param_names=["Q10"], global_param_names=["rb"]),   # per-site rb
     dict(batch=128, mask_batch=1, nan_frac=0.0),
-    dict(N=200, S=40),                                              # a site longer than a tile
+    dict(N=200, S=40),                                              # a site of 200 rows
+    dict(N=1000, S=30, epochs=2),                                   # a site over four tiles
+    dict(N=1, S=700),
+    dict(N=3, S=500, batch=128, shuffle=True),
+    dict(N=63, S=300),
+    dict(N=65, S=301, batch=100, shuffle="batches"),                # a ragged last block
+    dict(S=3000, N=64, epochs=1, target=8 * 132),                   # 750 blocks, beyond 528
 ], ids=str)
 def test_multisite_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
     _multisite_case(cuda, **kw)

@@ -204,7 +204,9 @@ def test_kernel_source_and_ctypes_mirror_agree():
     """The caps and the argument struct of the CUDA source match the
     wrapper's constants and its ctypes mirror, field by field."""
     src = CU_SOURCE.read_text()
-    defines = dict(re.findall(r"#define (EH_MAX_\w+) (\d+)", src))
+    header = CU_SOURCE.with_name("eh_device.cuh").read_text()
+    assert '#include "eh_device.cuh"' in src  # the shared formulas, caps and enums
+    defines = dict(re.findall(r"#define (EH_MAX_\w+) (\d+)", src + header))
     for name in ("WIDTH", "LAYERS", "FORCING", "OUTPUTS", "ARGS", "SCALARS"):
         assert int(defines[f"EH_MAX_{name}"]) == getattr(ff, f"MAX_{name}")
     body = re.search(r"struct EhFusedForwardArgs \{(.*?)\};", src, re.S).group(1)
@@ -239,5 +241,58 @@ def test_kernel_arguments_pack_the_plan():
     assert (a.has_norm, a.n_globals, a.n_fixed, a.n_args, a.n_out) == (1, 1, 1, 4, 1)
     assert list(a.arg_src[:4]) == [ff._SRC_NEURAL, ff._SRC_SCALAR, ff._SRC_FORCING, ff._SRC_SCALAR]
     assert a.arg_idx[3] == 1  # tref: the first fixed scalar, after the one global
-    assert a.blob == plan.blob.data_ptr() and a.x is None
+    padded, pp_w, pp_b, tail = plan.kernel_blob  # the kernel's padded copy of the blob
+    assert a.blob == padded.data_ptr() and a.x is None and a.blob_floats == padded.numel()
+    assert list(a.pp_off_w[:3]) == pp_w == [8, 8 + 16 * 4 + 16, 8 + 16 * 4 + 16 + 16 * 17]
+    assert list(a.pp_off_b[:3]) == pp_b and a.tail_off == tail == pp_b[2] + 1
+    assert padded.numel() == -(-(tail + 2 + 3 + 1) // 4) * 4  # bounds, globals, fixed; to 4
     assert abs(a.norm_eps - 1e-5) < 1e-12 and plan.width == 16
+
+
+@pytest.mark.parametrize("batch_size", [256, 1, 1000, 4096])
+def test_serving_path_matches_the_jax_pallas_kernel(batch_size):
+    """``FusedForward.table`` (the fused engine's serving path, through the
+    plain version on the CPU) against the JAX Pallas forward in interpret
+    mode on the same rows padded to whole chunks: 1,000 rows with NaN
+    predictor rows, within 1e-5 * max(1, |ref|), the same NaN rows."""
+    df = eh.gen_rbq10_data(1000, seed=31)
+    spec = _spec()
+    jm, params, state, tm, data = _pair(spec, df)
+    data = eh.prepare_data(jm, df, drop_missing_rows=False)
+    x = np.asarray(data.x).copy()
+    x[np.random.default_rng(31).choice(1000, 11, replace=False), 0] = np.nan
+    forcing = {k: np.asarray(v) for k, v in data.forcing.items()}
+    padded = -(-1000 // batch_size) * batch_size
+    jfwd = jax_make_fused_forward(jm, params, state, batch_size=batch_size, interpret=True)
+    want = jfwd(jnp.asarray(np.pad(x, ((0, padded - 1000), (0, 0)))),
+                {k: jnp.asarray(np.pad(v, (0, padded - 1000))) for k, v in forcing.items()})
+    want = np.asarray(want["reco"])[:1000]
+    got = et.make_fused_forward(tm, batch_size=batch_size).table(x, forcing)
+    assert sorted(got) == ["rb", "reco"] and got["reco"].shape == (1000,)
+    nan = np.isnan(want)
+    assert nan.sum() == 11
+    np.testing.assert_array_equal(np.isnan(got["reco"]), nan)
+    assert np.all(np.abs(got["reco"][~nan] - want[~nan])
+                  <= 1e-5 * np.maximum(1.0, np.abs(want[~nan])))
+
+
+def test_padded_blob_holds_the_blob():
+    """The kernel's copy of the parameters: the same values at the padded
+    offsets, zeros in the padding, every layer from a multiple of 4."""
+    tm = et.construct_hybrid_model(**_spec(hidden_layers=[5, 7]),
+                                   generator=torch.Generator().manual_seed(3))
+    plan = ff.plan_fused_forward(tm)
+    padded, pp_w, pp_b, tail = plan.kernel_blob
+    dims, blob = plan.dims, plan.blob
+    assert torch.equal(padded[:8], blob[:8]) and all(o % 4 == 0 for o in pp_w)
+    src = 8
+    for (din, dout), w0, b0 in zip(zip(dims[:-1], dims[1:]), pp_w, pp_b):
+        din4 = -(-din // 4) * 4
+        w = padded[w0 : w0 + dout * din4].view(dout, din4)
+        assert torch.equal(w[:, :din].reshape(-1), blob[src : src + dout * din])
+        assert not w[:, din:].any() and b0 == w0 + dout * din4
+        src += dout * din
+        assert torch.equal(padded[b0 : b0 + dout], blob[src : src + dout])
+        src += dout
+    assert torch.equal(padded[tail : tail + blob.numel() - src], blob[src:])
+    assert padded.numel() % 4 == 0 and not padded[tail + blob.numel() - src :].any()

@@ -368,8 +368,12 @@ def test_kernel_arguments_pack_the_plan():
     a = fm._Args.from_buffer_copy(fm._static_args(plan))
     assert a.n_shared == shared and a.n_sites == 1000 and a.n_globals == 1 and a.loss_kind == 1
     assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 1 and a.opt == 1
-    assert a.one_minus_b2 == np.float32(1.0 - 0.999) and a.tile_rows == plan.tile_rows == 128
-    assert a.r_off_g + 1 == plan.res_floats == a.res_floats
+    assert a.one_minus_b2 == np.float32(1.0 - 0.999) and plan.tile_rows == 128
+    # kernel 2's tile row: the residuals, the outputs, their scaling's derivative, ones
+    assert a.r_off_g + 1 == plan.res_floats == a.r_off_out and a.r_off_one == a.r_off_dsc + 1
+    assert a.res_floats == plan.tile_floats == plan.res_floats + 3 and a.p_off_g == shared
+    assert list(a.pp_off_w[:3]) == [4, 4 + 16 * 4 + 16, 4 + 16 * 4 + 16 + 16 * 17]
+    assert a.n_padded % 4 == 0 and a.n_padded >= a.pp_off_b[2] + 1 and a.n_forcing == 1
     packed = plan.pack(tm)
     assert packed.params.numel() == plan.n_params and packed.bn.numel() == 4
     leaves = plan.leaves(packed.params)
@@ -378,3 +382,117 @@ def test_kernel_arguments_pack_the_plan():
     plan.unpack(packed, twin)
     for k, v in tm.state_dict().items():
         assert torch.equal(v, twin.state_dict()[k])
+
+
+# --------------------------------------------------------------------------
+# the gradient kernel's geometry
+# --------------------------------------------------------------------------
+
+def _plan(hidden=(16, 16), norm="static", S=10_000, **kw):
+    return fm.plan_fused_multisite(torch_model(S, hidden=hidden, norm=norm, **kw), ("adam", 0.01),
+                                   et.LoggingLoss())
+
+
+@pytest.mark.parametrize("batch,n_obs,target,want", [
+    # threads, tile_sites, site_tiles, sites_per_block, blocks
+    (8000, 64, None, (256, 4, 1, 32, 250)),    # the main path: one wave of 8-tile blocks
+    (10_000, 64, None, (256, 4, 1, 40, 250)),
+    (2560, 64, None, (256, 4, 1, 12, 214)),    # minibatched sites
+    (3000, 64, 8 * 132, (256, 4, 1, 4, 750)),  # more blocks aimed at: beyond the old cap of 528
+    (100_000, 64, 8 * 132, (256, 4, 1, 96, 1042)),
+    (301, 1, None, (256, 256, 1, 256, 2)),     # one observation a site: 256 sites a tile
+    (301, 3, None, (256, 85, 1, 85, 4)),
+    (301, 63, None, (256, 4, 1, 4, 76)),
+    (301, 64, None, (256, 4, 1, 4, 76)),
+    (301, 65, None, (224, 3, 1, 3, 101)),      # 195 rows: 224 threads
+    (301, 1000, None, (256, 1, 4, 1, 301)),    # a site longer than a tile: four tiles
+    (5000, 1000, None, (256, 1, 4, 19, 264)),
+    (6, 300, None, (256, 1, 2, 1, 6)),
+    (40, 8, None, (256, 32, 1, 32, 2)),        # a ragged last block
+    (1, 1, None, (32, 1, 1, 1, 1)),
+], ids=str)
+def test_geometry_is_pinned(batch, n_obs, target, want, monkeypatch):
+    if target is not None:
+        monkeypatch.setattr(fm, "_TARGET_BLOCKS", target)
+    geo = fm.multisite_geometry(_plan(), batch, n_obs)
+    assert tuple(geo) == want
+    # whole sites a block, every site in one block, no empty block
+    assert geo.blocks * geo.sites_per_block >= batch > (geo.blocks - 1) * geo.sites_per_block
+    if geo.site_tiles == 1:
+        assert geo.tile_sites * n_obs <= geo.threads < geo.tile_sites * n_obs + 32
+    else:
+        assert geo.tile_sites == 1 and (geo.site_tiles - 1) * geo.threads < n_obs
+        assert geo.site_tiles * geo.threads >= n_obs
+    assert geo.threads % 32 == 0 and geo.threads <= 256
+    assert fm._block_smem_bytes(_plan(), geo.threads, geo.tile_sites) <= fm.MAX_SMEM_BYTES
+
+
+def test_geometry_is_a_pure_function_and_shrinks_the_tile_for_wide_models():
+    plan = _plan()
+    assert fm.multisite_geometry(plan, 8000, 64) == fm.multisite_geometry(_plan(), 8000, 64)
+    wide = _plan(hidden=(64,) * 4)
+    geo = fm.multisite_geometry(wide, 1000, 64)
+    assert geo.threads < 256 and fm._block_smem_bytes(wide, geo.threads, geo.tile_sites) <= (
+        fm.MAX_SMEM_BYTES) < fm._block_smem_bytes(wide, geo.threads + 32, geo.tile_sites)
+    with pytest.raises(ValueError, match="observations"):
+        fm.multisite_geometry(plan, 10, 0)
+
+
+def test_smem_formula_matches_the_source():
+    """``_smem_floats`` against ``ehm_smem_floats``'s return expression,
+    parsed from the source and evaluated on the same numbers."""
+    src = CU_SOURCE.read_text()
+    body = re.search(r"static size_t ehm_smem_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    expr = re.search(r"return (.*?);", body, re.S).group(1).replace("(size_t)", "")
+    expr = re.sub(r"a->(\w+)", r"a_\1", " ".join(expr.split())).replace("/", "//")
+    rng = np.random.default_rng(0)
+    for _ in range(50):
+        f, p, g, k, t, nf = (int(rng.integers(lo, hi)) for lo, hi in
+                             ((1, 65), (1, 9), (1, 9), (0, 5), (1, 5), (1, 9)))
+        threads, tile_sites = 32 * int(rng.integers(1, 9)), int(rng.integers(1, 257))
+        n_shared, n_padded, res, table = (int(rng.integers(10, 9000)), 4 * int(rng.integers(3, 2500)),
+                                          int(rng.integers(4, 500)), int(rng.integers(0, 129)))
+        names = dict(F=f, P=p, G=g, K=k, T=t, cols=f + nf + 2 * t, a_n_padded=n_padded,
+                     a_n_shared=n_shared, a_threads=threads, a_n_unit_table=table,
+                     a_res_floats=res, a_tile_sites=tile_sites)
+        want = eval(expr, {"__builtins__": {}}, names)  # noqa: S307 - the repository's own source
+        assert want == fm._smem_floats(
+            n_padded=n_padded, n_shared=n_shared, f=f, p=p, g=g, k=k, t=t, n_forcing=nf,
+            threads=threads, tile_floats=res, tile_sites=tile_sites, n_unit_table=table)
+    assert f"#define EHM_MAX_THREADS {fm._MAX_THREADS}" in src
+    stamps = int(re.search(r"#define EHM_N_STAMPS (\d+)", src).group(1))
+    assert stamps == len(fm.STAGES) + 1
+
+
+def _first_envelope(tm) -> bool:
+    """The envelope as the first kernel 5 had it, written out: the shared
+    parameters and their gradient, the small vectors and 32 residual rows
+    with a pad column within 227 KB."""
+    net = tm.nn
+    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
+    f, p, g, k, t = dims[0], dims[-1], len(tm.global_param_names), len(tm.fixed_param_names), 1
+    norm = net.norm is not None
+    n_shared = (2 * f if norm else 0) + sum(b * (a + 1) for a, b in zip(dims[:-1], dims[1:]))
+    res = (3 * f if norm else f) + sum(dims[1:]) + sum(dims[1:-1]) + g
+    floats = 2 * n_shared + (2 * p + 2 * g + k) + 2 * f + t + 32 + res * 33
+    return 4 * floats <= 227 * 1024
+
+
+SWEEP = [(w, n, norm) for w in (16, 32, 48, 64) for n in range(1, 8) for norm in (False, "static")]
+
+
+@pytest.mark.parametrize("width,n_hidden,norm", SWEEP, ids=str)
+def test_envelope_is_unchanged_and_every_admitted_model_has_a_geometry(width, n_hidden, norm):
+    """The redesign admits and refuses exactly what the first kernel 5 did,
+    and every admitted model fits a block at every site shape."""
+    tm = torch_model(50, hidden=(width,) * n_hidden, norm=norm)
+    admitted = _first_envelope(tm)
+    reason = fm.fused_multisite_unsupported_reason(tm, ("adam", 0.01), et.LoggingLoss())
+    assert (reason is None) == admitted
+    if not admitted:
+        assert "shared memory" in reason
+        return
+    plan = fm.plan_fused_multisite(tm, ("adam", 0.01), et.LoggingLoss())
+    for batch, n_obs in ((1, 1), (50, 1), (50, 64), (7, 1000), (3000, 64)):
+        geo = fm.multisite_geometry(plan, batch, n_obs)
+        assert fm._block_smem_bytes(plan, geo.threads, geo.tile_sites) <= fm.MAX_SMEM_BYTES

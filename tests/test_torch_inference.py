@@ -109,18 +109,47 @@ def test_untagged_model_matches_jax():
 def test_engines_return_the_same_keys_as_jax(batch_size):
     """Both engines return JAX predict's keys: at batch_size=1 the (1,)
     globals and fixed values too (their length equals the batch's). The
-    kernel engine's forward runs here through its wrapper's plain path."""
-    from easyhybrid_tpu_torch.training import inference
-
+    kernel engine's serving path runs here through its wrapper's plain version
+    (``use_kernel=True`` on a CPU model)."""
     params = {"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0), "tref": (15.0, 0.0, 30.0)}
     df = eh.gen_rbq10_data(40, seed=12)
     jm, jparams, jstate, tm = _pair(_spec(parameters=params), df)
     want = eh.predict(jm, jparams, jstate, df, batch_size=batch_size)
     plain = et.make_inference_fn(tm, batch_size=batch_size)
-    fused = inference._with_scalars(tm, et.make_fused_forward(tm, batch_size=batch_size))
-    got_fused = inference._run_chunked(tm, fused, df, batch_size, tm.device)
+    fused = et.make_inference_fn(tm, batch_size=batch_size, use_kernel=True)
+    assert fused.engine == "cuda_fused_forward" and "plain version on cpu" in fused.engine_reason
+    got_fused = fused(df)
     assert plain.engine == "torch"
     expected = {"reco", "rb", "Q10", "tref"} if batch_size == 1 else {"reco", "rb"}
     assert set(want) == expected
     _assert_same(plain(df), want)
     _assert_same(got_fused, want)
+
+
+def _within(got, want):
+    """``|got - want| <= 1e-5 * max(1, |want|)`` with the same NaN rows."""
+    assert got.shape == want.shape
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert np.all(np.abs(got[~nan] - want[~nan]) <= 1e-5 * np.maximum(1.0, np.abs(want[~nan])))
+
+
+@pytest.mark.parametrize("batch_size", [256, 1, 1000, 4096])
+def test_fused_engine_path_matches_jax_predict(batch_size):
+    """The ``cuda_fused_forward`` engine's serving path (the table padded once to
+    whole chunks, one copy in, one launch, one copy out), run on the CPU
+    through the kernel's plain version (``use_kernel=True``), against the
+    JAX ``predict``: 1,000 rows with NaN predictor rows, the same keys, the
+    padding rows cut, at batch_size=1 the globals too."""
+    df = eh.gen_rbq10_data(1000, seed=21, nan_frac=0.1)
+    jm, params, state, tm = _pair(_spec(), df)
+    rng = np.random.default_rng(21)
+    df.loc[rng.choice(1000, 9, replace=False), "dsw_pot"] = np.nan
+    want = eh.predict(jm, params, state, df, batch_size=batch_size)
+    fn = et.make_inference_fn(tm, batch_size=batch_size, use_kernel=True)
+    assert fn.engine == "cuda_fused_forward"
+    got = fn(df)
+    assert set(got) == set(want) == ({"reco", "rb", "Q10"} if batch_size == 1 else {"reco", "rb"})
+    for k in want:
+        _within(got[k], np.asarray(want[k]))
+    assert np.isnan(got["reco"]).sum() == np.isnan(np.asarray(want["reco"])).sum() >= 9

@@ -72,8 +72,12 @@ def test_c_interface_matches_the_declared_argument_types():
     counts = {name: len(args.split(",")) for name, args in sigs.items()}
     assert counts == {"eh_prim_site_gather": 6, "eh_prim_site_reduce": 5, "eh_prim_site_update": 5,
                       "eh_prim_site_chain": 7, "eh_prim_block_sum": 5}
-    # the row sums share one helper: a group of lanes per row, a fixed shuffle tree
-    assert src.count("eh_group_sum(") == 3 and "__shfl_xor_sync" in src and "atomic" not in src
+    # the row sums share one helper with kernel 5 (eh_device.cuh): a group of
+    # lanes per row, a fixed shuffle tree
+    header = CU_SOURCE.with_name("eh_device.cuh").read_text()
+    helper = re.search(r"float eh_group_sum\(.*?\n\}", header, re.S).group(0)
+    assert src.count("eh_group_sum(") == 2 and "__shfl_xor_sync" in helper and "atomic" not in src
+    assert "eh_group_sum(" in CU_SOURCE.with_name("fused_multisite.cu").read_text()
 
 
 def test_wrappers_refuse_other_devices_and_layouts():

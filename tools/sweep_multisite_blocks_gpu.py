@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Sweep the number of gradient blocks of the port's multi-site kernel.
+"""Sweep the geometry of the gradient kernel of the port's multi-site kernel.
 
 For the PyTorch / CUDA port (easyhybrid_tpu_torch); needs one NVIDIA GPU and
 nvcc, imports no JAX. At the shape of ``chip_smoke.py``'s multi-site main
 path (8,000 training sites x 64 observations, MLP [16,16]) it sets the
-number of thread blocks the gradient kernel aims at
-(``ops/fused_multisite.py::_TARGET_BLOCKS``) to a range of values and prints
-the device time per optimizer step of the gradient kernel and of the update
-kernel, which sums one partial row per gradient block. Run from the
-repository root:
+largest tile (``ops/fused_multisite.py::_MAX_THREADS``: rows a block holds,
+which decide the blocks a multiprocessor keeps) and the number of thread
+blocks the geometry aims at (``_TARGET_BLOCKS``: the tiles a block walks) to
+a range of values and prints the device time per optimizer step of the
+gradient kernel and of the update kernel, which sums one partial row per
+gradient block. Run from the repository root:
 
     PYTHONPATH=. python tools/sweep_multisite_blocks_gpu.py
 """
@@ -36,20 +37,24 @@ def main() -> None:
     def call():
         return fn(packed, opt0, tensors)
 
-    default = fm._TARGET_BLOCKS
+    defaults = fm._TARGET_BLOCKS, fm._MAX_THREADS
     try:
         for rnd in range(2):
-            for target in (132, 264, 528, 1056, 2112, 4224, 8448):
-                fm._TARGET_BLOCKS = target
-                call()
-                torch.cuda.synchronize()
-                grad, update = (
-                    statistics.median(cs.kernel_device_ms(call, 4, name) / 5 for _ in range(3))
-                    for name in ("eh_ms_grad", "eh_ms_update"))
-                print(f"round {rnd}, {target} blocks aimed at: gradient kernel {grad:.4f} ms, "
-                      f"update kernel {update:.4f} ms, together {grad + update:.4f} ms per step")
+            for threads in (256, 192, 128, 64):
+                for target in (132, 264, 528, 1056, 2112):
+                    fm._MAX_THREADS, fm._TARGET_BLOCKS = threads, target
+                    geo = fm.multisite_geometry(fn.plan, cs.MS_TRAIN_SITES, cs.MS_OBS)
+                    call()
+                    torch.cuda.synchronize()
+                    grad, update = (
+                        statistics.median(cs.kernel_device_ms(call, 4, name) / 5 for _ in range(3))
+                        for name in ("eh_ms_grad", "eh_ms_update"))
+                    print(f"round {rnd}, tiles of at most {threads} rows, {target} blocks aimed "
+                          f"at: {geo}: gradient kernel {grad:.4f} ms, update kernel "
+                          f"{update:.4f} ms, together {grad + update:.4f} ms per step",
+                          flush=True)
     finally:
-        fm._TARGET_BLOCKS = default
+        fm._TARGET_BLOCKS, fm._MAX_THREADS = defaults
 
 
 if __name__ == "__main__":
