@@ -16,8 +16,8 @@ Phases, one or more lines each; any failure exits non-zero:
    chunk of 1,024 rows, which must give the same bits;
 4. main path: the quick-start RbQ10 model (MLP [16, 16], swish, static
    input norm) at 131,072 rows through ``predict(..., batch_size=1024)``,
-   which must take the kernel (one staged copy in, one launch, one copy
-   out) and agree with the plain module forward; at batch sizes 1, 1,024
+   which must take the kernel (one copy in per input array, one launch, one
+   copy out per output) and agree with the plain module forward; at batch sizes 1, 1,024
    and 131,072 the keys and shapes of the torch engine and the bits of a
    launch per chunk;
 5. times: the kernel per launch at 1,024 and 131,072 rows against the plain
@@ -141,6 +141,9 @@ TOL_EPOCH = 1e-4
 N_ROWS = 131_072
 BATCH = 1024
 RBQ10_PARAMS = {"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)}
+# a multi-site model with two per-site globals: the network gives the form's tref
+TWO_GLOBALS = dict(parameters={**RBQ10_PARAMS, "tref": (15.0, 10.0, 20.0)},
+                   neural_param_names=["tref"], global_param_names=["rb", "Q10"])
 
 
 def log(phase: str, msg: str) -> None:
@@ -529,32 +532,24 @@ def multisite_cases():
         # the edges of the gradient kernel's geometry
         dict(what="N=1000 (a site over four tiles)", S=30, N=1000),
         dict(what="N=1 (256 sites a tile)", S=700, N=1),
+        # two per-site globals (rb, Q10; the network gives tref): more of a tile's
+        # sites' globals than it has threads
+        dict(what="two per-site globals, N=1: 512 globals for a tile of 256 rows", S=700, N=1,
+             **TWO_GLOBALS),
+        dict(what="two per-site globals, N=1, 20 sites: 40 globals for a tile of 32 rows", S=20,
+             N=1, **TWO_GLOBALS),
         dict(what="N=3, minibatched and shuffled", S=500, N=3, batch=128, shuffle=True),
         dict(what="N=63", S=300, N=63),
         dict(what="N=65, batches of 100 by 'batches' (a ragged last block)", S=301, N=65,
              batch=100, shuffle="batches"),
         dict(what="3,000 sites x 64, 750 blocks (eight a multiprocessor aimed at, beyond the "
-                  "first kernel's cap of 528)", S=3000, N=64, epochs=1, target=8 * 132),
+                  "first kernel's cap of 528)", S=3000, N=64, epochs=1, target_blocks=8 * 132),
     ]
-
-
-@contextlib.contextmanager
-def blocks_aimed_at(target):
-    """Kernel 5's geometry aims at ``target`` blocks within the block (None:
-    its own number)."""
-    from easyhybrid_tpu_torch.ops import fused_multisite as fm
-
-    default = fm._TARGET_BLOCKS
-    fm._TARGET_BLOCKS = target or default
-    try:
-        yield
-    finally:
-        fm._TARGET_BLOCKS = default
 
 
 def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam", 0.01),
                            loss="mse", agg="sum", shuffle=False, nan_frac=0.1, mask_batch=None,
-                           seed=0, **model_kw):
+                           seed=0, target_blocks=None, **model_kw):
     from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
     model = multisite_model(et, S, seed=seed, **model_kw)
@@ -564,7 +559,9 @@ def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam",
     et.fit_input_norm(model, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), "cuda")
     logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
-    fn = et.make_fused_multisite_epoch(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
+    aim = {} if target_blocks is None else dict(target_blocks=target_blocks)
+    fn = et.make_fused_multisite_epoch(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs,
+                                       **aim)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device="cuda").manual_seed(seed))
     return what, fn, fn.plan.pack(model), tensors, perms
@@ -573,7 +570,6 @@ def prepare_multisite_case(et, *, what, S, N, batch=None, epochs=2, opt=("adam",
 def multisite_kernel_checks(et) -> float:
     """Phase 10: kernel 5 against its plain version, and against itself."""
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
-    from easyhybrid_tpu_torch.ops import fused_multisite as fm
 
     def named(packed, opt_state, loss, n_shared):
         return {"shared": packed.params[:n_shared], "per-site": packed.params[n_shared:],
@@ -582,17 +578,12 @@ def multisite_kernel_checks(et) -> float:
 
     worst = 0.0
     for case in multisite_cases():
-        target = case.pop("target", None)
         what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
         n_shared = fn.plan.offsets()["p_g"]
-        with blocks_aimed_at(target):
-            got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
-                        n_shared)
-            torch.cuda.synchronize()
-            again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
-                          n_shared)
-            geo = fm.multisite_geometry(fn.plan, int(tensors.weight.shape[1]),
-                                        int(tensors.x.shape[2]))
+        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        torch.cuda.synchronize()
+        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        geo = fn.geometry(tensors)
         ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
                     n_shared)
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
@@ -975,6 +966,7 @@ def lstm_times(et, card, main, chain_build) -> dict:
     path's shape and at the JAX bench's, with the chain's floor (a build with
     its products stubbed out, when that build took under a minute);
     ``train()`` wall on both engines."""
+    from easyhybrid_tpu_torch.ops import _build
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
     from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 
@@ -1008,7 +1000,8 @@ def lstm_times(et, card, main, chain_build) -> dict:
         b = bound(**lstm_step_bound(batch, 10, norm=case.get("norm", "static") is not False))
         floor = "not measured (its build took a minute or more)"
         if chain_build.seconds < 60:
-            chain_lib = fl.measuring_library("-DEHL_CHAIN_ONLY")
+            chain_lib = _build.measuring_library("fused_epoch_lstm.cu", "eh_fused_lstm",
+                                                 "-DEHL_CHAIN_ONLY")
             data, rows = fn._make_data(fn.plan, tensors), fn.rows(tensors, perms)
             out_loss = torch.empty((1,), dtype=torch.float32, device="cuda")
 
@@ -1532,10 +1525,13 @@ def serving_times(et, ff, card, quick, x, forcing, cols) -> dict:
                              f"host-device copies, device busy {traces[k]['busy']:.3f} ms, "
                              f"{traces[k]['busy'] / statistics.median(walls[k]):.1%} of the call)"
                              for k, r in rates.items()))
+    # one copy in per input array (x and each forcing), one copy out per output
+    plan = one.plan
+    want = 1 + len(plan.forcing_names) + len(plan.output_names) + len(plan.neural_names)
     for k in (f"cuda_fused_forward b{BATCH}", f"cuda_fused_forward b{N_ROWS}"):
-        if traces[k]["launches"] != 1 or traces[k]["copies"] != 2:
+        if traces[k]["launches"] != 1 or traces[k]["copies"] != want:
             raise AssertionError(f"{k}: {traces[k]['launches']} launches and "
-                                 f"{traces[k]['copies']} copies a call, not 1 and 2")
+                                 f"{traces[k]['copies']} copies a call, not 1 and {want}")
     return dict(kernel_ms=ms[f"kernel {N_ROWS} rows"], plain_ms=ms[f"plain {N_ROWS} rows"])
 
 

@@ -416,7 +416,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       if (r < mine) {
         const int64_t row = staged ? 0 : idx[r];
         float* res = RES + tid;
-        float h[W];
+        float h[1][W];
 #pragma unroll
         for (int k = 0; k < W; ++k) {
           float x = 0.0f;
@@ -429,10 +429,10 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
             }
             res[(a.r_off_h[0] + k) * ld] = x;
           }
-          h[k] = x;
+          h[0][k] = x;
         }
 
-        ehe_row_forward<W>(a, Pm, h, res, ld);
+        ehe_row_forward<W, 1, true>(a, Pm, h, res, ld, 0);
 
         // From here on the row's small vectors (the network's P outputs, the
         // G globals' cotangents) live in the row's column of the tile and are

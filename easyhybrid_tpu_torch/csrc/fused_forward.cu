@@ -16,12 +16,12 @@
 // device memory (x, forcing, two outputs) against roughly 600 FMA-flops and
 // ~35 transcendentals (expf/powf/rsqrtf), so it leans on the FMA pipes and
 // the special-function unit, not on bandwidth. What the design does:
-//   * Each thread takes EH_ROWS rows, so one 16-byte broadcast load of four
-//     weights from shared memory feeds four FMAs of every row (one load per
-//     product before). Layers run at their own size, as the training
-//     kernels' row code does (eh_device.cuh): a layer's outputs four at a
-//     time by a loop of the layer's own length, weights in the padded layout
-//     (rows padded to 4 floats), the row's input vector in registers,
+//   * The layers run the training kernels' row code (eh_device.cuh,
+//     ehe_row_forward, without the residuals the backward keeps) with
+//     EH_ROWS rows a thread, so one 16-byte broadcast load of four weights
+//     from shared memory feeds four FMAs of every row: a layer's outputs four
+//     at a time by a loop of the layer's own length, weights in the padded
+//     layout (rows padded to 4 floats), the rows' inputs in registers,
 //     branch-free sigmoids; a layer's outputs go through the thread's own
 //     column of shared memory to the next layer.
 //   * Blocks of one warp: 64 rows a block, so that a 1,024-row table still
@@ -75,20 +75,6 @@ struct EhFusedForwardArgs {
 // at tail_off neural lower and span (P each), globals raw, lower, span (G
 // each), fixed values (K); zeros to a multiple of 4.
 
-// Four outputs' activations for every row of the thread: independent chains
-// for the scheduler to interleave.
-template <int ACT, int R>
-__device__ __forceinline__ void eh_act_rows(float (&z)[R][4]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float d;
-      z[r][i] = ehe_act<true>(ACT, z[r][i], &d);
-    }
-  }
-}
-
 template <int W>
 __global__ void __launch_bounds__(EH_BLOCK)
 eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
@@ -138,69 +124,9 @@ eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
     }
   }
 
-  float* col = SCR + tid;  // this thread's column: output j of row r at (j R + r) nth
-  for (int l = 0; l < L; ++l) {
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
-    const int din4 = (din + 3) & ~3;
-    const int act = a.acts[l];
-    const float* w = Pm + a.pp_off_w[l];
-    const float* b = Pm + a.pp_off_b[l];
-    for (int j = 0; j < dout; j += 4) {
-      const int last = dout - 1 - j;  // rows past the layer's last repeat it and are dropped
-      const float4* w0 = reinterpret_cast<const float4*>(w + j * din4);
-      const float4* w1 = reinterpret_cast<const float4*>(w + (j + min(1, last)) * din4);
-      const float4* w2 = reinterpret_cast<const float4*>(w + (j + min(2, last)) * din4);
-      const float4* w3 = reinterpret_cast<const float4*>(w + (j + min(3, last)) * din4);
-      float z[R][4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) z[r][0] = z[r][1] = z[r][2] = z[r][3] = 0.0f;
-#pragma unroll
-      for (int k4 = 0; k4 < W / 4; ++k4) {
-        if (k4 * 4 < din) {
-          const float4 q[4] = {w0[k4], w1[k4], w2[k4], w3[k4]};
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              z[r][i] = fmaf(h[r][4 * k4 + 3], q[i].w, fmaf(h[r][4 * k4 + 2], q[i].z,
-                        fmaf(h[r][4 * k4 + 1], q[i].y, fmaf(h[r][4 * k4], q[i].x, z[r][i]))));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) z[r][i] += b[j + min(i, last)];
-      }
-      switch (act) {
-        case ACT_TANH: eh_act_rows<ACT_TANH, R>(z); break;
-        case ACT_RELU: eh_act_rows<ACT_RELU, R>(z); break;
-        case ACT_SIGMOID: eh_act_rows<ACT_SIGMOID, R>(z); break;
-        case ACT_SILU: eh_act_rows<ACT_SILU, R>(z); break;
-        case ACT_GELU: eh_act_rows<ACT_GELU, R>(z); break;
-        case ACT_SOFTPLUS: eh_act_rows<ACT_SOFTPLUS, R>(z); break;
-        case ACT_SELU: eh_act_rows<ACT_SELU, R>(z); break;
-        case ACT_ELU: eh_act_rows<ACT_ELU, R>(z); break;
-        case ACT_LEAKYRELU: eh_act_rows<ACT_LEAKYRELU, R>(z); break;
-        default: break;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i <= last) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) col[((j + i) * R + r) * nth] = z[r][i];
-        }
-      }
-    }
-    if (l + 1 < L) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int k = 0; k < W; ++k) h[r][k] = (k < dout) ? col[(k * R + r) * nth] : 0.0f;
-      }
-    }
-  }
+  // this thread's column: output j of row r at (j R + r) nth
+  float* col = SCR + tid;
+  ehe_row_forward<W, R, false>(a, Pm, h, col, R * nth, nth);
 
   // the network's outputs are in the column: bound scaling, the form, writes
 #pragma unroll

@@ -248,12 +248,14 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
         for (int c = 0; c < cols; ++c) dst[c * ld + tid] = 0.0f;
       }
     }
-    if (tid < t.ns * G) {  // site i's global g at i * G + g
-      const int i = tid / G;
+    // site i's global g at i * G + g; a tile may hold more of them than it
+    // has threads (G above the observations a site)
+    for (int q = tid; q < t.ns * G; q += nth) {
+      const int i = q / G;
       const int s = idx[j0 + t.fs + i];
-      float* d = dst + cols * ld + tid;
+      float* d = dst + cols * ld + q;
       if (s >= 0) {
-        ehe_cp_async4(d, a.params + NP + (int64_t)(tid - i * G) * S + s);
+        ehe_cp_async4(d, a.params + NP + (int64_t)(q - i * G) * S + s);
       } else {
         *d = 0.0f;
       }
@@ -291,7 +293,7 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
     const float* st = ST + (k & 1) * stage_floats;  // this tile's staged rows, landed
     if (tid < rows) {
       float* res = RES + tid;
-      float h[W];
+      float h[1][W];
 #pragma unroll
       for (int c = 0; c < W; ++c) {
         float x = 0.0f;
@@ -304,10 +306,10 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
           }
           res[(a.r_off_h[0] + c) * ld] = x;
         }
-        h[c] = x;
+        h[0][c] = x;
       }
 
-      ehe_row_forward<W>(a, Pm, h, res, ld);
+      ehe_row_forward<W, 1, true>(a, Pm, h, res, ld, 0);
 
       // The row's small vectors (the network's P outputs, the G globals'
       // cotangents) live in the row's column of the tile, walked by loops of

@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "BuildResult"]
+__all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "measuring_library",
+           "BuildResult"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE_DIR / "csrc"
@@ -169,6 +170,19 @@ def build_variant(source: str, defines: Tuple[str, ...]) -> BuildResult:
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
     os.replace(tmp_path, lib_path)
     return BuildResult(lib_path, seconds, proc.stdout, {source: seconds})
+
+
+def measuring_library(source: str, entry: str, *defines: str) -> ctypes.CDLL:
+    """``build_variant(source, defines)`` loaded, with the launcher ``entry``
+    (arguments, width, stream) and ``entry + "_args_size"`` declared: a
+    measuring build of one kernel (its stage stamps, its arithmetic stubbed
+    out) that a launcher takes in place of the package's library."""
+    lib = ctypes.CDLL(str(build_variant(source, tuple(defines)).path))
+    launch = getattr(lib, entry)
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    getattr(lib, entry + "_args_size").restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

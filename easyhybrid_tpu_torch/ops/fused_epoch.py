@@ -1005,17 +1005,6 @@ STAGES = ("wait for the staged rows", "counts and mean", "start the next step's 
           "variance", "forward to loss", "backward", "gradient sum", "update")
 
 
-def measuring_library(*defines: str) -> ctypes.CDLL:
-    """``csrc/fused_epoch.cu`` alone, compiled with ``defines``
-    (``-DEHE_STAMPS``: thread 0 stamps each stage of a step with
-    ``clock64()``; ``-DEHE_CHAIN_ONLY``: the arithmetic stubbed out)."""
-    lib = ctypes.CDLL(str(_build.build_variant("fused_epoch.cu", defines).path))
-    lib.eh_fused_epoch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.eh_fused_epoch.restype = ctypes.c_int
-    lib.eh_fused_epoch_args_size.restype = ctypes.c_int
-    return lib
-
-
 def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: EpochTensors,
                  perms=None) -> Dict[str, int]:
     """One launch of the stamped build of the kernel on CUDA tensors: the
@@ -1031,7 +1020,9 @@ def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: Epoc
     loss = torch.empty((1,), dtype=torch.float32, device=data.x.device)
     stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=data.x.device)
     launch_fused_epoch(plan, packed, opt_state, data, rows, loss,
-                       lib=measuring_library("-DEHE_STAMPS"), stamps=stamps)
+                       lib=_build.measuring_library("fused_epoch.cu", "eh_fused_epoch",
+                                                    "-DEHE_STAMPS"),
+                       stamps=stamps)
     return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 
 

@@ -659,7 +659,7 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the window does not fit or the launch is refused.
     Counts launches in ``launch_fused_lstm.launches``. ``lib`` is a
-    measuring build of the kernel (:func:`measuring_library`) in place of the
+    measuring build of the kernel (``_build.measuring_library``) in place of the
     package's library; its launches are not counted."""
     steps, out_steps = data.x.shape[1], data.y[0].shape[1]
     if plan.sizes.tile_rows(steps, out_steps) is None:
@@ -710,17 +710,6 @@ STAGES = ("step start", "input gather", "head and loss", "backward through time"
           "next scales", "ssts and epoch loss")
 
 
-def measuring_library(*defines: str) -> ctypes.CDLL:
-    """``csrc/fused_epoch_lstm.cu`` alone, compiled with ``defines``
-    (``-DEHL_STAMPS``: thread 0 stamps each stage of a step with
-    ``clock64()``; ``-DEHL_CHAIN_ONLY``: the products stubbed out)."""
-    lib = ctypes.CDLL(str(_build.build_variant("fused_epoch_lstm.cu", defines).path))
-    lib.eh_fused_lstm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.eh_fused_lstm.restype = ctypes.c_int
-    lib.eh_fused_lstm_args_size.restype = ctypes.c_int
-    return lib
-
-
 def stage_cycles(fn: "FusedLSTMEpoch", packed: FusedParams, opt_state, tensors: EpochTensors,
                  perms=None) -> Dict[str, int]:
     """One launch of the stamped build of the kernel on CUDA tensors: the
@@ -734,7 +723,7 @@ def stage_cycles(fn: "FusedLSTMEpoch", packed: FusedParams, opt_state, tensors: 
     packed = FusedParams(packed.params.clone(), packed.bn.clone())
     opt_state = {k: v.clone() for k, v in opt_state.items()}
     loss = torch.empty((1,), dtype=torch.float32, device=data.x.device)
-    lib = measuring_library("-DEHL_STAMPS")
+    lib = _build.measuring_library("fused_epoch_lstm.cu", "eh_fused_lstm", "-DEHL_STAMPS")
     launch_fused_lstm(plan, packed, opt_state, data, rows, loss, lib=lib)
     torch.cuda.synchronize(data.x.device)
     stamps = (ctypes.c_longlong * (len(STAGES) + 1))()

@@ -20,7 +20,7 @@ On a CPU tensor the wrapper computes :func:`fused_forward_reference`, the
 plain PyTorch version of the same function on the same packed parameters;
 on a CUDA tensor it launches the kernel or raises. It never falls back.
 :meth:`FusedForward.table` is the serving path around it: host rows in,
-host columns out, one staged copy each way and one launch per call.
+host columns out, one copy per array each way and one launch per call.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ MAX_SCALARS = 16
 MAX_SMEM_FLOATS = 48 * 1024 // 4  # the envelope's cap on the packed parameters
 _WIDTHS = (16, 32, 64)  # the kernel's compile-time widths
 # rows one launch covers at most (whole chunks of batch_size): a larger table
-# is staged, copied and launched one group of chunks at a time
+# is launched one group of chunks at a time
 _GROUP_ROWS = 1 << 20
 
 _ACT_IDS = {
@@ -568,6 +568,17 @@ def launch_fused_forward(plan: FusedPlan, x, forcing, outputs) -> None:
 launch_fused_forward.launches = 0
 
 
+def padded_rows(a: np.ndarray, padded: int, device) -> torch.Tensor:
+    """Host rows ``a`` in float32 on ``device``, in a buffer of ``padded``
+    rows: one copy of ``a``, the padding rows zeroed on the device."""
+    host = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    buf = torch.empty((padded,) + tuple(host.shape[1:]), dtype=torch.float32, device=device)
+    buf[: host.shape[0]].copy_(host)
+    if padded > host.shape[0]:
+        buf[host.shape[0]:].zero_()
+    return buf
+
+
 class FusedForward:
     """``fn(x, forcing) -> {output…, neural parameter…}`` over a snapshot of
     the model's parameters. On CUDA tensors the rows go through the kernel
@@ -636,49 +647,20 @@ class FusedForward:
 
     def table(self, x: np.ndarray, forcing: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """The serving path: host rows ``x (n, F)`` and forcing columns in,
-        ``{output…, neural parameter…}`` host columns of ``n`` rows out. The
-        rows are padded once to whole chunks of ``batch_size`` in one host
-        buffer (pinned), copied to the card once, computed by one launch
-        (one per group of ``_GROUP_ROWS`` rows for a larger table), and the
-        outputs come back in one copy; the padding rows are cut. With the
-        model on the CPU the plain version computes the same rows."""
-        plan = self.plan
-        dev = plan.blob.device
-        on_card = dev.type == "cuda"
+        ``{output…, neural parameter…}`` host columns of ``n`` rows out. Each
+        input array is copied once into a buffer of whole chunks of
+        ``batch_size`` rows on the model's device, its padding rows zeroed
+        there; the rows are computed by one launch (one per group of
+        ``_GROUP_ROWS`` rows for a larger table); each output comes back in
+        one copy, the padding rows cut. With the model on the CPU the plain
+        version computes the same rows."""
+        dev = self.plan.blob.device
         n = int(x.shape[0])
-        f = plan.n_features
-        names = plan.output_names + plan.neural_names
         padded = max(1, -(-n // self.batch_size)) * self.batch_size
-        out = {k: np.empty((n,), np.float32) for k in names}
-        for start in range(0, padded, self.group_rows):
-            rows = min(self.group_rows, padded - start)
-            take = max(0, min(n - start, rows))
-            # x, then each forcing column, in one buffer
-            host = torch.empty(((f + len(plan.forcing_names)) * rows,), dtype=torch.float32,
-                               pin_memory=on_card)
-            staged = host.numpy()
-            staged[: rows * f].reshape(rows, f)[:take] = x[start : start + take]
-            staged[take * f : rows * f] = 0.0
-            for i, name in enumerate(plan.forcing_names):
-                col = staged[rows * (f + i) : rows * (f + i + 1)]
-                col[:take] = forcing[name][start : start + take]
-                col[take:] = 0.0
-            dev_in = host.to(dev, non_blocking=True)
-            xd = dev_in[: rows * f].view(rows, f)
-            fd = {name: dev_in[rows * (f + i) : rows * (f + i + 1)]
-                  for i, name in enumerate(plan.forcing_names)}
-            if on_card:
-                res = torch.empty((len(names), rows), dtype=torch.float32, device=dev)
-                launch_fused_forward(plan, xd, fd, dict(zip(names, res)))
-                back = torch.empty((len(names), rows), dtype=torch.float32, pin_memory=True)
-                back.copy_(res, non_blocking=True)
-                torch.cuda.current_stream(dev).synchronize()
-            else:
-                ref = fused_forward_reference(plan, xd, fd)
-                back = torch.stack([ref[k] for k in names])
-            for i, k in enumerate(names):
-                out[k][start : start + take] = back[i, :take].numpy()
-        return out
+        out = self(padded_rows(x, padded, dev),
+                   {name: padded_rows(forcing[name], padded, dev)
+                    for name in self.plan.forcing_names})
+        return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
 
 def make_fused_forward(model, *, batch_size: int = 1024) -> FusedForward:

@@ -349,18 +349,27 @@ def _n_unit_table(plan: FusedEpochPlan) -> int:
     return min(_UNIT_TABLE, gradient_units(plan.dims, plan.has_norm, 0))
 
 
-def multisite_geometry(plan: FusedEpochPlan, batch: int, n_obs: int) -> MultisiteGeometry:
+def multisite_geometry(plan: FusedEpochPlan, batch: int, n_obs: int, *,
+                       target_blocks: int = _TARGET_BLOCKS,
+                       max_threads: int = _MAX_THREADS) -> MultisiteGeometry:
     """The gradient kernel's geometry: a pure function of the plan, the site
-    batch and the observations a site. A tile has at most 256 rows, fewer
-    where the block's shared memory (the padded parameters, their gradient,
-    the residual tile and two stages) would not fit; it holds as many whole
-    sites as fit (its threads the next multiple of 32 of their rows), or a
-    site longer than that in tiles of that many rows. Blocks take whole
-    sites, as few tiles each as reach about ``_TARGET_BLOCKS`` blocks; the
-    blocks' partial rows are summed in parallel, so nothing caps the grid."""
+    batch and the observations a site. A tile has at most ``max_threads``
+    rows, fewer where the block's shared memory (the padded parameters,
+    their gradient, the residual tile and two stages) would not fit; it
+    holds as many whole sites as fit (its threads the next multiple of 32 of
+    their rows), or a site longer than that in tiles of that many rows.
+    Blocks take whole sites, as few tiles each as reach about
+    ``target_blocks`` blocks; the blocks' partial rows are summed in
+    parallel, so nothing caps the grid. The defaults are the kernel's own;
+    the tests and the sweep (``tools/sweep_multisite_blocks_gpu.py``) pass
+    others, a target beyond 528 blocks to exercise the update kernel's sum
+    over more partial rows than the first kernel's grid could have."""
     if batch < 1 or n_obs < 1:
         raise ValueError(f"a site batch of {batch} sites of {n_obs} observations")
-    most = _MAX_THREADS
+    if max_threads % 32 != 0 or not 32 <= max_threads <= _MAX_THREADS:
+        raise ValueError(f"tiles of at most {max_threads} rows: a multiple of 32 up to "
+                         f"{_MAX_THREADS}")
+    most = max_threads
     while True:
         if n_obs <= most:
             tile_sites, site_tiles = min(most // n_obs, batch), 1
@@ -374,7 +383,7 @@ def multisite_geometry(plan: FusedEpochPlan, batch: int, n_obs: int) -> Multisit
                              f"{MAX_SMEM_BYTES // 1024} KB of shared memory")
         most -= 32
     n_tiles = batch * site_tiles if site_tiles > 1 else -(-batch // tile_sites)
-    tiles = -(-n_tiles // _TARGET_BLOCKS)
+    tiles = -(-n_tiles // target_blocks)
     sites_per_block = min(batch, max(1, tiles // site_tiles) if site_tiles > 1
                           else tiles * tile_sites)
     return MultisiteGeometry(threads, tile_sites, site_tiles, sites_per_block,
@@ -538,15 +547,18 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
 
 def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
                            data: MultisiteData, index: torch.Tensor, scale, valid,
-                           epoch_loss: torch.Tensor, *, lib=None, stamps=None) -> None:
+                           epoch_loss: torch.Tensor, *, lib=None, stamps=None,
+                           target_blocks: int = _TARGET_BLOCKS,
+                           max_threads: int = _MAX_THREADS) -> None:
     """Enqueue every step of ``index`` (``(epochs, num_batches, batch)``)
     with one call of the C launcher, updating ``packed`` and ``opt_state``
     in place and adding each epoch's valid batch losses into ``epoch_loss``
     (zeros on entry); raises if a launch is refused. Counts calls in
     ``launch_fused_multisite.launches``. ``lib`` is a measuring build of the
-    kernel (:func:`measuring_library`) in place of the package's library,
+    kernel (``_build.measuring_library``) in place of the package's library,
     whose launches are not counted, and ``stamps`` the int64 tensor its stage
-    cycles go to."""
+    cycles go to; ``target_blocks`` and ``max_threads`` go to
+    :func:`multisite_geometry`."""
     main_lib = _build.load_library()
     measuring = lib is not None
     lib = lib or main_lib
@@ -559,7 +571,8 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     epochs, nb, batch = index.shape
     n_obs = data.x.shape[1]
     n_shared, n_glob = plan.offsets()["p_g"], len(plan.global_names)
-    geo = multisite_geometry(plan, batch, n_obs)
+    geo = multisite_geometry(plan, batch, n_obs, target_blocks=target_blocks,
+                             max_threads=max_threads)
     t0 = opt_state["t"].to(torch.float32)
     tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
     gsite = torch.zeros((max(n_glob * plan.n_sites, 1),), dtype=torch.float32, device=dev)
@@ -600,17 +613,6 @@ STAGES = ("wait for the staged rows", "forward to loss", "backward",
           "block's end")
 
 
-def measuring_library(*defines: str) -> ctypes.CDLL:
-    """``csrc/fused_multisite.cu`` alone, compiled with ``defines``
-    (``-DEHM_STAMPS``: thread 0 of block 0 stamps each stage of a step with
-    ``clock64()``)."""
-    lib = ctypes.CDLL(str(_build.build_variant("fused_multisite.cu", defines).path))
-    lib.eh_fused_multisite.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.eh_fused_multisite.restype = ctypes.c_int
-    lib.eh_fused_multisite_args_size.restype = ctypes.c_int
-    return lib
-
-
 def stage_cycles(fn: "FusedMultisiteEpoch", packed: FusedParams, opt_state,
                  tensors: EpochTensors, perms=None) -> dict:
     """One call of the stamped build on CUDA tensors: the ``clock64()``
@@ -624,7 +626,9 @@ def stage_cycles(fn: "FusedMultisiteEpoch", packed: FusedParams, opt_state,
     epoch_loss = torch.zeros((index.shape[0],), dtype=torch.float32, device=dev)
     stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=dev)
     launch_fused_multisite(fn.plan, packed, opt_state, data, index, scale, valid, epoch_loss,
-                           lib=measuring_library("-DEHM_STAMPS"), stamps=stamps)
+                           lib=_build.measuring_library("fused_multisite.cu", "eh_fused_multisite",
+                                                        "-DEHM_STAMPS"),
+                           stamps=stamps, **fn.aim)
     return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 
 
@@ -637,16 +641,25 @@ class FusedMultisiteEpoch:
     :class:`~easyhybrid_tpu_torch.ops.fused_epoch.FusedEpoch`; ``perms``
     permute site slots (shuffle True) or site batches (``"batches"``). The
     data may cover fewer sites than the model has: the others see no
-    gradient and still take every step."""
+    gradient and still take every step. ``target_blocks`` and
+    ``max_threads`` go to :func:`multisite_geometry` (the tests and the
+    sweep set them; the defaults are the kernel's own)."""
 
     def __init__(self, model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
-                 epochs_per_call: int = 1):
+                 epochs_per_call: int = 1, target_blocks: int = _TARGET_BLOCKS,
+                 max_threads: int = _MAX_THREADS):
         if shuffle not in SHUFFLES:
             raise ValueError(
                 f"fused multisite epoch supports shuffle=True/False/'batches', got {shuffle!r}")
         self.plan = plan_fused_multisite(model, optimizer, logging)
         self.shuffle = shuffle
         self.epochs = max(1, int(epochs_per_call))
+        self.aim = dict(target_blocks=int(target_blocks), max_threads=int(max_threads))
+
+    def geometry(self, tensors: EpochTensors) -> MultisiteGeometry:
+        """The gradient kernel's geometry for a call on ``tensors``."""
+        return multisite_geometry(self.plan, int(tensors.weight.shape[1]),
+                                  int(tensors.x.shape[2]), **self.aim)
 
     def inputs(self, tensors: EpochTensors, perms=None, generator=None):
         """``(data, site index, loss scales, validity flags)`` of a call."""
@@ -685,7 +698,8 @@ class FusedMultisiteEpoch:
             packed = FusedParams(packed.params.clone(), packed.bn.clone())
             opt_state = {k: v.clone() for k, v in opt_state.items()}
             epoch_loss = torch.zeros((self.epochs,), dtype=torch.float32, device=dev)
-            launch_fused_multisite(plan, packed, opt_state, data, index, scale, valid, epoch_loss)
+            launch_fused_multisite(plan, packed, opt_state, data, index, scale, valid, epoch_loss,
+                                   **self.aim)
             loss = epoch_loss[-1] / data.n_batches
         else:
             raise ValueError(f"the fused multisite epoch runs on CUDA or CPU tensors; got {dev}")
@@ -702,9 +716,11 @@ class FusedMultisiteEpoch:
 
 
 def make_fused_multisite_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,
-                               epochs_per_call: int = 1) -> FusedMultisiteEpoch:
+                               epochs_per_call: int = 1, target_blocks: int = _TARGET_BLOCKS,
+                               max_threads: int = _MAX_THREADS) -> FusedMultisiteEpoch:
     """Build the fused epoch of a :class:`MultiSiteHybridModel` (see
     :class:`FusedMultisiteEpoch`); raises if the model, optimizer or loss is
     outside the envelope or the kernel form's probe check fails."""
     return FusedMultisiteEpoch(model, optimizer, logging, shuffle=shuffle,
-                               epochs_per_call=epochs_per_call)
+                               epochs_per_call=epochs_per_call, target_blocks=target_blocks,
+                               max_threads=max_threads)

@@ -10,10 +10,11 @@ Inference runs on the model's device. The engine is chosen once, in
 
 * ``"cuda_fused_forward"``: the model is on a CUDA device (or
   ``use_kernel=True``) and inside the fused forward kernel's envelope; a
-  call pads the table once to whole chunks in one pinned host buffer,
-  copies it to the card once, computes every chunk in one kernel launch
-  and copies the outputs back once (:meth:`FusedForward.table`; on a CPU
-  model the kernel's plain version runs the same path);
+  call copies each input array to the card once, into a buffer of whole
+  chunks whose padding rows are zeroed there, computes every chunk in one
+  kernel launch and copies each output back once
+  (:meth:`FusedForward.table`; on a CPU model the kernel's plain version
+  runs the same path);
 * ``"torch"``: the plain module forward on the model's device, chunk by
   chunk as the JAX ``predict`` runs; the model is on the CPU or outside the
   envelope (or ``use_kernel=False``), and ``engine_reason`` says which.
@@ -98,7 +99,7 @@ def make_inference_fn(model, *, batch_size: int = 1024, use_kernel: Any = "auto"
                          f"use_kernel=True: the kernel's plain version on {device}")
 
         def predict_fn(data) -> Dict[str, np.ndarray]:
-            return _run_staged(model, fused, scalars, data, batch_size)
+            return _run_fused(model, fused, scalars, data, batch_size)
     else:
         forward = _plain_forward(model)
         engine = "torch"
@@ -118,9 +119,10 @@ def predict(model, data, *, batch_size: int = 1024, use_kernel: Any = "auto"
     return make_inference_fn(model, batch_size=batch_size, use_kernel=use_kernel)(data)
 
 
-def _run_staged(model, fused, scalars, data, batch_size: int) -> Dict[str, np.ndarray]:
+def _run_fused(model, fused, scalars, data, batch_size: int) -> Dict[str, np.ndarray]:
     """The fused engine's serving path: the rows through :meth:`FusedForward.table`
-    (one staged copy in, one launch, one copy out), with the keys and rows
+    (one copy in per input array, one launch, one copy out per output),
+    with the keys and rows
     of :func:`_run_chunked`: at ``batch_size=1`` the ``(1,)`` scalars too,
     once per row, as the chunk filter keeps them."""
     hd = prepare_data(model, data, drop_missing_rows=False)

@@ -166,20 +166,21 @@ def test_predict_takes_the_kernel(cuda):
 @pytest.mark.parametrize("batch_size", [1, 1024, 131_072])
 def test_predict_keys_shapes_and_copies(cuda, batch_size):
     """The fused engine's ``predict``: the torch engine's keys and shapes at
-    every batch size, one copy in and one copy out per call."""
+    every batch size, one copy in per input array and one copy out per
+    output a call."""
     cols = et.rbq10_columns(3000, seed=8)
     m, _, _ = _model(cols, cuda)
     fused = et.make_inference_fn(m, batch_size=batch_size)
     plain = et.make_inference_fn(m, batch_size=batch_size, use_kernel=False)
     assert (fused.engine, plain.engine) == ("cuda_fused_forward", "torch")
-    fused(cols)  # the pinned buffers and the library are set up
+    fused(cols)  # the library is built and loaded
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         got = fused(cols)
     copies = {e.key: e.count for e in prof.key_averages() if "Memcpy" in e.key}
-    assert sum(c for k, c in copies.items() if "HtoD" in k) == 1, copies
-    assert sum(c for k, c in copies.items() if "DtoH" in k) == 1, copies
+    assert sum(c for k, c in copies.items() if "HtoD" in k) == 2, copies  # x, ta
+    assert sum(c for k, c in copies.items() if "DtoH" in k) == 2, copies  # reco, rb
     want = plain(cols)
     assert set(got) == set(want)
     for k in want:
@@ -205,6 +206,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # --------------------------------------------------------------------------
 
 EPOCH_TOL = 1e-4
+# a multi-site model with two per-site globals: the network gives the form's tref
+TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
+                               "tref": (15.0, 10.0, 20.0)},
+                   neural_param_names=["tref"], global_param_names=["rb", "Q10"])
 
 
 def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam", 0.01),
@@ -344,19 +349,15 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
     et.fit_input_norm(m, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), device)
     ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
-    fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    aim = {} if target is None else dict(target_blocks=target)  # another number of blocks
+    fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs, **aim)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fm.launch_fused_multisite.launches
-    default = fm._TARGET_BLOCKS
-    fm._TARGET_BLOCKS = target or default  # the geometry aims at another number of blocks
-    try:
-        got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-        torch.cuda.synchronize()
-        again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    finally:
-        fm._TARGET_BLOCKS = default
+    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    torch.cuda.synchronize()
+    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
     assert fm.launch_fused_multisite.launches - before == 2  # one launcher call a run
     ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
     for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
@@ -386,6 +387,8 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
     dict(N=200, S=40),                                              # a site of 200 rows
     dict(N=1000, S=30, epochs=2),                                   # a site over four tiles
     dict(N=1, S=700),
+    dict(N=1, S=700, **TWO_GLOBALS),                                # 512 globals, 256 threads
+    dict(N=1, S=20, **TWO_GLOBALS),                                 # 40 globals, 32 threads
     dict(N=3, S=500, batch=128, shuffle=True),
     dict(N=63, S=300),
     dict(N=65, S=301, batch=100, shuffle="batches"),                # a ragged last block

@@ -96,6 +96,12 @@ def masked_second_batch():
     return dict(S=256, N=8, batch=128, data=data)
 
 
+# two per-site globals (rb, Q10; the network gives tref): at one observation a
+# site a tile holds more of its sites' globals than it has rows
+TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
+                               "tref": (15.0, 10.0, 20.0)},
+                   neural_param_names=["tref"], global_param_names=["rb", "Q10"])
+
 CASES = [
     # setup kwargs, optimizer, loss, agg, shuffle
     (dict(), ("adam", 0.01), "mse", "sum", False),
@@ -107,6 +113,8 @@ CASES = [
     (dict(S=300, N=8, batch=128), ("adam", 0.01), "mae", "sum", "batches"),
     (dict(S=256, N=8, batch=128), ("sgd", 0.05), "nseLoss", "sum", True),
     ("masked", ("adam", 0.01), "mse", "sum", False),
+    (dict(S=20, N=1, **TWO_GLOBALS), ("adam", 0.01), "mse", "sum", False),
+    (dict(S=40, N=1, batch=10, **TWO_GLOBALS), ("adam", 0.01), "mse", "sum", True),
 ]
 
 
@@ -411,10 +419,9 @@ def _plan(hidden=(16, 16), norm="static", S=10_000, **kw):
     (40, 8, None, (256, 32, 1, 32, 2)),        # a ragged last block
     (1, 1, None, (32, 1, 1, 1, 1)),
 ], ids=str)
-def test_geometry_is_pinned(batch, n_obs, target, want, monkeypatch):
-    if target is not None:
-        monkeypatch.setattr(fm, "_TARGET_BLOCKS", target)
-    geo = fm.multisite_geometry(_plan(), batch, n_obs)
+def test_geometry_is_pinned(batch, n_obs, target, want):
+    aim = {} if target is None else dict(target_blocks=target)
+    geo = fm.multisite_geometry(_plan(), batch, n_obs, **aim)
     assert tuple(geo) == want
     # whole sites a block, every site in one block, no empty block
     assert geo.blocks * geo.sites_per_block >= batch > (geo.blocks - 1) * geo.sites_per_block
@@ -425,6 +432,25 @@ def test_geometry_is_pinned(batch, n_obs, target, want, monkeypatch):
         assert geo.site_tiles * geo.threads >= n_obs
     assert geo.threads % 32 == 0 and geo.threads <= 256
     assert fm._block_smem_bytes(_plan(), geo.threads, geo.tile_sites) <= fm.MAX_SMEM_BYTES
+
+
+def test_geometry_takes_its_aim_as_arguments():
+    """The blocks aimed at and the largest tile are arguments with the
+    kernel's own defaults, not module state; an epoch passes its own."""
+    plan = _plan()
+    assert fm.multisite_geometry(plan, 8000, 64) == fm.multisite_geometry(
+        plan, 8000, 64, target_blocks=fm._TARGET_BLOCKS, max_threads=fm._MAX_THREADS)
+    assert tuple(fm.multisite_geometry(plan, 301, 200, max_threads=128)) == (128, 1, 2, 1, 301)
+    assert fm.multisite_geometry(plan, 301, 1, max_threads=64).tile_sites == 64
+    for bad in (0, 48, 288):
+        with pytest.raises(ValueError, match="rows"):
+            fm.multisite_geometry(plan, 301, 8, max_threads=bad)
+    m = torch_model(300)
+    fn = et.make_fused_multisite_epoch(m, ("adam", 0.01), et.LoggingLoss(), shuffle=False,
+                                       target_blocks=8 * 132)
+    tensors = tepoch.epoch_tensors_to(
+        et.build_epoch_tensors(et.gen_multisite_arrays(300, 8, seed=0), 300), "cpu")
+    assert fn.geometry(tensors) == fm.multisite_geometry(fn.plan, 300, 8, target_blocks=8 * 132)
 
 
 def test_geometry_is_a_pure_function_and_shrinks_the_tile_for_wide_models():

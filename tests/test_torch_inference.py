@@ -136,8 +136,8 @@ def _within(got, want):
 
 @pytest.mark.parametrize("batch_size", [256, 1, 1000, 4096])
 def test_fused_engine_path_matches_jax_predict(batch_size):
-    """The ``cuda_fused_forward`` engine's serving path (the table padded once to
-    whole chunks, one copy in, one launch, one copy out), run on the CPU
+    """The ``cuda_fused_forward`` engine's serving path (each input array
+    copied once into whole chunks, one launch, one copy out per output), run on the CPU
     through the kernel's plain version (``use_kernel=True``), against the
     JAX ``predict``: 1,000 rows with NaN predictor rows, the same keys, the
     padding rows cut, at batch_size=1 the globals too."""

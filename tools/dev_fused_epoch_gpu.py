@@ -123,7 +123,7 @@ def time_main_shape(case, cluster):
     data = fn._make_data(fn.plan, tensors)
     rows = fn.rows(tensors, perms)
     loss = torch.empty((1,), dtype=torch.float32, device="cuda")
-    chain_lib = fe.measuring_library(*VARIANTS["chain"])
+    chain_lib = _build.measuring_library("fused_epoch.cu", "eh_fused_epoch", *VARIANTS["chain"])
 
     def chain():
         packed = fe.FusedParams(p0.params.clone(), p0.bn.clone())
@@ -207,7 +207,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("dev_fused_epoch_gpu: needs a CUDA GPU")
     build_all()
-    alone = AloneLibrary(fe.measuring_library())
+    alone = AloneLibrary(_build.measuring_library("fused_epoch.cu", "eh_fused_epoch"))
     _build.load_library = lambda: alone
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -95,12 +95,10 @@ def build_alone(tag: str) -> None:
 def check_cases(tag: str) -> None:
     """Every kernel-5 case of ``chip_smoke`` against the plain version, twice."""
     for case in chip_smoke.multisite_cases():
-        target = case.pop("target", None)
         what, fn, packed, tensors, perms = chip_smoke.prepare_multisite_case(et, **case)
-        with chip_smoke.blocks_aimed_at(target):
-            runs = [fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-                    for _ in range(2)]
-            note = geometry_note(fn, tensors)
+        runs = [fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+                for _ in range(2)]
+        note = geometry_note(fn, tensors)
         ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in (
@@ -114,10 +112,7 @@ def check_cases(tag: str) -> None:
 
 
 def geometry_note(fn, tensors) -> str:
-    if not hasattr(fm, "multisite_geometry"):
-        return "(no geometry function)"
-    batch, n_obs = int(tensors.weight.shape[1]), int(tensors.x.shape[2])
-    return str(fm.multisite_geometry(fn.plan, batch, n_obs))
+    return str(fn.geometry(tensors)) if hasattr(fn, "geometry") else "(no geometry method)"
 
 
 def time_shapes(tag: str) -> None:

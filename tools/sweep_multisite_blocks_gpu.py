@@ -4,12 +4,12 @@
 For the PyTorch / CUDA port (easyhybrid_tpu_torch); needs one NVIDIA GPU and
 nvcc, imports no JAX. At the shape of ``chip_smoke.py``'s multi-site main
 path (8,000 training sites x 64 observations, MLP [16,16]) it sets the
-largest tile (``ops/fused_multisite.py::_MAX_THREADS``: rows a block holds,
-which decide the blocks a multiprocessor keeps) and the number of thread
-blocks the geometry aims at (``_TARGET_BLOCKS``: the tiles a block walks) to
-a range of values and prints the device time per optimizer step of the
-gradient kernel and of the update kernel, which sums one partial row per
-gradient block. Run from the repository root:
+largest tile (``max_threads`` of ``ops/fused_multisite.py::multisite_geometry``:
+rows a block holds, which decide the blocks a multiprocessor keeps) and the
+number of thread blocks the geometry aims at (``target_blocks``: the tiles a
+block walks) to a range of values and prints the device time per optimizer step of the
+gradient kernel and of the update kernel, which sums the gradient blocks'
+partial rows. Run from the repository root:
 
     PYTHONPATH=. python tools/sweep_multisite_blocks_gpu.py
 """
@@ -22,7 +22,6 @@ import torch
 import chip_smoke as cs
 import easyhybrid_tpu_torch as et
 from easyhybrid_tpu_torch.ops import fused_epoch as fe
-from easyhybrid_tpu_torch.ops import fused_multisite as fm
 
 
 def main() -> None:
@@ -33,29 +32,23 @@ def main() -> None:
     case = {**cs.multisite_cases()[0], "epochs": 5}
     _, fn, packed, tensors, _ = cs.prepare_multisite_case(et, **case)
     opt0 = fe.init_fused_opt_state(packed)
+    for rnd in range(2):
+        for threads in (256, 192, 128, 64):
+            for target in (132, 264, 528, 1056, 2112):
+                fn.aim = dict(target_blocks=target, max_threads=threads)
+                geo = fn.geometry(tensors)
 
-    def call():
-        return fn(packed, opt0, tensors)
+                def call():
+                    return fn(packed, opt0, tensors)
 
-    defaults = fm._TARGET_BLOCKS, fm._MAX_THREADS
-    try:
-        for rnd in range(2):
-            for threads in (256, 192, 128, 64):
-                for target in (132, 264, 528, 1056, 2112):
-                    fm._MAX_THREADS, fm._TARGET_BLOCKS = threads, target
-                    geo = fm.multisite_geometry(fn.plan, cs.MS_TRAIN_SITES, cs.MS_OBS)
-                    call()
-                    torch.cuda.synchronize()
-                    grad, update = (
-                        statistics.median(cs.kernel_device_ms(call, 4, name) / 5 for _ in range(3))
-                        for name in ("eh_ms_grad", "eh_ms_update"))
-                    print(f"round {rnd}, tiles of at most {threads} rows, {target} blocks aimed "
-                          f"at: {geo}: gradient kernel {grad:.4f} ms, update kernel "
-                          f"{update:.4f} ms, together {grad + update:.4f} ms per step",
-                          flush=True)
-    finally:
-        fm._TARGET_BLOCKS, fm._MAX_THREADS = defaults
-
+                call()
+                torch.cuda.synchronize()
+                grad, update = (
+                    statistics.median(cs.kernel_device_ms(call, 4, name) / 5 for _ in range(3))
+                    for name in ("eh_ms_grad", "eh_ms_update"))
+                print(f"round {rnd}, tiles of at most {threads} rows, {target} blocks aimed "
+                      f"at: {geo}: gradient kernel {grad:.4f} ms, update kernel "
+                      f"{update:.4f} ms, together {grad + update:.4f} ms per step", flush=True)
 
 if __name__ == "__main__":
     main()
