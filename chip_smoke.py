@@ -29,11 +29,17 @@ Phases, one or more lines each; any failure exits non-zero:
    the same permutations, at the training path's shapes and its edges (the
    edges of its geometry too: batches of 31, 33, 513 and 1,000 rows, a
    batch no cluster holds at once, an epoch boundary under the prefetch, a
-   ragged last batch in a cluster), with a second run that must give the
+   ragged last batch in a cluster), under every optimizer rule besides adam
+   and plain sgd (``RULES``: small models, amsgrad and lamb also with the
+   slots in device memory) and at the quick-start's full width under
+   rmsprop, amsgrad and lamb, each with a second run that must give the
    same bits;
 7. main path: ``train()`` on the quick-start RbQ10 model (trainable input
    BatchNorm) at 20,000 rows, 100 epochs of batch 512, which must take the
    kernel after its exactness gate (one launch per epoch) and learn Q10;
+   then the reference quick-start (``examples/rbq10.py``: static norm,
+   rmsprop at 1e-3, patience 30) the same way, and its wall time on the
+   torch engine;
 8. times: kernel 2 against its plain version per epoch, with the geometry
    its plan chose (threads, tile, stages, cluster) and a step split by stage
    (a second build of ``fused_epoch.cu`` with ``-DEHE_STAMPS``, made beside
@@ -47,9 +53,10 @@ Phases, one or more lines each; any failure exits non-zero:
     (``fused_multisite_reference``) from identical parameters and the same
     site indices, at the main path's widths and at its edges (those of its
     geometry too: 1, 3, 63, 65 and 1,000 observations a site, sites longer
-    than a tile, a ragged last block, more than 528 blocks), each with the
-    geometry ``multisite_geometry`` chose and a second run that must give
-    the same bits;
+    than a tile, a ragged last block, more than 528 blocks), under every
+    optimizer rule (minibatched sites) and at the main path's width under
+    amsgrad and lamb, each with the geometry ``multisite_geometry`` chose
+    and a second run that must give the same bits;
 11. main path: multi-site ``train()`` at the JAX bench's shape, 10,000 sites
     x 64 observations with a true Q10 per site, from a long table through
     ``prepare_multisite_data`` and ``MultiSiteHybridModel``: it must take
@@ -67,7 +74,8 @@ Phases, one or more lines each; any failure exits non-zero:
     permutations, at the sequence-training path's shape and at its edges
     (another hidden size and window, mae with sgd and no norm, NaN targets
     with a ragged last batch, the JAX bench's batch of 512, a batch of 1,000
-    that no cluster holds at once), with a second run that must give the
+    that no cluster holds at once, every optimizer rule, the main path's
+    shape under rmsprop), with a second run that must give the
     same bits, each with the geometry its plan chose (blocks in the cluster,
     windows a block, tiles, lanes a window); then windows of 10, 32, 64, 128
     and 256 steps at hidden size 16, each taken or refused with the
@@ -89,8 +97,9 @@ Phases, one or more lines each; any failure exits non-zero:
     gradient itself through one sgd step, then 2 epochs x 16 Adam steps of
     1,024 rows, and batch 64), and at its edges on smaller models (widths that
     are no multiple of the tile, mae with sgd and no norm, NaN targets with a
-    ragged last batch, a fully masked first batch, ``shuffle="batches"``), with
-    a second run that must give the same bits; the tower's Adam runs are held
+    ragged last batch, a fully masked first batch, ``shuffle="batches"``, every
+    optimizer rule; the tower under adamw and lamb), with a second run that
+    must give the same bits; the tower's Adam-like runs are held
     against the plain version in float32 and in float64 (the float32 one is no
     reference where it misses the criterion against its own float64 run);
     each case prints the route, tile and pieces the plan chose for every
@@ -302,6 +311,29 @@ def gate_counted_apart(launcher):
 
 TRAIN_ROWS = 20_000
 TRAIN_KW = dict(nepochs=100, batchsize=512, optimizer=("adam", 0.01), show_progress=False)
+# the reference quick-start (examples/rbq10.py): static norm, rmsprop at 1e-3,
+# patience 30, the r2 metric beside mse
+REFERENCE_KW = dict(nepochs=100, batchsize=512, optimizer=("rmsprop", 0.001), patience=30,
+                    tracked_params=["Q10"], loss_types=["mse", "r2"], show_progress=False)
+# every optimizer rule of the training kernels besides adam and plain sgd, at a
+# learning rate that moves the parameters in a few steps
+RULES = [("adamw", 0.01), ("sgd", 0.05, 0.9), ("sgd", 0.05, 0.9, 1.0), ("rmsprop", 0.01),
+         ("adagrad", 0.05), ("lion", 0.001), ("adamax", 0.01), ("nadam", 0.01),
+         ("adadelta", 1.0), ("radam", 0.01), ("amsgrad", 0.01), ("lamb", 0.01)]
+
+
+def fresh_state(fn, packed):
+    """Zero opt state for the rule of ``fn``'s plan (with amsgrad's u)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    return fe.init_fused_opt_state(packed, (fn.plan.opt_name, dict(fn.plan.hyper)))
+
+
+def slots(opt_state) -> dict:
+    """The slots of a fused opt state (m, v and amsgrad's u) and its step count."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    return {**fe.opt_slots(opt_state), "t": opt_state["t"].float()}
 
 
 def epoch_cases(et, quick_cols):
@@ -346,7 +378,69 @@ def epoch_cases(et, quick_cols):
         dict(what="quick-start, 30% NaN targets, N=2500 batch 1000 (ragged last batch in a cluster)",
              cols=et.rbq10_columns(2500, seed=10, nan_frac=0.3), keep_nan=True, shuffle=True,
              epochs=2, batch=1000, seed=10, **quick),
+        # every optimizer rule: two blocks of a cluster, each updating its replica, 8 steps
+        *[dict(what=f"{opt}: [12,5] swish, trainable BN, N=2000 batch 512, 2 epochs",
+               cols=et.rbq10_columns(2000, seed=20 + i), hidden=(12, 5), act="swish", norm=True,
+               opt=opt, shuffle=True, epochs=2, batch=512, seed=20 + i)
+          for i, opt in enumerate(RULES)],
+        *[dict(what=f"{opt}: [61,61,44,61,13] tanh, N=512 batch 128 (the slots in device memory)",
+               cols=et.rbq10_columns(512, seed=11), hidden=(61, 61, 44, 61, 13), act="tanh",
+               norm=True, opt=opt, shuffle=True, epochs=2, batch=128, seed=11)
+          for opt in (("amsgrad", 0.01), ("lamb", 0.01))],
+        # the quick-start at full width under the reference's rule and the two with state
+        # of their own (amsgrad's third slot, lamb's per-leaf norms)
+        *[dict(what=f"quick-start under {opt}: 16,000 rows, batch 512, shuffled, 4 epochs",
+               cols=quick_cols, split=True, shuffle=True, epochs=4, batch=512, seed=0,
+               **{**quick, "opt": opt})
+          for opt in (("rmsprop", 0.001), ("amsgrad", 0.01), ("lamb", 0.01))],
     ]
+
+
+def reference_main_path(et, fe, card, cols) -> dict:
+    """Phase 7b: the reference quick-start (``examples/rbq10.py``: static
+    norm, rmsprop at 1e-3, patience 30) through ``train()`` on a model built
+    without ``device=``; it must take kernel 2 after its gate, one launch an
+    epoch, and learn Q10. Then the same run on the torch engine for a fifth
+    of the epochs, for its wall time."""
+    model = build_model(et, norm="static", seed=0)
+    with gate_counted_apart(fe.launch_fused_epoch) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, cols, **REFERENCE_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fe.launch_fused_epoch.launches
+    if (result.epoch_path != "cuda_fused_epoch"
+            or "exactness gate passed" not in result.engine_reason):
+        raise AssertionError(f"the reference train() took {result.epoch_path!r}: "
+                             f"{result.engine_reason}")
+    epochs = len(result.train_history) - 1  # the history holds epoch 0 as well
+    if launches != epochs or launches < 1:
+        raise AssertionError(f"the reference train() ran {epochs} epochs in {launches} launches")
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    pred = result.val_pred_columns["reco_pred"]
+    if not (abs(q10 - 2.0) < 0.15 and result.best_loss < 0.05):
+        raise AssertionError(f"the reference train() learned Q10 {q10:.4f}, best val mse "
+                             f"{result.best_loss:.4f}")
+    if pred.shape != (len(cols["reco"]) // 5,) or not np.isfinite(pred).all():
+        raise AssertionError(f"val predictions: shape {pred.shape}, "
+                             f"finite {np.isfinite(pred).all()}")
+    log("main", f"reference quick-start train() ({REFERENCE_KW['optimizer']}, static norm, "
+                f"patience {REFERENCE_KW['patience']}): {result.epoch_path}, "
+                f"{result.engine_reason}; {launches} launches for {epochs} epochs after the "
+                f"gate's {gate_launches}; Q10 {q10:.4f}, best val mse {result.best_loss:.5f} at "
+                f"epoch {result.best_epoch}; {wall:.2f} s wall (ok)")
+    torch_epochs = 20
+    t0 = time.perf_counter()
+    plain = et.train(build_model(et, norm="static", seed=0), cols, use_kernel=False,
+                     **{**REFERENCE_KW, "nepochs": torch_epochs})
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if plain.epoch_path != "torch":
+        raise AssertionError(f"use_kernel=False took {plain.epoch_path!r}")
+    log("times", f"[{card}] reference quick-start train() wall: cuda_fused_epoch {wall:.2f} s for "
+                 f"{epochs} epochs (gate included), torch {torch_wall:.2f} s for {torch_epochs} "
+                 f"epochs ({torch_wall / torch_epochs * epochs:.2f} s per {epochs})")
+    return {"launches": launches, "wall": wall, "torch_wall_per_epoch": torch_wall / torch_epochs}
 
 
 def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, epochs, batch,
@@ -544,6 +638,13 @@ def multisite_cases():
              batch=100, shuffle="batches"),
         dict(what="3,000 sites x 64, 750 blocks (eight a multiprocessor aimed at, beyond the "
                   "first kernel's cap of 528)", S=3000, N=64, epochs=1, target_blocks=8 * 132),
+        # every optimizer rule, minibatched (9 steps; lamb's per-site leaves over every block)
+        *[dict(what=f"{opt}: minibatched S=300 batch 128, shuffled", opt=opt, shuffle=True,
+               **mini) for opt in RULES],
+        # the main path's width under the rules with state of their own
+        *[dict(what=f"main path's width under {opt}: {MS_TRAIN_SITES} sites x {MS_OBS}, one site "
+                    "batch, 4 epochs", S=MS_TRAIN_SITES, N=MS_OBS, epochs=4, opt=opt)
+          for opt in (("amsgrad", 0.01), ("lamb", 0.01))],
     ]
 
 
@@ -573,18 +674,17 @@ def multisite_kernel_checks(et) -> float:
 
     def named(packed, opt_state, loss, n_shared):
         return {"shared": packed.params[:n_shared], "per-site": packed.params[n_shared:],
-                "m": opt_state["m"], "v": opt_state["v"], "t": opt_state["t"].float(),
-                "loss": loss.reshape(1)}
+                **slots(opt_state), "loss": loss.reshape(1)}
 
     worst = 0.0
     for case in multisite_cases():
         what, fn, packed, tensors, perms = prepare_multisite_case(et, **case)
         n_shared = fn.plan.offsets()["p_g"]
-        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms), n_shared)
         torch.cuda.synchronize()
-        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms), n_shared)
+        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms), n_shared)
         geo = fn.geometry(tensors)
-        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms),
+        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms),
                     n_shared)
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
             raise AssertionError(f"{what}: the kernel returned non-finite values")
@@ -814,6 +914,12 @@ def lstm_cases():
              loss="mse", n=LSTM_ROWS, epochs=1, seed=42),
         dict(what="batch 1,000: more windows than a cluster holds at once", batch=1000, loss="mse",
              n=3000, epochs=1),
+        # every optimizer rule: 8 batches of 128 over a cluster, lamb's leaves straddling the
+        # blocks' slices
+        *[dict(what=f"{opt}: LSTM(16), mse, N=1000 batch 128, 1 epoch", opt=opt, loss="mse",
+               n=1000, epochs=1, seed=i) for i, opt in enumerate(RULES)],
+        dict(what="main path's training rows under rmsprop (the reference's rule), 4 epochs",
+             epochs=4, keep=int(LSTM_ROWS * 0.8), opt=("rmsprop", 0.001)),
     ]
 
 
@@ -853,15 +959,15 @@ def lstm_kernel_checks(et) -> float:
     from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 
     def named(packed, opt_state, loss):
-        return {"params": packed.params, "bn": packed.bn, "m": opt_state["m"],
-                "v": opt_state["v"], "t": opt_state["t"].float(), "loss": loss.reshape(1)}
+        return {"params": packed.params, "bn": packed.bn, **slots(opt_state),
+                "loss": loss.reshape(1)}
 
     def run(case):
         what, fn, packed, tensors, perms = prepare_lstm_case(et, **case)
-        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
         torch.cuda.synchronize()
-        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
-        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
             raise AssertionError(f"{what}: the kernel returned non-finite values")
         if not all(torch.equal(got[k], again[k]) for k in got):
@@ -1112,6 +1218,15 @@ def wide_cases(et, train_cols):
         dict(what="[65] gelu, shuffle 'batches', N=2000 batch 300",
              cols=et.rbq10_columns(2000, seed=5), hidden=(65,), act="gelu", norm="static",
              opt=("adam", 0.01), shuffle="batches", epochs=2, batch=300, seed=5),
+        # every optimizer rule: tensor-core and FMA layers, lamb's leaves over many update
+        # blocks; 8 steps
+        *[dict(what=f"{opt}: [128,64] swish, N=1000 batch 256, 2 epochs",
+               cols=et.rbq10_columns(1000, seed=30 + i), shuffle=True, epochs=2, batch=256,
+               **{**small, "opt": opt, "seed": 30 + i}) for i, opt in enumerate(RULES)],
+        # the tower under adamw and lamb, held to the Adam runs' criterion
+        *[dict(what=f"tower, main path: 16,384 rows, batch 1,024, {opt}, static norm, shuffled, "
+                    "2 epochs", opt=opt, shuffle=True, epochs=2, held="adam", **tower)
+          for opt in (("adamw", 0.01), ("lamb", 0.01))],
     ]
 
 
@@ -1156,12 +1271,12 @@ def wide_reference64(fn, packed, tensors, perms) -> dict:
     as64 = lambda cols: tuple(c.double() for c in cols)  # noqa: E731
     data64 = fe.FusedData(data.x.double(), as64(data.forcing), as64(data.y), as64(data.mask),
                           data.n_batches, data.batch)
-    o = fe.init_fused_opt_state(packed)
+    o = fresh_state(fn, packed)
     p, o, loss = fw.fused_wide_reference(
         fn.plan, fe.FusedParams(packed.params.double(), packed.bn.double()),
-        {"m": o["m"].double(), "v": o["v"].double(), "t": o["t"]}, data64,
+        {k: v if k == "t" else v.double() for k, v in o.items()}, data64,
         fn.rows(tensors, perms))
-    return {"params": p.params, "m": o["m"], "v": o["v"], "loss": loss.reshape(1)}
+    return {"params": p.params, **fe.opt_slots(o), "loss": loss.reshape(1)}
 
 
 def wide_geometry_note(fn, batch) -> str:
@@ -1181,17 +1296,17 @@ def wide_kernel_checks(et, train_cols) -> float:
     from easyhybrid_tpu_torch.ops import fused_epoch as fe
 
     def named(packed, opt_state, loss):
-        return {"params": packed.params, "bn": packed.bn, "m": opt_state["m"],
-                "v": opt_state["v"], "t": opt_state["t"].float(), "loss": loss.reshape(1)}
+        return {"params": packed.params, "bn": packed.bn, **slots(opt_state),
+                "loss": loss.reshape(1)}
 
     worst = 0.0
     for case in wide_cases(et, train_cols):
         held = case.get("held", "strict")
         what, fn, packed, tensors, perms = prepare_wide_case(et, **case)
-        got = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
         torch.cuda.synchronize()
-        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
-        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
             raise AssertionError(f"{what}: the kernel returned non-finite values")
         if not all(torch.equal(got[k], again[k]) for k in got):
@@ -1681,15 +1796,13 @@ def main() -> None:
     epoch_err = 0.0
     for case in epoch_cases(et, quick_cols):
         what, fn, packed, tensors, perms = prepare_epoch_case(et, fe, **case)
-        opt0 = fe.init_fused_opt_state(packed)
         def named(p, o, l):
-            return {"params": p.params, "bn": p.bn, "m": o["m"], "v": o["v"],
-                    "t": o["t"].float(), "loss": l.reshape(1)}
+            return {"params": p.params, "bn": p.bn, **slots(o), "loss": l.reshape(1)}
 
-        got = named(*fn(packed, opt0, tensors, perms=perms))
+        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
         torch.cuda.synchronize()
-        again = named(*fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
-        ref = named(*fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms))
+        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
         if not all(bool(torch.isfinite(v).all()) for v in got.values()):
             raise AssertionError(f"{what}: the kernel returned non-finite values")
         if not all(torch.equal(got[k], again[k]) for k in got):
@@ -1698,7 +1811,7 @@ def main() -> None:
         epoch_err = max(epoch_err, err)
         g = fn.plan.geometry(int(tensors.weight.shape[1]))
         log("kernel2", f"{what}: width {fn.plan.width}, {g.cluster} block(s) of {g.threads} "
-                       f"threads, {g.tiles} tile(s) of {g.tile} rows, stages {g.stages}, moments "
+                       f"threads, {g.tiles} tile(s) of {g.tile} rows, stages {g.stages}, slots "
                        f"{'shared' if g.moments_shared else 'in device memory'}, "
                        f"{int(got['t'][0])} steps, max |diff| {err:.3e}, second run bitwise "
                        "equal (ok)")
@@ -1725,6 +1838,7 @@ def main() -> None:
     log("main", f"train(): {result.epoch_path}, {result.engine_reason}; {epoch_launches} launches "
                 f"after the gate's {gate_launches}; Q10 {q10:.4f}, best val mse "
                 f"{result.best_loss:.5f} at epoch {result.best_epoch}; {fused_wall:.2f} s wall (ok)")
+    reference = reference_main_path(et, fe, card, quick_cols)
 
     # 8. times ---------------------------------------------------------------------
     what, fn, packed, tensors, perms = prepare_epoch_case(
@@ -1814,7 +1928,9 @@ def main() -> None:
         "route": "cuda",
         "source": "easyhybrid_tpu_torch/csrc/fused_epoch.cu",
         "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
-        "launches": epoch_launches,
+        # this slice's main path: the reference quick-start (rmsprop); the adam
+        # quick-start's launches are checked and logged in phase 7
+        "launches": reference["launches"],
         "max_abs_err": epoch_err,
         "ms": epoch_ms["kernel"],
         "plain_ms": epoch_ms["plain"],

@@ -16,7 +16,8 @@
 //   6. the hand-written backward through the form's partials, the bound
 //      scaling and the MLP, including the norm's affine scale and bias;
 //   7. the batch-validity gate: an all-masked batch changes nothing;
-//   8. the optax adam or sgd update.
+//   8. the update by any of the optax rules of the JAX kernel (eh_device.cuh,
+//      ehe_update; lamb's per-leaf norms first, in a pass of their own).
 // Parameters, moments, the step counter and the BatchNorm statistics are read
 // into shared memory once, stay there across every step of the launch, and
 // are written back once at the end, with the last epoch's mean batch loss.
@@ -64,8 +65,14 @@
 //     update from the same gradient bits, so nothing is sent back.
 //   * What does not depend on the parameters leaves the critical barriers: a
 //     step's mask counts and batch mean are taken at the end of the step
-//     before and exchanged with its gradient, and Adam's bias corrections are
+//     before and exchanged with its gradient, and what the optimizer rule
+//     takes from the step count (bias corrections, radam's rectification) is
 //     computed then too, by the warp with the fewest units.
+//   * Lamb's trust ratio needs the norms of a leaf's parameters and update
+//     directions: a warp takes a leaf, its lanes in a fixed stride and then a
+//     shuffle tree, so every block of a cluster gets the same bits from the
+//     same gradient; the directions are computed again in the update rather
+//     than kept, so the state needs no more shared memory.
 // Per step, with a trainable norm: an exchange barrier (the cluster's, or the
 // block's without a cluster) for the variance, one for the gradient, the loss
 // and the next step's counts and mean; and 3 block barriers (after the
@@ -89,6 +96,7 @@ struct EhFusedEpochArgs {
   float* params;                         // packed parameters, in place
   float* m;                              // first moments, in place
   float* v;                              // second moments, in place
+  float* u;                              // amsgrad's third slot, in place (else unused)
   float* bn;                             // running mean, var (2 dims[0]), in place
   int* t;                                // step counter (1), in place
   const float* consts;                   // neural lo, span; global lo, span; fixed
@@ -119,13 +127,7 @@ struct EhFusedEpochArgs {
   int n_targets;
   int target_out[EH_MAX_TARGETS];
   float agg_scale;
-  int opt;                               // 0 sgd, 1 adam
-  float lr;
-  float b1;
-  float b2;
-  float one_minus_b1;
-  float one_minus_b2;
-  float eps;
+  EhOptimizer optimizer;                 // the rule and its hyperparameters
   int tile_rows;                         // threads of a block: rows it takes at once
   int res_floats;
   int r_off_xhat;
@@ -144,7 +146,7 @@ struct EhFusedEpochArgs {
   int block_rows;                        // rows of a batch one block owns
   int stages;                            // 2: rows staged and prefetched; 0: read in place
   int cluster;                           // blocks over a batch's rows
-  int moments_shared;                    // 1: moments in shared memory; 0: updated in m and v
+  int moments_shared;                    // 1: m, v in shared memory; 2: u too; 0: in device memory
   int n_unit_table;                      // gradient units described once a launch (the first ones)
   long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
 };
@@ -152,9 +154,12 @@ struct EhFusedEpochArgs {
 // per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l];
 // raw globals at p_off_g. In shared memory the parameters (not the moments)
 // use the padded layout: the same order, every W row padded with zeros to a
-// multiple of 4 floats and every W starting on a 16-byte boundary. Where the
-// state would leave no room for 32 residual rows the moments stay in device
-// memory (one block only: each element is then one thread's alone).
+// multiple of 4 floats and every W starting on a 16-byte boundary. The
+// optimizer's slots follow the parameters: m and v, and with moments_shared 2
+// amsgrad's u and a pad of the same size (the shared-memory formula counts
+// slots in pairs). Where the state would leave no room for 32 residual rows
+// the slots stay in device memory (one block only: each element is then one
+// thread's alone).
 // Residual tile: word (off + k) * tile_rows + r for feature k of row r.
 
 // Built with -DEHE_STAMPS, thread 0 of block 0 adds the clock64() cycles it
@@ -209,12 +214,15 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const int cols = F + NF + 2 * T;  // a stage's columns
   const bool staged = a.stages > 0;
 
+  const EhOptimizer& o = a.optimizer;
   float* Pm = sm;                 // parameters, padded layout
-  // the moments: beside the parameters, or in device memory where the state
-  // would leave no room for 32 rows (each element is one thread's alone)
+  // the optimizer's slots: beside the parameters, or in device memory where
+  // the state would leave no room for 32 rows (each element is one thread's
+  // alone)
   float* Mm = a.moments_shared ? Pm + a.n_padded : a.m;
   float* Vm = a.moments_shared ? Mm + NP : a.v;
-  float* Gr = Pm + a.n_padded + (a.moments_shared ? 2 * NP : 0);  // this block's gradient partial
+  float* Um = a.moments_shared == 2 ? Vm + NP : a.u;
+  float* Gr = Pm + a.n_padded + 2 * a.moments_shared * NP;  // this block's gradient partial
   float* XL = Gr + NP;            // this block's loss partials, one a warp
   float* XS1 = XL + nw;           // count and mean partials, NS a warp
   float* XS2 = XS1 + nw * NS;     // variance partials, F a warp
@@ -225,7 +233,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   float* BM = DG + G;             // batch (or running) mean
   float* BR = BM + F;             // rsqrt(var + eps)
   float* NT = BR + F;             // max(sum(mask), 1) per target
-  float* MISC = NT + T;           // [0..1] batch valid, [2..5] Adam's bias corrections: two steps'
+  float* MISC = NT + T;           // [0..1] batch valid, [2..7] the rule's step numbers: two steps'
   int* UT = reinterpret_cast<int*>(MISC + 8);  // the first units, 8 ints each
   float* RES = MISC + 8 + 8 * a.n_unit_table;  // residual tile
   float* ST = RES + a.res_floats * ld;  // the stages
@@ -238,6 +246,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       Mm[i] = a.m[i];
       Vm[i] = a.v[i];
     }
+    if (a.moments_shared == 2) Um[i] = a.u[i];
   }
   for (int i = tid; i < 2 * F; i += nth) BN[i] = a.norm_mode != NORM_NONE ? a.bn[i] : 0.0f;
   for (int i = tid; i < n_consts; i += nth) Cc[i] = a.consts[i];
@@ -245,10 +254,8 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   RES[a.r_off_one * ld + tid] = 1.0f;
   for (int u = tid; u < a.n_unit_table; u += nth) ehe_unit_describe(a, UT, u);
   __syncthreads();
-  if (tid == nth - 1) {  // the first step's bias corrections
-    MISC[2] = 1.0f - powf(a.b1, (float)a.t[0] + 1.0f);
-    MISC[3] = 1.0f - powf(a.b2, (float)a.t[0] + 1.0f);
-  }
+  if (tid == nth - 1)  // the first step's numbers
+    ehe_opt_step_store(ehe_opt_step(o, (float)a.t[0] + 1.0f), MISC + 2);
   if (a.norm_mode == NORM_STATIC) {
     for (int k = tid; k < F; k += nth) {
       BM[k] = BN[k];
@@ -552,14 +559,11 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       EHE_STAMP(1);
     }
     if (tid == nth - 1) {
-      // Adam's bias corrections for the next step if its batch is valid (they
-      // are not read if it is not), off that step's chain and in the warp
-      // that has the fewest units: the step count after this step, plus one,
-      // is never below the clamp at 1
-      float* bc = MISC + 2 + 2 * ((s + 1) & 1);
-      const float tc = t + valid + 1.0f;
-      bc[0] = 1.0f - powf(a.b1, tc);
-      bc[1] = 1.0f - powf(a.b2, tc);
+      // the rule's numbers for the next step if its batch is valid (they are
+      // not read if it is not), off that step's chain and in the warp that
+      // has the fewest units: the step count after this step, plus one, is
+      // never below the clamp at 1
+      ehe_opt_step_store(ehe_opt_step(o, t + valid + 1.0f), MISC + 2 + 3 * ((s + 1) & 1));
     }
     {
       const float v = ehe_warp_sum(loss_part);
@@ -569,14 +573,37 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
     if (s + 1 < n_steps) stat_sums(s + 1);
     if (warp == 0 && valid > 0.0f) epoch_loss += exchanged(XL, 1, 0);
     if (valid > 0.0f) {
-      const float bc1 = MISC[2 + 2 * (s & 1)];
-      const float bc2 = MISC[3 + 2 * (s & 1)];
-      for (int p = tid; p < NP; p += nth) {
+      const EhOptStep st = ehe_opt_step_at(MISC + 2 + 3 * (s & 1));
+      // parameter p's gradient: the blocks' partials in rank order
+      auto grad = [&](int p) {
         float g = 0.0f;
         for (int rk = 0; rk < C; ++rk) g += (C > 1 ? cluster.map_shared_rank(Gr, rk) : Gr)[p];
         if (p >= a.p_off_g) g = g * DG[p - a.p_off_g];
+        return g;
+      };
+      // lamb: each leaf's trust ratio, a warp a leaf, into the residual tile
+      // (free until the next step's rows)
+      float* TR = RES;
+      if (o.rule == OPT_LAMB) {
+        for (int l = warp; l < o.n_leaves; l += nw) {
+          float ps = 0.0f, ds = 0.0f;
+          for (int p = (int)ehe_leaf_start(o, l) + lane; p < o.leaf_end[l]; p += 32) {
+            const float pv = Pm[ehe_padded_index(a, p)];
+            float mm = Mm[p], vv = Vm[p], w = 0.0f;
+            const float d = ehe_direction(o, st, pv, grad(p), mm, vv, w);
+            ps += pv * pv;
+            ds += d * d;
+          }
+          ps = ehe_warp_sum(ps);
+          ds = ehe_warp_sum(ds);
+          if (lane == 0) TR[l] = ehe_trust_ratio(ps, ds);
+        }
+        __syncthreads();
+      }
+      for (int p = tid; p < NP; p += nth) {
         const int pp = p == tid ? pp_first : ehe_padded_index(a, p);
-        ehe_update(a, &Pm[pp], &Mm[p], &Vm[p], g, bc1, bc2);
+        ehe_update(o, st, &Pm[pp], &Mm[p], &Vm[p], &Um[p], grad(p),
+                   o.rule == OPT_LAMB ? TR[ehe_leaf_of(o, p)] : 1.0f);
       }
     }
     t += valid;
@@ -603,6 +630,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         a.m[i] = Mm[i];
         a.v[i] = Vm[i];
       }
+      if (a.moments_shared == 2) a.u[i] = Um[i];
     }
     if (a.norm_mode != NORM_NONE)
       for (int i = tid; i < 2 * F; i += nth) a.bn[i] = BN[i];
@@ -666,7 +694,10 @@ extern "C" int eh_fused_epoch(const EhFusedEpochArgs* args, int width, void* str
       tr < 32 || tr % 32 != 0 || (c != 1 && c != 2 && c != 4 && c != 8) ||
       (int64_t)args->block_rows * c < args->batch || args->n_padded % 4 != 0 ||
       args->n_unit_table < 0 ||
-      (args->moments_shared != 1 && (args->moments_shared != 0 || c != 1)) ||
+      args->moments_shared < 0 || args->moments_shared > 2 ||
+      (args->moments_shared == 0 && c != 1) ||
+      (args->optimizer.rule == OPT_AMSGRAD && args->moments_shared == 1) ||
+      args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES ||
       (args->stages != 0 && (args->stages != 2 || tr < args->block_rows))) {
     return (int)cudaErrorInvalidValue;
   }

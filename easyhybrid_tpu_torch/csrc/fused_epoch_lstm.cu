@@ -21,7 +21,8 @@
 //      cotangents dz, dh_next = wh^T dz, dc *= f; with a norm the cotangent
 //      wi^T dz of the normed input feeds the norm's scale and bias;
 //   6. gradients summed over the batch's windows and time steps in a fixed
-//      order; an all-masked batch changes nothing; optax adam or sgd.
+//      order; an all-masked batch changes nothing; the update by any of the
+//      optax rules of the JAX kernel (eh_device.cuh, ehe_update).
 //
 // What bounds it on an H100: latency. A window of LSTM(16) over 10 steps is
 // 10 dependent cell evaluations forward and 10 backward, each optimizer step
@@ -61,8 +62,13 @@
 //   * What does not depend on the parameters leaves the chain: the loss
 //     scales' counts, means and SSTs of step s + 1 are taken during step s
 //     over the whole batch by every block alike (the same order, so the same
-//     bits), warp-wide partials summed by each warp itself; Adam's bias
-//     corrections are taken a step ahead.
+//     bits), warp-wide partials summed by each warp itself; what the
+//     optimizer rule takes from the step count is taken a step ahead.
+//   * Lamb's trust ratio needs per-leaf norms, and a leaf can straddle the
+//     blocks' slices: each block sums its slice's part of every leaf (a warp
+//     a leaf), and after a cluster barrier each block adds the blocks' parts
+//     in rank order through distributed shared memory, so all get the same
+//     bits.
 // Per step: two cluster barriers (the gradient partials; the updated
 // slices, written by their owners into every block) and one block barrier
 // after the backward. The epoch's loss is summed per block and read across
@@ -121,6 +127,7 @@ struct EhFusedLstmArgs {
   float* params;                         // packed parameters, in place
   float* m;                              // first moments, in place
   float* v;                              // second moments, in place
+  float* u;                              // amsgrad's third slot, in place (else unused)
   const float* bn;                       // the norm's mean, var (2 n_features)
   int* t;                                // step counter (1), in place
   const float* consts;                   // neural lo, span; global lo, span; fixed
@@ -157,13 +164,7 @@ struct EhFusedLstmArgs {
   float agg_scale;
   int loss_kind;                         // 0 squared, 1 absolute differences
   int loss_nse;                          // scale by the target's SST
-  int opt;                               // 0 sgd, 1 adam
-  float lr;
-  float b1;
-  float b2;
-  float one_minus_b1;
-  float one_minus_b2;
-  float eps;
+  EhOptimizer optimizer;                 // the rule and its hyperparameters
   int threads;                           // of a block: windows x lanes, in whole warps
   int lanes;                             // lanes a window: min(32, width)
   int windows;                           // windows a block holds at once
@@ -426,7 +427,7 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
   float* DG = SC + G + K;          // d scaled global / d raw
   float* BM = DG + G;              // the norm's mean
   float* BR = BM + F;              // rsqrt(var + eps)
-  float* MISC = BR + F;            // Adam's bias corrections, two steps'
+  float* MISC = BR + F;            // the rule's step numbers, two steps'
   float* XS1 = MISC + 8;           // counts and target sums, 2 NT a warp, two steps'
   float* XS2 = XS1 + 4 * nw * NT;  // SSTs, NT a warp, two steps'
   float* XL = XS2 + 2 * nw * NT;   // loss, one a warp
@@ -464,10 +465,8 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
   const int n_units = ehl_n_units(a);
   float t = (float)a.t[0];  // every thread carries the same step count
   float last_loss = 0.0f;   // thread 0 of block 0 only
-  if (tid == nth - 1) {     // the first step's bias corrections
-    MISC[0] = 1.0f - powf(a.b1, t + 1.0f);
-    MISC[1] = 1.0f - powf(a.b2, t + 1.0f);
-  }
+  const EhOptimizer& opt = a.optimizer;
+  if (tid == nth - 1) ehe_opt_step_store(ehe_opt_step(opt, t + 1.0f), MISC);  // the first step's
 #ifdef EHL_STAMPS
   long long stamp_acc[EHL_N_STAMPS] = {};
   const long long stamp_first = clock64();
@@ -925,13 +924,10 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
     // ---- the next step's loss scales and Adam's corrections; the exchange ----
     if (s + 1 < n_steps) scale_counts(s + 1);
     if (tid == nth - 1) {
-      // the next step's bias corrections if its batch is valid (they are not
-      // read if it is not): the step count after this step, plus one, is
+      // the rule's numbers for the next step if its batch is valid (they are
+      // not read if it is not): the step count after this step, plus one, is
       // never below the clamp at 1
-      float* bc = MISC + 2 * ((s + 1) & 1);
-      const float tc = t + valid + 1.0f;
-      bc[0] = 1.0f - powf(a.b1, tc);
-      bc[1] = 1.0f - powf(a.b2, tc);
+      ehe_opt_step_store(ehe_opt_step(opt, t + valid + 1.0f), MISC + 3 * ((s + 1) & 1));
     }
     {
       const float v = ehe_warp_sum(loss_part);
@@ -953,15 +949,52 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
     if (valid > 0.0f) {
       // this block's slice: the blocks' partials in rank order, the update,
       // and the new values (with the scaled globals) written to every block
-      const float bc1 = MISC[2 * (s & 1)];
-      const float bc2 = MISC[2 * (s & 1) + 1];
-      for (int p = lo + tid; p < hi; p += nth) {
+      const EhOptStep st = ehe_opt_step_at(MISC + 3 * (s & 1));
+      auto grad = [&](int p) {
         float g = 0.0f;
         for (int rk = 0; rk < C; ++rk) g += (C > 1 ? cluster.map_shared_rank(Gr, rk) : Gr)[p];
-        const int pp = ehl_pos(a, p);
         const int gi = p - a.p_off_g;
         if (gi >= 0) g = g * DG[gi];
-        ehe_update(a, &Pm[pp], &a.m[p], &a.v[p], g, bc1, bc2);
+        return g;
+      };
+      // lamb: this slice's part of every leaf's norms (a warp a leaf) after
+      // the ones column of the pair arrays, free until the next step's tile;
+      // then every block adds the blocks' parts in rank order
+      float* LB = PA + (o.one + 1) * ld;
+      if (opt.rule == OPT_LAMB) {
+        for (int l = warp; l < opt.n_leaves; l += nw) {
+          float ps = 0.0f, ds = 0.0f;
+          const int end = min(hi, opt.leaf_end[l]);
+          for (int p = max(lo, (int)ehe_leaf_start(opt, l)) + lane; p < end; p += 32) {
+            const float pv = Pm[ehl_pos(a, p)];
+            float mm = a.m[p], vv = a.v[p];
+            const float d = ehe_lamb_direction(opt, st, pv, grad(p), mm, vv);
+            ps += pv * pv;
+            ds += d * d;
+          }
+          ps = ehe_warp_sum(ps);
+          ds = ehe_warp_sum(ds);
+          if (lane == 0) {
+            LB[2 * l] = ps;
+            LB[2 * l + 1] = ds;
+          }
+        }
+        exchange_barrier();
+      }
+      auto trust_ratio = [&](int l) {
+        float ps = 0.0f, ds = 0.0f;
+        for (int rk = 0; rk < C; ++rk) {
+          const float* part = C > 1 ? cluster.map_shared_rank(LB, rk) : LB;
+          ps += part[2 * l];
+          ds += part[2 * l + 1];
+        }
+        return ehe_trust_ratio(ps, ds);
+      };
+      for (int p = lo + tid; p < hi; p += nth) {
+        const int pp = ehl_pos(a, p);
+        const int gi = p - a.p_off_g;
+        ehe_update(opt, st, &Pm[pp], &a.m[p], &a.v[p], &a.u[p], grad(p),
+                   opt.rule == OPT_LAMB ? trust_ratio(ehe_leaf_of(opt, p)) : 1.0f);
         const float np = Pm[pp];
         float sc = 0.0f, dg = 0.0f;
         if (gi >= 0) {
@@ -1054,8 +1087,19 @@ extern "C" int eh_fused_lstm(const EhFusedLstmArgs* args, int width, void* strea
       args->threads != (args->windows * args->lanes + 31) / 32 * 32 ||
       (c != 1 && c != 2 && c != 4 && c != 8 && c != EH_LSTM_MAX_CLUSTER) ||
       (int64_t)args->tiles * args->windows < block_windows ||
-      (int64_t)(args->tiles - 1) * args->windows >= block_windows || args->stages != 0) {
+      (int64_t)(args->tiles - 1) * args->windows >= block_windows || args->stages != 0 ||
+      args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (args->optimizer.rule == OPT_LAMB) {
+    // lamb's per-leaf parts go after the ones column of the pair arrays, into
+    // the head's and the globals' cotangents: room for two floats a leaf
+    const EhLstmTile o = ehl_tile(*args);
+    const int W = args->windows;
+    const int64_t room = (int64_t)(o.total - o.one - 1) * ehl_ld((args->n_steps + 1) * W) +
+                         (int64_t)args->n_out * ehl_ld(args->n_out_steps * W) +
+                         (int64_t)args->n_globals * ehl_ld(min(args->lanes, args->n_out_steps) * W);
+    if (room < 2 * args->optimizer.n_leaves) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {

@@ -15,10 +15,11 @@
 //      by the caller (mse and nseLoss: scale * diff^2; mae: scale * |diff|);
 //   4. the hand-written backward; the per-site gradient is the sum over the
 //      site's samples, the shared gradient the sum over all of them;
-//   5. the optax adam or sgd update of the shared parameters and of every
-//      site's globals, in the batch or not (a site outside it has a zero
-//      gradient, which still decays adam's moments), unless the batch holds
-//      no valid target: then nothing changes.
+//   5. the update of the shared parameters and of every site's globals by
+//      any of the optax rules of the JAX kernel (eh_device.cuh, ehe_update),
+//      in the batch or not (a site outside it has a zero gradient, which
+//      still decays adam's moments), unless the batch holds no valid target:
+//      then nothing changes.
 //
 // What bounds it on an H100: at the bench shape (8,000 sites x 64
 // observations a step, MLP [16, 16]) a step reads 20 bytes a sample and does
@@ -50,7 +51,11 @@
 //   * eh_ms_update_kernel: a warp per shared parameter (and one for the
 //     loss) sums the blocks' partial rows, its lanes in a fixed stride and
 //     then a fixed shuffle tree, and updates; a thread per (global, site)
-//     updates that site's value. Its sum no longer caps the grid.
+//     updates that site's value. Its sum no longer caps the grid. Under
+//     lamb it runs twice: first each block writes its part of every leaf's
+//     norms (a per-site global's values over all sites are one leaf, as
+//     optax sees the stacked leaf), then every block adds those parts in
+//     block order, a warp a leaf, and updates.
 //
 // Built with -DEHM_STAMPS, thread 0 of block 0 adds the clock64() cycles it
 // spends in each stage of a step to a.stamps when the kernel ends: 0 waiting
@@ -80,10 +85,12 @@ struct EhFusedMultisiteArgs {
   float* params;                         // n_shared shared, then n_globals x n_sites; in place
   float* m;                              // first moments, like params, in place
   float* v;                              // second moments, like params, in place
+  float* u;                              // amsgrad's third slot, like params (else unused)
   const float* bn;                       // static norm mean, var (2 dims[0])
   const float* consts;                   // neural lo, span; global lo, span; fixed
   float* gsite;                          // (n_globals, n_sites) scratch, zero between steps
   float* partials;                       // (n_blocks, n_shared + 1) scratch
+  float* lamb_parts;                     // lamb: (update blocks, 2 n_leaves) scratch, else unused
   float* epoch_loss;                     // (n_epochs) sum of valid batch losses, zero on entry
   long long* stamps;                     // (EHM_N_STAMPS) cycles per stage, or null
   int n_obs;
@@ -120,13 +127,7 @@ struct EhFusedMultisiteArgs {
   int n_targets;
   int target_out[EH_MAX_TARGETS];
   int loss_kind;                         // 0 squared (mse, nseLoss), 1 absolute (mae)
-  int opt;                               // 0 sgd, 1 adam
-  float lr;
-  float b1;
-  float b2;
-  float one_minus_b1;
-  float one_minus_b2;
-  float eps;
+  EhOptimizer optimizer;                 // the rule and its hyperparameters
   int n_forcing;
   int res_floats;                        // floats a row keeps in the tile
   int r_off_xhat;
@@ -161,8 +162,12 @@ enum { LOSS_SQUARED = 0, LOSS_ABSOLUTE };
 #define EHM_STAMP(k)
 #endif
 
+// Two blocks a multiprocessor, what multisite_geometry aims at: the bound
+// gives ptxas a budget of 128 registers a thread, where on its own it chose
+// 80 at width 16 and spilled (4% slower a step on an NVIDIA H100 80GB HBM3
+// at 700 W).
 template <int W>
-__global__ void __launch_bounds__(EHM_MAX_THREADS)
+__global__ void __launch_bounds__(EHM_MAX_THREADS, 2)
 eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
@@ -485,51 +490,88 @@ __host__ __device__ __forceinline__ int ehm_shared_blocks(int n_shared) {
   return (n_shared + 1 + 7) / 8;
 }
 
+// Pass 1 updates; pass 0 (lamb only, before pass 1) writes this block's part
+// of every leaf's squared norms of the parameters and of the update
+// directions into its row of lamb_parts.
 __global__ void __launch_bounds__(256)
-eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
+eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, int pass) {
+  const EhOptimizer& o = a.optimizer;
   const int NP = a.n_shared;
   const int S = a.n_sites;
   const int G = a.n_globals;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const bool valid = a.valid[step] > 0.0f;
-  const float tc = fmaxf(a.tcount[step], 1.0f);
-  const float bc1 = 1.0f - powf(a.b1, tc);
-  const float bc2 = 1.0f - powf(a.b2, tc);
+  if (pass == 0 && !valid) return;  // the whole grid alike
+  const EhOptStep st = ehe_opt_step(o, fmaxf(a.tcount[step], 1.0f));
   const int shared_blocks = ehm_shared_blocks(NP);
+  const int nl = o.n_leaves;
 
+  __shared__ float tr[EH_MAX_LEAVES];
+  if (pass == 1 && valid && o.rule == OPT_LAMB) {
+    // the leaves of this block's elements: its shared parameters or sites' globals
+    int64_t first, last;
+    if ((int)blockIdx.x < shared_blocks) {
+      first = (int64_t)blockIdx.x * 8;
+      last = min(first + 7, (int64_t)NP - 1);
+    } else {
+      first = NP + (int64_t)(blockIdx.x - shared_blocks) * blockDim.x;
+      last = min(first + blockDim.x - 1, (int64_t)NP + (int64_t)G * S - 1);
+    }
+    ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, nl, first <= last ? ehe_leaf_of(o, first) : 0,
+                          first <= last ? ehe_leaf_of(o, last) : -1, tr);
+  }
+
+  // this thread's element (packed index i, gradient g), or none
+  int64_t i = -1;
+  float g = 0.0f;
   if ((int)blockIdx.x < shared_blocks) {
     // a shared parameter's gradient, or (p == NP) the batch loss: the lanes
     // add the blocks' partial rows lane, lane + 32, ..., then a shuffle tree
-    const int lane = threadIdx.x & 31;
-    const int p = blockIdx.x * 8 + (threadIdx.x >> 5);
-    if (p > NP) return;
-    const float* col = a.partials + p;
-    float g = 0.0f;
+    const int p = blockIdx.x * 8 + warp;
+    if (p <= NP) {
+      const float* col = a.partials + p;
 #pragma unroll 8
-    for (int b = lane; b < a.n_blocks; b += 32) g += col[(int64_t)b * (NP + 1)];
-    g = ehe_warp_sum(g);
-    if (lane == 0 && valid) {
-      if (p == NP) {
-        a.epoch_loss[step / a.n_batches] += g;
-      } else {
-        ehe_update(a, &a.params[p], &a.m[p], &a.v[p], g, bc1, bc2);
+      for (int b = lane; b < a.n_blocks; b += 32) g += col[(int64_t)b * (NP + 1)];
+      g = ehe_warp_sum(g);
+      if (lane == 0) {
+        if (p < NP) {
+          i = p;
+        } else if (pass == 1 && valid) {
+          a.epoch_loss[step / a.n_batches] += g;
+        }
       }
     }
-    return;
-  }
-  const int64_t gid = (int64_t)(blockIdx.x - shared_blocks) * blockDim.x + threadIdx.x;
-  if (gid < (int64_t)G * S) {  // global gid / S of site gid % S
-    float g = a.gsite[gid];
-    a.gsite[gid] = 0.0f;
-    if (valid) {
-      const int gi = (int)(gid / S);
-      const int P = a.dims[a.n_layers];
-      const float span = a.consts[2 * P + G + gi];
-      const int64_t i = NP + gid;
-      const float sg = ehe_sigmoid(a.params[i]);
-      g = g * (span * (sg * (1.0f - sg)));
-      ehe_update(a, &a.params[i], &a.m[i], &a.v[i], g, bc1, bc2);
+  } else {
+    const int64_t gid = (int64_t)(blockIdx.x - shared_blocks) * blockDim.x + threadIdx.x;
+    if (gid < (int64_t)G * S) {  // global gid / S of site gid % S
+      g = a.gsite[gid];
+      if (pass == 1) a.gsite[gid] = 0.0f;
+      if (valid) {
+        const int gi = (int)(gid / S);
+        const int P = a.dims[a.n_layers];
+        const float span = a.consts[2 * P + G + gi];
+        i = NP + gid;
+        const float sg = ehe_sigmoid(a.params[i]);
+        g = g * (span * (sg * (1.0f - sg)));
+      }
     }
   }
+
+  if (pass == 0) {
+    float pv = 0.0f, d = 0.0f;
+    if (i >= 0) {
+      pv = a.params[i];
+      float mm = a.m[i], vv = a.v[i];
+      d = ehe_lamb_direction(o, st, pv, g, mm, vv);
+    }
+    ehe_block_leaf_sums(pv * pv, d * d, i >= 0 ? ehe_leaf_of(o, i) : -1, nl,
+                        a.lamb_parts + (int64_t)blockIdx.x * nl * 2);
+    return;
+  }
+  if (i >= 0 && valid)
+    ehe_update(o, st, &a.params[i], &a.m[i], &a.v[i], &a.u[i], g,
+               o.rule == OPT_LAMB ? tr[ehe_leaf_of(o, i)] : 1.0f);
 }
 
 extern "C" int eh_fused_multisite_args_size(void) {
@@ -562,9 +604,11 @@ static int ehm_launch(const EhFusedMultisiteArgs* args, size_t smem, cudaStream_
   const int64_t n_site_values = (int64_t)args->n_globals * args->n_sites;
   const int update_blocks = ehm_shared_blocks(args->n_shared) + (int)((n_site_values + 255) / 256);
   const int steps = args->n_epochs * args->n_batches;
+  const bool lamb = args->optimizer.rule == OPT_LAMB;
   for (int step = 0; step < steps; ++step) {
     eh_ms_grad_kernel<W><<<args->n_blocks, args->threads, smem, s>>>(*args, step);
-    eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step);
+    if (lamb) eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step, 0);
+    eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step, 1);
   }
   return (int)cudaGetLastError();
 }
@@ -585,7 +629,8 @@ extern "C" int eh_fused_multisite(const EhFusedMultisiteArgs* args, int width, v
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
       N < 1 || th < 32 || th > EHM_MAX_THREADS || th % 32 != 0 || !tiles_ok || spb < 1 ||
       args->n_blocks * spb < args->batch || (args->n_blocks - 1) * spb >= args->batch ||
-      args->n_padded % 4 != 0 || args->n_unit_table < 0 || args->p_off_g != args->n_shared) {
+      args->n_padded % 4 != 0 || args->n_unit_table < 0 || args->p_off_g != args->n_shared ||
+      args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

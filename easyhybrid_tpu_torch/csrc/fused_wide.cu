@@ -25,8 +25,11 @@
 //      and the data gradient (dZ_prev = (dZ W) * act'_prev, in place);
 //      eh_wide_norm_grad_kernel for the norm's scale and bias;
 //   5. eh_wide_update_kernel: sums each parameter's partials in split order
-//      and applies the optax adam or sgd update, unless the batch holds no
-//      valid target: then nothing changes.
+//      and applies the update by any of the optax rules of the JAX kernel
+//      (eh_device.cuh, ehe_update), unless the batch holds no valid target:
+//      then nothing changes. Under lamb it runs twice: first each block writes
+//      its part of every leaf's norms, then every block adds those parts in
+//      block order and updates.
 // No atomics anywhere: every sum runs in a fixed order, so the same inputs
 // give the same bits.
 //
@@ -100,12 +103,14 @@ struct EhFusedWideArgs {
   float* params;                         // packed parameters, in place
   float* m;                              // first moments, like params, in place
   float* v;                              // second moments, like params, in place
+  float* u;                              // amsgrad's third slot, like params (else unused)
   const float* bn;                       // static norm mean, var (2 dims[0])
   const float* consts;                   // neural lo, span; global lo, span; fixed
   float* ws;                             // one step's activations (ws_off_*)
   float* partials;                       // weight-gradient partial tiles (part_off*)
   float* head_partials;                  // (head_blocks, 1 + n_globals): loss, globals
   float* epoch_loss;                     // (n_epochs) sum of valid batch losses, zero on entry
+  float* lamb_parts;                     // lamb: (update blocks, 2 n_leaves) scratch, else unused
   int64_t n_rows;
   int64_t ws_off_h0;                     // (batch, dims[0]) the first layer's input
   int64_t ws_off_xhat;                   // (batch, dims[0]) normed input, with a norm
@@ -140,13 +145,7 @@ struct EhFusedWideArgs {
   int n_targets;
   int target_out[EH_MAX_TARGETS];
   int loss_kind;                         // 0 squared (mse), 1 absolute (mae)
-  int opt;                               // 0 sgd, 1 adam
-  float lr;
-  float b1;
-  float b2;
-  float one_minus_b1;
-  float one_minus_b2;
-  float eps;
+  EhOptimizer optimizer;                 // the rule and its hyperparameters
   int splits[EH_MAX_LAYERS];             // batch splits of layer l's weight gradient
   int split_rows[EH_MAX_LAYERS];         // rows of one split, a multiple of its product's depth
   int norm_splits;
@@ -984,19 +983,43 @@ eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a) {
 // (its gradient from the partials in split order, the update, and the new W
 // written transposed as well). The others: one thread per remaining
 // parameter (the norm's, the FMA layers' W, every b, the globals, in packed
-// order), and one more that adds the batch loss to its epoch's sum.
-__global__ void __launch_bounds__(256)
-eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int tiles) {
+// order), and one more that adds the batch loss to its epoch's sum. Pass 1
+// updates; pass 0 (lamb only, before pass 1) writes this block's part of
+// every leaf's squared norms of the parameters and of the update directions
+// into its row of lamb_parts. Six blocks a multiprocessor: the kernel moves
+// the parameters, moments and partials once, and a register budget of 40 a
+// thread keeps enough of their loads in flight (at 48, ptxas's own choice,
+// the adam update took 32 us a step of the tower against 27 on an NVIDIA
+// H100 80GB HBM3 at 700 W).
+__global__ void __launch_bounds__(256, 6)
+eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int tiles, int pass) {
+  const EhOptimizer& o = a.optimizer;
   const int F = a.dims[0];
   const int L = a.n_layers;
   const int G = a.n_globals;
   const bool valid = a.valid[step] > 0.0f;
-  float bc1 = 1.0f, bc2 = 1.0f;
-  if (valid) {
-    const float tc = fmaxf(a.tcount[step], 1.0f);
-    bc1 = 1.0f - powf(a.b1, tc);
-    bc2 = 1.0f - powf(a.b2, tc);
-  }
+  if (pass == 0 && !valid) return;  // the whole grid alike
+  const bool lamb = o.rule == OPT_LAMB;
+  EhOptStep st = {1.0f, 1.0f, 0.0f};
+  if (valid) st = ehe_opt_step(o, fmaxf(a.tcount[step], 1.0f));
+  __shared__ float tr[EH_MAX_LEAVES];
+  float* my_parts = a.lamb_parts + (int64_t)blockIdx.x * o.n_leaves * 2;
+  // the packed index of the update's element e past the tiles, or -1 (the
+  // loss, or none)
+  auto element = [&](int64_t e) -> int64_t {
+    if (a.norm_mode != NORM_NONE) {
+      if (e < 2 * F) return e;
+      e -= 2 * F;
+    }
+    for (int l = 0; l < L; ++l) {
+      const int64_t w = a.tc[l] ? 0 : (int64_t)a.dims[l + 1] * a.dims[l];
+      if (e < w) return a.p_off_w[l] + e;
+      e -= w;
+      if (e < a.dims[l + 1]) return a.p_off_b[l] + e;
+      e -= a.dims[l + 1];
+    }
+    return e < G ? a.p_off_g + e : -1;
+  };
 
   if ((int)blockIdx.x < tiles) {
     __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
@@ -1021,6 +1044,29 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
         if (j < dout && k < din) g[q] += part[s * size + (int64_t)j * din + k];
       }
     }
+    if (pass == 0) {
+      float ps = 0.0f, ds = 0.0f;
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int j = j0 + ty + q * (256 / EHW_UTILE);
+        const int k = k0 + tx;
+        if (j >= dout || k >= din) continue;
+        const int64_t gid = a.p_off_w[l] + (int64_t)j * din + k;
+        const float pv = a.params[gid];
+        float mm = a.m[gid], vv = a.v[gid];
+        const float d = ehe_lamb_direction(o, st, pv, g[q], mm, vv);
+        ps += pv * pv;
+        ds += d * d;
+      }
+      ehe_block_leaf_sums(ps, ds, ehe_leaf_of(o, a.p_off_w[l]), o.n_leaves, my_parts);
+      return;
+    }
+    float trust = 1.0f;
+    if (pass == 1 && valid && lamb) {
+      const int leaf = ehe_leaf_of(o, a.p_off_w[l]);
+      ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, o.n_leaves, leaf, leaf, tr);
+      trust = tr[leaf];
+    }
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int i = ty + q * (256 / EHW_UTILE);
@@ -1028,7 +1074,7 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
       const int k = k0 + tx;
       if (j >= dout || k >= din) continue;
       const int64_t gid = a.p_off_w[l] + (int64_t)j * din + k;
-      if (valid) ehe_update(a, &a.params[gid], &a.m[gid], &a.v[gid], g[q], bc1, bc2);
+      if (valid) ehe_update(o, st, &a.params[gid], &a.m[gid], &a.v[gid], &a.u[gid], g[q], trust);
       tile[i][tx] = a.params[gid];
     }
     __syncthreads();
@@ -1038,36 +1084,26 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
     return;
   }
 
-  int64_t e = (int64_t)(blockIdx.x - tiles) * blockDim.x + threadIdx.x;
-  int64_t gid = -1;
-  if (a.norm_mode != NORM_NONE) {
-    if (e < 2 * F) gid = e;
-    else e -= 2 * F;
+  const int64_t e0 = (int64_t)(blockIdx.x - tiles) * blockDim.x;
+  const int64_t e = e0 + threadIdx.x;
+  const int64_t gid = element(e);
+  int64_t loose = a.n_params;  // the elements past the tiles; the next thread adds the loss
+  for (int l = 0; l < L; ++l)
+    if (a.tc[l]) loose -= (int64_t)a.dims[l] * a.dims[l + 1];
+  if (pass == 1 && valid && lamb) {  // the leaves of this block's elements, in packed order
+    const int64_t last = min(e0 + (int64_t)blockDim.x, loose) - 1;
+    ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, o.n_leaves,
+                          last >= e0 ? ehe_leaf_of(o, element(e0)) : 0,
+                          last >= e0 ? ehe_leaf_of(o, element(last)) : -1, tr);
   }
-  for (int l = 0; l < L && gid < 0; ++l) {
-    const int64_t w = a.tc[l] ? 0 : (int64_t)a.dims[l + 1] * a.dims[l];
-    if (e < w) {
-      gid = a.p_off_w[l] + e;
-    } else {
-      e -= w;
-      if (e < a.dims[l + 1]) gid = a.p_off_b[l] + e;
-      else e -= a.dims[l + 1];
-    }
-  }
-  if (gid < 0) {
-    if (e < G) gid = a.p_off_g + e;
-    else e -= G;
-  }
-  if (gid < 0) {
-    if (e == 0) {
-      float loss = 0.0f;
-      for (int b = 0; b < a.head_blocks; ++b) loss += a.head_partials[(int64_t)b * (1 + G)];
-      if (valid) a.epoch_loss[step / a.n_batches] += loss;
-    }
-    return;
+  if (e == loose && pass == 1 && valid) {
+    float loss = 0.0f;
+    for (int b = 0; b < a.head_blocks; ++b) loss += a.head_partials[(int64_t)b * (1 + G)];
+    a.epoch_loss[step / a.n_batches] += loss;
   }
   float g = 0.0f;
-  if (gid >= a.p_off_g) {
+  if (gid < 0) {
+  } else if (gid >= a.p_off_g) {
     const int gi = (int)(gid - a.p_off_g);
     for (int b = 0; b < a.head_blocks; ++b) g += a.head_partials[(int64_t)b * (1 + G) + 1 + gi];
     const int P = a.dims[L];
@@ -1085,7 +1121,19 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
 #pragma unroll 4
     for (int s = 0; s < a.splits[l]; ++s) g += part[s * size];
   }
-  if (valid) ehe_update(a, &a.params[gid], &a.m[gid], &a.v[gid], g, bc1, bc2);
+  if (pass == 0) {
+    float pv = 0.0f, d = 0.0f;
+    if (gid >= 0) {
+      pv = a.params[gid];
+      float mm = a.m[gid], vv = a.v[gid];
+      d = ehe_lamb_direction(o, st, pv, g, mm, vv);
+    }
+    ehe_block_leaf_sums(pv * pv, d * d, gid >= 0 ? ehe_leaf_of(o, gid) : -1, o.n_leaves, my_parts);
+    return;
+  }
+  if (gid >= 0 && valid)
+    ehe_update(o, st, &a.params[gid], &a.m[gid], &a.v[gid], &a.u[gid], g,
+               lamb ? tr[ehe_leaf_of(o, gid)] : 1.0f);
 }
 
 extern "C" int eh_fused_wide_args_size(void) { return (int)sizeof(EhFusedWideArgs); }
@@ -1140,6 +1188,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   const int L = a.n_layers;
   if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS || a.n_targets < 1 ||
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
+      a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
       a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l <= L; ++l)
@@ -1239,7 +1288,9 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       }
     }
     if (norm) eh_wide_norm_grad_kernel<<<a.norm_splits, 128, 0, s>>>(a);
-    eh_wide_update_kernel<<<update_blocks, 256, 0, s>>>(a, step, tiles);
+    if (a.optimizer.rule == OPT_LAMB)  // its leaves' norms first
+      eh_wide_update_kernel<<<update_blocks, 256, 0, s>>>(a, step, tiles, 0);
+    eh_wide_update_kernel<<<update_blocks, 256, 0, s>>>(a, step, tiles, 1);
     EHW_TRY(cudaGetLastError());
   }
   return (int)cudaGetLastError();

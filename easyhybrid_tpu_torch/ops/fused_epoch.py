@@ -8,9 +8,11 @@ its running-statistics EMA, static, or none), the MLP forward with the
 activation derivatives saved, sigmoid bound scaling, the mechanistic model
 in a kernel form with its hand-written partials, the masked mse and its
 cotangent, the hand-written backward, the batch-validity gate and the
-optax ``adam`` / ``sgd`` update. Parameters, moments, the step counter and
-the BatchNorm statistics are read once, kept in shared memory, and written
-back once.
+update by any optax rule the JAX kernel runs (adam, adamw, sgd with or
+without momentum, rmsprop, adagrad, lion, adamax, nadam, adadelta, radam,
+amsgrad, lamb; :data:`_OPTS`). Parameters, the optimizer's slots, the step
+counter and the BatchNorm statistics are read once, kept in shared memory,
+and written back once.
 
 A launch is a chain of dependent steps, so the kernel is laid out for
 latency, and the plan chooses how per batch size
@@ -28,8 +30,9 @@ Everything works on one packed layout (:class:`FusedEpochPlan`):
   input norm, then per layer ``W`` (``(out, in)`` row-major) and ``b``,
   then the raw globals (G);
 * ``bn``: the norm's running ``[mean (F), var (F)]`` (empty without norm);
-* ``opt_state``: ``{"m", "v"}`` shaped like ``params`` and the step
-  counter ``"t"`` (int32, ``(1,)``);
+* ``opt_state``: ``{"m", "v"}`` shaped like ``params`` (and ``"u"`` for
+  amsgrad) and the step counter ``"t"`` (int32, ``(1,)``), in the JAX
+  kernel's slot conventions (:func:`init_fused_opt_state`);
 * ``consts``: neural lower bounds and spans, global lower bounds and
   spans, fixed values.
 
@@ -100,7 +103,10 @@ MAX_CLUSTER = 8
 # four on one
 _BLOCK_ROWS = 256
 _NORM_NONE, _NORM_STATIC, _NORM_TRAIN = 0, 1, 2
-_OPTS = {"sgd": 0, "adam": 1}
+# the rules of the training kernels, by their id in csrc/eh_device.cuh (OPT_*)
+_OPTS = {"sgd": 0, "adam": 1, "adamw": 2, "rmsprop": 3, "adagrad": 4, "lion": 5, "adamax": 6,
+         "nadam": 7, "adadelta": 8, "radam": 9, "amsgrad": 10, "lamb": 11}
+MAX_LEAVES = 40  # EH_MAX_LEAVES: leaves of a packed vector lamb takes its norms over
 SHUFFLES = (True, False, "batches")
 
 
@@ -184,8 +190,9 @@ class Geometry(NamedTuple):
     threads share a batch's rows, ``block_rows`` each; a block takes ``tile``
     rows at once (one a thread) and walks ``tiles`` of them a step; with
     ``stages`` 2 a step's rows are staged in shared memory and the next
-    step's prefetched, with 0 they are read in place. The moments live in
-    shared memory beside the parameters unless ``moments_shared`` is 0: then
+    step's prefetched, with 0 they are read in place. The optimizer's slots
+    live in shared memory beside the parameters, in pairs: ``moments_shared``
+    1 holds m and v, 2 also amsgrad's u (and a pad of the same size); with 0
     the state leaves no room for 32 rows and one block updates them in
     device memory."""
 
@@ -209,13 +216,13 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     The envelope: a SingleNN MLP hybrid in float32 inside the fused
     forward's model envelope, with any of the three input-norm forms;
     ``training_loss="mse"`` with ``agg`` sum or mean and no ``extra_loss``;
-    a single ``adam`` spec or an ``sgd`` spec without momentum; parameters,
-    moments and a 32-row tile of residuals within the 227 KB of shared
-    memory (:func:`_tile_rows`). Any batch size and any number of epochs
-    per call: the plan picks threads, tile, stages and cluster for the batch
-    (:meth:`FusedEpochPlan.geometry`), and where the padded parameter rows
-    would push a model near the limit out, its moments stay in device
-    memory instead."""
+    a single-rule optimizer spec the kernels run (:func:`optimizer_reason`);
+    parameters, moments and a 32-row tile of residuals within the 227 KB of
+    shared memory (:func:`_tile_rows`, the same for every rule). Any batch
+    size and any number of epochs per call: the plan picks threads, tile,
+    stages and cluster for the batch (:meth:`FusedEpochPlan.geometry`), and
+    where the padded parameter rows would push a model near the limit out,
+    its optimizer slots stay in device memory instead."""
     del tensors  # every batch size fits: the plan's geometry follows the batch
     reason = fused_forward_unsupported_reason(model, training=True)
     if reason is not None:
@@ -231,25 +238,35 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     return None
 
 
+def optimizer_reason(optimizer) -> Optional[str]:
+    """Why the training kernels cannot run this optimizer spec, or None: they
+    run a single rule of :data:`_OPTS` with optax's hyperparameters, as the
+    JAX kernel does. ``noisy_sgd``, per-branch dicts and options outside the
+    defaults are not ported (ROADMAP queue A, item 6); radam with a
+    threshold below 4 stays off the kernel, as the JAX kernel leaves it."""
+    try:
+        name, hyper = parse_opt_spec(optimizer)
+    except (NotImplementedError, ValueError, TypeError) as e:
+        return f"optimizer {optimizer!r}: {e}"
+    if name not in _OPTS:
+        return f"optimizer {name!r} (the kernels run {', '.join(_OPTS)})"
+    if name == "radam" and hyper["threshold"] < 4.0:
+        return (f"radam with threshold {hyper['threshold']} < 4 (optax's rectified branch takes "
+                "the square root of a negative number there; the JAX kernel refuses it too)")
+    return None
+
+
 def training_spec_reason(optimizer, logging: LoggingLoss, losses) -> Optional[str]:
     """Why a training kernel that trains ``losses`` cannot run this loss and
-    optimizer, or None: ``agg`` sum or mean, no ``extra_loss``, a single
-    ``adam`` spec or an ``sgd`` spec without momentum."""
+    optimizer, or None: ``agg`` sum or mean, no ``extra_loss``, an optimizer
+    the kernels run (:func:`optimizer_reason`)."""
     if _loss_name(logging.training_loss) not in losses:
         return f"training_loss={logging.training_loss!r} (the kernel trains {', '.join(losses)})"
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
         return "an extra_loss (the kernel adds none)"
-    try:
-        name, hyper = parse_opt_spec(optimizer)
-    except (NotImplementedError, ValueError, TypeError) as e:
-        return f"optimizer {optimizer!r}: {e}"
-    if name not in _OPTS:
-        return f"optimizer {name!r} (the kernel runs adam or sgd)"
-    if name == "sgd" and (hyper["momentum"] != 0.0 or hyper["nesterov"] != 0.0):
-        return "sgd with momentum (the kernel runs plain sgd)"
-    return None
+    return optimizer_reason(optimizer)
 
 
 def supports_fused_epoch(model, optimizer, logging: LoggingLoss, tensors=None) -> bool:
@@ -268,6 +285,57 @@ class FusedParams(NamedTuple):
     bn: torch.Tensor
 
 
+class _Optimizer(ctypes.Structure):
+    """Mirror of ``struct EhOptimizer`` in csrc/eh_device.cuh, which every
+    training kernel's argument struct embeds as ``optimizer``."""
+
+    _fields_ = [
+        ("rule", ctypes.c_int),
+        ("nesterov", ctypes.c_int),
+        ("lr", ctypes.c_float),
+        ("b1", ctypes.c_float),
+        ("b2", ctypes.c_float),
+        ("one_minus_b1", ctypes.c_float),
+        ("one_minus_b2", ctypes.c_float),
+        ("eps", ctypes.c_float),
+        ("eps_root", ctypes.c_float),
+        ("weight_decay", ctypes.c_float),
+        ("trace_decay", ctypes.c_float),
+        ("accumulator0", ctypes.c_float),
+        ("threshold", ctypes.c_float),
+        ("ro_inf", ctypes.c_float),
+        ("rect_den", ctypes.c_float),
+        ("n_leaves", ctypes.c_int),
+        ("leaf_end", ctypes.c_int * MAX_LEAVES),
+    ]
+
+
+def optimizer_struct(plan) -> _Optimizer:
+    """The plan's rule and hyperparameters as the kernels read them, with
+    the packed vector's leaves (``plan.segments``) for lamb's norms."""
+    h = dict(plan.hyper)
+    o = _Optimizer()
+    o.rule = _OPTS[plan.opt_name]
+    o.lr = h["learning_rate"]
+    b1 = h.get("b1", 0.0)
+    b2 = h.get("b2", h.get("decay", h.get("rho", 0.0)))  # the second slot's decay
+    o.b1, o.b2 = b1, b2
+    o.one_minus_b1, o.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
+    o.eps, o.eps_root = h.get("eps", 0.0), h.get("eps_root", 0.0)
+    o.weight_decay = h.get("weight_decay", 0.0)
+    o.trace_decay, o.nesterov = h.get("momentum", 0.0), int(h.get("nesterov", 0.0) != 0.0)
+    o.accumulator0 = h.get("initial_accumulator_value", 0.0)
+    if plan.opt_name == "radam":
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        o.threshold, o.ro_inf, o.rect_den = h["threshold"], ro_inf, (ro_inf - 4.0) * (ro_inf - 2.0)
+    ends = [off + math.prod(shape) for _, off, shape in plan.segments]
+    if len(ends) > MAX_LEAVES:
+        raise ValueError(f"{len(ends)} parameter leaves exceed the kernels' {MAX_LEAVES}")
+    o.n_leaves = len(ends)
+    o.leaf_end[: len(ends)] = ends
+    return o
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct EhFusedEpochArgs`` in csrc/fused_epoch.cu."""
 
@@ -280,6 +348,7 @@ class _Args(ctypes.Structure):
         ("params", ctypes.c_void_p),
         ("m", ctypes.c_void_p),
         ("v", ctypes.c_void_p),
+        ("u", ctypes.c_void_p),
         ("bn", ctypes.c_void_p),
         ("t", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
@@ -310,13 +379,7 @@ class _Args(ctypes.Structure):
         ("n_targets", ctypes.c_int),
         ("target_out", ctypes.c_int * MAX_TARGETS),
         ("agg_scale", ctypes.c_float),
-        ("opt", ctypes.c_int),
-        ("lr", ctypes.c_float),
-        ("b1", ctypes.c_float),
-        ("b2", ctypes.c_float),
-        ("one_minus_b1", ctypes.c_float),
-        ("one_minus_b2", ctypes.c_float),
-        ("eps", ctypes.c_float),
+        ("optimizer", _Optimizer),
         ("tile_rows", ctypes.c_int),
         ("res_floats", ctypes.c_int),
         ("r_off_xhat", ctypes.c_int),
@@ -425,13 +488,7 @@ def fill_common_args(a, plan) -> None:
         a.arg_src[i], a.arg_idx[i], a.arg_const[i] = src, idx, const
     a.n_targets = len(plan.target_names)
     a.target_out[: len(plan.target_out)] = plan.target_out
-    h = dict(plan.hyper)
-    a.opt = _OPTS[plan.opt_name]
-    a.lr = h["learning_rate"]
-    b1, b2 = h.get("b1", 0.0), h.get("b2", 0.0)
-    a.b1, a.b2 = b1, b2
-    a.one_minus_b1, a.one_minus_b2 = 1.0 - b1, 1.0 - b2  # rounded once, as optax's
-    a.eps = h.get("eps", 0.0)
+    a.optimizer = optimizer_struct(plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,7 +554,8 @@ class FusedEpochPlan(PackedLayout):
         def fits(threads, stages, shared):
             return self.smem_bytes(threads, stages, shared) <= MAX_SMEM_BYTES
 
-        shared = int(fits(32, 0, 1))
+        pairs = 2 if self.opt_name == "amsgrad" else 1  # u needs a second pair
+        shared = pairs if fits(32, 0, pairs) else 0
         most = _MAX_THREADS[self.width]
         while most > 32 and not fits(most, 0, shared):
             most -= 32
@@ -657,12 +715,24 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
     )
 
 
-def init_fused_opt_state(packed: FusedParams) -> Dict[str, torch.Tensor]:
-    """Zero moments and step counter for the packed parameters (adam and
-    sgd share the layout; sgd leaves the moments at zero)."""
+def init_fused_opt_state(packed: FusedParams, optimizer=None) -> Dict[str, torch.Tensor]:
+    """Zero slots and step counter for the packed parameters, as the JAX
+    kernel's ``init_fused_opt_state``: ``m`` and ``v`` for every rule (a rule
+    leaves the slots it does not keep at zero; adagrad's ``v`` sums the
+    squares from zero, its initial accumulator added where it is read), and
+    ``u`` when ``optimizer`` names amsgrad."""
     p = packed.params
-    return {"m": torch.zeros_like(p), "v": torch.zeros_like(p),
-            "t": torch.zeros((1,), dtype=torch.int32, device=p.device)}
+    state = {"m": torch.zeros_like(p), "v": torch.zeros_like(p),
+             "t": torch.zeros((1,), dtype=torch.int32, device=p.device)}
+    if optimizer is not None and parse_opt_spec(optimizer)[0] == "amsgrad":
+        state["u"] = torch.zeros_like(p)
+    return state
+
+
+def opt_slots(opt_state) -> Dict[str, torch.Tensor]:
+    """The slot tensors of a fused opt state (``m``, ``v`` and ``u`` when
+    present), without the step counter."""
+    return {k: opt_state[k] for k in ("m", "v", "u") if k in opt_state}
 
 
 # --------------------------------------------------------------------------
@@ -902,24 +972,92 @@ def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
     return torch.cat(grads), batch_loss, valid, fwd.new_bn
 
 
-def _reference_update(plan, p, m, v, t, g, valid):
-    """The optax formula of the plan's rule on packed vectors, gated by the
-    batch validity; ``t`` is the float step count before this step."""
+def _reference_direction(plan, h, p, g, slots, tc):
+    """The rule's direction (the update is ``-lr`` times it, times lamb's
+    trust ratio) and its new slots, as the JAX kernel's ``make_update_leaf``
+    writes them; ``tc`` is the step count after the step, clamped at 1."""
+    name = plan.opt_name
+    m, v = slots["m"], slots["v"]
+    new = dict(slots)
+    if name == "sgd":
+        mom = h["momentum"]
+        if mom == 0.0:
+            return g, new
+        new["m"] = g + mom * m  # optax.trace
+        return (g + mom * new["m"] if h["nesterov"] else new["m"]), new
+    if name == "rmsprop":
+        new["v"] = h["decay"] * v + (1.0 - h["decay"]) * g * g
+        return g / torch.sqrt(new["v"] + h["eps"]), new  # eps inside the root
+    if name == "adagrad":  # v sums the squares from zero; the accumulator's start added here
+        new["v"] = v + g * g
+        acc = new["v"] + h["initial_accumulator_value"]
+        inv = torch.where(acc > 0.0, torch.rsqrt(acc + h["eps"]), torch.zeros_like(acc))
+        return inv * g, new
+    b1 = h.get("b1", 0.0)
+    if name == "lion":  # the sign of the mix before the momentum's update
+        d = torch.sign((1.0 - b1) * g + b1 * m) + h["weight_decay"] * p
+        new["m"] = h["b2"] * m + (1.0 - h["b2"]) * g
+        return d, new
+    if name == "adadelta":  # v is E[g^2], m is E[dx^2]; weight decay first
+        rho, eps = h["rho"], h["eps"]
+        ge = g + h["weight_decay"] * p
+        new["v"] = rho * v + (1.0 - rho) * ge * ge
+        d = (torch.sqrt(m + eps) / torch.sqrt(new["v"] + eps)) * ge
+        new["m"] = rho * m + (1.0 - rho) * d * d
+        return d, new
+    b2, eps = h["b2"], h["eps"]
+    c1 = 1.0 - torch.pow(b1, tc)
+    if name == "adamax":  # the infinity moment in v
+        new["m"] = b1 * m + (1.0 - b1) * g
+        new["v"] = torch.maximum(torch.abs(g) + eps, b2 * v)
+        return (new["m"] / c1) / torch.where(new["v"] > 0.0, new["v"], torch.ones_like(v)), new
+    m_new = (1.0 - b1) * g + b1 * m
+    v_new = (1.0 - b2) * (g * g) + b2 * v
+    new["m"], new["v"] = m_new, v_new
+    c2 = 1.0 - torch.pow(b2, tc)
+    eps_root = h.get("eps_root", 0.0)
+    if name in ("adam", "adamw"):
+        d = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+        return (d + h["weight_decay"] * p if name == "adamw" else d), new
+    if name == "nadam":  # the momentum corrected at t + 1, the gradient at t
+        m_hat = b1 * (m_new / (1.0 - torch.pow(b1, tc + 1.0))) + (1.0 - b1) * (g / c1)
+        return m_hat / (torch.sqrt(v_new / c2 + eps_root) + eps), new
+    m_hat = m_new / c1
+    if name == "radam":
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = torch.pow(b2, tc)
+        ro = ro_inf - 2.0 * tc * b2t / (1.0 - b2t)
+        rad = (ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)
+        rect = torch.sqrt(torch.clamp_min(rad, 0.0)) * m_hat / (
+            torch.sqrt(v_new / c2 + eps_root) + eps)
+        return torch.where(ro >= h["threshold"], rect, m_hat), new
+    if name == "amsgrad":
+        new["u"] = torch.maximum(slots["u"], v_new / c2)
+        return m_hat / (torch.sqrt(new["u"] + eps_root) + eps), new
+    # lamb, before its trust ratio
+    return m_hat / (torch.sqrt(v_new / c2 + eps_root) + eps) + h["weight_decay"] * p, new
+
+
+def _reference_update(plan, p, slots, t, g, valid):
+    """The optax formula of the plan's rule on packed vectors in the JAX
+    kernel's slot conventions (``slots``: ``m``, ``v`` and amsgrad's ``u``;
+    :func:`init_fused_opt_state`), gated by the batch validity; ``t`` is the
+    float step count before this step. Lamb's trust ratio is taken per leaf
+    (``plan.leaves``), as optax's. Returns ``(p, slots, t)``."""
     h = dict(plan.hyper)
-    lr = h["learning_rate"]
     t_new = t + valid.to(torch.float32)
-    if plan.opt_name == "sgd":
-        p_new, m_new, v_new = p + (-lr * g), m, v
-    else:
-        b1, b2, eps = h["b1"], h["b2"], h["eps"]
-        tc = torch.clamp_min(t_new, 1.0)
-        m_new = (1.0 - b1) * g + b1 * m
-        v_new = (1.0 - b2) * (g * g) + b2 * v
-        m_hat = m_new / (1.0 - torch.pow(b1, tc))
-        v_hat = v_new / (1.0 - torch.pow(b2, tc))
-        p_new = p + (-lr * (m_hat / (torch.sqrt(v_hat) + eps)))
-    return (torch.where(valid, p_new, p), torch.where(valid, m_new, m),
-            torch.where(valid, v_new, v), t_new)
+    d, new = _reference_direction(plan, h, p, g, slots, torch.clamp_min(t_new, 1.0))
+    if plan.opt_name == "lamb":
+        ratios = []
+        for pl, dl in zip(plan.leaves(p).values(), plan.leaves(d).values()):
+            pn, dn = torch.linalg.vector_norm(pl), torch.linalg.vector_norm(dl)
+            r = torch.where((pn > 0.0) & (dn > 0.0), pn / torch.where(dn > 0.0, dn, 1.0),
+                            torch.ones_like(pn))
+            ratios.append(r.expand(pl.shape[0]))
+        d = torch.cat(ratios) * d
+    p_new = p + (-h["learning_rate"] * d)
+    return (torch.where(valid, p_new, p),
+            {k: torch.where(valid, new[k], slots[k]) for k in slots}, t_new)
 
 
 def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
@@ -929,7 +1067,7 @@ def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, 
     Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
     mean batch loss (empty batches count 0)."""
     p, bn = packed.params, packed.bn
-    m, v = opt_state["m"], opt_state["v"]
+    slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
     consts = plan.consts.to(p.device)
     nb, batch = data.n_batches, data.batch
@@ -943,16 +1081,27 @@ def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, 
                 [c[idx] for c in data.forcing], [c[idx] for c in data.y],
                 [c[idx] for c in data.mask],
             )
-            p, m, v, t = _reference_update(plan, p, m, v, t, g, valid)
+            p, slots, t = _reference_update(plan, p, slots, t, g, valid)
             bn = torch.where(valid, new_bn, bn)
             epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
-    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    new_state = {**slots, "t": t.round().to(torch.int32)}
     return FusedParams(p, bn), new_state, epoch_loss / nb
 
 
 # --------------------------------------------------------------------------
 # kernel launch and the epoch function
 # --------------------------------------------------------------------------
+
+def slot_u(plan, opt_state) -> Optional[int]:
+    """The address of amsgrad's ``u`` slot for a launch (None for the other
+    rules); raises when an amsgrad state lacks it."""
+    if plan.opt_name != "amsgrad":
+        return None
+    if "u" not in opt_state:
+        raise ValueError("amsgrad needs the opt state's u slot: "
+                         "init_fused_opt_state(packed, optimizer)")
+    return opt_state["u"].data_ptr()
+
 
 def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
                        rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None) -> None:
@@ -979,6 +1128,7 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a.perm = rows.data_ptr()
     a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
     a.m, a.v, a.t = opt_state["m"].data_ptr(), opt_state["v"].data_ptr(), opt_state["t"].data_ptr()
+    a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.loss = loss.data_ptr()
     a.n_rows = data.x.shape[0]
@@ -1208,9 +1358,10 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
 
     **Phase B (the production variant):** the real optimizer, shuffle mode
     and up to 4 epochs per call on the same batches, with the same injected
-    permutations; the loss trajectories must agree within 20% and no leaf
-    of more than 4 elements may have more than half its elements apart by
-    more than half a learning rate.
+    permutations (skipped only where that is phase A's run again: plain sgd,
+    one epoch, unshuffled); the loss trajectories must agree within 20% and
+    no leaf of more than 4 elements may have more than half its elements
+    apart by more than half a learning rate.
 
     Returns ``(ok, worst relative difference)``. Unlike the JAX gate this
     one does not catch a build or launch error: those raise."""
@@ -1229,7 +1380,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
 
     def fused_run(spec, sh, epochs, perms):
         fn = make_epoch(model, spec, logging, shuffle=sh, epochs_per_call=epochs)
-        packed, _, loss = fn(p0, init_fused_opt_state(p0), sub, perms=perms)
+        packed, _, loss = fn(p0, init_fused_opt_state(p0, spec), sub, perms=perms)
         return packed.params, loss
 
     with _full_precision():
@@ -1247,7 +1398,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     name, hyper = parse_opt_spec(optimizer)
     e_gate = max(1, min(int(epochs_per_call), 4))
     frac_bad = ploss_rel = 0.0
-    if name != "sgd" or e_gate > 1 or shuffle is not False:
+    if name != "sgd" or hyper["momentum"] != 0.0 or e_gate > 1 or shuffle is not False:
         gen = torch.Generator(device=sub.weight.device).manual_seed(0)
         perms = perms_for_epochs(shuffle, sub, e_gate, generator=gen)
         pp_f, pl_f = fused_run(optimizer, shuffle, e_gate, perms)

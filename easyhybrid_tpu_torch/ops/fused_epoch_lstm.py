@@ -13,8 +13,9 @@ kernel form at the trailing ``T_out`` steps, the masked loss over the whole
 ``(T_out x batch)`` window (``mse``, ``mae`` or ``nseLoss``) and its
 cotangent, the hand-written backward through time from per-step ``(x, h,
 c)`` checkpoints (the kernel keeps the gates as well, the plain version
-recomputes them), the batch-validity gate and the optax ``adam`` / ``sgd``
-update.
+recomputes them), the batch-validity gate and the update by any optax rule
+of the JAX kernel (``ops/fused_epoch.py``'s ``_OPTS``; lamb's per-leaf norms
+are summed across the cluster's blocks in rank order).
 
 The packed layout (:class:`FusedLSTMPlan`, same scheme as kernel 2's):
 
@@ -60,11 +61,14 @@ from .fused_epoch import (
     FusedParams,
     PackedLayout,
     _act_and_grad,
+    _Optimizer,
     _reference_update,
     fill_common_args,
     form_args,
+    opt_slots,
     reference_cotangents,
     shared_plan_fields,
+    slot_u,
     split_consts,
     training_spec_reason,
 )
@@ -199,8 +203,8 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
     The envelope: a :class:`SingleNNHybridModel` whose network is an
     :class:`LSTMNet` in float32 with ``input_batchnorm`` ``"static"`` or
     False; a mechanistic function with a kernel form; ``training_loss``
-    mse, mae or nseLoss with ``agg`` sum or mean and no ``extra_loss``; a
-    single ``adam`` spec or an ``sgd`` spec without momentum; hidden size
+    mse, mae or nseLoss with ``agg`` sum or mean and no ``extra_loss``; an
+    optimizer the kernels run (``fused_epoch.optimizer_reason``); hidden size
     and features up to 64, up to 8 network outputs. With ``tensors``: ``x``
     of shape ``(num_batches, batch, T, F)`` and windowed targets, with a
     window whose checkpoints fit in shared memory (:func:`lstm_tile_rows`).
@@ -265,6 +269,7 @@ class _Args(ctypes.Structure):
         ("params", ctypes.c_void_p),
         ("m", ctypes.c_void_p),
         ("v", ctypes.c_void_p),
+        ("u", ctypes.c_void_p),
         ("bn", ctypes.c_void_p),
         ("t", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
@@ -301,13 +306,7 @@ class _Args(ctypes.Structure):
         ("agg_scale", ctypes.c_float),
         ("loss_kind", ctypes.c_int),
         ("loss_nse", ctypes.c_int),
-        ("opt", ctypes.c_int),
-        ("lr", ctypes.c_float),
-        ("b1", ctypes.c_float),
-        ("b2", ctypes.c_float),
-        ("one_minus_b1", ctypes.c_float),
-        ("one_minus_b2", ctypes.c_float),
-        ("eps", ctypes.c_float),
+        ("optimizer", _Optimizer),
         ("threads", ctypes.c_int),
         ("lanes", ctypes.c_int),
         ("windows", ctypes.c_int),
@@ -630,7 +629,7 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
     Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
     mean batch loss (empty batches count 0)."""
     p, bn = packed.params, packed.bn
-    m, v = opt_state["m"], opt_state["v"]
+    slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
     consts = plan.consts.to(p.device)
     nb, batch = data.n_batches, data.batch
@@ -643,9 +642,9 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
                 plan, p, bn, consts, data.x[idx], [c[idx] for c in data.forcing],
                 [c[idx] for c in data.y], [c[idx] for c in data.mask],
             )
-            p, m, v, t = _reference_update(plan, p, m, v, t, g, valid)
+            p, slots, t = _reference_update(plan, p, slots, t, g, valid)
             epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
-    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    new_state = {**slots, "t": t.round().to(torch.int32)}
     return FusedParams(p, bn), new_state, epoch_loss / nb
 
 
@@ -683,6 +682,7 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
     a.perm = rows.data_ptr()
     a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
     a.m, a.v, a.t = opt_state["m"].data_ptr(), opt_state["v"].data_ptr(), opt_state["t"].data_ptr()
+    a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.loss = loss.data_ptr()
     a.n_rows = data.x.shape[0]

@@ -44,28 +44,30 @@ from ..losses.specs import LoggingLoss
 from ..models.nn import MLP
 from ..parallel.multisite import MultiSiteHybridModel
 from ..training.epoch import perms_for_epochs
-from ..training.optimizers import parse_opt_spec
 from . import _build
 from .fused_epoch import (
     _UNIT_TABLE,
     MAX_SMEM_BYTES,
     MAX_TARGETS,
     SHUFFLES,
-    _OPTS,
     _TILE_ROWS,
     FusedEpochPlan,
     FusedParams,
     _layout_sizes,
     _loss_name,
+    _Optimizer,
     _reference_update,
     build_plan,
     fill_common_args,
     form_args,
     gradient_units,
+    opt_slots,
+    optimizer_reason,
     padded_offsets,
     reference_backward,
     reference_cotangents,
     reference_forward,
+    slot_u,
     split_consts,
 )
 from .fused_forward import (
@@ -153,14 +155,9 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
         return "an extra_loss (the kernel adds none)"
-    try:
-        name, hyper = parse_opt_spec(optimizer)
-    except (NotImplementedError, ValueError, TypeError) as e:
-        return f"optimizer {optimizer!r}: {e}"
-    if name not in _OPTS:
-        return f"optimizer {name!r} (the kernel runs adam or sgd)"
-    if name == "sgd" and (hyper["momentum"] != 0.0 or hyper["nesterov"] != 0.0):
-        return "sgd with momentum (the kernel runs plain sgd)"
+    reason = optimizer_reason(optimizer)
+    if reason is not None:
+        return reason
     if _tile_rows(model) is None:
         return ("the shared parameters and a 32-row residual tile exceed the kernel's "
                 f"{MAX_SMEM_BYTES // 1024} KB of shared memory")
@@ -207,10 +204,12 @@ class _Args(ctypes.Structure):
         ("params", ctypes.c_void_p),
         ("m", ctypes.c_void_p),
         ("v", ctypes.c_void_p),
+        ("u", ctypes.c_void_p),
         ("bn", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
         ("gsite", ctypes.c_void_p),
         ("partials", ctypes.c_void_p),
+        ("lamb_parts", ctypes.c_void_p),
         ("epoch_loss", ctypes.c_void_p),
         ("stamps", ctypes.c_void_p),
         ("n_obs", ctypes.c_int),
@@ -247,13 +246,7 @@ class _Args(ctypes.Structure):
         ("n_targets", ctypes.c_int),
         ("target_out", ctypes.c_int * MAX_TARGETS),
         ("loss_kind", ctypes.c_int),
-        ("opt", ctypes.c_int),
-        ("lr", ctypes.c_float),
-        ("b1", ctypes.c_float),
-        ("b2", ctypes.c_float),
-        ("one_minus_b1", ctypes.c_float),
-        ("one_minus_b2", ctypes.c_float),
-        ("eps", ctypes.c_float),
+        ("optimizer", _Optimizer),
         ("n_forcing", ctypes.c_int),
         ("res_floats", ctypes.c_int),
         ("r_off_xhat", ctypes.c_int),
@@ -525,7 +518,7 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
     opt_state, mean_loss)``; the loss is the last epoch's mean batch loss
     (a batch without valid targets counts 0)."""
     p, bn = packed.params, packed.bn
-    m, v = opt_state["m"], opt_state["v"]
+    slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
     consts = plan.consts.to(p.device)
     epoch_loss = None
@@ -535,9 +528,9 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
             g, loss = multisite_reference_grads(plan, p, bn, consts, data, index[e, b],
                                                 scale[e, b])
             ok = valid[e, b] > 0
-            p, m, v, t = _reference_update(plan, p, m, v, t, g, ok)
+            p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
-    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    new_state = {**slots, "t": t.round().to(torch.int32)}
     return FusedParams(p, bn), new_state, epoch_loss / data.n_batches
 
 
@@ -588,8 +581,14 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     a.tcount = tcount.data_ptr()
     a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
     a.m, a.v = opt_state["m"].data_ptr(), opt_state["v"].data_ptr()
+    a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.gsite, a.partials, a.epoch_loss = gsite.data_ptr(), partials.data_ptr(), epoch_loss.data_ptr()
+    if plan.opt_name == "lamb":  # a row of leaf norms per update block (eh_ms_update_kernel)
+        update_blocks = -(-(n_shared + 1) // 8) + -(-(n_glob * plan.n_sites) // 256)
+        lamb_parts = torch.empty((update_blocks, 2 * a.optimizer.n_leaves), dtype=torch.float32,
+                                 device=dev)
+        a.lamb_parts = lamb_parts.data_ptr()
     a.stamps = stamps.data_ptr() if stamps is not None else None
     a.n_obs, a.n_epochs, a.n_batches, a.batch = n_obs, epochs, nb, batch
     a.threads, a.tile_sites, a.site_tiles = geo.threads, geo.tile_sites, geo.site_tiles

@@ -53,12 +53,15 @@ from .fused_epoch import (
     FusedEpoch,
     FusedParams,
     PackedLayout,
+    _Optimizer,
     _reference_update,
     fill_common_args,
     fused_data,
+    opt_slots,
     param_offsets,
     reference_grads,
     shared_plan_fields,
+    slot_u,
     training_spec_reason,
 )
 from .fused_forward import (
@@ -376,12 +379,14 @@ class _Args(ctypes.Structure):
         ("params", ctypes.c_void_p),
         ("m", ctypes.c_void_p),
         ("v", ctypes.c_void_p),
+        ("u", ctypes.c_void_p),
         ("bn", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
         ("ws", ctypes.c_void_p),
         ("partials", ctypes.c_void_p),
         ("head_partials", ctypes.c_void_p),
         ("epoch_loss", ctypes.c_void_p),
+        ("lamb_parts", ctypes.c_void_p),
         ("n_rows", ctypes.c_int64),
         ("ws_off_h0", ctypes.c_int64),
         ("ws_off_xhat", ctypes.c_int64),
@@ -416,13 +421,7 @@ class _Args(ctypes.Structure):
         ("n_targets", ctypes.c_int),
         ("target_out", ctypes.c_int * MAX_TARGETS),
         ("loss_kind", ctypes.c_int),
-        ("opt", ctypes.c_int),
-        ("lr", ctypes.c_float),
-        ("b1", ctypes.c_float),
-        ("b2", ctypes.c_float),
-        ("one_minus_b1", ctypes.c_float),
-        ("one_minus_b2", ctypes.c_float),
-        ("eps", ctypes.c_float),
+        ("optimizer", _Optimizer),
         ("splits", ctypes.c_int * MAX_LAYERS),
         ("split_rows", ctypes.c_int * MAX_LAYERS),
         ("norm_splits", ctypes.c_int),
@@ -541,7 +540,7 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
     mean batch loss (a batch without valid targets counts 0)."""
     scale, valid = batch_scales(plan, data, rows)
     p, bn = packed.params, packed.bn
-    m, v = opt_state["m"], opt_state["v"]
+    slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
     consts = plan.consts.to(p.device)
     nb, batch = data.n_batches, data.batch
@@ -556,9 +555,9 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
                 [c[idx] for c in data.mask], scale=list(scale[e, i]),
             )
             ok = valid[e, i] > 0
-            p, m, v, t = _reference_update(plan, p, m, v, t, g, ok)
+            p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
-    new_state = {"m": m, "v": v, "t": t.round().to(torch.int32)}
+    new_state = {**slots, "t": t.round().to(torch.int32)}
     return FusedParams(p, bn), new_state, epoch_loss / nb
 
 
@@ -578,6 +577,17 @@ def fill_geometry(a: _Args, lay: WideLayout) -> None:
         a.dat_bm[l], a.dat_bn[l] = geo.data.bm, geo.data.bn
         a.dat_splits[l], a.dat_split_k[l] = geo.data.splits, geo.data.split_k
         a.wgt_bm[l], a.wgt_bn[l] = geo.weight.bm, geo.weight.bn
+
+
+def update_blocks(plan: FusedWidePlan, lay: WideLayout) -> int:
+    """Blocks of ``eh_wide_update_kernel``: a tile of ``_UPDATE_TILE``² of
+    every tensor-core layer's W, then one thread per other parameter and one
+    for the loss."""
+    tc = [l for l, geo in enumerate(lay.geometry) if geo.route == TENSOR_CORES]
+    dims = plan.dims
+    tiles = sum(-(-dims[l] // _UPDATE_TILE) * -(-dims[l + 1] // _UPDATE_TILE) for l in tc)
+    loose = plan.n_params - sum(dims[l] * dims[l + 1] for l in tc)
+    return tiles + -(-(loose + 1) // 256)
 
 
 def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
@@ -614,6 +624,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.scale, a.valid, a.tcount = scale.data_ptr(), valid.data_ptr(), tcount.data_ptr()
     a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
     a.m, a.v = opt_state["m"].data_ptr(), opt_state["v"].data_ptr()
+    a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.ws, a.partials = ws.data_ptr(), partials.data_ptr()
     a.head_partials, a.epoch_loss = head_partials.data_ptr(), epoch_loss.data_ptr()
@@ -630,6 +641,10 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.norm_splits, a.norm_split_rows = lay.norm_splits, lay.norm_split_rows
     a.head_blocks = lay.head_blocks
     fill_geometry(a, lay)
+    if plan.opt_name == "lamb":  # a row of leaf norms per update block (eh_wide_update_kernel)
+        lamb_parts = torch.empty((update_blocks(plan, lay), 2 * a.optimizer.n_leaves),
+                                 dtype=torch.float32, device=dev)
+        a.lamb_parts = lamb_parts.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.eh_fused_wide(ctypes.byref(a), stream)

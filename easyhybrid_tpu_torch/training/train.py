@@ -291,7 +291,7 @@ def train(
                                          shuffle=cfg.shuffle_each_epoch,
                                          epochs_per_call=eval_every)
         packed = kernel_epoch.plan.pack(model)
-        opt_state = init_fused_opt_state(packed)
+        opt_state = init_fused_opt_state(packed, cfg.optimizer)
 
         def run_block():
             nonlocal packed, opt_state

@@ -25,6 +25,11 @@ Adam turns the rounding of a near-zero gradient into a visible move (see
 ``chip_smoke.py``). Kernel 3's tensor-core product alone: within 1e-4 *
 max(1, |ref|) of a float64 product (3xTF32 keeps about float32's accuracy;
 measured worst 4.5e-5 relative at K = 1,024 on an H100).
+
+Every training kernel is also held, under each optimizer rule besides adam
+and plain sgd (``RULES``), against its plain version at the same tolerance
+on parameters and every slot of the opt state, with the same bits on a
+second run.
 """
 
 import ctypes
@@ -206,6 +211,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # --------------------------------------------------------------------------
 
 EPOCH_TOL = 1e-4
+# every optimizer rule of the training kernels besides adam and plain sgd
+RULES = [("adamw", 0.01), ("sgd", 0.05, 0.9), ("sgd", 0.05, 0.9, 1.0), ("rmsprop", 0.01),
+         ("adagrad", 0.05), ("lion", 0.001), ("adamax", 0.01), ("nadam", 0.01),
+         ("adadelta", 1.0), ("radam", 0.01), ("amsgrad", 0.01), ("lamb", 0.01)]
+
+
+def _outputs(run):
+    """A fused run's parameters, every opt-state slot and its loss."""
+    packed, state, loss = run
+    return [packed.params, *fe.opt_slots(state).values(), loss.reshape(1)]
 # a multi-site model with two per-site globals: the network gives the form's tref
 TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
                                "tref": (15.0, 10.0, 20.0)},
@@ -234,15 +249,13 @@ def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam",
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fe.launch_fused_epoch.launches
-    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    got = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     torch.cuda.synchronize()
     assert fe.launch_fused_epoch.launches - before == 1
-    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    for g, a, r in ((got[0].params, again[0].params, ref[0].params),
-                    (got[0].bn, again[0].bn, ref[0].bn), (got[1]["m"], again[1]["m"], ref[1]["m"]),
-                    (got[1]["v"], again[1]["v"], ref[1]["v"]),
-                    (got[2].reshape(1), again[2].reshape(1), ref[2].reshape(1))):
+    again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    for g, a, r in zip([got[0].bn, *_outputs(got)], [again[0].bn, *_outputs(again)],
+                       [ref[0].bn, *_outputs(ref)]):
         assert torch.equal(g, a)  # every sum has a fixed order: the same bits twice
         g, r = g.cpu(), r.cpu()
         assert torch.isfinite(g).all()
@@ -290,6 +303,19 @@ def test_epoch_kernel_geometry_edges_match_plain(cuda, kw, cluster, tiles, stage
         scale_nn_outputs=True, input_batchnorm=kw.get("norm", True), device="cpu")
     g = fe.plan_fused_epoch(m, ("adam", 0.01), et.LoggingLoss()).geometry(kw["batch"])
     assert (g.cluster, g.tiles, g.stages) == (cluster, tiles, stages)
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_epoch_kernel_matches_plain_under_every_rule(cuda, opt):
+    # two blocks of a cluster, each updating its replica; 8 steps (radam
+    # rectifies from step 6)
+    _epoch_case(cuda, opt=opt, epochs=2, batch=512, n=2000)
+
+
+@pytest.mark.parametrize("opt", [("amsgrad", 0.01), ("lamb", 0.01), ("rmsprop", 0.01)], ids=str)
+def test_epoch_kernel_rules_with_the_slots_in_device_memory(cuda, opt):
+    # the padded rows leave no room for the slots beside 32 residual rows
+    _epoch_case(cuda, opt=opt, hidden=(61, 61, 44, 61, 13), act="tanh", batch=128, n=512, epochs=2)
 
 
 def test_first_masked_batch_counts_no_step(cuda):
@@ -355,19 +381,17 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fm.launch_fused_multisite.launches
-    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    got = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     torch.cuda.synchronize()
-    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     assert fm.launch_fused_multisite.launches - before == 2  # one launcher call a run
-    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
-                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    for g, r in zip(_outputs(got), _outputs(ref)):
         assert torch.isfinite(g).all()
         assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
     assert torch.equal(got[1]["t"], ref[1]["t"])
     # sums in a fixed order: the same inputs give the same bits
-    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
-                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+    for a, b in zip(_outputs(got), _outputs(again)):
         assert torch.equal(a, b)
     return got
 
@@ -396,6 +420,12 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
 ], ids=str)
 def test_multisite_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
     _multisite_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_multisite_kernel_matches_plain_under_every_rule(cuda, opt):
+    # minibatched sites, 9 steps; lamb's per-site leaves span every block
+    _multisite_case(cuda, opt=opt, batch=128, shuffle=True, epochs=3)
 
 
 @pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
@@ -524,19 +554,17 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fl.launch_fused_lstm.launches
-    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    got = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     torch.cuda.synchronize()
     assert fl.launch_fused_lstm.launches - before == 1
-    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
-                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+    again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    for g, r in zip(_outputs(got), _outputs(ref)):
         assert torch.isfinite(g).all()
         assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
     assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
     # sums in a fixed order, no atomics: the same inputs give the same bits
-    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
-                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+    for a, b in zip(_outputs(got), _outputs(again)):
         assert torch.equal(a, b)
     return got, fn
 
@@ -556,6 +584,13 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
 ], ids=str)
 def test_lstm_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
     _lstm_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_lstm_kernel_matches_plain_under_every_rule(cuda, opt):
+    # a cluster of blocks, each updating its slice (lamb's leaves straddle
+    # them); 8 steps
+    _lstm_case(cuda, opt=opt, loss="mse", batch=64, n=300, epochs=2, cluster=4)
 
 
 def test_lstm_tiles_follow_the_window(cuda):
@@ -648,22 +683,20 @@ def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("ad
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
     before = fw.launch_fused_wide.launches
-    got = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    got = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     torch.cuda.synchronize()
     assert fw.launch_fused_wide.launches - before == 1
-    again = fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
-    ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+    again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
     # sums in a fixed order, no atomics: the same inputs give the same bits
-    for a, b in ((got[0].params, again[0].params), (got[1]["m"], again[1]["m"]),
-                 (got[1]["v"], again[1]["v"]), (got[2], again[2])):
+    for a, b in zip(_outputs(got), _outputs(again)):
         assert torch.equal(a, b)
     return packed, got, ref, fn
 
 
 def _assert_wide_close(got, ref):
-    for g, r in ((got[0].params, ref[0].params), (got[1]["m"], ref[1]["m"]),
-                 (got[1]["v"], ref[1]["v"]), (got[2].reshape(1), ref[2].reshape(1))):
+    for g, r in zip(_outputs(got), _outputs(ref)):
         assert torch.isfinite(g).all()
         assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
 
@@ -680,6 +713,13 @@ def _assert_wide_close(got, ref):
 ], ids=str)
 def test_wide_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
     _, got, ref, _ = _wide_case(cuda, **kw)
+    _assert_wide_close(got, ref)
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_wide_kernel_matches_plain_under_every_rule(cuda, opt):
+    # tensor-core and FMA layers, lamb's leaves over many update blocks; 6 steps
+    _, got, ref, _ = _wide_case(cuda, opt=opt, hidden=(128, 64), n=800, batch=256, epochs=2)
     _assert_wide_close(got, ref)
 
 

@@ -8,6 +8,7 @@ Tolerances, float32: atol 2e-6 after one epoch and 1e-5 after three (as
 tests/test_fused.py), and 5e-6 for the running variance, whose magnitude is
 ~400 (about 1e-8 relative)."""
 
+import copy
 import ctypes
 import dataclasses
 import re
@@ -89,35 +90,96 @@ CASES = [
     (("adam", 0.01), True, 3, True, (8,), "tanh", {}),
     (("adam", 0.01), True, 1, True, (8,), "softplus", {"n": 256, "batch": 64, "nan_frac": 0.5}),
 ]
+# every optimizer rule of the training kernels besides adam and plain sgd, at
+# a learning rate that moves the parameters in a few steps (the four
+# kernels' parity tests take one case each)
+RULES = [("adamw", 0.01), ("sgd", 0.05, 0.9), ("sgd", 0.05, 0.9, 1.0), ("rmsprop", 0.01),
+         ("adagrad", 0.05), ("lion", 0.001), ("adamax", 0.01), ("nadam", 0.01),
+         ("adadelta", 1.0), ("radam", 0.01), ("amsgrad", 0.01), ("lamb", 0.01)]
+# three epochs where the rule changes course after some steps (radam rectifies
+# from step 6)
+RULE_CASES = [
+    (RULES[0], True, 1, True, (8,), "tanh", {}),
+    (RULES[1], False, 1, True, (8,), "tanh", {}),
+    (RULES[2], True, 1, "static", (8,), "tanh", {}),
+    (RULES[3], True, 1, True, (8,), "tanh", {}),
+    (RULES[4], "batches", 1, True, (8,), "swish", {}),
+    (RULES[5], True, 1, True, (8,), "tanh", {}),
+    (RULES[6], True, 1, "static", (8,), "tanh", {}),
+    (RULES[7], True, 1, True, (12, 5), "swish", {}),
+    (RULES[8], True, 1, True, (8,), "tanh", {}),
+    (RULES[9], True, 3, True, (8,), "tanh", {}),
+    (RULES[10], True, 3, True, (8,), "tanh", {}),
+    (RULES[11], True, 1, True, (12, 5), "tanh", {}),
+]
 
 
-@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES, ids=str)
+def assert_slots_match(plan, tm, opt_state, jax_opt_state, atol, rtol=1e-4):
+    """Every slot of the port's packed opt state against the JAX kernel's
+    slot trees (the same conventions), leaf by leaf through a twin model. A
+    file's tolerance for moments applies (here the torch-epoch comparison's
+    rtol 1e-4: a moment sums gradients, which differ more than the
+    parameters)."""
+    twin = copy.deepcopy(tm)
+    bn = plan.pack(twin).bn
+    assert set(fe.opt_slots(opt_state)) == {k for k in ("m", "v", "u") if k in jax_opt_state}
+    for k, slot in fe.opt_slots(opt_state).items():
+        plan.unpack(fe.FusedParams(slot, bn), twin)
+        got, _ = et.export_jax_params(twin)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jax_opt_state[k])):
+            np.testing.assert_allclose(a, np.asarray(b).reshape(np.shape(a)), atol=atol, rtol=rtol,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES + RULE_CASES, ids=str)
 def test_reference_matches_jax_fused_epoch(opt, shuffle, epochs, norm, hidden, act, data_kw):
     jm, params, state, jt, tm, tt = setup(norm, hidden=hidden, act=act, **data_kw)
     key = jax.random.PRNGKey(5)
     jll = eh.LoggingLoss(training_loss="mse", loss_types=("mse",))
     jfn = jax_fused_epoch(jm, state, opt, jll, shuffle=shuffle, epochs_per_call=epochs)
-    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params), state, jt, key)
+    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params, opt), state, jt,
+                             key)
 
     fn = et.make_fused_epoch(tm, opt, LL, shuffle=shuffle, epochs_per_call=epochs)
     nb, batch = tt.weight.shape
     p0 = fn.plan.pack(tm)
-    _, os_, loss = fn(tm, fe.init_fused_opt_state(p0), tt,
+    _, os_, loss = fn(tm, fe.init_fused_opt_state(p0, opt), tt,
                       perms=jax_perms(shuffle, key, epochs, nb, batch))
     atol = 2e-6 if epochs == 1 else 1e-5
     assert_model_matches(tm, jp, js, atol)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(jos["t"][0])
+    assert_slots_match(fn.plan, tm, os_, jos, atol)
 
 
-@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES, ids=str)
+# the torch optimizers' slot names, and the fused slot each is kept in (adagrad's
+# sum of squares starts at the initial accumulator; the fused v at zero)
+TORCH_SLOTS = {"mu": "m", "trace": "m", "e_x": "m", "nu": "v", "e_g": "v",
+               "sum_of_squares": "v", "nu_max": "u"}
+
+
+def assert_torch_slots_match(plan, opt, opt_state, torch_state, atol, rtol=1e-4):
+    """Every slot of the port's packed opt state against the torch
+    optimizer's state of the same run."""
+    optim = resolve_optimizer(opt)
+    for slot in optim.slots:
+        leaves = plan.leaves(opt_state[TORCH_SLOTS[slot]])
+        shift = (optim.hyperparameters["initial_accumulator_value"]
+                 if slot == "sum_of_squares" else 0.0)
+        for name, t in torch_state[slot].items():
+            np.testing.assert_allclose(leaves[name].numpy() + shift, t.reshape(-1).numpy(),
+                                       atol=atol, rtol=rtol, err_msg=slot)
+
+
+@pytest.mark.parametrize("opt,shuffle,epochs,norm,hidden,act,data_kw", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_torch_epoch(opt, shuffle, epochs, norm, hidden, act, data_kw):
     *_, tm, tt = setup(norm, hidden=hidden, act=act, **data_kw)
     twin = et.construct_hybrid_model(**_spec(norm, hidden=hidden, act=act))
     twin.load_state_dict(tm.state_dict())
     perms = tepoch.perms_for_epochs(shuffle, tt, epochs, generator=torch.Generator().manual_seed(1))
     fn = et.make_fused_epoch(tm, opt, LL, shuffle=shuffle, epochs_per_call=epochs)
-    packed, os_, loss = fn(fn.plan.pack(tm), fe.init_fused_opt_state(fn.plan.pack(tm)), tt, perms=perms)
+    packed, os_, loss = fn(fn.plan.pack(tm), fe.init_fused_opt_state(fn.plan.pack(tm), opt), tt,
+                           perms=perms)
     optim = resolve_optimizer(opt)
     tfn = tepoch.make_train_epoch(twin, LL, optim, shuffle=shuffle, epochs_per_call=epochs)
     state, tloss = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
@@ -127,10 +189,7 @@ def test_reference_matches_the_torch_epoch(opt, shuffle, epochs, norm, hidden, a
     np.testing.assert_allclose(packed.bn.numpy(), want.bn.numpy(), atol=5e-6, rtol=1e-5)
     np.testing.assert_allclose(float(loss), float(tloss), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(state["count"])
-    if opt[0] == "adam":
-        leaves = fn.plan.leaves(os_["m"])
-        for name, t in state["mu"].items():
-            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(), atol=atol, rtol=1e-4)
+    assert_torch_slots_match(fn.plan, opt, os_, state, atol)
 
 
 def test_first_batch_fully_masked_keeps_adam_finite():
@@ -155,8 +214,8 @@ def test_first_batch_fully_masked_keeps_adam_finite():
 
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
-    ({}, "rmsprop", LL, "adam or sgd"),
-    ({}, ("sgd", 0.1, 0.9), LL, "momentum"),
+    ({}, "noisy_sgd", LL, "noisy_sgd"),
+    ({}, ("radam", {"threshold": 3.0}), LL, "threshold 3.0 < 4"),
     ({}, {"nn": "adam"}, LL, "per-branch"),
     ({}, "adam", et.LoggingLoss(training_loss="mae"), "trains mse"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
@@ -170,6 +229,80 @@ def test_envelope_reasons(overrides, optimizer, logging, reason):
     got = fe.fused_epoch_unsupported_reason(tm, optimizer, logging)
     assert got is not None and reason in got
     assert not et.supports_fused_epoch(tm, optimizer, logging)
+
+
+def _lamb_step_against_optax(plan, scale):
+    """One lamb step of the plain version on random packed vectors whose first
+    weight matrix is ``scale`` times the rest, against optax.lamb on the
+    leaves; returns the step and what one trust ratio over the whole vector
+    would give."""
+    import optax
+
+    rng = np.random.default_rng(0)
+    p = torch.tensor(rng.normal(size=plan.n_params), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=plan.n_params), dtype=torch.float32)
+    next(v for k, v in plan.leaves(p).items() if k.endswith("weight")).mul_(scale)
+    zeros = {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
+    got, slots, t = fe._reference_update(plan, p, zeros, torch.zeros((1,)), g, torch.tensor(True))
+    tx = optax.lamb(0.01)
+    params = {k: jnp.asarray(v.numpy()) for k, v in plan.leaves(p).items()}
+    grads = {k: jnp.asarray(v.numpy()) for k, v in plan.leaves(g).items()}
+    upd, _ = tx.update(grads, tx.init(params), params)
+    want = torch.cat([torch.from_numpy(np.array(params[k] + upd[k])) for k in params])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-7, rtol=1e-5)
+    assert float(t[0]) == 1.0 and torch.equal(slots["m"], 0.1 * g)
+    # the direction of a first step is g / (|g| + eps) elementwise
+    d = g / (g.abs() + 1e-6)
+    whole = p - 0.01 * (torch.linalg.vector_norm(p) / torch.linalg.vector_norm(d)) * d
+    return got, whole
+
+
+def test_lamb_takes_its_norms_per_leaf():
+    """Two leaves of very different scale: the plain version gives optax's
+    lamb step (a trust ratio per leaf), far from one ratio over the packed
+    vector; the kernels get the leaves as the packed segments."""
+    tm = et.construct_hybrid_model(**_spec(True, hidden=(8, 4)))
+    plan = fe.plan_fused_epoch(tm, ("lamb", 0.01), LL)
+    got, whole = _lamb_step_against_optax(plan, 1000.0)
+    assert float((got - whole).abs().max()) > 1.0
+    o = fe.optimizer_struct(plan)
+    ends = [off + int(np.prod(shape)) for _, off, shape in plan.segments]
+    assert o.rule == fe._OPTS["lamb"] and o.n_leaves == len(ends) == 2 + 2 * 3 + 1
+    assert list(o.leaf_end[: o.n_leaves]) == ends and ends[-1] == plan.n_params
+
+
+def test_lamb_takes_a_multisite_global_over_every_site_as_one_leaf():
+    """A multi-site plan's per-site global is one (S, 1) leaf, as optax sees
+    the stacked leaf: its S values share one trust ratio."""
+    base = et.construct_hybrid_model(**_spec("static", hidden=(8,)), device="cpu")
+    tm = et.MultiSiteHybridModel(base, 50, device="cpu")
+    plan = et.make_fused_multisite_epoch(tm, ("lamb", 0.01), LL).plan
+    assert plan.segments[-1][0] == "globals.Q10" and plan.segments[-1][2] == (50, 1)
+    _lamb_step_against_optax(plan, 30.0)
+    assert fe.optimizer_struct(plan).leaf_end[len(plan.segments) - 1] == plan.n_params
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_every_rule_keeps_kernel_2s_envelope_and_has_a_geometry(opt):
+    """The envelope, and the size rule between kernels 2 and 3, do not depend
+    on the rule; every admitted model has a geometry at every batch size, with
+    amsgrad's u beside the moments in shared memory or all of them in device
+    memory (one block)."""
+    for width, n_hidden, norm in SWEEP:
+        tm = et.construct_hybrid_model(**_spec(norm, hidden=(width,) * n_hidden))
+        admitted = fe.fused_epoch_unsupported_reason(tm, ("adam", 0.01), LL) is None
+        assert (fe.fused_epoch_unsupported_reason(tm, opt, LL) is None) == admitted
+        if not admitted:
+            continue
+        plan = fe.plan_fused_epoch(tm, opt, LL)
+        adam = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
+        for batch in (1, 100, 513, 100_000):
+            g = plan.geometry(batch)
+            assert _smem_bytes(plan, g) <= fe.MAX_SMEM_BYTES
+            if opt[0] != "amsgrad":
+                assert g == adam.geometry(batch)
+            else:
+                assert g.moments_shared in (0, 2) and (g.moments_shared or g.cluster == 1)
 
 
 def test_envelope_accepts_the_quick_start_and_every_norm():
@@ -239,9 +372,9 @@ def test_kernel_arguments_pack_the_plan():
     plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
     a = fe._Args.from_buffer_copy(plan.args_bytes)
     assert plan.n_params == a.n_params == 2 * 2 + 16 * 3 + 16 * 17 + 17 + 1
-    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.opt == 1
+    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.optimizer.rule == 1
     assert list(a.p_off_w[:3]) == [4, 52, 324] and a.p_off_g == plan.n_params - 1
-    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and plan.tile_rows == 128
+    assert a.optimizer.one_minus_b1 == np.float32(1.0 - 0.9) and plan.tile_rows == 128
     # the backward's residuals, then the output, its scaling's derivative and the feature of ones
     assert a.r_off_g + 1 == plan.res_floats == a.r_off_out == a.r_off_dsc - 1 == a.r_off_one - 2
     assert a.res_floats == plan.tile_floats == plan.res_floats + 3

@@ -38,6 +38,7 @@ from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.training import epoch as tepoch
 from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
+from test_torch_fused_epoch import RULES, assert_slots_match, assert_torch_slots_match
 
 CU_SOURCE = Path(fl.__file__).resolve().parent.parent / "csrc" / "fused_epoch_lstm.cu"
 
@@ -97,9 +98,12 @@ CASES = [
     ("nseLoss", ("adam", 0.01), "batches", 2, "static", {"steps": 5, "out_steps": 5}),
     ("mae", ("adam", 0.01), True, 2, "static", {"agg": "mean", "nan_frac": 0.3}),
 ]
+# one case per optimizer rule besides adam and plain sgd: 8 steps (radam
+# rectifies from step 6)
+RULE_CASES = [("mse", opt, True, 2, "static", {}) for opt in RULES]
 
 
-@pytest.mark.parametrize("loss,opt,shuffle,epochs,norm,kw", CASES, ids=str)
+@pytest.mark.parametrize("loss,opt,shuffle,epochs,norm,kw", CASES + RULE_CASES, ids=str)
 def test_reference_matches_jax_fused_lstm_epoch(loss, opt, shuffle, epochs, norm, kw):
     kw = dict(kw)
     agg = kw.pop("agg", "sum")
@@ -107,13 +111,14 @@ def test_reference_matches_jax_fused_lstm_epoch(loss, opt, shuffle, epochs, norm
     key = jax.random.PRNGKey(5)
     jll = eh.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
     jfn = jax_fused_epoch(jm, state, opt, jll, shuffle=shuffle, epochs_per_call=epochs)
-    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params), state, jt, key)
+    jp, jos, js, jloss = jfn(jax.tree.map(jnp.array, params), jax_init_opt(params, opt), state, jt,
+                             key)
 
     fn = et.make_fused_lstm_epoch(tm, opt, _ll(loss, agg=agg), shuffle=shuffle,
                                   epochs_per_call=epochs)
     nb, batch = tt.weight.shape
     p0 = fn.plan.pack(tm)
-    _, os_, tloss = fn(tm, fe.init_fused_opt_state(p0), tt,
+    _, os_, tloss = fn(tm, fe.init_fused_opt_state(p0, opt), tt,
                        perms=jax_perms(shuffle, key, epochs, nb, batch))
     got_p, got_s = et.export_jax_params(tm)
     for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jp)):
@@ -122,9 +127,10 @@ def test_reference_matches_jax_fused_lstm_epoch(loss, opt, shuffle, epochs, norm
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-6, rtol=1e-6)  # static: untouched
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-4)
     assert int(os_["t"][0]) == int(jos["t"][0])
+    assert_slots_match(fn.plan, tm, os_, jos, atol=1e-5, rtol=1e-3)  # the moments' tolerance
 
 
-@pytest.mark.parametrize("loss,opt,shuffle,epochs,norm,kw", CASES, ids=str)
+@pytest.mark.parametrize("loss,opt,shuffle,epochs,norm,kw", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_torch_epoch(loss, opt, shuffle, epochs, norm, kw):
     kw = dict(kw)
     agg = kw.pop("agg", "sum")
@@ -139,7 +145,7 @@ def test_reference_matches_the_torch_epoch(loss, opt, shuffle, epochs, norm, kw)
     perms = tepoch.perms_for_epochs(shuffle, tt, epochs, generator=torch.Generator().manual_seed(1))
     fn = et.make_fused_lstm_epoch(tm, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     p0 = fn.plan.pack(tm)
-    packed, os_, loss_f = fn(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    packed, os_, loss_f = fn(p0, fe.init_fused_opt_state(p0, opt), tt, perms=perms)
     optim = resolve_optimizer(opt)
     tfn = tepoch.make_train_epoch(twin, ll, optim, shuffle=shuffle, epochs_per_call=epochs)
     state, loss_t = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
@@ -148,11 +154,7 @@ def test_reference_matches_the_torch_epoch(loss, opt, shuffle, epochs, norm, kw)
     assert torch.equal(packed.bn, want.bn)
     np.testing.assert_allclose(float(loss_f), float(loss_t), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(state["count"])
-    if opt[0] == "adam":
-        leaves = fn.plan.leaves(os_["m"])
-        for name, t in state["mu"].items():
-            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(),
-                                       atol=1e-5, rtol=1e-3)
+    assert_torch_slots_match(fn.plan, opt, os_, state, atol=1e-5, rtol=1e-3)
 
 
 def test_batches_without_a_valid_target_change_nothing():
@@ -196,8 +198,8 @@ def test_mae_cotangent_is_zero_at_a_zero_residual():
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
     ({}, "adam", _ll("rmse"), "trains mse, mae, nseLoss"),
     ({}, "adam", _ll("pearsonLoss"), "trains mse, mae, nseLoss"),
-    ({}, "rmsprop", _ll(), "adam or sgd"),
-    ({}, ("sgd", 0.1, 0.9), _ll(), "momentum"),
+    ({}, ("rmsprop", {"centered": True}), _ll(), "centered"),
+    ({}, {"nn": ("adam", 0.01)}, _ll(), "per-branch"),
     ({}, "adam", _ll(agg=lambda xs: xs[0]), "agg"),
     ({"hidden_layers": {"lstm": 65}}, "adam", _ll(), "cap of 64"),
     ({"hidden_layers": [8]}, "adam", _ll(), "not an LSTMNet"),
@@ -411,11 +413,11 @@ def test_kernel_arguments_pack_the_plan():
     a = fl._Args.from_buffer_copy(plan.args_bytes)
     n_params = 2 * 2 + 64 * 2 + 64 * 16 + 64 + 16 + 1 + 1
     assert plan.n_params == a.n_params == n_params == fl._sizes(tm).n_params
-    assert (a.n_features, a.hidden, a.n_out, a.norm_mode, a.opt) == (2, 16, 1, 1, 1)
+    assert (a.n_features, a.hidden, a.n_out, a.norm_mode, a.optimizer.rule) == (2, 16, 1, 1, 1)
     assert (a.p_off_wi, a.p_off_wh, a.p_off_b, a.p_off_hw, a.p_off_hb, a.p_off_g) == (
         4, 132, 1156, 1220, 1236, 1237)
     assert a.loss_kind == 0 and a.loss_nse == 1 and a.agg_scale == 1.0
-    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and plan.width == 16
+    assert a.optimizer.one_minus_b1 == np.float32(1.0 - 0.9) and plan.width == 16
     assert [name for name, _, _ in plan.segments] == [
         "nn.norm.scale", "nn.norm.bias", "nn.wi", "nn.wh", "nn.b", "nn.head.weight",
         "nn.head.bias", "globals.Q10"]

@@ -35,6 +35,7 @@ from easyhybrid_tpu_torch.ops import fused_multisite as fm
 from easyhybrid_tpu_torch.ops import multisite_primitives as mp
 from easyhybrid_tpu_torch.training import epoch as tepoch
 from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
+from test_torch_fused_epoch import RULES, assert_slots_match, assert_torch_slots_match
 from easyhybrid_tpu_torch.training.train import _select_engine
 
 CU_SOURCE = Path(fm.__file__).resolve().parent.parent / "csrc" / "fused_multisite.cu"
@@ -116,9 +117,14 @@ CASES = [
     (dict(S=20, N=1, **TWO_GLOBALS), ("adam", 0.01), "mse", "sum", False),
     (dict(S=40, N=1, batch=10, **TWO_GLOBALS), ("adam", 0.01), "mse", "sum", True),
 ]
+# one case per optimizer rule besides adam and plain sgd, one site batch or
+# three minibatches in turn (9 steps: radam rectifies from step 6; lamb's
+# per-site leaves then hold sites outside the batch)
+RULE_CASES = [(dict() if i % 2 == 0 and opt[0] != "radam" else dict(S=300, N=8, batch=128),
+               opt, "mse", "sum", i % 2 == 1) for i, opt in enumerate(RULES)]
 
 
-@pytest.mark.parametrize("kw,opt,loss,agg,shuffle", CASES, ids=str)
+@pytest.mark.parametrize("kw,opt,loss,agg,shuffle", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_jax_kernel_in_interpret_mode(kw, opt, loss, agg, shuffle):
     epochs = 3
     masked = kw == "masked"
@@ -127,22 +133,24 @@ def test_reference_matches_the_jax_kernel_in_interpret_mode(kw, opt, loss, agg, 
     key = jax.random.PRNGKey(7)
     jfn = jax_fused_multisite(jm, state, opt, jll, shuffle=shuffle, epochs_per_call=epochs,
                               interpret=True)
-    jp, jos, _, jloss = jfn(jax.tree.map(jnp.copy, params), jax_init_opt(params), state, jt, key)
+    jp, jos, _, jloss = jfn(jax.tree.map(jnp.copy, params), jax_init_opt(params, opt), state, jt,
+                            key)
 
     assert et.supports_fused_multisite(tm, opt, tll, tt, shuffle=shuffle)
     fn = et.make_fused_multisite_epoch(tm, opt, tll, shuffle=shuffle, epochs_per_call=epochs)
     nb, sb = tt.weight.shape
     p0 = fn.plan.pack(tm)
-    _, os_, tloss = fn(tm, fe.init_fused_opt_state(p0), tt,
+    _, os_, tloss = fn(tm, fe.init_fused_opt_state(p0, opt), tt,
                        perms=jax_perms(shuffle, key, epochs, nb, sb))
     got_p, _ = et.export_jax_params(tm)
     for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jp)):
         np.testing.assert_allclose(a, np.asarray(b), atol=5e-5, rtol=5e-4)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=2e-4)
     assert int(os_["t"][0]) == int(jos["t"][0]) == epochs * (1 if masked else nb)
+    assert_slots_match(fn.plan, tm, os_, jos, atol=5e-5, rtol=5e-4)
 
 
-@pytest.mark.parametrize("kw,opt,loss,agg,shuffle", CASES, ids=str)
+@pytest.mark.parametrize("kw,opt,loss,agg,shuffle", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_torch_epoch(kw, opt, loss, agg, shuffle):
     epochs = 3
     masked = kw == "masked"
@@ -154,7 +162,7 @@ def test_reference_matches_the_torch_epoch(kw, opt, loss, agg, shuffle):
     perms = tepoch.perms_for_epochs(shuffle, tt, epochs, generator=torch.Generator().manual_seed(1))
     fn = et.make_fused_multisite_epoch(tm, opt, tll, shuffle=shuffle, epochs_per_call=epochs)
     p0 = fn.plan.pack(tm)
-    packed, os_, loss_f = fn(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    packed, os_, loss_f = fn(p0, fe.init_fused_opt_state(p0, opt), tt, perms=perms)
     optim = resolve_optimizer(opt)
     tfn = tepoch.make_train_epoch(twin, tll, optim, shuffle=shuffle, epochs_per_call=epochs)
     state, loss_t = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
@@ -163,11 +171,7 @@ def test_reference_matches_the_torch_epoch(kw, opt, loss, agg, shuffle):
     np.testing.assert_allclose(float(loss_f), float(loss_t), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(state["count"])
     assert torch.equal(packed.bn, p0.bn)  # static statistics are not trained
-    if opt[0] == "adam":
-        leaves = fn.plan.leaves(os_["v"])
-        for name, t in state["nu"].items():
-            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(), atol=1e-5,
-                                       rtol=1e-4)
+    assert_torch_slots_match(fn.plan, opt, os_, state, atol=1e-5, rtol=1e-4)
 
 
 def test_sites_outside_the_data_still_take_every_adam_step():
@@ -223,8 +227,8 @@ def test_envelope_verdicts_follow_the_jax_package():
 
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
-    ({}, "rmsprop", et.LoggingLoss(), "adam or sgd"),
-    ({}, ("sgd", 0.1, 0.9), et.LoggingLoss(), "momentum"),
+    ({}, "noisy_sgd", et.LoggingLoss(), "noisy_sgd"),
+    ({}, ("radam", {"threshold": 3.0}), et.LoggingLoss(), "threshold 3.0 < 4"),
     ({}, "adam", et.LoggingLoss(training_loss="rmse"), "mse, mae, nseLoss"),
     ({}, "adam", et.LoggingLoss(training_loss=et.pinball(0.3)), "mse, mae, nseLoss"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
@@ -253,9 +257,9 @@ def test_engine_reason_names_the_shuffle_flag_in_the_jax_wording():
     assert not fused
     assert reason == ("minibatched multisite with shuffle_each_epoch='per_shard': the fused "
                       "multisite kernel supports shuffle_each_epoch in (True, False, 'batches')")
-    cfg = TrainConfig(optimizer="rmsprop", use_kernel=True)
+    cfg = TrainConfig(optimizer=("radam", {"threshold": 3.0}), use_kernel=True)
     fused, reason = _select_engine(tm, cfg, et.LoggingLoss(), tt, 1)
-    assert not fused and "(supports_fused_multisite): optimizer 'rmsprop'" in reason
+    assert not fused and "(supports_fused_multisite): radam with threshold 3.0 < 4" in reason
     fused, reason = _select_engine(tm, TrainConfig(), et.LoggingLoss(), tt, 1)
     assert not fused and "not cuda" in reason
 
@@ -375,8 +379,8 @@ def test_kernel_arguments_pack_the_plan():
     assert plan.n_sites == 1000 and plan.n_params == shared + 1000 and plan.loss == "mae"
     a = fm._Args.from_buffer_copy(fm._static_args(plan))
     assert a.n_shared == shared and a.n_sites == 1000 and a.n_globals == 1 and a.loss_kind == 1
-    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 1 and a.opt == 1
-    assert a.one_minus_b2 == np.float32(1.0 - 0.999) and plan.tile_rows == 128
+    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 1 and a.optimizer.rule == 1
+    assert a.optimizer.one_minus_b2 == np.float32(1.0 - 0.999) and plan.tile_rows == 128
     # kernel 2's tile row: the residuals, the outputs, their scaling's derivative, ones
     assert a.r_off_g + 1 == plan.res_floats == a.r_off_out and a.r_off_one == a.r_off_dsc + 1
     assert a.res_floats == plan.tile_floats == plan.res_floats + 3 and a.p_off_g == shared

@@ -42,6 +42,7 @@ from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.ops import fused_wide as fw
 from easyhybrid_tpu_torch.training import epoch as tepoch
 from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
+from test_torch_fused_epoch import RULES, assert_slots_match, assert_torch_slots_match
 
 CU_SOURCE = Path(fw.__file__).resolve().parent.parent / "csrc" / "fused_wide.cu"
 
@@ -99,9 +100,13 @@ CASES = [
     ("mae", ("adam", 0.01), True, 0.3),
     ("mse", ("adam", 0.01), False, 0.3),
 ]
+# one case per optimizer rule besides adam and plain sgd (6 steps: radam's
+# last is rectified)
+RULE_CASES = [("mse", opt, (True, "batches", False)[i % 3], 0.3 * (i % 2))
+              for i, opt in enumerate(RULES)]
 
 
-@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES, ids=str)
+@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_jax_chunked_kernel(monkeypatch, loss, opt, shuffle, nan_frac):
     """Two epochs per call of the JAX kernel with each batch of 256 in two
     chunks (run as tests/test_fused.py runs it) against the plain version,
@@ -118,23 +123,18 @@ def test_reference_matches_the_jax_chunked_kernel(monkeypatch, loss, opt, shuffl
     fn = et.make_fused_wide_epoch(tm, opt, _ll(et, loss), shuffle=shuffle, epochs_per_call=2)
     nb, batch = tt.weight.shape
     p0 = fn.plan.pack(tm)
-    _, os_, got_loss = fn(tm, fe.init_fused_opt_state(p0), tt,
+    _, os_, got_loss = fn(tm, fe.init_fused_opt_state(p0, opt), tt,
                           perms=jax_perms(shuffle, key, 2, nb, batch))
     got_p, _ = et.export_jax_params(tm)
     for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jp)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=_atol(loss, opt))
     np.testing.assert_allclose(float(got_loss), float(jloss), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(np.asarray(jos["t"])[0]) == 6
-    if opt[0] == "adam":  # the first moments, leaf by leaf through the JAX layout
-        plan = fn.plan
-        plan.unpack(fe.FusedParams(os_["m"], p0.bn), tm)
-        got_m, _ = et.export_jax_params(tm)
-        for a, b in zip(jax.tree.leaves(got_m), jax.tree.leaves(jos["m"])):
-            np.testing.assert_allclose(a, np.asarray(b).reshape(a.shape), rtol=1e-4,
-                                       atol=_atol(loss, opt))
+    # every slot, leaf by leaf through the JAX layout
+    assert_slots_match(fn.plan, tm, os_, jos, atol=_atol(loss, opt), rtol=1e-4)
 
 
-@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES, ids=str)
+@pytest.mark.parametrize("loss,opt,shuffle,nan_frac", CASES + RULE_CASES, ids=str)
 def test_reference_matches_the_torch_epoch(loss, opt, shuffle, nan_frac):
     *_, tm, tt = setup(nan_frac=nan_frac, hidden=(70, 33), act="swish")
     twin = et.construct_hybrid_model(**_spec(hidden=(70, 33), act="swish"), device="cpu")
@@ -143,7 +143,7 @@ def test_reference_matches_the_torch_epoch(loss, opt, shuffle, nan_frac):
     perms = tepoch.perms_for_epochs(shuffle, tt, 2, generator=torch.Generator().manual_seed(1))
     fn = et.make_fused_wide_epoch(tm, opt, ll, shuffle=shuffle, epochs_per_call=2)
     p0 = fn.plan.pack(tm)
-    packed, os_, got_loss = fn(p0, fe.init_fused_opt_state(p0), tt, perms=perms)
+    packed, os_, got_loss = fn(p0, fe.init_fused_opt_state(p0, opt), tt, perms=perms)
     optim = resolve_optimizer(opt)
     tfn = tepoch.make_train_epoch(twin, ll, optim, shuffle=shuffle, epochs_per_call=2)
     state, tloss = tfn(optim.init(dict(twin.named_parameters())), tt, perm=perms)
@@ -153,11 +153,7 @@ def test_reference_matches_the_torch_epoch(loss, opt, shuffle, nan_frac):
     assert torch.equal(packed.bn, p0.bn)  # the static statistics stay
     np.testing.assert_allclose(float(got_loss), float(tloss), rtol=1e-5, atol=1e-6)
     assert int(os_["t"][0]) == int(state["count"])
-    if opt[0] == "adam":
-        leaves = fn.plan.leaves(os_["m"])
-        for name, t in state["mu"].items():
-            np.testing.assert_allclose(leaves[name].numpy(), t.reshape(-1).numpy(),
-                                       atol=_atol(loss, opt), rtol=1e-4)
+    assert_torch_slots_match(fn.plan, opt, os_, state, atol=_atol(loss, opt), rtol=1e-4)
 
 
 def test_a_fully_masked_batch_changes_nothing():
@@ -198,8 +194,8 @@ def test_a_fully_masked_batch_changes_nothing():
     ({"input_batchnorm": True}, "adam", _ll(et), "whole-batch statistics"),
     ({}, "adam", _ll(et, "rmse"), "trains mse, mae"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
-    ({}, ("sgd", 0.1, 0.9), _ll(et), "momentum"),
-    ({}, "rmsprop", _ll(et), "adam or sgd"),
+    ({}, ("radam", {"threshold": 3.0}), _ll(et), "threshold 3.0 < 4"),
+    ({}, ("rmsprop", {"centered": True}), _ll(et), "centered"),
     ({"hidden_layers": {"lstm": 8}}, "adam", _ll(et), "LSTMNet, not an MLP"),
     ({"hidden_layers": [fw.MAX_WIDE_WIDTH + 1]}, "adam", _ll(et), f"cap of {fw.MAX_WIDE_WIDTH}"),
     ({"hidden_layers": [8] * 9}, "adam", _ll(et), "10 layers exceed"),
@@ -492,7 +488,8 @@ def test_kernel_source_and_ctypes_mirror_agree():
     body = re.search(r"struct EhFusedWideArgs \{(.*?)\};", src, re.S).group(1)
     decls = re.findall(r"([\w ]+?\*?) ?(\w+)(\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
     assert [name for _, name, _ in decls] == [name for name, _ in fw._Args._fields_]
-    kinds = {"int": ctypes.c_int, "float": ctypes.c_float, "int64_t": ctypes.c_int64}
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float, "int64_t": ctypes.c_int64,
+             "EhOptimizer": fe._Optimizer}
     for (ctype, name, array), (_, mirror) in zip(decls, fw._Args._fields_):
         base = mirror._type_ if array else mirror
         want = ctypes.c_void_p if "*" in ctype else kinds[ctype.strip()]
@@ -513,10 +510,10 @@ def test_kernel_arguments_pack_the_plan():
     plan = fw.plan_fused_wide(tm, ("adam", 0.01), _ll(et, "mae", agg="mean"))
     a = fw._Args.from_buffer_copy(plan.args_bytes)
     assert plan.n_params == a.n_params == 4 + 128 * 3 + 64 * 129 + 65 + 1
-    assert list(a.dims[:4]) == [2, 128, 64, 1] and a.norm_mode == 1 and a.opt == 1
+    assert list(a.dims[:4]) == [2, 128, 64, 1] and a.norm_mode == 1 and a.optimizer.rule == 1
     assert list(a.p_off_w[:3]) == [4, 388, 8644] and a.p_off_g == plan.n_params - 1
     assert a.loss_kind == 1 and list(a.acts[:3]) == [4, 4, 0]
-    assert a.one_minus_b1 == np.float32(1.0 - 0.9) and plan.agg_scale == 1.0
+    assert a.optimizer.one_minus_b1 == np.float32(1.0 - 0.9) and plan.agg_scale == 1.0
     packed = plan.pack(tm)
     assert packed.params.numel() == plan.n_params and packed.bn.numel() == 4
     twin = et.construct_hybrid_model(**_spec(hidden=(128, 64), act="swish"), device="cpu")

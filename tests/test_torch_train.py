@@ -67,6 +67,28 @@ def test_train_matches_jax(use_kernel):
         assert "exactness gate passed" in tr.engine_reason
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_train_matches_jax_with_the_reference_quick_start_optimizer(use_kernel):
+    """The reference quick-start's rmsprop at 1e-3 (``examples/rbq10.py``):
+    the fused engine's plain version behind its gate and the torch engine
+    against the JAX package's ``train()``, at the tolerances above."""
+    jm, init = _jax_init()
+    cols = et.rbq10_columns(512, seed=42)
+    kw = dict(KW, optimizer=("rmsprop", 0.001))
+    jr = eh.train(jm, cols, train_from=jax.tree.map(np.array, init), **kw)
+    tm = et.construct_hybrid_model(**SPEC)
+    tr = et.train(tm, cols, train_from=init, use_kernel=use_kernel, **kw)
+    assert tr.epoch_path == ("cuda_fused_epoch" if use_kernel else "torch")
+    _assert_history(tr.train_history, jr.train_history)
+    _assert_history(tr.val_history, jr.val_history)
+    assert tr.best_epoch == jr.best_epoch
+    got_p, _ = et.export_jax_params(tm)
+    for a, b in zip(jax.tree.leaves(got_p), jax.tree.leaves(jr.params)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=1e-5)
+    if use_kernel:
+        assert "exactness gate passed" in tr.engine_reason
+
+
 def test_engine_reasons_on_the_cpu():
     cols = et.rbq10_columns(300, seed=1)
     kw = dict(KW, nepochs=2)
