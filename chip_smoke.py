@@ -8,7 +8,9 @@ Run from the repository root, with no arguments:
 Phases, one or more lines each; any failure exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles csrc/*.cu with nvcc for sm_90a (set-up time);
+2. build: compiles csrc/*.cu with nvcc for sm_90a (set-up time), and at the
+   same time each source a traced kernel form runs against the forms of
+   phases 19-21 (``TRACED_BUILDS``), printing each build's seconds;
 3. kernel: the fused forward kernel against its plain PyTorch version on
    the card, at the serving path's shapes and at the kernel's edges (1,
    1,023, 1,024, 1,025 and 131,072 rows at widths 16, 32 and 64, with NaN
@@ -114,7 +116,24 @@ Phases, one or more lines each; any failure exits non-zero:
     version, the step's layer products through ``torch.matmul`` in float32 and
     TF32 (a yardstick), the tensor-core instructions ``cuobjdump -sass`` finds
     in each of its kernels, ``train()`` wall on both engines and the device's
-    busy share of the fused ``train()``.
+    busy share of the fused ``train()``;
+19. traced forms: kernels 1-5 built against the forms traced from the
+    repository's own mechanistic functions (``examples/rbq10.py``'s and
+    ``examples/lstm_sequences.py``'s untagged ``rbq10``, the two-output
+    ``reco`` / ``nee`` model, ``examples/expo_hybrid.py``'s exponential
+    model), each against its plain version on the card with a second run
+    that must give the same bits: kernel 1 at 1, 1,025 and 131,072 rows
+    within ``TOL``, kernels 2-5 after short runs within ``TOL_EPOCH`` (the
+    tower's gradient through one sgd step);
+20. main path with traced forms: the reference quick-start with
+    ``examples/rbq10.py``'s own function on kernel 2 (Q10 within 0.05) and
+    its ``predict`` at 131,072 rows on kernel 1, the two-output model on
+    kernel 2 (NaN targets, agg mean), the exponential model on kernel 3 (the
+    tower) and on kernel 5 (10,000 sites x 64, k per site), the LSTM run
+    with ``examples/lstm_sequences.py``'s own function on kernel 4;
+21. times: each traced kernel's device time, against the hand-written
+    ``rbq10`` form in the same call (kernels 1, 2 and 4) and against its
+    plain version; the seconds phases 19-21 add to the run.
 
 Models are built without a ``device=`` argument and must land on the card.
 The last three lines are: a JSON object ``{"kernels": [...]}`` with one
@@ -157,11 +176,6 @@ TWO_GLOBALS = dict(parameters={**RBQ10_PARAMS, "tref": (15.0, 10.0, 20.0)},
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def rbq10_untagged(*, ta, rb, Q10, tref=15.0):
-    """The quick-start model without a kernel form: runs the plain engine."""
-    return {"reco": rb * Q10 ** (0.1 * (ta - tref))}
 
 
 def build_model(et, *, hidden=(16, 16), activation="swish", norm="static",
@@ -396,13 +410,15 @@ def epoch_cases(et, quick_cols):
     ]
 
 
-def reference_main_path(et, fe, card, cols) -> dict:
+def reference_main_path(et, fe, card, cols, *, mechanistic=None, q10_tol=0.15,
+                        torch_epochs=20) -> dict:
     """Phase 7b: the reference quick-start (``examples/rbq10.py``: static
     norm, rmsprop at 1e-3, patience 30) through ``train()`` on a model built
-    without ``device=``; it must take kernel 2 after its gate, one launch an
-    epoch, and learn Q10. Then the same run on the torch engine for a fifth
-    of the epochs, for its wall time."""
-    model = build_model(et, norm="static", seed=0)
+    without ``device=`` (with ``et.rbq10``, or with ``mechanistic``); it must
+    take kernel 2 after its gate, one launch an epoch, and learn Q10 within
+    ``q10_tol``. Then the same run on the torch engine for ``torch_epochs``
+    epochs (none: skipped), for its wall time."""
+    model = build_model(et, norm="static", seed=0, mechanistic=mechanistic)
     with gate_counted_apart(fe.launch_fused_epoch) as gate_launches:
         t0 = time.perf_counter()
         result = et.train(model, cols, **REFERENCE_KW)
@@ -418,18 +434,22 @@ def reference_main_path(et, fe, card, cols) -> dict:
         raise AssertionError(f"the reference train() ran {epochs} epochs in {launches} launches")
     q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
     pred = result.val_pred_columns["reco_pred"]
-    if not (abs(q10 - 2.0) < 0.15 and result.best_loss < 0.05):
+    if not (abs(q10 - 2.0) < q10_tol and result.best_loss < 0.05):
         raise AssertionError(f"the reference train() learned Q10 {q10:.4f}, best val mse "
                              f"{result.best_loss:.4f}")
     if pred.shape != (len(cols["reco"]) // 5,) or not np.isfinite(pred).all():
         raise AssertionError(f"val predictions: shape {pred.shape}, "
                              f"finite {np.isfinite(pred).all()}")
+    name = getattr(mechanistic or et.rbq10, "__name__", "")
     log("main", f"reference quick-start train() ({REFERENCE_KW['optimizer']}, static norm, "
-                f"patience {REFERENCE_KW['patience']}): {result.epoch_path}, "
+                f"patience {REFERENCE_KW['patience']}, mechanistic model {name!r} "
+                f"{'traced' if mechanistic else 'hand-written'}): {result.epoch_path}, "
                 f"{result.engine_reason}; {launches} launches for {epochs} epochs after the "
                 f"gate's {gate_launches}; Q10 {q10:.4f}, best val mse {result.best_loss:.5f} at "
                 f"epoch {result.best_epoch}; {wall:.2f} s wall (ok)")
-    torch_epochs = 20
+    out = {"launches": launches, "wall": wall, "model": model, "q10": q10}
+    if not torch_epochs:
+        return out
     t0 = time.perf_counter()
     plain = et.train(build_model(et, norm="static", seed=0), cols, use_kernel=False,
                      **{**REFERENCE_KW, "nepochs": torch_epochs})
@@ -440,7 +460,7 @@ def reference_main_path(et, fe, card, cols) -> dict:
     log("times", f"[{card}] reference quick-start train() wall: cuda_fused_epoch {wall:.2f} s for "
                  f"{epochs} epochs (gate included), torch {torch_wall:.2f} s for {torch_epochs} "
                  f"epochs ({torch_wall / torch_epochs * epochs:.2f} s per {epochs})")
-    return {"launches": launches, "wall": wall, "torch_wall_per_epoch": torch_wall / torch_epochs}
+    return {**out, "torch_wall_per_epoch": torch_wall / torch_epochs}
 
 
 def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, epochs, batch,
@@ -889,8 +909,8 @@ LSTM_TRAIN_KW = dict(nepochs=30, batchsize=128, optimizer=("adam", 0.01), traini
 LSTM_VAL_LIMIT = 0.01
 
 
-def lstm_model(et, hidden=16, norm="static", seed=0):
-    return build_model(et, hidden={"lstm": hidden}, norm=norm, seed=seed)
+def lstm_model(et, hidden=16, norm="static", seed=0, mechanistic=None):
+    return build_model(et, hidden={"lstm": hidden}, norm=norm, seed=seed, mechanistic=mechanistic)
 
 
 def lstm_cases():
@@ -1012,12 +1032,13 @@ def lstm_kernel_checks(et) -> float:
     return worst
 
 
-def lstm_main_path(et, card) -> dict:
-    """Phase 14: sequence training through the normal entry points."""
+def lstm_main_path(et, card, mechanistic=None) -> dict:
+    """Phase 14: sequence training through the normal entry points (with
+    ``et.rbq10``, or with ``mechanistic``)."""
     from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
 
     cols = et.rbq10_columns(LSTM_ROWS, seed=7)
-    model = lstm_model(et)
+    model = lstm_model(et, mechanistic=mechanistic)
     with gate_counted_apart(fl.launch_fused_lstm) as gate_launches:
         t0 = time.perf_counter()
         result = et.train(model, cols, **LSTM_TRAIN_KW)
@@ -1041,13 +1062,15 @@ def lstm_main_path(et, card) -> dict:
         raise AssertionError(f"train() ended with best val nseLoss {result.best_loss:.5f} (limit "
                              f"{LSTM_VAL_LIMIT}) and Q10 {q10:.4f}")
     steps = int(result.opt_state["t"][0])
-    log("main", f"sequence train(): {LSTM_ROWS} rows in 10-step windows, LSTM(16), "
+    name = getattr(mechanistic or et.rbq10, "__name__", "")
+    log("main", f"sequence train(): {LSTM_ROWS} rows in 10-step windows, LSTM(16), mechanistic "
+                f"model {name!r} {'traced' if mechanistic else 'hand-written'}, "
                 f"{result.epoch_path}, {result.engine_reason}; {launches} launches after the "
                 f"gate's {gate_launches}, {steps} optimizer steps; best val nseLoss "
                 f"{result.best_loss:.6f} at epoch {result.best_epoch} (limit {LSTM_VAL_LIMIT}; the "
                 f"torch engine on a CPU: 0.002574), val mse {val_mse:.5f}, Q10 {q10:.4f}; "
                 f"{n_val} validation predictions in the long format; {wall:.2f} s wall (ok)")
-    return dict(launches=launches, wall=wall, cols=cols, steps=steps)
+    return dict(launches=launches, wall=wall, cols=cols, steps=steps, model=model)
 
 
 def lstm_step_bound(batch, steps, out_steps=1, hidden=16, features=2, outputs=1,
@@ -1612,16 +1635,14 @@ def serving_times(et, ff, card, quick, x, forcing, cols) -> dict:
     log("times", f"[{card}] kernel 1, one launch, device ms per call, median of 6: "
                  + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()))
 
-    plain_model = build_model(et, mechanistic=rbq10_untagged)
-    plain_model.load_state_dict(quick.state_dict())
     engines = {
         f"cuda_fused_forward b{BATCH}": et.make_inference_fn(quick, batch_size=BATCH),
-        f"torch b{BATCH}": et.make_inference_fn(plain_model, batch_size=BATCH),
+        f"torch b{BATCH}": et.make_inference_fn(quick, batch_size=BATCH, use_kernel=False),
         f"cuda_fused_forward b{N_ROWS}": et.make_inference_fn(quick, batch_size=N_ROWS),
-        f"torch b{N_ROWS}": et.make_inference_fn(plain_model, batch_size=N_ROWS),
+        f"torch b{N_ROWS}": et.make_inference_fn(quick, batch_size=N_ROWS, use_kernel=False),
     }
     if engines[f"torch b{BATCH}"].engine != "torch":
-        raise AssertionError("the untagged model should run the plain engine")
+        raise AssertionError("use_kernel=False should run the plain engine")
     walls = {k: [] for k in engines}
     for f in engines.values():
         f(cols)  # warm-up
@@ -1650,6 +1671,507 @@ def serving_times(et, ff, card, quick, x, forcing, cols) -> dict:
     return dict(kernel_ms=ms[f"kernel {N_ROWS} rows"], plain_ms=ms[f"plain {N_ROWS} rows"])
 
 
+# --------------------------------------------------------------------------
+# traced kernel forms (phases 19-21): the repository's own mechanistic
+# functions, traced into each kernel, on the kernels' main paths
+# --------------------------------------------------------------------------
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+EXPO_PARAMS = {"rb": (2.0, 0.0, 8.0), "k": (0.05, 0.0, 0.2)}
+TWO_PARAMS = {**RBQ10_PARAMS, "gpp_max": (5.0, 0.0, 20.0)}
+# the second multi-site run: the exponential model with k a per-site global,
+# on a table made from that model (expo_site_data), under phase 11's settings;
+# its k is drawn per site from [0.03, 0.08] around the initial 0.05
+EXPO_K_RANGE = (0.03, 0.08)
+
+
+def example_function(path: Path, name: str):
+    """The function ``name`` as the example ``path`` defines it. The examples
+    import the JAX package, so the function's own source is taken from the
+    file and run alone, with numpy as ``np``."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    scope = {"np": np}
+    exec(compile(ast.Module(body=[node], type_ignores=[]), str(path), "exec"), scope)
+    return scope[name]
+
+
+def two_outputs(*, ta, rb, gpp_max, Q10):
+    """The two-output model of tests/test_fused.py:275-278, written for torch."""
+    reco = rb * Q10 ** (0.1 * (ta - 15.0))
+    gpp = gpp_max * (1.0 - torch.exp(-0.1 * ta))
+    return {"reco": reco, "nee": reco - gpp}
+
+
+def two_output_columns(et, n, seed=42):
+    """RbQ10 rows with a second target, nee (gpp_max 5), 15% of each target NaN."""
+    cols = et.rbq10_columns(n, seed=seed)
+    rng = np.random.default_rng(seed)
+    cols["nee"] = (cols["reco"] - 5.0 * (1.0 - np.exp(-0.1 * cols["ta"]))).astype(np.float32)
+    for k in ("reco", "nee"):
+        cols[k] = cols[k].copy()
+        cols[k][rng.random(n) < 0.15] = np.nan
+    return cols
+
+
+def expo_columns(n, seed=0):
+    """The rows of examples/expo_hybrid.py's make_data: rb and k follow sw_pot
+    and moisture, reco = rb * exp(k * ta) + noise."""
+    rng = np.random.default_rng(seed)
+    ta = rng.normal(12.0, 6.0, n).astype(np.float32)
+    sw_pot = np.abs(50 + 20 * rng.standard_normal(n)).astype(np.float32)
+    moisture = rng.random(n).astype(np.float32)
+    reco = (2.0 + 0.02 * (sw_pot - sw_pot.mean())) * np.exp((0.05 + 0.03 * moisture) * ta)
+    reco = reco + 0.1 * rng.standard_normal(n)
+    return dict(ta=ta, sw_pot=sw_pot, moisture=moisture, reco=reco.astype(np.float32))
+
+
+def expo_site_data(et, model):
+    """A multi-site table of MS_SITES sites x MS_OBS rows made from the
+    exponential model itself, prepared for ``model``: reco = rb * exp(k ta)
+    + noise with rb = 2 + 0.02 (sw_pot - mean), ta ~ N(12, 6), k drawn per
+    site from EXPO_K_RANGE, 10% of the targets NaN. Returns the prepared data
+    and every site's true k."""
+    rng = np.random.default_rng(11)
+    k_true = rng.uniform(*EXPO_K_RANGE, MS_SITES)
+    n = MS_SITES * MS_OBS
+    ta = rng.normal(12.0, 6.0, n)
+    sw_pot = np.abs(50.0 + 20.0 * rng.standard_normal(n))
+    rb = 2.0 + 0.02 * (sw_pot - sw_pot.mean())
+    reco = rb * np.exp(np.repeat(k_true, MS_OBS) * ta) + 0.1 * rng.standard_normal(n)
+    reco[rng.random(n) < 0.1] = np.nan
+    table = {k: v.astype(np.float32) for k, v in dict(
+        ta=ta, sw_pot=sw_pot, dsw_pot=np.concatenate([[0.0], np.diff(sw_pot)]),
+        reco=reco).items()}
+    table["site"] = np.repeat(np.arange(MS_SITES, dtype=np.int32), MS_OBS)
+    data = et.prepare_multisite_data(model.base, table, "site")
+    if data.x.shape != (MS_SITES, MS_OBS, 2):
+        raise AssertionError(f"prepare_multisite_data gave x of shape {data.x.shape}")
+    return data, k_true
+
+
+def traced_models(et):
+    """The traced phases' models, made on call, by name: the quick-start model
+    with examples/rbq10.py's own rbq10, the two-output model, the exponential
+    SingleNN model (rb in (0, 8) and k in (0, 0.2) from one network over
+    sw_pot and moisture), its multi-site form (k a per-site global) and the
+    LSTM model with examples/lstm_sequences.py's own rbq10."""
+    rbq10_ex = example_function(EXAMPLES / "rbq10.py", "rbq10")
+    rbq10_lstm = example_function(EXAMPLES / "lstm_sequences.py", "rbq10")
+    expo = example_function(EXAMPLES / "expo_hybrid.py", "expo_model")
+    expo_kw = dict(mechanistic=expo, predictors=["sw_pot", "moisture"], parameters=EXPO_PARAMS,
+                   neural_param_names=["rb", "k"], global_param_names=[])
+    two_kw = dict(mechanistic=two_outputs, targets=["reco", "nee"], parameters=TWO_PARAMS,
+                  neural_param_names=["rb", "gpp_max"])
+    return {
+        "rbq10": lambda **kw: build_model(et, mechanistic=rbq10_ex, **kw),
+        "two_outputs": lambda **kw: build_model(et, **{**two_kw, **kw}),
+        "expo": lambda **kw: build_model(et, **{**expo_kw, **kw}),
+        "expo_sites": lambda n_sites, **kw: et.MultiSiteHybridModel(build_model(
+            et, mechanistic=expo, parameters=EXPO_PARAMS, neural_param_names=["rb"],
+            global_param_names=["k"], **kw), n_sites=n_sites),
+        "rbq10_lstm": lambda **kw: lstm_model(et, mechanistic=rbq10_lstm, **kw),
+        "functions": dict(rbq10=rbq10_ex, rbq10_lstm=rbq10_lstm, expo=expo),
+    }
+
+
+# each kernel's source and the models whose traced forms it is built against
+TRACED_BUILDS = {
+    "fused_forward.cu": ("rbq10", "two_outputs", "expo"),
+    "fused_epoch.cu": ("rbq10", "two_outputs"),
+    "fused_wide.cu": ("expo",),
+    "fused_epoch_lstm.cu": ("rbq10_lstm",),
+    "fused_multisite.cu": ("expo_sites",),
+}
+
+
+def traced_forms(et, models) -> dict:
+    """The traced form of each model (traced on the host: no kernel is built)."""
+    from easyhybrid_tpu_torch.ops import fused_forward as ff
+
+    out = {}
+    for key in ("rbq10", "two_outputs", "expo", "rbq10_lstm"):
+        out[key], reason = ff._form_of(models[key]())
+        if out[key] is None or out[key].header is None:
+            raise AssertionError(f"{key}: no traced form ({reason})")
+    form, reason = ff._form_of(models["expo_sites"](4).base)
+    if form is None:
+        raise AssertionError(f"expo_sites: no traced form ({reason})")
+    out["expo_sites"] = form
+    return out
+
+
+def start_traced_builds(pool, forms) -> dict:
+    """Every traced form's build of every kernel it runs, all at once:
+    ``(source, model) -> future of the BuildResult``."""
+    from easyhybrid_tpu_torch.ops import _build
+
+    return {(src, key): pool.submit(_build.form_build, src, forms[key])
+            for src, keys in TRACED_BUILDS.items() for key in keys}
+
+
+def device_inputs(et, model, cols):
+    """The model's inputs (NaN rows kept) as CUDA tensors; its norm as it is."""
+    data = et.prepare_data(model, cols, drop_missing_rows=False)
+    return (torch.from_numpy(data.x).cuda(),
+            {k: torch.from_numpy(v).cuda() for k, v in data.forcing.items()})
+
+
+def epoch_inputs(et, model, data, *, make, opt, batch, epochs, shuffle, agg="sum",
+                 loss="mse", seed=0):
+    """A fused epoch of ``model`` (from ``make``) on the card, its packed
+    parameters, epoch tensors and permutations."""
+    from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
+
+    et.fit_input_norm(model, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    fn = make(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+    return fn, fn.plan.pack(model), tensors, perms
+
+
+def held_twice(what, fn, packed, tensors, perms, *, gradient_lr=None) -> float:
+    """The kernel against its plain version from the same inputs within
+    ``TOL_EPOCH``, and a second run of the kernel to the same bits; with
+    ``gradient_lr``, the gradient one sgd step implies, ``(p0 - p) / lr``."""
+    def named(p, o, loss):
+        return {"params": p.params, "bn": p.bn, **slots(o), "loss": loss.reshape(1)}
+
+    got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    torch.cuda.synchronize()
+    again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise AssertionError(f"{what}: the kernel returned non-finite values")
+    if not all(torch.equal(got[k], again[k]) for k in got):
+        raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+    if gradient_lr is not None:
+        grad = lambda r: {"gradient": (packed.params - r["params"]) / gradient_lr,  # noqa: E731
+                          "loss": r["loss"]}
+        got, ref = grad(got), grad(ref)
+    err = compare(got, ref, what, TOL_EPOCH)
+    log("traced", f"{what}: form {fn.plan.form.name!r}, max |diff| {err:.3e} "
+                  f"(within {TOL_EPOCH} x max(1, |ref|)), second run bitwise equal (ok)")
+    return err
+
+
+def traced_kernel_checks(et, models, ms_data) -> dict:
+    """Phase 19: each of kernels 1-5 with a traced form against its plain
+    version on the card, and against itself on a second run, at the shapes
+    of phase 20 (``ms_data``: the exponential multi-site table)."""
+    from easyhybrid_tpu_torch.data.prepare import HybridData
+    from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+
+    errs = {}
+    # kernel 1: serving at 1, 1,025 and 131,072 rows, 5% NaN predictor rows;
+    # the kernels line reports the rbq10 form's error, the others are held alike
+    worst = {}
+    for key, cols_of in (("rbq10", lambda n: et.rbq10_columns(n, seed=9)),
+                         ("two_outputs", lambda n: two_output_columns(et, n, seed=9)),
+                         ("expo", lambda n: expo_columns(n, seed=9))):
+        model = models[key]()
+        et.fit_input_norm(model, et.prepare_data(model, cols_of(4096)))
+        fn = et.make_fused_forward(model, batch_size=BATCH)
+        for n in (1, 1025, N_ROWS):
+            cols = cols_of(n)
+            cols["sw_pot"][np.random.default_rng(n).random(n) < 0.05] = np.nan
+            x, forcing = device_inputs(et, model, cols)
+            got = fn(x, forcing)
+            torch.cuda.synchronize()
+            again = fn(x, forcing)
+            if not all(torch.equal(bits(got[k]), bits(again[k])) for k in got):
+                raise AssertionError(f"kernel 1, {key}, {n} rows: a second run gave other bits")
+            err = compare(got, fn.reference(x, forcing), f"kernel 1, {key}, {n} rows")
+            worst[key] = max(worst.get(key, 0.0), err)
+            log("traced", f"kernel 1, {key} (form {fn.plan.form.name!r}, outputs "
+                          f"{list(fn.plan.output_names)}), {n} rows: max |diff| {err:.3e} (within "
+                          f"{TOL} x max(1, |ref|)), second run bitwise equal (ok)")
+    errs["fused_forward"] = worst["rbq10"]
+    # kernel 2 on phase 20's training splits at batch 512: the reference
+    # quick-start's 16,000 rows (31 whole batches and a ragged one of 128) under
+    # its rmsprop; the two-output model (NaN targets, agg mean) under adam. The
+    # kernels line reports the quick-start's error
+    m = models["rbq10"]()
+    errs["fused_epoch"] = held_twice(
+        "kernel 2, reference quick-start [16,16] swish static, its 16,000 training rows, batch "
+        "512, rmsprop 1e-3, 2 epochs",
+        *epoch_inputs(et, m, et.split_data(et.rbq10_columns(TRAIN_ROWS, seed=42), m)[0],
+                      make=et.make_fused_epoch, opt=REFERENCE_KW["optimizer"], batch=512,
+                      epochs=2, shuffle=True))
+    m = models["two_outputs"]()
+    held_twice(
+        "kernel 2, two outputs (reco, nee), 15% NaN targets, agg mean, the training split of "
+        f"{TRAIN_ROWS:,} rows, batch 512, adam, 2 epochs",
+        *epoch_inputs(et, m, et.split_data(two_output_columns(et, TRAIN_ROWS), m)[0],
+                      make=et.make_fused_epoch, opt=TRAIN_KW["optimizer"], batch=512, epochs=2,
+                      shuffle=True, agg="mean"))
+    # kernel 3: a small wide model, then the tower's gradient (one sgd step)
+    m = models["expo"](hidden=(128, 64))
+    errs["fused_wide"] = held_twice(
+        "kernel 3, exponential [128,64] swish static, 1,000 rows, batch 256, adam, 2 epochs",
+        *epoch_inputs(et, m, et.prepare_data(m, expo_columns(1000, seed=2)),
+                      make=et.make_fused_wide_epoch, opt=("adam", 0.01), batch=256, epochs=2,
+                      shuffle=True))
+    m = models["expo"](hidden=WIDE_HIDDEN)
+    errs["fused_wide"] = max(errs["fused_wide"], held_twice(
+        "kernel 3, exponential tower [1024,512,256,128,64], the gradient: one sgd step at lr "
+        "1e-3 over 1,024 rows",
+        *epoch_inputs(et, m, et.prepare_data(m, expo_columns(WIDE_BATCH, seed=3)),
+                      make=et.make_fused_wide_epoch, opt=("sgd", 1e-3), batch=WIDE_BATCH,
+                      epochs=1, shuffle=False), gradient_lr=1e-3))
+    # kernel 4: examples/lstm_sequences.py's run shape
+    m = models["rbq10_lstm"]()
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    errs["fused_epoch_lstm"] = held_twice(
+        "kernel 4, LSTM(16), 10-step windows, static norm, nseLoss, batch 128, adam, 2 epochs",
+        *epoch_inputs(et, m, split_into_sequences(rows, input_window=10, output_window=1,
+                                                  lead_time=0),
+                      make=et.make_fused_lstm_epoch, opt=("adam", 0.01), batch=128, epochs=2,
+                      shuffle=True, loss="nseLoss"))
+    # kernel 5: k a per-site global, phase 20's training sites in one batch
+    m = models["expo_sites"](MS_SITES)
+    errs["fused_multisite"] = held_twice(
+        f"kernel 5, exponential, k per site, phase 20's {MS_TRAIN_SITES:,} training sites x "
+        f"{MS_OBS} (10% NaN targets) in one batch, adam, 2 epochs",
+        *epoch_inputs(et, m, ms_data.take(np.arange(MS_TRAIN_SITES)),
+                      make=et.make_fused_multisite_epoch, opt=MS_TRAIN_KW["optimizer"],
+                      batch=MS_TRAIN_SITES, epochs=2, shuffle=False))
+    return errs
+
+
+def traced_train(et, what, model, data, launcher, epoch_path, train_kw, expected) -> dict:
+    """One ``train()`` through the normal entry points: it must take
+    ``epoch_path`` after its gate, call ``launcher`` ``expected`` times after
+    it, return finite validation predictions and end below its first
+    validation loss."""
+    with gate_counted_apart(launcher) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, data, **train_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launcher.launches
+    if result.epoch_path != epoch_path or "exactness gate passed" not in result.engine_reason:
+        raise AssertionError(f"{what}: train() took {result.epoch_path!r}: {result.engine_reason}")
+    if launches != expected:
+        raise AssertionError(f"{what}: {launches} launches after the gate, not {expected}")
+    preds = [v for k, v in result.val_pred_columns.items() if k.endswith("_pred")]
+    if not preds or not all(np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"{what}: validation predictions missing or not finite")
+    first = [v for k, v in result.val_history[0]["mse"].items() if k in ("sum", "mean")][0]
+    if not (np.isfinite(result.best_loss) and result.best_loss < first):
+        raise AssertionError(f"{what}: best val loss {result.best_loss} (first {first})")
+    log("main", f"{what}: {result.epoch_path}, {result.engine_reason}; {launches} launches after "
+                f"the gate's {gate_launches}; best val mse {result.best_loss:.5f} at epoch "
+                f"{result.best_epoch} (epoch 0: {first:.5f}); {wall:.2f} s wall (ok)")
+    return dict(result=result, launches=launches, wall=wall)
+
+
+def traced_main_paths(et, card, models, ms_data, k_true) -> dict:
+    """Phase 20: each model through its kernel at full width: the reference
+    quick-start with examples/rbq10.py's own rbq10 on kernel 2 (Q10 within
+    0.05) and its predict at 131,072 rows on kernel 1; the two-output model
+    on kernel 2; the exponential model on kernel 3 (the tower) and on kernel
+    5 (10,000 sites x 64, k per site, learned against ``k_true`` as phase 11
+    learns Q10); the LSTM run of
+    examples/lstm_sequences.py with its own rbq10 on kernel 4."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+    from easyhybrid_tpu_torch.ops import fused_forward as ff
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    fns = models["functions"]
+    out = {}
+    ref = reference_main_path(et, fe, card, et.rbq10_columns(TRAIN_ROWS, seed=42),
+                              mechanistic=fns["rbq10"], q10_tol=0.05, torch_epochs=0)
+    out["fused_epoch"] = ref["launches"]
+    model, cols = ref["model"], et.rbq10_columns(N_ROWS, seed=42)
+    fn = et.make_inference_fn(model, batch_size=BATCH)
+    if fn.engine != "cuda_fused_forward":
+        raise AssertionError(f"predict with the traced rbq10 took {fn.engine!r}: "
+                             f"{fn.engine_reason}")
+    ff.launch_fused_forward.launches = 0
+    got = et.predict(model, cols, batch_size=BATCH)
+    torch.cuda.synchronize()
+    out["fused_forward"] = ff.launch_fused_forward.launches
+    if out["fused_forward"] != 1 or set(got) != {"reco", "rb"}:
+        raise AssertionError(f"predict: {out['fused_forward']} launches, keys {sorted(got)}")
+    x, forcing = device_inputs(et, model, cols)
+    model.eval()
+    with torch.no_grad():
+        plain = model(x, forcing)
+    err = compare({k: torch.from_numpy(v) for k, v in got.items()},
+                  {"reco": plain["reco"].cpu(), "rb": plain["parameters"]["rb"].cpu()},
+                  "predict with the traced rbq10 against the plain module forward")
+    log("main", f"predict with examples/rbq10.py's rbq10: engine {fn.engine}, "
+                f"{out['fused_forward']} launch for {N_ROWS} rows at batch_size {BATCH}, max "
+                f"|diff| vs the plain module forward {err:.3e} (ok)")
+
+    two = traced_train(et, "two-output train() (reco, nee; 15% NaN targets, agg mean), quick-start "
+                           "size", models["two_outputs"](), two_output_columns(et, TRAIN_ROWS),
+                       fe.launch_fused_epoch, "cuda_fused_epoch",
+                       {**TRAIN_KW, "agg": "mean"}, TRAIN_KW["nepochs"])
+    q10 = float(et.scale_param(two["result"].params["globals.Q10"], 1.0, 4.0))
+    # the torch engine on a CPU: best val mse 0.01045, Q10 2.0011
+    if not (abs(q10 - 2.0) < 0.15 and two["result"].best_loss < 0.05):
+        raise AssertionError(f"two-output train(): Q10 {q10:.4f}, best val mse "
+                             f"{two['result'].best_loss:.5f}")
+    log("main", f"two-output train(): Q10 {q10:.4f} (within 0.15 of 2.0, best val mse below 0.05; "
+                "the torch engine on a CPU: 2.0011, 0.01045) (ok)")
+    wide = traced_train(et, f"exponential train() on the tower {list(WIDE_HIDDEN)}, {WIDE_ROWS} "
+                            f"rows, {WIDE_TRAIN_KW['nepochs']} epochs of {WIDE_BATCH}",
+                        models["expo"](hidden=WIDE_HIDDEN), expo_columns(WIDE_ROWS, seed=42),
+                        fw.launch_fused_wide, "cuda_fused_wide", WIDE_TRAIN_KW,
+                        WIDE_TRAIN_KW["nepochs"])
+    out["fused_wide"] = wide["launches"]
+    sites = traced_train(et, f"exponential multi-site train(), k per site, {MS_SITES} sites x "
+                             f"{MS_OBS}, {MS_TRAIN_KW['nepochs']} epochs",
+                         models["expo_sites"](MS_SITES), ms_data, fm.launch_fused_multisite,
+                         "cuda_fused_multisite", MS_TRAIN_KW,
+                         MS_TRAIN_KW["nepochs"] // MS_TRAIN_KW["eval_every"])
+    out["fused_multisite"] = sites["launches"]
+    k = et.scale_param(sites["result"].params["globals.k"], *EXPO_PARAMS["k"][1:]).numpy().ravel()
+    if k.shape != (MS_SITES,) or not np.isfinite(k).all():
+        raise AssertionError(f"per-site k: shape {k.shape}")
+    tr = slice(0, MS_TRAIN_SITES)
+    corr = float(np.corrcoef(k[tr], k_true[tr])[0, 1])
+    untouched = float(np.abs(k[MS_TRAIN_SITES:] - EXPO_PARAMS["k"][0]).max())
+    if not (corr > 0.8 and untouched < 1e-6):
+        raise AssertionError(f"per-site k of the training sites: correlation {corr:.3f} with the "
+                             f"truth (need > 0.8), validation sites moved by {untouched:.2e}")
+    log("main", f"exponential multi-site train(): per-site k of the {MS_TRAIN_SITES} training "
+                f"sites: correlation {corr:.4f} with the truth (above 0.8), mean |err| "
+                f"{float(np.abs(k[tr] - k_true[tr]).mean()):.5f}; validation sites unmoved (ok)")
+    lstm = lstm_main_path(et, card, mechanistic=fns["rbq10_lstm"])
+    out["fused_epoch_lstm"] = lstm["launches"]
+    return out
+
+
+def traced_times(et, card, models, ms_data) -> dict:
+    """Phase 21: each kernel's device time on its traced form against the
+    hand-written rbq10 form in the same call (kernels 1, 2 and 4, turns
+    hand-written, traced, traced, hand-written), and against its plain
+    version (kernels 3 and 5: the exponential model), at phase 20's shapes."""
+    from easyhybrid_tpu_torch.data.prepare import HybridData
+    from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    def turns(calls: dict, timer) -> dict:
+        ms = {k: [] for k in calls}
+        for i in range(4):
+            for k in (list(calls) if i % 2 == 0 else list(reversed(list(calls)))):
+                ms[k].append(timer(calls[k]))
+        return {k: statistics.median(v) for k, v in ms.items()}
+
+    out = {}
+    # kernel 1, 131,072 rows, one launch
+    cols = et.rbq10_columns(N_ROWS, seed=42)
+    hand, traced = build_model(et), models["rbq10"]()
+    traced.load_state_dict(hand.state_dict())
+    x, forcing = to_device(et, hand, cols)
+    to_device(et, traced, cols)
+    fns = {"hand-written": et.make_fused_forward(hand, batch_size=N_ROWS),
+           "traced": et.make_fused_forward(traced, batch_size=N_ROWS)}
+    calls = {k: (lambda f=f: f(x, forcing)) for k, f in fns.items()}
+    for f in calls.values():
+        host_ms(f, 2)
+    ms = turns(calls, lambda f: device_ms(f, 50, "kernel 1"))
+    host_ms(lambda: fns["traced"].reference(x, forcing), 2)  # warm-up
+    plain = device_ms(lambda: fns["traced"].reference(x, forcing), 10, "plain forward")
+    dims = fns["traced"].plan.dims
+    out["fused_forward"] = dict(ms=ms["traced"], hand_ms=ms["hand-written"], plain_ms=plain,
+                                bound=bound(bytes_moved=N_ROWS * 4 * (3 + 2),
+                                            flops=N_ROWS * forward_flops(dims)))
+    # kernel 2, one epoch of the reference quick-start: its 16,000 training rows in
+    # 32 steps of up to 512, rmsprop
+    quick = et.rbq10_columns(TRAIN_ROWS, seed=42)
+    calls, plains = {}, {}
+    for k, m in (("hand-written", build_model(et)), ("traced", models["rbq10"]())):
+        data = et.split_data(quick, m)[0]
+        fn, packed, tensors, perms = epoch_inputs(et, m, data, make=et.make_fused_epoch,
+                                                  opt=REFERENCE_KW["optimizer"], batch=512,
+                                                  epochs=1, shuffle=True)
+        opt0 = fe.init_fused_opt_state(packed)
+        calls[k] = lambda fn=fn, p=packed, o=opt0, t=tensors, q=perms: fn(p, o, t, perms=q)
+        plains[k] = lambda fn=fn, p=packed, o=opt0, t=tensors, q=perms: fn.reference(
+            p, o, t, perms=q)
+    for f in calls.values():
+        host_ms(f, 2)
+    ms = turns(calls, lambda f: device_ms(f, 20, "kernel 2"))
+    n = data.n_samples
+    out["fused_epoch"] = dict(ms=ms["traced"], hand_ms=ms["hand-written"],
+                              plain_ms=profiled_device_ms(plains["traced"], 1),
+                              bound=bound(bytes_moved=n * 4 * 6,
+                                          flops=n * 3 * forward_flops(dims)))
+    # kernel 4, one epoch at the main path's shape (25 steps of 128 windows)
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    cols = {k: v[: int(LSTM_ROWS * 0.8)] for k, v in cols.items()}
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=10, output_window=1, lead_time=0)
+    calls, plains = {}, {}
+    for k, m in (("hand-written", lstm_model(et)), ("traced", models["rbq10_lstm"]())):
+        fn, packed, tensors, perms = epoch_inputs(et, m, data, make=et.make_fused_lstm_epoch,
+                                                  opt=("adam", 0.01), batch=128, epochs=1,
+                                                  shuffle=True, loss="nseLoss")
+        opt0 = fe.init_fused_opt_state(packed)
+        calls[k] = lambda fn=fn, p=packed, o=opt0, t=tensors, q=perms: fn(p, o, t, perms=q)
+        plains[k] = lambda fn=fn, p=packed, o=opt0, t=tensors, q=perms: fn.reference(
+            p, o, t, perms=q)
+    nb, batch = (int(v) for v in tensors.weight.shape)
+    for f in calls.values():
+        host_ms(f, 2)
+    ms = turns(calls, lambda f: device_ms(f, 5, "kernel 4"))
+    out["fused_epoch_lstm"] = dict(
+        ms=ms["traced"], hand_ms=ms["hand-written"],
+        plain_ms=profiled_device_ms(plains["traced"], 1),
+        bound=bound(**{k: v * nb for k, v in lstm_step_bound(batch, 10).items()}))
+    # kernel 3, one epoch of the tower: 16 steps of 1,024, the exponential model
+    m = models["expo"](hidden=WIDE_HIDDEN)
+    fn, packed, tensors, perms = epoch_inputs(
+        et, m, et.prepare_data(m, expo_columns(WIDE_ROWS * 4 // 5, seed=42)),
+        make=et.make_fused_wide_epoch, opt=("adam", 0.01), batch=WIDE_BATCH, epochs=1,
+        shuffle=True)
+    opt0 = fe.init_fused_opt_state(packed)
+    call = lambda: fn(packed, opt0, tensors, perms=perms)  # noqa: E731
+    host_ms(call, 2)
+    nb, batch = (int(v) for v in tensors.weight.shape)
+    # three passes of the layer products, each three TF32 products on the tensor cores
+    by_bytes = nb * (batch * 4 * 6 + fn.plan.n_params * 4 * 6) / PEAK_BYTES_PER_S * 1e3
+    by_tc = 3 * nb * batch * 3 * forward_flops(fn.plan.dims) / PEAK_TF32_FLOPS * 1e3
+    out["fused_wide"] = dict(
+        ms=statistics.median(kernel_device_ms(call, 2, "eh_wide_") for _ in range(3)),
+        plain_ms=profiled_device_ms(lambda: fn.reference(packed, opt0, tensors, perms=perms), 1),
+        bound={"bound_ms": max(by_bytes, by_tc),
+               "bound_by": "bytes" if by_bytes >= by_tc else "operations"})
+    # kernel 5, one step over phase 20's 8,000 training sites x 64, k per site
+    m = models["expo_sites"](MS_SITES)
+    fn, packed, tensors, perms = epoch_inputs(
+        et, m, ms_data.take(np.arange(MS_TRAIN_SITES)), make=et.make_fused_multisite_epoch,
+        opt=MS_TRAIN_KW["optimizer"], batch=MS_TRAIN_SITES, epochs=1, shuffle=False)
+    opt0 = fe.init_fused_opt_state(packed)
+    call = lambda: fn(packed, opt0, tensors)  # noqa: E731
+    host_ms(call, 2)
+    samples = MS_TRAIN_SITES * MS_OBS
+    out["fused_multisite"] = dict(
+        ms=statistics.median(kernel_device_ms(call, 4, "eh_ms_") for _ in range(3)),
+        plain_ms=profiled_device_ms(lambda: fn.reference(packed, opt0, tensors), 2),
+        bound=bound(bytes_moved=samples * 4 * 5 + MS_TRAIN_SITES * 4 * 6,
+                    flops=samples * 3 * forward_flops(fn.plan.dims)))
+    for k, v in out.items():
+        log("times", f"[{card}] {k} with a traced form: device ms {v['ms']:.5f}"
+                     + (f" against {v['hand_ms']:.5f} on the hand-written rbq10 form "
+                        f"({v['ms'] / v['hand_ms'] - 1:+.1%})" if "hand_ms" in v else "")
+                     + f"; plain version {v['plain_ms']:.4f}")
+    return out
+
+
 def main() -> None:
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1670,11 +2192,17 @@ def main() -> None:
 
     # 2. build ----------------------------------------------------------------
     # kernel 2's stamped build (phase 8), kernel 5's (phase 12) and kernel 4's
-    # chain-only build (phase 15) are made beside the library's
-    pool = concurrent.futures.ThreadPoolExecutor(3)
+    # chain-only build (phase 15) are made beside the library's, and so is every
+    # traced form's build of each kernel it runs (phases 19-21)
+    models = traced_models(et)
+    forms = traced_forms(et, models)
+    n_traced = sum(len(keys) for keys in TRACED_BUILDS.values())
+    pool = concurrent.futures.ThreadPoolExecutor(3 + n_traced)
     stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
     ms_stamped_build = pool.submit(_build.build_variant, "fused_multisite.cu", ("-DEHM_STAMPS",))
     chain_build = pool.submit(_build.build_variant, "fused_epoch_lstm.cu", ("-DEHL_CHAIN_ONLY",))
+    t_traced = time.perf_counter()
+    traced_builds = start_traced_builds(pool, forms)
     pool.shutdown(wait=False)
     built = _build.build_library()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS[:2])} -> {built.path.name} "
@@ -1684,6 +2212,17 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log("build", line.strip())
     _build.load_library()
+    for (src, key), fut in traced_builds.items():
+        result = fut.result()
+        spills = [ln.strip() for ln in result.log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        log("build", f"{src} against the traced form of {key} ({forms[key].name}, "
+                     f"{len(forms[key].args)} arguments, {forms[key].n_outputs} output(s), header "
+                     f"eh_form_{forms[key].header_hash}.cuh): nvcc {result.seconds:.2f} s"
+                     + (f"; {'; '.join(spills)}" if spills else ", no spills"))
+    traced_build_s = time.perf_counter() - t_traced
+    log("build", f"the {n_traced} traced builds, all at once beside the library's: "
+                 f"{traced_build_s:.2f} s wall")
 
     # 3. kernel against the plain version --------------------------------------
     cases = []
@@ -1909,6 +2448,33 @@ def main() -> None:
     wide_err = wide_kernel_checks(et, wide_train_cols)
     wide_main = wide_main_path(et, card, wide_cols)
     wide_ms = wide_times(et, card, wide_main, wide_cols, wide_train_cols)["main"]
+    t0 = time.perf_counter()
+    expo_data, k_true = expo_site_data(et, models["expo_sites"](MS_SITES))
+    traced_err = traced_kernel_checks(et, models, expo_data)
+    traced_launches = traced_main_paths(et, card, models, expo_data, k_true)
+    traced_ms = traced_times(et, card, models, expo_data)
+    log("traced", f"phases 19-21 added {time.perf_counter() - t0:.1f} s to the run, beside their "
+                  f"builds' {traced_build_s:.1f} s of wall in phase 2")
+    traced_entries = [{
+        "name": f"{name} [{forms[key].name}]",
+        "route": "cuda",
+        "source": f"easyhybrid_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": traced_launches[name],
+        "max_abs_err": traced_err[name],
+        "ms": traced_ms[name]["ms"],
+        "plain_ms": traced_ms[name]["plain_ms"],
+        **traced_ms[name]["bound"],
+        "library_ms": None,
+    } for name, key, source, replaces in (
+        ("fused_forward", "rbq10", "fused_forward.cu", "easyhybrid_tpu/ops/fused_forward.py:140"),
+        ("fused_epoch", "rbq10", "fused_epoch.cu", "easyhybrid_tpu/ops/fused_epoch.py:2662"),
+        ("fused_multisite", "expo_sites", "fused_multisite.cu",
+         "easyhybrid_tpu/ops/fused_multisite.py:1125"),
+        ("fused_epoch_lstm", "rbq10_lstm", "fused_epoch_lstm.cu",
+         "easyhybrid_tpu/ops/fused_epoch.py:2662"),
+        ("fused_wide", "expo", "fused_wide.cu", "easyhybrid_tpu/ops/fused_epoch.py:2662"),
+    )]
 
     quick_dims = (2, 16, 16, 1)
     print(json.dumps({"kernels": [{
@@ -1995,7 +2561,7 @@ def main() -> None:
         # no single PyTorch call computes the step: the step's layer products through
         # torch.matmul in float32, a yardstick
         "library_ms": wide_ms["library_ms"],
-    }]}))
+    }, *traced_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -689,7 +689,8 @@ extern "C" int eh_fused_epoch(const EhFusedEpochArgs* args, int width, void* str
   const int tr = args->tile_rows;
   const int c = args->cluster;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
-      args->n_args > EH_MAX_ARGS || args->n_targets < 1 || args->n_targets > EH_MAX_TARGETS ||
+      args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
+      args->n_targets > EH_MAX_TARGETS ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
       tr < 32 || tr % 32 != 0 || (c != 1 && c != 2 && c != 4 && c != 8) ||
       (int64_t)args->block_rows * c < args->batch || args->n_padded % 4 != 0 ||

@@ -1082,7 +1082,8 @@ extern "C" int eh_fused_lstm(const EhFusedLstmArgs* args, int width, void* strea
       args->hidden < 1 || args->hidden > width || args->n_features < 1 ||
       args->n_features > EH_MAX_WIDTH || args->n_out < 1 || args->n_out > EH_LSTM_MAX_OUT ||
       args->n_out_steps < 1 || args->n_out_steps > args->n_steps ||
-      args->n_args > EH_MAX_ARGS || args->n_targets < 1 || args->n_targets > EH_MAX_TARGETS ||
+      args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
+      args->n_targets > EH_MAX_TARGETS ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->windows < 1 ||
       args->threads != (args->windows * args->lanes + 31) / 32 * 32 ||
       (c != 1 && c != 2 && c != 4 && c != 8 && c != EH_LSTM_MAX_CLUSTER) ||

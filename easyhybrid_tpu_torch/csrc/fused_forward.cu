@@ -8,7 +8,8 @@
 //   2. the MLP layers with their activations;
 //   3. the sigmoid bound scaling of each neural output;
 //   4. the scaled globals and the fixed parameters (once per block);
-//   5. the mechanistic model, in one of the fixed kernel forms;
+//   5. the mechanistic model, in the hand-written form or the traced one it is
+//      built against (eh_device.cuh, ehe_form_out);
 //   6. a write of every mechanistic output and every scaled neural parameter.
 //
 // What bounds it on an H100: at the quick-start widths (2 predictors, MLP
@@ -35,6 +36,7 @@
 // Built without --use_fast_math: NaN predictor rows propagate to NaN
 // outputs (relu is written so that it keeps NaN, as JAX's does).
 
+#define EH_NO_OPTIMIZER  // serving updates nothing: the optimizer rules stay out
 #include "eh_device.cuh"
 
 #define EH_MAX_OUTPUTS 8  // output pointers of the struct; a form writes at most EH_MAX_OUT
@@ -166,10 +168,6 @@ extern "C" int eh_fused_forward_args_size(void) {
   return (int)sizeof(EhFusedForwardArgs);
 }
 
-extern "C" const char* eh_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 template <int W>
 static int eh_ff_launch(const EhFusedForwardArgs* args, size_t smem, cudaStream_t s) {
   // allow the full 227 KB once per width, not per launch
@@ -194,7 +192,7 @@ extern "C" int eh_fused_forward(const EhFusedForwardArgs* args, int width, void*
   const size_t smem = ((size_t)args->blob_floats + args->dims[0] + args->n_globals +
                        args->n_fixed + (size_t)width * EH_ROWS * EH_BLOCK) * sizeof(float);
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
-      args->n_args > EH_MAX_ARGS || args->n_out > EH_MAX_OUT ||
+      args->n_args > EH_MAX_ARGS || args->n_out > EH_MAX_OUT || !eh_form_built(args->form) ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->blob_floats % 4 != 0 ||
       ((uintptr_t)args->blob & 15) != 0) {
     return (int)cudaErrorInvalidValue;

@@ -625,7 +625,8 @@ extern "C" int eh_fused_multisite(const EhFusedMultisiteArgs* args, int width, v
                             : args->tile_sites == 1 && (int64_t)args->site_tiles * th >= N &&
                                   (int64_t)(args->site_tiles - 1) * th < N;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
-      args->n_args > EH_MAX_ARGS || args->n_targets < 1 || args->n_targets > EH_MAX_TARGETS ||
+      args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
+      args->n_targets > EH_MAX_TARGETS ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
       N < 1 || th < 32 || th > EHM_MAX_THREADS || th % 32 != 0 || !tiles_ok || spb < 1 ||
       args->n_blocks * spb < args->batch || (args->n_blocks - 1) * spb >= args->batch ||

@@ -1186,7 +1186,8 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   const EhFusedWideArgs& a = *args;
   if (a.n_epochs <= 0 || a.n_batches <= 0) return 0;
   const int L = a.n_layers;
-  if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS || a.n_targets < 1 ||
+  if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS ||
+      !eh_form_built(a.form) || a.n_targets < 1 ||
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
       a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
       a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1))

@@ -11,6 +11,11 @@ there is no stand-in library and no fallback to another implementation.
 
 No PyTorch header is included, so a build takes seconds; the library
 exchanges only raw device pointers and the CUDA stream with Python.
+
+A model whose mechanistic function is traced (``ops/kernel_forms.py``) runs
+each kernel from a library of that kernel's source built against the form's
+header (:func:`form_library`): one ``nvcc`` run per kernel and form, kept on
+disk under the same directory and reused by later processes.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
 
 __all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "measuring_library",
-           "BuildResult"]
+           "form_build", "form_library", "kernel_library", "nvcc_seconds", "BuildResult"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE_DIR / "csrc"
@@ -42,6 +48,30 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# each kernel source's launcher and its argument types: (arguments, width,
+# stream), or (arguments, stream) for kernel 3, which has no width to pick
+LAUNCHERS = {
+    "fused_forward.cu": ("eh_fused_forward", (_PTR, _INT, _PTR)),
+    "fused_epoch.cu": ("eh_fused_epoch", (_PTR, _INT, _PTR)),
+    "fused_epoch_lstm.cu": ("eh_fused_lstm", (_PTR, _INT, _PTR)),
+    "fused_multisite.cu": ("eh_fused_multisite", (_PTR, _INT, _PTR)),
+    "fused_wide.cu": ("eh_fused_wide", (_PTR, _PTR)),
+}
+_LAUNCHER_ARGTYPES = dict(LAUNCHERS.values())
+
+_lock = threading.Lock()
+_nvcc_seconds = [0.0]  # the wall seconds of every build this process made
+
+
+def nvcc_seconds() -> float:
+    """Wall seconds this process has spent in builds (``nvcc``) so far."""
+    return _nvcc_seconds[0]
+
+
+def _count(seconds: float) -> None:
+    with _lock:
+        _nvcc_seconds[0] += seconds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +172,9 @@ def build_library() -> BuildResult:
         for obj in objects:
             obj.unlink(missing_ok=True)
     log = "".join(f"== {name}\n{text}" for name, (_, text) in compiled.items())
-    return BuildResult(lib_path, time.perf_counter() - t0, log,
+    seconds = time.perf_counter() - t0
+    _count(seconds)
+    return BuildResult(lib_path, seconds, log,
                        {name: sec for name, (sec, _) in compiled.items()})
 
 
@@ -159,12 +191,14 @@ def build_variant(source: str, defines: Tuple[str, ...]) -> BuildResult:
     lib_path = _BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.is_file():
         return BuildResult(lib_path, 0.0, "", {})
+    nvcc = find_nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp_path), str(src)]
+    tmp_path = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp_path), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
+    _count(seconds)
     if proc.returncode != 0:
         tmp_path.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
@@ -172,17 +206,79 @@ def build_variant(source: str, defines: Tuple[str, ...]) -> BuildResult:
     return BuildResult(lib_path, seconds, proc.stdout, {source: seconds})
 
 
+def _declare(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
+    """``lib`` with the launcher ``entry`` (typed as in ``LAUNCHERS``),
+    ``entry + "_args_size"`` and ``eh_cuda_error_string`` declared."""
+    launch = getattr(lib, entry)
+    launch.argtypes = list(_LAUNCHER_ARGTYPES[entry])
+    launch.restype = _INT
+    size = getattr(lib, entry + "_args_size")
+    size.argtypes = []
+    size.restype = _INT
+    lib.eh_cuda_error_string.argtypes = [_INT]
+    lib.eh_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def measuring_library(source: str, entry: str, *defines: str) -> ctypes.CDLL:
     """``build_variant(source, defines)`` loaded, with the launcher ``entry``
-    (arguments, width, stream) and ``entry + "_args_size"`` declared: a
-    measuring build of one kernel (its stage stamps, its arithmetic stubbed
-    out) that a launcher takes in place of the package's library."""
-    lib = ctypes.CDLL(str(build_variant(source, tuple(defines)).path))
-    launch = getattr(lib, entry)
-    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    getattr(lib, entry + "_args_size").restype = ctypes.c_int
-    return lib
+    declared: a measuring build of one kernel (its stage stamps, its
+    arithmetic stubbed out) that a launcher takes in place of the package's
+    library. It evaluates the hand-written form only: its launcher refuses a
+    traced one."""
+    return _declare(ctypes.CDLL(str(build_variant(source, tuple(defines)).path)), entry)
+
+
+def _form_defines(form) -> Tuple[str, ...]:
+    """The flags that build a source against a traced form: its header,
+    written once under ``_build/forms/`` with the hash of its text in the
+    file name, on the include path, and named by ``EH_TRACED_FORM_HEADER``."""
+    forms = _BUILD_DIR / "forms"
+    header = forms / f"eh_form_{form.header_hash}.cuh"
+    if not header.is_file():
+        forms.mkdir(parents=True, exist_ok=True)
+        tmp = header.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_text(form.header)
+        os.replace(tmp, header)
+    return (f"-I{forms}", f'-DEH_TRACED_FORM_HEADER="{header.name}"')
+
+
+_form_locks: Dict[Tuple[str, str, Tuple[str, ...]], threading.Lock] = {}
+_form_libs: Dict[Tuple[str, str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def _form_lock(key) -> threading.Lock:
+    with _lock:
+        return _form_locks.setdefault(key, threading.Lock())
+
+
+def form_build(source: str, form, *defines: str) -> BuildResult:
+    """Build ``source`` against traced kernel form ``form`` (and any extra
+    ``defines``) unless that build exists; raises when ``nvcc`` is missing or
+    fails. Builds of other sources or forms may run at once from several
+    threads; one of the same waits for the first."""
+    key = (source, form.header_hash, tuple(defines))
+    with _form_lock(key):
+        return build_variant(source, _form_defines(form) + tuple(defines))
+
+
+def form_library(source: str, form, *defines: str) -> ctypes.CDLL:
+    """:func:`form_build` loaded, with the source's launcher declared. A
+    failed build raises; nothing falls back to the package's library."""
+    key = (source, form.header_hash, tuple(defines))
+    if key not in _form_libs:
+        lib = _declare(ctypes.CDLL(str(form_build(source, form, *defines).path)),
+                       LAUNCHERS[source][0])
+        with _lock:
+            _form_libs.setdefault(key, lib)
+    return _form_libs[key]
+
+
+def kernel_library(source: str, form) -> ctypes.CDLL:
+    """The library whose ``source`` kernel evaluates ``form``: the
+    package's for a hand-written form, :func:`form_library` for a traced
+    one."""
+    return load_library() if form.header is None else form_library(source, form)
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,30 +286,18 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C function's
     argument and result types declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    for fn in (lib.eh_fused_forward, lib.eh_fused_epoch, lib.eh_fused_lstm,
-               lib.eh_fused_multisite):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for fn in (lib.eh_fused_forward_args_size, lib.eh_fused_epoch_args_size,
-               lib.eh_fused_lstm_args_size, lib.eh_fused_multisite_args_size,
-               lib.eh_fused_wide_args_size):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-    ptr, num = ctypes.c_void_p, ctypes.c_int
-    lib.eh_fused_wide.argtypes = [ptr, ptr]  # the arguments and the stream: no width to pick
-    lib.eh_fused_wide.restype = num
-    lib.eh_wide_tc_product.argtypes = [ptr, num, ptr, num, ptr, num, num, num, num, num, num, num,
-                                       ptr]
-    lib.eh_wide_tc_product.restype = num
+    for entry, _ in LAUNCHERS.values():
+        _declare(lib, entry)
+    lib.eh_wide_tc_product.argtypes = [_PTR, _INT, _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT,
+                                       _INT, _INT, _PTR]
+    lib.eh_wide_tc_product.restype = _INT
     for fn, argtypes in (
-        (lib.eh_prim_site_gather, [ptr, ptr, ptr, num, num, ptr]),
-        (lib.eh_prim_site_reduce, [ptr, ptr, num, num, ptr]),
-        (lib.eh_prim_site_update, [ptr, ptr, ptr, num, ptr]),
-        (lib.eh_prim_site_chain, [ptr, ptr, ptr, ptr, num, num, ptr]),
-        (lib.eh_prim_block_sum, [ptr, ptr, num, num, ptr]),
+        (lib.eh_prim_site_gather, [_PTR, _PTR, _PTR, _INT, _INT, _PTR]),
+        (lib.eh_prim_site_reduce, [_PTR, _PTR, _INT, _INT, _PTR]),
+        (lib.eh_prim_site_update, [_PTR, _PTR, _PTR, _INT, _PTR]),
+        (lib.eh_prim_site_chain, [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]),
+        (lib.eh_prim_block_sum, [_PTR, _PTR, _INT, _INT, _PTR]),
     ):
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.eh_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.eh_cuda_error_string.restype = ctypes.c_char_p
+        fn.restype = _INT
     return lib

@@ -6,9 +6,10 @@ with ``kernel_body``). One launch of ``csrc/fused_epoch.cu`` runs
 hybrid: the permutation gather, the input norm (trainable BatchNorm with
 its running-statistics EMA, static, or none), the MLP forward with the
 activation derivatives saved, sigmoid bound scaling, the mechanistic model
-in a kernel form with its hand-written partials, the masked mse and its
-cotangent, the hand-written backward, the batch-validity gate and the
-update by any optax rule the JAX kernel runs (adam, adamw, sgd with or
+in its kernel form (traced from the user's function, or hand-written) with
+the form's partials, the masked mse and its cotangent, the hand-written
+backward, the batch-validity gate and the update by any optax rule the JAX
+kernel runs (adam, adamw, sgd with or
 without momentum, rmsprop, adagrad, lion, adamax, nadam, adadelta, radam,
 amsgrad, lamb; :data:`_OPTS`). Parameters, the optimizer's slots, the step
 counter and the BatchNorm statistics are read once, kept in shared memory,
@@ -243,13 +244,18 @@ def optimizer_reason(optimizer) -> Optional[str]:
     run a single rule of :data:`_OPTS` with optax's hyperparameters, as the
     JAX kernel does. ``noisy_sgd``, per-branch dicts and options outside the
     defaults are not ported (ROADMAP queue A, item 6); radam with a
-    threshold below 4 stays off the kernel, as the JAX kernel leaves it."""
+    threshold below 4 stays off the kernel, as the JAX kernel leaves it, and
+    so does adadelta given as a dict without a learning rate (optax's
+    unscaled step)."""
     try:
         name, hyper = parse_opt_spec(optimizer)
     except (NotImplementedError, ValueError, TypeError) as e:
         return f"optimizer {optimizer!r}: {e}"
     if name not in _OPTS:
         return f"optimizer {name!r} (the kernels run {', '.join(_OPTS)})"
+    if hyper["learning_rate"] is None:
+        return (f"{name} without a learning rate (optax's step without the -lr scale, which "
+                "the kernels do not take)")
     if name == "radam" and hyper["threshold"] < 4.0:
         return (f"radam with threshold {hyper['threshold']} < 4 (optax's rectified branch takes "
                 "the square root of a negative number there; the JAX kernel refuses it too)")
@@ -647,7 +653,7 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
     optimizer, and the parameters ``names`` (then the globals) laid out as
     segments of one packed vector."""
     net = model.nn
-    form = _form_of(model.mechanistic_model)
+    form, _ = _form_of(model)
     arg_sources, _ = _arg_sources(model, form)
     outputs = _probe_outputs(model, form, arg_sources)
     missing = [t for t in model.targets if t not in outputs]
@@ -1111,9 +1117,8 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     ``launch_fused_epoch.launches``. ``lib`` is a measuring build of the
     kernel (:func:`stage_cycles`) in place of the package's library, and
     ``stamps`` the int64 tensor its stage cycles go to."""
-    main_lib = _build.load_library()
     measuring = lib is not None  # not a launch of the package's kernel: not counted
-    lib = lib or main_lib
+    lib = lib or _build.kernel_library("fused_epoch.cu", plan.form)
     if lib.eh_fused_epoch_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -1143,7 +1148,7 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
         rc = lib.eh_fused_epoch(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused epoch kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
+            f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
     if not measuring:
         launch_fused_epoch.launches += 1
 

@@ -665,9 +665,8 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
         raise ValueError(f"a window of {steps} steps at hidden size {plan.hidden} does not fit "
                          "the fused LSTM kernel's shared memory")
     geometry = plan.geometry(data.batch, steps, out_steps)
-    main_lib = _build.load_library()
     measuring = lib is not None
-    lib = lib or main_lib
+    lib = lib or _build.kernel_library("fused_epoch_lstm.cu", plan.form)
     if lib.eh_fused_lstm_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -697,7 +696,7 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
         rc = lib.eh_fused_lstm(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused LSTM epoch kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
+            f"fused LSTM epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
     if not measuring:
         launch_fused_lstm.launches += 1
 

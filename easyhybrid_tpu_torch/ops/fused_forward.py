@@ -7,14 +7,16 @@ the neural outputs, the scaled globals and fixed parameters, the mechanistic
 model, and a write of every mechanistic output and every scaled neural
 parameter.
 
-CUDA cannot trace an arbitrary Python function into the kernel the way
-Pallas does, so the mechanistic model enters in a fixed **kernel form**: a
-function tagged with :func:`kernel_form` names a form that the kernel
-implements (this release: ``"rbq10"``). Each argument of the form is mapped
-by name to a forcing column, a neural parameter, a global, a fixed
-parameter, or else to the function's keyword default. When the forward is
-built, the tagged function is evaluated once against the form's torch
-transcription on probe values, and a mismatch raises.
+The mechanistic model enters the kernel as a **kernel form**
+(``ops/kernel_forms.py``): the user's function traced with ``torch.fx`` and
+emitted as a CUDA device function the kernel is built against, or, for a
+function tagged with :func:`kernel_form`, the hand-written form the sources
+hold (this release: ``"rbq10"``). Each argument of the form is mapped by
+name to a forcing column, a neural parameter, a global, a fixed parameter,
+or else to the function's keyword default. When the forward is built, the
+function is evaluated once against the form's torch transcription on probe
+values, and a mismatch raises. A function the tracer cannot express is
+outside the envelope, with the tracer's reason.
 
 On a CPU tensor the wrapper computes :func:`fused_forward_reference`, the
 plain PyTorch version of the same function on the same packed parameters;
@@ -29,7 +31,7 @@ import ctypes
 import dataclasses
 import functools
 import inspect
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from ..models.hybrid import SingleNNHybridModel, _call_mechanistic
 from ..models.nn import MLP, get_activation
 from . import _build
+from .kernel_forms import FORM_RBQ10, MAX_ARGS, MAX_OUTPUTS, KernelForm, traced_form
 
 __all__ = [
     "KERNEL_FORMS",
@@ -57,8 +60,6 @@ __all__ = [
 MAX_WIDTH = 64
 MAX_LAYERS = 8
 MAX_FORCING = 8
-MAX_OUTPUTS = 8
-MAX_ARGS = 8
 MAX_SCALARS = 16
 MAX_SMEM_FLOATS = 48 * 1024 // 4  # the envelope's cap on the packed parameters
 _WIDTHS = (16, 32, 64)  # the kernel's compile-time widths
@@ -78,24 +79,6 @@ _SRC_FORCING, _SRC_NEURAL, _SRC_SCALAR, _SRC_CONST = 0, 1, 2, 3
 # kernel forms of the mechanistic model
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class KernelForm:
-    """A mechanistic model the kernels implement: its id in the CUDA
-    sources, its argument names in kernel order, its torch transcription
-    ``torch_fn(*args) -> tuple`` of ``n_outputs`` tensors (in the order of
-    the outputs of the tagged function), and the transcription of its
-    partials ``partials_fn(*args) -> tuple`` (one per output) of tuples
-    (one per argument) of ``∂output/∂argument``, which the training kernel
-    uses in place of automatic differentiation."""
-
-    name: str
-    form_id: int
-    args: Tuple[str, ...]
-    n_outputs: int
-    torch_fn: Callable
-    partials_fn: Callable
-
-
 def _rbq10_torch(rb, Q10, ta, tref):
     return (rb * torch.pow(Q10, 0.1 * (ta - tref)),)
 
@@ -109,7 +92,7 @@ def _rbq10_partials(rb, Q10, ta, tref):
 
 
 KERNEL_FORMS: Dict[str, KernelForm] = {
-    "rbq10": KernelForm("rbq10", 0, ("rb", "Q10", "ta", "tref"), 1, _rbq10_torch,
+    "rbq10": KernelForm("rbq10", FORM_RBQ10, ("rb", "Q10", "ta", "tref"), 1, _rbq10_torch,
                         _rbq10_partials),
 }
 
@@ -136,8 +119,18 @@ def rbq10(*, ta, rb, Q10, tref=15.0):
 # envelope
 # --------------------------------------------------------------------------
 
-def _form_of(fn) -> Optional[KernelForm]:
-    return KERNEL_FORMS.get(getattr(fn, "__kernel_form__", None))
+def _form_of(model) -> Tuple[Optional[KernelForm], Optional[str]]:
+    """``(form, None)``: the hand-written form the model's mechanistic
+    function is tagged with, else the form traced from it; or ``(None,
+    reason)`` when the tracer cannot express the function."""
+    fn = model.mechanistic_model
+    tag = getattr(fn, "__kernel_form__", None)
+    if tag is not None:
+        return KERNEL_FORMS[tag], None
+    available = dict.fromkeys((*model.forcing, *model.neural_param_names,
+                               *model.global_param_names, *model.fixed_param_names))
+    form = traced_form(fn, tuple(available))
+    return (None, form) if isinstance(form, str) else (form, None)
 
 
 def _keyword_defaults(fn) -> Dict[str, object]:
@@ -183,7 +176,8 @@ def fused_forward_unsupported_reason(model, *, training: bool = False,
 
     The envelope is the JAX kernel's (a SingleNN MLP hybrid with static or
     no input norm) plus this kernel's own limits: a mechanistic function
-    tagged with a known kernel form whose arguments all resolve, the 12
+    the kernel forms take (tagged, or traced from the function) whose
+    arguments all resolve, the 12
     named activations, float32 with no ``compute_dtype``, and widths,
     depth and parameter counts within the caps above. ``training=True``
     asks for the model checks the training kernel shares: trainable input
@@ -227,17 +221,17 @@ def float32_reason(model) -> Optional[str]:
 
 def mechanistic_reason(model) -> Optional[str]:
     """Why the kernels cannot evaluate the model's mechanistic function, or
-    None: it must carry a known kernel form whose arguments all resolve,
-    with forcing columns and scalar parameters within the kernels' caps."""
+    None: it must be tagged with a known kernel form or be traceable into
+    one (``ops/kernel_forms.py``), with every argument resolved and the
+    forcing columns and scalar parameters within the kernels' caps."""
     if len(model.forcing) > MAX_FORCING:
         return f"{len(model.forcing)} forcing columns exceed the cap of {MAX_FORCING}"
     n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
     if n_scalars > MAX_SCALARS:
         return f"{n_scalars} global and fixed parameters exceed the cap of {MAX_SCALARS}"
-    form = _form_of(model.mechanistic_model)
+    form, reason = _form_of(model)
     if form is None:
-        name = getattr(model.mechanistic_model, "__name__", model.mechanistic_model)
-        return f"mechanistic model {name!r} carries no kernel form (see kernel_form)"
+        return reason
     _, unresolved = _arg_sources(model, form)
     if unresolved is not None:
         return (
@@ -379,8 +373,9 @@ class FusedPlan:
 
 
 def _probe_outputs(model, form: KernelForm, arg_sources) -> Tuple[str, ...]:
-    """Evaluate the tagged function and the form's transcription on probe
-    values; return the function's output names, or raise on a mismatch."""
+    """Evaluate the mechanistic function and its form's transcription on
+    probe values; return the function's output names, or raise on a
+    mismatch (a function tagged with a form it does not compute)."""
     gen = torch.Generator().manual_seed(20240)
     n = 257
     table = model.param_table
@@ -402,15 +397,17 @@ def _probe_outputs(model, form: KernelForm, arg_sources) -> Tuple[str, ...]:
     fn_name = getattr(model.mechanistic_model, "__name__", model.mechanistic_model)
     if len(want) != form.n_outputs:
         raise ValueError(
-            f"mechanistic model {fn_name!r} is tagged {form.name!r} but returns "
+            f"mechanistic model {fn_name!r} takes the form {form.name!r} but returns "
             f"{len(want)} outputs {sorted(want)}; the form has {form.n_outputs}"
         )
     for (key, w), g in zip(want.items(), got):
         w = torch.as_tensor(w, dtype=torch.float32)
         g = torch.as_tensor(g, dtype=torch.float32)
+        if w.shape != g.shape and w.numel() == 1:  # an output of constants, broadcast
+            w = w.reshape(()).expand(g.shape)
         if w.shape != g.shape or not torch.allclose(w, g, rtol=1e-5, atol=1e-6, equal_nan=True):
             raise ValueError(
-                f"mechanistic model {fn_name!r} is tagged {form.name!r} but its "
+                f"mechanistic model {fn_name!r} takes the form {form.name!r} but its "
                 f"output {key!r} disagrees with the form on probe values"
             )
     check_form_partials(form, args)
@@ -418,8 +415,9 @@ def _probe_outputs(model, form: KernelForm, arg_sources) -> Tuple[str, ...]:
 
 
 def check_form_partials(form: KernelForm, args) -> None:
-    """Hold the form's hand-written partials against ``torch.func.jvp`` of
-    its transcription, one argument at a time; raise on a mismatch."""
+    """Hold the form's partials (hand-written, or emitted by the tracer)
+    against ``torch.func.jvp`` of its transcription, one argument at a time;
+    raise on a mismatch."""
     n = max(int(torch.as_tensor(a).numel()) for a in args)
     prim = tuple(torch.as_tensor(a, dtype=torch.float32).expand(n).clone() for a in args)
     parts = form.partials_fn(*prim)
@@ -444,7 +442,7 @@ def plan_fused_forward(model) -> FusedPlan:
     if reason is not None:
         raise ValueError(f"model not supported by the fused forward kernel: {reason}")
     net = model.nn
-    form = _form_of(model.mechanistic_model)
+    form, _ = _form_of(model)
     arg_sources, _ = _arg_sources(model, form)
     output_names = _probe_outputs(model, form, arg_sources)
     dims = (net.in_dim,) + net.hidden + (net.out_dim,)
@@ -532,15 +530,15 @@ def fused_forward_reference(plan: FusedPlan, x, forcing) -> Dict[str, torch.Tens
             args.append(scalars[idx : idx + 1])
         else:
             args.append(const)
-    outs = plan.form.torch_fn(*args)
-    return {**dict(zip(plan.output_names, outs)), **neural}
+    outs = plan.form.torch_fn(*args)  # an output of globals alone is broadcast to the rows
+    return {**{k: v.expand(x.shape[0]) for k, v in zip(plan.output_names, outs)}, **neural}
 
 
 def launch_fused_forward(plan: FusedPlan, x, forcing, outputs) -> None:
     """Launch the CUDA kernel once over the rows of ``x`` (checked CUDA
     float32 tensors), writing into ``outputs`` (name → ``(N,)``); raises if
     the launch is refused. Counts launches in ``launch_fused_forward.launches``."""
-    lib = _build.load_library()
+    lib = _build.kernel_library("fused_forward.cu", plan.form)
     if lib.eh_fused_forward_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

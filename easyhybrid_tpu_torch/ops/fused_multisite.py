@@ -552,9 +552,8 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     whose launches are not counted, and ``stamps`` the int64 tensor its stage
     cycles go to; ``target_blocks`` and ``max_threads`` go to
     :func:`multisite_geometry`."""
-    main_lib = _build.load_library()
     measuring = lib is not None
-    lib = lib or main_lib
+    lib = lib or _build.kernel_library("fused_multisite.cu", plan.form)
     if lib.eh_fused_multisite_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
@@ -598,7 +597,7 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
         rc = lib.eh_fused_multisite(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused multisite kernel launch failed: {main_lib.eh_cuda_error_string(rc).decode()}")
+            f"fused multisite kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
     opt_state["t"].copy_(tcount[-1:].round().to(torch.int32))
     if not measuring:
         launch_fused_multisite.launches += 1

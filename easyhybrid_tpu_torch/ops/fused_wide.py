@@ -596,7 +596,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     with one call of the C launcher, updating ``packed`` and ``opt_state`` in
     place and writing the last epoch's mean batch loss into ``loss``; raises
     if a launch is refused. Counts calls in ``launch_fused_wide.launches``."""
-    lib = _build.load_library()
+    lib = _build.kernel_library("fused_wide.cu", plan.form)
     if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

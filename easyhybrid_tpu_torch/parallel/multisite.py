@@ -92,7 +92,7 @@ class SiteNetworks(nn.Module):
         if not isinstance(template, MLP) or template.compute_dtype is not None:
             raise NotImplementedError(
                 "share_nn=False lifts a float32 MLP; other networks are not ported to "
-                "easyhybrid_tpu_torch yet (ROADMAP.md, queue A, item 13)")
+                "easyhybrid_tpu_torch yet (ROADMAP.md, queue A, item 4)")
         self.in_dim, self.out_dim, self.hidden = template.in_dim, template.out_dim, template.hidden
         self.input_batchnorm = template.input_batchnorm
         self.layers = nn.ModuleList(_SiteDense(layer, n_sites, generator)

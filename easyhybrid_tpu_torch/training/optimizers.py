@@ -84,9 +84,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def parse_opt_spec(spec) -> Tuple[str, Dict[str, float]]:
+def parse_opt_spec(spec) -> Tuple[str, Dict[str, Optional[float]]]:
     """``(name, hyperparameters)`` of a single-rule spec; raises for specs the
-    port does not implement."""
+    port does not implement. A dict spec is the optax constructor's keywords:
+    without ``learning_rate`` it raises ``TypeError``, except for adadelta,
+    whose learning rate is then ``None`` (optax's step without ``-lr``)."""
     if isinstance(spec, Mapping):
         raise _not_ported("a per-branch optimizer dict", "item 6")
     if isinstance(spec, str):
@@ -101,13 +103,21 @@ def parse_opt_spec(spec) -> Tuple[str, Dict[str, float]]:
         raise _not_ported("noisy_sgd (its optax noise stream)", "item 6")
     if name not in OPT_DEFAULTS:
         raise ValueError(f"unknown optimizer {name!r}; known: {sorted(OPT_DEFAULTS)}")
-    hyper = dict(OPT_DEFAULTS[name])
+    hyper: Dict[str, Optional[float]] = dict(OPT_DEFAULTS[name])
     if len(rest) == 1 and isinstance(rest[0], Mapping):
+        # the dict goes to the optax constructor as its keywords, as the JAX
+        # package passes it: every rule but adadelta requires learning_rate,
+        # and adadelta's defaults to None, a step with no -lr scale
         kw = dict(rest[0])
         unknown = set(kw) - set(hyper)
         if unknown:
             raise _not_ported(f"{name} options {sorted(unknown)}", "item 6")
-        hyper.update({k: float(v) for k, v in kw.items()})
+        if "learning_rate" not in kw:
+            if name != "adadelta":
+                raise TypeError(f"{name}() missing 1 required positional argument: "
+                                "'learning_rate'")
+            kw["learning_rate"] = None
+        hyper.update({k: None if v is None else float(v) for k, v in kw.items()})
     else:
         names = _POSITIONAL[name]
         if len(rest) > len(names):
@@ -149,7 +159,7 @@ def _leaf_update(name: str, h: Dict[str, float], g, p, s: Dict[str, Any], t):
         e_g = (1.0 - rho) * (ge * ge) + rho * s["e_g"]
         upd = (torch.sqrt(s["e_x"] + eps) / torch.sqrt(e_g + eps)) * ge
         e_x = (1.0 - rho) * (upd * upd) + rho * s["e_x"]
-        return -lr * upd, {"e_g": e_g, "e_x": e_x}
+        return (upd if lr is None else -lr * upd), {"e_g": e_g, "e_x": e_x}
 
     b1, b2 = h["b1"], h["b2"]
     mu = (1.0 - b1) * g + b1 * s["mu"]

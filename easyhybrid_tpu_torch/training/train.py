@@ -44,6 +44,7 @@ from ..data.loaders import build_epoch_tensors
 from ..data.prepare import HybridData
 from ..data.split import merged_sequence_kwargs, split_data
 from ..losses.specs import LoggingLoss
+from ..ops._build import nvcc_seconds
 from ..ops.fused_epoch import fused_engine, fused_exactness_check, init_fused_opt_state
 from ..params import scale_param
 from .early_stopping import EarlyStopping
@@ -222,13 +223,19 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
             return False, engine.shuffle_refusal.format(shuffle)
         return False, ("model/optimizer/loss outside the fused-kernel envelope "
                        f"({engine.envelope}): {reason}")
+    # the gate's first launch builds the kernel for a traced mechanistic form
+    # that has no build on disk yet (one nvcc run, then cached on disk)
+    t0, nvcc0 = time.perf_counter(), nvcc_seconds()
     ok, gdiff = fused_exactness_check(
         model, cfg.optimizer, logging_loss, tensors, epochs_per_call=eval_every,
         shuffle=cfg.shuffle_each_epoch,
     )
+    gate_s, nvcc_s = time.perf_counter() - t0, nvcc_seconds() - nvcc0
+    log.info("exactness gate: %.2f s, of it %.2f s building kernels (nvcc)", gate_s, nvcc_s)
     if ok:
         log.info("fused CUDA epoch kernel enabled (exactness gate: max grad diff %.2e)", gdiff)
-        return True, f"exactness gate passed (max grad diff {gdiff:.2e})"
+        built = f", {nvcc_s:.1f} s of them nvcc" if nvcc_s > 0.0 else ""
+        return True, f"exactness gate passed (max grad diff {gdiff:.2e}; {gate_s:.2f} s{built})"
     if use_kernel is True:
         log.warning("use_kernel was requested but the runtime exactness gate FAILED "
                     "(max grad diff %.2e): running the torch epoch", gdiff)

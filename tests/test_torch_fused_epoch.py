@@ -215,7 +215,7 @@ def test_first_batch_fully_masked_keeps_adam_finite():
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
     ({}, "noisy_sgd", LL, "noisy_sgd"),
-    ({}, ("radam", {"threshold": 3.0}), LL, "threshold 3.0 < 4"),
+    ({}, ("radam", {"learning_rate": 0.01, "threshold": 3.0}), LL, "threshold 3.0 < 4"),
     ({}, {"nn": "adam"}, LL, "per-branch"),
     ({}, "adam", et.LoggingLoss(training_loss="mae"), "trains mse"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),

@@ -35,6 +35,12 @@ def rbq10_untagged(*, ta, rb, Q10, tref=15.0):
     return {"reco": rb * Q10 ** (0.1 * (ta - tref))}
 
 
+def rbq10_branching(*, ta, rb, Q10, tref=15.0):
+    if ta > tref:  # control flow on a value: the tracer refuses it
+        return {"reco": rb * Q10}
+    return {"reco": rb}
+
+
 def _spec(**kw):
     spec = dict(
         predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
@@ -147,7 +153,7 @@ def _no_activation(x):
 
 @pytest.mark.parametrize("overrides,reason", [
     (dict(input_batchnorm=True), "trainable input BatchNorm"),
-    (dict(mechanistic_model=rbq10_untagged), "carries no kernel form"),
+    (dict(mechanistic_model=rbq10_branching), "no kernel form: control flow on a traced value"),
     (dict(activation=_no_activation), "not one of the kernel's"),
     (dict(hidden_layers=[65]), "exceed the kernel's cap of 64"),
     (dict(hidden_layers=[4] * 8), "layers exceed"),
@@ -166,6 +172,8 @@ def test_envelope_reasons(overrides, reason):
 def test_envelope_accepts_the_quick_start_model():
     tm = et.construct_hybrid_model(**_spec())
     assert et.supports_fused_forward(tm)
+    assert et.supports_fused_forward(et.construct_hybrid_model(
+        **_spec(mechanistic_model=rbq10_untagged)))  # traced
     assert ff.fused_forward_unsupported_reason(tm) is None
     assert et.supports_fused_forward(et.construct_hybrid_model(**_spec(hidden_layers=[64, 64])))
     assert not et.supports_fused_forward(tm.double())

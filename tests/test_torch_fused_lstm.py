@@ -203,8 +203,8 @@ def test_mae_cotangent_is_zero_at_a_zero_residual():
     ({}, "adam", _ll(agg=lambda xs: xs[0]), "agg"),
     ({"hidden_layers": {"lstm": 65}}, "adam", _ll(), "cap of 64"),
     ({"hidden_layers": [8]}, "adam", _ll(), "not an LSTMNet"),
-    ({"mechanistic_model": lambda *, ta, rb, Q10: {"reco": rb * Q10 ** (0.1 * (ta - 15.0))}},
-     "adam", _ll(), "no kernel form"),
+    ({"mechanistic_model": lambda *, ta, rb, Q10: {"reco": rb * Q10 if ta > 15.0 else rb}},
+     "adam", _ll(), "no kernel form"),  # control flow on a value: the tracer refuses it
 ])
 def test_envelope_reasons(overrides, optimizer, logging, reason):
     tm = et.construct_hybrid_model(**_spec(**overrides), device="cpu")

@@ -45,6 +45,10 @@ def _rbq10(*, ta, rb, Q10, tref=15.0):
     return {"reco": rb * Q10 ** (0.1 * (ta - tref))}
 
 
+def _rbq10_branching(*, ta, rb, Q10, tref=15.0):
+    return {"reco": rb * Q10 if ta > tref else rb}  # control flow: the tracer refuses it
+
+
 def spec(hidden=(8, 8), norm=False, act="swish", **kw):
     out = dict(
         predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
@@ -228,19 +232,20 @@ def test_envelope_verdicts_follow_the_jax_package():
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
     ({}, "noisy_sgd", et.LoggingLoss(), "noisy_sgd"),
-    ({}, ("radam", {"threshold": 3.0}), et.LoggingLoss(), "threshold 3.0 < 4"),
+    ({}, ("radam", {"learning_rate": 0.01, "threshold": 3.0}), et.LoggingLoss(),
+     "threshold 3.0 < 4"),
     ({}, "adam", et.LoggingLoss(training_loss="rmse"), "mse, mae, nseLoss"),
     ({}, "adam", et.LoggingLoss(training_loss=et.pinball(0.3)), "mse, mae, nseLoss"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
     ({}, "adam", et.LoggingLoss(agg=lambda xs: xs[0]), "agg"),
     ({"norm": True}, "adam", et.LoggingLoss(), "trainable input BatchNorm"),
     ({"hidden": (65,)}, "adam", et.LoggingLoss(), "cap of 64"),
-    ({"untagged": True}, "adam", et.LoggingLoss(), "kernel form"),
+    ({"branching": True}, "adam", et.LoggingLoss(), "kernel form"),
     ({"hidden": (64,) * 8}, "adam", et.LoggingLoss(), "9 layers exceed"),
 ], ids=lambda v: v if isinstance(v, str) else "")  # the reason names the case in every worker
 def test_envelope_reasons(overrides, optimizer, logging, reason):
     overrides = dict(overrides)
-    mech = _rbq10 if overrides.pop("untagged", False) else et.rbq10
+    mech = _rbq10_branching if overrides.pop("branching", False) else et.rbq10
     base = et.construct_hybrid_model(mechanistic_model=mech, device="cpu", **spec(**overrides))
     tm = et.MultiSiteHybridModel(base, 16, device="cpu")
     got = fm.fused_multisite_unsupported_reason(tm, optimizer, logging)
@@ -257,7 +262,8 @@ def test_engine_reason_names_the_shuffle_flag_in_the_jax_wording():
     assert not fused
     assert reason == ("minibatched multisite with shuffle_each_epoch='per_shard': the fused "
                       "multisite kernel supports shuffle_each_epoch in (True, False, 'batches')")
-    cfg = TrainConfig(optimizer=("radam", {"threshold": 3.0}), use_kernel=True)
+    cfg = TrainConfig(optimizer=("radam", {"learning_rate": 0.01, "threshold": 3.0}),
+                      use_kernel=True)
     fused, reason = _select_engine(tm, cfg, et.LoggingLoss(), tt, 1)
     assert not fused and "(supports_fused_multisite): radam with threshold 3.0 < 4" in reason
     fused, reason = _select_engine(tm, TrainConfig(), et.LoggingLoss(), tt, 1)

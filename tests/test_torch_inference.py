@@ -93,16 +93,22 @@ def test_predict_outside_the_envelope_matches_jax(rbq10_model, rbq10_df):
 
 
 def test_untagged_model_matches_jax():
-    """A plain Python mechanistic function (no kernel form) gives the same
-    predictions through the plain engine."""
+    """A plain Python mechanistic function (no kernel form tag) gives the
+    same predictions through the plain engine and through the fused engine,
+    which traces the function into a kernel form (its plain version here)."""
     def rbq10(*, ta, rb, Q10, tref=15.0):
         return {"reco": rb * Q10 ** (0.1 * (ta - tref))}
 
     df = eh.gen_rbq10_data(400, seed=8)
     jm, params, state, tm = _pair(_spec(mechanistic_model=rbq10), df)
+    want = eh.predict(jm, params, state, df, batch_size=128)
     fn = et.make_inference_fn(tm, batch_size=128)
-    assert "no kernel form" in fn.engine_reason
-    _assert_same(fn(df), eh.predict(jm, params, state, df, batch_size=128))
+    assert fn.engine == "torch" and "the model is on cpu" in fn.engine_reason
+    _assert_same(fn(df), want)
+    fused = et.make_inference_fn(tm, batch_size=128, use_kernel=True)
+    assert fused.engine == "cuda_fused_forward"
+    assert et.make_fused_forward(tm).plan.form.name == "traced rbq10"
+    _assert_same(fused(df), want)
 
 
 @pytest.mark.parametrize("batch_size", [1, 1024])

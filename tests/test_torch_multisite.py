@@ -129,6 +129,14 @@ def test_prepare_multisite_data_refuses_other_containers():
         et.prepare_multisite_data(tm.base, object(), "site")
 
 
+def test_per_site_networks_refuse_other_networks_naming_queue_a_item_4():
+    from easyhybrid_tpu_torch.parallel.multisite import SiteNetworks
+
+    *_, tm = pair(2)
+    with pytest.raises(NotImplementedError, match=r"queue A, item 4\)"):
+        SiteNetworks(object(), 2)
+
+
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ SPECS = [
     ("rmsprop", 0.01), ("adagrad", 0.1), ("lion", 0.001), ("adamax", 0.01),
     ("nadam", 0.01), ("adadelta", 0.5), ("radam", 0.01), ("amsgrad", 0.01),
     ("lamb", 0.01), ("adam", {"learning_rate": 0.02, "b1": 0.8, "eps": 1e-6}),
+    ("adadelta", {"rho": 0.95}),
 ]
 
 
@@ -81,3 +82,41 @@ def test_unknown_rule_and_defaults():
     assert set(topt.OPTIMIZERS) == {
         "adam", "adamw", "sgd", "rmsprop", "adagrad", "lion", "adamax", "nadam",
         "adadelta", "radam", "amsgrad", "lamb"}
+
+
+# each rule whose optax constructor requires learning_rate, with one other option
+NO_LR = {"adam": "b1", "adamw": "b1", "sgd": "momentum", "rmsprop": "decay",
+         "adagrad": "initial_accumulator_value", "lion": "b1", "adamax": "b1", "nadam": "b1",
+         "radam": "b1", "amsgrad": "b1", "lamb": "b1"}
+
+
+@pytest.mark.parametrize("name", sorted(NO_LR))
+def test_dict_spec_without_learning_rate_raises_as_jax(name):
+    """A dict spec is the optax constructor's keywords, in both packages:
+    without learning_rate it is a TypeError."""
+    spec = (name, {NO_LR[name]: 0.5})
+    with pytest.raises(TypeError):
+        jax_resolve(spec)
+    with pytest.raises(TypeError, match="learning_rate"):
+        topt.resolve_optimizer(spec)
+
+
+def test_adadelta_dict_spec_without_learning_rate_steps_as_optax():
+    """optax's adadelta defaults its learning rate to None: the step moves
+    with the gradient, unscaled. The port matches it; the kernels refuse it
+    with a reason."""
+    from easyhybrid_tpu_torch.ops.fused_epoch import optimizer_reason
+
+    spec = ("adadelta", {"rho": 0.95})
+    jopt = jax_resolve(spec)
+    g = np.array([0.5, -1.0], np.float32)
+    jp = {"w": jnp.zeros(2)}
+    jupd, _ = jopt.update({"w": jnp.asarray(g)}, jopt.init(jp), jp)
+    opt = topt.resolve_optimizer(spec)
+    tp = {"w": torch.zeros(2)}
+    tupd, _ = opt.update({"w": torch.from_numpy(g)}, opt.init(tp), tp)
+    np.testing.assert_allclose(tupd["w"].numpy(), np.asarray(jupd["w"]), rtol=1e-5, atol=1e-8)
+    np.testing.assert_allclose(tupd["w"].numpy(), [0.00447, -0.00447], rtol=1e-3)
+    assert opt.learning_rate is None
+    assert "without a learning rate" in optimizer_reason(spec)
+    assert optimizer_reason(("adadelta", {"rho": 0.95, "learning_rate": 1.0})) is None
