@@ -11,8 +11,11 @@
 //   3. the MLP forward, saving each layer's input and activation derivative;
 //      sigmoid bound scaling of the neural outputs; the scaled globals;
 //   4. the mechanistic model in its kernel form, with its partials;
-//   5. the masked mse and its cotangent, n = max(sum(mask), 1) per target,
-//      agg sum or mean;
+//   5. the masked loss and its cotangent, n = max(sum(mask), 1) per target,
+//      agg sum or mean: every loss of the JAX kernel (eh_device.cuh's loss
+//      layer): mse, mae, nseLoss (its target SST taken a step ahead), a traced
+//      elementwise loss, and rmse, pearsonLoss, kgeLoss and pbkgeLoss, whose
+//      cotangents need the batch's prediction moments first;
 //   6. the hand-written backward through the form's partials, the bound
 //      scaling and the MLP, including the norm's affine scale and bias;
 //   7. the batch-validity gate: an all-masked batch changes nothing;
@@ -68,6 +71,15 @@
 //     before and exchanged with its gradient, and what the optimizer rule
 //     takes from the step count (bias corrections, radam's rectification) is
 //     computed then too, by the warp with the fewest units.
+//   * rmse and the statistic losses: with the block's rows in flight at once,
+//     a row keeps its residuals, form outputs and partials while the block
+//     exchanges the batch's moments (the sums of the predictions, then their
+//     centred squares and products with the targets), each exchange the fixed
+//     tree of every other sum; a warp a target then takes g and its partials
+//     (ehe_stat_loss) into shared memory. A block that walks tiles takes the
+//     moments first, in passes whose forwards save nothing. The targets'
+//     mean and SST (nseLoss, the statistic losses) are taken at the end of the
+//     step before, beside its counts.
 //   * Lamb's trust ratio needs the norms of a leaf's parameters and update
 //     directions: a warp takes a leaf, its lanes in a fixed stride and then a
 //     shuffle tree, so every block of a cluster gets the same bits from the
@@ -127,6 +139,9 @@ struct EhFusedEpochArgs {
   int n_targets;
   int target_out[EH_MAX_TARGETS];
   float agg_scale;
+  int loss_kind;                         // LOSS_* (eh_device.cuh)
+  int loss_sst;                          // 1: the batch's target mean and SST (nseLoss, statistic losses)
+  int loss_sum;                          // 1: a traced loss summed (scale agg), 0: by mean (agg / n)
   EhOptimizer optimizer;                 // the rule and its hyperparameters
   int tile_rows;                         // threads of a block: rows it takes at once
   int res_floats;
@@ -187,7 +202,16 @@ struct EhFusedEpochArgs {
 // row of width 32; a row of width 64 takes 256.
 #define EHE_MAX_THREADS(W) ((W) == 64 ? 256 : 512)
 
-template <int W>
+// The builds by loss, which the launcher picks by a.loss_kind and a.loss_sst:
+// mse alone, with the code of the kernel before the other losses came (a
+// step's chain is paced by instruction fetch, and even code that a uniform
+// branch skips costs it time); the other losses a row takes (mae, nseLoss
+// with its target moments, a traced elementwise loss), by the loss layer's
+// runtime switch; rmse and the statistic losses, which exchange the batch's
+// prediction moments inside a step.
+enum { EHE_LOSS_MSE = 0, EHE_LOSS_ROWS, EHE_LOSS_MOMENTS };
+
+template <int W, int LOSSES>
 __global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   extern __shared__ __align__(16) float sm[];
@@ -237,6 +261,23 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   int* UT = reinterpret_cast<int*>(MISC + 8);  // the first units, 8 ints each
   float* RES = MISC + 8 + 8 * a.n_unit_table;  // residual tile
   float* ST = RES + a.res_floats * ld;  // the stages
+  // the loss's batch moments (ehe_loss_floats; none for mse, mae and a traced loss)
+  float* YM = ST + a.stages * cols * ld;  // the targets' batch mean
+  float* LC = YM + T;             // each target's coefficients of the step, 8 a target
+  float* XY = LC + 8 * T;         // the next step's target sums, T a warp
+  float* XQ = XY + nw * T;        // the next step's centred target squares, T a warp
+  float* XM1 = XQ + nw * T;       // the predictions' sums (rmse: squared differences), T a warp
+  float* XM2 = XM1 + nw * T;      // their centred squares and products with the targets', 2 T a warp
+  const int LK = a.loss_kind;
+  // rmse and the statistic losses need the batch's predictions before any
+  // row's cotangent: with the block's rows in flight at once (one tile) the
+  // moments are exchanged between a row's forward and its cotangent, each row
+  // keeping its residuals; a block that walks tiles takes them first, in
+  // passes of their own whose residuals the tiles' pass overwrites
+  constexpr bool MOMENTS = LOSSES == EHE_LOSS_MOMENTS;
+  // nseLoss and the statistic losses: the targets' batch mean and SST
+  const bool loss_sst = LOSSES != EHE_LOSS_MSE && a.loss_sst;
+  const bool inline_moments = MOMENTS && a.block_rows <= nth;
 
   for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
   __syncthreads();
@@ -316,9 +357,21 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
     }
   };
 
-  // A step's mask counts and, for the trainable norm, its predictors' sums:
-  // every warp's partials. They depend on the rows alone, not on the
-  // parameters, so step s + 1's are taken at the end of step s, off the chain.
+  // A row's target j and its mask, from the stage or in place.
+  auto target_of = [&](const float* st, const int* idx, int r, int j, float& yv, float& mk) {
+    if (staged) {
+      yv = st[(F + NF + j) * ld + r];
+      mk = st[(F + NF + T + j) * ld + r];
+    } else {
+      const int64_t row = idx[r];
+      yv = a.y[j][row];
+      mk = a.mask[j][row];
+    }
+  };
+  // A step's mask counts and, for the trainable norm, its predictors' sums
+  // (for nseLoss and the statistic losses its targets' sums too): every
+  // warp's partials. They depend on the rows alone, not on the parameters, so
+  // step s + 1's are taken at the end of step s, off the chain.
   auto stat_partials = [&](int step) {
     const int* idx = step_index(step);
     const float* st = ST + (step & 1) * cols * ld;
@@ -335,6 +388,42 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       }
       v = ehe_warp_sum(v);
       if (lane == 0) XS1[warp * NS + i] = v;
+    }
+    if (loss_sst) {  // the targets' sums (0 where masked), for their batch mean
+      for (int j = 0; j < T; ++j) {
+        float v = 0.0f;
+        for (int r = tid; r < mine; r += nth) {
+          float yv, mk;
+          target_of(st, idx, r, j, yv, mk);
+          v += yv;
+        }
+        v = ehe_warp_sum(v);
+        if (lane == 0) XY[warp * T + j] = v;
+      }
+    }
+  };
+  // Target j's batch mean from the partials, the same bits in every warp.
+  auto target_mean = [&](int j) {
+    return exchanged(XY, T, j) / fmaxf(exchanged(XS1, NS, j), 1.0f);
+  };
+  // After stat_sums(step): every warp's partials of the targets' centred
+  // squares sum(((y - mean) m)^2), for nseLoss's SST and the statistic
+  // losses' Syy, which the step reads after the exchange barrier ending this
+  // one.
+  auto sst_partials = [&](int step) {
+    const int* idx = step_index(step);
+    const float* st = ST + (step & 1) * cols * ld;
+    for (int j = 0; j < T; ++j) {
+      const float mean = target_mean(j);
+      float v = 0.0f;
+      for (int r = tid; r < mine; r += nth) {
+        float yv, mk;
+        target_of(st, idx, r, j, yv, mk);
+        const float dv = (yv - mean) * mk;
+        v += dv * dv;
+      }
+      v = ehe_warp_sum(v);
+      if (lane == 0) XQ[warp * T + j] = v;
     }
   };
   // After an exchange barrier: step `step`'s counts, batch mean and validity
@@ -354,6 +443,85 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       for (int j = 0; j < T; ++j) total += exchanged(XS1, NS, j);
       if (lane == 0) MISC[step & 1] = total > 0.0f ? 1.0f : 0.0f;
     }
+    if (loss_sst) {
+      for (int j = warp; j < T; j += nw) {
+        const float mean = target_mean(j);
+        if (lane == 0) YM[j] = mean;
+      }
+    }
+  };
+  // rmse and the statistic losses, from each thread's sums over its rows
+  // (acc[j]: target j's (pred - y)^2 m for rmse, pred m for the others): the
+  // first exchange; rmse's coefficients into LC, or every warp's mu_h.
+  auto moments_first = [&](const float (&acc)[EH_MAX_TARGETS], float (&mu_h)[EH_MAX_TARGETS]) {
+    for (int j = 0; j < T; ++j) {
+      const float v = ehe_warp_sum(ehe_pick<EH_MAX_TARGETS>(acc, j));
+      if (lane == 0) XM1[warp * T + j] = v;
+    }
+    exchange_barrier();
+    if (LK == LOSS_RMSE) {
+      for (int j = warp; j < T; j += nw) {
+        const float sse = exchanged(XM1, T, j);
+        if (lane == 0) {
+          const float n = NT[j];
+          const float r = sqrtf(sse / n);
+          LC[8 * j] = a.agg_scale;
+          LC[8 * j + 1] = a.agg_scale / (n * ehe_max_nan(r, 1e-30f));
+          LC[8 * j + 7] = a.agg_scale * r;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < EH_MAX_TARGETS; ++j)
+        mu_h[j] = j < T ? exchanged(XM1, T, j) / NT[j] : 0.0f;
+    }
+  };
+  // The statistic losses' second exchange, of each thread's sums acc2[2 j]
+  // of dh^2 and acc2[2 j + 1] of dh dy, then g and its partials a target,
+  // into LC.
+  auto moments_second = [&](const float (&acc2)[2 * EH_MAX_TARGETS],
+                            const float (&mu_h)[EH_MAX_TARGETS]) {
+    for (int q = 0; q < 2 * T; ++q) {
+      const float v = ehe_warp_sum(ehe_pick<2 * EH_MAX_TARGETS>(acc2, q));
+      if (lane == 0) XM2[warp * 2 * T + q] = v;
+    }
+    exchange_barrier();
+    for (int j = warp; j < T; j += nw) {
+      const float shh = exchanged(XM2, 2 * T, 2 * j);
+      const float c = exchanged(XM2, 2 * T, 2 * j + 1);
+      const float mh = ehe_pick<EH_MAX_TARGETS>(mu_h, j);
+      float d[3];
+      const float g = ehe_stat_loss(LK, mh, shh, c, LC[8 * j + 2], YM[j], NT[j], d);
+      if (lane == 0) {
+        LC[8 * j] = a.agg_scale;
+        LC[8 * j + 1] = 0.0f;
+        LC[8 * j + 3] = mh;
+        LC[8 * j + 4] = d[0];
+        LC[8 * j + 5] = 2.0f * d[1];
+        LC[8 * j + 6] = d[2];
+        LC[8 * j + 7] = a.agg_scale * g;
+      }
+    }
+  };
+  // Target j's coefficients for this step's rows (ehe_loss_row).
+  auto row_coef = [&](int j) {
+    EhLossCoef c;
+    const float n = NT[j];
+    c.c0 = a.loss_sum ? a.agg_scale : a.agg_scale / n;
+    c.c1 = (2.0f * a.agg_scale) / n;
+    c.n = n;
+    c.mu_h = c.mu_y = c.k_mu = c.k_h = c.k_c = 0.0f;
+    if (loss_sst || MOMENTS) {  // the step's, in LC
+      const float* lc = LC + 8 * j;
+      c.c0 = lc[0];
+      c.c1 = lc[1];
+      c.mu_h = lc[3];
+      c.mu_y = YM[j];
+      c.k_mu = lc[4];
+      c.k_h = lc[5];
+      c.k_c = lc[6];
+    }
+    return c;
   };
 
   if (staged && tid < mine) {
@@ -364,6 +532,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   stat_partials(0);
   exchange_barrier();
   stat_sums(0);
+  if (loss_sst) sst_partials(0);
   exchange_barrier();
 
   for (int s = 0; s < n_steps; ++s) {
@@ -401,6 +570,18 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         }
       }
     }
+    if (loss_sst) {
+      // the step's target SST (the partials were taken at the end of the
+      // step before, and an exchange barrier has passed since): nseLoss's scale
+      for (int j = warp; j < T; j += nw) {
+        const float sst = exchanged(XQ, T, j);
+        if (lane == 0) {
+          LC[8 * j + 2] = sst;
+          LC[8 * j] = a.agg_scale / ehe_max_nan(sst, 1e-12f);
+          LC[8 * j + 1] = 2.0f * LC[8 * j];
+        }
+      }
+    }
     __syncthreads();
     EHE_STAMP(3);
     // the next step's copies go out here, off the chain of barriers and sums
@@ -412,91 +593,153 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
     }
     EHE_STAMP(2);
 
+    // Row r's forward to the kernel form's arguments: the input norm, the MLP
+    // (its residuals in the row's column of the tile), the bound scaling (the
+    // scaled outputs in place, their derivative beside them); the arguments
+    // in av.
+    auto row_arguments = [&](int r, float (&av)[EH_MAX_ARGS]) {
+      const int64_t row = staged ? 0 : idx[r];
+      float* res = RES + tid;
+      float h[1][W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        float x = 0.0f;
+        if (k < F) {
+          x = staged ? st[k * ld + r] : a.x[row * F + k];
+          if (a.norm_mode != NORM_NONE) {
+            const float xh = (x - BM[k]) * BR[k];
+            res[(a.r_off_xhat + k) * ld] = xh;
+            x = xh * Pm[k] + Pm[F + k];
+          }
+          res[(a.r_off_h[0] + k) * ld] = x;
+        }
+        h[0][k] = x;
+      }
+
+      ehe_row_forward<W, 1, true>(a, Pm, h, res, ld, 0);
+
+      // From here on the row's small vectors (the network's P outputs, the
+      // G globals' cotangents) live in the row's column of the tile and are
+      // walked by loops of their own length: code unrolled to the kernel's
+      // width for them costs more in instruction fetch than it saves.
+      // Bound scaling of the neural outputs: the scaled value in place, its
+      // derivative beside it.
+      float* outv = res + a.r_off_out * ld;
+      float* dscv = res + a.r_off_dsc * ld;
+      for (int j = 0; j < P; ++j) {
+        float y = outv[j * ld];
+        float ds = 1.0f;
+        if (a.scale_nn_outputs) {
+          const float sg = ehe_sigmoid_nb(y);
+          ds = nspan[j] * (sg * (1.0f - sg));
+          y = nlo[j] + nspan[j] * sg;
+        }
+        outv[j * ld] = y;
+        dscv[j * ld] = ds;
+      }
+
+#pragma unroll
+      for (int i = 0; i < EH_MAX_ARGS; ++i) {
+        float val = 0.0f;
+        if (i < a.n_args) {
+          const int id = a.arg_idx[i];
+          switch (a.arg_src[i]) {
+            case SRC_FORCING: val = staged ? st[(F + id) * ld + r] : a.forcing[id][row]; break;
+            case SRC_NEURAL: val = outv[id * ld]; break;
+            case SRC_SCALAR: val = SC[id]; break;
+            default: val = a.arg_const[i]; break;
+          }
+        }
+        av[i] = val;
+      }
+    };
+
+    // ---- rmse, the statistic losses: the batch's moments, where tiles are walked
+    if constexpr (MOMENTS) if (!inline_moments) {
+      // a pass over the tiles for the predictions' sums and, for the statistic
+      // losses, another for their centred moments, each row's forward again
+      // (the tiles' pass below overwrites its residuals)
+      float acc[EH_MAX_TARGETS] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float acc2[2 * EH_MAX_TARGETS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float mu_h[EH_MAX_TARGETS];
+      for (int pass = 0; pass < (LK == LOSS_RMSE ? 1 : 2); ++pass) {
+        for (int t0 = 0; t0 < mine; t0 += nth) {
+          const int r = t0 + tid;
+          if (r < mine) {
+            float av[EH_MAX_ARGS];
+            row_arguments(r, av);
+            float out[EH_MAX_OUT];
+            float pd[EH_MAX_OUT][EH_MAX_ARGS];
+            ehe_form(a.form, av, out, pd);
+#pragma unroll
+            for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+              if (j < T) {
+                float yv, mk;
+                target_of(st, idx, r, j, yv, mk);
+                const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
+                if (LK == LOSS_RMSE) {
+                  const float diff = (pred - yv) * mk;
+                  acc[j] += diff * diff;
+                } else if (pass == 0) {
+                  acc[j] += pred * mk;
+                } else {
+                  const float dh = (pred * mk - mu_h[j]) * mk;
+                  const float dy = (yv - YM[j]) * mk;
+                  acc2[2 * j] += dh * dh;
+                  acc2[2 * j + 1] += dh * dy;
+                }
+              }
+            }
+          }
+        }
+        if (pass == 0) {
+          moments_first(acc, mu_h);
+        } else {
+          moments_second(acc2, mu_h);
+        }
+      }
+      __syncthreads();  // the coefficients in LC
+    }
+
     // ---- tiles: forward, loss, backward per row; gradient sums ---------------
     float loss_part = 0.0f;
-    if (mine == 0)
+    if (mine == 0 && !inline_moments)
       for (int p = tid; p < NP; p += nth) Gr[p] = 0.0f;
-    for (int t0 = 0; t0 < mine; t0 += nth) {
+    // with the moments exchanged inside it, one tile in every block, rows or not
+    const int tile_end = inline_moments ? 1 : mine;
+    for (int t0 = 0; t0 < tile_end; t0 += nth) {
       const int r = t0 + tid;
-      const int rows_here = min(nth, mine - t0);
-#ifndef EHE_CHAIN_ONLY
-      if (r < mine) {
-        const int64_t row = staged ? 0 : idx[r];
+      const int rows_here = max(0, min(nth, mine - t0));
+      float out[EH_MAX_OUT];
+      float pd[EH_MAX_OUT][EH_MAX_ARGS];
+      // Row r's loss a target and its cotangent (the loss layer of
+      // eh_device.cuh; mse's own code in its build), the cotangents through the
+      // form's partials, and the row's backward; returns the row's term.
+      auto row_backward = [&](int r, const float (&out)[EH_MAX_OUT],
+                              const float (&pd)[EH_MAX_OUT][EH_MAX_ARGS]) {
         float* res = RES + tid;
-        float h[1][W];
-#pragma unroll
-        for (int k = 0; k < W; ++k) {
-          float x = 0.0f;
-          if (k < F) {
-            x = staged ? st[k * ld + r] : a.x[row * F + k];
-            if (a.norm_mode != NORM_NONE) {
-              const float xh = (x - BM[k]) * BR[k];
-              res[(a.r_off_xhat + k) * ld] = xh;
-              x = xh * Pm[k] + Pm[F + k];
-            }
-            res[(a.r_off_h[0] + k) * ld] = x;
-          }
-          h[0][k] = x;
-        }
-
-        ehe_row_forward<W, 1, true>(a, Pm, h, res, ld, 0);
-
-        // From here on the row's small vectors (the network's P outputs, the
-        // G globals' cotangents) live in the row's column of the tile and are
-        // walked by loops of their own length: code unrolled to the kernel's
-        // width for them costs more in instruction fetch than it saves.
-        // Bound scaling of the neural outputs: the scaled value in place, its
-        // derivative beside it.
         float* outv = res + a.r_off_out * ld;
         float* dscv = res + a.r_off_dsc * ld;
-        for (int j = 0; j < P; ++j) {
-          float y = outv[j * ld];
-          float ds = 1.0f;
-          if (a.scale_nn_outputs) {
-            const float sg = ehe_sigmoid_nb(y);
-            ds = nspan[j] * (sg * (1.0f - sg));
-            y = nlo[j] + nspan[j] * sg;
-          }
-          outv[j * ld] = y;
-          dscv[j * ld] = ds;
-        }
 
-        float av[EH_MAX_ARGS];
-#pragma unroll
-        for (int i = 0; i < EH_MAX_ARGS; ++i) {
-          float val = 0.0f;
-          if (i < a.n_args) {
-            const int id = a.arg_idx[i];
-            switch (a.arg_src[i]) {
-              case SRC_FORCING: val = staged ? st[(F + id) * ld + r] : a.forcing[id][row]; break;
-              case SRC_NEURAL: val = outv[id * ld]; break;
-              case SRC_SCALAR: val = SC[id]; break;
-              default: val = a.arg_const[i]; break;
-            }
-          }
-          av[i] = val;
-        }
-        float out[EH_MAX_OUT];
-        float pd[EH_MAX_OUT][EH_MAX_ARGS];
-        ehe_form(a.form, av, out, pd);
-
-        // masked mse and its cotangent
         float cot[EH_MAX_TARGETS];
         float term = 0.0f;
 #pragma unroll
         for (int j = 0; j < EH_MAX_TARGETS; ++j) {
           cot[j] = 0.0f;
           if (j < T) {
-            const float mk = staged ? st[(F + NF + T + j) * ld + r] : a.mask[j][row];
-            const float yv = staged ? st[(F + NF + j) * ld + r] : a.y[j][row];
+            float yv, mk;
+            target_of(st, idx, r, j, yv, mk);
             const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
             const float diff = (pred - yv) * mk;
-            const float scale = a.agg_scale / NT[j];
-            term += scale * diff * diff;
-            cot[j] = (2.0f * a.agg_scale / NT[j]) * diff;
+            if constexpr (LOSSES == EHE_LOSS_MSE) {
+              const float scale = a.agg_scale / NT[j];
+              term += scale * diff * diff;
+              cot[j] = (2.0f * a.agg_scale / NT[j]) * diff;
+            } else {
+              term += ehe_loss_row<MOMENTS>(LK, row_coef(j), pred, yv, mk, diff, cot[j]);
+            }
           }
         }
-        loss_part += term;
         EHE_STAMP(4);
 
         // cotangents of the neural outputs (gathered where the outputs were)
@@ -532,8 +775,55 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         }
         ehe_row_backward<W>(a, Pm, res, ld);
         EHE_STAMP(5);
+        return term;
+      };
+#ifndef EHE_CHAIN_ONLY
+      if (r < mine) {
+        float av[EH_MAX_ARGS];
+        row_arguments(r, av);
+        ehe_form(a.form, av, out, pd);
+        if constexpr (!MOMENTS) loss_part += row_backward(r, out, pd);
       }
 #endif
+      if constexpr (MOMENTS) {
+        if (inline_moments) {
+          // the block's rows are all in flight: the moments from the rows'
+          // predictions here, each row keeping its residuals across the exchanges
+          float acc[EH_MAX_TARGETS], acc2[2 * EH_MAX_TARGETS], mu_h[EH_MAX_TARGETS];
+#pragma unroll
+          for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+            acc[j] = 0.0f;
+            if (j < T && r < mine) {
+              float yv, mk;
+              target_of(st, idx, r, j, yv, mk);
+              const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
+              const float diff = (pred - yv) * mk;
+              acc[j] = LK == LOSS_RMSE ? diff * diff : pred * mk;
+            }
+          }
+          moments_first(acc, mu_h);
+          if (LK != LOSS_RMSE) {
+#pragma unroll
+            for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+              acc2[2 * j] = acc2[2 * j + 1] = 0.0f;
+              if (j < T && r < mine) {
+                float yv, mk;
+                target_of(st, idx, r, j, yv, mk);
+                const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
+                const float dh = (pred * mk - mu_h[j]) * mk;
+                const float dy = (yv - YM[j]) * mk;
+                acc2[2 * j] = dh * dh;
+                acc2[2 * j + 1] = dh * dy;
+              }
+            }
+            moments_second(acc2, mu_h);
+          }
+          __syncthreads();  // the coefficients in LC
+        }
+#ifndef EHE_CHAIN_ONLY
+        if (r < mine) loss_part += row_backward(r, out, pd);
+#endif
+      }
       __syncthreads();
 
       // a warp per unit of 4 x 4 parameters; its lanes split the tile's rows
@@ -571,7 +861,15 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
     }
     exchange_barrier();
     if (s + 1 < n_steps) stat_sums(s + 1);
-    if (warp == 0 && valid > 0.0f) epoch_loss += exchanged(XL, 1, 0);
+    if (loss_sst && s + 1 < n_steps) sst_partials(s + 1);
+    if (warp == 0 && valid > 0.0f) {
+      float bl = exchanged(XL, 1, 0);
+      if constexpr (MOMENTS) {  // rmse's and the statistic losses' value: a term a target
+        bl = LC[7];
+        for (int j = 1; j < T; ++j) bl = bl + LC[8 * j + 7];
+      }
+      epoch_loss += bl;
+    }
     if (valid > 0.0f) {
       const EhOptStep st = ehe_opt_step_at(MISC + 2 + 3 * (s & 1));
       // parameter p's gradient: the blocks' partials in rank order
@@ -652,6 +950,13 @@ extern "C" int eh_fused_epoch_args_size(void) {
   return (int)sizeof(EhFusedEpochArgs);
 }
 
+// Shared-memory floats of the loss's batch moments; ops/fused_epoch.py::_loss_floats
+// computes the same.
+static int ehe_loss_floats(const EhFusedEpochArgs* a, int NW, int T) {
+  const int k = a->loss_kind;
+  return (a->loss_sst || k == LOSS_RMSE || ehe_loss_is_stat(k)) ? 9 * T + 5 * NW * T : 0;
+}
+
 // Shared-memory floats of one launch; ops/fused_epoch.py::_smem_floats
 // computes the same.
 static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
@@ -662,23 +967,32 @@ static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
   const int COLS = F + a->n_forcing + 2 * T;
   return (size_t)a->n_padded + (1 + 2 * a->moments_shared) * a->n_params + NW * (1 + T + 2 * F) + 2 * F +
          (2 * P + 2 * G + K) + 2 * G + K + 2 * F + T + 8 + 8 * a->n_unit_table +
-         (size_t)a->tile_rows * (a->res_floats + a->stages * COLS);
+         (size_t)a->tile_rows * (a->res_floats + a->stages * COLS) + ehe_loss_floats(a, NW, T);
+}
+
+template <int W, int LOSSES>
+static int ehe_launch_build(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s) {
+  // allow the full 227 KB once per build: setting the attribute at every
+  // launch would cost a host call that may wait for the device
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(eh_fused_epoch_kernel<W, LOSSES>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 EH_MAX_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  return (int)eh_launch_cluster(eh_fused_epoch_kernel<W, LOSSES>, *args, args->cluster,
+                                args->tile_rows, smem, s);
 }
 
 template <int W>
 static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s) {
   if (args->tile_rows > EHE_MAX_THREADS(W)) return (int)cudaErrorInvalidValue;
-  // allow the full 227 KB once per width: setting the attribute at every
-  // launch would cost a host call that may wait for the device
-  static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        eh_fused_epoch_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, EH_MAX_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    allowed = true;
-  }
-  return (int)eh_launch_cluster(eh_fused_epoch_kernel<W>, *args, args->cluster, args->tile_rows,
-                                smem, s);
+  const int k = args->loss_kind;
+  if (k == LOSS_RMSE || ehe_loss_is_stat(k)) return ehe_launch_build<W, EHE_LOSS_MOMENTS>(args, smem, s);
+  if (k == LOSS_SQUARED && !args->loss_sst) return ehe_launch_build<W, EHE_LOSS_MSE>(args, smem, s);
+  return ehe_launch_build<W, EHE_LOSS_ROWS>(args, smem, s);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
@@ -690,7 +1004,7 @@ extern "C" int eh_fused_epoch(const EhFusedEpochArgs* args, int width, void* str
   const int c = args->cluster;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
       args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
-      args->n_targets > EH_MAX_TARGETS ||
+      args->n_targets > EH_MAX_TARGETS || !eh_loss_built(args->loss_kind) ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
       tr < 32 || tr % 32 != 0 || (c != 1 && c != 2 && c != 4 && c != 8) ||
       (int64_t)args->block_rows * c < args->batch || args->n_padded % 4 != 0 ||

@@ -7,9 +7,10 @@
 // of n_steps time steps with a Dense head. Each step:
 //   1. gathers the batch's windows through the index perm[e][i*B + r];
 //   2. the loss scale of every target over the whole (n_out_steps x B)
-//      window: agg / max(sum(mask), 1) for mse and mae, agg / max(SST, 1e-12)
-//      of the masked target about its masked mean for nseLoss; the batch is
-//      valid when any mask is set;
+//      window: agg / max(sum(mask), 1) for mse, mae and a traced elementwise
+//      loss by mean, agg for one by sum, agg / max(SST, 1e-12) of the masked
+//      target about its masked mean for nseLoss; the batch is valid when any
+//      mask is set;
 //   3. per window: the static input norm with its trained scale and bias (or
 //      none), then the recurrence z = wi x_t + wh h + b, gates i f g o,
 //      c = f c + i g, h = o tanh(c) from h = c = 0, saving (x_t, h_t, c_t);
@@ -162,8 +163,9 @@ struct EhFusedLstmArgs {
   int n_targets;
   int target_out[EH_MAX_TARGETS];
   float agg_scale;
-  int loss_kind;                         // 0 squared, 1 absolute differences
+  int loss_kind;                         // LOSS_* (eh_device.cuh): squared, absolute, traced
   int loss_nse;                          // scale by the target's SST
+  int loss_sum;                          // a traced loss summed: scale agg, not agg / n
   EhOptimizer optimizer;                 // the rule and its hyperparameters
   int threads;                           // of a block: windows x lanes, in whole warps
   int lanes;                             // lanes a window: min(32, width)
@@ -591,7 +593,8 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
           const float c = warps_sum(xs, 2 * NT, j);
           total += c;
           scl[j] = a.loss_nse ? a.agg_scale / fmaxf(warps_sum(xd, NT, j), EH_LSTM_SST_EPS)
-                              : a.agg_scale / fmaxf(c, 1.0f);
+                   : a.loss_sum ? a.agg_scale
+                                : a.agg_scale / fmaxf(c, 1.0f);
         }
       }
       valid = total > 0.0f ? 1.0f : 0.0f;
@@ -745,14 +748,13 @@ eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
             if (j < NT) {
               const int64_t at = row * TO + tt;
               const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-              const float diff = (pred - a.y[j][at]) * a.mask[j][at];
-              if (a.loss_kind == 0) {
-                term += scl[j] * diff * diff;
-                cot[j] = (2.0f * scl[j]) * diff;
-              } else {
-                term += scl[j] * fabsf(diff);
-                cot[j] = scl[j] * (float)((diff > 0.0f) - (diff < 0.0f));
-              }
+              const float yv = a.y[j][at];
+              const float mk = a.mask[j][at];
+              const float diff = (pred - yv) * mk;
+              EhLossCoef c = {};
+              c.c0 = scl[j];
+              c.c1 = 2.0f * scl[j];
+              term += ehe_loss_row<false>(a.loss_kind, c, pred, yv, mk, diff, cot[j]);
             }
           }
           if (!ghost) loss_part += term;
@@ -1083,7 +1085,7 @@ extern "C" int eh_fused_lstm(const EhFusedLstmArgs* args, int width, void* strea
       args->n_features > EH_MAX_WIDTH || args->n_out < 1 || args->n_out > EH_LSTM_MAX_OUT ||
       args->n_out_steps < 1 || args->n_out_steps > args->n_steps ||
       args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
-      args->n_targets > EH_MAX_TARGETS ||
+      args->n_targets > EH_MAX_TARGETS || !eh_loss_chunkable(args->loss_kind) ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->windows < 1 ||
       args->threads != (args->windows * args->lanes + 31) / 32 * 32 ||
       (c != 1 && c != 2 && c != 4 && c != 8 && c != EH_LSTM_MAX_CLUSTER) ||

@@ -12,7 +12,11 @@
 //      scaling, the site's globals as lower + span * sigmoid(raw[s]), the
 //      mechanistic model in its kernel form with its partials;
 //   3. the masked loss and its cotangent with the batch-wide scale computed
-//      by the caller (mse and nseLoss: scale * diff^2; mae: scale * |diff|);
+//      by the caller (eh_device.cuh, ehe_loss_row: mse and nseLoss scale *
+//      diff^2, mae scale * |diff|, a traced elementwise loss scale * l(yh, y));
+//      rmse (one target) as the JAX kernel defers it: the raw sum of diff^2
+//      and the gradient of the raw cotangent 2 diff, summed across blocks, then
+//      scaled in the update by (1 / n) / (2 max(r, 1e-30)), r = sqrt(sse / n);
 //   4. the hand-written backward; the per-site gradient is the sum over the
 //      site's samples, the shared gradient the sum over all of them;
 //   5. the update of the shared parameters and of every site's globals by
@@ -79,7 +83,7 @@ struct EhFusedMultisiteArgs {
   const float* y[EH_MAX_TARGETS];        // (n_slots, n_obs) each, 0 where masked
   const float* mask[EH_MAX_TARGETS];     // (n_slots, n_obs) each, 0 or 1
   const int* site_index;                 // (n_epochs, n_batches, batch), -1 padding
-  const float* scale;                    // (n_epochs, n_batches, n_targets) loss scales
+  const float* scale;                    // (n_epochs, n_batches, n_targets) loss scales (rmse: 1 / n)
   const float* valid;                    // (n_epochs, n_batches) 1 if any target is valid
   const float* tcount;                   // (n_epochs, n_batches) step count after the step
   float* params;                         // n_shared shared, then n_globals x n_sites; in place
@@ -126,7 +130,7 @@ struct EhFusedMultisiteArgs {
   float arg_const[EH_MAX_ARGS];
   int n_targets;
   int target_out[EH_MAX_TARGETS];
-  int loss_kind;                         // 0 squared (mse, nseLoss), 1 absolute (mae)
+  int loss_kind;                         // LOSS_* (eh_device.cuh): squared, absolute, rmse, traced
   EhOptimizer optimizer;                 // the rule and its hyperparameters
   int n_forcing;
   int res_floats;                        // floats a row keeps in the tile
@@ -145,8 +149,6 @@ struct EhFusedMultisiteArgs {
 // Global g of site s: params[n_shared + g * n_sites + s]. In shared memory the
 // shared parameters use the padded layout (eh_device.cuh, ehe_padded_index).
 // Residual tile: word (off + k) * threads + r for feature k of row r.
-
-enum { LOSS_SQUARED = 0, LOSS_ABSOLUTE };
 
 #define EHM_N_STAMPS 8
 #ifdef EHM_STAMPS
@@ -357,7 +359,8 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
       ehe_form(a.form, av, out, pd);
 
       // masked loss and its cotangent; the mask selects, so a NaN target
-      // that the caller did not zero cannot reach the sums
+      // that the caller did not zero cannot reach the sums. rmse: the raw
+      // squared loss, scaled in the update
       float cot[EH_MAX_TARGETS];
       float term = 0.0f;
 #pragma unroll
@@ -366,15 +369,13 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
         if (j < T) {
           const bool on = st[(F + NF + T + j) * ld + tid] > 0.0f;
           const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-          const float diff = on ? pred - st[(F + NF + j) * ld + tid] : 0.0f;
-          const float sc = SCL[j];
-          if (a.loss_kind == LOSS_ABSOLUTE) {
-            term += sc * fabsf(diff);
-            cot[j] = sc * (diff > 0.0f ? 1.0f : (diff < 0.0f ? -1.0f : 0.0f));
-          } else {
-            term += sc * diff * diff;
-            cot[j] = (2.0f * sc) * diff;
-          }
+          const float yv = st[(F + NF + j) * ld + tid];
+          const float diff = on ? pred - yv : 0.0f;
+          EhLossCoef c = {};
+          c.c0 = a.loss_kind == LOSS_RMSE ? 1.0f : SCL[j];
+          c.c1 = 2.0f * c.c0;
+          term += ehe_loss_row<false>(a.loss_kind == LOSS_RMSE ? LOSS_SQUARED : a.loss_kind, c,
+                               on ? pred : 0.0f, on ? yv : 0.0f, on ? 1.0f : 0.0f, diff, cot[j]);
         }
       }
       loss_part += term;
@@ -507,6 +508,27 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
   const int shared_blocks = ehm_shared_blocks(NP);
   const int nl = o.n_leaves;
 
+  // rmse: the batch's raw sse (the blocks' loss column, summed as the loss
+  // warp sums it), its value r and the gradient's factor, in every block
+  __shared__ float rmse[2];
+  const bool is_rmse = a.loss_kind == LOSS_RMSE;
+  if (is_rmse) {
+    if (warp == 0) {
+      float sse = 0.0f;
+      const float* col = a.partials + NP;
+#pragma unroll 8
+      for (int b = lane; b < a.n_blocks; b += 32) sse += col[(int64_t)b * (NP + 1)];
+      sse = ehe_warp_sum(sse);
+      if (lane == 0) {
+        const float inv_n = a.scale[(int64_t)step * a.n_targets];
+        const float r = sqrtf(ehe_max_nan(sse * inv_n, 0.0f));
+        rmse[0] = r;  // the batch loss: agg r, agg being 1 with one target
+        rmse[1] = inv_n / (2.0f * ehe_max_nan(r, 1e-30f));
+      }
+    }
+    __syncthreads();
+  }
+
   __shared__ float tr[EH_MAX_LEAVES];
   if (pass == 1 && valid && o.rule == OPT_LAMB) {
     // the leaves of this block's elements: its shared parameters or sites' globals
@@ -534,11 +556,12 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
 #pragma unroll 8
       for (int b = lane; b < a.n_blocks; b += 32) g += col[(int64_t)b * (NP + 1)];
       g = ehe_warp_sum(g);
+      if (is_rmse && p < NP) g = rmse[1] * g;
       if (lane == 0) {
         if (p < NP) {
           i = p;
         } else if (pass == 1 && valid) {
-          a.epoch_loss[step / a.n_batches] += g;
+          a.epoch_loss[step / a.n_batches] += is_rmse ? rmse[0] : g;
         }
       }
     }
@@ -546,6 +569,7 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
     const int64_t gid = (int64_t)(blockIdx.x - shared_blocks) * blockDim.x + threadIdx.x;
     if (gid < (int64_t)G * S) {  // global gid / S of site gid % S
       g = a.gsite[gid];
+      if (is_rmse) g = rmse[1] * g;
       if (pass == 1) a.gsite[gid] = 0.0f;
       if (valid) {
         const int gi = (int)(gid / S);
@@ -626,7 +650,9 @@ extern "C" int eh_fused_multisite(const EhFusedMultisiteArgs* args, int width, v
                                   (int64_t)(args->site_tiles - 1) * th < N;
   if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
       args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
-      args->n_targets > EH_MAX_TARGETS ||
+      args->n_targets > EH_MAX_TARGETS || !eh_loss_built(args->loss_kind) ||
+      (args->loss_kind != LOSS_SQUARED && args->loss_kind != LOSS_ABSOLUTE &&
+       args->loss_kind != LOSS_TRACED && (args->loss_kind != LOSS_RMSE || args->n_targets != 1)) ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||
       N < 1 || th < 32 || th > EHM_MAX_THREADS || th % 32 != 0 || !tiles_ok || spb < 1 ||
       args->n_blocks * spb < args->batch || (args->n_blocks - 1) * spb >= args->batch ||

@@ -7,7 +7,8 @@
 // :2662. There each batch rides several grid steps at chunk width, the chunks'
 // gradients are summed in carried tiles and the update is applied at the last
 // chunk. The function, without the TPU's chunking: per optimizer step, the
-// whole-batch gradient of the masked elementwise loss (mse or mae) of a
+// whole-batch gradient of the masked elementwise loss (mse, mae or a traced
+// elementwise loss: the chunkable losses, eh_device.cuh's loss layer) of a
 // static-norm MLP hybrid, summed in a fixed order, then one gated update of
 // every parameter. One call of the launcher enqueues every step of
 // n_epochs x n_batches batches on one stream; the host never waits between
@@ -144,7 +145,7 @@ struct EhFusedWideArgs {
   float arg_const[EH_MAX_ARGS];
   int n_targets;
   int target_out[EH_MAX_TARGETS];
-  int loss_kind;                         // 0 squared (mse), 1 absolute (mae)
+  int loss_kind;                         // LOSS_* (eh_device.cuh): squared, absolute, traced
   EhOptimizer optimizer;                 // the rule and its hyperparameters
   int splits[EH_MAX_LAYERS];             // batch splits of layer l's weight gradient
   int split_rows[EH_MAX_LAYERS];         // rows of one split, a multiple of its product's depth
@@ -167,7 +168,6 @@ struct EhFusedWideArgs {
 // layer W (dout x din, row-major) at p_off_w[l], then b (dout) at p_off_b[l];
 // the raw globals at p_off_g.
 
-enum { LOSS_SQUARED = 0, LOSS_ABSOLUTE };
 
 // ---------------------------------------------------------------------------
 // what becomes of a product's output tile
@@ -842,15 +842,13 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
       if (j < T) {
         const bool on = a.mask[j][row] > 0.0f;
         const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-        const float diff = on ? pred - a.y[j][row] : 0.0f;
-        const float sc = a.scale[(int64_t)step * T + j];
-        if (a.loss_kind == LOSS_ABSOLUTE) {
-          term += sc * fabsf(diff);
-          cot[j] = sc * (diff > 0.0f ? 1.0f : (diff < 0.0f ? -1.0f : 0.0f));
-        } else {
-          term += sc * diff * diff;
-          cot[j] = (2.0f * sc) * diff;
-        }
+        const float yv = a.y[j][row];
+        const float diff = on ? pred - yv : 0.0f;
+        EhLossCoef c = {};
+        c.c0 = a.scale[(int64_t)step * T + j];
+        c.c1 = 2.0f * c.c0;
+        term += ehe_loss_row<false>(a.loss_kind, c, on ? pred : 0.0f, on ? yv : 0.0f, on ? 1.0f : 0.0f,
+                             diff, cot[j]);
       }
     }
 
@@ -1187,7 +1185,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   if (a.n_epochs <= 0 || a.n_batches <= 0) return 0;
   const int L = a.n_layers;
   if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS ||
-      !eh_form_built(a.form) || a.n_targets < 1 ||
+      !eh_form_built(a.form) || a.n_targets < 1 || !eh_loss_chunkable(a.loss_kind) ||
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
       a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
       a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1))

@@ -12,9 +12,10 @@ there is no stand-in library and no fallback to another implementation.
 No PyTorch header is included, so a build takes seconds; the library
 exchanges only raw device pointers and the CUDA stream with Python.
 
-A model whose mechanistic function is traced (``ops/kernel_forms.py``) runs
-each kernel from a library of that kernel's source built against the form's
-header (:func:`form_library`): one ``nvcc`` run per kernel and form, kept on
+A model whose mechanistic function is traced (``ops/kernel_forms.py``), or
+that trains on a traced elementwise loss, runs each kernel from a library of
+that kernel's source built against the form's and the loss's headers
+(:func:`form_library`): one ``nvcc`` run per kernel, form and loss, kept on
 disk under the same directory and reused by later processes.
 """
 
@@ -229,22 +230,34 @@ def measuring_library(source: str, entry: str, *defines: str) -> ctypes.CDLL:
     return _declare(ctypes.CDLL(str(build_variant(source, tuple(defines)).path)), entry)
 
 
-def _form_defines(form) -> Tuple[str, ...]:
-    """The flags that build a source against a traced form: its header,
+def _header_defines(text: str, stem: str, macro: str) -> Tuple[str, ...]:
+    """The flags that build a source against a generated header: the header
     written once under ``_build/forms/`` with the hash of its text in the
-    file name, on the include path, and named by ``EH_TRACED_FORM_HEADER``."""
+    file name, on the include path, and named by ``macro``."""
     forms = _BUILD_DIR / "forms"
-    header = forms / f"eh_form_{form.header_hash}.cuh"
+    header = forms / f"{stem}_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cuh"
     if not header.is_file():
         forms.mkdir(parents=True, exist_ok=True)
         tmp = header.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        tmp.write_text(form.header)
+        tmp.write_text(text)
         os.replace(tmp, header)
-    return (f"-I{forms}", f'-DEH_TRACED_FORM_HEADER="{header.name}"')
+    return (f"-I{forms}", f'-D{macro}="{header.name}"')
 
 
-_form_locks: Dict[Tuple[str, str, Tuple[str, ...]], threading.Lock] = {}
-_form_libs: Dict[Tuple[str, str, Tuple[str, ...]], ctypes.CDLL] = {}
+def _form_defines(form, loss=None) -> Tuple[str, ...]:
+    """The flags that build a source against a traced form
+    (``EH_TRACED_FORM_HEADER``) and a traced elementwise loss
+    (``EH_TRACED_LOSS_HEADER``), each where there is one."""
+    out: Tuple[str, ...] = ()
+    if form.header is not None:
+        out += _header_defines(form.header, "eh_form", "EH_TRACED_FORM_HEADER")
+    if loss is not None:
+        out += _header_defines(loss.header, "eh_loss", "EH_TRACED_LOSS_HEADER")
+    return out
+
+
+_form_locks: Dict[Tuple, threading.Lock] = {}
+_form_libs: Dict[Tuple, ctypes.CDLL] = {}
 
 
 def _form_lock(key) -> threading.Lock:
@@ -252,33 +265,43 @@ def _form_lock(key) -> threading.Lock:
         return _form_locks.setdefault(key, threading.Lock())
 
 
-def form_build(source: str, form, *defines: str) -> BuildResult:
-    """Build ``source`` against traced kernel form ``form`` (and any extra
-    ``defines``) unless that build exists; raises when ``nvcc`` is missing or
-    fails. Builds of other sources or forms may run at once from several
-    threads; one of the same waits for the first."""
-    key = (source, form.header_hash, tuple(defines))
-    with _form_lock(key):
-        return build_variant(source, _form_defines(form) + tuple(defines))
+def _form_key(source: str, form, loss, defines) -> Tuple:
+    """A build's key: the source, the form's and the loss's headers (a
+    build without a traced loss keeps the key it always had)."""
+    key = (source, form.header_hash if form.header is not None else None, tuple(defines))
+    return key if loss is None else key + (loss.header_hash,)
 
 
-def form_library(source: str, form, *defines: str) -> ctypes.CDLL:
+def form_build(source: str, form, *defines: str, loss=None) -> BuildResult:
+    """Build ``source`` against kernel form ``form`` (traced, or hand-written
+    with a traced ``loss``), the traced elementwise loss ``loss`` where there
+    is one, and any extra ``defines``, unless that build exists; raises when
+    ``nvcc`` is missing or fails. Builds of other sources, forms or losses may
+    run at once from several threads; one of the same waits for the first."""
+    with _form_lock(_form_key(source, form, loss, defines)):
+        return build_variant(source, _form_defines(form, loss) + tuple(defines))
+
+
+def form_library(source: str, form, *defines: str, loss=None) -> ctypes.CDLL:
     """:func:`form_build` loaded, with the source's launcher declared. A
     failed build raises; nothing falls back to the package's library."""
-    key = (source, form.header_hash, tuple(defines))
+    key = _form_key(source, form, loss, defines)
     if key not in _form_libs:
-        lib = _declare(ctypes.CDLL(str(form_build(source, form, *defines).path)),
+        lib = _declare(ctypes.CDLL(str(form_build(source, form, *defines, loss=loss).path)),
                        LAUNCHERS[source][0])
         with _lock:
             _form_libs.setdefault(key, lib)
     return _form_libs[key]
 
 
-def kernel_library(source: str, form) -> ctypes.CDLL:
-    """The library whose ``source`` kernel evaluates ``form``: the
-    package's for a hand-written form, :func:`form_library` for a traced
-    one."""
-    return load_library() if form.header is None else form_library(source, form)
+def kernel_library(source: str, form, loss=None) -> ctypes.CDLL:
+    """The library whose ``source`` kernel evaluates ``form`` and the
+    training loss: the package's for a hand-written form and a loss the
+    kernels hold (mse, mae, ...), :func:`form_library` for a traced form or
+    a traced elementwise ``loss``."""
+    if form.header is None and loss is None:
+        return load_library()
+    return form_library(source, form, loss=loss)
 
 
 @functools.lru_cache(maxsize=None)

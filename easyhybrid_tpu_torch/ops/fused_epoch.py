@@ -7,7 +7,9 @@ hybrid: the permutation gather, the input norm (trainable BatchNorm with
 its running-statistics EMA, static, or none), the MLP forward with the
 activation derivatives saved, sigmoid bound scaling, the mechanistic model
 in its kernel form (traced from the user's function, or hand-written) with
-the form's partials, the masked mse and its cotangent, the hand-written
+the form's partials, the masked loss and its cotangent (every loss of the
+JAX kernel: mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss, pbkgeLoss, and an
+``ElementwiseLoss`` traced like the form, :data:`FUSED_LOSSES`), the hand-written
 backward, the batch-validity gate and the update by any optax rule the JAX
 kernel runs (adam, adamw, sgd with or
 without momentum, rmsprop, adagrad, lion, adamax, nadam, adadelta, radam,
@@ -58,10 +60,11 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..data.loaders import EpochTensors
-from ..losses.specs import LoggingLoss, SymbolicLoss
+from ..losses.specs import ElementwiseLoss, LoggingLoss, SymbolicLoss
 from ..training.epoch import make_train_epoch, perms_for_epochs
 from ..training.optimizers import parse_opt_spec, resolve_optimizer
 from . import _build
+from .kernel_forms import traced_loss
 from .fused_forward import (
     MAX_ARGS,
     MAX_FORCING,
@@ -109,6 +112,20 @@ _OPTS = {"sgd": 0, "adam": 1, "adamw": 2, "rmsprop": 3, "adagrad": 4, "lion": 5,
          "nadam": 7, "adadelta": 8, "radam": 9, "amsgrad": 10, "lamb": 11}
 MAX_LEAVES = 40  # EH_MAX_LEAVES: leaves of a packed vector lamb takes its norms over
 SHUFFLES = (True, False, "batches")
+# the training losses of kernel 2, the JAX kernel's _FUSED_LOSSES; an
+# ElementwiseLoss trains as ELEMENTWISE, traced (kernel_forms.traced_loss)
+STAT_LOSSES = ("pearsonLoss", "kgeLoss", "pbkgeLoss")
+FUSED_LOSSES = ("mse", "mae", "rmse", "nseLoss") + STAT_LOSSES
+ELEMENTWISE = "elementwise"
+# their kinds in csrc/eh_device.cuh (LOSS_*): nseLoss is the squared loss with
+# the target-only scale
+LOSS_KINDS = {"mse": 0, "nseLoss": 0, "mae": 1, "rmse": 2, "pearsonLoss": 3, "kgeLoss": 4,
+              "pbkgeLoss": 5, ELEMENTWISE: 6}
+# losses that take the batch's target mean and SST a step ahead, and those
+# that take the batch's prediction moments before any row's cotangent
+TARGET_MOMENT_LOSSES = ("nseLoss",) + STAT_LOSSES
+TWO_PASS_LOSSES = ("rmse",) + STAT_LOSSES
+_EPS = 1e-12  # the floor of the losses' denominators (losses/metrics.py)
 
 
 # --------------------------------------------------------------------------
@@ -116,9 +133,27 @@ SHUFFLES = (True, False, "batches")
 # --------------------------------------------------------------------------
 
 def _loss_name(training_loss):
+    """The loss's name as the kernels know it (:data:`ELEMENTWISE` for an
+    ``ElementwiseLoss``), or None."""
     if isinstance(training_loss, SymbolicLoss):
         return training_loss.name
+    if isinstance(training_loss, ElementwiseLoss):
+        return ELEMENTWISE
     return training_loss if isinstance(training_loss, str) else None
+
+
+def loss_reason(training_loss, losses) -> Optional[str]:
+    """Why a training kernel that trains ``losses`` and any
+    ``ElementwiseLoss`` the tracer expresses cannot train ``training_loss``,
+    or None."""
+    name = _loss_name(training_loss)
+    if name == ELEMENTWISE:
+        form = traced_loss(training_loss)
+        return form if isinstance(form, str) else None
+    if name not in losses:
+        return (f"training_loss={training_loss!r} (the kernel trains {', '.join(losses)} and any "
+                "traceable ElementwiseLoss)")
+    return None
 
 
 def _layout_sizes(model) -> Tuple[int, int]:
@@ -176,14 +211,24 @@ def gradient_units(dims, has_norm: bool, n_globals: int) -> int:
     return n + by4(n_globals)
 
 
+def _loss_floats(loss: str, nw: int, t: int) -> int:
+    """Shared-memory floats of the loss's batch moments (``ehe_loss_floats`` in
+    csrc/fused_epoch.cu): none for the losses whose scale is the count's;
+    for the others each target's mean, coefficients and warps' partials."""
+    if loss not in TARGET_MOMENT_LOSSES + TWO_PASS_LOSSES:
+        return 0
+    return 9 * t + 5 * nw * t
+
+
 def _smem_floats(*, n_padded, n_params, f, p, g, k, t, n_forcing, threads, res, stages,
-                 moments_shared, n_unit_table) -> int:
+                 moments_shared, n_unit_table, loss_floats=0) -> int:
     """Shared-memory floats of one launch of ``threads`` threads;
     ``ehe_smem_floats`` in csrc/fused_epoch.cu computes the same."""
     nw = threads // 32
     cols = f + n_forcing + 2 * t
     return (n_padded + (1 + 2 * moments_shared) * n_params + nw * (1 + t + 2 * f) + 2 * f + (2 * p + 2 * g + k)
-            + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + threads * (res + stages * cols))
+            + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + threads * (res + stages * cols)
+            + loss_floats)
 
 
 class Geometry(NamedTuple):
@@ -215,8 +260,10 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     optimizer and loss, or None when it can.
 
     The envelope: a SingleNN MLP hybrid in float32 inside the fused
-    forward's model envelope, with any of the three input-norm forms;
-    ``training_loss="mse"`` with ``agg`` sum or mean and no ``extra_loss``;
+    forward's model envelope, with any of the three input-norm forms; a
+    training loss of :data:`FUSED_LOSSES` or an ``ElementwiseLoss`` the
+    tracer expresses (:func:`loss_reason`), with ``agg`` sum or mean and no
+    ``extra_loss``;
     a single-rule optimizer spec the kernels run (:func:`optimizer_reason`);
     parameters, moments and a 32-row tile of residuals within the 227 KB of
     shared memory (:func:`_tile_rows`, the same for every rule). Any batch
@@ -230,7 +277,7 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
         return reason
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
-    reason = training_spec_reason(optimizer, logging, ("mse",))
+    reason = training_spec_reason(optimizer, logging, FUSED_LOSSES)
     if reason is not None:
         return reason
     if _tile_rows(model) is None:
@@ -263,11 +310,13 @@ def optimizer_reason(optimizer) -> Optional[str]:
 
 
 def training_spec_reason(optimizer, logging: LoggingLoss, losses) -> Optional[str]:
-    """Why a training kernel that trains ``losses`` cannot run this loss and
-    optimizer, or None: ``agg`` sum or mean, no ``extra_loss``, an optimizer
-    the kernels run (:func:`optimizer_reason`)."""
-    if _loss_name(logging.training_loss) not in losses:
-        return f"training_loss={logging.training_loss!r} (the kernel trains {', '.join(losses)})"
+    """Why a training kernel that trains ``losses`` (and a traced
+    ``ElementwiseLoss``) cannot run this loss and optimizer, or None: the loss
+    (:func:`loss_reason`), ``agg`` sum or mean, no ``extra_loss``, an
+    optimizer the kernels run (:func:`optimizer_reason`)."""
+    reason = loss_reason(logging.training_loss, losses)
+    if reason is not None:
+        return reason
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
@@ -385,6 +434,9 @@ class _Args(ctypes.Structure):
         ("n_targets", ctypes.c_int),
         ("target_out", ctypes.c_int * MAX_TARGETS),
         ("agg_scale", ctypes.c_float),
+        ("loss_kind", ctypes.c_int),
+        ("loss_sst", ctypes.c_int),
+        ("loss_sum", ctypes.c_int),
         ("optimizer", _Optimizer),
         ("tile_rows", ctypes.c_int),
         ("res_floats", ctypes.c_int),
@@ -526,6 +578,7 @@ class FusedEpochPlan(PackedLayout):
     tile_rows: int  # the envelope's tile: residual rows the first kernels held beside the state
     res_floats: int  # floats a row keeps for the backward
     loss: str = "mse"
+    loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
     cluster: int = 0  # kernel 2's cluster size when set (a measurement's), else by the batch
 
@@ -547,7 +600,8 @@ class FusedEpochPlan(PackedLayout):
             n_params=self.n_params, f=self.dims[0], p=self.dims[-1], g=len(self.global_names),
             k=len(self.fixed_names), t=len(self.target_names),
             n_forcing=len(self.forcing_names), threads=threads, res=self.tile_floats,
-            stages=stages, moments_shared=moments_shared, n_unit_table=self.n_unit_table)
+            stages=stages, moments_shared=moments_shared, n_unit_table=self.n_unit_table,
+            loss_floats=_loss_floats(self.loss, threads // 32, len(self.target_names)))
 
     def geometry(self, batch: int) -> Geometry:
         """How kernel 2 cuts a launch over batches of ``batch`` rows: a pure
@@ -620,6 +674,9 @@ class FusedEpochPlan(PackedLayout):
         a.p_off_b[: len(o["p_b"])] = o["p_b"]
         a.p_off_g = o["p_g"]
         a.agg_scale = self.agg_scale
+        a.loss_kind = LOSS_KINDS[self.loss]
+        a.loss_sst = int(self.loss in TARGET_MOMENT_LOSSES)
+        a.loss_sum = int(self.loss_form is not None and self.loss_form.normalize == "sum")
         # the backward's residuals, then the network's outputs, the bound scaling's
         # derivative and a feature of ones
         a.res_floats = self.tile_floats
@@ -698,6 +755,8 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
         opt_name=name,
         hyper=tuple(sorted(hyper.items())),
         loss=_loss_name(logging.training_loss),
+        loss_form=(traced_loss(logging.training_loss)
+                   if _loss_name(logging.training_loss) == ELEMENTWISE else None),
     )
 
 
@@ -938,17 +997,73 @@ def reference_backward(plan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
     return grads
 
 
+def target_scale(plan, m, y):
+    """A target's loss scale over a batch (mask ``m``, targets ``y``):
+    ``agg / max(Σ m, 1)`` (mse, mae, an elementwise loss by mean), ``agg /
+    max(Σ ((y − ȳ) m)², 1e-12)`` with ȳ the batch's mean (nseLoss, centred as
+    the JAX kernel takes it) or ``agg`` (an elementwise loss by sum)."""
+    n = torch.clamp_min(m.sum(), 1.0)
+    if plan.loss == "nseLoss":
+        dev = (y - y.sum() / n) * m
+        return plan.agg_scale / torch.clamp_min((dev * dev).sum(), _EPS)
+    if plan.loss_form is not None and plan.loss_form.normalize == "sum":
+        return torch.full_like(n, plan.agg_scale)
+    return plan.agg_scale / n
+
+
+def stat_loss_g(loss: str, syy, mu_y, n):
+    """A statistic loss as a function ``g(mu_h, Shh, C)`` of the masked
+    prediction moments, written as the JAX kernel's ``make_stat_loss_g``
+    (losses/metrics.py's clamps, ``b = mu_h / mu_y`` unguarded, kge's
+    ``max(n - 1, 1)``); the target moments are constants."""
+    eps = syy.new_tensor(_EPS)
+
+    def g(mu_h, shh, c):
+        r = c / torch.maximum(torch.sqrt(shh * syy), eps)
+        if loss == "pearsonLoss":
+            return 1.0 - r
+        b = mu_h / mu_y
+        if loss == "pbkgeLoss":
+            return torch.sqrt((r - 1.0) * (r - 1.0) + (b - 1.0) * (b - 1.0))
+        nm1 = torch.clamp_min(n - 1.0, 1.0)
+        a = torch.sqrt(shh / nm1) / torch.maximum(torch.sqrt(syy / nm1), eps)
+        return torch.sqrt((r - 1.0) * (r - 1.0) + (a - 1.0) * (a - 1.0) + (b - 1.0) * (b - 1.0))
+
+    return g
+
+
+def stat_loss_cotangent(loss: str, agg: float, pred, y, m):
+    """A statistic loss on one target of a batch: ``(agg · g, cotangent of
+    the predictions)``, with g's partials by ``torch.func.jvp`` (a seed per
+    moment) and the chain through ``mu_h`` (m / n), ``Shh`` (2 dh) and ``C``
+    (dy), as the JAX kernel takes them."""
+    n = torch.clamp_min(m.sum(), 1.0)
+    yh = pred * m
+    mu_h, mu_y = yh.sum() / n, y.sum() / n
+    dh, dy = (yh - mu_h) * m, (y - mu_y) * m
+    moments = (mu_h, (dh * dh).sum(), (dh * dy).sum())
+    g = stat_loss_g(loss, (dy * dy).sum(), mu_y, n)
+    d = []
+    for k in range(3):
+        seeds = tuple(torch.ones_like(v) if i == k else torch.zeros_like(v)
+                      for i, v in enumerate(moments))
+        val, dk = torch.func.jvp(g, moments, seeds)
+        d.append(dk)
+    return agg * val, agg * (d[0] * (m / n) + (2.0 * d[1]) * dh + d[2] * dy)
+
+
 def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
     """One step's forward and hand-written backward on one batch: returns
     ``(grad, batch_loss, valid, new_bn)`` with ``grad`` packed like ``p``
     and ``new_bn`` the EMA-updated statistics (trainable norm) or ``bn``.
-    ``scale`` holds each target's loss scale ``agg_scale / max(Σ mask, 1)``
-    where the caller made it before the step; the plan's loss is mse or
-    mae."""
+    ``scale`` holds each target's loss scale (:func:`target_scale`) where
+    the caller made it before the step. Every loss of the JAX kernel: a
+    scale times the squared, absolute or traced elementwise loss a row, or
+    rmse and the statistic losses from the batch's moments."""
     o = plan.offsets()
     bsz = x.shape[0]
     if scale is None:
-        scale = [plan.agg_scale / torch.clamp_min(m.sum(), 1.0) for m in mask]
+        scale = [target_scale(plan, m, yj) for m, yj in zip(mask, y)]
     valid = sum(m.sum() for m in mask) > 0
 
     fwd = reference_forward(plan, p, bn, consts, x)
@@ -961,16 +1076,31 @@ def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
     parts = plan.form.partials_fn(*args)
 
     loss_rows = torch.zeros((bsz,), dtype=x.dtype, device=x.device)
+    batch_terms = []  # rmse's and the statistic losses' value, a target each
     cots = []
     for j, t in enumerate(plan.target_names):
-        diff = (outs[plan.target_out[j]] - y[j]) * mask[j]
+        m, pred = mask[j], outs[plan.target_out[j]]
+        diff = (pred - y[j]) * m
         if plan.loss == "mae":
             loss_rows = loss_rows + scale[j] * diff.abs()
             cots.append(scale[j] * torch.sign(diff))
-        else:
+        elif plan.loss == ELEMENTWISE:  # evaluated at (ŷ m, y), as the JAX kernel does
+            yh = pred * m
+            loss_rows = loss_rows + scale[j] * plan.loss_form.value_fn(yh, y[j]) * m
+            cots.append(scale[j] * plan.loss_form.grad_fn(yh, y[j]) * m)
+        elif plan.loss == "rmse":
+            n = torch.clamp_min(m.sum(), 1.0)
+            r = torch.sqrt((diff * diff).sum() / n)
+            batch_terms.append(plan.agg_scale * r)
+            cots.append((plan.agg_scale / (n * torch.clamp_min(r, 1e-30))) * diff)
+        elif plan.loss in STAT_LOSSES:
+            term, cot = stat_loss_cotangent(plan.loss, plan.agg_scale, pred, y[j], m)
+            batch_terms.append(term)
+            cots.append(cot)
+        else:  # mse, and nseLoss with its own scale
             loss_rows = loss_rows + scale[j] * diff * diff
             cots.append((2.0 * scale[j]) * diff)
-    batch_loss = loss_rows.sum()
+    batch_loss = loss_rows.sum() if not batch_terms else sum(batch_terms[1:], batch_terms[0])
 
     dn, dg_rows = reference_cotangents(plan, fwd.neural, parts, cots)
     grads = reference_backward(plan, p, fwd, dn)
@@ -1118,7 +1248,7 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     kernel (:func:`stage_cycles`) in place of the package's library, and
     ``stamps`` the int64 tensor its stage cycles go to."""
     measuring = lib is not None  # not a launch of the package's kernel: not counted
-    lib = lib or _build.kernel_library("fused_epoch.cu", plan.form)
+    lib = lib or _build.kernel_library("fused_epoch.cu", plan.form, plan.loss_form)
     if lib.eh_fused_epoch_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

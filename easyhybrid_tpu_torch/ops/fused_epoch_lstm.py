@@ -10,7 +10,8 @@ the batch's windows, the static input norm (with its trained scale and
 bias) or none, the recurrence over the ``T`` steps of the input window, the
 Dense head, the sigmoid bound scaling and the mechanistic model in its
 kernel form at the trailing ``T_out`` steps, the masked loss over the whole
-``(T_out x batch)`` window (``mse``, ``mae`` or ``nseLoss``) and its
+``(T_out x batch)`` window (``mse``, ``mae``, ``nseLoss`` or a traced
+``ElementwiseLoss``) and its
 cotangent, the hand-written backward through time from per-step ``(x, h,
 c)`` checkpoints (the kernel keeps the gates as well, the plain version
 recomputes them), the batch-validity gate and the update by any optax rule
@@ -55,6 +56,8 @@ from ..models.hybrid import SingleNNHybridModel
 from ..models.nn import LSTMNet
 from . import _build
 from .fused_epoch import (
+    ELEMENTWISE,
+    LOSS_KINDS,
     MAX_SMEM_BYTES,
     MAX_TARGETS,
     FusedEpoch,
@@ -106,8 +109,7 @@ MAX_CLUSTER = 16
 # threads with two partials each
 LSTM_THREADS = 512
 LSTM_TILE_ROWS = (128, 64, 32, 16, 8)
-LSTM_LOSSES = ("mse", "mae", "nseLoss")  # the single-pass losses
-_LOSS_KINDS = {"mse": 0, "nseLoss": 0, "mae": 1}  # squared or absolute differences
+LSTM_LOSSES = ("mse", "mae", "nseLoss")  # the single-pass losses, and any traced ElementwiseLoss
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
 
 
@@ -203,7 +205,8 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
     The envelope: a :class:`SingleNNHybridModel` whose network is an
     :class:`LSTMNet` in float32 with ``input_batchnorm`` ``"static"`` or
     False; a mechanistic function with a kernel form; ``training_loss``
-    mse, mae or nseLoss with ``agg`` sum or mean and no ``extra_loss``; an
+    mse, mae, nseLoss or an ``ElementwiseLoss`` the tracer expresses, with
+    ``agg`` sum or mean and no ``extra_loss``; an
     optimizer the kernels run (``fused_epoch.optimizer_reason``); hidden size
     and features up to 64, up to 8 network outputs. With ``tensors``: ``x``
     of shape ``(num_batches, batch, T, F)`` and windowed targets, with a
@@ -306,6 +309,7 @@ class _Args(ctypes.Structure):
         ("agg_scale", ctypes.c_float),
         ("loss_kind", ctypes.c_int),
         ("loss_nse", ctypes.c_int),
+        ("loss_sum", ctypes.c_int),
         ("optimizer", _Optimizer),
         ("threads", ctypes.c_int),
         ("lanes", ctypes.c_int),
@@ -361,6 +365,7 @@ class FusedLSTMPlan(PackedLayout):
     opt_name: str
     hyper: Tuple[Tuple[str, float], ...]
     loss: str
+    loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
     cluster: int = 0  # the cluster size when set (a measurement's), else by the batch
 
     @property
@@ -430,8 +435,9 @@ class FusedLSTMPlan(PackedLayout):
         a.p_off_wi, a.p_off_wh, a.p_off_b = o["wi"], o["wh"], o["b"]
         a.p_off_hw, a.p_off_hb, a.p_off_g = o["hw"], o["hb"], o["g"]
         a.agg_scale = self.agg_scale
-        a.loss_kind = _LOSS_KINDS[self.loss]
+        a.loss_kind = LOSS_KINDS[self.loss]
         a.loss_nse = int(self.loss == "nseLoss")
+        a.loss_sum = int(self.loss_form is not None and self.loss_form.normalize == "sum")
         return bytes(a)
 
 
@@ -509,9 +515,10 @@ def _cell(z, c, h_size):
 
 def window_scales(plan: FusedLSTMPlan, y, mask):
     """Per target the loss scale over the whole ``(B, T_out)`` window, and
-    the batch's validity: ``agg_scale / max(Σ mask, 1)`` for mse and mae,
-    ``agg_scale / max(Σ ((y − ȳ) m)², 1e-12)`` for nseLoss (``y`` is zero
-    where masked, so its plain sum is the masked sum)."""
+    the batch's validity: ``agg_scale / max(Σ mask, 1)`` for mse, mae and an
+    elementwise loss by mean, ``agg_scale`` for one by sum, ``agg_scale /
+    max(Σ ((y − ȳ) m)², 1e-12)`` for nseLoss (``y`` is zero where masked, so
+    its plain sum is the masked sum), as the JAX kernel builds ``inv_n``."""
     scales = []
     total = 0.0
     for y_j, m_j in zip(y, mask):
@@ -521,6 +528,8 @@ def window_scales(plan: FusedLSTMPlan, y, mask):
         if plan.loss == "nseLoss":
             dev = (y_j - y_j.sum() / n) * m_j
             scales.append(plan.agg_scale / torch.clamp_min((dev * dev).sum(), _SST_EPS))
+        elif plan.loss_form is not None and plan.loss_form.normalize == "sum":
+            scales.append(torch.full_like(n, plan.agg_scale))
         else:
             scales.append(plan.agg_scale / n)
     return scales, total > 0
@@ -575,10 +584,14 @@ def lstm_reference_grads(plan: FusedLSTMPlan, p, bn, consts, x, forcing, y, mask
         parts = plan.form.partials_fn(*args)
         cots = []
         for j in range(len(plan.target_names)):
-            diff = (outs[plan.target_out[j]] - y[j][:, tt]) * mask[j][:, tt]
+            pred, m = outs[plan.target_out[j]], mask[j][:, tt]
+            diff = (pred - y[j][:, tt]) * m
             if plan.loss == "mae":
                 loss_rows = loss_rows + scales[j] * diff.abs()
                 cots.append(scales[j] * torch.sign(diff))
+            elif plan.loss == ELEMENTWISE:  # at (ŷ m, y), as the JAX kernel does
+                loss_rows = loss_rows + scales[j] * plan.loss_form.value_fn(pred * m, y[j][:, tt]) * m
+                cots.append(scales[j] * plan.loss_form.grad_fn(pred * m, y[j][:, tt]) * m)
             else:  # mse, and nseLoss with its own scale
                 loss_rows = loss_rows + scales[j] * diff * diff
                 cots.append((2.0 * scales[j]) * diff)
@@ -666,7 +679,7 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
                          "the fused LSTM kernel's shared memory")
     geometry = plan.geometry(data.batch, steps, out_steps)
     measuring = lib is not None
-    lib = lib or _build.kernel_library("fused_epoch_lstm.cu", plan.form)
+    lib = lib or _build.kernel_library("fused_epoch_lstm.cu", plan.form, plan.loss_form)
     if lib.eh_fused_lstm_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

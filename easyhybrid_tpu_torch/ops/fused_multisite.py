@@ -22,9 +22,14 @@ modes; ``-1`` marks a padding slot. Data row ``s`` must hold site ``s``
 (``prepare_multisite_data``'s layout), which the envelope checks.
 
 As in the JAX kernel the loss scales are computed outside the kernel, per
-site batch: ``agg_scale / max(Σ mask, 1)`` for mse and mae, ``agg_scale /
-max(Σ (y − ȳ)² m, 1e-12)`` for nseLoss, with a validity flag (a batch with
-no valid target changes nothing) and the step count after each step.
+site batch: ``agg_scale / max(Σ mask, 1)`` for mse, mae and an elementwise
+loss by mean, ``agg_scale`` for one by sum, ``agg_scale / max(Σ (y − ȳ)² m,
+1e-12)`` for nseLoss, with a validity flag (a batch with no valid target
+changes nothing) and the step count after each step. rmse (one target, as
+the JAX kernel takes it) is deferred as there: the kernel sums the raw
+squared differences and the gradient of the raw cotangent ``2 diff``, and
+the update scales the gradient by ``(1 / n) / (2 max(r, 1e-30))`` once the
+batch's ``r = sqrt(sse / n)`` is known (the scale array holds ``1 / n``).
 
 :func:`fused_multisite_reference` is the same algorithm in plain PyTorch.
 On CPU tensors the wrapper computes it; on CUDA tensors it launches the
@@ -47,6 +52,8 @@ from ..training.epoch import perms_for_epochs
 from . import _build
 from .fused_epoch import (
     _UNIT_TABLE,
+    ELEMENTWISE,
+    LOSS_KINDS,
     MAX_SMEM_BYTES,
     MAX_TARGETS,
     SHUFFLES,
@@ -61,6 +68,7 @@ from .fused_epoch import (
     fill_common_args,
     form_args,
     gradient_units,
+    loss_reason,
     opt_slots,
     optimizer_reason,
     padded_offsets,
@@ -89,8 +97,7 @@ __all__ = [
     "supports_fused_multisite",
 ]
 
-MS_LOSSES = ("mse", "mae", "nseLoss")
-_LOSS_KINDS = {"mse": 0, "nseLoss": 0, "mae": 1}  # squared or absolute differences
+MS_LOSSES = ("mse", "mae", "nseLoss", "rmse")
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
 # gradient blocks aimed at: two a multiprocessor, the blocks the card holds at
 # once for the quick-start model (91 KB of shared memory each), so a step is
@@ -132,7 +139,8 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
     The envelope: a :class:`MultiSiteHybridModel` with shared network
     weights over a SingleNN MLP base in float32 inside the fused forward's
     model envelope, ``input_batchnorm`` False or ``"static"``;
-    ``training_loss`` mse, mae or nseLoss with ``agg`` sum or mean and no
+    ``training_loss`` mse, mae, nseLoss, rmse (one target) or an
+    ``ElementwiseLoss`` the tracer expresses, with ``agg`` sum or mean and no
     ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec without
     momentum. With ``tensors``: ``x`` of shape ``(num_batches, batch, N,
     F)``, and for minibatched sites a shuffle mode of True, False or
@@ -148,9 +156,12 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
         return "trainable input BatchNorm (input_batchnorm=True) is outside the multisite kernel"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
-    if _loss_name(logging.training_loss) not in MS_LOSSES:
-        return (f"training_loss={logging.training_loss!r} (the multisite kernel trains "
-                f"{', '.join(MS_LOSSES)})")
+    reason = loss_reason(logging.training_loss, MS_LOSSES)
+    if reason is not None:
+        return reason
+    if _loss_name(logging.training_loss) == "rmse" and len(model.targets) != 1:
+        return (f"rmse on {len(model.targets)} targets (the multisite kernel defers rmse's "
+                "factor for one target, as the JAX kernel does)")
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
@@ -289,7 +300,7 @@ def _static_args(plan: FusedEpochPlan) -> bytes:
     a.pp_off_w[: len(pp["pp_w"])] = pp["pp_w"]
     a.pp_off_b[: len(pp["pp_b"])] = pp["pp_b"]
     a.pp_off_g, a.n_padded = pp["pp_g"], pp["n_padded"]
-    a.loss_kind = _LOSS_KINDS[plan.loss]
+    a.loss_kind = LOSS_KINDS[plan.loss]
     a.n_forcing = len(plan.forcing_names)
     # the backward's residuals, then the network's outputs, the bound scaling's
     # derivative and a feature of ones (kernel 2's tile row)
@@ -451,6 +462,10 @@ def batch_scales(plan: FusedEpochPlan, data: MultisiteData, index: torch.Tensor)
             mu = (yb * m).sum((-2, -1)) / count.clamp_min(1.0)
             dev2 = (yb - mu[..., None, None]) * m
             scales.append(plan.agg_scale / (dev2 * dev2).sum((-2, -1)).clamp_min(_SST_EPS))
+        elif plan.loss == "rmse":  # the deferred factor's 1 / n
+            scales.append(1.0 / count.clamp_min(1.0))
+        elif plan.loss_form is not None and plan.loss_form.normalize == "sum":
+            scales.append(torch.full_like(count, plan.agg_scale))
         else:
             scales.append(plan.agg_scale / count.clamp_min(1.0))
     valid = (torch.stack(counts).sum(0) > 0).to(torch.float32)
@@ -465,7 +480,8 @@ def multisite_reference_grads(plan: FusedEpochPlan, p, bn, consts, data: Multisi
                               scale):
     """One step's forward and hand-written backward on the site batch
     ``sites`` (``(batch,)``, -1 padding): ``(grad, batch_loss)`` with
-    ``grad`` packed like ``p`` (zero for the sites outside the batch)."""
+    ``grad`` packed like ``p`` (zero for the sites outside the batch). rmse
+    gives the raw squared loss's (:func:`rmse_deferred` scales it)."""
     n_shared, n_glob, n_sites = plan.offsets()["p_g"], len(plan.global_names), plan.n_sites
     live = sites >= 0
     rows = sites.clamp_min(0).long()
@@ -498,6 +514,15 @@ def multisite_reference_grads(plan: FusedEpochPlan, p, bn, consts, data: Multisi
         if plan.loss == "mae":
             loss_rows = loss_rows + scale[j] * diff.abs()
             cots.append(scale[j] * torch.sign(diff))
+        elif plan.loss == ELEMENTWISE:  # at (ŷ m, y m), the mask selecting
+            m = on.to(pred.dtype)
+            yh = torch.where(on, pred, torch.zeros_like(pred))
+            yv = torch.where(on, samples(data.y[j]), torch.zeros_like(pred))
+            loss_rows = loss_rows + scale[j] * plan.loss_form.value_fn(yh, yv) * m
+            cots.append(scale[j] * plan.loss_form.grad_fn(yh, yv) * m)
+        elif plan.loss == "rmse":  # raw: the update applies the factor
+            loss_rows = loss_rows + diff * diff
+            cots.append(2.0 * diff)
         else:  # mse, and nseLoss with its own scale
             loss_rows = loss_rows + scale[j] * diff * diff
             cots.append((2.0 * scale[j]) * diff)
@@ -508,6 +533,14 @@ def multisite_reference_grads(plan: FusedEpochPlan, p, bn, consts, data: Multisi
     g_site = torch.zeros((n_glob, n_sites), dtype=p.dtype, device=p.device)
     g_site[:, rows[live]] = g_batch[:, live]
     return torch.cat(grads + [g_site.reshape(-1)]), loss_rows.sum()
+
+
+def rmse_deferred(g, sse, inv_n):
+    """rmse's factor on the raw gradient, as the JAX kernel defers it:
+    ``(g · (1/n) / (2 max(r, 1e-30)), r)`` with ``r = sqrt(max(sse / n, 0))``
+    (``agg`` is 1 with one target)."""
+    r = torch.sqrt(torch.clamp_min(sse * inv_n, 0.0))
+    return (inv_n / (2.0 * torch.clamp_min(r, 1e-30))) * g, r
 
 
 def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state,
@@ -527,6 +560,8 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
         for b in range(data.n_batches):
             g, loss = multisite_reference_grads(plan, p, bn, consts, data, index[e, b],
                                                 scale[e, b])
+            if plan.loss == "rmse":
+                g, loss = rmse_deferred(g, loss, scale[e, b, 0])
             ok = valid[e, b] > 0
             p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
@@ -553,7 +588,7 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     cycles go to; ``target_blocks`` and ``max_threads`` go to
     :func:`multisite_geometry`."""
     measuring = lib is not None
-    lib = lib or _build.kernel_library("fused_multisite.cu", plan.form)
+    lib = lib or _build.kernel_library("fused_multisite.cu", plan.form, plan.loss_form)
     if lib.eh_fused_multisite_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

@@ -5,7 +5,7 @@ Counterpart of the batch-chunked half of ``easyhybrid_tpu/ops/fused_epoch.py``
 (``kernel_body_elem``, chosen by ``_pick_batch_chunks`` for the tower
 [1024, 512, 256, 128, 64] at batch 1,024). What that kernel computes, with the
 TPU's chunking stripped: per optimizer step, the whole-batch gradient of the
-masked elementwise loss (mse or mae) of a static-norm MLP hybrid, summed in a
+masked elementwise loss (mse, mae or a traced ElementwiseLoss) of a static-norm MLP hybrid, summed in a
 fixed order over batch tiles, then one gated update of every parameter.
 
 A model this wide does not fit one block's shared memory, so parameters,
@@ -52,6 +52,7 @@ from .fused_epoch import (
     FusedData,
     FusedEpoch,
     FusedParams,
+    LOSS_KINDS,
     PackedLayout,
     _Optimizer,
     _reference_update,
@@ -89,8 +90,7 @@ __all__ = [
 
 # caps of the kernels; MAX_WIDE_WIDTH must equal EH_WIDE_MAX_WIDTH of the source
 MAX_WIDE_WIDTH = 4096
-WIDE_LOSSES = ("mse", "mae")
-_LOSS_KINDS = {"mse": 0, "mae": 1}  # squared or absolute differences
+WIDE_LOSSES = ("mse", "mae")  # and any ElementwiseLoss the tracer expresses
 #: the share of the card's memory the activations and the partial sums may take
 WORKSPACE_SHARE = 0.25
 _TILE = 64            # the FMA products' output tile, EHW_TILE of the source
@@ -319,8 +319,9 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     norm (trainable BatchNorm needs whole-batch statistics before the first
     layer, as in the JAX kernel), the 12 named activations, widths up to
     ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a kernel-form
-    mechanistic function; ``training_loss`` mse or mae with ``agg`` sum or
-    mean and no ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec
+    mechanistic function; ``training_loss`` mse, mae or an ``ElementwiseLoss``
+    the tracer expresses (the losses the JAX kernel chunks), with ``agg`` sum
+    or mean and no ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec
     without momentum. Any number of epochs per call; with ``tensors``, a
     batch of at most 65,535 row tiles of 64, and the activations and partial sums of one step within
     ``WORKSPACE_SHARE`` of the card's memory (``memory_bytes``, by default
@@ -467,6 +468,7 @@ class FusedWidePlan(PackedLayout):
     opt_name: str
     hyper: Tuple[Tuple[str, float], ...]
     loss: str
+    loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
 
     @property
     def n_features(self) -> int:
@@ -494,7 +496,7 @@ class FusedWidePlan(PackedLayout):
         a.p_off_w[: len(o["p_w"])] = o["p_w"]
         a.p_off_b[: len(o["p_b"])] = o["p_b"]
         a.p_off_g = o["p_g"]
-        a.loss_kind = _LOSS_KINDS[self.loss]
+        a.loss_kind = LOSS_KINDS[self.loss]
         return bytes(a)
 
 
@@ -519,13 +521,16 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
 
 def batch_scales(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor):
     """``(scale (E, nb, T), valid (E, nb))``: every step's loss scale per
-    target, ``agg_scale / max(Σ mask, 1)`` over the whole batch, and its
-    validity flag (a batch with no valid target changes nothing), from the
-    masks and the row index alone."""
+    target, ``agg_scale / max(Σ mask, 1)`` over the whole batch (``agg_scale``
+    for an elementwise loss by sum), and its validity flag (a batch with no
+    valid target changes nothing), from the masks and the row index alone."""
     epochs = rows.shape[0]
     idx = rows.long()
     counts = [mask[idx].reshape(epochs, data.n_batches, data.batch).sum(-1) for mask in data.mask]
-    scale = torch.stack([plan.agg_scale / c.clamp_min(1.0) for c in counts], -1)
+    if plan.loss_form is not None and plan.loss_form.normalize == "sum":
+        scale = torch.stack([torch.full_like(c, plan.agg_scale) for c in counts], -1)
+    else:
+        scale = torch.stack([plan.agg_scale / c.clamp_min(1.0) for c in counts], -1)
     valid = (torch.stack(counts).sum(0) > 0).to(torch.float32)
     return scale.to(torch.float32).contiguous(), valid.contiguous()
 
@@ -596,7 +601,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     with one call of the C launcher, updating ``packed`` and ``opt_state`` in
     place and writing the last epoch's mean batch loss into ``loss``; raises
     if a launch is refused. Counts calls in ``launch_fused_wide.launches``."""
-    lib = _build.kernel_library("fused_wide.cu", plan.form)
+    lib = _build.kernel_library("fused_wide.cu", plan.form, plan.loss_form)
     if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

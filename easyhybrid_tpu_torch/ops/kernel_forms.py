@@ -26,7 +26,8 @@ torch engine.
 
 The partials follow torch's forward-mode formulas, which the exactness gate
 and the torch epoch share: half of each tangent at a tie of ``maximum`` /
-``minimum``; at a ``clamp`` bound the tangent passes; ``sgn`` for ``abs``;
+``minimum``; at a ``clamp`` bound the tangent passes (and at a tie of
+``clamp_min`` / ``clamp_max`` with a traced bound the value's); ``sgn`` for ``abs``;
 ``pow``'s exponent partial is 0 where the base is 0 and the exponent is not
 negative. Values keep NaN where torch's ``maximum`` / ``minimum`` do.
 """
@@ -45,7 +46,8 @@ from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, U
 import torch
 import torch.fx
 
-__all__ = ["KernelForm", "MAX_ARGS", "MAX_OUTPUTS", "FORM_RBQ10", "FORM_TRACED", "traced_form"]
+__all__ = ["KernelForm", "LossForm", "MAX_ARGS", "MAX_OUTPUTS", "FORM_RBQ10", "FORM_TRACED",
+           "traced_form", "traced_loss"]
 
 # caps of the kernels: EH_MAX_ARGS and EH_MAX_OUT in csrc/eh_device.cuh
 MAX_ARGS = 8
@@ -97,6 +99,7 @@ _TORCH_OPS = {
     "clamp": torch.clamp, "clamp_t": torch.clamp,
     "clamp_lo": lambda x, lo: torch.clamp(x, min=lo),
     "clamp_hi": lambda x, hi: torch.clamp(x, max=hi),
+    "clamp_min_t": torch.clamp_min, "clamp_max_t": torch.clamp_max,
 }
 # CUDA's single-precision functions (no --use_fast_math); maximum and minimum
 # keep NaN as torch's do, and pick as torch's CPU kernels do at signed zeros
@@ -110,16 +113,20 @@ _CUDA_OPS = {
     "pow": "powf({0}, {1})", "max": _MAX, "min": _MIN, "and": "{0} && {1}",
     "select": "{0} ? {1} : {2}",
     "clamp": "eht_min(eht_max({0}, {1}), {2})", "clamp_t": "eht_min(eht_max({0}, {1}), {2})",
-    "clamp_lo": _MAX, "clamp_hi": _MIN,
+    "clamp_lo": _MAX, "clamp_hi": _MIN, "clamp_min_t": _MAX, "clamp_max_t": _MIN,
     **{op: "{0} " + sym + " {1}" for op, sym in _CMP.items()},
 }
+# guarded: a kernel built against a form and a loss includes both headers
 _HEADER_HELPERS = """\
+#ifndef EHT_HELPERS
+#define EHT_HELPERS
 __device__ __forceinline__ float eht_max(float a, float b) {
   return (a != a || b != b) ? a + b : (a < b ? b : a);
 }
 __device__ __forceinline__ float eht_min(float a, float b) {
   return (a != a || b != b) ? a + b : (b < a ? b : a);
 }
+#endif
 """
 
 
@@ -287,6 +294,10 @@ class _Tangents:
             return p.select(p.add("gt", a, b), tz[0], tz[1])
         if op == "clamp_hi":
             return p.select(p.add("lt", a, b), tz[0], tz[1])
+        if op == "clamp_min_t":  # torch.clamp_min's own: the tangent passes at a tie
+            return p.select(p.add("ge", a, b), tz[0], tz[1])
+        if op == "clamp_max_t":
+            return p.select(p.add("le", a, b), tz[0], tz[1])
         if op in ("add", "sub"):
             if ta is None:
                 return tb if op == "add" else p.add("neg", tb)
@@ -350,6 +361,7 @@ _FUNCTIONS = {
     torch.pow: "pow", torch.exp: "exp", torch.log: "log", torch.sqrt: "sqrt",
     torch.sigmoid: "sigmoid", torch.tanh: "tanh", torch.abs: "abs",
     torch.maximum: "max", torch.minimum: "min", torch.clamp: "clamp", torch.clip: "clamp",
+    torch.clamp_min: "clamp_min", torch.clamp_max: "clamp_max",
     torch.where: "where", torch.lt: "lt", torch.le: "le", torch.gt: "gt", torch.ge: "ge",
     torch.eq: "eq", torch.ne: "ne",
 }
@@ -357,9 +369,10 @@ _METHODS = {
     "add": "add", "sub": "sub", "mul": "mul", "div": "div", "neg": "neg", "pow": "pow",
     "exp": "exp", "log": "log", "sqrt": "sqrt", "sigmoid": "sigmoid", "tanh": "tanh",
     "abs": "abs", "clamp": "clamp", "clip": "clamp", "maximum": "max", "minimum": "min",
+    "clamp_min": "clamp_min", "clamp_max": "clamp_max",
 }
-_SET = ("+ - * / **, exp, log, sqrt, sigmoid, tanh, abs, minimum, maximum, clamp and where "
-        "over a comparison")
+_SET = ("+ - * / **, exp, log, sqrt, sigmoid, tanh, abs, minimum, maximum, clamp, clamp_min, "
+        "clamp_max and where over a comparison")
 
 
 def _target_name(node: torch.fx.Node) -> str:
@@ -417,6 +430,17 @@ class _Lowering:
         args, kwargs = list(node.args), dict(node.kwargs)
         if op == "clamp":
             return self._clamp(name, args, kwargs)
+        if op in ("clamp_min", "clamp_max"):  # one bound
+            key = "min" if op == "clamp_min" else "max"
+            bound = kwargs.pop(key, args[1] if len(args) > 1 else None)
+            if bound is None:
+                raise _Refused(f"{name} without a bound")
+            if not isinstance(bound, torch.fx.Node):  # a constant: clamp's
+                return self._clamp(name, args[:1], {**kwargs, key: bound})
+            if kwargs:
+                raise _Refused(f"{name} with keyword arguments {sorted(kwargs)}")
+            ids = [self.value(args[0], name), self.value(bound, name)]
+            return None if None in ids else self.p.add(op + "_t", *ids)
         if kwargs:
             raise _Refused(f"{name} with keyword arguments {sorted(kwargs)}")
         if op == "where":
@@ -635,3 +659,91 @@ def traced_form(fn, available: Sequence[str]) -> Union[KernelForm, str]:
             name = getattr(fn, "__name__", type(fn).__name__)
             per_fn[key] = f"mechanistic model {name!r} has no kernel form: {e}"
     return per_fn[key]
+
+
+# --------------------------------------------------------------------------
+# the elementwise training loss
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LossForm:
+    """An :class:`~easyhybrid_tpu_torch.losses.specs.ElementwiseLoss` as the
+    training kernels evaluate it: ``ℓ(ŷ, y)`` with its args as float32
+    constants, traced into the same elementwise program as a kernel form.
+    ``value_fn(yh, y)`` and ``grad_fn(yh, y)`` (``dℓ/dŷ``, forward mode as
+    :class:`_Tangents` takes it) evaluate the program with torch; ``header``
+    is the CUDA header of ``eh_traced_loss(yh, y, val, dval)`` the kernels
+    are built against (``ops/_build.py::form_library``). ``normalize`` is the
+    spec's: ``"mean"`` scales the masked sum by ``agg / n``, ``"sum"`` by
+    ``agg``."""
+
+    name: str
+    normalize: str
+    value_fn: Callable
+    grad_fn: Callable
+    header: str
+
+    @property
+    def header_hash(self) -> str:
+        return hashlib.sha256(self.header.encode()).hexdigest()[:16]
+
+
+def _trace_loss(spec) -> LossForm:
+    fn, args, kwargs = spec.fn, tuple(spec.args), dict(spec.kwargs)
+
+    def loss(y_hat, y):
+        return {"loss": fn(y_hat, y, *args, **kwargs)}
+
+    try:
+        graph = torch.fx.symbolic_trace(loss).graph
+    except torch.fx.proxy.TraceError as e:
+        raise _Refused(f"control flow on a traced value ({e})") from None
+    except Exception as e:  # the user's code raised while traced: that is the reason
+        raise _Refused(f"tracing it raised {type(e).__name__}: {e}") from None
+    low = _Lowering(graph, {"y_hat": 0, "y": 1})
+    prog, out = low.p, low.outputs["loss"]
+    grad = _Tangents(prog, 0, prog.depends()).of(out)
+    if grad is None:  # the loss does not depend on the prediction
+        grad = prog.const(0.0)
+    value_fn, grad_fn = _torch_fn(prog, [out]), _torch_fn(prog, [grad])
+    lines = [
+        "// A traced elementwise loss l(yh, y) and dl/dyh; generated by",
+        "// easyhybrid_tpu_torch/ops/kernel_forms.py from the loss function's graph.",
+        "#pragma once", "", _HEADER_HELPERS,
+        "__device__ __forceinline__ void eh_traced_loss(float yh, float y, float& val, float& dval) {",
+        "  const float av[2] = {yh, y};",
+        *prog.emit([out, grad]),
+        f"  val = v{out};",
+        f"  dval = v{grad};",
+        "}", "",
+    ]
+    return LossForm(
+        name=spec.name or getattr(spec.fn, "__name__", type(spec.fn).__name__),
+        normalize=spec.normalize,
+        value_fn=lambda yh, y: value_fn(yh, y)[0],
+        grad_fn=lambda yh, y: grad_fn(yh, y)[0],
+        header="\n".join(lines))
+
+
+_LOSS_CACHE: Dict[object, Union[LossForm, str]] = {}
+
+
+def traced_loss(spec) -> Union[LossForm, str]:
+    """The kernel form of an elementwise training loss (``ElementwiseLoss``),
+    or the reason it has none: ``"training loss '<name>' has no kernel form:
+    <cause>"``. Cached per spec, as :func:`traced_form` per function."""
+    try:
+        hash(spec)
+        key = spec
+    except TypeError:  # an unhashable argument: traced each time
+        key = None
+    if key is None or key not in _LOSS_CACHE:
+        try:
+            got: Union[LossForm, str] = _trace_loss(spec)
+        except _Refused as e:
+            name = spec.name or getattr(spec.fn, "__name__", type(spec.fn).__name__)
+            got = f"training loss {name!r} has no kernel form: {e}"
+        if key is None:
+            return got
+        _LOSS_CACHE[key] = got
+    return _LOSS_CACHE[key]

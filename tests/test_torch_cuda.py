@@ -29,7 +29,10 @@ measured worst 4.5e-5 relative at K = 1,024 on an H100).
 Every training kernel is also held, under each optimizer rule besides adam
 and plain sgd (``RULES``), against its plain version at the same tolerance
 on parameters and every slot of the opt state, with the same bits on a
-second run.
+second run; and so under every training loss it takes: kernel 2 under mae,
+nseLoss, rmse, pearsonLoss, kgeLoss, pbkgeLoss and the traced pinball and
+huber (``TRACED_LOSSES``), kernels 3 and 4 under the traced losses, kernel 5
+under them and rmse.
 """
 
 import ctypes
@@ -226,6 +229,15 @@ RULES = [("adamw", 0.01), ("sgd", 0.05, 0.9), ("sgd", 0.05, 0.9, 1.0), ("rmsprop
          ("adadelta", 1.0), ("radam", 0.01), ("amsgrad", 0.01), ("lamb", 0.01)]
 
 
+# the traced elementwise losses of the loss cases, by a name that ids the case
+TRACED_LOSSES = {"pinball": lambda: et.pinball(0.9),
+                 "huber_sum": lambda: et.huber(1.0, normalize="sum")}
+
+
+def _loss(name):
+    return TRACED_LOSSES[name]() if name in TRACED_LOSSES else name
+
+
 def _outputs(run):
     """A fused run's parameters, every opt-state slot and its loss."""
     packed, state, loss = run
@@ -238,7 +250,7 @@ TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
 
 def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam", 0.01),
                 shuffle=True, epochs=1, batch=256, n=2000, seed=0, nan_frac=0.0, mask_first=False,
-                mechanistic=et.rbq10):
+                mechanistic=et.rbq10, loss="mse", agg="sum"):
     cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
     if mask_first:
         cols["reco"][:batch] = np.nan
@@ -255,7 +267,8 @@ def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam",
     et.fit_input_norm(m, data)
     m.to(device)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
-    fn = et.make_fused_epoch(m, opt, et.LoggingLoss(), shuffle=shuffle, epochs_per_call=epochs)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
+    fn = et.make_fused_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
     packed = fn.plan.pack(m)
@@ -316,6 +329,30 @@ def test_traced_forms_run_the_forward_kernel(cuda, mech):
 @pytest.mark.parametrize("mech", TRACED, ids=lambda f: f.__name__)
 def test_traced_forms_run_the_epoch_kernel(cuda, mech):
     _epoch_case(cuda, mechanistic=mech, epochs=2, nan_frac=0.2)
+
+
+@pytest.mark.parametrize("loss", ["mae", "nseLoss", "rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss",
+                                  "pinball", "huber_sum"])
+def test_epoch_kernel_matches_plain_under_every_loss(cuda, loss):
+    """Every training loss of the JAX kernel, NaN targets, agg mean; the
+    statistic losses and rmse with their moments exchanged inside the step.
+    kgeLoss and pbkgeLoss are cones at their minimum, where Adam amplifies
+    rounding (chip_smoke.py's phase 22): one epoch of 8 steps."""
+    _epoch_case(cuda, loss=loss, agg="mean", nan_frac=0.2,
+                epochs=1 if loss in ("kgeLoss", "pbkgeLoss") else 2)
+
+
+@pytest.mark.parametrize("loss", ["rmse", "kgeLoss", "pearsonLoss", "nseLoss"])
+def test_epoch_kernel_takes_the_batch_moments_where_tiles_are_walked(cuda, loss):
+    # a batch of 3,000 rows: the two-pass losses' moments from a pass of their own
+    _epoch_case(cuda, loss=loss, hidden=(64, 48), act="selu", norm="static", batch=3000, n=9000)
+
+
+@pytest.mark.parametrize("loss", ["kgeLoss", "rmse"])
+def test_epoch_kernel_statistic_losses_on_a_masked_first_batch(cuda, loss):
+    # no valid target: the NaN gradient of a batch without moments takes no step
+    got = _epoch_case(cuda, loss=loss, shuffle=False, mask_first=True, n=1024, batch=128)
+    assert int(got[1]["t"][0]) == 7
 
 
 @pytest.mark.parametrize("act", sorted(et.ACTIVATIONS))
@@ -416,7 +453,7 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
         data.y["reco"][mask_batch * batch:(mask_batch + 1) * batch] = np.nan
     et.fit_input_norm(m, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), device)
-    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
     aim = {} if target is None else dict(target_blocks=target)  # another number of blocks
     fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs, **aim)
     perms = perms_for_epochs(shuffle, tensors, epochs,
@@ -461,6 +498,16 @@ def _multisite_case(device, *, S=300, N=8, batch=None, hidden=(16, 16), act="swi
     dict(S=3000, N=64, epochs=1, target=8 * 132),                   # 750 blocks, beyond 528
 ], ids=str)
 def test_multisite_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _multisite_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss="rmse", S=2000, N=64),                                # one target, one batch
+    dict(loss="rmse", batch=128, shuffle=True, epochs=3),           # a factor a minibatch
+    dict(loss="pinball", S=2000, N=64),
+    dict(loss="huber_sum", batch=128, shuffle="batches", agg="mean", epochs=3),
+], ids=str)
+def test_multisite_kernel_matches_plain_under_the_new_losses(cuda, kw):
     _multisite_case(cuda, **kw)
 
 
@@ -588,7 +635,7 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
                                 lead_time=0)
     et.fit_input_norm(m, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
-    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
     fn = et.make_fused_lstm_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     if cluster:  # a geometry the plan picks for another batch
         fn.plan = dataclasses.replace(fn.plan, cluster=cluster)
@@ -625,6 +672,14 @@ def _lstm_case(device, *, hidden=16, steps=10, out_steps=1, batch=128, norm="sta
     dict(hidden=4, steps=300, out_steps=300, norm=False, loss="mse", n=700, epochs=1),  # 3 of 4
 ], ids=str)
 def test_lstm_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _lstm_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss="pinball", epochs=4),                                   # the main path's shape
+    dict(loss="huber_sum", nan_frac=0.3, batch=100, out_steps=2, agg="mean"),
+], ids=str)
+def test_lstm_kernel_matches_plain_under_a_traced_loss(cuda, kw):
     _lstm_case(cuda, **kw)
 
 
@@ -719,7 +774,7 @@ def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("ad
                       forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
     et.fit_input_norm(m, et.prepare_data(m, cols))
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
-    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
     fn = et.make_fused_wide_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
@@ -754,6 +809,15 @@ def _assert_wide_close(got, ref):
     dict(hidden=(5,), n=40, batch=7),
 ], ids=str)
 def test_wide_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _, got, ref, _ = _wide_case(cuda, **kw)
+    _assert_wide_close(got, ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss="pinball"),
+    dict(loss="huber_sum", nan_frac=0.3, batch=300, agg="mean"),      # ragged last batch
+], ids=str)
+def test_wide_kernel_matches_plain_under_a_traced_loss(cuda, kw):
     _, got, ref, _ = _wide_case(cuda, **kw)
     _assert_wide_close(got, ref)
 

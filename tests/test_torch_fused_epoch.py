@@ -217,7 +217,15 @@ def test_first_batch_fully_masked_keeps_adam_finite():
     ({}, "noisy_sgd", LL, "noisy_sgd"),
     ({}, ("radam", {"learning_rate": 0.01, "threshold": 3.0}), LL, "threshold 3.0 < 4"),
     ({}, {"nn": "adam"}, LL, "per-branch"),
-    ({}, "adam", et.LoggingLoss(training_loss="mae"), "trains mse"),
+    # kernel 2 trains every loss of the JAX kernel and any traceable elementwise
+    # loss; an opaque callable, a per-target spec and an elementwise loss the
+    # tracer refuses stay on the torch engine
+    ({}, "adam", et.LoggingLoss(training_loss=lambda yh, y, m: (yh - y).abs().sum()),
+     "trains mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss, pbkgeLoss and any traceable"),
+    ({}, "adam", et.LoggingLoss(training_loss=et.PerTarget(["mse"])), "trains mse, mae"),
+    ({}, "adam", et.LoggingLoss(training_loss=et.ElementwiseLoss(
+        lambda yh, y: torch.sin(yh - y), name="sine")),
+     "training loss 'sine' has no kernel form: operation torch.sin"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
     ({}, "adam", et.LoggingLoss(agg=lambda xs: xs[0]), "agg"),
     ({"hidden_layers": [65]}, "adam", LL, "cap of 64"),
@@ -436,27 +444,41 @@ def test_geometry_is_a_pure_function_of_plan_and_batch(hidden, norm, batch, want
 
 
 def test_smem_formula_matches_the_source():
-    """``_smem_floats`` against ``ehe_smem_floats``'s return expression,
-    parsed from the source and evaluated on the same numbers."""
+    """``_smem_floats`` against ``ehe_smem_floats``'s return expression, and
+    ``_loss_floats`` against ``ehe_loss_floats``'s, parsed from the source and
+    evaluated on the same numbers for every loss."""
     src = CU_SOURCE.read_text()
     body = re.search(r"static size_t ehe_smem_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
     expr = re.search(r"return (.*?);", body, re.S).group(1).replace("(size_t)", "")
     expr = re.sub(r"a->(\w+)", r"a_\1", " ".join(expr.split()))
+    expr = expr.replace("ehe_loss_floats(a, NW, T)", "LOSS")
+    lbody = re.search(r"static int ehe_loss_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    cond, amount = re.search(r"return \((.*?)\) \? (.*?) : 0;", lbody, re.S).groups()
+    cond = re.sub(r"a->(\w+)", r"a_\1", " ".join(cond.split())).replace("||", " or ")
+    kinds = {"LOSS_RMSE": fe.LOSS_KINDS["rmse"],
+             "ehe_loss_is_stat": lambda k: k in [fe.LOSS_KINDS[n] for n in fe.STAT_LOSSES]}
     rng = np.random.default_rng(0)
-    for _ in range(50):
+    losses = list(fe.FUSED_LOSSES) + [fe.ELEMENTWISE]
+    for i in range(50):
         f, p, g, k, t, nf = (int(rng.integers(lo, hi)) for lo, hi in
                              ((1, 65), (1, 9), (1, 9), (0, 5), (1, 5), (1, 9)))
         threads, stages, shared = 32 * int(rng.integers(1, 17)), int(rng.choice([0, 2])), int(
             rng.integers(0, 2))
         n_params, n_padded, res, table = (int(rng.integers(10, 9000)), 4 * int(rng.integers(3, 2500)),
                                           int(rng.integers(4, 500)), int(rng.integers(0, 129)))
+        loss = losses[i % len(losses)]
         names = dict(F=f, P=p, G=g, K=k, T=t, NW=threads // 32, COLS=f + nf + 2 * t,
                      a_n_padded=n_padded, a_moments_shared=shared, a_n_params=n_params,
-                     a_n_unit_table=table, a_tile_rows=threads, a_res_floats=res, a_stages=stages)
+                     a_n_unit_table=table, a_tile_rows=threads, a_res_floats=res, a_stages=stages,
+                     a_loss_sst=int(loss in fe.TARGET_MOMENT_LOSSES), k=fe.LOSS_KINDS[loss], **kinds)
+        names["LOSS"] = eval(amount, {"__builtins__": {}}, names) if eval(  # noqa: S307
+            cond, {"__builtins__": {}}, names) else 0
+        assert names["LOSS"] == fe._loss_floats(loss, threads // 32, t)
         want = eval(expr, {"__builtins__": {}}, names)  # noqa: S307 - the repository's own source
         assert want == fe._smem_floats(
             n_padded=n_padded, n_params=n_params, f=f, p=p, g=g, k=k, t=t, n_forcing=nf,
-            threads=threads, res=res, stages=stages, moments_shared=shared, n_unit_table=table)
+            threads=threads, res=res, stages=stages, moments_shared=shared, n_unit_table=table,
+            loss_floats=fe._loss_floats(loss, threads // 32, t))
     caps = dict(re.findall(r"#define (EHE_N_STAMPS|EH_MAX_SMEM_BYTES) \(?([\d *]+)\)?", src
                            + CU_SOURCE.with_name("eh_device.cuh").read_text()))
     assert int(caps["EHE_N_STAMPS"]) == len(fe.STAGES) + 1

@@ -234,8 +234,12 @@ def test_envelope_verdicts_follow_the_jax_package():
     ({}, "noisy_sgd", et.LoggingLoss(), "noisy_sgd"),
     ({}, ("radam", {"learning_rate": 0.01, "threshold": 3.0}), et.LoggingLoss(),
      "threshold 3.0 < 4"),
-    ({}, "adam", et.LoggingLoss(training_loss="rmse"), "mse, mae, nseLoss"),
-    ({}, "adam", et.LoggingLoss(training_loss=et.pinball(0.3)), "mse, mae, nseLoss"),
+    # rmse (one target) and a traced elementwise loss are the kernel's since
+    # they came to kernel 5; a statistic loss and an untraceable elementwise
+    # loss are not
+    ({}, "adam", et.LoggingLoss(training_loss="kgeLoss"), "mse, mae, nseLoss, rmse"),
+    ({}, "adam", et.LoggingLoss(training_loss=et.ElementwiseLoss(
+        lambda yh, y: torch.sin(yh - y), name="sine")), "training loss 'sine' has no kernel form"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
     ({}, "adam", et.LoggingLoss(agg=lambda xs: xs[0]), "agg"),
     ({"norm": True}, "adam", et.LoggingLoss(), "trainable input BatchNorm"),

@@ -96,8 +96,10 @@ def test_engine_reasons_on_the_cpu():
     assert r.epoch_path == "torch" and "'cpu', not cuda" in r.engine_reason
     r = et.train(et.construct_hybrid_model(**SPEC), cols, use_kernel=False, **kw)
     assert r.epoch_path == "torch" and "use_kernel disabled" in r.engine_reason
-    r = et.train(et.construct_hybrid_model(**SPEC), cols, use_kernel=True, training_loss="mae", **kw)
-    assert r.epoch_path == "torch" and "trains mse" in r.engine_reason
+    # a loss no kernel takes (an opaque callable) names the losses kernel 2 trains
+    r = et.train(et.construct_hybrid_model(**SPEC), cols, use_kernel=True,
+                 training_loss=lambda yh, y, m: ((yh - y) * m).abs().sum(), **kw)
+    assert r.epoch_path == "torch" and "trains mse, mae, rmse, nseLoss" in r.engine_reason
     r = et.train(et.construct_hybrid_model(**SPEC), cols, use_pallas=True, eval_every=2, **kw)
     assert r.epoch_path == "cuda_fused_epoch" and len(r.train_history) == 2
 
