@@ -154,7 +154,19 @@ Phases, one or more lines each; any failure exits non-zero:
     other loss on its kernel;
 24. times: kernel 2's epoch under every loss against mse in the same call,
     each loss's plain version; kernels 3-5 under their new losses; the
-    seconds phases 22-24 add to the run.
+    seconds phases 22-24 add to the run;
+25. MultiNN: kernel 2 on the JAX kernel's branch view (a network per neural
+    parameter, built against the exponential and two-output forms in phase
+    2) against its plain version on the card, with a second run that must
+    give the same bits: examples/expo_hybrid.py's model at the main path's
+    shape and at phase 27's, the two-branch trainable-BN model, and a model
+    with globals only (no network), within ``TOL_EPOCH``;
+26. main path: examples/expo_hybrid.py's run through ``train()`` at the
+    example's size (2,000 rows, batch 256, adamw, nseLoss, 100 epochs,
+    patience 30): kernel 2 after its gate, one launch an epoch, best val
+    nseLoss within ``EXPO_NSE_BAND``; its ``predict`` on the torch engine;
+27. times: kernel 2's ExpoHybrid epoch beside the quick-start's in the same
+    call, and its plain version; the seconds phases 25-27 add to the run.
 
 Models are built without a ``device=`` argument and must land on the card.
 The last three lines are: a JSON object ``{"kernels": [...]}`` with one
@@ -1802,6 +1814,8 @@ def traced_models(et):
 TRACED_BUILDS = {
     "fused_forward.cu": ("rbq10", "two_outputs", "expo"),
     "fused_epoch.cu": ("rbq10", "two_outputs"),
+    # kernel 2's build of several networks, for phases 25-27's MultiNN models
+    "fused_epoch_multinn.cu": ("expo", "two_outputs"),
     "fused_wide.cu": ("expo",),
     "fused_epoch_lstm.cu": ("rbq10_lstm",),
     "fused_multisite.cu": ("expo_sites",),
@@ -2600,6 +2614,168 @@ def loss_times(et, card, quick_cols, wide_train_cols) -> dict:
     return out
 
 
+# The MultiNN family on kernel 2 (phases 25-27): examples/expo_hybrid.py's
+# run through train() at the example's own size, held to a band around the
+# best val nseLoss the JAX package's example reaches on the CPU
+# (``python examples/expo_hybrid.py``: 0.00213 at epoch 100)
+EXPO_JAX_CPU_NSE = 0.00213
+EXPO_NSE_BAND = (0.5 * EXPO_JAX_CPU_NSE, 2.0 * EXPO_JAX_CPU_NSE)
+EXPO_ROWS = 2000
+EXPO_TRAIN_KW = dict(nepochs=100, batchsize=256, optimizer=("adamw", 0.01), training_loss="nseLoss",
+                     loss_types=["nseLoss", "mse", "r2"], patience=30, show_progress=False)
+
+
+def multinn_models(et, models):
+    """Phases 25-27's models, made on call, by name: examples/expo_hybrid.py's
+    MultiNN spec (rb from sw_pot, k from moisture, [16, 16] swish, static
+    norm, its own expo_model); two branches over the two-output model (rb from
+    sw_pot and dsw_pot, gpp_max from sw_pot, a global Q10, trainable
+    BatchNorm: tests/test_fused.py's two-branch model, with the trainable
+    norm of its shuffled MultiNN case); and a model with globals only."""
+    expo = models["functions"]["expo"]
+    return {
+        "expo": lambda **kw: build_model(
+            et, mechanistic=expo, predictors={"rb": ["sw_pot"], "k": ["moisture"]},
+            parameters=EXPO_PARAMS, global_param_names=[], **kw),
+        "two_branches": lambda **kw: build_model(
+            et, mechanistic=two_outputs, predictors={"rb": ["sw_pot", "dsw_pot"],
+                                                     "gpp_max": ["sw_pot"]},
+            targets=["reco", "nee"], parameters=TWO_PARAMS, norm=True, **kw),
+        "globals_only": lambda **kw: build_model(
+            et, predictors=[], neural_param_names=[], global_param_names=["rb", "Q10"], **kw),
+    }
+
+
+def multinn_kernel_checks(et, mn) -> float:
+    """Phase 25: kernel 2 on the JAX kernel's branch view against its plain
+    version on the card, and against itself on a second run, within
+    ``TOL_EPOCH``: the ExpoHybrid model at the main path's shape and at phase
+    27's, the two-branch trainable-BN model, the globals-only model in one
+    block and in a cluster."""
+    expo_split = et.split_data(expo_columns(EXPO_ROWS, seed=0), mn["expo"]())[0]
+    expo_big = et.split_data(expo_columns(TRAIN_ROWS, seed=42), mn["expo"]())[0]
+    quick = et.split_data(et.rbq10_columns(TRAIN_ROWS, seed=42), mn["globals_only"]())[0]
+    cases = [
+        ("ExpoHybrid, the example's 1,600 training rows, batch 256, adamw, nseLoss, 2 epochs",
+         "expo", expo_split, dict(opt=("adamw", 0.01), batch=256, loss="nseLoss")),
+        (f"ExpoHybrid, {expo_big.n_samples:,} training rows, batch 512, adamw, nseLoss, 2 epochs",
+         "expo", expo_big, dict(opt=("adamw", 0.01), batch=512, loss="nseLoss")),
+        ("two branches [16,16] swish, trainable BN, targets reco and nee (15% NaN), agg mean, "
+         f"{TRAIN_ROWS:,} rows' training split, batch 512, adam, 2 epochs", "two_branches",
+         None, dict(opt=("adam", 0.01), batch=512, agg="mean")),
+        ("globals only (rb, Q10; no network), the quick-start's training rows, batch 512, adam, "
+         "2 epochs", "globals_only", quick, dict(opt=("adam", 0.05), batch=512)),
+        ("globals only, batch 1,000 (a cluster of 4, a ragged last batch), adam, 2 epochs",
+         "globals_only", quick, dict(opt=("adam", 0.05), batch=1000)),
+    ]
+    worst = 0.0
+    for what, key, data, kw in cases:
+        m = mn[key]()
+        if data is None:
+            data = et.split_data(two_output_columns(et, TRAIN_ROWS), m)[0]
+        fn, packed, tensors, perms = epoch_inputs(et, m, data, make=et.make_fused_epoch,
+                                                  epochs=2, shuffle=True, **kw)
+        g = fn.plan.geometry(int(tensors.weight.shape[1]))
+        nets = [f"{prefix}{list(dims)}" for prefix, dims, _ in fn.plan.nets] or ["none"]
+        worst = max(worst, held_twice(
+            f"kernel 2, {what}; networks {', '.join(nets)}, {g.cluster} block(s) of {g.threads} "
+            f"threads", fn, packed, tensors, perms, tag="multinn"))
+    return worst
+
+
+def multinn_main_path(et, card, mn) -> dict:
+    """Phase 26: examples/expo_hybrid.py's run through ``train()`` at the
+    example's size (make_data(2000), batch 256, adamw at 0.01, nseLoss, 100
+    epochs, patience 30) on a model built without ``device=``: it must take
+    kernel 2 after its gate, one launch an epoch, return finite validation
+    predictions and reach a best val nseLoss within ``EXPO_NSE_BAND``; then
+    ``predict`` on the torch engine (kernel 1 takes a SingleNN model only, as
+    the JAX package's)."""
+    from easyhybrid_tpu_torch.ops import _build
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    model = mn["expo"]()
+    cols = expo_columns(EXPO_ROWS, seed=0)
+    nvcc0 = _build.nvcc_seconds()
+    with gate_counted_apart(fe.launch_fused_epoch) as gate_launches:
+        t0 = time.perf_counter()
+        result = et.train(model, cols, **EXPO_TRAIN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fe.launch_fused_epoch.launches
+    nvcc_s = _build.nvcc_seconds() - nvcc0
+    if (result.epoch_path != "cuda_fused_epoch"
+            or "exactness gate passed" not in result.engine_reason):
+        raise AssertionError(f"the ExpoHybrid train() took {result.epoch_path!r}: "
+                             f"{result.engine_reason}")
+    epochs = len(result.train_history) - 1
+    if launches != epochs or launches < 1:
+        raise AssertionError(f"the ExpoHybrid train() ran {epochs} epochs in {launches} launches")
+    lo, hi = EXPO_NSE_BAND
+    if not lo <= result.best_loss <= hi:
+        raise AssertionError(f"the ExpoHybrid train() reached best val nseLoss {result.best_loss:.5f}"
+                             f", outside [{lo:.5f}, {hi:.5f}]")
+    pred = result.val_pred_columns["reco_pred"]
+    if pred.shape != (EXPO_ROWS // 5,) or not np.isfinite(pred).all():
+        raise AssertionError(f"val predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
+    gate_s = re.search(r"; ([\d.]+) s", result.engine_reason)
+    log("main", f"ExpoHybrid train() (examples/expo_hybrid.py: MultiNN rb <- sw_pot, k <- "
+                f"moisture, {EXPO_ROWS} rows, batch 256, adamw 0.01, nseLoss, patience 30): "
+                f"epoch_path {result.epoch_path}, engine_reason {result.engine_reason!r}; gate "
+                f"{gate_s.group(1) if gate_s else '?'} s, nvcc {nvcc_s:.1f} s in train() (the form's "
+                f"build was made in phase 2); {launches} launches for {epochs} epochs after the "
+                f"gate's {gate_launches}; best val nseLoss {result.best_loss:.5f} at epoch "
+                f"{result.best_epoch}, band [{lo:.5f}, {hi:.5f}] around the JAX CPU run's "
+                f"{EXPO_JAX_CPU_NSE}; {wall:.2f} s wall (ok)")
+    fn = et.make_inference_fn(model, batch_size=BATCH)
+    out = fn(cols)
+    if fn.engine != "torch" or not np.isfinite(out["reco"]).all() or out["reco"].shape != (EXPO_ROWS,):
+        raise AssertionError(f"predict on the ExpoHybrid model: {fn.engine}, {fn.engine_reason}")
+    log("main", f"ExpoHybrid predict: engine {fn.engine} ({fn.engine_reason}), keys {sorted(out)} "
+                "(ok)")
+    return {"launches": launches, "best": result.best_loss, "wall": wall}
+
+
+def multinn_times(et, card, mn) -> dict:
+    """Phase 27: kernel 2's epoch on the ExpoHybrid model (16,000 training rows
+    of 20,000 in 32 steps of 512, adamw, nseLoss) beside the quick-start's
+    (phase 8's main shape, adam, mse) in turns in the same call, and the
+    ExpoHybrid epoch's plain version."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    quick_cols = et.rbq10_columns(TRAIN_ROWS, seed=42)
+    m = mn["expo"]()
+    fn, packed, tensors, perms = epoch_inputs(
+        et, m, et.split_data(expo_columns(TRAIN_ROWS, seed=42), m)[0], make=et.make_fused_epoch,
+        opt=("adamw", 0.01), batch=512, epochs=1, shuffle=True, loss="nseLoss")
+    _, qfn, qpacked, qtensors, qperms = prepare_epoch_case(
+        et, fe, **{**epoch_cases(et, quick_cols)[0], "epochs": 1})
+    opt0, qopt0 = fresh_state(fn, packed), fresh_state(qfn, qpacked)
+    calls = {"quick-start": lambda: qfn(qpacked, qopt0, qtensors, perms=qperms),
+             "ExpoHybrid": lambda: fn(packed, opt0, tensors, perms=perms)}
+    for f in calls.values():
+        host_ms(f, 2)
+    ms = {k: [] for k in calls}
+    for i in range(4):
+        for k in (list(calls) if i % 2 == 0 else list(reversed(list(calls)))):
+            ms[k].append(device_ms(calls[k], 20, k))
+    ms = {k: statistics.median(v) for k, v in ms.items()}
+    plain = profiled_device_ms(lambda: fn.reference(packed, opt0, tensors, perms=perms), 1)
+    n = int(tensors.weight.numel())
+    steps = int(tensors.weight.shape[0])
+    # every row's 2 predictors, forcing, target, mask and index once; three passes of
+    # each branch's products
+    flops = n * 3 * sum(forward_flops(dims) for _, dims, _ in fn.plan.nets)
+    out = dict(ms=ms["ExpoHybrid"], quick_ms=ms["quick-start"], plain_ms=plain,
+               bound=bound(bytes_moved=n * 4 * 6, flops=flops))
+    log("times", f"[{card}] kernel 2, one epoch of {steps} steps of 512, median of 4 turns: "
+                 f"ExpoHybrid (two branches [1,16,16,1], adamw, nseLoss) {ms['ExpoHybrid']:.4f} ms, "
+                 f"the quick-start (one network [2,16,16,1], adam, mse, trainable BN) "
+                 f"{ms['quick-start']:.4f} ms; the ExpoHybrid plain version {plain:.2f} ms "
+                 f"(profiler); bound {out['bound']['bound_ms']:.5f} ms by {out['bound']['bound_by']}")
+    return out
+
+
 def main() -> None:
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2897,6 +3073,12 @@ def main() -> None:
     loss_launches = loss_main_paths(et, card, quick_cols, wide_cols)
     loss_ms = loss_times(et, card, quick_cols, wide_train_cols)
     log("losses", f"phases 22-24 added {time.perf_counter() - t0:.1f} s to the run")
+    t0 = time.perf_counter()
+    mn = multinn_models(et, models)
+    multinn_err = multinn_kernel_checks(et, mn)
+    multinn_main = multinn_main_path(et, card, mn)
+    multinn_ms = multinn_times(et, card, mn)
+    log("multinn", f"phases 25-27 added {time.perf_counter() - t0:.1f} s to the run")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -3025,7 +3207,19 @@ def main() -> None:
         # no single PyTorch call computes the step: the step's layer products through
         # torch.matmul in float32, a yardstick
         "library_ms": wide_ms["library_ms"],
-    }, *traced_entries, *loss_entries]}))
+    }, *traced_entries, *loss_entries, {
+        "name": "fused_epoch_multinn",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_epoch.cu",
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",  # kernel_body's MultiNN branches
+        "launches": multinn_main["launches"],
+        "max_abs_err": multinn_err,
+        "ms": multinn_ms["ms"],
+        "plain_ms": multinn_ms["plain_ms"],
+        # one epoch of the ExpoHybrid model: see multinn_times
+        **multinn_ms["bound"],
+        "library_ms": None,  # no single PyTorch call computes the step
+    }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """easyhybrid_tpu_torch: the PyTorch / CUDA port of easyhybrid_tpu.
 
 The port covers serving and training: build a hybrid model (single-series
-over an MLP, over an LSTM on sequence windows with ``hidden_layers={"lstm":
+over an MLP, one MLP per neural parameter with a mapping of predictors, over
+an LSTM on sequence windows with ``hidden_layers={"lstm":
 H}`` and ``train(..., sequence_kwargs=...)``, or lifted over sites with
 ``MultiSiteHybridModel``), carry its parameters in
 (or initialise them from a ``torch.Generator``), ``train`` it, and run
@@ -40,7 +41,12 @@ from .data.synthetic import (
     rbq10_columns,
 )
 from .models.nn import ACTIVATIONS, BatchNorm, Dense, LSTMNet, MLP, construct_nn
-from .models.hybrid import SingleNNHybridModel, construct_hybrid_model
+from .models.hybrid import MultiNNHybridModel, SingleNNHybridModel, construct_hybrid_model
+from .models.factory import CustomHybridModel, make_hybrid
+from .models.show import format_model, format_parameter_table, install_reprs
+
+install_reprs()
+
 from .parallel.multisite import MultiSiteHybridModel, prepare_multisite_data
 from .data.split import prepare_splits, split_data, train_val_indices
 from .config.train_config import DataConfig, TrainConfig, TrainResults, validate_config
@@ -108,7 +114,12 @@ __all__ = [
     "MLP",
     "construct_nn",
     "SingleNNHybridModel",
+    "MultiNNHybridModel",
     "construct_hybrid_model",
+    "make_hybrid",
+    "CustomHybridModel",
+    "format_model",
+    "format_parameter_table",
     "MultiSiteHybridModel",
     "prepare_multisite_data",
     "split_data",

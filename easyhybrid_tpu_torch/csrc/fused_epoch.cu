@@ -3,13 +3,19 @@
 // Replaces the Pallas TPU kernel built by make_fused_epoch in
 // easyhybrid_tpu/ops/fused_epoch.py (run_kernel_epoch at :2128, its kernel at
 // :2269 with kernel_body at :1268; pallas_call at :2662). One launch runs
-// n_epochs x n_batches SGD steps of a SingleNN MLP hybrid. Each step:
+// n_epochs x n_batches SGD steps of an MLP hybrid in the JAX kernel's branch
+// view: one network giving every neural parameter (SingleNN), one
+// single-output network per neural parameter over its own predictor columns
+// (MultiNN, up to EH_MAX_NETS branches, each an EhNet), or none (globals
+// only). Each step:
 //   1. gathers the batch's rows through the permutation index perm[e][i*B + r];
-//   2. input norm: trainable BatchNorm (batch mean and biased variance, two
-//      passes over the batch's rows, padding rows included, then the EMA of
-//      the running statistics), static (the carried statistics) or none;
-//   3. the MLP forward, saving each layer's input and activation derivative;
-//      sigmoid bound scaling of the neural outputs; the scaled globals;
+//   2. input norm over every network's columns at once: trainable BatchNorm
+//      (batch mean and biased variance, two passes over the batch's rows,
+//      padding rows included, then the EMA of the running statistics),
+//      static (the carried statistics) or none;
+//   3. each network's forward on its own columns, saving each layer's input
+//      and activation derivative, its outputs into its neural slots; sigmoid
+//      bound scaling of the neural outputs; the scaled globals;
 //   4. the mechanistic model in its kernel form, with its partials;
 //   5. the masked loss and its cotangent, n = max(sum(mask), 1) per target,
 //      agg sum or mean: every loss of the JAX kernel (eh_device.cuh's loss
@@ -17,7 +23,8 @@
 //      elementwise loss, and rmse, pearsonLoss, kgeLoss and pbkgeLoss, whose
 //      cotangents need the batch's prediction moments first;
 //   6. the hand-written backward through the form's partials, the bound
-//      scaling and the MLP, including the norm's affine scale and bias;
+//      scaling and each network from its slots' cotangents, including the
+//      norm's affine scale and bias;
 //   7. the batch-validity gate: an all-masked batch changes nothing;
 //   8. the update by any of the optax rules of the JAX kernel (eh_device.cuh,
 //      ehe_update; lamb's per-leaf norms first, in a pass of their own).
@@ -100,7 +107,7 @@
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_epoch.py;
 // eh_fused_epoch_args_size() lets the wrapper check the two agree.
 struct EhFusedEpochArgs {
-  const float* x;                        // (n_rows, dims[0]) row-major
+  const float* x;                        // (n_rows, n_features) row-major
   const float* forcing[EH_MAX_FORCING];  // (n_rows,) each
   const float* y[EH_MAX_TARGETS];        // (n_rows,) each, 0 where masked
   const float* mask[EH_MAX_TARGETS];     // (n_rows,) each, 0 or 1
@@ -109,7 +116,7 @@ struct EhFusedEpochArgs {
   float* m;                              // first moments, in place
   float* v;                              // second moments, in place
   float* u;                              // amsgrad's third slot, in place (else unused)
-  float* bn;                             // running mean, var (2 dims[0]), in place
+  float* bn;                             // running means, vars (2 n_features), in place
   int* t;                                // step counter (1), in place
   const float* consts;                   // neural lo, span; global lo, span; fixed
   float* loss;                           // (1) last epoch's mean batch loss
@@ -117,16 +124,13 @@ struct EhFusedEpochArgs {
   int n_epochs;
   int n_batches;
   int batch;
-  int n_layers;
-  int dims[EH_MAX_LAYERS + 1];
-  int acts[EH_MAX_LAYERS];
+  int n_features;                        // predictor columns: every network's, side by side
+  int n_neural;                          // neural outputs: every network's, in turn
   int norm_mode;                         // 0 none, 1 static, 2 trainable
   float norm_eps;
   float momentum;
   float one_minus_momentum;
   int n_params;
-  int p_off_w[EH_MAX_LAYERS];
-  int p_off_b[EH_MAX_LAYERS];
   int p_off_g;
   int n_globals;
   int n_fixed;
@@ -148,26 +152,25 @@ struct EhFusedEpochArgs {
   int r_off_xhat;
   int r_off_d0;
   int r_off_g;
-  int r_off_h[EH_MAX_LAYERS];
-  int r_off_d[EH_MAX_LAYERS];
-  int r_off_out;                         // the network's outputs, then their cotangents
+  int r_off_out;                         // the networks' outputs, then their cotangents
   int r_off_dsc;                         // the bound scaling's derivative
   int r_off_one;                         // a feature that is 1 on every row
   int n_forcing;
   int n_padded;                          // parameters with weight rows padded to 4
-  int pp_off_w[EH_MAX_LAYERS];           // the padded layout's offsets
-  int pp_off_b[EH_MAX_LAYERS];
   int pp_off_g;
   int block_rows;                        // rows of a batch one block owns
   int stages;                            // 2: rows staged and prefetched; 0: read in place
   int cluster;                           // blocks over a batch's rows
   int moments_shared;                    // 1: m, v in shared memory; 2: u too; 0: in device memory
   int n_unit_table;                      // gradient units described once a launch (the first ones)
+  int n_nets;                            // networks: 0 (globals only), 1, or a MultiNN model's branches
+  EhNet nets[EH_MAX_NETS];
   long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
 };
-// Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm);
-// per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l];
-// raw globals at p_off_g. In shared memory the parameters (not the moments)
+// Packed parameters: [norm scales, norm biases] (n_features each, with a
+// norm: every network's columns); per network, per layer W (dout x din,
+// row-major) at nets[b].p_off_w[l], b (dout) at nets[b].p_off_b[l]; raw
+// globals at p_off_g. In shared memory the parameters (not the moments)
 // use the padded layout: the same order, every W row padded with zeros to a
 // multiple of 4 floats and every W starting on a 16-byte boundary. The
 // optimizer's slots follow the parameters: m and v, and with moments_shared 2
@@ -175,7 +178,79 @@ struct EhFusedEpochArgs {
 // slots in pairs). Where the state would leave no room for 32 residual rows
 // the slots stay in device memory (one block only: each element is then one
 // thread's alone).
-// Residual tile: word (off + k) * tile_rows + r for feature k of row r.
+// Residual tile: word (off + k) * tile_rows + r for feature k of row r: the
+// normed columns (r_off_xhat) and their cotangents (r_off_d0), then each
+// network's input and layers (nets[b].r_off_h, r_off_d), the globals'
+// cotangents (r_off_g), the networks' outputs (r_off_out), the bound
+// scaling's derivative (r_off_dsc) and a feature of ones (r_off_one).
+
+// This source is built twice. As fused_epoch.cu it takes one network, a
+// compile-time count (MULTI false): its code is the kernel's before it took
+// branches, which a branch loop of a run-time count slowed by up to 5% a
+// one-network step where a loss build kept more values live. As
+// fused_epoch_multinn.cu (EHE_MULTI_NETS defined) it takes 0 to EH_MAX_NETS
+// networks, its launcher eh_fused_epoch_multinn.
+#ifdef EHE_MULTI_NETS
+#define EHE_MULTI true
+#define EHE_LAUNCHER eh_fused_epoch_multinn
+#else
+#define EHE_MULTI false
+#define EHE_LAUNCHER eh_fused_epoch
+#endif
+#define EHE_CAT2(a, b) a##b
+#define EHE_CAT(a, b) EHE_CAT2(a, b)
+
+// The networks of a launch: the args' count, or one.
+template <bool MULTI>
+__device__ __forceinline__ int ehe_n_nets(const EhFusedEpochArgs& a) {
+  return MULTI ? a.n_nets : 1;
+}
+
+// Kernel 2's padded position of packed parameter p: the norm's scales and
+// biases keep theirs, a network's layers and the globals move.
+template <bool MULTI>
+__device__ __forceinline__ int ehe_epoch_padded_index(const EhFusedEpochArgs& a, int p) {
+  if (p >= a.p_off_g) return a.pp_off_g + (p - a.p_off_g);
+  const int nn = ehe_n_nets<MULTI>(a);
+  if (nn == 0 || p < a.nets[0].p_off_w[0]) return p;
+  int b = 0;
+  while (b + 1 < nn && p >= a.nets[b + 1].p_off_w[0]) ++b;
+  return ehe_layer_padded_index(a.nets[b], p);
+}
+
+// Kernel 2's gradient units: every network's layers in turn, then the norm
+// over all their columns, then the globals.
+template <bool MULTI>
+__device__ __forceinline__ int ehe_epoch_n_units(const EhFusedEpochArgs& a) {
+  int n = 0;
+  for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b) n += ehe_layer_units(a.nets[b]);
+  const int F = a.n_features;
+  if (a.norm_mode != NORM_NONE) n += F + ((F + 3) >> 2);
+  return n + ((a.n_globals + 3) >> 2);
+}
+
+template <bool MULTI>
+__device__ __forceinline__ EheUnit ehe_epoch_unit(const EhFusedEpochArgs& a, int u) {
+  EheUnit x;
+  x.nk = 1;
+  x.pstride = 1;
+  x.voff = a.r_off_one;
+  for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b)
+    if (ehe_layer_unit(a.nets[b], u, x)) return x;
+  return ehe_tail_unit(a, u, a.n_features, x);
+}
+
+// Unit u from the table UT of the first n_unit_table units, or computed.
+template <bool MULTI>
+__device__ __forceinline__ EheUnit ehe_epoch_unit_at(const EhFusedEpochArgs& a, const int* UT,
+                                                    int u) {
+  if (u >= a.n_unit_table) return ehe_epoch_unit<MULTI>(a, u);
+  const int* ut = UT + 8 * u;
+  EheUnit un;
+  un.uoff = ut[0], un.nj = ut[1], un.voff = ut[2], un.nk = ut[3];
+  un.pbase = ut[4], un.pstride = ut[5];
+  return un;
+}
 
 // Built with -DEHE_STAMPS, thread 0 of block 0 adds the clock64() cycles it
 // spends in each stage of a step to a.stamps when the kernel ends: 0 the wait
@@ -211,7 +286,7 @@ struct EhFusedEpochArgs {
 // prediction moments inside a step.
 enum { EHE_LOSS_MSE = 0, EHE_LOSS_ROWS, EHE_LOSS_MOMENTS };
 
-template <int W, int LOSSES>
+template <int W, int LOSSES, bool MULTI>
 __global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   extern __shared__ __align__(16) float sm[];
@@ -224,9 +299,9 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const int warp = tid >> 5;
   const int nw = nth >> 5;
   const int ld = nth;  // row stride of the residual tile and of a stage
-  const int F = a.dims[0];
-  const int L = a.n_layers;
-  const int P = a.dims[L];
+  const int F = a.n_features;
+  const int P = a.n_neural;
+  const int L1 = a.nets[0].n_layers;  // the one network's layers (MULTI false)
   const int G = a.n_globals;
   const int K = a.n_fixed;
   const int T = a.n_targets;
@@ -282,7 +357,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
   __syncthreads();
   for (int i = tid; i < NP; i += nth) {
-    Pm[ehe_padded_index(a, i)] = a.params[i];
+    Pm[ehe_epoch_padded_index<MULTI>(a, i)] = a.params[i];
     if (a.moments_shared) {
       Mm[i] = a.m[i];
       Vm[i] = a.v[i];
@@ -293,7 +368,12 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   for (int i = tid; i < n_consts; i += nth) Cc[i] = a.consts[i];
   for (int i = tid; i < K; i += nth) SC[G + i] = a.consts[2 * P + 2 * G + i];
   RES[a.r_off_one * ld + tid] = 1.0f;
-  for (int u = tid; u < a.n_unit_table; u += nth) ehe_unit_describe(a, UT, u);
+  for (int u = tid; u < a.n_unit_table; u += nth) {
+    const EheUnit un = ehe_epoch_unit<MULTI>(a, u);
+    int* ut = UT + 8 * u;
+    ut[0] = un.uoff, ut[1] = un.nj, ut[2] = un.voff, ut[3] = un.nk;
+    ut[4] = un.pbase, ut[5] = un.pstride;
+  }
   __syncthreads();
   if (tid == nth - 1)  // the first step's numbers
     ehe_opt_step_store(ehe_opt_step(o, (float)a.t[0] + 1.0f), MISC + 2);
@@ -310,8 +390,8 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const float* gspan = Cc + 2 * P + G;
   const int row0 = rank * a.block_rows;  // this block's rows of a batch
   const int mine = max(0, min(a.block_rows, B - row0));
-  const int n_units = ehe_n_units(a);
-  const int pp_first = tid < NP ? ehe_padded_index(a, tid) : 0;  // of the thread's first parameter
+  const int n_units = ehe_epoch_n_units<MULTI>(a);
+  const int pp_first = tid < NP ? ehe_epoch_padded_index<MULTI>(a, tid) : 0;  // of the thread's first parameter
   const int n_steps = a.n_epochs * a.n_batches;
   float t = (float)a.t[0];   // every thread carries the same step count
   float last_loss = 0.0f;    // warp 0 only
@@ -593,30 +673,35 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
     }
     EHE_STAMP(2);
 
-    // Row r's forward to the kernel form's arguments: the input norm, the MLP
-    // (its residuals in the row's column of the tile), the bound scaling (the
+    // Row r's forward to the kernel form's arguments: each network on its
+    // own columns, through the input norm (its residuals in the row's column
+    // of the tile, its outputs in its neural slots), the bound scaling (the
     // scaled outputs in place, their derivative beside them); the arguments
     // in av.
     auto row_arguments = [&](int r, float (&av)[EH_MAX_ARGS]) {
       const int64_t row = staged ? 0 : idx[r];
       float* res = RES + tid;
-      float h[1][W];
+      for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b) {
+        const EhNet& net = a.nets[b];
+        const int fb = net.dims[0];
+        const int c = MULTI ? net.col : 0;  // one network: its columns from 0, folded
+        float h[1][W];
 #pragma unroll
-      for (int k = 0; k < W; ++k) {
-        float x = 0.0f;
-        if (k < F) {
-          x = staged ? st[k * ld + r] : a.x[row * F + k];
-          if (a.norm_mode != NORM_NONE) {
-            const float xh = (x - BM[k]) * BR[k];
-            res[(a.r_off_xhat + k) * ld] = xh;
-            x = xh * Pm[k] + Pm[F + k];
+        for (int k = 0; k < W; ++k) {
+          float x = 0.0f;
+          if (k < fb) {
+            x = staged ? st[(c + k) * ld + r] : a.x[row * F + c + k];
+            if (a.norm_mode != NORM_NONE) {
+              const float xh = (x - BM[c + k]) * BR[c + k];
+              res[(a.r_off_xhat + c + k) * ld] = xh;
+              x = xh * Pm[c + k] + Pm[F + c + k];
+            }
+            res[(net.r_off_h[0] + k) * ld] = x;
           }
-          res[(a.r_off_h[0] + k) * ld] = x;
+          h[0][k] = x;
         }
-        h[0][k] = x;
+        ehe_row_forward<W, 1, true>(net, Pm, h, res, ld, 0);
       }
-
-      ehe_row_forward<W, 1, true>(a, Pm, h, res, ld, 0);
 
       // From here on the row's small vectors (the network's P outputs, the
       // G globals' cotangents) live in the row's column of the tile and are
@@ -768,12 +853,20 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
             }
           }
         }
-        // the last layer's pre-activation cotangent, then backward through the MLP
-        {
-          float* zd = res + a.r_off_d[L - 1] * ld;
-          for (int j = 0; j < P; ++j) zd[j * ld] = (outv[j * ld] * dscv[j * ld]) * zd[j * ld];
+        // each network's last pre-activation cotangent from its slots, then
+        // backward through the network
+        for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b) {
+          const EhNet& net = a.nets[b];
+          // one network: the kernel-wide layer count and outputs (registers)
+          const int nl = MULTI ? net.n_layers : L1;
+          const int o = MULTI ? net.out : 0;
+          float* zd = res + net.r_off_d[nl - 1] * ld;
+          const float* ov = outv + o * ld;
+          const float* dv = dscv + o * ld;
+          for (int j = 0; j < (MULTI ? net.dims[nl] : P); ++j)
+            zd[j * ld] = (ov[j * ld] * dv[j * ld]) * zd[j * ld];
+          ehe_row_backward<W>(net, Pm, res, ld);
         }
-        ehe_row_backward<W>(a, Pm, res, ld);
         EHE_STAMP(5);
         return term;
       };
@@ -828,7 +921,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
 
       // a warp per unit of 4 x 4 parameters; its lanes split the tile's rows
       for (int u = warp; u < n_units; u += nw) {
-        const EheUnit un = ehe_unit_at(a, UT, u);
+        const EheUnit un = ehe_epoch_unit_at<MULTI>(a, UT, u);
 #ifndef EHE_CHAIN_ONLY
         const float total = ehe_unit_sum(un, RES, ld, rows_here, lane);
 #else
@@ -886,7 +979,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         for (int l = warp; l < o.n_leaves; l += nw) {
           float ps = 0.0f, ds = 0.0f;
           for (int p = (int)ehe_leaf_start(o, l) + lane; p < o.leaf_end[l]; p += 32) {
-            const float pv = Pm[ehe_padded_index(a, p)];
+            const float pv = Pm[ehe_epoch_padded_index<MULTI>(a, p)];
             float mm = Mm[p], vv = Vm[p], w = 0.0f;
             const float d = ehe_direction(o, st, pv, grad(p), mm, vv, w);
             ps += pv * pv;
@@ -899,7 +992,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         __syncthreads();
       }
       for (int p = tid; p < NP; p += nth) {
-        const int pp = p == tid ? pp_first : ehe_padded_index(a, p);
+        const int pp = p == tid ? pp_first : ehe_epoch_padded_index<MULTI>(a, p);
         ehe_update(o, st, &Pm[pp], &Mm[p], &Vm[p], &Um[p], grad(p),
                    o.rule == OPT_LAMB ? TR[ehe_leaf_of(o, p)] : 1.0f);
       }
@@ -923,7 +1016,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
 
   if (rank == 0) {
     for (int i = tid; i < NP; i += nth) {
-      a.params[i] = Pm[ehe_padded_index(a, i)];
+      a.params[i] = Pm[ehe_epoch_padded_index<MULTI>(a, i)];
       if (a.moments_shared) {
         a.m[i] = Mm[i];
         a.v[i] = Vm[i];
@@ -946,7 +1039,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   if (C > 1) cluster.sync();  // no block leaves while another may read its partials
 }
 
-extern "C" int eh_fused_epoch_args_size(void) {
+extern "C" int EHE_CAT(EHE_LAUNCHER, _args_size)(void) {
   return (int)sizeof(EhFusedEpochArgs);
 }
 
@@ -960,8 +1053,8 @@ static int ehe_loss_floats(const EhFusedEpochArgs* a, int NW, int T) {
 // Shared-memory floats of one launch; ops/fused_epoch.py::_smem_floats
 // computes the same.
 static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
-  const int F = a->dims[0];
-  const int P = a->dims[a->n_layers];
+  const int F = a->n_features;
+  const int P = a->n_neural;
   const int G = a->n_globals, K = a->n_fixed, T = a->n_targets;
   const int NW = a->tile_rows / 32;
   const int COLS = F + a->n_forcing + 2 * T;
@@ -976,13 +1069,13 @@ static int ehe_launch_build(const EhFusedEpochArgs* args, size_t smem, cudaStrea
   // launch would cost a host call that may wait for the device
   static bool allowed = false;
   if (!allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(eh_fused_epoch_kernel<W, LOSSES>,
+    const cudaError_t err = cudaFuncSetAttribute(eh_fused_epoch_kernel<W, LOSSES, EHE_MULTI>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  EH_MAX_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  return (int)eh_launch_cluster(eh_fused_epoch_kernel<W, LOSSES>, *args, args->cluster,
+  return (int)eh_launch_cluster(eh_fused_epoch_kernel<W, LOSSES, EHE_MULTI>, *args, args->cluster,
                                 args->tile_rows, smem, s);
 }
 
@@ -995,14 +1088,23 @@ static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s)
   return ehe_launch_build<W, EHE_LOSS_ROWS>(args, smem, s);
 }
 
+// Whether the networks are ones this build takes: one, or up to EH_MAX_NETS
+// (EHE_MULTI_NETS), each of 1 to EH_MAX_LAYERS layers.
+static bool ehe_nets_valid(const EhFusedEpochArgs* a) {
+  if (EHE_MULTI ? a->n_nets < 0 || a->n_nets > EH_MAX_NETS : a->n_nets != 1) return false;
+  for (int b = 0; b < a->n_nets; ++b)
+    if (a->nets[b].n_layers < 1 || a->nets[b].n_layers > EH_MAX_LAYERS) return false;
+  return true;
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
 // checks shapes, devices and the envelope before it gets here.
-extern "C" int eh_fused_epoch(const EhFusedEpochArgs* args, int width, void* stream) {
+extern "C" int EHE_LAUNCHER(const EhFusedEpochArgs* args, int width, void* stream) {
   if (args->n_epochs <= 0 || args->n_batches <= 0) return 0;
   const size_t smem = ehe_smem_floats(args) * sizeof(float);
   const int tr = args->tile_rows;
   const int c = args->cluster;
-  if (smem > EH_MAX_SMEM_BYTES || args->n_layers < 1 || args->n_layers > EH_MAX_LAYERS ||
+  if (smem > EH_MAX_SMEM_BYTES || !ehe_nets_valid(args) ||
       args->n_args > EH_MAX_ARGS || !eh_form_built(args->form) || args->n_targets < 1 ||
       args->n_targets > EH_MAX_TARGETS || !eh_loss_built(args->loss_kind) ||
       args->n_globals + args->n_fixed > EH_MAX_SCALARS || args->n_forcing > EH_MAX_FORCING ||

@@ -3,6 +3,8 @@
 ``load_jax_params(module, params, state)`` takes the JAX package's
 ``params`` / ``state`` pytrees as nested dicts (and lists) of numpy arrays
 and writes them into a port module: a :class:`SingleNNHybridModel`, a
+:class:`MultiNNHybridModel` (``params["nns"][branch]`` and
+``state["nns"][branch]``, each a network's leaves), a
 :class:`MultiSiteHybridModel` (``params["globals"][g]`` of shape ``(S, 1)``, and
 with ``share_nn=False`` every network leaf with a leading site axis), an
 :class:`MLP` or an :class:`LSTMNet`. Dense weights, and the LSTM's ``wi``
@@ -18,7 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from .models.hybrid import SingleNNHybridModel
+from .models.hybrid import MultiNNHybridModel, SingleNNHybridModel
 from .models.nn import MLP, LSTMNet
 from .parallel.multisite import MultiSiteHybridModel, SiteNetworks
 
@@ -75,9 +77,27 @@ def _network_leaves(net, prefix: str) -> Tuple[_LeafMap, _LeafMap]:
     return _mlp_leaves(net, prefix)
 
 
+def _scalar_leaves(module, params: _LeafMap, state: _LeafMap) -> None:
+    for name, t in module.globals.as_dict().items():
+        params[f"globals/{name}"] = (t, _same)
+    for name, t in module.fixed.as_dict().items():
+        state[f"fixed/{name}"] = (t, _same)
+
+
 def _leaf_maps(module) -> Tuple[_LeafMap, _LeafMap]:
     if isinstance(module, (MLP, LSTMNet)):
         return _network_leaves(module, "")
+    if isinstance(module, MultiNNHybridModel):
+        params: _LeafMap = {}
+        state: _LeafMap = {}
+        for branch, net in module.nns.items():
+            if not isinstance(net, (MLP, LSTMNet)):
+                raise TypeError(f"cannot carry JAX parameters into {type(net).__name__}")
+            p, s = _network_leaves(net, f"nns/{branch}/")
+            params.update(p)
+            state.update(s)
+        _scalar_leaves(module, params, state)
+        return params, state
     if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)):
         params: _LeafMap = {}
         state: _LeafMap = {}
@@ -87,10 +107,7 @@ def _leaf_maps(module) -> Tuple[_LeafMap, _LeafMap]:
                     f"cannot carry JAX parameters into {type(module.nn).__name__}"
                 )
             params, state = _network_leaves(module.nn, "nn/")
-        for name, t in module.globals.as_dict().items():
-            params[f"globals/{name}"] = (t, _same)
-        for name, t in module.fixed.as_dict().items():
-            state[f"fixed/{name}"] = (t, _same)
+        _scalar_leaves(module, params, state)
         return params, state
     raise TypeError(f"load_jax_params: unsupported module {type(module).__name__}")
 
@@ -133,7 +150,8 @@ def export_jax_params(module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The inverse of :func:`load_jax_params`: ``(params, state)`` of a port
     module as nested dicts and lists of numpy arrays in the JAX package's
     layout (Dense weights ``(in, out)``). A model with a network but no
-    norm gets the ``{"nn": {}}`` state entry the JAX model has."""
+    norm gets the ``{"nn": {}}`` state entry the JAX model has, and a
+    MultiNN model ``{"nns": {branch: {}}}`` for each branch without one."""
     want_params, want_state = _leaf_maps(module)
     out = []
     for want in (want_params, want_state):
@@ -145,6 +163,10 @@ def export_jax_params(module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     params, state = out
     if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)) and module.nn is not None:
         state.setdefault("nn", {})
+    if isinstance(module, MultiNNHybridModel):
+        branches = state.setdefault("nns", {})
+        for branch in module.nns:
+            branches.setdefault(branch, {})
     return params, state
 
 

@@ -12,7 +12,8 @@ threads ``params`` / ``state`` pytrees, this one holds them:
 * the parameter table is ``param_table`` (``nn.Module.parameters`` is
   taken).
 
-MultiNN models (a Mapping of predictors) are not ported yet.
+:class:`MultiNNHybridModel` (a Mapping of predictors) holds one network
+per neural parameter in ``nns`` and takes ``x`` as a dict by branch.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..utils.device import default_device
 from .nn import construct_nn
 
 __all__ = [
+    "MultiNNHybridModel",
     "SingleNNHybridModel",
     "construct_hybrid_model",
 ]
@@ -130,30 +132,17 @@ class _Scalars(nn.Module):
         return {n: getattr(self, n) for n in self.names}
 
 
-class SingleNNHybridModel(nn.Module):
-    """One NN predicting several physical parameters, plus global and fixed
-    parameters, feeding a mechanistic model."""
+class _HybridModel(nn.Module):
+    """What every hybrid model shares: the static description, the raw
+    trainable globals and the fixed parameters (the JAX package's
+    ``AbstractHybridModel``). A subclass registers its networks, then calls
+    :meth:`_add_scalars`, so that the networks' parameters come first in
+    ``named_parameters``."""
 
-    def __init__(
-        self,
-        nn: Optional[nn.Module],
-        predictors: Tuple[str, ...],
-        forcing: Tuple[str, ...],
-        targets: Tuple[str, ...],
-        mechanistic_model: Callable,
-        parameters: ParameterContainer,
-        neural_param_names: Tuple[str, ...],
-        global_param_names: Tuple[str, ...],
-        fixed_param_names: Tuple[str, ...],
-        scale_nn_outputs: bool = False,
-        start_from_default: bool = True,
-        config: Tuple[Tuple[str, Any], ...] = (),
-        *,
-        generator: Optional[torch.Generator] = None,
-    ):
+    def __init__(self, forcing, targets, mechanistic_model, parameters, neural_param_names,
+                 global_param_names, fixed_param_names, scale_nn_outputs, start_from_default,
+                 config):
         super().__init__()
-        self.nn = nn
-        self.predictors = predictors
         self.forcing = forcing
         self.targets = targets
         self.mechanistic_model = mechanistic_model
@@ -164,9 +153,11 @@ class SingleNNHybridModel(nn.Module):
         self.scale_nn_outputs = scale_nn_outputs
         self.start_from_default = start_from_default
         self.config = config
+
+    def _add_scalars(self, generator) -> None:
         self.globals = _Scalars(self._init_globals(generator), trainable=True)
         self.fixed = _Scalars(
-            {f: parameters.default_of(f) for f in fixed_param_names},
+            {f: self.param_table.default_of(f) for f in self.fixed_param_names},
             trainable=False,
         )
 
@@ -189,33 +180,22 @@ class SingleNNHybridModel(nn.Module):
             for g, raw in self.globals.as_dict().items()
         }
 
-    def _split_nn_outputs(self, nn_out) -> Dict[str, torch.Tensor]:
-        """Column i of the NN output is parameter ``neural_param_names[i]``,
-        optionally sigmoid-scaled into its bounds."""
-        out = {}
-        for i, name in enumerate(self.neural_param_names):
-            col = nn_out[..., i]
-            if self.scale_nn_outputs:
-                p = self.param_table
-                col = scale_param(col, p.lower_of(name), p.upper_of(name))
-            out[name] = col
-        return out
+    def _scale_neural(self, name: str, col):
+        """Neural parameter ``name``'s column, sigmoid-scaled into its bounds
+        when ``scale_nn_outputs`` is on."""
+        if self.scale_nn_outputs:
+            p = self.param_table
+            col = scale_param(col, p.lower_of(name), p.upper_of(name))
+        return col
 
-    def forward(self, x, forcing: Optional[Mapping[str, Any]] = None):
-        """Hybrid forward on ``x (N, F)`` and a forcing dict name → ``(N,)``,
-        or, for a sequence network, on windows ``x (N, T, F)`` with forcing
-        ``(N, T)``: the mechanistic model then runs at every time step.
-        Returns ``{**mechanistic_outputs, "parameters": all_params}``."""
+    def _mechanistic(self, nn_params, forcing) -> Dict[str, Any]:
+        """The mechanistic outputs and ``"parameters"`` (neural, scaled
+        globals, fixed)."""
         if forcing is not None and not isinstance(forcing, Mapping):
             raise TypeError(
                 f"forcing must be a dict name->tensor; got {type(forcing).__name__}"
             )
-        global_params = self._scale_globals()
-        if self.nn is not None and self.neural_param_names:
-            nn_params = self._split_nn_outputs(self.nn(x))
-        else:
-            nn_params = {}
-        all_params = {**nn_params, **global_params, **self.fixed.as_dict()}
+        all_params = {**nn_params, **self._scale_globals(), **self.fixed.as_dict()}
         all_kwargs = {**(forcing or {}), **all_params}
         y_pred = _call_mechanistic(self.mechanistic_model, all_kwargs)
         return {**y_pred, "parameters": all_params}
@@ -229,13 +209,17 @@ class SingleNNHybridModel(nn.Module):
 
     def predict_df(self, df):
         """Eval-mode inference on a DataFrame: a copy with ``<output>_pred``
-        columns for every per-sample output. Missing values become NaN and
-        no row is dropped."""
+        columns for every per-sample output (the targets, then the neural
+        and scalar parameters). Missing values become NaN and no row is
+        dropped."""
         from ..data.prepare import prepare_data
 
         data = prepare_data(self, df, drop_missing_rows=False)
         dev = self.device
-        x = torch.tensor(data.x, device=dev)
+        if isinstance(data.x, Mapping):
+            x = {k: torch.tensor(v, device=dev) for k, v in data.x.items()}
+        else:
+            x = torch.tensor(data.x, device=dev)
         forcing = {k: torch.tensor(v, device=dev) for k, v in data.forcing.items()}
         was_training = self.training
         self.eval()
@@ -253,6 +237,99 @@ class SingleNNHybridModel(nn.Module):
             if arr.ndim == 1 and arr.shape[0] == n:
                 out_df[f"{k}_pred"] = arr
         return out_df
+
+
+class SingleNNHybridModel(_HybridModel):
+    """One NN predicting several physical parameters, plus global and fixed
+    parameters, feeding a mechanistic model."""
+
+    def __init__(
+        self,
+        nn: Optional[nn.Module],
+        predictors: Tuple[str, ...],
+        forcing: Tuple[str, ...],
+        targets: Tuple[str, ...],
+        mechanistic_model: Callable,
+        parameters: ParameterContainer,
+        neural_param_names: Tuple[str, ...],
+        global_param_names: Tuple[str, ...],
+        fixed_param_names: Tuple[str, ...],
+        scale_nn_outputs: bool = False,
+        start_from_default: bool = True,
+        config: Tuple[Tuple[str, Any], ...] = (),
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(forcing, targets, mechanistic_model, parameters, neural_param_names,
+                         global_param_names, fixed_param_names, scale_nn_outputs,
+                         start_from_default, config)
+        self.nn = nn
+        self.predictors = predictors
+        self._add_scalars(generator)
+
+    def _split_nn_outputs(self, nn_out) -> Dict[str, torch.Tensor]:
+        """Column i of the NN output is parameter ``neural_param_names[i]``,
+        optionally sigmoid-scaled into its bounds."""
+        return {name: self._scale_neural(name, nn_out[..., i])
+                for i, name in enumerate(self.neural_param_names)}
+
+    def forward(self, x, forcing: Optional[Mapping[str, Any]] = None):
+        """Hybrid forward on ``x (N, F)`` and a forcing dict name → ``(N,)``,
+        or, for a sequence network, on windows ``x (N, T, F)`` with forcing
+        ``(N, T)``: the mechanistic model then runs at every time step.
+        Returns ``{**mechanistic_outputs, "parameters": all_params}``."""
+        if self.nn is not None and self.neural_param_names:
+            nn_params = self._split_nn_outputs(self.nn(x))
+        else:
+            nn_params = {}
+        return self._mechanistic(nn_params, forcing)
+
+
+class MultiNNHybridModel(_HybridModel):
+    """One single-output NN per neural parameter, each over its own
+    predictors (the JAX package's ``MultiNNHybridModel``). The networks sit
+    in ``nns``, a ``ModuleDict`` in the order of ``neural_param_names``:
+    branch i gives parameter i. ``predictors`` is ``((branch, (pred, ...)),
+    ...)`` and ``x`` a dict branch → ``(N, F_b)``."""
+
+    def __init__(
+        self,
+        nns: Mapping[str, nn.Module],
+        predictors: Tuple[Tuple[str, Tuple[str, ...]], ...],
+        forcing: Tuple[str, ...],
+        targets: Tuple[str, ...],
+        mechanistic_model: Callable,
+        parameters: ParameterContainer,
+        neural_param_names: Tuple[str, ...],
+        global_param_names: Tuple[str, ...],
+        fixed_param_names: Tuple[str, ...],
+        scale_nn_outputs: bool = False,
+        start_from_default: bool = True,
+        config: Tuple[Tuple[str, Any], ...] = (),
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(forcing, targets, mechanistic_model, parameters, neural_param_names,
+                         global_param_names, fixed_param_names, scale_nn_outputs,
+                         start_from_default, config)
+        self.nns = nn.ModuleDict(nns)
+        self.predictors = predictors
+        self._add_scalars(generator)
+
+    @property
+    def predictor_dict(self) -> Dict[str, Tuple[str, ...]]:
+        return dict(self.predictors)
+
+    def forward(self, x: Mapping[str, Any], forcing: Optional[Mapping[str, Any]] = None):
+        """Hybrid forward on ``x``, a dict branch → ``(N, F_b)`` (or ``(N,
+        T, F_b)``). Returns ``{**mechanistic_outputs, "parameters":
+        all_params, "nn_outputs": {branch: (N, 1)}}``."""
+        if self.nns and not isinstance(x, Mapping):
+            raise TypeError(f"x must be a dict branch->tensor; got {type(x).__name__}")
+        nn_outputs = {name: net(x[name]) for name, net in self.nns.items()}
+        nn_params = {pname: self._scale_neural(pname, nn_outputs[branch][..., 0])
+                     for branch, pname in zip(self.nns, self.neural_param_names)}
+        return {**self._mechanistic(nn_params, forcing), "nn_outputs": nn_outputs}
 
 
 def construct_hybrid_model(
@@ -273,23 +350,23 @@ def construct_hybrid_model(
     generator: Optional[torch.Generator] = None,
     device: Union[str, torch.device, None] = None,
     **kwargs,
-) -> SingleNNHybridModel:
-    """Build a hybrid model from a list of predictor names (one NN with
-    ``len(neural_param_names)`` outputs). Weights are drawn from
-    ``generator`` on the CPU, then the model moves to ``device``: the CUDA
-    device when there is one and the caller names none
+) -> Union[SingleNNHybridModel, MultiNNHybridModel]:
+    """Build a hybrid model; dispatches on the type of ``predictors``.
+    Weights are drawn from ``generator`` on the CPU, then the model moves to
+    ``device``: the CUDA device when there is one and the caller names none
     (:func:`~easyhybrid_tpu_torch.utils.device.default_device`).
 
-    A mapping of predictors (one NN per parameter) raises: MultiNN models
-    are not ported yet.
+    * a list of names → :class:`SingleNNHybridModel`, one NN with
+      ``len(neural_param_names)`` outputs;
+    * a mapping ``{param_name: [predictor, ...]}`` →
+      :class:`MultiNNHybridModel`, one single-output NN per entry; the keys
+      become the neural parameter names (``neural_param_names`` is
+      ignored). A mapping ``hidden_layers`` is taken per branch only when its
+      keys hold every branch name, else it is one spec for every branch
+      (``{"lstm": n}``); a mapping ``activation`` is per branch.
     """
     if mechanistic_model is None:
         raise ValueError("mechanistic_model is required")
-    if isinstance(predictors, Mapping):
-        raise NotImplementedError(
-            "MultiNNHybridModel (a mapping of predictors) is not ported to "
-            "easyhybrid_tpu_torch yet (ROADMAP.md, queue A, item 'MultiNN')"
-        )
     parameters = build_parameters(parameters, mechanistic_model)
     all_names = parameters.names
 
@@ -310,41 +387,71 @@ def construct_hybrid_model(
         if g not in all_names:
             raise ValueError(f"global parameter {g!r} not in parameter table")
 
-    predictors = _as_tuple(predictors)
-    neural_param_names = _as_tuple(neural_param_names)
-    for n in neural_param_names:
-        if n not in all_names:
-            raise ValueError(f"neural parameter {n!r} not in parameter table")
-    if predictors and neural_param_names:
-        net = construct_nn(
-            hidden_layers,
-            len(predictors),
-            len(neural_param_names),
-            activation=activation,
-            input_batchnorm=input_batchnorm,
-            compute_dtype=compute_dtype,
-            generator=generator,
-        )
-    else:
-        net = None
-    fixed = tuple(
-        n
-        for n in all_names
-        if n not in neural_param_names and n not in global_param_names
-    )
-    model = SingleNNHybridModel(
-        nn=net,
-        predictors=predictors,
+    common = dict(
         forcing=_as_tuple(forcing),
         targets=_as_tuple(targets),
         mechanistic_model=mechanistic_model,
         parameters=parameters,
-        neural_param_names=neural_param_names,
         global_param_names=global_param_names,
-        fixed_param_names=fixed,
         scale_nn_outputs=scale_nn_outputs,
         start_from_default=start_from_default,
         config=config,
         generator=generator,
     )
+    if isinstance(predictors, Mapping):
+        neural_param_names = tuple(str(k) for k in predictors)
+        for n in neural_param_names:
+            if n not in all_names:
+                raise ValueError(f"neural parameter {n!r} not in parameter table")
+        per_branch_hl = isinstance(hidden_layers, Mapping) and set(predictors) <= set(
+            hidden_layers)
+        nets, preds_frozen = {}, []
+        for name, preds in predictors.items():
+            preds = _as_tuple(preds)
+            preds_frozen.append((str(name), preds))
+            nets[str(name)] = construct_nn(
+                hidden_layers[name] if per_branch_hl else hidden_layers,
+                len(preds),
+                1,
+                activation=activation[name] if isinstance(activation, Mapping) else activation,
+                input_batchnorm=input_batchnorm,
+                compute_dtype=compute_dtype,
+                generator=generator,
+            )
+        model = MultiNNHybridModel(
+            nns=nets,
+            predictors=tuple(preds_frozen),
+            neural_param_names=neural_param_names,
+            fixed_param_names=_fixed_names(all_names, neural_param_names, global_param_names),
+            **common,
+        )
+    else:
+        predictors = _as_tuple(predictors)
+        neural_param_names = _as_tuple(neural_param_names)
+        for n in neural_param_names:
+            if n not in all_names:
+                raise ValueError(f"neural parameter {n!r} not in parameter table")
+        if predictors and neural_param_names:
+            net = construct_nn(
+                hidden_layers,
+                len(predictors),
+                len(neural_param_names),
+                activation=activation,
+                input_batchnorm=input_batchnorm,
+                compute_dtype=compute_dtype,
+                generator=generator,
+            )
+        else:
+            net = None
+        model = SingleNNHybridModel(
+            nn=net,
+            predictors=predictors,
+            neural_param_names=neural_param_names,
+            fixed_param_names=_fixed_names(all_names, neural_param_names, global_param_names),
+            **common,
+        )
     return model.to(default_device() if device is None else device)
+
+
+def _fixed_names(all_names, neural, globals_) -> Tuple[str, ...]:
+    return tuple(n for n in all_names if n not in neural and n not in globals_)

@@ -55,6 +55,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 LAUNCHERS = {
     "fused_forward.cu": ("eh_fused_forward", (_PTR, _INT, _PTR)),
     "fused_epoch.cu": ("eh_fused_epoch", (_PTR, _INT, _PTR)),
+    "fused_epoch_multinn.cu": ("eh_fused_epoch_multinn", (_PTR, _INT, _PTR)),
     "fused_epoch_lstm.cu": ("eh_fused_lstm", (_PTR, _INT, _PTR)),
     "fused_multisite.cu": ("eh_fused_multisite", (_PTR, _INT, _PTR)),
     "fused_wide.cu": ("eh_fused_wide", (_PTR, _PTR)),
@@ -182,10 +183,12 @@ def build_library() -> BuildResult:
 def build_variant(source: str, defines: Tuple[str, ...]) -> BuildResult:
     """One source of ``csrc/`` compiled alone with extra ``-D`` flags into a
     library of its own, beside the package's: a measuring build of one kernel
-    (its stage stamps, its arithmetic stubbed out). Reused when it exists."""
+    (its stage stamps, its arithmetic stubbed out). Reused when it exists;
+    keyed by every source and header (a source may include another)."""
     src = _SRC_DIR / source
     digest = hashlib.sha256()
-    for f in [src] + sorted(_SRC_DIR.glob("*.cuh")):
+    digest.update(src.name.encode())
+    for f in _sources() + sorted(_SRC_DIR.glob("*.cuh")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())

@@ -2,8 +2,9 @@
 
 Counterpart of ``easyhybrid_tpu/ops/fused_epoch.py`` (``make_fused_epoch``
 with ``kernel_body``). One launch of ``csrc/fused_epoch.cu`` runs
-``epochs_per_call`` epochs × ``num_batches`` SGD steps of a SingleNN MLP
-hybrid: the permutation gather, the input norm (trainable BatchNorm with
+``epochs_per_call`` epochs × ``num_batches`` SGD steps of an MLP hybrid in
+the JAX kernel's branch view (one network, a MultiNN model's branches, or
+none; the build of several networks is ``csrc/fused_epoch_multinn.cu``): the permutation gather, the input norm (trainable BatchNorm with
 its running-statistics EMA, static, or none), the MLP forward with the
 activation derivatives saved, sigmoid bound scaling, the mechanistic model
 in its kernel form (traced from the user's function, or hand-written) with
@@ -61,12 +62,13 @@ import torch
 
 from ..data.loaders import EpochTensors
 from ..losses.specs import ElementwiseLoss, LoggingLoss, SymbolicLoss
-from ..training.epoch import make_train_epoch, perms_for_epochs
+from ..training.epoch import make_train_epoch, map_x, perms_for_epochs
 from ..training.optimizers import parse_opt_spec, resolve_optimizer
 from . import _build
 from .kernel_forms import traced_loss
 from .fused_forward import (
     MAX_ARGS,
+    branches_unsupported_reason,
     MAX_FORCING,
     MAX_LAYERS,
     MAX_WIDTH,
@@ -78,7 +80,7 @@ from .fused_forward import (
     _arg_sources,
     _form_of,
     _probe_outputs,
-    fused_forward_unsupported_reason,
+    model_branches,
 )
 
 __all__ = [
@@ -111,6 +113,7 @@ _NORM_NONE, _NORM_STATIC, _NORM_TRAIN = 0, 1, 2
 _OPTS = {"sgd": 0, "adam": 1, "adamw": 2, "rmsprop": 3, "adagrad": 4, "lion": 5, "adamax": 6,
          "nadam": 7, "adadelta": 8, "radam": 9, "amsgrad": 10, "lamb": 11}
 MAX_LEAVES = 40  # EH_MAX_LEAVES: leaves of a packed vector lamb takes its norms over
+MAX_NETS = 8  # EH_MAX_NETS: kernel 2's networks (a MultiNN model's branches)
 SHUFFLES = (True, False, "batches")
 # the training losses of kernel 2, the JAX kernel's _FUSED_LOSSES; an
 # ElementwiseLoss trains as ELEMENTWISE, traced (kernel_forms.traced_loss)
@@ -156,18 +159,23 @@ def loss_reason(training_loss, losses) -> Optional[str]:
     return None
 
 
+def _dims(net) -> Tuple[int, ...]:
+    return (net.in_dim,) + net.hidden + (net.out_dim,)
+
+
+def _model_layout(model) -> "BranchLayout":
+    """Kernel 2's layout (:func:`branch_layout`) of a model's networks."""
+    branches = model_branches(model)
+    return branch_layout([(prefix, _dims(net), ()) for prefix, net in branches],
+                         any(net.norm is not None for _, net in branches),
+                         len(model.global_param_names))
+
+
 def _layout_sizes(model) -> Tuple[int, int]:
-    """(packed parameter count, residual floats per row)."""
-    net = model.nn
-    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-    f = dims[0]
-    norm = net.norm is not None
-    n_params = (2 * f if norm else 0) + sum(
-        dims[i + 1] * (dims[i] + 1) for i in range(len(dims) - 1)
-    ) + len(model.global_param_names)
-    res = (3 * f if norm else f) + sum(dims[1:]) + sum(dims[1:-1]) + len(
-        model.global_param_names)
-    return n_params, res
+    """(packed parameter count, residual floats per row), summed over the
+    model's networks (:func:`branch_layout`)."""
+    lay = _model_layout(model)
+    return lay.p_g + len(model.global_param_names), lay.res_floats
 
 
 def _envelope_floats(n_params, f, n_consts, g, k, t, tile_rows, res) -> int:
@@ -182,10 +190,12 @@ def _tile_rows(model) -> Optional[int]:
     """The envelope's tile: the largest of 128, 64 and 32 residual rows that
     fit beside the state, or None when not even 32 do. It decides which
     models kernel 2 takes (and kernel 3 the others); the rows a block really
-    takes at once are chosen per batch by :meth:`FusedEpochPlan.geometry`."""
+    takes at once are chosen per batch by :meth:`FusedEpochPlan.geometry`.
+    A MultiNN model counts the sum over its branches."""
     n_params, res = _layout_sizes(model)
-    f = model.nn.in_dim
-    p, g, k = model.nn.out_dim, len(model.global_param_names), len(model.fixed_param_names)
+    lay = _model_layout(model)
+    f, p = lay.n_features, lay.n_neural
+    g, k = len(model.global_param_names), len(model.fixed_param_names)
     t = len(model.targets)
     for rows in _TILE_ROWS:
         if 4 * _envelope_floats(n_params, f, 2 * p + 2 * g + k, g, k, t, rows,
@@ -202,12 +212,20 @@ def gradient_units(dims, has_norm: bool, n_globals: int) -> int:
     csrc/fused_epoch.cu): every layer's 4 x 4 weight blocks and, per four
     outputs, a bias block; the norm's scales one by one and its biases by
     four; the globals by four."""
+    return branch_gradient_units((dims,), has_norm, n_globals)
+
+
+def branch_gradient_units(nets, has_norm: bool, n_globals: int) -> int:
+    """:func:`gradient_units` of several networks (``dims`` each): every
+    network's layer units in turn, then the norm's over all their columns,
+    then the globals'."""
     def by4(n):
         return -(-n // 4)
 
-    n = sum(by4(dims[i + 1]) * (by4(dims[i]) + 1) for i in range(len(dims) - 1))
+    n = sum(by4(dims[i + 1]) * (by4(dims[i]) + 1) for dims in nets for i in range(len(dims) - 1))
     if has_norm:
-        n += dims[0] + by4(dims[0])
+        f = sum(dims[0] for dims in nets)
+        n += f + by4(f)
     return n + by4(n_globals)
 
 
@@ -259,8 +277,11 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     """Why the fused epoch kernel cannot train ``model`` with this
     optimizer and loss, or None when it can.
 
-    The envelope: a SingleNN MLP hybrid in float32 inside the fused
-    forward's model envelope, with any of the three input-norm forms; a
+    The envelope: the JAX kernel's branch view (``branches_unsupported_reason``):
+    a SingleNN MLP hybrid, a MultiNN hybrid of up to :data:`MAX_NETS` MLP
+    branches (one a neural parameter) or a model with globals only, in
+    float32, each network inside the fused forward's widths and depth, with
+    any of the three input-norm forms, one for all branches; a
     training loss of :data:`FUSED_LOSSES` or an ``ElementwiseLoss`` the
     tracer expresses (:func:`loss_reason`), with ``agg`` sum or mean and no
     ``extra_loss``;
@@ -272,9 +293,15 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     where the padded parameter rows would push a model near the limit out,
     its optimizer slots stay in device memory instead."""
     del tensors  # every batch size fits: the plan's geometry follows the batch
-    reason = fused_forward_unsupported_reason(model, training=True)
+    reason = branches_unsupported_reason(model)
     if reason is not None:
         return reason
+    if len(model_branches(model)) > MAX_NETS:
+        return f"{len(model_branches(model))} networks exceed the kernel's cap of {MAX_NETS}"
+    leaves = sum(2 * (net.norm is not None) + 2 * len(net.layers)
+                 for _, net in model_branches(model)) + len(model.global_param_names)
+    if leaves > MAX_LEAVES:
+        return f"{leaves} parameter leaves exceed the kernels' cap of {MAX_LEAVES}"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
     reason = training_spec_reason(optimizer, logging, FUSED_LOSSES)
@@ -391,6 +418,28 @@ def optimizer_struct(plan) -> _Optimizer:
     return o
 
 
+class _Net(ctypes.Structure):
+    """Mirror of ``struct EhNet`` in csrc/eh_device.cuh: one network of
+    kernel 2 (a branch)."""
+
+    _fields_ = [
+        ("n_layers", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("acts", ctypes.c_int * MAX_LAYERS),
+        ("norm_mode", ctypes.c_int),
+        ("col", ctypes.c_int),
+        ("out", ctypes.c_int),
+        ("p_off_w", ctypes.c_int * MAX_LAYERS),
+        ("p_off_b", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_w", ctypes.c_int * MAX_LAYERS),
+        ("pp_off_b", ctypes.c_int * MAX_LAYERS),
+        ("r_off_h", ctypes.c_int * MAX_LAYERS),
+        ("r_off_d", ctypes.c_int * MAX_LAYERS),
+        ("r_off_out", ctypes.c_int),
+        ("r_off_d0", ctypes.c_int),
+    ]
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct EhFusedEpochArgs`` in csrc/fused_epoch.cu."""
 
@@ -412,16 +461,13 @@ class _Args(ctypes.Structure):
         ("n_epochs", ctypes.c_int),
         ("n_batches", ctypes.c_int),
         ("batch", ctypes.c_int),
-        ("n_layers", ctypes.c_int),
-        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
-        ("acts", ctypes.c_int * MAX_LAYERS),
+        ("n_features", ctypes.c_int),
+        ("n_neural", ctypes.c_int),
         ("norm_mode", ctypes.c_int),
         ("norm_eps", ctypes.c_float),
         ("momentum", ctypes.c_float),
         ("one_minus_momentum", ctypes.c_float),
         ("n_params", ctypes.c_int),
-        ("p_off_w", ctypes.c_int * MAX_LAYERS),
-        ("p_off_b", ctypes.c_int * MAX_LAYERS),
         ("p_off_g", ctypes.c_int),
         ("n_globals", ctypes.c_int),
         ("n_fixed", ctypes.c_int),
@@ -443,21 +489,19 @@ class _Args(ctypes.Structure):
         ("r_off_xhat", ctypes.c_int),
         ("r_off_d0", ctypes.c_int),
         ("r_off_g", ctypes.c_int),
-        ("r_off_h", ctypes.c_int * MAX_LAYERS),
-        ("r_off_d", ctypes.c_int * MAX_LAYERS),
         ("r_off_out", ctypes.c_int),
         ("r_off_dsc", ctypes.c_int),
         ("r_off_one", ctypes.c_int),
         ("n_forcing", ctypes.c_int),
         ("n_padded", ctypes.c_int),
-        ("pp_off_w", ctypes.c_int * MAX_LAYERS),
-        ("pp_off_b", ctypes.c_int * MAX_LAYERS),
         ("pp_off_g", ctypes.c_int),
         ("block_rows", ctypes.c_int),
         ("stages", ctypes.c_int),
         ("cluster", ctypes.c_int),
         ("moments_shared", ctypes.c_int),
         ("n_unit_table", ctypes.c_int),
+        ("n_nets", ctypes.c_int),
+        ("nets", _Net * MAX_NETS),
         ("stamps", ctypes.c_void_p),
     ]
 
@@ -472,11 +516,13 @@ class PackedLayout:
         return self.norm_mode != _NORM_NONE
 
     def pack(self, model) -> FusedParams:
-        """The model's current parameters and norm statistics, packed."""
+        """The model's current parameters and norm statistics, packed: the
+        running means of every network's columns, then their variances."""
         named = dict(model.named_parameters())
         params = torch.cat([named[name].detach().reshape(-1) for name, _, _ in self.segments])
         if self.has_norm:
-            bn = torch.cat([model.nn.norm.mean.detach(), model.nn.norm.var.detach()])
+            norms = [net.norm for _, net in model_branches(model)]
+            bn = torch.cat([n.mean.detach() for n in norms] + [n.var.detach() for n in norms])
         else:
             bn = params.new_zeros((0,))
         return FusedParams(params.float().contiguous(), bn.float().contiguous())
@@ -489,9 +535,14 @@ class PackedLayout:
                 n = math.prod(shape)
                 named[name].copy_(packed.params[offset : offset + n].view(shape))
             if self.has_norm:
-                f = self.n_features
-                model.nn.norm.mean.copy_(packed.bn[:f])
-                model.nn.norm.var.copy_(packed.bn[f:])
+                norms = [net.norm for _, net in model_branches(model)]
+                f = sum(n.mean.numel() for n in norms)
+                col = 0
+                for n in norms:
+                    k = n.mean.numel()
+                    n.mean.copy_(packed.bn[col : col + k])
+                    n.var.copy_(packed.bn[f + col : f + col + k])
+                    col += k
 
     def leaves(self, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``param name -> slice`` of a packed parameter-shaped vector."""
@@ -500,36 +551,104 @@ class PackedLayout:
 
 def param_offsets(dims, has_norm: bool) -> Dict[str, Any]:
     """Offsets of every layer's weight (``p_w``) and bias (``p_b``) and of
-    the first global (``p_g``) in the packed parameter vector."""
-    off = 2 * dims[0] if has_norm else 0
-    p_w, p_b = [], []
-    for i in range(len(dims) - 1):
-        p_w.append(off)
-        off += dims[i + 1] * dims[i]
-        p_b.append(off)
-        off += dims[i + 1]
-    return dict(p_w=p_w, p_b=p_b, p_g=off)
+    the first global (``p_g``) in the packed parameter vector of one
+    network (:func:`branch_layout`)."""
+    lay = branch_layout((("nn", dims, ()),), has_norm, 0)
+    return dict(p_w=list(lay.nets[0].p_w), p_b=list(lay.nets[0].p_b), p_g=lay.p_g)
 
 
 def padded_offsets(dims, has_norm: bool, n_globals: int) -> Dict[str, Any]:
-    """The layout kernel 2 keeps its parameters in: the packed order with
-    every weight row padded to a multiple of 4 floats and every weight matrix
-    starting on a multiple of 4, so that a row is read 16 bytes at a time.
-    Offsets of every layer's weight (``pp_w``) and bias (``pp_b``), of the
-    first global (``pp_g``) and the padded size (``n_padded``, a multiple
-    of 4)."""
+    """The layout kernel 2 keeps one network's parameters in
+    (:func:`branch_layout`): the packed order with every weight row padded to
+    a multiple of 4 floats and every weight matrix starting on a multiple of
+    4, so that a row is read 16 bytes at a time. Offsets of every layer's
+    weight (``pp_w``) and bias (``pp_b``), of the first global (``pp_g``)
+    and the padded size (``n_padded``, a multiple of 4)."""
+    lay = branch_layout((("nn", dims, ()),), has_norm, n_globals)
+    return dict(pp_w=list(lay.nets[0].pp_w), pp_b=list(lay.nets[0].pp_b), pp_g=lay.pp_g,
+                n_padded=lay.n_padded)
+
+
+class NetLayout(NamedTuple):
+    """One network of kernel 2's layout (a MultiNN model's branch): its
+    parameter prefix, widths and activations, its first predictor column in
+    a row's record and its first neural output, the packed (``p_*``) and
+    padded (``pp_*``) offsets of every layer's weight and bias, and the
+    residual offsets of every layer's input (``r_h``) and activation
+    derivative (``r_d``) in a row's column of the tile."""
+
+    prefix: str
+    dims: Tuple[int, ...]
+    acts: Tuple[str, ...]
+    col: int
+    out: int
+    p_w: Tuple[int, ...]
+    p_b: Tuple[int, ...]
+    pp_w: Tuple[int, ...]
+    pp_b: Tuple[int, ...]
+    r_h: Tuple[int, ...]
+    r_d: Tuple[int, ...]
+
+
+class BranchLayout(NamedTuple):
+    """Kernel 2's layout of every network of a model (:func:`branch_layout`)."""
+
+    nets: Tuple[NetLayout, ...]
+    n_features: int  # predictor columns of a row: every network's, side by side
+    n_neural: int    # neural outputs, every network's in turn
+    p_g: int         # packed offset of the first global
+    pp_g: int        # its padded offset
+    n_padded: int
+    r_xhat: int      # a row's normed columns (with a norm)
+    r_d0: int        # their cotangents
+    r_g: int         # the globals' cotangents
+    res_floats: int  # residual floats a row keeps for the backward
+
+
+def branch_layout(nets, has_norm: bool, n_globals: int) -> BranchLayout:
+    """Kernel 2's layout of networks ``((prefix, dims, acts), ...)``. The
+    packed vector: the input norm's scales of every column, then its biases
+    (so that the norm is one step over all columns, as for one network),
+    then each network's layers, ``W`` (``(out, in)`` row-major) and ``b``,
+    then the globals. The padded layout is the same order with every weight
+    row padded to 4 floats and every weight matrix on a multiple of 4, so
+    that a row is read 16 bytes at a time. A row's residuals: with a norm
+    its normed columns and their cotangents, then per network its input and
+    each layer's derivative and output, then the globals' cotangents. One
+    network keeps the offsets kernel 2 had before it took branches."""
     def up4(n):
         return -(-n // 4) * 4
 
-    off = 2 * dims[0] if has_norm else 0
-    pp_w, pp_b = [], []
-    for i in range(len(dims) - 1):
-        off = up4(off)
-        pp_w.append(off)
-        off += dims[i + 1] * up4(dims[i])
-        pp_b.append(off)
-        off += dims[i + 1]
-    return dict(pp_w=pp_w, pp_b=pp_b, pp_g=off, n_padded=up4(off + n_globals))
+    f = sum(dims[0] for _, dims, _ in nets)
+    off = pp = r = 2 * f if has_norm else 0
+    col = out = 0
+    out_nets = []
+    for prefix, dims, acts in nets:
+        p_w, p_b, pp_w, pp_b = [], [], [], []
+        for i in range(len(dims) - 1):
+            p_w.append(off)
+            off += dims[i + 1] * dims[i]
+            p_b.append(off)
+            off += dims[i + 1]
+            pp = up4(pp)
+            pp_w.append(pp)
+            pp += dims[i + 1] * up4(dims[i])
+            pp_b.append(pp)
+            pp += dims[i + 1]
+        r_h, r_d = [r], []
+        r += dims[0]
+        for i in range(1, len(dims)):
+            r_d.append(r)
+            r += dims[i]
+            if i < len(dims) - 1:
+                r_h.append(r)
+                r += dims[i]
+        out_nets.append(NetLayout(prefix, tuple(dims), tuple(acts), col, out, tuple(p_w),
+                                  tuple(p_b), tuple(pp_w), tuple(pp_b), tuple(r_h), tuple(r_d)))
+        col += dims[0]
+        out += dims[-1]
+    return BranchLayout(tuple(out_nets), f, out, off, pp, up4(pp + n_globals), 0,
+                        f if has_norm else 0, r, r + n_globals)
 
 
 def fill_common_args(a, plan) -> None:
@@ -552,10 +671,11 @@ def fill_common_args(a, plan) -> None:
 @dataclasses.dataclass(frozen=True)
 class FusedEpochPlan(PackedLayout):
     """Static layout of one model's packed parameters, plus what the kernel
-    and its plain version read besides them."""
+    and its plain version read besides them. ``nets`` holds each network's
+    ``(prefix, dims, acts)``: one for a SingleNN model, one a branch for a
+    MultiNN model, none for a model with globals only."""
 
-    dims: Tuple[int, ...]
-    acts: Tuple[str, ...]
+    nets: Tuple[Tuple[str, Tuple[int, ...], Tuple[str, ...]], ...]
     norm_mode: int
     norm_eps: float
     momentum: float
@@ -582,23 +702,42 @@ class FusedEpochPlan(PackedLayout):
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
     cluster: int = 0  # kernel 2's cluster size when set (a measurement's), else by the batch
 
+    @functools.cached_property
+    def branch_layout(self) -> BranchLayout:
+        return branch_layout(self.nets, self.has_norm, len(self.global_names))
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        """The widths of a plan's one network (kernels 3-5 have one)."""
+        (net,) = self.nets
+        return net[1]
+
+    @property
+    def acts(self) -> Tuple[str, ...]:
+        (net,) = self.nets
+        return net[2]
+
+    @property
+    def n_neural(self) -> int:
+        return self.branch_layout.n_neural
+
     @property
     def tile_floats(self) -> int:
         """Floats a row has in kernel 2's tile: the backward's residuals,
         the network's outputs, the bound scaling's derivative, and 1."""
-        return self.res_floats + 2 * self.dims[-1] + 1
+        return self.res_floats + 2 * self.n_neural + 1
 
     @property
     def n_unit_table(self) -> int:
-        return min(_UNIT_TABLE,
-                   gradient_units(self.dims, self.has_norm, len(self.global_names)))
+        return min(_UNIT_TABLE, branch_gradient_units([dims for _, dims, _ in self.nets],
+                                                      self.has_norm, len(self.global_names)))
 
     def smem_bytes(self, threads: int, stages: int, moments_shared: int) -> int:
         """Shared memory of one launch of kernel 2 with ``threads`` threads."""
         return 4 * _smem_floats(
-            n_padded=padded_offsets(self.dims, self.has_norm, len(self.global_names))["n_padded"],
-            n_params=self.n_params, f=self.dims[0], p=self.dims[-1], g=len(self.global_names),
-            k=len(self.fixed_names), t=len(self.target_names),
+            n_padded=self.branch_layout.n_padded,
+            n_params=self.n_params, f=self.n_features, p=self.n_neural,
+            g=len(self.global_names), k=len(self.fixed_names), t=len(self.target_names),
             n_forcing=len(self.forcing_names), threads=threads, res=self.tile_floats,
             stages=stages, moments_shared=moments_shared, n_unit_table=self.n_unit_table,
             loss_floats=_loss_floats(self.loss, threads // 32, len(self.target_names)))
@@ -634,63 +773,53 @@ class FusedEpochPlan(PackedLayout):
 
     @property
     def n_features(self) -> int:
-        return self.dims[0]
+        return self.branch_layout.n_features
 
     def offsets(self) -> Dict[str, Any]:
         """Offsets of every parameter segment (``p_*``) and of every residual
-        block of a tile row (``r_*``)."""
-        dims, f = self.dims, self.dims[0]
-        r = 0
-        r_xhat = r_d0 = 0
-        if self.has_norm:
-            r_xhat, r_d0, r = 0, f, 2 * f
-        r_h = [r]
-        r += f
-        r_d = []
-        for i in range(1, len(dims)):
-            r_d.append(r)
-            r += dims[i]
-            if i < len(dims) - 1:
-                r_h.append(r)
-                r += dims[i]
-        return dict(**param_offsets(dims, self.has_norm), r_xhat=r_xhat, r_d0=r_d0, r_h=r_h,
-                    r_d=r_d, r_g=r)
+        block of a tile row (``r_*``) of a plan's one network."""
+        lay = self.branch_layout
+        (net,) = lay.nets
+        return dict(p_w=list(net.p_w), p_b=list(net.p_b), p_g=lay.p_g, r_xhat=lay.r_xhat,
+                    r_d0=lay.r_d0, r_h=list(net.r_h), r_d=list(net.r_d), r_g=lay.r_g)
 
     @functools.cached_property
     def args_bytes(self) -> bytes:
         """The kernel's static arguments, packed once; each launch fills in
         the pointers and the sizes."""
         a = _Args()
-        dims = self.dims
-        a.n_layers = len(dims) - 1
-        a.dims[: len(dims)] = dims
-        a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
+        lay = self.branch_layout
         fill_common_args(a, self)
+        a.n_features, a.n_neural = lay.n_features, lay.n_neural
         a.momentum = self.momentum
         a.one_minus_momentum = 1.0 - self.momentum
         a.n_params = self.n_params
-        o = self.offsets()
-        a.p_off_w[: len(o["p_w"])] = o["p_w"]
-        a.p_off_b[: len(o["p_b"])] = o["p_b"]
-        a.p_off_g = o["p_g"]
+        a.p_off_g = lay.p_g
         a.agg_scale = self.agg_scale
         a.loss_kind = LOSS_KINDS[self.loss]
         a.loss_sst = int(self.loss in TARGET_MOMENT_LOSSES)
         a.loss_sum = int(self.loss_form is not None and self.loss_form.normalize == "sum")
-        # the backward's residuals, then the network's outputs, the bound scaling's
+        # the backward's residuals, then the networks' outputs, the bound scaling's
         # derivative and a feature of ones
         a.res_floats = self.tile_floats
-        a.r_off_xhat, a.r_off_d0, a.r_off_g = o["r_xhat"], o["r_d0"], o["r_g"]
-        a.r_off_h[: len(o["r_h"])] = o["r_h"]
-        a.r_off_d[: len(o["r_d"])] = o["r_d"]
-        a.r_off_out, a.r_off_dsc = self.res_floats, self.res_floats + dims[-1]
-        a.r_off_one = self.res_floats + 2 * dims[-1]
+        a.r_off_xhat, a.r_off_d0, a.r_off_g = lay.r_xhat, lay.r_d0, lay.r_g
+        a.r_off_out, a.r_off_dsc = self.res_floats, self.res_floats + lay.n_neural
+        a.r_off_one = self.res_floats + 2 * lay.n_neural
         a.n_forcing = len(self.forcing_names)
-        pp = padded_offsets(dims, self.has_norm, len(self.global_names))
-        a.pp_off_w[: len(pp["pp_w"])] = pp["pp_w"]
-        a.pp_off_b[: len(pp["pp_b"])] = pp["pp_b"]
-        a.pp_off_g, a.n_padded = pp["pp_g"], pp["n_padded"]
+        a.pp_off_g, a.n_padded = lay.pp_g, lay.n_padded
         a.n_unit_table = self.n_unit_table
+        a.n_nets = len(lay.nets)
+        for i, net in enumerate(lay.nets):
+            n = a.nets[i]
+            n.n_layers = len(net.dims) - 1
+            n.dims[: len(net.dims)] = net.dims
+            n.acts[: len(net.acts)] = [_ACT_IDS[act] for act in net.acts]
+            n.norm_mode, n.col, n.out = self.norm_mode, net.col, net.out
+            n.p_off_w[: n.n_layers], n.p_off_b[: n.n_layers] = net.p_w, net.p_b
+            n.pp_off_w[: n.n_layers], n.pp_off_b[: n.n_layers] = net.pp_w, net.pp_b
+            n.r_off_h[: n.n_layers], n.r_off_d[: n.n_layers] = net.r_h, net.r_d
+            n.r_off_out = a.r_off_out + net.out
+            n.r_off_d0 = lay.r_d0 + net.col
         return bytes(a)
 
 
@@ -707,21 +836,24 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
     """The fields every training plan has, for a model already found inside
     a training kernel's envelope: the kernel form checked on probe values,
     its argument sources, the bounds and fixed values, the loss and the
-    optimizer, and the parameters ``names`` (then the globals) laid out as
+    optimizer, and the parameters: the input norms' scales of every network,
+    then their biases, then ``names``, then the globals, laid out as
     segments of one packed vector."""
-    net = model.nn
+    branches = model_branches(model)
+    norms = [net.norm for _, net in branches if net.norm is not None]
     form, _ = _form_of(model)
     arg_sources, _ = _arg_sources(model, form)
     outputs = _probe_outputs(model, form, arg_sources)
     missing = [t for t in model.targets if t not in outputs]
     if missing:
         raise ValueError(f"targets {missing} are not outputs {list(outputs)} of the kernel form")
-    norm_mode = (_NORM_NONE if net.norm is None
-                 else _NORM_TRAIN if net.input_batchnorm is True else _NORM_STATIC)
+    norm_mode = (_NORM_NONE if not norms
+                 else _NORM_TRAIN if branches[0][1].input_batchnorm is True else _NORM_STATIC)
     segments: List[Tuple[str, int, Tuple[int, ...]]] = []
     offset = 0
     named = dict(model.named_parameters())
-    names = ((["nn.norm.scale", "nn.norm.bias"] if net.norm is not None else []) + list(names)
+    normed = [prefix for prefix, net in branches if net.norm is not None]
+    names = ([f"{p}.norm.scale" for p in normed] + [f"{p}.norm.bias" for p in normed] + list(names)
              + [f"globals.{g}" for g in model.global_param_names])
     for name in names:
         shape = tuple(named[name].shape)
@@ -737,8 +869,8 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
     name, hyper = parse_opt_spec(optimizer)
     return dict(
         norm_mode=norm_mode,
-        norm_eps=net.norm.eps if net.norm is not None else 0.0,
-        momentum=net.norm.momentum if net.norm is not None else 0.0,
+        norm_eps=norms[0].eps if norms else 0.0,
+        momentum=norms[0].momentum if norms else 0.0,
         scale_nn_outputs=bool(model.scale_nn_outputs),
         forcing_names=tuple(model.forcing),
         neural_names=tuple(neural),
@@ -763,16 +895,19 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
 def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
                n_sites: int = 0) -> FusedEpochPlan:
     """Lay out the parameters of an MLP hybrid already found inside a
-    training kernel's envelope, and check its kernel form on probe values. A
+    training kernel's envelope (its networks in the branch view of
+    :func:`~.fused_forward.model_branches`), and check its kernel form on
+    probe values. A
     multi-site model's globals are ``(n_sites, 1)`` leaves, packed after the
     shared parameters like the scalar globals of a single-series model."""
-    net = model.nn
-    dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-    names = [f"nn.layers.{i}.{leaf}" for i in range(len(net.layers)) for leaf in ("weight", "bias")]
+    nets = tuple((prefix, _dims(net), tuple(layer.activation for layer in net.layers))
+                 for prefix, net in model_branches(model))
+    names = [f"{prefix}.layers.{i}.{leaf}" for prefix, dims, _ in nets
+             for i in range(len(dims) - 1) for leaf in ("weight", "bias")]
     return FusedEpochPlan(
-        dims=dims,
-        acts=tuple(layer.activation for layer in net.layers),
-        width=next(w for w in _WIDTHS if w >= max(dims)),
+        nets=nets,
+        width=next(w for w in _WIDTHS if w >= max((d for _, dims, _ in nets for d in dims),
+                                                 default=1)),
         tile_rows=tile_rows,
         res_floats=_layout_sizes(model)[1],
         n_sites=n_sites,
@@ -805,8 +940,9 @@ def opt_slots(opt_state) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------------
 
 class FusedData(NamedTuple):
-    """The padded epoch arrays flattened to rows: ``x (n, F)`` and one
-    ``(n,)`` column per forcing, target and mask."""
+    """The padded epoch arrays flattened to rows: ``x (n, F)`` (a MultiNN
+    model's branches' columns side by side, a predictor of two branches
+    twice) and one ``(n,)`` column per forcing, target and mask."""
 
     x: torch.Tensor
     forcing: Tuple[torch.Tensor, ...]
@@ -823,8 +959,13 @@ def fused_data(plan: FusedEpochPlan, tensors: EpochTensors) -> FusedData:
     def rows(a):
         return a.reshape(n).contiguous()
 
+    if isinstance(tensors.x, dict):  # a MultiNN model's: each branch's columns, side by side
+        x = torch.cat([tensors.x[prefix[4:]].reshape(n, dims[0]) for prefix, dims, _ in plan.nets],
+                      dim=1)
+    else:
+        x = tensors.x.reshape(n, plan.n_features)
     return FusedData(
-        x=tensors.x.reshape(n, plan.n_features).contiguous(),
+        x=x.contiguous(),
         forcing=tuple(rows(tensors.forcing[f]) for f in plan.forcing_names),
         y=tuple(rows(tensors.y[t]) for t in plan.target_names),
         mask=tuple(rows(tensors.mask[t]) for t in plan.target_names),
@@ -889,8 +1030,8 @@ class _Forward(NamedTuple):
 
     neural: torch.Tensor    # (rows, P) bound-scaled network outputs
     dneural: torch.Tensor   # their derivative with respect to the raw outputs
-    hs: List[torch.Tensor]  # every layer's input
-    dacts: List[torch.Tensor]
+    hs: List[List[torch.Tensor]]  # every network's every layer's input
+    dacts: List[List[torch.Tensor]]
     xhat: Optional[torch.Tensor]
     new_bn: torch.Tensor
 
@@ -902,11 +1043,20 @@ def split_consts(plan, consts):
             consts[2 * n + g : 2 * n + 2 * g], consts[2 * n + 2 * g :])
 
 
+def _layout_of(plan) -> BranchLayout:
+    """Kernel 2's layout of a plan's networks; another kernel's plan (of one
+    network, ``dims`` and ``acts``) laid out the same way."""
+    if isinstance(plan, FusedEpochPlan):
+        return plan.branch_layout
+    return branch_layout((("nn", plan.dims, plan.acts),), plan.has_norm, len(plan.global_names))
+
+
 def reference_forward(plan, p, bn, consts, x) -> _Forward:
-    """The input norm, the MLP and the bound scaling on the rows of ``x``,
-    as the kernels compute them, with what the backward needs."""
-    dims, f = plan.dims, plan.n_features
-    o = plan.offsets()
+    """The input norm (over every network's columns at once), each network
+    on its own columns and the bound scaling on the rows of ``x``, as the
+    kernels compute them, with what the backward needs."""
+    f = plan.n_features
+    lay = _layout_of(plan)
     bsz = x.shape[0]
     new_bn = bn
     xhat = None
@@ -921,15 +1071,22 @@ def reference_forward(plan, p, bn, consts, x) -> _Forward:
             mean, var = bn[:f], bn[f:]
         xhat = (x - mean) * torch.rsqrt(var + plan.norm_eps)
         h = xhat * p[:f] + p[f : 2 * f]
-    hs, dacts = [h], []
-    for i, act in enumerate(plan.acts):
-        w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
-        b = p[o["p_b"][i] : o["p_b"][i] + dims[i + 1]]
-        h, d = _act_and_grad(act, h @ w.T + b)
-        hs.append(h)
-        dacts.append(d)
+    hs, dacts, raws = [], [], []
+    for net in lay.nets:
+        dims = net.dims
+        hb = h[:, net.col : net.col + dims[0]]
+        hs_b, d_b = [hb], []
+        for i, act in enumerate(net.acts):
+            w = p[net.p_w[i] : net.p_b[i]].view(dims[i + 1], dims[i])
+            b = p[net.p_b[i] : net.p_b[i] + dims[i + 1]]
+            hb, d = _act_and_grad(act, hb @ w.T + b)
+            hs_b.append(hb)
+            d_b.append(d)
+        hs.append(hs_b)
+        dacts.append(d_b)
+        raws.append(hb)
     nlo, nspan = split_consts(plan, consts)[:2]
-    raw = hs[-1]
+    raw = torch.cat(raws, dim=1) if raws else x.new_zeros((bsz, 0))
     if plan.scale_nn_outputs:
         s = torch.sigmoid(raw)
         neural, dneural = nlo + nspan * s, nspan * (s * (1.0 - s))
@@ -977,24 +1134,29 @@ def reference_cotangents(plan, neural, parts, cots):
 
 
 def reference_backward(plan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
-    """The hand-written MLP backward: the gradients of the norm's scale and
-    bias and of every layer's weight and bias, in packed order."""
-    dims = plan.dims
-    o = plan.offsets()
-    D = dn * fwd.dneural
-    layer_grads = []
-    for i in range(len(plan.acts) - 1, -1, -1):
-        D = D * fwd.dacts[i]
-        layer_grads.append((D.T @ fwd.hs[i], D.sum(0)))
-        if i > 0 or plan.has_norm:
-            w = p[o["p_w"][i] : o["p_b"][i]].view(dims[i + 1], dims[i])
-            D = D @ w
-    grads = []
-    if plan.has_norm:
-        grads += [(D * fwd.xhat).sum(0), D.sum(0)]
-    for gw, gb in reversed(layer_grads):
-        grads += [gw.reshape(-1), gb]
-    return grads
+    """The hand-written backward of every network: the gradients of the
+    norm's scales and biases and of every layer's weight and bias, in
+    packed order."""
+    lay = _layout_of(plan)
+    D_all = dn * fwd.dneural
+    d0 = torch.zeros_like(fwd.xhat) if plan.has_norm else None
+    net_grads = []
+    for net, hs, dacts in zip(lay.nets, fwd.hs, fwd.dacts):
+        dims = net.dims
+        D = D_all[:, net.out : net.out + dims[-1]]
+        layer_grads = []
+        for i in range(len(net.acts) - 1, -1, -1):
+            D = D * dacts[i]
+            layer_grads.append((D.T @ hs[i], D.sum(0)))
+            if i > 0 or plan.has_norm:
+                w = p[net.p_w[i] : net.p_b[i]].view(dims[i + 1], dims[i])
+                D = D @ w
+        if plan.has_norm:
+            d0[:, net.col : net.col + dims[0]] = D
+        for gw, gb in reversed(layer_grads):
+            net_grads += [gw.reshape(-1), gb]
+    grads = [(d0 * fwd.xhat).sum(0), d0.sum(0)] if plan.has_norm else []
+    return grads + net_grads
 
 
 def target_scale(plan, m, y):
@@ -1060,7 +1222,6 @@ def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
     the caller made it before the step. Every loss of the JAX kernel: a
     scale times the squared, absolute or traced elementwise loss a row, or
     rmse and the statistic losses from the batch's moments."""
-    o = plan.offsets()
     bsz = x.shape[0]
     if scale is None:
         scale = [target_scale(plan, m, yj) for m, yj in zip(mask, y)]
@@ -1068,7 +1229,7 @@ def reference_grads(plan, p, bn, consts, x, forcing, y, mask, scale=None):
 
     fwd = reference_forward(plan, p, bn, consts, x)
     _, _, glo, gspan, fixed = split_consts(plan, consts)
-    sg = torch.sigmoid(p[o["p_g"] :])
+    sg = torch.sigmoid(p[_layout_of(plan).p_g :])
     scalars = torch.cat([glo + gspan * sg, fixed])
     dglob = gspan * (sg * (1.0 - sg))
     args = form_args(plan, fwd.neural, forcing, scalars)
@@ -1239,6 +1400,13 @@ def slot_u(plan, opt_state) -> Optional[int]:
     return opt_state["u"].data_ptr()
 
 
+def kernel_source(plan: FusedEpochPlan) -> str:
+    """Kernel 2's source for a plan: its build of one network (the code of
+    the kernel before it took branches), or its build of any number
+    (``csrc/fused_epoch_multinn.cu``: a MultiNN model's branches, or none)."""
+    return "fused_epoch.cu" if len(plan.nets) == 1 else "fused_epoch_multinn.cu"
+
+
 def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
                        rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None) -> None:
     """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
@@ -1248,11 +1416,14 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     kernel (:func:`stage_cycles`) in place of the package's library, and
     ``stamps`` the int64 tensor its stage cycles go to."""
     measuring = lib is not None  # not a launch of the package's kernel: not counted
-    lib = lib or _build.kernel_library("fused_epoch.cu", plan.form, plan.loss_form)
-    if lib.eh_fused_epoch_args_size() != ctypes.sizeof(_Args):
+    source = kernel_source(plan)
+    lib = lib or _build.kernel_library(source, plan.form, plan.loss_form)
+    entry = _build.LAUNCHERS[source][0]
+    size = getattr(lib, entry + "_args_size")()
+    if size != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "
-            f"{lib.eh_fused_epoch_args_size()} != {ctypes.sizeof(_Args)}"
+            f"{size} != {ctypes.sizeof(_Args)}"
         )
     a = _Args.from_buffer_copy(plan.args_bytes)
     a.x = data.x.data_ptr()
@@ -1275,7 +1446,7 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a.stamps = stamps.data_ptr() if stamps is not None else None
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
-        rc = lib.eh_fused_epoch(ctypes.byref(a), plan.width, stream)
+        rc = getattr(lib, entry)(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
@@ -1304,8 +1475,9 @@ def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: Epoc
     opt_state = {k: v.clone() for k, v in opt_state.items()}
     loss = torch.empty((1,), dtype=torch.float32, device=data.x.device)
     stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=data.x.device)
+    source = kernel_source(plan)
     launch_fused_epoch(plan, packed, opt_state, data, rows, loss,
-                       lib=_build.measuring_library("fused_epoch.cu", "eh_fused_epoch",
+                       lib=_build.measuring_library(source, _build.LAUNCHERS[source][0],
                                                     "-DEHE_STAMPS"),
                        stamps=stamps)
     return dict(zip(STAGES + ("kernel",), stamps.tolist()))
@@ -1404,7 +1576,8 @@ def _full_precision():
 
 def _head(tensors: EpochTensors, nb: int) -> EpochTensors:
     return EpochTensors(
-        x=tensors.x[:nb], forcing={k: v[:nb] for k, v in tensors.forcing.items()},
+        x=map_x(lambda a: a[:nb], tensors.x),
+        forcing={k: v[:nb] for k, v in tensors.forcing.items()},
         y={k: v[:nb] for k, v in tensors.y.items()},
         mask={k: v[:nb] for k, v in tensors.mask.items()},
         weight=tensors.weight[:nb], n_samples=tensors.n_samples,
@@ -1438,8 +1611,10 @@ def fused_engine(model) -> FusedEngine:
     hybrid over an :class:`LSTMNet`, else a single-series MLP one, by size
     alone: kernel 2, whose blocks keep the whole state in shared memory,
     where that holds the model (widths up to 64 and parameters, moments and
-    a residual tile within 227 KB), the wide kernel (``ops/fused_wide.py``)
-    for any other MLP."""
+    a residual tile within 227 KB, summed over a MultiNN model's branches),
+    the wide kernel (``ops/fused_wide.py``) for any other MLP hybrid. Any
+    other model gets kernel 2's engine, whose envelope says why it refuses."""
+    from ..models.hybrid import MultiNNHybridModel, SingleNNHybridModel
     from ..models.nn import MLP, LSTMNet
     from ..parallel.multisite import MultiSiteHybridModel
 
@@ -1458,7 +1633,9 @@ def fused_engine(model) -> FusedEngine:
         return FusedEngine(
             "cuda_fused_lstm", "supports_fused_epoch_lstm", make_fused_lstm_epoch,
             _refusing_other_shuffles(fused_epoch_lstm_unsupported_reason), single)
-    if isinstance(getattr(model, "nn", None), MLP) and not _fits_one_block(model):
+    nets = [net for _, net in model_branches(model)]
+    hybrid = isinstance(model, (SingleNNHybridModel, MultiNNHybridModel))
+    if hybrid and nets and all(isinstance(net, MLP) for net in nets) and not _fits_one_block(model):
         from .fused_wide import fused_wide_unsupported_reason, make_fused_wide_epoch
 
         return FusedEngine(
@@ -1469,10 +1646,9 @@ def fused_engine(model) -> FusedEngine:
 
 
 def _fits_one_block(model) -> bool:
-    """Whether kernel 2 can hold an MLP hybrid: its widths within the
-    one-block kernels' cap and its state within their shared memory."""
-    net = model.nn
-    return (max((net.in_dim,) + net.hidden + (net.out_dim,)) <= MAX_WIDTH
+    """Whether kernel 2 can hold an MLP hybrid: every network's widths within
+    the one-block kernels' cap and their state within its shared memory."""
+    return (max(max(_dims(net)) for _, net in model_branches(model)) <= MAX_WIDTH
             and _tile_rows(model) is not None)
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.hybrid import SingleNNHybridModel, _call_mechanistic
+from ..models.hybrid import MultiNNHybridModel, SingleNNHybridModel, _call_mechanistic
 from ..models.nn import MLP, get_activation
 from . import _build
 from .kernel_forms import FORM_RBQ10, MAX_ARGS, MAX_OUTPUTS, KernelForm, traced_form
@@ -180,23 +180,74 @@ def fused_forward_unsupported_reason(model, *, training: bool = False,
     arguments all resolve, the 12
     named activations, float32 with no ``compute_dtype``, and widths,
     depth and parameter counts within the caps above. ``training=True``
-    asks for the model checks the training kernel shares: trainable input
-    BatchNorm is allowed there, and that kernel checks its own shared
-    memory. ``max_width`` is the widest layer the asking kernel takes."""
+    asks for the model checks the one-network training kernels (3 and 5)
+    share: trainable input BatchNorm is allowed there, and each kernel
+    checks its own memory. ``max_width`` is the widest layer the asking
+    kernel takes. Kernel 2, which also trains MultiNN branches and models
+    without a network, asks :func:`branches_unsupported_reason`."""
     if not isinstance(model, SingleNNHybridModel):
         return f"{type(model).__name__} is not a SingleNNHybridModel"
     net = model.nn
     if net is None or not model.neural_param_names:
         return "the model has no neural network"
+    reason = _network_reason(net, training=training, max_width=max_width)
+    if reason is not None:
+        return reason
+    reason = float32_reason(model)
+    if reason is not None:
+        return reason
+    n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
+    if not training and _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
+        return "the packed parameters exceed the kernel's 48 KiB of shared memory"
+    return mechanistic_reason(model)
+
+
+def model_branches(model) -> Tuple[Tuple[str, object], ...]:
+    """The networks of a model as the training kernels see them, the JAX
+    kernel's branch view: ``((parameter prefix, network), ...)``, one
+    single-output branch per neural parameter, in their order, for a MultiNN
+    model (``model.nns``); else its one network (``model.nn``: an MLP, an
+    LSTM, the networks of the sites), which gives every neural column; or
+    none."""
+    nns = getattr(model, "nns", None)
+    if nns is not None:
+        return tuple((f"nns.{name}", net) for name, net in nns.items())
+    return (("nn", model.nn),) if getattr(model, "nn", None) is not None else ()
+
+
+def branches_unsupported_reason(model) -> Optional[str]:
+    """The model checks of the training kernel with branches (kernel 2): a
+    SingleNN or MultiNN hybrid whose every network is a float32 MLP inside
+    :func:`_network_reason` (trainable input BatchNorm allowed), all with
+    one input-norm mode, as the JAX package builds them; a model without
+    a network and without neural parameters (globals only) has no branch.
+    Then the mechanistic function, as for the forward kernel."""
+    if not isinstance(model, (SingleNNHybridModel, MultiNNHybridModel)):
+        return f"{type(model).__name__} is neither a SingleNNHybridModel nor a MultiNNHybridModel"
+    branches = model_branches(model)
+    for prefix, net in branches:
+        reason = _network_reason(net, training=True, max_width=MAX_WIDTH)
+        if reason is not None:
+            return reason if len(branches) == 1 else f"branch {prefix[4:]!r}: {reason}"
+    if sum(net.out_dim for _, net in branches) != len(model.neural_param_names):
+        return (f"networks of {sum(net.out_dim for _, net in branches)} outputs for the neural "
+                f"parameters {list(model.neural_param_names)}")
+    if len({net.input_batchnorm for _, net in branches}) > 1:
+        return "branches with different input norms (the kernel takes one mode for all)"
+    reason = float32_reason(model)
+    if reason is not None:
+        return reason
+    return mechanistic_reason(model)
+
+
+def _network_reason(net, *, training: bool, max_width: int) -> Optional[str]:
+    """Why one network is outside the kernels' MLP envelope, or None."""
     if not isinstance(net, MLP):
         return f"the network is a {type(net).__name__}, not an MLP"
     if net.input_batchnorm is True and not training:
         return "trainable input BatchNorm (input_batchnorm=True) is outside the kernel"
     if net.compute_dtype is not None:
         return f"compute_dtype={net.compute_dtype} (the kernel runs float32)"
-    reason = float32_reason(model)
-    if reason is not None:
-        return reason
     for layer in net.layers:
         if not isinstance(layer.activation, str) or layer.activation not in _ACT_IDS:
             return f"activation {layer.activation!r} is not one of the kernel's {len(_ACT_IDS)} names"
@@ -205,10 +256,7 @@ def fused_forward_unsupported_reason(model, *, training: bool = False,
         return f"layer widths {dims} exceed the kernel's cap of {max_width}"
     if len(dims) - 1 > MAX_LAYERS:
         return f"{len(dims) - 1} layers exceed the kernel's cap of {MAX_LAYERS}"
-    n_scalars = len(model.global_param_names) + len(model.fixed_param_names)
-    if not training and _blob_floats(model) + n_scalars > MAX_SMEM_FLOATS:
-        return "the packed parameters exceed the kernel's 48 KiB of shared memory"
-    return mechanistic_reason(model)
+    return None
 
 
 def float32_reason(model) -> Optional[str]:

@@ -46,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..losses.specs import LoggingLoss
+from ..models.hybrid import MultiNNHybridModel
 from . import _build
 from .fused_epoch import (
     MAX_TARGETS,
@@ -326,6 +327,9 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     batch of at most 65,535 row tiles of 64, and the activations and partial sums of one step within
     ``WORKSPACE_SHARE`` of the card's memory (``memory_bytes``, by default
     the memory of the model's CUDA device; unchecked on another device)."""
+    if isinstance(model, MultiNNHybridModel):
+        return ("MultiNN branches are not ported to the wide kernel yet (ROADMAP.md, queue B, "
+                "item 4); kernel 2 takes a MultiNN model whose branches fit its shared memory")
     reason = fused_forward_unsupported_reason(model, training=True, max_width=MAX_WIDE_WIDTH)
     if reason is not None:
         return reason

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ..data.prepare import HybridData, _is_dataframe, dataframe_to_dict, prepare_data
-from ..models.hybrid import SingleNNHybridModel, _call_mechanistic
+from ..models.hybrid import MultiNNHybridModel, SingleNNHybridModel, _call_mechanistic
 from ..models.nn import MLP, get_activation
 from ..params import scale_param
 from ..utils.device import default_device
@@ -91,8 +91,9 @@ class SiteNetworks(nn.Module):
         super().__init__()
         if not isinstance(template, MLP) or template.compute_dtype is not None:
             raise NotImplementedError(
-                "share_nn=False lifts a float32 MLP; other networks are not ported to "
-                "easyhybrid_tpu_torch yet (ROADMAP.md, queue A, item 4)")
+                f"share_nn=False lifts a float32 MLP; a network of its own per site over "
+                f"{type(template).__name__} (an LSTMNet, or an MLP with compute_dtype) is not "
+                "ported to easyhybrid_tpu_torch yet (ROADMAP.md, queue A, item 4)")
         self.in_dim, self.out_dim, self.hidden = template.in_dim, template.out_dim, template.hidden
         self.input_batchnorm = template.input_batchnorm
         self.layers = nn.ModuleList(_SiteDense(layer, n_sites, generator)
@@ -144,6 +145,11 @@ class MultiSiteHybridModel(nn.Module):
     def __init__(self, base: SingleNNHybridModel, n_sites: int, share_nn: bool = True, *,
                  generator: Optional[torch.Generator] = None, device: Any = None):
         super().__init__()
+        if isinstance(base, MultiNNHybridModel):
+            raise NotImplementedError(
+                "MultiSiteHybridModel over a MultiNNHybridModel base (a network per neural "
+                "parameter, per site or shared) is not ported to easyhybrid_tpu_torch yet "
+                "(ROADMAP.md, queue A, item 4)")
         if not isinstance(base, SingleNNHybridModel):
             raise TypeError(
                 f"MultiSiteHybridModel lifts a SingleNNHybridModel; got {type(base).__name__}")

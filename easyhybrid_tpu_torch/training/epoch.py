@@ -21,7 +21,7 @@ forward plus an optax-formula update (``training/optimizers.py``).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ from ..losses.specs import LoggingLoss
 __all__ = [
     "epoch_permutation",
     "epoch_tensors_to",
+    "map_x",
     "shuffle_epoch_tensors",
     "can_skip_empty_guard",
     "make_train_epoch",
@@ -42,6 +43,12 @@ __all__ = [
 ]
 
 
+def map_x(fn, x):
+    """``fn`` over the predictors: one array, or a MultiNN model's dict of
+    them by branch."""
+    return {k: fn(v) for k, v in x.items()} if isinstance(x, Mapping) else fn(x)
+
+
 def epoch_tensors_to(tensors: EpochTensors, device) -> EpochTensors:
     """The epoch arrays as float32 tensors on ``device`` (one copy each)."""
 
@@ -49,7 +56,7 @@ def epoch_tensors_to(tensors: EpochTensors, device) -> EpochTensors:
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)
 
     return EpochTensors(
-        x=put(tensors.x),
+        x=map_x(put, tensors.x),
         forcing={k: put(v) for k, v in tensors.forcing.items()},
         y={k: put(v) for k, v in tensors.y.items()},
         mask={k: put(v) for k, v in tensors.mask.items()},
@@ -74,7 +81,7 @@ def shuffle_epoch_tensors(tensors: EpochTensors, perm) -> EpochTensors:
         return a.reshape((n,) + tuple(a.shape[2:]))[perm].reshape(a.shape)
 
     return EpochTensors(
-        x=take(tensors.x),
+        x=map_x(take, tensors.x),
         forcing={k: take(v) for k, v in tensors.forcing.items()},
         y={k: take(v) for k, v in tensors.y.items()},
         mask={k: take(v) for k, v in tensors.mask.items()},
@@ -85,7 +92,7 @@ def shuffle_epoch_tensors(tensors: EpochTensors, perm) -> EpochTensors:
 
 def _shuffle_batches(tensors: EpochTensors, perm) -> EpochTensors:
     return EpochTensors(
-        x=tensors.x[perm],
+        x=map_x(lambda a: a[perm], tensors.x),
         forcing={k: v[perm] for k, v in tensors.forcing.items()},
         y={k: v[perm] for k, v in tensors.y.items()},
         mask={k: v[perm] for k, v in tensors.mask.items()},
@@ -175,7 +182,7 @@ def make_train_epoch(
         losses = []
         for i in range(tensors.weight.shape[0]):
             batch = (
-                (tensors.x[i], {k: v[i] for k, v in tensors.forcing.items()}),
+                (map_x(lambda a: a[i], tensors.x), {k: v[i] for k, v in tensors.forcing.items()}),
                 ({k: v[i] for k, v in tensors.y.items()},
                  {k: v[i] for k, v in tensors.mask.items()}),
             )

@@ -32,6 +32,7 @@ import torch
 from ..data.loaders import pad_axis0
 from ..data.prepare import prepare_data
 from ..ops.fused_forward import fused_forward_unsupported_reason, make_fused_forward
+from .epoch import map_x
 
 __all__ = ["make_inference_fn", "predict"]
 
@@ -138,17 +139,16 @@ def _run_chunked(model, forward, data, batch_size: int, device) -> Dict[str, np.
     the JAX ``predict`` runs."""
     hd = prepare_data(model, data, drop_missing_rows=False)
     n = hd.n_samples
-    x_all = np.asarray(hd.x)
+
+    def chunk(a, start, end):
+        return torch.tensor(pad_axis0(np.asarray(a)[start:end], batch_size), device=device)
 
     chunks: Dict[str, list] = {}
     for start in range(0, max(n, 1), batch_size):
         end = min(start + batch_size, n)
         take = end - start
-        x = torch.tensor(pad_axis0(x_all[start:end], batch_size), device=device)
-        forcing = {
-            k: torch.tensor(pad_axis0(np.asarray(v)[start:end], batch_size), device=device)
-            for k, v in hd.forcing.items()
-        }
+        x = map_x(lambda a: chunk(a, start, end), hd.x)
+        forcing = {k: chunk(v, start, end) for k, v in hd.forcing.items()}
         out = forward(x, forcing)
         for k, v in out.items():
             v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

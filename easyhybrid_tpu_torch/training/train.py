@@ -48,7 +48,8 @@ from ..ops._build import nvcc_seconds
 from ..ops.fused_epoch import fused_engine, fused_exactness_check, init_fused_opt_state
 from ..params import scale_param
 from .early_stopping import EarlyStopping
-from .epoch import can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_train_epoch
+from .epoch import (can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_train_epoch,
+                    map_x)
 from .history import EpochSnapshot, TrainingHistory
 from .optimizers import parse_opt_spec, resolve_optimizer
 
@@ -94,13 +95,22 @@ def kwargs_to_configs(
 def fit_input_norm(model, train_data: HybridData) -> None:
     """Fit the ``input_batchnorm="static"`` statistics from the training
     split, in place: the per-feature mean and biased variance (floored at
-    1e-12) of ``train_data.x`` go into the norm's buffers. Models without a
-    static norm are left as they are."""
-    nn = getattr(model, "nn", None)
-    norm = getattr(nn, "norm", None)
-    if norm is None or getattr(nn, "input_batchnorm", False) != "static":
+    1e-12) of ``train_data.x`` go into the norm's buffers; a MultiNN model's
+    branch b takes them from ``train_data.x[b]``. Networks without a static
+    norm are left as they are."""
+    nns = getattr(model, "nns", None)
+    if nns is not None:
+        for name, net in nns.items():
+            _fit_static_norm(net, train_data.x[name])
+    else:
+        _fit_static_norm(getattr(model, "nn", None), train_data.x)
+
+
+def _fit_static_norm(net, x) -> None:
+    norm = getattr(net, "norm", None)
+    if norm is None or getattr(net, "input_batchnorm", False) != "static":
         return
-    x = np.asarray(train_data.x, np.float32)
+    x = np.asarray(x, np.float32)
     flat = x.reshape(-1, x.shape[-1])
     with torch.no_grad():
         norm.mean.copy_(torch.from_numpy(flat.mean(0)))
@@ -138,7 +148,7 @@ def _full_batch(data: HybridData, device):
     """The whole split as one ``((x, forcing), (y, mask))`` batch on ``device``."""
     t = epoch_tensors_to(build_epoch_tensors(data, None), device)
     return (
-        (t.x[0], {k: v[0] for k, v in t.forcing.items()}),
+        (map_x(lambda a: a[0], t.x), {k: v[0] for k, v in t.forcing.items()}),
         ({k: v[0] for k, v in t.y.items()}, {k: v[0] for k, v in t.mask.items()}),
     )
 
@@ -341,6 +351,8 @@ def train(
 
     def tracked_values() -> Dict[str, float]:
         out = {}
+        if not cfg.tracked_params:
+            return out
         table = model.param_table
         globals_, fixed = model.globals.as_dict(), model.fixed.as_dict()
         for name in cfg.tracked_params or ():

@@ -26,6 +26,9 @@ Adam turns the rounding of a near-zero gradient into a visible move (see
 max(1, |ref|) of a float64 product (3xTF32 keeps about float32's accuracy;
 measured worst 4.5e-5 relative at K = 1,024 on an H100).
 
+Kernel 2 is also held on MultiNN models (a network per neural parameter,
+``BRANCH_SPECS``) and on a model with globals only.
+
 Every training kernel is also held, under each optimizer rule besides adam
 and plain sgd (``RULES``), against its plain version at the same tolerance
 on parameters and every slot of the opt state, with the same bits on a
@@ -250,20 +253,29 @@ TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
 
 def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam", 0.01),
                 shuffle=True, epochs=1, batch=256, n=2000, seed=0, nan_frac=0.0, mask_first=False,
-                mechanistic=et.rbq10, loss="mse", agg="sum"):
+                mechanistic=et.rbq10, loss="mse", agg="sum", spec=None):
+    """Kernel 2 against its plain version on the quick-start's model, or on
+    the model of ``spec`` (a full model spec, on RbQ10 rows with a second
+    target nee)."""
     cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
     if mask_first:
         cols["reco"][:batch] = np.nan
-    spec = dict(
-        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
-        mechanistic_model=mechanistic,
-        parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
-        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
-        activation=act, scale_nn_outputs=True, input_batchnorm=norm,
-    )
+    if spec is None:
+        spec = dict(
+            predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+            mechanistic_model=mechanistic,
+            parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+            neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+            activation=act, scale_nn_outputs=True, input_batchnorm=norm,
+        )
+        data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                          forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    else:
+        cols["nee"] = (cols["reco"] - 5.0 * (1.0 - np.exp(-0.1 * cols["ta"]))).astype(np.float32)
+        data = None
     m = et.construct_hybrid_model(**spec, generator=torch.Generator().manual_seed(seed))
-    data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
-                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    if data is None:
+        data = et.prepare_data(m, cols)
     et.fit_input_norm(m, data)
     m.to(device)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
@@ -395,6 +407,40 @@ def test_epoch_kernel_matches_plain_under_every_rule(cuda, opt):
 def test_epoch_kernel_rules_with_the_slots_in_device_memory(cuda, opt):
     # the padded rows leave no room for the slots beside 32 residual rows
     _epoch_case(cuda, opt=opt, hidden=(61, 61, 44, 61, 13), act="tanh", batch=128, n=512, epochs=2)
+
+
+def _nee(*, ta, rb, gpp_max, Q10):
+    reco = rb * Q10 ** (0.1 * (ta - 15.0))
+    return {"nee": reco - gpp_max * (1.0 - torch.exp(-0.1 * ta))}
+
+
+# MultiNN models (a network per neural parameter) and a model with globals only
+BRANCH_SPECS = {
+    "two_branches_static": dict(
+        predictors={"rb": ["sw_pot", "dsw_pot"], "gpp_max": ["sw_pot"]}, forcing=["ta"],
+        targets=["nee"], mechanistic_model=_nee,
+        parameters={"rb": (3.0, 0.0, 13.0), "gpp_max": (5.0, 0.0, 20.0), "Q10": (2.0, 1.0, 4.0)},
+        global_param_names=["Q10"], hidden_layers={"rb": [16, 16], "gpp_max": [8]},
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static"),
+    "two_branches_trainable_bn": dict(
+        predictors={"rb": ["sw_pot"], "gpp_max": ["dsw_pot", "ta"]}, forcing=["ta"],
+        targets=["nee"], mechanistic_model=_nee,
+        parameters={"rb": (3.0, 0.0, 13.0), "gpp_max": (5.0, 0.0, 20.0), "Q10": (2.0, 1.0, 4.0)},
+        global_param_names=["Q10"], hidden_layers=[32, 16], activation="tanh",
+        scale_nn_outputs=True, input_batchnorm=True),
+    "globals_only": dict(
+        predictors=[], forcing=["ta"], targets=["reco"], mechanistic_model=et.rbq10,
+        parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)}, neural_param_names=[],
+        global_param_names=["rb", "Q10"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BRANCH_SPECS))
+@pytest.mark.parametrize("batch", [256, 1000])
+def test_epoch_kernel_runs_every_branch(cuda, name, batch):
+    """Kernel 2 on the JAX kernel's branch view: each branch's forward and
+    backward from its own columns and slots, in one block and in a cluster."""
+    _epoch_case(cuda, spec=BRANCH_SPECS[name], epochs=2, batch=batch, nan_frac=0.1)
 
 
 def test_first_masked_batch_counts_no_step(cuda):

@@ -12,8 +12,6 @@ import easyhybrid_tpu_torch as et
 
 # name -> the item of ROADMAP.md's queue A ("Modules still to port") that brings it
 NOT_YET = {
-    **dict.fromkeys(["MultiNNHybridModel", "make_hybrid", "CustomHybridModel", "format_model",
-                     "format_parameter_table"], 4),
     **dict.fromkeys(["LinearHM", "RespirationRbQ10", "RsComponents", "RbQ10TwoParams",
                      "FluxPartModelQ10", "m_rb_q10"], 10),
     **dict.fromkeys(["ModelSpec", "tune", "best_hyperparams", "random_search", "grid_search",
@@ -46,7 +44,10 @@ def test_the_not_yet_table_only_names_reference_names():
     assert len(set(et.__all__)) == len(et.__all__)
     ported = [n for n in eh.__all__ if n in et.__all__]
     assert len(ported) + len(NOT_YET) == len(eh.__all__) == 110
-    assert len(ported) == 59  # grows as names are ported; 38 before the 19 + 2 names of queue A item 19
+    # grows as names are ported: 38 before the 19 + 2 names of queue A item 19, 59 before the
+    # 5 of item 4 (MultiNNHybridModel, make_hybrid, CustomHybridModel, format_model,
+    # format_parameter_table)
+    assert len(ported) == 64
 
 
 @pytest.mark.parametrize("name", [

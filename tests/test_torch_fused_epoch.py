@@ -380,8 +380,9 @@ def test_kernel_arguments_pack_the_plan():
     plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
     a = fe._Args.from_buffer_copy(plan.args_bytes)
     assert plan.n_params == a.n_params == 2 * 2 + 16 * 3 + 16 * 17 + 17 + 1
-    assert list(a.dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.optimizer.rule == 1
-    assert list(a.p_off_w[:3]) == [4, 52, 324] and a.p_off_g == plan.n_params - 1
+    assert a.n_nets == 1 and a.n_features == 2 and a.n_neural == 1
+    assert list(a.nets[0].dims[:4]) == [2, 16, 16, 1] and a.norm_mode == 2 and a.optimizer.rule == 1
+    assert list(a.nets[0].p_off_w[:3]) == [4, 52, 324] and a.p_off_g == plan.n_params - 1
     assert a.optimizer.one_minus_b1 == np.float32(1.0 - 0.9) and plan.tile_rows == 128
     # the backward's residuals, then the output, its scaling's derivative and the feature of ones
     assert a.r_off_g + 1 == plan.res_floats == a.r_off_out == a.r_off_dsc - 1 == a.r_off_one - 2
@@ -552,7 +553,7 @@ def test_gradient_units_cover_the_quick_start():
     plan = fe.plan_fused_epoch(tm, ("adam", 0.01), LL)
     a = fe._Args.from_buffer_copy(plan.args_bytes)
     assert a.n_unit_table == plan.n_unit_table == 37 and a.n_forcing == 1
-    assert list(a.pp_off_w[:3]) == [4, 84, 356] and a.pp_off_g == 373 and a.n_padded == 376
+    assert list(a.nets[0].pp_off_w[:3]) == [4, 84, 356] and a.pp_off_g == 373 and a.n_padded == 376
     wide = et.construct_hybrid_model(**_spec(True, hidden=(64, 64)))
     assert fe.plan_fused_epoch(wide, "adam", LL).n_unit_table == 128
 

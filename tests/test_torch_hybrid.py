@@ -138,8 +138,11 @@ def test_predict_df_matches_jax():
 
 
 def test_constructor_errors():
+    # a mapping of predictors builds one network per neural parameter (the keys)
+    multi = et.construct_hybrid_model(**{**QUICK_START, "predictors": {"rb": ["sw_pot"]}})
+    assert isinstance(multi, et.MultiNNHybridModel) and multi.neural_param_names == ("rb",)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.construct_hybrid_model(**{**QUICK_START, "predictors": {"rb": ["sw_pot"]}})
+        et.MultiSiteHybridModel(multi, n_sites=2)
     with pytest.raises(ValueError, match="global parameter"):
         et.construct_hybrid_model(**{**QUICK_START, "global_param_names": ["nope"]})
     with pytest.raises(ValueError, match="mechanistic_model"):
