@@ -166,7 +166,28 @@ Phases, one or more lines each; any failure exits non-zero:
     patience 30): kernel 2 after its gate, one launch an epoch, best val
     nseLoss within ``EXPO_NSE_BAND``; its ``predict`` on the torch engine;
 27. times: kernel 2's ExpoHybrid epoch beside the quick-start's in the same
-    call, and its plain version; the seconds phases 25-27 add to the run.
+    call, and its plain version; the seconds phases 25-27 add to the run;
+28. halted launches: each of kernels 2-5 at its main path's shape with the
+    halt word set returns its inputs bit for bit (parameters and per-site
+    globals, BatchNorm statistics, every optimizer slot, the step count) and
+    a loss of 0, and with the word clear gives the bits of a call without
+    one; a halted call's device time beside a live one's;
+29. main paths, deferred: the ``train()`` cells of phases 7, 7b, 11, 14, 17
+    and 26, a torch-engine cell and the reference quick-start with
+    ``return_gradients``, a monitored ``rb`` and ``keep_history``, each run
+    deferred (its dispatch window under ``set_sync_debug_mode("error")``) and
+    eager: equal bits in every history row, the best epoch, the best
+    parameters and state, the opt state, the predictions and every kept
+    series; the reference quick-start stops at the same epoch in both, and
+    the blocks dispatched after a stop are logged;
+30. times: each cell's ``train()`` wall in both loops (the median of 3 calls
+    after phase 29's), the device's busy share of a call in each, and the
+    deferred loop's host dispatch seconds; the seconds phases 28-30 add.
+
+Since the deferred loop, a ``train()`` that stops early has launched its
+kernel for the blocks queued before the host saw the stop as well; those
+launches halt at entry, and the launch counts the phases check leave them
+out (``halted``).
 
 Models are built without a ``device=`` argument and must land on the card.
 The last three lines are: a JSON object ``{"kernels": [...]}`` with one
@@ -463,6 +484,8 @@ def reference_main_path(et, fe, card, cols, *, mechanistic=None, q10_tol=0.15,
         raise AssertionError(f"the reference train() took {result.epoch_path!r}: "
                              f"{result.engine_reason}")
     epochs = len(result.train_history) - 1  # the history holds epoch 0 as well
+    after_stop = halted(result)
+    launches -= after_stop  # the launches that trained
     if launches != epochs or launches < 1:
         raise AssertionError(f"the reference train() ran {epochs} epochs in {launches} launches")
     q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
@@ -478,9 +501,10 @@ def reference_main_path(et, fe, card, cols, *, mechanistic=None, q10_tol=0.15,
                 f"patience {REFERENCE_KW['patience']}, mechanistic model {name!r} "
                 f"{'traced' if mechanistic else 'hand-written'}): {result.epoch_path}, "
                 f"{result.engine_reason}; {launches} launches for {epochs} epochs after the "
-                f"gate's {gate_launches}; Q10 {q10:.4f}, best val mse {result.best_loss:.5f} at "
+                f"gate's {gate_launches} ({after_stop} more halted after the stop); Q10 "
+                f"{q10:.4f}, best val mse {result.best_loss:.5f} at "
                 f"epoch {result.best_epoch}; {wall:.2f} s wall (ok)")
-    out = {"launches": launches, "wall": wall, "model": model, "q10": q10}
+    out = {"launches": launches, "halted": after_stop, "wall": wall, "model": model, "q10": q10}
     if not torch_epochs:
         return out
     t0 = time.perf_counter()
@@ -802,7 +826,10 @@ def multisite_main_path(et, card) -> dict:
         result = et.train(model, data, **MS_TRAIN_KW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, prim_launches = fm.launch_fused_multisite.launches, mp.launch_primitive.launches
+        after_stop = halted(result)
+        # the launches that trained
+        launches = fm.launch_fused_multisite.launches - after_stop
+        prim_launches = mp.launch_primitive.launches
     finally:
         train_module.fused_exactness_check = real_gate
     if (result.epoch_path != "cuda_fused_multisite"
@@ -827,7 +854,8 @@ def multisite_main_path(et, card) -> dict:
                              f"truth (need > 0.8), validation sites moved by {untouched:.2e}")
     log("main", f"multi-site train(): {MS_SITES} sites x {MS_OBS} observations, "
                 f"{result.epoch_path}, {result.engine_reason}; {launches} launcher calls and "
-                f"{prim_launches} primitive launches after the gate's {gate_launches}; per-site "
+                f"{prim_launches} primitive launches after the gate's {gate_launches} "
+                f"({after_stop} more halted after a stop); per-site "
                 f"Q10 of the {MS_TRAIN_SITES} training sites: correlation {corr:.4f} with the "
                 f"truth, mean |err| {err:.4f}; best val mse {result.best_loss:.5f} at epoch "
                 f"{result.best_epoch}; {wall:.2f} s wall, {gate_s[0]:.2f} s of it the gate (ok)")
@@ -851,7 +879,7 @@ def multisite_main_path(et, card) -> dict:
                 f"{fm.launch_fused_multisite.launches - before} launcher calls (gate included), "
                 f"{steps} steps, best val mse {mini.best_loss:.5f}; {mini_wall:.2f} s wall (ok)")
     return dict(launches=launches, primitive_launches=prim_launches, wall=wall, data=data,
-                table_s=table_s, prepare_s=prepare_s)
+                table_s=table_s, prepare_s=prepare_s, halted=after_stop)
 
 
 def multisite_times(et, card, main, stamped) -> dict:
@@ -1077,7 +1105,8 @@ def lstm_main_path(et, card, mechanistic=None) -> dict:
         result = et.train(model, cols, **LSTM_TRAIN_KW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fl.launch_fused_lstm.launches
+        after_stop = halted(result)
+        launches = fl.launch_fused_lstm.launches - after_stop  # the launches that trained
     if result.epoch_path != "cuda_fused_lstm" or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
     if launches != LSTM_TRAIN_KW["nepochs"]:
@@ -1099,11 +1128,13 @@ def lstm_main_path(et, card, mechanistic=None) -> dict:
     log("main", f"sequence train(): {LSTM_ROWS} rows in 10-step windows, LSTM(16), mechanistic "
                 f"model {name!r} {'traced' if mechanistic else 'hand-written'}, "
                 f"{result.epoch_path}, {result.engine_reason}; {launches} launches after the "
-                f"gate's {gate_launches}, {steps} optimizer steps; best val nseLoss "
+                f"gate's {gate_launches} ({after_stop} more halted after a stop), {steps} "
+                f"optimizer steps; best val nseLoss "
                 f"{result.best_loss:.6f} at epoch {result.best_epoch} (limit {LSTM_VAL_LIMIT}; the "
                 f"torch engine on a CPU: 0.002574), val mse {val_mse:.5f}, Q10 {q10:.4f}; "
                 f"{n_val} validation predictions in the long format; {wall:.2f} s wall (ok)")
-    return dict(launches=launches, wall=wall, cols=cols, steps=steps, model=model)
+    return dict(launches=launches, wall=wall, cols=cols, steps=steps, model=model,
+                halted=after_stop)
 
 
 def lstm_step_bound(batch, steps, out_steps=1, hidden=16, features=2, outputs=1,
@@ -1429,7 +1460,8 @@ def wide_main_path(et, card, cols) -> dict:
         result = et.train(model, cols, **WIDE_TRAIN_KW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fw.launch_fused_wide.launches
+        after_stop = halted(result)
+        launches = fw.launch_fused_wide.launches - after_stop  # the launches that trained
     if result.epoch_path != "cuda_fused_wide" or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
     if launches != WIDE_TRAIN_KW["nepochs"]:
@@ -1449,11 +1481,12 @@ def wide_main_path(et, card, cols) -> dict:
                              f"{WIDE_VAL_LIMIT}) and Q10 {q10:.4f}")
     log("main", f"wide train(): hidden {list(WIDE_HIDDEN)}, {WIDE_ROWS} rows in {n_batches} "
                 f"batches of {WIDE_BATCH}, {result.epoch_path}, {result.engine_reason}; {launches} "
-                f"launcher calls after the gate's {gate_launches}, {steps} optimizer steps; best "
+                f"launcher calls after the gate's {gate_launches} ({after_stop} more halted after "
+                f"a stop), {steps} optimizer steps; best "
                 f"val mse {result.best_loss:.6f} at epoch {result.best_epoch} (limit "
                 f"{WIDE_VAL_LIMIT}; the torch engine on a CPU: 0.010624), Q10 {q10:.4f}; "
                 f"{len(pred)} finite validation predictions; {wall:.2f} s wall (ok)")
-    return dict(launches=launches, wall=wall, steps=steps)
+    return dict(launches=launches, wall=wall, steps=steps, halted=after_stop)
 
 
 def wide_products(dims, batch):
@@ -1990,7 +2023,7 @@ def traced_train(et, what, model, data, launcher, epoch_path, train_kw, expected
         result = et.train(model, data, **train_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launcher.launches
+        launches = launcher.launches - halted(result)  # the launches that trained
     if result.epoch_path != epoch_path or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"{what}: train() took {result.epoch_path!r}: {result.engine_reason}")
     if launches != expected:
@@ -2408,7 +2441,7 @@ def loss_train(et, what, model, data, launcher, epoch_path, train_kw) -> dict:
         result = et.train(model, data, **train_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launcher.launches
+        launches = launcher.launches - halted(result)  # the launches that trained
     if result.epoch_path != epoch_path or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"{what}: train() took {result.epoch_path!r}: {result.engine_reason}")
     blocks = len(result.train_history) - 1  # the history holds epoch 0 as well
@@ -2702,7 +2735,7 @@ def multinn_main_path(et, card, mn) -> dict:
         result = et.train(model, cols, **EXPO_TRAIN_KW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fe.launch_fused_epoch.launches
+        launches = fe.launch_fused_epoch.launches - halted(result)  # the launches that trained
     nvcc_s = _build.nvcc_seconds() - nvcc0
     if (result.epoch_path != "cuda_fused_epoch"
             or "exactness gate passed" not in result.engine_reason):
@@ -2733,7 +2766,7 @@ def multinn_main_path(et, card, mn) -> dict:
         raise AssertionError(f"predict on the ExpoHybrid model: {fn.engine}, {fn.engine_reason}")
     log("main", f"ExpoHybrid predict: engine {fn.engine} ({fn.engine_reason}), keys {sorted(out)} "
                 "(ok)")
-    return {"launches": launches, "best": result.best_loss, "wall": wall}
+    return {"launches": launches, "halted": halted(result), "best": result.best_loss, "wall": wall}
 
 
 def multinn_times(et, card, mn) -> dict:
@@ -2773,6 +2806,275 @@ def multinn_times(et, card, mn) -> dict:
                  f"the quick-start (one network [2,16,16,1], adam, mse, trainable BN) "
                  f"{ms['quick-start']:.4f} ms; the ExpoHybrid plain version {plain:.2f} ms "
                  f"(profiler); bound {out['bound']['bound_ms']:.5f} ms by {out['bound']['bound_by']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 28-30: the halt word and the deferred loop
+# ---------------------------------------------------------------------------
+
+def halted(result) -> int:
+    """Launches of ``result``'s ``train()`` after its early stop: the
+    deferred loop's blocks queued before the host saw the stop, each of which
+    halted at entry (0 for the eager loop). Launch counts of trained blocks
+    leave them out."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    record = deferred.loop_record(result)
+    return record.blocks_after_stop if record is not None else 0
+
+
+def halted_launch_checks(et, card, quick_cols, wide_train_cols, mn) -> dict:
+    """Phase 28: each of kernels 2-5 at its main path's shape (kernel 2 in
+    both builds: the quick-start's one network and ExpoHybrid's two), from the state
+    a live call left (moments and step count not zero), with the halt word
+    set: every output must equal its input bit for bit (parameters with the
+    per-site globals, BatchNorm statistics, every optimizer slot and the
+    step count) and the loss be 0; with the word clear, the bits of a call
+    without a word. A halted call's device time beside a live one's."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    cases = {
+        "fused_epoch": prepare_epoch_case(et, fe, **epoch_cases(et, quick_cols)[0]),
+        "fused_wide": prepare_wide_case(et, **wide_cases(et, wide_train_cols)[1]),
+        "fused_epoch_lstm": prepare_lstm_case(et, **lstm_cases()[0]),
+        "fused_multisite": prepare_multisite_case(et, **multisite_cases()[0]),
+    }
+    expo = mn["expo"]()
+    expo_split = et.split_data(expo_columns(EXPO_ROWS, seed=0), expo)[0]
+    cases["fused_epoch_multinn"] = (
+        f"ExpoHybrid (two networks), the example's {expo_split.n_samples:,} training rows, batch "
+        "256, adamw, nseLoss, shuffled, 2 epochs",
+        *epoch_inputs(et, expo, expo_split, make=et.make_fused_epoch, opt=("adamw", 0.01),
+                      batch=256, epochs=2, shuffle=True, loss="nseLoss"))
+    out = {}
+    for name, (what, fn, packed, tensors, perms) in cases.items():
+        p1, s1, _ = fn(packed, fresh_state(fn, packed), tensors, perms=perms)
+        on = torch.ones((), dtype=torch.int32, device="cuda")
+        off = torch.zeros_like(on)
+        got = fn(p1, s1, tensors, perms=perms, halt=on)
+        torch.cuda.synchronize()
+        inputs = {"params": p1.params, "bn": p1.bn, **s1}
+        outputs = {"params": got[0].params, "bn": got[0].bn, **got[1]}
+        if set(outputs) != set(inputs) or not all(torch.equal(outputs[k], inputs[k])
+                                                  for k in inputs):
+            raise AssertionError(f"{name}, {what}: a halted call changed "
+                                 f"{[k for k in inputs if not torch.equal(outputs[k], inputs[k])]}")
+        if float(got[2]) != 0.0:
+            raise AssertionError(f"{name}: a halted call's loss is {float(got[2])}")
+        clear = fn(p1, s1, tensors, perms=perms, halt=off)
+        free = fn(p1, s1, tensors, perms=perms)
+        a = {"params": clear[0].params, "bn": clear[0].bn, **clear[1], "loss": clear[2].reshape(1)}
+        b = {"params": free[0].params, "bn": free[0].bn, **free[1], "loss": free[2].reshape(1)}
+        if not all(torch.equal(a[k], b[k]) for k in b) or torch.equal(a["params"], p1.params):
+            raise AssertionError(f"{name}: a call with the word clear differs from one without it")
+        reps = 1 if name == "fused_wide" else 5  # kernel 3 enqueues ~700 launches a call
+        halted_ms = statistics.median(
+            device_ms(lambda: fn(p1, s1, tensors, perms=perms, halt=on), reps, name)
+            for _ in range(3))
+        live_ms = statistics.median(
+            device_ms(lambda: fn(p1, s1, tensors, perms=perms, halt=off), reps, name)
+            for _ in range(3))
+        log("halt", f"[{card}] {name}, {what}: the word set, every output equal to its input "
+                    f"bit for bit ({', '.join(sorted(inputs))}; step count {int(s1['t'][0])}), "
+                    "loss 0; the word clear, the bits of a call without one (ok); device ms a "
+                    f"call, median of 3: halted {halted_ms:.4f}, live {live_ms:.4f} "
+                    f"({halted_ms / live_ms:.1%})")
+        out[name] = dict(halted_ms=halted_ms, live_ms=live_ms)
+    return out
+
+
+def bits_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+    return a == b
+
+
+TORCH_CELL = "torch engine (phase 7b's model, adam 0.05, patience 1)"
+# phase 29's cells that run a third time with the poll never seeing the stop
+HALTED_TAIL_CELLS = ("reference quick-start (phase 7b)", TORCH_CELL)
+
+
+def loop_cells(et, quick_cols, wide_cols, ms_data, lstm_cols, mn) -> dict:
+    """The ``train()`` cells of phases 7, 7b (the reference quick-start), 11,
+    14, 17 and 26, a torch-engine cell (the reference quick-start's model on
+    ``use_kernel=False`` at a step that stops it early: adam at 0.05,
+    patience 1, at most 12 epochs; the stop came at epoch 6 on a CPU) and the
+    reference quick-start with ``return_gradients``, monitored ``rb`` and
+    ``keep_history``: name -> ``(make model, data, kwargs)``, each model made
+    anew."""
+    grads = dict(REFERENCE_KW, return_gradients=True, monitor_names=["rb"], keep_history=True)
+    return {
+        "quick-start (phase 7)": (lambda: build_model(et, norm=True, seed=0), quick_cols,
+                                  TRAIN_KW),
+        "reference quick-start (phase 7b)": (lambda: build_model(et, norm="static", seed=0),
+                                             quick_cols, REFERENCE_KW),
+        "multi-site (phase 11)": (lambda: multisite_model(et, MS_SITES), ms_data, MS_TRAIN_KW),
+        "sequence (phase 14)": (lambda: lstm_model(et), lstm_cols, LSTM_TRAIN_KW),
+        "wide (phase 17)": (lambda: wide_model(et), wide_cols, WIDE_TRAIN_KW),
+        "ExpoHybrid (phase 26)": (mn["expo"], expo_columns(EXPO_ROWS, seed=0), EXPO_TRAIN_KW),
+        TORCH_CELL: (lambda: build_model(et, norm="static", seed=0), quick_cols,
+                     dict(REFERENCE_KW, nepochs=12, optimizer=("adam", 0.05), patience=1,
+                          use_kernel=False)),
+        "reference quick-start, return_gradients, monitor rb, keep_history": (
+            lambda: build_model(et, norm="static", seed=0), quick_cols, grads),
+    }
+
+
+def loop_differences(d, e, kw) -> tuple:
+    """``(compared, differing)``: what two ``train()`` results of one cell
+    (called with ``kw``) are held to, bit for bit (the tracked, monitored,
+    gradient and prediction histories where the cell keeps them), and what
+    differs."""
+    checks = {
+        "history rows": ((d.train_history, d.val_history), (e.train_history, e.val_history)),
+        "best epoch and loss": ((d.best_epoch, d.best_loss), (e.best_epoch, e.best_loss)),
+        "best parameters": (d.params, e.params), "best state": (d.state, e.state),
+        "opt state": (d.opt_state, e.opt_state),
+        "predictions": ((d.train_pred_columns, d.val_pred_columns),
+                        (e.train_pred_columns, e.val_pred_columns)),
+        "tracked": (d.tracked, e.tracked), "monitored": (d.monitored, e.monitored),
+        "gradient norms": (d.grad_history, e.grad_history),
+        "final gradients": (d.final_grads, e.final_grads),
+        "prediction history": ([(s.y_hat_train, s.y_hat_val) for s in d.history.snapshots],
+                               [(s.y_hat_train, s.y_hat_val) for s in e.history.snapshots]),
+    }
+    optional = {"tracked": d.tracked, "monitored": d.monitored, "gradient norms": d.grad_history,
+                "final gradients": d.final_grads, "prediction history": kw.get("keep_history")}
+    kept = [k for k in checks if k not in optional or optional[k]]
+    return kept, [k for k, (a, b) in checks.items() if not bits_equal(a, b)]
+
+
+def deferred_main_paths(et, card, cells) -> dict:
+    """Phase 29: every cell twice, deferred (``show_progress=False``, its
+    dispatch window under ``torch.cuda.set_sync_debug_mode("error")``) and
+    eager (``show_progress=True``), held to equal bits by
+    ``loop_differences``. The cells of ``HALTED_TAIL_CELLS``, each of which
+    stops early, run a third time deferred with the poll never reporting
+    the stop: every block after it is dispatched and halts (the kernel at
+    entry, the torch engine by its select), and the results must still be
+    the eager run's bits."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.training import deferred
+
+    def deferred_run(make, data, kw):
+        deferred.SYNC_DEBUG_MODE = "error"
+        try:
+            t0 = time.perf_counter()
+            result = et.train(make(), data, **dict(kw, show_progress=False))
+            torch.cuda.synchronize()
+            return result, time.perf_counter() - t0
+        finally:
+            deferred.SYNC_DEBUG_MODE = 0
+
+    out = {}
+    for name, (make, data, kw) in cells.items():
+        d, d_wall = deferred_run(make, data, kw)
+        record = deferred.loop_record(d)
+        t0 = time.perf_counter()
+        e = et.train(make(), data, **dict(kw, show_progress=True))
+        torch.cuda.synchronize()
+        e_wall = time.perf_counter() - t0
+        if (d.loop_mode, e.loop_mode) != ("deferred", "eager") or d.epoch_path != e.epoch_path:
+            raise AssertionError(f"{name}: loops {d.loop_mode}, {e.loop_mode}; engines "
+                                 f"{d.epoch_path}, {e.epoch_path}")
+        if not d.engine_reason.endswith("; zero-readback"):
+            raise AssertionError(f"{name}: {d.engine_reason}")
+        kept, failed = loop_differences(d, e, kw)
+        if failed:
+            raise AssertionError(f"{name}: the deferred and the eager run differ in {failed}")
+        epochs = (len(d.val_history) - 1) * kw.get("eval_every", 1)
+        stop = ("no early stop" if record.stop_index is None else
+                f"stopped at epoch {epochs}, {record.blocks_after_stop} block(s) dispatched after "
+                "the stop (halted)")
+        log("deferred", f"[{card}] {name}: {d.epoch_path}, {d.engine_reason}; {stop}; best epoch "
+                        f"{d.best_epoch}, val {d.best_loss:.6g}; deferred equal to eager bit for "
+                        f"bit in {', '.join(kept)} (ok); no synchronising call in the dispatch "
+                        f"window; first calls {d_wall:.3f} s deferred, {e_wall:.3f} s eager")
+        out[name] = dict(result=d, eager=e, record=record, epochs=epochs)
+        if name not in HALTED_TAIL_CELLS:
+            continue
+        if record.stop_index is None:
+            raise AssertionError(f"{name}: no early stop, so no block after one to halt")
+        launcher = fe.launch_fused_epoch if d.epoch_path == "cuda_fused_epoch" else None
+        real_poll = deferred.poll_done
+        deferred.poll_done = lambda poll: False
+        try:
+            if launcher is None:
+                h, _ = deferred_run(make, data, kw)
+                launches = None
+            else:
+                with gate_counted_apart(launcher):
+                    h, _ = deferred_run(make, data, kw)
+                    launches = launcher.launches
+        finally:
+            deferred.poll_done = real_poll
+        tail = deferred.loop_record(h)
+        n_blocks = kw["nepochs"] // kw.get("eval_every", 1)
+        if (tail.blocks, tail.stop_index) != (n_blocks, record.stop_index):
+            raise AssertionError(f"{name}, the poll never seeing the stop: {tail.blocks} blocks "
+                                 f"(expected {n_blocks}), stop at {tail.stop_index} (expected "
+                                 f"{record.stop_index})")
+        if launches is not None and launches != n_blocks:
+            raise AssertionError(f"{name}, the poll never seeing the stop: {launches} launches "
+                                 f"for {n_blocks} blocks")
+        failed = loop_differences(h, e, kw)[1]
+        if failed:
+            raise AssertionError(f"{name}: with {tail.blocks_after_stop} halted blocks after the "
+                                 f"stop the deferred run differs from the eager one in {failed}")
+        log("deferred", f"[{card}] {name}, the poll never seeing the stop: all {n_blocks} blocks "
+                        f"dispatched, {tail.blocks_after_stop} of them after the stop at epoch "
+                        f"{epochs} and halted"
+                        + ("" if launches is None else f" ({launches} launches, "
+                           f"{launches - tail.blocks_after_stop} of them trained)")
+                        + "; equal to the eager run bit for bit in "
+                          f"{', '.join(kept)}; no synchronising call in the dispatch window (ok)")
+        out[name]["halted_tail"] = tail.blocks_after_stop
+    return out
+
+
+def loop_times(et, card, cells) -> dict:
+    """Phase 30: each cell's ``train()`` wall, deferred against eager, the
+    median of 3 calls after phase 29's warm ones, in turns; the device's busy
+    share of a call in each loop (``torch.profiler``'s device time over the
+    untraced median wall); and the deferred loop's host seconds dispatching
+    the blocks beside the device seconds of the call."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    out = {}
+    for name, (make, data, kw) in cells.items():
+        walls = {"deferred": [], "eager": []}
+        dispatch = []
+        for i in range(3):
+            for loop in (("deferred", "eager") if i % 2 == 0 else ("eager", "deferred")):
+                model = make()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = et.train(model, data, **dict(kw, show_progress=loop == "eager"))
+                torch.cuda.synchronize()
+                walls[loop].append(time.perf_counter() - t0)
+                if loop == "deferred":
+                    dispatch.append(deferred.loop_record(result).dispatch_s)
+        wall = {k: statistics.median(v) for k, v in walls.items()}
+        busy = {}
+        for loop in ("deferred", "eager"):
+            model = make()
+            busy[loop] = profiled_device_ms(
+                lambda: et.train(model, data, **dict(kw, show_progress=loop == "eager")), 1) / 1e3
+        log("loop", f"[{card}] {name}: train() wall, median of 3 after a warm call: deferred "
+                    f"{wall['deferred']:.4f} s, eager {wall['eager']:.4f} s "
+                    f"({wall['deferred'] / wall['eager'] - 1:+.1%}); device busy a call "
+                    f"(profiler): deferred {busy['deferred']:.4f} s "
+                    f"({busy['deferred'] / wall['deferred']:.1%} of its wall), eager "
+                    f"{busy['eager']:.4f} s ({busy['eager'] / wall['eager']:.1%}); deferred host "
+                    f"dispatch of the blocks {statistics.median(dispatch):.4f} s")
+        out[name] = dict(wall=wall, busy=busy, dispatch_s=statistics.median(dispatch))
     return out
 
 
@@ -2974,7 +3276,7 @@ def main() -> None:
         result = et.train(model, quick_cols, **TRAIN_KW)
         torch.cuda.synchronize()
         fused_wall = time.perf_counter() - t0
-        epoch_launches = fe.launch_fused_epoch.launches
+        epoch_launches = fe.launch_fused_epoch.launches - halted(result)
     if result.epoch_path != "cuda_fused_epoch" or "exactness gate passed" not in result.engine_reason:
         raise AssertionError(f"train() took {result.epoch_path!r}: {result.engine_reason}")
     expected_launches = TRAIN_KW["nepochs"] // TRAIN_KW.get("eval_every", 1)
@@ -3079,6 +3381,17 @@ def main() -> None:
     multinn_main = multinn_main_path(et, card, mn)
     multinn_ms = multinn_times(et, card, mn)
     log("multinn", f"phases 25-27 added {time.perf_counter() - t0:.1f} s to the run")
+    t0 = time.perf_counter()
+    halt_ms = halted_launch_checks(et, card, quick_cols, wide_train_cols, mn)
+    cells = loop_cells(et, quick_cols, wide_cols, ms_main["data"], lstm_main["cols"], mn)
+    loops = deferred_main_paths(et, card, cells)
+    reference_loops = loops["reference quick-start (phase 7b)"]
+    eager_epochs = len(reference_loops["eager"].val_history) - 1
+    if reference_loops["epochs"] != eager_epochs:
+        raise AssertionError(f"the reference quick-start stopped at epoch "
+                             f"{reference_loops['epochs']} deferred, {eager_epochs} eager")
+    loop_ms = loop_times(et, card, {k: v for k, v in cells.items() if "return_gradients" not in k})
+    log("loop", f"phases 28-30 added {time.perf_counter() - t0:.1f} s to the run")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -3150,6 +3463,10 @@ def main() -> None:
         **bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                 flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
         "library_ms": None,
+        # phase 28: a halted call at the main path's shape (the word set), and the
+        # main path's launches after its early stop, which halted at entry
+        "halted_ms": halt_ms["fused_epoch"]["halted_ms"],
+        "halted_launches": reference["halted"],
     }, {
         "name": "fused_multisite",
         "route": "cuda",
@@ -3164,6 +3481,10 @@ def main() -> None:
         **bound(bytes_moved=ms_times["samples"] * 4 * 5 + MS_SITES * 4 * 6,
                 flops=ms_times["samples"] * 3 * forward_flops(quick_dims)),
         "library_ms": None,
+        # phase 28: a halted call at the main path's shape (the word set), and the
+        # main path's launches after its early stop, which halted at entry
+        "halted_ms": halt_ms["fused_multisite"]["halted_ms"],
+        "halted_launches": ms_main["halted"],
     }, {
         "name": "multisite_primitives",
         "route": "cuda",
@@ -3190,6 +3511,10 @@ def main() -> None:
         **bound(**{k: v * lstm_ms["steps"]
                    for k, v in lstm_step_bound(lstm_ms["batch"], 10).items()}),
         "library_ms": None,  # no single PyTorch call computes the step
+        # phase 28: a halted call at the main path's shape (the word set), and the
+        # main path's launches after its early stop, which halted at entry
+        "halted_ms": halt_ms["fused_epoch_lstm"]["halted_ms"],
+        "halted_launches": lstm_main["halted"],
     }, {
         "name": "fused_wide",
         "route": "cuda",
@@ -3207,6 +3532,10 @@ def main() -> None:
         # no single PyTorch call computes the step: the step's layer products through
         # torch.matmul in float32, a yardstick
         "library_ms": wide_ms["library_ms"],
+        # phase 28: a halted call at the main path's shape (the word set), and the
+        # main path's launches after its early stop, which halted at entry
+        "halted_ms": halt_ms["fused_wide"]["halted_ms"],
+        "halted_launches": wide_main["halted"],
     }, *traced_entries, *loss_entries, {
         "name": "fused_epoch_multinn",
         "route": "cuda",
@@ -3219,6 +3548,10 @@ def main() -> None:
         # one epoch of the ExpoHybrid model: see multinn_times
         **multinn_ms["bound"],
         "library_ms": None,  # no single PyTorch call computes the step
+        # phase 28: a halted call at the main path's shape (the word set), and the
+        # main path's launches after its early stop, which halted at entry
+        "halted_ms": halt_ms["fused_epoch_multinn"]["halted_ms"],
+        "halted_launches": multinn_main["halted"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

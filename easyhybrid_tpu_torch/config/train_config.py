@@ -37,6 +37,8 @@ class TrainConfig:
     nepochs: int = 200
     batchsize: Optional[int] = 64
     optimizer: Any = ("adam", 0.01)
+    # a prebuilt optimizer state (a torch-engine run's TrainResults.opt_state);
+    # it sends the run to the torch engine
     opt_state: Any = None
     # patience counts EVAL SNAPSHOTS without improvement, not raw epochs
     patience: Optional[int] = None
@@ -67,12 +69,16 @@ class TrainConfig:
     # epochs of a block in one launch (trailing nepochs % N epochs are skipped)
     eval_every: int = 1
     inner_maxiters: int = 10
-    jit: bool = True                # no effect: PyTorch runs eagerly
+    # no effect on the arithmetic (PyTorch runs eagerly); False forces the
+    # eager loop, as it does in the JAX package
+    jit: bool = True
     multi_device: bool = False
     mesh: Any = None
     checkpoint_every: int = 1
     checkpoint_format: str = "pickle"
     use_kernel: Any = "auto"
+    # recompute the torch epoch's forward in the backward pass; the fused
+    # kernels ignore it, as the JAX kernels do
     remat: bool = False
 
     def replace(self, **kwargs) -> "TrainConfig":
@@ -103,12 +109,11 @@ _NOT_PORTED_TRAIN = {
     "second_order": (False, "the second-order (linesearch) driver", "item 12"),
     "full_batch": (False, "the second-order driver's full-batch mode", "item 12"),
     "promote_f64": (False, "the second-order driver's float64 mode", "item 12"),
-    "opt_state": (None, "a prebuilt optimizer state", "item 8"),
     "save_training": (False, "checkpoints and metric streams", "item 16"),
     "plotting": (False, "plotting", "item 16"),
-    "return_gradients": (False, "gradient diagnostics", "item 8"),
-    "remat": (False, "rematerialised forwards", "item 8"),
 }
+
+
 def validate_config(cfg: TrainConfig, data_cfg: Optional[DataConfig] = None) -> None:
     """Sanity checks, plus a ``NotImplementedError`` for every field set to
     something the port does not do yet."""

@@ -166,6 +166,7 @@ struct EhFusedEpochArgs {
   int n_nets;                            // networks: 0 (globals only), 1, or a MultiNN model's branches
   EhNet nets[EH_MAX_NETS];
   long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
+  const int* halt;                       // the halt word (eh_halted), or null
 };
 // Packed parameters: [norm scales, norm biases] (n_features each, with a
 // norm: every network's columns); per network, per layer W (dout x din,
@@ -289,6 +290,7 @@ enum { EHE_LOSS_MSE = 0, EHE_LOSS_ROWS, EHE_LOSS_MOMENTS };
 template <int W, int LOSSES, bool MULTI>
 __global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
+  if (eh_halted(a.halt)) return;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster;

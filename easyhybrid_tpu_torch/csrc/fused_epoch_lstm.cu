@@ -167,6 +167,7 @@ struct EhFusedLstmArgs {
   int loss_nse;                          // scale by the target's SST
   int loss_sum;                          // a traced loss summed: scale agg, not agg / n
   EhOptimizer optimizer;                 // the rule and its hyperparameters
+  const int* halt;                       // the halt word (eh_halted), or null
   int threads;                           // of a block: windows x lanes, in whole warps
   int lanes;                             // lanes a window: min(32, width)
   int windows;                           // windows a block holds at once
@@ -383,6 +384,7 @@ __device__ __forceinline__ void ehl_gates(const EhFusedLstmArgs& a, const float*
 template <int HT>
 __global__ void __launch_bounds__(EHL_MAX_THREADS)
 eh_fused_lstm_kernel(const __grid_constant__ EhFusedLstmArgs a) {
+  if (eh_halted(a.halt)) return;
   constexpr int L = HT < 32 ? HT : 32;  // lanes a window
   constexpr int U = HT / L;             // hidden units a lane
   constexpr int WPW = 32 / L;           // windows a warp

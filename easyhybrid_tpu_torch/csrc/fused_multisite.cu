@@ -143,6 +143,7 @@ struct EhFusedMultisiteArgs {
   int r_off_dsc;                         // the bound scaling's derivative
   int r_off_one;                         // a feature that is 1 on every row
   int n_unit_table;                      // gradient units described once a block
+  const int* halt;                       // the halt word (eh_halted), or null
 };
 // Shared parameters: [norm scale, norm bias] (dims[0] each, with a norm);
 // per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l].
@@ -171,6 +172,7 @@ struct EhFusedMultisiteArgs {
 template <int W>
 __global__ void __launch_bounds__(EHM_MAX_THREADS, 2)
 eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
+  if (eh_halted(a.halt)) return;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   const int nth = blockDim.x;  // == a.threads
@@ -496,6 +498,7 @@ __host__ __device__ __forceinline__ int ehm_shared_blocks(int n_shared) {
 // directions into its row of lamb_parts.
 __global__ void __launch_bounds__(256)
 eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, int pass) {
+  if (eh_halted(a.halt)) return;
   const EhOptimizer& o = a.optimizer;
   const int NP = a.n_shared;
   const int S = a.n_sites;

@@ -163,6 +163,7 @@ struct EhFusedWideArgs {
   int dat_split_k[EH_MAX_LAYERS];        //   inner extent of one piece
   int wgt_bm[EH_MAX_LAYERS];             // layer l's weight gradient: tile rows (of dout)
   int wgt_bn[EH_MAX_LAYERS];             //   tile columns (of din); its batch splits above
+  const int* halt;                       // the halt word (eh_halted), or null
 };
 // Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm); per
 // layer W (dout x din, row-major) at p_off_w[l], then b (dout) at p_off_b[l];
@@ -194,6 +195,7 @@ struct EhwProduct {
                        // weight: piece z's partial tile [dW (M x N), db (M)] at z M (N + 1)
   float* da;           // forward: act'(C + b)
   float* out_t;        // forward, data: out again, feature-major (N x M), or null
+  const int* halt;     // the step's halt word (eh_halted), or null
 };
 
 // Finishes the BM x BN output tile at (m0, n0) whose block has left its sums
@@ -414,6 +416,7 @@ __device__ __forceinline__ void ehw_fma_product(const EhwProduct& p) {
 // inputs. Grid (ceil(N / 64), ceil(M / 64), pieces).
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_forward_kernel(const __grid_constant__ EhwProduct p) {
+  if (eh_halted(p.halt)) return;
   ehw_fma_product<true>(p);
 }
 
@@ -421,6 +424,7 @@ eh_wide_forward_kernel(const __grid_constant__ EhwProduct p) {
 // din, K = dout.
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_bwd_data_kernel(const __grid_constant__ EhwProduct p) {
+  if (eh_halted(p.halt)) return;
   ehw_fma_product<false>(p);
 }
 
@@ -429,7 +433,9 @@ eh_wide_bwd_data_kernel(const __grid_constant__ EhwProduct p) {
 // to part[split][dout * din + j]: M = dout, N = din.
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_bwd_weight_kernel(const float* __restrict__ dZ, const float* __restrict__ H,
-                          float* __restrict__ part, int M, int N, int batch, int split_rows) {
+                          float* __restrict__ part, int M, int N, int batch, int split_rows,
+                          const int* halt) {
+  if (eh_halted(halt)) return;
   const int m0 = blockIdx.y * EHW_TILE;
   const int n0 = blockIdx.x * EHW_TILE;
   const int r0 = blockIdx.z * split_rows;
@@ -581,6 +587,7 @@ constexpr size_t eht_smem_bytes() {
 // fit a multiprocessor beside their shared memory.
 template <int BM, int BN>
 __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(const __grid_constant__ EhwProduct p) {
+  if (eh_halted(p.halt)) return;
   constexpr int THREADS = 2 * BM;
   constexpr int GA = BM / 8;
   constexpr int GB = BN / 8;
@@ -758,6 +765,7 @@ static cudaError_t ehw_fma_run(bool forward, const EhwProduct& p, int splits, cu
 // feature); also feature-major where layer 0 is on the tensor cores.
 __global__ void __launch_bounds__(256)
 eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
+  if (eh_halted(a.halt)) return;
   const int F = a.dims[0];
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (int64_t)a.batch * F) return;
@@ -779,6 +787,7 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
 // globals' gradients.
 __global__ void __launch_bounds__(EHW_HEAD_THREADS)
 eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
+  if (eh_halted(a.halt)) return;
   __shared__ float red[EHW_HEAD_THREADS];
   const int tid = threadIdx.x;
   const int r = blockIdx.x * EHW_HEAD_THREADS + tid;
@@ -917,6 +926,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
 // dbias[k] = sum_r d0, in row order.
 __global__ void __launch_bounds__(128)
 eh_wide_norm_grad_kernel(const __grid_constant__ EhFusedWideArgs a) {
+  if (eh_halted(a.halt)) return;
   const int F = a.dims[0];
   const int r0 = blockIdx.x * a.norm_split_rows;
   const int r1 = min(a.batch, r0 + a.norm_split_rows);
@@ -961,6 +971,7 @@ __device__ __forceinline__ bool ehw_weight_tile(const EhFusedWideArgs& a, int b,
 // copy the data gradients read, made at the start of every call.
 __global__ void __launch_bounds__(256)
 eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a) {
+  if (eh_halted(a.halt)) return;
   __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
   int l, j0, k0;
   if (!ehw_weight_tile(a, blockIdx.x, &l, &j0, &k0)) return;
@@ -991,6 +1002,7 @@ eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a) {
 // H100 80GB HBM3 at 700 W).
 __global__ void __launch_bounds__(256, 6)
 eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int tiles, int pass) {
+  if (eh_halted(a.halt)) return;
   const EhOptimizer& o = a.optimizer;
   const int F = a.dims[0];
   const int L = a.n_layers;
@@ -1239,6 +1251,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       p.out = ws + a.ws_off_a[l];
       p.da = ws + a.ws_off_d[l];
       p.out_t = l + 1 < L && a.tc[l + 1] ? ws + a.ws_off_ht[l + 1] : nullptr;
+      p.halt = a.halt;
       EHW_TRY(a.tc[l] ? eht_run(a.fwd_bm[l], p, a.fwd_splits[l], s)
                       : ehw_fma_run(true, p, a.fwd_splits[l], s));
     }
@@ -1260,12 +1273,14 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.split_k = a.split_rows[l];
         p.mode = EHW_WEIGHT;
         p.out = a.partials + a.part_off[l];
+        p.halt = a.halt;
         EHW_TRY(eht_run(a.wgt_bm[l], p, a.splits[l], s));
       } else {
         const float* h = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
         const dim3 wgrid(ehw_ceil_div(din, EHW_TILE), ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
         eh_wide_bwd_weight_kernel<<<wgrid, EHW_THREADS, 0, s>>>(dz, h, a.partials + a.part_off[l],
-                                                                dout, din, B, a.split_rows[l]);
+                                                                dout, din, B, a.split_rows[l],
+                                                                a.halt);
         EHW_TRY(cudaGetLastError());
       }
       if (l > 0 || norm) {  // dZ_prev = (dZ W) * act'_prev in place, and its copy where needed
@@ -1282,6 +1297,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.scale_in_place = l > 0 ? 1 : 0;
         p.out = ws + (l > 0 ? a.ws_off_d[l - 1] : a.ws_off_d0);
         p.out_t = l > 0 && a.tc[l - 1] ? ws + a.ws_off_dt[l - 1] : nullptr;
+        p.halt = a.halt;
         EHW_TRY(a.tc[l] ? eht_run(a.dat_bm[l], p, a.dat_splits[l], s)
                         : ehw_fma_run(false, p, a.dat_splits[l], s));
       }

@@ -24,7 +24,7 @@ from .models.hybrid import MultiNNHybridModel, SingleNNHybridModel
 from .models.nn import MLP, LSTMNet
 from .parallel.multisite import MultiSiteHybridModel, SiteNetworks
 
-__all__ = ["load_jax_params", "export_jax_params"]
+__all__ = ["load_jax_params", "export_jax_params", "jax_branch_of"]
 
 # leaf path → (destination tensor, transform from the JAX array)
 _LeafMap = Dict[str, Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
@@ -168,6 +168,18 @@ def export_jax_params(module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         for branch in module.nns:
             branches.setdefault(branch, {})
     return params, state
+
+
+def jax_branch_of(module) -> Dict[str, str]:
+    """``parameter name -> top-level key of the JAX parameter tree`` (``nn``,
+    ``nns``, ``globals``) for each of ``module.named_parameters()``; a
+    module the JAX layout does not cover keys by its names' first part."""
+    try:
+        want, _ = _leaf_maps(module)
+    except TypeError:
+        want = {}
+    top = {id(t): path.split("/")[0] for path, (t, _) in want.items()}
+    return {name: top.get(id(p), name.split(".")[0]) for name, p in module.named_parameters()}
 
 
 def load_jax_params(module, params, state) -> None:

@@ -44,6 +44,13 @@ Everything works on one packed layout (:class:`FusedEpochPlan`):
 same layout (the permutation gather, the hand-written backward through the
 form's partials, the optax update). On CPU tensors the wrapper computes it;
 on CUDA tensors it launches the kernel or raises. It never falls back.
+
+The halt word: every training kernel (2-5) takes ``halt``, the address of an
+int32 word on the device (the deferred loop's early stopper's ``done``,
+``training/deferred.py``), and returns at entry when it is set, so a launch
+queued after the stop gives back its inputs. None (the eager loop, the
+gate) never halts. The plain versions obey the same word
+(:func:`obey_halt`): where it is set, the inputs and a loss of 0.
 :func:`fused_exactness_check` (the port of the JAX gate) holds the kernel
 against the torch epoch before ``train()`` trusts it.
 """
@@ -93,6 +100,7 @@ __all__ = [
     "init_fused_opt_state",
     "launch_fused_epoch",
     "make_fused_epoch",
+    "obey_halt",
     "supports_fused_epoch",
 ]
 
@@ -503,6 +511,7 @@ class _Args(ctypes.Structure):
         ("n_nets", ctypes.c_int),
         ("nets", _Net * MAX_NETS),
         ("stamps", ctypes.c_void_p),
+        ("halt", ctypes.c_void_p),
     ]
 
 
@@ -1357,12 +1366,38 @@ def _reference_update(plan, p, slots, t, g, valid):
             {k: torch.where(valid, new[k], slots[k]) for k in slots}, t_new)
 
 
+def obey_halt(halt, packed: FusedParams, opt_state, new):
+    """A plain version's result ``new = (packed, opt_state, loss)`` under
+    the halt word: where ``halt`` is set, the inputs ``packed`` and
+    ``opt_state`` and a loss of 0, as a halted launch gives them; ``new``
+    itself where ``halt`` is None. Nothing waits for the device."""
+    if halt is None:
+        return new
+    frozen = halt != 0
+    p, o, loss = new
+    return (FusedParams(torch.where(frozen, packed.params, p.params),
+                        torch.where(frozen, packed.bn, p.bn)),
+            {k: torch.where(frozen, opt_state[k], v) for k, v in o.items()},
+            torch.where(frozen, torch.zeros_like(loss), loss))
+
+
+def check_halt(halt, device) -> Optional[int]:
+    """The address of a halt word for a launch on ``device`` (None: no word)."""
+    if halt is None:
+        return None
+    if halt.dtype != torch.int32 or halt.numel() != 1 or halt.device != device:
+        raise ValueError(f"the halt word must be one int32 on {device}; got {halt.dtype} "
+                         f"{tuple(halt.shape)} on {halt.device}")
+    return halt.data_ptr()
+
+
 def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
-                          rows: torch.Tensor):
+                          rows: torch.Tensor, halt=None):
     """The plain PyTorch version of the kernel: ``rows.shape[0]`` epochs of
     ``data.n_batches`` steps over the rows ``rows[e, i·B : (i+1)·B]``.
     Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
-    mean batch loss (empty batches count 0)."""
+    mean batch loss (empty batches count 0). ``halt``: :func:`obey_halt`."""
+    packed0, opt0 = packed, opt_state
     p, bn = packed.params, packed.bn
     slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
@@ -1382,7 +1417,7 @@ def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, 
             bn = torch.where(valid, new_bn, bn)
             epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
     new_state = {**slots, "t": t.round().to(torch.int32)}
-    return FusedParams(p, bn), new_state, epoch_loss / nb
+    return obey_halt(halt, packed0, opt0, (FusedParams(p, bn), new_state, epoch_loss / nb))
 
 
 # --------------------------------------------------------------------------
@@ -1408,13 +1443,15 @@ def kernel_source(plan: FusedEpochPlan) -> str:
 
 
 def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
-                       rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None) -> None:
+                       rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None,
+                       halt=None) -> None:
     """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the launch is refused. Counts launches in
     ``launch_fused_epoch.launches``. ``lib`` is a measuring build of the
     kernel (:func:`stage_cycles`) in place of the package's library, and
-    ``stamps`` the int64 tensor its stage cycles go to."""
+    ``stamps`` the int64 tensor its stage cycles go to. ``halt`` is the halt
+    word (see the module docstring): a halted launch writes nothing."""
     measuring = lib is not None  # not a launch of the package's kernel: not counted
     source = kernel_source(plan)
     lib = lib or _build.kernel_library(source, plan.form, plan.loss_form)
@@ -1444,6 +1481,7 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a.tile_rows, a.stages, a.cluster = geometry.tile, geometry.stages, geometry.cluster
     a.block_rows, a.moments_shared = geometry.block_rows, geometry.moments_shared
     a.stamps = stamps.data_ptr() if stamps is not None else None
+    a.halt = check_halt(halt, data.x.device)
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
         rc = getattr(lib, entry)(ctypes.byref(a), plan.width, stream)
@@ -1494,6 +1532,9 @@ class FusedEpoch:
     A model is packed before the run and written back after it; packed
     parameters (:class:`FusedParams`) are returned as new tensors.
 
+    ``halt`` is the halt word (see the module docstring): a call whose word
+    is set returns its inputs (new tensors) and a loss of 0.
+
     A subclass for another kernel names its own plan, data layout, plain
     version and launcher."""
 
@@ -1517,7 +1558,7 @@ class FusedEpoch:
                          tensors.weight.device)
 
     def __call__(self, model_or_packed, opt_state, tensors: EpochTensors, perms=None,
-                 generator=None):
+                 generator=None, halt=None):
         plan = self.plan
         model = None if isinstance(model_or_packed, FusedParams) else model_or_packed
         packed = plan.pack(model) if model is not None else model_or_packed
@@ -1529,12 +1570,14 @@ class FusedEpoch:
             if t.device != dev:
                 raise ValueError(f"the {name} are on {t.device}, the data on {dev}")
         if dev.type == "cpu":
-            packed, opt_state, loss = self._reference(plan, packed, opt_state, data, rows)
+            packed, opt_state, loss = self._reference(plan, packed, opt_state, data, rows, halt)
         elif dev.type == "cuda":
             packed = FusedParams(packed.params.clone(), packed.bn.clone())
             opt_state = {k: v.clone() for k, v in opt_state.items()}
-            loss = torch.empty((1,), dtype=torch.float32, device=dev)
-            self._launch(plan, packed, opt_state, data, rows, loss)
+            # a halted launch leaves the loss as it finds it
+            loss = (torch.empty if halt is None else torch.zeros)((1,), dtype=torch.float32,
+                                                                  device=dev)
+            self._launch(plan, packed, opt_state, data, rows, loss, halt=halt)
             loss = loss[0]
         else:
             raise ValueError(f"the fused epoch runs on CUDA or CPU tensors; got {dev}")
@@ -1544,10 +1587,10 @@ class FusedEpoch:
         return packed, opt_state, loss
 
     def reference(self, packed: FusedParams, opt_state, tensors: EpochTensors, perms=None,
-                  generator=None):
+                  generator=None, halt=None):
         """The plain version on the tensors' device (no launch)."""
         return self._reference(self.plan, packed, opt_state, self._make_data(self.plan, tensors),
-                               self.rows(tensors, perms, generator))
+                               self.rows(tensors, perms, generator), halt)
 
 
 def make_fused_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,

@@ -66,6 +66,8 @@ from .fused_epoch import (
     _act_and_grad,
     _Optimizer,
     _reference_update,
+    check_halt,
+    obey_halt,
     fill_common_args,
     form_args,
     opt_slots,
@@ -311,6 +313,7 @@ class _Args(ctypes.Structure):
         ("loss_nse", ctypes.c_int),
         ("loss_sum", ctypes.c_int),
         ("optimizer", _Optimizer),
+        ("halt", ctypes.c_void_p),
         ("threads", ctypes.c_int),
         ("lanes", ctypes.c_int),
         ("windows", ctypes.c_int),
@@ -636,11 +639,12 @@ def lstm_reference_grads(plan: FusedLSTMPlan, p, bn, consts, x, forcing, y, mask
 
 
 def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
-                         data: FusedLSTMData, rows: torch.Tensor):
+                         data: FusedLSTMData, rows: torch.Tensor, halt=None):
     """The plain PyTorch version of the kernel: ``rows.shape[0]`` epochs of
     ``data.n_batches`` steps over the windows ``rows[e, i·B : (i+1)·B]``.
     Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
-    mean batch loss (empty batches count 0)."""
+    mean batch loss (empty batches count 0). ``halt``: ``obey_halt``."""
+    packed0, opt0 = packed, opt_state
     p, bn = packed.params, packed.bn
     slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
@@ -658,7 +662,7 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
             p, slots, t = _reference_update(plan, p, slots, t, g, valid)
             epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
     new_state = {**slots, "t": t.round().to(torch.int32)}
-    return FusedParams(p, bn), new_state, epoch_loss / nb
+    return obey_halt(halt, packed0, opt0, (FusedParams(p, bn), new_state, epoch_loss / nb))
 
 
 # --------------------------------------------------------------------------
@@ -666,13 +670,14 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
 # --------------------------------------------------------------------------
 
 def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: FusedLSTMData,
-                      rows: torch.Tensor, loss: torch.Tensor, *, lib=None) -> None:
+                      rows: torch.Tensor, loss: torch.Tensor, *, lib=None, halt=None) -> None:
     """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the window does not fit or the launch is refused.
     Counts launches in ``launch_fused_lstm.launches``. ``lib`` is a
     measuring build of the kernel (``_build.measuring_library``) in place of the
-    package's library; its launches are not counted."""
+    package's library; its launches are not counted. ``halt`` is the halt
+    word (``ops/fused_epoch.py``): a halted launch writes nothing."""
     steps, out_steps = data.x.shape[1], data.y[0].shape[1]
     if plan.sizes.tile_rows(steps, out_steps) is None:
         raise ValueError(f"a window of {steps} steps at hidden size {plan.hidden} does not fit "
@@ -704,6 +709,7 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
     a.threads, a.lanes, a.windows = geometry.threads, geometry.lanes, geometry.windows
     a.cluster, a.tiles, a.stages = geometry.cluster, geometry.tiles, geometry.stages
     a.res_floats = plan.sizes.pair_features()
+    a.halt = check_halt(halt, data.x.device)
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
         rc = lib.eh_fused_lstm(ctypes.byref(a), plan.width, stream)

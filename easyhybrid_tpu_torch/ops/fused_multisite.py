@@ -64,6 +64,8 @@ from .fused_epoch import (
     _loss_name,
     _Optimizer,
     _reference_update,
+    check_halt,
+    obey_halt,
     build_plan,
     fill_common_args,
     form_args,
@@ -269,6 +271,7 @@ class _Args(ctypes.Structure):
         ("r_off_dsc", ctypes.c_int),
         ("r_off_one", ctypes.c_int),
         ("n_unit_table", ctypes.c_int),
+        ("halt", ctypes.c_void_p),
     ]
 
 
@@ -544,12 +547,13 @@ def rmse_deferred(g, sse, inv_n):
 
 
 def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state,
-                              data: MultisiteData, index: torch.Tensor, scale, valid):
+                              data: MultisiteData, index: torch.Tensor, scale, valid, halt=None):
     """The plain PyTorch version of the kernel: ``index.shape[0]`` epochs of
     ``data.n_batches`` steps over the sites ``index[e, b]``, with the loss
     scales and validity flags of :func:`batch_scales`. Returns ``(packed,
     opt_state, mean_loss)``; the loss is the last epoch's mean batch loss
-    (a batch without valid targets counts 0)."""
+    (a batch without valid targets counts 0). ``halt``: ``obey_halt``."""
+    packed0, opt0 = packed, opt_state
     p, bn = packed.params, packed.bn
     slots = opt_slots(opt_state)
     t = opt_state["t"].to(torch.float32)
@@ -566,7 +570,8 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
             p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
     new_state = {**slots, "t": t.round().to(torch.int32)}
-    return FusedParams(p, bn), new_state, epoch_loss / data.n_batches
+    return obey_halt(halt, packed0, opt0, (FusedParams(p, bn), new_state,
+                                           epoch_loss / data.n_batches))
 
 
 # --------------------------------------------------------------------------
@@ -577,7 +582,7 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
                            data: MultisiteData, index: torch.Tensor, scale, valid,
                            epoch_loss: torch.Tensor, *, lib=None, stamps=None,
                            target_blocks: int = _TARGET_BLOCKS,
-                           max_threads: int = _MAX_THREADS) -> None:
+                           max_threads: int = _MAX_THREADS, halt=None) -> None:
     """Enqueue every step of ``index`` (``(epochs, num_batches, batch)``)
     with one call of the C launcher, updating ``packed`` and ``opt_state``
     in place and adding each epoch's valid batch losses into ``epoch_loss``
@@ -586,7 +591,9 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     kernel (``_build.measuring_library``) in place of the package's library,
     whose launches are not counted, and ``stamps`` the int64 tensor its stage
     cycles go to; ``target_blocks`` and ``max_threads`` go to
-    :func:`multisite_geometry`."""
+    :func:`multisite_geometry`. ``halt`` is the halt word
+    (``ops/fused_epoch.py``): both kernels of a halted call return at entry,
+    and the step count stays."""
     measuring = lib is not None
     lib = lib or _build.kernel_library("fused_multisite.cu", plan.form, plan.loss_form)
     if lib.eh_fused_multisite_args_size() != ctypes.sizeof(_Args):
@@ -627,13 +634,17 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     a.n_obs, a.n_epochs, a.n_batches, a.batch = n_obs, epochs, nb, batch
     a.threads, a.tile_sites, a.site_tiles = geo.threads, geo.tile_sites, geo.site_tiles
     a.sites_per_block, a.n_blocks = geo.sites_per_block, geo.blocks
+    a.halt = check_halt(halt, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.eh_fused_multisite(ctypes.byref(a), plan.width, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused multisite kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    opt_state["t"].copy_(tcount[-1:].round().to(torch.int32))
+    t = tcount[-1:].round().to(torch.int32)
+    if halt is not None:
+        t = torch.where(halt != 0, opt_state["t"], t)
+    opt_state["t"].copy_(t)
     if not measuring:
         launch_fused_multisite.launches += 1
 
@@ -714,7 +725,7 @@ class FusedMultisiteEpoch:
         return data, index, scale, valid
 
     def __call__(self, model_or_packed, opt_state, tensors: EpochTensors, perms=None,
-                 generator=None):
+                 generator=None, halt=None):
         plan = self.plan
         model = None if isinstance(model_or_packed, FusedParams) else model_or_packed
         packed = plan.pack(model) if model is not None else model_or_packed
@@ -726,13 +737,13 @@ class FusedMultisiteEpoch:
         data, index, scale, valid = self.inputs(tensors, perms, generator)
         if dev.type == "cpu":
             packed, opt_state, loss = fused_multisite_reference(
-                plan, packed, opt_state, data, index, scale, valid)
+                plan, packed, opt_state, data, index, scale, valid, halt)
         elif dev.type == "cuda":
             packed = FusedParams(packed.params.clone(), packed.bn.clone())
             opt_state = {k: v.clone() for k, v in opt_state.items()}
             epoch_loss = torch.zeros((self.epochs,), dtype=torch.float32, device=dev)
             launch_fused_multisite(plan, packed, opt_state, data, index, scale, valid, epoch_loss,
-                                   **self.aim)
+                                   halt=halt, **self.aim)
             loss = epoch_loss[-1] / data.n_batches
         else:
             raise ValueError(f"the fused multisite epoch runs on CUDA or CPU tensors; got {dev}")
@@ -742,10 +753,10 @@ class FusedMultisiteEpoch:
         return packed, opt_state, loss
 
     def reference(self, packed: FusedParams, opt_state, tensors: EpochTensors, perms=None,
-                  generator=None):
+                  generator=None, halt=None):
         """The plain version on the tensors' device (no kernel-5 launch)."""
         return fused_multisite_reference(self.plan, packed, opt_state,
-                                         *self.inputs(tensors, perms, generator))
+                                         *self.inputs(tensors, perms, generator), halt)
 
 
 def make_fused_multisite_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,

@@ -57,6 +57,8 @@ from .fused_epoch import (
     PackedLayout,
     _Optimizer,
     _reference_update,
+    check_halt,
+    obey_halt,
     fill_common_args,
     fused_data,
     opt_slots,
@@ -443,6 +445,7 @@ class _Args(ctypes.Structure):
         ("dat_split_k", ctypes.c_int * MAX_LAYERS),
         ("wgt_bm", ctypes.c_int * MAX_LAYERS),
         ("wgt_bn", ctypes.c_int * MAX_LAYERS),
+        ("halt", ctypes.c_void_p),
     ]
 
 
@@ -540,13 +543,15 @@ def batch_scales(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor):
 
 
 def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
-                         rows: torch.Tensor):
+                         rows: torch.Tensor, halt=None):
     """The plain PyTorch version of the kernels: ``rows.shape[0]`` epochs of
     ``data.n_batches`` steps over the rows ``rows[e, i·B : (i+1)·B]``, each
     the whole batch's forward, the cotangent with the loss scales of
     :func:`batch_scales`, the hand-written backward and the gated update.
     Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
-    mean batch loss (a batch without valid targets counts 0)."""
+    mean batch loss (a batch without valid targets counts 0). ``halt``:
+    ``obey_halt``."""
+    packed0, opt0 = packed, opt_state
     scale, valid = batch_scales(plan, data, rows)
     p, bn = packed.params, packed.bn
     slots = opt_slots(opt_state)
@@ -567,7 +572,7 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
             p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
     new_state = {**slots, "t": t.round().to(torch.int32)}
-    return FusedParams(p, bn), new_state, epoch_loss / nb
+    return obey_halt(halt, packed0, opt0, (FusedParams(p, bn), new_state, epoch_loss / nb))
 
 
 # --------------------------------------------------------------------------
@@ -600,11 +605,13 @@ def update_blocks(plan: FusedWidePlan, lay: WideLayout) -> int:
 
 
 def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
-                      rows: torch.Tensor, loss: torch.Tensor) -> None:
+                      rows: torch.Tensor, loss: torch.Tensor, *, halt=None) -> None:
     """Enqueue every step of ``rows`` (``(epochs, num_batches · batch)``)
     with one call of the C launcher, updating ``packed`` and ``opt_state`` in
     place and writing the last epoch's mean batch loss into ``loss``; raises
-    if a launch is refused. Counts calls in ``launch_fused_wide.launches``."""
+    if a launch is refused. Counts calls in ``launch_fused_wide.launches``.
+    ``halt`` is the halt word (``ops/fused_epoch.py``): every kernel of a
+    halted call returns at entry, and the step count and loss stay."""
     lib = _build.kernel_library("fused_wide.cu", plan.form, plan.loss_form)
     if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
@@ -650,6 +657,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.norm_splits, a.norm_split_rows = lay.norm_splits, lay.norm_split_rows
     a.head_blocks = lay.head_blocks
     fill_geometry(a, lay)
+    a.halt = check_halt(halt, dev)
     if plan.opt_name == "lamb":  # a row of leaf norms per update block (eh_wide_update_kernel)
         lamb_parts = torch.empty((update_blocks(plan, lay), 2 * a.optimizer.n_leaves),
                                  dtype=torch.float32, device=dev)
@@ -660,7 +668,10 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     if rc != 0:
         raise RuntimeError(
             f"wide fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    opt_state["t"].copy_(tcount[-1:].round().to(torch.int32))
+    t = tcount[-1:].round().to(torch.int32)
+    if halt is not None:
+        t = torch.where(halt != 0, opt_state["t"], t)
+    opt_state["t"].copy_(t)
     loss.copy_(epoch_loss[-1:] / data.n_batches)
     launch_fused_wide.launches += 1
 

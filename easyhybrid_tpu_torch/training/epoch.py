@@ -17,6 +17,15 @@ forward plus an optax-formula update (``training/optimizers.py``).
   optimizer state and the BatchNorm running statistics unchanged and adds
   0 to the epoch loss. It selects with ``torch.where`` on a device flag,
   so it never waits for the device.
+* ``remat=True`` runs each step's loss under
+  ``torch.utils.checkpoint.checkpoint`` (non-reentrant): the backward pass
+  recomputes the forward instead of keeping its activations. The recompute
+  runs a trainable BatchNorm's training forward again, so the running
+  statistics its first forward left are put back after the backward: they
+  move once a step, and the results equal ``remat=False`` bit for bit.
+* :func:`make_grad_probe` is ``return_gradients``' probe: the gradient of
+  the training loss in train mode over a whole split, which leaves every
+  buffer of the model as it was.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.loaders import EpochTensors
 from ..losses.compute import compute_loss
@@ -40,6 +50,8 @@ __all__ = [
     "make_evaluator",
     "make_dual_evaluator",
     "make_loss_fn",
+    "make_grad_probe",
+    "select_state",
 ]
 
 
@@ -162,13 +174,15 @@ def make_train_epoch(
     shuffle: Any = True,
     epochs_per_call: int = 1,
     skip_empty_guard: bool = False,
+    remat: bool = False,
 ) -> Callable:
     """Build ``epoch_fn(opt_state, tensors, generator=None, perm=None) ->
     (opt_state, mean_batch_loss)``, which trains ``model`` in place.
 
     ``tensors`` is an :class:`EpochTensors` of torch tensors on the model's
     device. ``epochs_per_call > 1`` runs that many (re-shuffled) epochs and
-    returns the last epoch's mean batch loss."""
+    returns the last epoch's mean batch loss. ``remat`` recomputes each
+    step's forward in its backward pass (see the module docstring)."""
     train_logging = _train_logging(logging, True)
     epochs = max(1, int(epochs_per_call))
 
@@ -189,9 +203,17 @@ def make_train_epoch(
             guard = not skip_empty_guard and bool(tensors.mask)
             if guard:
                 old_buffers = {k: b.detach().clone() for k, b in buffers.items()}
-            loss = compute_loss(model, batch, train_logging)
+            if remat:
+                loss = checkpoint(compute_loss, model, batch, train_logging, use_reentrant=False)
+                after_forward = {k: b.detach().clone() for k, b in buffers.items()}
+            else:
+                loss = compute_loss(model, batch, train_logging)
             grads = torch.autograd.grad(
                 loss, [params[k] for k in names], allow_unused=True)
+            if remat:  # the recompute moved the running statistics a second time
+                with torch.no_grad():
+                    for k, b in buffers.items():
+                        b.copy_(after_forward[k])
             grads = {k: (g if g is not None else torch.zeros_like(params[k]))
                      for k, g in zip(names, grads)}
             with torch.no_grad():
@@ -201,7 +223,7 @@ def make_train_epoch(
                     valid = sum(m.sum() for m in batch[1][1].values()) > 0
                     for k, p in params.items():
                         p.copy_(torch.where(valid, p + updates[k], p))
-                    opt_state = _select(valid, new_state, opt_state)
+                    opt_state = select_state(valid, new_state, opt_state)
                     for k, b in buffers.items():
                         b.copy_(torch.where(valid, b, old_buffers[k]))
                     loss = torch.where(valid, loss, torch.zeros_like(loss))
@@ -222,10 +244,11 @@ def make_train_epoch(
     return epoch_fn
 
 
-def _select(valid, new, old):
+def select_state(cond, new, old):
+    """``torch.where(cond, new, old)`` over a (nested) dict of tensors."""
     if isinstance(new, dict):
-        return {k: _select(valid, v, old[k]) for k, v in new.items()}
-    return torch.where(valid, new, old)
+        return {k: select_state(cond, v, old[k]) for k, v in new.items()}
+    return torch.where(cond, new, old)
 
 
 def make_evaluator(model, logging: LoggingLoss, *, with_outputs: bool = False) -> Callable:
@@ -258,3 +281,30 @@ def make_loss_fn(model, logging: LoggingLoss) -> Callable:
         return compute_loss(model, batch, train_logging)
 
     return loss_fn
+
+
+def make_grad_probe(model, logging: LoggingLoss) -> Callable:
+    """``probe(batch) -> {name: gradient}``: the gradient of the training
+    loss in train mode over ``batch`` (a whole split) at the model's current
+    parameters, keyed like ``model.named_parameters()`` (zeros for a leaf
+    the loss does not reach). The training forward moves a trainable
+    BatchNorm's running statistics; the probe puts every buffer back, bit
+    for bit, and the module's mode too."""
+    train_logging = _train_logging(logging, True)
+
+    def probe(batch):
+        was_training = model.training
+        buffers = dict(model.named_buffers())
+        saved = {k: b.detach().clone() for k, b in buffers.items()}
+        params = dict(model.named_parameters())
+        names = list(params)
+        loss = compute_loss(model, batch, train_logging)
+        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+        with torch.no_grad():
+            for k, b in buffers.items():
+                b.copy_(saved[k])
+        model.train(was_training)
+        return {k: (g if g is not None else torch.zeros_like(params[k])).detach()
+                for k, g in zip(names, grads)}
+
+    return probe

@@ -21,15 +21,18 @@ class EpochSnapshot:
     y_hat_val: Optional[Dict[str, Any]] = None
 
 
+def monitored_metric(names, metric: Optional[str] = None) -> str:
+    """The metric early stopping reads among ``names``: ``metric`` BY NAME;
+    the first entry only when the name is absent (as the JAX package does)."""
+    names = list(names)
+    return metric if metric is not None and metric in names else names[0]
+
+
 def _agg_loss(
     metrics: Dict[str, Dict[str, float]], agg_name: str, metric: Optional[str] = None
 ) -> float:
-    """Aggregated scalar of the monitored metric, looked up BY NAME; the
-    first entry only when the name is absent (as the JAX package does)."""
-    if metric is not None and metric in metrics:
-        return float(metrics[metric][agg_name])
-    first = next(iter(metrics.values()))
-    return float(first[agg_name])
+    """Aggregated scalar of the monitored metric (:func:`monitored_metric`)."""
+    return float(metrics[monitored_metric(metrics, metric)][agg_name])
 
 
 @dataclasses.dataclass

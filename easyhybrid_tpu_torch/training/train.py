@@ -25,8 +25,21 @@ The epoch engine is chosen once (``TrainResults.epoch_path``):
 * ``"torch"``: the torch epoch (``training/epoch.py``).
 
 ``TrainResults.engine_reason`` says why, in the JAX package's wording where
-it applies. The loop is always the eager one (``loop_mode == "eager"``);
-the JAX package's zero-readback deferred loop is not ported yet.
+it applies, and ends with the loop (``TrainResults.loop_mode``):
+
+* ``"deferred"`` (``"; zero-readback"``) whenever nothing needs host values
+  in the middle of the run (``training/deferred.py``: early stopping on the
+  device, one fetch at the end);
+* ``"eager"`` (``"; eager loop forced by <settings>"``) under
+  ``show_progress=True``, ``jit=False`` or a ``keep_history`` too large for
+  device buffers: the metrics come to the host after every block and the
+  host decides whether to go on.
+
+Both loops give the same results, bit for bit on the same engine.
+``return_gradients`` adds the gradient norms to every snapshot
+(``grad_history``) and the gradient at the returned parameters
+(``final_grads``); a prebuilt ``opt_state`` runs the torch engine; ``remat``
+recomputes the torch epoch's forward in its backward pass.
 """
 
 from __future__ import annotations
@@ -43,13 +56,14 @@ from ..config.train_config import DataConfig, TrainConfig, TrainResults, validat
 from ..data.loaders import build_epoch_tensors
 from ..data.prepare import HybridData
 from ..data.split import merged_sequence_kwargs, split_data
+from ..interop import jax_branch_of
 from ..losses.specs import LoggingLoss
 from ..ops._build import nvcc_seconds
-from ..ops.fused_epoch import fused_engine, fused_exactness_check, init_fused_opt_state
-from ..params import scale_param
+from ..ops.fused_epoch import FusedParams, fused_engine, fused_exactness_check, init_fused_opt_state
+from . import deferred
 from .early_stopping import EarlyStopping
-from .epoch import (can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_train_epoch,
-                    map_x)
+from .epoch import (can_skip_empty_guard, epoch_tensors_to, make_dual_evaluator, make_grad_probe,
+                    make_train_epoch, map_x, select_state)
 from .history import EpochSnapshot, TrainingHistory
 from .optimizers import parse_opt_spec, resolve_optimizer
 
@@ -153,16 +167,6 @@ def _full_batch(data: HybridData, device):
     )
 
 
-def _host_metrics(metrics) -> Dict[str, Dict[str, float]]:
-    """Nested metric tensors → floats, in one device-to-host copy."""
-    keys = [(m, t) for m, entry in metrics.items() for t in entry]
-    values = torch.stack([torch.as_tensor(metrics[m][t]).reshape(()) for m, t in keys])
-    out: Dict[str, Dict[str, float]] = {}
-    for (m, t), v in zip(keys, values.cpu().tolist()):
-        out.setdefault(m, {})[t] = float(v)
-    return out
-
-
 def _outputs_to_host(outputs, n: int):
     def host(v):
         arr = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
@@ -223,6 +227,8 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
     if use_kernel is not True and device.type != "cuda":
         return False, (f"the model is on {device.type!r}, not cuda "
                        "(use_kernel=True overrides)")
+    if cfg.opt_state is not None:
+        return False, "prebuilt opt_state (the fused kernel carries its own)"
     engine = fused_engine(model)
     shuffle = cfg.shuffle_each_epoch
     args = (model, cfg.optimizer, logging_loss, tensors)
@@ -250,6 +256,81 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
         log.warning("use_kernel was requested but the runtime exactness gate FAILED "
                     "(max grad diff %.2e): running the torch epoch", gdiff)
     return False, f"runtime exactness gate FAILED (max grad diff {gdiff:.2e})"
+
+
+class _TorchRun:
+    """The torch engine as the loops drive it: ``block(halt)`` trains
+    ``eval_every`` epochs in place; with a halt word it keeps the model's
+    leaves, buffers and optimizer slots as they were where the word is set.
+    ``kept()`` are the tensors whose best values the device stopper keeps."""
+
+    epoch_path = "torch"
+
+    def __init__(self, model, cfg, logging_loss, tensors, generator, eval_every, skip_empty_guard):
+        optimizer = resolve_optimizer(cfg.optimizer)
+        self.model, self.tensors, self.generator = model, tensors, generator
+        if cfg.opt_state is not None:
+            self.opt_state = _opt_state_to(cfg.opt_state, model.device)
+        else:
+            self.opt_state = optimizer.init({k: p.detach() for k, p in model.named_parameters()})
+        self.epoch = make_train_epoch(model, logging_loss, optimizer,
+                                      shuffle=cfg.shuffle_each_epoch, epochs_per_call=eval_every,
+                                      skip_empty_guard=skip_empty_guard, remat=cfg.remat)
+
+    def kept(self) -> Dict[str, torch.Tensor]:
+        return {**{k: p.detach() for k, p in self.model.named_parameters()},
+                **{k: b.detach() for k, b in self.model.named_buffers()}}
+
+    def block(self, halt=None) -> None:
+        if halt is None:
+            self.opt_state, _ = self.epoch(self.opt_state, self.tensors, generator=self.generator)
+            return
+        old = {k: t.clone() for k, t in self.kept().items()}
+        old_opt = self.opt_state  # the update makes new tensors
+        self.opt_state, _ = self.epoch(self.opt_state, self.tensors, generator=self.generator)
+        frozen = halt != 0
+        with torch.no_grad():
+            for k, t in self.kept().items():
+                t.copy_(torch.where(frozen, old[k], t))
+        self.opt_state = select_state(frozen, old_opt, self.opt_state)
+
+    def restore(self, kept) -> None:
+        with torch.no_grad():
+            for k, t in self.kept().items():
+                t.copy_(kept[k])
+
+
+class _FusedRun:
+    """A fused engine as the loops drive it: each block is one call of its
+    epoch function on the packed parameters (one launch, or one call of its
+    launcher), written back into the model; the halt word goes to the kernel.
+    The device stopper keeps the packed buffers."""
+
+    def __init__(self, engine, model, cfg, logging_loss, tensors, generator, eval_every):
+        self.epoch_path = engine.epoch_path
+        self.model, self.tensors, self.generator = model, tensors, generator
+        self.fn = engine.make_epoch(model, cfg.optimizer, logging_loss,
+                                    shuffle=cfg.shuffle_each_epoch, epochs_per_call=eval_every)
+        self.packed = self.fn.plan.pack(model)
+        self.opt_state = init_fused_opt_state(self.packed, cfg.optimizer)
+
+    def kept(self) -> Dict[str, torch.Tensor]:
+        return {"params": self.packed.params, "bn": self.packed.bn}
+
+    def block(self, halt=None) -> None:
+        self.packed, self.opt_state, _ = self.fn(self.packed, self.opt_state, self.tensors,
+                                                 generator=self.generator, halt=halt)
+        self.fn.plan.unpack(self.packed, self.model)
+
+    def restore(self, kept) -> None:
+        self.fn.plan.unpack(FusedParams(kept["params"], kept["bn"]), self.model)
+
+
+def _opt_state_to(opt_state, device):
+    """A copy of a prebuilt (nested) optimizer state on ``device``."""
+    if isinstance(opt_state, Mapping):
+        return {k: _opt_state_to(v, device) for k, v in opt_state.items()}
+    return torch.as_tensor(opt_state).detach().clone().to(device)
 
 
 def train(
@@ -300,48 +381,30 @@ def train(
     eval_every = max(1, int(cfg.eval_every))
     fused, reason = _select_engine(model, cfg, logging_loss, train_tensors, eval_every)
     generator = torch.Generator(device=device).manual_seed(int(cfg.random_seed))
-
     if fused:
-        engine = fused_engine(model)
-        epoch_path = engine.epoch_path
-        kernel_epoch = engine.make_epoch(model, cfg.optimizer, logging_loss,
-                                         shuffle=cfg.shuffle_each_epoch,
-                                         epochs_per_call=eval_every)
-        packed = kernel_epoch.plan.pack(model)
-        opt_state = init_fused_opt_state(packed, cfg.optimizer)
-
-        def run_block():
-            nonlocal packed, opt_state
-            packed, opt_state, _ = kernel_epoch(packed, opt_state, train_tensors,
-                                                generator=generator)
-            kernel_epoch.plan.unpack(packed, model)
+        run = _FusedRun(fused_engine(model), model, cfg, logging_loss, train_tensors, generator,
+                        eval_every)
     else:
-        epoch_path = "torch"
-        optimizer = resolve_optimizer(cfg.optimizer)
-        opt_state = optimizer.init({k: p.detach() for k, p in model.named_parameters()})
-        torch_epoch = make_train_epoch(model, logging_loss, optimizer,
-                                       shuffle=cfg.shuffle_each_epoch,
-                                       epochs_per_call=eval_every,
-                                       skip_empty_guard=skip_empty_guard)
+        run = _TorchRun(model, cfg, logging_loss, train_tensors, generator, eval_every,
+                        skip_empty_guard)
+    epoch_path = run.epoch_path
 
-        def run_block():
-            nonlocal opt_state
-            opt_state, _ = torch_epoch(opt_state, train_tensors, generator=generator)
+    blockers = deferred.defer_blockers(cfg, n_samples=train_data.n_samples + val_data.n_samples)
+    loop_mode = "eager" if blockers else "deferred"
+    loop_reason = "eager loop forced by " + ", ".join(blockers) if blockers else "zero-readback"
+    engine_reason = f"{epoch_path}: {reason}; {loop_reason}"
+    if blockers:
+        log.info("epoch engine: %s (eager loop: %s need mid-run host values; unset for the "
+                 "zero-readback loop)", epoch_path, ", ".join(blockers))
+    else:
+        log.info("epoch engine: %s (deferred loop)", epoch_path)
 
-    engine_reason = (f"{epoch_path}: {reason}; eager loop (the deferred loop is not "
-                     "ported yet)")
-    log.info("epoch engine: %s", engine_reason)
-
-    want_outputs = bool(cfg.keep_history or cfg.monitor_names)
-    evaluator = make_dual_evaluator(model, logging_loss)
-
-    def snapshot_now() -> EpochSnapshot:
-        (m_tr, out_tr), (m_va, out_va) = evaluator(train_eval_batch, val_eval_batch)
-        snap = EpochSnapshot(_host_metrics(m_tr), _host_metrics(m_va))
-        if want_outputs:
-            snap.y_hat_train = _outputs_to_host(out_tr, train_data.n_samples)
-            snap.y_hat_val = _outputs_to_host(out_va, val_data.n_samples)
-        return snap
+    grad_probe = make_grad_probe(model, logging_loss) if cfg.return_gradients else None
+    rows = deferred.SnapshotRow(
+        model=model, evaluator=make_dual_evaluator(model, logging_loss),
+        train_batch=train_eval_batch, val_batch=val_eval_batch, cfg=cfg,
+        n_val=val_data.n_samples, grad_probe=grad_probe, branch_of=jax_branch_of(model),
+    )
 
     def params_now():
         return {k: p.detach() for k, p in model.named_parameters()}
@@ -349,77 +412,41 @@ def train(
     def state_now():
         return {k: b.detach() for k, b in model.named_buffers()}
 
-    def tracked_values() -> Dict[str, float]:
-        out = {}
-        if not cfg.tracked_params:
-            return out
-        table = model.param_table
-        globals_, fixed = model.globals.as_dict(), model.fixed.as_dict()
-        for name in cfg.tracked_params or ():
-            if name in globals_:
-                v = scale_param(globals_[name].detach(), table.lower_of(name), table.upper_of(name))
-                out[name] = float(v.reshape(-1)[0])
-            elif name in fixed:
-                out[name] = float(fixed[name].reshape(-1)[0])
-        return out
+    if loop_mode == "deferred":
+        out = deferred.run_deferred_loop(cfg=cfg, run=run, rows=rows, eval_every=eval_every,
+                                         n_train=train_data.n_samples, n_val=val_data.n_samples)
+        history, tracked, monitored = out["history"], out["tracked"], out["monitored"]
+        grad_history, record = out["grad_history"], out["record"]
+        best_epoch, best_loss = out["best_epoch"], out["best_loss"]
+        if cfg.return_model == "best":
+            log.info("Returning best model from epoch %d with validation loss %.6g",
+                     best_epoch, best_loss)
+            run.restore(out["best"])
+        else:
+            log.info("Returning final model; best validation loss was %.6g at epoch %d",
+                     best_loss, best_epoch)
+        best_params = {k: v.clone() for k, v in params_now().items()}
+        best_state = {k: v.clone() for k, v in state_now().items()}
+    else:
+        history, tracked, monitored, grad_history, stopper = _eager_loop(
+            cfg, run, rows, eval_every, train_data.n_samples, val_data.n_samples,
+            params_now, state_now)
+        record = None
+        best_epoch, best_loss = stopper.best_epoch, stopper.best_loss
+        best_params, best_state = stopper.best_or_final(params_now(), state_now(),
+                                                        cfg.return_model)
+        _warm_start(model, best_params, best_state)
 
-    def monitored_quantiles(snapshot) -> Dict[str, Dict[str, float]]:
-        out = {}
-        if not cfg.monitor_names or snapshot.y_hat_val is None:
-            return out
-        params_out = snapshot.y_hat_val.get("parameters", {})
-        for name in cfg.monitor_names:
-            if name in params_out:
-                arr = np.asarray(params_out[name]).ravel()
-                if arr.size >= 1:
-                    q25, q50, q75 = np.nanpercentile(arr, [25, 50, 75])
-                    out[name] = {"q25": float(q25), "q50": float(q50), "q75": float(q75)}
-        return out
-
-    init_snapshot = snapshot_now()
-    history = TrainingHistory([
-        init_snapshot if cfg.keep_history
-        else EpochSnapshot(init_snapshot.l_train, init_snapshot.l_val)
-    ])
-    stopper = EarlyStopping(init_snapshot, params_now(), state_now(), cfg)
-    tracked = {k: [v] for k, v in tracked_values().items()}
-    monitored = {k: [v] for k, v in monitored_quantiles(init_snapshot).items()}
-
-    t0 = time.perf_counter()
-    for epoch in range(eval_every, cfg.nepochs + 1, eval_every):
-        run_block()
-        snapshot = snapshot_now()
-        stopper.update(history, snapshot, params_now(), state_now(), epoch, cfg.keep_history)
-        for k, v in tracked_values().items():
-            tracked.setdefault(k, []).append(v)
-        for k, v in monitored_quantiles(snapshot).items():
-            monitored.setdefault(k, []).append(v)
-        if cfg.show_progress and (
-            epoch == eval_every
-            or epoch + eval_every > cfg.nepochs
-            or epoch % max(1, cfg.nepochs // 10) == 0
-        ):
-            agg, metric = stopper.agg_name, stopper.metric
-            log.info(
-                "epoch %4d/%d  train %s(%s)=%.6g  val=%.6g  best=%.6g@%d  (%.1fs)",
-                epoch, cfg.nepochs, metric, agg,
-                snapshot.l_train.get(metric, {}).get(agg, float("nan")),
-                snapshot.l_val.get(metric, {}).get(agg, float("nan")),
-                stopper.best_loss, stopper.best_epoch, time.perf_counter() - t0,
-            )
-        if stopper.done:
-            break
-
-    best_params, best_state = stopper.best_or_final(params_now(), state_now(), cfg.return_model)
-    _warm_start(model, best_params, best_state)
-
-    (_, out_tr), (_, out_va) = evaluator(train_eval_batch, val_eval_batch)
+    final_grads = None
+    if grad_probe is not None:
+        final_grads = {k: v.cpu() for k, v in grad_probe(train_eval_batch).items()}
+    (_, out_tr), (_, out_va) = rows.evaluator(train_eval_batch, val_eval_batch)
     out_tr = _outputs_to_host(out_tr, train_data.n_samples)
     out_va = _outputs_to_host(out_va, val_data.n_samples)
     targets = tuple(model.targets)
     train_obs, train_pred = _obs_pred_columns(train_data, out_tr, targets)
     val_obs, val_pred = _obs_pred_columns(val_data, out_va, targets)
-    return TrainResults(
+    results = TrainResults(
         train_history=history.train_losses(),
         val_history=history.val_losses(),
         train_obs_columns=train_obs,
@@ -430,13 +457,71 @@ def train(
         val_diffs=_extract_diffs(out_va, targets),
         params={k: v.detach().cpu().clone() for k, v in best_params.items()},
         state={k: v.detach().cpu().clone() for k, v in best_state.items()},
-        best_epoch=stopper.best_epoch,
-        best_loss=stopper.best_loss,
+        best_epoch=best_epoch,
+        best_loss=best_loss,
         history=history,
         tracked=tracked or None,
         monitored=monitored or None,
-        opt_state=opt_state,
+        opt_state=run.opt_state,
+        grad_history=grad_history or None,
+        final_grads=final_grads,
         epoch_path=epoch_path,
-        loop_mode="eager",
+        loop_mode=loop_mode,
         engine_reason=engine_reason,
     )
+    results._loop_record = record  # deferred.loop_record(results)
+    return results
+
+
+def _eager_loop(cfg, run, rows, eval_every, n_train, n_val, params_now, state_now):
+    """The eager loop: after every block the snapshot's row comes to the
+    host (one copy, a wait for the device), and the host stopper decides."""
+
+    def snapshot_now():
+        row, out_tr, out_va = rows.take()
+        l_train, l_val, tracked_i, monitored_i, grads_i = rows.unpack(row.cpu().tolist())
+        snap = EpochSnapshot(l_train, l_val)
+        if cfg.keep_history:
+            snap.y_hat_train = _outputs_to_host(out_tr, n_train)
+            snap.y_hat_val = _outputs_to_host(out_va, n_val)
+        return snap, tracked_i, monitored_i, grads_i
+
+    tracked: Dict[str, list] = {}
+    monitored: Dict[str, list] = {}
+    grad_history: list = []
+
+    def record(tracked_i, monitored_i, grads_i):
+        for k, v in tracked_i.items():
+            tracked.setdefault(k, []).append(v)
+        for k, v in monitored_i.items():
+            monitored.setdefault(k, []).append(v)
+        if grads_i is not None:
+            grad_history.append(grads_i)
+
+    snap, *extra = snapshot_now()
+    history = TrainingHistory([snap])
+    stopper = EarlyStopping(snap, params_now(), state_now(), cfg)
+    record(*extra)
+
+    t0 = time.perf_counter()
+    for epoch in range(eval_every, cfg.nepochs + 1, eval_every):
+        run.block()
+        snap, *extra = snapshot_now()
+        stopper.update(history, snap, params_now(), state_now(), epoch, cfg.keep_history)
+        record(*extra)
+        if cfg.show_progress and (
+            epoch == eval_every
+            or epoch + eval_every > cfg.nepochs
+            or epoch % max(1, cfg.nepochs // 10) == 0
+        ):
+            agg, metric = stopper.agg_name, stopper.metric
+            log.info(
+                "epoch %4d/%d  train %s(%s)=%.6g  val=%.6g  best=%.6g@%d  (%.1fs)",
+                epoch, cfg.nepochs, metric, agg,
+                snap.l_train.get(metric, {}).get(agg, float("nan")),
+                snap.l_val.get(metric, {}).get(agg, float("nan")),
+                stopper.best_loss, stopper.best_epoch, time.perf_counter() - t0,
+            )
+        if stopper.done:
+            break
+    return history, tracked, monitored, grad_history, stopper

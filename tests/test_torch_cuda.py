@@ -29,6 +29,12 @@ measured worst 4.5e-5 relative at K = 1,024 on an H100).
 Kernel 2 is also held on MultiNN models (a network per neural parameter,
 ``BRANCH_SPECS``) and on a model with globals only.
 
+The halt word: a call of each of kernels 2-5 with the word set returns its
+inputs bit for bit and a loss of 0, and with the word clear the bits of a
+call without one; a deferred ``train()`` on kernel 2 with an early stop
+equals the eager one bit for bit, its dispatch window under
+``torch.cuda.set_sync_debug_mode("error")``.
+
 Every training kernel is also held, under each optimizer rule besides adam
 and plain sgd (``RULES``), against its plain version at the same tolerance
 on parameters and every slot of the opt state, with the same bits on a
@@ -971,3 +977,136 @@ def test_wide_wrapper_rejects_mixed_devices(cuda):
     packed = fn.plan.pack(m)  # on the CPU, the data on the card
     with pytest.raises(ValueError, match="parameters are on cpu"):
         fn(packed, fe.init_fused_opt_state(packed), tensors)
+
+
+# --------------------------------------------------------------------------
+# the halt word of kernels 2-5 and the deferred loop
+# --------------------------------------------------------------------------
+
+def _halt_case(device, kind):
+    """``(fn, packed, tensors, perms, opt)``: a small run of kernel 2 (the
+    quick-start, trainable BN; or its multi-network build on a MultiNN model
+    of two networks under adamw and nseLoss, as ExpoHybrid's), 3 ([128, 64]),
+    4 (LSTM(16), 10-step windows) or 5 (300 sites x 8, minibatched)."""
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], activation="swish",
+        scale_nn_outputs=True, input_batchnorm="static")
+    ll = et.LoggingLoss(loss_types=("mse",))
+    opt = ("adam", 0.01)
+    gen = torch.Generator().manual_seed(0)
+    if kind == "kernel 2, two networks":
+        opt = ("adamw", 0.01)
+        m = et.construct_hybrid_model(**BRANCH_SPECS["two_branches_static"], generator=gen)
+        cols = et.rbq10_columns(1500, seed=0)
+        cols["nee"] = (cols["reco"] - 5.0 * (1.0 - np.exp(-0.1 * cols["ta"]))).astype(np.float32)
+        rows = et.prepare_data(m, cols)
+        et.fit_input_norm(m, rows)
+        tensors = epoch_tensors_to(et.build_epoch_tensors(rows, 128), device)
+        fn = et.make_fused_epoch(m, opt, et.LoggingLoss(training_loss="nseLoss",
+                                                        loss_types=("nseLoss",)),
+                                 shuffle=True, epochs_per_call=2)
+    elif kind == "kernel 5":
+        m = et.MultiSiteHybridModel(
+            et.construct_hybrid_model(**spec, hidden_layers=[16, 16], generator=gen), 300)
+        data = et.gen_multisite_arrays(300, 8, seed=0, nan_frac=0.1, site_idx=True)
+        et.fit_input_norm(m, data)
+        tensors = epoch_tensors_to(et.build_epoch_tensors(data, 128), device)
+        fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=True, epochs_per_call=2)
+    else:
+        cols = et.rbq10_columns(1500, seed=0)
+        rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                          forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+        if kind == "kernel 4":
+            lstm_spec = {k: v for k, v in spec.items() if k != "activation"}
+            m = et.construct_hybrid_model(**lstm_spec, hidden_layers={"lstm": 16}, generator=gen)
+            rows = split_into_sequences(rows, input_window=10, output_window=1, lead_time=0)
+            make = et.make_fused_lstm_epoch
+        else:
+            hidden = [128, 64] if kind == "kernel 3" else [16, 16]
+            m = et.construct_hybrid_model(**{**spec, "input_batchnorm": kind == "kernel 2"},
+                                          hidden_layers=hidden, generator=gen)
+            make = et.make_fused_wide_epoch if kind == "kernel 3" else et.make_fused_epoch
+        et.fit_input_norm(m, rows)
+        tensors = epoch_tensors_to(et.build_epoch_tensors(rows, 128), device)
+        fn = make(m, opt, ll, shuffle=True, epochs_per_call=2)
+    perms = perms_for_epochs(True, tensors, 2, generator=torch.Generator(device=device).manual_seed(0))
+    return fn, fn.plan.pack(m), tensors, perms, opt
+
+
+@pytest.mark.parametrize("kind", ["kernel 2", "kernel 2, two networks", "kernel 3", "kernel 4",
+                                  "kernel 5"])
+def test_a_halted_launch_returns_its_inputs(cuda, kind):
+    """With the halt word set every kernel of the call returns at entry: the
+    parameters, the BatchNorm statistics and every slot of the opt state
+    (the step count too) come back bit for bit, and the loss is 0. With the
+    word clear the call gives the bits of a call without one."""
+    fn, packed, tensors, perms, opt = _halt_case(cuda, kind)
+    state = fe.init_fused_opt_state(packed, opt)
+    state["m"].normal_(generator=torch.Generator(device=cuda).manual_seed(1))  # slots not all zero
+    halt = torch.ones((), dtype=torch.int32, device=cuda)
+    got = fn(packed, state, tensors, perms=perms, halt=halt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].params, packed.params) and torch.equal(got[0].bn, packed.bn)
+    assert set(got[1]) == set(state)
+    for k in state:
+        assert torch.equal(got[1][k], state[k]), k
+    assert float(got[2]) == 0.0
+    plain = fn.reference(packed, state, tensors, perms=perms, halt=halt)
+    assert torch.equal(plain[0].params, packed.params) and torch.equal(plain[1]["t"], state["t"])
+    live = fn(packed, state, tensors, perms=perms, halt=torch.zeros_like(halt))
+    free = fn(packed, state, tensors, perms=perms)
+    assert int(live[1]["t"][0]) > int(state["t"][0])
+    for a, b in zip([live[0].params, live[0].bn, *live[1].values()],
+                    [free[0].params, free[0].bn, *free[1].values()]):
+        assert torch.equal(a, b)
+
+
+def test_train_deferred_equals_eager_on_kernel_2_with_an_early_stop(cuda):
+    """The deferred loop against the eager one on kernel 2: an early stop at
+    a large step, tracked and monitored parameters, gradient norms and the
+    prediction history, bit for bit; no call waits for the device between
+    the first block and the final fetch (``set_sync_debug_mode("error")``)."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    cols = et.rbq10_columns(2000, seed=8)
+    kw = dict(nepochs=40, batchsize=256, optimizer=("adam", 0.05), patience=3,
+              tracked_params=["Q10"], monitor_names=["rb"], return_gradients=True,
+              keep_history=True, random_seed=7)
+
+    def run(show_progress):
+        m = et.construct_hybrid_model(
+            predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+            mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+            neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+            activation="swish", scale_nn_outputs=True, input_batchnorm=True,
+            generator=torch.Generator().manual_seed(0))
+        return et.train(m, cols, show_progress=show_progress, **kw)
+
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        d = run(False)
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    e = run(True)
+    assert d.epoch_path == e.epoch_path == "cuda_fused_epoch"
+    assert (d.loop_mode, e.loop_mode) == ("deferred", "eager")
+    assert d.engine_reason.endswith("; zero-readback")
+    assert len(d.val_history) < 41 and deferred.loop_record(d).stop_index == len(d.val_history) - 1
+    assert d.train_history == e.train_history and d.val_history == e.val_history
+    assert (d.best_epoch, d.best_loss) == (e.best_epoch, e.best_loss)
+    assert d.tracked == e.tracked and d.monitored == e.monitored
+    assert d.grad_history == e.grad_history
+    for k in d.params:
+        assert torch.equal(d.params[k], e.params[k]), k
+    for k in d.state:
+        assert torch.equal(d.state[k], e.state[k]), k
+    for k in e.opt_state:
+        assert torch.equal(d.opt_state[k], e.opt_state[k]), k
+    for k in d.final_grads:
+        assert torch.equal(d.final_grads[k], e.final_grads[k]), k
+    for a, b in zip(d.history.snapshots, e.history.snapshots):
+        assert np.array_equal(a.y_hat_val["reco"], b.y_hat_val["reco"])
+        assert np.array_equal(a.y_hat_train["parameters"]["rb"], b.y_hat_train["parameters"]["rb"])
+    np.testing.assert_array_equal(d.val_pred_columns["reco_pred"], e.val_pred_columns["reco_pred"])

@@ -51,7 +51,7 @@ def test_train_matches_jax(use_kernel):
     tm = et.construct_hybrid_model(**SPEC)
     tr = et.train(tm, cols, train_from=init, use_kernel=use_kernel, **KW)
     assert tr.epoch_path == ("cuda_fused_epoch" if use_kernel else "torch")
-    assert tr.loop_mode == "eager"
+    assert tr.loop_mode == jr.loop_mode == "deferred"
     _assert_history(tr.train_history, jr.train_history)
     _assert_history(tr.val_history, jr.val_history)
     assert tr.best_epoch == jr.best_epoch
@@ -141,7 +141,7 @@ def test_results_hold_numpy_columns_and_build_frames_on_access():
     (dict(multi_device=True), "item 15"),
     (dict(optimizer="lbfgs"), "item 12"),
     (dict(optimizer={"globals": ("sgd", 0.1)}), "item 6"),
-    (dict(return_gradients=True), "item 8"),
+    (dict(second_order=True), "item 12"),
     (dict(save_training=True), "item 16"),
 ])
 def test_options_not_ported_yet_raise(kwargs, item):

@@ -139,7 +139,8 @@ def time_main_shape(case, cluster):
 def train_split():
     """Wall seconds of one quick-start ``train()`` and of its stages, each
     closed by a device synchronisation: the gate, the kernel calls (launch
-    and wait), ``unpack``, the evaluations with their metric copies."""
+    and wait), ``unpack``, the evaluations. ``tools/dev_train_loop_gpu.py``
+    splits both loops without synchronising."""
     import time
 
     from easyhybrid_tpu_torch.training import train as train_module
@@ -159,7 +160,7 @@ def train_split():
         return wrapper
 
     real = (train_module.fused_exactness_check, fe.FusedEpoch.__call__, fe.PackedLayout.unpack,
-            train_module.make_dual_evaluator, train_module._host_metrics)
+            train_module.make_dual_evaluator)
     gate = timed("gate", real[0])
     in_gate = []
 
@@ -175,7 +176,6 @@ def train_split():
     fe.FusedEpoch.__call__ = lambda self, *a, **k: (real[1] if in_gate else kernel)(self, *a, **k)
     fe.PackedLayout.unpack = timed("unpack", real[2])
     train_module.make_dual_evaluator = lambda *a, **k: timed("evaluation", real[3](*a, **k))
-    train_module._host_metrics = timed("evaluation", real[4])
     try:
         for run in ("first", "second"):
             for k in spent:
@@ -194,7 +194,7 @@ def train_split():
                   + f"; the rest {wall - sum(spent.values()):.3f} s")
     finally:
         (train_module.fused_exactness_check, fe.FusedEpoch.__call__, fe.PackedLayout.unpack,
-         train_module.make_dual_evaluator, train_module._host_metrics) = real
+         train_module.make_dual_evaluator) = real
 
 
 def main() -> None:
