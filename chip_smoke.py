@@ -182,7 +182,34 @@ Phases, one or more lines each; any failure exits non-zero:
     the blocks dispatched after a stop are logged;
 30. times: each cell's ``train()`` wall in both loops (the median of 3 calls
     after phase 29's), the device's busy share of a call in each, and the
-    deferred loop's host dispatch seconds; the seconds phases 28-30 add.
+    deferred loop's host dispatch seconds; the seconds phases 28-30 add;
+31. kernel 2's member axis: K members in one launch (a cluster each) against
+    the member axis's plain version (``fused_members_reference``) on the card
+    within ``TOL_EPOCH``, every member bit for bit equal to a launch of it
+    alone (K = 1, its spec in the shared struct, its row index and data), a
+    duplicate member equal to its twin, and a second run equal to the first:
+    the quick-start's training split at batch 512 (32 steps, the last ragged),
+    2 epochs, an adam learning-rate sweep of 4 members and a duplicate with a
+    shared permutation, the same members as a trainable-BN seed ensemble with
+    a permutation each, a 3-member rmsprop sweep of learning rate and decay,
+    the 5 folds of a cross-validation with a fold's data each, and a 2-member
+    ExpoHybrid ensemble through ``fused_epoch_multinn.cu``; and a K = 1
+    member launch equal to ``train()``'s launch bit for bit;
+32. main paths, populations: the JAX bench's ``population_sweep`` row
+    (``bench.py:554-604``, ``examples/population_sweep.py``) through
+    ``population_train`` / ``population_cross_validate`` on the quick-start
+    model at 20,000 rows: (a) a 16-member learning-rate sweep
+    (geomspace(1e-3, 5e-2), adam, 50 epochs of 512, ``eval_every=5``), which
+    must take the member axis with 10 launches for all 16 members, its best
+    member's Q10 within 0.15 of 2.0 and best val mse below 0.05; (b) an
+    8-seed ensemble at (a)'s best learning rate, the members' mean Q10 within
+    0.15 of 2.0; (c) 5-fold cross-validation (adam 0.01), every fold finite
+    with best val mse below 0.05; each under ``set_sync_debug_mode("error")``;
+    then the walls of (a) and of a one-member population on their second
+    calls, the JAX bench's amplification (16 x one-member wall / sweep wall),
+    kernel 2's device ms per launch at K = 1 and K = 16 (and at 64, 132 and
+    264 members), the member launch's plain version, and the torch engine's
+    wall on (a) cut to 10 epochs.
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -2810,6 +2837,316 @@ def multinn_times(et, card, mn) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 31-32: kernel 2's member axis and the population paths
+# ---------------------------------------------------------------------------
+
+# the JAX bench's population_sweep row (bench.py:554-604): the quick-start model
+# at 20,000 rows, 16 learning rates, 50 epochs of 512, an evaluation every 5
+POP_KW = dict(optimizer="adam", nepochs=50, batchsize=512, eval_every=5, seed=11, data_seed=0)
+POP_LRS = [float(v) for v in np.geomspace(1e-3, 5e-2, 16)]
+POP_CV_KW = dict(k=5, optimizer=("adam", 0.01), nepochs=50, batchsize=512, eval_every=5)
+
+
+def member_inputs(et, model, splits, *, opt, seeds, batch=512, epochs=2, loss="mse"):
+    """A member launch's inputs: the fused epoch of ``model`` (``opt`` the
+    first member's), the members' stacked packed parameters drawn from
+    ``seeds`` (``init_member_params``), each split's static norm fitted
+    (``splits``: one training split shared by every member, or one a
+    member), zero slots, and the kernel's data."""
+    from easyhybrid_tpu_torch.training import epoch as tepoch
+    from easyhybrid_tpu_torch.training import population as pop
+
+    k = len(seeds)
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,))
+    fn = et.make_fused_epoch(model, opt, logging, shuffle=True, epochs_per_call=epochs)
+    inits = [pop.init_member_params(model, s) for s in seeds]
+    params = {n: torch.stack([init[n] for init in inits]) for n in inits[0]}
+    shared = not isinstance(splits, list)
+    buffers = []
+    for split in ([splits] * k if shared else splits):
+        et.fit_input_norm(model, split)
+        buffers.append({n: b.detach().clone() for n, b in model.named_buffers()})
+    buffers = {n: torch.stack([b[n] for b in buffers]) for n in buffers[0]}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(model), params, buffers)
+    tensors = [tepoch.epoch_tensors_to(et.build_epoch_tensors(s, batch), "cuda")
+               for s in ([splits] if shared else splits)]
+    data = fn.member_data(tensors[0] if shared else tensors)
+    return fn, packed, pop._stacked_opt_state(packed, opt, k), data
+
+
+def member_fields(out, i=None) -> dict:
+    """A member launch's result by name (member ``i``'s, or all)."""
+    p, o, loss = out
+    fields = {"params": p.params, "bn": p.bn, **{k: v.float() if k == "t" else v
+                                                  for k, v in o.items()}, "loss": loss}
+    return fields if i is None else {k: v[i] for k, v in fields.items()}
+
+
+def member_alone(fe, fn, packed, opt_state, data, rows, i, spec):
+    """Member ``i`` launched alone (K = 1) the way ``train()`` launches:
+    its spec in the kernel's shared struct, its row index and data."""
+    plan = fe.member_plan(fn.plan, spec)
+    p = fe.FusedParams(packed.params[i].clone(), packed.bn[i].clone())
+    o = {k: v[i].clone() for k, v in opt_state.items()}
+    loss = torch.zeros((1,), dtype=torch.float32, device="cuda")
+    fe.launch_fused_epoch(plan, p, o, data, (rows[i] if rows.dim() == 3 else rows).contiguous(),
+                          loss)
+    return {"params": p.params, "bn": p.bn, **{k: v.float() if k == "t" else v
+                                                for k, v in o.items()}, "loss": loss[0]}
+
+
+def member_cases(et, mn):
+    """Phase 31's cases: ``(what, model, splits, seeds, specs, opt, per-member
+    permutations, twins, loss)``; ``twins`` pairs a duplicate with the member it
+    copies."""
+    quick = et.rbq10_columns(TRAIN_ROWS, seed=42)
+    lrs = [float(np.float32(v)) for v in np.geomspace(1e-3, 5e-2, 4)]
+    sweep = [("adam", {"learning_rate": lr}) for lr in lrs + lrs[:1]]
+    rms = [("rmsprop", {"learning_rate": 1e-3, "decay": 0.9}),
+           ("rmsprop", {"learning_rate": 1e-2, "decay": 0.95}),
+           ("rmsprop", {"learning_rate": 3e-3, "decay": 0.99})]
+    model = build_model(et)
+    split = et.split_data(quick, model)[0]
+    prepared = et.prepare_data(model, quick)
+    folds = et.make_folds(range(prepared.n_samples), k=5, shuffle=True, seed=0)
+    fold_splits = [prepared.take(np.nonzero(folds != i)[0]) for i in range(1, 6)]
+    expo = mn["expo"]()
+    expo_split = et.split_data(expo_columns(TRAIN_ROWS, seed=42), expo)[0]
+    return [
+        ("the quick-start (static norm), an adam learning-rate sweep of 4 members "
+         "(geomspace(1e-3, 5e-2)) and a duplicate of the first, one permutation shared",
+         model, split, [0] * 5, sweep, sweep[0], False, (0, 4), "mse"),
+        ("the quick-start with trainable BN, the sweep's members as a seed ensemble (seeds 0-3 "
+         "and a duplicate of 0), a permutation each", build_model(et, norm=True),
+         split, [0, 1, 2, 3, 0], sweep, sweep[0], True, (0, 4), "mse"),
+        ("the quick-start, an rmsprop sweep of learning rate and decay, 3 members, one "
+         "permutation shared", model, split, [0] * 3, rms, rms[0], False, None, "mse"),
+        ("the quick-start's 5 folds (make_folds k=5), adam 0.01, a fold's data, norm and "
+         "permutation each", model, fold_splits, [0] * 5, None, ("adam", 0.01), True, None, "mse"),
+        ("ExpoHybrid (MultiNN, fused_epoch_multinn.cu), 2 seeds, adamw, nseLoss, a permutation "
+         "each", expo, expo_split, [0, 1], None, ("adamw", 0.01), True, None, "nseLoss"),
+    ]
+
+
+def member_kernel_checks(et, mn) -> float:
+    """Phase 31: kernel 2's member axis against its plain version on the
+    card within ``TOL_EPOCH``, each member against a launch of it alone bit
+    for bit, a duplicate against its twin, a second run against the first;
+    then a K = 1 member launch against ``train()``'s launch."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    worst = 0.0
+    for what, model, splits, seeds, specs, opt, own_perms, twins, loss in member_cases(et, mn):
+        k = len(seeds)
+        fn, packed, opt0, data = member_inputs(et, model, splits, opt=opt, seeds=seeds, loss=loss)
+        per_member_data = isinstance(splits, list)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        n = data.n_batches * data.batch
+        if own_perms:
+            perms = torch.stack([torch.argsort(torch.rand((fn.epochs, n), generator=gen,
+                                                          device="cuda"), dim=1)
+                                 for _ in range(k)])
+            if twins is not None:
+                perms[twins[1]] = perms[twins[0]]
+        else:
+            perms = torch.argsort(torch.rand((fn.epochs, n), generator=gen, device="cuda"), dim=1)
+        rows = fn.member_rows(data, k, per_member_data=per_member_data, perms=perms)
+        got = fn.members(packed, opt0, data, rows, specs=specs)
+        torch.cuda.synchronize()
+        again = fn.members(packed, opt0, data, rows, specs=specs)
+        ref = fe.fused_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)
+        g, a = member_fields(got), member_fields(again)
+        if not all(bool(torch.isfinite(v).all()) for v in g.values()):
+            raise AssertionError(f"{what}: the member launch returned non-finite values")
+        if not all(torch.equal(g[f], a[f]) for f in g):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        err = compare(g, member_fields(ref), what, TOL_EPOCH)
+        worst = max(worst, err)
+        for i in range(k):
+            alone = member_alone(fe, fn, packed, opt0, data, rows, i,
+                                 None if specs is None else specs[i])
+            mine = member_fields(got, i)
+            if not all(torch.equal(mine[f], alone[f]) for f in alone):
+                raise AssertionError(f"{what}: member {i} differs from a launch of it alone")
+        if twins is not None and not all(torch.equal(v[twins[0]], v[twins[1]]) for v in g.values()):
+            raise AssertionError(f"{what}: the duplicate member differs from its twin")
+        geo = fn.plan.geometry(data.batch)
+        log("kernel2-members", f"{what}: K={k}, {fe.kernel_source(fn.plan)}, "
+                               f"{k} clusters of {geo.cluster} block(s) of {geo.threads} threads, "
+                               f"{int(g['t'][0].item())} steps, max |diff| vs plain {err:.3e}; "
+                               "every member equal to its launch alone"
+                               + (", the duplicate to its twin" if twins else "")
+                               + ", second run bitwise equal (ok)")
+    # K = 1 through the member path is train()'s launch
+    what, model, splits, seeds, specs, opt, *_ = member_cases(et, mn)[0]
+    fn, packed, opt0, data = member_inputs(et, model, splits, opt=opt, seeds=[0])
+    rows = fn.member_rows(data, 1, per_member_data=False, perms=torch.argsort(
+        torch.rand((fn.epochs, data.n_batches * data.batch),
+                   generator=torch.Generator(device="cuda").manual_seed(5), device="cuda"), dim=1))
+    got = member_fields(fn.members(packed, opt0, data, rows), 0)
+    alone = member_alone(fe, fn, packed, opt0, data, rows, 0, None)
+    if not all(torch.equal(got[f], alone[f]) for f in alone):
+        raise AssertionError("a K = 1 member launch differs from train()'s launch")
+    log("kernel2-members", "a K = 1 member launch (no member rows) equals train()'s launch bit for "
+                           "bit (ok)")
+    return worst
+
+
+def population_run(et, model, cols, *, cv=False, **kw):
+    """One population call on the card under ``set_sync_debug_mode("error")``
+    (nothing may wait for the device between the first block and the fetch):
+    ``(result, wall s, kernel 2's launches)``, the launch count set to 0 just
+    before the call (it counts a first call's gate and self-check too; the
+    loop's own are ``result.kernel_launches``)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.training import deferred
+
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        torch.cuda.synchronize()
+        fe.launch_fused_epoch.launches = 0
+        t0 = time.perf_counter()
+        if cv:
+            result = et.population_cross_validate(model, cols, **{**POP_CV_KW, **kw})
+        else:
+            result = et.population_train(model, cols, **{**POP_KW, **kw})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    return result, wall, fe.launch_fused_epoch.launches
+
+
+def population_main_paths(et, card) -> dict:
+    """Phase 32: the three runs of the JAX bench's population row through the
+    entry points, each on the member axis, then their times."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    cols = et.rbq10_columns(TRAIN_ROWS, seed=42)
+    model = build_model(et)
+    blocks = POP_KW["nepochs"] // POP_KW["eval_every"]
+    sweep, first_wall, first_launches = population_run(et, model, cols,
+                                                       hyper={"learning_rate": POP_LRS})
+    if sweep.epoch_path != "population_vmap_fused":
+        raise AssertionError(f"the sweep took {sweep.epoch_path!r}: {sweep.engine_reason}")
+    if sweep.kernel_launches != blocks:
+        raise AssertionError(f"the sweep launched kernel 2 {sweep.kernel_launches} times for 16 "
+                             f"members, not {blocks}")
+    best = sweep.best_member
+    q10 = float(et.scale_param(sweep.best_params["globals.Q10"][best], 1.0, 4.0))
+    best_lr = float(sweep.hyper["learning_rate"][best])
+    if not (abs(q10 - 2.0) < 0.15 and sweep.best_losses[best] < 0.05):
+        raise AssertionError(f"the sweep's best member {best}: Q10 {q10:.4f}, best val mse "
+                             f"{sweep.best_losses[best]:.5f}")
+    log("main", f"population_train, 16-member lr sweep: {sweep.epoch_path} ({sweep.engine_reason})"
+                f", {sweep.kernel_launches} member launches for {blocks} blocks of "
+                f"{POP_KW['eval_every']} epochs ({first_launches} with the gate's and the "
+                f"self-check's); best member {best} (lr {best_lr:.4g}): Q10 {q10:.4f}, best val mse "
+                f"{sweep.best_losses[best]:.5f} at epoch {int(sweep.best_epochs[best])}; first call "
+                f"{first_wall:.2f} s with its gate and self-check; no synchronising call (ok)")
+    ens, ens_wall, _ = population_run(et, model, cols, hyper={"learning_rate": [best_lr]},
+                                      seeds=list(range(8)))
+    q10_mean, q10_std = ens.param_spread(model)["Q10"]
+    if ens.epoch_path != "population_vmap_fused" or ens.kernel_launches != blocks:
+        raise AssertionError(f"the seed ensemble took {ens.epoch_path!r} ({ens.engine_reason}) "
+                             f"in {ens.kernel_launches} launches")
+    if not abs(float(q10_mean) - 2.0) < 0.15:
+        raise AssertionError(f"the seed ensemble's Q10 {float(q10_mean):.4f} +- {float(q10_std):.4f}")
+    log("main", f"population_train, 8-seed ensemble at lr {best_lr:.4g}: {ens.epoch_path}, "
+                f"{ens.kernel_launches} member launches; Q10 {float(q10_mean):.4f} +- {float(q10_std):.4f}, "
+                f"best val mse {np.min(ens.best_losses):.5f}-{np.max(ens.best_losses):.5f}; "
+                f"{ens_wall:.2f} s (ok)")
+    cv, cv_wall, _ = population_run(et, model, cols, cv=True)
+    if cv.epoch_path != "population_vmap_cv_fused" or cv.kernel_launches != blocks:
+        raise AssertionError(f"cross-validation took {cv.epoch_path!r} ({cv.engine_reason}) in "
+                             f"{cv.kernel_launches} launches")
+    if not (np.isfinite(cv.best_losses).all() and (cv.best_losses < 0.05).all()):
+        raise AssertionError(f"cross-validation's folds: best val mse {cv.best_losses}")
+    log("main", f"population_cross_validate, k=5: {cv.epoch_path} ({cv.engine_reason}), "
+                f"{cv.kernel_launches} member launches; best val mse by fold "
+                + ", ".join(f"{v:.5f}" for v in cv.best_losses) + f"; {cv_wall:.2f} s (ok)")
+
+    # times: second calls, as the JAX bench takes them; the sweep's second call (its gate
+    # and self-check done) is the main path whose launches the kernels line reports
+    again, sweep_wall, launches = population_run(et, model, cols, hyper={"learning_rate": POP_LRS})
+    if not launches == again.kernel_launches == blocks:
+        raise AssertionError(f"the sweep's second call: {launches} launches of kernel 2, "
+                             f"{again.kernel_launches} by its record, not {blocks}")
+    population_run(et, model, cols, hyper={"learning_rate": POP_LRS[:1]})
+    _, one_wall, _ = population_run(et, model, cols, hyper={"learning_rate": POP_LRS[:1]})
+    t0 = time.perf_counter()
+    torch_run = et.population_train(model, cols, **{**POP_KW, "nepochs": 10, "use_kernel": False},
+                                    hyper={"learning_rate": POP_LRS})
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if torch_run.epoch_path != "population_vmap":
+        raise AssertionError(f"use_kernel=False took {torch_run.epoch_path!r}")
+    log("times", f"[{card}] population walls, second calls: the 16-member sweep {sweep_wall:.3f} s, "
+                 f"a one-member population {one_wall:.3f} s, amplification 16 x one / sweep "
+                 f"{16 * one_wall / sweep_wall:.2f}; the torch engine on the sweep cut to 10 "
+                 f"epochs {torch_wall:.2f} s ({torch_wall * 5:.1f} s per 50)")
+
+    # kernel 2 per launch at K = 1 and K = 16: one block of the sweep
+    times = {}
+    for k, specs in ((1, None), (16, [("adam", {"learning_rate": float(np.float32(lr))})
+                                      for lr in POP_LRS])):
+        fn, packed, opt0, data = member_inputs(
+            et, model, et.split_data(cols, model)[0], opt=("adam", POP_LRS[0]), seeds=[11] * k,
+            epochs=POP_KW["eval_every"])
+        rows = fn.member_rows(data, k, per_member_data=False,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        member_opt = None if specs is None else fe.member_opt_rows(fn.plan, specs, "cuda")
+
+        def launch(fn=fn, packed=packed, opt0=opt0, data=data, rows=rows, specs=specs,
+                   member_opt=member_opt):
+            return fn.members(packed, opt0, data, rows, specs=specs, member_opt=member_opt)
+
+        host_ms(launch, 2)
+        times[k] = statistics.median(device_ms(launch, 10, f"kernel 2, K={k}") for _ in range(5))
+        if k == 16:
+            got = launch()
+            held = []
+            plain = profiled_device_ms(lambda: held.append(fe.fused_members_reference(
+                fn.plan, packed, opt0, data, rows, specs=specs)), 1)
+            k16_err = compare(member_fields(got), member_fields(held[-1]),
+                              f"kernel 2, the sweep's launch at K={k}", TOL_EPOCH)
+            steps = POP_KW["eval_every"] * data.n_batches
+            n = steps * data.batch * k
+            bnd = bound(bytes_moved=n * 4 * 6,
+                        flops=n * 3 * forward_flops((2, 16, 16, 1)))
+    log("times", f"[{card}] kernel 2, one launch of {POP_KW['eval_every']} epochs x "
+                 f"{data.n_batches} steps of {data.batch}, median of 5: K=1 {times[1]:.4f} ms, "
+                 f"K=16 {times[16]:.4f} ms "
+                 f"({times[16] / times[1]:.2f}x for 16x the work); the K=16 plain version "
+                 f"{plain:.1f} ms (profiler), every member within TOL_EPOCH of it (max |diff| "
+                 f"{k16_err:.3e}); bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']}")
+    # how far the members ride on idle multiprocessors: larger populations
+    wide = {}
+    for k in (64, 132, 264):
+        fn, packed, opt0, data = member_inputs(
+            et, model, et.split_data(cols, model)[0], opt=("adam", POP_LRS[0]), seeds=[11] * k,
+            epochs=POP_KW["eval_every"])
+        rows = fn.member_rows(data, k, per_member_data=False,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        specs = [("adam", {"learning_rate": float(np.float32(POP_LRS[i % 16]))}) for i in range(k)]
+        member_opt = fe.member_opt_rows(fn.plan, specs, "cuda")
+
+        def launch(fn=fn, packed=packed, opt0=opt0, data=data, rows=rows, specs=specs,
+                   member_opt=member_opt):
+            return fn.members(packed, opt0, data, rows, specs=specs, member_opt=member_opt)
+
+        host_ms(launch, 2)
+        wide[k] = statistics.median(device_ms(launch, 5, f"kernel 2, K={k}") for _ in range(3))
+    log("times", f"[{card}] kernel 2, the same launch at K=64, 132 and 264 (clusters of "
+                 f"{fn.plan.geometry(data.batch).cluster} blocks), median of 3: "
+                 + ", ".join(f"K={k} {v:.4f} ms ({v / times[1]:.2f}x K=1)" for k, v in wide.items()))
+    return dict(launches=launches, k1_ms=times[1], ms=times[16], plain_ms=plain, bound=bnd,
+                max_abs_err=k16_err,
+                sweep_wall=sweep_wall, one_wall=one_wall, torch_wall=torch_wall,
+                wide_ms=wide)
+
+
+# ---------------------------------------------------------------------------
 # phases 28-30: the halt word and the deferred loop
 # ---------------------------------------------------------------------------
 
@@ -3392,6 +3729,10 @@ def main() -> None:
                              f"{reference_loops['epochs']} deferred, {eager_epochs} eager")
     loop_ms = loop_times(et, card, {k: v for k, v in cells.items() if "return_gradients" not in k})
     log("loop", f"phases 28-30 added {time.perf_counter() - t0:.1f} s to the run")
+    t0 = time.perf_counter()
+    member_err = member_kernel_checks(et, mn)
+    pop_main = population_main_paths(et, card)
+    log("population", f"phases 31-32 added {time.perf_counter() - t0:.1f} s to the run")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -3552,6 +3893,25 @@ def main() -> None:
         # main path's launches after its early stop, which halted at entry
         "halted_ms": halt_ms["fused_epoch_multinn"]["halted_ms"],
         "halted_launches": multinn_main["halted"],
+    }, {
+        "name": "fused_epoch members",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_epoch.cu",
+        # the JAX kernel under jax.vmap (easyhybrid_tpu/training/population.py:825) with
+        # its streamed optimizer scalars (make_fused_epoch(traced_hyper=...), :1130-1200)
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": pop_main["launches"],
+        # the sweep's K = 16 launch (phase 32) and phase 31's launches, each against its
+        # plain version
+        "max_abs_err": max(member_err, pop_main["max_abs_err"]),
+        "ms": pop_main["ms"],  # one launch of the sweep: 16 members x 5 epochs x 32 steps
+        "plain_ms": pop_main["plain_ms"],
+        # every member's rows (2 predictors, forcing, target, mask, index) once a step;
+        # three passes of its products
+        **pop_main["bound"],
+        "library_ms": None,  # no single PyTorch call computes the step
+        "members": len(POP_LRS),
+        "k1_ms": pop_main["k1_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

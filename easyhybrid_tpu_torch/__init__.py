@@ -5,7 +5,10 @@ over an MLP, one MLP per neural parameter with a mapping of predictors, over
 an LSTM on sequence windows with ``hidden_layers={"lstm":
 H}`` and ``train(..., sequence_kwargs=...)``, or lifted over sites with
 ``MultiSiteHybridModel``), carry its parameters in
-(or initialise them from a ``torch.Generator``), ``train`` it, and run
+(or initialise them from a ``torch.Generator``), ``train`` it (or a population of it: a hyperparameter sweep, a seed ensemble
+or a k-fold cross-validation, with ``population_train`` /
+``population_cross_validate``, and the sequential drivers ``tune``,
+``random_search``, ``grid_search`` and ``cross_validate``), and run
 ``make_inference_fn`` / ``predict``. Models are built on the CUDA device
 when there is one, and the entry points follow the model's device. There a
 model inside the envelopes runs hand-written kernels, compiled with ``nvcc``
@@ -76,6 +79,16 @@ from .training.early_stopping import EarlyStopping
 from .training.history import EpochSnapshot, TrainingHistory
 from .training.optimizers import resolve_optimizer
 from .training.train import fit_input_norm, train
+from .training.population import PopulationResults, population_cross_validate, population_train
+from .training.tune import (
+    ModelSpec,
+    best_hyperparams,
+    cross_validate,
+    grid_search,
+    random_search,
+    tune,
+)
+from .utils.folds import make_folds
 from .training.inference import make_inference_fn, predict
 from .interop import export_jax_params, load_jax_params
 from .ops.fused_forward import (
@@ -139,6 +152,16 @@ __all__ = [
     "l2_extra_loss",
     "fit_input_norm",
     "train",
+    "population_train",
+    "population_cross_validate",
+    "PopulationResults",
+    "ModelSpec",
+    "tune",
+    "best_hyperparams",
+    "random_search",
+    "grid_search",
+    "cross_validate",
+    "make_folds",
     "make_inference_fn",
     "predict",
     "export_jax_params",

@@ -32,6 +32,21 @@
 // into shared memory once, stay there across every step of the launch, and
 // are written back once at the end, with the last epoch's mean batch loss.
 //
+// The member axis (population training, replacing the JAX kernel under
+// jax.vmap in easyhybrid_tpu/training/population.py:825 with the streamed
+// optimizer scalars of make_fused_epoch(traced_hyper=...), ops/fused_epoch.py
+// :1130-1200 and :2349-2360): one launch trains n_members models side by
+// side, a thread-block cluster each (the grid (cluster, n_members), the
+// member blockIdx.y). Member k's parameters, slots, step count, statistics
+// and loss are the k-th rows of the state arrays (a fold's input norm is
+// its statistics row); its row index sits perm_stride further on (0 where
+// the members share it); its data is where its row index points (a fold's
+// rows follow the folds before it); its optimizer numbers are row k of
+// member_opt, or the shared struct's where that is null. The constants
+// (bounds and fixed values) are the model's, one set for every member. The members share nothing and
+// never wait on one another: each cluster runs the one-model code on its own
+// numbers, so a member's bits are those of a launch of it alone.
+//
 // What bounds it on an H100: every step needs the previous step's update, so
 // a launch is a chain of n_epochs x n_batches dependent steps, and a step of
 // a [16, 16] network on 512 rows is ~1 MFLOP and 12 KB of rows: nothing for
@@ -102,6 +117,8 @@
 //
 // Built without --use_fast_math, as fused_forward.cu.
 
+#include <cstddef>
+
 #include "eh_device.cuh"
 
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_epoch.py;
@@ -167,7 +184,23 @@ struct EhFusedEpochArgs {
   EhNet nets[EH_MAX_NETS];
   long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
   const int* halt;                       // the halt word (eh_halted), or null
+  int n_members;                         // models trained side by side, a cluster each (1: train())
+  int64_t perm_stride;                   // ints between two members' row indexes (0: one shared)
+  const float* member_opt;               // (n_members, EHE_OPT_SCALARS) optimizer numbers, or null
 };
+// A member's optimizer numbers: EhOptimizer's floats from lr to rect_den, in
+// its order, filled by the host as the struct's own; the rule, sgd's Nesterov
+// flag and lamb's leaves stay the shared struct's. Each block copies the
+// struct into shared memory with its member's numbers in place
+// (EHE_OPT_WORDS floats of the layout).
+#define EHE_OPT_SCALARS 13
+#define EHE_OPT_WORDS 56
+#define EHE_OPT_FIRST 2
+static_assert(sizeof(EhOptimizer) == EHE_OPT_WORDS * sizeof(float), "EhOptimizer's size");
+static_assert(offsetof(EhOptimizer, lr) == EHE_OPT_FIRST * sizeof(float) &&
+                  offsetof(EhOptimizer, rect_den) ==
+                      (EHE_OPT_FIRST + EHE_OPT_SCALARS - 1) * sizeof(float),
+              "EhOptimizer's numbers from lr to rect_den");
 // Packed parameters: [norm scales, norm biases] (n_features each, with a
 // norm: every network's columns); per network, per layer W (dout x din,
 // row-major) at nets[b].p_off_w[l], b (dout) at nets[b].p_off_b[l]; raw
@@ -179,6 +212,9 @@ struct EhFusedEpochArgs {
 // slots in pairs). Where the state would leave no room for 32 residual rows
 // the slots stay in device memory (one block only: each element is then one
 // thread's alone).
+// Shared memory: the parameters, slots, gradient partial and small vectors,
+// the unit table, the optimizer struct with the member's numbers, the residual
+// tile, the stages and the loss's moments (ehe_smem_floats).
 // Residual tile: word (off + k) * tile_rows + r for feature k of row r: the
 // normed columns (r_off_xhat) and their cotangents (r_off_d0), then each
 // network's input and layers (nets[b].r_off_h, r_off_d), the globals'
@@ -294,7 +330,8 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster;
-  const int rank = blockIdx.x;  // the grid is one cluster
+  const int rank = (int)cluster.block_rank();  // in the member's cluster
+  const int64_t member = blockIdx.y;            // a population's member, 0 for train()
   const int tid = threadIdx.x;
   const int nth = blockDim.x;  // == a.tile_rows
   const int lane = tid & 31;
@@ -315,14 +352,18 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const int cols = F + NF + 2 * T;  // a stage's columns
   const bool staged = a.stages > 0;
 
-  const EhOptimizer& o = a.optimizer;
+  // member k's state: the k-th rows of the state arrays
+  float* const params = a.params + member * NP;
+  float* const bn = a.bn + member * 2 * F;
+  int* const tk = a.t + member;
+  const int* const perm = a.perm + member * a.perm_stride;
   float* Pm = sm;                 // parameters, padded layout
   // the optimizer's slots: beside the parameters, or in device memory where
   // the state would leave no room for 32 rows (each element is one thread's
   // alone)
-  float* Mm = a.moments_shared ? Pm + a.n_padded : a.m;
-  float* Vm = a.moments_shared ? Mm + NP : a.v;
-  float* Um = a.moments_shared == 2 ? Vm + NP : a.u;
+  float* Mm = a.moments_shared ? Pm + a.n_padded : a.m + member * NP;
+  float* Vm = a.moments_shared ? Mm + NP : a.v + member * NP;
+  float* Um = a.moments_shared == 2 ? Vm + NP : (a.u != nullptr ? a.u + member * NP : nullptr);
   float* Gr = Pm + a.n_padded + 2 * a.moments_shared * NP;  // this block's gradient partial
   float* XL = Gr + NP;            // this block's loss partials, one a warp
   float* XS1 = XL + nw;           // count and mean partials, NS a warp
@@ -336,7 +377,8 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   float* NT = BR + F;             // max(sum(mask), 1) per target
   float* MISC = NT + T;           // [0..1] batch valid, [2..7] the rule's step numbers: two steps'
   int* UT = reinterpret_cast<int*>(MISC + 8);  // the first units, 8 ints each
-  float* RES = MISC + 8 + 8 * a.n_unit_table;  // residual tile
+  float* OS = MISC + 8 + 8 * a.n_unit_table;   // the optimizer struct, the member's numbers in it
+  float* RES = OS + EHE_OPT_WORDS;             // residual tile
   float* ST = RES + a.res_floats * ld;  // the stages
   // the loss's batch moments (ehe_loss_floats; none for mse, mae and a traced loss)
   float* YM = ST + a.stages * cols * ld;  // the targets' batch mean
@@ -357,16 +399,27 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const bool inline_moments = MOMENTS && a.block_rows <= nth;
 
   for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
-  __syncthreads();
-  for (int i = tid; i < NP; i += nth) {
-    Pm[ehe_epoch_padded_index<MULTI>(a, i)] = a.params[i];
-    if (a.moments_shared) {
-      Mm[i] = a.m[i];
-      Vm[i] = a.v[i];
+  {
+    // the rule and its numbers: the shared struct's, a member's numbers in place
+    const int* src = reinterpret_cast<const int*>(&a.optimizer);
+    const float* row = a.member_opt != nullptr ? a.member_opt + member * EHE_OPT_SCALARS : nullptr;
+    int* dst = reinterpret_cast<int*>(OS);
+    for (int i = tid; i < EHE_OPT_WORDS; i += nth) {
+      const bool swept = row != nullptr && i >= EHE_OPT_FIRST && i < EHE_OPT_FIRST + EHE_OPT_SCALARS;
+      dst[i] = swept ? __float_as_int(row[i - EHE_OPT_FIRST]) : src[i];
     }
-    if (a.moments_shared == 2) Um[i] = a.u[i];
   }
-  for (int i = tid; i < 2 * F; i += nth) BN[i] = a.norm_mode != NORM_NONE ? a.bn[i] : 0.0f;
+  __syncthreads();
+  const EhOptimizer& o = *reinterpret_cast<const EhOptimizer*>(OS);
+  for (int i = tid; i < NP; i += nth) {
+    Pm[ehe_epoch_padded_index<MULTI>(a, i)] = params[i];
+    if (a.moments_shared) {
+      Mm[i] = a.m[member * NP + i];
+      Vm[i] = a.v[member * NP + i];
+    }
+    if (a.moments_shared == 2) Um[i] = a.u[member * NP + i];
+  }
+  for (int i = tid; i < 2 * F; i += nth) BN[i] = a.norm_mode != NORM_NONE ? bn[i] : 0.0f;
   for (int i = tid; i < n_consts; i += nth) Cc[i] = a.consts[i];
   for (int i = tid; i < K; i += nth) SC[G + i] = a.consts[2 * P + 2 * G + i];
   RES[a.r_off_one * ld + tid] = 1.0f;
@@ -378,7 +431,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   }
   __syncthreads();
   if (tid == nth - 1)  // the first step's numbers
-    ehe_opt_step_store(ehe_opt_step(o, (float)a.t[0] + 1.0f), MISC + 2);
+    ehe_opt_step_store(ehe_opt_step(o, (float)tk[0] + 1.0f), MISC + 2);
   if (a.norm_mode == NORM_STATIC) {
     for (int k = tid; k < F; k += nth) {
       BM[k] = BN[k];
@@ -395,7 +448,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const int n_units = ehe_epoch_n_units<MULTI>(a);
   const int pp_first = tid < NP ? ehe_epoch_padded_index<MULTI>(a, tid) : 0;  // of the thread's first parameter
   const int n_steps = a.n_epochs * a.n_batches;
-  float t = (float)a.t[0];   // every thread carries the same step count
+  float t = (float)tk[0];    // every thread carries the same step count
   float last_loss = 0.0f;    // warp 0 only
   float epoch_loss = 0.0f;   // warp 0 only
 #ifdef EHE_STAMPS
@@ -416,7 +469,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   };
   auto step_index = [&](int step) {
     const int e = step / a.n_batches;
-    return a.perm + (int64_t)e * a.n_rows + (int64_t)(step - e * a.n_batches) * B + row0;
+    return perm + (int64_t)e * a.n_rows + (int64_t)(step - e * a.n_batches) * B + row0;
   };
   // The sum over every block's and warp's partial i of `width`, taken by a
   // whole warp: lane e adds entries e, e + 32, ... of the blocks' partials in
@@ -1018,20 +1071,20 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
 
   if (rank == 0) {
     for (int i = tid; i < NP; i += nth) {
-      a.params[i] = Pm[ehe_epoch_padded_index<MULTI>(a, i)];
+      params[i] = Pm[ehe_epoch_padded_index<MULTI>(a, i)];
       if (a.moments_shared) {
-        a.m[i] = Mm[i];
-        a.v[i] = Vm[i];
+        a.m[member * NP + i] = Mm[i];
+        a.v[member * NP + i] = Vm[i];
       }
-      if (a.moments_shared == 2) a.u[i] = Um[i];
+      if (a.moments_shared == 2) a.u[member * NP + i] = Um[i];
     }
     if (a.norm_mode != NORM_NONE)
-      for (int i = tid; i < 2 * F; i += nth) a.bn[i] = BN[i];
+      for (int i = tid; i < 2 * F; i += nth) bn[i] = BN[i];
     if (tid == 0) {
-      a.t[0] = (int)lrintf(t);
-      a.loss[0] = last_loss;
+      tk[0] = (int)lrintf(t);
+      a.loss[member] = last_loss;
 #ifdef EHE_STAMPS
-      if (a.stamps != nullptr) {
+      if (a.stamps != nullptr && member == 0) {
         stamp_acc[EHE_N_STAMPS - 1] = clock64() - stamp_first;
         for (int k = 0; k < EHE_N_STAMPS; ++k) a.stamps[k] = stamp_acc[k];
       }
@@ -1052,8 +1105,9 @@ static int ehe_loss_floats(const EhFusedEpochArgs* a, int NW, int T) {
   return (a->loss_sst || k == LOSS_RMSE || ehe_loss_is_stat(k)) ? 9 * T + 5 * NW * T : 0;
 }
 
-// Shared-memory floats of one launch; ops/fused_epoch.py::_smem_floats
+// Shared-memory floats of one launch (56: EHE_OPT_WORDS); ops/fused_epoch.py::_smem_floats
 // computes the same.
+static_assert(EHE_OPT_WORDS == 56, "ehe_smem_floats counts the optimizer struct as 56 floats");
 static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
   const int F = a->n_features;
   const int P = a->n_neural;
@@ -1061,7 +1115,7 @@ static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
   const int NW = a->tile_rows / 32;
   const int COLS = F + a->n_forcing + 2 * T;
   return (size_t)a->n_padded + (1 + 2 * a->moments_shared) * a->n_params + NW * (1 + T + 2 * F) + 2 * F +
-         (2 * P + 2 * G + K) + 2 * G + K + 2 * F + T + 8 + 8 * a->n_unit_table +
+         (2 * P + 2 * G + K) + 2 * G + K + 2 * F + T + 8 + 8 * a->n_unit_table + 56 +
          (size_t)a->tile_rows * (a->res_floats + a->stages * COLS) + ehe_loss_floats(a, NW, T);
 }
 
@@ -1078,7 +1132,7 @@ static int ehe_launch_build(const EhFusedEpochArgs* args, size_t smem, cudaStrea
     allowed = true;
   }
   return (int)eh_launch_cluster(eh_fused_epoch_kernel<W, LOSSES, EHE_MULTI>, *args, args->cluster,
-                                args->tile_rows, smem, s);
+                                args->tile_rows, smem, s, args->n_members);
 }
 
 template <int W>
@@ -1117,7 +1171,9 @@ extern "C" int EHE_LAUNCHER(const EhFusedEpochArgs* args, int width, void* strea
       (args->moments_shared == 0 && c != 1) ||
       (args->optimizer.rule == OPT_AMSGRAD && args->moments_shared == 1) ||
       args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES ||
-      (args->stages != 0 && (args->stages != 2 || tr < args->block_rows))) {
+      (args->stages != 0 && (args->stages != 2 || tr < args->block_rows)) ||
+      args->n_members < 1 || args->n_members > 65535 ||
+      args->perm_stride < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -11,6 +11,14 @@ with ``share_nn=False`` every network leaf with a leading site axis), an
 and ``wh``, are transposed from JAX's ``(in, out)`` to torch's ``(out, in)``. Any missing, extra or wrongly shaped leaf raises.
 ``export_jax_params(module)`` is its inverse. This module does not import
 JAX: the caller converts the leaves with ``np.asarray``.
+
+``load_jax_population(module, params, state)`` and
+``export_jax_population(module, params, buffers)`` carry a population's
+member axis across: the JAX package's stacked ``(K, …)`` trees (a
+``PopulationResults``' ``params`` and ``state``, or ``jax.vmap`` of
+``model.init``) against the port's ``{name: (K, …)}`` dicts keyed like
+``module.named_parameters()`` and ``module.named_buffers()``, ``module``
+giving the layout.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ from .models.hybrid import MultiNNHybridModel, SingleNNHybridModel
 from .models.nn import MLP, LSTMNet
 from .parallel.multisite import MultiSiteHybridModel, SiteNetworks
 
-__all__ = ["load_jax_params", "export_jax_params", "jax_branch_of"]
+__all__ = ["load_jax_params", "export_jax_params", "jax_branch_of", "load_jax_population",
+           "export_jax_population"]
 
 # leaf path → (destination tensor, transform from the JAX array)
 _LeafMap = Dict[str, Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
@@ -207,3 +216,66 @@ def load_jax_params(module, params, state) -> None:
                 )
             with torch.no_grad():
                 dest.copy_(torch.from_numpy(value))
+
+
+def _named(module) -> Dict[int, Tuple[str, str]]:
+    """``id(tensor) -> ("params" or "state", name)`` for every parameter and buffer."""
+    out = {id(t): ("params", n) for n, t in module.named_parameters()}
+    out.update({id(t): ("state", n) for n, t in module.named_buffers()})
+    return out
+
+
+def load_jax_population(module, params, state) -> Tuple[Dict[str, torch.Tensor],
+                                                         Dict[str, torch.Tensor]]:
+    """The JAX package's stacked ``(K, …)`` ``params`` / ``state`` trees as
+    the port's ``({parameter name: (K, …)}, {buffer name: (K, …)})`` CPU
+    float32 tensors, in ``module``'s layout (weights transposed as
+    :func:`load_jax_params` does). A buffer the JAX state does not hold
+    (none for the hybrid models) keeps ``module``'s value on every member."""
+    want_params, want_state = _leaf_maps(module)
+    named = _named(module)
+    out: Dict[str, Dict[str, torch.Tensor]] = {"params": {}, "state": {}}
+    k = None
+    for kind, want, tree in (("params", want_params, params), ("state", want_state, state)):
+        got = _flatten(tree)
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        if missing or extra:
+            raise ValueError(f"JAX {kind} do not match the module: missing {missing}, extra {extra}")
+        for path, (dest, transform) in want.items():
+            value = np.array(transform(got[path]), np.float32)
+            if k is None:
+                k = value.shape[0]
+            if tuple(value.shape) != (k,) + tuple(dest.shape):
+                raise ValueError(f"JAX {kind} leaf {path!r} has shape {tuple(got[path].shape)}; a "
+                                 f"population of {k} expects {(k,) + tuple(dest.shape)} (after the "
+                                 "layout transform)")
+            out[named[id(dest)][0]][named[id(dest)][1]] = torch.from_numpy(value)
+    for name, b in module.named_buffers():
+        if name not in out["state"]:
+            out["state"][name] = b.detach().cpu().float().expand((k,) + tuple(b.shape)).clone()
+    return out["params"], out["state"]
+
+
+def export_jax_population(module, params: Dict[str, torch.Tensor],
+                          buffers: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of :func:`load_jax_population`: stacked ``(K, …)`` port
+    dicts as the JAX package's ``(params, state)`` trees of numpy arrays."""
+    want_params, want_state = _leaf_maps(module)
+    named = _named(module)
+    source = {"params": params, "state": buffers}
+    out = []
+    for want in (want_params, want_state):
+        flat = {}
+        for path, (t, transform) in want.items():
+            kind, name = named[id(t)]
+            flat[path] = np.array(transform(source[kind][name].detach().cpu().numpy()), np.float32)
+        out.append(_nest(flat))
+    tree_params, tree_state = out
+    if isinstance(module, (SingleNNHybridModel, MultiSiteHybridModel)) and module.nn is not None:
+        tree_state.setdefault("nn", {})
+    if isinstance(module, MultiNNHybridModel):
+        branches = tree_state.setdefault("nns", {})
+        for branch in module.nns:
+            branches.setdefault(branch, {})
+    return tree_params, tree_state

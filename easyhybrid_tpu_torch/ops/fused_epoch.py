@@ -53,6 +53,16 @@ gate) never halts. The plain versions obey the same word
 (:func:`obey_halt`): where it is set, the inputs and a loss of 0.
 :func:`fused_exactness_check` (the port of the JAX gate) holds the kernel
 against the torch epoch before ``train()`` trusts it.
+
+The member axis (population training; the JAX kernel under ``jax.vmap`` with
+its streamed optimizer scalars): :meth:`FusedEpoch.members` trains K models
+in one launch, a thread-block cluster each, every state tensor stacked with
+the member axis in front; each member has its own row index
+(:func:`member_row_index`), its data by the rows it points to
+(:meth:`FusedEpoch.member_data` stacks folds), and its optimizer numbers
+(:func:`member_opt_rows`, or the plan's). :func:`fused_members_reference` is
+its plain version, :func:`fused_epoch_reference` once a member. A launch of
+one member without member rows is ``train()``'s launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -96,10 +106,13 @@ __all__ = [
     "FusedParams",
     "fused_epoch_reference",
     "fused_epoch_unsupported_reason",
+    "fused_members_reference",
     "fused_exactness_check",
     "init_fused_opt_state",
     "launch_fused_epoch",
     "make_fused_epoch",
+    "member_opt_rows",
+    "member_row_index",
     "obey_halt",
     "supports_fused_epoch",
 ]
@@ -253,8 +266,8 @@ def _smem_floats(*, n_padded, n_params, f, p, g, k, t, n_forcing, threads, res, 
     nw = threads // 32
     cols = f + n_forcing + 2 * t
     return (n_padded + (1 + 2 * moments_shared) * n_params + nw * (1 + t + 2 * f) + 2 * f + (2 * p + 2 * g + k)
-            + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + threads * (res + stages * cols)
-            + loss_floats)
+            + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + _OPT_WORDS
+            + threads * (res + stages * cols) + loss_floats)
 
 
 class Geometry(NamedTuple):
@@ -512,7 +525,17 @@ class _Args(ctypes.Structure):
         ("nets", _Net * MAX_NETS),
         ("stamps", ctypes.c_void_p),
         ("halt", ctypes.c_void_p),
+        ("n_members", ctypes.c_int),
+        ("perm_stride", ctypes.c_int64),
+        ("member_opt", ctypes.c_void_p),
     ]
+
+
+# the optimizer numbers a member's row holds: _Optimizer's floats from lr to
+# rect_den (EHE_OPT_SCALARS in csrc/fused_epoch.cu), and the struct's size in
+# floats, which kernel 2 keeps in shared memory (EHE_OPT_WORDS)
+OPT_SCALARS = tuple(name for name, _ in _Optimizer._fields_[2:15])
+_OPT_WORDS = ctypes.sizeof(_Optimizer) // 4
 
 
 class PackedLayout:
@@ -1444,15 +1467,24 @@ def kernel_source(plan: FusedEpochPlan) -> str:
 
 def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
                        rows: torch.Tensor, loss: torch.Tensor, *, lib=None, stamps=None,
-                       halt=None) -> None:
-    """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
+                       halt=None, member_opt=None) -> None:
+    """Launch the CUDA kernel once over ``rows.shape[-2]`` epochs, updating
     ``packed`` and ``opt_state`` in place and writing the mean loss into
     ``loss``; raises if the launch is refused. Counts launches in
     ``launch_fused_epoch.launches``. ``lib`` is a measuring build of the
     kernel (:func:`stage_cycles`) in place of the package's library, and
     ``stamps`` the int64 tensor its stage cycles go to. ``halt`` is the halt
-    word (see the module docstring): a halted launch writes nothing."""
+    word (see the module docstring): a halted launch writes nothing.
+
+    The member axis (:meth:`FusedEpoch.members`): parameters ``(K, n)``
+    train K members in one launch, a cluster each, with every state tensor
+    stacked the same way (``t`` ``(K, 1)``, ``loss`` ``(K,)``); ``rows``
+    ``(K, E, n)`` gives each member its own row index (else one is shared)
+    and ``member_opt`` ``(K, len(OPT_SCALARS))`` its optimizer numbers
+    (:func:`member_opt_rows`; else the plan's)."""
     measuring = lib is not None  # not a launch of the package's kernel: not counted
+    a = launch_args(plan, packed, opt_state, data, rows, loss, stamps=stamps, halt=halt,
+                    member_opt=member_opt)
     source = kernel_source(plan)
     lib = lib or _build.kernel_library(source, plan.form, plan.loss_form)
     entry = _build.LAUNCHERS[source][0]
@@ -1462,6 +1494,26 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
             "the kernel's argument struct and its ctypes mirror differ in size: "
             f"{size} != {ctypes.sizeof(_Args)}"
         )
+    with torch.cuda.device(data.x.device):
+        stream = torch.cuda.current_stream(data.x.device).cuda_stream
+        rc = getattr(lib, entry)(ctypes.byref(a), plan.width, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    if not measuring:
+        launch_fused_epoch.launches += 1
+
+
+def launch_args(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
+                rows: torch.Tensor, loss: torch.Tensor, *, stamps=None, halt=None,
+                member_opt=None) -> _Args:
+    """The kernel's argument struct for a launch (see
+    :func:`launch_fused_epoch`): the plan's static fields, the tensors'
+    addresses, the sizes, the geometry and the member axis's count and
+    strides; raises on shapes the kernel does not read."""
+    members = packed.params.dim() == 2
+    k = packed.params.shape[0] if members else 1
+    _check_member_shapes(plan, packed, opt_state, rows, loss, member_opt, k, members)
     a = _Args.from_buffer_copy(plan.args_bytes)
     a.x = data.x.data_ptr()
     for i, c in enumerate(data.forcing):
@@ -1474,25 +1526,47 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.loss = loss.data_ptr()
-    a.n_rows = data.x.shape[0]
-    a.n_epochs = rows.shape[0]
+    a.n_rows = rows.shape[-1]  # the epoch stride of a row index
+    a.n_epochs = rows.shape[-2]
+    a.n_members = k
+    a.perm_stride = rows.shape[-2] * rows.shape[-1] if rows.dim() == 3 else 0
+    a.member_opt = member_opt.data_ptr() if member_opt is not None else None
     a.n_batches, a.batch = data.n_batches, data.batch
     geometry = plan.geometry(data.batch)
     a.tile_rows, a.stages, a.cluster = geometry.tile, geometry.stages, geometry.cluster
     a.block_rows, a.moments_shared = geometry.block_rows, geometry.moments_shared
     a.stamps = stamps.data_ptr() if stamps is not None else None
     a.halt = check_halt(halt, data.x.device)
-    with torch.cuda.device(data.x.device):
-        stream = torch.cuda.current_stream(data.x.device).cuda_stream
-        rc = getattr(lib, entry)(ctypes.byref(a), plan.width, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    if not measuring:
-        launch_fused_epoch.launches += 1
+    return a
 
 
 launch_fused_epoch.launches = 0
+
+
+def _check_member_shapes(plan, packed, opt_state, rows, loss, member_opt, k, members):
+    """Raise unless the launch's tensors have the shapes the kernel reads:
+    every state tensor with the member axis in front for a member launch,
+    a row index and optimizer rows of one member or of K."""
+    lead = (k,) if members else ()
+    want = {"parameters": (packed.params, lead + (plan.n_params,)),
+            "m": (opt_state["m"], lead + (plan.n_params,)),
+            "v": (opt_state["v"], lead + (plan.n_params,)),
+            "t": (opt_state["t"], lead + (1,)), "loss": (loss, (k,))}
+    if plan.has_norm:
+        want["bn"] = (packed.bn, lead + (2 * plan.n_features,))
+    if "u" in opt_state:
+        want["u"] = (opt_state["u"], lead + (plan.n_params,))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"the kernel's {name} must be a contiguous {shape}; got "
+                             f"{tuple(t.shape)}")
+    if rows.dim() not in (2, 3) or (rows.dim() == 3 and rows.shape[0] != k):
+        raise ValueError(f"the row index must be (E, n) or ({k}, E, n); got {tuple(rows.shape)}")
+    if member_opt is not None and (tuple(member_opt.shape) != (k, len(OPT_SCALARS))
+                                   or member_opt.dtype != torch.float32
+                                   or not member_opt.is_contiguous()):
+        raise ValueError(f"member optimizer rows must be float32 ({k}, {len(OPT_SCALARS)}); got "
+                         f"{member_opt.dtype} {tuple(member_opt.shape)}")
 
 # the stamped build's stages; the first four are "gather and statistics"
 STAGES = ("wait for the staged rows", "counts and mean", "start the next step's copies",
@@ -1591,6 +1665,144 @@ class FusedEpoch:
         """The plain version on the tensors' device (no launch)."""
         return self._reference(self.plan, packed, opt_state, self._make_data(self.plan, tensors),
                                self.rows(tensors, perms, generator), halt)
+
+    # ---- the member axis ------------------------------------------------------
+
+    def member_data(self, tensors) -> FusedData:
+        """The kernel's rows of a population's data: one :class:`EpochTensors`
+        shared by every member, or a sequence of them, one a member (a
+        cross-validation's folds, equal in shape), stacked fold after fold."""
+        if isinstance(tensors, EpochTensors):
+            return self._make_data(self.plan, tensors)
+        parts = [self._make_data(self.plan, t) for t in tensors]
+        first = parts[0]
+        if any((d.n_batches, d.batch) != (first.n_batches, first.batch) for d in parts):
+            raise ValueError("the members' epoch tensors differ in shape; pad them to one")
+        return FusedData(
+            x=torch.cat([d.x for d in parts]),
+            forcing=tuple(torch.cat(c) for c in zip(*(d.forcing for d in parts))),
+            y=tuple(torch.cat(c) for c in zip(*(d.y for d in parts))),
+            mask=tuple(torch.cat(c) for c in zip(*(d.mask for d in parts))),
+            n_batches=first.n_batches, batch=first.batch,
+        )
+
+    def member_rows(self, data: FusedData, k: int, *, per_member_data: bool, perms=None,
+                    generator=None, shared_perms: bool = True) -> torch.Tensor:
+        """The row index of a member launch over ``data``
+        (:func:`member_row_index`)."""
+        return member_row_index(self.shuffle, self.epochs, data.n_batches, data.batch, k,
+                                data.x.device, per_member_data=per_member_data, perms=perms,
+                                generator=generator, shared_perms=shared_perms)
+
+    def members(self, packed: FusedParams, opt_state, data: FusedData, rows: torch.Tensor, *,
+                specs=None, member_opt=None):
+        """K members in one launch on CUDA tensors (kernel 2's member axis),
+        the plain version member by member on CPU tensors
+        (:func:`fused_members_reference`). ``packed`` and every slot carry a
+        leading member axis (``t`` ``(K, 1)``); ``data`` is
+        :meth:`member_data`'s, ``rows`` :meth:`member_rows`'; ``specs``: each
+        member's optimizer spec, of the plan's rule (a sweep), else the
+        plan's for all, and ``member_opt`` their rows (:func:`member_opt_rows`)
+        where the caller made them ahead (a CUDA tensor made from host data
+        waits for the device). Returns ``(packed, opt_state, loss (K,))`` as new tensors."""
+        plan = self.plan
+        k = packed.params.shape[0]
+        if specs is not None and len(specs) != k:
+            raise ValueError(f"{len(specs)} optimizer specs for {k} members")
+        dev = data.x.device
+        if dev.type == "cpu":
+            return fused_members_reference(plan, packed, opt_state, data, rows, specs=specs)
+        if dev.type != "cuda":
+            raise ValueError(f"the fused epoch runs on CUDA or CPU tensors; got {dev}")
+        if member_opt is None and specs is not None:
+            member_opt = member_opt_rows(plan, specs, dev)
+        packed = FusedParams(packed.params.clone(), packed.bn.clone())
+        opt_state = {name: v.clone() for name, v in opt_state.items()}
+        loss = torch.zeros((k,), dtype=torch.float32, device=dev)
+        self._launch(plan, packed, opt_state, data, rows, loss, member_opt=member_opt)
+        return packed, opt_state, loss
+
+
+def member_row_index(shuffle, epochs: int, n_batches: int, batch: int, k: int, device, *,
+                     per_member_data: bool, perms=None, generator=None,
+                     shared_perms: bool = True) -> torch.Tensor:
+    """The row index of K members' epochs: ``(E, n)`` where every member
+    reads the same rows (a sweep's shared shuffle over shared data), else
+    ``(K, E, n)``: member k's own permutation (``shared_perms`` False: its
+    own draws, one member after another) and, over per-member data (the
+    members' rows one after another, :meth:`FusedEpoch.member_data`), its
+    rows ``k · n`` further on. ``perms``: ``(E, n)`` shared or ``(K, E, n)``
+    per member (sample or batch permutations, as for a call), else drawn
+    from ``generator``."""
+    n = n_batches * batch
+    shape_only = EpochTensors(x=None, forcing={}, y={}, mask={}, n_samples=0,
+                              weight=torch.empty((n_batches, batch), device=device))
+    if perms is None and shuffle is not False and n_batches > 1:
+        if shared_perms:
+            perms = perms_for_epochs(shuffle, shape_only, epochs, generator=generator)
+        else:
+            perms = torch.stack([perms_for_epochs(shuffle, shape_only, epochs, generator=generator)
+                                 for _ in range(k)])
+    if perms is not None and torch.is_tensor(perms) and perms.dim() == 3:
+        idx = torch.stack([row_index(shuffle, pm, n_batches, batch, epochs, device)
+                           for pm in perms])
+    else:
+        if perms is not None:
+            perms = perms_for_epochs(shuffle, shape_only, epochs, perm=perms)
+        idx = row_index(shuffle, perms, n_batches, batch, epochs, device)
+        if not per_member_data:
+            return idx
+        idx = idx.expand(k, *idx.shape)
+    if per_member_data:
+        offsets = torch.arange(k, dtype=torch.int32, device=device) * n
+        idx = idx + offsets[:, None, None]
+    return idx.contiguous()
+
+
+def member_plan(plan: FusedEpochPlan, spec) -> FusedEpochPlan:
+    """The plan with another optimizer spec of the same rule (a sweep's
+    member): what its K = 1 launch and its plain version read."""
+    if spec is None:
+        return plan
+    reason = optimizer_reason(spec)
+    if reason is not None:
+        raise ValueError(f"a member's optimizer: {reason}")
+    name, hyper = parse_opt_spec(spec)
+    if name != plan.opt_name or bool(dict(hyper).get("nesterov", 0.0)) != bool(
+            dict(plan.hyper).get("nesterov", 0.0)):
+        raise ValueError(f"a member's optimizer {spec!r} differs from the plan's rule "
+                         f"{plan.opt_name!r} (or its nesterov flag)")
+    return dataclasses.replace(plan, hyper=tuple(sorted(hyper.items())))
+
+
+def member_opt_rows(plan: FusedEpochPlan, specs, device=None) -> torch.Tensor:
+    """``(K, len(OPT_SCALARS))`` float32: each member's optimizer numbers,
+    filled exactly as :func:`optimizer_struct` fills the shared struct (the
+    same roundings: the struct's own floats are read back)."""
+    rows = []
+    for spec in specs:
+        o = optimizer_struct(member_plan(plan, spec))
+        rows.append([getattr(o, name) for name in OPT_SCALARS])
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+def fused_members_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
+                            rows: torch.Tensor, *, specs=None):
+    """The plain version of the member axis: :func:`fused_epoch_reference`
+    once per member, with that member's optimizer spec, row index (and so
+    its data) and state; the results stacked."""
+    k = packed.params.shape[0]
+    outs = []
+    for i in range(k):
+        plan_i = member_plan(plan, None if specs is None else specs[i])
+        rows_i = rows[i] if rows.dim() == 3 else rows
+        outs.append(fused_epoch_reference(
+            plan_i, FusedParams(packed.params[i], packed.bn[i]),
+            {name: v[i] for name, v in opt_state.items()}, data, rows_i))
+    return (FusedParams(torch.stack([o[0].params for o in outs]),
+                        torch.stack([o[0].bn for o in outs])),
+            {name: torch.stack([o[1][name] for o in outs]) for name in opt_state},
+            torch.stack([o[2] for o in outs]))
 
 
 def make_fused_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,

@@ -14,6 +14,15 @@ protocol: ``init(params) -> state`` and ``update(grads, state, params) ->
 (updates, state)``, where ``params`` / ``grads`` / ``updates`` are dicts
 ``name -> tensor`` and ``new_param = param + update``.
 
+Per-member hyperparameters (the counterpart of ``optax.inject_hyperparams``,
+for populations): ``update(..., scalars=...)`` takes the rule's numbers as
+tensors, :meth:`Optimizer.scalars` of each member stacked by
+:func:`member_scalars`, so that one update under ``torch.func.vmap`` serves
+members with different values. The numbers a rule derives from its
+hyperparameters (``1 - b1``, radam's ``ro_inf``) are taken once in double
+precision on the host, as the float form takes them, and rounded to float32
+once: the tensor form gives the float form's numbers bit for bit.
+
 Not ported yet: ``noisy_sgd`` (its optax noise stream), per-branch dict
 specs, and the second-order solvers (L-BFGS, zoom linesearch); each raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -30,6 +39,7 @@ __all__ = [
     "OPTIMIZERS",
     "Optimizer",
     "apply_updates",
+    "member_scalars",
     "parse_opt_spec",
     "resolve_optimizer",
 ]
@@ -130,48 +140,65 @@ def _zeros(t):
     return torch.zeros_like(t)
 
 
-def _leaf_update(name: str, h: Dict[str, float], g, p, s: Dict[str, Any], t):
+def hyper_scalars(name: str, hyper: Mapping[str, Optional[float]]) -> Dict[str, Optional[float]]:
+    """The numbers rule ``name`` reads: its hyperparameters and what it
+    derives from them (``1 - b1``, ``1 - b2``, ``1 - decay``, ``1 - rho``;
+    radam's ``ro_inf`` and ``rect_den = (ro_inf - 4) (ro_inf - 2)``), each
+    taken once in double precision."""
+    h = dict(hyper)
+    for k in ("b1", "b2", "decay", "rho"):
+        if k in h:
+            h["1-" + k] = 1.0 - h[k]
+    if name == "radam":
+        ro_inf = 2.0 / (1.0 - h["b2"]) - 1.0
+        h["ro_inf"], h["rect_den"] = ro_inf, (ro_inf - 4.0) * (ro_inf - 2.0)
+    return h
+
+
+def _leaf_update(name: str, h: Dict[str, Any], g, p, s: Dict[str, Any], t, trace: bool):
     """One rule on one tensor: returns ``(update, new_slots)`` with ``update``
-    the additive change of the parameter (the learning rate applied).
-    ``t`` is the incremented step count as a float32 tensor."""
+    the additive change of the parameter (the learning rate applied). ``h``
+    holds :func:`hyper_scalars`' numbers, as Python floats or as float32
+    tensors; ``t`` is the incremented step count as a float32 tensor;
+    ``trace`` says whether sgd keeps its momentum trace."""
     lr = h["learning_rate"]
     if name == "sgd":
-        mom = h["momentum"]
-        if mom == 0.0:
+        if not trace:
             return -lr * g, s
+        mom = h["momentum"]
         tr = g + mom * s["trace"]  # optax.trace
         upd = g + mom * tr if h["nesterov"] else tr
         return -lr * upd, {"trace": tr}
     if name == "rmsprop":
-        nu = (1.0 - h["decay"]) * (g * g) + h["decay"] * s["nu"]
+        nu = h["1-decay"] * (g * g) + h["decay"] * s["nu"]
         return -lr * (g * torch.rsqrt(nu + h["eps"])), {"nu": nu}
     if name == "adagrad":
         sos = g * g + s["sum_of_squares"]
         inv = torch.where(sos > 0, torch.rsqrt(sos + h["eps"]), torch.zeros_like(sos))
         return -lr * (inv * g), {"sum_of_squares": sos}
     if name == "lion":
-        upd = torch.sign((1.0 - h["b1"]) * g + h["b1"] * s["mu"]) + h["weight_decay"] * p
-        mu = (1.0 - h["b2"]) * g + h["b2"] * s["mu"]
+        upd = torch.sign(h["1-b1"] * g + h["b1"] * s["mu"]) + h["weight_decay"] * p
+        mu = h["1-b2"] * g + h["b2"] * s["mu"]
         return -lr * upd, {"mu": mu}
     if name == "adadelta":
         rho, eps = h["rho"], h["eps"]
         ge = g + h["weight_decay"] * p
-        e_g = (1.0 - rho) * (ge * ge) + rho * s["e_g"]
+        e_g = h["1-rho"] * (ge * ge) + rho * s["e_g"]
         upd = (torch.sqrt(s["e_x"] + eps) / torch.sqrt(e_g + eps)) * ge
-        e_x = (1.0 - rho) * (upd * upd) + rho * s["e_x"]
+        e_x = h["1-rho"] * (upd * upd) + rho * s["e_x"]
         return (upd if lr is None else -lr * upd), {"e_g": e_g, "e_x": e_x}
 
     b1, b2 = h["b1"], h["b2"]
-    mu = (1.0 - b1) * g + b1 * s["mu"]
+    mu = h["1-b1"] * g + b1 * s["mu"]
     if name == "adamax":
         nu = torch.maximum(torch.abs(g) + h["eps"], b2 * s["nu"])
         upd = (mu / (1.0 - torch.pow(b1, t))) / nu
         return -lr * upd, {"mu": mu, "nu": nu}
-    nu = (1.0 - b2) * (g * g) + b2 * s["nu"]
+    nu = h["1-b2"] * (g * g) + b2 * s["nu"]
     eps, eps_root = h["eps"], h.get("eps_root", 0.0)
     nu_hat = nu / (1.0 - torch.pow(b2, t))
     if name == "nadam":
-        mu_hat = b1 * (mu / (1.0 - torch.pow(b1, t + 1.0))) + (1.0 - b1) * (
+        mu_hat = b1 * (mu / (1.0 - torch.pow(b1, t + 1.0))) + h["1-b1"] * (
             g / (1.0 - torch.pow(b1, t)))
     else:
         mu_hat = mu / (1.0 - torch.pow(b1, t))
@@ -181,10 +208,10 @@ def _leaf_update(name: str, h: Dict[str, float], g, p, s: Dict[str, Any], t):
         slots["nu_max"] = nu_max
         return -lr * (mu_hat / (torch.sqrt(nu_max + eps_root) + eps)), slots
     if name == "radam":
-        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        ro_inf = h["ro_inf"]
         b2t = torch.pow(b2, t)
         ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
-        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / (h["rect_den"] * ro))
         rect = r * mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
         return -lr * torch.where(ro >= h["threshold"], rect, mu_hat), slots
     upd = mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
@@ -231,9 +258,15 @@ class Optimizer:
                 state[slot] = {k: _zeros(v) for k, v in params.items()}
         return state
 
-    def update(self, grads, state, params):
-        """``(updates, new_state)`` for gradients ``grads``."""
-        h = self.hyperparameters
+    def scalars(self) -> Dict[str, Optional[float]]:
+        """The numbers the rule reads (:func:`hyper_scalars`), as floats."""
+        return hyper_scalars(self.name, self.hyperparameters)
+
+    def update(self, grads, state, params, scalars=None):
+        """``(updates, new_state)`` for gradients ``grads``. ``scalars``: the
+        rule's numbers as tensors (:func:`member_scalars`), else the
+        optimizer's own as floats."""
+        h = self.scalars() if scalars is None else scalars
         count = state["count"] + 1
         t = count.to(torch.float32)
         slots = self.slots
@@ -241,7 +274,7 @@ class Optimizer:
         new_state: Dict[str, Any] = {"count": count, **{s: {} for s in slots}}
         for k, g in grads.items():
             upd, new = _leaf_update(
-                self.name, h, g, params[k], {s: state[s][k] for s in slots}, t
+                self.name, h, g, params[k], {s: state[s][k] for s in slots}, t, bool(slots)
             )
             updates[k] = upd
             for s in slots:
@@ -252,6 +285,28 @@ class Optimizer:
 def apply_updates(params, updates):
     """``params + updates``, leaf by leaf (new tensors)."""
     return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
+
+
+def member_scalars(optimizers, device=None) -> Dict[str, torch.Tensor]:
+    """Members' rule numbers stacked into float32 tensors ``(K,)`` a number,
+    for ``Optimizer.update(..., scalars=...)`` under ``torch.func.vmap``
+    (each member reads its own row). The members share a rule, sgd's
+    Nesterov flag and adadelta's learning-rate form; sgd keeps its trace for
+    every member when any has momentum, a member without one then updating
+    by ``g + 0 · trace``, the same numbers as plain sgd's."""
+    first = optimizers[0]
+    rows = [o.scalars() for o in optimizers]
+    for o, row in zip(optimizers, rows):
+        if o.name != first.name:
+            raise ValueError(f"population members differ in their rule: {first.name!r}, {o.name!r}")
+        if set(row) != set(rows[0]) or (row.get("nesterov") or 0.0) != (rows[0].get(
+                "nesterov") or 0.0) or (row["learning_rate"] is None) != (
+                rows[0]["learning_rate"] is None):
+            raise ValueError("population members differ in a static option of their rule "
+                             "(sgd's nesterov, adadelta's learning rate)")
+    return {k: (rows[0][k] if k == "nesterov" or rows[0][k] is None
+                else torch.tensor([row[k] for row in rows], dtype=torch.float32, device=device))
+            for k in rows[0]}
 
 
 def resolve_optimizer(spec, params: Optional[Any] = None) -> Optimizer:

@@ -1110,3 +1110,131 @@ def test_train_deferred_equals_eager_on_kernel_2_with_an_early_stop(cuda):
         assert np.array_equal(a.y_hat_val["reco"], b.y_hat_val["reco"])
         assert np.array_equal(a.y_hat_train["parameters"]["rb"], b.y_hat_train["parameters"]["rb"])
     np.testing.assert_array_equal(d.val_pred_columns["reco_pred"], e.val_pred_columns["reco_pred"])
+
+
+# ---- kernel 2's member axis ------------------------------------------------------
+
+
+def _member_launch(cuda, *, per_member_data, sweep, norm="static", k=3):
+    """A member launch's inputs on the card: k members of the quick-start
+    model ([16, 16] swish) at 1,500 rows' training split, batch 256, 2
+    epochs; a sweep of learning rates (member rows) over shared data and
+    one permutation, or members of their own permutations (and folds)."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    cols = et.rbq10_columns(1500, seed=4)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm=norm, device=cuda)
+    ll = et.LoggingLoss(training_loss="mse", loss_types=("mse",))
+    specs = [("adam", {"learning_rate": lr}) for lr in (0.001, 0.05, 0.001)[:k]] if sweep else None
+    fn = et.make_fused_epoch(m, ("adam", 0.001), ll, shuffle=True, epochs_per_call=2)
+    prepared = et.prepare_data(m, cols)
+    splits = ([prepared.take(np.arange(i, prepared.n_samples, k)[: prepared.n_samples // k])
+               for i in range(k)] if per_member_data else [et.split_data(cols, m)[0]])
+    inits = [pop.init_member_params(m, 0 if sweep else s) for s in range(k)]  # a sweep: one init
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = []
+    for i in range(k):
+        et.fit_input_norm(m, splits[i % len(splits)])
+        buffers.append({n: b.detach().clone() for n, b in m.named_buffers()})
+    buffers = {n: torch.stack([b[n] for b in buffers]) for n in buffers[0]}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(m), params, buffers)
+    opt = pop._stacked_opt_state(packed, ("adam", 0.001), k)
+    tensors = [epoch_tensors_to(et.build_epoch_tensors(s, 256), cuda) for s in splits]
+    data = fn.member_data(tensors if per_member_data else tensors[0])
+    rows = fn.member_rows(data, k, per_member_data=per_member_data,
+                          generator=torch.Generator(device=cuda).manual_seed(1),
+                          shared_perms=sweep)
+    return fn, packed, opt, data, rows, specs
+
+
+@pytest.mark.parametrize("per_member_data,sweep,norm", [
+    (False, True, "static"), (False, False, True), (True, False, "static")], ids=str)
+def test_member_launch_matches_plain_and_each_member_alone(cuda, per_member_data, sweep, norm):
+    """K members in one launch within 1e-4 * max(1, |plain|) of the member
+    axis's plain version, every member bit for bit a launch of it alone
+    (train()'s launch at its spec, rows and data), and a second run's bits."""
+    fn, packed, opt, data, rows, specs = _member_launch(cuda, per_member_data=per_member_data,
+                                                        sweep=sweep, norm=norm)
+    before = fe.launch_fused_epoch.launches
+    got = fn.members(packed, opt, data, rows, specs=specs)
+    torch.cuda.synchronize()
+    assert fe.launch_fused_epoch.launches - before == 1
+    again = fn.members(packed, opt, data, rows, specs=specs)
+    ref = fe.fused_members_reference(fn.plan, packed, opt, data, rows, specs=specs)
+    for a, b, r in zip((got[0].params, got[0].bn, *got[1].values(), got[2]),
+                       (again[0].params, again[0].bn, *again[1].values(), again[2]),
+                       (ref[0].params, ref[0].bn, *ref[1].values(), ref[2])):
+        assert torch.equal(a, b)
+        a, r = a.float(), r.float()
+        assert bool(((a - r).abs() <= 1e-4 * r.abs().clamp_min(1)).all())
+    for i in range(packed.params.shape[0]):
+        plan = fe.member_plan(fn.plan, None if specs is None else specs[i])
+        p = fe.FusedParams(packed.params[i].clone(), packed.bn[i].clone())
+        o = {k: v[i].clone() for k, v in opt.items()}
+        loss = torch.zeros((1,), device=cuda)
+        fe.launch_fused_epoch(plan, p, o, data, (rows[i] if rows.dim() == 3 else rows).contiguous(),
+                              loss)
+        assert torch.equal(p.params, got[0].params[i]) and torch.equal(p.bn, got[0].bn[i])
+        assert all(torch.equal(o[k], got[1][k][i]) for k in o)
+        assert torch.equal(loss[0], got[2][i])
+    if sweep:  # the duplicate member
+        assert torch.equal(got[0].params[0], got[0].params[2])
+
+
+def test_population_train_takes_the_member_axis(cuda):
+    """A sweep and a fold split through the entry points: the member axis
+    behind its gate and self-check, one launch per block for every member,
+    no call waiting for the device between the first block and the fetch."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    cols = et.rbq10_columns(2000, seed=42)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        sweep = et.population_train(m, cols, hyper={"learning_rate": [0.003, 0.01, 0.03, 0.01]},
+                                    nepochs=20, batchsize=256, eval_every=5, seed=11)
+        cv = et.population_cross_validate(m, cols, k=3, nepochs=10, batchsize=256, eval_every=5)
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    assert sweep.epoch_path == "population_vmap_fused", sweep.engine_reason
+    assert "member self-check passed" in sweep.engine_reason
+    assert sweep.kernel_launches == 4 and cv.kernel_launches == 2
+    assert all(torch.equal(v[1], v[3]) for v in sweep.params.values())
+    assert np.isfinite(sweep.best_losses).all() and sweep.val_history["mse"].shape == (4, 4)
+    assert cv.epoch_path == "population_vmap_cv_fused", cv.engine_reason
+    assert np.isfinite(cv.best_losses).all() and cv.best_losses.shape == (3,)
+    torch_run = et.population_train(m, cols, hyper={"learning_rate": [0.003, 0.01]}, nepochs=5,
+                                    batchsize=256, eval_every=5, use_kernel=False)
+    assert torch_run.epoch_path == "population_vmap" and np.isfinite(torch_run.best_losses).all()
+    assert torch_run.kernel_launches == 0
+
+
+def test_a_refused_member_axis_runs_the_torch_engine_under_auto(cuda, monkeypatch):
+    """With use_kernel="auto" a failed member self-check runs the torch
+    engine and names the failure; with use_kernel=True it raises."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    monkeypatch.setattr(pop, "_VERDICTS", {})
+    monkeypatch.setattr(pop, "member_selfcheck", lambda *a, **k: "member 2 differs in m")
+    cols = et.rbq10_columns(600, seed=4)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    kw = dict(hyper={"learning_rate": [0.003, 0.01]}, nepochs=2, batchsize=128, eval_every=2)
+    r = et.population_train(m, cols, **kw)
+    assert (r.epoch_path, r.engine_reason, r.kernel_launches) == (
+        "population_vmap", "member self-check failed: member 2 differs in m", 0)
+    with pytest.raises(RuntimeError, match="member self-check failed: member 2 differs in m"):
+        et.population_train(m, cols, use_kernel=True, **kw)
