@@ -906,6 +906,7 @@ def multisite_main_path(et, card) -> dict:
                 f"{fm.launch_fused_multisite.launches - before} launcher calls (gate included), "
                 f"{steps} steps, best val mse {mini.best_loss:.5f}; {mini_wall:.2f} s wall (ok)")
     return dict(launches=launches, primitive_launches=prim_launches, wall=wall, data=data,
+                q10_true=q10_true,
                 table_s=table_s, prepare_s=prepare_s, halted=after_stop)
 
 
@@ -3147,6 +3148,309 @@ def population_main_paths(et, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 33-34: kernel 5's member axis and the multi-site seed ensemble
+# ---------------------------------------------------------------------------
+
+# examples/multisite_fluxnet.py:111-125's ensemble at phase 11's scale
+MS_ENSEMBLE_KW = dict(seeds=[0, 1, 2, 3], optimizer="adam", nepochs=60, batchsize=MS_SITES,
+                      eval_every=5, split_data_at=0.8, seed=5)
+# the example's own size: 64 sites x 200 observations
+MS_EXAMPLE_SITES, MS_EXAMPLE_OBS = 64, 200
+
+
+def multisite_member_cases():
+    """Phase 33's cases, each over 2 epochs: ``(what, prepare_multisite_case
+    kwargs, members)``; the last member of each is a duplicate of the first
+    (its seed, its permutations)."""
+    mini = dict(S=10_240, N=MS_OBS, batch=2_560, norm=False)
+    return [
+        (f"{MS_TRAIN_SITES} sites x {MS_OBS}, one site batch, adam, seeds 0-2 and a duplicate",
+         dict(S=MS_TRAIN_SITES, N=MS_OBS), 4),
+        ("10,240 sites in batches of 2,560, shuffled, a permutation each",
+         dict(shuffle=True, **mini), 4),
+        ("10,240 sites in batches of 2,560, unshuffled, rmse", dict(loss="rmse", **mini), 4),
+        ("lamb (per-member lamb parts), S=300 batch 128, shuffled",
+         dict(S=300, N=8, batch=128, shuffle=True, opt=("lamb", 0.01)), 3),
+        ("two per-site globals, N=1: 512 globals for a tile of 256 rows",
+         dict(S=700, N=1, **TWO_GLOBALS), 3),
+    ]
+
+
+# prepare_multisite_case's own keywords; the others build the model
+PREPARE_KEYS = ("S", "N", "batch", "epochs", "opt", "loss", "agg", "shuffle", "nan_frac",
+                "mask_batch", "seed", "target_blocks")
+
+
+def multisite_members(et, k, **case):
+    """A member call's inputs from ``prepare_multisite_case``'s: ``k``
+    members drawn from seeds ``0..k-2`` and a duplicate of the first
+    (``init_member_params``), zero slots, the shared data, and a site index
+    of each member's own permutations (the duplicate's its twin's):
+    ``(fn, packed, opt_state, data, index, tensors, perms)``."""
+    from easyhybrid_tpu_torch.training import population as pop
+    from easyhybrid_tpu_torch.training.epoch import perms_for_epochs
+
+    _, fn, packed0, tensors, _ = prepare_multisite_case(et, what="", **case)
+    model = multisite_model(et, case["S"], **{key: v for key, v in case.items()
+                                               if key not in PREPARE_KEYS})
+    inits = [pop.init_member_params(model, s) for s in list(range(k - 1)) + [0]]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = {n: b.detach().expand((k,) + tuple(b.shape)).clone()
+               for n, b in model.named_buffers()}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(model), params, buffers)
+    # every member's norm statistics are the case's, fitted on its data
+    packed.bn.copy_(packed0.bn.expand_as(packed.bn))
+    opt_state = pop._stacked_opt_state(packed, (fn.plan.opt_name, dict(fn.plan.hyper)), k)
+    data = fn.member_data(tensors)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    perms = [perms_for_epochs(fn.shuffle, tensors, fn.epochs, generator=gen) for _ in range(k - 1)]
+    perms.append(perms[0])
+    index = fn.member_rows(data, k, perms=None if perms[0] is None else torch.stack(perms))
+    return fn, packed, opt_state, data, index, tensors, perms
+
+
+def multisite_member_fields(out, n_shared, i=None) -> dict:
+    p, o, loss = out
+    fields = {"shared": p.params[..., :n_shared], "per-site": p.params[..., n_shared:],
+              **{k: v.float() for k, v in o.items()}, "loss": loss}
+    return fields if i is None else {k: v[i] for k, v in fields.items()}
+
+
+def multisite_member_checks(et) -> float:
+    """Phase 33: kernel 5's member axis against its plain version on the
+    card within ``TOL_EPOCH``, each member bit for bit a call of it alone
+    (``train()``'s call from its state on its permutations), the duplicate
+    its twin's bits, a second run the first's; then a K = 1 member call
+    against ``train()``'s."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+
+    worst = 0.0
+    for what, case, k in multisite_member_cases():
+        fn, packed, opt0, data, index, tensors, perms = multisite_members(et, k, **case)
+        n_shared = fn.plan.offsets()["p_g"]
+        before = fm.launch_fused_multisite.launches
+        got = fn.members(packed, opt0, data, index)
+        torch.cuda.synchronize()
+        if fm.launch_fused_multisite.launches - before != 1:
+            raise AssertionError(f"{what}: the member call took "
+                                 f"{fm.launch_fused_multisite.launches - before} launcher calls")
+        again = fn.members(packed, opt0, data, index)
+        scale, valid = fm.member_scales(fn.plan, data, index, same_batches=fn._same_batches(data))
+        ref = fm.fused_multisite_members_reference(fn.plan, packed, opt0, data, index, scale, valid)
+        g, a = multisite_member_fields(got, n_shared), multisite_member_fields(again, n_shared)
+        if not all(bool(torch.isfinite(v).all()) for v in g.values()):
+            raise AssertionError(f"{what}: the member call returned non-finite values")
+        if not all(torch.equal(g[f], a[f]) for f in g):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        err = compare(g, multisite_member_fields(ref, n_shared), what, TOL_EPOCH)
+        worst = max(worst, err)
+        for i in range(k):
+            p = fe.FusedParams(packed.params[i].clone(), packed.bn[i].clone())
+            o = {n: v[i].clone() for n, v in opt0.items()}
+            alone = multisite_member_fields(fn(p, o, tensors, perms=perms[i]), n_shared)
+            mine = multisite_member_fields(got, n_shared, i)
+            if not all(torch.equal(mine[f], alone[f]) for f in alone):
+                raise AssertionError(f"{what}: member {i} differs from a call of it alone")
+        if not all(torch.equal(v[0], v[k - 1]) for v in g.values()):
+            raise AssertionError(f"{what}: the duplicate member differs from its twin")
+        log("kernel5-members", f"{what}: K={k}, {fn.geometry(tensors)} a member, "
+                               f"{int(g['t'][0].item())} steps, max |diff| vs plain {err:.3e}; "
+                               "every member equal to its call alone, the duplicate to its twin, "
+                               "second run bitwise equal (ok)")
+    # K = 1 through the member path is train()'s call
+    fn, packed, opt0, data, index, tensors, perms = multisite_members(
+        et, 2, **multisite_member_cases()[0][1])
+    one = (fe.FusedParams(packed.params[:1].contiguous(), packed.bn[:1].contiguous()),
+           {n: v[:1].contiguous() for n, v in opt0.items()})
+    n_shared = fn.plan.offsets()["p_g"]
+    got = multisite_member_fields(fn.members(*one, data, index), n_shared, 0)
+    alone = multisite_member_fields(
+        fn(fe.FusedParams(packed.params[0].clone(), packed.bn[0].clone()),
+           {n: v[0].clone() for n, v in opt0.items()}, tensors, perms=perms[0]), n_shared)
+    if not all(torch.equal(got[f], alone[f]) for f in alone):
+        raise AssertionError("a K = 1 member call differs from train()'s call")
+    log("kernel5-members", "a K = 1 member call (one index, no member axis in the strides) equals "
+                           "train()'s call bit for bit (ok)")
+    return worst
+
+
+def ms_population_run(et, model, data, **kw):
+    """One multi-site population call on the card under
+    ``set_sync_debug_mode("error")``: ``(result, wall s, kernel 5's launcher
+    calls)``, the count set to 0 just before the call (a first call's gate
+    and self-check included; the loop's own are ``result.kernel_launches``)."""
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+    from easyhybrid_tpu_torch.training import deferred
+
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        torch.cuda.synchronize()
+        fm.launch_fused_multisite.launches = 0
+        t0 = time.perf_counter()
+        result = et.population_train(model, data, **{**MS_ENSEMBLE_KW, **kw})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    return result, wall, fm.launch_fused_multisite.launches
+
+
+def example_sites(et):
+    """``examples/multisite_fluxnet.py``'s own table: 64 sites x 200 rows,
+    each site's true Q10 from [1.4, 2.8]."""
+    rng = np.random.default_rng(7)
+    q10 = rng.uniform(1.4, 2.8, MS_EXAMPLE_SITES)
+    parts = [et.rbq10_columns(MS_EXAMPLE_OBS, seed=7 + s, true_q10=float(q10[s]))
+             for s in range(MS_EXAMPLE_SITES)]
+    table = {k: np.concatenate([c[k] for c in parts]) for k in ("sw_pot", "dsw_pot", "ta", "reco")}
+    table["site"] = np.repeat(np.arange(MS_EXAMPLE_SITES, dtype=np.int32), MS_EXAMPLE_OBS)
+    return table
+
+
+def member_call_inputs(et, model, data, k, epochs):
+    """A member call of ``k`` members of the ensemble's configuration (one
+    site batch of every site, ``epochs`` epochs, adam 0.01): ``(fn, packed,
+    opt_state, data, index)``."""
+    from easyhybrid_tpu_torch.training import population as pop
+    from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to
+
+    train_data = et.split_data(data, model, split_data_at=MS_ENSEMBLE_KW["split_data_at"])[0]
+    et.fit_input_norm(model, train_data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(train_data, model.n_sites), "cuda")
+    fn = et.make_fused_multisite_epoch(model, ("adam", 0.01), et.LoggingLoss(),
+                                       shuffle=True, epochs_per_call=epochs)
+    inits = [pop.init_member_params(model, s) for s in range(k)]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = {n: b.detach().expand((k,) + tuple(b.shape)).clone()
+               for n, b in model.named_buffers()}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(model), params, buffers)
+    shaped = fn.member_data(tensors)
+    return (fn, packed, pop._stacked_opt_state(packed, ("adam", 0.01), k), shaped,
+            fn.member_rows(shaped, k))
+
+
+def multisite_population_main_path(et, card, ms_main) -> dict:
+    """Phase 34: ``examples/multisite_fluxnet.py``'s seed ensemble at phase
+    11's scale through ``population_train`` on kernel 5's member axis, then
+    ``ensemble_predict`` on it, then the times."""
+    from easyhybrid_tpu_torch.ops import fused_multisite as fm
+
+    data, q10_true = ms_main["data"], ms_main["q10_true"]
+    model = multisite_model(et, MS_SITES)
+    blocks = MS_ENSEMBLE_KW["nepochs"] // MS_ENSEMBLE_KW["eval_every"]
+    ens, first_wall, first_launches = ms_population_run(et, model, data)
+    if ens.epoch_path != "population_vmap_fused" or not ens.engine_reason.startswith(
+            "multisite kernel:"):
+        raise AssertionError(f"the ensemble took {ens.epoch_path!r}: {ens.engine_reason}")
+    if ens.kernel_launches != blocks:
+        raise AssertionError(f"the ensemble called kernel 5's launcher {ens.kernel_launches} "
+                             f"times for 4 members, not {blocks}")
+    q10 = et.scale_param(ens.best_params["globals.Q10"], 1.0, 4.0).numpy()[..., 0]  # (K, S)
+    train = slice(0, MS_TRAIN_SITES)
+    corr = [float(np.corrcoef(q10[i, train], q10_true[train])[0, 1]) for i in range(len(q10))]
+    untouched = float(np.abs(q10[:, MS_TRAIN_SITES:] - 2.0).max())
+    spread = q10[:, train].std(axis=0)
+    if not (min(corr) > 0.8 and untouched < 1e-6 and np.isfinite(ens.best_losses).all()):
+        raise AssertionError(f"the ensemble's per-site Q10: correlations {corr} with the truth "
+                             f"(need > 0.8), validation sites moved by {untouched:.2e}")
+    log("main", f"population_train, examples/multisite_fluxnet.py's 4-seed ensemble at "
+                f"{MS_SITES} sites x {MS_OBS}: {ens.epoch_path} ({ens.engine_reason}), "
+                f"{ens.kernel_launches} launcher calls for {blocks} blocks of "
+                f"{MS_ENSEMBLE_KW['eval_every']} epochs ({first_launches} with the gate's and the "
+                "self-check's); per-site Q10 of the training sites against the truth: correlation "
+                + ", ".join(f"{c:.4f}" for c in corr) + f" by member; the seed-to-seed spread of "
+                f"Q10: mean {spread.mean():.5f}, max {spread.max():.5f}; the validation sites "
+                f"untouched in every member; best val mse {np.min(ens.best_losses):.5f}-"
+                f"{np.max(ens.best_losses):.5f}; first call {first_wall:.2f} s with its gate and "
+                "self-check; no synchronising call (ok)")
+
+    # ensemble_predict against the members' own predict
+    out = et.ensemble_predict(model, ens, data)
+    members = []
+    for i in range(len(ens.seeds)):
+        with torch.no_grad():
+            for n, t in model.named_parameters():
+                t.copy_(ens.best_params[n][i])
+            for n, t in model.named_buffers():
+                t.copy_(ens.state[n][i])
+        members.append(et.predict(model, data))
+    want = {}
+    for key in members[0]:
+        stack = torch.from_numpy(np.stack([m[key] for m in members]))
+        want[key] = stack.mean(0)
+        want[key + "_std"] = stack.std(0, correction=0)
+    pred_err = compare({k: torch.from_numpy(np.asarray(v)) for k, v in out.items()}, want,
+                       "ensemble_predict against the members' predict", TOL)
+    log("main", f"ensemble_predict over the 4 members: keys {sorted(out)}, reco "
+                f"{out['reco'].shape}; within {TOL} x max(1, |ref|) of the mean and std of the "
+                f"members' predict (max |diff| {pred_err:.3e}) (ok)")
+
+    # times: second calls, as the JAX bench takes them
+    again, ens_wall, launches = ms_population_run(et, model, data)
+    if not launches == again.kernel_launches == blocks:
+        raise AssertionError(f"the ensemble's second call: {launches} launcher calls of kernel 5, "
+                             f"{again.kernel_launches} by its record, not {blocks}")
+    ms_population_run(et, model, data, seeds=[0])
+    _, one_wall, _ = ms_population_run(et, model, data, seeds=[0])
+    t0 = time.perf_counter()
+    torch_run = et.population_train(model, data, **{**MS_ENSEMBLE_KW, "nepochs": 5,
+                                                    "use_kernel": False})
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    if torch_run.epoch_path != "population_vmap":
+        raise AssertionError(f"use_kernel=False took {torch_run.epoch_path!r}")
+    log("times", f"[{card}] multi-site ensemble walls, second calls: 4 members {ens_wall:.3f} s, "
+                 f"one member {one_wall:.3f} s, amplification 4 x one / ensemble "
+                 f"{4 * one_wall / ens_wall:.2f}; the torch engine on the ensemble cut to 5 epochs "
+                 f"{torch_wall:.2f} s ({torch_wall * 12:.1f} s per 60)")
+
+    # kernel 5 per member call at K = 1 and K = 4: one block of the ensemble, and at
+    # the example's own size
+    epochs = MS_ENSEMBLE_KW["eval_every"]
+    example = et.MultiSiteHybridModel(build_model(et), n_sites=MS_EXAMPLE_SITES)
+    example_data = et.prepare_multisite_data(example.base, example_sites(et), "site")
+    times, plain, err = {}, None, 0.0
+    for shape, m, d in ((f"{MS_SITES} x {MS_OBS}", multisite_model(et, MS_SITES), data),
+                        (f"{MS_EXAMPLE_SITES} x {MS_EXAMPLE_OBS}", example, example_data)):
+        for k in (1, 4):
+            fn, packed, opt0, shaped, index = member_call_inputs(et, m, d, k, epochs)
+
+            def call(fn=fn, packed=packed, opt0=opt0, shaped=shaped, index=index):
+                return fn.members(packed, opt0, shaped, index)
+
+            host_ms(call, 2)
+            times[shape, k] = statistics.median(device_ms(call, 10, f"kernel 5, K={k}")
+                                                for _ in range(5))
+            if shape.startswith(str(MS_SITES)) and k == 4:
+                got = call()
+                held = []
+                scale, valid = fm.member_scales(fn.plan, shaped, index,
+                                                same_batches=fn._same_batches(shaped))
+                plain = profiled_device_ms(lambda: held.append(fm.fused_multisite_members_reference(
+                    fn.plan, packed, opt0, shaped, index, scale, valid)), 1)
+                n_shared = fn.plan.offsets()["p_g"]
+                err = compare(multisite_member_fields(got, n_shared),
+                              multisite_member_fields(held[-1], n_shared),
+                              "kernel 5, the ensemble's member call at K=4", TOL_EPOCH)
+                samples = MS_TRAIN_SITES * MS_OBS
+                bnd = bound(bytes_moved=k * epochs * (samples * 4 * 5 + MS_SITES * 4 * 6),
+                            flops=k * epochs * samples * 3 * forward_flops((2, 16, 16, 1)))
+    log("times", f"[{card}] kernel 5, one member call of {epochs} epochs of one site batch, median "
+                 "of 5, device ms: "
+                 + "; ".join(f"{shape}: K=1 {times[shape, 1]:.4f}, K=4 {times[shape, 4]:.4f} "
+                             f"({times[shape, 4] / times[shape, 1]:.2f}x for 4x the work)"
+                             for shape in dict.fromkeys(s for s, _ in times))
+                 + f"; the K=4 plain version at {MS_SITES} x {MS_OBS} {plain:.1f} ms (profiler), "
+                 f"every member within TOL_EPOCH of it (max |diff| {err:.3e}); bound "
+                 f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']}")
+    return dict(launches=launches, ms=times[f"{MS_SITES} x {MS_OBS}", 4],
+                k1_ms=times[f"{MS_SITES} x {MS_OBS}", 1], plain_ms=plain, bound=bnd,
+                max_abs_err=max(err, pred_err), times=times, ens_wall=ens_wall,
+                one_wall=one_wall, torch_wall=torch_wall)
+
+
+# ---------------------------------------------------------------------------
 # phases 28-30: the halt word and the deferred loop
 # ---------------------------------------------------------------------------
 
@@ -3733,6 +4037,10 @@ def main() -> None:
     member_err = member_kernel_checks(et, mn)
     pop_main = population_main_paths(et, card)
     log("population", f"phases 31-32 added {time.perf_counter() - t0:.1f} s to the run")
+    t0 = time.perf_counter()
+    ms_member_err = multisite_member_checks(et)
+    ms_pop = multisite_population_main_path(et, card, ms_main)
+    log("population", f"phases 33-34 added {time.perf_counter() - t0:.1f} s to the run")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -3912,6 +4220,24 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the step
         "members": len(POP_LRS),
         "k1_ms": pop_main["k1_ms"],
+    }, {
+        "name": "fused_multisite members",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_multisite.cu",
+        # the JAX multi-site kernel under jax.vmap (easyhybrid_tpu/training/population.py:241-287)
+        "replaces": "easyhybrid_tpu/ops/fused_multisite.py:1125",
+        "launches": ms_pop["launches"],
+        # the ensemble's K = 4 call (phase 34), phase 33's calls, each against its plain
+        # version, and ensemble_predict against the members' predict
+        "max_abs_err": max(ms_member_err, ms_pop["max_abs_err"]),
+        "ms": ms_pop["ms"],  # one call of the ensemble: 4 members x 5 epochs of one site batch
+        "plain_ms": ms_pop["plain_ms"],
+        # every member's samples (2 predictors, forcing, target, mask) once a step, its
+        # sites' parameter and two moments read and written once; three passes of its products
+        **ms_pop["bound"],
+        "library_ms": None,  # no single PyTorch call computes the step
+        "members": len(MS_ENSEMBLE_KW["seeds"]),
+        "k1_ms": ms_pop["k1_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,7 @@ from .training.tune import (
     tune,
 )
 from .utils.folds import make_folds
-from .training.inference import make_inference_fn, predict
+from .training.inference import ensemble_predict, make_inference_fn, predict
 from .interop import export_jax_params, load_jax_params
 from .ops.fused_forward import (
     kernel_form,
@@ -163,6 +163,7 @@ __all__ = [
     "cross_validate",
     "make_folds",
     "make_inference_fn",
+    "ensemble_predict",
     "predict",
     "export_jax_params",
     "load_jax_params",

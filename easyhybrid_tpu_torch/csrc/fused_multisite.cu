@@ -61,6 +61,20 @@
 //     optax sees the stacked leaf), then every block adds those parts in
 //     block order, a warp a leaf, and updates.
 //
+// The member axis (population training: a seed ensemble of one model,
+// replacing the JAX kernel under jax.vmap in
+// easyhybrid_tpu/training/population.py:241-287): one call trains n_members
+// models side by side, the gradient kernel on the grid (site blocks,
+// n_members) and the update kernel on (update blocks, n_members), the member
+// blockIdx.y. Member k's parameters, slots, static norm statistics, step
+// counts (tcount), per-site gradient, partial rows, lamb parts and epoch
+// losses are the k-th rows of their arrays; its site index, loss scales and validity flags sit
+// step_stride steps further on (0 where the members share one set). The
+// data, the bounds and the constants are the model's, one set for every
+// member. The members share nothing and never wait on one another, so a
+// member's bits are those of a call of it alone; the loop below still
+// enqueues two kernels a step (three under lamb) for all of them.
+//
 // Built with -DEHM_STAMPS, thread 0 of block 0 adds the clock64() cycles it
 // spends in each stage of a step to a.stamps when the kernel ends: 0 waiting
 // for the tile's staged rows (with the block's start), 1 forward to loss,
@@ -85,17 +99,17 @@ struct EhFusedMultisiteArgs {
   const int* site_index;                 // (n_epochs, n_batches, batch), -1 padding
   const float* scale;                    // (n_epochs, n_batches, n_targets) loss scales (rmse: 1 / n)
   const float* valid;                    // (n_epochs, n_batches) 1 if any target is valid
-  const float* tcount;                   // (n_epochs, n_batches) step count after the step
-  float* params;                         // n_shared shared, then n_globals x n_sites; in place
+  const float* tcount;                   // (n_members, n_epochs, n_batches) step count after the step
+  float* params;                         // a member's n_shared shared, then n_globals x n_sites; in place
   float* m;                              // first moments, like params, in place
   float* v;                              // second moments, like params, in place
   float* u;                              // amsgrad's third slot, like params (else unused)
-  const float* bn;                       // static norm mean, var (2 dims[0])
+  const float* bn;                       // static norm mean, var (2 dims[0]) a member
   const float* consts;                   // neural lo, span; global lo, span; fixed
-  float* gsite;                          // (n_globals, n_sites) scratch, zero between steps
-  float* partials;                       // (n_blocks, n_shared + 1) scratch
-  float* lamb_parts;                     // lamb: (update blocks, 2 n_leaves) scratch, else unused
-  float* epoch_loss;                     // (n_epochs) sum of valid batch losses, zero on entry
+  float* gsite;                          // (n_members, n_globals, n_sites) scratch, zero between steps
+  float* partials;                       // (n_members, n_blocks, n_shared + 1) scratch
+  float* lamb_parts;                     // lamb: (n_members, update blocks, 2 n_leaves) scratch, else unused
+  float* epoch_loss;                     // (n_members, n_epochs) sum of valid batch losses, zero on entry
   long long* stamps;                     // (EHM_N_STAMPS) cycles per stage, or null
   int n_obs;
   int n_epochs;
@@ -144,6 +158,8 @@ struct EhFusedMultisiteArgs {
   int r_off_one;                         // a feature that is 1 on every row
   int n_unit_table;                      // gradient units described once a block
   const int* halt;                       // the halt word (eh_halted), or null
+  int n_members;                         // models trained side by side (1: train())
+  int64_t step_stride;                   // steps between two members' site_index, scale, valid (0: shared)
 };
 // Shared parameters: [norm scale, norm bias] (dims[0] each, with a norm);
 // per layer W (dout x din, row-major) at p_off_w[l], b (dout) at p_off_b[l].
@@ -155,7 +171,7 @@ struct EhFusedMultisiteArgs {
 #ifdef EHM_STAMPS
 #define EHM_STAMP(k)                                 \
   do {                                               \
-    if (tid == 0 && blockIdx.x == 0) {               \
+    if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0) { \
       const long long now = clock64();               \
       stamp_acc[k] += now - stamp_last;              \
       stamp_last = now;                              \
@@ -192,6 +208,12 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   const int S = a.n_sites;
   const int n_consts = 2 * P + 2 * G + K;
   const int cols = F + NF + 2 * T;             // a stage's columns
+  // member k's state and scratch: the k-th rows of their arrays; its per-step rows
+  const int64_t member = blockIdx.y;           // a population's member, 0 for train()
+  const float* const params = a.params + member * (NP + (int64_t)G * S);
+  float* const gsite = a.gsite + member * (int64_t)G * S;
+  const float* const bn = a.bn + member * 2 * F;
+  const int64_t srow = member * a.step_stride + step;
   const int stage_floats = cols * ld + a.tile_sites * G;  // the rows, then the sites' raw globals
 
   float* Pm = sm;                 // shared parameters, padded layout
@@ -211,7 +233,7 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   long long stamp_last = stamp_first;
 #endif
 
-  const int* idx = a.site_index + (int64_t)step * a.batch;
+  const int* idx = a.site_index + srow * a.batch;
   const int j0 = blockIdx.x * a.sites_per_block;
   const int n_mine = min(a.sites_per_block, a.batch - j0);  // this block's sites, at least 1
   const int chunks = a.site_tiles;
@@ -264,7 +286,7 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
       const int s = idx[j0 + t.fs + i];
       float* d = dst + cols * ld + q;
       if (s >= 0) {
-        ehe_cp_async4(d, a.params + NP + (int64_t)(q - i * G) * S + s);
+        ehe_cp_async4(d, params + NP + (int64_t)(q - i * G) * S + s);
       } else {
         *d = 0.0f;
       }
@@ -276,14 +298,14 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
   for (int i = tid; i < n_consts; i += nth) C[i] = a.consts[i];
   for (int k = tid; k < F; k += nth) {
-    BM[k] = a.norm_mode != NORM_NONE ? a.bn[k] : 0.0f;
-    BR[k] = a.norm_mode != NORM_NONE ? rsqrtf(a.bn[F + k] + a.norm_eps) : 1.0f;
+    BM[k] = a.norm_mode != NORM_NONE ? bn[k] : 0.0f;
+    BR[k] = a.norm_mode != NORM_NONE ? rsqrtf(bn[F + k] + a.norm_eps) : 1.0f;
   }
-  for (int j = tid; j < T; j += nth) SCL[j] = a.scale[(int64_t)step * T + j];
+  for (int j = tid; j < T; j += nth) SCL[j] = a.scale[srow * T + j];
   for (int u = tid; u < a.n_unit_table; u += nth) ehe_unit_describe(a, UT, u);
   RES[a.r_off_one * ld + tid] = 1.0f;
   __syncthreads();
-  for (int i = tid; i < NP; i += nth) Pm[ehe_padded_index(a, i)] = a.params[i];
+  for (int i = tid; i < NP; i += nth) Pm[ehe_padded_index(a, i)] = params[i];
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
   EHM_STAMP(0);
@@ -448,12 +470,12 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
         if (on && gl == 0) {
           const int s = idx[j0 + t.fs + i];
           if (chunks == 1) {
-            if (s >= 0) a.gsite[(int64_t)g * S + s] = sum;
+            if (s >= 0) gsite[(int64_t)g * S + s] = sum;
           } else {  // a site over several tiles: its chunks in order
             const int c = k - (k / chunks) * chunks;
             const float acc = c == 0 ? sum : GS[g] + sum;
             GS[g] = acc;
-            if (c == chunks - 1 && s >= 0) a.gsite[(int64_t)g * S + s] = acc;
+            if (c == chunks - 1 && s >= 0) gsite[(int64_t)g * S + s] = acc;
           }
         }
       }
@@ -471,7 +493,7 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
     if (lane == 0) XL[warp] = v;
   }
   __syncthreads();
-  float* part = a.partials + (int64_t)blockIdx.x * (NP + 1);
+  float* part = a.partials + (member * a.n_blocks + blockIdx.x) * (NP + 1);
   for (int p = tid; p < NP; p += nth) part[p] = Gr[p];
   if (tid == 0) {
     float bl = 0.0f;
@@ -480,7 +502,7 @@ eh_ms_grad_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step) {
   }
   EHM_STAMP(6);
 #ifdef EHM_STAMPS
-  if (tid == 0 && blockIdx.x == 0 && a.stamps != nullptr) {
+  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && a.stamps != nullptr) {
     stamp_acc[EHM_N_STAMPS - 1] = clock64() - stamp_first;
     for (int k = 0; k < EHM_N_STAMPS; ++k) a.stamps[k] += stamp_acc[k];
   }
@@ -505,11 +527,24 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
   const int G = a.n_globals;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool valid = a.valid[step] > 0.0f;
-  if (pass == 0 && !valid) return;  // the whole grid alike
-  const EhOptStep st = ehe_opt_step(o, fmaxf(a.tcount[step], 1.0f));
-  const int shared_blocks = ehm_shared_blocks(NP);
   const int nl = o.n_leaves;
+  // member k's state and scratch: the k-th rows of their arrays; its per-step rows
+  const int64_t member = blockIdx.y;  // a population's member, 0 for train()
+  const int64_t n_params = NP + (int64_t)G * S;
+  float* const params = a.params + member * n_params;
+  float* const mom1 = a.m + member * n_params;
+  float* const mom2 = a.v + member * n_params;
+  float* const mom3 = a.u != nullptr ? a.u + member * n_params : nullptr;
+  const float* const partials = a.partials + member * a.n_blocks * (NP + 1);
+  float* const gsite = a.gsite + member * (int64_t)G * S;
+  float* const lamb_parts =
+      a.lamb_parts != nullptr ? a.lamb_parts + member * gridDim.x * nl * 2 : nullptr;
+  const int64_t srow = member * a.step_stride + step;
+  const bool valid = a.valid[srow] > 0.0f;
+  if (pass == 0 && !valid) return;  // the member's whole grid row alike
+  const EhOptStep st =
+      ehe_opt_step(o, fmaxf(a.tcount[member * a.n_epochs * a.n_batches + step], 1.0f));
+  const int shared_blocks = ehm_shared_blocks(NP);
 
   // rmse: the batch's raw sse (the blocks' loss column, summed as the loss
   // warp sums it), its value r and the gradient's factor, in every block
@@ -518,12 +553,12 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
   if (is_rmse) {
     if (warp == 0) {
       float sse = 0.0f;
-      const float* col = a.partials + NP;
+      const float* col = partials + NP;
 #pragma unroll 8
       for (int b = lane; b < a.n_blocks; b += 32) sse += col[(int64_t)b * (NP + 1)];
       sse = ehe_warp_sum(sse);
       if (lane == 0) {
-        const float inv_n = a.scale[(int64_t)step * a.n_targets];
+        const float inv_n = a.scale[srow * a.n_targets];
         const float r = sqrtf(ehe_max_nan(sse * inv_n, 0.0f));
         rmse[0] = r;  // the batch loss: agg r, agg being 1 with one target
         rmse[1] = inv_n / (2.0f * ehe_max_nan(r, 1e-30f));
@@ -543,7 +578,7 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
       first = NP + (int64_t)(blockIdx.x - shared_blocks) * blockDim.x;
       last = min(first + blockDim.x - 1, (int64_t)NP + (int64_t)G * S - 1);
     }
-    ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, nl, first <= last ? ehe_leaf_of(o, first) : 0,
+    ehe_leaf_trust_ratios(lamb_parts, gridDim.x, nl, first <= last ? ehe_leaf_of(o, first) : 0,
                           first <= last ? ehe_leaf_of(o, last) : -1, tr);
   }
 
@@ -555,7 +590,7 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
     // add the blocks' partial rows lane, lane + 32, ..., then a shuffle tree
     const int p = blockIdx.x * 8 + warp;
     if (p <= NP) {
-      const float* col = a.partials + p;
+      const float* col = partials + p;
 #pragma unroll 8
       for (int b = lane; b < a.n_blocks; b += 32) g += col[(int64_t)b * (NP + 1)];
       g = ehe_warp_sum(g);
@@ -564,22 +599,22 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
         if (p < NP) {
           i = p;
         } else if (pass == 1 && valid) {
-          a.epoch_loss[step / a.n_batches] += is_rmse ? rmse[0] : g;
+          a.epoch_loss[member * a.n_epochs + step / a.n_batches] += is_rmse ? rmse[0] : g;
         }
       }
     }
   } else {
     const int64_t gid = (int64_t)(blockIdx.x - shared_blocks) * blockDim.x + threadIdx.x;
     if (gid < (int64_t)G * S) {  // global gid / S of site gid % S
-      g = a.gsite[gid];
+      g = gsite[gid];
       if (is_rmse) g = rmse[1] * g;
-      if (pass == 1) a.gsite[gid] = 0.0f;
+      if (pass == 1) gsite[gid] = 0.0f;
       if (valid) {
         const int gi = (int)(gid / S);
         const int P = a.dims[a.n_layers];
         const float span = a.consts[2 * P + G + gi];
         i = NP + gid;
-        const float sg = ehe_sigmoid(a.params[i]);
+        const float sg = ehe_sigmoid(params[i]);
         g = g * (span * (sg * (1.0f - sg)));
       }
     }
@@ -588,16 +623,16 @@ eh_ms_update_kernel(const __grid_constant__ EhFusedMultisiteArgs a, int step, in
   if (pass == 0) {
     float pv = 0.0f, d = 0.0f;
     if (i >= 0) {
-      pv = a.params[i];
-      float mm = a.m[i], vv = a.v[i];
+      pv = params[i];
+      float mm = mom1[i], vv = mom2[i];
       d = ehe_lamb_direction(o, st, pv, g, mm, vv);
     }
     ehe_block_leaf_sums(pv * pv, d * d, i >= 0 ? ehe_leaf_of(o, i) : -1, nl,
-                        a.lamb_parts + (int64_t)blockIdx.x * nl * 2);
+                        lamb_parts + (int64_t)blockIdx.x * nl * 2);
     return;
   }
   if (i >= 0 && valid)
-    ehe_update(o, st, &a.params[i], &a.m[i], &a.v[i], &a.u[i], g,
+    ehe_update(o, st, params + i, mom1 + i, mom2 + i, mom3 != nullptr ? mom3 + i : nullptr, g,
                o.rule == OPT_LAMB ? tr[ehe_leaf_of(o, i)] : 1.0f);
 }
 
@@ -632,10 +667,12 @@ static int ehm_launch(const EhFusedMultisiteArgs* args, size_t smem, cudaStream_
   const int update_blocks = ehm_shared_blocks(args->n_shared) + (int)((n_site_values + 255) / 256);
   const int steps = args->n_epochs * args->n_batches;
   const bool lamb = args->optimizer.rule == OPT_LAMB;
+  const dim3 grad_grid(args->n_blocks, args->n_members);  // a row of site blocks a member
+  const dim3 update_grid(update_blocks, args->n_members);
   for (int step = 0; step < steps; ++step) {
-    eh_ms_grad_kernel<W><<<args->n_blocks, args->threads, smem, s>>>(*args, step);
-    if (lamb) eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step, 0);
-    eh_ms_update_kernel<<<update_blocks, 256, 0, s>>>(*args, step, 1);
+    eh_ms_grad_kernel<W><<<grad_grid, args->threads, smem, s>>>(*args, step);
+    if (lamb) eh_ms_update_kernel<<<update_grid, 256, 0, s>>>(*args, step, 0);
+    eh_ms_update_kernel<<<update_grid, 256, 0, s>>>(*args, step, 1);
   }
   return (int)cudaGetLastError();
 }
@@ -660,7 +697,8 @@ extern "C" int eh_fused_multisite(const EhFusedMultisiteArgs* args, int width, v
       N < 1 || th < 32 || th > EHM_MAX_THREADS || th % 32 != 0 || !tiles_ok || spb < 1 ||
       args->n_blocks * spb < args->batch || (args->n_blocks - 1) * spb >= args->batch ||
       args->n_padded % 4 != 0 || args->n_unit_table < 0 || args->p_off_g != args->n_shared ||
-      args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES) {
+      args->optimizer.n_leaves < 1 || args->optimizer.n_leaves > EH_MAX_LEAVES ||
+      args->n_members < 1 || args->n_members > 65535 || args->step_stride < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -2,9 +2,10 @@
 
 A numpy-only copy of ``easyhybrid_tpu/data/sequences.py``: the same
 ``input_window`` / ``output_window`` / ``output_shift`` / ``lead_time``
-semantics, batch-major windows ``(num_samples, time, features)``. The
-recurrent models that consume them are not ported yet (ROADMAP.md, queue A,
-item 11); ``split_data`` windows the data all the same.
+semantics, batch-major windows ``(num_samples, time, features)``, which
+``split_data(sequence_kwargs=...)`` makes for the recurrent hybrids
+(``hidden_layers={"lstm": H}``, ``models/nn.py::LSTMNet``) that ``train()``
+runs on the torch engine or on kernel 4 (``ops/fused_epoch_lstm.py``).
 """
 
 from __future__ import annotations

@@ -1722,6 +1722,23 @@ class FusedEpoch:
         self._launch(plan, packed, opt_state, data, rows, loss, member_opt=member_opt)
         return packed, opt_state, loss
 
+    def alone(self, packed: FusedParams, opt_state, data: FusedData, rows: torch.Tensor,
+              spec=None):
+        """One member as ``train()`` launches it (K = 1, its spec in the
+        kernel's shared struct) from its own state and ``(E, n)`` row index:
+        ``(packed, opt_state, loss (1,))`` as new tensors; the plain version
+        on CPU tensors. The member self-check holds each member of a member
+        launch to it."""
+        plan = member_plan(self.plan, spec)
+        packed = FusedParams(packed.params.clone(), packed.bn.clone())
+        opt_state = {name: v.clone() for name, v in opt_state.items()}
+        if data.x.device.type == "cpu":
+            packed, opt_state, loss = self._reference(plan, packed, opt_state, data, rows)
+            return packed, opt_state, loss.reshape(1)
+        loss = torch.zeros((1,), dtype=torch.float32, device=data.x.device)
+        self._launch(plan, packed, opt_state, data, rows.contiguous(), loss)
+        return packed, opt_state, loss
+
 
 def member_row_index(shuffle, epochs: int, n_batches: int, batch: int, k: int, device, *,
                      per_member_data: bool, perms=None, generator=None,

@@ -8,10 +8,10 @@ Counterpart of ``easyhybrid_tpu/ops/fused_multisite.py``
 :class:`~easyhybrid_tpu_torch.parallel.multisite.MultiSiteHybridModel`: the
 shared MLP over the batch's (site, time) samples, each site's globals read,
 differentiated and updated on the card, the shared gradient summed across
-thread blocks in a fixed order, and the optax ``adam`` / ``sgd`` update of
-the shared leaves and of **every** site's globals (a site outside the batch
-has a zero gradient, which still decays Adam's moments, as the torch epoch
-does on the whole ``(S, 1)`` leaf).
+thread blocks in a fixed order, and the update by any optax rule of the
+JAX kernel but ``noisy_sgd`` of the shared leaves and of **every** site's
+globals (a site outside the batch has a zero gradient, which still decays
+Adam's moments, as the torch epoch does on the whole ``(S, 1)`` leaf).
 
 The packed layout is the single-series kernel's (``FusedEpochPlan``): the
 shared parameters, then each global's ``S`` per-site raw values. What the
@@ -31,9 +31,16 @@ squared differences and the gradient of the raw cotangent ``2 diff``, and
 the update scales the gradient by ``(1 / n) / (2 max(r, 1e-30))`` once the
 batch's ``r = sqrt(sse / n)`` is known (the scale array holds ``1 / n``).
 
-:func:`fused_multisite_reference` is the same algorithm in plain PyTorch.
-On CPU tensors the wrapper computes it; on CUDA tensors it launches the
-kernel or raises. It never falls back.
+The member axis (:meth:`FusedMultisiteEpoch.members`, a seed ensemble in
+``population_train``): K models of the same configuration in one launcher
+call, every piece of state stacked ``(K, …)``, each member with its own
+site index (its own permutations), loss scales, validity flags and step
+counts, over the one data set and constants they share.
+
+:func:`fused_multisite_reference` is the same algorithm in plain PyTorch,
+and :func:`fused_multisite_members_reference` the member axis's, built on
+it. On CPU tensors the wrapper computes them; on CUDA tensors it launches
+the kernel or raises. It never falls back.
 """
 
 from __future__ import annotations
@@ -91,6 +98,7 @@ from .multisite_primitives import site_reduce
 
 __all__ = [
     "FusedMultisiteEpoch",
+    "fused_multisite_members_reference",
     "fused_multisite_reference",
     "fused_multisite_unsupported_reason",
     "launch_fused_multisite",
@@ -143,8 +151,8 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
     model envelope, ``input_batchnorm`` False or ``"static"``;
     ``training_loss`` mse, mae, nseLoss, rmse (one target) or an
     ``ElementwiseLoss`` the tracer expresses, with ``agg`` sum or mean and no
-    ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec without
-    momentum. With ``tensors``: ``x`` of shape ``(num_batches, batch, N,
+    ``extra_loss``; one optimizer spec of any rule but ``noisy_sgd``
+    (``optimizer_reason``). With ``tensors``: ``x`` of shape ``(num_batches, batch, N,
     F)``, and for minibatched sites a shuffle mode of True, False or
     ``"batches"`` and the identity site order in ``_site_idx``."""
     if not isinstance(model, MultiSiteHybridModel):
@@ -272,6 +280,8 @@ class _Args(ctypes.Structure):
         ("r_off_one", ctypes.c_int),
         ("n_unit_table", ctypes.c_int),
         ("halt", ctypes.c_void_p),
+        ("n_members", ctypes.c_int),
+        ("step_stride", ctypes.c_int64),
     ]
 
 
@@ -433,7 +443,9 @@ def site_index(shuffle, perms, data: MultisiteData, epochs: int) -> torch.Tensor
     """``(epochs, num_batches, batch)`` int32 site of every slot of every
     step: a permutation of the slots (shuffle True), of the batches
     (``"batches"``) or the identity (no shuffle, or ``perms`` None), with
-    -1 where the slot is padding."""
+    -1 where the slot is padding. ``perms`` with a member axis in front
+    (``(K, epochs, n)``) give ``(K, epochs, num_batches, batch)``: each
+    member's own."""
     nb, batch = data.n_batches, data.batch
     dev = data.live.device
     if perms is None:
@@ -441,16 +453,18 @@ def site_index(shuffle, perms, data: MultisiteData, epochs: int) -> torch.Tensor
     else:
         slots = perms.to(device=dev, dtype=torch.int64)
         if shuffle == "batches":
-            slots = (slots[:, :, None] * batch + torch.arange(batch, device=dev)).reshape(epochs, -1)
+            slots = (slots[..., None] * batch + torch.arange(batch, device=dev)).flatten(-2)
     index = torch.where(data.live[slots], slots, torch.full_like(slots, -1))
-    return index.reshape(epochs, nb, batch).to(torch.int32).contiguous()
+    return index.reshape(slots.shape[:-1] + (nb, batch)).to(torch.int32).contiguous()
 
 
 def batch_scales(plan: FusedEpochPlan, data: MultisiteData, index: torch.Tensor):
-    """``(scale (E, nb, T), valid (E, nb))``: every site batch's loss scale
-    per target and its validity flag, from the batch's targets and masks
-    alone. The per-site counts of valid targets come from one reduction
-    over time (the ``site_reduce`` kernel on CUDA tensors)."""
+    """``(scale (..., nb, T), valid (..., nb))``: every site batch's loss
+    scale per target and its validity flag, from the batch's targets and
+    masks alone, for an index ``(..., nb, batch)`` (``(E, nb, batch)``, or
+    with a member axis in front). The per-site counts of valid targets come
+    from one reduction over time (the ``site_reduce`` kernel on CUDA
+    tensors), taken once for every member."""
     live = index >= 0
     rows = index.clamp_min(0).long()
     counts, scales = [], []
@@ -546,6 +560,30 @@ def rmse_deferred(g, sse, inv_n):
     return (inv_n / (2.0 * torch.clamp_min(r, 1e-30))) * g, r
 
 
+def step_scales(plan: FusedEpochPlan, data: MultisiteData, index: torch.Tensor, *,
+                same_batches: bool):
+    """:func:`batch_scales` of one model's ``(E, nb, batch)`` index, as a
+    launch takes them: where every epoch has the same batches
+    (``same_batches``: no shuffle, or one batch) the first epoch's, repeated."""
+    if not same_batches:
+        return batch_scales(plan, data, index)
+    scale, valid = batch_scales(plan, data, index[:1])
+    epochs = index.shape[0]
+    return scale.expand(epochs, -1, -1).contiguous(), valid.expand(epochs, -1).contiguous()
+
+
+def member_scales(plan: FusedEpochPlan, data: MultisiteData, index: torch.Tensor, *,
+                  same_batches: bool):
+    """:func:`step_scales` of a member launch's index: once for a shared
+    ``(E, nb, batch)`` index, else member by member over ``(K, E, nb,
+    batch)``, stacked, each with the bits of its own launch alone."""
+    if index.dim() == 3:
+        return step_scales(plan, data, index, same_batches=same_batches)
+    parts = [step_scales(plan, data, mine, same_batches=same_batches) for mine in index]
+    return (torch.stack([p[0] for p in parts]).contiguous(),
+            torch.stack([p[1] for p in parts]).contiguous())
+
+
 def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state,
                               data: MultisiteData, index: torch.Tensor, scale, valid, halt=None):
     """The plain PyTorch version of the kernel: ``index.shape[0]`` epochs of
@@ -574,6 +612,26 @@ def fused_multisite_reference(plan: FusedEpochPlan, packed: FusedParams, opt_sta
                                            epoch_loss / data.n_batches))
 
 
+def fused_multisite_members_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state,
+                                      data: MultisiteData, index: torch.Tensor, scale, valid):
+    """The plain version of the member axis: :func:`fused_multisite_reference`
+    once per member, with that member's state and its rows of ``index``,
+    ``scale`` and ``valid`` (where they carry a member axis; else the shared
+    ones); the results stacked, the loss ``(K,)``."""
+    k = packed.params.shape[0]
+    own = index.dim() == 4
+    outs = []
+    for i in range(k):
+        outs.append(fused_multisite_reference(
+            plan, FusedParams(packed.params[i], packed.bn[i]),
+            {name: v[i] for name, v in opt_state.items()}, data,
+            *((a[i] for a in (index, scale, valid)) if own else (index, scale, valid))))
+    return (FusedParams(torch.stack([o[0].params for o in outs]),
+                        torch.stack([o[0].bn for o in outs])),
+            {name: torch.stack([o[1][name] for o in outs]) for name in opt_state},
+            torch.stack([o[2] for o in outs]))
+
+
 # --------------------------------------------------------------------------
 # kernel launch and the epoch function
 # --------------------------------------------------------------------------
@@ -593,8 +651,17 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     cycles go to; ``target_blocks`` and ``max_threads`` go to
     :func:`multisite_geometry`. ``halt`` is the halt word
     (``ops/fused_epoch.py``): both kernels of a halted call return at entry,
-    and the step count stays."""
+    and the step count stays.
+
+    The member axis (:meth:`FusedMultisiteEpoch.members`): parameters ``(K,
+    n)`` train K members in one call, every state tensor stacked the same
+    way (``t`` ``(K, 1)``, ``epoch_loss`` ``(K, epochs)``); ``index`` ``(K,
+    epochs, num_batches, batch)`` with ``scale`` and ``valid`` of the same
+    lead gives each member its own steps (else they share them)."""
     measuring = lib is not None
+    a, tcount, _scratch = launch_args(plan, packed, opt_state, data, index, scale, valid,
+                                      epoch_loss, stamps=stamps, target_blocks=target_blocks,
+                                      max_threads=max_threads, halt=halt)
     lib = lib or _build.kernel_library("fused_multisite.cu", plan.form, plan.loss_form)
     if lib.eh_fused_multisite_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
@@ -602,15 +669,46 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
             f"{lib.eh_fused_multisite_args_size()} != {ctypes.sizeof(_Args)}"
         )
     dev = data.x.device
-    epochs, nb, batch = index.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.eh_fused_multisite(ctypes.byref(a), plan.width, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused multisite kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    t = tcount[:, -1:].round().to(torch.int32).reshape(opt_state["t"].shape)
+    if halt is not None:
+        t = torch.where(halt != 0, opt_state["t"], t)
+    opt_state["t"].copy_(t)
+    if not measuring:
+        launch_fused_multisite.launches += 1
+
+
+launch_fused_multisite.launches = 0
+
+
+def launch_args(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: MultisiteData,
+                index: torch.Tensor, scale, valid, epoch_loss: torch.Tensor, *, stamps=None,
+                target_blocks: int = _TARGET_BLOCKS, max_threads: int = _MAX_THREADS,
+                halt=None):
+    """The kernel's argument struct for a call (see
+    :func:`launch_fused_multisite`), without launching: ``(args, tcount,
+    scratch)``, ``tcount`` every member's step count after every step ``(K,
+    steps)`` and ``scratch`` the tensors the struct points to besides the
+    caller's (to be kept until the call is enqueued). Raises on shapes the
+    kernel does not read."""
+    dev = data.x.device
+    k = packed.params.shape[0] if packed.params.dim() == 2 else 1
+    _check_member_shapes(plan, packed, opt_state, index, scale, valid, epoch_loss, k)
+    epochs, nb, batch = index.shape[-3:]
     n_obs = data.x.shape[1]
     n_shared, n_glob = plan.offsets()["p_g"], len(plan.global_names)
     geo = multisite_geometry(plan, batch, n_obs, target_blocks=target_blocks,
                              max_threads=max_threads)
-    t0 = opt_state["t"].to(torch.float32)
-    tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
-    gsite = torch.zeros((max(n_glob * plan.n_sites, 1),), dtype=torch.float32, device=dev)
-    partials = torch.empty((geo.blocks, n_shared + 1), dtype=torch.float32, device=dev)
+    # each member's step count after every step: (K, steps)
+    t0 = opt_state["t"].to(torch.float32).reshape(k, 1)
+    tcount = (t0 + torch.cumsum(valid.reshape(-1, epochs * nb), 1)).contiguous()
+    gsite = torch.zeros((k, max(n_glob * plan.n_sites, 1)), dtype=torch.float32, device=dev)
+    partials = torch.empty((k, geo.blocks, n_shared + 1), dtype=torch.float32, device=dev)
 
     a = _Args.from_buffer_copy(_static_args(plan))
     a.x = data.x.data_ptr()
@@ -625,31 +723,50 @@ def launch_fused_multisite(plan: FusedEpochPlan, packed: FusedParams, opt_state,
     a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.gsite, a.partials, a.epoch_loss = gsite.data_ptr(), partials.data_ptr(), epoch_loss.data_ptr()
+    scratch = [gsite, partials]
     if plan.opt_name == "lamb":  # a row of leaf norms per update block (eh_ms_update_kernel)
         update_blocks = -(-(n_shared + 1) // 8) + -(-(n_glob * plan.n_sites) // 256)
-        lamb_parts = torch.empty((update_blocks, 2 * a.optimizer.n_leaves), dtype=torch.float32,
-                                 device=dev)
+        lamb_parts = torch.empty((k, update_blocks, 2 * a.optimizer.n_leaves),
+                                 dtype=torch.float32, device=dev)
         a.lamb_parts = lamb_parts.data_ptr()
+        scratch.append(lamb_parts)
     a.stamps = stamps.data_ptr() if stamps is not None else None
     a.n_obs, a.n_epochs, a.n_batches, a.batch = n_obs, epochs, nb, batch
     a.threads, a.tile_sites, a.site_tiles = geo.threads, geo.tile_sites, geo.site_tiles
     a.sites_per_block, a.n_blocks = geo.sites_per_block, geo.blocks
     a.halt = check_halt(halt, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.eh_fused_multisite(ctypes.byref(a), plan.width, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused multisite kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    t = tcount[-1:].round().to(torch.int32)
-    if halt is not None:
-        t = torch.where(halt != 0, opt_state["t"], t)
-    opt_state["t"].copy_(t)
-    if not measuring:
-        launch_fused_multisite.launches += 1
+    a.n_members = k
+    a.step_stride = epochs * nb if index.dim() == 4 else 0
+    return a, tcount, tuple(scratch)
 
 
-launch_fused_multisite.launches = 0
+def _check_member_shapes(plan, packed, opt_state, index, scale, valid, epoch_loss, k):
+    """Raise unless a call's tensors have the shapes the kernel reads: every
+    state tensor with the member axis in front for a member call, and the
+    per-step arrays of one set or of K."""
+    lead = (k,) if packed.params.dim() == 2 else ()
+    want = {"parameters": (packed.params, lead + (plan.n_params,)),
+            "m": (opt_state["m"], lead + (plan.n_params,)),
+            "v": (opt_state["v"], lead + (plan.n_params,)),
+            "t": (opt_state["t"], lead + (1,))}
+    if "u" in opt_state:
+        want["u"] = (opt_state["u"], lead + (plan.n_params,))
+    if plan.has_norm:
+        want["norm statistics"] = (packed.bn, lead + (2 * plan.dims[0],))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"the kernel's {name} must be a contiguous {shape}; got "
+                             f"{tuple(t.shape)}")
+    if index.dim() not in (3, 4) or (index.dim() == 4 and index.shape[0] != k):
+        raise ValueError(f"the site index must be (E, nb, batch) or ({k}, E, nb, batch); got "
+                         f"{tuple(index.shape)}")
+    steps = tuple(index.shape[:-1])
+    for name, t, shape in (("scales", scale, steps + (len(plan.target_names),)),
+                           ("validity flags", valid, steps),
+                           ("epoch losses", epoch_loss, lead + (index.shape[-3],))):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"the call's {name} must be a contiguous {shape}; got "
+                             f"{tuple(t.shape)}")
 
 # the stamped build's stages (-DEHM_STAMPS; the last stamp is the whole kernel)
 STAGES = ("wait for the staged rows", "forward to loss", "backward",
@@ -705,23 +822,22 @@ class FusedMultisiteEpoch:
         return multisite_geometry(self.plan, int(tensors.weight.shape[1]),
                                   int(tensors.x.shape[2]), **self.aim)
 
-    def inputs(self, tensors: EpochTensors, perms=None, generator=None):
-        """``(data, site index, loss scales, validity flags)`` of a call."""
+    def _data(self, tensors: EpochTensors) -> MultisiteData:
         data = multisite_data(self.plan, tensors)
         if data.x.ndim != 3 or int(tensors.n_samples) > self.plan.n_sites:
             raise ValueError(
                 f"x of shape {tuple(tensors.x.shape)} with {tensors.n_samples} sites does not "
                 f"hold (num_batches, batch, N, F) site batches of a model of "
                 f"{self.plan.n_sites} sites")
+        return data
+
+    def inputs(self, tensors: EpochTensors, perms=None, generator=None):
+        """``(data, site index, loss scales, validity flags)`` of a call."""
+        data = self._data(tensors)
         perms = perms_for_epochs(self.shuffle, tensors, self.epochs, generator=generator,
                                  perm=perms)
         index = site_index(self.shuffle, perms, data, self.epochs)
-        if perms is None:  # every epoch has the same batches
-            scale, valid = batch_scales(self.plan, data, index[:1])
-            scale = scale.expand(self.epochs, -1, -1).contiguous()
-            valid = valid.expand(self.epochs, -1).contiguous()
-        else:
-            scale, valid = batch_scales(self.plan, data, index)
+        scale, valid = step_scales(self.plan, data, index, same_batches=perms is None)
         return data, index, scale, valid
 
     def __call__(self, model_or_packed, opt_state, tensors: EpochTensors, perms=None,
@@ -757,6 +873,103 @@ class FusedMultisiteEpoch:
         """The plain version on the tensors' device (no kernel-5 launch)."""
         return fused_multisite_reference(self.plan, packed, opt_state,
                                          *self.inputs(tensors, perms, generator), halt)
+
+    # ---- the member axis ------------------------------------------------------
+
+    def _same_batches(self, data: MultisiteData) -> bool:
+        """Whether every epoch has the same site batches (no permutation)."""
+        return self.shuffle is False or data.n_batches == 1
+
+    def member_data(self, tensors) -> MultisiteData:
+        """The kernel's data of a population: one :class:`EpochTensors`
+        shared by every member (the members of a multi-site population share
+        the sites; folds would re-index them)."""
+        if not isinstance(tensors, EpochTensors):
+            raise ValueError("the multisite member axis trains members over one shared data set; "
+                             "per-member data (cross-validation folds) re-index the sites")
+        return self._data(tensors)
+
+    def member_rows(self, data: MultisiteData, k: int, *, per_member_data: bool = False,
+                    perms=None, generator=None, shared_perms: bool = True) -> torch.Tensor:
+        """The site index of a member call over ``data``: ``(E, nb, batch)``
+        where every member reads the same site batches (no permutation, one
+        batch, or ``shared_perms``), else ``(K, E, nb, batch)``, member k's
+        from its own permutations (drawn one member after another from
+        ``generator``). ``perms``: ``(E, n)`` shared or ``(K, E, n)`` per
+        member, slot or batch permutations as for a call."""
+        if per_member_data:
+            raise ValueError("the multisite member axis takes no per-member data")
+        if self._same_batches(data):
+            return site_index(self.shuffle, None, data, self.epochs)
+        shape_only = EpochTensors(x=None, forcing={}, y={}, mask={}, n_samples=0,
+                                  weight=torch.empty((data.n_batches, data.batch),
+                                                     device=data.x.device))
+
+        def draw(perm=None):
+            return perms_for_epochs(self.shuffle, shape_only, self.epochs, generator=generator,
+                                    perm=perm)
+
+        if perms is None:
+            perms = draw() if shared_perms else torch.stack([draw() for _ in range(k)])
+        elif torch.is_tensor(perms) and perms.dim() == 3:
+            if perms.shape[0] != k:
+                raise ValueError(f"{perms.shape[0]} members' permutations for {k} members")
+            perms = torch.stack([draw(p) for p in perms])
+        else:
+            perms = draw(perms)
+        return site_index(self.shuffle, perms, data, self.epochs)
+
+    def members(self, packed: FusedParams, opt_state, data: MultisiteData, index: torch.Tensor, *,
+                specs=None, member_opt=None):
+        """K members in one launcher call on CUDA tensors (kernel 5's member
+        axis), the plain version member by member on CPU tensors
+        (:func:`fused_multisite_members_reference`). ``packed`` and every
+        slot carry a leading member axis (``t`` ``(K, 1)``); ``data`` is
+        :meth:`member_data`'s, ``index`` :meth:`member_rows`'. Every member
+        trains with the plan's optimizer: ``specs`` and ``member_opt`` (a
+        sweep's per-member numbers) are refused. Returns ``(packed,
+        opt_state, loss (K,))`` as new tensors, the loss each member's last
+        epoch's mean batch loss."""
+        if specs is not None or member_opt is not None:
+            raise ValueError("the multisite member axis trains every member with the plan's "
+                             "optimizer; a sweep of a multi-site model runs the torch engine")
+        plan = self.plan
+        k = packed.params.shape[0]
+        dev = data.x.device
+        scale, valid = member_scales(plan, data, index, same_batches=self._same_batches(data))
+        if dev.type == "cpu":
+            return fused_multisite_members_reference(plan, packed, opt_state, data, index, scale,
+                                                     valid)
+        if dev.type != "cuda":
+            raise ValueError(f"the fused multisite epoch runs on CUDA or CPU tensors; got {dev}")
+        packed = FusedParams(packed.params.clone(), packed.bn.clone())
+        opt_state = {name: v.clone() for name, v in opt_state.items()}
+        epoch_loss = torch.zeros((k, self.epochs), dtype=torch.float32, device=dev)
+        launch_fused_multisite(plan, packed, opt_state, data, index, scale, valid, epoch_loss,
+                               **self.aim)
+        return packed, opt_state, epoch_loss[:, -1] / data.n_batches
+
+    def alone(self, packed: FusedParams, opt_state, data: MultisiteData, index: torch.Tensor,
+              spec=None):
+        """One member as ``train()`` runs it (K = 1, no member axis) from its
+        own state and ``(E, nb, batch)`` index: ``(packed, opt_state, loss
+        (1,))`` as new tensors; the plain version on CPU tensors. The member
+        self-check holds each member of a member call to it."""
+        if spec is not None:
+            raise ValueError("the multisite member axis trains every member with the plan's "
+                             "optimizer")
+        plan = self.plan
+        scale, valid = step_scales(plan, data, index, same_batches=self._same_batches(data))
+        packed = FusedParams(packed.params.clone(), packed.bn.clone())
+        opt_state = {name: v.clone() for name, v in opt_state.items()}
+        if data.x.device.type == "cpu":
+            packed, opt_state, loss = fused_multisite_reference(plan, packed, opt_state, data,
+                                                                index, scale, valid)
+            return packed, opt_state, loss.reshape(1)
+        epoch_loss = torch.zeros((self.epochs,), dtype=torch.float32, device=data.x.device)
+        launch_fused_multisite(plan, packed, opt_state, data, index.contiguous(), scale, valid,
+                               epoch_loss, **self.aim)
+        return packed, opt_state, (epoch_loss[-1] / data.n_batches).reshape(1)
 
 
 def make_fused_multisite_epoch(model, optimizer, logging: LoggingLoss, *, shuffle: Any = True,

@@ -324,11 +324,12 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a kernel-form
     mechanistic function; ``training_loss`` mse, mae or an ``ElementwiseLoss``
     the tracer expresses (the losses the JAX kernel chunks), with ``agg`` sum
-    or mean and no ``extra_loss``; a single ``adam`` spec or an ``sgd`` spec
-    without momentum. Any number of epochs per call; with ``tensors``, a
-    batch of at most 65,535 row tiles of 64, and the activations and partial sums of one step within
-    ``WORKSPACE_SHARE`` of the card's memory (``memory_bytes``, by default
-    the memory of the model's CUDA device; unchecked on another device)."""
+    or mean and no ``extra_loss``; one optimizer spec of any rule but
+    ``noisy_sgd`` (``training_spec_reason``). Any number of epochs per call;
+    with ``tensors``, a batch of at most 65,535 row tiles of 64, and the
+    activations and partial sums of one step within ``WORKSPACE_SHARE`` of
+    the card's memory (``memory_bytes``, by default the memory of the
+    model's CUDA device; unchecked on another device)."""
     if isinstance(model, MultiNNHybridModel):
         return ("MultiNN branches are not ported to the wide kernel yet (ROADMAP.md, queue B, "
                 "item 4); kernel 2 takes a MultiNN model whose branches fit its shared memory")

@@ -19,11 +19,16 @@ Inference runs on the model's device. The engine is chosen once, in
   chunk as the JAX ``predict`` runs; the model is on the CPU or outside the
   envelope (or ``use_kernel=False``), and ``engine_reason`` says which.
 
-Ensemble inference waits for the population slice (ROADMAP.md, queue A).
+:func:`ensemble_predict` serves a trained population: one forward over
+every member at once (``torch.func.vmap`` over ``functional_call``, built
+once per model), chunk by chunk, returning each output's member mean and
+spread.
 """
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
@@ -34,7 +39,11 @@ from ..data.prepare import prepare_data
 from ..ops.fused_forward import fused_forward_unsupported_reason, make_fused_forward
 from .epoch import map_x
 
-__all__ = ["make_inference_fn", "predict"]
+__all__ = ["make_inference_fn", "predict", "ensemble_predict"]
+
+# the vmapped ensemble forwards, one per model under a weak key: repeat calls
+# reuse it, and a model the caller drops releases it
+_ENSEMBLE_FORWARDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _flatten_outputs(outputs) -> Dict[str, Any]:
@@ -118,6 +127,82 @@ def predict(model, data, *, batch_size: int = 1024, use_kernel: Any = "auto"
             ) -> Dict[str, np.ndarray]:
     """One-shot convenience wrapper around :func:`make_inference_fn`."""
     return make_inference_fn(model, batch_size=batch_size, use_kernel=use_kernel)(data)
+
+
+def ensemble_predict(model, population, data, *, batch_size: int = 1024, best: bool = True
+                     ) -> Dict[str, np.ndarray]:
+    """Ensemble inference over a trained population: one forward over all K
+    members per chunk of ``batch_size`` rows, returning every output's
+    member mean and, as ``<name>_std``, its member spread (the population
+    standard deviation, ``correction=0``, as ``jnp.std``): the predictive
+    uncertainty of a seed or hyperparameter ensemble.
+
+    ``population`` is a :class:`~easyhybrid_tpu_torch.training.population.
+    PopulationResults` (each member's best-epoch parameters, or its final
+    ones with ``best=False``, with the final state: the same for a static
+    input norm; for a trainable BatchNorm the end-of-run statistics stand in
+    for the best epoch's) or a ``(stacked_params, stacked_state)`` tuple of
+    dicts keyed like ``named_parameters()`` / ``named_buffers()`` with a
+    leading member axis. The forward runs on the model's device. Outputs are
+    flattened as :func:`predict` flattens them."""
+    from ..parallel.multisite import MultiSiteHybridModel
+
+    if isinstance(population, tuple):
+        stacked_params, stacked_state = population
+    else:
+        stacked_params = population.best_params if best else population.params
+        stacked_state = population.state
+    device = model.device
+    params = {k: torch.as_tensor(v).to(device) for k, v in stacked_params.items()}
+    state = {k: torch.as_tensor(v).to(device) for k, v in stacked_state.items()}
+    hd = prepare_data(model, data, drop_missing_rows=False)
+    if isinstance(model, MultiSiteHybridModel) and np.ndim(hd.x) != 3:
+        # the JAX package's vmap over the chunk refuses the same data
+        raise ValueError(
+            f"a multi-site model predicts on site-major data (S, N, F) from "
+            f"prepare_multisite_data; got x of shape {np.shape(hd.x)}")
+    return _run_chunked(model, functools.partial(_ensemble_forward(model), params, state), hd,
+                        batch_size, device)
+
+
+def _ensemble_forward(model) -> Callable:
+    """``forward(params, state, x, forcing)``: the model in eval mode over
+    the members' stacked leaves (``torch.func.vmap`` over
+    ``functional_call``), the outputs flattened, then their mean and
+    ``_std`` over the members. One per model, cached under a weak key; the
+    function holds the model weakly, so the cache entry does not keep it."""
+    try:
+        cached = _ENSEMBLE_FORWARDS.get(model)
+    except TypeError:  # a model that cannot be weakly referenced
+        cached = None
+    if cached is not None:
+        return cached
+    model_ref = weakref.ref(model)
+
+    def forward(params, state, x, forcing):
+        m = model_ref()
+
+        def one(p, s):
+            return _flatten_outputs(torch.func.functional_call(m, {**p, **s}, (x, forcing)))
+
+        was_training = m.training
+        m.eval()
+        try:
+            with torch.no_grad():
+                outs = torch.func.vmap(one)(params, state)  # (K, B, ...)
+        finally:
+            m.train(was_training)
+        flat = {}
+        for k, v in outs.items():
+            flat[k] = v.mean(0)
+            flat[k + "_std"] = v.std(0, correction=0)
+        return flat
+
+    try:
+        _ENSEMBLE_FORWARDS[model] = forward
+    except TypeError:
+        pass
+    return forward
 
 
 def _run_fused(model, fused, scalars, data, batch_size: int) -> Dict[str, np.ndarray]:

@@ -13,19 +13,24 @@ and one fetch at the end, the discipline of ``training/deferred.py``.
 
 Two engines (``PopulationResults.epoch_path``):
 
-* ``"population_vmap_fused"`` (``"population_vmap_cv_fused"``): kernel 2's
-  member axis (``ops/fused_epoch.py``, :meth:`FusedEpoch.members`): one
-  launch per block trains every member, a thread-block cluster each, each
-  member with its own optimizer numbers (a sweep of any hyperparameter
-  ``parse_opt_spec`` knows), row index and data. On the card with
-  ``use_kernel="auto"`` (or anywhere with ``use_kernel=True``, where a CPU
-  model runs the member axis's plain version) for a model, optimizer and
-  loss kernel 2 takes, behind the exactness gate on member 0's spec and a
-  member self-check (:func:`member_selfcheck`), each once per configuration
-  and process. A kernel that fails to build or launch raises: there is no
-  fallback that hides it. A failed gate or self-check raises under
-  ``use_kernel=True``; under ``"auto"`` it runs the torch engine and says so
-  in ``engine_reason``.
+* ``"population_vmap_fused"`` (``"population_vmap_cv_fused"``): a fused
+  kernel's member axis. Kernel 2's (``ops/fused_epoch.py``,
+  :meth:`FusedEpoch.members`): one launch per block trains every member, a
+  thread-block cluster each, each member with its own optimizer numbers (a
+  sweep of any hyperparameter ``parse_opt_spec`` knows), row index and data.
+  Kernel 5's (``ops/fused_multisite.py``, :meth:`FusedMultisiteEpoch.members`)
+  for a seed ensemble of a ``share_nn`` ``MultiSiteHybridModel``, as the JAX
+  package vmaps its multi-site kernel: one launcher call per block, a row of
+  site blocks each member, each with its own site permutations, over the
+  sites they share (``engine_reason`` begins ``"multisite kernel: "``). On
+  the card with ``use_kernel="auto"`` (or anywhere with ``use_kernel=True``,
+  where a CPU model runs the member axis's plain version) for a model,
+  optimizer and loss the kernel takes, behind the exactness gate on member
+  0's spec and a member self-check (:func:`member_selfcheck`), each once per
+  configuration and process. A kernel that fails to build or launch raises:
+  there is no fallback that hides it. A failed gate or self-check raises
+  under ``use_kernel=True``; under ``"auto"`` it runs the torch engine and
+  says so in ``engine_reason``.
 * ``"population_vmap"`` (``"population_vmap_cv"``): the torch engine, one
   step for every member at once with ``torch.func.vmap`` over
   ``torch.func.functional_call`` and ``torch.func.grad``, the update by
@@ -33,8 +38,9 @@ Two engines (``PopulationResults.epoch_path``):
   of ``optax.inject_hyperparams``). A model whose training forward updates
   buffers in place (trainable BatchNorm's running statistics), which
   ``vmap`` cannot take, steps member by member instead. Models that go to
-  kernels 3, 4 or 5 run here too: their member axes are ROADMAP queue B,
-  item 5.
+  kernels 3 or 4 run here too (their member axes: ROADMAP queue B, item 5),
+  and so do a multi-site model's sweeps and cross-validations, which the JAX
+  package also keeps off its multi-site kernel.
 
 Evaluation runs the dual evaluator under ``vmap`` for every member at once.
 A pure sweep (no ``seeds``) gives every member the same permutation each
@@ -98,7 +104,7 @@ class PopulationResults:
     monitor: str                          #: metric best_losses tracks
     epoch_path: str = "population_vmap"
     engine_reason: Optional[str] = None   #: why that engine was selected
-    kernel_launches: int = 0              #: launches of kernel 2 the loop made (0: no kernel)
+    kernel_launches: int = 0              #: member launches the loop made (0: no kernel)
 
     def member_params(self, i: int, *, best: bool = True) -> Dict[str, torch.Tensor]:
         """Member ``i``'s (best) parameters, keyed and shaped like a single
@@ -390,10 +396,12 @@ def _stack_state(states):
 
 
 class _FusedPopulation:
-    """Kernel 2's member axis as the loop drives it: ``block(state)`` is one
-    launch for every member; ``state`` is ``(packed, opt_state)``, each with
-    the member axis in front, turned into the evaluator's leaves by views
-    (``leaves``). The loop keeps each member's best ``state[0]``."""
+    """A fused kernel's member axis as the loop drives it (kernel 2's
+    :class:`FusedEpoch` or kernel 5's :class:`FusedMultisiteEpoch`):
+    ``block(state)`` is one launch (launcher call) for every member;
+    ``state`` is ``(packed, opt_state)``, each with the member axis in
+    front, turned into the evaluator's leaves by views (``leaves``). The
+    loop keeps each member's best ``state[0]``."""
 
     def __init__(self, fn, model, base_buffers, *, tensors, per_member_data: bool, specs,
                  shared_perms: bool, generator, members: int):
@@ -439,8 +447,10 @@ class _FusedPopulation:
 
 
 def _pack_members(plan, norm_names, params, buffers):
-    """Stacked leaves in kernel 2's packed layout: ``FusedParams`` of ``(K,
-    n_params)`` parameters and ``(K, 2 F)`` norm statistics."""
+    """Stacked leaves in the kernels' packed layout: ``FusedParams`` of ``(K,
+    n_params)`` parameters and ``(K, 2 F)`` norm statistics. A multi-site
+    model's row is its shared leaves, then each global's ``S`` per-site
+    values (its ``(K, S, 1)`` leaf), as kernel 5 packs them."""
     from ..ops.fused_epoch import FusedParams
 
     k = next(iter(params.values())).shape[0]
@@ -580,11 +590,13 @@ def member_selfcheck(fn, packed, opt_state, tensors, *, specs, per_member_data: 
     The duplicate must give its twin's bits, and every member the bits of a
     launch of it alone (K = 1, its spec in the kernel's shared struct, its
     row index and data), on parameters, statistics, slots, step count and
-    loss. Returns None, or what differed. Build and launch failures raise."""
-    from ..ops.fused_epoch import (FusedParams, _head, fused_epoch_reference, launch_fused_epoch,
-                                   member_plan)
+    loss. Returns None, or what differed. Build and launch failures raise.
+    ``fn`` is kernel 2's :class:`FusedEpoch` or kernel 5's
+    :class:`FusedMultisiteEpoch` (an ensemble's members over shared sites);
+    :meth:`alone` launches a member alone."""
+    from ..ops.fused_epoch import FusedParams, _head
+    from ..ops.fused_multisite import FusedMultisiteEpoch
 
-    plan = fn.plan
     if per_member_data:
         heads = [_head(t, 2) for t in tensors[:2]]
         data = fn.member_data([heads[0], heads[0], heads[1]])
@@ -616,18 +628,12 @@ def member_selfcheck(fn, packed, opt_state, tensors, *, specs, per_member_data: 
     for name, a in fields(got, 0).items():
         if not _bits_equal(a, fields(got, twin)[name]):
             return f"the duplicate member differs from its twin in {name}"
+    # a row index of its own for every member: kernel 2's (K, E, n), kernel 5's (K, E, nb, batch)
+    own = rows.dim() == (4 if isinstance(fn, FusedMultisiteEpoch) else 3)
     for i in range(3):
-        plan_i = member_plan(plan, None if trio_specs is None else trio_specs[i])
-        rows_i = (rows[i] if rows.dim() == 3 else rows).contiguous()
-        p_i = FusedParams(trio.params[i].clone(), trio.bn[i].clone())
-        o_i = {k: v[i].clone() for k, v in trio_opt.items()}
-        if data.x.device.type == "cuda":
-            loss = torch.zeros((1,), dtype=torch.float32, device=data.x.device)
-            launch_fused_epoch(plan_i, p_i, o_i, data, rows_i, loss)
-            alone = (p_i, o_i, loss)
-        else:
-            p1, o1, l1 = fused_epoch_reference(plan_i, p_i, o_i, data, rows_i)
-            alone = (p1, o1, l1.reshape(1))
+        alone = fn.alone(FusedParams(trio.params[i], trio.bn[i]),
+                         {k: v[i] for k, v in trio_opt.items()}, data, rows[i] if own else rows,
+                         None if trio_specs is None else trio_specs[i])
         want = {"params": alone[0].params, "bn": alone[0].bn, **alone[1], "loss": alone[2]}
         for name, a in fields(got, i).items():
             if not _bits_equal(a, want[name]):
@@ -635,23 +641,30 @@ def member_selfcheck(fn, packed, opt_state, tensors, *, specs, per_member_data: 
     return None
 
 
-def _verdict_key(fn, specs, per_member_data, shared_perms, batch):
+def _verdict_key(engine: str, fn, specs, per_member_data, shared_perms, batch):
+    """The memo key of a verdict: the engine (kernel 2's or kernel 5's member
+    axis) and everything of the configuration its checks saw."""
     plan = fn.plan
     form = getattr(plan.form, "header_hash", None) or getattr(plan.form, "form_id", None)
     loss_form = getattr(plan.loss_form, "header", None)
     extremes = None if specs is None else (repr(specs[0]), repr(specs[-1]))
-    return (plan.args_bytes, form, loss_form, extremes, per_member_data, shared_perms,
-            fn.shuffle, fn.epochs, batch, str(plan.consts.device))
+    return (engine, plan.args_bytes, plan.n_sites, form, loss_form, extremes, per_member_data,
+            shared_perms, fn.shuffle, fn.epochs, batch, str(plan.consts.device))
+
+
+# the fused engines with a member axis, by the epoch path train() gives their models
+_MEMBER_AXES = {"cuda_fused_epoch": "kernel 2", "cuda_fused_multisite": "kernel 5"}
 
 
 def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensors, gate_tensors,
                    *, use_kernel, eval_every: int, shuffle, per_member_data: bool,
                    shared_perms: bool, sweep: bool):
-    """``(FusedEpoch or None, reason)``: kernel 2's member axis, or why the
-    torch engine runs the population (the JAX package's wording where it has
-    it). ``params0`` / ``buffers0``: the stacked initial leaves (member 0's
-    take the gate)."""
-    from ..ops.fused_epoch import fused_engine, fused_exactness_check, make_fused_epoch, optimizer_reason
+    """``(fused epoch or None, reason)``: kernel 2's member axis (a
+    :class:`FusedEpoch`) or kernel 5's (a :class:`FusedMultisiteEpoch`), or
+    why the torch engine runs the population (the JAX package's wording
+    where it has it). ``params0`` / ``buffers0``: the stacked initial leaves
+    (member 0's take the gate)."""
+    from ..ops.fused_epoch import fused_engine, fused_exactness_check, optimizer_reason
 
     if use_kernel not in ("auto", None) and use_kernel is not True and use_kernel is not False:
         use_kernel = bool(use_kernel)
@@ -661,9 +674,17 @@ def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensor
     if use_kernel is not True and device.type != "cuda":
         return None, (f"the model is on {device.type!r}, not cuda (use_kernel=True overrides)")
     engine = fused_engine(model)
-    if engine.epoch_path != "cuda_fused_epoch":
+    if engine.epoch_path not in _MEMBER_AXES:
         return None, (f"the model goes to {engine.epoch_path}, whose member axis is not ported "
                       "yet (ROADMAP.md, queue B, item 5): the torch engine runs the population")
+    multisite = engine.epoch_path == "cuda_fused_multisite"
+    if multisite and per_member_data:
+        return None, ("multi-site cross-validation runs the torch engine: its folds re-index the "
+                      "sites, so the JAX package keeps it off the multi-site kernel too")
+    if multisite and sweep:
+        return None, ("a sweep of a multi-site model runs the torch engine: the JAX package's "
+                      "sweep engine streams per-member optimizer numbers into kernel 2's "
+                      "single-series kernel only")
     if sweep:
         bad = [s for s in specs if optimizer_reason(s) is not None]
         if bad:
@@ -677,9 +698,9 @@ def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensor
             return None, engine.shuffle_refusal.format(shuffle)
         return None, ("model/optimizer/loss outside the fused-kernel envelope "
                       f"({engine.envelope}): {reason}")
-    fn = make_fused_epoch(model, spec0, logging, shuffle=shuffle, epochs_per_call=eval_every)
-    key = _verdict_key(fn, specs if sweep else None, per_member_data, shared_perms,
-                       int(gate_tensors.weight.shape[1]))
+    fn = engine.make_epoch(model, spec0, logging, shuffle=shuffle, epochs_per_call=eval_every)
+    key = _verdict_key(engine.epoch_path, fn, specs if sweep else None, per_member_data,
+                       shared_perms, int(gate_tensors.weight.shape[1]))
     if key not in _VERDICTS:
         twin = copy.deepcopy(model)
         with torch.no_grad():
@@ -700,12 +721,14 @@ def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensor
                               (True, f"exactness gate (max grad diff {gdiff:.2e}) + member "
                                      "self-check passed"))
     ok, why = _VERDICTS[key]
+    kernel = _MEMBER_AXES[engine.epoch_path]
     if not ok and use_kernel is True:
-        raise RuntimeError(f"use_kernel=True, but kernel 2's member axis was refused: {why}")
+        raise RuntimeError(f"use_kernel=True, but {kernel}'s member axis was refused: {why}")
     if not ok:
-        log.warning("population: kernel 2's member axis refused (%s); the torch engine runs", why)
+        log.warning("population: %s's member axis refused (%s); the torch engine runs", kernel, why)
         return None, why
-    return fn, why
+    # the JAX package's wording (easyhybrid_tpu/training/population.py:280-283)
+    return fn, ("multisite kernel: " if multisite else "") + why
 
 
 def _stacked_opt_state(packed, spec, k: int):

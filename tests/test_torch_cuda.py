@@ -1238,3 +1238,130 @@ def test_a_refused_member_axis_runs_the_torch_engine_under_auto(cuda, monkeypatc
         "population_vmap", "member self-check failed: member 2 differs in m", 0)
     with pytest.raises(RuntimeError, match="member self-check failed: member 2 differs in m"):
         et.population_train(m, cols, use_kernel=True, **kw)
+
+
+# ---- kernel 5's member axis ------------------------------------------------------
+
+
+def _multisite_members(device, *, k=3, S=300, N=8, batch=128, shuffle=True, opt=("adam", 0.01),
+                       loss="mse", masked=False, twin=False, **spec_kw):
+    """A member call's inputs on the card: k members of a multi-site model
+    drawn from seeds 0..k-1 over one data set, 2 epochs, each member with
+    its own permutations (with ``twin``, the last member a copy of the first,
+    its permutations too)."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static")
+    spec.update(spec_kw)
+    m = et.MultiSiteHybridModel(et.construct_hybrid_model(**spec, device=device), S)
+    data = et.gen_multisite_arrays(S, N, seed=0, nan_frac=0.1, site_idx=True)
+    if masked:
+        data.y["reco"][batch:2 * batch] = np.nan  # every target of the second site batch
+    et.fit_input_norm(m, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch or S), device)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",))
+    fn = et.make_fused_multisite_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=2)
+    seeds = list(range(k - 1)) + [0] if twin else list(range(k))
+    inits = [pop.init_member_params(m, s) for s in seeds]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = {n: b.detach().expand((k,) + tuple(b.shape)).clone() for n, b in m.named_buffers()}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(m), params, buffers)
+    opt_state = pop._stacked_opt_state(packed, opt, k)
+    shaped = fn.member_data(tensors)
+    gen = torch.Generator(device=device).manual_seed(1)
+    perms = [perms_for_epochs(shuffle, tensors, 2, generator=gen) for _ in range(k)]
+    if twin and perms[0] is not None:
+        perms[-1] = perms[0]
+    rows = fn.member_rows(shaped, k, perms=None if perms[0] is None else torch.stack(perms))
+    return fn, packed, opt_state, shaped, rows, tensors, perms
+
+
+@pytest.mark.parametrize("kw", [
+    dict(S=2000, N=64, batch=None),                  # one site batch: one index for all
+    dict(shuffle=True, twin=True),
+    dict(shuffle="batches", masked=True),            # the members' valid steps in other orders
+    dict(shuffle=False, loss="rmse"),
+    dict(opt=("lamb", 0.01), twin=True),             # per-member lamb parts
+    dict(opt=("amsgrad", 0.01)),
+    dict(S=40, N=1, batch=10, **TWO_GLOBALS),        # more of a tile's globals than threads
+], ids=str)
+def test_multisite_member_launch_matches_plain_and_each_member_alone(cuda, kw):
+    """K members in one launcher call within 1e-4 * max(1, |plain|) of the
+    member axis's plain version, every member bit for bit a call of it alone
+    (train()'s call from its state on its permutations), a duplicate member
+    its twin's bits, and a second run the first's."""
+    fn, packed, opt, data, rows, tensors, perms = _multisite_members(cuda, **kw)
+    before = fm.launch_fused_multisite.launches
+    got = fn.members(packed, opt, data, rows)
+    torch.cuda.synchronize()
+    assert fm.launch_fused_multisite.launches - before == 1
+    again = fn.members(packed, opt, data, rows)
+    scale, valid = fm.member_scales(fn.plan, data, rows, same_batches=fn._same_batches(data))
+    ref = fm.fused_multisite_members_reference(fn.plan, packed, opt, data, rows, scale, valid)
+    for a, b, r in zip((got[0].params, *got[1].values(), got[2]),
+                       (again[0].params, *again[1].values(), again[2]),
+                       (ref[0].params, *ref[1].values(), ref[2])):
+        assert torch.equal(a, b)
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all()
+        assert bool(((a - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    for i in range(packed.params.shape[0]):
+        p = fe.FusedParams(packed.params[i].clone(), packed.bn[i].clone())
+        o = {k: v[i].clone() for k, v in opt.items()}
+        alone = fn(p, o, tensors, perms=perms[i])
+        assert torch.equal(alone[0].params, got[0].params[i])
+        assert all(torch.equal(alone[1][k], got[1][k][i]) for k in o)
+        assert torch.equal(alone[2], got[2][i])
+    if kw.get("twin"):
+        assert torch.equal(got[0].params[0], got[0].params[-1])
+        assert all(torch.equal(v[0], v[-1]) for v in got[1].values())
+
+
+def test_a_one_member_multisite_launch_is_trains_launch(cuda):
+    fn, packed, opt, data, rows, tensors, perms = _multisite_members(cuda, k=1, S=2000, N=64,
+                                                                     batch=500)
+    got = fn.members(packed, opt, data, rows)
+    p = fe.FusedParams(packed.params[0].clone(), packed.bn[0].clone())
+    alone = fn(p, {k: v[0].clone() for k, v in opt.items()}, tensors, perms=perms[0])
+    assert torch.equal(alone[0].params, got[0].params[0])
+    assert all(torch.equal(alone[1][k], got[1][k][0]) for k in opt)
+    assert torch.equal(alone[2], got[2][0])
+
+
+def test_population_train_takes_the_multisite_member_axis(cuda):
+    """A seed ensemble of a multi-site model through the entry point: kernel
+    5's member axis behind its gate and self-check, one launcher call per
+    block for every member, no call waiting for the device between the
+    first block and the fetch; then ensemble_predict on the card."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    S, N = 200, 16
+    cols = et.rbq10_columns(S * N, seed=7)
+    cols["site"] = np.repeat(np.arange(S), N)
+    base = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[16, 16],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    m = et.MultiSiteHybridModel(base, n_sites=S)
+    data = et.prepare_multisite_data(base, cols, "site")
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        before = fm.launch_fused_multisite.launches
+        ens = et.population_train(m, data, seeds=[0, 1, 2], nepochs=10, batchsize=64,
+                                  eval_every=5, split_data_at=0.8, seed=5)
+        launches = fm.launch_fused_multisite.launches - before
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    assert ens.epoch_path == "population_vmap_fused", ens.engine_reason
+    assert ens.engine_reason.startswith("multisite kernel: exactness gate")
+    assert ens.kernel_launches == 2 and launches >= 2
+    assert np.isfinite(ens.best_losses).all() and ens.params["globals.Q10"].shape == (3, S, 1)
+    out = et.ensemble_predict(m, ens, data)
+    assert out["reco"].shape == (S, N) and out["reco_std"].shape == (S, N)
+    assert np.isfinite(out["reco"][~np.isnan(out["reco"])]).all()

@@ -16,13 +16,16 @@ the row code in ``csrc/eh_device.cuh``) on every case of
 unpacked from ``git archive`` into the ignored ``chip_work/``) runs the same
 timings first, and again last, on that tree's package, so both stand side by
 side from one card; with ``--epoch-bits`` the change's kernel 2 results are
-then held bit for bit against the parent's. It asserts nothing but that last
-comparison: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
-kernels to their tolerances.
+then held bit for bit against the parent's, and with ``--ms-bits`` its kernel
+5 results (one model, as ``train()`` launches it) on every case of
+``chip_smoke.multisite_cases``. It asserts nothing but those comparisons:
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to their
+tolerances.
 
 Run from the repository root on a machine with a GPU and ``nvcc``:
 
     PYTHONPATH=. python tools/dev_fused_multisite_gpu.py [--parent DIR] [--stamps] [--epoch-bits]
+        [--ms-bits]
 """
 
 from __future__ import annotations
@@ -96,10 +99,10 @@ def check_cases(tag: str) -> None:
     """Every kernel-5 case of ``chip_smoke`` against the plain version, twice."""
     for case in chip_smoke.multisite_cases():
         what, fn, packed, tensors, perms = chip_smoke.prepare_multisite_case(et, **case)
-        runs = [fn(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+        runs = [fn(packed, chip_smoke.fresh_state(fn, packed), tensors, perms=perms)
                 for _ in range(2)]
         note = geometry_note(fn, tensors)
-        ref = fn.reference(packed, fe.init_fused_opt_state(packed), tensors, perms=perms)
+        ref = fn.reference(packed, chip_smoke.fresh_state(fn, packed), tensors, perms=perms)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in (
             (runs[0][0].params, runs[1][0].params), (runs[0][1]["m"], runs[1][1]["m"]),
@@ -170,6 +173,19 @@ def epoch_results(tag: str) -> dict:
     return out
 
 
+def multisite_results(tag: str) -> dict:
+    """Kernel 5's results, one model as ``train()`` launches it, on every
+    ``chip_smoke.multisite_cases`` case."""
+    out = {}
+    for i, case in enumerate(chip_smoke.multisite_cases()):
+        what, fn, packed, tensors, perms = chip_smoke.prepare_multisite_case(et, **case)
+        p, o, loss = fn(packed, chip_smoke.fresh_state(fn, packed), tensors, perms=perms)
+        torch.cuda.synchronize()
+        out[i] = (what, [t.cpu() for t in (p.params, p.bn, *o.values(), loss)])
+    print(f"[{tag}] kernel 5: {len(out)} multisite cases run", flush=True)
+    return out
+
+
 def side(tag: str, args) -> None:
     build_alone(tag)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,6 +196,16 @@ def side(tag: str, args) -> None:
         time_stamps(tag)
     if args.epoch_bits_file:
         torch.save(epoch_results(tag), args.epoch_bits_file)
+    if args.ms_bits_file:
+        torch.save(multisite_results(tag), args.ms_bits_file)
+
+
+def same_bits(mine: dict, theirs: dict) -> list:
+    """The cases whose results differ in any bit."""
+    return [mine[i][0] for i in mine
+            if not all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                   b.view(torch.int32) if b.is_floating_point() else b)
+                       for a, b in zip(mine[i][1], theirs[i][1]))]
 
 
 def main() -> None:
@@ -191,6 +217,10 @@ def main() -> None:
     parser.add_argument("--epoch-bits", action="store_true",
                         help="kernel 2's results on chip_smoke.epoch_cases (against the parent's)")
     parser.add_argument("--epoch-bits-file", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--ms-bits", action="store_true",
+                        help="kernel 5's results on chip_smoke.multisite_cases (against the "
+                             "parent's)")
+    parser.add_argument("--ms-bits-file", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("dev_fused_multisite_gpu: needs a CUDA GPU")
@@ -200,32 +230,37 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        files = {"parent": str(Path(tmp) / "parent.pt"), "change": str(Path(tmp) / "change.pt")}
+        files = {f"{side_}{kind}": str(Path(tmp) / f"{side_}{kind}.pt")
+                 for side_ in ("parent", "change") for kind in ("", "_ms")}
 
         def parent_side(bits: bool) -> None:
             parent = Path(args.parent).resolve()
             cmd = [sys.executable, str(Path(__file__).resolve()), "--side", "parent",
-                   "--epoch-bits-file", files["parent"] if bits else ""]
+                   "--epoch-bits-file", files["parent"] if bits and args.epoch_bits else "",
+                   "--ms-bits-file", files["parent_ms"] if bits and args.ms_bits else ""]
             subprocess.run(cmd, check=True, cwd=parent,
                            env={**os.environ, "PYTHONPATH": str(parent)})
 
         if args.parent:
-            parent_side(args.epoch_bits)
+            parent_side(True)
         args.epoch_bits_file = files["change"] if args.epoch_bits else ""
+        args.ms_bits_file = files["change_ms"] if args.ms_bits else ""
         side("change", args)
         if args.parent:
             parent_side(False)
-        if args.epoch_bits and args.parent:
-            mine, theirs = torch.load(files["change"]), torch.load(files["parent"])
-            differ = [mine[i][0] for i in mine
-                      if not all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
-                                             b.view(torch.int32) if b.is_floating_point() else b)
-                                 for a, b in zip(mine[i][1], theirs[i][1]))]
-            print(f"kernel 2 against the parent's build, {len(mine)} epoch cases: "
-                  + ("the same bits in every case" if not differ else f"OTHER BITS in {differ}"),
-                  flush=True)
-            if differ:
-                sys.exit(1)
+        failed = False
+        for flag, kind, what in ((args.epoch_bits, "", "kernel 2, epoch"),
+                                 (args.ms_bits, "_ms", "kernel 5, multisite")):
+            if flag and args.parent:
+                mine = torch.load(files[f"change{kind}"])
+                differ = same_bits(mine, torch.load(files[f"parent{kind}"]))
+                print(f"{what.split(',')[0]} against the parent's build, {len(mine)}"
+                      f"{what.split(',')[1]} cases: "
+                      + ("the same bits in every case" if not differ else f"OTHER BITS in {differ}"),
+                      flush=True)
+                failed = failed or bool(differ)
+        if failed:
+            sys.exit(1)
 
 
 if __name__ == "__main__":
