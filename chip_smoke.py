@@ -209,7 +209,33 @@ Phases, one or more lines each; any failure exits non-zero:
     calls, the JAX bench's amplification (16 x one-member wall / sweep wall),
     kernel 2's device ms per launch at K = 1 and K = 16 (and at 64, 132 and
     264 members), the member launch's plain version, and the torch engine's
-    wall on (a) cut to 10 epochs.
+    wall on (a) cut to 10 epochs;
+33. kernel 5's member axis against its plain version on the card, every
+    member bit for bit its call alone, a duplicate its twin, a second run the
+    first, and a K = 1 member call ``train()``'s call;
+34. main path: ``examples/multisite_fluxnet.py``'s 4-seed ensemble at 10,000
+    sites x 64 on kernel 5's member axis, ``ensemble_predict`` against the
+    members' ``predict``, and the walls and a member call's times;
+35. kernel 4's two-pass losses (rmse, pearsonLoss, kgeLoss, pbkgeLoss)
+    against the plain version on the card within ``TOL_EPOCH``, a second run
+    to the same bits: at the main path's windows (kgeLoss and pbkgeLoss by
+    their gradient there), an output window of 3 with NaN targets, a ragged
+    batch, tiles walked with a partial last tile, a cluster of 16, batches
+    without a valid target (no step); kernel 4's member axis: an 8-member
+    sweep, a 4-seed kgeLoss ensemble and the 5 folds of a cross-validation
+    against their plain version, every member bit for bit its launch alone,
+    and a K = 1 member launch equal to ``train()``'s launch;
+36. main path: ``examples/lstm_sequences.py``'s run through ``train()`` under
+    each two-pass loss (kernel 4 after its gate, one launch an epoch, Q10
+    within 0.15 of 2.0), and the LSTM populations on kernel 4's member axis,
+    one launch a block: the 8-member sweep (``LSTM_SWEEP``), the kgeLoss
+    ensemble (``LSTM_ENSEMBLE``) and 5-fold cross-validation (``LSTM_CV_KW``),
+    each under ``set_sync_debug_mode("error")``;
+37. times: kernel 4's epoch under each two-pass loss beside mse in turns, and
+    each plain version; a member launch of an epoch of the sweep's windows at
+    K = 1, 8, 12 and 16 and the K = 8 launch's plain version; the LSTM
+    sweep's and a one-member population's second-call walls; the seconds
+    phases 35-37 add.
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -232,6 +258,7 @@ import statistics
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -336,13 +363,43 @@ def device_ms(fn, reps: int, what: str = "") -> float:
                        "(does a call wait for the device?)")
 
 
+class Activity(NamedTuple):
+    """The device activities of one name in a trace: their summed duration
+    (us) and their number."""
+    key: str
+    self_device_time_total: float
+    count: int
+
+
+def device_activities(prof) -> list:
+    """The device activities of a finished ``torch.profiler`` trace, one
+    ``Activity`` a name, summed from the trace's raw records.
+    ``key_averages()`` would build a Python object a record and an operator
+    tree first, which takes tens of seconds on a trace of a plain version's
+    ~10^5 kernels."""
+    from torch.autograd import DeviceType
+
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = totals.get(e.name(), (0.0, 0))
+            totals[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return [Activity(k, us, n) for k, (us, n) in totals.items()]
+
+
+class ProfilerMissed(AssertionError):
+    """Every trace of a call came back without the records of the kernels
+    it launched."""
+
+
 def profiled_averages(fn, reps: int, name: str = "", parts=("",)) -> list:
     """``torch.profiler``'s device averages over ``reps`` calls of ``fn``,
     of the activities whose name contains ``name``. A trace now and then
     comes back without the records of kernels that were launched (the launch
-    counters show that they ran), so a trace that holds no such activity
-    whose name contains each of ``parts`` is taken again, at most three
-    times in all, before it is an error."""
+    counters show that they ran; kernel 4's one-launch epoch loses them in
+    about every other trace), so a trace that holds no such activity whose
+    name contains each of ``parts`` is taken again, at most three times in
+    all, before ``ProfilerMissed`` is raised."""
     from torch.profiler import ProfilerActivity, profile
 
     what = f"activity named *{name}*" + "".join(f", *{p}*" for p in parts if p)
@@ -352,12 +409,12 @@ def profiled_averages(fn, reps: int, name: str = "", parts=("",)) -> list:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
+        events = [e for e in device_activities(prof)
                   if name in e.key and e.self_device_time_total > 0]
         if all(any(p in e.key for e in events) for p in parts):
             return events
         log("times", f"the profiler's trace {attempt + 1} of 3 held no device {what}")
-    raise AssertionError(f"the profiler saw no device {what}")
+    raise ProfilerMissed(f"the profiler saw no device {what}")
 
 
 def profiled_device_ms(fn, reps: int) -> float:
@@ -609,8 +666,16 @@ def kernel_split_ms(fn, reps: int, name: str, parts=("",)) -> dict:
 
 def kernel_device_ms(fn, reps: int, name: str) -> float:
     """Device milliseconds per call of ``fn`` spent in the kernels whose
-    name contains ``name``."""
-    return kernel_split_ms(fn, reps, name)["all"]
+    name contains ``name``. Where every trace drops those kernels' records,
+    the call's device time by CUDA events (``device_ms``) instead: the
+    kernels and the little work the call does around them."""
+    try:
+        return kernel_split_ms(fn, reps, name)["all"]
+    except ProfilerMissed:
+        ms = device_ms(fn, reps, name)
+        log("times", f"the profiler dropped *{name}* in every trace; CUDA events over the whole "
+                     f"call instead: {ms:.4f} ms a call")
+        return ms
 
 
 # kernel 5 after at most 4 epochs of site batches: max |got - ref| <=
@@ -1652,7 +1717,7 @@ def wide_times(et, card, main, cols, train_cols) -> dict:
         et.train(wide_model(et), cols, **WIDE_TRAIN_KW)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    busy_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    busy_s = sum(e.self_device_time_total for e in device_activities(prof)) / 1e6
     log("times", f"[{card}] wide train() wall, {WIDE_TRAIN_KW['nepochs']} epochs of "
                  f"{out['main']['steps']} steps + an evaluation per epoch: cuda_fused_wide "
                  f"{main['wall']:.2f} s in the first call and {again_wall:.2f} s in a second one "
@@ -3451,6 +3516,354 @@ def multisite_population_main_path(et, card, ms_main) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 35-37: kernel 4's two-pass losses and member axis
+# ---------------------------------------------------------------------------
+
+# the two-pass losses of the JAX LSTM body (rmse and the statistic losses)
+LSTM_TWO_PASS = ("rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss")
+# the LSTM populations of the main path: examples/lstm_sequences.py's model and
+# windows, a learning-rate sweep of 8 members (4 rates x 2 seeds) on nseLoss, a
+# 4-seed ensemble on kgeLoss and 5-fold cross-validation, 30 epochs of 128
+LSTM_POP_KW = dict(optimizer="adam", nepochs=30, batchsize=128, eval_every=5, seed=11,
+                   data_seed=0, sequence_kwargs=LSTM_WINDOW)
+LSTM_POP_LRS = [0.003, 0.01, 0.03, 0.1]
+LSTM_SWEEP = dict(hyper={"learning_rate": LSTM_POP_LRS * 2}, seeds=[0] * 4 + [1] * 4,
+                  training_loss="nseLoss", loss_types=["nseLoss", "mse"])
+LSTM_ENSEMBLE = dict(hyper={"learning_rate": [0.01]}, seeds=[0, 1, 2, 3], training_loss="kgeLoss",
+                     loss_types=["kgeLoss", "mse"])
+LSTM_CV_KW = dict(k=5, optimizer=("adam", 0.01), nepochs=30, batchsize=128, eval_every=5, seed=11,
+                  data_seed=0, sequence_kwargs=LSTM_WINDOW, training_loss="nseLoss",
+                  loss_types=["nseLoss", "mse"])
+
+
+def lstm_two_pass_cases():
+    """Phase 35's cases: ``(loss, what, prepare_lstm_case keywords, sgd
+    learning rate of a gradient check or None)``. The main path's training
+    windows first; kgeLoss and pbkgeLoss, cones at their minimum whose Adam
+    runs amplify rounding (phase 22's note), are held there by their
+    gradient; then the edges: an output window of 3 with NaN targets, a
+    ragged batch, a batch no cluster holds at once (tiles walked, the last one
+    partial), a cluster of 16, batches without a valid target."""
+    main = dict(keep=int(LSTM_ROWS * 0.8))
+    out = []
+    for loss in LSTM_TWO_PASS:
+        if loss in ("kgeLoss", "pbkgeLoss"):
+            out.append((loss, f"main path's training rows, {loss}, the gradient: an epoch of sgd "
+                              "at lr 1e-3", dict(main, opt=("sgd", 1e-3), epochs=1), 1e-3))
+        else:
+            out.append((loss, f"main path's training rows, {loss}, adam, 4 epochs",
+                        dict(main, epochs=4), None))
+    out += [
+        ("kgeLoss", "LSTM(8), output window 3, 30% NaN targets, batch 100 (ragged), adam, 2 epochs",
+         dict(hidden=8, out_steps=3, nan_frac=0.3, batch=100, n=1500), None),
+        ("pbkgeLoss", "output window 2, 20% NaN targets, agg mean, rmsprop, 2 epochs",
+         dict(out_steps=2, nan_frac=0.2, agg="mean", opt=("rmsprop", 0.01), n=1500), None),
+        ("pearsonLoss", "batch 1,000 over 16 blocks of 16 windows, 4 tiles the last partial, 1 "
+                        "epoch", dict(batch=1000, n=3000, epochs=1), None),
+        ("rmse", "batch 1,000, tiles walked, lamb, 1 epoch",
+         dict(batch=1000, n=3000, epochs=1, opt=("lamb", 0.01)), None),
+        ("kgeLoss", "the JAX bench's shape: batch 512 over a cluster of 16, no norm, 1 epoch",
+         dict(batch=512, norm=False, n=LSTM_ROWS, epochs=1, seed=42), None),
+        ("pearsonLoss", "first two batches without a valid target, unshuffled",
+         dict(shuffle=False, mask_first=2 * 128 + 9, n=1033), None),
+        ("rmse", "first two batches without a valid target, unshuffled, LSTM(32)",
+         dict(hidden=32, steps=12, shuffle=False, mask_first=2 * 128 + 11, n=1035), None),
+    ]
+    return out
+
+
+def lstm_member_inputs(et, k, *, loss="nseLoss", opt=("adam", 0.01), folds=False, epochs=2,
+                       cols=None, seed0=11):
+    """A kernel-4 member launch at the main path's shape: the fused epoch,
+    the members' packed parameters (``init_member_params`` of seeds
+    ``seed0 + i``), their static norms (one training split, or each of
+    ``k`` folds' own), zero slots, the kernel's data and whether each member
+    has its own windows."""
+    from easyhybrid_tpu_torch.training import epoch as tepoch
+    from easyhybrid_tpu_torch.training import population as pop
+
+    from easyhybrid_tpu_torch.data.sequences import filter_sequences, split_into_sequences
+
+    model = lstm_model(et)
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,))
+    fn = et.make_fused_lstm_epoch(model, opt, logging, shuffle=True, epochs_per_call=epochs)
+    cols = cols if cols is not None else et.rbq10_columns(LSTM_ROWS, seed=7)
+    if folds:  # as population_cross_validate cuts them
+        prepared = filter_sequences(split_into_sequences(
+            et.prepare_data(model, cols, drop_missing_rows=False), **LSTM_WINDOW))
+        ids = et.make_folds(range(prepared.n_samples), k=k, shuffle=True, seed=0)
+        splits = [prepared.take(np.nonzero(ids != i)[0]) for i in range(1, k + 1)]
+    else:
+        splits = [et.split_data(cols, model, sequence_kwargs=LSTM_WINDOW)[0]] * k
+    inits = [pop.init_member_params(model, seed0 + i) for i in range(k)]
+    params = {n: torch.stack([init[n] for init in inits]) for n in inits[0]}
+    buffers = []
+    for split in splits:
+        et.fit_input_norm(model, split)
+        buffers.append({n: b.detach().clone() for n, b in model.named_buffers()})
+    buffers = {n: torch.stack([b[n] for b in buffers]) for n in buffers[0]}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(model), params, buffers)
+    host = [et.build_epoch_tensors(s, 128) for s in (splits if folds else splits[:1])]
+    nb = max(int(np.asarray(t.weight).shape[0]) for t in host)
+    ns = max(t.n_samples for t in host)
+    tensors = [tepoch.epoch_tensors_to(pop._pad_epoch_tensors(t, nb, ns), "cuda") for t in host]
+    data = fn.member_data(tensors if folds else tensors[0])
+    return fn, packed, pop._stacked_opt_state(packed, opt, k), data
+
+
+def lstm_two_pass_checks(et) -> dict:
+    """Phase 35: kernel 4 under each two-pass loss against its plain version
+    on the card within ``TOL_EPOCH``, a second run to the same bits; the
+    member axis: K = 8 members (a learning-rate sweep with a shared
+    permutation; the kgeLoss seed ensemble, a permutation each) and the 5
+    folds of a cross-validation (a fold's windows each) against their plain
+    version, every member bit for bit its launch alone; a K = 1 member launch
+    equal to ``train()``'s launch. Returns the worst error by loss and of the
+    member axis."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+    errs = {}
+    for loss, what, case, lr in lstm_two_pass_cases():
+        _, fn, packed, tensors, perms = prepare_lstm_case(et, what=what, loss=loss, **case)
+        err = held_twice(f"kernel 4, {what}", fn, packed, tensors, perms, gradient_lr=lr,
+                         tag="kernel4-losses")
+        errs[loss] = max(errs.get(loss, 0.0), err)
+        steps, out_steps = tensors.x.shape[2], tensors.y["reco"].shape[2]
+        g = fn.plan.geometry(int(tensors.weight.shape[1]), int(steps), int(out_steps))
+        t = int(fn(packed, fresh_state(fn, packed), tensors, perms=perms)[1]["t"][0])
+        log("kernel4-losses", f"  {g.cluster} block(s) of {g.windows} windows x {g.tiles} tile(s), "
+                              f"{g.threads} threads, {t} steps")
+        if "mask_first" in case and t != 2 * (8 - 2):
+            raise AssertionError(f"{what}: {t} steps counted, not 12 (no step without a target)")
+
+    lrs = [("adam", {"learning_rate": lr}) for lr in LSTM_POP_LRS * 2]
+    worst = 0.0
+    for what, k, specs, loss, folds, own in (
+            ("the sweep: 8 members, 4 learning rates x 2 seeds, nseLoss, one permutation shared",
+             8, lrs, "nseLoss", False, False),
+            ("the ensemble: 4 seeds, kgeLoss, a permutation each", 4, None, "kgeLoss", False, True),
+            ("5-fold cross-validation, nseLoss, a fold's windows, norm and permutation each", 5,
+             None, "nseLoss", True, True)):
+        fn, packed, opt0, data = lstm_member_inputs(et, k, loss=loss, folds=folds)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rows = fn.member_rows(data, k, per_member_data=folds, generator=gen, shared_perms=not own)
+        got = fn.members(packed, opt0, data, rows, specs=specs)
+        torch.cuda.synchronize()
+        again = fn.members(packed, opt0, data, rows, specs=specs)
+        ref = fl.fused_lstm_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)
+        g, a = member_fields(got), member_fields(again)
+        if not all(bool(torch.isfinite(v).all()) for v in g.values()):
+            raise AssertionError(f"kernel 4 members, {what}: non-finite values")
+        if not all(torch.equal(g[f], a[f]) for f in g):
+            raise AssertionError(f"kernel 4 members, {what}: a second run gave other bits")
+        worst = max(worst, compare(g, member_fields(ref), f"kernel 4 members, {what}", TOL_EPOCH))
+        for i in range(k):
+            alone = member_fields(fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                                           {n: v[i] for n, v in opt0.items()}, data,
+                                           rows[i] if rows.dim() == 3 else rows,
+                                           None if specs is None else specs[i]))
+            mine = member_fields(got, i)
+            if not all(torch.equal(mine[f].reshape(alone[f].shape), alone[f]) for f in alone):
+                raise AssertionError(f"kernel 4 members, {what}: member {i} differs from a "
+                                     "launch of it alone")
+        log("kernel4-members", f"{what}: K={k}, rows {tuple(rows.shape)}, "
+                               f"{int(g['t'][0].item())} steps, max |diff| vs plain {worst:.3e}; "
+                               "every member equal to its launch alone, second run bitwise equal "
+                               "(ok)")
+    # K = 1 through the member path is train()'s launch
+    fn, packed, opt0, data = lstm_member_inputs(et, 1)
+    rows = fn.member_rows(data, 1, per_member_data=False,
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+    got = member_fields(fn.members(packed, opt0, data, rows), 0)
+    alone = member_fields(fn.alone(fe.FusedParams(packed.params[0], packed.bn[0]),
+                                   {n: v[0] for n, v in opt0.items()}, data, rows))
+    if not all(torch.equal(got[f].reshape(alone[f].shape), alone[f]) for f in alone):
+        raise AssertionError("a K = 1 kernel-4 member launch differs from train()'s launch")
+    log("kernel4-members", "a K = 1 member launch (no member rows) equals train()'s launch bit for "
+                           "bit (ok)")
+    errs["members"] = worst
+    return errs
+
+
+def lstm_population_run(et, model, cols, *, cv=False, **kw):
+    """One LSTM population call on the card under
+    ``set_sync_debug_mode("error")``: ``(result, wall s, kernel 4's
+    launches)``, the count set to 0 just before the call (a first call's gate
+    and self-check included; the loop's own are ``result.kernel_launches``)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+    from easyhybrid_tpu_torch.training import deferred
+
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        torch.cuda.synchronize()
+        fl.launch_fused_lstm.launches = 0
+        t0 = time.perf_counter()
+        if cv:
+            result = et.population_cross_validate(model, cols, **{**LSTM_CV_KW, **kw})
+        else:
+            result = et.population_train(model, cols, **{**LSTM_POP_KW, **kw})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    return result, wall, fl.launch_fused_lstm.launches
+
+
+def lstm_two_pass_main_paths(et, card) -> dict:
+    """Phase 36: the main path with the two-pass losses and the member axis:
+    ``examples/lstm_sequences.py``'s run through ``train()`` under rmse,
+    pearsonLoss, kgeLoss and pbkgeLoss (kernel 4 after its gate, one launch
+    an epoch, finite losses, Q10 within phase 14's band), and the LSTM
+    populations: the 8-member sweep, the kgeLoss ensemble and 5-fold
+    cross-validation, each on kernel 4's member axis in one launch a block."""
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    out = {}
+    for loss in LSTM_TWO_PASS:
+        kw = {**LSTM_TRAIN_KW, "training_loss": loss, "loss_types": [loss, "mse"]}
+        with gate_counted_apart(fl.launch_fused_lstm) as gate_launches:
+            t0 = time.perf_counter()
+            result = et.train(lstm_model(et), cols, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fl.launch_fused_lstm.launches - halted(result)
+        if result.epoch_path != "cuda_fused_lstm" or "exactness gate passed" not in \
+                result.engine_reason:
+            raise AssertionError(f"train() on {loss} took {result.epoch_path!r}: "
+                                 f"{result.engine_reason}")
+        if launches != kw["nepochs"]:
+            raise AssertionError(f"train() on {loss} launched kernel 4 {launches} times, not "
+                                 f"{kw['nepochs']}")
+        q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+        val = [v[loss]["reco"] for v in result.val_history]
+        if not (np.isfinite(val).all() and np.isfinite(result.best_loss)
+                and abs(q10 - 2.0) < 0.15):
+            raise AssertionError(f"train() on {loss}: best val {result.best_loss}, Q10 {q10:.4f}")
+        log("main", f"sequence train() on {loss}: {result.epoch_path}, {result.engine_reason}; "
+                    f"{launches} launches after the gate's {gate_launches}; best val {loss} "
+                    f"{result.best_loss:.6f} at epoch {result.best_epoch} (first "
+                    f"{float(val[0]):.6f}), Q10 {q10:.4f} (phase 14's nseLoss run: within 0.15 "
+                    f"of 2.0); {wall:.2f} s wall (ok)")
+        out[loss] = dict(launches=launches, wall=wall)
+
+    model = lstm_model(et)
+    blocks = LSTM_POP_KW["nepochs"] // LSTM_POP_KW["eval_every"]
+    runs = (("the sweep (8 members: learning rates 0.003-0.1 x 2 seeds, nseLoss)", False,
+             LSTM_SWEEP, "population_vmap_fused"),
+            ("the kgeLoss ensemble (4 seeds)", False, LSTM_ENSEMBLE, "population_vmap_fused"),
+            ("5-fold cross-validation (nseLoss)", True, {}, "population_vmap_cv_fused"))
+    for what, cv, kw, path in runs:
+        result, wall, launches = lstm_population_run(et, model, cols, cv=cv, **kw)
+        if result.epoch_path != path or result.kernel_launches != blocks:
+            raise AssertionError(f"{what} took {result.epoch_path!r} ({result.engine_reason}) in "
+                                 f"{result.kernel_launches} launches, not {blocks}")
+        if not np.isfinite(result.best_losses).all():
+            raise AssertionError(f"{what}: best losses {result.best_losses}")
+        q10 = et.scale_param(result.best_params["globals.Q10"], 1.0, 4.0).numpy().ravel()
+        best = result.best_member
+        if not abs(float(q10[best]) - 2.0) < 0.15:
+            raise AssertionError(f"{what}: the best member's Q10 {float(q10[best]):.4f}")
+        log("main", f"LSTM population, {what}: {result.epoch_path} ({result.engine_reason}), "
+                    f"{result.kernel_launches} member launches for {blocks} blocks "
+                    f"({launches} with the gate's and the self-check's); best "
+                    f"{result.monitor} by member "
+                    + ", ".join(f"{v:.5f}" for v in result.best_losses)
+                    + f"; Q10 by member " + ", ".join(f"{v:.4f}" for v in q10)
+                    + f"; first call {wall:.2f} s; no synchronising call (ok)")
+        out[what] = dict(launches=result.kernel_launches, wall=wall)
+    return out
+
+
+def lstm_two_pass_times(et, card) -> dict:
+    """Phase 37: kernel 4's epoch at the main path's shape under each
+    two-pass loss beside mse, in turns, and each one's plain version; a
+    member launch of an epoch at K = 1, 8, 12 and 16 and the K = 8 launch's
+    plain version; the LSTM sweep's second call's wall."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    train_cols = {k: v[: int(LSTM_ROWS * 0.8)] for k, v in
+                  et.rbq10_columns(LSTM_ROWS, seed=7).items()}
+    calls, plain, geo = {}, {}, None
+    for loss in ("mse",) + LSTM_TWO_PASS:
+        _, fn, packed, tensors, perms = prepare_lstm_case(et, what="", cols=train_cols, epochs=1,
+                                                          loss=loss)
+        opt0 = fe.init_fused_opt_state(packed)
+        calls[loss] = (lambda fn=fn, p=packed, o=opt0, t=tensors, pm=perms:
+                       fn(p, o, t, perms=pm))
+        host_ms(calls[loss], 2)
+        plain[loss] = profiled_device_ms(lambda fn=fn, p=packed, o=opt0, t=tensors, pm=perms:
+                                         fn.reference(p, o, t, perms=pm), 1)
+        nb, batch = (int(v) for v in tensors.weight.shape)
+        geo = fn.plan.geometry(batch, 10, 1)
+    samples = {loss: [] for loss in calls}
+    for i in range(5):
+        for loss in (list(calls) if i % 2 == 0 else list(reversed(list(calls)))):
+            samples[loss].append(device_ms(calls[loss], 5, f"kernel 4, {loss}"))
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    log("times", f"[{card}] kernel 4, one epoch of {nb} steps of {batch} windows x 10 (the main "
+                 f"path's training windows, LSTM(16), static norm, adam), geometry {geo}, median "
+                 "of 5 in turns: " + ", ".join(
+                     f"{k} {v:.4f} ms ({v / ms['mse']:.2f}x mse; plain {plain[k]:.2f})"
+                     for k, v in ms.items()))
+
+    model = lstm_model(et)
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    lstm_population_run(et, model, cols, **LSTM_SWEEP)  # the first call: its gate and self-check
+    again, sweep_wall, launches = lstm_population_run(et, model, cols, **LSTM_SWEEP)
+    blocks = LSTM_POP_KW["nepochs"] // LSTM_POP_KW["eval_every"]
+    if not launches == again.kernel_launches == blocks:
+        raise AssertionError(f"the LSTM sweep's second call: {launches} launches of kernel 4, not "
+                             f"{blocks}")
+    lstm_population_run(et, model, cols, hyper={"learning_rate": [0.01]})
+    _, one_wall, _ = lstm_population_run(et, model, cols, hyper={"learning_rate": [0.01]})
+    log("times", f"[{card}] LSTM population walls, second calls: the 8-member sweep "
+                 f"{sweep_wall:.3f} s ({launches} launches), a one-member population "
+                 f"{one_wall:.3f} s, amplification 8 x one / sweep {8 * one_wall / sweep_wall:.2f}")
+
+    # a member launch of one epoch of the sweep's windows (its plain version
+    # runs member by member, ~1,500 kernels a step)
+    times, held = {}, {}
+    for k in (1, 8, 12, 16):
+        fn, packed, opt0, data = lstm_member_inputs(et, k, epochs=1)
+        specs = [("adam", {"learning_rate": lr}) for lr in (LSTM_POP_LRS * 4)[:k]]
+        rows = fn.member_rows(data, k, per_member_data=False,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        member_opt = fe.member_opt_rows(fn.plan, specs, "cuda")
+
+        def launch(fn=fn, packed=packed, opt0=opt0, data=data, rows=rows, specs=specs,
+                   member_opt=member_opt):
+            return fn.members(packed, opt0, data, rows, specs=specs, member_opt=member_opt)
+
+        host_ms(launch, 2)
+        times[k] = statistics.median(device_ms(launch, 5, f"kernel 4, K={k}") for _ in range(5))
+        if k == 8:
+            from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+            got = launch()
+            refs = []
+            held["plain_ms"] = profiled_device_ms(lambda: refs.append(
+                fl.fused_lstm_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)), 1)
+            held["err"] = compare(member_fields(got), member_fields(refs[-1]),
+                                  "kernel 4, the sweep's launch at K=8", TOL_EPOCH)
+            held["steps"] = data.n_batches
+            held["batch"] = data.batch
+    step = lstm_step_bound(held["batch"], 10)
+    bounds = {k: bound(**{n: v * held["steps"] * k for n, v in step.items()}) for k in times}
+    log("times", f"[{card}] kernel 4, a member launch of one epoch of {held['steps']} steps of "
+                 f"{held['batch']} windows (clusters of {geo.cluster} blocks), median of 5: "
+                 + ", ".join(f"K={k} {v:.4f} ms ({v / times[1]:.2f}x K=1; bound "
+                             f"{bounds[k]['bound_ms']:.5f} by {bounds[k]['bound_by']})"
+                             for k, v in times.items())
+                 + f"; the K=8 plain version {held['plain_ms']:.1f} ms (profiler), every member "
+                   f"within TOL_EPOCH of it (max |diff| {held['err']:.3e})")
+    return dict(ms=ms, plain=plain, k_ms=times, bounds=bounds, member_plain_ms=held["plain_ms"],
+                member_err=held["err"], sweep_wall=sweep_wall, one_wall=one_wall,
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phases 28-30: the halt word and the deferred loop
 # ---------------------------------------------------------------------------
 
@@ -4041,6 +4454,14 @@ def main() -> None:
     ms_member_err = multisite_member_checks(et)
     ms_pop = multisite_population_main_path(et, card, ms_main)
     log("population", f"phases 33-34 added {time.perf_counter() - t0:.1f} s to the run")
+    t0 = time.perf_counter()
+    lstm_loss_err = lstm_two_pass_checks(et)
+    t1 = time.perf_counter()
+    lstm_loss_main = lstm_two_pass_main_paths(et, card)
+    t2 = time.perf_counter()
+    lstm_loss_ms = lstm_two_pass_times(et, card)
+    log("kernel4-losses", f"phases 35-37 added {time.perf_counter() - t0:.1f} s to the run (35 "
+                          f"{t1 - t0:.1f} s, 36 {t2 - t1:.1f} s, 37 {time.perf_counter() - t2:.1f} s)")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -4164,6 +4585,10 @@ def main() -> None:
         # main path's launches after its early stop, which halted at entry
         "halted_ms": halt_ms["fused_epoch_lstm"]["halted_ms"],
         "halted_launches": lstm_main["halted"],
+        # what the kernel trains: every loss of the JAX kernel (the two-pass ones
+        # have entries of their own) and a traced one, and a population's members
+        "losses": ["mse", "mae", "nseLoss", "traced ElementwiseLoss", *LSTM_TWO_PASS],
+        "member_axis": True,
     }, {
         "name": "fused_wide",
         "route": "cuda",
@@ -4185,7 +4610,37 @@ def main() -> None:
         # main path's launches after its early stop, which halted at entry
         "halted_ms": halt_ms["fused_wide"]["halted_ms"],
         "halted_launches": wide_main["halted"],
-    }, *traced_entries, *loss_entries, {
+    }, *traced_entries, *loss_entries, *[{
+        "name": f"fused_epoch_lstm [loss {loss}]",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_epoch_lstm.cu",
+        # kernel_body_lstm's two passes, :1921-2047
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": lstm_loss_main[loss]["launches"],
+        "max_abs_err": lstm_loss_err[loss],
+        "ms": lstm_loss_ms["ms"][loss],
+        "plain_ms": lstm_loss_ms["plain"][loss],
+        # the same work as the kernel's entry: the loss adds a few operations a window
+        **base_bounds["fused_epoch_lstm"],
+        "library_ms": None,
+    } for loss in LSTM_TWO_PASS], {
+        "name": "fused_epoch_lstm members",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_epoch_lstm.cu",
+        # the JAX kernel under jax.vmap (easyhybrid_tpu/training/population.py:215, :355)
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": lstm_loss_ms["launches"],  # the LSTM sweep's second call
+        # phase 35's member launches and the K = 8 launch of phase 37, each against its
+        # plain version
+        "max_abs_err": max(lstm_loss_err["members"], lstm_loss_ms["member_err"]),
+        "ms": lstm_loss_ms["k_ms"][8],  # one launch: 8 members x an epoch of 25 steps
+        "plain_ms": lstm_loss_ms["member_plain_ms"],
+        **lstm_loss_ms["bounds"][8],  # every member's windows and products: lstm_step_bound
+        "library_ms": None,  # no single PyTorch call computes the step
+        "members": 8,
+        "k1_ms": lstm_loss_ms["k_ms"][1],
+        "k16_ms": lstm_loss_ms["k_ms"][16],
+    }, {
         "name": "fused_epoch_multinn",
         "route": "cuda",
         "source": "easyhybrid_tpu_torch/csrc/fused_epoch.cu",

@@ -1678,7 +1678,7 @@ class FusedEpoch:
         first = parts[0]
         if any((d.n_batches, d.batch) != (first.n_batches, first.batch) for d in parts):
             raise ValueError("the members' epoch tensors differ in shape; pad them to one")
-        return FusedData(
+        return type(first)(
             x=torch.cat([d.x for d in parts]),
             forcing=tuple(torch.cat(c) for c in zip(*(d.forcing for d in parts))),
             y=tuple(torch.cat(c) for c in zip(*(d.y for d in parts))),
@@ -1696,7 +1696,7 @@ class FusedEpoch:
 
     def members(self, packed: FusedParams, opt_state, data: FusedData, rows: torch.Tensor, *,
                 specs=None, member_opt=None):
-        """K members in one launch on CUDA tensors (kernel 2's member axis),
+        """K members in one launch on CUDA tensors (the kernel's member axis),
         the plain version member by member on CPU tensors
         (:func:`fused_members_reference`). ``packed`` and every slot carry a
         leading member axis (``t`` ``(K, 1)``); ``data`` is
@@ -1711,7 +1711,8 @@ class FusedEpoch:
             raise ValueError(f"{len(specs)} optimizer specs for {k} members")
         dev = data.x.device
         if dev.type == "cpu":
-            return fused_members_reference(plan, packed, opt_state, data, rows, specs=specs)
+            return fused_members_reference(plan, packed, opt_state, data, rows, specs=specs,
+                                           reference=self._reference)
         if dev.type != "cuda":
             raise ValueError(f"the fused epoch runs on CUDA or CPU tensors; got {dev}")
         if member_opt is None and specs is not None:
@@ -1804,16 +1805,17 @@ def member_opt_rows(plan: FusedEpochPlan, specs, device=None) -> torch.Tensor:
 
 
 def fused_members_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, data: FusedData,
-                            rows: torch.Tensor, *, specs=None):
-    """The plain version of the member axis: :func:`fused_epoch_reference`
-    once per member, with that member's optimizer spec, row index (and so
-    its data) and state; the results stacked."""
+                            rows: torch.Tensor, *, specs=None, reference=fused_epoch_reference):
+    """The plain version of the member axis: ``reference`` (kernel 2's
+    :func:`fused_epoch_reference`, or another kernel's plain version of one
+    launch) once per member, with that member's optimizer spec, row index
+    (and so its data) and state; the results stacked."""
     k = packed.params.shape[0]
     outs = []
     for i in range(k):
         plan_i = member_plan(plan, None if specs is None else specs[i])
         rows_i = rows[i] if rows.dim() == 3 else rows
-        outs.append(fused_epoch_reference(
+        outs.append(reference(
             plan_i, FusedParams(packed.params[i], packed.bn[i]),
             {name: v[i] for name, v in opt_state.items()}, data, rows_i))
     return (FusedParams(torch.stack([o[0].params for o in outs]),

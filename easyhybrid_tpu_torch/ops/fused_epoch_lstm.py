@@ -10,13 +10,20 @@ the batch's windows, the static input norm (with its trained scale and
 bias) or none, the recurrence over the ``T`` steps of the input window, the
 Dense head, the sigmoid bound scaling and the mechanistic model in its
 kernel form at the trailing ``T_out`` steps, the masked loss over the whole
-``(T_out x batch)`` window (``mse``, ``mae``, ``nseLoss`` or a traced
-``ElementwiseLoss``) and its
+``(T_out x batch)`` window (every loss of the JAX kernel: ``mse``, ``mae``,
+``nseLoss``, a traced ``ElementwiseLoss``, and the two-pass ``rmse``,
+``pearsonLoss``, ``kgeLoss`` and ``pbkgeLoss``, whose cotangents follow the
+window's prediction moments) and its
 cotangent, the hand-written backward through time from per-step ``(x, h,
 c)`` checkpoints (the kernel keeps the gates as well, the plain version
 recomputes them), the batch-validity gate and the update by any optax rule
 of the JAX kernel (``ops/fused_epoch.py``'s ``_OPTS``; lamb's per-leaf norms
 are summed across the cluster's blocks in rank order).
+
+The member axis (:meth:`FusedLSTMEpoch.members`, population training): one
+launch trains K members, a thread-block cluster each, every state row, row
+index and optimizer number per member, as kernel 2's
+(:func:`fused_lstm_members_reference` is its plain version).
 
 The packed layout (:class:`FusedLSTMPlan`, same scheme as kernel 2's):
 
@@ -56,25 +63,32 @@ from ..models.hybrid import SingleNNHybridModel
 from ..models.nn import LSTMNet
 from . import _build
 from .fused_epoch import (
+    _OPT_WORDS,
     ELEMENTWISE,
+    FUSED_LOSSES,
     LOSS_KINDS,
     MAX_SMEM_BYTES,
     MAX_TARGETS,
+    TWO_PASS_LOSSES,
     FusedEpoch,
     FusedParams,
     PackedLayout,
     _act_and_grad,
+    _check_member_shapes,
+    _loss_name,
     _Optimizer,
     _reference_update,
     check_halt,
     obey_halt,
     fill_common_args,
     form_args,
+    fused_members_reference,
     opt_slots,
     reference_cotangents,
     shared_plan_fields,
     slot_u,
     split_consts,
+    stat_loss_cotangent,
     training_spec_reason,
 )
 from .fused_forward import (
@@ -91,6 +105,7 @@ __all__ = [
     "FusedLSTMPlan",
     "LSTM_LOSSES",
     "fused_epoch_lstm_unsupported_reason",
+    "fused_lstm_members_reference",
     "fused_lstm_reference",
     "launch_fused_lstm",
     "lstm_tile_rows",
@@ -111,7 +126,7 @@ MAX_CLUSTER = 16
 # threads with two partials each
 LSTM_THREADS = 512
 LSTM_TILE_ROWS = (128, 64, 32, 16, 8)
-LSTM_LOSSES = ("mse", "mae", "nseLoss")  # the single-pass losses, and any traced ElementwiseLoss
+LSTM_LOSSES = FUSED_LOSSES  # every loss of the JAX kernel, and any traced ElementwiseLoss
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
 
 
@@ -122,7 +137,9 @@ _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
 class _Sizes(NamedTuple):
     """What the kernel's shared memory depends on: the packed parameter
     count, features, hidden size, network outputs, globals, fixed values,
-    targets and whether there is an input norm."""
+    targets, whether there is an input norm and whether the loss is a
+    two-pass one (rmse, the statistic losses: the kernel keeps the trailing
+    steps' predictions and the batch's moments)."""
 
     n_params: int
     f: int
@@ -132,21 +149,26 @@ class _Sizes(NamedTuple):
     k: int
     t: int
     norm: bool
+    two_pass: bool = False
 
     def res_floats(self, steps: int, out_steps: int) -> int:
         """Floats a tile row keeps: the ``(x, h, c)`` checkpoints of every
         step (and the normalised input beside the affine one with a norm),
         one step's gate cotangents, the carried ``dh`` and ``dc``, the head
         cotangents of the trailing steps, the row's global cotangents and,
-        with a norm, its scale and bias gradients."""
+        with a norm, its scale and bias gradients; a two-pass loss's kept
+        predictions of the trailing steps."""
         f = 2 * self.f if self.norm else self.f
         return (steps * (2 * self.h + f) + 6 * self.h + out_steps * self.p + self.g
-                + (2 * self.f if self.norm else 0))
+                + (2 * self.f if self.norm else 0) + (out_steps * self.t if self.two_pass else 0))
 
     def smem_bytes(self, steps: int, out_steps: int, tile_rows: int) -> int:
-        """Shared memory of one launch; the launcher computes the same."""
+        """Shared memory of one launch by the rule the kernel was first built
+        with (the envelope's); a two-pass loss's moments and coefficients
+        counted as its warps' partials."""
         fixed = (2 * self.n_params + 2 * self.f + (2 * self.p + 2 * self.g + self.k)
-                 + (self.g + self.k) + self.g + 2 * self.f + self.t + 4 + 2 * LSTM_THREADS)
+                 + (self.g + self.k) + self.g + 2 * self.f + self.t + 4 + 2 * LSTM_THREADS
+                 + ((8 + 3 * LSTM_THREADS // 32) * self.t if self.two_pass else 0))
         return 4 * (fixed + self.res_floats(steps, out_steps) * (tile_rows + 1))
 
     def tile_rows(self, steps: int, out_steps: int) -> Optional[int]:
@@ -174,23 +196,26 @@ class _Sizes(NamedTuple):
         warps = -(-windows * lanes // 32)
         return (2 * self.n_params + 2 * self.f + (2 * self.p + 2 * self.g + self.k)
                 + (self.g + self.k) + self.g + 2 * self.f + 10 + warps * (6 * self.t + 1)
-                + self.pair_features() * ld((steps + 1) * windows)
-                + self.p * ld(out_steps * windows) + self.g * ld(min(lanes, out_steps) * windows))
+                + _OPT_WORDS + self.pair_features() * ld((steps + 1) * windows)
+                + self.p * ld(out_steps * windows) + self.g * ld(min(lanes, out_steps) * windows)
+                + (self.t * ld(out_steps * windows) + warps * 3 * self.t + 8 * self.t
+                   if self.two_pass else 0))
 
 
-def _sizes(model) -> _Sizes:
+def _sizes(model, loss=None) -> _Sizes:
     net = model.nn
     f, h, p, g = net.in_dim, net.hidden_size, net.out_dim, len(model.global_param_names)
     n_params = (2 * f if net.norm is not None else 0) + 4 * h * (f + h + 1) + p * (h + 1) + g
     return _Sizes(n_params, f, h, p, g, len(model.fixed_param_names), len(model.targets),
-                  net.norm is not None)
+                  net.norm is not None, _loss_name(loss) in TWO_PASS_LOSSES)
 
 
-def lstm_tile_rows(model, steps: int, out_steps: int = 1) -> Optional[int]:
+def lstm_tile_rows(model, steps: int, out_steps: int = 1, loss=None) -> Optional[int]:
     """Rows of the largest tile whose checkpoints fit in shared memory for an
-    input window of ``steps`` and an output window of ``out_steps``, or None
-    when not even the smallest tile fits."""
-    return _sizes(model).tile_rows(steps, out_steps)
+    input window of ``steps`` and an output window of ``out_steps`` under
+    the training loss ``loss`` (a two-pass loss keeps more), or None when not
+    even the smallest tile fits."""
+    return _sizes(model, loss).tile_rows(steps, out_steps)
 
 
 def _window(tensors) -> Tuple[int, int]:
@@ -207,7 +232,8 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
     The envelope: a :class:`SingleNNHybridModel` whose network is an
     :class:`LSTMNet` in float32 with ``input_batchnorm`` ``"static"`` or
     False; a mechanistic function with a kernel form; ``training_loss``
-    mse, mae, nseLoss or an ``ElementwiseLoss`` the tracer expresses, with
+    any of the JAX kernel's (mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss,
+    pbkgeLoss) or an ``ElementwiseLoss`` the tracer expresses, with
     ``agg`` sum or mean and no ``extra_loss``; an
     optimizer the kernels run (``fused_epoch.optimizer_reason``); hidden size
     and features up to 64, up to 8 network outputs. With ``tensors``: ``x``
@@ -246,8 +272,9 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
                 "features) with windowed targets")
     if out_steps > steps:
         return f"the output window ({out_steps}) is longer than the input window ({steps})"
-    if lstm_tile_rows(model, steps, out_steps) is None:
-        need = _sizes(model).smem_bytes(steps, out_steps, LSTM_TILE_ROWS[-1])
+    if lstm_tile_rows(model, steps, out_steps, logging.training_loss) is None:
+        need = _sizes(model, logging.training_loss).smem_bytes(steps, out_steps,
+                                                               LSTM_TILE_ROWS[-1])
         return (f"a window of {steps} steps at hidden size {net.hidden_size} needs {need} bytes "
                 f"of shared memory for a tile of {LSTM_TILE_ROWS[-1]} rows; the kernel has "
                 f"{MAX_SMEM_BYTES}")
@@ -321,6 +348,9 @@ class _Args(ctypes.Structure):
         ("tiles", ctypes.c_int),
         ("stages", ctypes.c_int),
         ("res_floats", ctypes.c_int),
+        ("n_members", ctypes.c_int),
+        ("perm_stride", ctypes.c_int64),
+        ("member_opt", ctypes.c_void_p),
     ]
 
 
@@ -420,10 +450,16 @@ class FusedLSTMPlan(PackedLayout):
         return dict(wi=wi, wh=wh, b=b, hw=hw, hb=hb, g=hb + p)
 
     @property
+    def two_pass(self) -> bool:
+        """rmse or a statistic loss: the kernel's build that exchanges the
+        window's prediction moments inside a step."""
+        return self.loss in TWO_PASS_LOSSES
+
+    @property
     def sizes(self) -> _Sizes:
         return _Sizes(self.n_params, self.in_dim, self.hidden, self.out_dim,
                       len(self.global_names), len(self.fixed_names), len(self.target_names),
-                      self.has_norm)
+                      self.has_norm, self.two_pass)
 
     @functools.cached_property
     def args_bytes(self) -> bytes:
@@ -571,9 +607,8 @@ def lstm_reference_grads(plan: FusedLSTMPlan, p, bn, consts, x, forcing, y, mask
     scalars = torch.cat([glo + gspan * sg, fixed])
     dglob = gspan * (sg * (1.0 - sg))
 
-    loss_rows = x.new_zeros((bsz,))
-    gglob = x.new_zeros((len(plan.global_names),))
-    head_d = {}
+    # pass A: every trailing step's head, the form's outputs and partials
+    heads = []
     for tt in range(out_steps):
         t = steps - out_steps + tt
         raw, dact = _act_and_grad(plan.head_act, hs[t] @ hw.T + hb)
@@ -583,24 +618,44 @@ def lstm_reference_grads(plan: FusedLSTMPlan, p, bn, consts, x, forcing, y, mask
         else:
             neural, dneural = raw, torch.ones_like(raw)
         args = form_args(plan, neural, [c_[:, t] for c_ in forcing], scalars)
-        outs = plan.form.torch_fn(*args)
-        parts = plan.form.partials_fn(*args)
-        cots = []
-        for j in range(len(plan.target_names)):
-            pred, m = outs[plan.target_out[j]], mask[j][:, tt]
-            diff = (pred - y[j][:, tt]) * m
-            if plan.loss == "mae":
-                loss_rows = loss_rows + scales[j] * diff.abs()
-                cots.append(scales[j] * torch.sign(diff))
-            elif plan.loss == ELEMENTWISE:  # at (ŷ m, y), as the JAX kernel does
-                loss_rows = loss_rows + scales[j] * plan.loss_form.value_fn(pred * m, y[j][:, tt]) * m
-                cots.append(scales[j] * plan.loss_form.grad_fn(pred * m, y[j][:, tt]) * m)
-            else:  # mse, and nseLoss with its own scale
-                loss_rows = loss_rows + scales[j] * diff * diff
-                cots.append((2.0 * scales[j]) * diff)
-        dn, dg_rows = reference_cotangents(plan, neural, parts, cots)
+        heads.append((neural, dneural, dact, plan.form.torch_fn(*args),
+                      plan.form.partials_fn(*args)))
+
+    # each target's cotangents over the (B, T_out) window: a scale a row, or
+    # (rmse, the statistic losses) from the window's prediction moments
+    loss_rows = x.new_zeros((bsz,))
+    batch_terms = []
+    cots = []  # [target][step]
+    for j in range(len(plan.target_names)):
+        pred = torch.stack([h[3][plan.target_out[j]] for h in heads], dim=1)
+        m, yj = mask[j], y[j]
+        diff = (pred - yj) * m
+        if plan.loss == "mae":
+            loss_rows = loss_rows + (scales[j] * diff.abs()).sum(1)
+            cot = scales[j] * torch.sign(diff)
+        elif plan.loss == ELEMENTWISE:  # at (ŷ m, y), as the JAX kernel does
+            loss_rows = loss_rows + (scales[j] * plan.loss_form.value_fn(pred * m, yj) * m).sum(1)
+            cot = scales[j] * plan.loss_form.grad_fn(pred * m, yj) * m
+        elif plan.loss == "rmse":
+            n = torch.clamp_min(m.sum(), 1.0)
+            r = torch.sqrt((diff * diff).sum() / n)
+            batch_terms.append(plan.agg_scale * r)
+            cot = (plan.agg_scale / (n * torch.clamp_min(r, 1e-30))) * diff
+        elif plan.two_pass:  # the statistic losses
+            term, cot = stat_loss_cotangent(plan.loss, plan.agg_scale, pred, yj, m)
+            batch_terms.append(term)
+        else:  # mse, and nseLoss with its own scale
+            loss_rows = loss_rows + (scales[j] * diff * diff).sum(1)
+            cot = (2.0 * scales[j]) * diff
+        cots.append(cot)
+
+    # pass B: the cotangents through the forms and heads
+    gglob = x.new_zeros((len(plan.global_names),))
+    head_d = {}
+    for tt, (neural, dneural, dact, _, parts) in enumerate(heads):
+        dn, dg_rows = reference_cotangents(plan, neural, parts, [c[:, tt] for c in cots])
         gglob = gglob + dg_rows.sum(0)
-        head_d[t] = (dn * dneural) * dact
+        head_d[steps - out_steps + tt] = (dn * dneural) * dact
 
     g_hw, g_hb = torch.zeros_like(hw), torch.zeros_like(hb)
     g_wi, g_wh, g_b = torch.zeros_like(wi), torch.zeros_like(wh), torch.zeros_like(b)
@@ -635,7 +690,8 @@ def lstm_reference_grads(plan: FusedLSTMPlan, p, bn, consts, x, forcing, y, mask
 
     grads = [g_scale, g_bias] if plan.has_norm else []
     grads += [g_wi.reshape(-1), g_wh.reshape(-1), g_b, g_hw.reshape(-1), g_hb, gglob * dglob]
-    return torch.cat(grads), loss_rows.sum(), valid
+    batch_loss = loss_rows.sum() if not batch_terms else sum(batch_terms[1:], batch_terms[0])
+    return torch.cat(grads), batch_loss, valid
 
 
 def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
@@ -669,27 +725,21 @@ def fused_lstm_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
 # kernel launch and the epoch function
 # --------------------------------------------------------------------------
 
-def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: FusedLSTMData,
-                      rows: torch.Tensor, loss: torch.Tensor, *, lib=None, halt=None) -> None:
-    """Launch the CUDA kernel once over ``rows.shape[0]`` epochs, updating
-    ``packed`` and ``opt_state`` in place and writing the mean loss into
-    ``loss``; raises if the window does not fit or the launch is refused.
-    Counts launches in ``launch_fused_lstm.launches``. ``lib`` is a
-    measuring build of the kernel (``_build.measuring_library``) in place of the
-    package's library; its launches are not counted. ``halt`` is the halt
-    word (``ops/fused_epoch.py``): a halted launch writes nothing."""
+def launch_args(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: FusedLSTMData,
+                rows: torch.Tensor, loss: torch.Tensor, *, halt=None, member_opt=None) -> _Args:
+    """The kernel's argument struct for a launch (see
+    :func:`launch_fused_lstm`): the plan's static fields, the tensors'
+    addresses, the window, the geometry and the member axis's count and
+    strides; raises on a window that does not fit or shapes the kernel does
+    not read."""
     steps, out_steps = data.x.shape[1], data.y[0].shape[1]
     if plan.sizes.tile_rows(steps, out_steps) is None:
         raise ValueError(f"a window of {steps} steps at hidden size {plan.hidden} does not fit "
                          "the fused LSTM kernel's shared memory")
+    members = packed.params.dim() == 2
+    k = packed.params.shape[0] if members else 1
+    _check_member_shapes(plan, packed, opt_state, rows, loss, member_opt, k, members)
     geometry = plan.geometry(data.batch, steps, out_steps)
-    measuring = lib is not None
-    lib = lib or _build.kernel_library("fused_epoch_lstm.cu", plan.form, plan.loss_form)
-    if lib.eh_fused_lstm_args_size() != ctypes.sizeof(_Args):
-        raise RuntimeError(
-            "the kernel's argument struct and its ctypes mirror differ in size: "
-            f"{lib.eh_fused_lstm_args_size()} != {ctypes.sizeof(_Args)}"
-        )
     a = _Args.from_buffer_copy(plan.args_bytes)
     a.x = data.x.data_ptr()
     for i, c in enumerate(data.forcing):
@@ -702,14 +752,45 @@ def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data:
     a.u = slot_u(plan, opt_state)
     a.consts = plan.consts.data_ptr()
     a.loss = loss.data_ptr()
-    a.n_rows = data.x.shape[0]
-    a.n_epochs = rows.shape[0]
+    a.n_rows = rows.shape[-1]  # the epoch stride of a row index
+    a.n_epochs = rows.shape[-2]
+    a.n_members = k
+    a.perm_stride = rows.shape[-2] * rows.shape[-1] if rows.dim() == 3 else 0
+    a.member_opt = member_opt.data_ptr() if member_opt is not None else None
     a.n_batches, a.batch = data.n_batches, data.batch
     a.n_steps, a.n_out_steps = steps, out_steps
     a.threads, a.lanes, a.windows = geometry.threads, geometry.lanes, geometry.windows
     a.cluster, a.tiles, a.stages = geometry.cluster, geometry.tiles, geometry.stages
     a.res_floats = plan.sizes.pair_features()
     a.halt = check_halt(halt, data.x.device)
+    return a
+
+
+def launch_fused_lstm(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: FusedLSTMData,
+                      rows: torch.Tensor, loss: torch.Tensor, *, lib=None, halt=None,
+                      member_opt=None) -> None:
+    """Launch the CUDA kernel once over ``rows.shape[-2]`` epochs, updating
+    ``packed`` and ``opt_state`` in place and writing the mean loss into
+    ``loss``; raises if the window does not fit or the launch is refused.
+    Counts launches in ``launch_fused_lstm.launches``. ``lib`` is a
+    measuring build of the kernel (``_build.measuring_library``) in place of the
+    package's library; its launches are not counted. ``halt`` is the halt
+    word (``ops/fused_epoch.py``): a halted launch writes nothing.
+
+    The member axis (:meth:`FusedLSTMEpoch.members`): parameters ``(K, n)``
+    train K members in one launch, a cluster each, with every state tensor
+    stacked the same way (``t`` ``(K, 1)``, ``loss`` ``(K,)``); ``rows``
+    ``(K, E, n)`` gives each member its own row index (else one is shared)
+    and ``member_opt`` ``(K, len(OPT_SCALARS))`` its optimizer numbers
+    (``ops/fused_epoch.py::member_opt_rows``; else the plan's)."""
+    a = launch_args(plan, packed, opt_state, data, rows, loss, halt=halt, member_opt=member_opt)
+    measuring = lib is not None
+    lib = lib or _build.kernel_library("fused_epoch_lstm.cu", plan.form, plan.loss_form)
+    if lib.eh_fused_lstm_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError(
+            "the kernel's argument struct and its ctypes mirror differ in size: "
+            f"{lib.eh_fused_lstm_args_size()} != {ctypes.sizeof(_Args)}"
+        )
     with torch.cuda.device(data.x.device):
         stream = torch.cuda.current_stream(data.x.device).cuda_stream
         rc = lib.eh_fused_lstm(ctypes.byref(a), plan.width, stream)
@@ -725,7 +806,7 @@ launch_fused_lstm.launches = 0
 # the stamped build's stages, by stamp index (ehl_stamps in the source)
 STAGES = ("step start", "input gather", "head and loss", "backward through time",
           "gradient sums", "gradient exchange", "update", "parameter exchange", "recurrence",
-          "next scales", "ssts and epoch loss")
+          "next scales", "ssts and epoch loss", "moments exchange")
 
 
 def stage_cycles(fn: "FusedLSTMEpoch", packed: FusedParams, opt_state, tensors: EpochTensors,
@@ -751,11 +832,22 @@ def stage_cycles(fn: "FusedLSTMEpoch", packed: FusedParams, opt_state, tensors: 
     return dict(zip(STAGES + ("kernel",), list(stamps)))
 
 
+def fused_lstm_members_reference(plan: FusedLSTMPlan, packed: FusedParams, opt_state,
+                                 data: FusedLSTMData, rows: torch.Tensor, *, specs=None):
+    """The plain version of kernel 4's member axis: :func:`fused_lstm_reference`
+    once per member, with that member's optimizer spec, row index (and so its
+    windows) and state; the results stacked."""
+    return fused_members_reference(plan, packed, opt_state, data, rows, specs=specs,
+                                   reference=fused_lstm_reference)
+
+
 class FusedLSTMEpoch(FusedEpoch):
     """:class:`~easyhybrid_tpu_torch.ops.fused_epoch.FusedEpoch` for an LSTM
     hybrid on sequence epoch tensors ``x (num_batches, batch, T, F)``:
     ``epochs_per_call`` epochs in one launch of kernel 4 on CUDA tensors,
-    :func:`fused_lstm_reference` on CPU tensors."""
+    :func:`fused_lstm_reference` on CPU tensors; a population's members in
+    one launch (:meth:`members`, kernel 4's member axis), or member by member
+    on CPU tensors (:func:`fused_lstm_members_reference`)."""
 
     _make_plan = staticmethod(plan_fused_lstm)
     _make_data = staticmethod(fused_lstm_data)

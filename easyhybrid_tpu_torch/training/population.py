@@ -15,7 +15,9 @@ Two engines (``PopulationResults.epoch_path``):
 
 * ``"population_vmap_fused"`` (``"population_vmap_cv_fused"``): a fused
   kernel's member axis. Kernel 2's (``ops/fused_epoch.py``,
-  :meth:`FusedEpoch.members`): one launch per block trains every member, a
+  :meth:`FusedEpoch.members`) for an MLP hybrid, kernel 4's
+  (``ops/fused_epoch_lstm.py``, the same method of :class:`FusedLSTMEpoch`)
+  for an LSTM hybrid on windows: one launch per block trains every member, a
   thread-block cluster each, each member with its own optimizer numbers (a
   sweep of any hyperparameter ``parse_opt_spec`` knows), row index and data.
   Kernel 5's (``ops/fused_multisite.py``, :meth:`FusedMultisiteEpoch.members`)
@@ -38,8 +40,8 @@ Two engines (``PopulationResults.epoch_path``):
   of ``optax.inject_hyperparams``). A model whose training forward updates
   buffers in place (trainable BatchNorm's running statistics), which
   ``vmap`` cannot take, steps member by member instead. Models that go to
-  kernels 3 or 4 run here too (their member axes: ROADMAP queue B, item 5),
-  and so do a multi-site model's sweeps and cross-validations, which the JAX
+  kernel 3 run here too (its member axis: ROADMAP queue B, item 5), and so
+  do a multi-site model's sweeps and cross-validations, which the JAX
   package also keeps off its multi-site kernel.
 
 Evaluation runs the dual evaluator under ``vmap`` for every member at once.
@@ -397,7 +399,8 @@ def _stack_state(states):
 
 class _FusedPopulation:
     """A fused kernel's member axis as the loop drives it (kernel 2's
-    :class:`FusedEpoch` or kernel 5's :class:`FusedMultisiteEpoch`):
+    :class:`FusedEpoch`, kernel 4's :class:`FusedLSTMEpoch` or kernel 5's
+    :class:`FusedMultisiteEpoch`):
     ``block(state)`` is one launch (launcher call) for every member;
     ``state`` is ``(packed, opt_state)``, each with the member axis in
     front, turned into the evaluator's leaves by views (``leaves``). The
@@ -591,9 +594,10 @@ def member_selfcheck(fn, packed, opt_state, tensors, *, specs, per_member_data: 
     launch of it alone (K = 1, its spec in the kernel's shared struct, its
     row index and data), on parameters, statistics, slots, step count and
     loss. Returns None, or what differed. Build and launch failures raise.
-    ``fn`` is kernel 2's :class:`FusedEpoch` or kernel 5's
-    :class:`FusedMultisiteEpoch` (an ensemble's members over shared sites);
-    :meth:`alone` launches a member alone."""
+    ``fn`` is kernel 2's :class:`FusedEpoch`, kernel 4's
+    :class:`FusedLSTMEpoch` or kernel 5's :class:`FusedMultisiteEpoch` (an
+    ensemble's members over shared sites); :meth:`alone` launches a member
+    alone."""
     from ..ops.fused_epoch import FusedParams, _head
     from ..ops.fused_multisite import FusedMultisiteEpoch
 
@@ -642,28 +646,29 @@ def member_selfcheck(fn, packed, opt_state, tensors, *, specs, per_member_data: 
 
 
 def _verdict_key(engine: str, fn, specs, per_member_data, shared_perms, batch):
-    """The memo key of a verdict: the engine (kernel 2's or kernel 5's member
-    axis) and everything of the configuration its checks saw."""
+    """The memo key of a verdict: the engine (the kernel whose member axis
+    runs) and everything of the configuration its checks saw."""
     plan = fn.plan
     form = getattr(plan.form, "header_hash", None) or getattr(plan.form, "form_id", None)
     loss_form = getattr(plan.loss_form, "header", None)
     extremes = None if specs is None else (repr(specs[0]), repr(specs[-1]))
-    return (engine, plan.args_bytes, plan.n_sites, form, loss_form, extremes, per_member_data,
-            shared_perms, fn.shuffle, fn.epochs, batch, str(plan.consts.device))
+    return (engine, plan.args_bytes, getattr(plan, "n_sites", 0), form, loss_form, extremes,
+            per_member_data, shared_perms, fn.shuffle, fn.epochs, batch, str(plan.consts.device))
 
 
 # the fused engines with a member axis, by the epoch path train() gives their models
-_MEMBER_AXES = {"cuda_fused_epoch": "kernel 2", "cuda_fused_multisite": "kernel 5"}
+_MEMBER_AXES = {"cuda_fused_epoch": "kernel 2", "cuda_fused_lstm": "kernel 4",
+                "cuda_fused_multisite": "kernel 5"}
 
 
 def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensors, gate_tensors,
                    *, use_kernel, eval_every: int, shuffle, per_member_data: bool,
                    shared_perms: bool, sweep: bool):
     """``(fused epoch or None, reason)``: kernel 2's member axis (a
-    :class:`FusedEpoch`) or kernel 5's (a :class:`FusedMultisiteEpoch`), or
-    why the torch engine runs the population (the JAX package's wording
-    where it has it). ``params0`` / ``buffers0``: the stacked initial leaves
-    (member 0's take the gate)."""
+    :class:`FusedEpoch`), kernel 4's (a :class:`FusedLSTMEpoch`) or kernel
+    5's (a :class:`FusedMultisiteEpoch`), or why the torch engine runs the
+    population (the JAX package's wording where it has it). ``params0`` /
+    ``buffers0``: the stacked initial leaves (member 0's take the gate)."""
     from ..ops.fused_epoch import fused_engine, fused_exactness_check, optimizer_reason
 
     if use_kernel not in ("auto", None) and use_kernel is not True and use_kernel is not False:

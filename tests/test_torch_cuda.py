@@ -1240,6 +1240,130 @@ def test_a_refused_member_axis_runs_the_torch_engine_under_auto(cuda, monkeypatc
         et.population_train(m, cols, use_kernel=True, **kw)
 
 
+# ---- kernel 4's two-pass losses and member axis ----------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss="rmse", epochs=4),                                      # the main path's shape
+    dict(loss="pearsonLoss", epochs=4),
+    dict(loss="kgeLoss", out_steps=2, nan_frac=0.2, n=1500),         # output window > 1
+    dict(loss="pbkgeLoss", out_steps=3, nan_frac=0.3, batch=100, agg="mean", hidden=8),
+    dict(loss="pearsonLoss", batch=1000, n=3000, epochs=1),           # tiles, the last partial
+    dict(loss="rmse", batch=1000, n=3000, epochs=1, opt=("lamb", 0.01)),
+    dict(loss="kgeLoss", batch=512, norm=False, n=4000, epochs=1),    # a cluster of 16
+    dict(loss="rmse", cluster=16, epochs=2),
+], ids=str)
+def test_lstm_kernel_matches_plain_under_the_two_pass_losses(cuda, kw):
+    _lstm_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("loss", ["pearsonLoss", "rmse"])
+def test_lstm_two_pass_masked_batches_count_no_step(cuda, loss):
+    got, _ = _lstm_case(cuda, loss=loss, shuffle=False, mask_first=2 * 128 + 9, n=1033, epochs=2)
+    assert int(got[1]["t"][0]) == 2 * (8 - 2)  # no step on a batch without a valid target
+
+
+def _lstm_members(cuda, *, k, loss, sweep, folds):
+    """A kernel-4 member launch on the card: k members of LSTM(16) on
+    10-step windows of 1,500 rows, batch 128, 2 epochs; a learning-rate sweep
+    with one permutation, or members of their own permutations (and each
+    its own windows)."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    cols = et.rbq10_columns(1500, seed=4)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 16},
+        scale_nn_outputs=True, input_batchnorm="static", device=cuda)
+    ll = et.LoggingLoss(training_loss=loss, loss_types=(loss,))
+    specs = [("adam", {"learning_rate": lr}) for lr in (0.003, 0.03, 0.003)[:k]] if sweep else None
+    fn = et.make_fused_lstm_epoch(m, ("adam", 0.003), ll, shuffle=True, epochs_per_call=2)
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    windows = split_into_sequences(rows, input_window=10, output_window=1, lead_time=0)
+    splits = ([windows.take(np.arange(i, windows.n_samples, k)[: windows.n_samples // k])
+               for i in range(k)] if folds else [windows])
+    inits = [pop.init_member_params(m, 0 if sweep else s) for s in range(k)]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = []
+    for i in range(k):
+        et.fit_input_norm(m, splits[i % len(splits)])
+        buffers.append({n: b.detach().clone() for n, b in m.named_buffers()})
+    buffers = {n: torch.stack([b[n] for b in buffers]) for n in buffers[0]}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(m), params, buffers)
+    opt = pop._stacked_opt_state(packed, ("adam", 0.003), k)
+    tensors = [epoch_tensors_to(et.build_epoch_tensors(s, 128), cuda) for s in splits]
+    data = fn.member_data(tensors if folds else tensors[0])
+    idx = fn.member_rows(data, k, per_member_data=folds,
+                         generator=torch.Generator(device=cuda).manual_seed(1), shared_perms=sweep)
+    return fn, packed, opt, data, idx, specs
+
+
+@pytest.mark.parametrize("loss,sweep,folds", [
+    ("nseLoss", True, False), ("kgeLoss", False, False), ("rmse", False, True)], ids=str)
+def test_lstm_member_launch_matches_plain_and_each_member_alone(cuda, loss, sweep, folds):
+    """K members in one kernel-4 launch within 1e-4 * max(1, |plain|) of the
+    member axis's plain version, every member bit for bit a launch of it
+    alone, and a second run's bits."""
+    fn, packed, opt, data, idx, specs = _lstm_members(cuda, k=3, loss=loss, sweep=sweep,
+                                                      folds=folds)
+    before = fl.launch_fused_lstm.launches
+    got = fn.members(packed, opt, data, idx, specs=specs)
+    torch.cuda.synchronize()
+    assert fl.launch_fused_lstm.launches - before == 1
+    again = fn.members(packed, opt, data, idx, specs=specs)
+    ref = fl.fused_lstm_members_reference(fn.plan, packed, opt, data, idx, specs=specs)
+    for a, b, r in zip((got[0].params, got[0].bn, *got[1].values(), got[2]),
+                       (again[0].params, again[0].bn, *again[1].values(), again[2]),
+                       (ref[0].params, ref[0].bn, *ref[1].values(), ref[2])):
+        assert torch.equal(a, b)
+        a, r = a.float(), r.float()
+        assert bool(((a - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    for i in range(3):
+        p, o, loss_i = fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                                {k: v[i] for k, v in opt.items()}, data,
+                                idx[i] if idx.dim() == 3 else idx,
+                                None if specs is None else specs[i])
+        assert torch.equal(p.params, got[0].params[i]) and torch.equal(p.bn, got[0].bn[i])
+        assert all(torch.equal(o[k], got[1][k][i]) for k in o)
+        assert torch.equal(loss_i[0], got[2][i])
+    if sweep:  # the duplicate member
+        assert torch.equal(got[0].params[0], got[0].params[2])
+
+
+def test_population_train_takes_the_lstm_member_axis(cuda):
+    """An LSTM sweep under kgeLoss and a fold split through the entry points:
+    kernel 4's member axis behind its gate and self-check, one launch per
+    block for every member, nothing waiting for the device in the loop."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    cols = et.rbq10_columns(1500, seed=7)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 16},
+        scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    seq = dict(sequence_kwargs=dict(input_window=10, output_window=1, lead_time=0))
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        sweep = et.population_train(m, cols, hyper={"learning_rate": [0.003, 0.01, 0.03, 0.01]},
+                                    nepochs=10, batchsize=128, eval_every=5, seed=11,
+                                    training_loss="kgeLoss", **seq)
+        cv = et.population_cross_validate(m, cols, k=3, nepochs=10, batchsize=128, eval_every=5,
+                                          training_loss="rmse", **seq)
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    assert sweep.epoch_path == "population_vmap_fused", sweep.engine_reason
+    assert "member self-check passed" in sweep.engine_reason
+    assert sweep.kernel_launches == 2 and cv.kernel_launches == 2
+    assert all(torch.equal(v[1], v[3]) for v in sweep.params.values())
+    assert np.isfinite(sweep.best_losses).all() and sweep.val_history["kgeLoss"].shape == (2, 4)
+    assert cv.epoch_path == "population_vmap_cv_fused", cv.engine_reason
+    assert np.isfinite(cv.best_losses).all() and cv.best_losses.shape == (3,)
+
+
 # ---- kernel 5's member axis ------------------------------------------------------
 
 

@@ -97,6 +97,17 @@ CASES = [
     ("mse", ("adam", 0.02), True, 2, False, {"nan_frac": 0.3}),
     ("nseLoss", ("adam", 0.01), "batches", 2, "static", {"steps": 5, "out_steps": 5}),
     ("mae", ("adam", 0.01), True, 2, "static", {"agg": "mean", "nan_frac": 0.3}),
+    # the two-pass losses, each under two optimizers and two shuffle modes, over an output
+    # window longer than one step with NaN targets
+    ("rmse", ("adam", 0.01), True, 2, "static", {"out_steps": 3, "nan_frac": 0.2}),
+    ("rmse", ("sgd", 0.05), "batches", 2, False, {"out_steps": 2, "nan_frac": 0.3}),
+    ("pearsonLoss", ("adam", 0.01), "batches", 2, "static", {"out_steps": 2, "nan_frac": 0.2}),
+    ("pearsonLoss", ("rmsprop", 0.01), True, 2, "static", {"out_steps": 3, "nan_frac": 0.1}),
+    ("kgeLoss", ("adam", 0.01), True, 2, "static", {"out_steps": 2, "nan_frac": 0.2}),
+    ("kgeLoss", ("sgd", 0.05), "batches", 3, "static", {"steps": 5, "out_steps": 5}),
+    ("pbkgeLoss", ("adam", 0.01), "batches", 2, "static", {"out_steps": 3, "nan_frac": 0.3,
+                                                           "agg": "mean"}),
+    ("pbkgeLoss", ("amsgrad", 0.01), True, 2, False, {"out_steps": 2, "nan_frac": 0.2}),
 ]
 # one case per optimizer rule besides adam and plain sgd: 8 steps (radam
 # rectifies from step 6)
@@ -177,6 +188,28 @@ def test_batches_without_a_valid_target_change_nothing():
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
 
 
+@pytest.mark.parametrize("loss", ["pearsonLoss", "kgeLoss", "pbkgeLoss", "rmse"])
+def test_a_batch_without_a_valid_target_takes_no_step_under_a_two_pass_loss(loss):
+    """The port's rule for the two-pass losses: a batch whose every target is
+    masked takes no step (the JAX kernel turns the parameters into NaN there
+    under a statistic loss, ROADMAP queue C); the rest is the torch epoch's."""
+    *_, tm, tt = setup(mask_first=2 * 64 + 8, nan_frac=0.0)
+    assert float(tt.mask["reco"][:2].sum()) == 0.0
+    twin = copy.deepcopy(tm)
+    fn = et.make_fused_lstm_epoch(tm, ("adam", 0.01), _ll(loss), shuffle=False)
+    p0 = fn.plan.pack(tm)
+    packed, os_, loss_f = fn(p0, fe.init_fused_opt_state(p0), tt)
+    assert int(os_["t"][0]) == tt.weight.shape[0] - 2
+    assert bool(torch.isfinite(packed.params).all()) and bool(torch.isfinite(loss_f))
+    optim = resolve_optimizer(("adam", 0.01))
+    tfn = tepoch.make_train_epoch(twin, _ll(loss), optim, shuffle=False)
+    state, loss_t = tfn(optim.init(dict(twin.named_parameters())), tt)
+    np.testing.assert_allclose(packed.params.numpy(), fn.plan.pack(twin).params.numpy(),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(float(loss_f), float(loss_t), rtol=1e-5, atol=1e-6)
+    assert int(state["count"]) == int(os_["t"][0])
+
+
 def test_mae_cotangent_is_zero_at_a_zero_residual():
     """sign(0) = 0: a window whose prediction equals its target adds nothing."""
     *_, tm, tt = setup(nan_frac=0.0, out_steps=1)
@@ -196,8 +229,9 @@ def test_mae_cotangent_is_zero_at_a_zero_residual():
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
     ({"input_batchnorm": True}, "adam", _ll(), "trainable input BatchNorm"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
-    ({}, "adam", _ll("rmse"), "trains mse, mae, nseLoss"),
-    ({}, "adam", _ll("pearsonLoss"), "trains mse, mae, nseLoss"),
+    ({}, "adam", et.LoggingLoss(training_loss="kgeLoss", extra_loss=et.l2_extra_loss()),
+     "extra_loss"),
+    ({}, "adam", _ll("r2"), "trains mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss, pbkgeLoss"),
     ({}, ("rmsprop", {"centered": True}), _ll(), "centered"),
     ({}, {"nn": ("adam", 0.01)}, _ll(), "per-branch"),
     ({}, "adam", _ll(agg=lambda xs: xs[0]), "agg"),
@@ -284,10 +318,12 @@ def test_kernel_source_and_ctypes_mirror_agree():
     body = re.search(r"struct EhFusedLstmArgs \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"(\w+)(?:\[[^\]]+\])?;", re.sub(r"//[^\n]*", "", body))
     assert fields == [name for name, _ in fl._Args._fields_]
-    assert fields[-7:] == ["threads", "lanes", "windows", "cluster", "tiles", "stages", "res_floats"]
+    assert fields[-10:] == ["threads", "lanes", "windows", "cluster", "tiles", "stages",
+                            "res_floats", "n_members", "perm_stride", "member_opt"]
+    assert fl._Args.perm_stride.offset % 8 == 0 and fl._Args.member_opt.offset % 8 == 0
     assert ctypes.sizeof(fl._Args) % 8 == 0
     for width in fl._HIDDEN_WIDTHS:
-        assert f"case {width}: return ehl_launch<{width}>" in src
+        assert f"case {width}: return ehl_launch_build<{width}>" in src
     for c in (1, 2, 4, 8):
         assert f"c != {c}" in src
     assert "c != EH_LSTM_MAX_CLUSTER" in src
@@ -303,7 +339,8 @@ def test_kernel_source_and_ctypes_mirror_agree():
 
 def test_smem_formula_matches_the_source():
     """``_Sizes.smem_floats`` against ``ehl_smem_floats``'s return
-    expression, parsed from the source and evaluated on the same numbers."""
+    expression, parsed from the source and evaluated on the same numbers,
+    for the one-pass and the two-pass builds."""
     src = CU_SOURCE.read_text()
     body = re.search(r"static size_t ehl_smem_floats\(.*?\{(.*?)\n\}", src, re.S).group(1)
     expr = re.search(r"return (.*?);", body, re.S).group(1).replace("(size_t)", "")
@@ -312,16 +349,17 @@ def test_smem_formula_matches_the_source():
     for _ in range(60):
         f, h, p, g, k, t = (int(rng.integers(lo, hi)) for lo, hi in
                             ((1, 65), (1, 65), (1, 9), (0, 9), (0, 5), (1, 5)))
-        norm = bool(rng.integers(0, 2))
+        norm, two_pass = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
         steps = int(rng.integers(1, 300))
         out_steps = int(rng.integers(1, steps + 1))
         lanes = int(rng.choice([8, 16, 32]))
         windows = int(rng.integers(1, 65))
         n_params = (2 * f if norm else 0) + 4 * h * (f + h + 1) + p * (h + 1) + g
-        sizes = fl._Sizes(n_params, f, h, p, g, k, t, norm)
+        sizes = fl._Sizes(n_params, f, h, p, g, k, t, norm, two_pass)
         names = dict(F=f, P=p, G=g, K=k, T=t, nw=-(-windows * lanes // 32), W=windows, TO=out_steps,
                      a_n_params=n_params, a_res_floats=sizes.pair_features(), a_n_steps=steps,
-                     a_lanes=lanes, ehl_ld=lambda cols: cols | 1, min=min)
+                     a_lanes=lanes, ehl_ld=lambda cols: cols | 1, min=min, TP=int(two_pass),
+                     EHL_OPT_WORDS=fe._OPT_WORDS)
         want = eval(expr, {"__builtins__": {}}, names)  # noqa: S307 - the repository's own source
         assert want == sizes.smem_floats(steps, out_steps, windows, lanes)
 
@@ -407,6 +445,57 @@ def test_envelope_is_unchanged_and_every_admitted_window_has_a_geometry(hidden, 
                                                   geo.lanes) * 4 <= fe.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("loss", ["rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss"])
+def test_the_example_model_is_inside_the_envelope_under_every_two_pass_loss(loss):
+    """examples/lstm_sequences.py's model (LSTM(16), static norm) at its
+    10-step windows and batch 128: inside the envelope under each two-pass
+    loss, with the two-pass build's geometry at the main path's shape."""
+    tm = et.construct_hybrid_model(**_spec(hidden=16), device="cpu")
+    cols = et.rbq10_columns(4000, seed=7)
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    tensors = tepoch.epoch_tensors_to(build_epoch_tensors(
+        split_into_sequences(rows, input_window=10, output_window=1), 128), "cpu")
+    assert fl.fused_epoch_lstm_unsupported_reason(tm, ("adam", 0.01), _ll(loss), tensors) is None
+    plan = fl.plan_fused_lstm(tm, ("adam", 0.01), _ll(loss))
+    assert plan.two_pass and plan.sizes.two_pass and fl.LOSS_KINDS[loss] == _args(plan).loss_kind
+    assert plan.geometry(128, 10, 1) == fl.LSTMGeometry(256, 16, 16, 8, 1, 0)
+    # the kept predictions, the moments' partials and the coefficients
+    one = fl.plan_fused_lstm(tm, ("adam", 0.01), _ll("nseLoss")).sizes
+    g = plan.geometry(128, 10, 1)
+    assert plan.sizes.smem_floats(10, 1, g.windows, g.lanes) - one.smem_floats(
+        10, 1, g.windows, g.lanes) == (16 | 1) + 8 * 3 + 8
+
+
+@pytest.mark.parametrize("hidden", [1, 8, 16, 17, 32, 64])
+def test_every_window_a_two_pass_loss_admits_has_a_geometry(hidden):
+    """The two-pass losses' envelope counts their kept predictions and
+    moments: it admits no window the one-pass envelope refuses, and every
+    window it admits fits shared memory at every batch size."""
+    base = _plan(hidden, loss="kgeLoss")
+    one = _plan(hidden, loss="nseLoss")
+    for f, p, g, k, t in ((2, 1, 1, 0, 1), (7, 8, 16, 0, 4), (64, 8, 0, 2, 2)):
+        n_params = 2 * f + 4 * hidden * (f + hidden + 1) + p * (hidden + 1) + g
+        fields = dict(in_dim=f, out_dim=p, n_params=n_params, global_names=("g",) * g,
+                      fixed_names=("k",) * k, target_names=("y",) * t)
+        plan = dataclasses.replace(base, **fields)
+        ref = dataclasses.replace(one, **fields)
+        for steps in (1, 6, 10, 32, 64, 128, 256):
+            for out_steps in sorted({1, steps}):
+                rows = plan.sizes.tile_rows(steps, out_steps)
+                if rows is None:
+                    continue
+                assert ref.sizes.tile_rows(steps, out_steps) is not None
+                for batch in (1, 128, 1000):
+                    geo = plan.geometry(batch, steps, out_steps)
+                    assert plan.sizes.smem_floats(steps, out_steps, geo.windows,
+                                                  geo.lanes) * 4 <= fe.MAX_SMEM_BYTES
+
+
+def _args(plan):
+    return fl._Args.from_buffer_copy(plan.args_bytes)
+
+
 def test_kernel_arguments_pack_the_plan():
     tm = et.construct_hybrid_model(**_spec(hidden=16), device="cpu")
     plan = fl.plan_fused_lstm(tm, ("adam", 0.01), _ll("nseLoss", agg="mean"))
@@ -433,7 +522,7 @@ def test_kernel_arguments_pack_the_plan():
 SEQ = dict(input_window=6, output_window=2, lead_time=0)
 
 
-@pytest.mark.parametrize("loss", ["mse", "nseLoss"])
+@pytest.mark.parametrize("loss", ["mse", "nseLoss", "kgeLoss", "rmse"])
 def test_train_on_windows_runs_both_engines_alike(loss):
     """``use_kernel=True`` on a CPU model runs the plain version behind the
     gate; it follows the torch engine (same seed, same permutations)."""
@@ -463,9 +552,10 @@ def test_train_on_windows_runs_both_engines_alike(loss):
 def test_train_outside_the_envelope_says_why():
     tm = et.construct_hybrid_model(**_spec(hidden=4), device="cpu")
     r = et.train(tm, et.rbq10_columns(200, seed=3), nepochs=1, batchsize=32, training_loss="rmse",
-                 show_progress=False, sequence_kwargs=SEQ, use_kernel=True)
+                 extra_loss=et.l2_extra_loss(), show_progress=False, sequence_kwargs=SEQ,
+                 use_kernel=True)
     assert r.epoch_path == "torch"
-    assert "supports_fused_epoch_lstm" in r.engine_reason and "rmse" in r.engine_reason
+    assert "supports_fused_epoch_lstm" in r.engine_reason and "extra_loss" in r.engine_reason
 
 
 def test_cuda_tensors_never_take_the_plain_version():
