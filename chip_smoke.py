@@ -235,7 +235,25 @@ Phases, one or more lines each; any failure exits non-zero:
     each plain version; a member launch of an epoch of the sweep's windows at
     K = 1, 8, 12 and 16 and the K = 8 launch's plain version; the LSTM
     sweep's and a one-member population's second-call walls; the seconds
-    phases 35-37 add.
+    phases 35-37 add;
+38. kernel 4's one-block form at 32-step windows (LSTM(64) with 2 and 16
+    features, where its envelope stopped at 16 and 8 steps) against its plain
+    version within ``TOL_EPOCH``, a second run to the same bits;
+39. kernel 4's cluster-split form (``csrc/fused_lstm_split.cu``) against its
+    plain version on the card within ``TOL_EPOCH``, a second run to the same
+    bits: LSTM(72), LSTM(128) and LSTM(256) with 2 and 64 features at batches
+    1, 33, 128 and 1,000, LSTM(64) with 64 features, under each loss it takes
+    (the traced pinball built in phase 2) and every optimizer rule at small
+    shapes, without an input norm, and batches without a valid target;
+40. main path: ``examples/lstm_sequences.py``'s rows through ``train()`` at
+    32-step windows with LSTM(256) (``SPLIT_TRAIN_KW``): the split form after
+    its gate, one launch an epoch, Q10 within 0.15 of 2.0 and best val
+    nseLoss below ``LSTM_VAL_LIMIT``; the same run with LSTM(64) on the
+    one-block form;
+41. times: the split form's epoch at the main path's shape (LSTM(256)) and
+    at LSTM(128), its plain version, its bound and cuDNN's LSTM forward and
+    backward over the same windows (the yardstick); the seconds phases 38-41
+    add.
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -1166,9 +1184,8 @@ def lstm_kernel_checks(et) -> float:
     logging = et.LoggingLoss(training_loss="nseLoss", loss_types=("nseLoss",))
     taken = {}
     for window in (10, 32, 64, 128, 256):
-        tile = fl.lstm_tile_rows(model, window)
-        taken[window] = tile
-        if tile is None:
+        taken[window] = fl.lstm_form(model, window) == "one_block"
+        if not taken[window]:
             cols = et.rbq10_columns(600, seed=7)
             tensors = prepare_lstm_case(et, what="", steps=window, cols=cols, epochs=1)[3]
             reason = fl.fused_epoch_lstm_unsupported_reason(model, ("adam", 0.01), logging, tensors)
@@ -2346,6 +2363,7 @@ LOSS_BUILDS = {
     "fused_epoch.cu": ("pinball", "huber"),
     "fused_wide.cu": ("pinball",),
     "fused_epoch_lstm.cu": ("pinball",),
+    "fused_lstm_split.cu": ("pinball",),
     "fused_multisite.cu": ("pinball",),
 }
 # kernel 2's losses besides mse, the main shape's entries on the kernels line
@@ -3864,6 +3882,272 @@ def lstm_two_pass_times(et, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 38-41: kernel 4 at every LSTM the JAX kernel trains: the one-block
+# form at 32-step windows and the cluster-split form
+# ---------------------------------------------------------------------------
+
+# the main path: examples/lstm_sequences.py's rows, model and settings at
+# 32-step windows with LSTM(256)
+SPLIT_WINDOW = dict(input_window=32, output_window=1, lead_time=0)
+SPLIT_TRAIN_KW = {**LSTM_TRAIN_KW, "sequence_kwargs": SPLIT_WINDOW}
+SPLIT_HIDDEN = 256
+# the same run on the torch engine on a CPU (float32): best val nseLoss
+# 0.002523 at epoch 17, Q10 2.0011 (LSTM(256)); LSTM(64) 0.002552, Q10 2.0013
+# (tools/dev_fused_lstm_split_gpu.py --torch-cpu); the limit is phase 14's
+
+
+def prepare_lstm_form_case(et, *, what, hidden, features=2, steps=32, out_steps=1, batch=128,
+                           norm="static", opt=("adam", 0.01), loss="nseLoss", agg="sum",
+                           shuffle=True, epochs=1, n=None, nan_frac=0.0, mask_first=0, seed=0):
+    """A case of either form of kernel 4, the form ``fused_engine`` picks for
+    the model and window: its fused epoch, packed parameters on the card,
+    epoch tensors and permutations. ``features`` predictors: the example's
+    two and standard normal columns beyond them; ``n`` rows (one batch and
+    the window by default)."""
+    from easyhybrid_tpu_torch.data.prepare import HybridData
+    from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
+
+    n = n or batch + steps + 3
+    model = build_model(et, hidden={"lstm": hidden}, norm=norm, seed=seed,
+                        predictors=["sw_pot", "dsw_pot"] + [f"p{i}" for i in range(features - 2)])
+    cols = et.rbq10_columns(n, seed=7 + seed, nan_frac=nan_frac)
+    cols["reco"][:mask_first] = np.nan
+    rng = np.random.default_rng(seed)
+    extra = [rng.normal(size=n).astype(np.float32) for _ in range(features - 2)]
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"], *extra], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=steps, output_window=out_steps, lead_time=0)
+    et.fit_input_norm(model, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
+    logging = et.LoggingLoss(training_loss=loss_of(et, loss), loss_types=("mse",), agg=agg)
+    engine = fe.fused_engine(model, tensors)
+    fn = engine.make_epoch(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+    return what, engine.epoch_path, fn, fn.plan.pack(model), tensors, perms
+
+
+def run_form_case(case, launcher) -> tuple:
+    """The case's launch against its plain version within ``TOL_EPOCH`` and a
+    second launch to the same bits; ``(max |diff|, geometry, steps)``."""
+    what, _, fn, packed, tensors, perms = case
+
+    def named(p, o, loss):
+        return {"params": p.params, "bn": p.bn, **slots(o), "loss": loss.reshape(1)}
+
+    before = launcher.launches
+    got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    torch.cuda.synchronize()
+    again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    if launcher.launches - before != 2:
+        raise AssertionError(f"{what}: {launcher.launches - before} launches, not 2")
+    ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise AssertionError(f"{what}: the kernel returned non-finite values")
+    if not all(torch.equal(got[k], again[k]) for k in got):
+        raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+    batch, steps = int(tensors.weight.shape[1]), int(tensors.x.shape[2])
+    return (compare(got, ref, what, TOL_EPOCH), fn.plan.geometry(batch, steps, 1),
+            int(got["t"][0]))
+
+
+def one_block_32_checks(et) -> float:
+    """Phase 38: the one-block form at 32-step windows."""
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+
+    worst = 0.0
+    for features, loss, opt in ((2, "nseLoss", ("adam", 0.01)), (16, "mse", ("rmsprop", 0.001))):
+        case = prepare_lstm_form_case(
+            et, what=f"LSTM(64), {features} features, 32-step windows, {loss}, {opt[0]}, batch "
+                     "128, 2 epochs", hidden=64, features=features, loss=loss, opt=opt, n=600,
+            epochs=2)
+        if case[1] != "cuda_fused_lstm":
+            raise AssertionError(f"{case[0]}: routed to {case[1]}, not the one-block form")
+        err, geo, steps = run_form_case(case, fl.launch_fused_lstm)
+        worst = max(worst, err)
+        log("kernel4-32", f"{case[0]}: {geo}, {steps} steps, max |diff| {err:.3e}, second run "
+                          "bitwise equal (ok)")
+    return worst
+
+
+def split_cases():
+    """The split form's cases: the widths and features of the issue's grid at
+    batches 1, 33, 128 and 1,000, then each loss, each rule and the edges."""
+    cases = []
+    for hidden in (72, 128, 256):
+        for features in (2, 64):
+            for batch in (1, 33, 128, 1000):
+                # nseLoss over one window's one target step divides by an SST of 0
+                # (clamped at 1e-12): mse there. Past LSTM(72) and at batch 1,000 a
+                # gradient element can cancel to rounding level over its thousands of
+                # (window, step) pairs, and adam's normalised first steps move such an
+                # element by a visible share of the learning rate whatever its size
+                # (tools/dev_fused_lstm_split_gpu.py --drift holds the kernel and the
+                # plain version against the plain version in float64): sgd holds the
+                # gradient there, as phase 35 holds kgeLoss at the main shape
+                loss = "mse" if batch == 1 else "nseLoss"
+                adam = hidden == 72 and features == 2 and batch < 1000
+                opt = ("adam", 0.01) if adam else ("sgd", 0.05)
+                cases.append(dict(
+                    what=f"LSTM({hidden}), {features} features, 32 steps, batch {batch}, {loss}, "
+                         f"{opt[0]}", hidden=hidden, features=features, batch=batch, loss=loss,
+                    opt=opt, n=(40 if batch == 1 else None), epochs=1))
+    cases.append(dict(what="LSTM(72), 10-step windows, nseLoss, batch 128, 4 epochs", hidden=72,
+                      steps=10, n=700, epochs=4))
+    cases.append(dict(what="LSTM(64) with 64 features (one block cannot hold it), sgd, 2 epochs",
+                      hidden=64, features=64, n=400, epochs=2, opt=("sgd", 0.05)))
+    for loss in ("mse", "mae", "rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss", "pinball"):
+        cases.append(dict(what=f"LSTM(72), {loss}, output window 2, 20% NaN targets, batch 64",
+                          hidden=72, steps=10, out_steps=2, loss=loss, batch=64, n=300,
+                          nan_frac=0.2, epochs=2))
+    for i, opt in enumerate(RULES):
+        cases.append(dict(what=f"LSTM(72), {opt}, mse, batch 64, 2 epochs", hidden=72, steps=10,
+                          opt=opt, loss="mse", batch=64, n=300, epochs=2, seed=i))
+    cases.append(dict(what="LSTM(100), no norm, sgd 0.001, shuffle 'batches', agg mean",
+                      hidden=100, steps=10, norm=False, opt=("sgd", 0.001), loss="mse",
+                      shuffle="batches", agg="mean", n=400, epochs=2))
+    cases.append(dict(what="LSTM(72), first two batches without a valid target, kgeLoss",
+                      hidden=72, steps=10, loss="kgeLoss", shuffle=False, mask_first=2 * 128 + 9,
+                      n=1033, epochs=2))
+    return cases
+
+
+def split_kernel_checks(et) -> float:
+    """Phase 39: the split form against its plain version and itself."""
+    from easyhybrid_tpu_torch.ops import fused_lstm_split as fs
+
+    worst = 0.0
+    for spec in split_cases():
+        case = prepare_lstm_form_case(et, **spec)
+        if case[1] != "cuda_fused_lstm_split":
+            raise AssertionError(f"{case[0]}: routed to {case[1]}, not the split form")
+        err, geo, steps = run_form_case(case, fs.launch_fused_lstm_split)
+        worst = max(worst, err)
+        log("kernel4-split", f"{case[0]}: {geo}, {steps} steps, max |diff| {err:.3e}, second run "
+                             "bitwise equal (ok)")
+        if "mask_first" in spec and steps != 2 * (8 - 2):
+            raise AssertionError(f"{case[0]}: {steps} steps counted, not 12")
+    return worst
+
+
+def split_main_path(et, card) -> dict:
+    """Phase 40: 32-step sequence training with LSTM(256) through the normal
+    entry points on the split form, and with LSTM(64) on the one-block form."""
+    from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+    from easyhybrid_tpu_torch.ops import fused_lstm_split as fs
+
+    cols = et.rbq10_columns(LSTM_ROWS, seed=7)
+    out = {}
+    for hidden, path, launcher in ((SPLIT_HIDDEN, "cuda_fused_lstm_split",
+                                    fs.launch_fused_lstm_split),
+                                   (64, "cuda_fused_lstm", fl.launch_fused_lstm)):
+        model = lstm_model(et, hidden=hidden)
+        with gate_counted_apart(launcher) as gate_launches:
+            t0 = time.perf_counter()
+            result = et.train(model, cols, **SPLIT_TRAIN_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after_stop = halted(result)
+            launches = launcher.launches - after_stop
+        if result.epoch_path != path or "exactness gate passed" not in result.engine_reason:
+            raise AssertionError(f"LSTM({hidden}): train() took {result.epoch_path!r}: "
+                                 f"{result.engine_reason}")
+        if launches != SPLIT_TRAIN_KW["nepochs"]:
+            raise AssertionError(f"LSTM({hidden}): train() launched {launches} times, not "
+                                 f"{SPLIT_TRAIN_KW['nepochs']} (one per eval block)")
+        pred = result.val_pred_columns
+        q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+        val_mse = result.val_history[result.best_epoch]["mse"]["reco"]
+        if not (np.isfinite(pred["reco_pred"]).all() and result.best_loss < LSTM_VAL_LIMIT
+                and abs(q10 - 2.0) < 0.15):
+            raise AssertionError(f"LSTM({hidden}): best val nseLoss {result.best_loss:.5f} "
+                                 f"(limit {LSTM_VAL_LIMIT}), Q10 {q10:.4f}")
+        log("main", f"sequence train(): {LSTM_ROWS} rows in 32-step windows, LSTM({hidden}), "
+                    f"{result.epoch_path}, {result.engine_reason}; {launches} launches after the "
+                    f"gate's {gate_launches} ({after_stop} more halted after a stop), "
+                    f"{int(result.opt_state['t'][0])} optimizer steps; best val nseLoss "
+                    f"{result.best_loss:.6f} at epoch {result.best_epoch} (limit "
+                    f"{LSTM_VAL_LIMIT}; the torch engine on a CPU: "
+                    f"{'0.002523' if hidden == 256 else '0.002552'}), val mse {val_mse:.5f}, "
+                    f"Q10 {q10:.4f}; {wall:.2f} s wall (ok)")
+        out[hidden] = dict(launches=launches, wall=wall, best=result.best_loss, q10=q10)
+    return out
+
+
+def cudnn_epoch(features, hidden, batch, steps, n_batches):
+    """The yardstick: one ``torch.nn.LSTM`` (cuDNN) forward and backward over
+    a batch's ``(B, T, F)`` windows, once per step of an epoch."""
+    lstm = torch.nn.LSTM(features, hidden, batch_first=True).cuda()
+    x = torch.randn((batch, steps, features), device="cuda", requires_grad=True)
+    seed = torch.randn((batch, steps, hidden), device="cuda")
+
+    def epoch():
+        for _ in range(n_batches):
+            out, _ = lstm(x)
+            torch.autograd.grad(out, [x, *lstm.parameters()], seed)
+
+    return epoch
+
+
+def split_times(et, card) -> dict:
+    """Phase 41: the split form's epoch at the main path's shape, LSTM(256),
+    and at LSTM(128); its plain version, bound and the cuDNN yardstick."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    train_cols = {k: v[: int(LSTM_ROWS * 0.8)] for k, v in
+                  et.rbq10_columns(LSTM_ROWS, seed=7).items()}
+    out = {}
+    for hidden in (SPLIT_HIDDEN, 128):
+        from easyhybrid_tpu_torch.data.prepare import HybridData
+        from easyhybrid_tpu_torch.data.sequences import split_into_sequences
+        from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
+
+        model = lstm_model(et, hidden=hidden)
+        rows = HybridData(x=np.stack([train_cols["sw_pot"], train_cols["dsw_pot"]], -1),
+                          forcing={"ta": train_cols["ta"]}, y={"reco": train_cols["reco"]})
+        data = split_into_sequences(rows, **SPLIT_WINDOW)
+        et.fit_input_norm(model, data)
+        tensors = epoch_tensors_to(et.build_epoch_tensors(data, 128), "cuda")
+        logging = et.LoggingLoss(training_loss="nseLoss", loss_types=("nseLoss",))
+        fn = fe.fused_engine(model, tensors).make_epoch(model, ("adam", 0.01), logging,
+                                                        shuffle=True, epochs_per_call=1)
+        perms = perms_for_epochs(True, tensors, 1,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+        packed = fn.plan.pack(model)
+        opt0 = fe.init_fused_opt_state(packed)
+        nb, batch = (int(v) for v in tensors.weight.shape)
+        kernel = lambda: fn(packed, opt0, tensors, perms=perms)  # noqa: E731
+        yard = cudnn_epoch(2, hidden, batch, 32, nb)
+        host_ms(kernel, 2)
+        host_ms(yard, 2)
+        # cuDNN's epoch is thousands of kernels, too many to queue behind a sleep:
+        # the profiler's sum of their durations
+        timers = {"kernel": lambda: device_ms(kernel, 3, f"split LSTM({hidden})"),
+                  "cudnn": lambda: profiled_device_ms(yard, 1)}
+        samples = {"kernel": [], "cudnn": []}
+        for i in range(5):
+            for k in (("kernel", "cudnn") if i % 2 == 0 else ("cudnn", "kernel")):
+                samples[k].append(timers[k]())
+        ms = {k: statistics.median(v) for k, v in samples.items()}
+        plain = profiled_device_ms(lambda: fn.reference(packed, opt0, tensors, perms=perms), 1)
+        b = bound(**{k: v * nb for k, v in
+                     lstm_step_bound(batch, 32, hidden=hidden, features=2).items()})
+        geo = fn.plan.geometry(batch, 32, 1)
+        log("times", f"[{card}] kernel 4's split form, one epoch of {nb} steps of {batch} windows "
+                     f"x 32 (LSTM({hidden}), 2 features, static norm, nseLoss, adam), geometry "
+                     f"{geo}, median of 5 in turns: kernel {ms['kernel']:.4f} ms "
+                     f"({ms['kernel'] / nb:.4f} a step), cuDNN's LSTM forward and backward "
+                     f"{ms['cudnn']:.4f} ms; plain version {plain:.2f} ms (profiler); bound "
+                     f"{b['bound_ms']:.6f} ms ({b['bound_by']}), the kernel at "
+                     f"{100 * b['bound_ms'] / ms['kernel']:.2f}% of it")
+        out[hidden] = dict(ms=ms["kernel"], cudnn_ms=ms["cudnn"], plain_ms=plain, bound=b,
+                           steps=nb, batch=batch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 28-30: the halt word and the deferred loop
 # ---------------------------------------------------------------------------
 
@@ -4462,6 +4746,14 @@ def main() -> None:
     lstm_loss_ms = lstm_two_pass_times(et, card)
     log("kernel4-losses", f"phases 35-37 added {time.perf_counter() - t0:.1f} s to the run (35 "
                           f"{t1 - t0:.1f} s, 36 {t2 - t1:.1f} s, 37 {time.perf_counter() - t2:.1f} s)")
+    t0 = time.perf_counter()
+    split_err = max(one_block_32_checks(et), split_kernel_checks(et))
+    t1 = time.perf_counter()
+    split_main = split_main_path(et, card)
+    t2 = time.perf_counter()
+    split_ms = split_times(et, card)
+    log("kernel4-split", f"phases 38-41 added {time.perf_counter() - t0:.1f} s to the run (38-39 "
+                         f"{t1 - t0:.1f} s, 40 {t2 - t1:.1f} s, 41 {time.perf_counter() - t2:.1f} s)")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -4640,6 +4932,23 @@ def main() -> None:
         "members": 8,
         "k1_ms": lstm_loss_ms["k_ms"][1],
         "k16_ms": lstm_loss_ms["k_ms"][16],
+    }, {
+        "name": "fused_lstm_split",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_lstm_split.cu",
+        # kernel_body_lstm (:1700) for the LSTMs one block cannot hold
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": split_main[SPLIT_HIDDEN]["launches"],  # phase 40's LSTM(256) train()
+        # phases 38-39: the one-block form at 32 steps and the split form's cases
+        "max_abs_err": split_err,
+        # one epoch at the main path's shape (LSTM(256), 32 steps, batch 128): see
+        # lstm_step_bound
+        "ms": split_ms[SPLIT_HIDDEN]["ms"],
+        "plain_ms": split_ms[SPLIT_HIDDEN]["plain_ms"],
+        **split_ms[SPLIT_HIDDEN]["bound"],
+        "library_ms": split_ms[SPLIT_HIDDEN]["cudnn_ms"],  # cuDNN's LSTM forward and backward
+        "h128_ms": split_ms[128]["ms"],
+        "one_block_h64_launches": split_main[64]["launches"],
     }, {
         "name": "fused_epoch_multinn",
         "route": "cuda",

@@ -15,7 +15,8 @@ model inside the envelopes runs hand-written kernels, compiled with ``nvcc``
 at first use: the fused forward (``csrc/fused_forward.cu``) for serving, and
 the fused training epochs (``csrc/fused_epoch.cu``, ``csrc/fused_wide.cu``
 for MLPs too wide for one thread block, ``csrc/fused_epoch_lstm.cu`` for LSTM
-hybrids and ``csrc/fused_multisite.cu`` for multi-site models), which
+hybrids, ``csrc/fused_lstm_split.cu`` for those one block cannot hold, and
+``csrc/fused_multisite.cu`` for multi-site models), which
 ``train`` enables behind a runtime exactness gate.
 
 Importing the package imports torch and numpy only; pandas is imported
@@ -99,6 +100,7 @@ from .ops.fused_forward import (
 )
 from .ops.fused_epoch import make_fused_epoch, supports_fused_epoch
 from .ops.fused_epoch_lstm import make_fused_lstm_epoch, supports_fused_epoch_lstm
+from .ops.fused_lstm_split import make_fused_lstm_split_epoch, supports_fused_lstm_split
 from .ops.fused_multisite import make_fused_multisite_epoch, supports_fused_multisite
 from .ops.fused_wide import make_fused_wide_epoch, supports_fused_wide
 from .utils.device import default_device
@@ -175,6 +177,8 @@ __all__ = [
     "supports_fused_epoch",
     "make_fused_lstm_epoch",
     "supports_fused_epoch_lstm",
+    "make_fused_lstm_split_epoch",
+    "supports_fused_lstm_split",
     "make_fused_multisite_epoch",
     "supports_fused_multisite",
     "make_fused_wide_epoch",

@@ -155,7 +155,8 @@ class TrainResults:
     ``*_obs_columns`` / ``*_pred_columns`` are numpy dicts; the matching
     ``*_obs`` / ``*_pred`` properties wrap them in DataFrames.
     ``epoch_path`` is ``"cuda_fused_epoch"``, ``"cuda_fused_wide"``,
-    ``"cuda_fused_lstm"``, ``"cuda_fused_multisite"`` or ``"torch"``;
+    ``"cuda_fused_lstm"``, ``"cuda_fused_lstm_split"``, ``"cuda_fused_multisite"`` or
+    ``"torch"``;
     ``engine_reason`` says why."""
 
     train_history: Any = None

@@ -51,12 +51,14 @@ NVCC_FLAGS: Tuple[str, ...] = (
 )
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # each kernel source's launcher and its argument types: (arguments, width,
-# stream), or (arguments, stream) for kernel 3, which has no width to pick
+# stream), or (arguments, stream) for kernel 3 and kernel 4's split form, which
+# have no width to pick
 LAUNCHERS = {
     "fused_forward.cu": ("eh_fused_forward", (_PTR, _INT, _PTR)),
     "fused_epoch.cu": ("eh_fused_epoch", (_PTR, _INT, _PTR)),
     "fused_epoch_multinn.cu": ("eh_fused_epoch_multinn", (_PTR, _INT, _PTR)),
     "fused_epoch_lstm.cu": ("eh_fused_lstm", (_PTR, _INT, _PTR)),
+    "fused_lstm_split.cu": ("eh_fused_lstm_split", (_PTR, _PTR)),
     "fused_multisite.cu": ("eh_fused_multisite", (_PTR, _INT, _PTR)),
     "fused_wide.cu": ("eh_fused_wide", (_PTR, _PTR)),
 }

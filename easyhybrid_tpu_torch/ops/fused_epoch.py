@@ -1879,10 +1879,14 @@ def _refusing_other_shuffles(reason_fn):
     return reason
 
 
-def fused_engine(model) -> FusedEngine:
+def fused_engine(model, tensors=None) -> FusedEngine:
     """The fused engine of a model, the one place that tells them apart: the
-    multi-site one for a :class:`MultiSiteHybridModel`, the LSTM one for a
-    hybrid over an :class:`LSTMNet`, else a single-series MLP one, by size
+    multi-site one for a :class:`MultiSiteHybridModel`, for a hybrid over an
+    :class:`LSTMNet` one of kernel 4's two forms by size and the window of
+    ``tensors`` (its epoch tensors, ``(1, 1)`` without them): the one-block
+    form where its geometry fits, the cluster-split form
+    (``ops/fused_lstm_split.py``) for the rest
+    (``fused_epoch_lstm.lstm_form``), else a single-series MLP one, by size
     alone: kernel 2, whose blocks keep the whole state in shared memory,
     where that holds the model (widths up to 64 and parameters, moments and
     a residual tile within 227 KB, summed over a MultiNN model's branches),
@@ -1902,8 +1906,16 @@ def fused_engine(model) -> FusedEngine:
             "supports shuffle_each_epoch in (True, False, 'batches')")
     single = "shuffle_each_epoch={!r} outside the fused envelope"
     if isinstance(getattr(model, "nn", None), LSTMNet):
-        from .fused_epoch_lstm import fused_epoch_lstm_unsupported_reason, make_fused_lstm_epoch
+        from .fused_epoch_lstm import (fused_epoch_lstm_unsupported_reason, lstm_form,
+                                       make_fused_lstm_epoch, window_of)
 
+        if isinstance(model, SingleNNHybridModel) and lstm_form(model, *window_of(tensors)) == "split":
+            from .fused_lstm_split import (fused_lstm_split_unsupported_reason,
+                                           make_fused_lstm_split_epoch)
+
+            return FusedEngine(
+                "cuda_fused_lstm_split", "supports_fused_lstm_split", make_fused_lstm_split_epoch,
+                _refusing_other_shuffles(fused_lstm_split_unsupported_reason), single)
         return FusedEngine(
             "cuda_fused_lstm", "supports_fused_epoch_lstm", make_fused_lstm_epoch,
             _refusing_other_shuffles(fused_epoch_lstm_unsupported_reason), single)
@@ -1952,7 +1964,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     one does not catch a build or launch error: those raise."""
     lr = 1e-3
     sub = _head(tensors, min(n_batches, int(tensors.weight.shape[0])))
-    make_epoch = fused_engine(model).make_epoch
+    make_epoch = fused_engine(model, tensors).make_epoch
     plan = make_epoch(model, optimizer, logging).plan
     p0 = plan.pack(model)
 

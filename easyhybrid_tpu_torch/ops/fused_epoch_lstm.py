@@ -32,16 +32,17 @@ The packed layout (:class:`FusedLSTMPlan`, same scheme as kernel 2's):
   ``b (P)``, all row-major, then the raw globals (G);
 * ``bn``, ``opt_state`` and ``consts`` as in ``ops/fused_epoch.py``.
 
-The window is bounded by shared memory, not by a constant: the envelope
-admits a window when 8 of its rows of ``(x, h, c)`` checkpoints fit in 227 KB
-beside one block's parameters and gradients by the rule the kernel was first
-built with (:func:`lstm_tile_rows`), so that what the kernel takes neither
-shrank nor grew when it was redesigned. How a launch is cut is
-:meth:`FusedLSTMPlan.geometry`, a pure function of the plan, the batch and
-the window: a window's recurrence in ``min(32, width)`` lanes of one warp, a
-block's windows at once, a thread-block cluster over the batch's windows,
-tiles walked only beyond that. ``csrc/fused_epoch_lstm.cu`` says what each
-choice is for.
+Two forms, picked by size alone (:func:`lstm_form`, a pure function of the
+model and the window): this one-block form, every block of its cluster
+holding all the parameters and their gradients, wherever its geometry fits
+shared memory at one window a block (then it fits at every batch size); and
+the cluster-split form (``ops/fused_lstm_split.py``, ``csrc/fused_lstm_split.cu``)
+for the rest up to hidden size 256, 64 features and 32 steps. How a launch
+of this form is cut is :meth:`FusedLSTMPlan.geometry`, a pure function of
+the plan, the batch and the window: a window's recurrence in ``min(32,
+width)`` lanes of one warp, a block's windows at once, a thread-block
+cluster over the batch's windows, tiles walked only beyond that.
+``csrc/fused_epoch_lstm.cu`` says what each choice is for.
 
 :func:`fused_lstm_reference` is the same algorithm in plain PyTorch on the
 same layout, the backward written by hand (no autograd). On CPU tensors the
@@ -108,7 +109,7 @@ __all__ = [
     "fused_lstm_members_reference",
     "fused_lstm_reference",
     "launch_fused_lstm",
-    "lstm_tile_rows",
+    "lstm_form",
     "make_fused_lstm_epoch",
     "stage_cycles",
     "supports_fused_epoch_lstm",
@@ -122,10 +123,9 @@ _HIDDEN_WIDTHS = (8, 16, 32, 64)  # the kernel's compile-time hidden sizes
 # the plan's largest cluster (beyond the portable 8: the H100 co-schedules 16
 # blocks of one cluster)
 MAX_CLUSTER = 16
-# the envelope's rule: the tiles of the kernel's first form, one block of 512
-# threads with two partials each
-LSTM_THREADS = 512
-LSTM_TILE_ROWS = (128, 64, 32, 16, 8)
+# the hidden size both forms take together: the split form's cap
+# (csrc/fused_lstm_split.cu, EHS_MAX_HIDDEN)
+MAX_HIDDEN = 256
 LSTM_LOSSES = FUSED_LOSSES  # every loss of the JAX kernel, and any traced ElementwiseLoss
 _SST_EPS = 1e-12  # the floor of nseLoss's denominator (losses/metrics.py)
 
@@ -151,40 +151,19 @@ class _Sizes(NamedTuple):
     norm: bool
     two_pass: bool = False
 
-    def res_floats(self, steps: int, out_steps: int) -> int:
-        """Floats a tile row keeps: the ``(x, h, c)`` checkpoints of every
-        step (and the normalised input beside the affine one with a norm),
-        one step's gate cotangents, the carried ``dh`` and ``dc``, the head
-        cotangents of the trailing steps, the row's global cotangents and,
-        with a norm, its scale and bias gradients; a two-pass loss's kept
-        predictions of the trailing steps."""
-        f = 2 * self.f if self.norm else self.f
-        return (steps * (2 * self.h + f) + 6 * self.h + out_steps * self.p + self.g
-                + (2 * self.f if self.norm else 0) + (out_steps * self.t if self.two_pass else 0))
-
-    def smem_bytes(self, steps: int, out_steps: int, tile_rows: int) -> int:
-        """Shared memory of one launch by the rule the kernel was first built
-        with (the envelope's); a two-pass loss's moments and coefficients
-        counted as its warps' partials."""
-        fixed = (2 * self.n_params + 2 * self.f + (2 * self.p + 2 * self.g + self.k)
-                 + (self.g + self.k) + self.g + 2 * self.f + self.t + 4 + 2 * LSTM_THREADS
-                 + ((8 + 3 * LSTM_THREADS // 32) * self.t if self.two_pass else 0))
-        return 4 * (fixed + self.res_floats(steps, out_steps) * (tile_rows + 1))
-
-    def tile_rows(self, steps: int, out_steps: int) -> Optional[int]:
-        """Rows of the largest tile that fits, or None when none does: the
-        envelope (the kernel takes a window when this is not None)."""
-        for rows in LSTM_TILE_ROWS:
-            if self.smem_bytes(steps, out_steps, rows) <= MAX_SMEM_BYTES:
-                return rows
-        return None
-
     def pair_features(self) -> int:
         """Features of a (window, step) pair in the kernel's pair arrays
         (``ehl_tile``): the cell's input and a 1 (and with a norm the
         normalised input and its cotangent), h, c and the four gates, which
         the backward overwrites with their cotangents."""
         return (3 * self.f if self.norm else self.f) + 6 * self.h + 1
+
+    def fits_one_block(self, steps: int, out_steps: int, width: int) -> bool:
+        """Whether the one-block form's geometry fits shared memory at one
+        window a block, and so at every batch size, whatever the loss (the
+        two-pass losses' kept predictions and moments counted)."""
+        return (self._replace(two_pass=True).smem_floats(steps, out_steps, 1, min(32, width)) * 4
+                <= MAX_SMEM_BYTES)
 
     def smem_floats(self, steps: int, out_steps: int, windows: int, lanes: int) -> int:
         """Shared-memory floats of one launch of the kernel with blocks
@@ -210,12 +189,24 @@ def _sizes(model, loss=None) -> _Sizes:
                   net.norm is not None, _loss_name(loss) in TWO_PASS_LOSSES)
 
 
-def lstm_tile_rows(model, steps: int, out_steps: int = 1, loss=None) -> Optional[int]:
-    """Rows of the largest tile whose checkpoints fit in shared memory for an
-    input window of ``steps`` and an output window of ``out_steps`` under
-    the training loss ``loss`` (a two-pass loss keeps more), or None when not
-    even the smallest tile fits."""
-    return _sizes(model, loss).tile_rows(steps, out_steps)
+def _width(hidden: int) -> Optional[int]:
+    """The one-block form's compile-time hidden size for ``hidden``, or None
+    past the largest."""
+    return next((w for w in _HIDDEN_WIDTHS if w >= hidden), None)
+
+
+def lstm_form(model, steps: int = 1, out_steps: int = 1) -> str:
+    """Which form of kernel 4 trains an LSTM hybrid over windows of ``steps``
+    steps with ``out_steps`` trailing ones: ``"one_block"`` where hidden size
+    and features are at most 64 and the one-block geometry fits shared memory
+    at one window a block, else ``"split"`` (``ops/fused_lstm_split.py``). A
+    pure function of the model and the window; each form's envelope says why
+    it refuses what it cannot take."""
+    net = model.nn
+    width = _width(net.hidden_size)
+    if width is None or net.in_dim > MAX_WIDTH:
+        return "split"
+    return "one_block" if _sizes(model).fits_one_block(steps, out_steps, width) else "split"
 
 
 def _window(tensors) -> Tuple[int, int]:
@@ -224,22 +215,18 @@ def _window(tensors) -> Tuple[int, int]:
     return int(tensors.x.shape[2]), int(y.shape[2]) if y.ndim > 2 else 0
 
 
-def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
-                                        tensors=None) -> Optional[str]:
-    """Why the fused LSTM epoch kernel cannot train ``model`` with this
-    optimizer and loss, or None when it can.
+def window_of(tensors) -> Tuple[int, int]:
+    """The window of sequence epoch tensors, ``(1, 1)`` without them (or
+    for tensors of rows, which the envelopes refuse by shape)."""
+    if tensors is None or tensors.x.ndim != 4:
+        return 1, 1
+    steps, out_steps = _window(tensors)
+    return steps, max(out_steps, 1)
 
-    The envelope: a :class:`SingleNNHybridModel` whose network is an
-    :class:`LSTMNet` in float32 with ``input_batchnorm`` ``"static"`` or
-    False; a mechanistic function with a kernel form; ``training_loss``
-    any of the JAX kernel's (mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss,
-    pbkgeLoss) or an ``ElementwiseLoss`` the tracer expresses, with
-    ``agg`` sum or mean and no ``extra_loss``; an
-    optimizer the kernels run (``fused_epoch.optimizer_reason``); hidden size
-    and features up to 64, up to 8 network outputs. With ``tensors``: ``x``
-    of shape ``(num_batches, batch, T, F)`` and windowed targets, with a
-    window whose checkpoints fit in shared memory (:func:`lstm_tile_rows`).
-    Any batch size, shuffle mode and number of epochs per call."""
+
+def lstm_reason(model, optimizer, logging: LoggingLoss, tensors):
+    """What both forms of kernel 4 refuse (see
+    :func:`fused_epoch_lstm_unsupported_reason`), or None."""
     if not isinstance(model, SingleNNHybridModel):
         return f"{type(model).__name__} is not a SingleNNHybridModel"
     net = model.nn
@@ -256,9 +243,9 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
     act = net.output_activation
     if not isinstance(act, str) or act not in _ACT_IDS:
         return f"output activation {act!r} is not one of the kernel's {len(_ACT_IDS)} names"
-    if max(net.in_dim, net.hidden_size) > MAX_WIDTH:
+    if net.in_dim > MAX_WIDTH or net.hidden_size > MAX_HIDDEN:
         return (f"{net.in_dim} features and hidden size {net.hidden_size} exceed the kernel's "
-                f"cap of {MAX_WIDTH}")
+                f"caps of {MAX_WIDTH} features and hidden size {MAX_HIDDEN}")
     if net.out_dim > MAX_LSTM_OUT:
         return f"{net.out_dim} network outputs exceed the LSTM kernel's cap of {MAX_LSTM_OUT}"
     if len(model.targets) > MAX_TARGETS:
@@ -266,18 +253,46 @@ def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
     reason = mechanistic_reason(model) or training_spec_reason(optimizer, logging, LSTM_LOSSES)
     if reason is not None:
         return reason
-    steps, out_steps = (1, 1) if tensors is None else _window(tensors)
-    if tensors is not None and (tensors.x.ndim != 4 or out_steps == 0):
+    if tensors is not None and (tensors.x.ndim != 4 or _window(tensors)[1] == 0):
         return (f"x of shape {tuple(tensors.x.shape)} is not (num_batches, batch, time, "
                 "features) with windowed targets")
+    steps, out_steps = window_of(tensors)
     if out_steps > steps:
         return f"the output window ({out_steps}) is longer than the input window ({steps})"
-    if lstm_tile_rows(model, steps, out_steps, logging.training_loss) is None:
-        need = _sizes(model, logging.training_loss).smem_bytes(steps, out_steps,
-                                                               LSTM_TILE_ROWS[-1])
-        return (f"a window of {steps} steps at hidden size {net.hidden_size} needs {need} bytes "
-                f"of shared memory for a tile of {LSTM_TILE_ROWS[-1]} rows; the kernel has "
-                f"{MAX_SMEM_BYTES}")
+    return None
+
+
+def fused_epoch_lstm_unsupported_reason(model, optimizer, logging: LoggingLoss,
+                                        tensors=None) -> Optional[str]:
+    """Why the one-block form of kernel 4 cannot train ``model`` with this
+    optimizer and loss, or None when it can.
+
+    The envelope of both forms: a :class:`SingleNNHybridModel` whose network
+    is an :class:`LSTMNet` in float32 with ``input_batchnorm`` ``"static"``
+    or False; a mechanistic function with a kernel form; ``training_loss``
+    any of the JAX kernel's (mse, mae, rmse, nseLoss, pearsonLoss, kgeLoss,
+    pbkgeLoss) or an ``ElementwiseLoss`` the tracer expresses, with ``agg``
+    sum or mean and no ``extra_loss``; an optimizer the kernels run
+    (``fused_epoch.optimizer_reason``); up to 64 features and 8 network
+    outputs and hidden size 256. With ``tensors``: ``x`` of shape
+    ``(num_batches, batch, T, F)`` and windowed targets. Any batch size,
+    shuffle mode and number of epochs per call. This form's own: hidden size
+    up to 64 and a window whose one-block geometry fits shared memory
+    (:func:`lstm_form`); the split form (``ops/fused_lstm_split.py``) takes
+    the rest, up to 32 steps."""
+    reason = lstm_reason(model, optimizer, logging, tensors)
+    if reason is not None:
+        return reason
+    steps, out_steps = window_of(tensors)
+    if _width(model.nn.hidden_size) is None:
+        return (f"hidden size {model.nn.hidden_size} exceeds the one-block form's cap of "
+                f"{_HIDDEN_WIDTHS[-1]} (the cluster-split form takes it)")
+    if lstm_form(model, steps, out_steps) != "one_block":
+        need = 4 * _sizes(model)._replace(two_pass=True).smem_floats(
+            steps, out_steps, 1, min(32, _width(model.nn.hidden_size)))
+        return (f"a window of {steps} steps at hidden size {model.nn.hidden_size} with "
+                f"{model.nn.in_dim} features needs {need} bytes of shared memory at one window a "
+                f"block; the one-block form has {MAX_SMEM_BYTES} (the cluster-split form takes it)")
     return None
 
 
@@ -480,20 +495,25 @@ class FusedLSTMPlan(PackedLayout):
         return bytes(a)
 
 
+def plan_fields(model, optimizer, logging: LoggingLoss, *, width: int) -> Dict[str, Any]:
+    """The fields of a plan of either form for a model inside its envelope:
+    the shared ones (``fused_epoch.shared_plan_fields``, the kernel form
+    checked on probe values) and the network's sizes."""
+    net = model.nn
+    names = ["nn.wi", "nn.wh", "nn.b", "nn.head.weight", "nn.head.bias"]
+    return dict(in_dim=net.in_dim, hidden=net.hidden_size, out_dim=net.out_dim,
+                head_act=net.output_activation, width=width,
+                **shared_plan_fields(model, optimizer, logging, names))
+
+
 def plan_fused_lstm(model, optimizer, logging: LoggingLoss) -> FusedLSTMPlan:
     """Check the envelope and the kernel form (its outputs and partials on
     probe values) and lay out the model's parameters."""
     reason = fused_epoch_lstm_unsupported_reason(model, optimizer, logging)
     if reason is not None:
         raise ValueError(f"model not supported by the fused LSTM epoch kernel: {reason}")
-    net = model.nn
-    names = ["nn.wi", "nn.wh", "nn.b", "nn.head.weight", "nn.head.bias"]
-    return FusedLSTMPlan(
-        in_dim=net.in_dim, hidden=net.hidden_size, out_dim=net.out_dim,
-        head_act=net.output_activation,
-        width=next(w for w in _HIDDEN_WIDTHS if w >= net.hidden_size),
-        **shared_plan_fields(model, optimizer, logging, names),
-    )
+    return FusedLSTMPlan(**plan_fields(model, optimizer, logging,
+                                       width=_width(model.nn.hidden_size)))
 
 
 # --------------------------------------------------------------------------
@@ -733,9 +753,6 @@ def launch_args(plan: FusedLSTMPlan, packed: FusedParams, opt_state, data: Fused
     strides; raises on a window that does not fit or shapes the kernel does
     not read."""
     steps, out_steps = data.x.shape[1], data.y[0].shape[1]
-    if plan.sizes.tile_rows(steps, out_steps) is None:
-        raise ValueError(f"a window of {steps} steps at hidden size {plan.hidden} does not fit "
-                         "the fused LSTM kernel's shared memory")
     members = packed.params.dim() == 2
     k = packed.params.shape[0] if members else 1
     _check_member_shapes(plan, packed, opt_state, rows, loss, member_opt, k, members)

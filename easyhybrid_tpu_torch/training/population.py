@@ -678,7 +678,7 @@ def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensor
     device = model.device
     if use_kernel is not True and device.type != "cuda":
         return None, (f"the model is on {device.type!r}, not cuda (use_kernel=True overrides)")
-    engine = fused_engine(model)
+    engine = fused_engine(model, gate_tensors)
     if engine.epoch_path not in _MEMBER_AXES:
         return None, (f"the model goes to {engine.epoch_path}, whose member axis is not ported "
                       "yet (ROADMAP.md, queue B, item 5): the torch engine runs the population")

@@ -22,6 +22,10 @@ The epoch engine is chosen once (``TrainResults.epoch_path``):
 * ``"cuda_fused_lstm"``: the same for a hybrid over an ``LSTMNet`` trained on
   sequence windows (``sequence_kwargs``) and the LSTM kernel
   (``ops/fused_epoch_lstm.py``); one launch per block of ``eval_every`` epochs;
+* ``"cuda_fused_lstm_split"``: the same for an LSTM hybrid whose state one
+  block of that kernel cannot hold (hidden sizes past 64, or a window whose
+  checkpoints outgrow it) and kernel 4's cluster-split form
+  (``ops/fused_lstm_split.py``), by size and window alone;
 * ``"torch"``: the torch epoch (``training/epoch.py``).
 
 ``TrainResults.engine_reason`` says why, in the JAX package's wording where
@@ -229,7 +233,7 @@ def _select_engine(model, cfg: TrainConfig, logging_loss: LoggingLoss, tensors, 
                        "(use_kernel=True overrides)")
     if cfg.opt_state is not None:
         return False, "prebuilt opt_state (the fused kernel carries its own)"
-    engine = fused_engine(model)
+    engine = fused_engine(model, tensors)
     shuffle = cfg.shuffle_each_epoch
     args = (model, cfg.optimizer, logging_loss, tensors)
     reason = engine.unsupported_reason(*args, shuffle=shuffle)
@@ -382,8 +386,8 @@ def train(
     fused, reason = _select_engine(model, cfg, logging_loss, train_tensors, eval_every)
     generator = torch.Generator(device=device).manual_seed(int(cfg.random_seed))
     if fused:
-        run = _FusedRun(fused_engine(model), model, cfg, logging_loss, train_tensors, generator,
-                        eval_every)
+        run = _FusedRun(fused_engine(model, train_tensors), model, cfg, logging_loss, train_tensors,
+                        generator, eval_every)
     else:
         run = _TorchRun(model, cfg, logging_loss, train_tensors, generator, eval_every,
                         skip_empty_guard)

@@ -27,7 +27,11 @@ max(1, |ref|) of a float64 product (3xTF32 keeps about float32's accuracy;
 measured worst 4.5e-5 relative at K = 1,024 on an H100).
 
 Kernel 2 is also held on MultiNN models (a network per neural parameter,
-``BRANCH_SPECS``) and on a model with globals only.
+``BRANCH_SPECS``) and on a model with globals only. Kernel 4's cluster-split
+form (``csrc/fused_lstm_split.cu``) the same as kernel 4, after at most 4
+epochs, at hidden sizes 72 to 256 with up to 64 features; past LSTM(72) by
+sgd, since adam's first steps move a gradient element that cancels to
+rounding level by a visible share of the learning rate.
 
 The halt word: a call of each of kernels 2-5 with the word set returns its
 inputs bit for bit and a loss of 0, and with the word clear the bits of a
@@ -57,6 +61,7 @@ from easyhybrid_tpu_torch.data.sequences import split_into_sequences
 from easyhybrid_tpu_torch.ops import _build
 from easyhybrid_tpu_torch.ops import fused_epoch as fe
 from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+from easyhybrid_tpu_torch.ops import fused_lstm_split as fs
 from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.ops import fused_multisite as fm
 from easyhybrid_tpu_torch.ops import fused_wide as fw
@@ -744,9 +749,9 @@ def test_lstm_kernel_matches_plain_under_every_rule(cuda, opt):
 
 def test_lstm_tiles_follow_the_window(cuda):
     windows = []
-    for steps, rows in ((10, 64), (32, 32), (64, 16)):
+    for steps in (10, 32, 64):
         _, fn = _lstm_case(cuda, steps=steps, n=300, epochs=1)
-        assert fn.plan.sizes.tile_rows(steps, 1) == rows  # the envelope
+        assert fn.plan.sizes.fits_one_block(steps, 1, fn.plan.width)  # the envelope
         g = fn.plan.geometry(128, steps, 1)
         assert g.cluster * g.windows * g.tiles >= 128
         windows.append(g.windows)
@@ -804,6 +809,149 @@ def test_lstm_wrapper_rejects_mixed_devices(cuda):
     packed = fn.plan.pack(m)  # on the CPU, the data on the card
     with pytest.raises(ValueError, match="parameters are on cpu"):
         fn(packed, fe.init_fused_opt_state(packed), tensors)
+
+
+# --------------------------------------------------------------------------
+# kernel 4's cluster-split form: the LSTMs one block cannot hold
+# --------------------------------------------------------------------------
+
+def _split_case(device, *, hidden=72, features=2, steps=10, out_steps=1, batch=128,
+                norm="static", opt=("adam", 0.01), loss="nseLoss", agg="sum", shuffle=True,
+                epochs=2, n=600, nan_frac=0.0, mask_first=0, seed=0, cluster=0):
+    """The split form against its plain version, and a second run of it
+    against the first, bit for bit; ``features`` predictors, the example's
+    two and standard normal columns beyond them."""
+    cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
+    cols["reco"][:mask_first] = np.nan
+    rng = np.random.default_rng(seed)
+    extra = [rng.normal(size=n).astype(np.float32) for _ in range(features - 2)]
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"] + [f"p{i}" for i in range(features - 2)],
+        forcing=["ta"], targets=["reco"], mechanistic_model=et.rbq10,
+        parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": hidden},
+        scale_nn_outputs=True, input_batchnorm=norm,
+        generator=torch.Generator().manual_seed(seed))
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"], *extra], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=steps, output_window=out_steps, lead_time=0)
+    et.fit_input_norm(m, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
+    assert fe.fused_engine(m, tensors).epoch_path == "cuda_fused_lstm_split"
+    fn = et.make_fused_lstm_split_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
+    if cluster:  # another cluster than the plan's
+        fn.plan = dataclasses.replace(fn.plan, cluster=cluster)
+    perms = perms_for_epochs(shuffle, tensors, epochs,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+    packed = fn.plan.pack(m)
+    before = fs.launch_fused_lstm_split.launches
+    got = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    torch.cuda.synchronize()
+    assert fs.launch_fused_lstm_split.launches - before == 1
+    again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
+    for g, r in zip(_outputs(got), _outputs(ref)):
+        assert torch.isfinite(g).all()
+        assert bool(((g - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
+    for a, b in zip(_outputs(got), _outputs(again)):  # rank-ordered sums: the same bits
+        assert torch.equal(a, b)
+    return got, fn
+
+
+# past LSTM(72) a gradient element can cancel to rounding level over its
+# (window, step) pairs, and adam's first steps move it by a visible share of
+# the learning rate whatever its size: sgd holds those shapes by their gradient
+SGD = ("sgd", 0.05)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(epochs=4),                                                   # LSTM(72), 10 steps
+    dict(hidden=128, steps=32, n=400, opt=SGD),                       # past one block's
+    dict(hidden=256, steps=32, n=300, epochs=1, opt=SGD),             # the main path's shape
+    dict(hidden=256, features=64, steps=32, batch=33, n=120, epochs=1, opt=SGD),
+    dict(hidden=64, features=64, steps=16, n=400, opt=SGD),           # 64 features
+    dict(hidden=72, features=64, batch=1, n=30, epochs=1, loss="mse", opt=SGD),  # a window a batch
+    dict(hidden=128, features=64, batch=1000, n=1100, epochs=1, opt=SGD),  # 16 tiles
+    dict(hidden=100, steps=6, out_steps=6, norm=False, opt=("sgd", 0.001), loss="mse",
+         shuffle=False, nan_frac=0.3),
+    dict(shuffle="batches", agg="mean", out_steps=3, nan_frac=0.3, loss="mse"),
+], ids=str)
+def test_lstm_split_kernel_matches_plain_and_repeats_bitwise(cuda, kw):
+    _split_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("loss", ["mse", "mae", "rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss",
+                                  "pinball"])
+def test_lstm_split_kernel_matches_plain_under_every_loss(cuda, loss):
+    _split_case(cuda, loss=loss, out_steps=2, nan_frac=0.2, batch=64, n=300)
+
+
+@pytest.mark.parametrize("opt", RULES, ids=str)
+def test_lstm_split_kernel_matches_plain_under_every_rule(cuda, opt):
+    # lamb's leaves over the blocks' own rows and block 0's shared parameters
+    _split_case(cuda, opt=opt, loss="mse", batch=64, n=300, epochs=2)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_lstm_split_every_cluster_size_matches_plain(cuda, cluster):
+    _, fn = _split_case(cuda, hidden=72, features=3, cluster=cluster, n=300)
+    assert fn.plan.geometry(128).cluster == cluster
+
+
+def test_lstm_split_masked_batches_count_no_step(cuda):
+    got, _ = _split_case(cuda, shuffle=False, mask_first=2 * 128 + 9, n=1033, epochs=2,
+                         loss="kgeLoss")
+    assert int(got[1]["t"][0]) == 2 * (8 - 2)  # 1,024 windows in 8 batches, two without a target
+
+
+def test_lstm_split_argument_struct_matches_its_mirror(cuda):
+    lib = _build.load_library()
+    assert lib.eh_fused_lstm_split_args_size() == ctypes.sizeof(fs._SplitArgs)
+
+
+def test_lstm_split_halted_launch_changes_nothing(cuda):
+    _, fn = _split_case(cuda, epochs=1, n=300)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 72},
+        scale_nn_outputs=True, input_batchnorm="static")
+    cols = et.rbq10_columns(300, seed=0)
+    rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    data = split_into_sequences(rows, input_window=10, output_window=1)
+    et.fit_input_norm(m, data)
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, 128), cuda)
+    packed = fn.plan.pack(m)
+    opt0 = fe.init_fused_opt_state(packed)
+    perms = perms_for_epochs(fn.shuffle, tensors, fn.epochs,
+                             generator=torch.Generator(device=cuda).manual_seed(1))
+    halt = torch.ones((1,), dtype=torch.int32, device=cuda)
+    p, o, loss = fn(packed, opt0, tensors, perms=perms, halt=halt)
+    assert torch.equal(p.params, packed.params) and float(loss) == 0.0
+    assert all(torch.equal(o[k], opt0[k]) for k in opt0)
+    free = fn(packed, opt0, tensors, perms=perms, halt=torch.zeros_like(halt))
+    plain = fn(packed, opt0, tensors, perms=perms)
+    assert torch.equal(free[0].params, plain[0].params) and bool(loss == 0.0)
+
+
+def test_train_takes_the_lstm_split_kernel(cuda):
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers={"lstm": 128},
+        scale_nn_outputs=True, input_batchnorm="static",
+        generator=torch.Generator().manual_seed(0))
+    before = fs.launch_fused_lstm_split.launches
+    r = et.train(m, et.rbq10_columns(1200, seed=7), nepochs=6, eval_every=2, batchsize=128,
+                 optimizer=("adam", 0.01), training_loss="nseLoss", loss_types=["nseLoss", "mse"],
+                 show_progress=False,
+                 sequence_kwargs=dict(input_window=32, output_window=1, lead_time=0))
+    assert r.epoch_path == "cuda_fused_lstm_split" and "exactness gate passed" in r.engine_reason
+    assert fs.launch_fused_lstm_split.launches - before == 3 + 2  # three blocks + the gate's two
+    assert np.isfinite(r.val_pred_columns["reco_pred"]).all()
 
 
 # --------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from easyhybrid_tpu_torch.data.prepare import HybridData
 from easyhybrid_tpu_torch.data.sequences import split_into_sequences
 from easyhybrid_tpu_torch.ops import fused_epoch as fe
 from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
+from easyhybrid_tpu_torch.ops import fused_lstm_split as fs
 from easyhybrid_tpu_torch.ops import fused_forward as ff
 from easyhybrid_tpu_torch.training import epoch as tepoch
 from easyhybrid_tpu_torch.training.optimizers import resolve_optimizer
@@ -235,16 +236,19 @@ def test_mae_cotangent_is_zero_at_a_zero_residual():
     ({}, ("rmsprop", {"centered": True}), _ll(), "centered"),
     ({}, {"nn": ("adam", 0.01)}, _ll(), "per-branch"),
     ({}, "adam", _ll(agg=lambda xs: xs[0]), "agg"),
-    ({"hidden_layers": {"lstm": 65}}, "adam", _ll(), "cap of 64"),
+    ({"hidden_layers": {"lstm": 257}}, "adam", _ll(), "hidden size 256"),
     ({"hidden_layers": [8]}, "adam", _ll(), "not an LSTMNet"),
     ({"mechanistic_model": lambda *, ta, rb, Q10: {"reco": rb * Q10 if ta > 15.0 else rb}},
      "adam", _ll(), "no kernel form"),  # control flow on a value: the tracer refuses it
 ])
 def test_envelope_reasons(overrides, optimizer, logging, reason):
+    """Both forms of kernel 4 refuse what is outside the envelope, alike."""
     tm = et.construct_hybrid_model(**_spec(**overrides), device="cpu")
     got = fl.fused_epoch_lstm_unsupported_reason(tm, optimizer, logging)
     assert got is not None and reason in got
     assert not et.supports_fused_epoch_lstm(tm, optimizer, logging)
+    assert fs.fused_lstm_split_unsupported_reason(tm, optimizer, logging) == got
+    assert not et.supports_fused_lstm_split(tm, optimizer, logging)
 
 
 def test_the_mlp_kernels_refuse_an_lstm_by_name():
@@ -254,33 +258,50 @@ def test_the_mlp_kernels_refuse_an_lstm_by_name():
     assert not et.supports_fused_forward(tm) and not et.supports_fused_epoch(tm, "adam", _ll())
 
 
-def test_the_window_is_bounded_by_shared_memory():
-    tm = et.construct_hybrid_model(**_spec(hidden=16), device="cpu")
-    # the largest tile whose checkpoints fit beside the parameters and gradients
-    assert [fl.lstm_tile_rows(tm, t) for t in (10, 32, 64, 128, 256)] == [64, 32, 16, 8, None]
-    sizes = fl._sizes(tm)
-    for t in (10, 32, 64, 128):
-        rows = fl.lstm_tile_rows(tm, t)
-        assert sizes.smem_bytes(t, 1, rows) <= fe.MAX_SMEM_BYTES < sizes.smem_bytes(t, 1, 2 * rows)
-    # 10 steps of (x, xhat, h, c) + dz, dh, dc + one head cotangent + Q10 + the norm's gradients
-    assert sizes.res_floats(10, 1) == 10 * (2 + 2 + 16 + 16) + 6 * 16 + 1 + 1 + 4
-    *_, tm4, tt = setup(steps=6)
-    assert et.supports_fused_epoch_lstm(tm4, "adam", _ll(), tt)
-    cols = et.rbq10_columns(400, seed=1)
+def _windows(steps, batch=32, n=400):
+    cols = et.rbq10_columns(n, seed=1)
     rows = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
                       forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
-    long = tepoch.epoch_tensors_to(build_epoch_tensors(
-        split_into_sequences(rows, input_window=256, output_window=1), 32), "cpu")
-    got = fl.fused_epoch_lstm_unsupported_reason(tm, "adam", _ll(), long)
-    assert "a window of 256 steps at hidden size 16 needs" in got and "232448" in got
+    if steps is None:
+        return tepoch.epoch_tensors_to(build_epoch_tensors(rows, batch), "cpu")
+    return tepoch.epoch_tensors_to(build_epoch_tensors(
+        split_into_sequences(rows, input_window=steps, output_window=1), batch), "cpu")
+
+
+def test_the_window_is_bounded_by_shared_memory():
+    """The one-block form takes a window where its geometry fits shared memory
+    at one window a block (whatever the loss); the longest at LSTM(16) with
+    two features is 538 steps, at LSTM(64) 58 (the first kernel's tile rule stopped at
+    128 and 16). A longer one goes to the split form, which takes windows up
+    to the JAX kernel's 32 steps."""
+    tm = et.construct_hybrid_model(**_spec(hidden=16), device="cpu")
+    sizes = fl._sizes(tm)
+    assert [fl.lstm_form(tm, t) for t in (10, 32, 64, 128, 256, 538, 539)] == (
+        ["one_block"] * 6 + ["split"])
+    for t in (10, 32, 256, 538):
+        assert sizes._replace(two_pass=True).smem_floats(t, 1, 1, 16) * 4 <= fe.MAX_SMEM_BYTES
+    assert sizes._replace(two_pass=True).smem_floats(539, 1, 1, 16) * 4 > fe.MAX_SMEM_BYTES
+    # (x, a 1, xhat, its cotangent) + h, c and the four gates of a pair
+    assert sizes.pair_features() == 3 * 2 + 6 * 16 + 1
+    *_, tm4, tt = setup(steps=6)
+    assert et.supports_fused_epoch_lstm(tm4, "adam", _ll(), tt)
+    assert fl.fused_epoch_lstm_unsupported_reason(tm, "adam", _ll(), _windows(256)) is None
+    got = fl.fused_epoch_lstm_unsupported_reason(tm, "adam", _ll(), _windows(540, n=700))
+    assert "a window of 540 steps at hidden size 16" in got and "232448" in got
+    assert "cluster-split form takes it" in got
+    # past 32 steps neither form takes it: the torch engine does
+    assert "cap of 32" in fs.fused_lstm_split_unsupported_reason(tm, "adam", _ll(),
+                                                                  _windows(540, n=700))
     fn = et.make_fused_lstm_epoch(tm, "adam", _ll())
-    assert fn.plan.sizes.tile_rows(256, 1) is None and fn.plan.sizes == sizes
-    # the hidden size 64 of the caps fits with its moments in device memory
+    assert not fn.plan.sizes.fits_one_block(539, 1, fn.plan.width) and fn.plan.sizes == sizes
+    # the hidden size 64 of the caps: 32-step windows (the first kernel's rule took 16), 58 at most
     wide = et.construct_hybrid_model(**_spec(hidden=64), device="cpu")
-    assert fl.lstm_tile_rows(wide, 10) == 8 and fl.plan_fused_lstm(wide, "adam", _ll()).width == 64
+    assert [fl.lstm_form(wide, t) for t in (16, 32, 58, 59)] == ["one_block"] * 3 + ["split"]
+    assert fl.plan_fused_lstm(wide, "adam", _ll()).width == 64
     # row-shaped tensors are refused by shape
-    flat = tepoch.epoch_tensors_to(build_epoch_tensors(rows, 32), "cpu")
+    flat = _windows(None)
     assert "windowed targets" in fl.fused_epoch_lstm_unsupported_reason(tm, "adam", _ll(), flat)
+    assert "windowed targets" in fs.fused_lstm_split_unsupported_reason(tm, "adam", _ll(), flat)
 
 
 @pytest.mark.parametrize("loss,shuffle,epochs", [("mse", False, 1), ("nseLoss", True, 3),
@@ -391,7 +412,7 @@ def test_geometry_is_a_pure_function_that_covers_the_batch(hidden):
     twin = _plan(hidden)
     for batch in (1, 7, 31, 100, 128, 512, 1000, 5000):
         for steps, out_steps in ((1, 1), (10, 1), (10, 10), (64, 1)):
-            if plan.sizes.tile_rows(steps, out_steps) is None:
+            if not plan.sizes.fits_one_block(steps, out_steps, plan.width):
                 continue
             g = plan.geometry(batch, steps, out_steps)
             assert g == plan.geometry(batch, steps, out_steps) == twin.geometry(batch, steps, out_steps)
@@ -421,9 +442,10 @@ def _first_kernel_rows(sizes, steps, out_steps):
 @pytest.mark.parametrize("hidden,norm", [(h, n) for h in (1, 5, 8, 16, 17, 32, 48, 64)
                                          for n in (True, False)], ids=str)
 def test_envelope_is_unchanged_and_every_admitted_window_has_a_geometry(hidden, norm):
-    """The redesign admits and refuses exactly the windows the first kernel
-    did, over features, outputs, globals, fixed values, targets and windows,
-    and every admitted one fits shared memory at every batch size."""
+    """The envelope is the geometry now: it admits every window the first
+    kernel did (its rule frozen here), over features, outputs, globals, fixed
+    values, targets and windows, and every window it admits fits shared
+    memory at every batch size."""
     base = _plan(hidden, norm="static" if norm else False)
     width = base.width
     for f, p, g, k, t in ((1, 1, 1, 0, 1), (2, 1, 1, 0, 1), (7, 8, 16, 0, 4), (33, 4, 8, 8, 4),
@@ -435,9 +457,10 @@ def test_envelope_is_unchanged_and_every_admitted_window_has_a_geometry(hidden, 
         assert plan.width == width and plan.sizes.n_params == n_params
         for steps in (1, 2, 6, 10, 32, 64, 100, 128, 200, 256, 400, 1000):
             for out_steps in sorted({1, steps}):
-                frozen = _first_kernel_rows(plan.sizes, steps, out_steps)
-                assert plan.sizes.tile_rows(steps, out_steps) == frozen
-                if frozen is None:
+                admitted = plan.sizes.fits_one_block(steps, out_steps, width)
+                if _first_kernel_rows(plan.sizes, steps, out_steps) is not None:
+                    assert admitted
+                if not admitted:
                     continue
                 for batch in (1, 128, 512, 1000):
                     geo = plan.geometry(batch, steps, out_steps)
@@ -469,9 +492,10 @@ def test_the_example_model_is_inside_the_envelope_under_every_two_pass_loss(loss
 
 @pytest.mark.parametrize("hidden", [1, 8, 16, 17, 32, 64])
 def test_every_window_a_two_pass_loss_admits_has_a_geometry(hidden):
-    """The two-pass losses' envelope counts their kept predictions and
-    moments: it admits no window the one-pass envelope refuses, and every
-    window it admits fits shared memory at every batch size."""
+    """The envelope counts the two-pass losses' kept predictions and moments
+    whatever the loss, so one form takes a model and window under every
+    loss: every window it admits fits shared memory at every batch size
+    under a two-pass loss, and the one-pass losses admit the same windows."""
     base = _plan(hidden, loss="kgeLoss")
     one = _plan(hidden, loss="nseLoss")
     for f, p, g, k, t in ((2, 1, 1, 0, 1), (7, 8, 16, 0, 4), (64, 8, 0, 2, 2)):
@@ -482,10 +506,10 @@ def test_every_window_a_two_pass_loss_admits_has_a_geometry(hidden):
         ref = dataclasses.replace(one, **fields)
         for steps in (1, 6, 10, 32, 64, 128, 256):
             for out_steps in sorted({1, steps}):
-                rows = plan.sizes.tile_rows(steps, out_steps)
-                if rows is None:
+                admitted = plan.sizes.fits_one_block(steps, out_steps, plan.width)
+                assert admitted == ref.sizes.fits_one_block(steps, out_steps, ref.width)
+                if not admitted:
                     continue
-                assert ref.sizes.tile_rows(steps, out_steps) is not None
                 for batch in (1, 128, 1000):
                     geo = plan.geometry(batch, steps, out_steps)
                     assert plan.sizes.smem_floats(steps, out_steps, geo.windows,

@@ -131,10 +131,8 @@ def use(lib):
 
 def geometry_of(fn, tensors):
     nb, batch = (int(v) for v in tensors.weight.shape)
-    if hasattr(fn.plan, "geometry"):
-        return fn.plan.geometry(batch, int(tensors.x.shape[2]), int(next(iter(
-            tensors.y.values())).shape[2]))
-    return f"one block, tile {fn.plan.sizes.tile_rows(int(tensors.x.shape[2]), 1)}"
+    return fn.plan.geometry(batch, int(tensors.x.shape[2]), int(next(iter(
+        tensors.y.values())).shape[2]))
 
 
 def check(tag, what, fn, p0, tensors, perms):
