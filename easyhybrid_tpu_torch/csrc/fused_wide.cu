@@ -1,26 +1,42 @@
 // Fused training epochs of a wide MLP hybrid for Hopper, sm_90a.
 //
-// Replaces the batch-chunked variant of the Pallas TPU kernel built by
-// make_fused_epoch in easyhybrid_tpu/ops/fused_epoch.py: kernel_body_elem
-// (:1541), chosen at :2374 when _pick_batch_chunks (:409) gives more than one
-// chunk (the tower [1024, 512, 256, 128, 64] at batch 1,024); pallas_call at
-// :2662. There each batch rides several grid steps at chunk width, the chunks'
-// gradients are summed in carried tiles and the update is applied at the last
-// chunk. The function, without the TPU's chunking: per optimizer step, the
-// whole-batch gradient of the masked elementwise loss (mse, mae or a traced
-// elementwise loss: the chunkable losses, eh_device.cuh's loss layer) of a
-// static-norm MLP hybrid, summed in a fixed order, then one gated update of
-// every parameter. One call of the launcher enqueues every step of
-// n_epochs x n_batches batches on one stream; the host never waits between
+// Replaces the Pallas TPU kernel built by make_fused_epoch in
+// easyhybrid_tpu/ops/fused_epoch.py (pallas_call at :2662) on an MLP hybrid
+// too wide for one block: its batch-chunked variant kernel_body_elem (:1541),
+// chosen at :2374 when _pick_batch_chunks (:409) gives more than one chunk
+// (the tower [1024, 512, 256, 128, 64] at batch 1,024), and its unchunked
+// kernel_body (:1268) on such a tower (batch 64, the reference's GPU
+// tutorial), which also takes a trainable input BatchNorm (forward_mlp, :716)
+// and the losses whose cotangents need the whole batch's predictions (rmse
+// and the statistic losses, :1414-1450). There each batch rides one grid
+// step, or several at chunk width with the chunks' gradients summed in
+// carried tiles. The function, without the TPU's chunking: per optimizer
+// step, the whole-batch gradient of the masked loss (any of eh_device.cuh's
+// loss layer) of an MLP hybrid with no, a static or a trainable input norm,
+// summed in a fixed order, then one gated update of every parameter and of
+// the norm's running statistics. One call of the launcher enqueues every step
+// of n_epochs x n_batches batches on one stream; the host never waits between
 // steps. Each step:
+//   0. under a trainable norm, eh_wide_norm_stats_kernel: every feature's
+//      mean and biased variance over the whole gathered batch (padding rows
+//      included, as forward_mlp takes them), and the running statistics' EMA,
+//      gated by the batch's validity like the update;
 //   1. eh_wide_gather_kernel: the batch's rows through the row index
-//      perm[e][b * batch + r], the static input norm and its scale and bias;
+//      perm[e][b * batch + r], the input norm (static, or the batch's
+//      statistics) and its scale and bias;
 //   2. per layer forward, A = act(H W^T + b), with act'(z) kept beside it;
 //   3. eh_wide_head_kernel, one thread per row: sigmoid bound scaling, the
 //      mechanistic model in its kernel form with its partials, the masked loss
 //      and its cotangent with the batch-wide scale computed by the caller, the
 //      last layer's pre-activation cotangent, and per-block sums of the loss
-//      and of every global's gradient;
+//      and of every global's gradient. rmse and the statistic losses run it
+//      twice: phase 0 keeps the predictions and each block's first moment
+//      (sum of (pred - y)^2 m for rmse, of pred m for the others);
+//      eh_wide_moments_kernel (the statistic losses) adds those in block order
+//      into the batch's mean prediction and takes each block's centred sums of
+//      dh^2 and dh dy; phase 1 adds every block's sums in block order, takes
+//      the loss value and the partials of g (ehe_stat_loss) and the rows'
+//      cotangents from them;
 //   4. per layer backwards, the weight gradient (dW = dZ^T H and db = sum dZ,
 //      the batch split among blocks, each split leaving its own partial tile)
 //      and the data gradient (dZ_prev = (dZ W) * act'_prev, in place);
@@ -105,7 +121,7 @@ struct EhFusedWideArgs {
   float* m;                              // first moments, like params, in place
   float* v;                              // second moments, like params, in place
   float* u;                              // amsgrad's third slot, like params (else unused)
-  const float* bn;                       // static norm mean, var (2 dims[0])
+  float* bn;                             // running mean, var (2 dims[0]); a trainable norm's in place
   const float* consts;                   // neural lo, span; global lo, span; fixed
   float* ws;                             // one step's activations (ws_off_*)
   float* partials;                       // weight-gradient partial tiles (part_off*)
@@ -129,7 +145,7 @@ struct EhFusedWideArgs {
   int n_layers;
   int dims[EH_MAX_LAYERS + 1];
   int acts[EH_MAX_LAYERS];
-  int norm_mode;                         // 0 none, 1 static
+  int norm_mode;                         // NORM_NONE, NORM_STATIC, NORM_TRAIN
   float norm_eps;
   int n_params;
   int p_off_w[EH_MAX_LAYERS];
@@ -145,7 +161,7 @@ struct EhFusedWideArgs {
   float arg_const[EH_MAX_ARGS];
   int n_targets;
   int target_out[EH_MAX_TARGETS];
-  int loss_kind;                         // LOSS_* (eh_device.cuh): squared, absolute, traced
+  int loss_kind;                         // LOSS_* (eh_device.cuh)
   EhOptimizer optimizer;                 // the rule and its hyperparameters
   int splits[EH_MAX_LAYERS];             // batch splits of layer l's weight gradient
   int split_rows[EH_MAX_LAYERS];         // rows of one split, a multiple of its product's depth
@@ -164,6 +180,13 @@ struct EhFusedWideArgs {
   int wgt_bm[EH_MAX_LAYERS];             // layer l's weight gradient: tile rows (of dout)
   int wgt_bn[EH_MAX_LAYERS];             //   tile columns (of din); its batch splits above
   const int* halt;                       // the halt word (eh_halted), or null
+  const float* tmom;                     // rmse, the statistic losses: (n_epochs, n_batches,
+                                         //   n_targets, 3) max(sum m, 1), target mean, SST
+  int64_t ws_off_stats;                  // NORM_TRAIN: (2 dims[0]) the batch's mean, variance
+  int64_t ws_off_pred;                   // two-pass losses: (n_targets, batch) predictions
+  int64_t ws_off_mom;                    //   (head_blocks, n_targets, 3) each block's moments
+  float momentum;                        // the running statistics' EMA weight of the batch's
+  float one_minus_momentum;
 };
 // Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm); per
 // layer W (dout x din, row-major) at p_off_w[l], then b (dout) at p_off_b[l];
@@ -761,8 +784,61 @@ static cudaError_t ehw_fma_run(bool forward, const EhwProduct& p, int splits, cu
 // the step's other kernels
 // ---------------------------------------------------------------------------
 
-// The batch's rows through the row index, normed: one thread per (row,
-// feature); also feature-major where layer 0 is on the tensor cores.
+// The sum over a block of EHW_HEAD_THREADS threads of each thread's v,
+// pairwise in a fixed order; every thread gets it. Every thread must call it.
+__device__ __forceinline__ float ehw_block_sum(float* red, float v) {
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+  for (int s = EHW_HEAD_THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+// A trainable norm's statistics of the step's batch, block k for feature k:
+// the mean and the biased variance about it over every row of the gathered
+// batch, padding rows included (forward_mlp's bn_train branch,
+// easyhybrid_tpu/ops/fused_epoch.py:720-745), each a pass over the rows in a
+// fixed order (a thread's rows in order, then a pairwise tree), into
+// ws_off_stats; and the running statistics' EMA with the norm's momentum
+// where the batch holds a valid target (the update's gate; kernel 2's EMA,
+// csrc/fused_epoch.cu). Bound by its reads: 2 batch x F floats a step
+// through the row index, at batch 64 and F = 2 a few microseconds of launch.
+__global__ void __launch_bounds__(EHW_HEAD_THREADS)
+eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
+  if (eh_halted(a.halt)) return;
+  __shared__ float red[EHW_HEAD_THREADS];
+  const int F = a.dims[0];
+  const int B = a.batch;
+  const int k = blockIdx.x;
+  const int* idx = a.perm + (int64_t)step * B;
+  float sum = 0.0f;
+  for (int r = threadIdx.x; r < B; r += EHW_HEAD_THREADS) sum += a.x[(int64_t)idx[r] * F + k];
+  const float mean = ehw_block_sum(red, sum) / (float)B;
+  float dev = 0.0f;
+  for (int r = threadIdx.x; r < B; r += EHW_HEAD_THREADS) {
+    const float d = a.x[(int64_t)idx[r] * F + k] - mean;
+    dev += d * d;
+  }
+  const float var = ehw_block_sum(red, dev) / (float)B;
+  if (threadIdx.x == 0) {
+    a.ws[a.ws_off_stats + k] = mean;
+    a.ws[a.ws_off_stats + F + k] = var;
+    if (a.valid[step] > 0.0f) {  // the running statistics' EMA, gated like the update
+      a.bn[k] = a.one_minus_momentum * a.bn[k] + a.momentum * mean;
+      a.bn[F + k] = a.one_minus_momentum * a.bn[F + k] + a.momentum * var;
+    }
+  }
+}
+
+// The batch's rows through the row index, normed (by the running statistics
+// of a static norm, or by the batch's own, eh_wide_norm_stats_kernel): one
+// thread per (row, feature); also feature-major where layer 0 is on the
+// tensor cores.
 __global__ void __launch_bounds__(256)
 eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (eh_halted(a.halt)) return;
@@ -774,7 +850,8 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   const int64_t row = a.perm[(int64_t)step * a.batch + r];
   float h = a.x[row * F + k];
   if (a.norm_mode != NORM_NONE) {
-    const float xh = (h - a.bn[k]) * rsqrtf(a.bn[F + k] + a.norm_eps);
+    const float* st = a.norm_mode == NORM_TRAIN ? a.ws + a.ws_off_stats : a.bn;
+    const float xh = (h - st[k]) * rsqrtf(st[F + k] + a.norm_eps);
     a.ws[a.ws_off_xhat + e] = xh;
     h = xh * a.params[k] + a.params[F + k];
   }
@@ -782,24 +859,144 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (a.tc[0]) a.ws[a.ws_off_ht[0] + (int64_t)k * a.batch + r] = h;
 }
 
+// The kernel form's arguments of batch row `row` (its raw network outputs
+// `raw`) and the form's outputs and partials.
+__device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, int64_t row,
+                                              const float* raw, float (&out)[EH_MAX_OUT],
+                                              float (&pd)[EH_MAX_OUT][EH_MAX_ARGS]) {
+  const int P = a.dims[a.n_layers];
+  const int G = a.n_globals;
+  const float* nlo = a.consts;
+  const float* nspan = a.consts + P;
+  const float* glo = a.consts + 2 * P;
+  const float* gspan = a.consts + 2 * P + G;
+  const float* fixed = a.consts + 2 * P + 2 * G;
+  float av[EH_MAX_ARGS];
+#pragma unroll
+  for (int i = 0; i < EH_MAX_ARGS; ++i) {
+    float val = 0.0f;
+    if (i < a.n_args) {
+      const int id = a.arg_idx[i];
+      switch (a.arg_src[i]) {
+        case SRC_FORCING: {
+          const float* col = a.forcing[0];
+#pragma unroll
+          for (int f = 1; f < EH_MAX_FORCING; ++f) col = (f == id) ? a.forcing[f] : col;
+          val = col[row];
+          break;
+        }
+        case SRC_NEURAL:
+          val = raw[id];
+          if (a.scale_nn_outputs) val = nlo[id] + nspan[id] * ehe_sigmoid(val);
+          break;
+        case SRC_SCALAR:
+          val = id < G ? glo[id] + gspan[id] * ehe_sigmoid(a.params[a.p_off_g + id])
+                       : fixed[id - G];
+          break;
+        default: val = a.arg_const[i]; break;
+      }
+    }
+    av[i] = val;
+  }
+  ehe_form(a.form, av, out, pd);
+}
+
+__host__ __device__ __forceinline__ bool ehw_two_pass(int kind) {
+  return kind == LOSS_RMSE || ehe_loss_is_stat(kind);
+}
+
 // One thread per row: from the raw network outputs to the last layer's
 // pre-activation cotangent, and the block's sums of the loss and of the
-// globals' gradients.
+// globals' gradients (phase 1; kernel_body's head, fused_epoch.py:1380-1470,
+// its cotangent the chunked kernel's as well). TWO_PASS, the build rmse and
+// the statistic losses take (ehw_two_pass), first runs phase 0: each row's
+// prediction per target into ws_off_pred, and the block's sum of
+// (pred - y)^2 m (rmse) or pred m (the others) into its row of ws_off_mom;
+// its phase 1 then adds every block's moments in block order (the same bits
+// in every block) into the coefficients of ehe_loss_row, and block 0 adds
+// the batch's loss value, agg g or agg r a target. The other losses take the
+// build without those paths, the parent's code. Bound by launch latency: a
+// few floats a row.
+template <bool TWO_PASS>
 __global__ void __launch_bounds__(EHW_HEAD_THREADS)
-eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
+eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int phase) {
   if (eh_halted(a.halt)) return;
   __shared__ float red[EHW_HEAD_THREADS];
+  __shared__ float lc[8 * EH_MAX_TARGETS];  // two-pass losses: each target's coefficients
+  __shared__ float lv[EH_MAX_TARGETS];      //   and its loss value
   const int tid = threadIdx.x;
   const int r = blockIdx.x * EHW_HEAD_THREADS + tid;
   const int L = a.n_layers;
   const int P = a.dims[L];
   const int G = a.n_globals;
   const int T = a.n_targets;
-  const float* nlo = a.consts;
+  const int LK = a.loss_kind;
   const float* nspan = a.consts + P;
-  const float* glo = a.consts + 2 * P;
-  const float* gspan = a.consts + 2 * P + G;
-  const float* fixed = a.consts + 2 * P + 2 * G;
+  float* mom = a.ws + a.ws_off_mom;
+
+  if (TWO_PASS && phase == 0) {  // the predictions and the first moments
+    float acc[EH_MAX_TARGETS];
+#pragma unroll
+    for (int j = 0; j < EH_MAX_TARGETS; ++j) acc[j] = 0.0f;
+    if (r < a.batch) {
+      const int64_t row = a.perm[(int64_t)step * a.batch + r];
+      float out[EH_MAX_OUT];
+      float pd[EH_MAX_OUT][EH_MAX_ARGS];
+      ehw_head_form(a, row, a.ws + a.ws_off_a[L - 1] + (int64_t)r * P, out, pd);
+#pragma unroll
+      for (int j = 0; j < EH_MAX_TARGETS; ++j) {
+        if (j < T) {
+          const bool on = a.mask[j][row] > 0.0f;
+          const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
+          a.ws[a.ws_off_pred + (int64_t)j * a.batch + r] = pred;
+          const float diff = on ? pred - a.y[j][row] : 0.0f;
+          acc[j] = LK == LOSS_RMSE ? diff * diff : (on ? pred : 0.0f);
+        }
+      }
+    }
+    for (int j = 0; j < T; ++j) {
+      const float v = ehw_block_sum(red, ehe_pick<EH_MAX_TARGETS>(acc, j));
+      if (tid == 0) mom[((int64_t)blockIdx.x * T + j) * 3] = v;
+    }
+    return;
+  }
+
+  if (TWO_PASS) {  // every block's moments, in block order, into each target's coefficients
+    if (tid < T) {
+      const int j = tid;
+      const float* tm = a.tmom + ((int64_t)step * T + j) * 3;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+      for (int b = 0; b < a.head_blocks; ++b) {
+        const float* q = mom + ((int64_t)b * T + j) * 3;
+        s0 += q[0];
+        s1 += q[1];
+        s2 += q[2];
+      }
+      const float agg = a.scale[(int64_t)step * T + j];
+      const float n = tm[0];
+      float* c = lc + 8 * j;
+      c[0] = agg;
+      c[1] = 0.0f;
+      c[2] = n;
+      c[3] = c[5] = c[6] = c[7] = 0.0f;
+      c[4] = tm[1];
+      if (LK == LOSS_RMSE) {
+        const float rr = sqrtf(s0 / n);
+        c[1] = agg / (n * ehe_max_nan(rr, 1e-30f));
+        lv[j] = agg * rr;
+      } else {
+        const float mh = s0 / n;
+        float d[3];
+        const float g = ehe_stat_loss(LK, mh, s1, s2, tm[2], tm[1], n, d);
+        c[3] = mh;
+        c[5] = d[0];
+        c[6] = 2.0f * d[1];
+        c[7] = d[2];
+        lv[j] = agg * g;
+      }
+    }
+    __syncthreads();
+  }
 
   float term = 0.0f;
   float gg[EH_MAX_SCALARS];
@@ -810,37 +1007,9 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
     const int64_t row = a.perm[(int64_t)step * a.batch + r];
     const float* raw = a.ws + a.ws_off_a[L - 1] + (int64_t)r * P;
     float* dl = a.ws + a.ws_off_d[L - 1] + (int64_t)r * P;
-
-    float av[EH_MAX_ARGS];
-#pragma unroll
-    for (int i = 0; i < EH_MAX_ARGS; ++i) {
-      float val = 0.0f;
-      if (i < a.n_args) {
-        const int id = a.arg_idx[i];
-        switch (a.arg_src[i]) {
-          case SRC_FORCING: {
-            const float* col = a.forcing[0];
-#pragma unroll
-            for (int f = 1; f < EH_MAX_FORCING; ++f) col = (f == id) ? a.forcing[f] : col;
-            val = col[row];
-            break;
-          }
-          case SRC_NEURAL:
-            val = raw[id];
-            if (a.scale_nn_outputs) val = nlo[id] + nspan[id] * ehe_sigmoid(val);
-            break;
-          case SRC_SCALAR:
-            val = id < G ? glo[id] + gspan[id] * ehe_sigmoid(a.params[a.p_off_g + id])
-                         : fixed[id - G];
-            break;
-          default: val = a.arg_const[i]; break;
-        }
-      }
-      av[i] = val;
-    }
     float out[EH_MAX_OUT];
     float pd[EH_MAX_OUT][EH_MAX_ARGS];
-    ehe_form(a.form, av, out, pd);
+    ehw_head_form(a, row, raw, out, pd);
 
     // masked loss and its cotangent; the mask selects, so a NaN target that
     // the caller did not zero cannot reach the sums
@@ -854,10 +1023,22 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
         const float yv = a.y[j][row];
         const float diff = on ? pred - yv : 0.0f;
         EhLossCoef c = {};
-        c.c0 = a.scale[(int64_t)step * T + j];
-        c.c1 = 2.0f * c.c0;
-        term += ehe_loss_row<false>(a.loss_kind, c, on ? pred : 0.0f, on ? yv : 0.0f, on ? 1.0f : 0.0f,
-                             diff, cot[j]);
+        if (TWO_PASS) {
+          const float* q = lc + 8 * j;
+          c.c0 = q[0];
+          c.c1 = q[1];
+          c.n = q[2];
+          c.mu_h = q[3];
+          c.mu_y = q[4];
+          c.k_mu = q[5];
+          c.k_h = q[6];
+          c.k_c = q[7];
+        } else {
+          c.c0 = a.scale[(int64_t)step * T + j];
+          c.c1 = 2.0f * c.c0;
+        }
+        term += ehe_loss_row<TWO_PASS>(LK, c, on ? pred : 0.0f, on ? yv : 0.0f, on ? 1.0f : 0.0f,
+                                       diff, cot[j]);
       }
     }
 
@@ -908,17 +1089,56 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
       if (dt) dt[(int64_t)j * a.batch + r] = dl[j];
     }
   }
+  if (TWO_PASS && blockIdx.x == 0 && tid == 0)  // the batch's loss value, a target at a time
+    for (int j = 0; j < T; ++j) term += lv[j];
 
   // the block's sums, pairwise in a fixed order
   for (int q = 0; q <= G; ++q) {
-    red[tid] = q == 0 ? term : ehe_pick<EH_MAX_SCALARS>(gg, q - 1);
-    __syncthreads();
-    for (int s = EHW_HEAD_THREADS / 2; s > 0; s >>= 1) {
-      if (tid < s) red[tid] += red[tid + s];
-      __syncthreads();
+    const float v = ehw_block_sum(red, q == 0 ? term : ehe_pick<EH_MAX_SCALARS>(gg, q - 1));
+    if (tid == 0) a.head_partials[(int64_t)blockIdx.x * (1 + G) + q] = v;
+  }
+}
+
+// The statistic losses' second moments (kernel_body's centred sums,
+// fused_epoch.py:1414-1450), one thread per row: every block adds the
+// blocks' sums of pred m in block order into the batch's mean prediction
+// mu_h = sum / n (the same bits in every block), then takes its rows' dh =
+// (pred m - mu_h) m and dy = (y - mean y) m and writes the block's sums of
+// dh^2 and dh dy, pairwise in a fixed order, beside its first moment. Bound
+// by launch latency: three floats a row.
+__global__ void __launch_bounds__(EHW_HEAD_THREADS)
+eh_wide_moments_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
+  if (eh_halted(a.halt)) return;
+  __shared__ float red[EHW_HEAD_THREADS];
+  __shared__ float mu[EH_MAX_TARGETS];
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x * EHW_HEAD_THREADS + tid;
+  const int T = a.n_targets;
+  float* mom = a.ws + a.ws_off_mom;
+  if (tid < T) {
+    float s0 = 0.0f;
+    for (int b = 0; b < a.head_blocks; ++b) s0 += mom[((int64_t)b * T + tid) * 3];
+    mu[tid] = s0 / a.tmom[((int64_t)step * T + tid) * 3];
+  }
+  __syncthreads();
+  const int64_t row = r < a.batch ? a.perm[(int64_t)step * a.batch + r] : -1;
+  for (int j = 0; j < T; ++j) {
+    float dh = 0.0f, dy = 0.0f;
+    if (row >= 0) {
+      const bool on = a.mask[j][row] > 0.0f;
+      const float m = on ? 1.0f : 0.0f;
+      const float pred = on ? a.ws[a.ws_off_pred + (int64_t)j * a.batch + r] : 0.0f;
+      const float yv = on ? a.y[j][row] : 0.0f;
+      dh = (pred * m - mu[j]) * m;
+      dy = (yv - a.tmom[((int64_t)step * T + j) * 3 + 1]) * m;
     }
-    if (tid == 0) a.head_partials[(int64_t)blockIdx.x * (1 + G) + q] = red[0];
-    __syncthreads();
+    const float shh = ehw_block_sum(red, dh * dh);
+    const float chy = ehw_block_sum(red, dh * dy);
+    if (tid == 0) {
+      float* q = mom + ((int64_t)blockIdx.x * T + j) * 3;
+      q[1] = shh;
+      q[2] = chy;
+    }
   }
 }
 
@@ -1197,10 +1417,11 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   if (a.n_epochs <= 0 || a.n_batches <= 0) return 0;
   const int L = a.n_layers;
   if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS ||
-      !eh_form_built(a.form) || a.n_targets < 1 || !eh_loss_chunkable(a.loss_kind) ||
+      !eh_form_built(a.form) || a.n_targets < 1 || !eh_loss_built(a.loss_kind) ||
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
       a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
-      a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1))
+      a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1) ||
+      a.norm_mode < NORM_NONE || a.norm_mode > NORM_TRAIN || (ehw_two_pass(a.loss_kind) && !a.tmom))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l <= L; ++l)
     if (a.dims[l] < 1 || a.dims[l] > EH_WIDE_MAX_WIDTH) return (int)cudaErrorInvalidValue;
@@ -1231,7 +1452,10 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
     EHW_TRY(cudaGetLastError());
   }
   const int steps = a.n_epochs * a.n_batches;
+  const bool two_pass = ehw_two_pass(a.loss_kind);
   for (int step = 0; step < steps; ++step) {
+    if (a.norm_mode == NORM_TRAIN)
+      eh_wide_norm_stats_kernel<<<F, EHW_HEAD_THREADS, 0, s>>>(a, step);
     eh_wide_gather_kernel<<<gather_blocks, 256, 0, s>>>(a, step);
     EHW_TRY(cudaGetLastError());
     for (int l = 0; l < L; ++l) {  // A = act(H W^T + b), and H^T of the next layer where it takes it
@@ -1255,7 +1479,14 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       EHW_TRY(a.tc[l] ? eht_run(a.fwd_bm[l], p, a.fwd_splits[l], s)
                       : ehw_fma_run(true, p, a.fwd_splits[l], s));
     }
-    eh_wide_head_kernel<<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step);
+    if (two_pass) {  // the batch's prediction moments first
+      eh_wide_head_kernel<true><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 0);
+      if (ehe_loss_is_stat(a.loss_kind))
+        eh_wide_moments_kernel<<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step);
+      eh_wide_head_kernel<true><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
+    } else {
+      eh_wide_head_kernel<false><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
+    }
     EHW_TRY(cudaGetLastError());
     for (int l = L - 1; l >= 0; --l) {
       const int din = a.dims[l];

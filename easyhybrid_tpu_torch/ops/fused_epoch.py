@@ -1950,8 +1950,9 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     **Phase A (gradient content):** both run plain SGD at lr 1e-3 over the
     first ``n_batches`` batches without shuffling, with TF32 off; the
     implied per-leaf gradients ``(p0 - p) / lr`` must agree within ``tol``
-    under per-leaf normalisation ``max |Δg| / max(|g_leaf|, 3%·g_max, 1e-6)``
-    and the epoch losses within 1%.
+    under per-leaf normalisation ``max |Δg| / max(|g_leaf|, 3%·g_max, 1e-6)``,
+    the epoch losses within 1%, and a trainable norm's running statistics
+    within ``tol`` of their largest magnitude.
 
     **Phase B (the production variant):** the real optimizer, shuffle mode
     and up to 4 epochs per call on the same batches, with the same injected
@@ -1973,16 +1974,16 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
         opt = resolve_optimizer(spec)
         fn = make_train_epoch(twin, logging, opt, shuffle=sh, epochs_per_call=epochs)
         _, loss = fn(opt.init(dict(twin.named_parameters())), sub, perm=perms)
-        return plan.pack(twin).params, loss
+        return plan.pack(twin), loss
 
     def fused_run(spec, sh, epochs, perms):
         fn = make_epoch(model, spec, logging, shuffle=sh, epochs_per_call=epochs)
         packed, _, loss = fn(p0, init_fused_opt_state(p0, spec), sub, perms=perms)
-        return packed.params, loss
+        return packed, loss
 
     with _full_precision():
-        p_f, loss_f = fused_run(("sgd", lr), False, 1, None)
-        p_x, loss_x = torch_run(("sgd", lr), False, 1, None)
+        (p_f, bn_f), loss_f = fused_run(("sgd", lr), False, 1, None)
+        (p_x, bn_x), loss_x = torch_run(("sgd", lr), False, 1, None)
     g_leaf = {k: float((a - b).abs().max()) / lr
               for (k, a), b in zip(plan.leaves(p0.params).items(), plan.leaves(p_x).values())}
     gmax = max([1e-6, *g_leaf.values()])
@@ -1991,6 +1992,8 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
         d = float((a - b).abs().max()) / lr
         rel = max(rel, d / max(g_leaf[k], 0.03 * gmax, 1e-6))
     loss_rel = abs(float(loss_f) - float(loss_x)) / (abs(float(loss_x)) + 1e-6)
+    bn_rel = (float((bn_f - bn_x).abs().max()) / max(float(bn_x.abs().max()), 1e-6)
+              if bn_x.numel() else 0.0)
 
     name, hyper = parse_opt_spec(optimizer)
     e_gate = max(1, min(int(epochs_per_call), 4))
@@ -1998,8 +2001,8 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
     if name != "sgd" or hyper["momentum"] != 0.0 or e_gate > 1 or shuffle is not False:
         gen = torch.Generator(device=sub.weight.device).manual_seed(0)
         perms = perms_for_epochs(shuffle, sub, e_gate, generator=gen)
-        pp_f, pl_f = fused_run(optimizer, shuffle, e_gate, perms)
-        pp_x, pl_x = torch_run(optimizer, shuffle, e_gate, perms)
+        (pp_f, _), pl_f = fused_run(optimizer, shuffle, e_gate, perms)
+        (pp_x, _), pl_x = torch_run(optimizer, shuffle, e_gate, perms)
         prod_lr = hyper.get("learning_rate", lr)
         for a, b in zip(plan.leaves(pp_f).values(), plan.leaves(pp_x).values()):
             if a.numel() <= 4:
@@ -2007,6 +2010,7 @@ def fused_exactness_check(model, optimizer, logging: LoggingLoss, tensors: Epoch
             frac_bad = max(frac_bad, float(((a - b).abs() > 0.5 * prod_lr).float().mean()))
         ploss_rel = abs(float(pl_f) - float(pl_x)) / (abs(float(pl_x)) + 1e-6)
     ok = (math.isfinite(rel) and rel < tol and loss_rel < 1e-2
+          and math.isfinite(bn_rel) and bn_rel < tol
           and math.isfinite(frac_bad) and frac_bad <= 0.5
           and math.isfinite(ploss_rel) and ploss_rel < 0.2)
-    return bool(ok), max(rel, loss_rel, ploss_rel)
+    return bool(ok), max(rel, loss_rel, bn_rel, ploss_rel)

@@ -1,20 +1,28 @@
 """Fused training epochs of a wide MLP hybrid: hand-written CUDA kernels for
 Hopper (kernel 3).
 
-Counterpart of the batch-chunked half of ``easyhybrid_tpu/ops/fused_epoch.py``
+Counterpart of the fused epoch of ``easyhybrid_tpu/ops/fused_epoch.py`` for
+an MLP hybrid too wide for one block: its batch-chunked half
 (``kernel_body_elem``, chosen by ``_pick_batch_chunks`` for the tower
-[1024, 512, 256, 128, 64] at batch 1,024). What that kernel computes, with the
-TPU's chunking stripped: per optimizer step, the whole-batch gradient of the
-masked elementwise loss (mse, mae or a traced ElementwiseLoss) of a static-norm MLP hybrid, summed in a
-fixed order over batch tiles, then one gated update of every parameter.
+[1024, 512, 256, 128, 64] at batch 1,024) and its unchunked ``kernel_body``
+on such a tower (batch 64: the reference's GPU tutorial). What those kernels
+compute, with the TPU's chunking stripped: per optimizer step, the
+whole-batch gradient of the masked loss (mse, mae, a traced ElementwiseLoss,
+nseLoss, rmse, pearsonLoss, kgeLoss or pbkgeLoss) of an MLP hybrid with no,
+a static or a trainable input norm, summed in a fixed order over batch
+tiles, then one gated update of every parameter and of the norm's running
+statistics.
 
 A model this wide does not fit one block's shared memory, so parameters,
 moments and the activations live in device memory, and one call of the
 launcher of ``csrc/fused_wide.cu`` enqueues every step's kernels of
 ``epochs_per_call`` epochs × ``num_batches`` batches on the stream with no
-host synchronisation in between: the row gather with the input norm, a tiled
-product per layer forward, a head kernel (bound scaling, the mechanistic
-model in its kernel form, the loss and its cotangent), two tiled products per
+host synchronisation in between: under a trainable norm the batch's
+statistics and the running statistics' EMA, the row gather with the input
+norm, a tiled product per layer forward, a head kernel (bound scaling, the
+mechanistic model in its kernel form, the loss and its cotangent; rmse and
+the statistic losses first take the batch's prediction moments in passes of
+their own), two tiled products per
 layer backward, and the optimizer update, which also folds the partial sums
 the others left. The layer products are the kernels' own; no library product
 is on the path. A layer whose two sides are both at least ``_TC_MIN`` wide
@@ -27,8 +35,10 @@ from the widths and the batch alone; the launcher checks what it is given.
 
 The packed layout is kernel 2's (:class:`~.fused_epoch.PackedLayout`): norm
 scale and bias, each layer's ``W`` and ``b``, the raw globals. As in the JAX
-package the masked ``1/n`` of each target and the batch's validity flag span
-the whole batch and are made before the launch (:func:`batch_scales`), with
+package the masked ``1/n`` of each target (nseLoss: ``1 / max(SST, 1e-12)``),
+the batch's validity flag and, for the statistic losses, each target's count,
+mean and SST depend on the targets alone; they span the whole batch and are
+made before the launch (:func:`batch_scales`, :func:`target_moments`), with
 the step count after each step.
 
 :func:`fused_wide_reference` is the same algorithm in plain PyTorch. On CPU
@@ -49,13 +59,18 @@ from ..losses.specs import LoggingLoss
 from ..models.hybrid import MultiNNHybridModel
 from . import _build
 from .fused_epoch import (
+    _EPS,
+    _NORM_TRAIN,
+    FUSED_LOSSES,
     MAX_TARGETS,
+    TWO_PASS_LOSSES,
     FusedData,
     FusedEpoch,
     FusedParams,
     LOSS_KINDS,
     PackedLayout,
     _Optimizer,
+    _loss_name,
     _reference_update,
     check_halt,
     obey_halt,
@@ -87,13 +102,14 @@ __all__ = [
     "launch_fused_wide",
     "make_fused_wide_epoch",
     "supports_fused_wide",
+    "target_moments",
     "wide_geometry",
     "wide_layout",
 ]
 
 # caps of the kernels; MAX_WIDE_WIDTH must equal EH_WIDE_MAX_WIDTH of the source
 MAX_WIDE_WIDTH = 4096
-WIDE_LOSSES = ("mse", "mae")  # and any ElementwiseLoss the tracer expresses
+WIDE_LOSSES = FUSED_LOSSES  # and any ElementwiseLoss the tracer expresses
 #: the share of the card's memory the activations and the partial sums may take
 WORKSPACE_SHARE = 0.25
 _TILE = 64            # the FMA products' output tile, EHW_TILE of the source
@@ -220,7 +236,11 @@ class WideLayout:
     cotangent feature-major (``ws_ht``, ``ws_dt``) and its ``W`` transposed
     (``ws_wt``; 0 for an FMA layer). The forward and data products' pieces
     sum their tiles in shared memory (a thread-block cluster) and need no
-    room here."""
+    room here. After those: a trainable norm's batch mean and variance
+    (``ws_stats``, ``2 F`` floats), and for rmse and the statistic losses the
+    predictions (``ws_pred``, ``T × batch``, target-major) and each head
+    block's partial moments (``ws_mom``, ``head_blocks × T × 3``: Σŷm, or
+    Σdiff² for rmse, then the centred Σdh² and Σdh·dy); 0 where absent."""
 
     ws_h0: int
     ws_xhat: int
@@ -230,6 +250,9 @@ class WideLayout:
     ws_ht: Tuple[int, ...]
     ws_dt: Tuple[int, ...]
     ws_wt: Tuple[int, ...]
+    ws_stats: int
+    ws_pred: int
+    ws_mom: int
     ws_floats: int
     geometry: Tuple[LayerGeometry, ...]
     splits: Tuple[int, ...]
@@ -256,8 +279,11 @@ def _split(batch: int, want: int, multiple: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int) -> WideLayout:
-    """The layout of a step over ``batch`` rows of an MLP of widths ``dims``."""
+def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int, train_norm: bool = False,
+                n_targets: int = 1, moments: bool = False) -> WideLayout:
+    """The layout of a step over ``batch`` rows of an MLP of widths ``dims``
+    (``train_norm``: a trainable input norm; ``moments``: a loss whose
+    cotangents need the batch's prediction moments, over ``n_targets``)."""
     f = dims[0]
     off = batch * f
     ws_xhat = ws_d0 = 0
@@ -280,6 +306,13 @@ def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int) -> WideLayout
             ws_ht.append(0)
             ws_dt.append(0)
             ws_wt.append(0)
+    head_blocks = -(-batch // _HEAD_THREADS)
+    ws_stats = ws_pred = ws_mom = 0
+    if train_norm:
+        ws_stats, off = off, off + 2 * f
+    if moments:
+        ws_pred, ws_mom = off, off + n_targets * batch
+        off = ws_mom + head_blocks * n_targets * 3
     splits, split_rows, part_off = [], [], []
     part = 0
     for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
@@ -293,11 +326,11 @@ def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int) -> WideLayout
         part += norm_splits * 2 * f
     return WideLayout(
         ws_h0=0, ws_xhat=ws_xhat, ws_d0=ws_d0, ws_a=tuple(ws_a), ws_d=tuple(ws_d),
-        ws_ht=tuple(ws_ht), ws_dt=tuple(ws_dt), ws_wt=tuple(ws_wt), ws_floats=off,
+        ws_ht=tuple(ws_ht), ws_dt=tuple(ws_dt), ws_wt=tuple(ws_wt), ws_stats=ws_stats,
+        ws_pred=ws_pred, ws_mom=ws_mom, ws_floats=off,
         geometry=geometry, splits=tuple(splits), split_rows=tuple(split_rows),
         part_off=tuple(part_off), norm_splits=norm_splits, norm_split_rows=norm_rows,
-        part_off_norm=part_off_norm, part_floats=part,
-        head_blocks=-(-batch // _HEAD_THREADS),
+        part_off_norm=part_off_norm, part_floats=part, head_blocks=head_blocks,
     )
 
 
@@ -318,13 +351,15 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     """Why the wide fused epoch cannot train ``model`` with this optimizer
     and loss, or None when it can.
 
-    The envelope: a SingleNN MLP hybrid in float32 with static or no input
-    norm (trainable BatchNorm needs whole-batch statistics before the first
-    layer, as in the JAX kernel), the 12 named activations, widths up to
-    ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a kernel-form
-    mechanistic function; ``training_loss`` mse, mae or an ``ElementwiseLoss``
-    the tracer expresses (the losses the JAX kernel chunks), with ``agg`` sum
-    or mean and no ``extra_loss``; one optimizer spec of any rule but
+    The envelope: a SingleNN MLP hybrid in float32 with no, a static or a
+    trainable input norm (its statistics taken over the whole batch, padding
+    rows included, as the JAX kernel takes them), the 12 named activations,
+    widths up to ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a
+    kernel-form mechanistic function; ``training_loss`` any of
+    :data:`WIDE_LOSSES` (the JAX kernel's: mse, mae, rmse, nseLoss,
+    pearsonLoss, kgeLoss, pbkgeLoss) or an ``ElementwiseLoss`` the tracer
+    expresses, with ``agg`` sum or mean and no ``extra_loss``; one optimizer
+    spec of any rule but
     ``noisy_sgd`` (``training_spec_reason``). Any number of epochs per call;
     with ``tensors``, a batch of at most 65,535 row tiles of 64, and the
     activations and partial sums of one step within ``WORKSPACE_SHARE`` of
@@ -336,9 +371,6 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     reason = fused_forward_unsupported_reason(model, training=True, max_width=MAX_WIDE_WIDTH)
     if reason is not None:
         return reason
-    if model.nn.input_batchnorm is True:  # an MLP: the shared checks refuse any other network
-        return ("trainable input BatchNorm (input_batchnorm=True) is outside the wide kernel: "
-                "it needs whole-batch statistics")
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
     reason = training_spec_reason(optimizer, logging, WIDE_LOSSES)
@@ -357,7 +389,9 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
         if memory_bytes is not None:
             net = model.nn
             dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-            need = wide_layout(dims, net.norm is not None, batch).nbytes
+            need = wide_layout(dims, net.norm is not None, batch, net.input_batchnorm is True,
+                               len(model.targets),
+                               _loss_name(logging.training_loss) in TWO_PASS_LOSSES).nbytes
             if need > WORKSPACE_SHARE * memory_bytes:
                 return (f"a step's activations and partial sums take {need} bytes, more than "
                         f"{WORKSPACE_SHARE:g} of the card's {memory_bytes}")
@@ -447,6 +481,12 @@ class _Args(ctypes.Structure):
         ("wgt_bm", ctypes.c_int * MAX_LAYERS),
         ("wgt_bn", ctypes.c_int * MAX_LAYERS),
         ("halt", ctypes.c_void_p),
+        ("tmom", ctypes.c_void_p),
+        ("ws_off_stats", ctypes.c_int64),
+        ("ws_off_pred", ctypes.c_int64),
+        ("ws_off_mom", ctypes.c_int64),
+        ("momentum", ctypes.c_float),
+        ("one_minus_momentum", ctypes.c_float),
     ]
 
 
@@ -487,7 +527,8 @@ class FusedWidePlan(PackedLayout):
         return param_offsets(self.dims, self.has_norm)
 
     def layout(self, batch: int) -> WideLayout:
-        return wide_layout(self.dims, self.has_norm, int(batch))
+        return wide_layout(self.dims, self.has_norm, int(batch), self.norm_mode == _NORM_TRAIN,
+                           len(self.target_names), self.loss in TWO_PASS_LOSSES)
 
     @functools.cached_property
     def args_bytes(self) -> bytes:
@@ -505,6 +546,8 @@ class FusedWidePlan(PackedLayout):
         a.p_off_b[: len(o["p_b"])] = o["p_b"]
         a.p_off_g = o["p_g"]
         a.loss_kind = LOSS_KINDS[self.loss]
+        a.momentum = self.momentum
+        a.one_minus_momentum = 1.0 - self.momentum
         return bytes(a)
 
 
@@ -527,15 +570,42 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
 # loss scales and the plain version
 # --------------------------------------------------------------------------
 
+def _by_step(col: torch.Tensor, idx: torch.Tensor, data: FusedData) -> torch.Tensor:
+    """A ``(n,)`` column at every step's rows: ``(E, nb, batch)``."""
+    return col[idx].reshape(idx.shape[0], data.n_batches, data.batch)
+
+
+def target_moments(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor) -> torch.Tensor:
+    """``(E, nb, T, 3)``: every step's count ``n = max(Σ m, 1)``, target mean
+    ``ȳ = Σ y / n`` (y is 0 where masked) and centred ``SST = Σ ((y − ȳ) m)²``
+    per target, as the JAX kernel takes them for nseLoss and the statistic
+    losses; they depend on the targets alone."""
+    idx = rows.long()
+    out = []
+    for y, mask in zip(data.y, data.mask):
+        m, yb = _by_step(mask, idx, data), _by_step(y, idx, data)
+        n = m.sum(-1).clamp_min(1.0)
+        mu = yb.sum(-1) / n
+        dev = (yb - mu[..., None]) * m
+        out.append(torch.stack([n, mu, (dev * dev).sum(-1)], -1))
+    return torch.stack(out, -2).to(torch.float32).contiguous()
+
+
 def batch_scales(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor):
     """``(scale (E, nb, T), valid (E, nb))``: every step's loss scale per
-    target, ``agg_scale / max(Σ mask, 1)`` over the whole batch (``agg_scale``
-    for an elementwise loss by sum), and its validity flag (a batch with no
-    valid target changes nothing), from the masks and the row index alone."""
-    epochs = rows.shape[0]
+    target over the whole batch, ``agg_scale / max(Σ mask, 1)`` (mse, mae,
+    an elementwise loss by mean), ``agg_scale / max(SST, 1e-12)`` (nseLoss,
+    :func:`target_moments`) or ``agg_scale`` (an elementwise loss by sum,
+    rmse and the statistic losses, whose own factors come from the batch's
+    predictions), and its validity flag (a batch with no valid target
+    changes nothing), from the masks, the targets and the row index alone."""
     idx = rows.long()
-    counts = [mask[idx].reshape(epochs, data.n_batches, data.batch).sum(-1) for mask in data.mask]
-    if plan.loss_form is not None and plan.loss_form.normalize == "sum":
+    counts = [_by_step(mask, idx, data).sum(-1) for mask in data.mask]
+    if plan.loss == "nseLoss":
+        sst = target_moments(plan, data, rows)[..., 2]
+        scale = plan.agg_scale / sst.clamp_min(_EPS)
+    elif plan.loss in TWO_PASS_LOSSES or (plan.loss_form is not None
+                                          and plan.loss_form.normalize == "sum"):
         scale = torch.stack([torch.full_like(c, plan.agg_scale) for c in counts], -1)
     else:
         scale = torch.stack([plan.agg_scale / c.clamp_min(1.0) for c in counts], -1)
@@ -548,10 +618,12 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
     """The plain PyTorch version of the kernels: ``rows.shape[0]`` epochs of
     ``data.n_batches`` steps over the rows ``rows[e, i·B : (i+1)·B]``, each
     the whole batch's forward, the cotangent with the loss scales of
-    :func:`batch_scales`, the hand-written backward and the gated update.
-    Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's
-    mean batch loss (a batch without valid targets counts 0). ``halt``:
-    ``obey_halt``."""
+    :func:`batch_scales` (rmse and the statistic losses: from the batch's
+    moments), the hand-written backward and the gated update of the
+    parameters and of a trainable norm's running statistics. Returns
+    ``(packed, opt_state, mean_loss)``; the loss is the last epoch's mean
+    batch loss (a batch without valid targets counts 0 and takes no step).
+    ``halt``: ``obey_halt``."""
     packed0, opt0 = packed, opt_state
     scale, valid = batch_scales(plan, data, rows)
     p, bn = packed.params, packed.bn
@@ -564,13 +636,14 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
         epoch_loss = torch.zeros((), dtype=p.dtype, device=p.device)
         for i in range(nb):
             idx = rows[e, i * batch : (i + 1) * batch].long()
-            g, loss, _, _ = reference_grads(
+            g, loss, _, new_bn = reference_grads(
                 plan, p, bn, consts, data.x[idx],
                 [c[idx] for c in data.forcing], [c[idx] for c in data.y],
                 [c[idx] for c in data.mask], scale=list(scale[e, i]),
             )
             ok = valid[e, i] > 0
             p, slots, t = _reference_update(plan, p, slots, t, g, ok)
+            bn = torch.where(ok, new_bn, bn)
             epoch_loss = epoch_loss + torch.where(ok, loss, torch.zeros_like(loss))
     new_state = {**slots, "t": t.round().to(torch.int32)}
     return obey_halt(halt, packed0, opt0, (FusedParams(p, bn), new_state, epoch_loss / nb))
@@ -608,8 +681,9 @@ def update_blocks(plan: FusedWidePlan, lay: WideLayout) -> int:
 def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
                       rows: torch.Tensor, loss: torch.Tensor, *, halt=None) -> None:
     """Enqueue every step of ``rows`` (``(epochs, num_batches · batch)``)
-    with one call of the C launcher, updating ``packed`` and ``opt_state`` in
-    place and writing the last epoch's mean batch loss into ``loss``; raises
+    with one call of the C launcher, updating ``packed`` (a trainable norm's
+    running statistics too) and ``opt_state`` in place and writing the last
+    epoch's mean batch loss into ``loss``; raises
     if a launch is refused. Counts calls in ``launch_fused_wide.launches``.
     ``halt`` is the halt word (``ops/fused_epoch.py``): every kernel of a
     halted call returns at entry, and the step count and loss stay."""
@@ -623,6 +697,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     epochs = rows.shape[0]
     lay = plan.layout(data.batch)
     scale, valid = batch_scales(plan, data, rows)
+    tmom = target_moments(plan, data, rows) if plan.loss in TWO_PASS_LOSSES else None
     t0 = opt_state["t"].to(torch.float32)
     tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
     ws = torch.empty((lay.ws_floats,), dtype=torch.float32, device=dev)
@@ -639,6 +714,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
         a.y[i], a.mask[i] = yc.data_ptr(), mc.data_ptr()
     a.perm = rows.data_ptr()
     a.scale, a.valid, a.tcount = scale.data_ptr(), valid.data_ptr(), tcount.data_ptr()
+    a.tmom = tmom.data_ptr() if tmom is not None else None
     a.params, a.bn = packed.params.data_ptr(), packed.bn.data_ptr()
     a.m, a.v = opt_state["m"].data_ptr(), opt_state["v"].data_ptr()
     a.u = slot_u(plan, opt_state)
@@ -649,6 +725,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.n_epochs, a.n_batches, a.batch = epochs, data.n_batches, data.batch
     n_layers = len(plan.dims) - 1
     a.ws_off_h0, a.ws_off_xhat, a.ws_off_d0 = lay.ws_h0, lay.ws_xhat, lay.ws_d0
+    a.ws_off_stats, a.ws_off_pred, a.ws_off_mom = lay.ws_stats, lay.ws_pred, lay.ws_mom
     a.ws_off_a[:n_layers] = lay.ws_a
     a.ws_off_d[:n_layers] = lay.ws_d
     a.part_off[:n_layers] = lay.part_off

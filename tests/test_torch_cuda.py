@@ -985,9 +985,14 @@ def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("ad
     assert fw.launch_fused_wide.launches - before == 1
     again = fn(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
     ref = fn.reference(packed, fe.init_fused_opt_state(packed, opt), tensors, perms=perms)
-    assert torch.equal(got[1]["t"], ref[1]["t"]) and torch.equal(got[0].bn, packed.bn)
+    assert torch.equal(got[1]["t"], ref[1]["t"])
+    if norm is True:  # the running statistics' EMA, from the batches alone
+        assert not torch.equal(got[0].bn, packed.bn)
+        assert bool(((got[0].bn - ref[0].bn).abs() <= EPOCH_TOL * ref[0].bn.abs().clamp_min(1)).all())
+    else:
+        assert torch.equal(got[0].bn, packed.bn)
     # sums in a fixed order, no atomics: the same inputs give the same bits
-    for a, b in zip(_outputs(got), _outputs(again)):
+    for a, b in zip(_outputs(got) + [got[0].bn], _outputs(again) + [again[0].bn]):
         assert torch.equal(a, b)
     return packed, got, ref, fn
 
@@ -1037,6 +1042,30 @@ def test_wide_kernel_activations_match_plain(cuda, act):
 
 def test_wide_masked_batch_counts_no_step(cuda):
     _, got, ref, _ = _wide_case(cuda, shuffle=False, mask_first=128, n=1024, batch=128, epochs=1)
+    assert int(got[1]["t"][0]) == 7  # 8 batches, the first without a target
+    _assert_wide_close(got, ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(norm=True),
+    # several tiles each way; adam at 1e-3: at 0.01 one rounding-level element of layer 1's W
+    # moves by a share of lr, and the float32 plain version itself ends 4.8e-4 from float64
+    # there (tools/dev_fused_wide_gpu.py --drift --drift-bn)
+    dict(norm=True, hidden=(300, 200, 100), n=600, batch=64, epochs=1, opt=("adam", 1e-3)),
+    *[dict(loss=loss, nan_frac=0.3, batch=300, agg="mean")               # ragged last batch
+      for loss in ("nseLoss", "rmse", "pearsonLoss", "kgeLoss", "pbkgeLoss")],
+    dict(norm=True, loss="kgeLoss", n=1200, batch=600),                   # three head blocks
+    dict(norm=True, loss="rmse", opt=("sgd", 1e-3), shuffle="batches", n=1000, batch=500),
+], ids=str)
+def test_wide_kernel_matches_plain_under_batchnorm_and_the_moment_losses(cuda, kw):
+    _, got, ref, fn = _wide_case(cuda, **kw)
+    assert fn.plan.loss == kw.get("loss", "mse")
+    _assert_wide_close(got, ref)
+
+
+def test_wide_masked_batch_under_a_statistic_loss_takes_no_step(cuda):
+    _, got, ref, _ = _wide_case(cuda, norm=True, loss="kgeLoss", shuffle=False, mask_first=128,
+                                n=1024, batch=128, epochs=1)
     assert int(got[1]["t"][0]) == 7  # 8 batches, the first without a target
     _assert_wide_close(got, ref)
 
@@ -1112,6 +1141,13 @@ def test_train_takes_the_wide_kernel_and_the_others_keep_theirs(cuda):
     off = et.train(et.construct_hybrid_model(hidden_layers=[128, 64], **spec), cols,
                    use_kernel=False, **kw)
     assert off.epoch_path == "torch"
+    # a trainable norm and the moment losses take kernel 3 too
+    for loss in ("mse", "nseLoss", "kgeLoss"):
+        bn = et.construct_hybrid_model(hidden_layers=[128, 64], **{**spec, "input_batchnorm": True},
+                                       generator=torch.Generator().manual_seed(0))
+        r = et.train(bn, cols, training_loss=loss, loss_types=["mse"], **kw)
+        assert r.epoch_path == "cuda_fused_wide" and "exactness gate passed" in r.engine_reason
+        assert np.isfinite(r.val_pred_columns["reco_pred"]).all()
 
 
 def test_wide_wrapper_rejects_mixed_devices(cuda):

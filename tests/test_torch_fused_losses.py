@@ -597,8 +597,7 @@ def test_a_traced_loss_is_built_beside_the_form_under_one_key(monkeypatch, tmp_p
 def test_every_training_kernel_takes_the_losses_the_jax_kernels_take():
     """The envelopes: kernel 2 every loss of ``_FUSED_LOSSES`` and a traced
     loss; kernel 5 mse, mae, nseLoss, rmse (one target) and a traced loss;
-    kernel 4 every loss of ``_FUSED_LOSSES`` and a traced loss; kernel 3 mse,
-    mae and a traced loss."""
+    kernels 3 and 4 every loss of ``_FUSED_LOSSES`` and a traced loss."""
     from easyhybrid_tpu.ops.fused_epoch import _FUSED_LOSSES
     from easyhybrid_tpu.ops.fused_multisite import _MS_LOSSES
     from easyhybrid_tpu_torch.ops import fused_epoch_lstm as fl
@@ -611,11 +610,12 @@ def test_every_training_kernel_takes_the_losses_the_jax_kernels_take():
         assert fe.fused_epoch_unsupported_reason(tm, ("adam", 0.01), ll) is None, loss
     wide = et.construct_hybrid_model(**dict(TWO_SPEC, mechanistic_model=two_outputs,
                                             hidden_layers=[80]), device="cpu")
-    for loss in ("mse", "mae", et.pinball(0.9)):
+    for loss in list(_FUSED_LOSSES) + [et.pinball(0.9)]:
         assert fw.fused_wide_unsupported_reason(wide, "adam", et.LoggingLoss(training_loss=loss)) \
             is None
-    assert "trains mse, mae and any traceable" in fw.fused_wide_unsupported_reason(
-        wide, "adam", et.LoggingLoss(training_loss="nseLoss"))
+    assert set(fw.WIDE_LOSSES) == set(_FUSED_LOSSES)
+    assert "trains mse, mae, rmse, nseLoss" in fw.fused_wide_unsupported_reason(
+        wide, "adam", et.LoggingLoss(training_loss="r2"))
     assert set(fl.LSTM_LOSSES) == set(_FUSED_LOSSES)
 
 

@@ -191,8 +191,8 @@ def test_a_fully_masked_batch_changes_nothing():
 
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
-    ({"input_batchnorm": True}, "adam", _ll(et), "whole-batch statistics"),
-    ({}, "adam", _ll(et, "rmse"), "trains mse, mae"),
+    ({"predictors": {"rb": ["sw_pot", "dsw_pot"]}}, "adam", _ll(et), "MultiNN branches"),
+    ({"compute_dtype": torch.bfloat16}, "adam", _ll(et), "compute_dtype=torch.bfloat16"),
     ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
     ({}, ("radam", {"learning_rate": 0.01, "threshold": 3.0}), _ll(et),
      "threshold 3.0 < 4"),
@@ -209,17 +209,24 @@ def test_envelope_reasons(overrides, optimizer, logging, reason):
     got = fw.fused_wide_unsupported_reason(tm, optimizer, logging)
     assert got is not None and reason in got
     assert not et.supports_fused_wide(tm, optimizer, logging)
-    if isinstance(tm.nn, et.MLP):
+    if isinstance(getattr(tm, "nn", None), et.MLP):
         with pytest.raises(ValueError, match="wide fused epoch kernel"):
             et.make_fused_wide_epoch(tm, optimizer, logging)
 
 
 def test_envelope_accepts_the_tower_and_refuses_a_workspace_beyond_the_card():
+    """Every loss of the JAX kernel under both aggregations, with a static
+    and with a trainable input norm (the reference's GPU tutorial); a
+    workspace beyond the card's share is refused."""
     tower = et.construct_hybrid_model(**_spec(hidden=(1024, 512, 256, 128, 64), act="swish"),
                                       device="cpu")
+    tutorial = et.construct_hybrid_model(**_spec(True, hidden=(1024, 512, 256, 128, 64),
+                                                 act="swish"), device="cpu")
+    assert set(fw.WIDE_LOSSES) == set(fe.FUSED_LOSSES)
     for loss in fw.WIDE_LOSSES:
         for agg in ("sum", "mean"):
             assert et.supports_fused_wide(tower, ("adam", 0.01), _ll(et, loss, agg=agg))
+            assert et.supports_fused_wide(tutorial, ("adam", 0.01), _ll(et, loss, agg=agg))
     plan = fw.plan_fused_wide(tower, ("sgd", 0.1), _ll(et, "mae"))
     assert plan.n_params == 4 + 698_432 + 1_985 + 1 and plan.loss == "mae"
     *_, tt = setup(n=300, batch=100)
@@ -256,11 +263,12 @@ def test_the_other_models_keep_their_engines():
     sites = et.MultiSiteHybridModel(et.construct_hybrid_model(**_spec(), device="cpu"),
                                     n_sites=4, device="cpu")
     assert fe.fused_engine(sites).epoch_path == "cuda_fused_multisite"
-    # trainable BatchNorm at width 128 has no kernel yet: refused, with the reason
+    # trainable BatchNorm at width 128 takes kernel 3, under mse and the moment losses
     wide_bn = et.construct_hybrid_model(**_spec(True, hidden=(128, 64)), device="cpu")
     engine = fe.fused_engine(wide_bn)
     assert engine.epoch_path == "cuda_fused_wide"
-    assert "BatchNorm" in engine.unsupported_reason(wide_bn, "adam", _ll(et), shuffle=True)
+    for loss in ("mse", "nseLoss", "kgeLoss"):
+        assert engine.unsupported_reason(wide_bn, "adam", _ll(et, loss), shuffle=True) is None
     # predict on a wide model stays on the torch engine
     assert "cap of 64" in ff.fused_forward_unsupported_reason(
         et.construct_hybrid_model(**_spec(hidden=(128, 64)), device="cpu"))
@@ -294,25 +302,41 @@ def test_gate_fails_on_a_corrupted_gradient(monkeypatch):
 
 
 LAYOUT_CASES = [
-    ((2, 1024, 512, 256, 128, 64, 1), True, 1024), ((2, 1024, 512, 256, 128, 64, 1), True, 64),
-    ((2, 100, 37, 1), False, 300), ((3, 65, 2), True, 1), ((2, 4096, 4096, 1), True, 5000),
+    # dims, norm, batch, trainable norm, targets, the batch's prediction moments
+    ((2, 1024, 512, 256, 128, 64, 1), True, 1024, False, 1, False),
+    ((2, 1024, 512, 256, 128, 64, 1), True, 64, False, 1, False),
+    ((2, 100, 37, 1), False, 300, False, 1, False), ((3, 65, 2), True, 1, False, 1, False),
+    ((2, 4096, 4096, 1), True, 5000, False, 1, False),
+    ((2, 1024, 512, 256, 128, 64, 1), True, 64, True, 1, False),
+    ((2, 1024, 512, 256, 128, 64, 1), True, 1024, True, 1, True),
+    ((3, 65, 2), False, 700, False, 2, True),
 ]
 
 
-@pytest.mark.parametrize("dims,norm,batch", LAYOUT_CASES)
-def test_workspace_layout(dims, norm, batch):
+@pytest.mark.parametrize("dims,norm,batch,train_norm,targets,moments", LAYOUT_CASES)
+def test_workspace_layout(dims, norm, batch, train_norm, targets, moments):
     """No two blocks of the workspace or of the partials overlap, every
     split covers the batch in whole tiles of its route's depth (16 rows on
     the FMA tile, 32 on the tensor cores), and small FMA products are split
     until they fill the card. A tensor-core layer also keeps its input and
     its output's cotangent feature-major and its W transposed (the forward
     and data products' pieces sum their tiles in shared memory: no room
-    here)."""
-    lay = fw.wide_layout(dims, norm, batch)
+    here). A trainable norm adds the batch's mean and variance; rmse and the
+    statistic losses the predictions and three moments per head block and
+    target."""
+    lay = fw.wide_layout(dims, norm, batch, train_norm, targets, moments)
     f = dims[0]
     blocks = [(lay.ws_h0, batch * f)]
     if norm:
         blocks += [(lay.ws_xhat, batch * f), (lay.ws_d0, batch * f)]
+    if train_norm:
+        blocks.append((lay.ws_stats, 2 * f))
+    else:
+        assert lay.ws_stats == 0
+    if moments:
+        blocks += [(lay.ws_pred, targets * batch), (lay.ws_mom, lay.head_blocks * targets * 3)]
+    else:
+        assert lay.ws_pred == lay.ws_mom == 0
     for off_a, off_d, width in zip(lay.ws_a, lay.ws_d, dims[1:]):
         blocks += [(off_a, batch * width), (off_d, batch * width)]
     for l, (din, dout, geo) in enumerate(zip(dims[:-1], dims[1:], lay.geometry)):
@@ -345,12 +369,21 @@ def test_workspace_layout(dims, norm, batch):
 
 
 def test_the_tower_s_layout_at_the_main_shape():
-    lay = fw.wide_layout((2, 1024, 512, 256, 128, 64, 1), True, 1024)
+    dims = (2, 1024, 512, 256, 128, 64, 1)
+    lay = fw.wide_layout(dims, True, 1024)
     # the activations (16.3 MB) and the four tensor-core layers' H^T, dZ^T and W^T (14.6 MB)
     inner = ((1024, 512), (512, 256), (256, 128), (128, 64))
     assert lay.ws_floats == (1024 * (3 * 2 + 2 * (1024 + 512 + 256 + 128 + 64 + 1))
                              + sum(1024 * (i + o) + i * o for i, o in inner))
     assert lay.splits == (16, 4, 16, 16, 16, 16) and lay.split_rows == (64, 256, 64, 64, 64, 64)
+    # the new rows go after the parent's, whose offsets stay: a trainable norm's
+    # statistics (4 floats), the predictions and 4 head blocks' moments
+    both = fw.wide_layout(dims, True, 1024, True, 1, True)
+    assert both.ws_stats == lay.ws_floats and both.ws_pred == lay.ws_floats + 4
+    assert both.ws_mom == both.ws_pred + 1024 and both.ws_floats == both.ws_mom + 4 * 3
+    for name in ("ws_xhat", "ws_d0", "ws_a", "ws_d", "ws_ht", "ws_dt", "ws_wt", "part_off",
+                 "part_off_norm", "part_floats"):
+        assert getattr(both, name) == getattr(lay, name)
 
 
 def _tc(bm, bn, splits, split_k):
@@ -495,8 +528,8 @@ def test_kernel_source_and_ctypes_mirror_agree():
         base = mirror._type_ if array else mirror
         want = ctypes.c_void_p if "*" in ctype else kinds[ctype.strip()]
         assert base is want, name
-    for kernel in ("gather", "forward", "head", "bwd_weight", "bwd_data", "norm_grad", "update",
-                   "tc", "transpose"):
+    for kernel in ("norm_stats", "gather", "forward", "head", "moments", "bwd_weight", "bwd_data",
+                   "norm_grad", "update", "tc", "transpose"):
         assert f"eh_wide_{kernel}_kernel" in src
     # the tensor-core products in 3xTF32, the file's own
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in src

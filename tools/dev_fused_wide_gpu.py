@@ -45,13 +45,24 @@ where they part.
 ``--parent DIR`` (may be given more than once) runs the epoch timings first
 (and again last) on the package of another tree (a copy of the parent
 commit, unpacked with ``git archive`` into the ignored ``chip_work/``), in a
-process of its own, so that both stand side by side from one card. It
-asserts nothing: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
-kernel to its tolerances.
+process of its own, so that both stand side by side from one card. With
+``--parent-bits`` each tree also runs every case of its own
+``chip_smoke.wide_cases`` (phase 16: the static-norm and no-norm mse and mae
+cases) on its kernel, and this tree's results are held bit for bit against
+the parent's. Otherwise it asserts nothing: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the kernel to its tolerances.
+
+``--stats`` runs ``chip_smoke.py``'s phases 42-44 on this build: the
+trainable norm and the moment losses against the plain version twice, the
+reference's GPU tutorial through ``train()`` under mse and each moment loss,
+and the epochs at both shapes. ``--tutorial-torch`` runs the same
+``train()`` calls on the torch engine on the card and prints each run's
+best-epoch validation mse and Q10 (the figures beside the smoke's limits).
 
 Run from the repository root on a machine with a GPU and ``nvcc``:
 
-    PYTHONPATH=. python tools/dev_fused_wide_gpu.py [--parent DIR] [--variants] [--stamps] [--drift]
+    PYTHONPATH=. python tools/dev_fused_wide_gpu.py [--parent DIR [--parent-bits]] [--stats]
+        [--tutorial-torch] [--variants] [--stamps] [--drift]
 """
 
 from __future__ import annotations
@@ -513,8 +524,29 @@ def time_variants(main_cols):
 DRIFT_SEEDS = (0, 1, 2)  # 0 is chip_smoke.py's
 
 
+DRIFT_LOSSES = []  # --drift-loss: the main shape's Adam case under these losses instead
+# --drift-bn: tests/test_torch_cuda.py's trainable-norm case at (300, 200, 100) instead
+DRIFT_BN = [("(300,200,100) trainable norm, batch 64, adam 0.01, 10 steps",
+             dict(hidden=(300, 200, 100), norm=True, n=600, batch=64, epochs=1, seed=0, cols=None))]
+DRIFT_ONLY = []
+
+
+def drift_case(label, kw):
+    """``case`` of a drift case: the tower unless it names its widths."""
+    kw = dict(kw)
+    cols = kw.pop("cols")
+    return case(label, kw.pop("hidden", TOWER), cols=cols and dict(cols), **kw)
+
+
 def drift_cases(main_cols):
-    """The tower's Adam cases of chip_smoke.py phase 16: ``(label, case)``."""
+    """The tower's Adam cases of chip_smoke.py phase 16: ``(label, case)``;
+    with ``--drift-loss``, those of phase 42 at the main shape under each
+    loss given; with ``--drift-bn``, ``DRIFT_BN``."""
+    if DRIFT_ONLY:
+        return DRIFT_ONLY
+    if DRIFT_LOSSES:
+        return [(f"batch 1,024 {loss}", dict(batch=1024, epochs=2, cols=main_cols, seed=0,
+                                             loss=loss)) for loss in DRIFT_LOSSES]
     first = {k: v[:1024] for k, v in main_cols.items()}
     out = [(f"batch 64 seed {seed}", dict(batch=64, epochs=2, cols=first, seed=seed))
            for seed in DRIFT_SEEDS]
@@ -525,7 +557,7 @@ def kernel_runs(main_cols):
     """The kernel's parameters, moments and loss on every drift case."""
     out = {}
     for label, kw in drift_cases(main_cols):
-        _, fn, p0, tensors, perms = case(label, TOWER, **{**kw, "cols": dict(kw["cols"])})
+        _, fn, p0, tensors, perms = drift_case(label, kw)
         p, o, loss = fn(p0, fe.init_fused_opt_state(p0), tensors, perms=perms)
         out[label] = {"params": p.params.cpu(), "m": o["m"].cpu(), "v": o["v"].cpu(),
                       "loss": float(loss)}
@@ -570,7 +602,7 @@ def drift_study(main_cols, parents):
     """``--drift``: see the module's docstring."""
     kernel = kernel_runs(main_cols)
     for label, kw in drift_cases(main_cols):
-        _, fn, p0, tensors, perms = case(label, TOWER, **{**kw, "cols": dict(kw["cols"])})
+        _, fn, p0, tensors, perms = drift_case(label, kw)
         g = torch.Generator(device="cuda").manual_seed(99)
         moved = p0.params.double() * (1 + (torch.rand(p0.params.shape, generator=g, device="cuda",
                                                        dtype=torch.float64) - 0.5) * 2 ** -23)
@@ -584,7 +616,7 @@ def drift_study(main_cols, parents):
         final = {}
         for step in range(steps):
             now = {k: next(v) for k, v in versions.items()}
-            if label == "batch 64 seed 0" or step == steps - 1:
+            if label == "batch 64 seed 0" or DRIFT_LOSSES or step == steps - 1:
                 print(f"[drift] {label} step {step + 1}: params beyond against f64: "
                       + ", ".join(f"{k} {beyond(now[k]['params'], now['f64']['params'])[0]}"
                                   for k in now if k != "f64")
@@ -611,16 +643,99 @@ def drift_study(main_cols, parents):
               f"{same}", flush=True)
 
 
+def smoke_case_bits(main_cols) -> dict:
+    """Every case of this tree's ``chip_smoke.wide_cases`` on the kernel:
+    ``{what: {name: tensor on the host}}``."""
+    import chip_smoke
+
+    out = {}
+    for case in chip_smoke.wide_cases(et, main_cols):
+        what, fn, p0, tensors, perms = chip_smoke.prepare_wide_case(et, **case)
+        p, o, loss = fn(p0, chip_smoke.fresh_state(fn, p0), tensors, perms=perms)
+        out[what] = {"params": p.params.cpu(), "bn": p.bn.cpu(), "loss": loss.reshape(1).cpu(),
+                     **{k: v.cpu() for k, v in o.items()}}
+    return out
+
+
+def hold_parent_bits(main_cols, parents) -> None:
+    """This tree's kernel against each parent's on every shared smoke case."""
+    mine = smoke_case_bits(main_cols)
+    for tag, theirs in parents.items():
+        for what, got in mine.items():
+            if what not in theirs:
+                print(f"[bits] {tag}: {what}: not a case of the parent's", flush=True)
+                continue
+            same = {k: torch.equal(v, theirs[what][k]) for k, v in got.items()}
+            print(f"[bits] {tag}: {what}: " + ("bit for bit equal" if all(same.values()) else
+                                               f"DIFFERENT in {[k for k, v in same.items() if not v]}"),
+                  flush=True)
+        if not all(torch.equal(v, theirs[w][k]) for w, got in mine.items() if w in theirs
+                   for k, v in got.items()):
+            sys.exit(f"dev_fused_wide_gpu: this tree's kernel differs from {tag}'s")
+
+
+def run_stats_phases() -> None:
+    """chip_smoke.py's phases 42-44 on this build."""
+    import chip_smoke
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    wide_cols = et.rbq10_columns(chip_smoke.WIDE_ROWS, seed=42)
+    train_cols = {k: v[: chip_smoke.WIDE_ROWS * 4 // 5] for k, v in wide_cols.items()}
+    tutorial_cols = chip_smoke.tutorial_columns(et)
+    def attempt(what, fn, *a):  # every phase and case runs; a failure is printed
+        try:
+            return fn(*a)
+        except (AssertionError, RuntimeError) as e:
+            print(f"FAILED {what}: {e}", flush=True)
+
+    t0 = time.perf_counter()
+    for case in chip_smoke.wide_stats_cases(et, train_cols, tutorial_cols):
+        attempt(case["what"], chip_smoke.wide_kernel_checks, et, None, [case], "kernel3-stats")
+    t1 = time.perf_counter()
+    attempt("phase 43", chip_smoke.tutorial_main_paths, et, card, tutorial_cols)
+    t2 = time.perf_counter()
+    attempt("phase 44", chip_smoke.wide_stats_times, et, card, train_cols, tutorial_cols)
+    print(f"phases 42 {t1 - t0:.1f} s, 43 {t2 - t1:.1f} s, 44 {time.perf_counter() - t2:.1f} s",
+          flush=True)
+
+
+def tutorial_torch() -> None:
+    """The tutorial's ``train()`` calls of phase 43 on the torch engine."""
+    import chip_smoke
+
+    cols = chip_smoke.tutorial_columns(et)
+    for loss in ("mse",) + chip_smoke.WIDE_MOMENT_LOSSES:
+        kw = dict(chip_smoke.TUTORIAL_KW, training_loss=loss,
+                  loss_types=["mse"] if loss == "mse" else [loss, "mse"])
+        t0 = time.perf_counter()
+        r = et.train(chip_smoke.build_model(et, hidden=TOWER, norm=True), cols, use_kernel=False,
+                     **kw)
+        torch.cuda.synchronize()
+        q10 = float(et.scale_param(r.params["globals.Q10"], 1.0, 4.0))
+        print(f"[tutorial-torch] {loss}: {r.epoch_path}, best epoch {r.best_epoch}, its val mse "
+              f"{chip_smoke.val_of(r, 'mse', r.best_epoch):.6f}, Q10 {q10:.4f}, "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
 def side(tag, args):
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_alone(Path(tmp))
         _build.load_library = lambda: lib
         torch.backends.cuda.matmul.allow_tf32 = False
         main_cols = {k: v[:16384] for k, v in et.rbq10_columns(20480, seed=42).items()}
+        if tag != "change" and args.bits_file:
+            torch.save(smoke_case_bits(main_cols), args.bits_file)
+        if tag == "change" and args.bits_files:
+            hold_parent_bits(main_cols, {Path(d).name: torch.load(f) for d, f in args.bits_files})
         if tag != "change" and args.drift_file:
             torch.save(kernel_runs(main_cols), args.drift_file)
         if tag == "change" and args.drift:
             drift_study(main_cols, {Path(d).name: torch.load(f) for d, f in args.drift_files})
+        if tag == "change" and args.tutorial_torch:
+            tutorial_torch()
+        if tag == "change" and args.stats:
+            run_stats_phases()
         if tag == "change" and not args.skip_cases:
             first = {k: v[:1024] for k, v in main_cols.items()}
             check_gradient(*case("tower sgd 1 step", TOWER, opt=("sgd", 1e-3), shuffle=False,
@@ -671,7 +786,23 @@ def main() -> None:
     parser.add_argument("--drift", action="store_true",
                         help="the tower's Adam cases against the plain version in float64")
     parser.add_argument("--drift-file", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--drift-bn", action="store_true",
+                        help="with --drift: tests/test_torch_cuda.py's trainable-norm case at "
+                             "(300, 200, 100) instead")
+    parser.add_argument("--drift-loss", default="",
+                        help="with --drift: the main shape's Adam case under these losses "
+                             "(comma-separated), step by step")
+    parser.add_argument("--parent-bits", action="store_true",
+                        help="hold phase 16's cases bit for bit against each parent's kernel")
+    parser.add_argument("--bits-file", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--stats", action="store_true",
+                        help="chip_smoke.py's phases 42-44 (trainable norm, moment losses)")
+    parser.add_argument("--tutorial-torch", action="store_true",
+                        help="the tutorial's train() calls on the torch engine")
     args = parser.parse_args()
+    DRIFT_LOSSES.extend(x for x in args.drift_loss.split(",") if x)
+    if args.drift_bn:
+        DRIFT_ONLY.extend(DRIFT_BN)
     if not torch.cuda.is_available():
         sys.exit("dev_fused_wide_gpu: needs a CUDA GPU")
     if args.side == "change":
@@ -679,19 +810,22 @@ def main() -> None:
                               "--format=csv,noheader"], capture_output=True, text=True
                              ).stdout.strip(), flush=True)
 
-    def parent_side(parent, drift_file=""):
+    def parent_side(parent, drift_file="", bits_file=""):
         parent = Path(parent).resolve()
         cmd = [sys.executable, str(Path(__file__).resolve()), "--side", parent.name,
-               "--drift-file", drift_file]
+               "--drift-file", drift_file, "--bits-file", bits_file]
         subprocess.run(cmd, check=True, cwd=parent, env={**os.environ, "PYTHONPATH": str(parent)})
 
     with tempfile.TemporaryDirectory() as tmp:
-        args.drift_files = []
-        for parent in args.parent:
-            drift_file = str(Path(tmp) / f"{len(args.drift_files)}.pt") if args.drift else ""
-            parent_side(parent, drift_file)
+        args.drift_files, args.bits_files = [], []
+        for i, parent in enumerate(args.parent):
+            drift_file = str(Path(tmp) / f"{i}.pt") if args.drift else ""
+            bits_file = str(Path(tmp) / f"bits{i}.pt") if args.parent_bits else ""
+            parent_side(parent, drift_file, bits_file)
             if drift_file:
                 args.drift_files.append((parent, drift_file))
+            if bits_file:
+                args.bits_files.append((parent, bits_file))
         side(args.side, args)
         for parent in args.parent:
             parent_side(parent)
