@@ -253,7 +253,35 @@ Phases, one or more lines each; any failure exits non-zero:
 41. times: the split form's epoch at the main path's shape (LSTM(256)) and
     at LSTM(128), its plain version, its bound and cuDNN's LSTM forward and
     backward over the same windows (the yardstick); the seconds phases 38-41
-    add.
+    add;
+42. kernel 3 under a trainable input norm and the moment losses against its
+    plain version (``wide_stats_cases``);
+43. main path: the reference GPU tutorial through ``train()`` on kernel 3
+    under mse and each moment loss (``tutorial_main_paths``);
+44. times: kernel 3's epoch at the tutorial's shape and the tower's under
+    each of them (``wide_stats_times``);
+45. mixed precision (``compute_dtype=torch.bfloat16``): each kernel's bf16
+    build (``BF16_BUILDS``, made in phase 2) against its plain version on the
+    card with a second run to the same bits: kernel 1 at 131,072 rows, with
+    NaN rows and at width 64 (a row whose hidden activation ties at a bf16
+    rounding boundary held within TOL plus ``bf16_flip_bound``, one bf16 ulp
+    on every hidden activation carried through the model); kernel 2 on the
+    quick-start (static norm and trainable BN) and the ExpoHybrid model, each
+    by its gradient through one sgd step (within ``TOL_EPOCH`` or one bf16
+    ulp on at most ``BF16_ULP_SHARE`` of the elements), by two epochs of sgd
+    and by ``BF16_ADAM_STEPS`` steps of Adam (``bf16_run_held``: kernel 2's
+    criterion with the same share), and a K = 4 member launch (an sgd sweep),
+    each member bit for bit its launch alone; kernel 3 at the tutorial's
+    shape (static and trainable norm), at the tower's batch of 1,024 and
+    under nseLoss, by the gradient, by a run of sgd (``bf16_run_held``) and
+    by ``BF16_ADAM_STEPS`` steps of Adam (two at the tutorial's batch of 64;
+    kernel 3's Adam runs' criterion);
+46. main path: the JAX bench's ``large_mlp_bf16`` row through ``train()`` on
+    kernel 3 (after its gate, 20 launcher calls, best val mse within
+    ``BF16_TORCH_FACTOR`` of the torch engine's on the same call, Q10 within
+    0.15), the bf16 reference quick-start on kernel 2 and its ``predict`` on
+    kernel 1, and examples/expo_hybrid.py's run with bf16 operands;
+47. times: each bf16 build beside its float32 build in one call, in turns.
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -623,13 +651,16 @@ def reference_main_path(et, fe, card, cols, *, mechanistic=None, q10_tol=0.15,
 
 
 def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, epochs, batch,
-                       seed, split=False, keep_nan=False, make=None, loss="mse", agg="sum"):
+                       seed, split=False, keep_nan=False, make=None, loss="mse", agg="sum",
+                       dtype=None):
     """The case's fused epoch (kernel 2's, or the one ``make`` builds), its
-    packed parameters on the card, its epoch tensors and its permutations."""
+    packed parameters on the card, its epoch tensors and its permutations;
+    ``dtype`` the model's ``compute_dtype``."""
     from easyhybrid_tpu_torch.data.prepare import HybridData
     from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
-    model = build_model(et, hidden=hidden, activation=act, norm=norm, seed=seed)
+    model = build_model(et, hidden=hidden, activation=act, norm=norm, seed=seed,
+                        **({} if dtype is None else {"compute_dtype": dtype}))
     if keep_nan:  # NaN targets reach the batches as masked rows
         data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
                           forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
@@ -648,10 +679,11 @@ def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, e
 
 
 # the card's published peaks (H100 SXM): device memory rate, float32 outside
-# the tensor cores, TF32 on the tensor cores (dense)
+# the tensor cores, TF32 and bf16 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def forward_flops(dims) -> int:
@@ -661,10 +693,24 @@ def forward_flops(dims) -> int:
     return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def bound(*, bytes_moved: int, flops: int) -> dict:
+def bf16_step_ops(forward: int) -> dict:
+    """The operations of a bf16 build's training step by type, for ``bound``,
+    ``forward`` the flops of its forward products: those multiply two bf16
+    operands (the bf16 rate); the input cotangents and the weight gradients
+    multiply a float32 cotangent by a bf16 operand, which the tensor cores
+    give exactly in two TF32 passes (the cotangent's large and small halves;
+    kernel 3's bf16 build issues those two)."""
+    return {"bf16_flops": forward, "tf32_flops": 2 * 2 * forward}
+
+
+def bound(*, bytes_moved: int, flops: int = 0, tf32_flops: int = 0, bf16_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over its
-    memory rate and the operations over its float32 peak."""
-    by_bytes, by_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
+    memory rate and the operations over the peak for their type (``flops``
+    float32 outside the tensor cores, ``tf32_flops`` and ``bf16_flops`` on
+    them), each type's time added."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = (flops / PEAK_FLOPS + tf32_flops / PEAK_TF32_FLOPS
+              + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -1523,7 +1569,12 @@ def wide_kernel_checks(et, train_cols, cases=None, tag="kernel3") -> float:
             if torch.equal(got["bn"], packed.bn):
                 raise AssertionError(f"{what}: the running statistics did not move")
             log(tag, f"{what}: running statistics max |diff| {bn_err:.3e} (ok)")
-        if held == "gradient":
+        if held == "bf16-gradient":
+            worst = max(worst, bf16_gradient_held(what, got, ref, packed,
+                                                  dict(fn.plan.hyper)["learning_rate"], tag))
+        elif held == "bf16-run":
+            worst = max(worst, bf16_run_held(what, got, ref, tag, f"{steps} steps"))
+        elif held == "gradient":
             lr = dict(fn.plan.hyper)["learning_rate"]
             g_got, g_ref = (packed.params - got["params"]) / lr, (packed.params - ref["params"]) / lr
             err = compare({"gradient": g_got, "loss": got["loss"]},
@@ -1933,6 +1984,600 @@ def wide_stats_times(et, card, train_cols, tutorial_cols) -> dict:
                      f"{o['plain_ms']:.4f}; bound {o['bound']['bound_ms']:.4f} "
                      f"({o['bound']['bound_by']}); the step's products through torch.matmul "
                      f"in float32 {o['library_ms']:.4f} ms an epoch")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: compute_dtype=bfloat16 on kernels 1-3 (phases 45-47)
+# ---------------------------------------------------------------------------
+
+BF16 = dict(compute_dtype=torch.bfloat16)
+# each kernel's bf16 build (_build.bf16_defines), made in phase 2 beside the
+# library: (source, traced form or None for the hand-written one, width or
+# None). Kernels 1 and 2 build the width their plans launch: the phases' bf16
+# models are 16 wide but for kernel 1's [64,48] case; ExpoHybrid's traced form
+# for kernel 2's build of several networks
+BF16_BUILDS = (("fused_forward.cu", None, 16), ("fused_forward.cu", None, 64),
+               ("fused_epoch.cu", None, 16), ("fused_wide.cu", None, None),
+               ("fused_epoch_multinn.cu", "expo", 16))
+# A bf16 value sits between two bf16 neighbours: where the kernel's float32 sum
+# and the plain version's, taken in other orders, straddle a rounding boundary,
+# the two round to neighbours one bf16 ulp (2^-8 relative) apart
+# (tests/test_fused.py:1373-1381 for the JAX kernel). A gradient element may be
+# that far apart, on at most this share of the elements; so may a parameter
+# after a run of several steps (by one bf16 ulp of its value beyond TOL_EPOCH:
+# it then rounds to the same bf16 weight or a neighbour). A serving row whose
+# hidden activation ties within BF16_TIE_ULPS float32 ulps of a boundary is
+# held within TOL plus ``bf16_flip_bound``: every hidden activation of the
+# row one bf16 ulp off, carried through the network to first order. Such ties
+# fall on about 2 BF16_TIE_ULPS / 2^16 of the activations, and at most four
+# times that share of the rows a hidden activation each may tie. Runs of
+# several steps: sgd runs (as the JAX package's own bf16 test,
+# tests/test_fused.py:1383-1389) are held by ``bf16_run_held``; Adam runs over
+# BF16_ADAM_STEPS steps, at the tutorial's batch of 64 over two. Adam's first
+# update is lr g / |g|, which a one-ulp flip of g leaves alone (but where g
+# cancels to rounding level and its sign differs: up to 2 lr, which kernel 3's
+# criterion allows on 1% of the elements); from there a flipped gradient
+# element moves its parameter by a share of the learning rate, the next bf16
+# weights differ and the runs part: at batch 64 two steps left 703-5,080 of the
+# tower's 700,422 parameters beyond TOL_EPOCH against the plain version in
+# float64 (the float32 plain version 3,087-5,286), the third 12,509-12,929
+# (1.8%, the float32 plain version missing kernel 3's criterion against it
+# too), at batch 1,024 three steps 2,723-4,584 (0.4-0.7%); over 16-32 steps
+# the tower's runs ended 582,195-627,455 beyond, kernel 2's K = 4 adam sweep
+# 16 of 342 first moments (H100, 700 W)
+BF16_ULP_SHARE = 1e-3
+BF16_TIE_ULPS = 8
+BF16_ADAM_STEPS = 3
+BF16_TUTORIAL_ADAM_STEPS = 2
+# the torch engine's validation mse at the best epoch of the large_mlp_bf16 call
+# leaves the fused one a factor of three, as the tutorial's (phase 43)
+BF16_TORCH_FACTOR = 3.0
+
+
+def start_bf16_builds(pool, forms) -> dict:
+    """Every bf16 build of ``BF16_BUILDS``, all at once: ``name -> future``."""
+    from easyhybrid_tpu_torch.ops import _build
+    from easyhybrid_tpu_torch.ops.fused_forward import KERNEL_FORMS
+
+    return {f"{src}" + (f" at width {width}" if width else ""):
+            pool.submit(_build.form_build, src, forms[key] if key else KERNEL_FORMS["rbq10"],
+                        *_build.bf16_defines(width))
+            for src, key, width in BF16_BUILDS}
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+
+
+def bf16_beyond(got, ref, tol):
+    """``(elements beyond tol * max(1, |ref|), those beyond it by more than
+    one bf16 ulp as well, largest |diff|)``."""
+    got, ref = got.double(), ref.double()
+    diff = (got - ref).abs()
+    bound = tol * ref.abs().clamp_min(1.0)
+    out = diff > bound
+    far = diff > bound + bf16_ulp(torch.maximum(got.abs(), ref.abs()))
+    return int(out.sum()), int(far.sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def bf16_gradient_held(what, named_got, named_ref, packed, lr, tag) -> float:
+    """The gradient one sgd step at ``lr`` implies, ``(p0 - p) / lr``, of the
+    kernel against the plain version: within TOL_EPOCH x max(1, |g|), or one
+    bf16 ulp beyond it on at most BF16_ULP_SHARE of the elements; the loss
+    within TOL_EPOCH."""
+    g_got = (packed.params - named_got["params"]) / lr
+    g_ref = (packed.params - named_ref["params"]) / lr
+    out, far, err = bf16_beyond(g_got, g_ref, TOL_EPOCH)
+    if far or out > BF16_ULP_SHARE * g_ref.numel():
+        raise AssertionError(f"{what}: {out} of {g_ref.numel()} gradient elements beyond "
+                             f"{TOL_EPOCH} x max(1, |g|), {far} of them by more than a bf16 ulp")
+    compare({"loss": named_got["loss"]}, {"loss": named_ref["loss"]}, what, TOL_EPOCH)
+    log(tag, f"{what}: implied gradient of {g_ref.numel()} elements, largest |g| "
+             f"{float(g_ref.abs().max()):.3e}, {out} beyond {TOL_EPOCH} x max(1, |g|) (at most "
+             f"{BF16_ULP_SHARE:.1%}), each within a bf16 ulp of it; max |diff| {err:.3e}; second "
+             "run bitwise equal (ok)")
+    return err
+
+
+def bf16_run_held(what, got, ref, tag, note) -> float:
+    """A bf16 build after a run of several steps against its plain version,
+    kernel 2's criterion with the gradient checks' share: the parameters and
+    every optimizer slot within TOL_EPOCH x max(1, |ref|), or one bf16 ulp of
+    the value beyond it on at most BF16_ULP_SHARE of the elements; the loss,
+    the running statistics and the step count within TOL_EPOCH."""
+    notes, worst = [], 0.0
+    for key in sorted(k for k in got if k not in ("loss", "bn", "t")):
+        out, far, err = bf16_beyond(got[key], ref[key], TOL_EPOCH)
+        worst = max(worst, err)
+        notes.append(f"{key} {out} of {got[key].numel()} beyond (max |diff| {err:.3e})")
+        if far or out > BF16_ULP_SHARE * got[key].numel():
+            raise AssertionError(f"{what}: {key}: {out} of {got[key].numel()} elements beyond "
+                                 f"{TOL_EPOCH} x max(1, |ref|), {far} of them by more than a bf16 "
+                                 f"ulp (max |diff| {err:.3e})")
+    worst = max(worst, compare({k: got[k] for k in ("loss", "bn", "t")},
+                               {k: ref[k] for k in ("loss", "bn", "t")}, what, TOL_EPOCH))
+    log(tag, f"{what}: {note}; {', '.join(notes)}; loss, running statistics and steps within "
+             f"{TOL_EPOCH}; criterion: at most {BF16_ULP_SHARE:.1%} of the elements beyond "
+             f"{TOL_EPOCH} x max(1, |ref|), each within a bf16 ulp of it; second run bitwise "
+             "equal (ok)")
+    return worst
+
+
+def bf16_tie_rows(model, x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` whose hidden activations, taken in float64 from the bf16
+    operands through ``model``'s network, lie within BF16_TIE_ULPS float32
+    ulps of a bf16 rounding midpoint: there a float32 sum in another order
+    may round the activation to the other neighbour."""
+    from easyhybrid_tpu_torch.models.nn import get_activation
+    from easyhybrid_tpu_torch.ops.fused_forward import bf16_round
+
+    net = model.nn
+    was = net.training
+    net.eval()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    with torch.no_grad():
+        h = (net.norm(x) if net.norm is not None else x).double()
+        for layer in net.layers[:-1]:
+            z = bf16_round(h.float()).double() @ bf16_round(layer.weight).double().T
+            h = get_activation(layer.activation)(z + layer.bias.double())
+            a = h.float()
+            e = torch.frexp(a.abs())[1]
+            half = torch.ldexp(torch.ones_like(a), e - 9)
+            off = ((a - bf16_round(a)).abs() - half).abs() / torch.ldexp(torch.ones_like(a), e - 24)
+            near |= (off <= BF16_TIE_ULPS).any(1)
+    net.train(was)
+    return near
+
+
+def bf16_flip_bound(model, x: torch.Tensor, forcing: dict, names) -> dict:
+    """For each row of ``x`` and output in ``names``: how far one bf16 ulp on
+    every hidden activation of the row moves the output, carried through the
+    network and the rest of the model to first order,
+    ``sum_j |d out / d a_j| ulp(a_j)``, from a float32 copy of ``model``
+    whose weights are rounded to bf16. A tied activation rounded to its other
+    neighbour, and any activation downstream that this tips over, is one of
+    those terms."""
+    import copy
+
+    from easyhybrid_tpu_torch.ops.fused_forward import bf16_round
+
+    m = copy.deepcopy(model).eval()
+    acts = []
+
+    def probe(_module, _inputs, out):
+        p = torch.zeros_like(out, requires_grad=True)
+        acts.append((out.detach(), p))
+        return out + p
+
+    with torch.no_grad():
+        for layer in m.nn.layers:
+            layer.compute_dtype = None
+            layer.weight.copy_(bf16_round(layer.weight))
+    hooks = [layer.register_forward_hook(probe) for layer in m.nn.layers[:-1]]
+    try:
+        with torch.enable_grad():
+            out = m(x, forcing)
+            flat = {**{k: v for k, v in out.items() if k != "parameters"}, **out["parameters"]}
+            bound = {}
+            for k in names:
+                grads = torch.autograd.grad(flat[k].sum(), [p for _, p in acts],
+                                            retain_graph=True, allow_unused=True)
+                b = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+                for (a, _), g in zip(acts, grads):
+                    if g is not None:
+                        b += (g.double().abs() * bf16_ulp(a).double()).sum(1)
+                bound[k] = b
+    finally:
+        for h in hooks:
+            h.remove()
+    return bound
+
+
+def bf16_rows_held(what, got, ref, model, x, forcing) -> tuple:
+    """``compare`` on the rows away from a bf16 tie (``bf16_tie_rows``)
+    within TOL; each tied row within TOL x max(1, |ref|) plus its
+    ``bf16_flip_bound``; at most four times the expected share of the rows
+    tied (BF16_TIE_ULPS). Returns ``(max |diff| off the ties, tied rows,
+    their largest |diff|, the limit there)``."""
+    tie = bf16_tie_rows(model, x)
+    hidden = sum(model.nn.hidden)
+    share = 4 * hidden * 2 * BF16_TIE_ULPS / 2 ** 16
+    n_tie = int(tie.sum())
+    if n_tie > share * tie.numel():
+        raise AssertionError(f"{what}: {n_tie} of {tie.numel()} rows tie at a bf16 "
+                             f"boundary, more than {share:.1%}")
+    err = compare({k: v[~tie] for k, v in got.items()}, {k: v[~tie] for k, v in ref.items()}, what)
+    tie_err, tie_limit = 0.0, 0.0
+    if n_tie:
+        flip = bf16_flip_bound(model, x[tie], {k: v[tie] for k, v in forcing.items()}, list(got))
+        for k in got:
+            g, r = got[k][tie].double(), ref[k][tie].double()
+            diff = (g - r).abs()
+            limit = TOL * r.abs().clamp_min(1.0) + flip[k]
+            i = int(torch.argmax(diff / limit))
+            if not bool((diff <= limit).all()):
+                raise AssertionError(f"{what}: {k} differs by {float(diff[i]):.3e} on a row at a "
+                                     f"bf16 tie, beyond TOL x max(1, |ref|) plus one bf16 ulp on "
+                                     f"every hidden activation: {float(limit[i]):.3e}")
+            if float(diff[i]) >= tie_err:
+                tie_err, tie_limit = float(diff[i]), float(limit[i])
+    return err, n_tie, tie_err, tie_limit
+
+
+def bf16_forward_checks(et, ff) -> float:
+    """Phase 45a: kernel 1's bf16 build against its plain version on the card
+    (``bf16_rows_held``), a second run to the same bits, one launch to a
+    launch per chunk's bits: the quick-start at 131,072 rows, with NaN
+    predictor rows, and at width 64."""
+    cases = []
+    quick = build_model(et, **BF16)
+    cases.append(("bf16 quick-start [16,16] swish static N=131072 batch 1024", quick,
+                  *to_device(et, quick, et.rbq10_columns(N_ROWS, seed=42)), BATCH))
+    nan_cols = et.rbq10_columns(4096, seed=5)
+    nan_cols["sw_pot"][np.random.default_rng(5).random(4096) < 0.05] = np.nan
+    m = build_model(et, seed=5, **BF16)
+    cases.append(("bf16 quick-start with 5% NaN predictor rows N=4096", m,
+                  *to_device(et, m, nan_cols), BATCH))
+    m = build_model(et, hidden=(64, 48), activation="selu", seed=3, **BF16)
+    cases.append(("bf16 [64,48] selu static N=1025", m,
+                  *to_device(et, m, et.rbq10_columns(1025, seed=2)), BATCH))
+    worst = 0.0
+    for what, model, cx, cf, batch in cases:
+        fn = et.make_fused_forward(model, batch_size=batch)
+        if not fn.plan.bf16:
+            raise AssertionError(f"{what}: the plan is not bf16")
+        got = fn(cx, cf)
+        torch.cuda.synchronize()
+        again = fn(cx, cf)
+        if not all(torch.equal(bits(got[k]), bits(again[k])) for k in got):
+            raise AssertionError(f"{what}: a second run gave other bits")
+        chunked = launched_per_chunk(ff, fn, cx, cf)
+        if not all(torch.equal(bits(got[k]), bits(chunked[k])) for k in got):
+            raise AssertionError(f"{what}: one launch and a launch per chunk gave other bits")
+        err, n_tie, tie_err, tie_limit = bf16_rows_held(what, got, fn.reference(cx, cf), model,
+                                                        cx, cf)
+        worst = max(worst, err)
+        log("kernel1-bf16", f"{what}: width {fn.plan.width}; the rows off a bf16 tie within {TOL}: "
+                            f"max |diff| {err:.3e}; {n_tie} of {cx.shape[0]} rows at a tie, the "
+                            f"largest |diff| there {tie_err:.3e} against its limit {tie_limit:.3e} "
+                            "(TOL plus one bf16 ulp on every hidden activation, to first order); "
+                            "second run and a launch per chunk bitwise equal (ok)")
+    return worst
+
+
+def bf16_epoch_cases(et, quick_cols, mn):
+    """Phase 45b's kernel-2 cases: (what, fn, packed, tensors, perms, held), held
+    ``gradient`` (one sgd step at 1e-3) or ``run`` (two epochs of sgd at 0.05,
+    the JAX package's bf16 test's, or BF16_ADAM_STEPS steps of Adam; both by
+    ``bf16_run_held``)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    out = []
+    first = {k: v[:512] for k, v in quick_cols.items()}
+    adam_rows = {k: v[:512 * BF16_ADAM_STEPS] for k, v in quick_cols.items()}
+    for norm, name in (("static", "static norm"), (True, "trainable BN")):
+        quick = dict(hidden=(16, 16), act="swish", norm=norm, seed=0, dtype=torch.bfloat16)
+        out.append((*prepare_epoch_case(
+            et, fe, what=f"bf16 quick-start, {name}, the gradient: one sgd step at lr 1e-3 over "
+                         "the first 512 rows", cols=first, opt=("sgd", 1e-3), shuffle=False,
+            epochs=1, batch=512, **quick), "gradient"))
+        out.append((*prepare_epoch_case(
+            et, fe, what=f"bf16 quick-start, {name}, 16,000 rows, batch 512, sgd 0.05, "
+                         "shuffled, 2 epochs", cols=quick_cols, split=True, opt=("sgd", 0.05),
+            shuffle=True, epochs=2, batch=512, **quick), "run"))
+        out.append((*prepare_epoch_case(
+            et, fe, what=f"bf16 quick-start, {name}, adam 0.01, the first {BF16_ADAM_STEPS} "
+                         "batches of 512, 1 epoch", cols=adam_rows, opt=("adam", 0.01),
+            shuffle=False, epochs=1, batch=512, **quick), "run"))
+    # the example's rows (the first 80% train); a gradient case keeps one batch of them, an
+    # Adam case BF16_ADAM_STEPS
+    for opt, epochs, batches, what, held in (
+            (("sgd", 1e-3), 1, 1, "the gradient: one sgd step at lr 1e-3 over the first 256 "
+                                  "rows", "gradient"),
+            (("sgd", 0.05), 2, None, "the 1,600 training rows, sgd 0.05, shuffled, 2 epochs",
+             "run"),
+            (("adamw", 0.01), 1, BF16_ADAM_STEPS,
+             f"adamw 0.01 (the example's), the first {BF16_ADAM_STEPS} batches, 1 epoch", "run")):
+        m = mn["expo"](**BF16)
+        cols = expo_columns(EXPO_ROWS, seed=0)
+        if batches is not None:  # 80% of the rows kept train: ``batches`` batches of 256
+            cols = {k: v[:batches * 320] for k, v in cols.items()}
+        data = et.split_data(cols, m)[0]
+        fn, packed, tensors, perms = epoch_inputs(et, m, data, make=et.make_fused_epoch, opt=opt,
+                                                  batch=256, epochs=epochs,
+                                                  shuffle=batches is None, loss="nseLoss")
+        out.append((f"bf16 ExpoHybrid (MultiNN, two [1,16,16,1] branches), batch 256, nseLoss, "
+                    f"{what}", fn, packed, tensors, perms, held))
+    return out
+
+
+def bf16_epoch_checks(et, quick_cols, mn) -> float:
+    """Phase 45b: kernel 2's bf16 builds (``fused_epoch.cu``,
+    ``fused_epoch_multinn.cu``) against the plain version on the card, a
+    second run to the same bits; then a K = 4 member launch (an sgd sweep of
+    the bf16 quick-start) against the member axis's plain version, every
+    member bit for bit its launch alone."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    def named(p, o, loss):
+        return {"params": p.params, "bn": p.bn, **slots(o), "loss": loss.reshape(1)}
+
+    worst = 0.0
+    for what, fn, packed, tensors, perms, held in bf16_epoch_cases(et, quick_cols, mn):
+        if not fn.plan.bf16:
+            raise AssertionError(f"{what}: the plan is not bf16")
+        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+        torch.cuda.synchronize()
+        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
+        if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+            raise AssertionError(f"{what}: the kernel returned non-finite values")
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+        if held == "gradient":
+            worst = max(worst, bf16_gradient_held(what, got, ref, packed,
+                                                  dict(fn.plan.hyper)["learning_rate"],
+                                                  "kernel2-bf16"))
+        else:
+            worst = max(worst, bf16_run_held(what, got, ref, "kernel2-bf16",
+                                             f"{fe.kernel_source(fn.plan)}, "
+                                             f"{int(got['t'][0])} steps"))
+    model = build_model(et, **BF16)
+    split = et.split_data(quick_cols, model)[0]
+    specs = [("sgd", {"learning_rate": float(np.float32(lr))}) for lr in (5e-3, 1e-2, 2e-2, 5e-2)]
+    fn, packed, opt0, data = member_inputs(et, model, split, opt=specs[0], seeds=[0] * 4)
+    perms = torch.argsort(torch.rand((fn.epochs, data.n_batches * data.batch),
+                                     generator=torch.Generator(device="cuda").manual_seed(5),
+                                     device="cuda"), dim=1)
+    rows = fn.member_rows(data, 4, per_member_data=False, perms=perms)
+    got = member_fields(fn.members(packed, opt0, data, rows, specs=specs))
+    torch.cuda.synchronize()
+    again = member_fields(fn.members(packed, opt0, data, rows, specs=specs))
+    if not all(torch.equal(got[f], again[f]) for f in got):
+        raise AssertionError("bf16 member launch: a second run gave other bits")
+    what = "bf16 quick-start, K = 4 members (an sgd sweep 5e-3 to 5e-2), 2 epochs of 32 steps"
+    ref = member_fields(fe.fused_members_reference(fn.plan, packed, opt0, data, rows, specs=specs))
+    err = 0.0
+    for i in range(4):
+        err = max(err, bf16_run_held(f"{what}: member {i}",
+                                     {k: v[i].reshape(-1) if k == "loss" else v[i]
+                                      for k, v in got.items()},
+                                     {k: v[i].reshape(-1) if k == "loss" else v[i]
+                                      for k, v in ref.items()}, "kernel2-bf16", "K = 4"))
+    for i in range(4):
+        alone = member_alone(fe, fn, packed, opt0, data, rows, i, specs[i])
+        mine = {k: v[i] for k, v in got.items()}
+        if not all(torch.equal(mine[f], alone[f]) for f in alone):
+            raise AssertionError(f"{what}: member {i} differs from a launch of it alone")
+    log("kernel2-bf16", f"{what}: max |diff| vs plain {err:.3e}, every member equal to its "
+                        "launch alone, second run bitwise equal (ok)")
+    return max(worst, err)
+
+
+def bf16_wide_cases(et, train_cols, tutorial_cols):
+    """Phase 45c's kernel-3 cases, bf16: the tutorial's shape (batch 64, the
+    large_mlp_bf16 row's static norm), the tower at batch 1,024, a trainable
+    norm and nseLoss, each by its gradient through one sgd step, by a run of
+    sgd at 1e-3 (``bf16_run_held``) and by BF16_ADAM_STEPS steps of Adam
+    (BF16_TUTORIAL_ADAM_STEPS at batch 64; the Adam runs' criterion)."""
+    tutorial = {k: v[: TUTORIAL_ROWS * 4 // 5] for k, v in tutorial_cols.items()}
+    first = {k: v[:WIDE_BATCH] for k, v in train_cols.items()}
+    small = dict(hidden=WIDE_HIDDEN, act="swish", batch=TUTORIAL_BATCH, seed=0, dtype=torch.bfloat16)
+    tower = dict(hidden=WIDE_HIDDEN, act="swish", norm="static", batch=WIDE_BATCH, seed=0,
+                 dtype=torch.bfloat16)
+    out = []
+    for norm, name in (("static", "static norm"), (True, "trainable norm")):
+        out += [
+            dict(what=f"bf16 tutorial: tower, {name}, batch 64, the gradient: one sgd step at lr "
+                      "1e-3 over the first 64 rows", opt=("sgd", 1e-3), shuffle=False, epochs=1,
+                 held="bf16-gradient", norm=norm,
+                 cols={k: v[:TUTORIAL_BATCH] for k, v in tutorial.items()}, **small),
+            dict(what=f"bf16 tutorial: tower, {name}, batch 64 (1,024 rows), sgd 1e-3, "
+                      "shuffled, 2 epochs", opt=("sgd", 1e-3), shuffle=True, epochs=2,
+                 held="bf16-run", norm=norm, cols={k: v[:1024] for k, v in tutorial.items()},
+                 **small),
+            dict(what=f"bf16 tutorial: tower, {name}, adam 0.01, the first "
+                      f"{BF16_TUTORIAL_ADAM_STEPS} batches of 64, 1 epoch", opt=("adam", 0.01),
+                 shuffle=False, epochs=1, held="adam", norm=norm,
+                 cols={k: v[:TUTORIAL_BATCH * BF16_TUTORIAL_ADAM_STEPS]
+                       for k, v in tutorial.items()}, **small),
+        ]
+    for loss, epochs in (("mse", 2), ("nseLoss", 1)):
+        out += [
+            dict(what=f"bf16 tower {loss}, the gradient: one sgd step at lr 1e-3 over the first "
+                      "1,024 rows", opt=("sgd", 1e-3), shuffle=False, epochs=1,
+                 held="bf16-gradient", loss=loss, cols=first, **tower),
+            dict(what=f"bf16 tower {loss}: 16,384 rows, batch 1,024, sgd 1e-3, static norm, "
+                      f"shuffled, {epochs} epoch(s)", opt=("sgd", 1e-3), shuffle=True, epochs=epochs,
+                 held="bf16-run", loss=loss, cols=train_cols, **tower),
+            dict(what=f"bf16 tower {loss}, adam 0.01, the first {BF16_ADAM_STEPS} batches of "
+                      "1,024, 1 epoch", opt=("adam", 0.01), shuffle=False, epochs=1, held="adam",
+                 loss=loss, cols={k: v[:WIDE_BATCH * BF16_ADAM_STEPS] for k, v in train_cols.items()},
+                 **tower),
+        ]
+    return out
+
+
+def bf16_main_paths(et, ff, card, quick_cols, tutorial_cols, mn) -> dict:
+    """Phase 46: (a) the JAX bench's large_mlp_bf16 row through ``train()``:
+    kernel 3's bf16 build after its gate, 20 launcher calls, every step,
+    finite validation predictions, the best epoch's validation mse within
+    BF16_TORCH_FACTOR of the torch engine's on the same call, Q10 within 0.15
+    of 2.0; (b) the reference quick-start with bf16 operands on kernel 2, one
+    launch an epoch, Q10 within 0.15 and best val mse below 0.05; (c) its
+    ``predict`` at 131,072 rows on kernel 1, one launch, against the plain
+    module forward (``bf16_rows_held``); (d) examples/expo_hybrid.py's run with
+    bf16 operands on kernel 2's build of several networks, its best val
+    nseLoss within BF16_TORCH_FACTOR of the torch engine's."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    out = {}
+    what = (f"large_mlp_bf16 train() (MLP {list(WIDE_HIDDEN)}, static norm, bf16, "
+            f"{TUTORIAL_ROWS} rows, batch {TUTORIAL_BATCH}, adam, 20 epochs)")
+    run = loss_train(et, what, build_model(et, hidden=WIDE_HIDDEN, **BF16), tutorial_cols,
+                     fw.launch_fused_wide, "cuda_fused_wide", dict(TUTORIAL_KW))
+    result = run["result"]
+    n_batches = -(-(TUTORIAL_ROWS * 4 // 5) // TUTORIAL_BATCH)
+    steps = int(result.opt_state["t"][0])
+    if run["launches"] != TUTORIAL_KW["nepochs"] or steps != TUTORIAL_KW["nepochs"] * n_batches:
+        raise AssertionError(f"{what}: {run['launches']} launcher calls, {steps} steps")
+    t0 = time.perf_counter()
+    plain = et.train(build_model(et, hidden=WIDE_HIDDEN, **BF16), tutorial_cols, use_kernel=False,
+                     **TUTORIAL_KW)
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    mse, torch_mse = val_of(result, "mse", result.best_epoch), val_of(plain, "mse", plain.best_epoch)
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    if plain.epoch_path != "torch" or not mse < BF16_TORCH_FACTOR * torch_mse:
+        raise AssertionError(f"{what}: best val mse {mse:.6f}, the torch engine's {torch_mse:.6f} "
+                             f"({plain.epoch_path})")
+    if not abs(q10 - 2.0) < 0.15:
+        raise AssertionError(f"{what}: Q10 {q10:.4f}, not within 0.15 of 2.0")
+    log("main", f"[{card}] {what}: {steps} optimizer steps; best epoch {result.best_epoch}, its "
+                f"val mse {mse:.6f} (the torch engine on this card: {torch_mse:.6f}, limit "
+                f"{BF16_TORCH_FACTOR} x), Q10 {q10:.4f}; wall {run['wall']:.2f} s fused, "
+                f"{torch_wall:.2f} s torch (ok)")
+    out["fused_wide"] = dict(launches=run["launches"], wall=run["wall"], torch_wall=torch_wall,
+                             mse=mse, torch_mse=torch_mse, q10=q10, halted=halted(result))
+
+    what = "bf16 reference quick-start train() (static norm, rmsprop 1e-3, patience 30)"
+    model = build_model(et, norm="static", **BF16)
+    run = loss_train(et, what, model, quick_cols, fe.launch_fused_epoch, "cuda_fused_epoch",
+                     REFERENCE_KW)
+    result = run["result"]
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    if not (abs(q10 - 2.0) < 0.15 and result.best_loss < 0.05):
+        raise AssertionError(f"{what}: Q10 {q10:.4f}, best val mse {result.best_loss:.5f}")
+    log("main", f"{what}: Q10 {q10:.4f}, best val mse {result.best_loss:.5f} (ok)")
+    out["fused_epoch"] = dict(launches=run["launches"], halted=halted(result), q10=q10,
+                              best=result.best_loss)
+
+    fn = et.make_inference_fn(model, batch_size=BATCH)
+    if fn.engine != "cuda_fused_forward":
+        raise AssertionError(f"bf16 predict: engine {fn.engine!r}: {fn.engine_reason}")
+    cols = et.rbq10_columns(N_ROWS, seed=42)
+    ff.launch_fused_forward.launches = 0
+    pred = et.predict(model, cols, batch_size=BATCH)
+    torch.cuda.synchronize()
+    launches = ff.launch_fused_forward.launches
+    if launches != 1 or set(pred) != {"reco", "rb"}:
+        raise AssertionError(f"bf16 predict: {launches} launches, keys {sorted(pred)}")
+    x, forcing = device_inputs(et, model, cols)
+    model.eval()
+    with torch.no_grad():
+        plain = model(x, forcing)
+    err, n_tie, tie_err, tie_limit = bf16_rows_held(
+        "bf16 predict against the plain module forward",
+        {k: torch.from_numpy(v).cuda() for k, v in pred.items()},
+        {"reco": plain["reco"], "rb": plain["parameters"]["rb"]}, model, x, forcing)
+    log("main", f"bf16 predict: engine {fn.engine}, {launches} launch for {N_ROWS} rows at "
+                f"batch_size {BATCH}, keys {sorted(pred)}, max |diff| vs the plain module "
+                f"forward {err:.3e} off a bf16 tie; {n_tie} rows at a tie, the largest |diff| "
+                f"there {tie_err:.3e} against its limit {tie_limit:.3e} (ok)")
+    out["fused_forward"] = dict(launches=launches)
+
+    what = "bf16 ExpoHybrid train() (examples/expo_hybrid.py, MultiNN, adamw, nseLoss)"
+    run = loss_train(et, what, mn["expo"](**BF16), expo_columns(EXPO_ROWS, seed=0),
+                     fe.launch_fused_epoch, "cuda_fused_epoch", EXPO_TRAIN_KW)
+    plain = et.train(mn["expo"](**BF16), expo_columns(EXPO_ROWS, seed=0), use_kernel=False,
+                     **EXPO_TRAIN_KW)
+    best, torch_best = run["result"].best_loss, plain.best_loss
+    if not best < BF16_TORCH_FACTOR * torch_best:
+        raise AssertionError(f"{what}: best val nseLoss {best:.5f}, the torch engine's "
+                             f"{torch_best:.5f}")
+    log("main", f"{what}: best val nseLoss {best:.5f} (the torch engine on this card: "
+                f"{torch_best:.5f}) (ok)")
+    out["fused_epoch_multinn"] = dict(launches=run["launches"], halted=halted(run["result"]))
+    return out
+
+
+def bf16_times(et, card, quick_cols, train_cols, tutorial_cols, mn) -> dict:
+    """Phase 47: each bf16 build beside its float32 build in one call, in
+    turns: kernel 1's launch at 131,072 rows, kernel 2's epoch at the
+    quick-start's main shape and on the ExpoHybrid model, kernel 3's epoch at
+    the tutorial's shape (static norm: the large_mlp_bf16 row) and at the
+    tower's batch of 1,024; each bf16 build's plain version and bound (the
+    float32 build's bytes, which the bf16 build moves too while its operands
+    stay float32 in memory; its operations by type, ``bf16_step_ops``)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    tutorial = {k: v[: TUTORIAL_ROWS * 4 // 5] for k, v in tutorial_cols.items()}
+    shapes = {}
+    for dtype in ("float32", "bf16"):
+        kw = {} if dtype == "float32" else BF16
+        d = {} if dtype == "float32" else {"dtype": torch.bfloat16}
+        quick = build_model(et, **kw)
+        x, forcing = to_device(et, quick, et.rbq10_columns(N_ROWS, seed=42))
+        one = et.make_fused_forward(quick, batch_size=N_ROWS)
+        fwd = N_ROWS * forward_flops((2, 16, 16, 1))
+        shapes[("kernel 1, one launch of 131,072 rows", dtype)] = dict(
+            call=lambda one=one, x=x, f=forcing: one(x, f),
+            plain=lambda one=one, x=x, f=forcing: one.reference(x, f), reps=20, timer="events",
+            bound=bound(bytes_moved=N_ROWS * 4 * (3 + 2),
+                        **({"flops": fwd} if dtype == "float32" else {"bf16_flops": fwd})))
+        _, fn, packed, tensors, perms = prepare_epoch_case(
+            et, fe, **{**epoch_cases(et, quick_cols)[0], "epochs": 1, **d})
+        n = int(tensors.weight.numel())
+        fwd = n * forward_flops((2, 16, 16, 1))
+        shapes[("kernel 2, the quick-start's epoch (32 steps of 512, trainable BN, adam)", dtype)] = \
+            dict(fn=fn, packed=packed, tensors=tensors, perms=perms, reps=20, timer="events",
+                 bound=bound(bytes_moved=n * 4 * 6, **({"flops": 3 * fwd} if dtype == "float32"
+                                                      else bf16_step_ops(fwd))))
+        m = mn["expo"](**kw)
+        fn, packed, tensors, perms = epoch_inputs(
+            et, m, et.split_data(expo_columns(TRAIN_ROWS, seed=42), m)[0], make=et.make_fused_epoch,
+            opt=("adamw", 0.01), batch=512, epochs=1, shuffle=True, loss="nseLoss")
+        n = int(tensors.weight.numel())
+        fwd = n * sum(forward_flops(dims) for _, dims, _ in fn.plan.nets)
+        shapes[("kernel 2, the ExpoHybrid epoch (32 steps of 512, adamw, nseLoss)", dtype)] = dict(
+            fn=fn, packed=packed, tensors=tensors, perms=perms, reps=20, timer="events",
+            bound=bound(bytes_moved=n * 4 * 6, **({"flops": 3 * fwd} if dtype == "float32"
+                                                 else bf16_step_ops(fwd))))
+        for key, case in (("kernel 3, the tutorial's epoch (63 steps of 64, static norm)",
+                           dict(cols=tutorial, batch=TUTORIAL_BATCH)),
+                          ("kernel 3, the tower's epoch (16 steps of 1,024, static norm)",
+                           dict(cols=train_cols, batch=WIDE_BATCH))):
+            _, fn, packed, tensors, perms = prepare_wide_case(
+                et, what=key, hidden=WIDE_HIDDEN, act="swish", norm="static", opt=("adam", 0.01),
+                shuffle=True, epochs=1, seed=0, **case, **d)
+            nb, batch = (int(v) for v in tensors.weight.shape)
+            fwd = nb * batch * forward_flops(fn.plan.dims)
+            # float32: three products a step, each three TF32 passes (3xTF32)
+            shapes[(key, dtype)] = dict(
+                fn=fn, packed=packed, tensors=tensors, perms=perms, reps=2, timer="eh_wide_",
+                bound=bound(bytes_moved=nb * (batch * 4 * 6 + fn.plan.n_params * 4 * 6),
+                            **({"tf32_flops": 3 * 3 * fwd} if dtype == "float32"
+                               else bf16_step_ops(fwd))))
+    for s in shapes.values():
+        if "fn" in s:
+            opt0 = fresh_state(s["fn"], s["packed"])
+            s["call"] = (lambda s=s, o=opt0: s["fn"](s["packed"], o, s["tensors"], perms=s["perms"]))
+            s["plain"] = (lambda s=s, o=opt0: s["fn"].reference(s["packed"], o, s["tensors"],
+                                                                  perms=s["perms"]))
+        host_ms(s["call"], 2)
+    ms = {k: [] for k in shapes}
+    for i in range(4):
+        for key in (list(shapes) if i % 2 == 0 else list(reversed(list(shapes)))):
+            s = shapes[key]
+            ms[key].append(device_ms(s["call"], s["reps"], str(key)) if s["timer"] == "events"
+                           else kernel_device_ms(s["call"], s["reps"], s["timer"]))
+    out = {}
+    for (what, dtype), s in shapes.items():
+        med = statistics.median(ms[(what, dtype)])
+        entry = dict(ms=med, runs=ms[(what, dtype)], bound=s["bound"])
+        if dtype == "bf16":
+            entry["plain_ms"] = (profiled_device_ms(s["plain"], 1) if "fn" in s
+                                 else device_ms(s["plain"], s["reps"]))
+            f32 = statistics.median(ms[(what, "float32")])
+            log("times", f"[{card}] {what}, median of 4 in turns: bf16 {med:.4f} ms ("
+                         + ", ".join(f"{v:.4f}" for v in ms[(what, dtype)]) + f"), float32 "
+                         f"{f32:.4f} ms (" + ", ".join(f"{v:.4f}" for v in ms[(what, 'float32')])
+                         + f"): {med / f32 - 1:+.1%}; the bf16 plain version {entry['plain_ms']:.4f} "
+                         f"ms; bound {s['bound']['bound_ms']:.5f} ms ({s['bound']['bound_by']})")
+        out[(what, dtype)] = entry
     return out
 
 
@@ -4634,13 +5279,14 @@ def main() -> None:
     forms = traced_forms(et, models)
     n_traced = sum(len(keys) for keys in TRACED_BUILDS.values())
     n_losses = sum(len(keys) for keys in LOSS_BUILDS.values())
-    pool = concurrent.futures.ThreadPoolExecutor(3 + n_traced + n_losses)
+    pool = concurrent.futures.ThreadPoolExecutor(3 + n_traced + n_losses + len(BF16_BUILDS))
     stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
     ms_stamped_build = pool.submit(_build.build_variant, "fused_multisite.cu", ("-DEHM_STAMPS",))
     chain_build = pool.submit(_build.build_variant, "fused_epoch_lstm.cu", ("-DEHL_CHAIN_ONLY",))
     t_traced = time.perf_counter()
     traced_builds = start_traced_builds(pool, forms)
     loss_builds = start_loss_builds(et, pool)
+    bf16_builds = start_bf16_builds(pool, forms)
     pool.shutdown(wait=False)
     built = _build.build_library()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS[:2])} -> {built.path.name} "
@@ -4664,9 +5310,16 @@ def main() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log("build", f"{src} against the traced loss {key}: nvcc {result.seconds:.2f} s"
                      + (f"; {'; '.join(spills)}" if spills else ", no spills"))
+    for name, fut in bf16_builds.items():
+        result = fut.result()
+        spills = [ln.strip() for ln in result.log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        log("build", f"{name}, its bf16 build (-DEH_BF16): nvcc {result.seconds:.2f} s"
+                     + (f"; {'; '.join(spills)}" if spills else ", no spills"))
     traced_build_s = time.perf_counter() - t_traced
-    log("build", f"the {n_traced} traced form builds and {n_losses} traced loss builds, all at "
-                 f"once beside the library's: {traced_build_s:.2f} s wall")
+    log("build", f"the {n_traced} traced form builds, {n_losses} traced loss builds and "
+                 f"{len(BF16_BUILDS)} bf16 builds, all at once beside the library's: "
+                 f"{traced_build_s:.2f} s wall")
 
     # 3. kernel against the plain version --------------------------------------
     cases = []
@@ -4960,6 +5613,18 @@ def main() -> None:
     stats_ms = wide_stats_times(et, card, wide_train_cols, tutorial_cols)
     log("kernel3-stats", f"phases 42-44 added {time.perf_counter() - t0:.1f} s to the run (42 "
                          f"{t1 - t0:.1f} s, 43 {t2 - t1:.1f} s, 44 {time.perf_counter() - t2:.1f} s)")
+    # 45-47. compute_dtype=bfloat16 on kernels 1-3
+    t0 = time.perf_counter()
+    bf16_err = {"fused_forward": bf16_forward_checks(et, ff),
+                "fused_epoch": bf16_epoch_checks(et, quick_cols, mn),
+                "fused_wide": wide_kernel_checks(et, None, bf16_wide_cases(
+                    et, wide_train_cols, tutorial_cols), "kernel3-bf16")}
+    t1 = time.perf_counter()
+    bf16_main = bf16_main_paths(et, ff, card, quick_cols, tutorial_cols, mn)
+    t2 = time.perf_counter()
+    bf16_ms = bf16_times(et, card, quick_cols, wide_train_cols, tutorial_cols, mn)
+    log("bf16", f"phases 45-47 added {time.perf_counter() - t0:.1f} s to the run (45 "
+                f"{t1 - t0:.1f} s, 46 {t2 - t1:.1f} s, 47 {time.perf_counter() - t2:.1f} s)")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -5022,6 +5687,29 @@ def main() -> None:
         ("fused_wide [trainable BatchNorm]", "mse", "bn", "tutorial, trainable norm"),
         *[(f"fused_wide [loss {loss}]", loss, loss, f"tower {loss}") for loss in WIDE_MOMENT_LOSSES],
     ]]
+    bf16_entries = [{
+        "name": f"{name} [bf16]",
+        "route": "cuda",
+        "source": f"easyhybrid_tpu_torch/csrc/{name}.cu",  # built with -DEH_BF16
+        "replaces": replaces,
+        "launches": bf16_main[name]["launches"],  # phase 46's train() or predict
+        "max_abs_err": bf16_err["fused_epoch" if name == "fused_epoch_multinn" else name],
+        "ms": bf16_ms[(shape, "bf16")]["ms"],
+        "plain_ms": bf16_ms[(shape, "bf16")]["plain_ms"],
+        **bf16_ms[(shape, "bf16")]["bound"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "float32_ms": bf16_ms[(shape, "float32")]["ms"],  # the float32 build, same call
+    } for name, replaces, shape in (
+        ("fused_forward", "easyhybrid_tpu/ops/fused_forward.py:140",
+         "kernel 1, one launch of 131,072 rows"),
+        ("fused_epoch", "easyhybrid_tpu/ops/fused_epoch.py:2662",
+         "kernel 2, the quick-start's epoch (32 steps of 512, trainable BN, adam)"),
+        ("fused_epoch_multinn", "easyhybrid_tpu/ops/fused_epoch.py:2662",
+         "kernel 2, the ExpoHybrid epoch (32 steps of 512, adamw, nseLoss)"),
+        # kernel_body (:1268) with bf16 operands (forward_mlp / backward_mlp, :716-841)
+        ("fused_wide", "easyhybrid_tpu/ops/fused_epoch.py:2662",
+         "kernel 3, the tutorial's epoch (63 steps of 64, static norm)"),
+    )]
     log("smoke", f"the whole run {time.perf_counter() - t_start:.1f} s, of which the library's "
                  f"build {built.seconds:.1f} s and the traced builds' {traced_build_s:.1f} s of "
                  "wall beside it")
@@ -5230,7 +5918,7 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the step
         "members": len(MS_ENSEMBLE_KW["seeds"]),
         "k1_ms": ms_pop["k1_ms"],
-    }, *stats_entries]}))
+    }, *stats_entries, *bf16_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

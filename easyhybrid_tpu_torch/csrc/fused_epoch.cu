@@ -115,6 +115,19 @@
 // after the update is an exchange barrier, so that no block overwrites
 // partials another still reads.
 //
+// The bf16 build (-DEH_BF16, eh_device.cuh; a model with
+// compute_dtype=bfloat16, forward_mlp / backward_mlp of the JAX kernel with
+// bf16 operands, fused_epoch.py:716-841): each block keeps a second copy of
+// the parameters in the padded layout, rounded to bf16, from which the row
+// code reads every layer's weights (refreshed by the thread that updates a
+// parameter, right after its update); a row's normed input and each layer's
+// outputs are rounded to bf16 where they are stored as the next layer's
+// input and residual, each layer's input cotangent before the activation
+// derivative multiplies it; each weight's gradient is rounded to bf16 after
+// its whole-batch sum in the fixed order (the cluster's partials included),
+// before the rule. The norm, the biases, the globals and the update stay
+// float32.
+//
 // Built without --use_fast_math, as fused_forward.cu.
 
 #include <cstddef>
@@ -277,6 +290,16 @@ __device__ __forceinline__ EheUnit ehe_epoch_unit(const EhFusedEpochArgs& a, int
   return ehe_tail_unit(a, u, a.n_features, x);
 }
 
+// Whether packed parameter p is a layer weight of one of the networks (not a
+// bias, the norm's or a global): the bf16 build rounds its gradient.
+template <bool MULTI>
+__device__ __forceinline__ bool ehe_epoch_is_weight(const EhFusedEpochArgs& a, int p) {
+  for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b)
+    for (int l = 0; l < a.nets[b].n_layers; ++l)
+      if (p >= a.nets[b].p_off_w[l] && p < a.nets[b].p_off_b[l]) return true;
+  return false;
+}
+
 // Unit u from the table UT of the first n_unit_table units, or computed.
 template <bool MULTI>
 __device__ __forceinline__ EheUnit ehe_epoch_unit_at(const EhFusedEpochArgs& a, const int* UT,
@@ -327,6 +350,7 @@ template <int W, int LOSSES, bool MULTI>
 __global__ void __launch_bounds__(EHE_MAX_THREADS(W))
 eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   if (eh_halted(a.halt)) return;
+  constexpr bool BF16 = EH_BF16_BUILD;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster;
@@ -358,13 +382,17 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   int* const tk = a.t + member;
   const int* const perm = a.perm + member * a.perm_stride;
   float* Pm = sm;                 // parameters, padded layout
+  // the weights the rows read: the parameters, or in the bf16 build their
+  // copy rounded to bf16 beside them
+  float* PW = BF16 ? Pm + a.n_padded : Pm;
+  float* PE = Pm + (BF16 ? 2 : 1) * a.n_padded;  // past the parameters
   // the optimizer's slots: beside the parameters, or in device memory where
   // the state would leave no room for 32 rows (each element is one thread's
   // alone)
-  float* Mm = a.moments_shared ? Pm + a.n_padded : a.m + member * NP;
+  float* Mm = a.moments_shared ? PE : a.m + member * NP;
   float* Vm = a.moments_shared ? Mm + NP : a.v + member * NP;
   float* Um = a.moments_shared == 2 ? Vm + NP : (a.u != nullptr ? a.u + member * NP : nullptr);
-  float* Gr = Pm + a.n_padded + 2 * a.moments_shared * NP;  // this block's gradient partial
+  float* Gr = PE + 2 * a.moments_shared * NP;  // this block's gradient partial
   float* XL = Gr + NP;            // this block's loss partials, one a warp
   float* XS1 = XL + nw;           // count and mean partials, NS a warp
   float* XS2 = XS1 + nw * NS;     // variance partials, F a warp
@@ -398,7 +426,10 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const bool loss_sst = LOSSES != EHE_LOSS_MSE && a.loss_sst;
   const bool inline_moments = MOMENTS && a.block_rows <= nth;
 
-  for (int i = tid; i < a.n_padded; i += nth) Pm[i] = 0.0f;
+  for (int i = tid; i < a.n_padded; i += nth) {
+    Pm[i] = 0.0f;
+    if constexpr (BF16) PW[i] = 0.0f;
+  }
   {
     // the rule and its numbers: the shared struct's, a member's numbers in place
     const int* src = reinterpret_cast<const int*>(&a.optimizer);
@@ -413,6 +444,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const EhOptimizer& o = *reinterpret_cast<const EhOptimizer*>(OS);
   for (int i = tid; i < NP; i += nth) {
     Pm[ehe_epoch_padded_index<MULTI>(a, i)] = params[i];
+    if constexpr (BF16) PW[ehe_epoch_padded_index<MULTI>(a, i)] = ehe_bf16(params[i]);
     if (a.moments_shared) {
       Mm[i] = a.m[member * NP + i];
       Vm[i] = a.v[member * NP + i];
@@ -751,11 +783,12 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
               res[(a.r_off_xhat + c + k) * ld] = xh;
               x = xh * Pm[c + k] + Pm[F + c + k];
             }
+            if constexpr (BF16) x = ehe_bf16(x);  // the first layer's cast input
             res[(net.r_off_h[0] + k) * ld] = x;
           }
           h[0][k] = x;
         }
-        ehe_row_forward<W, 1, true>(net, Pm, h, res, ld, 0);
+        ehe_row_forward<W, 1, true, BF16>(net, Pm, h, res, ld, 0, PW);
       }
 
       // From here on the row's small vectors (the network's P outputs, the
@@ -920,7 +953,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
           const float* dv = dscv + o * ld;
           for (int j = 0; j < (MULTI ? net.dims[nl] : P); ++j)
             zd[j * ld] = (ov[j * ld] * dv[j * ld]) * zd[j * ld];
-          ehe_row_backward<W>(net, Pm, res, ld);
+          ehe_row_backward<W, BF16>(net, Pm, res, ld, PW);
         }
         EHE_STAMP(5);
         return term;
@@ -1025,6 +1058,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         float g = 0.0f;
         for (int rk = 0; rk < C; ++rk) g += (C > 1 ? cluster.map_shared_rank(Gr, rk) : Gr)[p];
         if (p >= a.p_off_g) g = g * DG[p - a.p_off_g];
+        if constexpr (BF16) g = ehe_epoch_is_weight<MULTI>(a, p) ? ehe_bf16(g) : g;
         return g;
       };
       // lamb: each leaf's trust ratio, a warp a leaf, into the residual tile
@@ -1050,6 +1084,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         const int pp = p == tid ? pp_first : ehe_epoch_padded_index<MULTI>(a, p);
         ehe_update(o, st, &Pm[pp], &Mm[p], &Vm[p], &Um[p], grad(p),
                    o.rule == OPT_LAMB ? TR[ehe_leaf_of(o, p)] : 1.0f);
+        if constexpr (BF16) PW[pp] = ehe_bf16(Pm[pp]);
       }
     }
     t += valid;
@@ -1144,6 +1179,12 @@ static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s)
   return ehe_launch_build<W, EHE_LOSS_ROWS>(args, smem, s);
 }
 
+template <int W>
+static int ehe_launch_built(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s) {
+  if constexpr (EH_HAS_WIDTH(W)) return ehe_launch<W>(args, smem, s);
+  else return (int)cudaErrorInvalidValue;
+}
+
 // Whether the networks are ones this build takes: one, or up to EH_MAX_NETS
 // (EHE_MULTI_NETS), each of 1 to EH_MAX_LAYERS layers.
 static bool ehe_nets_valid(const EhFusedEpochArgs* a) {
@@ -1157,7 +1198,9 @@ static bool ehe_nets_valid(const EhFusedEpochArgs* a) {
 // checks shapes, devices and the envelope before it gets here.
 extern "C" int EHE_LAUNCHER(const EhFusedEpochArgs* args, int width, void* stream) {
   if (args->n_epochs <= 0 || args->n_batches <= 0) return 0;
-  const size_t smem = ehe_smem_floats(args) * sizeof(float);
+  // the bf16 build keeps the parameters rounded to bf16 beside them
+  const size_t smem =
+      (ehe_smem_floats(args) + (EH_BF16_BUILD ? (size_t)args->n_padded : 0)) * sizeof(float);
   const int tr = args->tile_rows;
   const int c = args->cluster;
   if (smem > EH_MAX_SMEM_BYTES || !ehe_nets_valid(args) ||
@@ -1178,9 +1221,9 @@ extern "C" int EHE_LAUNCHER(const EhFusedEpochArgs* args, int width, void* strea
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {
-    case 16: return ehe_launch<16>(args, smem, s);
-    case 32: return ehe_launch<32>(args, smem, s);
-    case 64: return ehe_launch<64>(args, smem, s);
+    case 16: return ehe_launch_built<16>(args, smem, s);
+    case 32: return ehe_launch_built<32>(args, smem, s);
+    case 64: return ehe_launch_built<64>(args, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

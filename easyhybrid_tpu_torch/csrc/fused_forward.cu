@@ -33,6 +33,15 @@
 // Rows are independent: one launch over many chunks gives the same bits as
 // one launch per chunk.
 //
+// The bf16 build (-DEH_BF16, eh_device.cuh; a model with
+// compute_dtype=bfloat16, whose Dense the JAX kernel's model.apply runs,
+// easyhybrid_tpu/ops/fused_forward.py:103): each block rounds its copy of
+// every layer's weights to bf16 once, each row's normed input is rounded
+// before the first layer and every layer's outputs but the last as the row
+// code stores them, so that each product is of two bf16 values, exact in
+// float32, and the sums are float32, as jnp.dot(..., preferred_element_type=
+// float32) takes them.
+//
 // Built without --use_fast_math: NaN predictor rows propagate to NaN
 // outputs (relu is written so that it keeps NaN, as JAX's does).
 
@@ -77,7 +86,7 @@ struct EhFusedForwardArgs {
 // at tail_off neural lower and span (P each), globals raw, lower, span (G
 // each), fixed values (K); zeros to a multiple of 4.
 
-template <int W>
+template <int W, bool BF16>
 __global__ void __launch_bounds__(EH_BLOCK)
 eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
   constexpr int R = EH_ROWS;
@@ -97,6 +106,13 @@ eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
   for (int i = tid; i < a.blob_floats / 4; i += nth)
     reinterpret_cast<float4*>(Pm)[i] = reinterpret_cast<const float4*>(a.blob)[i];
   __syncthreads();
+  if constexpr (BF16) {  // the cast weights, in place (the padding stays 0)
+    for (int l = 0; l < L; ++l) {
+      float* w = Pm + a.pp_off_w[l];
+      const int n = a.dims[l + 1] * ((a.dims[l] + 3) & ~3);
+      for (int i = tid; i < n; i += nth) w[i] = ehe_bf16(w[i]);
+    }
+  }
   const float* nlo = Pm + a.tail_off;
   const float* nspan = nlo + P;
   const float* graw = nspan + P;
@@ -122,13 +138,13 @@ eh_fused_forward_kernel(const __grid_constant__ EhFusedForwardArgs a) {
         v = xr[k];
         if (a.has_norm) v = (v - Pm[k]) * RS[k] * Pm[2 * F + k] + Pm[3 * F + k];
       }
-      h[r][k] = v;
+      h[r][k] = BF16 ? ehe_bf16(v) : v;
     }
   }
 
   // this thread's column: output j of row r at (j R + r) nth
   float* col = SCR + tid;
-  ehe_row_forward<W, R, false>(a, Pm, h, col, R * nth, nth);
+  ehe_row_forward<W, R, false, BF16>(a, Pm, h, col, R * nth, nth, Pm);
 
   // the network's outputs are in the column: bound scaling, the form, writes
 #pragma unroll
@@ -174,15 +190,21 @@ static int eh_ff_launch(const EhFusedForwardArgs* args, size_t smem, cudaStream_
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        eh_fused_forward_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        eh_fused_forward_kernel<W, EH_BF16_BUILD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         EH_MAX_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
   const int64_t rows = (int64_t)EH_BLOCK * EH_ROWS;
   const unsigned grid = (unsigned)((args->n + rows - 1) / rows);
-  eh_fused_forward_kernel<W><<<grid, EH_BLOCK, smem, s>>>(*args);
+  eh_fused_forward_kernel<W, EH_BF16_BUILD><<<grid, EH_BLOCK, smem, s>>>(*args);
   return (int)cudaGetLastError();
+}
+
+template <int W>
+static int eh_ff_launch_built(const EhFusedForwardArgs* args, size_t smem, cudaStream_t s) {
+  if constexpr (EH_HAS_WIDTH(W)) return eh_ff_launch<W>(args, smem, s);
+  else return (int)cudaErrorInvalidValue;
 }
 
 // Launch once over the n rows on `stream`; returns cudaGetLastError() (0 on
@@ -199,9 +221,9 @@ extern "C" int eh_fused_forward(const EhFusedForwardArgs* args, int width, void*
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {
-    case 16: return eh_ff_launch<16>(args, smem, s);
-    case 32: return eh_ff_launch<32>(args, smem, s);
-    case 64: return eh_ff_launch<64>(args, smem, s);
+    case 16: return eh_ff_launch_built<16>(args, smem, s);
+    case 32: return eh_ff_launch_built<32>(args, smem, s);
+    case 64: return eh_ff_launch_built<64>(args, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -87,6 +87,23 @@
 // 0.064 ms a step; in 3xTF32 on the tensor cores (495 TFLOP/s, three products
 // each) 0.026 ms a step, 0.416 ms an epoch of 16 steps.
 //
+// The bf16 build (-DEH_BF16, eh_device.cuh; a model with
+// compute_dtype=bfloat16: forward_mlp / backward_mlp of the JAX kernel with
+// bf16 operands, fused_epoch.py:716-841, the bench's large_mlp_bf16 row):
+// the gather rounds the first layer's input to bf16 and each forward but
+// the last rounds its output as it stores it (the next layer's cast input
+// and the residual the weight gradient reads); a layer's weights are
+// rounded as its products stage them. A bf16 value is exact in TF32, its
+// small half zero, so a tensor-core product issues only the passes whose
+// operands are not both zero: the forward big x big alone, the data and
+// weight gradients (an f32 cotangent against bf16 weights or inputs)
+// small x big and big x big. Each data gradient is rounded to bf16 before
+// the activation derivative below multiplies it (and before the norm's
+// gradient reads it), each weight's gradient after the update has summed
+// its partials in split order, before the rule. The norm, the head, the
+// loss, the bias gradients and the update stay float32, and parameters and
+// activations stay float32 in memory.
+//
 // Built without --use_fast_math, as fused_forward.cu.
 
 #include "eh_device.cuh"
@@ -219,6 +236,7 @@ struct EhwProduct {
   float* da;           // forward: act'(C + b)
   float* out_t;        // forward, data: out again, feature-major (N x M), or null
   const int* halt;     // the step's halt word (eh_halted), or null
+  int round_out;       // forward, in the bf16 build: out rounded to bf16 (the next layer's input)
 };
 
 // Finishes the BM x BN output tile at (m0, n0) whose block has left its sums
@@ -229,8 +247,9 @@ struct EhwProduct {
 // memory in piece order, and finishes those rows; no partial goes to device
 // memory and no atomic is needed. Each thread finishes column tid % BN of its
 // rows; the feature-major copy is written after, neighbouring threads on
-// neighbouring rows.
-template <int BM, int BN, int THREADS>
+// neighbouring rows. BF16 (the bf16 build): a forward's output rounded to
+// bf16 where p.round_out asks, a data gradient before its scale.
+template <int BM, int BN, int THREADS, bool BF16 = false>
 __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int m0, int n0) {
   constexpr int LDT = BN + 1;
   constexpr int RSTEP = THREADS / BN;
@@ -274,7 +293,8 @@ __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int
     float* da = p.da + (int64_t)(m0 + rb0) * p.N + c;
     for (int rl = tid / BN; rl < rows; rl += RSTEP) {
       float d;
-      const float y = ehe_act(p.act, t[rl * LDT] + bias, &d);
+      const float act = ehe_act(p.act, t[rl * LDT] + bias, &d);
+      const float y = BF16 && p.round_out ? ehe_bf16(act) : act;
       out[(int64_t)rl * p.N] = y;
       da[(int64_t)rl * p.N] = d;
       t[rl * LDT] = y;
@@ -282,7 +302,8 @@ __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int
   } else if (col && p.mode == EHW_DATA) {
 #pragma unroll 4
     for (int rl = tid / BN; rl < rows; rl += RSTEP) {
-      const float y = p.scale_in_place ? t[rl * LDT] * out[(int64_t)rl * p.N] : t[rl * LDT];
+      const float c = BF16 ? ehe_bf16(t[rl * LDT]) : t[rl * LDT];
+      const float y = p.scale_in_place ? c * out[(int64_t)rl * p.N] : c;
       out[(int64_t)rl * p.N] = y;
       t[rl * LDT] = y;
     }
@@ -350,14 +371,14 @@ __device__ __forceinline__ void ehw_fetch(float (&reg)[EHW_SHARE], const float* 
   }
 }
 
-// Registers to the shared tile dst[k][i].
-template <bool KC>
+// Registers to the shared tile dst[k][i]; with RND rounded to bf16.
+template <bool KC, bool RND = false>
 __device__ __forceinline__ void ehw_stage(float (*dst)[EHW_LD], const float (&reg)[EHW_SHARE]) {
 #pragma unroll
   for (int q = 0; q < EHW_SHARE; ++q) {
     int i, k;
     ehw_tile_index<KC>(q, &i, &k);
-    dst[k][i] = reg[q];
+    dst[k][i] = RND ? ehe_bf16(reg[q]) : reg[q];
   }
 }
 
@@ -366,8 +387,9 @@ __device__ __forceinline__ void ehw_stage(float (*dst)[EHW_LD], const float (&re
 // A[m * lda + k] (AKC) or A[k * lda + m]; B(k, n) is B[n * ldb + k] (BKC) or
 // B[k * ldb + n]. With want_rowsum, thread t < EHW_TILE also returns the sum
 // over k of A(m0 + t, k), k ascending. The next tiles are fetched into
-// registers while the current ones are multiplied.
-template <bool AKC, bool BKC>
+// registers while the current ones are multiplied. RB (the bf16 build's
+// weights): B rounded to bf16 as it is staged.
+template <bool AKC, bool BKC, bool RB = false>
 __device__ __forceinline__ float ehw_product(const float* __restrict__ A, int lda,
                                              const float* __restrict__ B, int ldb, int m0, int M,
                                              int n0, int N, int k0, int k1, bool want_rowsum,
@@ -387,7 +409,7 @@ __device__ __forceinline__ float ehw_product(const float* __restrict__ A, int ld
   ehw_fetch<BKC>(rb, B, ldb, n0, N, k0, k1);
   for (int kt = k0; kt < k1; kt += EHW_BK) {
     ehw_stage<AKC>(As, ra);
-    ehw_stage<BKC>(Bs, rb);
+    ehw_stage<BKC, RB>(Bs, rb);
     __syncthreads();
     if (kt + EHW_BK < k1) {
       ehw_fetch<AKC>(ra, A, lda, m0, M, kt + EHW_BK, k1);
@@ -416,39 +438,42 @@ __device__ __forceinline__ float ehw_product(const float* __restrict__ A, int ld
 // A forward or data product on the FMA tile: this block's 64 x 64 tile over
 // its piece of the inner dimension, then ehw_finish. A is K-major (A[m * lda +
 // k]); B(k, n) is B[n * ldb + k] (BKC, the forward's W) or B[k * ldb + n] (the
-// data gradient's W).
-template <bool BKC>
+// data gradient's W). BF16: W rounded to bf16 (ehw_product) and the
+// bf16 build's finish.
+template <bool BKC, bool BF16>
 __device__ __forceinline__ void ehw_fma_product(const EhwProduct& p) {
   __shared__ float tile[EHW_TILE * (EHW_TILE + 1)];
   const int m0 = blockIdx.y * EHW_TILE;
   const int n0 = blockIdx.x * EHW_TILE;
   const int k0 = blockIdx.z * p.split_k;
   float acc[4][4];
-  ehw_product<true, BKC>(p.A, p.lda, p.B, p.ldb, m0, p.M, n0, p.N, k0, min(p.K, k0 + p.split_k),
-                         false, acc);
+  ehw_product<true, BKC, BF16>(p.A, p.lda, p.B, p.ldb, m0, p.M, n0, p.N, k0,
+                               min(p.K, k0 + p.split_k), false, acc);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) tile[(ty * 4 + i) * (EHW_TILE + 1) + tx * 4 + j] = acc[i][j];
-  ehw_finish<EHW_TILE, EHW_TILE, EHW_THREADS>(p, tile, m0, n0);
+  ehw_finish<EHW_TILE, EHW_TILE, EHW_THREADS, BF16>(p, tile, m0, n0);
 }
 
 // A = act(H W^T + b), DA = act'(H W^T + b): M rows, N = dout outputs, K = din
 // inputs. Grid (ceil(N / 64), ceil(M / 64), pieces).
+template <bool BF16>
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_forward_kernel(const __grid_constant__ EhwProduct p) {
   if (eh_halted(p.halt)) return;
-  ehw_fma_product<true>(p);
+  ehw_fma_product<true, BF16>(p);
 }
 
 // dZ_prev = (dZ W) times act'(z) of the layer below, in place: M rows, N =
 // din, K = dout.
+template <bool BF16>
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_bwd_data_kernel(const __grid_constant__ EhwProduct p) {
   if (eh_halted(p.halt)) return;
-  ehw_fma_product<false>(p);
+  ehw_fma_product<false, BF16>(p);
 }
 
 // Split blockIdx.z of the batch: dW[j][k] = sum_r dZ[r][j] H[r][k] over the
@@ -569,8 +594,10 @@ __device__ __forceinline__ void eht_fetch(float (&r)[I][8], const float* __restr
 
 // The fetched share, split into big = tf32(x) and small = tf32(x - big), into
 // a stage's two copies of the slice. Core matrix (g, c) (rows 8 g on, k 4 c
-// on) sits at floats (c G + g) 32, its row i at + 4 i.
-template <int I, int THREADS, int G>
+// on) sits at floats (c G + g) 32, its row i at + 4 i. With BF16 (a bf16
+// operand) x is rounded to bf16 first: exact in TF32, its small half is zero,
+// is not stored and no product reads it.
+template <int I, int THREADS, int G, bool BF16 = false>
 __device__ __forceinline__ void eht_stage(float* big, float* small, const float (&r)[I][8]) {
 #pragma unroll
   for (int q = 0; q < I; ++q) {
@@ -579,13 +606,16 @@ __device__ __forceinline__ void eht_stage(float* big, float* small, const float 
     float b[8], s[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      b[j] = eht_tf32(r[q][j]);
-      s[j] = eht_tf32(r[q][j] - b[j]);
+      const float x = BF16 ? ehe_bf16(r[q][j]) : r[q][j];
+      b[j] = eht_tf32(x);
+      s[j] = eht_tf32(x - b[j]);
     }
     *reinterpret_cast<float4*>(big + o) = make_float4(b[0], b[1], b[2], b[3]);
     *reinterpret_cast<float4*>(big + o + G * 32) = make_float4(b[4], b[5], b[6], b[7]);
-    *reinterpret_cast<float4*>(small + o) = make_float4(s[0], s[1], s[2], s[3]);
-    *reinterpret_cast<float4*>(small + o + G * 32) = make_float4(s[4], s[5], s[6], s[7]);
+    if constexpr (!BF16) {
+      *reinterpret_cast<float4*>(small + o) = make_float4(s[0], s[1], s[2], s[3]);
+      *reinterpret_cast<float4*>(small + o + G * 32) = make_float4(s[4], s[5], s[6], s[7]);
+    }
   }
 }
 
@@ -598,6 +628,11 @@ __device__ __forceinline__ void eht_row_sums(float (&rs)[I], const float (&r)[I]
     for (int j = 0; j < 8; ++j) rs[q] += r[q][j];
 }
 
+// The tensor-core product's operands: both float32 (3xTF32, three passes),
+// B bf16 (the bf16 build's data and weight gradients: A's small half against
+// B's big, then big x big), or both bf16 (its forward: big x big alone).
+enum { EHT_F32 = 0, EHT_BF16_B, EHT_BF16_AB };
+
 template <int BM, int BN>
 constexpr size_t eht_smem_bytes() {
   return (size_t)2 * 2 * (BM + BN) * EHW_TC_BK * sizeof(float);  // two stages of big and small
@@ -605,10 +640,11 @@ constexpr size_t eht_smem_bytes() {
 
 // The output tile (blockIdx.y, blockIdx.x) of BM x BN over piece blockIdx.z of
 // the inner dimension, by BM / 64 warpgroups: 3xTF32 products of the staged
-// slices, k ascending, then the mode's epilogue through shared memory.
-// Registers are capped so that three blocks of 64 x 64, or two of 128 x 64,
-// fit a multiprocessor beside their shared memory.
-template <int BM, int BN>
+// slices (the passes PREC leaves), k ascending, then the mode's epilogue
+// through shared memory. Registers are capped so that three blocks of
+// 64 x 64, or two of 128 x 64, fit a multiprocessor beside their shared
+// memory.
+template <int BM, int BN, int PREC = EHT_F32>
 __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(const __grid_constant__ EhwProduct p) {
   if (eh_halted(p.halt)) return;
   constexpr int THREADS = 2 * BM;
@@ -620,6 +656,8 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
   constexpr int SB = BN * EHW_TC_BK;
   constexpr int STAGE = 2 * (SA + SB);
   constexpr int LDT = BN + 1;  // row stride of the output tile in shared memory
+  constexpr bool RA = PREC == EHT_BF16_AB;  // A rounded to bf16 as it is staged
+  constexpr bool RB = PREC != EHT_F32;      // B rounded to bf16 as it is staged
   static_assert(BM * LDT <= 2 * STAGE, "the output tile must fit the stages");
   extern __shared__ __align__(128) float eht_smem[];
   const int tid = threadIdx.x;
@@ -653,8 +691,8 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
   eht_fetch<IA, THREADS>(ra, p.A, p.lda, m0, p.M, k0, k1, vec_a);
   eht_fetch<IB, THREADS>(rb, p.B, p.ldb, n0, p.N, k0, k1, vec_b);
   if (rowsums) eht_row_sums(rs, ra);
-  eht_stage<IA, THREADS, GA>(eht_smem, eht_smem + SA, ra);
-  eht_stage<IB, THREADS, GB>(eht_smem + 2 * SA, eht_smem + 2 * SA + SB, rb);
+  eht_stage<IA, THREADS, GA, RA>(eht_smem, eht_smem + SA, ra);
+  eht_stage<IB, THREADS, GB, RB>(eht_smem + 2 * SA, eht_smem + 2 * SA + SB, rb);
   if (slices > 1) {
     eht_fetch<IA, THREADS>(ra, p.A, p.lda, m0, p.M, k0 + EHW_TC_BK, k1, vec_a);
     eht_fetch<IB, THREADS>(rb, p.B, p.ldb, n0, p.N, k0 + EHW_TC_BK, k1, vec_b);
@@ -674,21 +712,26 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
     for (int ks = 0; ks < EHW_TC_BK / 8; ++ks) {
       const int ca = (2 * ks * GA + 8 * wg) * 32;  // this warpgroup's 64 rows, k-step ks
       const int cb = 2 * ks * GB * 32;
-      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_small + cb, GB * 128), ks > 0);
-      eht_wgmma(acc, eht_desc(a_small + ca, GA * 128), eht_desc(b_big + cb, GB * 128), 1);
+      if constexpr (PREC == EHT_F32) {
+        eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_small + cb, GB * 128), ks > 0);
+        eht_wgmma(acc, eht_desc(a_small + ca, GA * 128), eht_desc(b_big + cb, GB * 128), 1);
+      } else if constexpr (PREC == EHT_BF16_B) {
+        eht_wgmma(acc, eht_desc(a_small + ca, GA * 128), eht_desc(b_big + cb, GB * 128), ks > 0);
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < EHW_TC_BK / 8; ++ks) {
       const int ca = (2 * ks * GA + 8 * wg) * 32;
       const int cb = 2 * ks * GB * 32;
-      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_big + cb, GB * 128), 1);
+      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_big + cb, GB * 128),
+                PREC == EHT_BF16_AB ? ks > 0 : 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (t + 1 < slices) {
       float* next = eht_smem + ((t + 1) & 1) * STAGE;
       if (rowsums) eht_row_sums(rs, ra);
-      eht_stage<IA, THREADS, GA>(next, next + SA, ra);
-      eht_stage<IB, THREADS, GB>(next + 2 * SA, next + 2 * SA + SB, rb);
+      eht_stage<IA, THREADS, GA, RA>(next, next + SA, ra);
+      eht_stage<IB, THREADS, GB, RB>(next + 2 * SA, next + 2 * SA + SB, rb);
       if (t + 2 < slices) {
         const int k = k0 + (t + 2) * EHW_TC_BK;
         eht_fetch<IA, THREADS>(ra, p.A, p.lda, m0, p.M, k, k1, vec_a);
@@ -713,7 +756,7 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
     for (int i = 0; i < BN / 2; ++i)
       tile[(r0 + 8 * ((i / 2) % 2)) * LDT + c0 + 8 * (i / 4) + i % 2] = sum[i];
   }
-  ehw_finish<BM, BN, THREADS>(p, tile, m0, n0);
+  ehw_finish<BM, BN, THREADS, PREC != EHT_F32>(p, tile, m0, n0);
   const int64_t mn = (int64_t)p.M * p.N;
   float* part = p.out + (int64_t)blockIdx.z * p.M * (p.N + 1);  // weight: this piece's tile
   if (rowsums) {  // the four threads that fetched a row's chunks hold its sums
@@ -749,35 +792,38 @@ static cudaError_t ehw_launch_cluster(void (*kernel)(Params...), dim3 grid, int 
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int BM, int BN>
+template <int BM, int BN, int PREC>
 static cudaError_t eht_launch(const EhwProduct& p, int splits, cudaStream_t s) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
   if (p.mode != EHW_WEIGHT)
-    return ehw_launch_cluster(eh_wide_tc_kernel<BM, BN>, grid, 2 * BM, eht_smem_bytes<BM, BN>(),
-                              s, p);
-  eh_wide_tc_kernel<BM, BN><<<grid, 2 * BM, eht_smem_bytes<BM, BN>(), s>>>(p);
+    return ehw_launch_cluster(eh_wide_tc_kernel<BM, BN, PREC>, grid, 2 * BM,
+                              eht_smem_bytes<BM, BN>(), s, p);
+  eh_wide_tc_kernel<BM, BN, PREC><<<grid, 2 * BM, eht_smem_bytes<BM, BN>(), s>>>(p);
   return cudaGetLastError();
 }
 
 static bool eht_shape_ok(int bm, int bn) { return (bm == 64 || bm == 128) && bn == 64; }
 
 // Allows each instance its shared memory (above the default 48 KB).
+template <int PREC>
 static cudaError_t eht_allow_smem() {
-  cudaFuncSetAttribute(eh_wide_tc_kernel<64, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)eht_smem_bytes<64, 64>());
-  cudaFuncSetAttribute(eh_wide_tc_kernel<128, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)eht_smem_bytes<128, 64>());
+  cudaFuncSetAttribute(eh_wide_tc_kernel<64, 64, PREC>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)eht_smem_bytes<64, 64>());
+  cudaFuncSetAttribute(eh_wide_tc_kernel<128, 64, PREC>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)eht_smem_bytes<128, 64>());
   return cudaGetLastError();
 }
 
+template <int PREC>
 static cudaError_t eht_run(int bm, const EhwProduct& p, int splits, cudaStream_t s) {
-  return bm == 64 ? eht_launch<64, 64>(p, splits, s) : eht_launch<128, 64>(p, splits, s);
+  return bm == 64 ? eht_launch<64, 64, PREC>(p, splits, s) : eht_launch<128, 64, PREC>(p, splits, s);
 }
 
+template <bool BF16>
 static cudaError_t ehw_fma_run(bool forward, const EhwProduct& p, int splits, cudaStream_t s) {
   const dim3 grid((p.N + EHW_TILE - 1) / EHW_TILE, (p.M + EHW_TILE - 1) / EHW_TILE, splits);
-  return ehw_launch_cluster(forward ? eh_wide_forward_kernel : eh_wide_bwd_data_kernel, grid,
-                            EHW_THREADS, 0, s, p);
+  return ehw_launch_cluster(forward ? eh_wide_forward_kernel<BF16> : eh_wide_bwd_data_kernel<BF16>,
+                            grid, EHW_THREADS, 0, s, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -838,7 +884,8 @@ eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
 // The batch's rows through the row index, normed (by the running statistics
 // of a static norm, or by the batch's own, eh_wide_norm_stats_kernel): one
 // thread per (row, feature); also feature-major where layer 0 is on the
-// tensor cores.
+// tensor cores. BF16: the first layer's input rounded to bf16.
+template <bool BF16>
 __global__ void __launch_bounds__(256)
 eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (eh_halted(a.halt)) return;
@@ -855,6 +902,7 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
     a.ws[a.ws_off_xhat + e] = xh;
     h = xh * a.params[k] + a.params[F + k];
   }
+  if constexpr (BF16) h = ehe_bf16(h);
   a.ws[a.ws_off_h0 + e] = h;
   if (a.tc[0]) a.ws[a.ws_off_ht[0] + (int64_t)k * a.batch + r] = h;
 }
@@ -1219,7 +1267,9 @@ eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a) {
 // the parameters, moments and partials once, and a register budget of 40 a
 // thread keeps enough of their loads in flight (at 48, ptxas's own choice,
 // the adam update took 32 us a step of the tower against 27 on an NVIDIA
-// H100 80GB HBM3 at 700 W).
+// H100 80GB HBM3 at 700 W). BF16: each weight's gradient rounded to bf16
+// after its sum, before the rule.
+template <bool BF16>
 __global__ void __launch_bounds__(256, 6)
 eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int tiles, int pass) {
   if (eh_halted(a.halt)) return;
@@ -1273,6 +1323,10 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
         const int k = k0 + tx;
         if (j < dout && k < din) g[q] += part[s * size + (int64_t)j * din + k];
       }
+    }
+    if constexpr (BF16) {
+#pragma unroll
+      for (int q = 0; q < PER; ++q) g[q] = ehe_bf16(g[q]);
     }
     if (pass == 0) {
       float ps = 0.0f, ds = 0.0f;
@@ -1350,6 +1404,7 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
     const float* part = a.partials + a.part_off[l] + (gid - a.p_off_w[l]);
 #pragma unroll 4
     for (int s = 0; s < a.splits[l]; ++s) g += part[s * size];
+    if constexpr (BF16) g = gid < a.p_off_b[l] ? ehe_bf16(g) : g;  // a weight, not the bias
   }
   if (pass == 0) {
     float pv = 0.0f, d = 0.0f;
@@ -1440,13 +1495,19 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       return (int)cudaErrorInvalidValue;
   }
 
+  // the bf16 build's products: the forward's operands both bf16, the
+  // gradients' B (weights, layer inputs) bf16 against an f32 cotangent
+  constexpr bool BF16 = EH_BF16_BUILD;
+  constexpr int FWD = BF16 ? EHT_BF16_AB : EHT_F32;
+  constexpr int BWD = BF16 ? EHT_BF16_B : EHT_F32;
   cudaStream_t s = (cudaStream_t)stream;
   const int F = a.dims[0];
   float* ws = a.ws;
   const int gather_blocks = (int)(((int64_t)B * F + 255) / 256);
   const int tiles = ehw_weight_tiles(a);
   const int update_blocks = tiles + (int)((ehw_loose_params(a) + 1 + 255) / 256);
-  EHW_TRY(eht_allow_smem());
+  EHW_TRY(eht_allow_smem<FWD>());
+  if (BWD != FWD) EHW_TRY(eht_allow_smem<BWD>());
   if (tiles > 0) {
     eh_wide_transpose_kernel<<<tiles, 256, 0, s>>>(a);
     EHW_TRY(cudaGetLastError());
@@ -1456,7 +1517,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   for (int step = 0; step < steps; ++step) {
     if (a.norm_mode == NORM_TRAIN)
       eh_wide_norm_stats_kernel<<<F, EHW_HEAD_THREADS, 0, s>>>(a, step);
-    eh_wide_gather_kernel<<<gather_blocks, 256, 0, s>>>(a, step);
+    eh_wide_gather_kernel<BF16><<<gather_blocks, 256, 0, s>>>(a, step);
     EHW_TRY(cudaGetLastError());
     for (int l = 0; l < L; ++l) {  // A = act(H W^T + b), and H^T of the next layer where it takes it
       const int din = a.dims[l];
@@ -1476,8 +1537,9 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       p.da = ws + a.ws_off_d[l];
       p.out_t = l + 1 < L && a.tc[l + 1] ? ws + a.ws_off_ht[l + 1] : nullptr;
       p.halt = a.halt;
-      EHW_TRY(a.tc[l] ? eht_run(a.fwd_bm[l], p, a.fwd_splits[l], s)
-                      : ehw_fma_run(true, p, a.fwd_splits[l], s));
+      p.round_out = l + 1 < L;
+      EHW_TRY(a.tc[l] ? eht_run<FWD>(a.fwd_bm[l], p, a.fwd_splits[l], s)
+                      : ehw_fma_run<BF16>(true, p, a.fwd_splits[l], s));
     }
     if (two_pass) {  // the batch's prediction moments first
       eh_wide_head_kernel<true><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 0);
@@ -1505,7 +1567,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.mode = EHW_WEIGHT;
         p.out = a.partials + a.part_off[l];
         p.halt = a.halt;
-        EHW_TRY(eht_run(a.wgt_bm[l], p, a.splits[l], s));
+        EHW_TRY(eht_run<BWD>(a.wgt_bm[l], p, a.splits[l], s));
       } else {
         const float* h = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
         const dim3 wgrid(ehw_ceil_div(din, EHW_TILE), ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
@@ -1529,14 +1591,14 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.out = ws + (l > 0 ? a.ws_off_d[l - 1] : a.ws_off_d0);
         p.out_t = l > 0 && a.tc[l - 1] ? ws + a.ws_off_dt[l - 1] : nullptr;
         p.halt = a.halt;
-        EHW_TRY(a.tc[l] ? eht_run(a.dat_bm[l], p, a.dat_splits[l], s)
-                        : ehw_fma_run(false, p, a.dat_splits[l], s));
+        EHW_TRY(a.tc[l] ? eht_run<BWD>(a.dat_bm[l], p, a.dat_splits[l], s)
+                        : ehw_fma_run<BF16>(false, p, a.dat_splits[l], s));
       }
     }
     if (norm) eh_wide_norm_grad_kernel<<<a.norm_splits, 128, 0, s>>>(a);
     if (a.optimizer.rule == OPT_LAMB)  // its leaves' norms first
-      eh_wide_update_kernel<<<update_blocks, 256, 0, s>>>(a, step, tiles, 0);
-    eh_wide_update_kernel<<<update_blocks, 256, 0, s>>>(a, step, tiles, 1);
+      eh_wide_update_kernel<BF16><<<update_blocks, 256, 0, s>>>(a, step, tiles, 0);
+    eh_wide_update_kernel<BF16><<<update_blocks, 256, 0, s>>>(a, step, tiles, 1);
     EHW_TRY(cudaGetLastError());
   }
   return (int)cudaGetLastError();
@@ -1549,7 +1611,7 @@ extern "C" int eh_wide_tc_product(const float* A, int lda, const float* B, int l
                                   void* stream) {
   if (M < 1 || N < 1 || K < 1 || lda < K || ldb < K || !ehw_product_ok(true, bm, bn, K, splits, split_k))
     return (int)cudaErrorInvalidValue;
-  EHW_TRY(eht_allow_smem());
+  EHW_TRY(eht_allow_smem<EHT_F32>());
   EhwProduct p = {};
   p.A = A;
   p.lda = lda;
@@ -1561,5 +1623,5 @@ extern "C" int eh_wide_tc_product(const float* A, int lda, const float* B, int l
   p.split_k = split_k;
   p.mode = EHW_RAW;
   p.out = C;
-  return (int)eht_run(bm, p, splits, (cudaStream_t)stream);
+  return (int)eht_run<EHT_F32>(bm, p, splits, (cudaStream_t)stream);
 }

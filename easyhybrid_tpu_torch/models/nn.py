@@ -118,8 +118,12 @@ def glorot_uniform(
 class Dense(nn.Module):
     """Affine layer ``act(x @ W.T + b)`` with ``(batch, feat)`` inputs.
 
-    ``compute_dtype`` runs the product in that dtype (e.g. bfloat16) and
-    returns float32.
+    ``compute_dtype`` (e.g. bfloat16) rounds both operands to that dtype
+    and multiplies the rounded values in float32, as the JAX ``Dense``'s
+    ``jnp.dot(..., preferred_element_type=float32)`` does: the products of
+    two bfloat16 values are exact and are summed in float32, and autograd's
+    cast rounds the operands' gradients to the compute dtype as JAX's cast
+    VJP does. The output is float32.
     """
 
     def __init__(
@@ -147,8 +151,8 @@ class Dense(nn.Module):
     def forward(self, x):
         w = self.weight
         if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-            w = w.to(self.compute_dtype)
+            x = x.to(self.compute_dtype).to(torch.float32)
+            w = w.to(self.compute_dtype).to(torch.float32)
         y = F.linear(x, w).to(torch.float32)
         if self.bias is not None:
             y = y + self.bias

@@ -16,7 +16,9 @@ A model whose mechanistic function is traced (``ops/kernel_forms.py``), or
 that trains on a traced elementwise loss, runs each kernel from a library of
 that kernel's source built against the form's and the loss's headers
 (:func:`form_library`): one ``nvcc`` run per kernel, form and loss, kept on
-disk under the same directory and reused by later processes.
+disk under the same directory and reused by later processes. A model with
+``compute_dtype=torch.bfloat16`` runs each kernel from its source's bf16 build
+(:func:`bf16_defines`), made the same way at the first call that asks for it.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 __all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "measuring_library",
-           "form_build", "form_library", "kernel_library", "nvcc_seconds", "BuildResult"]
+           "form_build", "form_library", "kernel_library", "nvcc_seconds", "BuildResult",
+           "bf16_defines"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE_DIR / "csrc"
@@ -299,14 +302,25 @@ def form_library(source: str, form, *defines: str, loss=None) -> ctypes.CDLL:
     return _form_libs[key]
 
 
-def kernel_library(source: str, form, loss=None) -> ctypes.CDLL:
+def bf16_defines(width: Optional[int] = None) -> Tuple[str, ...]:
+    """The defines of a source's bf16 build: ``-DEH_BF16`` and, for a source
+    whose kernels are instantiated by width (kernels 1 and 2), the one width
+    the plan launches (``-DEH_ONLY_WIDTH``): a bf16 model's first call
+    compiles a third of the source, and the launcher refuses other widths."""
+    return ("-DEH_BF16",) + (() if width is None else (f"-DEH_ONLY_WIDTH={int(width)}",))
+
+
+def kernel_library(source: str, form, loss=None, *, bf16: bool = False,
+                   width: Optional[int] = None) -> ctypes.CDLL:
     """The library whose ``source`` kernel evaluates ``form`` and the
     training loss: the package's for a hand-written form and a loss the
     kernels hold (mse, mae, ...), :func:`form_library` for a traced form or
-    a traced elementwise ``loss``."""
-    if form.header is None and loss is None:
+    a traced elementwise ``loss``; with ``bf16`` (a model with
+    ``compute_dtype=torch.bfloat16``) the source's bf16 build at ``width``
+    (:func:`bf16_defines`), made at the first call that asks for it."""
+    if form.header is None and loss is None and not bf16:
         return load_library()
-    return form_library(source, form, loss=loss)
+    return form_library(source, form, *(bf16_defines(width) if bf16 else ()), loss=loss)
 
 
 @functools.lru_cache(maxsize=None)

@@ -97,6 +97,8 @@ from .fused_forward import (
     _arg_sources,
     _form_of,
     _probe_outputs,
+    bf16_round,
+    is_bf16,
     model_branches,
 )
 
@@ -199,12 +201,13 @@ def _layout_sizes(model) -> Tuple[int, int]:
     return lay.p_g + len(model.global_param_names), lay.res_floats
 
 
-def _envelope_floats(n_params, f, n_consts, g, k, t, tile_rows, res) -> int:
+def _envelope_floats(n_params, f, n_consts, g, k, t, tile_rows, res, bf16=False) -> int:
     """The floats that decide the envelope: the state four times over (the
-    parameters, two moments, a gradient), the small vectors and a tile of
+    parameters, two moments, a gradient), five under ``bf16`` (the bf16
+    build's rounded copy of the parameters), the small vectors and a tile of
     ``tile_rows`` residual rows with a pad column."""
-    return (4 * n_params + 2 * f + n_consts + 2 * g + k + 3 * f + t + 4 + tile_rows
-            + max(res, f + t) * (tile_rows + 1))
+    return ((5 if bf16 else 4) * n_params + 2 * f + n_consts + 2 * g + k + 3 * f + t + 4
+            + tile_rows + max(res, f + t) * (tile_rows + 1))
 
 
 def _tile_rows(model) -> Optional[int]:
@@ -220,7 +223,7 @@ def _tile_rows(model) -> Optional[int]:
     t = len(model.targets)
     for rows in _TILE_ROWS:
         if 4 * _envelope_floats(n_params, f, 2 * p + 2 * g + k, g, k, t, rows,
-                                res) <= MAX_SMEM_BYTES:
+                                res, is_bf16(model)) <= MAX_SMEM_BYTES:
             return rows
     return None
 
@@ -262,7 +265,8 @@ def _loss_floats(loss: str, nw: int, t: int) -> int:
 def _smem_floats(*, n_padded, n_params, f, p, g, k, t, n_forcing, threads, res, stages,
                  moments_shared, n_unit_table, loss_floats=0) -> int:
     """Shared-memory floats of one launch of ``threads`` threads;
-    ``ehe_smem_floats`` in csrc/fused_epoch.cu computes the same."""
+    ``ehe_smem_floats`` in csrc/fused_epoch.cu computes the same (a bf16
+    build's launcher adds ``n_padded``: :meth:`FusedEpochPlan.smem_bytes`)."""
     nw = threads // 32
     cols = f + n_forcing + 2 * t
     return (n_padded + (1 + 2 * moments_shared) * n_params + nw * (1 + t + 2 * f) + 2 * f + (2 * p + 2 * g + k)
@@ -301,7 +305,9 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     The envelope: the JAX kernel's branch view (``branches_unsupported_reason``):
     a SingleNN MLP hybrid, a MultiNN hybrid of up to :data:`MAX_NETS` MLP
     branches (one a neural parameter) or a model with globals only, in
-    float32, each network inside the fused forward's widths and depth, with
+    float32 (its products on bf16 operands under ``compute_dtype=
+    torch.bfloat16``, the kernel's bf16 build), each network inside the fused
+    forward's widths and depth, with
     any of the three input-norm forms, one for all branches; a
     training loss of :data:`FUSED_LOSSES` or an ``ElementwiseLoss`` the
     tracer expresses (:func:`loss_reason`), with ``agg`` sum or mean and no
@@ -733,6 +739,7 @@ class FusedEpochPlan(PackedLayout):
     loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
     cluster: int = 0  # kernel 2's cluster size when set (a measurement's), else by the batch
+    bf16: bool = False  # compute_dtype=bfloat16: the kernel's bf16 build (csrc/eh_device.cuh)
 
     @functools.cached_property
     def branch_layout(self) -> BranchLayout:
@@ -765,8 +772,10 @@ class FusedEpochPlan(PackedLayout):
                                                       self.has_norm, len(self.global_names)))
 
     def smem_bytes(self, threads: int, stages: int, moments_shared: int) -> int:
-        """Shared memory of one launch of kernel 2 with ``threads`` threads."""
-        return 4 * _smem_floats(
+        """Shared memory of one launch of kernel 2 with ``threads`` threads;
+        a bf16 build keeps the parameters rounded to bf16 beside them
+        (``n_padded`` floats more)."""
+        return 4 * (self.branch_layout.n_padded if self.bf16 else 0) + 4 * _smem_floats(
             n_padded=self.branch_layout.n_padded,
             n_params=self.n_params, f=self.n_features, p=self.n_neural,
             g=len(self.global_names), k=len(self.fixed_names), t=len(self.target_names),
@@ -943,6 +952,7 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
         tile_rows=tile_rows,
         res_floats=_layout_sizes(model)[1],
         n_sites=n_sites,
+        bf16=is_bf16(model),
         **shared_plan_fields(model, optimizer, logging, names),
     )
 
@@ -1107,12 +1117,14 @@ def reference_forward(plan, p, bn, consts, x) -> _Forward:
     for net in lay.nets:
         dims = net.dims
         hb = h[:, net.col : net.col + dims[0]]
-        hs_b, d_b = [hb], []
+        hs_b, d_b = [], []
         for i, act in enumerate(net.acts):
             w = p[net.p_w[i] : net.p_b[i]].view(dims[i + 1], dims[i])
             b = p[net.p_b[i] : net.p_b[i] + dims[i + 1]]
-            hb, d = _act_and_grad(act, hb @ w.T + b)
+            if plan.bf16:  # the cast operands; the cast input is the residual
+                hb, w = bf16_round(hb), bf16_round(w)
             hs_b.append(hb)
+            hb, d = _act_and_grad(act, hb @ w.T + b)
             d_b.append(d)
         hs.append(hs_b)
         dacts.append(d_b)
@@ -1168,7 +1180,9 @@ def reference_cotangents(plan, neural, parts, cots):
 def reference_backward(plan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
     """The hand-written backward of every network: the gradients of the
     norm's scales and biases and of every layer's weight and bias, in
-    packed order."""
+    packed order. Under ``plan.bf16`` the weight gradients and each layer's
+    input cotangent are rounded to bfloat16 after their float32 sums, as
+    the cast's VJP rounds them in ``backward_mlp``."""
     lay = _layout_of(plan)
     D_all = dn * fwd.dneural
     d0 = torch.zeros_like(fwd.xhat) if plan.has_norm else None
@@ -1177,12 +1191,13 @@ def reference_backward(plan, p, fwd: _Forward, dn) -> List[torch.Tensor]:
         dims = net.dims
         D = D_all[:, net.out : net.out + dims[-1]]
         layer_grads = []
+        rnd = bf16_round if plan.bf16 else (lambda t: t)
         for i in range(len(net.acts) - 1, -1, -1):
             D = D * dacts[i]
-            layer_grads.append((D.T @ hs[i], D.sum(0)))
+            layer_grads.append((rnd(D.T @ hs[i]), D.sum(0)))
             if i > 0 or plan.has_norm:
                 w = p[net.p_w[i] : net.p_b[i]].view(dims[i + 1], dims[i])
-                D = D @ w
+                D = rnd(D @ rnd(w))
         if plan.has_norm:
             d0[:, net.col : net.col + dims[0]] = D
         for gw, gb in reversed(layer_grads):
@@ -1486,7 +1501,8 @@ def launch_fused_epoch(plan: FusedEpochPlan, packed: FusedParams, opt_state, dat
     a = launch_args(plan, packed, opt_state, data, rows, loss, stamps=stamps, halt=halt,
                     member_opt=member_opt)
     source = kernel_source(plan)
-    lib = lib or _build.kernel_library(source, plan.form, plan.loss_form)
+    lib = lib or _build.kernel_library(source, plan.form, plan.loss_form, bf16=plan.bf16,
+                                     width=plan.width)
     entry = _build.LAUNCHERS[source][0]
     size = getattr(lib, entry + "_args_size")()
     if size != ctypes.sizeof(_Args):
@@ -1589,8 +1605,9 @@ def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: Epoc
     stamps = torch.zeros((len(STAGES) + 1,), dtype=torch.int64, device=data.x.device)
     source = kernel_source(plan)
     launch_fused_epoch(plan, packed, opt_state, data, rows, loss,
-                       lib=_build.measuring_library(source, _build.LAUNCHERS[source][0],
-                                                    "-DEHE_STAMPS"),
+                       lib=_build.measuring_library(
+                           source, _build.LAUNCHERS[source][0], "-DEHE_STAMPS",
+                           *(_build.bf16_defines(plan.width) if plan.bf16 else ())),
                        stamps=stamps)
     return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 

@@ -54,6 +54,8 @@ __all__ = [
     "make_fused_forward",
     "fused_forward_reference",
     "launch_fused_forward",
+    "bf16_round",
+    "is_bf16",
 ]
 
 # caps of the kernel; they must equal the EH_MAX_* defines of the source
@@ -178,7 +180,8 @@ def fused_forward_unsupported_reason(model, *, training: bool = False,
     no input norm) plus this kernel's own limits: a mechanistic function
     the kernel forms take (tagged, or traced from the function) whose
     arguments all resolve, the 12
-    named activations, float32 with no ``compute_dtype``, and widths,
+    named activations, float32 parameters with no ``compute_dtype`` or
+    ``compute_dtype=torch.bfloat16`` (:func:`is_bf16`), and widths,
     depth and parameter counts within the caps above. ``training=True``
     asks for the model checks the one-network training kernels (3 and 5)
     share: trainable input BatchNorm is allowed there, and each kernel
@@ -234,6 +237,8 @@ def branches_unsupported_reason(model) -> Optional[str]:
                 f"parameters {list(model.neural_param_names)}")
     if len({net.input_batchnorm for _, net in branches}) > 1:
         return "branches with different input norms (the kernel takes one mode for all)"
+    if len({net.compute_dtype for _, net in branches}) > 1:
+        return "branches with different compute_dtype (the kernel takes one for all)"
     reason = float32_reason(model)
     if reason is not None:
         return reason
@@ -246,8 +251,9 @@ def _network_reason(net, *, training: bool, max_width: int) -> Optional[str]:
         return f"the network is a {type(net).__name__}, not an MLP"
     if net.input_batchnorm is True and not training:
         return "trainable input BatchNorm (input_batchnorm=True) is outside the kernel"
-    if net.compute_dtype is not None:
-        return f"compute_dtype={net.compute_dtype} (the kernel runs float32)"
+    if net.compute_dtype is not None and net.compute_dtype != torch.bfloat16:
+        return (f"compute_dtype={net.compute_dtype} (the kernels take bfloat16 only, as the JAX "
+                "kernel does)")
     for layer in net.layers:
         if not isinstance(layer.activation, str) or layer.activation not in _ACT_IDS:
             return f"activation {layer.activation!r} is not one of the kernel's {len(_ACT_IDS)} names"
@@ -257,6 +263,14 @@ def _network_reason(net, *, training: bool, max_width: int) -> Optional[str]:
     if len(dims) - 1 > MAX_LAYERS:
         return f"{len(dims) - 1} layers exceed the kernel's cap of {MAX_LAYERS}"
     return None
+
+
+def is_bf16(model) -> bool:
+    """Whether the model's networks run their products on bfloat16 operands
+    (``compute_dtype=torch.bfloat16``): the kernels' bf16 builds
+    (``-DEH_BF16``)."""
+    return any(getattr(net, "compute_dtype", None) == torch.bfloat16
+               for _, net in model_branches(model))
 
 
 def float32_reason(model) -> Optional[str]:
@@ -383,6 +397,7 @@ class FusedPlan:
     arg_sources: Tuple[Tuple[int, int, float], ...]
     blob: torch.Tensor
     width: int
+    bf16: bool = False  # compute_dtype=bfloat16: the kernel's bf16 build
 
     @functools.cached_property
     def kernel_blob(self):
@@ -531,6 +546,7 @@ def plan_fused_forward(model) -> FusedPlan:
         arg_sources=tuple(arg_sources),
         blob=blob.contiguous(),
         width=next(w for w in _WIDTHS if w >= max(dims)),
+        bf16=is_bf16(model),
     )
 
 
@@ -538,9 +554,17 @@ def plan_fused_forward(model) -> FusedPlan:
 # plain version and kernel launch
 # --------------------------------------------------------------------------
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16 (ties to even), in its own
+    dtype: ``astype(bfloat16)`` and back, the kernels' ``ehe_bf16``."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def fused_forward_reference(plan: FusedPlan, x, forcing) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of the kernel: the same function on the
-    same packed parameters, ``{output…, neural parameter…}``."""
+    same packed parameters, ``{output…, neural parameter…}``. Under
+    ``plan.bf16`` each layer's input and weights are rounded to bfloat16
+    and multiplied in float32, as the JAX ``Dense`` does."""
     blob = plan.blob.to(x.device)
     pos = 0
 
@@ -558,6 +582,8 @@ def fused_forward_reference(plan: FusedPlan, x, forcing) -> Dict[str, torch.Tens
     for i, act in enumerate(plan.acts):
         w = take(dims[i + 1] * dims[i]).view(dims[i + 1], dims[i])
         b = take(dims[i + 1])
+        if plan.bf16:
+            h, w = bf16_round(h), bf16_round(w)
         h = get_activation(act)(F.linear(h, w) + b)
     p = dims[-1]
     nlo, nspan = take(p), take(p)
@@ -586,7 +612,7 @@ def launch_fused_forward(plan: FusedPlan, x, forcing, outputs) -> None:
     """Launch the CUDA kernel once over the rows of ``x`` (checked CUDA
     float32 tensors), writing into ``outputs`` (name → ``(N,)``); raises if
     the launch is refused. Counts launches in ``launch_fused_forward.launches``."""
-    lib = _build.kernel_library("fused_forward.cu", plan.form)
+    lib = _build.kernel_library("fused_forward.cu", plan.form, bf16=plan.bf16, width=plan.width)
     if lib.eh_fused_forward_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

@@ -162,6 +162,9 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
     reason = fused_forward_unsupported_reason(model.base, training=True)
     if reason is not None:
         return reason
+    if getattr(model.nn, "compute_dtype", None) is not None:
+        return (f"compute_dtype={model.nn.compute_dtype} (the multi-site kernel runs float32, as "
+                "the JAX kernel does)")
     if isinstance(model.nn, MLP) and model.nn.input_batchnorm is True:
         return "trainable input BatchNorm (input_batchnorm=True) is outside the multisite kernel"
     if len(model.targets) > MAX_TARGETS:

@@ -89,6 +89,7 @@ from .fused_forward import (
     MAX_LAYERS,
     _ACT_IDS,
     fused_forward_unsupported_reason,
+    is_bf16,
 )
 
 __all__ = [
@@ -351,8 +352,9 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     """Why the wide fused epoch cannot train ``model`` with this optimizer
     and loss, or None when it can.
 
-    The envelope: a SingleNN MLP hybrid in float32 with no, a static or a
-    trainable input norm (its statistics taken over the whole batch, padding
+    The envelope: a SingleNN MLP hybrid in float32 (its products on bf16
+    operands under ``compute_dtype=torch.bfloat16``, the kernels' bf16
+    build) with no, a static or a trainable input norm (its statistics taken over the whole batch, padding
     rows included, as the JAX kernel takes them), the 12 named activations,
     widths up to ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a
     kernel-form mechanistic function; ``training_loss`` any of
@@ -517,6 +519,7 @@ class FusedWidePlan(PackedLayout):
     hyper: Tuple[Tuple[str, float], ...]
     loss: str
     loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
+    bf16: bool = False  # compute_dtype=bfloat16: the kernels' bf16 build (csrc/fused_wide.cu)
 
     @property
     def n_features(self) -> int:
@@ -562,6 +565,7 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
     return FusedWidePlan(
         dims=(net.in_dim,) + net.hidden + (net.out_dim,),
         acts=tuple(layer.activation for layer in net.layers),
+        bf16=is_bf16(model),
         **shared_plan_fields(model, optimizer, logging, names),
     )
 
@@ -687,7 +691,7 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     if a launch is refused. Counts calls in ``launch_fused_wide.launches``.
     ``halt`` is the halt word (``ops/fused_epoch.py``): every kernel of a
     halted call returns at entry, and the step count and loss stay."""
-    lib = _build.kernel_library("fused_wide.cu", plan.form, plan.loss_form)
+    lib = _build.kernel_library("fused_wide.cu", plan.form, plan.loss_form, bf16=plan.bf16)
     if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
             "the kernel's argument struct and its ctypes mirror differ in size: "

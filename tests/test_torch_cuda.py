@@ -1673,3 +1673,68 @@ def test_population_train_takes_the_multisite_member_axis(cuda):
     out = et.ensemble_predict(m, ens, data)
     assert out["reco"].shape == (S, N) and out["reco_std"].shape == (S, N)
     assert np.isfinite(out["reco"][~np.isnan(out["reco"])]).all()
+
+
+# ---------------------------------------------------------------------------
+# compute_dtype=bfloat16: the bf16 builds of kernels 1-3 (-DEH_BF16)
+# ---------------------------------------------------------------------------
+
+def _bf16_model(device, hidden, norm="static", seed=0):
+    return et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation="swish", scale_nn_outputs=True, input_batchnorm=norm,
+        compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def test_bf16_forward_matches_plain(cuda):
+    """Kernel 1's bf16 build: every row within TOL of its plain version but
+    rows where an activation ties at a bf16 rounding boundary (a float32
+    sum in another order rounds it to the other neighbour), each within TOL
+    plus one bf16 ulp on every hidden activation carried through the model
+    (``chip_smoke.bf16_rows_held``, which also bounds their share)."""
+    import chip_smoke as cs
+
+    cols = et.rbq10_columns(5000, seed=3)
+    cols["sw_pot"][::97] = np.nan
+    m = _bf16_model(cuda, (16, 16))
+    et.fit_input_norm(m, et.prepare_data(m, cols))
+    data = et.prepare_data(m, cols, drop_missing_rows=False)
+    x = torch.tensor(data.x, device=cuda)
+    forcing = {k: torch.tensor(v, device=cuda) for k, v in data.forcing.items()}
+    fn = et.make_fused_forward(m, batch_size=1024)
+    assert fn.plan.bf16
+    got, ref = fn(x, forcing), fn.reference(x, forcing)
+    cs.bf16_rows_held("kernel 1's bf16 build", got, ref, m, x, forcing)
+    assert all(torch.equal(_bits(got[k]), _bits(fn(x, forcing)[k])) for k in got)
+
+
+@pytest.mark.parametrize("wide,norm", [(False, "static"), (False, True), (True, "static"),
+                                       (True, True)], ids=str)
+def test_bf16_training_gradient_matches_plain(cuda, wide, norm):
+    """Kernel 2's and kernel 3's bf16 builds, the gradient one sgd step at
+    1e-3 implies: within 1e-4 max(1, |g|), or one bf16 ulp beyond it on at
+    most 0.1% of the elements (``chip_smoke.bf16_beyond``); the same bits on
+    a second run."""
+    import chip_smoke as cs
+
+    cols = et.rbq10_columns(512, seed=5)
+    m = _bf16_model(cuda, (128, 64) if wide else (16, 16), norm)
+    data = HybridData(x=np.stack([cols["sw_pot"], cols["dsw_pot"]], -1),
+                      forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
+    et.fit_input_norm(m, et.prepare_data(m, cols))
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, 512), cuda)
+    ll = et.LoggingLoss(training_loss="mse", loss_types=("mse",))
+    make = et.make_fused_wide_epoch if wide else et.make_fused_epoch
+    fn = make(m, ("sgd", 1e-3), ll, shuffle=False)
+    assert fn.plan.bf16
+    p0 = fn.plan.pack(m)
+    got = fn(p0, fe.init_fused_opt_state(p0), tensors)
+    again = fn(p0, fe.init_fused_opt_state(p0), tensors)
+    ref = fn.reference(p0, fe.init_fused_opt_state(p0), tensors)
+    assert torch.equal(_bits(got[0].params), _bits(again[0].params))
+    g_got, g_ref = (p0.params - got[0].params) / 1e-3, (p0.params - ref[0].params) / 1e-3
+    out, far, _ = cs.bf16_beyond(g_got, g_ref, 1e-4)
+    assert out <= 1e-3 * g_ref.numel() and far == 0
+    assert abs(float(got[2]) - float(ref[2])) <= 1e-4 * max(1.0, abs(float(ref[2])))

@@ -157,7 +157,7 @@ def _no_activation(x):
     (dict(activation=_no_activation), "not one of the kernel's"),
     (dict(hidden_layers=[65]), "exceed the kernel's cap of 64"),
     (dict(hidden_layers=[4] * 8), "layers exceed"),
-    (dict(compute_dtype=torch.bfloat16), "compute_dtype"),
+    (dict(compute_dtype=torch.float16), "compute_dtype=torch.float16 (the kernels take bfloat16 only"),
     (dict(predictors=[], neural_param_names=[], global_param_names=["rb", "Q10"]),
      "no neural network"),
 ])

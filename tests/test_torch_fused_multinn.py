@@ -361,8 +361,8 @@ def test_source_names_the_branch_loop():
     src = CU_SOURCE.read_text()
     assert src.count("for (int b = 0; b < ehe_n_nets<MULTI>(a); ++b)") >= 3
     assert "return MULTI ? a.n_nets : 1;" in src
-    assert "ehe_row_forward<W, 1, true>(net, Pm, h, res, ld, 0);" in src
-    assert "ehe_row_backward<W>(net, Pm, res, ld);" in src
+    assert "ehe_row_forward<W, 1, true, BF16>(net, Pm, h, res, ld, 0, PW);" in src
+    assert "ehe_row_backward<W, BF16>(net, Pm, res, ld, PW);" in src
     multi = CU_SOURCE.with_name("fused_epoch_multinn.cu").read_text()
     assert "#define EHE_MULTI_NETS" in multi and '#include "fused_epoch.cu"' in multi
     assert _build.LAUNCHERS["fused_epoch_multinn.cu"][0] == "eh_fused_epoch_multinn"

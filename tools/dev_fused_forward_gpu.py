@@ -14,9 +14,12 @@ Each ``--parent DIR`` (a copy of another tree, e.g. unpacked from ``git
 archive`` into the ignored ``chip_work/``) is timed the same way on that
 tree's package, one process a tree and round, the trees in turn forward and
 backward over ``--rounds`` rounds, so all stand side by side from one card;
-the summary gives each tree's median over every round. It asserts nothing:
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel to its
-tolerance.
+the summary gives each tree's median over every round. In its first round
+each tree also runs kernel 1 on every case of ``chip_smoke.py``'s phase 3
+(``forward_cases``), and each parent's outputs are held bit for bit against
+this tree's: the check that a change kept the float32 build's bits; a
+difference exits non-zero. Otherwise it asserts nothing: ``chip_smoke.py``
+and ``tests/test_torch_cuda.py`` hold the kernel to its tolerance.
 
 Run from the repository root on a machine with a GPU and ``nvcc``:
 
@@ -32,9 +35,11 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -97,8 +102,52 @@ def predict_split(model, cols, batch: int) -> str:
     return ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
 
 
-def side(tag: str, calls: int) -> None:
+def forward_cases():
+    """``chip_smoke.py``'s phase-3 cases: ``(what, model, x, forcing, batch)``."""
+    n = chip_smoke.N_ROWS
+
+    def case(what, model, cols, batch=1024):
+        return (what, model, *chip_smoke.to_device(et, model, cols), batch)
+
+    bm = chip_smoke.build_model
+    out = [case("quick-start N=131072", bm(et), et.rbq10_columns(n, seed=42)),
+           case("[8] tanh no norm N=1000", bm(et, hidden=(8,), activation="tanh", norm=False,
+                                               seed=1), et.rbq10_columns(1000, seed=1))]
+    odd = et.rbq10_columns(777, seed=2)
+    out += [case(f"[12,5] {act} N=777", bm(et, hidden=(12, 5), activation=act, seed=10 + i), odd,
+                 256) for i, act in enumerate(sorted(et.ACTIVATIONS))]
+    out += [case(f"{list(h)} selu N=777", bm(et, hidden=h, activation="selu", seed=3), odd)
+            for h in ((24, 32), (64, 48))]
+    out.append(case("neural Q10, global rb, fixed tref N=777", bm(
+        et, hidden=(16, 16), seed=4, parameters={**chip_smoke.RBQ10_PARAMS,
+                                                 "tref": (15.0, 0.0, 30.0)},
+        neural_param_names=["Q10"], global_param_names=["rb"]), odd))
+    nan_cols = et.rbq10_columns(4096, seed=5)
+    nan_cols["sw_pot"][np.random.default_rng(5).random(4096) < 0.05] = np.nan
+    out.append(case("quick-start, 5% NaN rows N=4096", bm(et, seed=5), nan_cols))
+    for hidden in ((16, 16), (24, 32), (64, 48)):
+        m = bm(et, hidden=hidden, seed=6)
+        for rows in (1, 1023, 1024, 1025, n):
+            edge = et.rbq10_columns(rows, seed=6)
+            edge["sw_pot"][5::97] = np.nan
+            edge["dsw_pot"][rows - 1] = np.nan if rows > 1 else edge["dsw_pot"][0]
+            out.append(case(f"{list(hidden)} N={rows} with NaN rows", m, edge))
+    return out
+
+
+def case_outputs() -> dict:
+    """Kernel 1's outputs on every case of ``forward_cases``, on the host."""
+    out = {}
+    for what, model, x, forcing, batch in forward_cases():
+        got = et.make_fused_forward(model, batch_size=batch)(x, forcing)
+        out[what] = {k: v.cpu() for k, v in got.items()}
+    return out
+
+
+def side(tag: str, calls: int, bits_file: str = "") -> None:
     build_alone(tag)
+    if bits_file:
+        torch.save(case_outputs(), bits_file)
     n = chip_smoke.N_ROWS
     cols = et.rbq10_columns(n, seed=42)
     model = chip_smoke.build_model(et)
@@ -156,12 +205,13 @@ def main() -> None:
                         help="rounds over the trees, in turn forward and backward")
     parser.add_argument("--calls", type=int, default=21, help="predict calls a round")
     parser.add_argument("--side", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--bits-file", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("dev_fused_forward_gpu: needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.side:
-        side(args.side, args.calls)
+        side(args.side, args.calls, args.bits_file)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -170,11 +220,14 @@ def main() -> None:
     trees.update({f"parent {i}" if len(args.parent) > 1 else "parent": Path(p).resolve()
                   for i, p in enumerate(args.parent)})
     samples = {tag: {} for tag in trees}
+    tmp = tempfile.mkdtemp()
+    bits = {tag: str(Path(tmp) / f"{i}.pt") for i, tag in enumerate(trees)}
     for r in range(args.rounds):
         for tag in (list(trees) if r % 2 == 0 else list(reversed(list(trees)))):
             # each tree runs this file's own side, on its own package
             proc = subprocess.run(
-                [sys.executable, str(here), "--side", tag, "--calls", str(args.calls)],
+                [sys.executable, str(here), "--side", tag, "--calls", str(args.calls),
+                 "--bits-file", bits[tag] if r == 0 else ""],
                 check=True, cwd=trees[tag], capture_output=True, text=True,
                 env={**os.environ, "PYTHONPATH": str(trees[tag])})
             for line in proc.stdout.splitlines():
@@ -183,6 +236,18 @@ def main() -> None:
                         samples[tag].setdefault(k, []).extend(v)
                 else:
                     print(f"(round {r}) {line}", flush=True)
+    mine = torch.load(bits["change"])
+    differ = False
+    for tag in trees:
+        if tag == "change":
+            continue
+        theirs = torch.load(bits[tag])
+        for what, got in mine.items():
+            same = what in theirs and all(torch.equal(v.view(torch.int32), theirs[what][k].view(
+                torch.int32)) for k, v in got.items())  # NaN rows too
+            differ |= not same
+            print(f"[bits] {tag}: {what}: " + ("bit for bit equal" if same else "DIFFERENT"),
+                  flush=True)
     n = chip_smoke.N_ROWS
     for k in next(iter(samples.values())):
         print(f"over {args.rounds} rounds, {k}: " + "; ".join(
@@ -190,6 +255,8 @@ def main() -> None:
             + (f" ({n / statistics.median(v[k]) * 1e3:,.0f} rows/s)" if k.startswith("predict")
                else "")
             for tag, v in samples.items() if k in v), flush=True)
+    if differ:
+        sys.exit("dev_fused_forward_gpu: kernel 1's outputs differ from a parent's")
 
 
 if __name__ == "__main__":

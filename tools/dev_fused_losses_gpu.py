@@ -13,12 +13,14 @@ in one call). ``--parent DIR`` (a copy of another tree, e.g. the parent
 commit unpacked with ``git archive`` into the ignored ``chip_work/``) times
 kernel 2's mse epoch at the main shape in both trees, each in a process of
 its own, in turns (the parent, this, this, the parent): the check that mse
-did not move.
+did not move; with ``--parent-bits`` the parent's tree also runs every phase-22
+case once and this tree's kernels are held bit for bit against its outputs
+(a difference exits non-zero).
 
 Run from the repository root on a machine with a GPU and ``nvcc``:
 
     PYTHONPATH=. python3 tools/dev_fused_losses_gpu.py [--only TEXT] [--main] [--times]
-        [--parent DIR]
+        [--parent DIR [--parent-bits]]
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -91,6 +94,45 @@ def drift(cs, et, quick_cols, losses) -> None:
             print(f"[drift] {loss}: {a} against {b}: " + "; ".join(notes), flush=True)
 
 
+def build_all(cs, et):
+    """The library, the traced forms' and the traced losses' builds, all at
+    once; returns the traced models."""
+    from easyhybrid_tpu_torch.ops import _build
+
+    models = cs.traced_models(et)
+    forms = cs.traced_forms(et, models)
+    with concurrent.futures.ThreadPoolExecutor(24) as pool:
+        builds = {**cs.start_traced_builds(pool, forms), **cs.start_loss_builds(et, pool)}
+        built = _build.build_library()
+        print(f"library: {built.seconds:.1f} s; "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(built.source_seconds.items())),
+              flush=True)
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip(), flush=True)
+        for key, fut in builds.items():
+            result = fut.result()
+            print(f"{key}: {result.seconds:.1f} s", flush=True)
+            for line in result.log.splitlines():
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    print("  " + line.strip(), flush=True)
+    _build.load_library()
+    return models
+
+
+def case_outputs(cs, et, models, quick_cols) -> dict:
+    """Every phase-22 case's kernel outputs from one run, on the host."""
+    out = {}
+    for name, what, prepare in cs.loss_cases(et, quick_cols, models):
+        got = prepare()
+        fn, packed, tensors, perms = got[1:5]
+        p, o, loss = fn(packed, cs.fresh_state(fn, packed), tensors, perms=perms)
+        out[f"{name}: {what or got[0]}"] = {"params": p.params.cpu(), "bn": p.bn.cpu(),
+                                           "loss": loss.reshape(1).cpu(),
+                                           **{k: v.cpu() for k, v in o.items()}}
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="", help="run the phase-22 cases holding one of these "
@@ -101,7 +143,10 @@ def main() -> None:
     parser.add_argument("--drift", default="", help="losses (a,b): kernel, float32 and float64 "
                         "plain versions at the main shape")
     parser.add_argument("--ptxas", default="", help="a tree whose fused_epoch.cu to compile too")
+    parser.add_argument("--parent-bits", action="store_true",
+                        help="hold every phase-22 case bit for bit against the parent's kernels")
     parser.add_argument("--mse-epoch", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--case-bits", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("dev_fused_losses_gpu: needs a CUDA GPU")
@@ -112,7 +157,12 @@ def main() -> None:
         return
     import chip_smoke as cs
     import easyhybrid_tpu_torch as et
-    from easyhybrid_tpu_torch.ops import _build
+
+    if args.case_bits:
+        models = build_all(cs, et)
+        torch.save(case_outputs(cs, et, models, et.rbq10_columns(cs.TRAIN_ROWS, seed=42)),
+                   args.case_bits)
+        return
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -133,25 +183,25 @@ def main() -> None:
             for line in (out.stdout + out.stderr).splitlines():
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     print("  " + line.strip()[:160], flush=True)
-    models = cs.traced_models(et)
-    forms = cs.traced_forms(et, models)
-    with concurrent.futures.ThreadPoolExecutor(24) as pool:
-        builds = {**cs.start_traced_builds(pool, forms), **cs.start_loss_builds(et, pool)}
-        built = _build.build_library()
-        print(f"library: {built.seconds:.1f} s; "
-              + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(built.source_seconds.items())),
-              flush=True)
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip(), flush=True)
-        for key, fut in builds.items():
-            result = fut.result()
-            print(f"{key}: {result.seconds:.1f} s", flush=True)
-            for line in result.log.splitlines():
-                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                    print("  " + line.strip(), flush=True)
-    _build.load_library()
+    if args.parent and args.parent_bits:
+        parent = Path(args.parent).resolve()
+        bits_file = str(Path(tempfile.mkdtemp()) / "parent.pt")
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--case-bits", bits_file],
+                       check=True, cwd=parent, env={**os.environ, "PYTHONPATH": str(parent)})
+    models = build_all(cs, et)
     quick_cols = et.rbq10_columns(cs.TRAIN_ROWS, seed=42)
+    if args.parent and args.parent_bits:
+        theirs = torch.load(bits_file)
+        mine = case_outputs(cs, et, models, quick_cols)
+        same_all = True
+        for what, got in mine.items():
+            same = what in theirs and all(torch.equal(v.view(torch.int32), theirs[what][k].view(
+                torch.int32)) for k, v in got.items())  # NaN rows too
+            same_all &= same
+            print(f"[bits] parent: {what}: " + ("bit for bit equal" if same else "DIFFERENT"),
+                  flush=True)
+        if not same_all:
+            sys.exit("dev_fused_losses_gpu: a kernel's outputs differ from the parent's")
     if args.drift:
         drift(cs, et, quick_cols, args.drift.split(","))
         return

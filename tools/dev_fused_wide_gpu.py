@@ -96,17 +96,17 @@ SHAPES = {"main": 1024, "b64": 64}  # batch; 16 steps an epoch at each
 # cut builds: (what is cut, [(source text, replacement)]); see --variants
 CUTS = {
     "no products": [
-        ("      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_small + cb, GB * 128), "
-         "ks > 0);\n      eht_wgmma(acc, eht_desc(a_small + ca, GA * 128), eht_desc(b_big + cb, "
+        ("        eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_small + cb, GB * 128), "
+         "ks > 0);\n        eht_wgmma(acc, eht_desc(a_small + ca, GA * 128), eht_desc(b_big + cb, "
          "GB * 128), 1);", ""),
-        ("      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_big + cb, GB * 128), 1);",
-         "")],
+        ("      eht_wgmma(acc, eht_desc(a_big + ca, GA * 128), eht_desc(b_big + cb, GB * 128),\n"
+         "                PREC == EHT_BF16_AB ? ks > 0 : 1);", "")],
     "no staging": [
-        ("      eht_stage<IA, THREADS, GA>(next, next + SA, ra);\n      eht_stage<IB, THREADS, GB>("
-         "next + 2 * SA, next + 2 * SA + SB, rb);", ""),
+        ("      eht_stage<IA, THREADS, GA, RA>(next, next + SA, ra);\n      eht_stage<IB, THREADS, "
+         "GB, RB>(next + 2 * SA, next + 2 * SA + SB, rb);", ""),
         ("        eht_fetch<IA, THREADS>(ra, p.A, p.lda, m0, p.M, k, k1, vec_a);\n        "
          "eht_fetch<IB, THREADS>(rb, p.B, p.ldb, n0, p.N, k, k1, vec_b);", "")],
-    "no finishing": [("  ehw_finish<BM, BN, THREADS>(p, tile, m0, n0);\n", "")],
+    "no finishing": [("  ehw_finish<BM, BN, THREADS, PREC != EHT_F32>(p, tile, m0, n0);\n", "")],
 }
 # the whole inner dimension summed in the tensor cores' accumulators
 IN_TENSOR_CORES = [
@@ -445,8 +445,8 @@ STAMPS = [
      "  __syncthreads();\n  EHW_STAMP(1);\n  for (int t = 0; t < slices; ++t) {"),
     ("  // the accumulators to the output tile in shared memory, then ehw_finish",
      "  EHW_STAMP(2);\n  // the accumulators to the output tile in shared memory, then ehw_finish"),
-    ("  ehw_finish<BM, BN, THREADS>(p, tile, m0, n0);\n",
-     "  ehw_finish<BM, BN, THREADS>(p, tile, m0, n0);\n  EHW_STAMP(3);\n"),
+    ("  ehw_finish<BM, BN, THREADS, PREC != EHT_F32>(p, tile, m0, n0);\n",
+     "  ehw_finish<BM, BN, THREADS, PREC != EHT_F32>(p, tile, m0, n0);\n  EHW_STAMP(3);\n"),
 ]
 
 
