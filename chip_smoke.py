@@ -281,7 +281,25 @@ Phases, one or more lines each; any failure exits non-zero:
     ``BF16_TORCH_FACTOR`` of the torch engine's on the same call, Q10 within
     0.15), the bf16 reference quick-start on kernel 2 and its ``predict`` on
     kernel 1, and examples/expo_hybrid.py's run with bf16 operands;
-47. times: each bf16 build beside its float32 build in one call, in turns.
+47. times: each bf16 build beside its float32 build in one call, in turns;
+48. the declarative weight-L2 ``extra_loss`` (``L2_CHECKS``) against the
+    plain versions under agg sum and mean: kernel 2 on the quick-start and on
+    ExpoHybrid within ``TOL_EPOCH``, kernel 3 on the tower and on the
+    tutorial's trainable norm by the gradient and by the Adam runs'
+    criterion (``l2_checks``); kernel 3's member axis against
+    ``fused_wide_members_reference`` on the sweep, a trainable-norm ensemble,
+    5 folds and a bf16 ensemble, every member bit for bit its call alone, and
+    a K = 1 member call equal to ``train()``'s (``wide_member_checks``);
+49. main paths, each under ``set_sync_debug_mode("error")``: the quick-start
+    and the GPU tutorial through ``train()`` with
+    ``extra_loss=l2_extra_loss(scale=1e-4)`` on kernels 2 and 3; the tower's
+    8-member learning-rate sweep at ``large_mlp_b1024``'s shape, a 4-seed
+    ``large_mlp_bf16`` ensemble and the tower's 5-fold cross-validation on
+    kernel 3's member axis, one launcher call a block
+    (``l2_wide_main_paths``);
+50. times: kernel 3's member call of an epoch of the sweep at K = 1, 4, 8 and
+    16 and the K = 8 call's plain version; the penalised epochs of kernels 2
+    and 3 beside the unpenalised ones, in turns (``l2_wide_times``).
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -652,10 +670,10 @@ def reference_main_path(et, fe, card, cols, *, mechanistic=None, q10_tol=0.15,
 
 def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, epochs, batch,
                        seed, split=False, keep_nan=False, make=None, loss="mse", agg="sum",
-                       dtype=None):
+                       dtype=None, extra_loss=None):
     """The case's fused epoch (kernel 2's, or the one ``make`` builds), its
     packed parameters on the card, its epoch tensors and its permutations;
-    ``dtype`` the model's ``compute_dtype``."""
+    ``dtype`` the model's ``compute_dtype``, ``extra_loss`` its training's."""
     from easyhybrid_tpu_torch.data.prepare import HybridData
     from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
@@ -670,7 +688,7 @@ def prepare_epoch_case(et, fe, *, what, cols, hidden, act, norm, opt, shuffle, e
         data = et.prepare_data(model, cols)
     et.fit_input_norm(model, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
-    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg, extra_loss=extra_loss)
     fn = (make or et.make_fused_epoch)(model, opt, logging, shuffle=shuffle,
                                        epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
@@ -2817,12 +2835,25 @@ def traced_forms(et, models) -> dict:
     return out
 
 
+# kernels 1 and 2 instantiate their kernels by width: a traced form's or loss's
+# build of them is made for its plan's width alone (_build.width_defines), and
+# the traced phases' networks are all [16, 16]
+TRACED_WIDTH = 16
+WIDTH_SOURCES = ("fused_forward.cu", "fused_epoch.cu", "fused_epoch_multinn.cu")
+
+
+def traced_defines(src) -> tuple:
+    from easyhybrid_tpu_torch.ops import _build
+
+    return _build.width_defines(TRACED_WIDTH) if src in WIDTH_SOURCES else ()
+
+
 def start_traced_builds(pool, forms) -> dict:
     """Every traced form's build of every kernel it runs, all at once:
     ``(source, model) -> future of the BuildResult``."""
     from easyhybrid_tpu_torch.ops import _build
 
-    return {(src, key): pool.submit(_build.form_build, src, forms[key])
+    return {(src, key): pool.submit(_build.form_build, src, forms[key], *traced_defines(src))
             for src, keys in TRACED_BUILDS.items() for key in keys}
 
 
@@ -2834,14 +2865,14 @@ def device_inputs(et, model, cols):
 
 
 def epoch_inputs(et, model, data, *, make, opt, batch, epochs, shuffle, agg="sum",
-                 loss="mse", seed=0):
+                 loss="mse", seed=0, extra_loss=None):
     """A fused epoch of ``model`` (from ``make``) on the card, its packed
     parameters, epoch tensors and permutations."""
     from easyhybrid_tpu_torch.training.epoch import epoch_tensors_to, perms_for_epochs
 
     et.fit_input_norm(model, data)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), "cuda")
-    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg)
+    logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,), agg=agg, extra_loss=extra_loss)
     fn = make(model, opt, logging, shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device="cuda").manual_seed(seed))
@@ -3238,7 +3269,7 @@ def start_loss_builds(et, pool) -> dict:
     from easyhybrid_tpu_torch.ops.fused_forward import KERNEL_FORMS
 
     return {(src, key): pool.submit(_build.form_build, src, KERNEL_FORMS["rbq10"],
-                                    loss=kf.traced_loss(LOSS_SPECS[key](et)))
+                                    *traced_defines(src), loss=kf.traced_loss(LOSS_SPECS[key](et)))
             for src, keys in LOSS_BUILDS.items() for key in keys}
 
 
@@ -3767,18 +3798,18 @@ POP_LRS = [float(v) for v in np.geomspace(1e-3, 5e-2, 16)]
 POP_CV_KW = dict(k=5, optimizer=("adam", 0.01), nepochs=50, batchsize=512, eval_every=5)
 
 
-def member_inputs(et, model, splits, *, opt, seeds, batch=512, epochs=2, loss="mse"):
+def member_inputs(et, model, splits, *, opt, seeds, batch=512, epochs=2, loss="mse", make=None):
     """A member launch's inputs: the fused epoch of ``model`` (``opt`` the
-    first member's), the members' stacked packed parameters drawn from
-    ``seeds`` (``init_member_params``), each split's static norm fitted
-    (``splits``: one training split shared by every member, or one a
-    member), zero slots, and the kernel's data."""
+    first member's; kernel 2's, or the one ``make`` builds), the members'
+    stacked packed parameters drawn from ``seeds`` (``init_member_params``),
+    each split's static norm fitted (``splits``: one training split shared by
+    every member, or one a member), zero slots, and the kernel's data."""
     from easyhybrid_tpu_torch.training import epoch as tepoch
     from easyhybrid_tpu_torch.training import population as pop
 
     k = len(seeds)
     logging = et.LoggingLoss(training_loss=loss, loss_types=(loss,))
-    fn = et.make_fused_epoch(model, opt, logging, shuffle=True, epochs_per_call=epochs)
+    fn = (make or et.make_fused_epoch)(model, opt, logging, shuffle=True, epochs_per_call=epochs)
     inits = [pop.init_member_params(model, s) for s in seeds]
     params = {n: torch.stack([init[n] for init in inits]) for n in inits[0]}
     shared = not isinstance(splits, list)
@@ -5252,6 +5283,431 @@ def loop_times(et, card, cells) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 48-50: the declarative weight-L2 extra_loss on kernels 2 and 3, and
+# kernel 3's member axis (populations of wide MLPs)
+# ---------------------------------------------------------------------------
+
+# the tutorial's call (docs/tutorials/losses.md:68-73):
+# train(model, df, extra_loss=l2_extra_loss(scale=1e-4))
+L2_SCALE = 1e-4
+# phase 48 holds the kernels to their plain versions under penalties whose
+# terms are far above rounding: the quick-start's 304 weights normalised at
+# 0.5; the tower's 700,416 unnormalised at 1e-3 (its normalised term at 1e-4
+# is below a float32 ulp of its gradient)
+L2_CHECKS = {"fused_epoch": dict(scale=0.5), "fused_wide": dict(scale=1e-3, normalize=False)}
+# the wide populations at large_mlp_b1024's shape (bench.py:517-551): the tower,
+# static norm, mse, 20,480 rows (16 batches of 1,024), 20 epochs at eval_every 5;
+# an 8-member learning-rate sweep and 5-fold cross-validation; and
+# large_mlp_bf16 (bench.py:475-514: the tower, static norm, bf16, 5,000 rows,
+# batch 64) as a 4-seed ensemble
+WIDE_POP_KW = dict(optimizer="adam", nepochs=20, batchsize=WIDE_BATCH, eval_every=5, seed=11,
+                   data_seed=0)
+WIDE_POP_LRS = [float(v) for v in np.geomspace(1e-3, 1e-2, 8)]
+WIDE_CV_KW = dict(k=5, optimizer=("adam", 0.01), nepochs=20, batchsize=WIDE_BATCH, eval_every=5,
+                  seed=11, data_seed=0)
+BF16_ENSEMBLE_KW = dict(hyper={"learning_rate": [0.01]}, seeds=[0, 1, 2, 3], optimizer="adam",
+                        nepochs=20, batchsize=TUTORIAL_BATCH, eval_every=5, seed=11, data_seed=0)
+
+
+def l2_checks(et, quick_cols, train_cols, tutorial_cols, mn) -> dict:
+    """Phase 48a: the weight-L2 extra_loss on the card under agg sum and
+    mean, each against its plain version from the same inputs: kernel 2 on
+    the quick-start's main shape and on ExpoHybrid (its build of several
+    networks) within TOL_EPOCH and the same bits twice; kernel 3 on the tower
+    at its main shape and on the tutorial's shape with its trainable norm,
+    by the gradient one sgd step implies within TOL_EPOCH and by the Adam
+    runs' criterion over 2 epochs (the tutorial's 2 steps: at its batch of 64
+    a third Adam step parts even the float32 plain version from float64).
+    Returns the worst error of each kernel."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    errs = {"fused_epoch": 0.0, "fused_wide": 0.0}
+    expo = mn["expo"]()
+    expo_split = et.split_data(expo_columns(EXPO_ROWS, seed=0), expo)[0]
+    tutorial = {k: v[: TUTORIAL_ROWS * 4 // 5] for k, v in tutorial_cols.items()}
+    first = {k: v[:WIDE_BATCH] for k, v in train_cols.items()}
+    tower = dict(hidden=WIDE_HIDDEN, act="swish", norm="static", batch=WIDE_BATCH, seed=0)
+    bn = dict(hidden=WIDE_HIDDEN, act="swish", norm=True, batch=TUTORIAL_BATCH, seed=0)
+    wide = []
+    for agg in ("sum", "mean"):
+        extra = et.l2_extra_loss(**L2_CHECKS["fused_epoch"])
+        _, fn, packed, tensors, perms = prepare_epoch_case(
+            et, fe, what="", cols=quick_cols, split=True, hidden=(16, 16), act="swish", norm=True,
+            opt=("adam", 0.01), shuffle=True, epochs=4, batch=512, seed=0, agg=agg,
+            extra_loss=extra)
+        errs["fused_epoch"] = max(errs["fused_epoch"], held_twice(
+            f"kernel 2, weight-L2 {L2_CHECKS['fused_epoch']} by {agg}: quick-start [16,16] swish, "
+            f"trainable BN, 16,000 rows, batch 512, adam, 4 epochs ({fn.plan.l2.count} weights)",
+            fn, packed, tensors, perms, tag="l2"))
+        fn, packed, tensors, perms = epoch_inputs(
+            et, mn["expo"](), expo_split, make=et.make_fused_epoch, opt=("adamw", 0.01),
+            batch=256, epochs=2, shuffle=True, loss="nseLoss", agg=agg, extra_loss=extra)
+        errs["fused_epoch"] = max(errs["fused_epoch"], held_twice(
+            f"kernel 2, weight-L2 by {agg}: ExpoHybrid (two networks), 1,600 rows, batch 256, "
+            f"adamw, nseLoss, 2 epochs ({fn.plan.l2.count} weights of both)", fn, packed, tensors,
+            perms, tag="l2"))
+        extra = et.l2_extra_loss(**L2_CHECKS["fused_wide"])
+        wide += [
+            dict(what=f"tower, weight-L2 {L2_CHECKS['fused_wide']} by {agg}, the gradient: one "
+                      "sgd step at lr 1e-3 over the first 1,024 rows", opt=("sgd", 1e-3),
+                 shuffle=False, epochs=1, held="gradient", cols=first, agg=agg, extra_loss=extra,
+                 **tower),
+            dict(what=f"tower, weight-L2 by {agg}: 16,384 rows, batch 1,024, adam, static norm, "
+                      "shuffled, 2 epochs", opt=("adam", 0.01), shuffle=True, epochs=2, held="adam",
+                 cols=train_cols, agg=agg, extra_loss=extra, **tower),
+            dict(what=f"tutorial, weight-L2 by {agg}: trainable norm, batch 64, the gradient: one "
+                      "sgd step at lr 1e-3 over the first 64 rows", opt=("sgd", 1e-3),
+                 shuffle=False, epochs=1, held="gradient", agg=agg, extra_loss=extra,
+                 cols={k: v[:TUTORIAL_BATCH] for k, v in tutorial.items()}, **bn),
+            dict(what=f"tutorial, weight-L2 by {agg}: trainable norm, batch 64 (128 rows), adam, "
+                      "shuffled, 2 epochs", opt=("adam", 0.01), shuffle=True, epochs=2,
+                 held="adam", agg=agg, extra_loss=extra,
+                 cols={k: v[:2 * TUTORIAL_BATCH] for k, v in tutorial.items()}, **bn),
+        ]
+    errs["fused_wide"] = wide_kernel_checks(et, None, wide, "kernel3-l2")
+    return errs
+
+
+def wide_member_inputs(et, k, *, cols, batch, epochs=1, folds=False, norm="static", dtype=None,
+                       seed0=11):
+    """A kernel-3 member call: the tower's fused epoch, the members' packed
+    parameters (``init_member_params`` of seeds ``seed0 + i``), their norms
+    (one training split, or each of ``k`` folds' as
+    ``population_cross_validate`` cuts them), zero slots and the kernel's
+    data."""
+    model = build_model(et, hidden=WIDE_HIDDEN, norm=norm,
+                        **({} if dtype is None else {"compute_dtype": dtype}))
+    if folds:
+        prepared = et.prepare_data(model, cols)
+        ids = et.make_folds(range(prepared.n_samples), k=k, shuffle=True, seed=0)
+        splits = [prepared.take(np.nonzero(ids != i)[0]) for i in range(1, k + 1)]
+    else:
+        splits = et.split_data(cols, model)[0]
+    return member_inputs(et, model, splits, opt=("adam", 0.01), seeds=[seed0 + i for i in range(k)],
+                         batch=batch, epochs=epochs, make=et.make_fused_wide_epoch)
+
+
+def wide_member_checks(et, wide_cols, tutorial_cols) -> float:
+    """Phase 48b: kernel 3's member axis on the card, each call against
+    ``fused_wide_members_reference`` (by the Adam runs' criterion a member),
+    a second run to the same bits and every member bit for bit its call
+    alone: the sweep of (c) at the tower's main shape (8 members, one
+    permutation, an epoch), the tutorial's trainable norm (4 seeds, a
+    permutation and running statistics each, 128 rows, 2 epochs of 64), 5
+    folds of (e) (a fold's rows, norm and permutation each, an epoch), the
+    bf16 ensemble of (d) (2 steps, as phase 45 holds the bf16 build's Adam
+    runs at batch 64); then a K = 1 member call equal to ``train()``'s."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    sweep = [("adam", {"learning_rate": lr}) for lr in WIDE_POP_LRS]
+    tutorial = {k: v[: 2 * TUTORIAL_BATCH] for k, v in tutorial_cols.items()}
+    worst = 0.0
+    for what, k, specs, kw, own in (
+            ("the sweep: 8 members, geomspace(1e-3, 1e-2), the tower at 16,384 rows, batch "
+             "1,024, one permutation shared, an epoch", 8, sweep,
+             dict(cols=wide_cols, batch=WIDE_BATCH), False),
+            ("the tutorial's trainable norm: 4 seeds, 128 rows, batch 64, 2 epochs, a permutation "
+             "each", 4, None, dict(cols=tutorial, batch=TUTORIAL_BATCH, norm=True, epochs=2), True),
+            ("5-fold cross-validation of the tower: a fold's rows, norm and permutation each, an "
+             "epoch", 5, None, dict(cols=wide_cols, batch=WIDE_BATCH, folds=True), True),
+            ("the bf16 ensemble: 4 seeds, bf16, 128 rows, batch 64, 2 steps", 4, None,
+             dict(cols=tutorial, batch=TUTORIAL_BATCH, dtype=torch.bfloat16), True)):
+        fn, packed, opt0, data = wide_member_inputs(et, k, **kw)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rows = fn.member_rows(data, k, per_member_data=kw.get("folds", False), generator=gen,
+                              shared_perms=not own)
+        got = fn.members(packed, opt0, data, rows, specs=specs)
+        torch.cuda.synchronize()
+        again = fn.members(packed, opt0, data, rows, specs=specs)
+        ref = fw.fused_wide_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)
+        g, a, r = member_fields(got), member_fields(again), member_fields(ref)
+        if not all(bool(torch.isfinite(v).all()) for v in g.values()):
+            raise AssertionError(f"kernel 3 members, {what}: non-finite values")
+        if not all(torch.equal(g[f], a[f]) for f in g):
+            raise AssertionError(f"kernel 3 members, {what}: a second run gave other bits")
+        notes, ref64 = [], None
+        for i in range(k):
+            lr = (dict(fn.plan.hyper) if specs is None else specs[i][1])["learning_rate"]
+            note, misses, err = adam_misses(member_fields(got, i), member_fields(ref, i), lr)
+            if misses:  # the float32 plain version may miss where float64's holds (phase 16)
+                if ref64 is None:
+                    ref64 = wide_members_reference64(fn, packed, opt0, data, rows, specs)
+                note, misses, err = adam_misses(member_fields(got, i), member_fields(ref64, i), lr)
+                note = f"against float64: {note}"
+            if misses:
+                raise AssertionError(f"kernel 3 members, {what}, member {i}: {note}: "
+                                     + "; ".join(misses))
+            worst = max(worst, err)
+            notes.append(note)
+        for i in range(k):
+            alone = member_fields(fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                                           {n: v[i] for n, v in opt0.items()}, data,
+                                           rows[i] if rows.dim() == 3 else rows,
+                                           None if specs is None else specs[i]))
+            mine = member_fields(got, i)
+            if not all(torch.equal(mine[f].reshape(alone[f].shape), alone[f]) for f in alone):
+                raise AssertionError(f"kernel 3 members, {what}: member {i} differs from a call "
+                                     "of it alone")
+        log("kernel3-members", f"{what}: K={k}, rows {tuple(rows.shape)}, {int(g['t'][0].item())} "
+                               "steps; against the plain version by the Adam runs' criterion, a "
+                               "member: " + " | ".join(notes) + "; every member equal to its call "
+                               "alone, second run bitwise equal (ok)")
+    fn, packed, opt0, data = wide_member_inputs(et, 1, cols=wide_cols, batch=WIDE_BATCH)
+    rows = fn.member_rows(data, 1, per_member_data=False,
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+    got = member_fields(fn.members(packed, opt0, data, rows), 0)
+    alone = member_fields(fn.alone(fe.FusedParams(packed.params[0], packed.bn[0]),
+                                   {n: v[0] for n, v in opt0.items()}, data, rows))
+    if not all(torch.equal(got[f].reshape(alone[f].shape), alone[f]) for f in alone):
+        raise AssertionError("a K = 1 kernel-3 member call differs from train()'s call")
+    log("kernel3-members", "a K = 1 member call (no member rows) equals train()'s call bit for bit "
+                           "(ok)")
+    return worst
+
+
+def wide_members_reference64(fn, packed, opt0, data, rows, specs):
+    """Kernel 3's member axis's plain version run in float64 on the call's rows."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    as64 = lambda cols: tuple(c.double() for c in cols)  # noqa: E731
+    data64 = fe.FusedData(data.x.double(), as64(data.forcing), as64(data.y), as64(data.mask),
+                          data.n_batches, data.batch)
+    return fw.fused_wide_members_reference(
+        fn.plan, fe.FusedParams(packed.params.double(), packed.bn.double()),
+        {k: v if k == "t" else v.double() for k, v in opt0.items()}, data64, rows, specs=specs)
+
+
+def wide_population_run(et, model, cols, *, cv=False, **kw):
+    """One wide population call on the card under ``set_sync_debug_mode
+    ("error")``: ``(result, wall s, kernel 3's launcher calls)``, the count
+    set to 0 just before the call (a first call's gate and self-check
+    included; the loop's own are ``result.kernel_launches``)."""
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+    from easyhybrid_tpu_torch.training import deferred
+
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        torch.cuda.synchronize()
+        fw.launch_fused_wide.launches = 0
+        t0 = time.perf_counter()
+        if cv:
+            result = et.population_cross_validate(model, cols, **{**WIDE_CV_KW, **kw})
+        else:
+            result = et.population_train(model, cols, **{**WIDE_POP_KW, **kw})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    return result, wall, fw.launch_fused_wide.launches
+
+
+def l2_wide_main_paths(et, card, quick_cols, wide_cols, tutorial_cols) -> dict:
+    """Phase 49, this slice's main paths, each under ``set_sync_debug_mode
+    ("error")``: (a) the quick-start through ``train()`` with
+    ``extra_loss=l2_extra_loss(scale=1e-4)`` on kernel 2 (100 launches after
+    its gate, Q10 within 0.15 of 2.0); (b) the GPU tutorial (``large_mlp``:
+    trainable norm, batch 64, 20 epochs) with the same penalty on kernel 3 (20
+    launcher calls, its mse and Q10 limits); (c) the tower's 8-member
+    learning-rate sweep at ``large_mlp_b1024``'s shape, (d) the 4-seed
+    ``large_mlp_bf16`` ensemble on the bf16 build and (e) the tower's 5-fold
+    cross-validation, each on kernel 3's member axis, one launcher call a
+    block, the best member's Q10 within 0.15 of 2.0."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+    from easyhybrid_tpu_torch.training import deferred
+
+    out = {}
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        what = f"(a) quick-start train() with extra_loss=l2_extra_loss(scale={L2_SCALE})"
+        run = loss_train(et, what, build_model(et, norm=True, seed=0), quick_cols,
+                         fe.launch_fused_epoch, "cuda_fused_epoch",
+                         {**TRAIN_KW, "extra_loss": et.l2_extra_loss(scale=L2_SCALE)})
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    result = run["result"]
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    if run["launches"] != TRAIN_KW["nepochs"] or not (abs(q10 - 2.0) < 0.15
+                                                      and result.best_loss < 0.05):
+        raise AssertionError(f"{what}: {run['launches']} launches, Q10 {q10:.4f}, best val "
+                             f"{result.best_loss:.5f}")
+    log("main", f"{what}: Q10 {q10:.4f}, best val loss {result.best_loss:.6f} (the penalty "
+                f"included); {run['wall']:.2f} s wall (ok)")
+    out["fused_epoch"] = dict(launches=run["launches"], wall=run["wall"], q10=q10)
+
+    n_batches = -(-(TUTORIAL_ROWS * 4 // 5) // TUTORIAL_BATCH)
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        what = (f"(b) the GPU tutorial train() (MLP {list(WIDE_HIDDEN)}, trainable BN, "
+                f"{TUTORIAL_ROWS} rows, batch {TUTORIAL_BATCH}) with "
+                f"extra_loss=l2_extra_loss(scale={L2_SCALE})")
+        run = loss_train(et, what, build_model(et, hidden=WIDE_HIDDEN, norm=True), tutorial_cols,
+                         fw.launch_fused_wide, "cuda_fused_wide",
+                         {**TUTORIAL_KW, "loss_types": ["mse"],
+                          "extra_loss": et.l2_extra_loss(scale=L2_SCALE)})
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    result = run["result"]
+    steps = int(result.opt_state["t"][0])
+    mse = val_of(result, "mse", result.best_epoch)
+    q10 = float(et.scale_param(result.params["globals.Q10"], 1.0, 4.0))
+    if (run["launches"] != TUTORIAL_KW["nepochs"] or steps != TUTORIAL_KW["nepochs"] * n_batches
+            or not mse < TUTORIAL_VAL_LIMIT["mse"] or not abs(q10 - 2.0) < 0.15):
+        raise AssertionError(f"{what}: {run['launches']} calls, {steps} steps, best-epoch val mse "
+                             f"{mse:.6f}, Q10 {q10:.4f}")
+    log("main", f"[{card}] {what}: {steps} steps, best epoch {result.best_epoch}, its val mse "
+                f"{mse:.6f} (limit {TUTORIAL_VAL_LIMIT['mse']}), Q10 {q10:.4f}; {run['wall']:.2f} s "
+                "wall (ok)")
+    out["fused_wide"] = dict(launches=run["launches"], wall=run["wall"], mse=mse, q10=q10)
+
+    tower = build_model(et, hidden=WIDE_HIDDEN)
+    bf16 = build_model(et, hidden=WIDE_HIDDEN, **BF16)
+    blocks = WIDE_POP_KW["nepochs"] // WIDE_POP_KW["eval_every"]
+    for key, what, model, cols, cv, kw, path in (
+            ("sweep", "(c) the tower's 8-member sweep (geomspace(1e-3, 1e-2), large_mlp_b1024's "
+                      "shape)", tower, wide_cols, False, {"hyper": {"learning_rate": WIDE_POP_LRS}},
+             "population_vmap_fused"),
+            ("bf16", "(d) the large_mlp_bf16 4-seed ensemble (bf16 build)", bf16, tutorial_cols,
+             False, BF16_ENSEMBLE_KW, "population_vmap_fused"),
+            ("cv", "(e) the tower's 5-fold cross-validation", tower, wide_cols, True, {},
+             "population_vmap_cv_fused")):
+        result, wall, launches = wide_population_run(et, model, cols, cv=cv, **kw)
+        if result.epoch_path != path or result.kernel_launches != blocks or launches < blocks:
+            raise AssertionError(f"{what} took {result.epoch_path!r} ({result.engine_reason}) in "
+                                 f"{result.kernel_launches} calls, not {blocks}")
+        q10 = et.scale_param(result.best_params["globals.Q10"], 1.0, 4.0).numpy().ravel()
+        best = result.best_member
+        if not (np.isfinite(result.best_losses).all() and abs(float(q10[best]) - 2.0) < 0.15):
+            raise AssertionError(f"{what}: best losses {result.best_losses}, the best member's "
+                                 f"Q10 {float(q10[best]):.4f}")
+        log("main", f"[{card}] wide population, {what}: {result.epoch_path} "
+                    f"({result.engine_reason}), {result.kernel_launches} launcher calls for "
+                    f"{blocks} blocks ({launches} with the gate's and the self-check's); best "
+                    f"{result.monitor} by member " + ", ".join(f"{v:.5f}" for v in
+                                                            result.best_losses)
+                    + f"; the best member's Q10 {float(q10[best]):.4f}; first call {wall:.2f} s; "
+                      "no synchronising call (ok)")
+        out[key] = dict(launches=result.kernel_launches, wall=wall)
+    return out
+
+
+def l2_wide_times(et, card, quick_cols, wide_cols, tutorial_cols) -> dict:
+    """Phase 50: (1) kernel 3's member call of one epoch of (c)'s sweep at
+    K = 1, 4, 8 and 16 (events behind a sleep kernel), its bound K times a
+    member's, and the K = 8 call's plain version; (2) the penalised epochs
+    beside the plain ones, in turns: kernel 2's quick-start epoch (32 steps
+    of 512) and kernel 3's tutorial epoch (63 steps of 64, trainable norm),
+    each with and without l2_extra_loss(scale=1e-4) (kernel 2 by events,
+    kernel 3 by its kernels' durations), and the penalised ones' plain
+    versions (profiler)."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    times, held = {}, {}
+    for k in (1, 4, 8, 16):
+        fn, packed, opt0, data = wide_member_inputs(et, k, cols=wide_cols, batch=WIDE_BATCH)
+        specs = [("adam", {"learning_rate": lr}) for lr in (WIDE_POP_LRS * 2)[:k]]
+        rows = fn.member_rows(data, k, per_member_data=False,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        member_opt = fe.member_opt_rows(fn.plan, specs, "cuda")
+
+        def call(fn=fn, packed=packed, opt0=opt0, data=data, rows=rows, specs=specs,
+                 member_opt=member_opt):
+            return fn.members(packed, opt0, data, rows, specs=specs, member_opt=member_opt)
+
+        host_ms(call, 2)
+        # one call a timing: a call enqueues 22 launches a step, and CUDA's queue of pending
+        # launches holds about a thousand, so more calls would wait for the device
+        times[k] = statistics.median(device_ms(call, 1, f"kernel 3, K={k}") for _ in range(5))
+        if k == 8:
+            refs = []
+            held["plain_ms"] = profiled_device_ms(lambda: refs.append(
+                fw.fused_wide_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)), 1)
+            held.update(steps=data.n_batches, batch=data.batch, n_params=fn.plan.n_params)
+            got = call()
+            held["err"] = max(adam_misses(member_fields(got, i), member_fields(refs[-1], i),
+                                          specs[i][1]["learning_rate"])[2] for i in range(k))
+    dims = (2,) + WIDE_HIDDEN + (1,)
+    one = wide_epoch_ops(dims, held["steps"], held["batch"], held["n_params"])
+    bounds = {k: bound(**{n: v * k for n, v in one.items()}) for k in times}
+    log("times", f"[{card}] kernel 3, a member call of one epoch of {held['steps']} steps of "
+                 f"{held['batch']} (the tower, static norm, adam), median of 5: "
+                 + ", ".join(f"K={k} {v:.4f} ms ({v / times[1]:.2f}x K=1, {v / k:.4f} a member; "
+                             f"bound {bounds[k]['bound_ms']:.4f} by {bounds[k]['bound_by']})"
+                             for k, v in times.items())
+                 + f"; the K=8 plain version {held['plain_ms']:.1f} ms (profiler), its largest "
+                   f"|diff| against the kernel {held['err']:.3e}")
+
+    tutorial = {k: v[: TUTORIAL_ROWS * 4 // 5] for k, v in tutorial_cols.items()}
+    cases = {
+        "fused_epoch": dict(cols=quick_cols, split=True, hidden=(16, 16), act="swish", norm=True,
+                            opt=("adam", 0.01), shuffle=True, epochs=1, batch=512, seed=0),
+        "fused_wide": dict(cols=tutorial, hidden=WIDE_HIDDEN, act="swish", norm=True,
+                           opt=("adam", 0.01), shuffle=True, epochs=1, batch=TUTORIAL_BATCH,
+                           seed=0, make=et.make_fused_wide_epoch),
+    }
+    calls, plain, shapes = {}, {}, {}
+    for name, case in cases.items():
+        for pen in (False, True):
+            _, fn, packed, tensors, perms = prepare_epoch_case(
+                et, fe, what="", extra_loss=et.l2_extra_loss(scale=L2_SCALE) if pen else None,
+                **case)
+            opt0 = fe.init_fused_opt_state(packed)
+            key = (name, pen)
+            calls[key] = lambda fn=fn, p=packed, o=opt0, t=tensors, pm=perms: fn(p, o, t, perms=pm)
+            host_ms(calls[key], 2)
+            if pen:
+                plain[name] = profiled_device_ms(
+                    lambda fn=fn, p=packed, o=opt0, t=tensors, pm=perms:
+                    fn.reference(p, o, t, perms=pm), 1)
+                nb, batch = (int(v) for v in tensors.weight.shape)
+                shapes[name] = (fn.plan, nb, batch)
+    # kernel 2 by events behind a sleep (one launch a call); kernel 3's tutorial epoch (63
+    # steps of 23 launches, more than CUDA's queue of pending launches holds) by its
+    # kernels' durations, as phase 44 takes it
+    def timed(key):
+        if key[0] == "fused_epoch":
+            return device_ms(calls[key], 3, f"{key}")
+        return kernel_device_ms(calls[key], 1, "eh_wide")
+
+    samples = {key: [] for key in calls}
+    for i in range(5):
+        for key in (list(calls) if i % 2 == 0 else list(reversed(list(calls)))):
+            samples[key].append(timed(key))
+    ms = {key: statistics.median(v) for key, v in samples.items()}
+    out = {}
+    for name, (plan, nb, batch) in shapes.items():
+        dims = plan.dims
+        if name == "fused_epoch":  # kernel 2's bound as its entry's, the penalty's sum of squares
+            b = bound(bytes_moved=nb * batch * 4 * 6,
+                      flops=nb * (batch * 3 * forward_flops(dims) + 2 * plan.l2.count))
+        else:
+            b = bound(**wide_epoch_ops(dims, nb, batch, plan.n_params, plan.l2.count))
+        out[name] = dict(ms=ms[(name, True)], off_ms=ms[(name, False)], plain_ms=plain[name],
+                         bound=b)
+        log("times", f"[{card}] {name}, one epoch of {nb} steps of {batch}, median of 5 in turns: "
+                     f"with l2_extra_loss(scale={L2_SCALE}) {ms[(name, True)]:.4f} ms, without "
+                     f"{ms[(name, False)]:.4f} ms ({ms[(name, True)] / ms[(name, False)] - 1:+.1%});"
+                     f" the penalised plain version {plain[name]:.3f} ms (profiler); bound "
+                     f"{b['bound_ms']:.5f} by {b['bound_by']}")
+    return dict(k_ms=times, bounds=bounds, member_plain_ms=held["plain_ms"],
+                member_err=held["err"], l2=out)
+
+
+def wide_epoch_ops(dims, nb, batch, n_params, l2_count=0) -> dict:
+    """``bound``'s arguments for an epoch of kernel 3 of ``nb`` steps of
+    ``batch`` rows (phase 18's count: every row's 2 predictors, forcing,
+    target, mask and index once, every parameter and its two moments read and
+    written once a step; the products three 3xTF32 passes, each three TF32
+    products), with a penalty over ``l2_count`` weights its sum of squares."""
+    return dict(bytes_moved=nb * (batch * 4 * 6 + n_params * 4 * 6),
+                tf32_flops=3 * nb * batch * 3 * forward_flops(dims), flops=nb * 2 * l2_count)
+
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # 1. device ---------------------------------------------------------------
@@ -5280,7 +5736,9 @@ def main() -> None:
     n_traced = sum(len(keys) for keys in TRACED_BUILDS.values())
     n_losses = sum(len(keys) for keys in LOSS_BUILDS.values())
     pool = concurrent.futures.ThreadPoolExecutor(3 + n_traced + n_losses + len(BF16_BUILDS))
-    stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu", ("-DEHE_STAMPS",))
+    # phase 8 stamps the quick-start's width alone (fe.stage_cycles: _build.width_defines)
+    stamped_build = pool.submit(_build.build_variant, "fused_epoch.cu",
+                                ("-DEHE_STAMPS", *_build.width_defines(16)))
     ms_stamped_build = pool.submit(_build.build_variant, "fused_multisite.cu", ("-DEHM_STAMPS",))
     chain_build = pool.submit(_build.build_variant, "fused_epoch_lstm.cu", ("-DEHL_CHAIN_ONLY",))
     t_traced = time.perf_counter()
@@ -5317,6 +5775,7 @@ def main() -> None:
         log("build", f"{name}, its bf16 build (-DEH_BF16): nvcc {result.seconds:.2f} s"
                      + (f"; {'; '.join(spills)}" if spills else ", no spills"))
     traced_build_s = time.perf_counter() - t_traced
+    nvcc_after_build = _build.nvcc_seconds()
     log("build", f"the {n_traced} traced form builds, {n_losses} traced loss builds and "
                  f"{len(BF16_BUILDS)} bf16 builds, all at once beside the library's: "
                  f"{traced_build_s:.2f} s wall")
@@ -5625,6 +6084,16 @@ def main() -> None:
     bf16_ms = bf16_times(et, card, quick_cols, wide_train_cols, tutorial_cols, mn)
     log("bf16", f"phases 45-47 added {time.perf_counter() - t0:.1f} s to the run (45 "
                 f"{t1 - t0:.1f} s, 46 {t2 - t1:.1f} s, 47 {time.perf_counter() - t2:.1f} s)")
+    # 48-50. the weight-L2 extra_loss on kernels 2 and 3; kernel 3's member axis
+    t0 = time.perf_counter()
+    l2_err = l2_checks(et, quick_cols, wide_train_cols, tutorial_cols, mn)
+    wide_member_err = wide_member_checks(et, wide_cols, tutorial_cols)
+    t1 = time.perf_counter()
+    l2_main = l2_wide_main_paths(et, card, quick_cols, wide_cols, tutorial_cols)
+    t2 = time.perf_counter()
+    l2_ms = l2_wide_times(et, card, quick_cols, wide_cols, tutorial_cols)
+    log("l2-members", f"phases 48-50 added {time.perf_counter() - t0:.1f} s to the run (48 "
+                      f"{t1 - t0:.1f} s, 49 {t2 - t1:.1f} s, 50 {time.perf_counter() - t2:.1f} s)")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -5710,9 +6179,42 @@ def main() -> None:
         ("fused_wide", "easyhybrid_tpu/ops/fused_epoch.py:2662",
          "kernel 3, the tutorial's epoch (63 steps of 64, static norm)"),
     )]
+    l2_entries = [{
+        "name": f"{name} [weight-L2]",
+        "route": "cuda",
+        "source": f"easyhybrid_tpu_torch/csrc/{name}.cu",
+        # the declarative weight-L2 extra_loss (fused_epoch.py:1217-1225, :2525-2557; kernel
+        # 3's chunked body :2418-2457)
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": l2_main[name]["launches"],  # phase 49's train() (a) or (b)
+        "max_abs_err": l2_err[name],
+        "ms": l2_ms["l2"][name]["ms"],
+        "plain_ms": l2_ms["l2"][name]["plain_ms"],
+        **l2_ms["l2"][name]["bound"],
+        "library_ms": None,  # no single PyTorch call computes the step
+        "without_l2_ms": l2_ms["l2"][name]["off_ms"],  # the same epoch unpenalised, same call
+    } for name in ("fused_epoch", "fused_wide")]
+    wide_members_entry = {
+        "name": "fused_wide members",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_wide.cu",
+        # the JAX kernel's batch-chunked body under jax.vmap (easyhybrid_tpu/training/
+        # population.py:215-285)
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": l2_main["sweep"]["launches"],  # phase 49's sweep (c), a call a block
+        "max_abs_err": max(wide_member_err, l2_ms["member_err"]),
+        "ms": l2_ms["k_ms"][8],  # one call: 8 members x an epoch of 16 steps of 1,024
+        "plain_ms": l2_ms["member_plain_ms"],
+        **l2_ms["bounds"][8],  # 8 times a member's epoch: wide_epoch_ops
+        "library_ms": None,  # no single PyTorch call computes the step
+        "members": 8,
+        "k1_ms": l2_ms["k_ms"][1],
+        "k16_ms": l2_ms["k_ms"][16],
+    }
     log("smoke", f"the whole run {time.perf_counter() - t_start:.1f} s, of which the library's "
                  f"build {built.seconds:.1f} s and the traced builds' {traced_build_s:.1f} s of "
-                 "wall beside it")
+                 f"wall beside it; builds after phase 2 (made at first use) "
+                 f"{_build.nvcc_seconds() - nvcc_after_build:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_forward",
@@ -5918,7 +6420,7 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the step
         "members": len(MS_ENSEMBLE_KW["seeds"]),
         "k1_ms": ms_pop["k1_ms"],
-    }, *stats_entries, *bf16_entries]}))
+    }, *stats_entries, *bf16_entries, *l2_entries, wide_members_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

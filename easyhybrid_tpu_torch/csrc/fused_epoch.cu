@@ -115,6 +115,21 @@
 // after the update is an exchange barrier, so that no block overwrites
 // partials another still reads.
 //
+// The declarative weight-L2 extra_loss (l2_extra_loss; the JAX kernel's,
+// ops/fused_epoch.py:1217-1225, :2365-2372, :2525-2557), a runtime field of
+// the arguments (l2_leaves 0: none), taken by the builds of the losses besides
+// mse (the launcher runs a penalised mse on the rows' build, which computes it
+// too), so that mse's own build keeps the code it had before the penalty came
+// and its time: each penalised parameter's gradient gets
+// l2_coeff w, w before the update, ahead of the rule; the batch loss gets
+// l2_outer (l2_value S), S the sum of squares of the penalised parameters
+// before the update. S is taken off the step's chain: the thread that
+// updates a parameter adds its square after the update (or as it stands, in
+// a step without a valid target) into its warp's partial of the next step's
+// S (a shuffle tree), two steps' rows of partials in shared memory (XL2); at
+// the start of the launch the same threads take the first step's; warp 0
+// adds the warps' partials in warp order where it adds the batch loss.
+//
 // The bf16 build (-DEH_BF16, eh_device.cuh; a model with
 // compute_dtype=bfloat16, forward_mlp / backward_mlp of the JAX kernel with
 // bf16 operands, fused_epoch.py:716-841): each block keeps a second copy of
@@ -197,6 +212,10 @@ struct EhFusedEpochArgs {
   EhNet nets[EH_MAX_NETS];
   long long* stamps;                     // (EHE_N_STAMPS) cycles per stage, or null
   const int* halt;                       // the halt word (eh_halted), or null
+  float l2_coeff;                        // the weight-L2 penalty: ex_outer 2 scale / norm_div,
+  float l2_value;                        //   scale / norm_div,
+  float l2_outer;                        //   ex_outer (0.5 under agg mean, else 1),
+  int64_t l2_leaves;                     //   bit l: leaf l penalised (0: no penalty)
   int n_members;                         // models trained side by side, a cluster each (1: train())
   int64_t perm_stride;                   // ints between two members' row indexes (0: one shared)
   const float* member_opt;               // (n_members, EHE_OPT_SCALARS) optimizer numbers, or null
@@ -416,6 +435,10 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   float* XM1 = XQ + nw * T;       // the predictions' sums (rmse: squared differences), T a warp
   float* XM2 = XM1 + nw * T;      // their centred squares and products with the targets', 2 T a warp
   const int LK = a.loss_kind;
+  // the weight-L2 penalty's sums of squares, a warp's partial each, two steps' rows
+  // (after the loss's moments, which only the losses that take them have)
+  const bool l2 = LOSSES != EHE_LOSS_MSE && a.l2_leaves != 0;
+  float* XL2 = YM + ((a.loss_sst || LK == LOSS_RMSE || ehe_loss_is_stat(LK)) ? 9 * T + 5 * nw * T : 0);
   // rmse and the statistic losses need the batch's predictions before any
   // row's cotangent: with the block's rows in flight at once (one tile) the
   // moments are exchanged between a row's forward and its cotangent, each row
@@ -479,6 +502,24 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
   const int mine = max(0, min(a.block_rows, B - row0));
   const int n_units = ehe_epoch_n_units<MULTI>(a);
   const int pp_first = tid < NP ? ehe_epoch_padded_index<MULTI>(a, tid) : 0;  // of the thread's first parameter
+  // the weight-L2 penalty: whether packed parameter p (the thread's first: a
+  // register) is penalised; the thread's parameters' squares into its warp's
+  // partial of a step's sum, in row `row` of XL2; the first step's now
+  const bool pen_first = l2 && tid < NP && ((a.l2_leaves >> ehe_leaf_of(o, tid)) & 1ll);
+  auto penalised = [&](int p) {
+    return p == tid ? pen_first : ((a.l2_leaves >> ehe_leaf_of(o, p)) & 1ll) != 0;
+  };
+  auto l2_partial = [&](int row) {
+    float sq = 0.0f;
+    for (int p = tid; p < NP; p += nth) {
+      if (!penalised(p)) continue;
+      const float w = Pm[p == tid ? pp_first : ehe_epoch_padded_index<MULTI>(a, p)];
+      sq += w * w;
+    }
+    sq = ehe_warp_sum(sq);
+    if (lane == 0) XL2[row * nw + warp] = sq;
+  };
+  if (l2) l2_partial(0);
   const int n_steps = a.n_epochs * a.n_batches;
   float t = (float)tk[0];    // every thread carries the same step count
   float last_loss = 0.0f;    // warp 0 only
@@ -1049,16 +1090,23 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
         bl = LC[7];
         for (int j = 1; j < T; ++j) bl = bl + LC[8 * j + 7];
       }
+      if (l2) {  // the sum of squares before this step's update: the warps' partials in order
+        float sq = 0.0f;
+        for (int w = 0; w < nw; ++w) sq += XL2[(s & 1) * nw + w];
+        bl = bl + a.l2_outer * (a.l2_value * sq);
+      }
       epoch_loss += bl;
     }
     if (valid > 0.0f) {
       const EhOptStep st = ehe_opt_step_at(MISC + 2 + 3 * (s & 1));
-      // parameter p's gradient: the blocks' partials in rank order
-      auto grad = [&](int p) {
+      // parameter p's gradient: the blocks' partials in rank order, and the
+      // penalty's term at its value pv before the update
+      auto grad = [&](int p, float pv) {
         float g = 0.0f;
         for (int rk = 0; rk < C; ++rk) g += (C > 1 ? cluster.map_shared_rank(Gr, rk) : Gr)[p];
         if (p >= a.p_off_g) g = g * DG[p - a.p_off_g];
         if constexpr (BF16) g = ehe_epoch_is_weight<MULTI>(a, p) ? ehe_bf16(g) : g;
+        if (l2 && penalised(p)) g = g + a.l2_coeff * pv;
         return g;
       };
       // lamb: each leaf's trust ratio, a warp a leaf, into the residual tile
@@ -1070,7 +1118,7 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
           for (int p = (int)ehe_leaf_start(o, l) + lane; p < o.leaf_end[l]; p += 32) {
             const float pv = Pm[ehe_epoch_padded_index<MULTI>(a, p)];
             float mm = Mm[p], vv = Vm[p], w = 0.0f;
-            const float d = ehe_direction(o, st, pv, grad(p), mm, vv, w);
+            const float d = ehe_direction(o, st, pv, grad(p, pv), mm, vv, w);
             ps += pv * pv;
             ds += d * d;
           }
@@ -1082,11 +1130,12 @@ eh_fused_epoch_kernel(const __grid_constant__ EhFusedEpochArgs a) {
       }
       for (int p = tid; p < NP; p += nth) {
         const int pp = p == tid ? pp_first : ehe_epoch_padded_index<MULTI>(a, p);
-        ehe_update(o, st, &Pm[pp], &Mm[p], &Vm[p], &Um[p], grad(p),
+        ehe_update(o, st, &Pm[pp], &Mm[p], &Vm[p], &Um[p], grad(p, Pm[pp]),
                    o.rule == OPT_LAMB ? TR[ehe_leaf_of(o, p)] : 1.0f);
         if constexpr (BF16) PW[pp] = ehe_bf16(Pm[pp]);
       }
     }
+    if (l2) l2_partial((s + 1) & 1);  // the next step's sum, before its update
     t += valid;
     // A cluster's blocks must all have read this step's partials before any
     // writes the next step's. With a trainable norm the next step's variance
@@ -1140,7 +1189,8 @@ static int ehe_loss_floats(const EhFusedEpochArgs* a, int NW, int T) {
   return (a->loss_sst || k == LOSS_RMSE || ehe_loss_is_stat(k)) ? 9 * T + 5 * NW * T : 0;
 }
 
-// Shared-memory floats of one launch (56: EHE_OPT_WORDS); ops/fused_epoch.py::_smem_floats
+// Shared-memory floats of one launch (56: EHE_OPT_WORDS), with the weight-L2
+// penalty's two rows of warp partials; ops/fused_epoch.py::_smem_floats
 // computes the same.
 static_assert(EHE_OPT_WORDS == 56, "ehe_smem_floats counts the optimizer struct as 56 floats");
 static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
@@ -1151,7 +1201,8 @@ static size_t ehe_smem_floats(const EhFusedEpochArgs* a) {
   const int COLS = F + a->n_forcing + 2 * T;
   return (size_t)a->n_padded + (1 + 2 * a->moments_shared) * a->n_params + NW * (1 + T + 2 * F) + 2 * F +
          (2 * P + 2 * G + K) + 2 * G + K + 2 * F + T + 8 + 8 * a->n_unit_table + 56 +
-         (size_t)a->tile_rows * (a->res_floats + a->stages * COLS) + ehe_loss_floats(a, NW, T);
+         (size_t)a->tile_rows * (a->res_floats + a->stages * COLS) + ehe_loss_floats(a, NW, T) +
+         2 * NW * (a->l2_leaves != 0);
 }
 
 template <int W, int LOSSES>
@@ -1175,7 +1226,8 @@ static int ehe_launch(const EhFusedEpochArgs* args, size_t smem, cudaStream_t s)
   if (args->tile_rows > EHE_MAX_THREADS(W)) return (int)cudaErrorInvalidValue;
   const int k = args->loss_kind;
   if (k == LOSS_RMSE || ehe_loss_is_stat(k)) return ehe_launch_build<W, EHE_LOSS_MOMENTS>(args, smem, s);
-  if (k == LOSS_SQUARED && !args->loss_sst) return ehe_launch_build<W, EHE_LOSS_MSE>(args, smem, s);
+  if (k == LOSS_SQUARED && !args->loss_sst && !args->l2_leaves)
+    return ehe_launch_build<W, EHE_LOSS_MSE>(args, smem, s);
   return ehe_launch_build<W, EHE_LOSS_ROWS>(args, smem, s);
 }
 

@@ -87,6 +87,35 @@
 // 0.064 ms a step; in 3xTF32 on the tensor cores (495 TFLOP/s, three products
 // each) 0.026 ms a step, 0.416 ms an epoch of 16 steps.
 //
+// The member axis (population training, replacing the JAX kernel under
+// jax.vmap in easyhybrid_tpu/training/population.py:215-285): one call trains
+// n_members models side by side, each of a step's launches over all of them.
+// The member is a grid dimension: blockIdx.y of the step's other kernels, and
+// in the layer products, whose z is a tile's pieces (a cluster), it is folded
+// into x, the output tile's column (blockIdx.x = member tiles_x + column).
+// Member k's parameters, slots, running statistics, workspace, partial sums,
+// loss scales, validity, step counts and loss sit k strides further on (its
+// rows of the state arrays, EhwMember); its row index perm_stride further on
+// (0 where the members share it); its data is where its row index points;
+// its optimizer numbers are row k of member_opt, or the shared struct's. A
+// member's blocks compute what a launch of it alone computes, in the same
+// tiles, pieces and orders (the geometry depends on the widths and the batch
+// alone), so each member's bits are those of its call alone.
+//
+// The declarative weight-L2 extra_loss (l2_extra_loss; the JAX kernel's,
+// ops/fused_epoch.py:1217-1225, :2365-2372, its chunked form :2418-2457), a
+// runtime field of the arguments (l2_leaves 0: none): the update adds
+// l2_coeff w, w the parameter before the update, to each penalised
+// parameter's gradient, after its partials' sum and ahead of the rule; each
+// update block also writes the sum of squares of its penalised parameters
+// after the update into l2_parts, a ring of two rows a member, which are the
+// next step's parameters before its update (eh_wide_transpose_kernel writes
+// the first step's at the start of the call); the update's loss block adds
+// that row in block order and the loss thread adds l2_outer (l2_value S) to
+// the batch's loss, once a batch, as the JAX kernel's chunked body does at a
+// batch's last chunk. The penalty adds no launch where a tensor-core layer
+// has the transpose launched anyway.
+//
 // The bf16 build (-DEH_BF16, eh_device.cuh; a model with
 // compute_dtype=bfloat16: forward_mlp / backward_mlp of the JAX kernel with
 // bf16 operands, fused_epoch.py:716-841, the bench's large_mlp_bf16 row):
@@ -108,6 +137,7 @@
 
 #include "eh_device.cuh"
 
+#include <stddef.h>
 #include <stdint.h>
 
 #include <utility>
@@ -204,7 +234,70 @@ struct EhFusedWideArgs {
   int64_t ws_off_mom;                    //   (head_blocks, n_targets, 3) each block's moments
   float momentum;                        // the running statistics' EMA weight of the batch's
   float one_minus_momentum;
+  int n_members;                         // models trained side by side (1: train())
+  int64_t perm_stride;                   // ints between two members' row indexes (0: one shared)
+  const float* member_opt;               // (n_members, EHW_OPT_SCALARS) optimizer numbers, or null
+  int64_t ws_stride;                     // floats between two members' workspaces
+  int64_t part_stride;                   // floats between two members' partial tiles
+  int64_t lamb_stride;                   // lamb: floats between two members' lamb_parts
+  float* l2_parts;                       // the penalty: (n_members, 2, update blocks) sums of w^2
+  int64_t l2_stride;                     //   floats between two members' rows: 2 update blocks
+  float l2_coeff;                        // the weight-L2 penalty: ex_outer 2 scale / norm_div,
+  float l2_value;                        //   scale / norm_div,
+  float l2_outer;                        //   ex_outer (0.5 under agg mean, else 1),
+  int64_t l2_leaves;                     //   bit l: leaf l penalised (0: no penalty)
 };
+// A member's optimizer numbers: EhOptimizer's floats from lr to rect_den, in
+// its order, as kernel 2 takes them (csrc/fused_epoch.cu, EHE_OPT_SCALARS).
+#define EHW_OPT_SCALARS 13
+#define EHW_OPT_FIRST 2
+static_assert(offsetof(EhOptimizer, lr) == EHW_OPT_FIRST * sizeof(float) &&
+                  offsetof(EhOptimizer, rect_den) ==
+                      (EHW_OPT_FIRST + EHW_OPT_SCALARS - 1) * sizeof(float),
+              "EhOptimizer's numbers from lr to rect_den");
+
+// Member k's rows of the per-member arrays (k = 0: train()'s call).
+struct EhwMember {
+  float* params;
+  float* m;
+  float* v;
+  float* u;
+  float* bn;
+  float* ws;
+  float* partials;
+  float* head_partials;
+  float* epoch_loss;
+  float* lamb_parts;
+  float* l2_parts;
+  const int* perm;
+  const float* scale;
+  const float* valid;
+  const float* tcount;
+  const float* tmom;
+};
+
+__device__ __forceinline__ EhwMember ehw_member(const EhFusedWideArgs& a, int64_t k) {
+  const int64_t np = a.n_params;
+  const int64_t steps = (int64_t)a.n_epochs * a.n_batches;
+  EhwMember M;
+  M.params = a.params + k * np;
+  M.m = a.m + k * np;
+  M.v = a.v + k * np;
+  M.u = a.u != nullptr ? a.u + k * np : nullptr;
+  M.bn = a.bn + k * 2 * a.dims[0];
+  M.ws = a.ws + k * a.ws_stride;
+  M.partials = a.partials + k * a.part_stride;
+  M.head_partials = a.head_partials + k * a.head_blocks * (1 + a.n_globals);
+  M.epoch_loss = a.epoch_loss + k * a.n_epochs;
+  M.lamb_parts = a.lamb_parts != nullptr ? a.lamb_parts + k * a.lamb_stride : nullptr;
+  M.l2_parts = a.l2_parts != nullptr ? a.l2_parts + k * a.l2_stride : nullptr;
+  M.perm = a.perm + k * a.perm_stride;
+  M.scale = a.scale + k * steps * a.n_targets;
+  M.valid = a.valid + k * steps;
+  M.tcount = a.tcount + k * steps;
+  M.tmom = a.tmom != nullptr ? a.tmom + k * steps * a.n_targets * 3 : nullptr;
+  return M;
+}
 // Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm); per
 // layer W (dout x din, row-major) at p_off_w[l], then b (dout) at p_off_b[l];
 // the raw globals at p_off_g.
@@ -237,7 +330,25 @@ struct EhwProduct {
   float* out_t;        // forward, data: out again, feature-major (N x M), or null
   const int* halt;     // the step's halt word (eh_halted), or null
   int round_out;       // forward, in the bf16 build: out rounded to bf16 (the next layer's input)
+  int members;         // the member axis: blockIdx.x = member tiles_x + the tile's column
+  int tiles_x;
+  int64_t sa, sb, sbias, sout, sda, sout_t;  // floats between two members' A, B, bias, out, da, out_t
 };
+
+// The product of blockIdx.x's member (its operands sa, sb, ... further on)
+// and its column of tiles (bx).
+__device__ __forceinline__ EhwProduct ehw_member_product(const EhwProduct& g, int* bx) {
+  const int k = (int)blockIdx.x / g.tiles_x;
+  *bx = (int)blockIdx.x - k * g.tiles_x;
+  EhwProduct p = g;
+  p.A = g.A + k * g.sa;
+  p.B = g.B + k * g.sb;
+  if (g.bias != nullptr) p.bias = g.bias + k * g.sbias;
+  p.out = g.out + k * g.sout;
+  if (g.da != nullptr) p.da = g.da + k * g.sda;
+  if (g.out_t != nullptr) p.out_t = g.out_t + k * g.sout_t;
+  return p;
+}
 
 // Finishes the BM x BN output tile at (m0, n0) whose block has left its sums
 // over its piece of the inner dimension in `tile` (row stride BN + 1). With
@@ -441,10 +552,12 @@ __device__ __forceinline__ float ehw_product(const float* __restrict__ A, int ld
 // data gradient's W). BF16: W rounded to bf16 (ehw_product) and the
 // bf16 build's finish.
 template <bool BKC, bool BF16>
-__device__ __forceinline__ void ehw_fma_product(const EhwProduct& p) {
+__device__ __forceinline__ void ehw_fma_product(const EhwProduct& g) {
   __shared__ float tile[EHW_TILE * (EHW_TILE + 1)];
+  int bx;
+  const EhwProduct p = ehw_member_product(g, &bx);
   const int m0 = blockIdx.y * EHW_TILE;
-  const int n0 = blockIdx.x * EHW_TILE;
+  const int n0 = bx * EHW_TILE;
   const int k0 = blockIdx.z * p.split_k;
   float acc[4][4];
   ehw_product<true, BKC, BF16>(p.A, p.lda, p.B, p.ldb, m0, p.M, n0, p.N, k0,
@@ -478,17 +591,24 @@ eh_wide_bwd_data_kernel(const __grid_constant__ EhwProduct p) {
 
 // Split blockIdx.z of the batch: dW[j][k] = sum_r dZ[r][j] H[r][k] over the
 // split's rows, written to part[split][j * din + k], and db[j] = sum_r dZ[r][j]
-// to part[split][dout * din + j]: M = dout, N = din.
+// to part[split][dout * din + j]: M = dout, N = din. The member axis as the
+// products' (blockIdx.x = member tiles_x + column; its dZ and H ws_stride
+// further on, its partials part_stride).
 __global__ void __launch_bounds__(EHW_THREADS)
 eh_wide_bwd_weight_kernel(const float* __restrict__ dZ, const float* __restrict__ H,
                           float* __restrict__ part, int M, int N, int batch, int split_rows,
-                          const int* halt) {
+                          const int* halt, int tiles_x, int64_t ws_stride, int64_t part_stride) {
   if (eh_halted(halt)) return;
+  const int k = (int)blockIdx.x / tiles_x;
+  const int bx = (int)blockIdx.x - k * tiles_x;
+  dZ += k * ws_stride;
+  H += k * ws_stride;
+  part += k * part_stride;
   const int m0 = blockIdx.y * EHW_TILE;
-  const int n0 = blockIdx.x * EHW_TILE;
+  const int n0 = bx * EHW_TILE;
   const int r0 = blockIdx.z * split_rows;
   const int r1 = min(batch, r0 + split_rows);
-  const bool bias = blockIdx.x == 0;
+  const bool bias = bx == 0;
   float acc[4][4];
   const float rowsum = ehw_product<false, false>(dZ, M, H, N, m0, M, n0, N, r0, r1, bias, acc);
   float* out = part + (int64_t)blockIdx.z * M * (N + 1);
@@ -645,8 +765,10 @@ constexpr size_t eht_smem_bytes() {
 // 64 x 64, or two of 128 x 64, fit a multiprocessor beside their shared
 // memory.
 template <int BM, int BN, int PREC = EHT_F32>
-__global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(const __grid_constant__ EhwProduct p) {
-  if (eh_halted(p.halt)) return;
+__global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(const __grid_constant__ EhwProduct pg) {
+  if (eh_halted(pg.halt)) return;
+  int bx;
+  const EhwProduct p = ehw_member_product(pg, &bx);
   constexpr int THREADS = 2 * BM;
   constexpr int GA = BM / 8;
   constexpr int GB = BN / 8;
@@ -663,7 +785,7 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = bx * BN;
   const int k0 = blockIdx.z * p.split_k;
   const int k1 = min(p.K, k0 + p.split_k);
   const bool vec_a = ((reinterpret_cast<uintptr_t>(p.A) & 15) | (p.lda & 3)) == 0;
@@ -679,7 +801,7 @@ __global__ void __launch_bounds__(2 * BM, BM == 64 ? 3 : 2) eh_wide_tc_kernel(co
   for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.0f;
   // weight mode, the first column of tiles: db, the sums of A's rows (dZ^T),
   // from the fetched slices; thread e's rows are those of its items
-  const bool rowsums = p.mode == EHW_WEIGHT && blockIdx.x == 0;
+  const bool rowsums = p.mode == EHW_WEIGHT && bx == 0;
   float rs[IA];
 #pragma unroll
   for (int q = 0; q < IA; ++q) rs[q] = 0.0f;
@@ -794,7 +916,8 @@ static cudaError_t ehw_launch_cluster(void (*kernel)(Params...), dim3 grid, int 
 
 template <int BM, int BN, int PREC>
 static cudaError_t eht_launch(const EhwProduct& p, int splits, cudaStream_t s) {
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
+  if (p.tiles_x != (p.N + BN - 1) / BN) return cudaErrorInvalidValue;
+  const dim3 grid(p.tiles_x * p.members, (p.M + BM - 1) / BM, splits);
   if (p.mode != EHW_WEIGHT)
     return ehw_launch_cluster(eh_wide_tc_kernel<BM, BN, PREC>, grid, 2 * BM,
                               eht_smem_bytes<BM, BN>(), s, p);
@@ -821,7 +944,8 @@ static cudaError_t eht_run(int bm, const EhwProduct& p, int splits, cudaStream_t
 
 template <bool BF16>
 static cudaError_t ehw_fma_run(bool forward, const EhwProduct& p, int splits, cudaStream_t s) {
-  const dim3 grid((p.N + EHW_TILE - 1) / EHW_TILE, (p.M + EHW_TILE - 1) / EHW_TILE, splits);
+  if (p.tiles_x != (p.N + EHW_TILE - 1) / EHW_TILE) return cudaErrorInvalidValue;
+  const dim3 grid(p.tiles_x * p.members, (p.M + EHW_TILE - 1) / EHW_TILE, splits);
   return ehw_launch_cluster(forward ? eh_wide_forward_kernel<BF16> : eh_wide_bwd_data_kernel<BF16>,
                             grid, EHW_THREADS, 0, s, p);
 }
@@ -858,10 +982,11 @@ __global__ void __launch_bounds__(EHW_HEAD_THREADS)
 eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (eh_halted(a.halt)) return;
   __shared__ float red[EHW_HEAD_THREADS];
+  const EhwMember M = ehw_member(a, blockIdx.y);
   const int F = a.dims[0];
   const int B = a.batch;
   const int k = blockIdx.x;
-  const int* idx = a.perm + (int64_t)step * B;
+  const int* idx = M.perm + (int64_t)step * B;
   float sum = 0.0f;
   for (int r = threadIdx.x; r < B; r += EHW_HEAD_THREADS) sum += a.x[(int64_t)idx[r] * F + k];
   const float mean = ehw_block_sum(red, sum) / (float)B;
@@ -872,11 +997,11 @@ eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   }
   const float var = ehw_block_sum(red, dev) / (float)B;
   if (threadIdx.x == 0) {
-    a.ws[a.ws_off_stats + k] = mean;
-    a.ws[a.ws_off_stats + F + k] = var;
-    if (a.valid[step] > 0.0f) {  // the running statistics' EMA, gated like the update
-      a.bn[k] = a.one_minus_momentum * a.bn[k] + a.momentum * mean;
-      a.bn[F + k] = a.one_minus_momentum * a.bn[F + k] + a.momentum * var;
+    M.ws[a.ws_off_stats + k] = mean;
+    M.ws[a.ws_off_stats + F + k] = var;
+    if (M.valid[step] > 0.0f) {  // the running statistics' EMA, gated like the update
+      M.bn[k] = a.one_minus_momentum * M.bn[k] + a.momentum * mean;
+      M.bn[F + k] = a.one_minus_momentum * M.bn[F + k] + a.momentum * var;
     }
   }
 }
@@ -892,25 +1017,26 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   const int F = a.dims[0];
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (int64_t)a.batch * F) return;
+  const EhwMember M = ehw_member(a, blockIdx.y);
   const int r = (int)(e / F);
   const int k = (int)(e % F);
-  const int64_t row = a.perm[(int64_t)step * a.batch + r];
+  const int64_t row = M.perm[(int64_t)step * a.batch + r];
   float h = a.x[row * F + k];
   if (a.norm_mode != NORM_NONE) {
-    const float* st = a.norm_mode == NORM_TRAIN ? a.ws + a.ws_off_stats : a.bn;
+    const float* st = a.norm_mode == NORM_TRAIN ? M.ws + a.ws_off_stats : M.bn;
     const float xh = (h - st[k]) * rsqrtf(st[F + k] + a.norm_eps);
-    a.ws[a.ws_off_xhat + e] = xh;
-    h = xh * a.params[k] + a.params[F + k];
+    M.ws[a.ws_off_xhat + e] = xh;
+    h = xh * M.params[k] + M.params[F + k];
   }
   if constexpr (BF16) h = ehe_bf16(h);
-  a.ws[a.ws_off_h0 + e] = h;
-  if (a.tc[0]) a.ws[a.ws_off_ht[0] + (int64_t)k * a.batch + r] = h;
+  M.ws[a.ws_off_h0 + e] = h;
+  if (a.tc[0]) M.ws[a.ws_off_ht[0] + (int64_t)k * a.batch + r] = h;
 }
 
 // The kernel form's arguments of batch row `row` (its raw network outputs
-// `raw`) and the form's outputs and partials.
-__device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, int64_t row,
-                                              const float* raw, float (&out)[EH_MAX_OUT],
+// `raw`, the member's parameters `params`) and the form's outputs and partials.
+__device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, const float* params,
+                                              int64_t row, const float* raw, float (&out)[EH_MAX_OUT],
                                               float (&pd)[EH_MAX_OUT][EH_MAX_ARGS]) {
   const int P = a.dims[a.n_layers];
   const int G = a.n_globals;
@@ -938,7 +1064,7 @@ __device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, int64_t 
           if (a.scale_nn_outputs) val = nlo[id] + nspan[id] * ehe_sigmoid(val);
           break;
         case SRC_SCALAR:
-          val = id < G ? glo[id] + gspan[id] * ehe_sigmoid(a.params[a.p_off_g + id])
+          val = id < G ? glo[id] + gspan[id] * ehe_sigmoid(params[a.p_off_g + id])
                        : fixed[id - G];
           break;
         default: val = a.arg_const[i]; break;
@@ -980,23 +1106,24 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
   const int T = a.n_targets;
   const int LK = a.loss_kind;
   const float* nspan = a.consts + P;
-  float* mom = a.ws + a.ws_off_mom;
+  const EhwMember M = ehw_member(a, blockIdx.y);
+  float* mom = M.ws + a.ws_off_mom;
 
   if (TWO_PASS && phase == 0) {  // the predictions and the first moments
     float acc[EH_MAX_TARGETS];
 #pragma unroll
     for (int j = 0; j < EH_MAX_TARGETS; ++j) acc[j] = 0.0f;
     if (r < a.batch) {
-      const int64_t row = a.perm[(int64_t)step * a.batch + r];
+      const int64_t row = M.perm[(int64_t)step * a.batch + r];
       float out[EH_MAX_OUT];
       float pd[EH_MAX_OUT][EH_MAX_ARGS];
-      ehw_head_form(a, row, a.ws + a.ws_off_a[L - 1] + (int64_t)r * P, out, pd);
+      ehw_head_form(a, M.params, row, M.ws + a.ws_off_a[L - 1] + (int64_t)r * P, out, pd);
 #pragma unroll
       for (int j = 0; j < EH_MAX_TARGETS; ++j) {
         if (j < T) {
           const bool on = a.mask[j][row] > 0.0f;
           const float pred = ehe_pick<EH_MAX_OUT>(out, a.target_out[j]);
-          a.ws[a.ws_off_pred + (int64_t)j * a.batch + r] = pred;
+          M.ws[a.ws_off_pred + (int64_t)j * a.batch + r] = pred;
           const float diff = on ? pred - a.y[j][row] : 0.0f;
           acc[j] = LK == LOSS_RMSE ? diff * diff : (on ? pred : 0.0f);
         }
@@ -1012,7 +1139,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
   if (TWO_PASS) {  // every block's moments, in block order, into each target's coefficients
     if (tid < T) {
       const int j = tid;
-      const float* tm = a.tmom + ((int64_t)step * T + j) * 3;
+      const float* tm = M.tmom + ((int64_t)step * T + j) * 3;
       float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
       for (int b = 0; b < a.head_blocks; ++b) {
         const float* q = mom + ((int64_t)b * T + j) * 3;
@@ -1020,7 +1147,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
         s1 += q[1];
         s2 += q[2];
       }
-      const float agg = a.scale[(int64_t)step * T + j];
+      const float agg = M.scale[(int64_t)step * T + j];
       const float n = tm[0];
       float* c = lc + 8 * j;
       c[0] = agg;
@@ -1052,12 +1179,12 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
   for (int j = 0; j < EH_MAX_SCALARS; ++j) gg[j] = 0.0f;
 
   if (r < a.batch) {
-    const int64_t row = a.perm[(int64_t)step * a.batch + r];
-    const float* raw = a.ws + a.ws_off_a[L - 1] + (int64_t)r * P;
-    float* dl = a.ws + a.ws_off_d[L - 1] + (int64_t)r * P;
+    const int64_t row = M.perm[(int64_t)step * a.batch + r];
+    const float* raw = M.ws + a.ws_off_a[L - 1] + (int64_t)r * P;
+    float* dl = M.ws + a.ws_off_d[L - 1] + (int64_t)r * P;
     float out[EH_MAX_OUT];
     float pd[EH_MAX_OUT][EH_MAX_ARGS];
-    ehw_head_form(a, row, raw, out, pd);
+    ehw_head_form(a, M.params, row, raw, out, pd);
 
     // masked loss and its cotangent; the mask selects, so a NaN target that
     // the caller did not zero cannot reach the sums
@@ -1082,7 +1209,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
           c.k_h = q[6];
           c.k_c = q[7];
         } else {
-          c.c0 = a.scale[(int64_t)step * T + j];
+          c.c0 = M.scale[(int64_t)step * T + j];
           c.c1 = 2.0f * c.c0;
         }
         term += ehe_loss_row<TWO_PASS>(LK, c, on ? pred : 0.0f, on ? yv : 0.0f, on ? 1.0f : 0.0f,
@@ -1122,7 +1249,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
     // the raw outputs' cotangent through the bound scaling and the last
     // layer's activation (also feature-major where that layer is on the
     // tensor cores)
-    float* dt = a.tc[L - 1] ? a.ws + a.ws_off_dt[L - 1] : nullptr;
+    float* dt = a.tc[L - 1] ? M.ws + a.ws_off_dt[L - 1] : nullptr;
     for (int j = 0; j < P; ++j) {
       float dn = 0.0f;
 #pragma unroll
@@ -1143,7 +1270,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
   // the block's sums, pairwise in a fixed order
   for (int q = 0; q <= G; ++q) {
     const float v = ehw_block_sum(red, q == 0 ? term : ehe_pick<EH_MAX_SCALARS>(gg, q - 1));
-    if (tid == 0) a.head_partials[(int64_t)blockIdx.x * (1 + G) + q] = v;
+    if (tid == 0) M.head_partials[(int64_t)blockIdx.x * (1 + G) + q] = v;
   }
 }
 
@@ -1162,23 +1289,24 @@ eh_wide_moments_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   const int tid = threadIdx.x;
   const int r = blockIdx.x * EHW_HEAD_THREADS + tid;
   const int T = a.n_targets;
-  float* mom = a.ws + a.ws_off_mom;
+  const EhwMember M = ehw_member(a, blockIdx.y);
+  float* mom = M.ws + a.ws_off_mom;
   if (tid < T) {
     float s0 = 0.0f;
     for (int b = 0; b < a.head_blocks; ++b) s0 += mom[((int64_t)b * T + tid) * 3];
-    mu[tid] = s0 / a.tmom[((int64_t)step * T + tid) * 3];
+    mu[tid] = s0 / M.tmom[((int64_t)step * T + tid) * 3];
   }
   __syncthreads();
-  const int64_t row = r < a.batch ? a.perm[(int64_t)step * a.batch + r] : -1;
+  const int64_t row = r < a.batch ? M.perm[(int64_t)step * a.batch + r] : -1;
   for (int j = 0; j < T; ++j) {
     float dh = 0.0f, dy = 0.0f;
     if (row >= 0) {
       const bool on = a.mask[j][row] > 0.0f;
       const float m = on ? 1.0f : 0.0f;
-      const float pred = on ? a.ws[a.ws_off_pred + (int64_t)j * a.batch + r] : 0.0f;
+      const float pred = on ? M.ws[a.ws_off_pred + (int64_t)j * a.batch + r] : 0.0f;
       const float yv = on ? a.y[j][row] : 0.0f;
       dh = (pred * m - mu[j]) * m;
-      dy = (yv - a.tmom[((int64_t)step * T + j) * 3 + 1]) * m;
+      dy = (yv - M.tmom[((int64_t)step * T + j) * 3 + 1]) * m;
     }
     const float shh = ehw_block_sum(red, dh * dh);
     const float chy = ehw_block_sum(red, dh * dy);
@@ -1195,12 +1323,13 @@ eh_wide_moments_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
 __global__ void __launch_bounds__(128)
 eh_wide_norm_grad_kernel(const __grid_constant__ EhFusedWideArgs a) {
   if (eh_halted(a.halt)) return;
+  const EhwMember M = ehw_member(a, blockIdx.y);
   const int F = a.dims[0];
   const int r0 = blockIdx.x * a.norm_split_rows;
   const int r1 = min(a.batch, r0 + a.norm_split_rows);
-  const float* d0 = a.ws + a.ws_off_d0;
-  const float* xh = a.ws + a.ws_off_xhat;
-  float* out = a.partials + a.part_off_norm + (int64_t)blockIdx.x * 2 * F;
+  const float* d0 = M.ws + a.ws_off_d0;
+  const float* xh = M.ws + a.ws_off_xhat;
+  float* out = M.partials + a.part_off_norm + (int64_t)blockIdx.x * 2 * F;
   for (int q = threadIdx.x; q < 2 * F; q += blockDim.x) {
     const int k = q < F ? q : q - F;
     float s = 0.0f;
@@ -1235,71 +1364,132 @@ __device__ __forceinline__ bool ehw_weight_tile(const EhFusedWideArgs& a, int b,
   return false;
 }
 
-// W^T of every tensor-core layer from the parameters, one tile a block: the
-// copy the data gradients read, made at the start of every call.
-__global__ void __launch_bounds__(256)
-eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a) {
-  if (eh_halted(a.halt)) return;
-  __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
-  int l, j0, k0;
-  if (!ehw_weight_tile(a, blockIdx.x, &l, &j0, &k0)) return;
-  const int din = a.dims[l];
-  const int dout = a.dims[l + 1];
-  const int tx = threadIdx.x % EHW_UTILE;
-  const int ty = threadIdx.x / EHW_UTILE;
-  for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
-    if (j0 + i < dout && k0 + tx < din)
-      tile[i][tx] = a.params[a.p_off_w[l] + (int64_t)(j0 + i) * din + k0 + tx];
-  __syncthreads();
-  float* wt = a.ws + a.ws_off_wt[l];
-  for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
-    if (k0 + i < din && j0 + tx < dout) wt[(int64_t)(k0 + i) * dout + j0 + tx] = tile[tx][i];
+// The packed index of the update's element e past the tiles (the norm's,
+// the FMA layers' W, every b, the globals, in packed order), or -1 (the
+// loss's thread, or none).
+__device__ __forceinline__ int64_t ehw_element(const EhFusedWideArgs& a, int64_t e) {
+  if (a.norm_mode != NORM_NONE) {
+    if (e < 2 * a.dims[0]) return e;
+    e -= 2 * a.dims[0];
+  }
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int64_t w = a.tc[l] ? 0 : (int64_t)a.dims[l + 1] * a.dims[l];
+    if (e < w) return a.p_off_w[l] + e;
+    e -= w;
+    if (e < a.dims[l + 1]) return a.p_off_b[l] + e;
+    e -= a.dims[l + 1];
+  }
+  return e < a.n_globals ? a.p_off_g + e : -1;
 }
 
-// The update. Blocks below `tiles`: one tile of a tensor-core layer's W each
-// (its gradient from the partials in split order, the update, and the new W
-// written transposed as well). The others: one thread per remaining
-// parameter (the norm's, the FMA layers' W, every b, the globals, in packed
-// order), and one more that adds the batch loss to its epoch's sum. Pass 1
-// updates; pass 0 (lamb only, before pass 1) writes this block's part of
-// every leaf's squared norms of the parameters and of the update directions
-// into its row of lamb_parts. Six blocks a multiprocessor: the kernel moves
-// the parameters, moments and partials once, and a register budget of 40 a
-// thread keeps enough of their loads in flight (at 48, ptxas's own choice,
-// the adam update took 32 us a step of the tower against 27 on an NVIDIA
-// H100 80GB HBM3 at 700 W). BF16: each weight's gradient rounded to bf16
-// after its sum, before the rule.
+// Whether packed element gid is in a leaf the weight-L2 penalty takes.
+__device__ __forceinline__ bool ehw_penalised(const EhFusedWideArgs& a, const EhOptimizer& o,
+                                              int64_t gid) {
+  return a.l2_leaves != 0 && gid >= 0 && ((a.l2_leaves >> ehe_leaf_of(o, gid)) & 1ull);
+}
+
+// The sum over a block (whole warps, at most 256 threads) of each thread's v:
+// a shuffle tree a warp, then the warps' sums in warp order; every thread
+// gets the same bits. Every thread of the block must call it.
+__device__ __forceinline__ float ehw_block_total(float v) {
+  __shared__ float w[8];
+  v = ehe_warp_sum(v);
+  if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += w[i];
+  __syncthreads();
+  return s;
+}
+
+// W^T of every tensor-core layer from the parameters, one tile a block: the
+// copy the data gradients read, made at the start of every call (blockIdx.y
+// the member). With the weight-L2 penalty every update block's sum of
+// squares of its penalised parameters (the update's blocks: the tiles, then
+// the other elements, as eh_wide_update_kernel cuts them, the same threads
+// and orders) into the first row of the member's l2_parts: the first step's
+// parameters before its update.
+__global__ void __launch_bounds__(256)
+eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a, int tiles) {
+  if (eh_halted(a.halt)) return;
+  const EhwMember M = ehw_member(a, blockIdx.y);
+  float sq = 0.0f;
+  if ((int)blockIdx.x < tiles) {
+    __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
+    int l, j0, k0;
+    ehw_weight_tile(a, blockIdx.x, &l, &j0, &k0);
+    const int din = a.dims[l];
+    const int dout = a.dims[l + 1];
+    const int tx = threadIdx.x % EHW_UTILE;
+    const int ty = threadIdx.x / EHW_UTILE;
+    for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
+      if (j0 + i < dout && k0 + tx < din) {
+        const float w = M.params[a.p_off_w[l] + (int64_t)(j0 + i) * din + k0 + tx];
+        tile[i][tx] = w;
+        sq += w * w;
+      }
+    __syncthreads();
+    float* wt = M.ws + a.ws_off_wt[l];
+    for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
+      if (k0 + i < din && j0 + tx < dout) wt[(int64_t)(k0 + i) * dout + j0 + tx] = tile[tx][i];
+    if (a.l2_leaves == 0) return;
+    if (!((a.l2_leaves >> ehe_leaf_of(a.optimizer, a.p_off_w[l])) & 1ull)) sq = 0.0f;
+  } else {
+    const int64_t gid = ehw_element(a, (int64_t)(blockIdx.x - tiles) * blockDim.x + threadIdx.x);
+    if (ehw_penalised(a, a.optimizer, gid)) sq = M.params[gid] * M.params[gid];
+  }
+  sq = ehw_block_total(sq);
+  if (threadIdx.x == 0) M.l2_parts[blockIdx.x] = sq;
+}
+
+// The update, blockIdx.y the member. Blocks below `tiles`: one tile of a
+// tensor-core layer's W each (its gradient from the partials in split order,
+// the update, and the new W written transposed as well). The others: one
+// thread per remaining parameter (ehw_element), and one more that adds the
+// batch loss to its epoch's sum. Pass 1 updates; pass 0 (lamb only, before
+// pass 1) writes this block's part of every leaf's squared norms of the
+// parameters and of the update directions into its row of lamb_parts. The
+// rule and its numbers (a member's in place) sit in shared memory. The
+// weight-L2 penalty: l2_coeff w added to a penalised gradient before the
+// rule; in pass 1 every block writes the sum of squares of its penalised
+// parameters after the update to the member's next row of l2_parts, and the
+// loss's block adds this step's row (written by the step before, or the
+// transpose) in block order for the loss. Six blocks a multiprocessor: the
+// kernel moves the parameters, moments and partials once, and a register
+// budget of 40 a thread keeps enough of their loads in flight (at 48,
+// ptxas's own choice, the adam update took 32 us a step of the tower against
+// 27 on an NVIDIA H100 80GB HBM3 at 700 W). BF16: each weight's gradient
+// rounded to bf16 after its sum, before the rule.
 template <bool BF16>
 __global__ void __launch_bounds__(256, 6)
 eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int tiles, int pass) {
   if (eh_halted(a.halt)) return;
-  const EhOptimizer& o = a.optimizer;
-  const int F = a.dims[0];
+  const int member = blockIdx.y;
+  const EhwMember M = ehw_member(a, member);
   const int L = a.n_layers;
   const int G = a.n_globals;
-  const bool valid = a.valid[step] > 0.0f;
-  if (pass == 0 && !valid) return;  // the whole grid alike
+  const bool valid = M.valid[step] > 0.0f;
+  if (pass == 0 && !valid) return;  // the whole member alike
+  __shared__ EhOptimizer os;
+  {
+    const int* src = reinterpret_cast<const int*>(&a.optimizer);
+    const float* row = a.member_opt != nullptr ? a.member_opt + (int64_t)member * EHW_OPT_SCALARS
+                                               : nullptr;
+    int* dst = reinterpret_cast<int*>(&os);
+    for (int i = threadIdx.x; i < (int)(sizeof(EhOptimizer) / sizeof(int)); i += blockDim.x) {
+      const bool swept = row != nullptr && i >= EHW_OPT_FIRST && i < EHW_OPT_FIRST + EHW_OPT_SCALARS;
+      dst[i] = swept ? __float_as_int(row[i - EHW_OPT_FIRST]) : src[i];
+    }
+    __syncthreads();
+  }
+  const EhOptimizer& o = os;
   const bool lamb = o.rule == OPT_LAMB;
+  const bool l2 = a.l2_leaves != 0;
   EhOptStep st = {1.0f, 1.0f, 0.0f};
-  if (valid) st = ehe_opt_step(o, fmaxf(a.tcount[step], 1.0f));
+  if (valid) st = ehe_opt_step(o, fmaxf(M.tcount[step], 1.0f));
   __shared__ float tr[EH_MAX_LEAVES];
-  float* my_parts = a.lamb_parts + (int64_t)blockIdx.x * o.n_leaves * 2;
-  // the packed index of the update's element e past the tiles, or -1 (the
-  // loss, or none)
-  auto element = [&](int64_t e) -> int64_t {
-    if (a.norm_mode != NORM_NONE) {
-      if (e < 2 * F) return e;
-      e -= 2 * F;
-    }
-    for (int l = 0; l < L; ++l) {
-      const int64_t w = a.tc[l] ? 0 : (int64_t)a.dims[l + 1] * a.dims[l];
-      if (e < w) return a.p_off_w[l] + e;
-      e -= w;
-      if (e < a.dims[l + 1]) return a.p_off_b[l] + e;
-      e -= a.dims[l + 1];
-    }
-    return e < G ? a.p_off_g + e : -1;
-  };
+  float* my_parts = M.lamb_parts + (int64_t)blockIdx.x * o.n_leaves * 2;
+  float* l2_next = l2 ? M.l2_parts + (int64_t)((step + 1) & 1) * gridDim.x : nullptr;
 
   if ((int)blockIdx.x < tiles) {
     __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
@@ -1311,7 +1501,8 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
     const int tx = threadIdx.x % EHW_UTILE;
     const int ty = threadIdx.x / EHW_UTILE;
     constexpr int PER = EHW_UTILE * EHW_UTILE / 256;
-    const float* part = a.partials + a.part_off[l];
+    const float* part = M.partials + a.part_off[l];
+    const bool pen = l2 && ((a.l2_leaves >> ehe_leaf_of(o, a.p_off_w[l])) & 1ull);
     float g[PER];
 #pragma unroll
     for (int q = 0; q < PER; ++q) g[q] = 0.0f;
@@ -1328,6 +1519,14 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
 #pragma unroll
       for (int q = 0; q < PER; ++q) g[q] = ehe_bf16(g[q]);
     }
+    if (pen) {  // the penalty's term at the weights before the update
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int j = j0 + ty + q * (256 / EHW_UTILE);
+        const int k = k0 + tx;
+        if (j < dout && k < din) g[q] = g[q] + a.l2_coeff * M.params[a.p_off_w[l] + (int64_t)j * din + k];
+      }
+    }
     if (pass == 0) {
       float ps = 0.0f, ds = 0.0f;
 #pragma unroll
@@ -1336,8 +1535,8 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
         const int k = k0 + tx;
         if (j >= dout || k >= din) continue;
         const int64_t gid = a.p_off_w[l] + (int64_t)j * din + k;
-        const float pv = a.params[gid];
-        float mm = a.m[gid], vv = a.v[gid];
+        const float pv = M.params[gid];
+        float mm = M.m[gid], vv = M.v[gid];
         const float d = ehe_lamb_direction(o, st, pv, g[q], mm, vv);
         ps += pv * pv;
         ds += d * d;
@@ -1348,9 +1547,10 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
     float trust = 1.0f;
     if (pass == 1 && valid && lamb) {
       const int leaf = ehe_leaf_of(o, a.p_off_w[l]);
-      ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, o.n_leaves, leaf, leaf, tr);
+      ehe_leaf_trust_ratios(M.lamb_parts, gridDim.x, o.n_leaves, leaf, leaf, tr);
       trust = tr[leaf];
     }
+    float sq = 0.0f;
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int i = ty + q * (256 / EHW_UTILE);
@@ -1358,11 +1558,17 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
       const int k = k0 + tx;
       if (j >= dout || k >= din) continue;
       const int64_t gid = a.p_off_w[l] + (int64_t)j * din + k;
-      if (valid) ehe_update(o, st, &a.params[gid], &a.m[gid], &a.v[gid], &a.u[gid], g[q], trust);
-      tile[i][tx] = a.params[gid];
+      if (valid) ehe_update(o, st, &M.params[gid], &M.m[gid], &M.v[gid], &M.u[gid], g[q], trust);
+      const float w = M.params[gid];
+      tile[i][tx] = w;
+      sq += w * w;
+    }
+    if (l2) {  // the next step's sum of squares before its update, this block's part
+      sq = ehw_block_total(pen ? sq : 0.0f);
+      if (threadIdx.x == 0) l2_next[blockIdx.x] = sq;
     }
     __syncthreads();
-    float* wt = a.ws + a.ws_off_wt[l];
+    float* wt = M.ws + a.ws_off_wt[l];
     for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
       if (k0 + i < din && j0 + tx < dout) wt[(int64_t)(k0 + i) * dout + j0 + tx] = tile[tx][i];
     return;
@@ -1370,55 +1576,71 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
 
   const int64_t e0 = (int64_t)(blockIdx.x - tiles) * blockDim.x;
   const int64_t e = e0 + threadIdx.x;
-  const int64_t gid = element(e);
+  const int64_t gid = ehw_element(a, e);
   int64_t loose = a.n_params;  // the elements past the tiles; the next thread adds the loss
   for (int l = 0; l < L; ++l)
     if (a.tc[l]) loose -= (int64_t)a.dims[l] * a.dims[l + 1];
   if (pass == 1 && valid && lamb) {  // the leaves of this block's elements, in packed order
     const int64_t last = min(e0 + (int64_t)blockDim.x, loose) - 1;
-    ehe_leaf_trust_ratios(a.lamb_parts, gridDim.x, o.n_leaves,
-                          last >= e0 ? ehe_leaf_of(o, element(e0)) : 0,
-                          last >= e0 ? ehe_leaf_of(o, element(last)) : -1, tr);
+    ehe_leaf_trust_ratios(M.lamb_parts, gridDim.x, o.n_leaves,
+                          last >= e0 ? ehe_leaf_of(o, ehw_element(a, e0)) : 0,
+                          last >= e0 ? ehe_leaf_of(o, ehw_element(a, last)) : -1, tr);
+  }
+  // the penalty's sum of squares at this step's parameters before the update:
+  // every block's part in block order, by the loss's block
+  float l2_sum = 0.0f;
+  if (l2 && pass == 1 && valid && e0 <= loose && loose < e0 + (int64_t)blockDim.x) {
+    const float* prev = M.l2_parts + (int64_t)(step & 1) * gridDim.x;
+    float v = 0.0f;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) v += prev[b];
+    l2_sum = ehw_block_total(v);
   }
   if (e == loose && pass == 1 && valid) {
     float loss = 0.0f;
-    for (int b = 0; b < a.head_blocks; ++b) loss += a.head_partials[(int64_t)b * (1 + G)];
-    a.epoch_loss[step / a.n_batches] += loss;
+    for (int b = 0; b < a.head_blocks; ++b) loss += M.head_partials[(int64_t)b * (1 + G)];
+    if (l2) loss = loss + a.l2_outer * (a.l2_value * l2_sum);
+    M.epoch_loss[step / a.n_batches] += loss;
   }
   float g = 0.0f;
   if (gid < 0) {
   } else if (gid >= a.p_off_g) {
     const int gi = (int)(gid - a.p_off_g);
-    for (int b = 0; b < a.head_blocks; ++b) g += a.head_partials[(int64_t)b * (1 + G) + 1 + gi];
+    for (int b = 0; b < a.head_blocks; ++b) g += M.head_partials[(int64_t)b * (1 + G) + 1 + gi];
     const int P = a.dims[L];
     const float span = a.consts[2 * P + G + gi];
-    const float sg = ehe_sigmoid(a.params[gid]);
+    const float sg = ehe_sigmoid(M.params[gid]);
     g = g * (span * (sg * (1.0f - sg)));
-  } else if (a.norm_mode != NORM_NONE && gid < 2 * F) {
-    const float* part = a.partials + a.part_off_norm + gid;
-    for (int s = 0; s < a.norm_splits; ++s) g += part[(int64_t)s * 2 * F];
+  } else if (a.norm_mode != NORM_NONE && gid < 2 * a.dims[0]) {
+    const float* part = M.partials + a.part_off_norm + gid;
+    for (int s = 0; s < a.norm_splits; ++s) g += part[(int64_t)s * 2 * a.dims[0]];
   } else {
     int l = 0;
     while (l + 1 < L && gid >= a.p_off_w[l + 1]) ++l;
     const int64_t size = (int64_t)a.dims[l + 1] * (a.dims[l] + 1);
-    const float* part = a.partials + a.part_off[l] + (gid - a.p_off_w[l]);
+    const float* part = M.partials + a.part_off[l] + (gid - a.p_off_w[l]);
 #pragma unroll 4
     for (int s = 0; s < a.splits[l]; ++s) g += part[s * size];
     if constexpr (BF16) g = gid < a.p_off_b[l] ? ehe_bf16(g) : g;  // a weight, not the bias
   }
+  const bool pen = l2 && ehw_penalised(a, o, gid);
+  if (pen) g = g + a.l2_coeff * M.params[gid];  // at the parameter before the update
   if (pass == 0) {
     float pv = 0.0f, d = 0.0f;
     if (gid >= 0) {
-      pv = a.params[gid];
-      float mm = a.m[gid], vv = a.v[gid];
+      pv = M.params[gid];
+      float mm = M.m[gid], vv = M.v[gid];
       d = ehe_lamb_direction(o, st, pv, g, mm, vv);
     }
     ehe_block_leaf_sums(pv * pv, d * d, gid >= 0 ? ehe_leaf_of(o, gid) : -1, o.n_leaves, my_parts);
     return;
   }
   if (gid >= 0 && valid)
-    ehe_update(o, st, &a.params[gid], &a.m[gid], &a.v[gid], &a.u[gid], g,
+    ehe_update(o, st, &M.params[gid], &M.m[gid], &M.v[gid], &M.u[gid], g,
                lamb ? tr[ehe_leaf_of(o, gid)] : 1.0f);
+  if (l2) {  // the next step's sum of squares before its update, this block's part
+    const float sq = ehw_block_total(pen ? M.params[gid] * M.params[gid] : 0.0f);
+    if (threadIdx.x == 0) l2_next[blockIdx.x] = sq;
+  }
 }
 
 extern "C" int eh_fused_wide_args_size(void) { return (int)sizeof(EhFusedWideArgs); }
@@ -1465,8 +1687,8 @@ static int64_t ehw_loose_params(const EhFusedWideArgs& a) {
 
 // Enqueue every step of the call on `stream`; returns the first launch
 // error, or cudaGetLastError() (0 on success). The caller checks shapes,
-// devices and the envelope first; the plan's tile shapes and pieces are
-// checked here.
+// devices and the envelope first; the plan's tile shapes and pieces, and the
+// member axis's strides, are checked here.
 extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   const EhFusedWideArgs& a = *args;
   if (a.n_epochs <= 0 || a.n_batches <= 0) return 0;
@@ -1476,12 +1698,15 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
       a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
       a.head_blocks * EHW_HEAD_THREADS < a.batch || (a.norm_mode != NORM_NONE && a.norm_splits < 1) ||
-      a.norm_mode < NORM_NONE || a.norm_mode > NORM_TRAIN || (ehw_two_pass(a.loss_kind) && !a.tmom))
+      a.norm_mode < NORM_NONE || a.norm_mode > NORM_TRAIN || (ehw_two_pass(a.loss_kind) && !a.tmom) ||
+      a.n_members < 1 || a.n_members > 65535 || a.perm_stride < 0 || a.ws_stride < 0 ||
+      a.part_stride < 0)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l <= L; ++l)
     if (a.dims[l] < 1 || a.dims[l] > EH_WIDE_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   const bool norm = a.norm_mode != NORM_NONE;
   const int B = a.batch;
+  const int K = a.n_members;
   for (int l = 0; l < L; ++l) {
     const int din = a.dims[l];
     const int dout = a.dims[l + 1];
@@ -1506,25 +1731,42 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   const int gather_blocks = (int)(((int64_t)B * F + 255) / 256);
   const int tiles = ehw_weight_tiles(a);
   const int update_blocks = tiles + (int)((ehw_loose_params(a) + 1 + 255) / 256);
+  const bool l2 = a.l2_leaves != 0;
+  if ((a.optimizer.rule == OPT_LAMB &&
+       (!a.lamb_parts || a.lamb_stride != (int64_t)update_blocks * 2 * a.optimizer.n_leaves)) ||
+      (l2 && (!a.l2_parts || a.l2_stride != 2 * (int64_t)update_blocks)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t np = a.n_params;
+  // a product's operands: a member's workspace ws_stride further on, its
+  // parameters n_params, its partial tiles part_stride
+  auto product = [&](int n_out) {
+    EhwProduct p = {};
+    p.halt = a.halt;
+    p.members = K;
+    p.tiles_x = ehw_ceil_div(n_out, 64);
+    return p;
+  };
   EHW_TRY(eht_allow_smem<FWD>());
   if (BWD != FWD) EHW_TRY(eht_allow_smem<BWD>());
-  if (tiles > 0) {
-    eh_wide_transpose_kernel<<<tiles, 256, 0, s>>>(a);
+  if (tiles > 0 || l2) {  // with the penalty: every update block's first sum of squares too
+    eh_wide_transpose_kernel<<<dim3(l2 ? update_blocks : tiles, K), 256, 0, s>>>(a, tiles);
     EHW_TRY(cudaGetLastError());
   }
   const int steps = a.n_epochs * a.n_batches;
   const bool two_pass = ehw_two_pass(a.loss_kind);
   for (int step = 0; step < steps; ++step) {
     if (a.norm_mode == NORM_TRAIN)
-      eh_wide_norm_stats_kernel<<<F, EHW_HEAD_THREADS, 0, s>>>(a, step);
-    eh_wide_gather_kernel<BF16><<<gather_blocks, 256, 0, s>>>(a, step);
+      eh_wide_norm_stats_kernel<<<dim3(F, K), EHW_HEAD_THREADS, 0, s>>>(a, step);
+    eh_wide_gather_kernel<BF16><<<dim3(gather_blocks, K), 256, 0, s>>>(a, step);
     EHW_TRY(cudaGetLastError());
     for (int l = 0; l < L; ++l) {  // A = act(H W^T + b), and H^T of the next layer where it takes it
       const int din = a.dims[l];
-      EhwProduct p = {};
+      EhwProduct p = product(a.dims[l + 1]);
       p.A = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
+      p.sa = a.ws_stride;
       p.lda = din;
       p.B = a.params + a.p_off_w[l];
+      p.sb = np;
       p.ldb = din;
       p.M = B;
       p.N = a.dims[l + 1];
@@ -1533,21 +1775,25 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       p.mode = EHW_FORWARD;
       p.act = a.acts[l];
       p.bias = a.params + a.p_off_b[l];
+      p.sbias = np;
       p.out = ws + a.ws_off_a[l];
+      p.sout = a.ws_stride;
       p.da = ws + a.ws_off_d[l];
+      p.sda = a.ws_stride;
       p.out_t = l + 1 < L && a.tc[l + 1] ? ws + a.ws_off_ht[l + 1] : nullptr;
-      p.halt = a.halt;
+      p.sout_t = a.ws_stride;
       p.round_out = l + 1 < L;
       EHW_TRY(a.tc[l] ? eht_run<FWD>(a.fwd_bm[l], p, a.fwd_splits[l], s)
                       : ehw_fma_run<BF16>(true, p, a.fwd_splits[l], s));
     }
+    const dim3 heads(a.head_blocks, K);
     if (two_pass) {  // the batch's prediction moments first
-      eh_wide_head_kernel<true><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 0);
+      eh_wide_head_kernel<true><<<heads, EHW_HEAD_THREADS, 0, s>>>(a, step, 0);
       if (ehe_loss_is_stat(a.loss_kind))
-        eh_wide_moments_kernel<<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step);
-      eh_wide_head_kernel<true><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
+        eh_wide_moments_kernel<<<heads, EHW_HEAD_THREADS, 0, s>>>(a, step);
+      eh_wide_head_kernel<true><<<heads, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
     } else {
-      eh_wide_head_kernel<false><<<a.head_blocks, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
+      eh_wide_head_kernel<false><<<heads, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
     }
     EHW_TRY(cudaGetLastError());
     for (int l = L - 1; l >= 0; --l) {
@@ -1555,10 +1801,12 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       const int dout = a.dims[l + 1];
       const float* dz = ws + a.ws_off_d[l];
       if (a.tc[l]) {  // dW = dZ^T H and db over the batch's pieces, from the feature-major copies
-        EhwProduct p = {};
+        EhwProduct p = product(din);
         p.A = ws + a.ws_off_dt[l];
+        p.sa = a.ws_stride;
         p.lda = B;
         p.B = ws + a.ws_off_ht[l];
+        p.sb = a.ws_stride;
         p.ldb = B;
         p.M = dout;
         p.N = din;
@@ -1566,21 +1814,25 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.split_k = a.split_rows[l];
         p.mode = EHW_WEIGHT;
         p.out = a.partials + a.part_off[l];
-        p.halt = a.halt;
+        p.sout = a.part_stride;
         EHW_TRY(eht_run<BWD>(a.wgt_bm[l], p, a.splits[l], s));
       } else {
         const float* h = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
-        const dim3 wgrid(ehw_ceil_div(din, EHW_TILE), ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
+        const int tiles_x = ehw_ceil_div(din, EHW_TILE);
+        const dim3 wgrid(tiles_x * K, ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
         eh_wide_bwd_weight_kernel<<<wgrid, EHW_THREADS, 0, s>>>(dz, h, a.partials + a.part_off[l],
                                                                 dout, din, B, a.split_rows[l],
-                                                                a.halt);
+                                                                a.halt, tiles_x, a.ws_stride,
+                                                                a.part_stride);
         EHW_TRY(cudaGetLastError());
       }
       if (l > 0 || norm) {  // dZ_prev = (dZ W) * act'_prev in place, and its copy where needed
-        EhwProduct p = {};
+        EhwProduct p = product(din);
         p.A = dz;
+        p.sa = a.ws_stride;
         p.lda = dout;
         p.B = a.tc[l] ? ws + a.ws_off_wt[l] : a.params + a.p_off_w[l];
+        p.sb = a.tc[l] ? a.ws_stride : np;
         p.ldb = a.tc[l] ? dout : din;
         p.M = B;
         p.N = din;
@@ -1589,16 +1841,17 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
         p.mode = EHW_DATA;
         p.scale_in_place = l > 0 ? 1 : 0;
         p.out = ws + (l > 0 ? a.ws_off_d[l - 1] : a.ws_off_d0);
+        p.sout = a.ws_stride;
         p.out_t = l > 0 && a.tc[l - 1] ? ws + a.ws_off_dt[l - 1] : nullptr;
-        p.halt = a.halt;
+        p.sout_t = a.ws_stride;
         EHW_TRY(a.tc[l] ? eht_run<BWD>(a.dat_bm[l], p, a.dat_splits[l], s)
                         : ehw_fma_run<BF16>(false, p, a.dat_splits[l], s));
       }
     }
-    if (norm) eh_wide_norm_grad_kernel<<<a.norm_splits, 128, 0, s>>>(a);
+    if (norm) eh_wide_norm_grad_kernel<<<dim3(a.norm_splits, K), 128, 0, s>>>(a);
     if (a.optimizer.rule == OPT_LAMB)  // its leaves' norms first
-      eh_wide_update_kernel<BF16><<<update_blocks, 256, 0, s>>>(a, step, tiles, 0);
-    eh_wide_update_kernel<BF16><<<update_blocks, 256, 0, s>>>(a, step, tiles, 1);
+      eh_wide_update_kernel<BF16><<<dim3(update_blocks, K), 256, 0, s>>>(a, step, tiles, 0);
+    eh_wide_update_kernel<BF16><<<dim3(update_blocks, K), 256, 0, s>>>(a, step, tiles, 1);
     EHW_TRY(cudaGetLastError());
   }
   return (int)cudaGetLastError();
@@ -1623,5 +1876,7 @@ extern "C" int eh_wide_tc_product(const float* A, int lda, const float* B, int l
   p.split_k = split_k;
   p.mode = EHW_RAW;
   p.out = C;
+  p.members = 1;
+  p.tiles_x = ehw_ceil_div(N, bn);
   return (int)eht_run<EHT_F32>(bm, p, splits, (cudaStream_t)stream);
 }

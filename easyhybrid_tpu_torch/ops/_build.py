@@ -19,6 +19,8 @@ that kernel's source built against the form's and the loss's headers
 disk under the same directory and reused by later processes. A model with
 ``compute_dtype=torch.bfloat16`` runs each kernel from its source's bf16 build
 (:func:`bf16_defines`), made the same way at the first call that asks for it.
+Such a build of kernel 1 or 2, whose kernels are instantiated by width, is
+made for the width its plan launches alone (:func:`width_defines`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Dict, Optional, Tuple
 
 __all__ = ["find_nvcc", "build_library", "build_variant", "load_library", "measuring_library",
            "form_build", "form_library", "kernel_library", "nvcc_seconds", "BuildResult",
-           "bf16_defines"]
+           "bf16_defines", "width_defines"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE_DIR / "csrc"
@@ -302,12 +304,18 @@ def form_library(source: str, form, *defines: str, loss=None) -> ctypes.CDLL:
     return _form_libs[key]
 
 
+def width_defines(width: Optional[int] = None) -> Tuple[str, ...]:
+    """For a source whose kernels are instantiated by width (kernels 1 and
+    2), the one width the plan launches (``-DEH_ONLY_WIDTH``): a build against
+    a traced form or loss, or a bf16 build, compiles a third of the source,
+    and its launcher refuses other widths. None: every width."""
+    return () if width is None else (f"-DEH_ONLY_WIDTH={int(width)}",)
+
+
 def bf16_defines(width: Optional[int] = None) -> Tuple[str, ...]:
-    """The defines of a source's bf16 build: ``-DEH_BF16`` and, for a source
-    whose kernels are instantiated by width (kernels 1 and 2), the one width
-    the plan launches (``-DEH_ONLY_WIDTH``): a bf16 model's first call
-    compiles a third of the source, and the launcher refuses other widths."""
-    return ("-DEH_BF16",) + (() if width is None else (f"-DEH_ONLY_WIDTH={int(width)}",))
+    """The defines of a source's bf16 build: ``-DEH_BF16`` and
+    :func:`width_defines`."""
+    return ("-DEH_BF16",) + width_defines(width)
 
 
 def kernel_library(source: str, form, loss=None, *, bf16: bool = False,
@@ -316,11 +324,13 @@ def kernel_library(source: str, form, loss=None, *, bf16: bool = False,
     training loss: the package's for a hand-written form and a loss the
     kernels hold (mse, mae, ...), :func:`form_library` for a traced form or
     a traced elementwise ``loss``; with ``bf16`` (a model with
-    ``compute_dtype=torch.bfloat16``) the source's bf16 build at ``width``
-    (:func:`bf16_defines`), made at the first call that asks for it."""
+    ``compute_dtype=torch.bfloat16``) the source's bf16 build. Kernels 1 and
+    2 pass their plan's ``width``: such a build is made for it alone
+    (:func:`width_defines`), at the first call that asks for it."""
     if form.header is None and loss is None and not bf16:
         return load_library()
-    return form_library(source, form, *(bf16_defines(width) if bf16 else ()), loss=loss)
+    return form_library(source, form, *(bf16_defines(width) if bf16 else width_defines(width)),
+                        loss=loss)
 
 
 @functools.lru_cache(maxsize=None)

@@ -63,6 +63,12 @@ the member axis in front; each member has its own row index
 (:func:`member_opt_rows`, or the plan's). :func:`fused_members_reference` is
 its plain version, :func:`fused_epoch_reference` once a member. A launch of
 one member without member rows is ``train()``'s launch, bit for bit.
+
+The declarative weight-L2 ``extra_loss`` (``l2_extra_loss``), as the JAX
+kernel admits it: the plan's :class:`L2Penalty` (the leaves
+``extract_weights`` picks, their count, ``agg``'s factor), four runtime
+fields of the argument struct (:data:`L2_FIELDS`), and :func:`l2_step` in
+the plain versions; kernel 3 (``ops/fused_wide.py``) takes it the same way.
 """
 
 from __future__ import annotations
@@ -263,15 +269,16 @@ def _loss_floats(loss: str, nw: int, t: int) -> int:
 
 
 def _smem_floats(*, n_padded, n_params, f, p, g, k, t, n_forcing, threads, res, stages,
-                 moments_shared, n_unit_table, loss_floats=0) -> int:
+                 moments_shared, n_unit_table, loss_floats=0, l2=False) -> int:
     """Shared-memory floats of one launch of ``threads`` threads;
     ``ehe_smem_floats`` in csrc/fused_epoch.cu computes the same (a bf16
-    build's launcher adds ``n_padded``: :meth:`FusedEpochPlan.smem_bytes`)."""
+    build's launcher adds ``n_padded``: :meth:`FusedEpochPlan.smem_bytes`);
+    ``l2``: the weight-L2 penalty's two rows of a partial a warp."""
     nw = threads // 32
     cols = f + n_forcing + 2 * t
     return (n_padded + (1 + 2 * moments_shared) * n_params + nw * (1 + t + 2 * f) + 2 * f + (2 * p + 2 * g + k)
             + 2 * g + k + 2 * f + t + 8 + 8 * n_unit_table + _OPT_WORDS
-            + threads * (res + stages * cols) + loss_floats)
+            + threads * (res + stages * cols) + loss_floats + (2 * nw if l2 else 0))
 
 
 class Geometry(NamedTuple):
@@ -311,7 +318,7 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     any of the three input-norm forms, one for all branches; a
     training loss of :data:`FUSED_LOSSES` or an ``ElementwiseLoss`` the
     tracer expresses (:func:`loss_reason`), with ``agg`` sum or mean and no
-    ``extra_loss``;
+    ``extra_loss`` but ``l2_extra_loss``'s declarative weight-L2 (:class:`L2Penalty`);
     a single-rule optimizer spec the kernels run (:func:`optimizer_reason`);
     parameters, moments and a 32-row tile of residuals within the 227 KB of
     shared memory (:func:`_tile_rows`, the same for every rule). Any batch
@@ -331,7 +338,7 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
         return f"{leaves} parameter leaves exceed the kernels' cap of {MAX_LEAVES}"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
-    reason = training_spec_reason(optimizer, logging, FUSED_LOSSES)
+    reason = training_spec_reason(optimizer, logging, FUSED_LOSSES, takes_l2=True)
     if reason is not None:
         return reason
     if _tile_rows(model) is None:
@@ -363,19 +370,104 @@ def optimizer_reason(optimizer) -> Optional[str]:
     return None
 
 
-def training_spec_reason(optimizer, logging: LoggingLoss, losses) -> Optional[str]:
+def training_spec_reason(optimizer, logging: LoggingLoss, losses, *,
+                         takes_l2: bool = False) -> Optional[str]:
     """Why a training kernel that trains ``losses`` (and a traced
     ``ElementwiseLoss``) cannot run this loss and optimizer, or None: the loss
-    (:func:`loss_reason`), ``agg`` sum or mean, no ``extra_loss``, an
-    optimizer the kernels run (:func:`optimizer_reason`)."""
+    (:func:`loss_reason`), ``agg`` sum or mean, an optimizer the kernels run
+    (:func:`optimizer_reason`), and no ``extra_loss`` but, where the kernel
+    ``takes_l2`` (kernels 2 and 3), the declarative weight-L2 of
+    ``l2_extra_loss`` (:class:`L2Penalty`), as the JAX kernel admits it."""
     reason = loss_reason(logging.training_loss, losses)
     if reason is not None:
         return reason
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
-        return "an extra_loss (the kernel adds none)"
+        if not takes_l2:
+            return "an extra_loss (the kernel adds none)"
+        if getattr(logging.extra_loss, "_l2_spec", None) is None:
+            return ("an extra_loss other than l2_extra_loss: only the declarative weight-L2 extra "
+                    "loss is fused")
     return optimizer_reason(optimizer)
+
+
+class L2Penalty(NamedTuple):
+    """The declarative weight-L2 ``extra_loss`` (``l2_extra_loss(scale,
+    normalize=, key=)``) as kernels 2 and 3 add it, the JAX kernel's
+    (``easyhybrid_tpu/ops/fused_epoch.py:1217-1225``, ``:2365-2372``,
+    ``:2525-2557``): ``leaves``, the packed segments ``extract_weights`` picks
+    by ``key``, hold ``count`` elements; each step adds ``ex_outer · valid ·
+    (scale / norm_div) · Σ w²`` of the parameters before its update to the
+    batch loss and ``ex_outer · 2 · scale / norm_div · w`` to each of their
+    gradients before the rule, with ``norm_div`` ``count`` (``normalize``) or
+    1 and ``ex_outer`` 0.5 under ``agg="mean"`` (``compute_loss`` takes the
+    mean of the loss and the penalty, which halves both), else 1."""
+
+    scale: float
+    normalize: bool
+    leaves: Tuple[int, ...]
+    count: int
+    ex_outer: float
+
+    @property
+    def value_scale(self) -> float:
+        """``scale / norm_div``, the factor of Σ w² (rounded to float32 by the kernels)."""
+        return self.scale / (float(self.count) if self.normalize else 1.0)
+
+    @property
+    def coeff(self) -> float:
+        """``ex_outer · 2 · scale / norm_div``, the factor of w in its gradient."""
+        return self.ex_outer * 2.0 * self.scale / (float(self.count) if self.normalize else 1.0)
+
+    @property
+    def leaf_mask(self) -> int:
+        """The penalised leaves as the kernels read them: bit i for segment i."""
+        return sum(1 << i for i in self.leaves)
+
+
+def _ex_outer(logging: LoggingLoss) -> float:
+    """0.5 where ``compute_loss`` averages the loss with a weight-L2 penalty
+    (``agg="mean"``), else 1: the factor of both."""
+    l2 = getattr(logging.extra_loss, "_l2_spec", None)
+    return 0.5 if l2 is not None and logging.agg_name == "mean" else 1.0
+
+
+def l2_penalty(logging: LoggingLoss, segments) -> Optional[L2Penalty]:
+    """The plan's :class:`L2Penalty`: the segments whose parameter names
+    ``utils/weights.py::extract_weights`` picks by the spec's key, or None
+    without a weight-L2 ``extra_loss`` (or with no such segment, where it
+    adds nothing)."""
+    from ..utils.weights import extract_weights
+
+    spec = getattr(logging.extra_loss, "_l2_spec", None)
+    if spec is None:
+        return None
+    leaves = tuple(extract_weights({name: i for i, (name, _, _) in enumerate(segments)},
+                                   spec["key"]))
+    if not leaves:
+        return None
+    count = sum(math.prod(segments[i][2]) for i in leaves)
+    return L2Penalty(float(spec["scale"]), bool(spec["normalize"]), leaves, count,
+                     _ex_outer(logging))
+
+
+def l2_step(plan, p, g, loss):
+    """One step's penalty in the plain versions: ``(g, loss)`` with the
+    gradient term added to the penalised leaves' gradients (after a bf16
+    build's rounding, as the JAX kernel adds it) and the value, taken at the
+    parameters ``p`` before the update, to the batch loss; unchanged without
+    a penalty."""
+    l2 = getattr(plan, "l2", None)
+    if l2 is None:
+        return g, loss
+    mask = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+    for i in l2.leaves:
+        _, off, shape = plan.segments[i]
+        mask[off : off + math.prod(shape)] = True
+    w = p[mask]
+    value = l2.ex_outer * (l2.value_scale * (w * w).sum())
+    return torch.where(mask, g + l2.coeff * p, g), loss + value
 
 
 def supports_fused_epoch(model, optimizer, logging: LoggingLoss, tensors=None) -> bool:
@@ -467,6 +559,24 @@ class _Net(ctypes.Structure):
     ]
 
 
+# the weight-L2 penalty's fields of kernels 2 and 3's argument structs
+# (:class:`L2Penalty`; all zero without one): the gradient's factor, the
+# value's scale, ex_outer and the penalised leaves, bit i for segment i
+L2_FIELDS = (
+    ("l2_coeff", ctypes.c_float),
+    ("l2_value", ctypes.c_float),
+    ("l2_outer", ctypes.c_float),
+    ("l2_leaves", ctypes.c_int64),
+)
+
+
+def fill_l2_args(a, plan) -> None:
+    """The plan's :class:`L2Penalty` into a kernel's argument struct."""
+    if plan.l2 is not None:
+        a.l2_coeff, a.l2_value = plan.l2.coeff, plan.l2.value_scale
+        a.l2_outer, a.l2_leaves = plan.l2.ex_outer, plan.l2.leaf_mask
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct EhFusedEpochArgs`` in csrc/fused_epoch.cu."""
 
@@ -531,6 +641,7 @@ class _Args(ctypes.Structure):
         ("nets", _Net * MAX_NETS),
         ("stamps", ctypes.c_void_p),
         ("halt", ctypes.c_void_p),
+        *L2_FIELDS,
         ("n_members", ctypes.c_int),
         ("perm_stride", ctypes.c_int64),
         ("member_opt", ctypes.c_void_p),
@@ -740,6 +851,7 @@ class FusedEpochPlan(PackedLayout):
     n_sites: int = 0  # a multi-site plan: every global is one (n_sites, 1) leaf
     cluster: int = 0  # kernel 2's cluster size when set (a measurement's), else by the batch
     bf16: bool = False  # compute_dtype=bfloat16: the kernel's bf16 build (csrc/eh_device.cuh)
+    l2: Optional[L2Penalty] = None  # the weight-L2 extra_loss
 
     @functools.cached_property
     def branch_layout(self) -> BranchLayout:
@@ -781,7 +893,8 @@ class FusedEpochPlan(PackedLayout):
             g=len(self.global_names), k=len(self.fixed_names), t=len(self.target_names),
             n_forcing=len(self.forcing_names), threads=threads, res=self.tile_floats,
             stages=stages, moments_shared=moments_shared, n_unit_table=self.n_unit_table,
-            loss_floats=_loss_floats(self.loss, threads // 32, len(self.target_names)))
+            loss_floats=_loss_floats(self.loss, threads // 32, len(self.target_names)),
+            l2=self.l2 is not None)
 
     def geometry(self, batch: int) -> Geometry:
         """How kernel 2 cuts a launch over batches of ``batch`` rows: a pure
@@ -861,6 +974,7 @@ class FusedEpochPlan(PackedLayout):
             n.r_off_h[: n.n_layers], n.r_off_d[: n.n_layers] = net.r_h, net.r_d
             n.r_off_out = a.r_off_out + net.out
             n.r_off_d0 = lay.r_d0 + net.col
+        fill_l2_args(a, self)
         return bytes(a)
 
 
@@ -924,7 +1038,8 @@ def shared_plan_fields(model, optimizer, logging: LoggingLoss, names) -> Dict[st
         segments=tuple(segments),
         n_params=offset,
         consts=torch.tensor(consts, dtype=torch.float32, device=model.device),
-        agg_scale=1.0 / len(model.targets) if logging.agg_name == "mean" else 1.0,
+        agg_scale=(1.0 / len(model.targets) if logging.agg_name == "mean" else 1.0)
+        * _ex_outer(logging),
         opt_name=name,
         hyper=tuple(sorted(hyper.items())),
         loss=_loss_name(logging.training_loss),
@@ -945,6 +1060,7 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
                  for prefix, net in model_branches(model))
     names = [f"{prefix}.layers.{i}.{leaf}" for prefix, dims, _ in nets
              for i in range(len(dims) - 1) for leaf in ("weight", "bias")]
+    fields = shared_plan_fields(model, optimizer, logging, names)
     return FusedEpochPlan(
         nets=nets,
         width=next(w for w in _WIDTHS if w >= max((d for _, dims, _ in nets for d in dims),
@@ -953,7 +1069,8 @@ def build_plan(model, optimizer, logging: LoggingLoss, *, tile_rows: int,
         res_floats=_layout_sizes(model)[1],
         n_sites=n_sites,
         bf16=is_bf16(model),
-        **shared_plan_fields(model, optimizer, logging, names),
+        l2=l2_penalty(logging, fields["segments"]),
+        **fields,
     )
 
 
@@ -1451,6 +1568,7 @@ def fused_epoch_reference(plan: FusedEpochPlan, packed: FusedParams, opt_state, 
                 [c[idx] for c in data.forcing], [c[idx] for c in data.y],
                 [c[idx] for c in data.mask],
             )
+            g, loss = l2_step(plan, p, g, loss)
             p, slots, t = _reference_update(plan, p, slots, t, g, valid)
             bn = torch.where(valid, new_bn, bn)
             epoch_loss = epoch_loss + torch.where(valid, loss, torch.zeros_like(loss))
@@ -1607,7 +1725,8 @@ def stage_cycles(fn: "FusedEpoch", packed: FusedParams, opt_state, tensors: Epoc
     launch_fused_epoch(plan, packed, opt_state, data, rows, loss,
                        lib=_build.measuring_library(
                            source, _build.LAUNCHERS[source][0], "-DEHE_STAMPS",
-                           *(_build.bf16_defines(plan.width) if plan.bf16 else ())),
+                           *(_build.bf16_defines(plan.width) if plan.bf16
+                             else _build.width_defines(plan.width))),
                        stamps=stamps)
     return dict(zip(STAGES + ("kernel",), stamps.tolist()))
 

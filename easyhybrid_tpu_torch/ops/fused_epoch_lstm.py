@@ -250,6 +250,10 @@ def lstm_reason(model, optimizer, logging: LoggingLoss, tensors):
         return f"{net.out_dim} network outputs exceed the LSTM kernel's cap of {MAX_LSTM_OUT}"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
+    if logging.extra_loss is not None:
+        return ("an extra_loss: the JAX kernel keeps an LSTM hybrid with any extra_loss off its "
+                "kernel (easyhybrid_tpu/ops/fused_epoch.py:515-516: the weight-L2 key names the "
+                "Dense weights, not the gates)")
     reason = mechanistic_reason(model) or training_spec_reason(optimizer, logging, LSTM_LOSSES)
     if reason is not None:
         return reason

@@ -178,7 +178,9 @@ def fused_multisite_unsupported_reason(model, optimizer, logging: LoggingLoss, t
     if logging.agg_name not in ("sum", "mean"):
         return f"agg={logging.agg!r} (the kernel aggregates sum or mean)"
     if logging.extra_loss is not None:
-        return "an extra_loss (the kernel adds none)"
+        return ("an extra_loss: the JAX multi-site kernel refuses every extra_loss, the "
+                "weight-L2 too (supports_fused_multisite, "
+                "easyhybrid_tpu/ops/fused_multisite.py:183-184)")
     reason = optimizer_reason(optimizer)
     if reason is not None:
         return reason

@@ -44,6 +44,17 @@ the step count after each step.
 :func:`fused_wide_reference` is the same algorithm in plain PyTorch. On CPU
 tensors the wrapper computes it; on CUDA tensors it launches the kernels or
 raises. It never falls back.
+
+The weight-L2 ``extra_loss`` (``fused_epoch.L2Penalty``): its gradient term
+in the update, before the rule; its value from the update's sums of squares
+of the weights after each step, the next step's before its update.
+
+The member axis (:meth:`FusedWideEpoch.members`, population training): one
+launcher call trains K members, each of a step's launches over all of them
+(the member a grid dimension), with a workspace, partial sums, state rows,
+loss scales, row index and optimizer numbers a member;
+:func:`fused_wide_members_reference` is its plain version. A member's bits
+are those of its call alone.
 """
 
 from __future__ import annotations
@@ -51,7 +62,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,15 +78,22 @@ from .fused_epoch import (
     FusedData,
     FusedEpoch,
     FusedParams,
+    L2_FIELDS,
+    L2Penalty,
     LOSS_KINDS,
     PackedLayout,
     _Optimizer,
+    _check_member_shapes,
     _loss_name,
     _reference_update,
     check_halt,
     obey_halt,
     fill_common_args,
+    fill_l2_args,
     fused_data,
+    fused_members_reference,
+    l2_penalty,
+    l2_step,
     opt_slots,
     param_offsets,
     reference_grads,
@@ -98,6 +116,7 @@ __all__ = [
     "LayerGeometry",
     "Product",
     "batch_scales",
+    "fused_wide_members_reference",
     "fused_wide_reference",
     "fused_wide_unsupported_reason",
     "launch_fused_wide",
@@ -348,7 +367,8 @@ def _card_memory(device) -> Optional[int]:
 
 
 def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensors=None, *,
-                                  memory_bytes: Optional[int] = None) -> Optional[str]:
+                                  memory_bytes: Optional[int] = None,
+                                  members: int = 1) -> Optional[str]:
     """Why the wide fused epoch cannot train ``model`` with this optimizer
     and loss, or None when it can.
 
@@ -360,13 +380,15 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     kernel-form mechanistic function; ``training_loss`` any of
     :data:`WIDE_LOSSES` (the JAX kernel's: mse, mae, rmse, nseLoss,
     pearsonLoss, kgeLoss, pbkgeLoss) or an ``ElementwiseLoss`` the tracer
-    expresses, with ``agg`` sum or mean and no ``extra_loss``; one optimizer
-    spec of any rule but
+    expresses, with ``agg`` sum or mean and no ``extra_loss`` but
+    ``l2_extra_loss``'s declarative weight-L2 (``fused_epoch.L2Penalty``); one
+    optimizer spec of any rule but
     ``noisy_sgd`` (``training_spec_reason``). Any number of epochs per call;
     with ``tensors``, a batch of at most 65,535 row tiles of 64, and the
-    activations and partial sums of one step within ``WORKSPACE_SHARE`` of
-    the card's memory (``memory_bytes``, by default the memory of the
-    model's CUDA device; unchecked on another device)."""
+    activations and partial sums of one step of ``members`` models (a
+    population's member launch) within ``WORKSPACE_SHARE`` of the card's
+    memory (``memory_bytes``, by default the memory of the model's CUDA
+    device; unchecked on another device)."""
     if isinstance(model, MultiNNHybridModel):
         return ("MultiNN branches are not ported to the wide kernel yet (ROADMAP.md, queue B, "
                 "item 4); kernel 2 takes a MultiNN model whose branches fit its shared memory")
@@ -375,7 +397,7 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
         return reason
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
-    reason = training_spec_reason(optimizer, logging, WIDE_LOSSES)
+    reason = training_spec_reason(optimizer, logging, WIDE_LOSSES, takes_l2=True)
     if reason is not None:
         return reason
     if tensors is not None:
@@ -391,11 +413,12 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
         if memory_bytes is not None:
             net = model.nn
             dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-            need = wide_layout(dims, net.norm is not None, batch, net.input_batchnorm is True,
-                               len(model.targets),
-                               _loss_name(logging.training_loss) in TWO_PASS_LOSSES).nbytes
+            need = members * wide_layout(dims, net.norm is not None, batch,
+                                         net.input_batchnorm is True, len(model.targets),
+                                         _loss_name(logging.training_loss) in TWO_PASS_LOSSES).nbytes
             if need > WORKSPACE_SHARE * memory_bytes:
-                return (f"a step's activations and partial sums take {need} bytes, more than "
+                who = f"{members} members' steps" if members > 1 else "a step's"
+                return (f"{who} activations and partial sums take {need} bytes, more than "
                         f"{WORKSPACE_SHARE:g} of the card's {memory_bytes}")
     return None
 
@@ -489,6 +512,15 @@ class _Args(ctypes.Structure):
         ("ws_off_mom", ctypes.c_int64),
         ("momentum", ctypes.c_float),
         ("one_minus_momentum", ctypes.c_float),
+        ("n_members", ctypes.c_int),
+        ("perm_stride", ctypes.c_int64),
+        ("member_opt", ctypes.c_void_p),
+        ("ws_stride", ctypes.c_int64),
+        ("part_stride", ctypes.c_int64),
+        ("lamb_stride", ctypes.c_int64),
+        ("l2_parts", ctypes.c_void_p),
+        ("l2_stride", ctypes.c_int64),
+        *L2_FIELDS,
     ]
 
 
@@ -520,6 +552,7 @@ class FusedWidePlan(PackedLayout):
     loss: str
     loss_form: Any = None  # the traced ElementwiseLoss (kernel_forms.LossForm) of ELEMENTWISE
     bf16: bool = False  # compute_dtype=bfloat16: the kernels' bf16 build (csrc/fused_wide.cu)
+    l2: Optional[L2Penalty] = None  # the weight-L2 extra_loss
 
     @property
     def n_features(self) -> int:
@@ -551,6 +584,7 @@ class FusedWidePlan(PackedLayout):
         a.loss_kind = LOSS_KINDS[self.loss]
         a.momentum = self.momentum
         a.one_minus_momentum = 1.0 - self.momentum
+        fill_l2_args(a, self)
         return bytes(a)
 
 
@@ -562,11 +596,13 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
         raise ValueError(f"model not supported by the wide fused epoch kernel: {reason}")
     net = model.nn
     names = [f"nn.layers.{i}.{leaf}" for i in range(len(net.layers)) for leaf in ("weight", "bias")]
+    fields = shared_plan_fields(model, optimizer, logging, names)
     return FusedWidePlan(
         dims=(net.in_dim,) + net.hidden + (net.out_dim,),
         acts=tuple(layer.activation for layer in net.layers),
         bf16=is_bf16(model),
-        **shared_plan_fields(model, optimizer, logging, names),
+        l2=l2_penalty(logging, fields["segments"]),
+        **fields,
     )
 
 
@@ -577,6 +613,16 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
 def _by_step(col: torch.Tensor, idx: torch.Tensor, data: FusedData) -> torch.Tensor:
     """A ``(n,)`` column at every step's rows: ``(E, nb, batch)``."""
     return col[idx].reshape(idx.shape[0], data.n_batches, data.batch)
+
+
+def _per_member(fn, plan, data, rows, k: int):
+    """``fn(plan, data, rows)``'s tensors with the member axis in front: one
+    member's row index at a time (so each member's numbers are those of its
+    launch alone, bit for bit), or a shared index's once, for all ``k``."""
+    if rows.dim() == 3:
+        outs = [fn(plan, data, r) for r in rows]
+        return tuple(torch.stack(parts).contiguous() for parts in zip(*outs))
+    return tuple(t.expand((k,) + tuple(t.shape)).contiguous() for t in fn(plan, data, rows))
 
 
 def target_moments(plan: FusedWidePlan, data: FusedData, rows: torch.Tensor) -> torch.Tensor:
@@ -624,8 +670,9 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
     the whole batch's forward, the cotangent with the loss scales of
     :func:`batch_scales` (rmse and the statistic losses: from the batch's
     moments), the hand-written backward and the gated update of the
-    parameters and of a trainable norm's running statistics. Returns
-    ``(packed, opt_state, mean_loss)``; the loss is the last epoch's mean
+    parameters and of a trainable norm's running statistics, with a
+    weight-L2 penalty's value and gradient where the plan has one
+    (``fused_epoch.l2_step``). Returns ``(packed, opt_state, mean_loss)``; the loss is the last epoch's mean
     batch loss (a batch without valid targets counts 0 and takes no step).
     ``halt``: ``obey_halt``."""
     packed0, opt0 = packed, opt_state
@@ -645,6 +692,7 @@ def fused_wide_reference(plan: FusedWidePlan, packed: FusedParams, opt_state, da
                 [c[idx] for c in data.forcing], [c[idx] for c in data.y],
                 [c[idx] for c in data.mask], scale=list(scale[e, i]),
             )
+            g, loss = l2_step(plan, p, g, loss)
             ok = valid[e, i] > 0
             p, slots, t = _reference_update(plan, p, slots, t, g, ok)
             bn = torch.where(ok, new_bn, bn)
@@ -683,14 +731,27 @@ def update_blocks(plan: FusedWidePlan, lay: WideLayout) -> int:
 
 
 def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
-                      rows: torch.Tensor, loss: torch.Tensor, *, halt=None) -> None:
+                      rows: torch.Tensor, loss: torch.Tensor, *, halt=None,
+                      member_opt=None) -> None:
     """Enqueue every step of ``rows`` (``(epochs, num_batches · batch)``)
     with one call of the C launcher, updating ``packed`` (a trainable norm's
     running statistics too) and ``opt_state`` in place and writing the last
     epoch's mean batch loss into ``loss``; raises
     if a launch is refused. Counts calls in ``launch_fused_wide.launches``.
     ``halt`` is the halt word (``ops/fused_epoch.py``): every kernel of a
-    halted call returns at entry, and the step count and loss stay."""
+    halted call returns at entry, and the step count and loss stay.
+
+    The member axis (:meth:`FusedWideEpoch.members`): parameters ``(K, n)``
+    train K members in one call, each launch of a step over all of them (the
+    member a grid dimension), with every state tensor stacked the same way
+    (``t`` ``(K, 1)``, ``loss`` ``(K,)``) and a workspace, partial sums and
+    loss scales per member; ``rows`` ``(K, E, n)`` gives each member its own
+    row index (else one is shared) and ``member_opt`` ``(K,
+    len(OPT_SCALARS))`` its optimizer numbers
+    (``ops/fused_epoch.py::member_opt_rows``; else the plan's)."""
+    members = packed.params.dim() == 2
+    k = packed.params.shape[0] if members else 1
+    _check_member_shapes(plan, packed, opt_state, rows, loss, member_opt, k, members)
     lib = _build.kernel_library("fused_wide.cu", plan.form, plan.loss_form, bf16=plan.bf16)
     if lib.eh_fused_wide_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(
@@ -698,17 +759,53 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
             f"{lib.eh_fused_wide_args_size()} != {ctypes.sizeof(_Args)}"
         )
     dev = data.x.device
-    epochs = rows.shape[0]
+    a = wide_launch_args(plan, packed, opt_state, data, rows, k, halt=halt, member_opt=member_opt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.eh_fused_wide(ctypes.byref(a.args), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"wide fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
+    t = a.tcount[:, -1:].round().to(torch.int32).reshape(opt_state["t"].shape)
+    if halt is not None:
+        t = torch.where(halt != 0, opt_state["t"], t)
+    opt_state["t"].copy_(t)
+    loss.copy_(a.epoch_loss[:, -1] / data.n_batches)
+    launch_fused_wide.launches += 1
+
+
+class WideLaunch(NamedTuple):
+    """A call's argument struct and the tensors it points to, which live as
+    long as the call needs them (:func:`wide_launch_args`)."""
+
+    args: _Args
+    tcount: torch.Tensor
+    epoch_loss: torch.Tensor
+    scratch: Tuple[torch.Tensor, ...]
+
+
+def wide_launch_args(plan: FusedWidePlan, packed: FusedParams, opt_state, data: FusedData,
+                     rows: torch.Tensor, k: int, *, halt=None, member_opt=None) -> WideLaunch:
+    """The launcher's argument struct for a call of ``k`` members (see
+    :func:`launch_fused_wide`): the plan's static fields, the tensors'
+    addresses, each member's loss scales, validity and step counts, the
+    workspace and partial sums (a member's after the member before), the
+    member axis's count and strides."""
+    dev = data.x.device
+    epochs = rows.shape[-2]
     lay = plan.layout(data.batch)
-    scale, valid = batch_scales(plan, data, rows)
-    tmom = target_moments(plan, data, rows) if plan.loss in TWO_PASS_LOSSES else None
-    t0 = opt_state["t"].to(torch.float32)
-    tcount = (t0 + torch.cumsum(valid.reshape(-1), 0)).contiguous()
-    ws = torch.empty((lay.ws_floats,), dtype=torch.float32, device=dev)
-    partials = torch.empty((max(lay.part_floats, 1),), dtype=torch.float32, device=dev)
+    scale, valid = _per_member(batch_scales, plan, data, rows, k)
+    tmom = (_per_member(lambda *a: (target_moments(*a),), plan, data, rows, k)[0]
+            if plan.loss in TWO_PASS_LOSSES else None)
+    t0 = opt_state["t"].reshape(k, 1).to(torch.float32)
+    tcount = (t0 + torch.cumsum(valid.reshape(k, -1), 1)).contiguous()
+    ws = torch.empty((k * lay.ws_floats,), dtype=torch.float32, device=dev)
+    partials = torch.empty((max(k * lay.part_floats, 1),), dtype=torch.float32, device=dev)
     n_glob = len(plan.global_names)
-    head_partials = torch.empty((lay.head_blocks, 1 + n_glob), dtype=torch.float32, device=dev)
-    epoch_loss = torch.zeros((epochs,), dtype=torch.float32, device=dev)
+    head_partials = torch.empty((k, lay.head_blocks, 1 + n_glob), dtype=torch.float32, device=dev)
+    epoch_loss = torch.zeros((k, epochs), dtype=torch.float32, device=dev)
+    blocks = update_blocks(plan, lay)
+    scratch = [scale, valid, ws, partials, head_partials] + ([tmom] if tmom is not None else [])
 
     a = _Args.from_buffer_copy(plan.args_bytes)
     a.x = data.x.data_ptr()
@@ -727,6 +824,10 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     a.head_partials, a.epoch_loss = head_partials.data_ptr(), epoch_loss.data_ptr()
     a.n_rows = data.x.shape[0]
     a.n_epochs, a.n_batches, a.batch = epochs, data.n_batches, data.batch
+    a.n_members = k
+    a.perm_stride = rows.shape[-2] * rows.shape[-1] if rows.dim() == 3 else 0
+    a.member_opt = member_opt.data_ptr() if member_opt is not None else None
+    a.ws_stride, a.part_stride = lay.ws_floats, lay.part_floats
     n_layers = len(plan.dims) - 1
     a.ws_off_h0, a.ws_off_xhat, a.ws_off_d0 = lay.ws_h0, lay.ws_xhat, lay.ws_d0
     a.ws_off_stats, a.ws_off_pred, a.ws_off_mom = lay.ws_stats, lay.ws_pred, lay.ws_mom
@@ -741,21 +842,15 @@ def launch_fused_wide(plan: FusedWidePlan, packed: FusedParams, opt_state, data:
     fill_geometry(a, lay)
     a.halt = check_halt(halt, dev)
     if plan.opt_name == "lamb":  # a row of leaf norms per update block (eh_wide_update_kernel)
-        lamb_parts = torch.empty((update_blocks(plan, lay), 2 * a.optimizer.n_leaves),
-                                 dtype=torch.float32, device=dev)
-        a.lamb_parts = lamb_parts.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.eh_fused_wide(ctypes.byref(a), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"wide fused epoch kernel launch failed: {lib.eh_cuda_error_string(rc).decode()}")
-    t = tcount[-1:].round().to(torch.int32)
-    if halt is not None:
-        t = torch.where(halt != 0, opt_state["t"], t)
-    opt_state["t"].copy_(t)
-    loss.copy_(epoch_loss[-1:] / data.n_batches)
-    launch_fused_wide.launches += 1
+        lamb_parts = torch.empty((k, blocks, 2 * a.optimizer.n_leaves), dtype=torch.float32,
+                                 device=dev)
+        a.lamb_parts, a.lamb_stride = lamb_parts.data_ptr(), blocks * 2 * a.optimizer.n_leaves
+        scratch.append(lamb_parts)
+    if plan.l2 is not None:  # each update block's sum of squared weights, two steps' a member
+        l2_parts = torch.empty((k, 2, blocks), dtype=torch.float32, device=dev)
+        a.l2_parts, a.l2_stride = l2_parts.data_ptr(), 2 * blocks
+        scratch.append(l2_parts)
+    return WideLaunch(a, tcount, epoch_loss, tuple(scratch))
 
 
 launch_fused_wide.launches = 0
@@ -789,11 +884,22 @@ def _wide_product(a: torch.Tensor, b: torch.Tensor, geometry: Optional[Product] 
     return out
 
 
+def fused_wide_members_reference(plan: FusedWidePlan, packed: FusedParams, opt_state,
+                                 data: FusedData, rows: torch.Tensor, *, specs=None):
+    """The plain version of kernel 3's member axis: :func:`fused_wide_reference`
+    once per member, with that member's optimizer spec, row index (and so its
+    data), state and running statistics; the results stacked."""
+    return fused_members_reference(plan, packed, opt_state, data, rows, specs=specs,
+                                   reference=fused_wide_reference)
+
+
 class FusedWideEpoch(FusedEpoch):
     """:class:`~easyhybrid_tpu_torch.ops.fused_epoch.FusedEpoch` for an MLP
     hybrid too wide for one block: ``epochs_per_call`` epochs in one call of
     kernel 3's launcher on CUDA tensors, :func:`fused_wide_reference` on CPU
-    tensors."""
+    tensors; a population's members in one call (:meth:`members`, kernel 3's
+    member axis), or member by member on CPU tensors
+    (:func:`fused_wide_members_reference`)."""
 
     _make_plan = staticmethod(plan_fused_wide)
     _make_data = staticmethod(fused_data)

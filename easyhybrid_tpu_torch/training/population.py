@@ -15,11 +15,15 @@ Two engines (``PopulationResults.epoch_path``):
 
 * ``"population_vmap_fused"`` (``"population_vmap_cv_fused"``): a fused
   kernel's member axis. Kernel 2's (``ops/fused_epoch.py``,
-  :meth:`FusedEpoch.members`) for an MLP hybrid, kernel 4's
+  :meth:`FusedEpoch.members`) for an MLP hybrid one block holds, kernel 4's
   (``ops/fused_epoch_lstm.py``, the same method of :class:`FusedLSTMEpoch`)
   for an LSTM hybrid on windows: one launch per block trains every member, a
   thread-block cluster each, each member with its own optimizer numbers (a
   sweep of any hyperparameter ``parse_opt_spec`` knows), row index and data.
+  Kernel 3's (``ops/fused_wide.py``, :meth:`FusedWideEpoch.members`) for a
+  wider MLP hybrid: one launcher call per block, each of a step's launches
+  over every member (the member a grid dimension), each member with its own
+  workspace, running statistics, optimizer numbers, row index and data.
   Kernel 5's (``ops/fused_multisite.py``, :meth:`FusedMultisiteEpoch.members`)
   for a seed ensemble of a ``share_nn`` ``MultiSiteHybridModel``, as the JAX
   package vmaps its multi-site kernel: one launcher call per block, a row of
@@ -40,9 +44,10 @@ Two engines (``PopulationResults.epoch_path``):
   of ``optax.inject_hyperparams``). A model whose training forward updates
   buffers in place (trainable BatchNorm's running statistics), which
   ``vmap`` cannot take, steps member by member instead. Models that go to
-  kernel 3 run here too (its member axis: ROADMAP queue B, item 5), and so
-  do a multi-site model's sweeps and cross-validations, which the JAX
-  package also keeps off its multi-site kernel.
+  kernel 4's cluster-split form run here too (its member axis: ROADMAP
+  queue B, item 5), and so do a multi-site model's sweeps and
+  cross-validations, which the JAX package also keeps off its multi-site
+  kernel.
 
 Evaluation runs the dual evaluator under ``vmap`` for every member at once.
 A pure sweep (no ``seeds``) gives every member the same permutation each
@@ -399,8 +404,8 @@ def _stack_state(states):
 
 class _FusedPopulation:
     """A fused kernel's member axis as the loop drives it (kernel 2's
-    :class:`FusedEpoch`, kernel 4's :class:`FusedLSTMEpoch` or kernel 5's
-    :class:`FusedMultisiteEpoch`):
+    :class:`FusedEpoch`, kernel 3's :class:`FusedWideEpoch`, kernel 4's
+    :class:`FusedLSTMEpoch` or kernel 5's :class:`FusedMultisiteEpoch`):
     ``block(state)`` is one launch (launcher call) for every member;
     ``state`` is ``(packed, opt_state)``, each with the member axis in
     front, turned into the evaluator's leaves by views (``leaves``). The
@@ -657,16 +662,17 @@ def _verdict_key(engine: str, fn, specs, per_member_data, shared_perms, batch):
 
 
 # the fused engines with a member axis, by the epoch path train() gives their models
-_MEMBER_AXES = {"cuda_fused_epoch": "kernel 2", "cuda_fused_lstm": "kernel 4",
-                "cuda_fused_multisite": "kernel 5"}
+_MEMBER_AXES = {"cuda_fused_epoch": "kernel 2", "cuda_fused_wide": "kernel 3",
+                "cuda_fused_lstm": "kernel 4", "cuda_fused_multisite": "kernel 5"}
 
 
 def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensors, gate_tensors,
                    *, use_kernel, eval_every: int, shuffle, per_member_data: bool,
                    shared_perms: bool, sweep: bool):
     """``(fused epoch or None, reason)``: kernel 2's member axis (a
-    :class:`FusedEpoch`), kernel 4's (a :class:`FusedLSTMEpoch`) or kernel
-    5's (a :class:`FusedMultisiteEpoch`), or why the torch engine runs the
+    :class:`FusedEpoch`), kernel 3's (a :class:`FusedWideEpoch`), kernel 4's
+    (a :class:`FusedLSTMEpoch`) or kernel 5's (a :class:`FusedMultisiteEpoch`),
+    or why the torch engine runs the
     population (the JAX package's wording where it has it). ``params0`` /
     ``buffers0``: the stacked initial leaves (member 0's take the gate)."""
     from ..ops.fused_epoch import fused_engine, fused_exactness_check, optimizer_reason
@@ -703,6 +709,13 @@ def _select_engine(model, params0, buffers0, specs, logging: LoggingLoss, tensor
             return None, engine.shuffle_refusal.format(shuffle)
         return None, ("model/optimizer/loss outside the fused-kernel envelope "
                       f"({engine.envelope}): {reason}")
+    if engine.epoch_path == "cuda_fused_wide":  # every member's workspace on the card at once
+        from ..ops.fused_wide import fused_wide_unsupported_reason
+
+        k = next(iter(params0.values())).shape[0]
+        reason = fused_wide_unsupported_reason(*args, members=k)
+        if reason is not None:
+            return None, f"the population does not fit kernel 3's member axis: {reason}"
     fn = engine.make_epoch(model, spec0, logging, shuffle=shuffle, epochs_per_call=eval_every)
     key = _verdict_key(engine.epoch_path, fn, specs if sweep else None, per_member_data,
                        shared_perms, int(gate_tensors.weight.shape[1]))

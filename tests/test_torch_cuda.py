@@ -264,10 +264,10 @@ TWO_GLOBALS = dict(parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0),
 
 def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam", 0.01),
                 shuffle=True, epochs=1, batch=256, n=2000, seed=0, nan_frac=0.0, mask_first=False,
-                mechanistic=et.rbq10, loss="mse", agg="sum", spec=None):
+                mechanistic=et.rbq10, loss="mse", agg="sum", spec=None, l2=None):
     """Kernel 2 against its plain version on the quick-start's model, or on
     the model of ``spec`` (a full model spec, on RbQ10 rows with a second
-    target nee)."""
+    target nee); ``l2``: the scale of a weight-L2 ``extra_loss``."""
     cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
     if mask_first:
         cols["reco"][:batch] = np.nan
@@ -290,7 +290,8 @@ def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam",
     et.fit_input_norm(m, data)
     m.to(device)
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
-    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg,
+                        extra_loss=None if l2 is None else et.l2_extra_loss(l2))
     fn = et.make_fused_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
@@ -321,6 +322,24 @@ def _epoch_case(device, *, hidden=(16, 16), act="swish", norm=True, opt=("adam",
 ], ids=str)
 def test_epoch_kernel_matches_plain(cuda, kw):
     _epoch_case(cuda, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(l2=0.5, epochs=2),
+    dict(l2=0.5, agg="mean", norm="static", nan_frac=0.3, epochs=2),
+    dict(l2=1e-2, opt=("lamb", 0.01), hidden=(32, 24)),
+    dict(l2=0.5, agg="mean", spec=dict(
+        predictors={"rb": ["sw_pot", "dsw_pot"], "Q10": ["ta"]}, forcing=["ta"],
+        targets=["reco"], mechanistic_model=et.rbq10,
+        parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb", "Q10"], hidden_layers=[12, 8], activation="tanh",
+        scale_nn_outputs=True, input_batchnorm=True)),
+], ids=["sum", "mean, static norm, NaN targets", "lamb", "MultiNN, mean"])
+def test_epoch_kernel_matches_plain_with_the_weight_l2(cuda, kw):
+    """The declarative weight-L2 extra_loss on kernel 2 (its MultiNN build
+    too): the penalty's value in the loss, its gradient before the rule."""
+    got = _epoch_case(cuda, **kw)
+    assert torch.isfinite(got[2]).all()
 
 
 def _rbq10_untagged(*, ta, rb, Q10, tref=15.0):
@@ -960,7 +979,7 @@ def test_train_takes_the_lstm_split_kernel(cuda):
 
 def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("adam", 0.01),
                loss="mse", agg="sum", shuffle=True, epochs=2, n=1000, batch=256, nan_frac=0.0,
-               mask_first=0, seed=0):
+               mask_first=0, seed=0, l2=None):
     cols = et.rbq10_columns(n, seed=seed, nan_frac=nan_frac)
     cols["reco"][:mask_first] = np.nan
     m = et.construct_hybrid_model(
@@ -974,7 +993,8 @@ def _wide_case(device, *, hidden=(128, 64), act="swish", norm="static", opt=("ad
                       forcing={"ta": cols["ta"]}, y={"reco": cols["reco"]})
     et.fit_input_norm(m, et.prepare_data(m, cols))
     tensors = epoch_tensors_to(et.build_epoch_tensors(data, batch), device)
-    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg)
+    ll = et.LoggingLoss(training_loss=_loss(loss), loss_types=("mse",), agg=agg,
+                        extra_loss=None if l2 is None else et.l2_extra_loss(l2))
     fn = et.make_fused_wide_epoch(m, opt, ll, shuffle=shuffle, epochs_per_call=epochs)
     perms = perms_for_epochs(shuffle, tensors, epochs,
                              generator=torch.Generator(device=device).manual_seed(seed))
@@ -1068,6 +1088,161 @@ def test_wide_masked_batch_under_a_statistic_loss_takes_no_step(cuda):
                                 n=1024, batch=128, epochs=1)
     assert int(got[1]["t"][0]) == 7  # 8 batches, the first without a target
     _assert_wide_close(got, ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(l2=0.5),
+    dict(l2=0.5, agg="mean", nan_frac=0.3, batch=300),                   # ragged last batch
+    dict(l2=1e-2, norm=True, hidden=(300, 200, 100), n=600, batch=64, epochs=1,
+         opt=("adam", 1e-3)),                                             # the tutorial's form
+    dict(l2=1e-2, opt=("lamb", 0.01), n=800),                             # lamb's two passes
+    dict(l2=0.5, hidden=(80,), loss="kgeLoss", agg="mean"),               # FMA layers only
+], ids=str)
+def test_wide_kernel_matches_plain_with_the_weight_l2(cuda, kw):
+    """The declarative weight-L2 extra_loss on kernel 3: the gradient term in
+    the update, the value from the update's sums of squares a step ahead."""
+    _, got, ref, fn = _wide_case(cuda, **kw)
+    assert fn.plan.l2 is not None
+    _assert_wide_close(got, ref)
+
+
+def _wide_members(cuda, *, kind, k=3, norm="static", hidden=(128, 64), batch=256, epochs=2,
+                  loss="mse", bf16=False):
+    """A kernel-3 member launch's inputs on the card: k members at 1,200
+    rows, batch ``batch``; a learning-rate sweep over shared data and one
+    permutation (a duplicate member), a seed ensemble of their own
+    permutations, or folds with a fold's rows and norm each."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    cols = et.rbq10_columns(1200, seed=4, nan_frac=0.1)
+    m = et.construct_hybrid_model(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=list(hidden),
+        activation="swish", scale_nn_outputs=True, input_batchnorm=norm, device=cuda,
+        compute_dtype=torch.bfloat16 if bf16 else None)
+    ll = et.LoggingLoss(training_loss=loss, loss_types=("mse",))
+    sweep, folds = kind == "sweep", kind == "folds"
+    specs = [("adam", {"learning_rate": lr}) for lr in (1e-3, 3e-3, 1e-3)[:k]] if sweep else None
+    fn = et.make_fused_wide_epoch(m, ("adam", 1e-3), ll, shuffle=True, epochs_per_call=epochs)
+    prepared = et.prepare_data(m, cols)
+    splits = ([prepared.take(np.arange(i, prepared.n_samples, k)[: prepared.n_samples // k])
+               for i in range(k)] if folds else [et.split_data(cols, m)[0]])
+    inits = [pop.init_member_params(m, 0 if sweep else s) for s in range(k)]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = []
+    for i in range(k):
+        et.fit_input_norm(m, splits[i % len(splits)])
+        buffers.append({n: b.detach().clone() for n, b in m.named_buffers()})
+    buffers = {n: torch.stack([b[n] for b in buffers]) for n in buffers[0]}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(m), params, buffers)
+    opt = pop._stacked_opt_state(packed, ("adam", 1e-3), k)
+    tensors = [epoch_tensors_to(et.build_epoch_tensors(s, batch), cuda) for s in splits]
+    data = fn.member_data(tensors if folds else tensors[0])
+    rows = fn.member_rows(data, k, per_member_data=folds,
+                          generator=torch.Generator(device=cuda).manual_seed(1),
+                          shared_perms=sweep)
+    return fn, packed, opt, data, rows, specs, tensors
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kind="sweep"),
+    dict(kind="ensemble", norm=True, hidden=(300, 100), batch=64, epochs=1),  # trainable norm
+    dict(kind="folds", loss="kgeLoss"),
+    dict(kind="ensemble", hidden=(80,), loss="rmse"),                         # FMA layers only
+    dict(kind="sweep", bf16=True),
+], ids=str)
+def test_wide_member_launch_matches_plain_and_each_member_alone(cuda, kw):
+    """K members in one call of kernel 3 within 1e-4 * max(1, |plain|) of the
+    member axis's plain version, every member bit for bit a call of it alone
+    (train()'s call at its spec, rows and data), the same bits twice, and
+    the member self-check. A bf16 build's members are held to their calls
+    alone and their second run only (against the plain version the bf16
+    builds' one-ulp criterion holds them, tests/test_torch_bf16.py)."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    fn, packed, opt, data, rows, specs, tensors = _wide_members(cuda, **kw)
+    before = fw.launch_fused_wide.launches
+    got = fn.members(packed, opt, data, rows, specs=specs)
+    torch.cuda.synchronize()
+    assert fw.launch_fused_wide.launches - before == 1
+    again = fn.members(packed, opt, data, rows, specs=specs)
+    ref = fw.fused_wide_members_reference(fn.plan, packed, opt, data, rows, specs=specs)
+    for a, b, r in zip((got[0].params, got[0].bn, *got[1].values(), got[2]),
+                       (again[0].params, again[0].bn, *again[1].values(), again[2]),
+                       (ref[0].params, ref[0].bn, *ref[1].values(), ref[2])):
+        assert torch.equal(a, b)
+        if not kw.get("bf16"):
+            a, r = a.float(), r.float()
+            assert bool(((a - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+    for i in range(packed.params.shape[0]):
+        p, o, loss = fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                              {k: v[i] for k, v in opt.items()}, data,
+                              rows[i] if rows.dim() == 3 else rows,
+                              None if specs is None else specs[i])
+        assert torch.equal(p.params, got[0].params[i]) and torch.equal(p.bn, got[0].bn[i])
+        assert all(torch.equal(o[k], got[1][k][i]) for k in o)
+        assert torch.equal(loss[0], got[2][i])
+    if kw["kind"] == "sweep":  # the duplicate member
+        assert torch.equal(got[0].params[0], got[0].params[2])
+    assert pop.member_selfcheck(fn, packed, opt, tensors if kw["kind"] == "folds" else tensors[0],
+                                specs=specs, per_member_data=kw["kind"] == "folds",
+                                shared_perms=kw["kind"] == "sweep") is None
+
+
+def test_a_one_member_wide_call_is_trains_call(cuda):
+    """A member call of one member (no member rows) gives train()'s call's
+    bits, and the argument struct carries the member axis's strides."""
+    fn, packed, opt, data, rows, _, _ = _wide_members(cuda, kind="ensemble", k=2)
+    one = fe.FusedParams(packed.params[:1].contiguous(), packed.bn[:1].contiguous())
+    one_opt = {k: v[:1].contiguous() for k, v in opt.items()}
+    got = fn.members(one, one_opt, data, rows[:1].contiguous())
+    p, o, loss = fn.alone(fe.FusedParams(packed.params[0], packed.bn[0]),
+                          {k: v[0] for k, v in opt.items()}, data, rows[0])
+    assert torch.equal(got[0].params[0], p.params) and torch.equal(got[2][0], loss[0])
+    a = fw.wide_launch_args(fn.plan, packed, opt, data, rows, 2).args
+    lay = fn.plan.layout(data.batch)
+    assert (a.n_members, a.ws_stride, a.part_stride) == (2, lay.ws_floats, lay.part_floats)
+    assert a.perm_stride == rows.shape[1] * rows.shape[2]
+
+
+def test_population_train_takes_the_wide_member_axis(cuda):
+    """A sweep, a bf16 seed ensemble and a fold split of a wide MLP through
+    the entry points: kernel 3's member axis behind its gate and self-check,
+    one launcher call per block for every member, no call waiting for the
+    device between the first block and the fetch; a population whose
+    members' workspaces exceed the card's share is refused with a reason."""
+    from easyhybrid_tpu_torch.training import deferred
+
+    cols = et.rbq10_columns(2000, seed=42)
+    spec = dict(
+        predictors=["sw_pot", "dsw_pot"], forcing=["ta"], targets=["reco"],
+        mechanistic_model=et.rbq10, parameters={"rb": (3.0, 0.0, 13.0), "Q10": (2.0, 1.0, 4.0)},
+        neural_param_names=["rb"], global_param_names=["Q10"], hidden_layers=[128, 64],
+        activation="swish", scale_nn_outputs=True, input_batchnorm="static")
+    m = et.construct_hybrid_model(**spec, generator=torch.Generator().manual_seed(0))
+    bf = et.construct_hybrid_model(**spec, compute_dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(0))
+    deferred.SYNC_DEBUG_MODE = "error"
+    try:
+        sweep = et.population_train(m, cols, hyper={"learning_rate": [0.003, 0.01, 0.03, 0.01]},
+                                    nepochs=10, batchsize=256, eval_every=5, seed=11)
+        ens = et.population_train(bf, cols, seeds=[0, 1, 2], nepochs=10, batchsize=256,
+                                  eval_every=5)
+        cv = et.population_cross_validate(m, cols, k=3, nepochs=10, batchsize=256, eval_every=5)
+    finally:
+        deferred.SYNC_DEBUG_MODE = 0
+    for r, calls in ((sweep, 2), (ens, 2), (cv, 2)):
+        assert r.epoch_path.endswith("_fused"), r.engine_reason
+        assert "member self-check passed" in r.engine_reason
+        assert r.kernel_launches == calls and np.isfinite(r.best_losses).all()
+    assert all(torch.equal(v[1], v[3]) for v in sweep.params.values())
+    tensors = epoch_tensors_to(et.build_epoch_tensors(et.split_data(cols, m)[0], 256), cuda)
+    ll = et.LoggingLoss()
+    assert fw.fused_wide_unsupported_reason(m, "adam", ll, tensors) is None
+    too_many = fw.fused_wide_unsupported_reason(m, "adam", ll, tensors, memory_bytes=10 ** 7,
+                                                members=64)
+    assert too_many is not None and "64 members' steps" in too_many
 
 
 def test_wide_tower_gradient_matches_plain(cuda):

@@ -226,7 +226,9 @@ def test_first_batch_fully_masked_keeps_adam_finite():
     ({}, "adam", et.LoggingLoss(training_loss=et.ElementwiseLoss(
         lambda yh, y: torch.sin(yh - y), name="sine")),
      "training loss 'sine' has no kernel form: operation torch.sin"),
-    ({}, "adam", et.LoggingLoss(extra_loss=et.l2_extra_loss()), "extra_loss"),
+    # the declarative weight-L2 trains on the kernel (tests/test_torch_fused_l2.py); an
+    # opaque extra_loss does not
+    ({}, "adam", et.LoggingLoss(extra_loss=lambda outputs, params: 0.0), "extra_loss"),
     ({}, "adam", et.LoggingLoss(agg=lambda xs: xs[0]), "agg"),
     ({"hidden_layers": [65]}, "adam", LL, "cap of 64"),
     ({"activation": torch.tanh}, "adam", LL, "activation"),
@@ -471,7 +473,8 @@ def test_smem_formula_matches_the_source():
         names = dict(F=f, P=p, G=g, K=k, T=t, NW=threads // 32, COLS=f + nf + 2 * t,
                      a_n_padded=n_padded, a_moments_shared=shared, a_n_params=n_params,
                      a_n_unit_table=table, a_tile_rows=threads, a_res_floats=res, a_stages=stages,
-                     a_loss_sst=int(loss in fe.TARGET_MOMENT_LOSSES), k=fe.LOSS_KINDS[loss], **kinds)
+                     a_loss_sst=int(loss in fe.TARGET_MOMENT_LOSSES), k=fe.LOSS_KINDS[loss],
+                     a_l2_leaves=int(rng.integers(0, 2)) * 0b1010, **kinds)
         names["LOSS"] = eval(amount, {"__builtins__": {}}, names) if eval(  # noqa: S307
             cond, {"__builtins__": {}}, names) else 0
         assert names["LOSS"] == fe._loss_floats(loss, threads // 32, t)
@@ -479,7 +482,7 @@ def test_smem_formula_matches_the_source():
         assert want == fe._smem_floats(
             n_padded=n_padded, n_params=n_params, f=f, p=p, g=g, k=k, t=t, n_forcing=nf,
             threads=threads, res=res, stages=stages, moments_shared=shared, n_unit_table=table,
-            loss_floats=fe._loss_floats(loss, threads // 32, t))
+            loss_floats=fe._loss_floats(loss, threads // 32, t), l2=names["a_l2_leaves"] != 0)
     caps = dict(re.findall(r"#define (EHE_N_STAMPS|EH_MAX_SMEM_BYTES) \(?([\d *]+)\)?", src
                            + CU_SOURCE.with_name("eh_device.cuh").read_text()))
     assert int(caps["EHE_N_STAMPS"]) == len(fe.STAGES) + 1

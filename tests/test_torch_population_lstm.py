@@ -203,11 +203,16 @@ def test_the_engine_reason_and_a_corrupted_member(monkeypatch):
 
 
 def test_a_wide_mlp_population_still_names_kernel_3s_missing_axis():
+    """Kernel 3's member axis is ported: a wide MLP's population takes it
+    (its plain version on the CPU), behind the gate and the self-check; only
+    kernel 4's split form is left to queue B item 5 (``_MEMBER_AXES``)."""
     _, tm = _pair(hidden=[80])
     r = et.population_train(tm, et.rbq10_columns(300, seed=2), hyper={"learning_rate": [0.01]},
                             nepochs=2, batchsize=64, eval_every=2, use_kernel=True)
-    assert r.epoch_path == "population_vmap"
-    assert "cuda_fused_wide" in r.engine_reason and "queue B, item 5" in r.engine_reason
+    assert r.epoch_path == "population_vmap_fused", r.engine_reason
+    assert r.engine_reason.endswith("+ member self-check passed")
+    assert pop._MEMBER_AXES["cuda_fused_wide"] == "kernel 3"
+    assert "cuda_fused_lstm_split" not in pop._MEMBER_AXES
 
 
 def test_tune_reaches_kernel_4_under_a_two_pass_loss():
