@@ -299,7 +299,22 @@ Phases, one or more lines each; any failure exits non-zero:
     (``l2_wide_main_paths``);
 50. times: kernel 3's member call of an epoch of the sweep at K = 1, 4, 8 and
     16 and the K = 8 call's plain version; the penalised epochs of kernels 2
-    and 3 beside the unpenalised ones, in turns (``l2_wide_times``).
+    and 3 beside the unpenalised ones, in turns (``l2_wide_times``);
+51. MultiNN branches on kernel 3: examples/expo_hybrid.py's model with two
+    tower branches (i) and two [128, 128] branches (ii) against its plain
+    version from identical parameters and permutations, each by its
+    gradient and under adamw by the Adam runs' criterion, (ii) under a
+    trainable norm, rmse, kgeLoss, lamb and the weight-L2 penalty, the bf16
+    build of (i), branches of 3 and 5 layers; each case twice to the same
+    bits (``mn_wide_checks``);
+52. main path: its ``train()`` with the branches of (i) and of (ii) on kernel
+    3, one launcher call an eval block, best val nseLoss within
+    ``MN_WIDE_BAND`` times the torch engine's (``mn_wide_main_paths``);
+53. main path: an 8-member learning-rate sweep of (ii) on kernel 3's member
+    axis, and a member call of its members, each bit for bit its call alone;
+54. times: the MultiNN epoch of (i) beside the single tower's at batch 256,
+    launches a step, its plain version, the ``torch.matmul`` yardstick
+    (``mn_wide_times``).
 
 Since the deferred loop, a ``train()`` that stops early has launched its
 kernel for the blocks queued before the host saw the stop as well; those
@@ -1541,14 +1556,17 @@ def wide_reference64(fn, packed, tensors, perms) -> dict:
 
 
 def wide_geometry_note(fn, batch) -> str:
-    """The plan's route, tile and pieces for each layer's products."""
+    """The plan's route, tile and pieces for each layer's products (each
+    branch's, named, in a MultiNN plan)."""
     from easyhybrid_tpu_torch.ops import fused_wide as fw
 
     notes = []
-    for l, geo in enumerate(fw.wide_geometry(fn.plan.dims, batch)):
-        prods = ", ".join(f"{what} {prod.bm}x{prod.bn}/{prod.splits}" for what, prod in
-                          (("fwd", geo.forward), ("data", geo.data), ("wgt", geo.weight)))
-        notes.append(f"L{l} {'TC' if geo.route == fw.TENSOR_CORES else 'FMA'} ({prods})")
+    for prefix, dims, _ in fn.plan.nets:
+        name = f"{prefix[4:]} " if len(fn.plan.nets) > 1 else ""
+        for l, geo in enumerate(fw.wide_geometry(dims, batch)):
+            prods = ", ".join(f"{what} {prod.bm}x{prod.bn}/{prod.splits}" for what, prod in
+                              (("fwd", geo.forward), ("data", geo.data), ("wgt", geo.weight)))
+            notes.append(f"{name}L{l} {'TC' if geo.route == fw.TENSOR_CORES else 'FMA'} ({prods})")
     return "; ".join(notes)
 
 
@@ -1557,82 +1575,88 @@ def wide_kernel_checks(et, train_cols, cases=None, tag="kernel3") -> float:
     ``wide_cases`` (or on ``cases``). The norm's running statistics are held
     within TOL_EPOCH x max(1, |ref|) under every criterion: they depend on the
     rows alone."""
-    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    worst = 0.0
+    for case in cases if cases is not None else wide_cases(et, train_cols):
+        what, fn, packed, tensors, perms = prepare_wide_case(et, **case)
+        worst = max(worst, hold_wide(tag, what, fn, packed, tensors, perms,
+                                     case.get("held", "strict")))
+    return worst
 
+
+def hold_wide(tag, what, fn, packed, tensors, perms, held) -> float:
+    """One case of kernel 3 against its plain version and against itself
+    (see ``wide_kernel_checks``); returns its largest difference."""
     def named(packed, opt_state, loss):
         return {"params": packed.params, "bn": packed.bn, **slots(opt_state),
                 "loss": loss.reshape(1)}
 
     worst = 0.0
-    for case in cases if cases is not None else wide_cases(et, train_cols):
-        held = case.get("held", "strict")
-        what, fn, packed, tensors, perms = prepare_wide_case(et, **case)
-        got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
-        torch.cuda.synchronize()
-        again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
-        ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
-        if not all(bool(torch.isfinite(v).all()) for v in got.values()):
-            raise AssertionError(f"{what}: the kernel returned non-finite values")
-        if not all(torch.equal(got[k], again[k]) for k in got):
-            raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
-        steps = int(got["t"][0])
-        if steps != int(ref["t"][0]):
-            raise AssertionError(f"{what}: {steps} steps counted, the plain version "
-                                 f"{int(ref['t'][0])}")
-        out, _, bn_err = beyond(got["bn"], ref["bn"], TOL_EPOCH)
-        if out:
-            raise AssertionError(f"{what}: {out} running statistics beyond {TOL_EPOCH} x max(1, "
-                                 f"|ref|) (max |diff| {bn_err:.3e})")
-        if fn.plan.norm_mode == 2:
-            if torch.equal(got["bn"], packed.bn):
-                raise AssertionError(f"{what}: the running statistics did not move")
-            log(tag, f"{what}: running statistics max |diff| {bn_err:.3e} (ok)")
-        if held == "bf16-gradient":
-            worst = max(worst, bf16_gradient_held(what, got, ref, packed,
-                                                  dict(fn.plan.hyper)["learning_rate"], tag))
-        elif held == "bf16-run":
-            worst = max(worst, bf16_run_held(what, got, ref, tag, f"{steps} steps"))
-        elif held == "gradient":
-            lr = dict(fn.plan.hyper)["learning_rate"]
-            g_got, g_ref = (packed.params - got["params"]) / lr, (packed.params - ref["params"]) / lr
-            err = compare({"gradient": g_got, "loss": got["loss"]},
-                          {"gradient": g_ref, "loss": ref["loss"]}, what, TOL_EPOCH)
+    got = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    torch.cuda.synchronize()
+    again = named(*fn(packed, fresh_state(fn, packed), tensors, perms=perms))
+    ref = named(*fn.reference(packed, fresh_state(fn, packed), tensors, perms=perms))
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise AssertionError(f"{what}: the kernel returned non-finite values")
+    if not all(torch.equal(got[k], again[k]) for k in got):
+        raise AssertionError(f"{what}: a second run from the same inputs gave other bits")
+    steps = int(got["t"][0])
+    if steps != int(ref["t"][0]):
+        raise AssertionError(f"{what}: {steps} steps counted, the plain version "
+                             f"{int(ref['t'][0])}")
+    out, _, bn_err = beyond(got["bn"], ref["bn"], TOL_EPOCH)
+    if out:
+        raise AssertionError(f"{what}: {out} running statistics beyond {TOL_EPOCH} x max(1, "
+                             f"|ref|) (max |diff| {bn_err:.3e})")
+    if fn.plan.norm_mode == 2:
+        if torch.equal(got["bn"], packed.bn):
+            raise AssertionError(f"{what}: the running statistics did not move")
+        log(tag, f"{what}: running statistics max |diff| {bn_err:.3e} (ok)")
+    if held == "bf16-gradient":
+        worst = max(worst, bf16_gradient_held(what, got, ref, packed,
+                                              dict(fn.plan.hyper)["learning_rate"], tag))
+    elif held == "bf16-run":
+        worst = max(worst, bf16_run_held(what, got, ref, tag, f"{steps} steps"))
+    elif held == "gradient":
+        lr = dict(fn.plan.hyper)["learning_rate"]
+        g_got, g_ref = (packed.params - got["params"]) / lr, (packed.params - ref["params"]) / lr
+        err = compare({"gradient": g_got, "loss": got["loss"]},
+                      {"gradient": g_ref, "loss": ref["loss"]}, what, TOL_EPOCH)
+        worst = max(worst, err)
+        log(tag, f"{what}: implied gradient of {g_ref.numel()} elements, largest "
+                       f"|g| {float(g_ref.abs().max()):.3e}, max |diff| {err:.3e} within "
+                       f"{TOL_EPOCH} x max(1, |g|) on every element, second run bitwise "
+                       f"equal (ok)")
+    elif held == "adam":
+        lr = dict(fn.plan.hyper)["learning_rate"]
+        ref64 = wide_reference64(fn, packed, tensors, perms)
+        plain_note, plain_misses, _ = adam_misses(ref, ref64, lr)
+        against = {"float64": ref64} if plain_misses else {"float32": ref, "float64": ref64}
+        notes = []
+        for name, r in against.items():
+            note, misses, err = adam_misses(got, r, lr)
+            notes.append(f"the kernel against the plain version in {name}: {note}")
+            if misses:
+                raise AssertionError(f"{what}: {notes[-1]}: " + "; ".join(misses))
             worst = max(worst, err)
-            log(tag, f"{what}: implied gradient of {g_ref.numel()} elements, largest "
-                           f"|g| {float(g_ref.abs().max()):.3e}, max |diff| {err:.3e} within "
-                           f"{TOL_EPOCH} x max(1, |g|) on every element, second run bitwise "
-                           f"equal (ok)")
-        elif held == "adam":
-            lr = dict(fn.plan.hyper)["learning_rate"]
-            ref64 = wide_reference64(fn, packed, tensors, perms)
-            plain_note, plain_misses, _ = adam_misses(ref, ref64, lr)
-            against = {"float64": ref64} if plain_misses else {"float32": ref, "float64": ref64}
-            notes = []
-            for name, r in against.items():
-                note, misses, err = adam_misses(got, r, lr)
-                notes.append(f"the kernel against the plain version in {name}: {note}")
-                if misses:
-                    raise AssertionError(f"{what}: {notes[-1]}: " + "; ".join(misses))
-                worst = max(worst, err)
-            if plain_misses:
-                note = adam_misses(got, ref, lr)[0]
-                notes.append(f"the kernel against the plain version in float32 (no reference "
-                             f"here): {note}")
-            log(tag, f"{what}: {steps} steps; " + "; ".join(notes) + "; the plain version "
-                           f"in float32 against float64: {plain_note}"
-                           + (f" (misses the criterion: {'; '.join(plain_misses)})"
-                              if plain_misses else "") + f"; criterion: at most "
-                           f"{WIDE_ADAM_SHARE:.0%} of the elements beyond {TOL_EPOCH} x max(1, "
-                           f"|ref|), no parameter more than 2 lr apart, the loss within "
-                           f"{WIDE_LOSS_TOL} x max(1, |ref|); second run bitwise equal (ok)")
-        else:
-            err = compare(got, ref, what, TOL_EPOCH)
-            worst = max(worst, err)
-            log(tag, f"{what}: {steps} steps, max |diff| {err:.3e}, second run bitwise "
-                      "equal (ok)")
-        log(tag, f"{what}: products {wide_geometry_note(fn, int(tensors.weight.shape[1]))}")
-        if "fully masked" in what and steps != 7:
-            raise AssertionError(f"{what}: {steps} steps counted, not 7")
+        if plain_misses:
+            note = adam_misses(got, ref, lr)[0]
+            notes.append(f"the kernel against the plain version in float32 (no reference "
+                         f"here): {note}")
+        log(tag, f"{what}: {steps} steps; " + "; ".join(notes) + "; the plain version "
+                       f"in float32 against float64: {plain_note}"
+                       + (f" (misses the criterion: {'; '.join(plain_misses)})"
+                          if plain_misses else "") + f"; criterion: at most "
+                       f"{WIDE_ADAM_SHARE:.0%} of the elements beyond {TOL_EPOCH} x max(1, "
+                       f"|ref|), no parameter more than 2 lr apart, the loss within "
+                       f"{WIDE_LOSS_TOL} x max(1, |ref|); second run bitwise equal (ok)")
+    else:
+        err = compare(got, ref, what, TOL_EPOCH)
+        worst = max(worst, err)
+        log(tag, f"{what}: {steps} steps, max |diff| {err:.3e}, second run bitwise "
+                  "equal (ok)")
+    log(tag, f"{what}: products {wide_geometry_note(fn, int(tensors.weight.shape[1]))}")
+    if "fully masked" in what and steps != 7:
+        raise AssertionError(f"{what}: {steps} steps counted, not 7")
     return worst
 
 
@@ -2017,7 +2041,9 @@ BF16 = dict(compute_dtype=torch.bfloat16)
 # for kernel 2's build of several networks
 BF16_BUILDS = (("fused_forward.cu", None, 16), ("fused_forward.cu", None, 64),
                ("fused_epoch.cu", None, 16), ("fused_wide.cu", None, None),
-               ("fused_epoch_multinn.cu", "expo", 16))
+               ("fused_epoch_multinn.cu", "expo", 16),
+               # phase 51's bf16 ExpoHybrid towers on kernel 3
+               ("fused_wide.cu", "expo", None))
 # A bf16 value sits between two bf16 neighbours: where the kernel's float32 sum
 # and the plain version's, taken in other orders, straddle a rounding boundary,
 # the two round to neighbours one bf16 ulp (2^-8 relative) apart
@@ -2058,7 +2084,8 @@ def start_bf16_builds(pool, forms) -> dict:
     from easyhybrid_tpu_torch.ops import _build
     from easyhybrid_tpu_torch.ops.fused_forward import KERNEL_FORMS
 
-    return {f"{src}" + (f" at width {width}" if width else ""):
+    return {f"{src}" + (f" at width {width}" if width else "")
+            + (f" against the {key} form" if key and src == "fused_wide.cu" else ""):
             pool.submit(_build.form_build, src, forms[key] if key else KERNEL_FORMS["rbq10"],
                         *_build.bf16_defines(width))
             for src, key, width in BF16_BUILDS}
@@ -5708,6 +5735,234 @@ def wide_epoch_ops(dims, nb, batch, n_params, l2_count=0) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phases 51-54: MultiNN branches on kernel 3
+# ---------------------------------------------------------------------------
+
+# examples/expo_hybrid.py:40-67's model (rb from sw_pot, k from moisture, swish,
+# scale_nn_outputs, static norm, adamw 0.01, nseLoss, batch 256, make_data(2000)
+# as phase 26 builds it) with both branches past kernel 2's widths: (i) the GPU
+# tutorial's tower (SURVEY.md:404) and (ii) the first widths past kernel 2's cap
+MN_WIDE = {"(i) tower": WIDE_HIDDEN, "(ii) [128, 128]": (128, 128)}
+MN_WIDE_BATCH = 256
+MN_WIDE_KW = dict(nepochs=20, batchsize=MN_WIDE_BATCH, optimizer=("adamw", 0.01),
+                  training_loss="nseLoss", loss_types=["nseLoss", "mse"], show_progress=False)
+MN_WIDE_BAND = 3.0  # best val nseLoss within 3x the torch engine's, as the tutorial's limits
+MN_WIDE_POP_KW = dict(optimizer="adamw", nepochs=20, batchsize=MN_WIDE_BATCH, eval_every=5,
+                      seed=11, data_seed=0, training_loss="nseLoss", loss_types=["nseLoss", "mse"],
+                      hyper={"learning_rate": WIDE_POP_LRS})
+
+
+def mn_wide_model(mn, hidden, **kw):
+    """ExpoHybrid with both branches at ``hidden`` (or a dict of each's)."""
+    return mn["expo"](hidden=hidden, **kw)
+
+
+def mn_wide_checks(et, mn) -> float:
+    """Phase 51: kernel 3 on the ExpoHybrid model's two branches against its
+    plain version on the card from identical parameters and permutations,
+    and against itself on a second run (``hold_wide``), on the example's 1,600
+    training rows at batch 256: (i) and (ii) each by its gradient (one sgd
+    step at 1e-3, within TOL_EPOCH), then under adamw for two epochs (14
+    steps) by the Adam runs' criterion; (ii) under a trainable norm, rmse and
+    kgeLoss (the two-pass head), lamb and l2_extra_loss(1e-4); the bf16 build
+    of (i) by its gradient and by a run of sgd (one bf16 ulp on at most 0.1%
+    of the elements); a branch of 3 layers beside one of 5."""
+    cols = expo_columns(EXPO_ROWS, seed=0)
+    tower, mid = MN_WIDE["(i) tower"], MN_WIDE["(ii) [128, 128]"]
+    unequal = {"rb": [128, 128], "k": [128, 128, 128, 128]}
+    sgd = dict(opt=("sgd", 1e-3), shuffle=False, epochs=1)
+    adamw = dict(opt=("adamw", 0.01), shuffle=True, epochs=2)
+    cases = [
+        ("(i) the gradient: one sgd step at 1e-3 over the first 256 rows", tower, "gradient",
+         dict(rows=MN_WIDE_BATCH, **sgd)),
+        ("(i) adamw, shuffled, 2 epochs", tower, "adam", adamw),
+        ("(ii) the gradient: one sgd step at 1e-3 over the first 256 rows", mid, "gradient",
+         dict(rows=MN_WIDE_BATCH, **sgd)),
+        ("(ii) adamw, shuffled, 2 epochs", mid, "adam", adamw),
+        ("(ii) trainable norm, adamw, 2 epochs", mid, "adam", dict(norm=True, **adamw)),
+        ("(ii) rmse, adamw, 2 epochs", mid, "adam", dict(loss="rmse", **adamw)),
+        ("(ii) kgeLoss, adamw, 2 epochs", mid, "adam", dict(loss="kgeLoss", **adamw)),
+        ("(ii) lamb 0.01, 2 epochs", mid, "adam", {**adamw, "opt": ("lamb", 0.01)}),
+        (f"(ii) l2_extra_loss(scale={L2_SCALE}), adamw, 2 epochs", mid, "adam",
+         dict(extra_loss=et.l2_extra_loss(scale=L2_SCALE), **adamw)),
+        ("(i) bf16, the gradient: one sgd step at 1e-3 over the first 256 rows", tower,
+         "bf16-gradient", dict(rows=MN_WIDE_BATCH, dtype=torch.bfloat16, **sgd)),
+        ("(i) bf16, sgd 1e-3, shuffled, 2 epochs", tower, "bf16-run",
+         dict(dtype=torch.bfloat16, **{**sgd, "shuffle": True, "epochs": 2})),
+        ("branches of 3 and 5 layers, the gradient", unequal, "gradient",
+         dict(rows=MN_WIDE_BATCH, **sgd)),
+        ("branches of 3 and 5 layers, adamw, 2 epochs", unequal, "adam", adamw),
+    ]
+    worst = 0.0
+    for what, hidden, held, kw in cases:
+        kw = dict(kw)
+        rows, norm, dtype = kw.pop("rows", None), kw.pop("norm", "static"), kw.pop("dtype", None)
+        m = mn_wide_model(mn, hidden, norm=norm, **({} if dtype is None else {"compute_dtype": dtype}))
+        data = et.split_data(cols, m)[0]
+        if rows is not None:
+            data = data.take(np.arange(rows))
+        fn, packed, tensors, perms = epoch_inputs(et, m, data, make=et.make_fused_wide_epoch,
+                                                  batch=MN_WIDE_BATCH, **{"loss": "nseLoss", **kw})
+        nets = ", ".join(f"{prefix[4:]} {list(dims)}" for prefix, dims, _ in fn.plan.nets)
+        worst = max(worst, hold_wide("kernel3-multinn", f"kernel 3, MultiNN {what} ({nets})", fn,
+                                     packed, tensors, perms, held))
+    return worst
+
+
+def mn_wide_main_paths(et, card, mn) -> dict:
+    """Phases 52-53, this slice's main paths: (b) examples/expo_hybrid.py's run
+    through ``train()`` with the branches of (i) and of (ii), on models built
+    without ``device=``: each must take ``"cuda_fused_wide"`` after its gate,
+    one launcher call an eval block, and reach a best val nseLoss within
+    ``MN_WIDE_BAND`` times the torch engine's on the same data and epochs;
+    (c) an 8-member learning-rate sweep of (ii) (``geomspace(1e-3, 1e-2)``,
+    20 epochs at ``eval_every=5``) on kernel 3's member axis, one launcher call
+    a block, and a member call of its 8 members, each against its plain
+    version (by the Adam runs' criterion) and bit for bit its call alone."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+    from easyhybrid_tpu_torch.ops import fused_wide as fw
+
+    cols = expo_columns(EXPO_ROWS, seed=0)
+    out = {}
+    for key, hidden in MN_WIDE.items():
+        what = f"(b) ExpoHybrid train(), branches {key}"
+        run = loss_train(et, what, mn_wide_model(mn, hidden), cols, fw.launch_fused_wide,
+                         "cuda_fused_wide", MN_WIDE_KW)
+        result = run["result"]
+        t0 = time.perf_counter()
+        torch_result = et.train(mn_wide_model(mn, hidden), cols, use_kernel=False, **MN_WIDE_KW)
+        torch.cuda.synchronize()
+        torch_wall = time.perf_counter() - t0
+        steps = int(result.opt_state["t"][0])
+        n_batches = -(-(EXPO_ROWS * 4 // 5) // MN_WIDE_BATCH)
+        if torch_result.epoch_path != "torch" or steps != MN_WIDE_KW["nepochs"] * n_batches:
+            raise AssertionError(f"{what}: {steps} steps; use_kernel=False took "
+                                 f"{torch_result.epoch_path!r}")
+        if not result.best_loss <= MN_WIDE_BAND * torch_result.best_loss:
+            raise AssertionError(f"{what}: best val nseLoss {result.best_loss:.5f}, beyond "
+                                 f"{MN_WIDE_BAND}x the torch engine's {torch_result.best_loss:.5f}")
+        log("main", f"[{card}] {what}: {steps} steps, best val nseLoss {result.best_loss:.5f} at "
+                    f"epoch {result.best_epoch} (the torch engine's {torch_result.best_loss:.5f} at "
+                    f"epoch {torch_result.best_epoch}, limit {MN_WIDE_BAND}x); wall "
+                    f"{run['wall']:.2f} s fused (gate included), {torch_wall:.2f} s on torch (ok)")
+        out[key] = dict(launches=run["launches"], wall=run["wall"], torch_wall=torch_wall,
+                        best=result.best_loss, torch_best=torch_result.best_loss)
+
+    what = "(c) the 8-member sweep of (ii), geomspace(1e-3, 1e-2), adamw, nseLoss"
+    model = mn_wide_model(mn, MN_WIDE["(ii) [128, 128]"])
+    blocks = MN_WIDE_POP_KW["nepochs"] // MN_WIDE_POP_KW["eval_every"]
+    result, wall, launches = wide_population_run(et, model, cols, **MN_WIDE_POP_KW)
+    if (result.epoch_path != "population_vmap_fused" or result.kernel_launches != blocks
+            or not np.isfinite(result.best_losses).all()):
+        raise AssertionError(f"{what} took {result.epoch_path!r} ({result.engine_reason}) in "
+                             f"{result.kernel_launches} calls, not {blocks}; best losses "
+                             f"{result.best_losses}")
+    log("main", f"[{card}] MultiNN population, {what}: {result.epoch_path} "
+                f"({result.engine_reason}), {result.kernel_launches} launcher calls for {blocks} "
+                f"blocks ({launches} with the gate's and the self-check's); best {result.monitor} "
+                "by member " + ", ".join(f"{v:.5f}" for v in result.best_losses)
+                + f"; first call {wall:.2f} s; no synchronising call (ok)")
+    out["sweep"] = dict(launches=result.kernel_launches, wall=wall)
+
+    k = len(WIDE_POP_LRS)
+    specs = [("adamw", {"learning_rate": lr}) for lr in WIDE_POP_LRS]
+    fn, packed, opt0, data = member_inputs(et, model, et.split_data(cols, model)[0],
+                                           opt=("adamw", 0.01), seeds=list(range(k)),
+                                           batch=MN_WIDE_BATCH, epochs=1, loss="nseLoss",
+                                           make=et.make_fused_wide_epoch)
+    rows = fn.member_rows(data, k, per_member_data=False,
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+    got = fn.members(packed, opt0, data, rows, specs=specs)
+    ref = fw.fused_wide_members_reference(fn.plan, packed, opt0, data, rows, specs=specs)
+    worst = 0.0
+    for i in range(k):
+        note, misses, err = adam_misses(member_fields(got, i), member_fields(ref, i),
+                                        specs[i][1]["learning_rate"])
+        if misses:
+            raise AssertionError(f"{what}, member {i} against the plain version: {note}: "
+                                 + "; ".join(misses))
+        worst = max(worst, err)
+        alone = member_fields(fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                                       {n: v[i] for n, v in opt0.items()}, data, rows, specs[i]))
+        mine = member_fields(got, i)
+        if not all(torch.equal(mine[f].reshape(alone[f].shape), alone[f]) for f in alone):
+            raise AssertionError(f"{what}: member {i} differs from a call of it alone")
+    log("kernel3-multinn", f"{what}: a member call of its {k} members, an epoch: each against the "
+                           f"plain version by the Adam runs' criterion (max |diff| {worst:.3e}) and "
+                           "bit for bit its call alone (ok)")
+    out["member_err"] = worst
+    return out
+
+
+def mn_wide_times(et, card, mn, tutorial_cols) -> dict:
+    """Phase 54, in one call and in turns: kernel 3's epoch of the ExpoHybrid
+    model with the tower's branches (i) (the example's 1,600 training rows, 7
+    steps of 256, adamw, nseLoss) beside the single-tower tutorial's epoch at
+    the same batch (its 4,000 training rows, 16 steps of 256, adamw, nseLoss),
+    each by the sum of its kernels' durations; launches a step and each
+    kernel's time a step (the profiler's records of kernel 3's kernels over
+    one epoch); the MultiNN epoch's plain
+    version; the ``torch.matmul`` yardstick of its steps' products; its
+    bound."""
+    from easyhybrid_tpu_torch.ops import fused_epoch as fe
+
+    cols = expo_columns(EXPO_ROWS, seed=0)
+    m = mn_wide_model(mn, MN_WIDE["(i) tower"])
+    fn, packed, tensors, perms = epoch_inputs(
+        et, m, et.split_data(cols, m)[0], make=et.make_fused_wide_epoch, opt=("adamw", 0.01),
+        batch=MN_WIDE_BATCH, epochs=1, shuffle=True, loss="nseLoss")
+    tutorial = {k: v[: TUTORIAL_ROWS * 4 // 5] for k, v in tutorial_cols.items()}
+    _, tfn, tpacked, ttensors, tperms = prepare_epoch_case(
+        et, fe, what="", cols=tutorial, hidden=WIDE_HIDDEN, act="swish", norm="static",
+        opt=("adamw", 0.01), shuffle=True, epochs=1, batch=MN_WIDE_BATCH, seed=0,
+        make=et.make_fused_wide_epoch, loss="nseLoss")
+    opt0, topt0 = fresh_state(fn, packed), fresh_state(tfn, tpacked)
+    calls = {"MultiNN": lambda: fn(packed, opt0, tensors, perms=perms),
+             "tower": lambda: tfn(tpacked, topt0, ttensors, perms=tperms)}
+    steps = {"MultiNN": int(tensors.weight.shape[0]), "tower": int(ttensors.weight.shape[0])}
+    for f in calls.values():
+        host_ms(f, 2)
+    samples = {k: [] for k in calls}
+    for i in range(5):
+        for k in (list(calls) if i % 2 == 0 else list(reversed(list(calls)))):
+            samples[k].append(kernel_device_ms(calls[k], 1, "eh_wide"))
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    events = {k: profiled_averages(calls[k], 1, "eh_wide") for k in calls}
+    launches = {k: sum(e.count for e in events[k]) / steps[k] for k in calls}
+    for k in calls:  # where a step's time goes, kernel by kernel
+        split = sorted(events[k], key=lambda e: -e.self_device_time_total)
+        log("times", f"[{card}] kernel 3, a step of the {k} epoch by kernel (one profiled "
+                     "epoch): " + "; ".join(f"{e.key} x{e.count / steps[k]:.1f} "
+                                            f"{e.self_device_time_total / steps[k]:.2f} us"
+                                            for e in split))
+    plain = profiled_device_ms(lambda: fn.reference(packed, opt0, tensors, perms=perms), 1)
+    yard = {"float32": 0.0, "tf32": 0.0}
+    for dims in fn.plan.net_dims:
+        for name, v in wide_matmul_yardstick(dims, MN_WIDE_BATCH).items():
+            yard[name] += v
+    nb = steps["MultiNN"]
+    flops = sum(forward_flops(dims) for dims in fn.plan.net_dims)
+    b = bound(bytes_moved=nb * (MN_WIDE_BATCH * 4 * 6 + fn.plan.n_params * 4 * 6),
+              tf32_flops=3 * nb * MN_WIDE_BATCH * 3 * flops)
+    per_step = {k: ms[k] / steps[k] for k in ms}
+    log("times", f"[{card}] kernel 3, median of 5 in turns, the sum of its kernels' durations: "
+                 f"the MultiNN epoch (two towers {list(WIDE_HIDDEN)}, {nb} steps of "
+                 f"{MN_WIDE_BATCH}) {ms['MultiNN']:.4f} ms ({per_step['MultiNN']:.4f} a step, "
+                 f"{launches['MultiNN']:.1f} launches a step); the single tower's "
+                 f"({steps['tower']} steps of {MN_WIDE_BATCH}) {ms['tower']:.4f} ms "
+                 f"({per_step['tower']:.4f} a step, {launches['tower']:.1f} launches a step); a "
+                 f"MultiNN step {per_step['MultiNN'] / per_step['tower']:.2f}x a tower's; the "
+                 f"MultiNN plain version {plain:.2f} ms (profiler); its steps' products through "
+                 f"torch.matmul (a yardstick): float32 {nb * yard['float32']:.4f} ms, TF32 "
+                 f"{nb * yard['tf32']:.4f} ms an epoch; bound {b['bound_ms']:.5f} ms by "
+                 f"{b['bound_by']}")
+    log("times", f"[{card}] kernel 3, the MultiNN epoch: products "
+                 f"{wide_geometry_note(fn, MN_WIDE_BATCH)}")
+    return dict(ms=ms["MultiNN"], tower_ms=ms["tower"], plain_ms=plain, bound=b,
+                library_ms=nb * yard["float32"], launches_per_step=launches)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # 1. device ---------------------------------------------------------------
@@ -6094,6 +6349,16 @@ def main() -> None:
     l2_ms = l2_wide_times(et, card, quick_cols, wide_cols, tutorial_cols)
     log("l2-members", f"phases 48-50 added {time.perf_counter() - t0:.1f} s to the run (48 "
                       f"{t1 - t0:.1f} s, 49 {t2 - t1:.1f} s, 50 {time.perf_counter() - t2:.1f} s)")
+    # 51-54. MultiNN branches on kernel 3
+    t0 = time.perf_counter()
+    mn_wide_err = mn_wide_checks(et, mn)
+    t1 = time.perf_counter()
+    mn_wide_main = mn_wide_main_paths(et, card, mn)
+    t2 = time.perf_counter()
+    mn_wide_ms = mn_wide_times(et, card, mn, tutorial_cols)
+    log("kernel3-multinn", f"phases 51-54 added {time.perf_counter() - t0:.1f} s to the run (51 "
+                           f"{t1 - t0:.1f} s, 52-53 {t2 - t1:.1f} s, 54 "
+                           f"{time.perf_counter() - t2:.1f} s)")
     base_bounds = {
         "fused_epoch": bound(bytes_moved=steps * tensors.weight.shape[1] * 4 * 6,
                              flops=steps * tensors.weight.shape[1] * 3 * forward_flops(quick_dims)),
@@ -6210,6 +6475,24 @@ def main() -> None:
         "members": 8,
         "k1_ms": l2_ms["k_ms"][1],
         "k16_ms": l2_ms["k_ms"][16],
+    }
+    mn_wide_entry = {
+        "name": "fused_wide [MultiNN]",
+        "route": "cuda",
+        "source": "easyhybrid_tpu_torch/csrc/fused_wide.cu",
+        # kernel_body_elem's and kernel_body's branches (fused_epoch.py:1582-1591, :1682-1689,
+        # :1304-1315, :1497-1530; the branch view :1229-1260)
+        "replaces": "easyhybrid_tpu/ops/fused_epoch.py:2662",
+        "launches": mn_wide_main["(i) tower"]["launches"],  # phase 52's train() of (i)
+        "max_abs_err": max(mn_wide_err, mn_wide_main["member_err"]),
+        "ms": mn_wide_ms["ms"],  # one epoch of (i): 7 steps of 256
+        "plain_ms": mn_wide_ms["plain_ms"],
+        **mn_wide_ms["bound"],
+        # no single PyTorch call computes the step: its products through torch.matmul
+        "library_ms": mn_wide_ms["library_ms"],
+        "tower_ms": mn_wide_ms["tower_ms"],  # the single tower's epoch at batch 256, same call
+        "launches_128": mn_wide_main["(ii) [128, 128]"]["launches"],
+        "sweep_launches": mn_wide_main["sweep"]["launches"],
     }
     log("smoke", f"the whole run {time.perf_counter() - t_start:.1f} s, of which the library's "
                  f"build {built.seconds:.1f} s and the traced builds' {traced_build_s:.1f} s of "
@@ -6420,7 +6703,7 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the step
         "members": len(MS_ENSEMBLE_KW["seeds"]),
         "k1_ms": ms_pop["k1_ms"],
-    }, *stats_entries, *bf16_entries, *l2_entries, wide_members_entry]}))
+    }, *stats_entries, *bf16_entries, *l2_entries, wide_members_entry, mn_wide_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

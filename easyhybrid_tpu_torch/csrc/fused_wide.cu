@@ -87,6 +87,23 @@
 // 0.064 ms a step; in 3xTF32 on the tensor cores (495 TFLOP/s, three products
 // each) 0.026 ms a step, 0.416 ms an epoch of 16 steps.
 //
+// The branch view (a MultiNN model: the JAX kernel's branches, kernel_body at
+// easyhybrid_tpu/ops/fused_epoch.py:1304-1315, :1497-1530, kernel_body_elem
+// at :1582-1591, :1682-1689, the branch view built at :1229-1260): 1 to
+// EH_MAX_NETS single-output MLPs, one a neural parameter, each over its own
+// predictor columns. The layers of every branch form one list (layer_net[l]
+// its branch; branch b's widths at dims[net_first[b] + b]), so the branch
+// count is a runtime field and one build takes any. The gather writes every
+// branch's normed columns side by side (batch x n_features), and a branch's
+// first layer reads its own columns there (rows n_features apart); the
+// forward products run branch after branch, the head reads each neural
+// output from its branch's last layer and writes its cotangent there, and
+// each branch's backward runs from its last layer to its first, whose data
+// gradient (with a norm) fills the branch's columns of the norm's cotangent.
+// The norm's gradient sums over every column and the update walks every
+// branch's leaves. One network is the one branch, with the launches, tiles
+// and orders it had before the branches.
+//
 // The member axis (population training, replacing the JAX kernel under
 // jax.vmap in easyhybrid_tpu/training/population.py:215-285): one call trains
 // n_members models side by side, each of a step's launches over all of them.
@@ -143,6 +160,7 @@
 #include <utility>
 
 #define EH_WIDE_MAX_WIDTH 4096
+#define EHW_MAX_LAYERS 20      // the layers of every branch together: two leaves each, EH_MAX_LEAVES
 #define EHW_TILE 64
 #define EHW_BK 16
 #define EHW_LD (EHW_TILE + 4)  // row stride of a shared tile: keeps float4 reads aligned
@@ -156,7 +174,7 @@
 // Mirrored field by field by _Args in easyhybrid_tpu_torch/ops/fused_wide.py;
 // eh_fused_wide_args_size() lets the wrapper check the two agree.
 struct EhFusedWideArgs {
-  const float* x;                        // (n_rows, dims[0]) row-major
+  const float* x;                        // (n_rows, n_features) row-major: every branch's columns
   const float* forcing[EH_MAX_FORCING];  // (n_rows) each
   const float* y[EH_MAX_TARGETS];        // (n_rows) each, 0 where masked
   const float* mask[EH_MAX_TARGETS];     // (n_rows) each, 0 or 1
@@ -168,7 +186,7 @@ struct EhFusedWideArgs {
   float* m;                              // first moments, like params, in place
   float* v;                              // second moments, like params, in place
   float* u;                              // amsgrad's third slot, like params (else unused)
-  float* bn;                             // running mean, var (2 dims[0]); a trainable norm's in place
+  float* bn;                             // running mean, var (2 n_features); a trainable norm's in place
   const float* consts;                   // neural lo, span; global lo, span; fixed
   float* ws;                             // one step's activations (ws_off_*)
   float* partials;                       // weight-gradient partial tiles (part_off*)
@@ -176,27 +194,27 @@ struct EhFusedWideArgs {
   float* epoch_loss;                     // (n_epochs) sum of valid batch losses, zero on entry
   float* lamb_parts;                     // lamb: (update blocks, 2 n_leaves) scratch, else unused
   int64_t n_rows;
-  int64_t ws_off_h0;                     // (batch, dims[0]) the first layer's input
-  int64_t ws_off_xhat;                   // (batch, dims[0]) normed input, with a norm
-  int64_t ws_off_d0;                     // (batch, dims[0]) its cotangent, with a norm
-  int64_t ws_off_a[EH_MAX_LAYERS];       // (batch, dims[l + 1]) layer l's output
-  int64_t ws_off_d[EH_MAX_LAYERS];       // (batch, dims[l + 1]) act'(z), then dZ
-  int64_t part_off[EH_MAX_LAYERS];       // layer l: splits[l] tiles of [dW (dout x din), db]
+  int64_t ws_off_h0;                     // (batch, n_features) the first layers' input
+  int64_t ws_off_xhat;                   // (batch, n_features) normed input, with a norm
+  int64_t ws_off_d0;                     // (batch, n_features) its cotangent, with a norm
+  int64_t ws_off_a[EHW_MAX_LAYERS];      // (batch, dout) layer l's output (din, dout: ehw_din)
+  int64_t ws_off_d[EHW_MAX_LAYERS];      // (batch, dout) act'(z), then dZ
+  int64_t part_off[EHW_MAX_LAYERS];      // layer l: splits[l] tiles of [dW (dout x din), db]
   int64_t part_off_norm;                 // norm_splits rows of [dscale, dbias]
-  int64_t ws_off_ht[EH_MAX_LAYERS];      // (dims[l], batch) layer l's input, feature-major (tc[l])
-  int64_t ws_off_dt[EH_MAX_LAYERS];      // (dims[l + 1], batch) layer l's dZ, feature-major (tc[l])
-  int64_t ws_off_wt[EH_MAX_LAYERS];      // (dims[l], dims[l + 1]) layer l's W transposed (tc[l])
+  int64_t ws_off_ht[EHW_MAX_LAYERS];     // (din, batch) layer l's input, feature-major (tc[l])
+  int64_t ws_off_dt[EHW_MAX_LAYERS];     // (dout, batch) layer l's dZ, feature-major (tc[l])
+  int64_t ws_off_wt[EHW_MAX_LAYERS];     // (din, dout) layer l's W transposed (tc[l])
   int n_epochs;
   int n_batches;
   int batch;
-  int n_layers;
-  int dims[EH_MAX_LAYERS + 1];
-  int acts[EH_MAX_LAYERS];
+  int n_layers;                          // every branch's layers, in turn
+  int dims[EHW_MAX_LAYERS + EH_MAX_NETS];  // each branch's widths: branch b's from net_first[b] + b
+  int acts[EHW_MAX_LAYERS];
   int norm_mode;                         // NORM_NONE, NORM_STATIC, NORM_TRAIN
   float norm_eps;
   int n_params;
-  int p_off_w[EH_MAX_LAYERS];
-  int p_off_b[EH_MAX_LAYERS];
+  int p_off_w[EHW_MAX_LAYERS];
+  int p_off_b[EHW_MAX_LAYERS];
   int p_off_g;
   int n_globals;
   int n_fixed;
@@ -210,26 +228,26 @@ struct EhFusedWideArgs {
   int target_out[EH_MAX_TARGETS];
   int loss_kind;                         // LOSS_* (eh_device.cuh)
   EhOptimizer optimizer;                 // the rule and its hyperparameters
-  int splits[EH_MAX_LAYERS];             // batch splits of layer l's weight gradient
-  int split_rows[EH_MAX_LAYERS];         // rows of one split, a multiple of its product's depth
+  int splits[EHW_MAX_LAYERS];            // batch splits of layer l's weight gradient
+  int split_rows[EHW_MAX_LAYERS];        // rows of one split, a multiple of its product's depth
   int norm_splits;
   int norm_split_rows;
   int head_blocks;
-  int tc[EH_MAX_LAYERS];                 // 1: layer l's three products on the tensor cores
-  int fwd_bm[EH_MAX_LAYERS];             // layer l's forward: output tile rows (of the batch)
-  int fwd_bn[EH_MAX_LAYERS];             //   output tile columns (of dout)
-  int fwd_splits[EH_MAX_LAYERS];         //   pieces of its inner dimension (din), a cluster
-  int fwd_split_k[EH_MAX_LAYERS];        //   inner extent of one piece
-  int dat_bm[EH_MAX_LAYERS];             // layer l's data gradient: tile rows (of the batch)
-  int dat_bn[EH_MAX_LAYERS];             //   tile columns (of din)
-  int dat_splits[EH_MAX_LAYERS];         //   pieces of its inner dimension (dout), a cluster
-  int dat_split_k[EH_MAX_LAYERS];        //   inner extent of one piece
-  int wgt_bm[EH_MAX_LAYERS];             // layer l's weight gradient: tile rows (of dout)
-  int wgt_bn[EH_MAX_LAYERS];             //   tile columns (of din); its batch splits above
+  int tc[EHW_MAX_LAYERS];                // 1: layer l's three products on the tensor cores
+  int fwd_bm[EHW_MAX_LAYERS];            // layer l's forward: output tile rows (of the batch)
+  int fwd_bn[EHW_MAX_LAYERS];            //   output tile columns (of dout)
+  int fwd_splits[EHW_MAX_LAYERS];        //   pieces of its inner dimension (din), a cluster
+  int fwd_split_k[EHW_MAX_LAYERS];       //   inner extent of one piece
+  int dat_bm[EHW_MAX_LAYERS];            // layer l's data gradient: tile rows (of the batch)
+  int dat_bn[EHW_MAX_LAYERS];            //   tile columns (of din)
+  int dat_splits[EHW_MAX_LAYERS];        //   pieces of its inner dimension (dout), a cluster
+  int dat_split_k[EHW_MAX_LAYERS];       //   inner extent of one piece
+  int wgt_bm[EHW_MAX_LAYERS];            // layer l's weight gradient: tile rows (of dout)
+  int wgt_bn[EHW_MAX_LAYERS];            //   tile columns (of din); its batch splits above
   const int* halt;                       // the halt word (eh_halted), or null
   const float* tmom;                     // rmse, the statistic losses: (n_epochs, n_batches,
                                          //   n_targets, 3) max(sum m, 1), target mean, SST
-  int64_t ws_off_stats;                  // NORM_TRAIN: (2 dims[0]) the batch's mean, variance
+  int64_t ws_off_stats;                  // NORM_TRAIN: (2 n_features) the batch's mean, variance
   int64_t ws_off_pred;                   // two-pass losses: (n_targets, batch) predictions
   int64_t ws_off_mom;                    //   (head_blocks, n_targets, 3) each block's moments
   float momentum;                        // the running statistics' EMA weight of the batch's
@@ -246,6 +264,14 @@ struct EhFusedWideArgs {
   float l2_value;                        //   scale / norm_div,
   float l2_outer;                        //   ex_outer (0.5 under agg mean, else 1),
   int64_t l2_leaves;                     //   bit l: leaf l penalised (0: no penalty)
+  int n_nets;                            // networks: one, or a MultiNN model's branches
+  int n_features;                        // F: every branch's predictor columns, side by side
+  int n_neural;                          // P: every branch's outputs, in neural order
+  int layer_net[EHW_MAX_LAYERS];         // layer l's branch (the layers: every branch's in turn)
+  int net_first[EH_MAX_NETS];            // branch b's first layer
+  int net_layers[EH_MAX_NETS];           //   its layers
+  int net_col[EH_MAX_NETS];              //   its first column of x
+  int net_out[EH_MAX_NETS];              //   its first neural output
 };
 // A member's optimizer numbers: EhOptimizer's floats from lr to rect_den, in
 // its order, as kernel 2 takes them (csrc/fused_epoch.cu, EHE_OPT_SCALARS).
@@ -255,6 +281,38 @@ static_assert(offsetof(EhOptimizer, lr) == EHW_OPT_FIRST * sizeof(float) &&
                   offsetof(EhOptimizer, rect_den) ==
                       (EHW_OPT_FIRST + EHW_OPT_SCALARS - 1) * sizeof(float),
               "EhOptimizer's numbers from lr to rect_den");
+
+// Layer l's inputs and outputs (l over every branch's layers in turn).
+__host__ __device__ __forceinline__ int ehw_din(const EhFusedWideArgs& a, int l) {
+  return a.dims[l + a.layer_net[l]];
+}
+__host__ __device__ __forceinline__ int ehw_dout(const EhFusedWideArgs& a, int l) {
+  return a.dims[l + a.layer_net[l] + 1];
+}
+__host__ __device__ __forceinline__ bool ehw_first(const EhFusedWideArgs& a, int l) {
+  return l == a.net_first[a.layer_net[l]];
+}
+__host__ __device__ __forceinline__ bool ehw_last(const EhFusedWideArgs& a, int l) {
+  const int b = a.layer_net[l];
+  return l == a.net_first[b] + a.net_layers[b] - 1;
+}
+
+// Where neural output j sits: its branch's last layer and its column there.
+struct EhwOut {
+  int layer;  // the branch's last layer
+  int width;  // its outputs, the row stride of its activations
+  int col;    // j's column
+};
+
+__device__ __forceinline__ EhwOut ehw_out(const EhFusedWideArgs& a, int j) {
+  int b = 0;
+  while (b + 1 < a.n_nets && j >= a.net_out[b + 1]) ++b;
+  EhwOut o;
+  o.layer = a.net_first[b] + a.net_layers[b] - 1;
+  o.width = ehw_dout(a, o.layer);
+  o.col = j - a.net_out[b];
+  return o;
+}
 
 // Member k's rows of the per-member arrays (k = 0: train()'s call).
 struct EhwMember {
@@ -284,7 +342,7 @@ __device__ __forceinline__ EhwMember ehw_member(const EhFusedWideArgs& a, int64_
   M.m = a.m + k * np;
   M.v = a.v + k * np;
   M.u = a.u != nullptr ? a.u + k * np : nullptr;
-  M.bn = a.bn + k * 2 * a.dims[0];
+  M.bn = a.bn + k * 2 * a.n_features;
   M.ws = a.ws + k * a.ws_stride;
   M.partials = a.partials + k * a.part_stride;
   M.head_partials = a.head_partials + k * a.head_blocks * (1 + a.n_globals);
@@ -298,9 +356,9 @@ __device__ __forceinline__ EhwMember ehw_member(const EhFusedWideArgs& a, int64_
   M.tmom = a.tmom != nullptr ? a.tmom + k * steps * a.n_targets * 3 : nullptr;
   return M;
 }
-// Packed parameters: [norm scale, norm bias] (dims[0] each, with a norm); per
-// layer W (dout x din, row-major) at p_off_w[l], then b (dout) at p_off_b[l];
-// the raw globals at p_off_g.
+// Packed parameters: [norm scale, norm bias] (n_features each, with a norm);
+// per layer, every branch's in turn, W (dout x din, row-major) at p_off_w[l],
+// then b (dout) at p_off_b[l]; the raw globals at p_off_g.
 
 
 // ---------------------------------------------------------------------------
@@ -326,6 +384,7 @@ struct EhwProduct {
   const float* bias;   // forward: b (N)
   float* out;          // raw: C (M x N); forward: act(C + b); data: C, or C * out in place;
                        // weight: piece z's partial tile [dW (M x N), db (M)] at z M (N + 1)
+  int ldo;             // raw, forward, data: out's row stride (N, or a branch's columns of F)
   float* da;           // forward: act'(C + b)
   float* out_t;        // forward, data: out again, feature-major (N x M), or null
   const int* halt;     // the step's halt word (eh_halted), or null
@@ -398,7 +457,7 @@ __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int
     }
   }
   float* t = tile + rb0 * LDT + cl;
-  float* out = p.out + (int64_t)(m0 + rb0) * p.N + c;
+  float* out = p.out + (int64_t)(m0 + rb0) * p.ldo + c;
   if (col && p.mode == EHW_FORWARD) {
     const float bias = p.bias[c];
     float* da = p.da + (int64_t)(m0 + rb0) * p.N + c;
@@ -406,7 +465,7 @@ __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int
       float d;
       const float act = ehe_act(p.act, t[rl * LDT] + bias, &d);
       const float y = BF16 && p.round_out ? ehe_bf16(act) : act;
-      out[(int64_t)rl * p.N] = y;
+      out[(int64_t)rl * p.ldo] = y;
       da[(int64_t)rl * p.N] = d;
       t[rl * LDT] = y;
     }
@@ -414,16 +473,17 @@ __device__ __forceinline__ void ehw_finish(const EhwProduct& p, float* tile, int
 #pragma unroll 4
     for (int rl = tid / BN; rl < rows; rl += RSTEP) {
       const float c = BF16 ? ehe_bf16(t[rl * LDT]) : t[rl * LDT];
-      const float y = p.scale_in_place ? c * out[(int64_t)rl * p.N] : c;
-      out[(int64_t)rl * p.N] = y;
+      const float y = p.scale_in_place ? c * out[(int64_t)rl * p.ldo] : c;
+      out[(int64_t)rl * p.ldo] = y;
       t[rl * LDT] = y;
     }
   } else if (col) {  // weight: this piece's partial tile; raw: the product
-    float* dst = p.mode == EHW_WEIGHT
-                     ? p.out + (int64_t)blockIdx.z * p.M * (p.N + 1) + (int64_t)m0 * p.N + c
-                     : out;
+    const bool weight = p.mode == EHW_WEIGHT;
+    float* dst = weight ? p.out + (int64_t)blockIdx.z * p.M * (p.N + 1) + (int64_t)m0 * p.N + c
+                        : out;
+    const int ld = weight ? p.N : p.ldo;
 #pragma unroll 4
-    for (int rl = tid / BN; rl < rows; rl += RSTEP) dst[(int64_t)rl * p.N] = t[rl * LDT];
+    for (int rl = tid / BN; rl < rows; rl += RSTEP) dst[(int64_t)rl * ld] = t[rl * LDT];
   }
   if (p.out_t && rows > 0) {
     __syncthreads();
@@ -591,11 +651,12 @@ eh_wide_bwd_data_kernel(const __grid_constant__ EhwProduct p) {
 
 // Split blockIdx.z of the batch: dW[j][k] = sum_r dZ[r][j] H[r][k] over the
 // split's rows, written to part[split][j * din + k], and db[j] = sum_r dZ[r][j]
-// to part[split][dout * din + j]: M = dout, N = din. The member axis as the
-// products' (blockIdx.x = member tiles_x + column; its dZ and H ws_stride
-// further on, its partials part_stride).
+// to part[split][dout * din + j]: M = dout, N = din, H's rows ldh apart (din,
+// or F for a branch's first layer, which reads its columns of the input). The
+// member axis as the products' (blockIdx.x = member tiles_x + column; its dZ
+// and H ws_stride further on, its partials part_stride).
 __global__ void __launch_bounds__(EHW_THREADS)
-eh_wide_bwd_weight_kernel(const float* __restrict__ dZ, const float* __restrict__ H,
+eh_wide_bwd_weight_kernel(const float* __restrict__ dZ, const float* __restrict__ H, int ldh,
                           float* __restrict__ part, int M, int N, int batch, int split_rows,
                           const int* halt, int tiles_x, int64_t ws_stride, int64_t part_stride) {
   if (eh_halted(halt)) return;
@@ -610,7 +671,7 @@ eh_wide_bwd_weight_kernel(const float* __restrict__ dZ, const float* __restrict_
   const int r1 = min(batch, r0 + split_rows);
   const bool bias = bx == 0;
   float acc[4][4];
-  const float rowsum = ehw_product<false, false>(dZ, M, H, N, m0, M, n0, N, r0, r1, bias, acc);
+  const float rowsum = ehw_product<false, false>(dZ, M, H, ldh, m0, M, n0, N, r0, r1, bias, acc);
   float* out = part + (int64_t)blockIdx.z * M * (N + 1);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -983,7 +1044,7 @@ eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (eh_halted(a.halt)) return;
   __shared__ float red[EHW_HEAD_THREADS];
   const EhwMember M = ehw_member(a, blockIdx.y);
-  const int F = a.dims[0];
+  const int F = a.n_features;
   const int B = a.batch;
   const int k = blockIdx.x;
   const int* idx = M.perm + (int64_t)step * B;
@@ -1008,13 +1069,14 @@ eh_wide_norm_stats_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
 
 // The batch's rows through the row index, normed (by the running statistics
 // of a static norm, or by the batch's own, eh_wide_norm_stats_kernel): one
-// thread per (row, feature); also feature-major where layer 0 is on the
-// tensor cores. BF16: the first layer's input rounded to bf16.
+// thread per (row, feature) of every branch's columns; also feature-major
+// where the column's branch has its first layer on the tensor cores. BF16:
+// the first layers' input rounded to bf16.
 template <bool BF16>
 __global__ void __launch_bounds__(256)
 eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   if (eh_halted(a.halt)) return;
-  const int F = a.dims[0];
+  const int F = a.n_features;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (int64_t)a.batch * F) return;
   const EhwMember M = ehw_member(a, blockIdx.y);
@@ -1030,15 +1092,21 @@ eh_wide_gather_kernel(const __grid_constant__ EhFusedWideArgs a, int step) {
   }
   if constexpr (BF16) h = ehe_bf16(h);
   M.ws[a.ws_off_h0 + e] = h;
-  if (a.tc[0]) M.ws[a.ws_off_ht[0] + (int64_t)k * a.batch + r] = h;
+  int b = 0;  // the column's branch
+  while (b + 1 < a.n_nets && k >= a.net_col[b + 1]) ++b;
+  const int l = a.net_first[b];
+  if (a.tc[l]) M.ws[a.ws_off_ht[l] + (int64_t)(k - a.net_col[b]) * a.batch + r] = h;
 }
 
-// The kernel form's arguments of batch row `row` (its raw network outputs
-// `raw`, the member's parameters `params`) and the form's outputs and partials.
+// The kernel form's arguments of the batch's row r, slot `row` of the data
+// (its raw network outputs in the member's workspace `ws`, each in its
+// branch's last layer, the member's parameters `params`) and the form's
+// outputs and partials.
 __device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, const float* params,
-                                              int64_t row, const float* raw, float (&out)[EH_MAX_OUT],
+                                              const float* ws, int r, int64_t row,
+                                              float (&out)[EH_MAX_OUT],
                                               float (&pd)[EH_MAX_OUT][EH_MAX_ARGS]) {
-  const int P = a.dims[a.n_layers];
+  const int P = a.n_neural;
   const int G = a.n_globals;
   const float* nlo = a.consts;
   const float* nspan = a.consts + P;
@@ -1059,10 +1127,12 @@ __device__ __forceinline__ void ehw_head_form(const EhFusedWideArgs& a, const fl
           val = col[row];
           break;
         }
-        case SRC_NEURAL:
-          val = raw[id];
+        case SRC_NEURAL: {
+          const EhwOut o = ehw_out(a, id);
+          val = ws[a.ws_off_a[o.layer] + (int64_t)r * o.width + o.col];
           if (a.scale_nn_outputs) val = nlo[id] + nspan[id] * ehe_sigmoid(val);
           break;
+        }
         case SRC_SCALAR:
           val = id < G ? glo[id] + gspan[id] * ehe_sigmoid(params[a.p_off_g + id])
                        : fixed[id - G];
@@ -1100,8 +1170,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
   __shared__ float lv[EH_MAX_TARGETS];      //   and its loss value
   const int tid = threadIdx.x;
   const int r = blockIdx.x * EHW_HEAD_THREADS + tid;
-  const int L = a.n_layers;
-  const int P = a.dims[L];
+  const int P = a.n_neural;
   const int G = a.n_globals;
   const int T = a.n_targets;
   const int LK = a.loss_kind;
@@ -1117,7 +1186,7 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
       const int64_t row = M.perm[(int64_t)step * a.batch + r];
       float out[EH_MAX_OUT];
       float pd[EH_MAX_OUT][EH_MAX_ARGS];
-      ehw_head_form(a, M.params, row, M.ws + a.ws_off_a[L - 1] + (int64_t)r * P, out, pd);
+      ehw_head_form(a, M.params, M.ws, r, row, out, pd);
 #pragma unroll
       for (int j = 0; j < EH_MAX_TARGETS; ++j) {
         if (j < T) {
@@ -1180,11 +1249,9 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
 
   if (r < a.batch) {
     const int64_t row = M.perm[(int64_t)step * a.batch + r];
-    const float* raw = M.ws + a.ws_off_a[L - 1] + (int64_t)r * P;
-    float* dl = M.ws + a.ws_off_d[L - 1] + (int64_t)r * P;
     float out[EH_MAX_OUT];
     float pd[EH_MAX_OUT][EH_MAX_ARGS];
-    ehw_head_form(a, M.params, row, raw, out, pd);
+    ehw_head_form(a, M.params, M.ws, r, row, out, pd);
 
     // masked loss and its cotangent; the mask selects, so a NaN target that
     // the caller did not zero cannot reach the sums
@@ -1247,21 +1314,23 @@ eh_wide_head_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int pha
     }
 
     // the raw outputs' cotangent through the bound scaling and the last
-    // layer's activation (also feature-major where that layer is on the
-    // tensor cores)
-    float* dt = a.tc[L - 1] ? M.ws + a.ws_off_dt[L - 1] : nullptr;
+    // layer's activation of each output's branch (also feature-major where
+    // that layer is on the tensor cores)
     for (int j = 0; j < P; ++j) {
+      const EhwOut o = ehw_out(a, j);
+      const int64_t at = (int64_t)r * o.width + o.col;
+      float* dl = M.ws + a.ws_off_d[o.layer] + at;
       float dn = 0.0f;
 #pragma unroll
       for (int i = 0; i < EH_MAX_ARGS; ++i)
         if (i < a.n_args && a.arg_src[i] == SRC_NEURAL && a.arg_idx[i] == j) dn += c[i];
       float dsc = 1.0f;
       if (a.scale_nn_outputs) {
-        const float sg = ehe_sigmoid(raw[j]);
+        const float sg = ehe_sigmoid(M.ws[a.ws_off_a[o.layer] + at]);
         dsc = nspan[j] * (sg * (1.0f - sg));
       }
-      dl[j] = (dn * dsc) * dl[j];
-      if (dt) dt[(int64_t)j * a.batch + r] = dl[j];
+      *dl = (dn * dsc) * *dl;
+      if (a.tc[o.layer]) M.ws[a.ws_off_dt[o.layer] + (int64_t)o.col * a.batch + r] = *dl;
     }
   }
   if (TWO_PASS && blockIdx.x == 0 && tid == 0)  // the batch's loss value, a target at a time
@@ -1324,7 +1393,7 @@ __global__ void __launch_bounds__(128)
 eh_wide_norm_grad_kernel(const __grid_constant__ EhFusedWideArgs a) {
   if (eh_halted(a.halt)) return;
   const EhwMember M = ehw_member(a, blockIdx.y);
-  const int F = a.dims[0];
+  const int F = a.n_features;
   const int r0 = blockIdx.x * a.norm_split_rows;
   const int r1 = min(a.batch, r0 + a.norm_split_rows);
   const float* d0 = M.ws + a.ws_off_d0;
@@ -1351,8 +1420,8 @@ __device__ __forceinline__ bool ehw_weight_tile(const EhFusedWideArgs& a, int b,
                                                 int* k0) {
   for (int q = 0; q < a.n_layers; ++q) {
     if (!a.tc[q]) continue;
-    const int cols = (a.dims[q] + EHW_UTILE - 1) / EHW_UTILE;
-    const int n = cols * ((a.dims[q + 1] + EHW_UTILE - 1) / EHW_UTILE);
+    const int cols = (ehw_din(a, q) + EHW_UTILE - 1) / EHW_UTILE;
+    const int n = cols * ((ehw_dout(a, q) + EHW_UTILE - 1) / EHW_UTILE);
     if (b < n) {
       *l = q;
       *j0 = (b / cols) * EHW_UTILE;
@@ -1369,15 +1438,16 @@ __device__ __forceinline__ bool ehw_weight_tile(const EhFusedWideArgs& a, int b,
 // loss's thread, or none).
 __device__ __forceinline__ int64_t ehw_element(const EhFusedWideArgs& a, int64_t e) {
   if (a.norm_mode != NORM_NONE) {
-    if (e < 2 * a.dims[0]) return e;
-    e -= 2 * a.dims[0];
+    if (e < 2 * a.n_features) return e;
+    e -= 2 * a.n_features;
   }
   for (int l = 0; l < a.n_layers; ++l) {
-    const int64_t w = a.tc[l] ? 0 : (int64_t)a.dims[l + 1] * a.dims[l];
+    const int dout = ehw_dout(a, l);
+    const int64_t w = a.tc[l] ? 0 : (int64_t)dout * ehw_din(a, l);
     if (e < w) return a.p_off_w[l] + e;
     e -= w;
-    if (e < a.dims[l + 1]) return a.p_off_b[l] + e;
-    e -= a.dims[l + 1];
+    if (e < dout) return a.p_off_b[l] + e;
+    e -= dout;
   }
   return e < a.n_globals ? a.p_off_g + e : -1;
 }
@@ -1418,8 +1488,8 @@ eh_wide_transpose_kernel(const __grid_constant__ EhFusedWideArgs a, int tiles) {
     __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
     int l, j0, k0;
     ehw_weight_tile(a, blockIdx.x, &l, &j0, &k0);
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
+    const int din = ehw_din(a, l);
+    const int dout = ehw_dout(a, l);
     const int tx = threadIdx.x % EHW_UTILE;
     const int ty = threadIdx.x / EHW_UTILE;
     for (int i = ty; i < EHW_UTILE; i += 256 / EHW_UTILE)
@@ -1468,6 +1538,7 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
   const EhwMember M = ehw_member(a, member);
   const int L = a.n_layers;
   const int G = a.n_globals;
+  const int F = a.n_features;
   const bool valid = M.valid[step] > 0.0f;
   if (pass == 0 && !valid) return;  // the whole member alike
   __shared__ EhOptimizer os;
@@ -1495,8 +1566,8 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
     __shared__ float tile[EHW_UTILE][EHW_UTILE + 1];
     int l, j0, k0;
     ehw_weight_tile(a, blockIdx.x, &l, &j0, &k0);
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
+    const int din = ehw_din(a, l);
+    const int dout = ehw_dout(a, l);
     const int64_t size = (int64_t)dout * (din + 1);
     const int tx = threadIdx.x % EHW_UTILE;
     const int ty = threadIdx.x / EHW_UTILE;
@@ -1579,7 +1650,7 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
   const int64_t gid = ehw_element(a, e);
   int64_t loose = a.n_params;  // the elements past the tiles; the next thread adds the loss
   for (int l = 0; l < L; ++l)
-    if (a.tc[l]) loose -= (int64_t)a.dims[l] * a.dims[l + 1];
+    if (a.tc[l]) loose -= (int64_t)ehw_din(a, l) * ehw_dout(a, l);
   if (pass == 1 && valid && lamb) {  // the leaves of this block's elements, in packed order
     const int64_t last = min(e0 + (int64_t)blockDim.x, loose) - 1;
     ehe_leaf_trust_ratios(M.lamb_parts, gridDim.x, o.n_leaves,
@@ -1606,17 +1677,17 @@ eh_wide_update_kernel(const __grid_constant__ EhFusedWideArgs a, int step, int t
   } else if (gid >= a.p_off_g) {
     const int gi = (int)(gid - a.p_off_g);
     for (int b = 0; b < a.head_blocks; ++b) g += M.head_partials[(int64_t)b * (1 + G) + 1 + gi];
-    const int P = a.dims[L];
+    const int P = a.n_neural;
     const float span = a.consts[2 * P + G + gi];
     const float sg = ehe_sigmoid(M.params[gid]);
     g = g * (span * (sg * (1.0f - sg)));
-  } else if (a.norm_mode != NORM_NONE && gid < 2 * a.dims[0]) {
+  } else if (a.norm_mode != NORM_NONE && gid < 2 * F) {
     const float* part = M.partials + a.part_off_norm + gid;
-    for (int s = 0; s < a.norm_splits; ++s) g += part[(int64_t)s * 2 * a.dims[0]];
+    for (int s = 0; s < a.norm_splits; ++s) g += part[(int64_t)s * 2 * F];
   } else {
     int l = 0;
     while (l + 1 < L && gid >= a.p_off_w[l + 1]) ++l;
-    const int64_t size = (int64_t)a.dims[l + 1] * (a.dims[l] + 1);
+    const int64_t size = (int64_t)ehw_dout(a, l) * (ehw_din(a, l) + 1);
     const float* part = M.partials + a.part_off[l] + (gid - a.p_off_w[l]);
 #pragma unroll 4
     for (int s = 0; s < a.splits[l]; ++s) g += part[s * size];
@@ -1668,14 +1739,14 @@ static int ehw_weight_tiles(const EhFusedWideArgs& a) {
   int n = 0;
   for (int l = 0; l < a.n_layers; ++l)
     if (a.tc[l])
-      n += ehw_ceil_div(a.dims[l], EHW_UTILE) * ehw_ceil_div(a.dims[l + 1], EHW_UTILE);
+      n += ehw_ceil_div(ehw_din(a, l), EHW_UTILE) * ehw_ceil_div(ehw_dout(a, l), EHW_UTILE);
   return n;
 }
 
 static int64_t ehw_loose_params(const EhFusedWideArgs& a) {
   int64_t n = a.n_params;
   for (int l = 0; l < a.n_layers; ++l)
-    if (a.tc[l]) n -= (int64_t)a.dims[l] * a.dims[l + 1];
+    if (a.tc[l]) n -= (int64_t)ehw_din(a, l) * ehw_dout(a, l);
   return n;
 }
 
@@ -1685,15 +1756,38 @@ static int64_t ehw_loose_params(const EhFusedWideArgs& a) {
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
+// Whether the branches' fields describe every layer once, in turn: branch b's
+// layers from net_first[b] on, within EH_MAX_LAYERS, its widths within the
+// cap, its columns and outputs after the branch before's.
+static bool ehw_branches_ok(const EhFusedWideArgs& a) {
+  if (a.n_nets < 1 || a.n_nets > EH_MAX_NETS || a.n_layers < 1 || a.n_layers > EHW_MAX_LAYERS)
+    return false;
+  int next = 0, col = 0, out = 0;
+  for (int b = 0; b < a.n_nets; ++b) {
+    const int n = a.net_layers[b];
+    if (a.net_first[b] != next || n < 1 || n > EH_MAX_LAYERS || next + n > a.n_layers ||
+        a.net_col[b] != col || a.net_out[b] != out)
+      return false;
+    for (int i = 0; i <= n; ++i)
+      if (a.dims[next + b + i] < 1 || a.dims[next + b + i] > EH_WIDE_MAX_WIDTH) return false;
+    for (int l = next; l < next + n; ++l)
+      if (a.layer_net[l] != b) return false;
+    col += a.dims[next + b];
+    out += a.dims[next + b + n];
+    next += n;
+  }
+  return next == a.n_layers && col == a.n_features && out == a.n_neural;
+}
+
 // Enqueue every step of the call on `stream`; returns the first launch
 // error, or cudaGetLastError() (0 on success). The caller checks shapes,
-// devices and the envelope first; the plan's tile shapes and pieces, and the
-// member axis's strides, are checked here.
+// devices and the envelope first; the branches, the plan's tile shapes and
+// pieces, and the member axis's strides, are checked here.
 extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   const EhFusedWideArgs& a = *args;
   if (a.n_epochs <= 0 || a.n_batches <= 0) return 0;
   const int L = a.n_layers;
-  if (L < 1 || L > EH_MAX_LAYERS || a.batch < 1 || a.n_args > EH_MAX_ARGS ||
+  if (!ehw_branches_ok(a) || a.batch < 1 || a.n_args > EH_MAX_ARGS ||
       !eh_form_built(a.form) || a.n_targets < 1 || !eh_loss_built(a.loss_kind) ||
       a.n_targets > EH_MAX_TARGETS || a.n_globals + a.n_fixed > EH_MAX_SCALARS ||
       a.optimizer.n_leaves < 1 || a.optimizer.n_leaves > EH_MAX_LEAVES ||
@@ -1702,20 +1796,18 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       a.n_members < 1 || a.n_members > 65535 || a.perm_stride < 0 || a.ws_stride < 0 ||
       a.part_stride < 0)
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l <= L; ++l)
-    if (a.dims[l] < 1 || a.dims[l] > EH_WIDE_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   const bool norm = a.norm_mode != NORM_NONE;
   const int B = a.batch;
   const int K = a.n_members;
   for (int l = 0; l < L; ++l) {
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
+    const int din = ehw_din(a, l);
+    const int dout = ehw_dout(a, l);
     const bool tc = a.tc[l] != 0;
     if (tc && (din < EHW_TC_MIN || dout < EHW_TC_MIN)) return (int)cudaErrorInvalidValue;
     if (!ehw_split_ok(B, a.splits[l], a.split_rows[l], tc ? EHW_TC_BK : EHW_BK) ||
         (tc && !eht_shape_ok(a.wgt_bm[l], a.wgt_bn[l])) ||
         !ehw_product_ok(tc, a.fwd_bm[l], a.fwd_bn[l], din, a.fwd_splits[l], a.fwd_split_k[l]) ||
-        ((l > 0 || norm) &&
+        ((!ehw_first(a, l) || norm) &&
          !ehw_product_ok(tc, a.dat_bm[l], a.dat_bn[l], dout, a.dat_splits[l], a.dat_split_k[l])))
       return (int)cudaErrorInvalidValue;
   }
@@ -1726,7 +1818,7 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
   constexpr int FWD = BF16 ? EHT_BF16_AB : EHT_F32;
   constexpr int BWD = BF16 ? EHT_BF16_B : EHT_F32;
   cudaStream_t s = (cudaStream_t)stream;
-  const int F = a.dims[0];
+  const int F = a.n_features;
   float* ws = a.ws;
   const int gather_blocks = (int)(((int64_t)B * F + 255) / 256);
   const int tiles = ehw_weight_tiles(a);
@@ -1760,16 +1852,20 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
     eh_wide_gather_kernel<BF16><<<dim3(gather_blocks, K), 256, 0, s>>>(a, step);
     EHW_TRY(cudaGetLastError());
     for (int l = 0; l < L; ++l) {  // A = act(H W^T + b), and H^T of the next layer where it takes it
-      const int din = a.dims[l];
-      EhwProduct p = product(a.dims[l + 1]);
-      p.A = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
+      const int b = a.layer_net[l];  // every branch's layers in turn; a first reads its columns
+      const bool first = ehw_first(a, l);
+      const bool last = ehw_last(a, l);
+      const int din = ehw_din(a, l);
+      const int dout = ehw_dout(a, l);
+      EhwProduct p = product(dout);
+      p.A = ws + (first ? a.ws_off_h0 + a.net_col[b] : a.ws_off_a[l - 1]);
       p.sa = a.ws_stride;
-      p.lda = din;
+      p.lda = first ? F : din;
       p.B = a.params + a.p_off_w[l];
       p.sb = np;
       p.ldb = din;
       p.M = B;
-      p.N = a.dims[l + 1];
+      p.N = dout;
       p.K = din;
       p.split_k = a.fwd_split_k[l];
       p.mode = EHW_FORWARD;
@@ -1777,12 +1873,13 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       p.bias = a.params + a.p_off_b[l];
       p.sbias = np;
       p.out = ws + a.ws_off_a[l];
+      p.ldo = dout;
       p.sout = a.ws_stride;
       p.da = ws + a.ws_off_d[l];
       p.sda = a.ws_stride;
-      p.out_t = l + 1 < L && a.tc[l + 1] ? ws + a.ws_off_ht[l + 1] : nullptr;
+      p.out_t = !last && a.tc[l + 1] ? ws + a.ws_off_ht[l + 1] : nullptr;
       p.sout_t = a.ws_stride;
-      p.round_out = l + 1 < L;
+      p.round_out = !last;
       EHW_TRY(a.tc[l] ? eht_run<FWD>(a.fwd_bm[l], p, a.fwd_splits[l], s)
                       : ehw_fma_run<BF16>(true, p, a.fwd_splits[l], s));
     }
@@ -1796,56 +1893,61 @@ extern "C" int eh_fused_wide(const EhFusedWideArgs* args, void* stream) {
       eh_wide_head_kernel<false><<<heads, EHW_HEAD_THREADS, 0, s>>>(a, step, 1);
     }
     EHW_TRY(cudaGetLastError());
-    for (int l = L - 1; l >= 0; --l) {
-      const int din = a.dims[l];
-      const int dout = a.dims[l + 1];
-      const float* dz = ws + a.ws_off_d[l];
-      if (a.tc[l]) {  // dW = dZ^T H and db over the batch's pieces, from the feature-major copies
-        EhwProduct p = product(din);
-        p.A = ws + a.ws_off_dt[l];
-        p.sa = a.ws_stride;
-        p.lda = B;
-        p.B = ws + a.ws_off_ht[l];
-        p.sb = a.ws_stride;
-        p.ldb = B;
-        p.M = dout;
-        p.N = din;
-        p.K = B;
-        p.split_k = a.split_rows[l];
-        p.mode = EHW_WEIGHT;
-        p.out = a.partials + a.part_off[l];
-        p.sout = a.part_stride;
-        EHW_TRY(eht_run<BWD>(a.wgt_bm[l], p, a.splits[l], s));
-      } else {
-        const float* h = ws + (l == 0 ? a.ws_off_h0 : a.ws_off_a[l - 1]);
-        const int tiles_x = ehw_ceil_div(din, EHW_TILE);
-        const dim3 wgrid(tiles_x * K, ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
-        eh_wide_bwd_weight_kernel<<<wgrid, EHW_THREADS, 0, s>>>(dz, h, a.partials + a.part_off[l],
-                                                                dout, din, B, a.split_rows[l],
-                                                                a.halt, tiles_x, a.ws_stride,
-                                                                a.part_stride);
-        EHW_TRY(cudaGetLastError());
-      }
-      if (l > 0 || norm) {  // dZ_prev = (dZ W) * act'_prev in place, and its copy where needed
-        EhwProduct p = product(din);
-        p.A = dz;
-        p.sa = a.ws_stride;
-        p.lda = dout;
-        p.B = a.tc[l] ? ws + a.ws_off_wt[l] : a.params + a.p_off_w[l];
-        p.sb = a.tc[l] ? a.ws_stride : np;
-        p.ldb = a.tc[l] ? dout : din;
-        p.M = B;
-        p.N = din;
-        p.K = dout;
-        p.split_k = a.dat_split_k[l];
-        p.mode = EHW_DATA;
-        p.scale_in_place = l > 0 ? 1 : 0;
-        p.out = ws + (l > 0 ? a.ws_off_d[l - 1] : a.ws_off_d0);
-        p.sout = a.ws_stride;
-        p.out_t = l > 0 && a.tc[l - 1] ? ws + a.ws_off_dt[l - 1] : nullptr;
-        p.sout_t = a.ws_stride;
-        EHW_TRY(a.tc[l] ? eht_run<BWD>(a.dat_bm[l], p, a.dat_splits[l], s)
-                        : ehw_fma_run<BF16>(false, p, a.dat_splits[l], s));
+    for (int b = 0; b < a.n_nets; ++b) {  // each branch from its last layer to its first
+      const int l0 = a.net_first[b];
+      for (int l = l0 + a.net_layers[b] - 1; l >= l0; --l) {
+        const bool first = l == l0;
+        const int din = ehw_din(a, l);
+        const int dout = ehw_dout(a, l);
+        const float* dz = ws + a.ws_off_d[l];
+        if (a.tc[l]) {  // dW = dZ^T H and db over the batch's pieces, from the feature-major copies
+          EhwProduct p = product(din);
+          p.A = ws + a.ws_off_dt[l];
+          p.sa = a.ws_stride;
+          p.lda = B;
+          p.B = ws + a.ws_off_ht[l];
+          p.sb = a.ws_stride;
+          p.ldb = B;
+          p.M = dout;
+          p.N = din;
+          p.K = B;
+          p.split_k = a.split_rows[l];
+          p.mode = EHW_WEIGHT;
+          p.out = a.partials + a.part_off[l];
+          p.sout = a.part_stride;
+          EHW_TRY(eht_run<BWD>(a.wgt_bm[l], p, a.splits[l], s));
+        } else {
+          const float* h = ws + (first ? a.ws_off_h0 + a.net_col[b] : a.ws_off_a[l - 1]);
+          const int tiles_x = ehw_ceil_div(din, EHW_TILE);
+          const dim3 wgrid(tiles_x * K, ehw_ceil_div(dout, EHW_TILE), a.splits[l]);
+          eh_wide_bwd_weight_kernel<<<wgrid, EHW_THREADS, 0, s>>>(
+              dz, h, first ? F : din, a.partials + a.part_off[l], dout, din, B, a.split_rows[l],
+              a.halt, tiles_x, a.ws_stride, a.part_stride);
+          EHW_TRY(cudaGetLastError());
+        }
+        if (!first || norm) {  // dZ_prev = (dZ W) * act'_prev in place (or the branch's columns
+                               // of the norm's cotangent), and its copy where needed
+          EhwProduct p = product(din);
+          p.A = dz;
+          p.sa = a.ws_stride;
+          p.lda = dout;
+          p.B = a.tc[l] ? ws + a.ws_off_wt[l] : a.params + a.p_off_w[l];
+          p.sb = a.tc[l] ? a.ws_stride : np;
+          p.ldb = a.tc[l] ? dout : din;
+          p.M = B;
+          p.N = din;
+          p.K = dout;
+          p.split_k = a.dat_split_k[l];
+          p.mode = EHW_DATA;
+          p.scale_in_place = first ? 0 : 1;
+          p.out = ws + (first ? a.ws_off_d0 + a.net_col[b] : a.ws_off_d[l - 1]);
+          p.ldo = first ? F : din;
+          p.sout = a.ws_stride;
+          p.out_t = !first && a.tc[l - 1] ? ws + a.ws_off_dt[l - 1] : nullptr;
+          p.sout_t = a.ws_stride;
+          EHW_TRY(a.tc[l] ? eht_run<BWD>(a.dat_bm[l], p, a.dat_splits[l], s)
+                          : ehw_fma_run<BF16>(false, p, a.dat_splits[l], s));
+        }
       }
     }
     if (norm) eh_wide_norm_grad_kernel<<<dim3(a.norm_splits, K), 128, 0, s>>>(a);
@@ -1876,6 +1978,7 @@ extern "C" int eh_wide_tc_product(const float* A, int lda, const float* B, int l
   p.split_k = split_k;
   p.mode = EHW_RAW;
   p.out = C;
+  p.ldo = N;
   p.members = 1;
   p.tiles_x = ehw_ceil_div(N, bn);
   return (int)eht_run<EHT_F32>(bm, p, splits, (cudaStream_t)stream);

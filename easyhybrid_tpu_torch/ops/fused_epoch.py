@@ -304,6 +304,25 @@ class Geometry(NamedTuple):
         return -(-self.block_rows // self.tile)
 
 
+def branch_view_reason(model, *, max_width: int = MAX_WIDTH) -> Optional[str]:
+    """Why the training kernels with branches (2 and 3; ``max_width`` the
+    asking kernel's widest layer) cannot train the model's networks: more
+    than :data:`MAX_NETS` of them, a network or the model outside
+    ``branches_unsupported_reason``, or more than :data:`MAX_LEAVES`
+    parameter leaves in all; else None."""
+    branches = model_branches(model)
+    if len(branches) > MAX_NETS:
+        return f"{len(branches)} MultiNN branches exceed the kernels' cap of {MAX_NETS}"
+    reason = branches_unsupported_reason(model, max_width=max_width)
+    if reason is not None:
+        return reason
+    leaves = sum(2 * (net.norm is not None) + 2 * len(net.layers)
+                 for _, net in branches) + len(model.global_param_names)
+    if leaves > MAX_LEAVES:
+        return f"{leaves} parameter leaves exceed the kernels' cap of {MAX_LEAVES}"
+    return None
+
+
 def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
                                    tensors=None) -> Optional[str]:
     """Why the fused epoch kernel cannot train ``model`` with this
@@ -327,15 +346,9 @@ def fused_epoch_unsupported_reason(model, optimizer, logging: LoggingLoss,
     where the padded parameter rows would push a model near the limit out,
     its optimizer slots stay in device memory instead."""
     del tensors  # every batch size fits: the plan's geometry follows the batch
-    reason = branches_unsupported_reason(model)
+    reason = branch_view_reason(model)
     if reason is not None:
         return reason
-    if len(model_branches(model)) > MAX_NETS:
-        return f"{len(model_branches(model))} networks exceed the kernel's cap of {MAX_NETS}"
-    leaves = sum(2 * (net.norm is not None) + 2 * len(net.layers)
-                 for _, net in model_branches(model)) + len(model.global_param_names)
-    if leaves > MAX_LEAVES:
-        return f"{leaves} parameter leaves exceed the kernels' cap of {MAX_LEAVES}"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
     reason = training_spec_reason(optimizer, logging, FUSED_LOSSES, takes_l2=True)
@@ -1203,9 +1216,10 @@ def split_consts(plan, consts):
 
 
 def _layout_of(plan) -> BranchLayout:
-    """Kernel 2's layout of a plan's networks; another kernel's plan (of one
-    network, ``dims`` and ``acts``) laid out the same way."""
-    if isinstance(plan, FusedEpochPlan):
+    """Kernel 2's layout of a plan's networks (kernels 2 and 3: every
+    branch); another kernel's plan (of one network, ``dims`` and ``acts``)
+    laid out the same way."""
+    if hasattr(plan, "nets"):
         return plan.branch_layout
     return branch_layout((("nn", plan.dims, plan.acts),), plan.has_norm, len(plan.global_names))
 

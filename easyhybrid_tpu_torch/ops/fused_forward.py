@@ -183,11 +183,11 @@ def fused_forward_unsupported_reason(model, *, training: bool = False,
     named activations, float32 parameters with no ``compute_dtype`` or
     ``compute_dtype=torch.bfloat16`` (:func:`is_bf16`), and widths,
     depth and parameter counts within the caps above. ``training=True``
-    asks for the model checks the one-network training kernels (3 and 5)
-    share: trainable input BatchNorm is allowed there, and each kernel
-    checks its own memory. ``max_width`` is the widest layer the asking
-    kernel takes. Kernel 2, which also trains MultiNN branches and models
-    without a network, asks :func:`branches_unsupported_reason`."""
+    asks for the model checks of the one-network training kernel (5):
+    trainable input BatchNorm is allowed there, and the kernel checks its
+    own memory. ``max_width`` is the widest layer the asking kernel takes.
+    Kernels 2 and 3, which also train MultiNN branches, ask
+    :func:`branches_unsupported_reason`."""
     if not isinstance(model, SingleNNHybridModel):
         return f"{type(model).__name__} is not a SingleNNHybridModel"
     net = model.nn
@@ -218,18 +218,19 @@ def model_branches(model) -> Tuple[Tuple[str, object], ...]:
     return (("nn", model.nn),) if getattr(model, "nn", None) is not None else ()
 
 
-def branches_unsupported_reason(model) -> Optional[str]:
-    """The model checks of the training kernel with branches (kernel 2): a
-    SingleNN or MultiNN hybrid whose every network is a float32 MLP inside
-    :func:`_network_reason` (trainable input BatchNorm allowed), all with
-    one input-norm mode, as the JAX package builds them; a model without
-    a network and without neural parameters (globals only) has no branch.
-    Then the mechanistic function, as for the forward kernel."""
+def branches_unsupported_reason(model, *, max_width: int = MAX_WIDTH) -> Optional[str]:
+    """The model checks of the training kernels with branches (kernels 2
+    and 3): a SingleNN or MultiNN hybrid whose every network is a float32
+    MLP inside :func:`_network_reason` (trainable input BatchNorm allowed;
+    ``max_width`` the asking kernel's widest layer), all with one input-norm
+    mode, as the JAX package builds them; a model without a network and
+    without neural parameters (globals only) has no branch. Then the
+    mechanistic function, as for the forward kernel."""
     if not isinstance(model, (SingleNNHybridModel, MultiNNHybridModel)):
         return f"{type(model).__name__} is neither a SingleNNHybridModel nor a MultiNNHybridModel"
     branches = model_branches(model)
     for prefix, net in branches:
-        reason = _network_reason(net, training=True, max_width=MAX_WIDTH)
+        reason = _network_reason(net, training=True, max_width=max_width)
         if reason is not None:
             return reason if len(branches) == 1 else f"branch {prefix[4:]!r}: {reason}"
     if sum(net.out_dim for _, net in branches) != len(model.neural_param_names):

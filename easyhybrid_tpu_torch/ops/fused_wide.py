@@ -33,8 +33,18 @@ output) keep a float32 FMA tile. :func:`wide_geometry` chooses every
 product's route, output tile and the pieces its inner dimension is cut into,
 from the widths and the batch alone; the launcher checks what it is given.
 
-The packed layout is kernel 2's (:class:`~.fused_epoch.PackedLayout`): norm
-scale and bias, each layer's ``W`` and ``b``, the raw globals. As in the JAX
+The JAX kernel's branch view (``kernel_body_elem`` and ``kernel_body`` over
+a MultiNN model's branches, ``easyhybrid_tpu/ops/fused_epoch.py:1229-1260``):
+one network, or 1 to ``MAX_NETS`` single-output branches, one per neural
+parameter, each over its own predictor columns. The kernels take every
+branch's layers as one list (a layer's branch beside it); the gather writes
+every branch's normed columns side by side, each branch runs its own chain
+of products forward and backward, and the head reads each branch's output as
+its neural parameter.
+
+The packed layout is kernel 2's (:class:`~.fused_epoch.PackedLayout`,
+:func:`~.fused_epoch.branch_layout`): norm scales and biases of every
+column, each branch's layers' ``W`` and ``b`` in turn, the raw globals. As in the JAX
 package the masked ``1/n`` of each target (nseLoss: ``1 / max(SST, 1e-12)``),
 the batch's validity flag and, for the statistic losses, each target's count,
 mean and SST depend on the targets alone; they span the whole batch and are
@@ -73,8 +83,11 @@ from .fused_epoch import (
     _EPS,
     _NORM_TRAIN,
     FUSED_LOSSES,
+    MAX_LEAVES,
+    MAX_NETS,
     MAX_TARGETS,
     TWO_PASS_LOSSES,
+    BranchLayout,
     FusedData,
     FusedEpoch,
     FusedParams,
@@ -84,8 +97,11 @@ from .fused_epoch import (
     PackedLayout,
     _Optimizer,
     _check_member_shapes,
+    _dims,
     _loss_name,
     _reference_update,
+    branch_view_reason,
+    branch_layout,
     check_halt,
     obey_halt,
     fill_common_args,
@@ -95,7 +111,6 @@ from .fused_epoch import (
     l2_penalty,
     l2_step,
     opt_slots,
-    param_offsets,
     reference_grads,
     shared_plan_fields,
     slot_u,
@@ -104,10 +119,9 @@ from .fused_epoch import (
 from .fused_forward import (
     MAX_ARGS,
     MAX_FORCING,
-    MAX_LAYERS,
     _ACT_IDS,
-    fused_forward_unsupported_reason,
     is_bf16,
+    model_branches,
 )
 
 __all__ = [
@@ -129,6 +143,9 @@ __all__ = [
 
 # caps of the kernels; MAX_WIDE_WIDTH must equal EH_WIDE_MAX_WIDTH of the source
 MAX_WIDE_WIDTH = 4096
+#: the layers of every branch together, EHW_MAX_LAYERS: two leaves a layer, so
+#: the leaf cap keeps every model the envelope admits within it
+MAX_WIDE_LAYERS = MAX_LEAVES // 2
 WIDE_LOSSES = FUSED_LOSSES  # and any ElementwiseLoss the tracer expresses
 #: the share of the card's memory the activations and the partial sums may take
 WORKSPACE_SHARE = 0.25
@@ -252,7 +269,10 @@ class WideLayout:
     the workspace) and how each layer's weight gradient is split over the
     batch (``splits``, ``split_rows``) into partial tiles (``part_*``,
     offsets into the partials buffer) that the update kernel sums in split
-    order. A tensor-core layer also has its input and its output's
+    order. The first layer's input (``ws_h0``, ``batch × F``) holds every
+    branch's columns side by side, as do the normed input and its cotangent;
+    the per-layer tuples run over every branch's layers in turn. A
+    tensor-core layer also has its input and its output's
     cotangent feature-major (``ws_ht``, ``ws_dt``) and its ``W`` transposed
     (``ws_wt``; 0 for an FMA layer). The forward and data products' pieces
     sum their tiles in shared memory (a thread-block cluster) and need no
@@ -298,25 +318,35 @@ def _split(batch: int, want: int, multiple: int) -> Tuple[int, int]:
     return -(-batch // rows), rows
 
 
+def layer_dims(nets) -> Tuple[Tuple[int, int], ...]:
+    """``(din, dout)`` of every branch's layers in turn (``nets``: the
+    branches' widths)."""
+    return tuple(pair for dims in nets for pair in zip(dims[:-1], dims[1:]))
+
+
 @functools.lru_cache(maxsize=64)
-def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int, train_norm: bool = False,
+def wide_layout(nets: Tuple, has_norm: bool, batch: int, train_norm: bool = False,
                 n_targets: int = 1, moments: bool = False) -> WideLayout:
-    """The layout of a step over ``batch`` rows of an MLP of widths ``dims``
+    """The layout of a step over ``batch`` rows of MLP branches of widths
+    ``nets`` (a tuple of width tuples; one tuple of ints: one network)
     (``train_norm``: a trainable input norm; ``moments``: a loss whose
-    cotangents need the batch's prediction moments, over ``n_targets``)."""
-    f = dims[0]
+    cotangents need the batch's prediction moments, over ``n_targets``).
+    One network keeps the layout kernel 3 had before it took branches."""
+    if isinstance(nets[0], int):
+        nets = (nets,)
+    f = sum(dims[0] for dims in nets)
     off = batch * f
     ws_xhat = ws_d0 = 0
     if has_norm:
         ws_xhat, ws_d0, off = off, off + batch * f, off + 2 * batch * f
     ws_a, ws_d = [], []
-    for width in dims[1:]:
+    for _, width in layer_dims(nets):
         ws_a.append(off)
         ws_d.append(off + batch * width)
         off += 2 * batch * width
-    geometry = wide_geometry(tuple(dims), batch)
+    geometry = tuple(geo for dims in nets for geo in wide_geometry(tuple(dims), batch))
     ws_ht, ws_dt, ws_wt = [], [], []
-    for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
+    for (din, dout), geo in zip(layer_dims(nets), geometry):
         if geo.route == TENSOR_CORES:
             ws_ht.append(off)
             ws_dt.append(off + batch * din)
@@ -335,7 +365,7 @@ def wide_layout(dims: Tuple[int, ...], has_norm: bool, batch: int, train_norm: b
         off = ws_mom + head_blocks * n_targets * 3
     splits, split_rows, part_off = [], [], []
     part = 0
-    for din, dout, geo in zip(dims[:-1], dims[1:], geometry):
+    for (din, dout), geo in zip(layer_dims(nets), geometry):
         splits.append(geo.weight.splits)
         split_rows.append(geo.weight.split_k)
         part_off.append(part)
@@ -372,38 +402,44 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
     """Why the wide fused epoch cannot train ``model`` with this optimizer
     and loss, or None when it can.
 
-    The envelope: a SingleNN MLP hybrid in float32 (its products on bf16
-    operands under ``compute_dtype=torch.bfloat16``, the kernels' bf16
-    build) with no, a static or a trainable input norm (its statistics taken over the whole batch, padding
-    rows included, as the JAX kernel takes them), the 12 named activations,
-    widths up to ``MAX_WIDE_WIDTH`` and at most ``MAX_LAYERS`` layers, a
-    kernel-form mechanistic function; ``training_loss`` any of
-    :data:`WIDE_LOSSES` (the JAX kernel's: mse, mae, rmse, nseLoss,
-    pearsonLoss, kgeLoss, pbkgeLoss) or an ``ElementwiseLoss`` the tracer
-    expresses, with ``agg`` sum or mean and no ``extra_loss`` but
-    ``l2_extra_loss``'s declarative weight-L2 (``fused_epoch.L2Penalty``); one
-    optimizer spec of any rule but
+    The envelope: the JAX kernel's branch view (``branch_view_reason`` with
+    this kernel's widths): a SingleNN MLP hybrid, or a MultiNN hybrid of
+    up to :data:`~.fused_epoch.MAX_NETS` MLP branches (one a neural
+    parameter), in float32 (its products on bf16 operands under
+    ``compute_dtype=torch.bfloat16``, the kernels' bf16 build) with no, a
+    static or a trainable input norm, one for all branches (its statistics
+    taken over the whole batch, padding rows included, as the JAX kernel
+    takes them), the 12 named activations, widths up to ``MAX_WIDE_WIDTH``
+    and at most ``MAX_LAYERS`` layers a branch, at most ``MAX_LEAVES``
+    parameter leaves in all (which keeps every branch's layers together
+    within ``MAX_WIDE_LAYERS``), a kernel-form mechanistic function;
+    ``training_loss`` any of :data:`WIDE_LOSSES` (the JAX kernel's: mse,
+    mae, rmse, nseLoss, pearsonLoss, kgeLoss, pbkgeLoss) or an
+    ``ElementwiseLoss`` the tracer expresses, with ``agg`` sum or mean and
+    no ``extra_loss`` but ``l2_extra_loss``'s declarative weight-L2
+    (``fused_epoch.L2Penalty``); one optimizer spec of any rule but
     ``noisy_sgd`` (``training_spec_reason``). Any number of epochs per call;
     with ``tensors``, a batch of at most 65,535 row tiles of 64, and the
     activations and partial sums of one step of ``members`` models (a
     population's member launch) within ``WORKSPACE_SHARE`` of the card's
     memory (``memory_bytes``, by default the memory of the model's CUDA
     device; unchecked on another device)."""
-    if isinstance(model, MultiNNHybridModel):
-        return ("MultiNN branches are not ported to the wide kernel yet (ROADMAP.md, queue B, "
-                "item 4); kernel 2 takes a MultiNN model whose branches fit its shared memory")
-    reason = fused_forward_unsupported_reason(model, training=True, max_width=MAX_WIDE_WIDTH)
+    reason = branch_view_reason(model, max_width=MAX_WIDE_WIDTH)
     if reason is not None:
         return reason
+    branches = model_branches(model)
+    if not branches:
+        return "the model has no neural network"
     if len(model.targets) > MAX_TARGETS:
         return f"{len(model.targets)} targets exceed the kernel's cap of {MAX_TARGETS}"
     reason = training_spec_reason(optimizer, logging, WIDE_LOSSES, takes_l2=True)
     if reason is not None:
         return reason
     if tensors is not None:
-        if isinstance(tensors.x, dict) or tensors.x.ndim != 3:
-            return (f"x of shape {tuple(getattr(tensors.x, 'shape', ()))}: the kernel takes "
-                    "(num_batches, batch, F)")
+        xs = list(tensors.x.values()) if isinstance(tensors.x, dict) else [tensors.x]
+        if any(x.ndim != 3 for x in xs):
+            return (f"x of shape {[tuple(x.shape) for x in xs]}: the kernel takes "
+                    "(num_batches, batch, F) a branch")
         batch = int(tensors.weight.shape[1])
         if batch > _MAX_GRID_Y * _TILE:
             return (f"a batch of {batch} rows exceeds the {_MAX_GRID_Y * _TILE} that the products' "
@@ -411,10 +447,10 @@ def fused_wide_unsupported_reason(model, optimizer, logging: LoggingLoss, tensor
         if memory_bytes is None:
             memory_bytes = _card_memory(model.device)
         if memory_bytes is not None:
-            net = model.nn
-            dims = (net.in_dim,) + net.hidden + (net.out_dim,)
-            need = members * wide_layout(dims, net.norm is not None, batch,
-                                         net.input_batchnorm is True, len(model.targets),
+            nets = tuple(_dims(net) for _, net in branches)
+            need = members * wide_layout(nets, branches[0][1].norm is not None, batch,
+                                         branches[0][1].input_batchnorm is True,
+                                         len(model.targets),
                                          _loss_name(logging.training_loss) in TWO_PASS_LOSSES).nbytes
             if need > WORKSPACE_SHARE * memory_bytes:
                 who = f"{members} members' steps" if members > 1 else "a step's"
@@ -458,24 +494,24 @@ class _Args(ctypes.Structure):
         ("ws_off_h0", ctypes.c_int64),
         ("ws_off_xhat", ctypes.c_int64),
         ("ws_off_d0", ctypes.c_int64),
-        ("ws_off_a", ctypes.c_int64 * MAX_LAYERS),
-        ("ws_off_d", ctypes.c_int64 * MAX_LAYERS),
-        ("part_off", ctypes.c_int64 * MAX_LAYERS),
+        ("ws_off_a", ctypes.c_int64 * MAX_WIDE_LAYERS),
+        ("ws_off_d", ctypes.c_int64 * MAX_WIDE_LAYERS),
+        ("part_off", ctypes.c_int64 * MAX_WIDE_LAYERS),
         ("part_off_norm", ctypes.c_int64),
-        ("ws_off_ht", ctypes.c_int64 * MAX_LAYERS),
-        ("ws_off_dt", ctypes.c_int64 * MAX_LAYERS),
-        ("ws_off_wt", ctypes.c_int64 * MAX_LAYERS),
+        ("ws_off_ht", ctypes.c_int64 * MAX_WIDE_LAYERS),
+        ("ws_off_dt", ctypes.c_int64 * MAX_WIDE_LAYERS),
+        ("ws_off_wt", ctypes.c_int64 * MAX_WIDE_LAYERS),
         ("n_epochs", ctypes.c_int),
         ("n_batches", ctypes.c_int),
         ("batch", ctypes.c_int),
         ("n_layers", ctypes.c_int),
-        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
-        ("acts", ctypes.c_int * MAX_LAYERS),
+        ("dims", ctypes.c_int * (MAX_WIDE_LAYERS + MAX_NETS)),
+        ("acts", ctypes.c_int * MAX_WIDE_LAYERS),
         ("norm_mode", ctypes.c_int),
         ("norm_eps", ctypes.c_float),
         ("n_params", ctypes.c_int),
-        ("p_off_w", ctypes.c_int * MAX_LAYERS),
-        ("p_off_b", ctypes.c_int * MAX_LAYERS),
+        ("p_off_w", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("p_off_b", ctypes.c_int * MAX_WIDE_LAYERS),
         ("p_off_g", ctypes.c_int),
         ("n_globals", ctypes.c_int),
         ("n_fixed", ctypes.c_int),
@@ -489,22 +525,22 @@ class _Args(ctypes.Structure):
         ("target_out", ctypes.c_int * MAX_TARGETS),
         ("loss_kind", ctypes.c_int),
         ("optimizer", _Optimizer),
-        ("splits", ctypes.c_int * MAX_LAYERS),
-        ("split_rows", ctypes.c_int * MAX_LAYERS),
+        ("splits", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("split_rows", ctypes.c_int * MAX_WIDE_LAYERS),
         ("norm_splits", ctypes.c_int),
         ("norm_split_rows", ctypes.c_int),
         ("head_blocks", ctypes.c_int),
-        ("tc", ctypes.c_int * MAX_LAYERS),
-        ("fwd_bm", ctypes.c_int * MAX_LAYERS),
-        ("fwd_bn", ctypes.c_int * MAX_LAYERS),
-        ("fwd_splits", ctypes.c_int * MAX_LAYERS),
-        ("fwd_split_k", ctypes.c_int * MAX_LAYERS),
-        ("dat_bm", ctypes.c_int * MAX_LAYERS),
-        ("dat_bn", ctypes.c_int * MAX_LAYERS),
-        ("dat_splits", ctypes.c_int * MAX_LAYERS),
-        ("dat_split_k", ctypes.c_int * MAX_LAYERS),
-        ("wgt_bm", ctypes.c_int * MAX_LAYERS),
-        ("wgt_bn", ctypes.c_int * MAX_LAYERS),
+        ("tc", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("fwd_bm", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("fwd_bn", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("fwd_splits", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("fwd_split_k", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("dat_bm", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("dat_bn", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("dat_splits", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("dat_split_k", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("wgt_bm", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("wgt_bn", ctypes.c_int * MAX_WIDE_LAYERS),
         ("halt", ctypes.c_void_p),
         ("tmom", ctypes.c_void_p),
         ("ws_off_stats", ctypes.c_int64),
@@ -521,16 +557,25 @@ class _Args(ctypes.Structure):
         ("l2_parts", ctypes.c_void_p),
         ("l2_stride", ctypes.c_int64),
         *L2_FIELDS,
+        ("n_nets", ctypes.c_int),
+        ("n_features", ctypes.c_int),
+        ("n_neural", ctypes.c_int),
+        ("layer_net", ctypes.c_int * MAX_WIDE_LAYERS),
+        ("net_first", ctypes.c_int * MAX_NETS),
+        ("net_layers", ctypes.c_int * MAX_NETS),
+        ("net_col", ctypes.c_int * MAX_NETS),
+        ("net_out", ctypes.c_int * MAX_NETS),
     ]
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedWidePlan(PackedLayout):
     """Static layout of a wide model's packed parameters, plus what the
-    kernels and their plain version read besides them."""
+    kernels and their plain version read besides them. ``nets`` holds each
+    network's ``(prefix, dims, acts)``: one for a SingleNN model, one a
+    branch for a MultiNN model, as :class:`~.fused_epoch.FusedEpochPlan`."""
 
-    dims: Tuple[int, ...]
-    acts: Tuple[str, ...]
+    nets: Tuple[Tuple[str, Tuple[int, ...], Tuple[str, ...]], ...]
     norm_mode: int
     norm_eps: float
     momentum: float
@@ -554,33 +599,59 @@ class FusedWidePlan(PackedLayout):
     bf16: bool = False  # compute_dtype=bfloat16: the kernels' bf16 build (csrc/fused_wide.cu)
     l2: Optional[L2Penalty] = None  # the weight-L2 extra_loss
 
+    @functools.cached_property
+    def branch_layout(self) -> BranchLayout:
+        return branch_layout(self.nets, self.has_norm, len(self.global_names))
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        """The widths of a plan's one network."""
+        (net,) = self.nets
+        return net[1]
+
+    @property
+    def acts(self) -> Tuple[str, ...]:
+        (net,) = self.nets
+        return net[2]
+
+    @property
+    def net_dims(self) -> Tuple[Tuple[int, ...], ...]:
+        """Every network's widths."""
+        return tuple(dims for _, dims, _ in self.nets)
+
     @property
     def n_features(self) -> int:
-        return self.dims[0]
-
-    def offsets(self) -> Dict[str, Any]:
-        """Offsets of every layer's weight and bias and of the first global."""
-        return param_offsets(self.dims, self.has_norm)
+        return self.branch_layout.n_features
 
     def layout(self, batch: int) -> WideLayout:
-        return wide_layout(self.dims, self.has_norm, int(batch), self.norm_mode == _NORM_TRAIN,
+        return wide_layout(self.net_dims, self.has_norm, int(batch), self.norm_mode == _NORM_TRAIN,
                            len(self.target_names), self.loss in TWO_PASS_LOSSES)
 
     @functools.cached_property
     def args_bytes(self) -> bytes:
         """The kernels' static arguments, packed once; each call fills in the
-        pointers, the sizes and the batch's layout."""
+        pointers, the sizes and the batch's layout. Every branch's layers in
+        one list, each with its branch (``layer_net``); branch b's widths at
+        ``dims[net_first[b] + b:]``, so that layer l reads its own at
+        ``dims[l + layer_net[l]]`` and the next."""
         a = _Args()
-        dims = self.dims
-        a.n_layers = len(dims) - 1
-        a.dims[: len(dims)] = dims
-        a.acts[: len(self.acts)] = [_ACT_IDS[act] for act in self.acts]
+        lay = self.branch_layout
+        first = 0
+        for b, net in enumerate(lay.nets):
+            n = len(net.dims) - 1
+            a.dims[first + b : first + b + n + 1] = net.dims
+            a.acts[first : first + n] = [_ACT_IDS[act] for act in net.acts]
+            a.p_off_w[first : first + n] = net.p_w
+            a.p_off_b[first : first + n] = net.p_b
+            a.layer_net[first : first + n] = [b] * n
+            a.net_first[b], a.net_layers[b] = first, n
+            a.net_col[b], a.net_out[b] = net.col, net.out
+            first += n
+        a.n_layers, a.n_nets = first, len(lay.nets)
+        a.n_features, a.n_neural = lay.n_features, lay.n_neural
         fill_common_args(a, self)
         a.n_params = self.n_params
-        o = self.offsets()
-        a.p_off_w[: len(o["p_w"])] = o["p_w"]
-        a.p_off_b[: len(o["p_b"])] = o["p_b"]
-        a.p_off_g = o["p_g"]
+        a.p_off_g = lay.p_g
         a.loss_kind = LOSS_KINDS[self.loss]
         a.momentum = self.momentum
         a.one_minus_momentum = 1.0 - self.momentum
@@ -594,12 +665,13 @@ def plan_fused_wide(model, optimizer, logging: LoggingLoss) -> FusedWidePlan:
     reason = fused_wide_unsupported_reason(model, optimizer, logging)
     if reason is not None:
         raise ValueError(f"model not supported by the wide fused epoch kernel: {reason}")
-    net = model.nn
-    names = [f"nn.layers.{i}.{leaf}" for i in range(len(net.layers)) for leaf in ("weight", "bias")]
+    nets = tuple((prefix, _dims(net), tuple(layer.activation for layer in net.layers))
+                 for prefix, net in model_branches(model))
+    names = [f"{prefix}.layers.{i}.{leaf}" for prefix, dims, _ in nets
+             for i in range(len(dims) - 1) for leaf in ("weight", "bias")]
     fields = shared_plan_fields(model, optimizer, logging, names)
     return FusedWidePlan(
-        dims=(net.in_dim,) + net.hidden + (net.out_dim,),
-        acts=tuple(layer.activation for layer in net.layers),
+        nets=nets,
         bf16=is_bf16(model),
         l2=l2_penalty(logging, fields["segments"]),
         **fields,
@@ -723,10 +795,10 @@ def update_blocks(plan: FusedWidePlan, lay: WideLayout) -> int:
     """Blocks of ``eh_wide_update_kernel``: a tile of ``_UPDATE_TILE``² of
     every tensor-core layer's W, then one thread per other parameter and one
     for the loss."""
-    tc = [l for l, geo in enumerate(lay.geometry) if geo.route == TENSOR_CORES]
-    dims = plan.dims
-    tiles = sum(-(-dims[l] // _UPDATE_TILE) * -(-dims[l + 1] // _UPDATE_TILE) for l in tc)
-    loose = plan.n_params - sum(dims[l] * dims[l + 1] for l in tc)
+    tc = [pair for pair, geo in zip(layer_dims(plan.net_dims), lay.geometry)
+          if geo.route == TENSOR_CORES]
+    tiles = sum(-(-din // _UPDATE_TILE) * -(-dout // _UPDATE_TILE) for din, dout in tc)
+    loose = plan.n_params - sum(din * dout for din, dout in tc)
     return tiles + -(-(loose + 1) // 256)
 
 
@@ -828,7 +900,7 @@ def wide_launch_args(plan: FusedWidePlan, packed: FusedParams, opt_state, data: 
     a.perm_stride = rows.shape[-2] * rows.shape[-1] if rows.dim() == 3 else 0
     a.member_opt = member_opt.data_ptr() if member_opt is not None else None
     a.ws_stride, a.part_stride = lay.ws_floats, lay.part_floats
-    n_layers = len(plan.dims) - 1
+    n_layers = len(lay.geometry)
     a.ws_off_h0, a.ws_off_xhat, a.ws_off_d0 = lay.ws_h0, lay.ws_xhat, lay.ws_d0
     a.ws_off_stats, a.ws_off_pred, a.ws_off_mom = lay.ws_stats, lay.ws_pred, lay.ws_mom
     a.ws_off_a[:n_layers] = lay.ws_a

@@ -27,7 +27,9 @@ max(1, |ref|) of a float64 product (3xTF32 keeps about float32's accuracy;
 measured worst 4.5e-5 relative at K = 1,024 on an H100).
 
 Kernel 2 is also held on MultiNN models (a network per neural parameter,
-``BRANCH_SPECS``) and on a model with globals only. Kernel 4's cluster-split
+``BRANCH_SPECS``) and on a model with globals only; kernel 3 on a MultiNN
+model whose branches are past kernel 2's widths, in float32 and in its bf16
+build, at K = 1 and on its member axis at K = 4. Kernel 4's cluster-split
 form (``csrc/fused_lstm_split.cu``) the same as kernel 4, after at most 4
 epochs, at hidden sizes 72 to 256 with up to 64 features; past LSTM(72) by
 sgd, since adam's first steps move a gradient element that cancels to
@@ -1188,6 +1190,102 @@ def test_wide_member_launch_matches_plain_and_each_member_alone(cuda, kw):
     assert pop.member_selfcheck(fn, packed, opt, tensors if kw["kind"] == "folds" else tensors[0],
                                 specs=specs, per_member_data=kw["kind"] == "folds",
                                 shared_perms=kw["kind"] == "sweep") is None
+
+
+def _wide_branches(cuda, *, k, bf16):
+    """Kernel 3 on a MultiNN model whose branches are past kernel 2's widths
+    (rb over sw_pot and dsw_pot [96, 40], gpp_max over sw_pot [72], a global
+    Q10, static norm) in batches of 256: the fused epoch (under bf16 one sgd
+    step at 1e-3 over the first 256 rows, else adam for 2 shuffled epochs of
+    1,200 rows) and, for ``k`` > 1, ``k`` members of a seed ensemble, each
+    its own permutation."""
+    from easyhybrid_tpu_torch.training import population as pop
+
+    cols = et.rbq10_columns(1200, seed=6, nan_frac=0.1)
+    cols["nee"] = (cols["reco"] - 5.0 * (1.0 - np.exp(-0.1 * cols["ta"]))).astype(np.float32)
+    m = et.construct_hybrid_model(
+        **{**BRANCH_SPECS["two_branches_static"], "hidden_layers": {"rb": [96, 40], "gpp_max": [72]}},
+        generator=torch.Generator().manual_seed(0), device=cuda,
+        compute_dtype=torch.bfloat16 if bf16 else None)
+    data = et.prepare_data(m, cols)
+    et.fit_input_norm(m, data)
+    if bf16:
+        data = data.take(np.arange(256))
+    opt = ("sgd", 1e-3) if bf16 else ("adam", 0.01)
+    fn = et.make_fused_wide_epoch(m, opt, et.LoggingLoss(), shuffle=not bf16,
+                                  epochs_per_call=1 if bf16 else 2)
+    assert len(fn.plan.nets) == 2 and fn.plan.bf16 == bf16
+    tensors = epoch_tensors_to(et.build_epoch_tensors(data, 256), cuda)
+    if k == 1:
+        packed = fn.plan.pack(m)
+        perms = perms_for_epochs(fn.shuffle, tensors, fn.epochs,
+                                 generator=torch.Generator(device=cuda).manual_seed(1))
+        return fn, packed, fe.init_fused_opt_state(packed, opt), tensors, perms
+    inits = [pop.init_member_params(m, s) for s in range(k)]
+    params = {n: torch.stack([i[n] for i in inits]) for n in inits[0]}
+    buffers = {n: torch.stack([b.detach().clone()] * k) for n, b in m.named_buffers()}
+    packed = pop._pack_members(fn.plan, pop._norm_buffer_names(m), params, buffers)
+    data = fn.member_data(tensors)
+    rows = fn.member_rows(data, k, per_member_data=False,
+                          generator=torch.Generator(device=cuda).manual_seed(1), shared_perms=False)
+    return fn, packed, pop._stacked_opt_state(packed, opt, k), data, rows
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_wide_kernel_runs_every_branch(cuda, k, bf16):
+    """Kernel 3 on the JAX kernel's branch view against its plain version
+    and against itself: float32 after 2 epochs of adam within 1e-4 * max(1,
+    |plain|) at K = 1, and each of K = 4 members by the Adam runs' criterion
+    (``chip_smoke.adam_misses``: at most 1% of the elements beyond that, none
+    more than 2 lr apart; adam's first steps turn a gradient element that
+    cancels to about 0 into a step of lr either way); the bf16 build by the
+    gradient one sgd step at 1e-3 implies, within 1e-4 * max(1, |g|) or one
+    bf16 ulp beyond it on at most 0.1% of the elements
+    (``chip_smoke.bf16_beyond``); the same bits twice; K = 4 members each bit
+    for bit its call alone."""
+    import chip_smoke as cs
+
+    if k == 1:
+        fn, packed, opt, tensors, perms = _wide_branches(cuda, k=1, bf16=bf16)
+        before = fw.launch_fused_wide.launches
+        got = fn(packed, opt, tensors, perms=perms)
+        torch.cuda.synchronize()
+        assert fw.launch_fused_wide.launches - before == 1
+        again = fn(packed, opt, tensors, perms=perms)
+        ref = fn.reference(packed, opt, tensors, perms=perms)
+        flat = lambda r: (r[0].params, r[0].bn, *r[1].values(), r[2].reshape(1))  # noqa: E731
+    else:
+        fn, packed, opt, data, rows = _wide_branches(cuda, k=k, bf16=bf16)
+        got = fn.members(packed, opt, data, rows)
+        again = fn.members(packed, opt, data, rows)
+        ref = fw.fused_wide_members_reference(fn.plan, packed, opt, data, rows)
+        flat = lambda r: (r[0].params, r[0].bn, *r[1].values(), r[2])  # noqa: E731
+        for i in range(k):
+            p, o, loss = fn.alone(fe.FusedParams(packed.params[i], packed.bn[i]),
+                                  {n: v[i] for n, v in opt.items()}, data,
+                                  rows[i] if rows.dim() == 3 else rows)
+            assert torch.equal(p.params, got[0].params[i]) and torch.equal(loss[0], got[2][i])
+            assert all(torch.equal(o[n], got[1][n][i]) for n in o)
+    for a, b in zip(flat(got), flat(again)):
+        assert torch.equal(a, b)
+    if not bf16 and k > 1:
+        for i in range(k):
+            note, misses, _ = cs.adam_misses(cs.member_fields(got, i), cs.member_fields(ref, i),
+                                             0.01)
+            assert not misses, f"member {i}: {note}: {misses}"
+        return
+    if not bf16:
+        for a, r in zip(flat(got), flat(ref)):
+            a, r = a.float(), r.float()
+            assert torch.isfinite(a).all()
+            assert bool(((a - r).abs() <= EPOCH_TOL * r.abs().clamp_min(1)).all())
+        return
+    g_got, g_ref = (packed.params - got[0].params) / 1e-3, (packed.params - ref[0].params) / 1e-3
+    out, far, _ = cs.bf16_beyond(g_got, g_ref, 1e-4)
+    assert out <= 1e-3 * g_ref.numel() and far == 0
+    loss, ref_loss = got[2].float(), ref[2].float()
+    assert bool(((loss - ref_loss).abs() <= 1e-4 * ref_loss.abs().clamp_min(1)).all())
 
 
 def test_a_one_member_wide_call_is_trains_call(cuda):

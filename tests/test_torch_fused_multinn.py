@@ -316,17 +316,16 @@ def test_envelope_reasons_name_the_branch(overrides, reason):
 
 def test_a_multinn_model_too_large_for_kernel_2_names_queue_b():
     """Branches within kernel 3's widths but beyond kernel 2's: the wide
-    engine, whose envelope refuses MultiNN (queue B item 4), so train()
-    takes the torch engine with that reason."""
+    engine, whose envelope takes MultiNN branches, so train() runs kernel 3
+    (its plain version on the CPU) behind the gate."""
     tm = et.construct_hybrid_model(**{**EXPO, "hidden_layers": [128, 64]},
                                    mechanistic_model=expo_model, device="cpu")
     engine = fe.fused_engine(tm)
     assert engine.epoch_path == "cuda_fused_wide"
-    reason = engine.unsupported_reason(tm, ("adam", 0.01), et.LoggingLoss(), None)
-    assert "queue B, item 4" in reason
+    assert engine.unsupported_reason(tm, ("adam", 0.01), et.LoggingLoss(), None) is None
     r = et.train(tm, expo_columns(200, seed=1), nepochs=1, batchsize=64, use_kernel=True,
                  show_progress=False)
-    assert r.epoch_path == "torch" and "queue B, item 4" in r.engine_reason
+    assert r.epoch_path == "cuda_fused_wide" and "exactness gate passed" in r.engine_reason
 
 
 @pytest.mark.parametrize("name", ["expo", "globals_only"])

@@ -191,7 +191,13 @@ def test_a_fully_masked_batch_changes_nothing():
 
 
 @pytest.mark.parametrize("overrides,optimizer,logging,reason", [
-    ({"predictors": {"rb": ["sw_pot", "dsw_pot"]}}, "adam", _ll(et), "MultiNN branches"),
+    # MultiNN branches train on the kernel (tests/test_torch_fused_wide_multinn.py); nine do not
+    ({"predictors": {f"p{i}": ["sw_pot"] for i in range(9)},
+      "parameters": {f"p{i}": (1.0, 0.0, 2.0) for i in range(9)},
+      "neural_param_names": [f"p{i}" for i in range(9)], "global_param_names": [],
+      "mechanistic_model": lambda *, ta, p0, p1, p2, p3, p4, p5, p6, p7, p8: {
+          "reco": p0 * ta + p1 + p2 + p3 + p4 + p5 + p6 + p7 + p8}},
+     "adam", _ll(et), "MultiNN branches"),
     ({"compute_dtype": torch.float16}, "adam", _ll(et),
      "compute_dtype=torch.float16 (the kernels take bfloat16 only"),
     # the declarative weight-L2 trains on the kernel (tests/test_torch_fused_l2.py); an
